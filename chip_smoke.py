@@ -7,25 +7,38 @@ Phases (any failure exits non-zero; no result line is printed then):
 
 1. the card: ``torch.cuda.is_available()`` or exit 1; name and power
    limit from ``nvidia-smi``;
-2. build every kernel of the serving path from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, started together) and print ptxas's
-   register / shared-memory / spill lines;
+2. build every kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
+   source, started together) and print ptxas's register / shared-memory
+   / spill lines;
 3. hold each kernel against its plain PyTorch version on the card at the
-   shapes of the main path (bf16) and at a small fp32 shape, with the
-   tolerance stated beside each; time kernel, plain version and one
-   PyTorch library call computing the same function (never called by the
-   port) with CUDA events, and compute each kernel's bound from these
-   inputs and NVIDIA's H100 SXM data sheet;
-4. a tiny float32 config through the port's engine on the card and on
-   the CPU: first-step logits within 1e-4, greedy streams identical
-   (TF32 off);
-5. the MAIN PATH: ``Session(get_config("qwen3-14b"), device="cuda")
+   shapes of its path (bf16) and at small fp32 shapes, with the
+   tolerance stated beside each (flash attention also on ragged,
+   windowed and non-causal inputs, and its gradients); time kernel,
+   plain version and one PyTorch library call computing the same
+   function (never called by the port) with CUDA events, and compute
+   each kernel's bound from these inputs and NVIDIA's H100 SXM data
+   sheet;
+4. a tiny float32 config on the card and on the CPU (TF32 off): through
+   the port's engine, first-step logits within 1e-4 and greedy streams
+   identical; through the train step, loss and gradients within 1e-4;
+5. the SERVING PATH: ``Session(get_config("qwen3-14b"), device="cuda")
    .serve(slots=4, max_len=1024, page_size=16, chunk_tokens=256)`` at full
    width with random weights from ``--seed``, 6 requests of 24-700 prompt
    tokens and 16 new tokens each. Launch counts are zeroed just before and
-   read just after: each kernel must have run ``layers x program runs``
-   times. Prints tokens/s, step p50 and peak memory; then one more pair of
-   requests runs under ``torch.profiler`` for the device-time breakdown.
+   read just after: paged attention and the fused MLP must each have run
+   ``layers x program runs`` times. Prints tokens/s, step p50 and peak
+   memory; then one more pair of requests runs under ``torch.profiler``
+   for the device-time breakdown;
+6. the TRAIN PATH: the serving session is freed, then
+   ``Session(qwen3-14b with num_layers=4, device="cuda").train(
+   TrainConfig(steps=6, lr=3e-4), global_batch=1, seq_len=4096)`` with
+   the default Strategy (AdamW, remat on, ``attn_impl="auto"``) at full
+   width; depth is the one cut. Counts are zeroed just before and read
+   just after: flash attention must have run ``layers x steps x 2``
+   times (each layer's forward and its remat recompute), the fused MLP
+   never (training takes the plain SwiGLU). Every loss and grad norm
+   must be finite and the peak memory under the card's. Prints step p50,
+   tokens/s, peak memory and the model-FLOPs share of 989 TFLOP/s.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -34,6 +47,7 @@ The full record also goes to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -105,7 +119,8 @@ def phase_build():
     t0 = time.perf_counter()
     build.build_all()
     dt = time.perf_counter() - t0
-    log(f"[build] both kernels built and loaded in {dt:.1f}s")
+    log(f"[build] {len(build.SIGNATURES)} kernels "
+        f"({', '.join(build.SIGNATURES)}) built and loaded in {dt:.1f}s")
     for name, text in build.PTXAS_LOG.items():
         for line in text.splitlines():
             if any(w in line for w in ("Compiling entry", "registers",
@@ -292,6 +307,123 @@ def phase_mlp(rng):
             "library": "matmul(silu(matmul(x,Wg))*matmul(x,Wu), Wd)"}
 
 
+def _flash_inputs(gen, shape, dtype):
+    b, s, t, hq, hkv, d = shape
+    return tuple(torch.randn(sh, generator=gen, device="cuda").to(dtype)
+                 for sh in ((b, s, hq, d), (b, t, hkv, d), (b, t, hkv, d)))
+
+
+def phase_flash(rng):
+    """Flash attention: (a) bf16 at the training shape, (b) fp32 at a
+    small shape, (c) ragged / windowed / non-causal fp32 cases, (d) the
+    gradients of the autograd.Function against autograd through the
+    plain version; then times at the training shape."""
+    from repro_torch.kernels import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
+    # (a) bf16, B = 1, S = T = 4096, Hq/Hkv = 40/8, D = 128, causal. Both
+    # compute in fp32 from the same bf16 inputs and round the output to
+    # bf16 once, so a correct kernel is off by at most one bf16 ulp of each
+    # value (2^-7 of it at most); the limit is relative to each value, as a
+    # row attending to n keys has |out| ~ sqrt(e / n), ~0.03 at mid rows.
+    atol, rtol = 1e-5, 8e-3
+    train_shape = (1, 4096, 4096, 40, 8, 128)
+    q, k, v = _flash_inputs(gen, train_shape, torch.bfloat16)
+    got = fa.flash_attention(q, k, v, causal=True).float()
+    want = fa.flash_attention_plain(q, k, v, causal=True).float()
+    torch.cuda.synchronize()
+
+    def excess(a):                    # worst |a - want| / (atol + rtol|want|)
+        return ((a - want).abs() / (atol + rtol * want.abs())).max().item()
+
+    err, bf16_excess = (got - want).abs().max().item(), excess(got)
+    check(bool(torch.isfinite(got).all()), "flash output finite")
+    check(bf16_excess <= 1.0, f"flash bf16 training shape: max abs err "
+          f"{err}, worst error {bf16_excess:.3f}x atol {atol} + rtol {rtol}")
+    # the same check rejects a defect of one tile: the plain version with
+    # window 4032 drops up to 64 keys from the last 64 query rows only
+    drop = excess(fa.flash_attention_plain(q, k, v, causal=True,
+                                           window=4096 - 64).float())
+    check(drop > 1.0, f"the bf16 check passes a version that drops keys "
+                      f"(worst error {drop:.3f}x the limit)")
+    log(f"[flash bf16 B=1 S=T=4096 40/8x128 causal] kernel vs plain "
+        f"max_abs_err {err:.3e}, worst error {bf16_excess:.3f}x the limit "
+        f"(atol {atol}, rtol {rtol}; reference rms "
+        f"{want.pow(2).mean().sqrt().item():.3e}, max "
+        f"{want.abs().max().item():.3e}); one dropped key tile would be "
+        f"{drop:.1f}x the limit")
+    del got, want
+    # (b), (c): fp32, 2e-6 as tests/test_kernels.py:33
+    cases = [((2, 256, 256, 8, 2, 64), True, 0, "small causal GQA"),
+             ((1, 100, 77, 4, 2, 16), True, 0, "ragged S > T"),
+             ((1, 70, 133, 4, 4, 64), False, 30, "ragged non-causal window"),
+             ((1, 200, 200, 4, 2, 64), True, 50, "causal window"),
+             ((2, 96, 96, 2, 1, 32), False, 0, "non-causal")]
+    err32 = 0.0
+    for shape, causal, window, what in cases:
+        a = _flash_inputs(gen, shape, torch.float32)
+        e = (fa.flash_attention(*a, causal=causal, window=window)
+             - fa.flash_attention_plain(*a, causal=causal, window=window)
+             ).abs().max().item()
+        check(e <= 2e-6, f"flash fp32 {what} {shape}: max abs err {e} > 2e-6")
+        log(f"[flash f32 {what} {shape} causal={causal} window={window}] "
+            f"max_abs_err {e:.3e} (atol 2e-6)")
+        err32 = max(err32, e)
+    # (d) gradients, 2e-5 / 2e-4 as tests/test_kernels.py:173
+    grad_err = 0.0
+    for shape, causal, window, what in (cases[0], cases[3]):
+        leaves = [x.requires_grad_(True)
+                  for x in _flash_inputs(gen, shape, torch.float32)]
+        got_g = torch.autograd.grad((fa.flash_attention(
+            *leaves, causal=causal, window=window) ** 2).mean(), leaves)
+        want_g = torch.autograd.grad((fa.flash_attention_plain(
+            *leaves, causal=causal, window=window) ** 2).mean(), leaves)
+        for name, g, w in zip("qkv", got_g, want_g):
+            ok = torch.allclose(g, w, atol=2e-5, rtol=2e-4)
+            e = (g - w).abs().max().item()
+            check(ok, f"flash d{name} {what}: max abs err {e} vs autograd "
+                      f"of plain (atol 2e-5, rtol 2e-4)")
+            grad_err = max(grad_err, e)
+    log(f"[flash grads f32] autograd.Function vs autograd through plain: "
+        f"max abs err {grad_err:.3e} (atol 2e-5, rtol 2e-4)")
+    # times at the training shape (bf16): kernel, plain, SDPA, backward
+    kernel = time_ms(lambda: fa.flash_attention(q, k, v, causal=True))
+    plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True),
+                    iters=3, warmup=1)
+    qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library = time_ms(lambda: sdpa(qs, ks, vs, is_causal=True,
+                                   enable_gqa=True))
+    del qs, ks, vs
+    g = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    backward = time_ms(lambda: fa.flash_attention_bwd(q, k, v, g,
+                                                      causal=True),
+                       iters=3, warmup=1)
+    b, s, t, hq, hkv, d = train_shape
+    pairs = b * s * (s + 1) // 2                 # live causal (q, k) pairs
+    flops = 4.0 * hq * d * pairs
+    nbytes = 2 * (2 * b * s * hq * d + 2 * b * t * hkv * d)  # q, out, k, v
+    bms, by = bound_ms(nbytes, flops, "bfloat16")
+    log(f"[flash bf16 training shape] kernel {kernel:.4f} ms, plain "
+        f"{plain:.4f} ms, sdpa {library:.4f} ms, bound {bms:.4f} ms ({by}, "
+        f"{flops / 1e9:.1f} GFLOP); backward (plain softmax recompute) "
+        f"{backward:.4f} ms")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:124",
+            "max_abs_err": err, "max_abs_err_f32": err32,
+            "max_abs_err_grads_f32": grad_err,
+            "tolerance": "bf16 atol 1e-5 rtol 8e-3; fp32 atol 2e-6; grads "
+                         "atol 2e-5 rtol 2e-4",
+            "bf16_worst_error_of_limit": bf16_excess,
+            "bf16_dropped_tile_error_of_limit": drop,
+            "ms": kernel, "kernel_ms": kernel, "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by, "library_ms": library,
+            "library": "scaled_dot_product_attention(is_causal=True, "
+                       "enable_gqa=True)",
+            "backward_ms": backward}
+
+
 # ------------------------------------------------------------------ phase 4
 
 def phase_parity():
@@ -332,6 +464,45 @@ def phase_parity():
     return err
 
 
+def phase_train_parity():
+    """One fp32 train step (remat on, attn_impl="auto": the flash kernel
+    on the card, full attention on the CPU) on both devices: loss and
+    gradients within 1e-4, TF32 off."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core.strategy import Strategy
+    from repro_torch.params import init_params
+    from repro_torch.train import step
+    from repro_torch.tree import flatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ModelConfig(name="pal-dense", arch_type="dense", num_layers=2,
+                      d_model=128, num_heads=4, num_kv_heads=2, d_ff=256,
+                      vocab_size=128, dtype="float32", qk_norm=True)
+    strat = Strategy(dtype="float32")
+    cpu = init_params(cfg, device="cpu", seed=5)
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 128, size=(2, 160)).astype(np.int32))
+    res = {}
+    for dev, params in (("cpu", cpu), ("cuda", _to(cpu, "cuda"))):
+        leaves = flatten(params)
+        for t in leaves.values():
+            t.requires_grad_(True)
+        total, mets = step.make_loss_fn(cfg, strat)(
+            params, {"tokens": tokens.to(dev)})
+        grads = torch.autograd.grad(total, list(leaves.values()))
+        res[dev] = (float(mets["loss"].detach()),
+                    {k: g.cpu() for k, g in zip(leaves, grads)})
+    loss_err = abs(res["cpu"][0] - res["cuda"][0])
+    grad_err = max((res["cuda"][1][k] - g).abs().max().item()
+                   for k, g in res["cpu"][1].items())
+    check(loss_err <= 1e-4, f"f32 train loss card vs CPU: {loss_err} > 1e-4")
+    check(grad_err <= 1e-4, f"f32 train grads card vs CPU: {grad_err} > 1e-4")
+    log(f"[parity f32 train step, TF32 off] loss {res['cpu'][0]:.6f}: card "
+        f"vs CPU err {loss_err:.3e}, grads max abs err {grad_err:.3e} "
+        f"(<= 1e-4)")
+    return {"loss_err": loss_err, "grad_err": grad_err}
+
+
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
@@ -368,6 +539,7 @@ def phase_main(seed: int):
     buckets = {page_bucket(max(pages_for(min(int(n) + max_new - 1, 1024), 16)
                                for n in lens[:i + 1]), cap=64)
                for i in range(len(lens))}
+    serving = ("paged_attention", "fused_mlp")
     kernels.reset_launches()
     step_s, prefill_step = [], []
     t0 = time.perf_counter()
@@ -389,9 +561,10 @@ def phase_main(seed: int):
         check(all(0 <= t < cfg.vocab_size for t in r.out),
               f"request {rid} tokens out of range")
     for name, n in counts.items():
-        check(n == cfg.num_layers * runs,
-              f"{name}: {n} launches != {cfg.num_layers} layers x {runs} "
-              f"program runs")
+        want = cfg.num_layers * runs if name in serving else 0
+        check(n == want, f"{name}: {n} launches != {want} "
+                         f"({cfg.num_layers} layers x {runs} program runs "
+                         f"for the serving kernels, 0 for the others)")
     check(eng.stats["decode_traces"] <= len(buckets),
           f"{eng.stats['decode_traces']} program shapes > {len(buckets)} "
           f"page buckets")
@@ -495,6 +668,182 @@ def phase_profile(eng, rng, step_p50_ms: float):
     return out
 
 
+# ------------------------------------------------------------------ phase 6
+
+def phase_train(seed: int, steps: int = 6, layers: int = 4):
+    """The TRAIN PATH at full width, depth cut to ``layers``; seq_len 4096
+    unless it does not fit the card, then 2048 (said in the record)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen3-14b").with_(num_layers=layers)
+    for seq_len in (4096, 2048):
+        try:
+            return _train_run(cfg, seed, steps, seq_len)
+        except torch.cuda.OutOfMemoryError as exc:
+            if seq_len == 2048:
+                raise
+            log(f"[train] seq_len {seq_len} does not fit the card ({exc}); "
+                f"cutting seq_len to 2048")
+        # the failed run's tensors die with the exception's frames
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _train_run(cfg, seed: int, steps: int, seq_len: int):
+    from repro_torch import kernels
+    from repro_torch.api import Session
+    from repro_torch.train.trainer import TrainConfig
+    from repro_torch.tree import flatten
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    session = Session(cfg, device="cuda", seed=seed)
+    trainer = session.train(TrainConfig(steps=steps, lr=3e-4, log_every=1,
+                                        seed=seed),
+                            global_batch=1, seq_len=seq_len)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in flatten(session.params).values())
+    n_embed = session.params["embed"].numel()
+    s = trainer.strategy
+    log(f"[train] {cfg.name} cut to {cfg.num_layers} layers (width uncut: "
+        f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads x "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), "
+        f"{cfg.dtype}, {n_params / 1e9:.3f} B params; strategy "
+        f"{s.optimizer}, remat={s.remat}, attn_impl={s.attn_impl!r}; "
+        f"params + AdamW state ready in {time.perf_counter() - t0:.1f}s")
+    kernels.reset_launches()
+    step_s = []
+    for _ in range(steps):
+        s0 = time.perf_counter()
+        trainer.run(1)                 # ends in float(loss): a sync
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - s0)
+    counts = kernels.launches()
+    hist = trainer.history
+    check(len(hist) == steps, f"{len(hist)} logged steps != {steps}")
+    for h in hist:
+        check(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]),
+              f"step {h['step']}: loss {h['loss']}, grad_norm "
+              f"{h['grad_norm']}")
+    want = {"flash_attention": cfg.num_layers * steps * 2,
+            "fused_mlp": 0, "paged_attention": 0}
+    check(counts == want, f"train launches {counts} != {want} (flash: "
+                          f"layers x steps x 2, forward + remat recompute)")
+    peak = torch.cuda.max_memory_allocated()
+    check(peak < card_bytes, f"peak {peak} >= card {card_bytes}")
+    tokens = seq_len                                # global_batch 1
+    p50 = float(np.percentile(step_s, 50))
+    # model FLOPs: 6 N tokens (N without the embedding gather) + causal
+    # attention, forward (4 S^2/2 Hq D a layer) and backward (2x forward)
+    attn = 3 * 4.0 * cfg.num_heads * cfg.head_dim * seq_len * (seq_len + 1) \
+        / 2 * cfg.num_layers
+    model_flops = 6.0 * (n_params - n_embed) * tokens + attn
+    out = {"layers": cfg.num_layers, "seq_len": seq_len,
+           "seq_len_cut": seq_len != 4096, "global_batch": 1,
+           "steps": steps, "params": n_params,
+           "params_without_embed": n_params - n_embed,
+           "step_s": step_s, "step_p50_s": p50,
+           "first_step_s": step_s[0], "tokens_per_s": tokens / p50,
+           "peak_mem_gb": peak / 1e9, "card_mem_gb": card_bytes / 1e9,
+           "model_flops_per_step": model_flops,
+           "model_flops_share_of_989T": model_flops / p50 / 989e12,
+           "losses": [h["loss"] for h in hist],
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "launches": counts}
+    log(f"[train] {steps} steps of 1 x {seq_len} tokens: step p50 "
+        f"{p50 * 1e3:.1f} ms (first {step_s[0] * 1e3:.1f} ms), "
+        f"{out['tokens_per_s']:.1f} tokens/s, peak memory "
+        f"{out['peak_mem_gb']:.2f} GB of {out['card_mem_gb']:.2f} GB, model "
+        f"FLOPs {model_flops / 1e12:.2f} T a step = "
+        f"{out['model_flops_share_of_989T']:.2%} of 989 TFLOP/s; losses "
+        f"{[round(x, 4) for x in out['losses']]}; launches {counts}")
+    out["profile"] = _train_profile(trainer, p50)
+    del trainer, session
+    return out
+
+
+def _train_profile(trainer, step_p50_s: float):
+    """Where a train step's time goes: one more step under torch.profiler
+    (host and device activity, after a warm-up profiler session as phase 5
+    does). Device time is summed by kernel group, and by the step's parts
+    (the ``record_function`` ranges ``train/step.py::PARTS``): each device
+    event goes to the part whose host interval holds the start of the op
+    that launched it, since the backward's ops run on autograd's own
+    thread while its range stays open on the caller's; what no part holds
+    is ``outside_parts``. Diagnostic only: "not measured" if the profiler
+    records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train.step import PARTS
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        trainer.run(1)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    # the raw kineto events: each device event names the op that launched
+    # it (linked_correlation_id = that op's correlation_id; runtime calls
+    # carry a link of their own and are not ops)
+    raw = prof.profiler.kineto_results.events()
+    cpu, dev = DeviceType.CPU, DeviceType.CUDA
+    spans = [(e.name(), e.start_ns(), e.end_ns()) for e in raw
+             if e.device_type() == cpu and e.name() in PARTS]
+    op_start = {e.correlation_id(): e.start_ns() for e in raw
+                if e.device_type() == cpu and not e.linked_correlation_id()}
+    # fp32 GEMMs are the attention backward's einsums (the model's own
+    # matmuls are bf16); softmax kernels are its recompute
+    groups = {"flash_attention": 0.0, "gemm_bf16": 0.0, "gemm_fp32": 0.0,
+              "softmax": 0.0, "other": 0.0}
+    parts = dict.fromkeys(PARTS + ("outside_parts",), 0.0)
+    kernels = {}
+    for e in raw:
+        name = e.name()
+        if e.device_type() != dev or e.is_user_annotation() or name in PARTS:
+            continue                # a range's span on the device timeline
+        ms = (e.end_ns() - e.start_ns()) / 1e6
+        start = op_start.get(e.linked_correlation_id())
+        parts[next((n for n, a, b in spans if start is not None
+                    and a <= start <= b), "outside_parts")] += ms
+        low = name.lower()
+        if "flash_fwd_kernel" in name:
+            group = "flash_attention"
+        elif "f32f32" in low or "sgemm" in low:
+            group = "gemm_fp32"
+        elif any(w in low for w in ("gemm", "xmma", "nvjet", "cutlass")):
+            group = "gemm_bf16"
+        elif "softmax" in low:
+            group = "softmax"
+        else:
+            group = "other"
+        groups[group] += ms
+        kernels[name] = kernels.get(name, 0.0) + ms
+    busy = sum(groups.values())
+    out = {"parts_device_ms": parts, "window_ms": wall_ms,
+           "device_busy_ms": busy,
+           "idle_share_vs_unprofiled_p50": (1 - busy / (step_p50_s * 1e3))
+           if busy else "not measured",
+           "by_group_ms": groups,
+           "top_kernels_ms": sorted(kernels.items(),
+                                    key=lambda kv: -kv[1])[:12]}
+    if busy:
+        share = ", ".join(f"{g} {ms:.1f} ms ({ms / busy:.0%})"
+                          for g, ms in groups.items())
+        log(f"[train profile] one step: {wall_ms:.1f} ms wall under the "
+            f"profiler, device busy {busy:.1f} ms (idle share "
+            f"{out['idle_share_vs_unprofiled_p50']:.1%} of the unprofiled "
+            f"step p50 {step_p50_s * 1e3:.1f} ms): {share}")
+        log("[train profile] device time by part: " + ", ".join(
+            f"{n} {ms:.1f} ms" for n, ms in parts.items()))
+        for name, ms in out["top_kernels_ms"]:
+            log(f"[train profile]   {ms:9.2f} ms  {name[:90]}")
+    else:
+        log("[train profile] the profiler recorded no device time: not "
+            "measured")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -505,13 +854,19 @@ def main():
               "torch": torch.__version__, "seed": args.seed}
     record["build_s"] = phase_build()
     rng = np.random.default_rng(args.seed)
-    kernels = [phase_attention(rng), phase_mlp(rng)]
+    kernels = [phase_attention(rng), phase_mlp(rng), phase_flash(rng)]
     record["parity_logits_err"] = phase_parity()
+    record["parity_train"] = phase_train_parity()
     main_run, eng = phase_main(args.seed)
     record["main"] = main_run
     record["profile"] = phase_profile(eng, rng, main_run["step_p50_ms"])
+    del eng                               # free the serving session
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["train"] = phase_train(args.seed)
     for k in kernels:
-        k["launches"] = main_run["launches"][k["name"]]
+        run = record["train"] if k["name"] == "flash_attention" else main_run
+        k["launches"] = run["launches"][k["name"]]
     record["kernels"] = kernels
     record["total_s"] = time.perf_counter() - t_all
     out_dir = ROOT / "chiprun_out"

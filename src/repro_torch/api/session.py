@@ -1,20 +1,25 @@
-"""Session — the port's execution facade (the serving half of
+"""Session — the port's execution facade (the train and serve halves of
 ``repro/api/session.py``).
 
     from repro_torch.api import Session
     from repro_torch.configs import get_config
+    from repro_torch.train.trainer import TrainConfig
 
     session = Session(get_config("qwen3-14b"))          # on "cuda"
     engine = session.serve(slots=4, max_len=1024, chunk_tokens=256)
     engine.submit(0, prompt, max_new=16)
     results = engine.run()
 
-One object owns the config, the device and the params (random from
-``seed`` unless given — e.g. from the JAX package's checkpoint through
-``repro_torch.params.load_npz``). ``serve`` takes the reference's keyword
-names; the ones whose features are not ported yet raise
-``NotImplementedError`` naming their ROADMAP.md item. Training, generate,
-the online stack and dry-runs come with later slices.
+    small = Session(get_config("qwen3-14b").with_(num_layers=4))
+    small.train(TrainConfig(steps=6), global_batch=1, seq_len=4096).run()
+
+One object owns the config, the strategy, the device and the params
+(random from ``seed`` unless given — e.g. from the JAX package's
+checkpoint through ``repro_torch.params.load_npz``). ``train`` trains
+those params in place, so a later ``serve`` sees the trained weights.
+``serve`` takes the reference's keyword names; the ones whose features
+are not ported yet raise ``NotImplementedError`` naming their ROADMAP.md
+item. Generate, the online stack and dry-runs come with later slices.
 """
 from __future__ import annotations
 
@@ -22,15 +27,21 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.strategy import Strategy
 from repro_torch.params import init_params
 from repro_torch.serve.engine import ServeEngine, _todo
+from repro_torch.train.trainer import TrainConfig, Trainer
+from repro_torch.tree import tree_map
 
 
 class Session:
-    """One (config, device, params) triple."""
+    """One (config, strategy, device, params) quadruple."""
 
-    def __init__(self, cfg, *, device="cuda", seed: int = 0, params=None):
+    def __init__(self, cfg, *, strategy: Optional[Strategy] = None,
+                 device="cuda", seed: int = 0, params=None):
         self.cfg = cfg
+        self.strategy = strategy if strategy is not None else \
+            Strategy(dtype=cfg.dtype)
         self.device = torch.device(device)
         self.seed = seed
         self._params = params
@@ -38,11 +49,25 @@ class Session:
     @property
     def params(self):
         """The param tree, random-initialised on first use from the
-        session's seed."""
+        session's seed; a trainer trains (and restores) it in place."""
         if self._params is None:
             self._params = init_params(self.cfg, device=self.device,
                                        seed=self.seed)
         return self._params
+
+    def train(self, train_cfg: Optional[TrainConfig] = None, *, data=None,
+              global_batch: int = 8, seq_len: int = 256,
+              restore: bool = False) -> Trainer:
+        """A Trainer on this session's strategy, device and params (the
+        session's seed initialises them). ``restore=True`` resumes from
+        the TrainConfig's checkpoint dir first."""
+        tc = train_cfg or TrainConfig(seed=self.seed)
+        trainer = Trainer(self.cfg, self.strategy, self.device, tc,
+                          data=data, global_batch=global_batch,
+                          seq_len=seq_len, params=self.params)
+        if restore:
+            trainer.maybe_restore()
+        return trainer
 
     def serve(self, *, plan=None, tp: Optional[int] = None,
               dp: Optional[int] = None, slots: int = 4, max_len: int = 256,
@@ -65,8 +90,10 @@ class Session:
                 "repro_torch picks the attention path by device (CUDA: "
                 "the hand-written kernel, CPU: its plain version); drop "
                 f"attn_backend={attn_backend!r}")
+        # serving needs no gradient: detached views of (trained) params
+        params = tree_map(torch.Tensor.detach, self.params)
         return ServeEngine(
-            self.cfg, self.params, slots=slots, max_len=max_len,
+            self.cfg, params, slots=slots, max_len=max_len,
             eos_id=eos_id, temperature=temperature,
             seed=self.seed if seed is None else seed, paged=paged,
             page_size=page_size, kv_pages=kv_pages,

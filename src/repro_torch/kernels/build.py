@@ -45,6 +45,10 @@ SIGNATURES = {
         # x, w_gate, w_up, w_down, h (scratch), out, T, d, f, stream
         name: [_P] * 6 + [_I] * 3 + [_P]
         for name in ("fused_mlp_f32", "fused_mlp_bf16")},
+    "flash_attention": {
+        # q, k, v, out, B, S, T, Hq, Hkv, D, causal, window, stream
+        name: [_P] * 4 + [_I] * 8 + [_P]
+        for name in ("flash_attention_f32", "flash_attention_bf16")},
 }
 
 #: name -> the ptxas ``-v`` lines of its last build (or of the cached one)

@@ -34,8 +34,20 @@ def fused_mlp_plain(x, w_gate, w_up, w_down):
     return (h.float() @ w_down.float()).to(x.dtype)
 
 
+def needs_grad(*tensors) -> bool:
+    """True when autograd would record an op on ``tensors``."""
+    return torch.is_grad_enabled() and any(a.requires_grad for a in tensors)
+
+
 def fused_mlp_cuda(x, w_gate, w_up, w_down):
-    """Launch the gate/up and down kernels on PyTorch's current stream."""
+    """Launch the gate/up and down kernels on PyTorch's current stream.
+    The kernels have no backward and write through raw pointers, so a
+    call that autograd would have to record raises."""
+    if needs_grad(x, w_gate, w_up, w_down):
+        raise RuntimeError(
+            "fused_mlp kernel has no backward: with a gradient required, "
+            "use the plain SwiGLU of repro_torch.models.layers.mlp (it "
+            "takes it by itself), or call under torch.no_grad()")
     t, d = x.shape
     f = w_gate.shape[1]
     if w_gate.shape != (d, f) or w_up.shape != (d, f) or \
@@ -66,7 +78,8 @@ def fused_mlp_cuda(x, w_gate, w_up, w_down):
 
 def fused_mlp(x, w_gate, w_up, w_down):
     """Dispatch by device: the plain version for CPU tensors, the CUDA
-    kernels for CUDA tensors. ``x`` may carry leading batch axes.
+    kernels for CUDA tensors (which raise when a gradient is required:
+    the kernel pair has no backward). ``x`` may carry leading batch axes.
     ``fused_mlp.launches`` counts calls that launched the kernel pair."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])

@@ -1,0 +1,88 @@
+"""Training launcher of the port: ``--arch`` through
+``repro_torch.api.Session.train`` on one device — the counterpart of
+``python -m repro.launch.train``.
+
+    # on the card: full-width Qwen3-14B cut to 4 layers (random weights)
+    PYTHONPATH=src python -m repro_torch.launch.train --full --layers 4 \\
+        --steps 4 --global-batch 1 --seq 4096
+
+    # on the CPU, the reduced config in float32
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu
+
+Without ``--full`` the arch's smoke config runs in float32 with remat off,
+as the JAX launcher does; ``--full`` takes the arch's full ``CONFIG`` in
+its own dtype (bfloat16) with the default Strategy (AdamW, remat on,
+``attn_impl="auto"``: the flash kernel on the card). ``--layers`` cuts
+the depth only.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.api import Session
+from repro_torch.configs import ARCH_NAMES, get_config, get_smoke
+from repro_torch.core.strategy import Strategy
+from repro_torch.train.trainer import TrainConfig
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_NAMES, default="qwen3-14b")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to train on (default cuda)")
+    ap.add_argument("--full", action="store_true",
+                    help="the arch's full CONFIG in its own dtype "
+                         "(default: the float32 smoke config)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to N layers (width uncut)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--checkpoint-dir", default="")
+    args = ap.parse_args(argv)
+
+    if args.full:
+        cfg = get_config(args.arch)
+        strategy = Strategy(microbatches=args.microbatches, dtype=cfg.dtype)
+    else:
+        cfg = get_smoke(args.arch).with_(dtype="float32")
+        strategy = Strategy(remat=False, microbatches=args.microbatches,
+                            dtype="float32")
+    if args.layers:
+        cfg = cfg.with_(num_layers=args.layers)
+    session = Session(cfg, strategy=strategy, device=args.device,
+                      seed=args.seed)
+    tc = TrainConfig(steps=args.steps, lr=args.lr, log_every=10,
+                     checkpoint_every=args.steps if args.checkpoint_dir
+                     else 0,
+                     checkpoint_dir=args.checkpoint_dir or "checkpoints",
+                     seed=args.seed)
+    trainer = session.train(tc, global_batch=args.global_batch,
+                            seq_len=args.seq)
+    on_card = session.device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(session.device)
+    t0 = time.perf_counter()
+    out = trainer.run()
+    if on_card:
+        torch.cuda.synchronize(session.device)
+    dt = time.perf_counter() - t0
+    tokens = args.steps * args.global_batch * args.seq
+    peak = (f", peak memory "
+            f"{torch.cuda.max_memory_allocated(session.device) / 1e9:.2f} GB"
+            if on_card else "")
+    print(f"trained {cfg.name} ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.dtype}) for {args.steps} steps of "
+          f"{args.global_batch}x{args.seq} tokens in {dt:.2f}s "
+          f"({tokens / dt:.1f} tokens/s on {session.device}{peak})")
+    return out
+
+
+if __name__ == "__main__":
+    main()

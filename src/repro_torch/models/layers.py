@@ -4,16 +4,20 @@
 Layouts are the JAX package's: activations ``(B, S, d)``, heads
 ``(B, S, H, D)``, weights ``(in, out)`` applied as ``x @ w``. The
 sharding hints (``constrain``) of the reference have no counterpart on a
-single card and are gone. The two ops that were Pallas kernels on the TPU
-— paged attention and the fused MLP — dispatch by device to the port's
-CUDA kernels (CUDA tensors) or their plain versions (CPU tensors).
+single card and are gone. The ops that were Pallas kernels on the TPU —
+flash attention, paged attention and the fused MLP — dispatch by device
+to the port's CUDA kernels (CUDA tensors) or their plain versions (CPU
+tensors). The fused MLP has no backward, so with a gradient required the
+MLP is the reference's plain matmul SwiGLU on either device.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from repro_torch.kernels.fused_mlp import fused_mlp
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.fused_mlp import fused_mlp, needs_grad
 # decode-time block-table attention over the paged pool, q (B, 1, Hq, D):
 # the hand-written kernel on CUDA tensors, the gather + masked-softmax
 # plain version on CPU tensors
@@ -91,6 +95,119 @@ def attention_full(q, k, v, *, causal: bool, window: int = 0,
     return out.to(q.dtype)
 
 
+def _repeat_kv(x, rep: int):
+    return x if rep == 1 else x.repeat_interleave(rep, dim=2)
+
+
+def _attn_block(q, k, v, qpos, kpos, scale, causal, window, m, l, acc):
+    """One (q-chunk, kv-chunk) online-softmax update. fp32 carries."""
+    s = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
+    mask = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
+                      device=q.device)
+    if causal:
+        mask = mask & (kpos[None, :] <= qpos[:, None])
+    if window > 0:
+        mask = mask & (kpos[None, :] > qpos[:, None] - window)
+    s = s.masked_fill(~mask, NEG_INF)
+    m_new = torch.maximum(m, s.amax(-1))                 # (B,H,Sq)
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + p.sum(-1)
+    acc_new = acc * corr[..., None] + torch.einsum(
+        "bhst,bthd->bhsd", p, v.float())
+    return m_new, l_new, acc_new
+
+
+def attention_chunked(q, k, v, *, causal: bool, window: int = 0,
+                      q_chunk: int = 1024, kv_chunk: int = 1024,
+                      impl: str = "masked"):
+    """Double-blocked flash-style attention in plain PyTorch (the
+    reference's pure-XLA form; Python loops where it maps and scans).
+
+    impl="masked":   every (qi, ki) block pair is computed, causally-dead
+                     blocks masked out.
+    impl="triangle": only lower-triangle block pairs are computed.
+    For window>0 each q chunk visits one KV slice of length
+    window+q_chunk (rounded up to kv_chunk) => sub-quadratic.
+    """
+    b, s, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    k, v = _repeat_kv(k, hq // hkv), _repeat_kv(v, hq // hkv)
+    q_chunk, kv_chunk = min(q_chunk, s), min(kv_chunk, t)
+    if s % q_chunk or t % kv_chunk:
+        raise ValueError(f"attention_chunked: S={s}, T={t} must divide "
+                         f"into q_chunk={q_chunk}, kv_chunk={kv_chunk}")
+    nq, nk = s // q_chunk, t // kv_chunk
+    scale = 1.0 / np.sqrt(d)
+    dev = q.device
+
+    def state():
+        return (torch.full((b, hq, q_chunk), NEG_INF, device=dev),
+                torch.zeros((b, hq, q_chunk), device=dev),
+                torch.zeros((b, hq, q_chunk, d), device=dev))
+
+    def span(i, n, start=0):
+        return torch.arange(n, device=dev) + start + i * n
+
+    outs = []
+    for qi in range(nq):
+        qc = q[:, qi * q_chunk:(qi + 1) * q_chunk]
+        qpos = span(qi, q_chunk)
+        m, l, acc = state()
+        if window > 0:
+            # one KV window per q chunk: [start, start + wlen)
+            wlen = min(t, ((window + q_chunk + kv_chunk - 1) // kv_chunk)
+                       * kv_chunk)
+            start = min(max(qi * q_chunk + q_chunk - wlen, 0), t - wlen)
+            m, l, acc = _attn_block(
+                qc, k[:, start:start + wlen], v[:, start:start + wlen],
+                qpos, span(0, wlen, start), scale, causal, window, m, l, acc)
+            outs.append(acc / l[..., None])
+            continue
+        triangle = impl == "triangle" and causal and nq == nk
+        for ki in range(qi + 1 if triangle else nk):
+            kv = slice(ki * kv_chunk, (ki + 1) * kv_chunk)
+            m, l, acc = _attn_block(qc, k[:, kv], v[:, kv], qpos,
+                                    span(ki, kv_chunk), scale, causal,
+                                    window, m, l, acc)
+        if triangle:
+            outs.append(acc / l[..., None])
+        else:
+            safe_l = torch.where(l == 0, torch.ones_like(l), l)
+            outs.append(acc / safe_l[..., None])
+    out = torch.cat(outs, dim=2)                         # (B,H,S,D)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def attention(q, k, v, *, causal: bool, window: int = 0, q_offset=0,
+              kv_len=None, kpos=None, impl: str = "auto",
+              q_chunk: int = 1024, kv_chunk: int = 1024):
+    """Dispatching entry point used by all models: the reference's names
+    and its ``auto`` rule on the CPU. On a CUDA tensor ``auto`` and
+    ``pallas`` over a full sequence (S > 1, no ``kv_len``/``kpos``, and
+    for ``auto`` no ``q_offset``) run the flash kernel; ``full``,
+    ``masked``/``chunked`` and ``triangle`` stay available by name."""
+    s, t = q.shape[1], k.shape[1]
+    full_seq = s > 1 and kv_len is None and kpos is None
+    if q.is_cuda and full_seq and (impl == "pallas" or (
+            impl == "auto" and isinstance(q_offset, int) and q_offset == 0)):
+        return flash_attention(q, k, v, causal=causal, window=window)
+    if impl == "triangle" and (not causal or s != t or s % q_chunk):
+        impl = "auto"            # triangle needs a square causal grid
+    if impl == "auto":
+        impl = "full" if (s * t <= 2048 * 2048 or s == 1) else "chunked"
+    if impl == "full" or not full_seq:
+        return attention_full(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset, kv_len=kv_len, kpos=kpos)
+    if impl in ("chunked", "masked", "triangle"):
+        return attention_chunked(
+            q, k, v, causal=causal, window=window, q_chunk=q_chunk,
+            kv_chunk=kv_chunk, impl="masked" if impl == "chunked" else impl)
+    if impl == "pallas":
+        return flash_attention(q, k, v, causal=causal, window=window)
+    raise ValueError(impl)
+
+
 # ------------------------------------------------------- attention (module)
 
 def attn_qkv(p, x, cfg, *, positions=None, rope: bool = True):
@@ -118,11 +235,18 @@ def attn_out(p, ctx, cfg):
 # ----------------------------------------------------------------------- MLP
 
 def mlp(p, x):
-    """Gated (SwiGLU) MLP — the survey's §5.1 block — through the fused
-    kernel pair on CUDA tensors, its plain version on CPU tensors. The
-    reference's plain-GeLU variant (no ``w_gate``) serves the enc-dec
-    family, which waits for a later slice."""
+    """Gated (SwiGLU) MLP — the survey's §5.1 block. With a gradient
+    required (training) it is the reference's plain matmul SwiGLU, which
+    autograd differentiates; otherwise (serving) the fused kernel pair on
+    CUDA tensors, its plain version on CPU tensors. The reference's
+    plain-GeLU variant (no ``w_gate``) serves the enc-dec family, which
+    waits for a later slice."""
     if "w_gate" not in p:
         raise NotImplementedError(
             "plain-GeLU MLP (enc-dec family): ROADMAP.md Queue 1 item 10")
-    return fused_mlp(x, p["w_gate"], p["w_up"], p["w_down"])
+    w_gate, w_up, w_down = p["w_gate"], p["w_up"], p["w_down"]
+    if needs_grad(x, w_gate, w_up, w_down):
+        h = x @ w_up
+        h = F.silu(x @ w_gate) * h
+        return h @ w_down
+    return fused_mlp(x, w_gate, w_up, w_down)

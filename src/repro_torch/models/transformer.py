@@ -5,8 +5,13 @@ Parameters are nested dicts of tensors with the JAX tree's keys and the
 per-layer weights stacked on a leading L axis (``params.py``); the layer
 stack is a Python loop over that axis where the reference scans.
 
-  forward(params, batch, cfg)                  -> logits, aux
-  decode_step(params, cache, token, pos, cfg)  -> logits, cache
+  forward(params, batch, cfg, remat=, attn_impl=)  -> logits, aux
+  decode_step(params, cache, token, pos, cfg)      -> logits, cache
+
+``forward`` trains: ``remat=True`` wraps each layer in
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the scan
+body), and ``attn_impl`` picks the attention path (``layers.attention``:
+on a CUDA tensor ``auto`` and ``pallas`` run the flash kernel).
 
 ``decode_step`` is the paged branch only — the serve engine's mixed
 token-slot program: ``cache`` carries the pool ``"kv"`` (updated in
@@ -17,10 +22,11 @@ wait for later slices (ROADMAP.md Queue 1 item 4), as does the MoE FFN.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import kvcache
-from repro_torch.models.layers import (attention_full, attn_out, attn_qkv,
-                                       mlp, paged_attention, rmsnorm)
+from repro_torch.models.layers import (attention, attn_out, attn_qkv, mlp,
+                                       paged_attention, rmsnorm)
 
 
 def layer_params(params, i: int):
@@ -29,6 +35,20 @@ def layer_params(params, i: int):
         return {k: pick(v) if isinstance(v, dict) else v[i]
                 for k, v in tree.items()}
     return pick(params["layers"])
+
+
+def unstack_layers(params, n: int):
+    """Per-layer views of the stacked L axis, by ONE ``unbind`` a leaf:
+    its backward stacks the layer grads once, where indexing each layer
+    would allocate a zero gradient of the whole stack per layer."""
+    def split(tree):
+        out = [{} for _ in range(n)]
+        for k, v in tree.items():
+            parts = split(v) if isinstance(v, dict) else torch.unbind(v, 0)
+            for i in range(n):
+                out[i][k] = parts[i]
+        return out
+    return split(params["layers"])
 
 
 def _check_dense(cfg):
@@ -48,22 +68,29 @@ def _head(params, x, cfg):
     return x @ w
 
 
-def block(lp, x, cfg):
+def block(lp, x, cfg, *, attn_impl: str = "auto"):
     """Pre-norm attention + pre-norm SwiGLU FFN over a whole sequence."""
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = attn_qkv(lp["attn"], h, cfg)
-    ctx = attention_full(q, k, v, causal=True, window=cfg.sliding_window)
+    ctx = attention(q, k, v, causal=True, window=cfg.sliding_window,
+                    impl=attn_impl)
     x = x + attn_out(lp["attn"], ctx, cfg)
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
     return x + mlp(lp["mlp"], h)
 
 
-def forward(params, batch, cfg):
+def forward(params, batch, cfg, *, remat: bool = False,
+            attn_impl: str = "auto"):
     """batch: {"tokens": (B,S) int}. Returns (logits (B,S,V), aux=0)."""
     _check_dense(cfg)
     x = _embed(params, batch["tokens"], cfg)
-    for i in range(cfg.num_layers):
-        x = block(layer_params(params, i), x, cfg)
+    for lp in unstack_layers(params, cfg.num_layers):
+        if remat:
+            x = checkpoint(lambda y, lp=lp: block(lp, y, cfg,
+                                                  attn_impl=attn_impl),
+                           x, use_reentrant=False)
+        else:
+            x = block(lp, x, cfg, attn_impl=attn_impl)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _head(params, x, cfg), aux
 

@@ -22,6 +22,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.tree import unflatten
+
 #: key -> (shape, dtype, std) with std None for a ones-initialised scale
 Spec = Dict[str, Tuple[tuple, torch.dtype, float]]
 
@@ -57,17 +59,6 @@ def param_spec(cfg) -> Spec:
     return spec
 
 
-def _unflatten(flat: Dict[str, torch.Tensor]) -> dict:
-    tree: dict = {}
-    for key, leaf in flat.items():
-        *path, last = key.split("/")
-        node = tree
-        for part in path:
-            node = node.setdefault(part, {})
-        node[last] = leaf
-    return tree
-
-
 def init_params(cfg, *, device="cuda", generator=None, seed: int = 0):
     """Random weights on ``device`` from ``generator`` (or a fresh one
     seeded with ``seed``). Stacked weights are drawn one layer at a time
@@ -85,7 +76,7 @@ def init_params(cfg, *, device="cuda", generator=None, seed: int = 0):
             part.copy_(torch.randn(part.shape, generator=generator,
                                    device=device) * std)
         flat[key] = out
-    return _unflatten(flat)
+    return unflatten(flat)
 
 
 def _to_tensor(key: str, arr: np.ndarray, dtype: torch.dtype):
@@ -118,7 +109,7 @@ def from_numpy(flat: Dict[str, np.ndarray], cfg, device="cuda") -> dict:
         if tuple(arr.shape) != shape:
             raise ValueError(f"{key}: shape {tuple(arr.shape)} != {shape}")
         out[key] = _to_tensor(key, arr, dtype).to(device)
-    return _unflatten(out)
+    return unflatten(out)
 
 
 def load_npz(step_dir, cfg, device="cuda") -> dict:

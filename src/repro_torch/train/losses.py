@@ -1,0 +1,23 @@
+"""Loss functions (fp32 accumulation) — the port of
+``repro/train/losses.py``."""
+from __future__ import annotations
+
+import torch
+
+
+def cross_entropy(logits, labels, *, ignore_id: int = -1):
+    """logits (B,S,V), labels (B,S) int. Mean over non-ignored tokens."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1,
+                      labels.clamp(min=0).long()[..., None])[..., 0]
+    nll = lse - ll
+    mask = (labels != ignore_id).float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def token_accuracy(logits, labels, *, ignore_id: int = -1):
+    pred = torch.argmax(logits, dim=-1)
+    mask = labels != ignore_id
+    hits = torch.where(mask, pred == labels, torch.zeros_like(mask))
+    return hits.sum() / torch.clamp(mask.sum(), min=1)

@@ -1,0 +1,101 @@
+"""Training-step builder: forward + backward + optimizer under a Strategy
+— the port of ``repro/train/step.py``.
+
+``make_train_step(cfg, strategy)`` returns
+``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``.
+Where the reference is a pure function under ``jax.jit``, this one runs
+eagerly and trains ``params`` and ``opt_state`` in place (the optimizers
+say why); every leaf of ``params`` is made to require grad. Gradient
+accumulation over ``strategy.microbatches`` sums ``g / n_micro`` in
+``strategy.grad_accum_dtype``, as the reference's scan does.
+
+The step's parts run under ``torch.profiler.record_function`` ranges named
+by :data:`PARTS`, so a profiled step splits its time by them (a range costs
+a few microseconds when no profiler runs).
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+from torch.profiler import record_function
+
+from repro_torch.core.strategy import Strategy
+from repro_torch.models import transformer
+from repro_torch.optim import clip_by_global_norm, get_optimizer
+from repro_torch.train.losses import cross_entropy
+from repro_torch.tree import flatten, tree_map, unflatten
+
+PARTS = ("forward_loss", "backward", "clip", "optimizer")
+
+
+def make_loss_fn(cfg, strategy: Strategy) -> Callable:
+    def loss_fn(params, batch):
+        logits, aux = transformer.forward(params, batch, cfg,
+                                          remat=strategy.remat,
+                                          attn_impl=strategy.attn_impl)
+        labels = batch.get("labels")
+        if labels is None:           # next token, -1 (ignored) at the end
+            tokens = batch["tokens"]
+            labels = torch.cat([tokens[:, 1:],
+                                torch.full_like(tokens[:, :1], -1)], dim=1)
+        loss = cross_entropy(logits, labels)
+        total = loss + cfg.router_aux_coef * aux
+        return total, {"loss": loss, "aux_loss": aux}
+
+    return loss_fn
+
+
+def init_opt_state(params, strategy: Strategy):
+    init, _ = get_optimizer(strategy.optimizer)
+    return init(params)
+
+
+def make_train_step(cfg, strategy: Strategy, *, lr: float = 3e-4,
+                    max_grad_norm: float = 1.0) -> Callable:
+    loss_fn = make_loss_fn(cfg, strategy)
+    _, opt_update = get_optimizer(strategy.optimizer)
+    n_micro = strategy.microbatches
+
+    def grads_of(params, batch):
+        leaves = flatten(params)
+        for p in leaves.values():
+            p.requires_grad_(True)
+        with record_function("forward_loss"):
+            total, metrics = loss_fn(params, batch)
+        with record_function("backward"):
+            grads = torch.autograd.grad(total, list(leaves.values()))
+        return unflatten(dict(zip(leaves, grads))), \
+            {k: v.detach() for k, v in metrics.items()}
+
+    def train_step(params, opt_state, batch):
+        if n_micro > 1:
+            acc_dt = getattr(torch, strategy.grad_accum_dtype)
+            b = batch["tokens"].shape[0]
+            if b % n_micro:
+                raise ValueError(f"batch {b} does not split into "
+                                 f"{n_micro} microbatches")
+            mb = b // n_micro
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=acc_dt, device=p.device), params)
+            metrics = None
+            for i in range(n_micro):
+                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                g, m = grads_of(params, micro)
+                for a, gi in zip(flatten(grads).values(),
+                                 flatten(g).values()):
+                    a.add_((gi.float() / n_micro).to(acc_dt))
+                del g
+                m = {k: v / n_micro for k, v in m.items()}
+                metrics = m if metrics is None else \
+                    {k: metrics[k] + m[k] for k in m}
+        else:
+            grads, metrics = grads_of(params, batch)
+
+        with record_function("clip"):
+            grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        with record_function("optimizer"):
+            params, opt_state = opt_update(grads, opt_state, params, lr=lr)
+        return params, opt_state, dict(metrics, grad_norm=gnorm)
+
+    return train_step

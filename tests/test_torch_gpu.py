@@ -10,9 +10,14 @@ port.) Without a card every test skips inside its fixture, so every
 pytest worker collects the same tests.
 
 Tolerances: fp32 kernels against their plain versions at 2e-5 (paged
-attention, another summation order and ``expf``) and 1e-5 (fused MLP);
-bf16 at 2e-2 (the kernel keeps the softmax probs in fp32 where the plain
-version rounds them to bf16, and bf16 has 8 bits of mantissa).
+attention, another summation order and ``expf``), 2e-6 (flash attention,
+tests/test_kernels.py:33) and 1e-5 (fused MLP); bf16 at 2e-2 for paged
+attention (the plain version rounds the softmax probs to bf16 where the
+kernel keeps them fp32, and bf16 has 8 bits of mantissa) and the fused
+MLP, and at atol 1e-5 / rtol 8e-3 for flash attention (both sides compute
+in fp32 and round the output once: one bf16 ulp); flash gradients at
+2e-5 / 2e-4
+(tests/test_kernels.py:173); a train step card vs CPU at 1e-4.
 """
 import numpy as np
 import pytest
@@ -21,10 +26,15 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_mlp as fm  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.params import init_params  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
+from repro_torch.core.strategy import Strategy  # noqa: E402
+from repro_torch.train import step  # noqa: E402
+from repro_torch.tree import flatten, tree_map  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -161,7 +171,142 @@ def test_engine_on_card_matches_cpu(cuda):
         runs = eng.stats["mixed_steps"]
         want = cfg.num_layers * runs if dev == "cuda" else 0
         assert kernels.launches() == {"paged_attention": want,
-                                      "fused_mlp": want}
+                                      "fused_mlp": want,
+                                      "flash_attention": 0}
         assert eng.stats["decode_backend"] == \
             ("kernel" if dev == "cuda" else "plain")
     assert outs["cpu"] == outs["cuda"]
+
+
+# (B, S, T, Hq, Hkv, D, causal, window): causal, window, non-causal, GQA
+# at the model's head width, ragged S < T and S > T
+FLASH = [(2, 128, 128, 2, 2, 32, True, 0), (1, 200, 200, 4, 2, 64, True, 50),
+         (2, 96, 96, 2, 1, 32, False, 0), (1, 256, 256, 10, 2, 128, True, 0),
+         (1, 100, 77, 4, 2, 16, True, 0), (1, 70, 133, 4, 4, 64, False, 30)]
+
+
+def _flash_args(shape, dtype, seed=0):
+    b, s, t, hq, hkv, d, causal, window = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(sh, generator=gen, device="cuda").to(dtype)
+               for sh in ((b, s, hq, d), (b, t, hkv, d), (b, t, hkv, d)))
+    return q, k, v, dict(causal=causal, window=window)
+
+
+# (atol, rtol): bf16 at one bf16 ulp of each value (2^-7 of it at most),
+# since kernel and plain both compute in fp32 and round the output once
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, (2e-6, 2e-6)),
+                                       (torch.bfloat16, (1e-5, 8e-3))])
+@pytest.mark.parametrize("shape", FLASH)
+def test_flash_attention_kernel_matches_plain(cuda, dtype, tol, shape):
+    q, k, v, kw = _flash_args(shape, dtype)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(
+        got.float(), fa.flash_attention_plain(q, k, v, **kw).float(),
+        atol=tol[0], rtol=tol[1])
+
+
+def test_flash_attention_kernel_writes_zero_for_rows_without_live_keys(cuda):
+    """Non-causal window with S > T + window: query rows past
+    T - 1 + window see no key; the kernel writes 0 there (``safe_l``)."""
+    q, k, v, _ = _flash_args((1, 160, 64, 2, 2, 32, False, 0),
+                             torch.float32)
+    got = fa.flash_attention(q, k, v, causal=False, window=40)
+    assert torch.equal(got[:, 103:], torch.zeros_like(got[:, 103:]))
+    torch.testing.assert_close(
+        got[:, :103], fa.flash_attention_plain(q, k, v, causal=False,
+                                               window=40)[:, :103],
+        atol=2e-6, rtol=2e-6)
+
+
+def test_flash_attention_kernel_refuses_head_dim_past_its_limit(cuda):
+    q, k, v, kw = _flash_args((1, 64, 64, 2, 2, 256, True, 0),
+                              torch.float32)
+    before = fa.flash_attention.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fa.flash_attention(q, k, v, **kw)
+    assert fa.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("shape", [FLASH[0], FLASH[1], FLASH[3], FLASH[4]])
+def test_flash_attention_gradients_match_autograd_of_plain(cuda, shape):
+    q, k, v, kw = _flash_args(shape, torch.float32, seed=1)
+    leaves = [a.requires_grad_(True) for a in (q, k, v)]
+    got = torch.autograd.grad((fa.flash_attention(*leaves, **kw) ** 2)
+                              .mean(), leaves)
+    want = torch.autograd.grad((fa.flash_attention_plain(*leaves, **kw)
+                                ** 2).mean(), leaves)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=2e-5, rtol=2e-4)
+
+
+def test_mlp_takes_the_plain_path_when_a_gradient_is_needed(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((2, 6, 64), generator=gen, device="cuda")
+    ws = [(torch.randn(s, generator=gen, device="cuda") * 0.05)
+          .requires_grad_(True) for s in ((64, 96), (64, 96), (96, 64))]
+    with pytest.raises(RuntimeError, match="layers.mlp"):
+        fm.fused_mlp(x, *ws)
+    p = dict(zip(("w_gate", "w_up", "w_down"), ws))
+    before = fm.fused_mlp.launches
+    out = layers.mlp(p, x)
+    assert out.grad_fn is not None and fm.fused_mlp.launches == before
+    grads = torch.autograd.grad(out.sum(), ws)
+    assert all(g.abs().sum() > 0 for g in grads)
+    with torch.no_grad():
+        torch.testing.assert_close(layers.mlp(p, x), out, atol=1e-5,
+                                   rtol=1e-5)
+    assert fm.fused_mlp.launches == before + 1
+
+
+def test_train_steps_on_card_match_cpu(cuda):
+    """fp32, remat on, attn_impl="auto" (the flash kernel on the card,
+    full attention on the CPU): the loss gradients at init, then two
+    AdamW steps' losses, grad norms and params within 1e-4 of the CPU's;
+    the kernel ran twice a layer a step (forward and the remat
+    recompute). lr = 1e-5: an AdamW step moves a weight by about
+    lr * sign(g), so a near-zero gradient whose sign differs between the
+    devices costs 2e-5, inside the tolerance."""
+    cfg = ModelConfig(name="pal-dense", arch_type="dense", num_layers=2,
+                      d_model=128, num_heads=4, num_kv_heads=2, d_ff=256,
+                      vocab_size=128, dtype="float32", qk_norm=True)
+    strat = Strategy(dtype="float32")
+    cpu = init_params(cfg, device="cpu", seed=3)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 128, size=(2, 96)).astype(np.int32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.to(dev, copy=True), cpu)
+        leaves = flatten(params)
+        for t in leaves.values():
+            t.requires_grad_(True)
+        total, _ = step.make_loss_fn(cfg, strat)(
+            params, {"tokens": tokens.to(dev)})
+        grads = dict(zip(leaves, (g.cpu() for g in torch.autograd.grad(
+            total, list(leaves.values())))))
+        opt = step.init_opt_state(params, strat)
+        train_step = step.make_train_step(cfg, strat, lr=1e-5)
+        kernels.reset_launches()
+        mets = []
+        for _ in range(2):
+            params, opt, m = train_step(params, opt,
+                                        {"tokens": tokens.to(dev)})
+            mets.append({k: float(v) for k, v in m.items()})
+        want = 2 * cfg.num_layers * 2 if dev == "cuda" else 0
+        assert kernels.launches()["flash_attention"] == want
+        assert kernels.launches()["fused_mlp"] == 0
+        out[dev] = (mets, {k: v.detach().cpu()
+                           for k, v in flatten(params).items()}, grads)
+    for key, g in out["cpu"][2].items():
+        torch.testing.assert_close(out["cuda"][2][key], g, atol=1e-4,
+                                   rtol=1e-4)
+    for a, b in zip(out["cpu"][0], out["cuda"][0]):
+        assert a["loss"] == pytest.approx(b["loss"], abs=1e-4)
+        assert a["grad_norm"] == pytest.approx(b["grad_norm"], abs=1e-4)
+    for key, p in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][key], p, atol=1e-4,
+                                   rtol=1e-4)

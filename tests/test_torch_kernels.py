@@ -7,20 +7,26 @@ and the Pallas kernels in interpret mode, on the same numpy inputs:
 paged attention on the permuted / fragmented / poisoned tables of
 tests/test_serve_pallas.py at 2e-5 (poisoning bitwise), the fused MLP
 against ``ops.fused_mlp``, ``ref.fused_mlp_ref`` and ``layers.mlp`` at
-1e-5, ragged T included.
+1e-5, ragged T included; flash attention against ``ops.flash_attention``
+(the Pallas kernel in interpret mode, 64-row blocks) at 2e-6 for the
+forward (tests/test_kernels.py:33) and its custom VJP at 2e-5 / 2e-4
+(tests/test_kernels.py:173) for the gradients.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops, ref  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_mlp as fm  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
 
 
 def _t(a):
@@ -134,6 +140,97 @@ def test_fused_mlp_keeps_leading_axes_and_rounds_h_to_wd_dtype():
                                atol=1e-6)
 
 
+def test_fused_mlp_never_returns_a_graphless_output_when_grad_is_needed():
+    """The kernel pair writes through raw pointers: on a grad-requiring
+    input its CUDA entry raises (before any device check), and the
+    model's MLP takes the plain matmul SwiGLU, whose gradients are the
+    reference's."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 6, 32)).astype(np.float32)
+    ws = [(rng.standard_normal(s) * 0.1).astype(np.float32)
+          for s in ((32, 48), (32, 48), (48, 32))]
+    tw = [_t(w).requires_grad_(True) for w in ws]
+    with pytest.raises(RuntimeError, match="layers.mlp"):
+        fm.fused_mlp_cuda(_t(x).reshape(12, 32), *tw)
+    y = fm.fused_mlp(_t(x), *tw)           # CPU plain version: a graph
+    assert y.grad_fn is not None
+    p = dict(zip(("w_gate", "w_up", "w_down"), tw))
+    out = layers.mlp(p, _t(x))
+    assert out.grad_fn is not None
+    grads = torch.autograd.grad((out ** 2).mean(), tw)
+    jp = dict(zip(("w_gate", "w_up", "w_down"), map(jnp.asarray, ws)))
+    jgrads = jax.grad(lambda q: (jlayers.mlp(q, jnp.asarray(x)) ** 2)
+                      .mean())(jp)
+    for name, g in zip(("w_gate", "w_up", "w_down"), grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(jgrads[name]),
+                                   atol=1e-6, rtol=1e-5)
+    with torch.no_grad():                  # serving: the fused path
+        np.testing.assert_allclose(layers.mlp(p, _t(x)).numpy(),
+                                   out.detach().numpy(), atol=1e-5)
+
+
+# (B, S, T, Hq, Hkv, D, causal, window): causal, window, non-causal,
+# GQA, ragged S < T and S > T (no multiple of the 64-row block)
+FLASH_CASES = {
+    "causal": (2, 128, 128, 2, 2, 32, True, 0),
+    "window": (1, 128, 128, 2, 2, 32, True, 40),
+    "noncausal": (2, 128, 128, 2, 2, 32, False, 0),
+    "gqa": (2, 128, 128, 8, 2, 16, True, 0),
+    "ragged": (1, 100, 77, 4, 2, 16, True, 0),
+    "ragged_noncausal_window": (1, 70, 100, 4, 1, 16, False, 24),
+}
+
+
+def _flash_inputs(case, seed=0):
+    b, s, t, hq, hkv, d, causal, window = FLASH_CASES[case]
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for shape in ((b, s, hq, d), (b, t, hkv, d), (b, t, hkv, d)))
+    return q, k, v, dict(causal=causal, window=window)
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_attention_plain_matches_jax_kernel(case):
+    q, k, v, kw = _flash_inputs(case)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(_t(q), _t(k), _t(v), **kw)
+    want = ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), block_q=64, block_k=64, **kw)
+    assert got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6,
+                               rtol=2e-6)
+    assert fa.flash_attention.launches == before
+    # the port of the MHA oracle, on KV repeated to Hq heads
+    rep = q.shape[2] // k.shape[2]
+    oracle = ref.flash_attention_ref(
+        jnp.asarray(q), jnp.repeat(jnp.asarray(k), rep, axis=2),
+        jnp.repeat(jnp.asarray(v), rep, axis=2), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), atol=2e-6,
+                               rtol=2e-6)
+
+
+@pytest.mark.parametrize("case", ["causal", "window", "gqa", "ragged"])
+def test_flash_attention_grads_match_jax_custom_vjp(case):
+    """The autograd.Function's backward (the port of ``_flash_bwd``)
+    against the reference's custom VJP, and against autograd through the
+    plain version."""
+    q, k, v, kw = _flash_inputs(case, seed=1)
+    tq, tk, tv = (_t(a).requires_grad_(True) for a in (q, k, v))
+    got = torch.autograd.grad(
+        (fa.flash_attention(tq, tk, tv, **kw) ** 2).mean(), (tq, tk, tv))
+    want = jax.grad(lambda a, b, c: (ops.flash_attention(
+        a, b, c, block_q=64, block_k=64, **kw) ** 2).mean(),
+        argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    plain = torch.autograd.grad(
+        (fa.flash_attention_plain(tq, tk, tv, **kw) ** 2).mean(),
+        (tq, tk, tv))
+    for g, w, pl in zip(got, want, plain):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5,
+                                   rtol=2e-4)
+        np.testing.assert_allclose(g.numpy(), pl.numpy(), atol=2e-5,
+                                   rtol=2e-4)
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     """No fallback: with no compiler the build raises instead of quietly
     handing a CUDA tensor to the plain version."""
@@ -153,6 +250,7 @@ def test_build_key_covers_source_and_flags(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
     assert build._target("fused_mlp") != a
     assert build._target("paged_attention") != a
+    assert build._target("flash_attention") != a
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -167,3 +265,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         pa.paged_attention_cuda(q, kp, kp, torch.zeros((2, 2), dtype=torch.int32),
                                 torch.zeros((2,), dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_cuda(torch.zeros((1, 8, 4, 16)),
+                                torch.zeros((1, 8, 2, 16)),
+                                torch.zeros((1, 8, 2, 16)))
