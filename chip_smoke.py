@@ -13,14 +13,23 @@ Phases (any failure exits non-zero; no result line is printed then):
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes of its path (bf16) and at small fp32 shapes, with the
    tolerance stated beside each (flash attention also on ragged,
-   windowed and non-causal inputs, and its gradients); time kernel,
-   plain version and one PyTorch library call computing the same
-   function (never called by the port) with CUDA events, and compute
-   each kernel's bound from these inputs and NVIDIA's H100 SXM data
-   sheet;
-4. a tiny float32 config on the card and on the CPU (TF32 off): through
+   windowed and non-causal inputs, and its gradients); the SSD scan in
+   bf16 at the SSM prefill's shape (b 1, s 1024, h 48, p 64, n 128,
+   chunk 128; x, B, C read in place as views of one conv-output buffer)
+   with y within atol 1e-5 + rtol 8e-3 of each value and the final state
+   within 1e-4 of its largest value (and the check shown to reject a
+   scan that drops the carried state), and in fp32 at small shapes with
+   a ragged chunk (s 77 at chunk 128) and several chunks (s 96 at chunk
+   32) within 1e-4; time kernel, plain version and one PyTorch library
+   call computing the same function (never called by the port; none
+   exists for the SSD scan) with CUDA events, and compute each kernel's
+   bound from these inputs and NVIDIA's H100 SXM data sheet;
+4. tiny float32 configs on the card and on the CPU (TF32 off): through
    the port's engine, first-step logits within 1e-4 and greedy streams
-   identical; through the train step, loss and gradients within 1e-4;
+   identical; through the split-path engine on ``mamba2-smoke``,
+   first-prefill logits within 1e-4 and greedy streams identical, the
+   SSD kernel launched layers x prefills times on the card; through the
+   train step, loss and gradients within 1e-4;
 5. the SERVING PATH: ``Session(get_config("qwen3-14b"), device="cuda")
    .serve(slots=4, max_len=1024, page_size=16, chunk_tokens=256)`` at full
    width with random weights from ``--seed``, 6 requests of 24-700 prompt
@@ -38,7 +47,22 @@ Phases (any failure exits non-zero; no result line is printed then):
    times (each layer's forward and its remat recompute), the fused MLP
    never (training takes the plain SwiGLU). Every loss and grad norm
    must be finite and the peak memory under the card's. Prints step p50,
-   tokens/s, peak memory and the model-FLOPs share of 989 TFLOP/s.
+   tokens/s, peak memory and the model-FLOPs share of 989 TFLOP/s;
+7. the SSM SERVING PATH, after the trainer is freed:
+   ``Session(get_config("mamba2-780m"), device="cuda").serve(slots=4,
+   max_len=2048)`` at full width (48 layers, bf16, random weights from
+   ``--seed``) through the split path: 6 requests of 1024, 640, 384,
+   256, 128 and 77 prompt tokens (each <= 128 or a multiple of 128, the
+   reference's chunk precondition), 32 new tokens each. Launch counts are
+   zeroed just before and read just after: ``ssd_scan`` must have run
+   exactly ``48 x prefills`` times and the three other kernels never;
+   every request must finish with 32 tokens, ``prefill_traces`` equal
+   the 6 distinct lengths and ``decode_traces`` 1. Prints tokens/s, step
+   p50 (steps with a prefill and decode-only steps), peak memory; then
+   one more pair of requests (512 and 77 tokens, 12 new each) runs under
+   ``torch.profiler``, its admission step and its decode-only steps in
+   two windows, for the device time by kernel group, the device ops a
+   step and the idle share of each kind of step.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -424,6 +448,133 @@ def phase_flash(rng):
             "backward_ms": backward}
 
 
+def _ssd_inputs(gen, shape, dtype, *, model_decay=False):
+    """x, dt, A, B, C for the SSD kernel. x, B and C are views into one
+    (b, s, h p + 2 n) buffer, as ``mamba_forward`` hands them over.
+    ``model_decay``: dt and A from the model's init formulas
+    (``ssm.py::init_mamba``: dt = softplus(u + dt_bias), A = -exp(A_log));
+    else the distributions of tests/test_kernels.py."""
+    b, s, h, p, n = shape
+
+    def rnd(*sh):
+        return torch.randn(sh, generator=gen, device="cuda")
+
+    buf = torch.cat([rnd(b, s, h * p) * 0.5, rnd(b, s, 2 * n) * 0.3],
+                    dim=-1).to(dtype)
+    x = buf[..., :h * p].reshape(b, s, h, p)
+    bm, cm = buf[..., h * p:h * p + n], buf[..., h * p + n:]
+    if model_decay:
+        lin = torch.linspace(1e-3, 1e-1, h, device="cuda")
+        dt_bias = torch.log(torch.expm1(lin))
+        dt = torch.nn.functional.softplus(rnd(b, s, h) * 0.5 + dt_bias)
+        A = -torch.linspace(1.0, 16.0, h, device="cuda")
+    else:
+        dt = torch.nn.functional.softplus(rnd(b, s, h))
+        A = -torch.exp(rnd(h))
+    return x, dt, A, bm, cm
+
+
+def phase_ssd(rng):
+    """The SSD chunked scan: (a) bf16 at the serving path's prefill shape
+    (b 1, s 1024, h 48, p 64, n 128, chunk 128), (b) fp32 at small shapes
+    with a ragged chunk (s 77 at chunk 128) and several chunks (s 96 at
+    chunk 32); then times at the path's shape."""
+    from repro_torch.kernels import ssd_scan as sk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
+    # (a) both sides compute in fp32 from the same bf16 inputs and round y
+    # once: one bf16 ulp of each value, the flash rule; the final state is
+    # fp32 on both sides: 1e-4 of its largest value
+    atol, rtol, h_rtol = 1e-5, 8e-3, 1e-4
+    path = (1, 1024, 48, 64, 128)
+    chunk = 128
+    args = _ssd_inputs(gen, path, torch.bfloat16, model_decay=True)
+    y, h_last = sk.ssd_scan(*args, chunk=chunk)
+    want_y, want_h = sk.ssd_scan_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    y, want_y = y.float(), want_y.float()
+
+    def excess(a, w):                 # worst |a - w| / (atol + rtol |w|)
+        return ((a - w).abs() / (atol + rtol * w.abs())).max().item()
+
+    err = (y - want_y).abs().max().item()
+    bf16_excess = excess(y, want_y)
+    h_err = ((h_last - want_h).abs().max() / want_h.abs().max()).item()
+    check(bool(torch.isfinite(y).all() and torch.isfinite(h_last).all()),
+          "ssd output finite")
+    check(bf16_excess <= 1.0, f"ssd bf16 path shape: y max abs err {err}, "
+          f"worst error {bf16_excess:.3f}x atol {atol} + rtol {rtol}")
+    check(h_err <= h_rtol, f"ssd bf16 path shape: final state max err "
+          f"{h_err:.3e} of its largest value > {h_rtol}")
+    # the same check rejects a defect of the state passing: the last chunk
+    # scanned from a zero state (its carried-state term dropped)
+    tail = [a[:, -chunk:] for a in (args[0], args[1])]
+    bad, _ = sk.ssd_scan_plain(tail[0], tail[1], args[2], args[3][:, -chunk:],
+                               args[4][:, -chunk:], chunk=chunk)
+    drop = excess(bad.float(), want_y[:, -chunk:])
+    check(drop > 1.0, f"the bf16 check passes a scan that drops the carried "
+                      f"state (worst error {drop:.3f}x the limit)")
+    log(f"[ssd bf16 b=1 s=1024 h=48 p=64 n=128 chunk=128] kernel vs plain "
+        f"y max_abs_err {err:.3e}, worst error {bf16_excess:.3f}x the limit "
+        f"(atol {atol}, rtol {rtol}; reference rms "
+        f"{want_y.pow(2).mean().sqrt().item():.3e}, max "
+        f"{want_y.abs().max().item():.3e}); final state err {h_err:.3e} of "
+        f"its max (<= {h_rtol}); a dropped carried state would be "
+        f"{drop:.1f}x the limit")
+    del y, want_y, bad
+    # (b) fp32, 1e-4 as tests/test_kernels.py:118; final state 1e-4 relative
+    cases = [((1, 77, 2, 64, 128), 128, "ragged single chunk q=77"),
+             ((1, 96, 2, 16, 16), 32, "three chunks of 32"),
+             ((2, 256, 3, 64, 32), 64, "reference sweep")]
+    err32 = h_err32 = 0.0
+    for shape, ck, what in cases:
+        a = _ssd_inputs(gen, shape, torch.float32)
+        gy, gh = sk.ssd_scan(*a, chunk=ck)
+        wy, wh = sk.ssd_scan_plain(*a, chunk=ck)
+        check(torch.allclose(gy, wy, atol=1e-4, rtol=1e-4),
+              f"ssd fp32 {what} {shape}: y max abs err "
+              f"{(gy - wy).abs().max().item()} > atol=rtol=1e-4")
+        e = (gy - wy).abs().max().item()
+        he = ((gh - wh).abs().max() / wh.abs().max()).item()
+        check(he <= 1e-4, f"ssd fp32 {what}: final state err {he} > 1e-4")
+        log(f"[ssd f32 {what} {shape} chunk={ck}] y max_abs_err {e:.3e} "
+            f"(atol=rtol=1e-4), final state err {he:.3e} of its max")
+        err32, h_err32 = max(err32, e), max(h_err32, he)
+    # times at the path's shape (bf16); no PyTorch call computes the scan
+    kernel = time_ms(lambda: sk.ssd_scan(*args, chunk=chunk))
+    plain = time_ms(lambda: sk.ssd_scan_plain(*args, chunk=chunk),
+                    iters=3, warmup=1)
+    b, s, h, p, n = path
+    q = chunk
+    nc = s // q
+    # each input read once, each output written once
+    nbytes = (2 * (2 * b * s * h * p + 2 * b * s * n)   # x, y; B, C (bf16)
+              + 4 * (b * s * h + h + b * h * p * n))    # dt, A; final state
+    pairs = q * (q + 1) // 2                            # causal (i, j) a chunk
+    flops = 2.0 * b * nc * (pairs * n                   # C B^T, once a chunk
+                            + h * (pairs * p            # intra y
+                                   + 2 * q * n * p))    # inter y, state
+    bms, by = bound_ms(nbytes, flops, "bfloat16")
+    log(f"[ssd bf16 path shape] kernel {kernel:.4f} ms, plain {plain:.4f} "
+        f"ms, library none, bound {bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB "
+        f"at 3.35 TB/s vs {flops / 1e9:.3f} GFLOP at the bf16 peak of "
+        f"989 TFLOP/s; {flops / 67e12 * 1e3:.4f} ms at the fp32 CUDA-core "
+        f"peak of 67 TFLOP/s); {b * h} blocks on "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:65",
+            "max_abs_err": err, "max_abs_err_f32": err32,
+            "state_err_of_max": h_err, "state_err_of_max_f32": h_err32,
+            "tolerance": "bf16 y atol 1e-5 rtol 8e-3; fp32 y atol=rtol="
+                         "1e-4; final state 1e-4 of its max",
+            "bf16_worst_error_of_limit": bf16_excess,
+            "bf16_dropped_state_error_of_limit": drop,
+            "ms": kernel, "kernel_ms": kernel, "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "library": "none: no one PyTorch call computes the SSD scan"}
+
+
 # ------------------------------------------------------------------ phase 4
 
 def phase_parity():
@@ -461,6 +612,52 @@ def phase_parity():
     log(f"[parity f32, TF32 off] first-step logits max abs err card vs CPU "
         f"{err:.3e} (<= 1e-4); greedy streams identical over {len(prompts)} "
         f"requests")
+    return err
+
+
+def phase_parity_ssm():
+    """mamba2-smoke in fp32 (TF32 off) through the port's split-path
+    engine on the card and on the CPU: the first prefill's logits within
+    1e-4 (a first request with max_new 1 finishes on its prefill, so the
+    engine's last program is that prefill), then every greedy stream
+    identical. Prompts satisfy the chunk precondition (<= 32 or a multiple
+    of 32) and include two- and three-chunk prefills."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_smoke
+    from repro_torch.params import init_params
+    from repro_torch.serve.engine import ServeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_smoke("mamba2-780m").with_(dtype="float32")
+    cpu = init_params(cfg, device="cpu", seed=7)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+               for n in (64, 17, 32, 96, 9)]
+    res, first = {}, {}
+    for dev, params in (("cpu", cpu), ("cuda", _to(cpu, "cuda"))):
+        eng = ServeEngine(cfg, params, slots=2, max_len=160)
+        kernels.reset_launches()
+        eng.submit(0, prompts[0], max_new=1)
+        eng.step()
+        first[dev] = eng.last_logits.detach().float().cpu()
+        for i, p in enumerate(prompts[1:], 1):
+            eng.submit(i, p, max_new=6)
+        out = eng.run()
+        res[dev] = {i: list(out[i].out) for i in out}
+        want = cfg.num_layers * eng.stats["prefills"] if dev == "cuda" else 0
+        check(kernels.launches()["ssd_scan"] == want,
+              f"ssm parity on {dev}: {kernels.launches()} (ssd_scan "
+              f"{want} = layers x prefills)")
+    err = (first["cpu"] - first["cuda"]).abs().max().item()
+    check(first["cpu"].shape == (1, 1, cfg.vocab_size),
+          f"first prefill logits shape {tuple(first['cpu'].shape)}")
+    check(err <= 1e-4, f"ssm f32 first-prefill logits card vs CPU: "
+                       f"{err} > 1e-4")
+    check(res["cpu"] == res["cuda"],
+          f"ssm greedy streams differ: cpu {res['cpu']} cuda {res['cuda']}")
+    log(f"[parity ssm f32, TF32 off] mamba2-smoke first-prefill logits max "
+        f"abs err card vs CPU {err:.3e} (<= 1e-4); greedy streams identical "
+        f"over {len(prompts)} requests")
     return err
 
 
@@ -597,35 +794,52 @@ def phase_main(seed: int):
     return out, eng
 
 
-def phase_profile(eng, rng, step_p50_ms: float):
-    """Where the time goes: the main-path engine under torch.profiler for
-    one more pair of requests (a 600-token prompt, so three 256-row
-    chunks, and a 40-token one; 4 new tokens each). Device time is summed
-    by kernel group. The idle share is 1 - busy / window wall time (device
-    activity only is recorded, and the profiler's one-time start-up is
-    paid in a warm-up session before the window, to keep its host cost
-    out); it is also given against the unprofiled main run's step p50.
-    Diagnostic only: if the profiler records no device time the
-    breakdown reads "not measured"."""
-    from torch.autograd import DeviceType
+#: phase 5's kernel groups: name -> substrings of the device kernel's name
+SERVE_GROUPS = {"paged_attention": ("paged_attention_kernel",),
+                "fused_mlp": ("gemm_bf16", "gemm_f32")}
+
+
+def phase_profile(eng, rng, step_p50_ms: float, *, prompts=(600, 40),
+                  max_new: int = 4, groups=SERVE_GROUPS, tag="profile",
+                  steps=None):
+    """Where the time goes: a serving engine under torch.profiler for one
+    more pair of requests (phase 5: a 600-token prompt, so three 256-row
+    chunks, and a 40-token one; 4 new tokens each), over its next
+    ``steps`` steps (None: until it is idle). The profiler's one-time
+    start-up is paid in a warm-up session before the window, to keep its
+    host cost out."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]):
         torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
-    for rid, n in enumerate((600, 40)):
+    for rid, n in enumerate(prompts):
         eng.submit(100 + rid, rng.integers(0, eng.cfg.vocab_size, size=n),
-                   max_new=4)
-    steps0 = eng.stats["mixed_steps"]
+                   max_new=max_new)
+    return _profile_steps(eng, step_p50_ms, groups, tag, steps)
+
+
+def _profile_steps(eng, step_p50_ms: float, groups, tag: str, steps=None):
+    """Run ``steps`` engine steps (None: until idle) under torch.profiler
+    (device activity only). Device time is summed by kernel group
+    (``groups``, then other GEMMs, then the rest); device ops are counted
+    a step. The idle share is 1 - busy / window wall time; it is also
+    given against the unprofiled run's step p50 of the same kind of
+    step. Diagnostic only: if the profiler records no device time the
+    breakdown reads "not measured"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    steps0 = eng.stats["step_count"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        while eng.busy():
+        while eng.busy() and (steps is None
+                              or eng.stats["step_count"] - steps0 < steps):
             eng.step()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    groups = {"paged_attention": 0.0, "fused_mlp": 0.0, "other_gemm": 0.0,
-              "other": 0.0}
+    by_group = dict.fromkeys((*groups, "other_gemm", "other"), 0.0)
     kernels = {}
+    ops = 0
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -633,38 +847,38 @@ def phase_profile(eng, rng, step_p50_ms: float):
                      getattr(e, "self_cuda_time_total", 0.0)) / 1e3
         name = e.key
         low = name.lower()
-        if "paged_attention_kernel" in name:
-            group = "paged_attention"
-        elif "gemm_bf16" in name or "gemm_f32" in name:
-            group = "fused_mlp"
-        elif any(w in low for w in ("gemm", "xmma", "nvjet", "cutlass")):
-            group = "other_gemm"
-        else:
-            group = "other"
-        groups[group] += ms
+        group = next((g for g, keys in groups.items()
+                      if any(k in name for k in keys)), None)
+        if group is None:
+            group = "other_gemm" if any(
+                w in low for w in ("gemm", "xmma", "nvjet", "cutlass")) \
+                else "other"
+        by_group[group] += ms
         kernels[name] = kernels.get(name, 0.0) + ms
-    busy = sum(groups.values())
-    steps = eng.stats["mixed_steps"] - steps0
-    busy_step = busy / steps
-    out = {"steps": steps, "window_ms": wall_ms, "device_busy_ms": busy,
+        ops += e.count
+    busy = sum(by_group.values())
+    n = eng.stats["step_count"] - steps0
+    busy_step = busy / n
+    out = {"steps": n, "window_ms": wall_ms, "device_busy_ms": busy,
            "device_busy_per_step_ms": busy_step,
+           "device_ops_per_step": ops / n,
            "idle_share": (1 - busy / wall_ms) if busy else "not measured",
            "idle_share_vs_unprofiled_p50": (1 - busy_step / step_p50_ms)
            if busy else "not measured",
-           "by_group_ms": groups,
+           "by_group_ms": by_group,
            "top_kernels_ms": sorted(kernels.items(), key=lambda kv: -kv[1])[:8]}
     if busy:
         share = ", ".join(f"{g} {ms:.1f} ms ({ms / busy:.0%})"
-                          for g, ms in groups.items())
-        log(f"[profile] {steps} steps in {wall_ms:.1f} ms wall, device busy "
-            f"{busy:.1f} ms = {busy_step:.1f} ms a step (idle share "
-            f"{out['idle_share']:.1%} of the window, "
-            f"{out['idle_share_vs_unprofiled_p50']:.1%} of the unprofiled "
-            f"step p50 {step_p50_ms:.1f} ms): {share}")
+                          for g, ms in by_group.items())
+        log(f"[{tag}] {n} steps in {wall_ms:.1f} ms wall, device busy "
+            f"{busy:.1f} ms = {busy_step:.1f} ms a step, {ops / n:.0f} "
+            f"device ops a step (idle share {out['idle_share']:.1%} of the "
+            f"window, {out['idle_share_vs_unprofiled_p50']:.1%} of the "
+            f"unprofiled step p50 {step_p50_ms:.1f} ms): {share}")
         for name, ms in out["top_kernels_ms"]:
-            log(f"[profile]   {ms:9.2f} ms  {name[:90]}")
+            log(f"[{tag}]   {ms:9.2f} ms  {name[:90]}")
     else:
-        log("[profile] the profiler recorded no device time: not measured")
+        log(f"[{tag}] the profiler recorded no device time: not measured")
     return out
 
 
@@ -725,7 +939,7 @@ def _train_run(cfg, seed: int, steps: int, seq_len: int):
               f"step {h['step']}: loss {h['loss']}, grad_norm "
               f"{h['grad_norm']}")
     want = {"flash_attention": cfg.num_layers * steps * 2,
-            "fused_mlp": 0, "paged_attention": 0}
+            "fused_mlp": 0, "paged_attention": 0, "ssd_scan": 0}
     check(counts == want, f"train launches {counts} != {want} (flash: "
                           f"layers x steps x 2, forward + remat recompute)")
     peak = torch.cuda.max_memory_allocated()
@@ -844,6 +1058,114 @@ def _train_profile(trainer, step_p50_s: float):
     return out
 
 
+# ------------------------------------------------------------------ phase 7
+
+def phase_ssm(seed: int):
+    """The SSM SERVING PATH: ``Session(get_config("mamba2-780m"),
+    device="cuda").serve(slots=4, max_len=2048)`` at full width (48
+    layers, bf16, random weights from ``seed``): the split path, one
+    exact-length prefill a request through the SSD kernel and one batched
+    recurrent decode a step. Six requests of 1024, 640, 384, 256, 128 and
+    77 prompt tokens (each <= 128 or a multiple of it: the reference's
+    chunk precondition), 32 new tokens each. Counts are zeroed just before
+    and read just after: the SSD kernel must have run layers x prefills
+    times, the other kernels never."""
+    from repro_torch import kernels
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    from repro_torch.tree import flatten
+    cfg = get_config("mamba2-780m")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    session = Session(cfg, device="cuda", seed=seed)
+    eng = session.serve(slots=4, max_len=2048)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in flatten(session.params).values())
+    log(f"[ssm] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.ssm_heads} SSD heads x {cfg.ssm_head_dim}, state "
+        f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}, {n_params / 1e6:.1f} M params; weights + states "
+        f"ready in {time.perf_counter() - t0:.1f}s (decode state "
+        f"{eng.kv_bytes() / 1e6:.1f} MB); paged={eng.paged}, "
+        f"mixed={eng.mixed}")
+    rng = np.random.default_rng(seed)
+    lens = (1024, 640, 384, 256, 128, 77)
+    max_new = 32
+    for rid, n in enumerate(lens):
+        eng.submit(rid, rng.integers(0, cfg.vocab_size, size=(n,)),
+                   max_new=max_new)
+    kernels.reset_launches()
+    step_s, prefill_step = [], []
+    t0 = time.perf_counter()
+    while eng.busy():
+        s0 = time.perf_counter()
+        pf0 = eng.stats["prefills"]
+        eng.step()
+        step_s.append(time.perf_counter() - s0)
+        prefill_step.append(eng.stats["prefills"] > pf0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launches()
+    res = eng.results()
+    prefills = eng.stats["prefills"]
+    for rid in range(len(lens)):
+        r = res[rid]
+        check(r.done and len(r.out) == max_new,
+              f"request {rid} finished={r.done} with {len(r.out)} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in r.out),
+              f"request {rid} tokens out of range")
+    want = dict.fromkeys(counts, 0)
+    want["ssd_scan"] = cfg.num_layers * prefills
+    check(prefills == len(lens) and counts == want,
+          f"ssm launches {counts} != {want} ({cfg.num_layers} layers x "
+          f"{prefills} prefills for the SSD kernel, 0 for the others)")
+    check(eng.stats["prefill_traces"] == len(set(lens)),
+          f"prefill_traces {eng.stats['prefill_traces']} != "
+          f"{len(set(lens))} distinct prompt lengths")
+    check(eng.stats["decode_traces"] == 1,
+          f"decode_traces {eng.stats['decode_traces']} != 1")
+    check(bool(torch.isfinite(eng.last_logits).all()), "finite logits")
+    tokens = sum(len(res[r].out) for r in res)
+    step_ms = np.asarray(step_s) * 1e3
+    with_pf = np.asarray(prefill_step)
+    out = {"layers": cfg.num_layers, "params": n_params,
+           "prompt_lens": list(lens), "max_new": max_new, "tokens": tokens,
+           "wall_s": wall, "tokens_per_s": tokens / wall,
+           "steps": len(step_s), "prefills": prefills,
+           "step_p50_ms": float(np.percentile(step_ms, 50)),
+           "step_max_ms": float(step_ms.max()),
+           "prefill_steps": int(with_pf.sum()),
+           "prefill_step_p50_ms": float(np.percentile(step_ms[with_pf], 50)),
+           "decode_only_step_p50_ms": float(
+               np.percentile(step_ms[~with_pf], 50)),
+           "prefill_tokens": int(sum(lens)),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "decode_traces": eng.stats["decode_traces"],
+           "prefill_traces": eng.stats["prefill_traces"],
+           "launches": counts}
+    log(f"[ssm] {len(lens)} requests (prompts {list(lens)}), {tokens} tokens "
+        f"in {wall:.2f}s = {out['tokens_per_s']:.2f} tok/s; {len(step_s)} "
+        f"steps, step p50 {out['step_p50_ms']:.1f} ms (with a prefill "
+        f"{out['prefill_step_p50_ms']:.1f} ms over {out['prefill_steps']} "
+        f"steps, decode only {out['decode_only_step_p50_ms']:.1f} ms), max "
+        f"{out['step_max_ms']:.1f} ms; peak memory {out['peak_mem_gb']:.2f} "
+        f"GB; launches {counts}; prefill_traces "
+        f"{eng.stats['prefill_traces']}, decode_traces "
+        f"{eng.stats['decode_traces']}")
+    # one more pair (512 and 77 tokens, 12 new each): the admission step
+    # (two prefills and a decode) and the decode-only steps after it are
+    # profiled apart, each against the unprofiled p50 of its kind
+    groups = {"ssd_scan": ("ssd_scan_kernel",)}
+    out["profile"] = phase_profile(
+        eng, rng, out["prefill_step_p50_ms"], prompts=(512, 77),
+        max_new=12, groups=groups, tag="ssm profile: admission step",
+        steps=1)
+    out["profile_decode"] = _profile_steps(
+        eng, out["decode_only_step_p50_ms"], groups,
+        "ssm profile: decode-only steps")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -854,8 +1176,10 @@ def main():
               "torch": torch.__version__, "seed": args.seed}
     record["build_s"] = phase_build()
     rng = np.random.default_rng(args.seed)
-    kernels = [phase_attention(rng), phase_mlp(rng), phase_flash(rng)]
+    kernels = [phase_attention(rng), phase_mlp(rng), phase_flash(rng),
+               phase_ssd(rng)]
     record["parity_logits_err"] = phase_parity()
+    record["parity_ssm_logits_err"] = phase_parity_ssm()
     record["parity_train"] = phase_train_parity()
     main_run, eng = phase_main(args.seed)
     record["main"] = main_run
@@ -864,9 +1188,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     record["train"] = phase_train(args.seed)
+    gc.collect()                          # the trainer died with phase 6
+    torch.cuda.empty_cache()
+    record["ssm"] = phase_ssm(args.seed)
+    runs = {"flash_attention": record["train"], "ssd_scan": record["ssm"]}
     for k in kernels:
-        run = record["train"] if k["name"] == "flash_attention" else main_run
-        k["launches"] = run["launches"][k["name"]]
+        k["launches"] = runs.get(k["name"], main_run)["launches"][k["name"]]
     record["kernels"] = kernels
     record["total_s"] = time.perf_counter() - t_all
     out_dir = ROOT / "chiprun_out"

@@ -13,13 +13,18 @@
     small = Session(get_config("qwen3-14b").with_(num_layers=4))
     small.train(TrainConfig(steps=6), global_batch=1, seq_len=4096).run()
 
+    ssm = Session(get_config("mamba2-780m")).serve(slots=4, max_len=2048)
+
 One object owns the config, the strategy, the device and the params
 (random from ``seed`` unless given — e.g. from the JAX package's
 checkpoint through ``repro_torch.params.load_npz``). ``train`` trains
 those params in place, so a later ``serve`` sees the trained weights.
-``serve`` takes the reference's keyword names; the ones whose features
-are not ported yet raise ``NotImplementedError`` naming their ROADMAP.md
-item. Generate, the online stack and dry-runs come with later slices.
+``serve`` takes the reference's keyword names and the reference's
+family rules: a dense decoder gets the paged mixed-step engine, the SSM
+family the split prefill/decode path on the dense layout; the features
+not ported yet raise ``NotImplementedError`` naming their ROADMAP.md
+item, as does ``train`` for the SSM family. Generate, the online stack
+and dry-runs come with later slices.
 """
 from __future__ import annotations
 
@@ -61,6 +66,9 @@ class Session:
         """A Trainer on this session's strategy, device and params (the
         session's seed initialises them). ``restore=True`` resumes from
         the TrainConfig's checkpoint dir first."""
+        if self.cfg.arch_type != "dense":
+            raise _todo(f"training the {self.cfg.arch_type} family",
+                        f"Queue 1 item 10, {self.cfg.arch_type} training")
         tc = train_cfg or TrainConfig(seed=self.seed)
         trainer = Trainer(self.cfg, self.strategy, self.device, tc,
                           data=data, global_batch=global_batch,
@@ -79,10 +87,11 @@ class Session:
               chunk_tokens: int = 256, attn_backend: Optional[str] = None,
               spec=None, trace_level: int = 1) -> ServeEngine:
         """Continuous-batching engine over this session's params on its
-        device: the paged pool and ONE mixed token-slot program per step
-        (see serve/engine.py). ``attn_backend`` exists for the
-        reference's signature only: the device picks the kernel or the
-        plain path."""
+        device: for a dense decoder the paged pool and ONE mixed
+        token-slot program per step, for the SSM family exact-length
+        prefills and one batched recurrent decode a step (see
+        serve/engine.py). ``attn_backend`` exists for the reference's
+        signature only: the device picks the kernel or the plain path."""
         if plan is not None or (tp or 1) > 1 or (dp or 1) > 1:
             raise _todo("plan=/tp=/dp= serving", "Queue 1 item 11")
         if attn_backend is not None:

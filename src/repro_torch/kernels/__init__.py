@@ -6,11 +6,13 @@ from __future__ import annotations
 from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import fused_mlp as _fused_mlp
 from repro_torch.kernels import paged_attention as _paged_attention
+from repro_torch.kernels import ssd_scan as _ssd_scan
 
 #: the wrappers whose ``launches`` count shows a run went through them
 WRAPPERS = {"paged_attention": _paged_attention.paged_attention,
             "fused_mlp": _fused_mlp.fused_mlp,
-            "flash_attention": _flash_attention.flash_attention}
+            "flash_attention": _flash_attention.flash_attention,
+            "ssd_scan": _ssd_scan.ssd_scan}
 
 
 def reset_launches() -> None:

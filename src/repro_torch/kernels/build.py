@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: per-kernel argument types of each exported C function
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "paged_attention": {
         # q, k_pages, v_pages, table, pos, out, B, Hq, Hkv, D, page_size,
@@ -49,6 +49,11 @@ SIGNATURES = {
         # q, k, v, out, B, S, T, Hq, Hkv, D, causal, window, stream
         name: [_P] * 4 + [_I] * 8 + [_P]
         for name in ("flash_attention_f32", "flash_attention_bf16")},
+    "ssd_scan": {
+        # x, dt, A, B, C, y, h_last, b, s, h, p, n, q, the batch and row
+        # strides of x, dt, B and C, stream
+        name: [_P] * 7 + [_I] * 6 + [_L] * 8 + [_P]
+        for name in ("ssd_scan_f32", "ssd_scan_bf16")},
 }
 
 #: name -> the ptxas ``-v`` lines of its last build (or of the cached one)

@@ -35,3 +35,22 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     scores = scores.masked_fill(~mask, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     return torch.einsum("bhst,bthd->bshd", p, v.float()).to(q.dtype)
+
+
+def ssd_scan_ref(x, dt, A, B, C, *, chunk: int = 0):
+    """Sequential (non-chunked) SSD recurrence — the ground truth.
+
+    x (b,s,h,p), dt (b,s,h), A (h,), B/C (b,s,n). Returns y (b,s,h,p) in
+    x's dtype; the state is fp32."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        dtt = dt[:, t].float()                              # (b,h)
+        a = torch.exp(dtt * A.float()[None])
+        upd = torch.einsum("bh,bn,bhp->bhpn", dtt, B[:, t].float(),
+                           x[:, t].float())
+        state = a[:, :, None, None] * state + upd
+        ys.append(torch.einsum("bn,bhpn->bhp", C[:, t].float(), state))
+    return torch.stack(ys, dim=1).to(x.dtype)

@@ -1,0 +1,136 @@
+"""Mamba2 SSD chunked scan: the hand-written CUDA kernel
+(``csrc/ssd_scan.cu``) and its plain PyTorch version.
+
+Replaces the Pallas TPU kernel ``repro/kernels/ssd_scan.py::ssd_scan``
+(body ``_kernel``), which runs the chunk axis as a sequential grid
+dimension with the ``(n, p)`` fp32 state in VMEM scratch. Here one thread
+block per (batch, head) loops over its chunks with the state in shared
+memory; the design and its bound are in the source's header note.
+
+Contract: x ``(b, s, h, p)``; dt ``(b, s, h)`` fp32; A ``(h,)`` fp32
+(negative); B/C ``(b, s, n)``, one group shared by every head. With
+``q = min(chunk, s)`` and ``s % q == 0`` (the reference's precondition,
+``ssm.py:89``, ``ssd_scan.py:70``; a ``ValueError`` here), returns ``(y,
+h_last)``: y ``(b, s, h, p)`` in x's dtype and the final state ``(b, h,
+p, n)`` fp32 — ``repro/models/ssm.py::ssd_chunked``'s two results. All
+arithmetic is fp32.
+
+:func:`ssd_scan` takes the plain version only for a tensor on the CPU; on
+a CUDA tensor it launches the kernel or raises. The kernel has no
+backward: with a gradient required, callers take :func:`ssd_scan_plain`
+(``models/ssm.py::ssd_chunked`` does so by itself), as the reference
+trains through plain jnp.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.fused_mlp import needs_grad
+
+
+def chunk_rows(s: int, chunk: int) -> int:
+    """Rows a chunk, ``min(chunk, s)``; raises unless they divide ``s``."""
+    q = min(chunk, s)
+    if q < 1 or s % q:
+        raise ValueError(
+            f"ssd_scan: s % min(chunk, s) == 0 is required (the "
+            f"reference's precondition), got s={s}, chunk={chunk}")
+    return q
+
+
+def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 128):
+    """The port of ``repro/models/ssm.py::ssd_chunked``: the intra-chunk
+    masked-decay product, the chunk states, the inter-chunk state scan
+    and the carried-state term, in fp32. Differentiable."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    q = chunk_rows(s, chunk)
+    nc = s // q
+    dt = dt.float()
+    x_dt = x.float() * dt[..., None]                       # absorb dt into x
+    cum = torch.cumsum((dt * A.float()[None, None, :]).reshape(b, nc, q, h),
+                       dim=2)                              # (b,nc,q,h)
+    xc = x_dt.reshape(b, nc, q, h, p)
+    bc = B.float().reshape(b, nc, q, n)
+    cc = C.float().reshape(b, nc, q, n)
+    # intra-chunk: att[b,c,i,j,h] = (C_i . B_j) exp(cum_i - cum_j), i >= j
+    scores = torch.einsum("bcin,bcjn->bcij", cc, bc)
+    dec = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # (b,nc,i,j,h)
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    dec = dec.masked_fill(~mask[None, None, :, :, None], float("-inf"))
+    att = scores[..., None] * torch.exp(dec)
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", att, xc)
+    # chunk states: S_c[h,p,n] = sum_j exp(cum_last - cum_j) B_j x_j
+    dec_end = torch.exp(cum[:, :, -1:, :] - cum)           # (b,nc,q,h)
+    states = torch.einsum("bcjn,bcjh,bcjhp->bchpn", bc, dec_end, xc)
+    chunk_decay = torch.exp(cum[:, :, -1, :])              # (b,nc,h)
+    hstate = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    hprevs = []
+    for c in range(nc):
+        hprevs.append(hstate)
+        hstate = chunk_decay[:, c, :, None, None] * hstate + states[:, c]
+    hprevs = torch.stack(hprevs, dim=1)                    # (b,nc,h,p,n)
+    y_inter = torch.einsum("bcin,bchpn->bcihp", cc, hprevs)
+    y_inter = y_inter * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(b, s, h, p)
+    return y.to(x.dtype), hstate
+
+
+def ssd_scan_cuda(x, dt, A, B, C, *, chunk: int = 128):
+    """Launch the CUDA kernel on PyTorch's current stream. x, B and C are
+    read in place through their strides (x may be a view of the conv
+    output); y and the final state are new contiguous tensors."""
+    if needs_grad(x, dt, A, B, C):
+        raise RuntimeError(
+            "ssd_scan kernel has no backward: with a gradient required, "
+            "use ssd_scan_plain (repro_torch.models.ssm.ssd_chunked takes "
+            "it by itself), or call under torch.no_grad()")
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    if dt.shape != (b, s, h) or A.shape != (h,) or B.shape != (b, s, n) \
+            or C.shape != (b, s, n):
+        raise ValueError(
+            f"ssd_scan: x {tuple(x.shape)}, dt {tuple(dt.shape)}, A "
+            f"{tuple(A.shape)}, B {tuple(B.shape)}, C {tuple(C.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or \
+            B.dtype != x.dtype or C.dtype != x.dtype or \
+            dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise TypeError(
+            f"ssd_scan kernel takes float32 or bfloat16 x, B, C of one "
+            f"dtype and float32 dt, A; got x {x.dtype}, B {B.dtype}, C "
+            f"{C.dtype}, dt {dt.dtype}, A {A.dtype}")
+    for a in (x, dt, A, B, C):
+        if not a.is_cuda:
+            raise ValueError("ssd_scan kernel takes CUDA tensors")
+    if x.stride(3) != 1 or x.stride(2) != p or dt.stride(2) != 1 or \
+            B.stride(2) != 1 or C.stride(2) != 1 or not A.is_contiguous():
+        raise ValueError(
+            "ssd_scan kernel reads x with channel stride 1 and head stride "
+            "p, and dt, B, C with unit stride along their last axis")
+    q = chunk_rows(s, chunk)
+    y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
+    h_last = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    lib = build.load("ssd_scan")
+    fn = lib.ssd_scan_bf16 if x.dtype == torch.bfloat16 else lib.ssd_scan_f32
+    code = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+              C.data_ptr(), y.data_ptr(), h_last.data_ptr(), b, s, h, p, n,
+              q, x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
+              B.stride(0), B.stride(1), C.stride(0), C.stride(1),
+              torch.cuda.current_stream(x.device).cuda_stream)
+    # the kernel checks its own shape limits (csrc/ssd_scan.cu)
+    build.check(code, f"ssd_scan at h={h} p={p} n={n} q={q}")
+    ssd_scan.launches += 1
+    return y, h_last
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 128):
+    """Dispatch by device: the plain version for CPU tensors, the CUDA
+    kernel for CUDA tensors (which raises when a gradient is required).
+    ``ssd_scan.launches`` counts calls that launched the kernel."""
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+    return ssd_scan_cuda(x, dt, A, B, C, chunk=chunk)
+
+
+ssd_scan.launches = 0

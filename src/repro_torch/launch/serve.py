@@ -1,23 +1,32 @@
-"""Serving launcher of the port: spin up the paged mixed-step engine
-through ``repro_torch.api.Session`` and stream a synthetic batch of
-requests through it — the counterpart of ``python -m repro.launch.serve``
-in batch mode.
+"""Serving launcher of the port: spin up the engine through
+``repro_torch.api.Session`` and stream a synthetic batch of requests
+through it — the counterpart of ``python -m repro.launch.serve`` in batch
+mode. A dense decoder runs the paged mixed-step engine, the SSM family
+(``--arch mamba2-780m``) the split prefill/decode path on the dense
+layout.
 
     # on the card, full-width Qwen3-14B (random weights from --seed)
     PYTHONPATH=src python -m repro_torch.launch.serve --full \\
         --slots 4 --max-len 1024 --chunk-tokens 256 --requests 6
 
-    # on the CPU, the reduced config in float32
+    # on the card, full-width Mamba2-780M
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
+        --full --slots 4 --max-len 2048 --requests 6
+
+    # on the CPU, the reduced configs in float32
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
+        --device cpu
 
 Without ``--full`` the arch's smoke config runs in float32, as the JAX
 launcher does; ``--full`` takes the arch's full ``CONFIG`` in its own
-dtype (bfloat16). The device picks the attention and MLP path (CUDA: the
+dtype (bfloat16). The device picks the kernel path (CUDA: the
 hand-written kernels; CPU: their plain versions). Flags of features the
-port has not reached (``--dense``, ``--no-mixed``, ``--prefix-cache``,
-``--lazy``, ``--spec-k``, ``--tp``/``--dp``) raise NotImplementedError
-naming their ROADMAP.md item; the online mode (``--serve``) waits for the
-online stack.
+port has not reached (``--dense`` and ``--no-mixed`` for a dense decoder,
+``--prefix-cache``, ``--lazy``, ``--spec-k``, ``--tp``/``--dp``) raise
+NotImplementedError naming their ROADMAP.md item (``--prefix-cache`` and
+``--lazy`` on the SSM family raise the reference's ValueError); the
+online mode (``--serve``) waits for the online stack.
 """
 from __future__ import annotations
 
@@ -48,7 +57,8 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy; >0 = temperature sampling")
     ap.add_argument("--dense", action="store_true",
-                    help="dense per-slot KV layout (not ported yet)")
+                    help="dense per-slot KV layout (the SSM family's "
+                         "layout; not ported for dense decoders)")
     ap.add_argument("--page-size", type=int, default=16,
                     help="tokens per KV page")
     ap.add_argument("--kv-pages", type=int, default=None,
@@ -59,7 +69,8 @@ def main(argv=None):
     ap.add_argument("--lazy", action="store_true",
                     help="lazy page growth (not ported yet)")
     ap.add_argument("--no-mixed", action="store_true",
-                    help="legacy split prefill/decode (not ported yet)")
+                    help="legacy split prefill/decode (the SSM family's "
+                         "path; not ported for dense decoders)")
     ap.add_argument("--chunk-tokens", type=int, default=256,
                     help="mixed step token budget shared by decode tokens "
                          "and prefill chunks (must be >= --slots)")
@@ -109,12 +120,16 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     total = sum(len(r.out) for r in results.values())
     st = eng.stats
+    layout = f"paged/{eng.page_size}tok-pages" if eng.paged \
+        else "dense slot table, split prefill/decode"
     print(f"served {len(results)} requests, {total} tokens in {dt:.2f}s "
           f"({total / dt:.1f} tok/s on {eng.device}, {args.slots} slots, "
-          f"paged/{eng.page_size}tok-pages, {st['decode_backend']} path, "
-          f"kv {eng.kv_bytes() / 1e6:.1f}MB, {st['decode_steps']} decode "
-          f"steps, {st['decode_traces']} program shapes)")
-    print(f"  pool: peak {st['peak_pages']}/{eng.kv_pages} pages")
+          f"{layout}, {st['decode_backend']} path, "
+          f"state {eng.kv_bytes() / 1e6:.1f}MB, {st['decode_steps']} decode "
+          f"steps, {st['decode_traces']} decode shapes, "
+          f"{st['prefill_traces']} prefill lengths)")
+    if eng.paged:
+        print(f"  pool: peak {st['peak_pages']}/{eng.kv_pages} pages")
     if args.trace_out:
         obj = eng.export_trace(args.trace_out)
         print(f"  trace: {len(obj['traceEvents'])} events written to "

@@ -1,0 +1,91 @@
+"""Pure-SSM LM (mamba2-780m) — the port of ``repro/models/mamba_lm.py``:
+attention-free, constant-size decode state.
+
+Parameters are the nested dicts of ``params.py`` with the per-layer
+weights stacked on a leading L axis; the layer stack is a Python loop
+over that axis where the reference scans.
+
+  forward(params, batch, cfg)                    -> logits, aux
+  init_cache(cfg, batch, max_len, dtype=, device=) -> cache
+  prefill(params, batch, cfg, cache)             -> last logits, cache
+  decode_step(params, cache, token, pos, cfg)    -> logits, cache
+
+The cache is ``{"ssm": {"state": (L,B,H,P,N) fp32, "conv": (L,B,W-1,C)},
+"pos": ...}``. ``decode_step`` writes the new states into the cache's
+tensors in place (the reference returns a new tree): the serve engine
+holds one cache for its whole life, so no second copy of it is made a
+step.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import ssm
+from repro_torch.models.layers import rmsnorm
+from repro_torch.models.transformer import unstack_layers
+
+
+def _embed(params, tokens, cfg):
+    return params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
+
+
+def _head(params, x, cfg):
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return x @ params["lm_head"]
+
+
+def forward(params, batch, cfg, **_):
+    """batch: {"tokens": (B,S) int}. Returns (logits (B,S,V), aux=0)."""
+    x = _embed(params, batch["tokens"], cfg)
+    for lp in unstack_layers(params, cfg.num_layers):
+        x = x + ssm.mamba_forward(lp["mamba"],
+                                  rmsnorm(x, lp["norm"], cfg.norm_eps), cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _head(params, x, cfg), aux
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None):
+    """Zero states for ``batch`` rows (``max_len`` is unused: the state
+    does not grow with the context)."""
+    dtype = dtype or getattr(torch, cfg.dtype)
+    one = ssm.init_mamba_cache(cfg, batch, dtype, device)
+    return {"ssm": {k: torch.zeros((cfg.num_layers,) + tuple(v.shape),
+                                   dtype=v.dtype, device=v.device)
+                    for k, v in one.items()},
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def prefill(params, batch, cfg, cache=None, **_):
+    """Run the prompt, return the last position's logits (B,1,V) and a
+    fresh cache holding every layer's final state and conv tail."""
+    tokens = batch["tokens"]
+    x = _embed(params, tokens, cfg)
+    states, convs = [], []
+    for lp in unstack_layers(params, cfg.num_layers):
+        y, st = ssm.mamba_forward(lp["mamba"],
+                                  rmsnorm(x, lp["norm"], cfg.norm_eps), cfg,
+                                  return_state=True)
+        x = x + y
+        states.append(st["state"])
+        convs.append(st["conv"])
+    cache = {"ssm": {"state": torch.stack(states), "conv": torch.stack(convs)},
+             "pos": torch.tensor(tokens.shape[1], dtype=torch.int32,
+                                 device=x.device)}
+    return _head(params, x[:, -1:], cfg), cache
+
+
+def decode_step(params, cache, token, pos, cfg):
+    """token (B,1) int; ``pos`` scalar or per-row (B,): the recurrence is
+    position-free, so only ``cache["pos"] = pos + 1`` changes. The states
+    of ``cache["ssm"]`` are updated in place."""
+    x = _embed(params, token, cfg)
+    state, conv = cache["ssm"]["state"], cache["ssm"]["conv"]
+    for i, lp in enumerate(unstack_layers(params, cfg.num_layers)):
+        y, st = ssm.mamba_step(lp["mamba"],
+                               {"state": state[i], "conv": conv[i]},
+                               rmsnorm(x, lp["norm"], cfg.norm_eps), cfg)
+        state[i] = st["state"]
+        conv[i] = st["conv"]
+        x = x + y
+    cache["pos"] = pos + 1
+    return _head(params, x, cfg), cache

@@ -1,14 +1,20 @@
-"""Parameters of the dense decoder: random init at the reference's shapes,
-scales and dtypes, and the weight bridge from the JAX package's trees and
-checkpoints.
+"""Parameters of the ported families: random init at the reference's
+shapes, scales and dtypes, and the weight bridge from the JAX package's
+trees and checkpoints.
 
-The tree mirrors ``repro/models/transformer.py::init`` (with
-``layers.py::dense_init``, ``init_attn`` and ``init_mlp``): nested dicts,
-per-layer weights stacked on a leading L axis, matrices ``normal * 0.02``
-except ``wo`` and ``w_down`` at ``0.02 / sqrt(2L)``, norm scales fp32
-ones, matrices in ``cfg.dtype``. Leaves are keyed by the ``"/"``-joined
-paths of ``repro/checkpoint/io.py::_flatten`` (``layers/attn/wq``, ...),
-which is the bridge's key map.
+The dense decoder's tree mirrors ``repro/models/transformer.py::init``
+(with ``layers.py::dense_init``, ``init_attn`` and ``init_mlp``): nested
+dicts, per-layer weights stacked on a leading L axis, matrices ``normal *
+0.02`` except ``wo`` and ``w_down`` at ``0.02 / sqrt(2L)``, norm scales
+fp32 ones, matrices in ``cfg.dtype``. The SSM family's mirrors
+``repro/models/mamba_lm.py::init`` and ``ssm.py::init_mamba``: the same
+embedding, head and norms, and per layer ``in_proj`` ``(d, 2 din + 2N +
+H)``, ``conv_w`` fp32 ``normal * 0.5``, ``conv_b`` zeros, ``dt_bias`` and
+``A_log`` deterministic ``linspace`` formulas, ``D`` and ``gn_scale``
+ones, ``out_proj`` at ``0.02 / sqrt(2L)``. Leaves are keyed by the
+``"/"``-joined paths of ``repro/checkpoint/io.py::_flatten``
+(``layers/attn/wq``, ``layers/mamba/in_proj``, ...), which is the
+bridge's key map.
 
 The random draws are the port's own (``torch.Generator``), not
 ``jax.random``'s: parity tests initialise in JAX and load the tree here.
@@ -17,43 +23,96 @@ from __future__ import annotations
 
 import math
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.tree import unflatten
 
-#: key -> (shape, dtype, std) with std None for a ones-initialised scale
-Spec = Dict[str, Tuple[tuple, torch.dtype, float]]
+#: key -> (shape, dtype, init): init is the std of a normal draw, or one
+#: of the kinds of :data:`FIXED_INITS`
+Spec = Dict[str, Tuple[tuple, torch.dtype, Union[float, str]]]
+
+
+def _linspace(start: float, stop: float, num: int):
+    """``jnp.linspace(start, stop, num, dtype=float32)``'s formula in fp32
+    (``start * (1 - step) + stop * step``, the last entry ``stop``);
+    XLA may round an entry one ulp apart."""
+    step = torch.arange(num - 1, dtype=torch.float32) / (num - 1)
+    out = torch.tensor(start, dtype=torch.float32) * (1 - step) \
+        + torch.tensor(stop, dtype=torch.float32) * step
+    return torch.cat([out, torch.tensor([stop], dtype=torch.float32)])
+
+
+#: deterministic leaves: kind -> (shape -> fp32 CPU tensor)
+FIXED_INITS = {
+    "ones": lambda shape: torch.ones(shape),
+    "zeros": lambda shape: torch.zeros(shape),
+    # ssm.py::init_mamba, per layer, stacked on L
+    "dt_bias": lambda shape: torch.log(torch.expm1(
+        _linspace(1e-3, 1e-1, shape[-1]))).expand(shape),
+    "a_log": lambda shape: torch.log(
+        _linspace(1.0, 16.0, shape[-1])).expand(shape),
+}
+
+
+def _check_family(cfg):
+    if cfg.is_moe or cfg.arch_type not in ("dense", "ssm"):
+        raise NotImplementedError(
+            f"{cfg.name}: the port holds dense-decoder and SSM params only "
+            f"so far ({cfg.arch_type} waits for ROADMAP.md Queue 1 item 10)")
+
+
+def _ssm_spec(cfg) -> Spec:
+    dt = getattr(torch, cfg.dtype)
+    f32 = torch.float32
+    L, d, v = cfg.num_layers, cfg.d_model, cfg.vocab_size
+    h, n, w = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_conv_width
+    din = h * cfg.ssm_head_dim
+    ch = din + 2 * n
+    return {
+        "embed": ((v, d), dt, 0.02),
+        "final_norm": ((d,), f32, "ones"),
+        "lm_head": ((d, v), dt, 0.02),
+        "layers/norm": ((L, d), f32, "ones"),
+        "layers/mamba/in_proj": ((L, d, 2 * din + 2 * n + h), dt, 0.02),
+        "layers/mamba/conv_w": ((L, w, ch), f32, 0.5),
+        "layers/mamba/conv_b": ((L, ch), f32, "zeros"),
+        "layers/mamba/dt_bias": ((L, h), f32, "dt_bias"),
+        "layers/mamba/A_log": ((L, h), f32, "a_log"),
+        "layers/mamba/D": ((L, h), f32, "ones"),
+        "layers/mamba/gn_scale": ((L, din), f32, "ones"),
+        "layers/mamba/out_proj": ((L, din, d), dt,
+                                  0.02 / math.sqrt(2 * L)),
+    }
 
 
 def param_spec(cfg) -> Spec:
-    """Every leaf of the dense decoder's tree, in ``_flatten`` key form."""
-    if cfg.arch_type != "dense" or cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: the port holds dense-decoder params only so far "
-            f"({cfg.arch_type} waits for ROADMAP.md Queue 1 item 10)")
+    """Every leaf of the family's tree, in ``_flatten`` key form."""
+    _check_family(cfg)
+    if cfg.arch_type == "ssm":
+        return _ssm_spec(cfg)
     dt = getattr(torch, cfg.dtype)
     f32 = torch.float32
     L, d, f, v = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
     deep = 0.02 / math.sqrt(2 * L)
     spec: Spec = {
         "embed": ((v, d), dt, 0.02),
-        "final_norm": ((d,), f32, None),
+        "final_norm": ((d,), f32, "ones"),
         "layers/attn/wq": ((L, d, cfg.q_dim), dt, 0.02),
         "layers/attn/wk": ((L, d, cfg.kv_dim), dt, 0.02),
         "layers/attn/wv": ((L, d, cfg.kv_dim), dt, 0.02),
         "layers/attn/wo": ((L, cfg.q_dim, d), dt, deep),
-        "layers/ln1": ((L, d), f32, None),
-        "layers/ln2": ((L, d), f32, None),
+        "layers/ln1": ((L, d), f32, "ones"),
+        "layers/ln2": ((L, d), f32, "ones"),
         "layers/mlp/w_gate": ((L, d, f), dt, 0.02),
         "layers/mlp/w_up": ((L, d, f), dt, 0.02),
         "layers/mlp/w_down": ((L, f, d), dt, deep),
     }
     if cfg.qk_norm:
-        spec["layers/attn/q_norm"] = ((L, cfg.head_dim), f32, None)
-        spec["layers/attn/k_norm"] = ((L, cfg.head_dim), f32, None)
+        spec["layers/attn/q_norm"] = ((L, cfg.head_dim), f32, "ones")
+        spec["layers/attn/k_norm"] = ((L, cfg.head_dim), f32, "ones")
     if not cfg.tie_embeddings:
         spec["lm_head"] = ((d, v), dt, 0.02)
     return spec
@@ -66,15 +125,16 @@ def init_params(cfg, *, device="cuda", generator=None, seed: int = 0):
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
     flat = {}
-    for key, (shape, dtype, std) in param_spec(cfg).items():
-        if std is None:
-            flat[key] = torch.ones(shape, dtype=dtype, device=device)
+    for key, (shape, dtype, init) in param_spec(cfg).items():
+        if isinstance(init, str):
+            flat[key] = FIXED_INITS[init](shape).to(device=device,
+                                                   dtype=dtype).contiguous()
             continue
         out = torch.empty(shape, dtype=dtype, device=device)
         parts = out if key.startswith("layers/") else out[None]
         for part in parts:
             part.copy_(torch.randn(part.shape, generator=generator,
-                                   device=device) * std)
+                                   device=device) * init)
         flat[key] = out
     return unflatten(flat)
 

@@ -1,13 +1,18 @@
-"""Serving engine: continuous batching over ONE mixed token-slot step per
-engine step — the port of the paged, mixed path of
-``repro/serve/engine.py``.
+"""Serving engine: continuous batching over a slot table — the port of
+the paged mixed path and the legacy split path of
+``repro/serve/engine.py``. The family and the layout decide the path, by
+the reference's rules: dense decoders take the paged pool and ONE mixed
+token-slot step per engine step; the SSM family (not pageable: its cache
+is a constant-size recurrent state) takes the dense per-slot layout and
+the split path.
 
-The KV cache is a flat pool of ``page_size``-token pages shared by every
-slot plus a per-slot page table (models/kvcache.py); which pages a slot
-owns is host bookkeeping (serve/paging.py). Each step runs one device
-program over a ``chunk_tokens``-row batch: every decoding slot's next
-token first, then prefill CHUNKS of admitted requests (serve/step.py::
-pack_token_budget), then pads. Each row carries its context position, its
+**Mixed path (dense decoders).** The KV cache is a flat pool of
+``page_size``-token pages shared by every slot plus a per-slot page
+table (models/kvcache.py); which pages a slot owns is host bookkeeping
+(serve/paging.py). Each step runs one device program over a
+``chunk_tokens``-row batch: every decoding slot's next token first, then
+prefill CHUNKS of admitted requests (serve/step.py::pack_token_budget),
+then pads. Each row carries its context position, its
 page-table row, whether to sample from it, and whether its K/V write goes
 to the null page. ``decode_step`` scatters every row's K/V before any row
 attends, so chunked prefill is exact: greedy output equals the JAX
@@ -20,14 +25,29 @@ jit traces; PyTorch runs eagerly, so ``stats["decode_traces"]`` counts
 the distinct ``(chunk_tokens, page bucket)`` shapes the program has run
 at — the same bounded-shape invariant.
 
-The device decides the attention and MLP path: CUDA runs the port's
-hand-written kernels, the CPU their plain versions
+**Split path (the SSM family).** Each admitted request is prefilled
+alone at its exact length (the recurrence is pad-sensitive, so no
+buckets), its first token sampled, and its final states written into row
+``slot`` of the engine's one batched cache in place; then ONE batched
+recurrent decode advances every slot per step (inactive rows run too and
+are overwritten at their next prefill, as in the reference).
+``stats["prefill_traces"]`` counts the distinct prefill lengths run and
+``stats["decode_traces"]`` the distinct decode shapes (one) — the
+reference's jit-trace counts. The reference's chunked-SSD precondition
+holds: a prompt longer than ``ssm_chunk`` that is not a multiple of it
+raises ``ValueError`` inside its prefill, after it left the queue, where
+the reference's assert fires.
+
+The device decides the kernel path: CUDA runs the port's hand-written
+kernels (paged attention and the fused MLP on the mixed path, the SSD
+scan in every SSM prefill), the CPU their plain versions
 (``stats["decode_backend"]`` reads ``"kernel"`` or ``"plain"``).
 
 Not ported yet, each raising ``NotImplementedError`` naming its
 ROADMAP.md item: prefix sharing, lazy growth / CoW / preemption, other
-schedulers and deadlines, speculative decode, the legacy split path and
-the dense layout, TP/DP meshes, frames/images and the non-dense families.
+schedulers and deadlines, speculative decode, the split path and the
+dense layout for dense decoders, TP/DP meshes, frames/images and the
+families other than dense and SSM.
 """
 from __future__ import annotations
 
@@ -39,13 +59,18 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.models import kvcache, transformer
+from repro_torch.models import get_model, kvcache, transformer
 from repro_torch.serve.paging import PageAllocator, pages_for
 from repro_torch.serve.sampling import sample_tokens
 from repro_torch.serve.scheduler import FifoLeastProgress
 from repro_torch.serve.step import pack_token_budget, page_bucket
 from repro_torch.serve.tracing import (NULL_STEP, Tracer, chrome_trace,
                                        export_chrome_trace)
+
+
+#: families whose decode cache can use the paged (block-table) layout —
+#: the reference's ``PAGEABLE_ARCHS`` among the families ported so far
+PAGEABLE_ARCHS = ("dense",)
 
 
 def _todo(what: str, item: str):
@@ -77,16 +102,37 @@ class ServeEngine:
                  scheduler=None, mesh=None, mixed: Optional[bool] = None,
                  chunk_tokens: int = 256, spec=None, tracer=None,
                  trace_level: int = 1, device=None):
-        if cfg.arch_type != "dense" or cfg.is_moe:
-            raise _todo(f"serving the {cfg.arch_type} family",
-                        "Queue 1 item 10")
+        self.model = get_model(cfg)    # raises for the unported families
         if cfg.sliding_window > 0:
             raise _todo("the sliding-window ring cache", "Queue 1 item 10")
-        if paged is False:
-            raise _todo("the dense KV layout (paged=False)",
-                        "Queue 1 item 5(d)")
-        if mixed is False:
-            raise _todo("the legacy split prefill/decode path (mixed=False)",
+        # the reference's family and layout rules (engine.py:219-264)
+        pageable = cfg.arch_type in PAGEABLE_ARCHS
+        if (prefix_cache or lazy) and not pageable:
+            raise ValueError(
+                f"{cfg.name}: prefix_cache/lazy ride on the paged KV "
+                f"pool, which needs a full-attention decoder "
+                f"({'/'.join(PAGEABLE_ARCHS)}, no sliding window) — "
+                f"unavailable for {cfg.arch_type}")
+        if paged is None:
+            paged = True if (prefix_cache or lazy) else pageable
+        if paged and not pageable:
+            raise ValueError(
+                f"{cfg.name}: paged KV needs a full-attention decoder "
+                f"({'/'.join(PAGEABLE_ARCHS)}, no sliding window); "
+                f"{cfg.arch_type} keeps the dense layout (paged=False)")
+        if mixed is None:
+            mixed = bool(paged)
+        if mixed and not paged:
+            raise ValueError(
+                f"{cfg.name}: the mixed token-slot step writes prefill "
+                "chunks through the paged KV scatter; drop paged=False "
+                "(or pass mixed=False) to serve this arch")
+        if pageable and not paged:
+            raise _todo("the dense KV layout (paged=False) for dense "
+                        "decoders", "Queue 1 item 5(d)")
+        if pageable and not mixed:
+            raise _todo("the legacy split prefill/decode path "
+                        "(mixed=False) for dense decoders",
                         "Queue 1 item 5(d)")
         if prefix_cache:
             raise _todo("prefix_cache", "Queue 1 item 5(b)")
@@ -102,7 +148,7 @@ class ServeEngine:
             raise _todo("tp/dp meshes (mesh=)", "Queue 1 item 11")
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
-        if chunk_tokens < max(slots, 1):
+        if mixed and chunk_tokens < max(slots, 1):
             raise ValueError(
                 f"chunk_tokens ({chunk_tokens}) must be >= slots "
                 f"({slots}): every active slot's decode token is "
@@ -110,6 +156,7 @@ class ServeEngine:
         self.cfg, self.params = cfg, params
         self.device = torch.device(device) if device is not None \
             else params["embed"].device
+        self.paged, self.mixed = bool(paged), bool(mixed)
         self.slots = slots
         self.max_len = max_len
         self.eos_id = eos_id
@@ -120,9 +167,9 @@ class ServeEngine:
         self.active: List[Optional[Request]] = [None] * slots
         self.finished: Dict[int, Request] = {}
         backend = "kernel" if self.device.type == "cuda" else "plain"
-        # the reference's stats keys of the ported path (prefill_traces
-        # stays 0: no separate prefill program); each other key comes with
-        # the slice that ports its feature
+        # the reference's stats keys of the ported paths (prefill_traces
+        # stays 0 on the mixed path: no separate prefill program); each
+        # other key comes with the slice that ports its feature
         self.stats = {"decode_steps": 0, "decode_traces": 0,
                       "prefills": 0, "prefill_traces": 0,
                       "pages_in_use": 0, "peak_pages": 0,
@@ -140,35 +187,60 @@ class ServeEngine:
             else FifoLeastProgress()
         self._pos = np.zeros(slots, np.int64)    # host mirror: tokens in ctx
         self._last = np.zeros(slots, np.int64)   # host mirror: last token
-        # the paged pool; page 0 is the null page (padding / inactive)
-        pps = pages_for(max_len, page_size)      # table width: blocks/slot
-        self.kv_pages = kv_pages if kv_pages is not None else slots * pps
+        #: logits of the last device program run (mixed step: (T, 1, V);
+        #: split path: a prefill's (1, 1, V) or a decode's (slots, 1, V))
+        self.last_logits = None
+        # distinct program shapes run: (T, bucket) of the mixed step;
+        # prefill lengths and decode batch shapes of the split path
+        self._shapes = set()
+        self._prefill_lens = set()
+        if self.paged:
+            self._init_pool(kv_pages)
+        else:
+            # the slot table: one batched cache, per-slot position vector
+            self._cache = self.model.init_cache(cfg, slots, max_len,
+                                                device=self.device)
+            self._cache["pos"] = torch.zeros((slots,), dtype=torch.int32,
+                                             device=self.device)
+
+    def _init_pool(self, kv_pages: Optional[int]):
+        """The paged pool (page 0 is the null page: padding / inactive),
+        the page allocator and the mid-prefill slot table."""
+        pps = pages_for(self.max_len, self.page_size)  # blocks a slot
+        self.kv_pages = kv_pages if kv_pages is not None \
+            else self.slots * pps
         if self.kv_pages < 1:
             raise ValueError(f"kv_pages must be >= 1, got {self.kv_pages}")
+        cfg = self.cfg
         self._cache = {"kv": kvcache.init_paged_kv(
-            cfg.num_layers, self.kv_pages + 1, page_size, cfg.num_kv_heads,
-            cfg.head_dim, getattr(torch, cfg.dtype), self.device)}
+            cfg.num_layers, self.kv_pages + 1, self.page_size,
+            cfg.num_kv_heads, cfg.head_dim, getattr(torch, cfg.dtype),
+            self.device)}
         # the DEVICE page table is clipped to the power-of-two bucket of
         # the page high-water mark (_sync_ptab); the host mirror is full
         self._pps = pps
         self._gather = 1
         self._hw_blocks = 1
-        self._ptab = np.zeros((slots, pps), np.int64)
+        self._ptab = np.zeros((self.slots, pps), np.int64)
         self._ptab_dirty = True
-        self._alloc = PageAllocator(self.kv_pages, page_size, first_page=1)
+        self._alloc = PageAllocator(self.kv_pages, self.page_size,
+                                    first_page=1)
         # mid-prefill slot table: slot -> {ctx, n, cursor, seq}
         self._pf: Dict[int, dict] = {}
         self._admit_seq = 0
-        self._shapes = set()          # distinct (T, bucket) program shapes
-        #: logits (chunk_tokens, 1, V) of the last step's program
-        self.last_logits = None
         self._sync_ptab()
 
     # ------------------------------------------------------------ memory
     def kv_bytes(self) -> int:
-        """Device bytes of the resident KV pool (allocated up front)."""
-        return sum(t.numel() * t.element_size()
-                   for t in self._cache["kv"].values())
+        """Device bytes of the resident decode state, allocated up front:
+        the KV pool, or the SSM states and conv tails (cursors and the
+        page table excluded)."""
+        def size(tree):
+            return sum(size(v) if isinstance(v, dict)
+                       else v.numel() * v.element_size()
+                       for v in tree.values())
+        return size({k: v for k, v in self._cache.items()
+                     if k not in ("pos", "ptab")})
 
     # -------------------------------------------------------- the program
     def _mixed_fn(self, tokens, pos, slot, active, wnull):
@@ -187,6 +259,39 @@ class ServeEngine:
         tok = sample_tokens(logits[:, -1], generator=self._gen,
                             temperature=self.temperature)
         return torch.where(active, tok, torch.zeros_like(tok))
+
+    def _decode_fn(self, tokens, pos, active):
+        """Split path: ONE batched recurrent decode advancing every slot
+        (the cache in place), on-device sampling and active-slot masking.
+        Returns the sampled token per slot (0 where not active)."""
+        self._shapes.add(tuple(tokens.shape))
+        self.stats["decode_traces"] = len(self._shapes)
+        logits, self._cache = self.model.decode_step(
+            self.params, self._cache, tokens, pos, self.cfg)
+        self.last_logits = logits
+        tok = sample_tokens(logits[:, -1], generator=self._gen,
+                            temperature=self.temperature)
+        tok = torch.where(active, tok, torch.zeros_like(tok))
+        self._cache["pos"] = torch.where(active, pos + 1, pos)
+        return tok
+
+    def _prefill_fn(self, tokens, slot: int):
+        """Split path: prefill one prompt (1, n) at its exact length,
+        sample its first token, and write the fresh per-request states
+        into row ``slot`` of every cache leaf in place; ``pos[slot] = n``.
+        Returns the token (a 0-d tensor)."""
+        n = tokens.shape[1]
+        self._prefill_lens.add(n)
+        self.stats["prefill_traces"] = len(self._prefill_lens)
+        logits, c1 = self.model.prefill(self.params, {"tokens": tokens},
+                                        self.cfg)
+        self.last_logits = logits
+        tok = sample_tokens(logits[0, -1], generator=self._gen,
+                            temperature=self.temperature)
+        for key, leaf in self._cache["ssm"].items():
+            leaf[:, slot] = c1["ssm"][key][:, 0]
+        self._cache["pos"][slot] = n
+        return tok
 
     # --------------------------------------------------------- scheduling
     def submit(self, rid: int, prompt: np.ndarray, max_new: int, *,
@@ -212,16 +317,17 @@ class ServeEngine:
                 f"{self.max_len - 1} tokens")
         if max_new < 1:
             raise ValueError(f"request {rid}: max_new must be >= 1")
-        cap = min(prompt.size + max_new - 1, self.max_len)
-        worst = pages_for(cap, self.page_size)
-        if worst > self.kv_pages:
-            raise ValueError(
-                f"request {rid}: worst-case context needs {worst} KV "
-                f"pages ({self.page_size} tokens each) but the pool "
-                f"holds {self.kv_pages}; raise kv_pages or lower "
-                f"prompt+max_new")
-        # pre-book the worst case in the bounded-gather high-water mark
-        self._hw_blocks = max(self._hw_blocks, worst)
+        if self.paged:
+            cap = min(prompt.size + max_new - 1, self.max_len)
+            worst = pages_for(cap, self.page_size)
+            if worst > self.kv_pages:
+                raise ValueError(
+                    f"request {rid}: worst-case context needs {worst} KV "
+                    f"pages ({self.page_size} tokens each) but the pool "
+                    f"holds {self.kv_pages}; raise kv_pages or lower "
+                    f"prompt+max_new")
+            # pre-book the worst case in the bounded-gather high-water mark
+            self._hw_blocks = max(self._hw_blocks, worst)
         req = Request(rid, prompt, int(max_new), priority=int(priority))
         self.queue.append(req)
         explain = getattr(self._sched, "explain", None)
@@ -302,6 +408,46 @@ class ServeEngine:
                            "seq": self._admit_seq}
             self._admit_seq += 1
 
+    def _admit(self):
+        """Split path: admit into free slots, each with a synchronous
+        exact-length prefill (its own device program). A request complete
+        on its prefill token (max_new, EOS, capacity) never occupies the
+        slot. A prompt the chunked SSD cannot take raises here, after it
+        left the queue, as the reference's assert does."""
+        while True:
+            qi = self._sched.next_index(self.queue)
+            if qi is None:
+                return
+            s = self._free_slot()
+            if s is None:
+                return
+            req = self.queue[qi]
+            ctx = req.prompt
+            n = len(ctx)
+            del self.queue[qi]
+            self.tracer.req_event(req.rid, "admitted", slot=s,
+                                  ctx_tokens=n, resumed=False)
+            tokens = torch.from_numpy(ctx[None]).to(self.device)
+            tok = int(self._prefill_fn(tokens, s))
+            self.stats["prefills"] += 1
+            self.stats["decode_tokens"] += 1
+            req.out.append(tok)
+            self.tracer.req_tokens(req.rid, 1)
+            if req.first_tok_t is None:
+                req.first_tok_t = time.monotonic()
+                self.tracer.req_event(req.rid, "first_token",
+                                      prefill_tokens=n)
+            self._pos[s] = n
+            self._last[s] = tok
+            hit_eos = self.eos_id is not None and tok == self.eos_id
+            if len(req.out) >= req.max_new or hit_eos or n >= self.max_len:
+                req.done = True
+                self.finished[req.rid] = req
+                self.tracer.finish_request(req.rid, "completed",
+                                           tokens=len(req.out))
+            else:
+                self.active[s] = req
+
     def _release_pages(self, s: int):
         """Return slot ``s``'s pages and point its table row at the null
         page."""
@@ -317,10 +463,60 @@ class ServeEngine:
         self.tracer.finish_request(req.rid, "completed",
                                    tokens=len(req.out))
         self.active[s] = None
-        self._release_pages(s)
+        if self.paged:
+            self._release_pages(s)
 
     # -------------------------------------------------------------- serve
     def step(self) -> int:
+        """Advance the engine by one step: the mixed token-slot step on
+        the paged layout (:meth:`_step_mixed`), else the split path's
+        admission with synchronous prefills and one batched decode
+        (:meth:`_step_split`). Returns the tokens produced."""
+        if self.mixed:
+            return self._step_mixed()
+        return self._step_split()
+
+    def _step_split(self) -> int:
+        """Split path (the reference's legacy branch of ``step``): admit
+        with a synchronous prefill each, then ONE batched decode over the
+        whole slot table when any slot is active."""
+        t0 = time.perf_counter()
+        before = self.stats["decode_tokens"]
+        tr = self.tracer.begin_step(self.stats["step_count"])
+        tr.lap("bookkeeping")
+        self._admit()
+        tr.lap("admit")
+        mask = np.array([r is not None for r in self.active])
+        if mask.any():
+            tr.lap("pack")
+            meta = np.stack([self._last, self._pos, mask]).astype(np.int32)
+            dev = torch.from_numpy(meta).to(self.device)
+            tok = self._decode_fn(dev[0][:, None], dev[1], dev[2].bool())
+            tr.lap("dispatch")
+            self.stats["decode_steps"] += 1
+            self.stats["decode_slot_steps"] += int(mask.sum())
+            toks = tok.cpu().numpy()
+            tr.lap("sync")
+            for s in range(self.slots):
+                req = self.active[s]
+                if req is None:
+                    continue
+                t = int(toks[s])
+                req.out.append(t)
+                self._pos[s] += 1
+                self._last[s] = t
+                self.stats["decode_tokens"] += 1
+                tr.note_decode(s, req.rid, 1)
+                self.tracer.req_tokens(req.rid, 1)
+                self.tracer.req_detail(req.rid, "decode", slot=s,
+                                       pos=int(self._pos[s]))
+                hit_eos = self.eos_id is not None and t == self.eos_id
+                if len(req.out) >= req.max_new or hit_eos or \
+                        self._pos[s] >= self.max_len:
+                    self._retire(s)
+        return self._finish_step(t0, before, tr)
+
+    def _step_mixed(self) -> int:
         """One MIXED token-slot step: admit into free slots (pages only),
         fill the ``chunk_tokens`` budget with every decoding slot's next
         token FIRST and prefill chunks after (admission order), and run
@@ -459,8 +655,9 @@ class ServeEngine:
         for k, v in self.stats.items():
             if k not in keep:
                 self.stats[k] = 0.0 if isinstance(v, float) else 0
-        self._note_pool()
-        self.stats["peak_pages"] = self.stats["pages_in_use"]
+        if self.paged:
+            self._note_pool()
+            self.stats["peak_pages"] = self.stats["pages_in_use"]
 
     def run(self, max_steps: int = 10_000) -> Dict[int, Request]:
         """Serve until the queue and slot table drain (or ``max_steps``);

@@ -17,7 +17,10 @@ kernel keeps them fp32, and bf16 has 8 bits of mantissa) and the fused
 MLP, and at atol 1e-5 / rtol 8e-3 for flash attention (both sides compute
 in fp32 and round the output once: one bf16 ulp); flash gradients at
 2e-5 / 2e-4
-(tests/test_kernels.py:173); a train step card vs CPU at 1e-4.
+(tests/test_kernels.py:173); a train step card vs CPU at 1e-4; the SSD
+scan's y at 1e-4 in fp32 (tests/test_kernels.py:118) and at atol 1e-5 /
+rtol 8e-3 in bf16 (both sides compute in fp32 from the same bf16 inputs
+and round y once), its final state at atol 1e-5 / rtol 1e-4.
 """
 import numpy as np
 import pytest
@@ -29,6 +32,8 @@ from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_mlp as fm  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import ssd_scan as sk  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
 from repro_torch.params import init_params  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
@@ -172,7 +177,7 @@ def test_engine_on_card_matches_cpu(cuda):
         want = cfg.num_layers * runs if dev == "cuda" else 0
         assert kernels.launches() == {"paged_attention": want,
                                       "fused_mlp": want,
-                                      "flash_attention": 0}
+                                      "flash_attention": 0, "ssd_scan": 0}
         assert eng.stats["decode_backend"] == \
             ("kernel" if dev == "cuda" else "plain")
     assert outs["cpu"] == outs["cuda"]
@@ -310,3 +315,109 @@ def test_train_steps_on_card_match_cpu(cuda):
     for key, p in out["cpu"][1].items():
         torch.testing.assert_close(out["cuda"][1][key], p, atol=1e-4,
                                    rtol=1e-4)
+
+
+def _ssd_args(shape, dtype, seed=0, strided=False):
+    """x, dt, A, B, C at tests/test_kernels.py's scales. ``strided``: x,
+    B and C are views into one (b, s, h*p + 2n) buffer, as mamba_forward
+    hands them over."""
+    b, s, h, p, n = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*sh):
+        return torch.randn(sh, generator=gen, device="cuda")
+
+    dt = torch.nn.functional.softplus(rnd(b, s, h))
+    A = -torch.exp(rnd(h))
+    if strided:
+        buf = torch.cat([rnd(b, s, h * p) * 0.5, rnd(b, s, 2 * n) * 0.3],
+                        dim=-1).to(dtype)
+        x = buf[..., :h * p].reshape(b, s, h, p)
+        return x, dt, A, buf[..., h * p:h * p + n], buf[..., h * p + n:]
+    return ((rnd(b, s, h, p) * 0.5).to(dtype), dt, A,
+            (rnd(b, s, n) * 0.3).to(dtype), (rnd(b, s, n) * 0.3).to(dtype))
+
+
+# (b, s, h, p, n, chunk): the reference's sweep, one ragged chunk (q = 77),
+# several chunks, a ragged p and n, the serving path's head
+SSD = [(2, 128, 2, 32, 16, 32), (2, 256, 3, 64, 32, 64),
+       (1, 77, 2, 64, 128, 128), (1, 96, 2, 16, 16, 32),
+       (1, 60, 3, 24, 20, 20), (1, 256, 4, 64, 128, 128)]
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, (1e-4, 1e-4)),
+                                       (torch.bfloat16, (1e-5, 8e-3))])
+@pytest.mark.parametrize("case", SSD)
+def test_ssd_scan_kernel_matches_plain(cuda, dtype, tol, case, strided):
+    *shape, chunk = case
+    args = _ssd_args(shape, dtype, seed=sum(shape), strided=strided)
+    before = sk.ssd_scan.launches
+    y, h_last = sk.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert sk.ssd_scan.launches == before + 1
+    want_y, want_h = sk.ssd_scan_plain(*args, chunk=chunk)
+    assert y.dtype == dtype and y.shape == args[0].shape
+    assert h_last.dtype == torch.float32 and h_last.shape == want_h.shape
+    torch.testing.assert_close(y.float(), want_y.float(), atol=tol[0],
+                               rtol=tol[1])
+    torch.testing.assert_close(h_last, want_h, atol=1e-5, rtol=1e-4)
+    # a single writer per element: the same call gives the same bits
+    assert torch.equal(y, sk.ssd_scan(*args, chunk=chunk)[0])
+
+
+def test_ssd_scan_kernel_refuses_shapes_past_its_limits(cuda):
+    """The C entry checks the sizes its register tiles and shared memory
+    are built for (p <= 64, n <= 128, q <= 128) and launches nothing."""
+    for shape, chunk in (((1, 64, 2, 96, 16), 64), ((1, 64, 2, 32, 160), 64),
+                         ((1, 256, 2, 32, 16), 256)):
+        args = _ssd_args(shape, torch.float32)
+        before = sk.ssd_scan.launches
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            sk.ssd_scan(*args, chunk=chunk)
+        assert sk.ssd_scan.launches == before
+
+
+def test_ssd_scan_kernel_raises_when_a_gradient_is_required(cuda):
+    x, *rest = _ssd_args((1, 64, 2, 32, 16), torch.float32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        sk.ssd_scan(x.requires_grad_(True), *rest, chunk=32)
+
+
+def test_ssd_chunked_takes_the_plain_path_when_a_gradient_is_needed(cuda):
+    args = [a.requires_grad_(True)
+            for a in _ssd_args((1, 64, 2, 32, 16), torch.float32, seed=2)]
+    before = sk.ssd_scan.launches
+    y, h_last = ssm.ssd_chunked(*args, chunk=32)
+    assert y.grad_fn is not None and sk.ssd_scan.launches == before
+    grads = torch.autograd.grad((y ** 2).sum() + h_last.sum(), args)
+    assert all(torch.isfinite(g).all() and g.abs().sum() > 0 for g in grads)
+    with torch.no_grad():
+        y2, h2 = ssm.ssd_chunked(*args, chunk=32)
+    assert sk.ssd_scan.launches == before + 1
+    torch.testing.assert_close(y2, y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h2, h_last, atol=1e-5, rtol=1e-4)
+
+
+def test_ssm_engine_on_card_matches_cpu(cuda):
+    """mamba2-smoke in fp32: the card's engine gives the CPU's greedy
+    streams; every prefill went through the SSD kernel once a layer."""
+    from repro_torch.configs import get_smoke
+    cfg = get_smoke("mamba2-780m").with_(dtype="float32")
+    cpu = init_params(cfg, device="cpu", seed=3)
+    params = {"cpu": cpu, "cuda": tree_map(lambda t: t.cuda(), cpu)}
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(n,))
+               for n in (64, 17, 32, 96, 9)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, params[dev], slots=2, max_len=128)
+        for i, p in enumerate(prompts):
+            eng.submit(i, p, max_new=6)
+        kernels.reset_launches()
+        res = eng.run()
+        outs[dev] = {i: list(res[i].out) for i in res}
+        want = cfg.num_layers * eng.stats["prefills"] if dev == "cuda" else 0
+        assert kernels.launches() == {"paged_attention": 0, "fused_mlp": 0,
+                                      "flash_attention": 0, "ssd_scan": want}
+    assert outs["cpu"] == outs["cuda"]

@@ -283,7 +283,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch/optim/optimizers.py",
             "repro_torch/checkpoint/io.py", "repro_torch/data/pipeline.py",
             "repro_torch/core/strategy.py",
-            "repro_torch/launch/train.py"} <= names
+            "repro_torch/launch/train.py",
+            "repro_torch/kernels/ssd_scan.py", "repro_torch/models/ssm.py",
+            "repro_torch/models/mamba_lm.py"} <= names
     for path in files:
         for mod in _imports(path):
             root = mod.split(".")[0]
@@ -297,7 +299,8 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.launch.train, repro_torch.kernels.build, "
             "repro_torch.kernels.flash_attention, repro_torch.core, "
             "repro_torch.optim, repro_torch.checkpoint, "
-            "repro_torch.data.pipeline, repro_torch.train.trainer; "
+            "repro_torch.data.pipeline, repro_torch.train.trainer, "
+            "repro_torch.kernels.ssd_scan, repro_torch.models.mamba_lm; "
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
