@@ -8,8 +8,9 @@ so ``nvcc`` builds it in seconds:
          -Xcompiler -fPIC -Xptxas -v -o <build>/<name>-<hash>.so <name>.cu
 
 The library lands in ``src/repro_torch/_build/`` (listed in
-``.gitignore``), named by a hash of its source and the flags, so an edited
-source rebuilds and an unchanged one is loaded from disk. The ptxas
+``.gitignore``), named by a hash of its source, every shared header
+(``csrc/*.cuh``, such as ``hopper.cuh``) and the flags, so an edited source
+or header rebuilds and an unchanged one is loaded from disk. The ptxas
 report (registers, shared memory, spills per kernel) is kept in
 :data:`PTXAS_LOG` and beside the library as ``<name>-<hash>.ptxas.txt``.
 
@@ -43,8 +44,10 @@ SIGNATURES = {
         for name in ("paged_attention_f32", "paged_attention_bf16")},
     "fused_mlp": {
         # x, w_gate, w_up, w_down, h (scratch), out, T, d, f, stream
-        name: [_P] * 6 + [_I] * 3 + [_P]
-        for name in ("fused_mlp_f32", "fused_mlp_bf16")},
+        "fused_mlp_f32": [_P] * 6 + [_I] * 3 + [_P],
+        # x, w_gate, w_up, w_down, h, partials (split-K scratch), out, T,
+        # d, f, down_splits, gate_tail, gate_splits, stream
+        "fused_mlp_bf16": [_P] * 7 + [_I] * 6 + [_P]},
     "flash_attention": {
         # q, k, v, out, B, S, T, Hq, Hkv, D, causal, window, stream
         name: [_P] * 4 + [_I] * 8 + [_P]
@@ -77,10 +80,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """The library path for ``name``: a hash of its source, every header in
+    ``CSRC`` (any of them may be included) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

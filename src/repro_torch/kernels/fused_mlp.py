@@ -8,14 +8,17 @@ HBM. At d = 5120 that accumulator is 20 KB per row and does not fit a
 Hopper block's shared memory at a useful ``block_m``, so the port splits
 the work in two tiled GEMMs (design (i) in the source note): gate/up with
 the ``silu(g) * u`` epilogue writing ``h`` in Wd's dtype to a scratch
-buffer that stays in L2 at the serving batch, then the down-projection.
-No float atomics: every output element is summed by one thread in a fixed
-order, so greedy serving is reproducible run to run.
+buffer that stays in L2 at the serving batch, then the down-projection. In
+bf16 both run on TMA and ``wgmma``; blocks that split K (:func:`mlp_plan`)
+write fp32 sums to a scratch whose parts a second pass adds in a fixed
+order. No float atomics: the same call gives the same bits, so
+greedy serving is reproducible run to run.
 
 Contract: x ``(T, d)``; w_gate/w_up ``(d, f)``; w_down ``(f, d)`` ->
 ``(T, d)`` in x's dtype = ``(silu(x·Wg) ∘ (x·Wu))·Wd`` with fp32
 accumulation and ``h`` cast to Wd's dtype before the down-projection.
-Ragged T, d and f are masked, not asserted.
+Ragged T, d and f are masked, not asserted; the bf16 kernels take d and f
+that are multiples of 8 (TMA's 16-byte row strides) and raise otherwise.
 """
 from __future__ import annotations
 
@@ -37,6 +40,30 @@ def fused_mlp_plain(x, w_gate, w_up, w_down):
 def needs_grad(*tensors) -> bool:
     """True when autograd would record an op on ``tensors``."""
     return torch.is_grad_enabled() and any(a.requires_grad for a in tensors)
+
+
+def mlp_plan(t: int, d: int, f: int, sms: int):
+    """How the bf16 kernels split their work on ``sms`` SMs (one block an
+    SM): ``(down_splits, gate_tail, gate_splits, scratch_floats)``.
+
+    Gate/up takes 128 x 128 output units, one block each, in waves of
+    ``sms``. A last wave that would leave most SMs idle (8 units of 272
+    at T = 256, f = 17408 on 132 SMs) is split in K instead: its
+    ``gate_tail`` units take ``gate_splits`` shorter blocks each, at most
+    16 and one a 64-deep K block. The down GEMM's 128 x 256 units (40 at
+    T = 256, d = 5120) are split in K to cover the SMs once
+    (``down_splits``, at most 8). ``scratch_floats`` sizes the fp32
+    scratch both splits share (0 when neither splits)."""
+    units = -(-t // 128) * -(-f // 128)
+    tail = units % sms if units > sms else 0
+    gate_splits = min(16, sms // tail, -(-d // 64)) if tail else 1
+    if gate_splits < 2:
+        tail, gate_splits = 0, 1
+    down_units = max(1, -(-t // 128) * -(-d // 256))
+    down_splits = max(1, min(8, sms // down_units, -(-f // 64)))
+    scratch = max(down_splits * t * d if down_splits > 1 else 0,
+                  tail * gate_splits * 2 * 128 * 128)
+    return down_splits, tail, gate_splits, scratch
 
 
 def fused_mlp_cuda(x, w_gate, w_up, w_down):
@@ -66,11 +93,18 @@ def fused_mlp_cuda(x, w_gate, w_up, w_down):
     h = torch.empty((t, f), dtype=w_down.dtype, device=x.device)
     out = torch.empty((t, d), dtype=x.dtype, device=x.device)
     lib = build.load("fused_mlp")
-    fn = lib.fused_mlp_bf16 if x.dtype == torch.bfloat16 \
-        else lib.fused_mlp_f32
-    code = fn(x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
-              w_down.data_ptr(), h.data_ptr(), out.data_ptr(), t, d, f,
-              torch.cuda.current_stream(x.device).cuda_stream)
+    ptrs = (x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+            w_down.data_ptr(), h.data_ptr())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if x.dtype == torch.bfloat16:
+        *plan, scratch = mlp_plan(t, d, f, torch.cuda.get_device_properties(
+            x.device).multi_processor_count)
+        partials = torch.empty((scratch,), dtype=torch.float32,
+                               device=x.device)
+        code = lib.fused_mlp_bf16(*ptrs, partials.data_ptr(),
+                                  out.data_ptr(), t, d, f, *plan, stream)
+    else:
+        code = lib.fused_mlp_f32(*ptrs, out.data_ptr(), t, d, f, stream)
     build.check(code, "fused_mlp")
     fused_mlp.launches += 1
     return out

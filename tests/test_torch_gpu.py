@@ -13,9 +13,12 @@ Tolerances: fp32 kernels against their plain versions at 2e-5 (paged
 attention, another summation order and ``expf``), 2e-6 (flash attention,
 tests/test_kernels.py:33) and 1e-5 (fused MLP); bf16 at 2e-2 for paged
 attention (the plain version rounds the softmax probs to bf16 where the
-kernel keeps them fp32, and bf16 has 8 bits of mantissa) and the fused
-MLP, and at atol 1e-5 / rtol 8e-3 for flash attention (both sides compute
-in fp32 and round the output once: one bf16 ulp); flash gradients at
+kernel keeps them fp32, and bf16 has 8 bits of mantissa), at atol 1e-5 /
+rtol 8e-3 for flash attention (both sides compute in fp32 and round the
+output once: one bf16 ulp), and at atol 1e-3 / rtol 8e-3 for the fused
+MLP (one ulp of the output, plus h's bf16 rounding flips: the two sum
+x.Wg and x.Wu in other orders; chip_smoke.py::phase_mlp prints the atol
+a correct kernel needs at the serving shape); flash gradients at
 2e-5 / 2e-4
 (tests/test_kernels.py:173); a train step card vs CPU at 1e-4; the SSD
 scan's y at 1e-4 in fp32 (tests/test_kernels.py:118) and at atol 1e-5 /
@@ -129,22 +132,29 @@ def test_paged_attention_kernel_refuses_shapes_past_its_limits(
     assert pa.paged_attention.launches == before
 
 
-@pytest.mark.parametrize("dtype,tol,t,d,f", [
-    (torch.float32, 1e-5, 37, 72, 100),      # ragged T, d, f
-    (torch.float32, 1e-5, 128, 64, 256),
-    (torch.bfloat16, 2e-2, 70, 256, 520),    # ragged T and f tiles
+# (atol, rtol); weight scales (w_gate and w_up, w_down): 0.05, or the
+# model's init scales at the serving path's shape (Qwen3-14B, 40 layers)
+@pytest.mark.parametrize("dtype,tol,t,d,f,scales", [
+    (torch.float32, (1e-5, 1e-5), 37, 72, 100, (0.05, 0.05)),  # ragged
+    (torch.float32, (1e-5, 1e-5), 128, 64, 256, (0.05, 0.05)),
+    (torch.bfloat16, (1e-3, 8e-3), 70, 256, 520, (0.05, 0.05)),  # ragged
+    # 134 gate/up units on 132 SMs: the last 2 (ragged) split in K
+    (torch.bfloat16, (1e-3, 8e-3), 70, 256, 17064, (0.05, 0.05)),
+    (torch.bfloat16, (1e-3, 8e-3), 256, 5120, 17408,
+     (0.02, 0.02 / 80 ** 0.5)),
 ])
-def test_fused_mlp_kernel_matches_plain(cuda, dtype, tol, t, d, f):
+def test_fused_mlp_kernel_matches_plain(cuda, dtype, tol, t, d, f, scales):
     gen = torch.Generator(device="cuda").manual_seed(t)
     x = torch.randn((t, d), generator=gen, device="cuda").to(dtype)
-    ws = [(torch.randn(s, generator=gen, device="cuda") * 0.05).to(dtype)
-          for s in ((d, f), (d, f), (f, d))]
+    ws = [(torch.randn(s, generator=gen, device="cuda") * sc).to(dtype)
+          for s, sc in (((d, f), scales[0]), ((d, f), scales[0]),
+                        ((f, d), scales[1]))]
     before = fm.fused_mlp.launches
     got = fm.fused_mlp(x, *ws)
     assert fm.fused_mlp.launches == before + 1
     torch.testing.assert_close(got.float(),
                                fm.fused_mlp_plain(x, *ws).float(),
-                               atol=tol, rtol=tol)
+                               atol=tol[0], rtol=tol[1])
     # no float atomics: the same call gives the same bits
     assert torch.equal(got, fm.fused_mlp(x, *ws))
 
@@ -226,6 +236,47 @@ def test_flash_attention_kernel_writes_zero_for_rows_without_live_keys(cuda):
         got[:, :103], fa.flash_attention_plain(q, k, v, causal=False,
                                                window=40)[:, :103],
         atol=2e-6, rtol=2e-6)
+
+
+# bf16 only: Kimi's head width (112) with causal GQA, and the training
+# shape's heads (40/8 x 128) at S = T = 1024
+FLASH_BF16 = [(1, 300, 300, 8, 2, 112, True, 0),
+              (1, 1024, 1024, 40, 8, 128, True, 0)]
+
+
+@pytest.mark.parametrize("shape", FLASH_BF16)
+def test_flash_attention_bf16_kernel_matches_plain(cuda, shape):
+    q, k, v, kw = _flash_args(shape, torch.bfloat16)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    torch.testing.assert_close(
+        got.float(), fa.flash_attention_plain(q, k, v, **kw).float(),
+        atol=1e-5, rtol=8e-3)
+
+
+@pytest.mark.parametrize("d", [20, 136])
+def test_flash_attention_bf16_kernel_refuses_head_dims_tma_cannot_take(
+        cuda, d):
+    """TMA needs 16-byte row strides (D % 8 == 0) and the kernel's D tile
+    is at most 128: the bf16 entry launches nothing otherwise."""
+    q, k, v, kw = _flash_args((1, 64, 64, 2, 2, d, True, 0), torch.bfloat16)
+    before = fa.flash_attention.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fa.flash_attention(q, k, v, **kw)
+    assert fa.flash_attention.launches == before
+
+
+def test_fused_mlp_bf16_kernel_refuses_f_not_a_multiple_of_8(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((16, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    ws = [torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+          for s in ((64, 100), (64, 100), (100, 64))]
+    before = fm.fused_mlp.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fm.fused_mlp(x, *ws)
+    assert fm.fused_mlp.launches == before
 
 
 def test_flash_attention_kernel_refuses_head_dim_past_its_limit(cuda):

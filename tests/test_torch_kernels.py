@@ -253,6 +253,45 @@ def test_build_key_covers_source_and_flags(monkeypatch, tmp_path):
     assert build._target("flash_attention") != a
 
 
+def test_build_key_covers_shared_headers(monkeypatch, tmp_path):
+    """A kernel that includes a shared header (csrc/hopper.cuh) rebuilds
+    when only the header changes; a copy of csrc stands in for the repo's,
+    which is never written."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in ("fused_mlp.cu", "hopper.cuh"):
+        (csrc / f).write_bytes((build.CSRC / f).read_bytes())
+    assert '#include "hopper.cuh"' in (csrc / "fused_mlp.cu").read_text()
+    monkeypatch.setattr(build, "CSRC", csrc)
+    a = build._target("fused_mlp")
+    assert build._target("fused_mlp") == a
+    (csrc / "hopper.cuh").write_text((csrc / "hopper.cuh").read_text()
+                                     + "\n// edited\n")
+    b = build._target("fused_mlp")
+    assert b != a and b.parent == a.parent
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert build._target("fused_mlp") != b
+
+
+def test_mlp_plan_fills_the_sms_in_whole_waves():
+    """The bf16 MLP's split plan: at the serving shape (T = 256, d = 5120,
+    f = 17408, 132 SMs) gate/up has 272 units, two full waves and 8 left,
+    which split in K 16 ways; the down GEMM's 40 units split 3 ways. No
+    split where the units fill whole waves or a split would not pay."""
+    assert fm.mlp_plan(256, 5120, 17408, 132) == (3, 8, 16, 8 * 16 * 2
+                                                  * 128 * 128)
+    assert fm.mlp_plan(256, 5120, 16896, 132) == (3, 0, 1, 3 * 256 * 5120)
+    assert fm.mlp_plan(70, 256, 520, 132) == (8, 0, 1, 8 * 70 * 256)
+    assert fm.mlp_plan(16, 64, 100, 132) == (2, 0, 1, 2 * 16 * 64)
+    # 4096 rows: 4352 gate/up units (32 full waves and 128 left, too many
+    # to split), 640 down units: no split at all
+    assert fm.mlp_plan(4096, 5120, 17408, 132) == (1, 0, 1, 0)
+    # 134 units of 70 ragged rows, the last one 40 columns wide: 2 left
+    assert fm.mlp_plan(70, 256, 17064, 132) == (8, 2, 4, 2 * 4 * 2 * 128
+                                                 * 128)
+    assert fm.mlp_plan(0, 5120, 17408, 132) == (8, 0, 1, 0)
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     """The kernel entry points take CUDA tensors only; they check before
     any build or launch."""
