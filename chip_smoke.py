@@ -10,24 +10,34 @@ Phases (any failure exits non-zero; no result line is printed then):
 2. build every kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, started together) and print ptxas's register / shared-memory
    / spill lines, and the HGMMA (wgmma) and UTMALDG (TMA load) counts in
-   the SASS of the tensor-core kernels (``cuobjdump -sass``; each must
-   be > 0 where the toolkit has cuobjdump);
+   the SASS of the tensor-core kernels (flash, the fused MLP, bf16 paged
+   attention; ``cuobjdump -sass``; each must be > 0 where the toolkit has
+   cuobjdump);
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes of its path (bf16) and at small fp32 shapes, with the
    tolerance stated beside each (flash attention also on ragged,
    windowed and non-causal inputs, and its gradients; the bf16 flash and
    fused-MLP checks are per value, and each is shown to reject a
-   defective plain variant); the SSD scan in
+   defective plain variant); bf16 paged attention also per value against
+   the Pallas arithmetic (P fp32), shown to reject a run with one live
+   page dropped, on a tile straddling two slots, rows whose tables agree
+   on their first pages only, a lone 1024-token row (split) and the
+   decode-only mix, its device plan equal to ``tile_plan``, two identical
+   calls equal bit for bit, and timed at the T = 256 and decode-only
+   mixes (by CUDA-graph replay, and eager with its host path); the SSD
+   scan in
    bf16 at the SSM prefill's shape (b 1, s 1024, h 48, p 64, n 128,
    chunk 128; x, B, C read in place as views of one conv-output buffer)
    with y within atol 1e-5 + rtol 8e-3 of each value and the final state
    within 1e-4 of its largest value (and the check shown to reject a
    scan that drops the carried state), and in fp32 at small shapes with
    a ragged chunk (s 77 at chunk 128) and several chunks (s 96 at chunk
-   32) within 1e-4; time kernel, plain version and one PyTorch library
-   call computing the same function (never called by the port; none
-   exists for the SSD scan) with CUDA events, and compute each kernel's
-   bound from these inputs and NVIDIA's H100 SXM data sheet;
+   32) within 1e-4, and faster than its plain version; time kernel, plain
+   version and one PyTorch library call computing the same function
+   (never called by the port; none exists for the SSD scan) with CUDA
+   events, each launch of the multi-launch kernels by torch.profiler, and
+   compute each kernel's bound from these inputs and NVIDIA's H100 SXM
+   data sheet;
 4. tiny float32 configs on the card and on the CPU (TF32 off): through
    the port's engine, first-step logits within 1e-4 and greedy streams
    identical; through the split-path engine on ``mamba2-smoke``,
@@ -78,6 +88,7 @@ import argparse
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -118,6 +129,33 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(calls, iters: int = 10) -> float:
+    """Mean device time of one of ``calls`` (functions of no argument),
+    captured once into a CUDA graph and replayed ``iters`` times, by CUDA
+    events: the kernels' time without the host's launch path, which
+    ``time_ms`` includes where it is the slower side."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):             # warm up outside the capture
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in calls:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * len(calls))
+
+
 def bound_ms(nbytes: float, flops: float, dtype: str):
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -144,7 +182,8 @@ def phase_card():
 
 #: the tensor-core kernels: library -> substring of the kernel's symbol
 TENSOR_CORE_KERNELS = {"flash_attention": "flash_fwd_wgmma_kernel",
-                       "fused_mlp": "mlp_tma_wgmma_kernel"}
+                       "fused_mlp": "mlp_tma_wgmma_kernel",
+                       "paged_attention": "paged_attn_wgmma_kernel"}
 
 
 def sass_counts(build):
@@ -196,22 +235,33 @@ def phase_build():
 
 # ------------------------------------------------------------------ phase 3
 
-def attention_inputs(rng, dtype, *, n_layers_copies=1):
-    """The main path's paged-attention shapes (Qwen3-14B heads, T = 256
-    rows of a mixed step over a 4-slot x 1024-token pool of 16-token
-    pages): three decode rows at their slots' cursors and 253 rows of one
-    slot's prefill chunk, on permuted, fragmented page tables."""
+#: the serving path's paged-attention mixes (Qwen3-14B heads, a 4-slot x
+#: 1024-token pool of 16-token pages): tokens held per slot, and each row's
+#: (slot, cursor)
+SLOT_CTX = (716, 300, 520, 640)
+MIX_T256 = ([0, 1, 2] + [3] * 253, [715, 299, 519] + list(range(256, 509)))
+MIX_DECODE = ([0, 1, 2, 3] + [0] * 252, [715, 299, 519, 639] + [0] * 252)
+
+
+def attention_inputs(rng, dtype, *, n_layers_copies=1, ctx=SLOT_CTX,
+                     rows=MIX_T256, edit=None):
+    """Paged-attention inputs on permuted, fragmented page tables of a
+    257-page pool: ``ctx`` tokens held per slot, ``rows`` (slots,
+    cursors). The default is the main path's T = 256 mix: three decode rows
+    at their slots' cursors and 253 rows of one slot's prefill chunk.
+    ``edit(tables)`` may change the slot tables before the rows take
+    them."""
     hq, hkv, d, ps, width, n_pages = 40, 8, 128, 16, 64, 257
-    ctx = [716, 300, 520, 640]                # tokens held per slot
     perm = rng.permutation(np.arange(1, n_pages))
-    tables = np.zeros((4, width), np.int32)
+    tables = np.zeros((len(ctx), width), np.int32)
     k = 0
     for s, n in enumerate(ctx):
         blocks = -(-n // ps)
         tables[s, :blocks] = perm[k:k + blocks]
         k += blocks
-    rows_slot = [0, 1, 2] + [3] * 253
-    rows_pos = [ctx[0] - 1, ctx[1] - 1, ctx[2] - 1] + list(range(256, 509))
+    if edit is not None:
+        edit(tables)
+    rows_slot, rows_pos = rows
     tab = torch.from_numpy(tables[rows_slot]).cuda()
     pos = torch.tensor(rows_pos, dtype=torch.int32).cuda()
     gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
@@ -220,12 +270,38 @@ def attention_inputs(rng, dtype, *, n_layers_copies=1):
               torch.randn((n_pages, ps, hkv, d), generator=gen,
                           device="cuda").to(dtype))
              for _ in range(n_layers_copies)]
-    q = torch.randn((256, 1, hq, d), generator=gen, device="cuda").to(dtype)
+    q = torch.randn((len(rows_slot), 1, hq, d), generator=gen,
+                    device="cuda").to(dtype)
     # live tokens per slot: the longest cursor of any row of that slot
     live = {}
     for s, p in zip(rows_slot, rows_pos):
         live[s] = max(live.get(s, 0), p + 1)
     return q, pools, tab, pos, sum(live.values()), tables, rows_slot, live
+
+
+def device_us(fn, calls: int = 5):
+    """Mean device time of each kernel ``fn`` launches, in us, from
+    torch.profiler over ``calls`` calls (empty if it records none)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+        name = re.search(r"\w+_kernel", e.key)
+        if t:
+            out[name.group(0) if name else e.key[:60]] = t / calls
+    return out
+
+
+#: the bf16 paged-attention kernel's launches (csrc/paged_attention.cu)
+PAGED_LAUNCHES = ("paged_plan_kernel", "paged_attn_wgmma_kernel",
+                  "paged_combine_kernel")
 
 
 def phase_attention(rng):
@@ -256,6 +332,86 @@ def phase_attention(rng):
             f"{ref.pow(2).mean().sqrt().item():.3e}, max "
             f"{ref.abs().max().item():.3e})")
         res[dt_name] = err
+    # bf16 per value against the Pallas arithmetic (P fp32, V upcast): both
+    # compute in fp32 from the same bf16 inputs and round the output once,
+    # so a correct kernel is within one bf16 ulp of each value (the flash
+    # rule); the same check must reject a kernel run with one live page of
+    # the prefill slot replaced by the null page (read by 253 rows)
+    atol, rtol = 1e-5, 8e-3
+
+    def excess(a, w):                 # worst |a - w| / (atol + rtol |w|)
+        return ((a.float() - w.float()).abs()
+                / (atol + rtol * w.float().abs())).max().item()
+
+    q, pools, tab, pos, _, tables, rows_slot, live = \
+        attention_inputs(rng, torch.bfloat16)
+    kp, vp = pools[0]
+    got = pa.paged_attention(q, kp, vp, tab, pos)
+    again = pa.paged_attention(q, kp, vp, tab, pos)
+    want = pa.paged_attention_plain_f32p(q, kp, vp, tab, pos)
+    per_value = excess(got, want)
+    check(per_value <= 1.0, f"paged attention bf16 per value vs the fp32-P "
+          f"plain version: worst error {per_value:.3f}x atol {atol} + rtol "
+          f"{rtol}")
+    check(torch.equal(got, again), "two identical paged-attention calls "
+          "gave different bits")
+    dropped = tab.clone()
+    dropped[3:, 5] = 0                        # slot 3's 6th page: null page
+    drop = excess(pa.paged_attention(q, kp, vp, dropped, pos), want)
+    check(drop > 1.0, f"the per-value check passes a kernel run with a live "
+          f"page dropped ({drop:.3f}x the limit)")
+    log(f"[attention bf16 T=256] per value vs the fp32-P plain version: "
+        f"worst error {per_value:.3f}x the limit (atol {atol}, rtol {rtol});"
+        f" a dropped live page would be {drop:.1f}x the limit; two "
+        f"identical calls give equal bits")
+    res["bf16_worst_error_of_limit"] = per_value
+    res["bf16_dropped_page_error_of_limit"] = drop
+
+    # row structures the tiling must get right, each held per value to the
+    # fp32-P plain version and at 1e-2 to the gather plain version, and its
+    # device plan to kernels/paged_attention.py::tile_plan
+    def first_pages_only(tables):             # slot 1 shares slot 0's first
+        tables[1, :5] = tables[0, :5]         # 5 pages, then parts from it
+
+    cases = [
+        ("a tile straddling two slots",
+         dict(rows=([2] * 7 + [3] * 9, list(range(100, 107))
+                    + list(range(200, 209))))),
+        ("consecutive rows agreeing on their first pages only",
+         dict(ctx=(716, 716), edit=first_pages_only,
+              rows=([0, 1, 0, 1], [300, 400, 70, 400]))),
+        ("a lone decode row of 1024 tokens (split)",
+         dict(ctx=(1024,), rows=([0], [1023]))),
+        ("the decode-only mix (4 decode rows, 252 pad rows of slot 0 at "
+         "pos 0)", dict(rows=MIX_DECODE)),
+    ]
+    res["cases"] = []
+    for what, kw in cases:
+        q, pools, tab, pos, *_ = attention_inputs(rng, torch.bfloat16, **kw)
+        kp, vp = pools[0]
+        got = pa.paged_attention(q, kp, vp, tab, pos)
+        e_f32p = excess(got, pa.paged_attention_plain_f32p(q, kp, vp, tab,
+                                                           pos))
+        e_gather = (got.float() - pa.paged_attention_plain(
+            q, kp, vp, tab, pos).float()).abs().max().item()
+        items, splits = pa.device_tile_plan(tab, pos, 16, 5)
+        want_items, want_splits = pa.tile_plan(tab.cpu().numpy(),
+                                               pos.cpu().numpy(), 16, 5)
+        check(bool(torch.isfinite(got).all()) and e_f32p <= 1.0
+              and e_gather <= 1e-2,
+              f"paged attention bf16, {what}: {e_f32p:.3f}x the per-value "
+              f"limit, {e_gather:.3e} from the gather plain version")
+        check(items == want_items and (splits == want_splits).all(),
+              f"paged attention, {what}: device plan {items} != tile_plan "
+              f"{want_items}")
+        log(f"[attention bf16] {what}: per value {e_f32p:.3f}x the limit, "
+            f"vs gather {e_gather:.3e} (atol 1e-2); {len(items)} work items "
+            f"({sum(1 for it in items if it[2] >= 0)} splits), device plan "
+            f"= tile_plan")
+        res["cases"].append({"case": what, "error_of_limit": e_f32p,
+                             "max_abs_err_gather": e_gather,
+                             "items": len(items)})
+
     # null-page / tail poisoning (tests/test_serve_pallas.py:105): pages no
     # row references, page 0, and every slot's positions past its longest
     # cursor hold 1e9 — the kernel output must not change, bit for bit
@@ -278,47 +434,75 @@ def phase_attention(rng):
           "pages changed the kernel output")
     log(f"[attention] poisoning {len(poison)} unreferenced pages and "
         f"{len(live)} slot tails: output bitwise unchanged")
-    # times at the main path's bf16 shapes; 8 layer pools in rotation so
-    # the pool (16.8 MB a layer) is not warm in the 50 MB L2
-    q, pools, tab, pos, live_tokens, *_ = attention_inputs(
-        rng, torch.bfloat16, n_layers_copies=8)
-    it = {"i": 0}
-
-    def nxt():
-        it["i"] = (it["i"] + 1) % len(pools)
-        return pools[it["i"]]
-
-    kernel = time_ms(lambda: pa.paged_attention(q, *nxt(), tab, pos))
-    plain = time_ms(lambda: pa.paged_attention_plain(
-        q, *nxt(), tab, pos), iters=3, warmup=1)
-    # library yardstick: SDPA over the gathered, GQA-expanded KV with the
-    # kv_len mask; the gather is done before the timed call
+    # times at the main path's bf16 mixes; 8 layer pools in rotation so the
+    # pool (16.8 MB a layer) is not warm in the 50 MB L2
     from repro_torch.models.kvcache import gather_pages
-    kp, vp = pools[0]
-    rep = 40 // 8
-    kg = gather_pages(kp, tab).transpose(1, 2).repeat_interleave(rep, 1)
-    vg = gather_pages(vp, tab).transpose(1, 2).repeat_interleave(rep, 1)
-    mask = (torch.arange(kg.shape[2], device="cuda")[None, :]
-            < (pos.long() + 1)[:, None])[:, None, None, :]
-    qs = q.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library = time_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask))
-    del kg, vg
     d, hkv, hq, esize = 128, 8, 40, 2
-    nbytes = (live_tokens * hkv * d * 2 * esize       # unique live K and V
-              + 2 * q.numel() * esize                 # q in, out
-              + tab.numel() * 4 + pos.numel() * 4)
-    flops = 4.0 * hq * d * float((pos.long() + 1).sum().item())
-    bms, by = bound_ms(nbytes, flops, "bfloat16")
-    log(f"[attention bf16 T=256] kernel {kernel:.4f} ms, plain {plain:.4f} "
-        f"ms, sdpa {library:.4f} ms, bound {bms:.4f} ms ({by})")
+    times = {}
+    for name, rows in (("T256", MIX_T256), ("decode_only", MIX_DECODE)):
+        q, pools, tab, pos, live_tokens, *_ = attention_inputs(
+            rng, torch.bfloat16, n_layers_copies=8, rows=rows)
+        it = {"i": 0}
+
+        def nxt():
+            it["i"] = (it["i"] + 1) % len(pools)
+            return pools[it["i"]]
+
+        # the kernel's device time from graph replay; eager calls by CUDA
+        # events also carry the wrapper's host path (three launches)
+        kernel = graph_ms([lambda kv=kv: pa.paged_attention(q, *kv, tab, pos)
+                           for kv in pools])
+        eager = time_ms(lambda: pa.paged_attention(q, *nxt(), tab, pos))
+        launches = device_us(lambda: pa.paged_attention(q, *nxt(), tab, pos))
+        plain = time_ms(lambda: pa.paged_attention_plain(
+            q, *nxt(), tab, pos), iters=3, warmup=1)
+        # library yardstick: SDPA over the gathered, GQA-expanded KV with
+        # the kv_len mask; the gather is done before the timed call
+        kp, vp = pools[0]
+        rep = hq // hkv
+        kg = gather_pages(kp, tab).transpose(1, 2).repeat_interleave(rep, 1)
+        vg = gather_pages(vp, tab).transpose(1, 2).repeat_interleave(rep, 1)
+        mask = (torch.arange(kg.shape[2], device="cuda")[None, :]
+                < (pos.long() + 1)[:, None])[:, None, None, :]
+        qs = q.transpose(1, 2)
+        library = time_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask))
+        del kg, vg
+        nbytes = (live_tokens * hkv * d * 2 * esize   # unique live K and V
+                  + 2 * q.numel() * esize             # q in, out
+                  + tab.numel() * 4 + pos.numel() * 4)
+        flops = 4.0 * hq * d * float((pos.long() + 1).sum().item())
+        bms, by = bound_ms(nbytes, flops, "bfloat16")
+        check(all(k in launches for k in PAGED_LAUNCHES) or not launches,
+              f"paged attention launches {sorted(launches)} lack one of "
+              f"{PAGED_LAUNCHES}")
+        times[name] = {"ms": kernel, "eager_ms": eager, "plain_ms": plain,
+                       "library_ms": library, "bound_ms": bms, "bound_by": by,
+                       "device_us_by_launch": launches}
+        log(f"[attention bf16 {name}] kernel {kernel:.4f} ms by graph "
+            f"replay, {eager:.4f} ms a call eager (device: "
+            + ", ".join(f"{k} {v:.1f} us" for k, v in launches.items())
+            + f"), plain {plain:.4f} ms, sdpa {library:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}, {live_tokens} live tokens)")
+    t256 = times["T256"]
     return {"name": "paged_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention.py:99",
+            "launch_kernels": list(PAGED_LAUNCHES),
             "max_abs_err": res["bfloat16"], "max_abs_err_f32": res["float32"],
-            "tolerance": "bf16 atol 1e-2 rtol 0, fp32 atol=rtol=2e-5",
-            "ms": kernel, "kernel_ms": kernel, "plain_ms": plain,
-            "bound_ms": bms, "bound_by": by, "library_ms": library,
+            "tolerance": "bf16 atol 1e-2 rtol 0 vs the gather plain version "
+                         "and atol 1e-5 + rtol 8e-3 of each value vs the "
+                         "fp32-P plain version, fp32 atol=rtol=2e-5",
+            "bf16_worst_error_of_limit": res["bf16_worst_error_of_limit"],
+            "bf16_dropped_page_error_of_limit":
+                res["bf16_dropped_page_error_of_limit"],
+            "cases": res["cases"],
+            "ms": t256["ms"], "kernel_ms": t256["ms"],
+            "eager_ms": t256["eager_ms"],
+            "plain_ms": t256["plain_ms"], "bound_ms": t256["bound_ms"],
+            "bound_by": t256["bound_by"], "library_ms": t256["library_ms"],
+            "device_us_by_launch": t256["device_us_by_launch"],
+            "decode_only": times["decode_only"],
             "library": "scaled_dot_product_attention over gathered KV"}
 
 
@@ -577,6 +761,11 @@ def _ssd_inputs(gen, shape, dtype, *, model_decay=False):
     return x, dt, A, bm, cm
 
 
+#: the SSD scan's launches, in order (csrc/ssd_scan.cu)
+SSD_LAUNCHES = ("ssd_prep_kernel", "ssd_state_kernel", "ssd_pass_kernel",
+                "ssd_chunk_scan_kernel")
+
+
 def phase_ssd(rng):
     """The SSD chunked scan: (a) bf16 at the serving path's prefill shape
     (b 1, s 1024, h 48, p 64, n 128, chunk 128), (b) fp32 at small shapes
@@ -645,8 +834,13 @@ def phase_ssd(rng):
         err32, h_err32 = max(err32, e), max(h_err32, he)
     # times at the path's shape (bf16); no PyTorch call computes the scan
     kernel = time_ms(lambda: sk.ssd_scan(*args, chunk=chunk))
+    launches = device_us(lambda: sk.ssd_scan(*args, chunk=chunk))
     plain = time_ms(lambda: sk.ssd_scan_plain(*args, chunk=chunk),
                     iters=3, warmup=1)
+    check(kernel < plain, f"ssd kernel {kernel:.4f} ms is not faster than "
+          f"its plain version ({plain:.4f} ms)")
+    check(all(k in launches for k in SSD_LAUNCHES) or not launches,
+          f"ssd launches {sorted(launches)} lack one of {SSD_LAUNCHES}")
     b, s, h, p, n = path
     q = chunk
     nc = s // q
@@ -658,11 +852,14 @@ def phase_ssd(rng):
                             + h * (pairs * p            # intra y
                                    + 2 * q * n * p))    # inter y, state
     bms, by = bound_ms(nbytes, flops, "bfloat16")
-    log(f"[ssd bf16 path shape] kernel {kernel:.4f} ms, plain {plain:.4f} "
+    grids = sk.pass_grids(b, s, h, p, n, chunk)
+    log(f"[ssd bf16 path shape] kernel {kernel:.4f} ms (device: "
+        + ", ".join(f"{k} {v:.1f} us" for k, v in launches.items())
+        + f"), plain {plain:.4f} "
         f"ms, library none, bound {bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB "
         f"at 3.35 TB/s vs {flops / 1e9:.3f} GFLOP at the bf16 peak of "
         f"989 TFLOP/s; {flops / 67e12 * 1e3:.4f} ms at the fp32 CUDA-core "
-        f"peak of 67 TFLOP/s); {b * h} blocks on "
+        f"peak of 67 TFLOP/s); blocks a pass {grids} on "
         f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_scan.cu",
@@ -675,6 +872,8 @@ def phase_ssd(rng):
             "bf16_dropped_state_error_of_limit": drop,
             "ms": kernel, "kernel_ms": kernel, "plain_ms": plain,
             "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "launch_kernels": list(SSD_LAUNCHES),
+            "device_us_by_launch": launches, "blocks_by_pass": grids,
             "library": "none: no one PyTorch call computes the SSD scan"}
 
 
@@ -899,8 +1098,11 @@ def phase_main(seed: int):
 
 #: phase 5's kernel groups: name -> substrings of the device kernel's name
 #: (csrc/: the bf16 fused MLP is mlp_tma_wgmma_kernel, twice, with
-#: mlp_tail_sum_kernel and mlp_split_sum_kernel; gemm_f32 is its fp32 pair)
-SERVE_GROUPS = {"paged_attention": ("paged_attention_kernel",),
+#: mlp_tail_sum_kernel and mlp_split_sum_kernel; gemm_f32 is its fp32 pair;
+#: bf16 paged attention is PAGED_LAUNCHES, paged_attention_kernel its fp32
+#: entry)
+SERVE_GROUPS = {"paged_attention": ("paged_attention_kernel",
+                                    *PAGED_LAUNCHES),
                 "fused_mlp": ("mlp_tma_wgmma_kernel", "mlp_tail_sum_kernel",
                               "mlp_split_sum_kernel", "gemm_f32")}
 
@@ -1271,7 +1473,7 @@ def phase_ssm(seed: int):
     # one more pair (512 and 77 tokens, 12 new each): the admission step
     # (two prefills and a decode) and the decode-only steps after it are
     # profiled apart, each against the unprofiled p50 of its kind
-    groups = {"ssd_scan": ("ssd_scan_kernel",)}
+    groups = {"ssd_scan": SSD_LAUNCHES}
     out["profile"] = phase_profile(
         eng, rng, out["prefill_step_p50_ms"], prompts=(512, 77),
         max_new=12, groups=groups, tag="ssm profile: admission step",

@@ -1,41 +1,79 @@
 // Paged-attention decode for Hopper (sm_90a), plain C interface for ctypes.
 //
 // Replaces the Pallas TPU kernel repro/kernels/paged_attention.py::
-// paged_attention (body _kernel): flash-decoding over a paged KV pool, one
-// query token per row, fp32 online softmax across pages, kv_len = pos + 1.
+// paged_attention (:99, pallas_call :140, body _kernel :44-96):
+// flash-decoding over a paged KV pool, one query token per row, fp32 online
+// softmax across pages, kv_len = pos + 1, page 0 the null page. Every row
+// reads through its own table row and is masked by its own kv_len.
 //
-// Design. The TPU kernel runs the page axis as a sequential grid dimension
-// with m, l and acc carried in VMEM scratch between grid steps. Blocks on
-// Hopper run in no order, so the page axis becomes a loop inside ONE block
-// per (row, kv-head); m, l and acc live in shared memory and registers for
-// the whole loop. The block handles all rep = Hq / Hkv query heads of its
-// kv-head (query head h reads kv-head h / rep: consecutive heads share one,
-// as q.reshape(B, Hkv, rep, D) does in the reference), so each K/V row is
-// read once for rep heads. The block reads its own page ids from the table
-// row and never touches a page at or past kv_len; on the ragged last page
-// the positions past kv_len are left out of every sum (never loaded, never
-// multiplied by 0), so garbage or poison there cannot leak, bit for bit.
-// Scores are q.k * (1/sqrt(D)) in fp32; p stays fp32 for P.V (the Pallas
-// kernel upcasts V to fp32 first); the output is written in q's dtype with
-// l == 0 guarded. NEG_INF = -1e30 initialises m, as in the reference.
+// Bound. A row reads its live pages' K and V (2 * kv_len * Hkv * D
+// elements) and does 4 * Hq * D * kv_len flops, ~2.5 flop a byte in bf16,
+// far below the ~295 flop/byte ridge: the card's 3.35 TB/s bounds it, with
+// each live page counted once a call, since the rows of one slot (a
+// prefill chunk's rows, a decode row) share their pages. At the serving
+// path's 256-row mix (phase 3 of chip_smoke.py) that is 13.6 MB (8.4 MB of
+// live K and V, 5.2 MB of q and out), 4.1 us.
 //
-// Bound. One decode row reads kv_len * Hkv * D * 2 K/V elements and does
-// 4 * Hq * D * kv_len flops: about 2.5 flop per byte in bf16, far below the
-// ~295 flop/byte ridge, so the card's 3.35 TB/s bounds it (count each live
-// page's K/V once per step: rows of one slot share pages). This simple
-// kernel does not reach that bound: each block walks its pages serially with
-// scalar loads and a block barrier per page, rows of one prefill chunk each
-// re-read their slot's pages (from L2), and a few long decode rows set the
-// tail of the step. Split-KV, wgmma and TMA belong to later work.
+// bf16 path (tc::). The earlier design ran one block per (row, kv head),
+// each walking its pages with scalar loads, a block barrier and a 5-thread
+// softmax a page: the 253 rows of a prefill chunk read their slot's pages
+// 48x over, and a decode-only step spent 252 x 8 blocks on padding rows.
+// 0.61 ms at the 256-row mix (NVIDIA H100 80GB HBM3, 700.00 W). Now:
+//   - a plan kernel (one block) finds, on the device, runs of consecutive
+//     rows that share pages: row r joins row r - 1 when it holds at least
+//     as many live pages and the two table rows agree over row r - 1's.
+//     Then every row of a run agrees with the run's last row over its own
+//     live pages, and a tile reads the pages through the last row's table
+//     row. Rows of other slots, rows whose tables part after the first
+//     pages, a shorter row after a longer one: each starts a new run, so
+//     any table is right. Runs are cut into tiles of 64 / rep rows (12 at
+//     rep 5): a tile's M = rows x the rep query heads of one kv head;
+//   - a lone row (a tile of one row: a decode row) with more than 4 kv
+//     tiles of 64 keys is split into at most 4 parts by its own kv_len
+//     alone (flash-decoding); paged_combine_kernel adds the partial
+//     (m, l, o) of each split in split order;
+//   - a persistent grid (2 blocks an SM) walks the work units (item, kv
+//     head) in a fixed stride. A producer warp brings the tile's Q (one
+//     TMA box of 64 D-values x rep heads x rows) and, kv tile by kv tile,
+//     each live page of K and V as one TMA box (64 D-values x one head x
+//     page_size positions) into a 2-stage ring, 128-byte swizzled: pages
+//     lie back to back, so a 64-key tile has the layout of one 64-row box
+//     (hopper.cuh). TMA fits here (a page of one head is a strided 3-D
+//     box); cp.async is not needed. D pads to 64 or 128 by TMA's zero fill;
+//   - one consumer warpgroup runs S = Q K^T (m64n64k16) and O += P V on
+//     wgmma, the online softmax in registers in the log2 domain, each M
+//     row masked by its own kv_len by select (p = 0 exactly past it, as
+//     the Pallas body's where), so poison past a cursor or in a page no row
+//     references leaves every output bit unchanged;
+//   - P stays fp32 for P V, as the Pallas body keeps it (p_exp with v
+//     upcast, :86-89): P_hi V + P_lo V in one accumulator, as in
+//     flash_attention.cu;
+//   - determinism: the plan, the work units and every sum order are fixed
+//     by the call's inputs, so the same call gives the same bits. A row's
+//     bits do not depend on which rows share its tile (each M row of a
+//     wgmma is its own dot products; kv tiles wholly past its kv_len leave
+//     m, l and o bit for bit as they were); they do depend on whether the
+//     row is lone and split (then its partials are combined) or in a tile.
+// Shared memory at D = 128: Q 16 KB + 2 stages x (K + V) 64 KB + 1 KB of
+// alignment slack = 81 KB, two blocks an SM.
+//
+// fp32 path (paged_attention_kernel<float>, the parity runs): the earlier
+// design, one block per (row, kv head), fp32 FMAs, pages in a loop; on the
+// ragged last page the positions past kv_len are left out of every sum.
 //
 // Shapes: q (B, Hq, D), pools (n_pages, page_size, Hkv, D), table (B, P)
-// int32, pos (B,) int32, out (B, Hq, D). Limits: Hq % Hkv == 0,
-// Hq/Hkv <= MAX_REP, D <= MAX_D, page_size <= MAX_PAGE; the C entry checks
-// them and returns cudaErrorInvalidValue, launching nothing, otherwise.
+// int32, pos (B,) int32, out (B, Hq, D); query head h reads kv head
+// h / (Hq / Hkv). Limits, checked by the C entries, which return
+// cudaErrorInvalidValue and launch nothing past them: Hq % Hkv == 0,
+// Hq / Hkv <= 16; fp32 D <= 256, page_size <= 128; bf16 D a multiple of 8
+// in [8, 128], page_size a power of two in [8, 64], 16-byte aligned bases
+// (TMA's stride, box and address rules).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -49,16 +87,9 @@ constexpr int DIMS_PER_LANE = MAX_D / 32;          // Q.K: lane owns dims
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 template <typename T>
@@ -200,6 +231,675 @@ int launch(const void* q, const void* k, const void* v, const void* table,
 
 }  // namespace
 
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+using namespace hopper;
+
+constexpr int BM = 64;                 // tile rows: rows x rep query heads
+constexpr int BN = 64;                 // keys a kv tile
+constexpr int STAGES = 2;              // K/V ring depth (2 blocks an SM)
+constexpr int SPLIT_TILES = 4;         // a lone row splits past 4 kv tiles
+constexpr int MAX_SPLITS = 4;          // ... into at most 4 splits
+constexpr int CONSUMERS = 128;         // one consumer warpgroup
+constexpr int THREADS = CONSUMERS + 32;  // + one producer warp
+constexpr int PLAN_THREADS = 1024;
+constexpr int COMBINE_THREADS = 512;
+constexpr int Q_BOX = BM * 128;        // bytes: 64 rows x 64 bf16
+constexpr int KV_BOX = BN * 128;       // bytes: 64 keys x 64 bf16
+constexpr int MAX_REP = 16;
+constexpr float NEG_INF = -1e30f;
+
+template <int DT>                      // D tile: 64 or 128
+struct Layout {
+  static constexpr int NC = DT / 64;                   // 64-wide D boxes
+  static constexpr int Q_BYTES = NC * Q_BOX;
+  static constexpr int KV_BYTES = NC * KV_BOX;         // one K or V stage
+  static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 1024;
+};
+
+// ------------------------------------------------------------------ plan
+// The plan (int32 scratch, written by paged_plan_kernel on the device):
+//   [0]                 number of work items
+//   [4, 4 + b)          splits of each row: >= 2 for a split lone row,
+//                       whose partials paged_combine_kernel adds up; else 1
+//   [4 + b, 4 + 2b)     1 where a row starts a tile
+//   [items_at(b), ...)  items, int4 {first row, rows, split (-1: whole), 0}
+__host__ __device__ __forceinline__ int items_at(int b) {
+  return (4 + 2 * b + 3) & ~3;
+}
+__host__ __device__ __forceinline__ long long plan_ints(int b) {
+  return items_at(b) + 4LL * b * MAX_SPLITS;
+}
+
+// keys a row attends, clamped to its table (as the SIMT kernel's page loop)
+__device__ __forceinline__ int kv_len_of(const int* pos, int r, int cap) {
+  return min(max(pos[r] + 1, 0), cap);
+}
+
+// Splits of a lone row with n_tiles kv tiles: (count, tiles a split); a
+// function of the row's own kv_len alone.
+__host__ __device__ __forceinline__ void split_tiles(int n_tiles, int* count,
+                                                     int* per) {
+  if (n_tiles <= SPLIT_TILES) {
+    *count = 1;
+    *per = n_tiles;
+    return;
+  }
+  const int n0 = min((n_tiles + SPLIT_TILES - 1) / SPLIT_TILES, MAX_SPLITS);
+  *per = (n_tiles + n0 - 1) / n0;
+  *count = (n_tiles + *per - 1) / *per;
+}
+
+// inclusive scan over the block (sum, or max when is_max)
+__device__ __forceinline__ int block_scan(int v, bool is_max, int* buf) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int warps = blockDim.x / 32;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int n = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v = is_max ? max(v, n) : v + n;
+  }
+  if (lane == 31) buf[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < warps ? buf[lane] : (is_max ? -1 : 0);
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int n = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w = is_max ? max(w, n) : w + n;
+    }
+    buf[lane] = w;
+  }
+  __syncthreads();
+  if (warp > 0) v = is_max ? max(v, buf[warp - 1]) : v + buf[warp - 1];
+  __syncthreads();                       // buf may be reused
+  return v;
+}
+
+// One block. Row r joins row r - 1's run when it holds at least as many
+// live pages and the two table rows agree over row r - 1's live pages:
+// then every row of a run agrees with the run's last row over its own live
+// pages, so a tile reads its pages through the last row's table. Runs are
+// cut into tiles of rows_per_tile rows; a tile of one row whose keys span
+// more than SPLIT_TILES kv tiles is split by its own kv_len.
+__global__ void __launch_bounds__(PLAN_THREADS)
+paged_plan_kernel(const int* __restrict__ table, const int* __restrict__ pos,
+                  int* __restrict__ plan, int b, int n_blocks, int page_size,
+                  int rows_per_tile) {
+  __shared__ int buf[32];
+  __shared__ int carry;
+  __shared__ int start_s[PLAN_THREADS + BM];  // a chunk's tile starts + BM
+  int* splits = plan + 4;
+  int* start = plan + 4 + b;
+  int4* items = reinterpret_cast<int4*>(plan + items_at(b));
+  const int cap = n_blocks * page_size;
+  const int tid = threadIdx.x;
+  if (tid == 0) carry = -1;
+  __syncthreads();
+  // pass 1: runs and tile starts, PLAN_THREADS / 4 rows at a time; the 4
+  // threads of a row compare its table row with row r - 1's, interleaved
+  // (thread seg takes pages seg, seg + 4, ...: a warp's load touches 8
+  // rows, not 32), 16 pages each a round, all loads of a round in flight
+  for (int base = 0; base < b; base += PLAN_THREADS / 4) {
+    const int r = base + tid / 4, seg = tid % 4;
+    bool joins = false;
+    if (r > 0 && r < b) {
+      const int live_prev =
+          (kv_len_of(pos, r - 1, cap) + page_size - 1) / page_size;
+      const int live = (kv_len_of(pos, r, cap) + page_size - 1) / page_size;
+      joins = live_prev > 0 && live >= live_prev;
+      const int* a = table + (size_t)r * n_blocks;
+      const int* p = a - n_blocks;
+      for (int j0 = seg; joins && j0 < live_prev; j0 += 64) {
+        int x[16], y[16];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int k = j0 + 4 * j;
+          x[j] = k < live_prev ? a[k] : 0;
+          y[j] = k < live_prev ? p[k] : 0;
+        }
+#pragma unroll
+        for (int j = 0; j < 16; ++j) joins = joins && x[j] == y[j];
+      }
+    }
+    // the row joins when all four segments agree (lanes 4k .. 4k + 3)
+    joins = __shfl_xor_sync(0xffffffffu, (int)joins, 1) && joins;
+    joins = __shfl_xor_sync(0xffffffffu, (int)joins, 2) && joins;
+    int rs = block_scan(r < b && !joins && seg == 0 ? r : -1, true, buf);
+    rs = max(rs, carry);
+    if (r < b && seg == 0) start[r] = (r - rs) % rows_per_tile == 0;
+    __syncthreads();
+    if (tid == PLAN_THREADS - 1) carry = rs;
+    __syncthreads();
+  }
+  if (tid == 0) carry = 0;
+  __syncthreads();
+  // pass 2: items, in row order
+  for (int base = 0; base < b; base += PLAN_THREADS) {
+    const int r = base + tid;
+    for (int i = tid; i < PLAN_THREADS + BM; i += PLAN_THREADS)
+      start_s[i] = base + i < b ? start[base + i] : 1;
+    __syncthreads();
+    int n_rows = 0, count = 0, per = 0;
+    if (r < b && start_s[tid]) {
+      n_rows = 1;
+      while (n_rows < rows_per_tile && !start_s[tid + n_rows]) ++n_rows;
+      count = 1;
+      if (n_rows == 1) {
+        const int n_tiles = (kv_len_of(pos, r, cap) + BN - 1) / BN;
+        split_tiles(n_tiles, &count, &per);
+      }
+    }
+    const int incl = block_scan(count, false, buf);
+    const int first = carry + incl - count;
+    for (int s = 0; s < count; ++s)
+      items[first + s] = make_int4(r, n_rows, count > 1 ? s : -1, 0);
+    for (int i = 0; i < n_rows; ++i) splits[r + i] = count;
+    __syncthreads();
+    if (tid == PLAN_THREADS - 1) carry = first + count;
+    __syncthreads();
+  }
+  if (tid == 0) plan[0] = carry;
+}
+
+// ------------------------------------------------------------ attention
+
+// as hopper::mbar_wait, but traps after ~2 s instead of hanging the card
+__device__ __forceinline__ void wait_or_trap(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  uint64_t t0 = 0;
+  for (uint32_t i = 0;; ++i) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if ((i & 1023) == 0) {
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+      if (i == 0) t0 = now;
+      else if (now - t0 > 2000000000ull) __trap();
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int R>
+__device__ __forceinline__ void zero(float (&a)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) a[i] = 0.f;
+}
+
+// The kv tiles of an item: a whole item reads every tile its last row
+// holds, a split its share of a lone row's tiles.
+struct Span {
+  int row0, n_rows, split, tb, te, live_last;
+  __device__ Span(int4 it, const int* pos, int cap, int page_size)
+      : row0(it.x), n_rows(it.y), split(it.z) {
+    const int kv = kv_len_of(pos, row0 + n_rows - 1, cap);
+    live_last = (kv + page_size - 1) / page_size;
+    const int n_tiles = (kv + BN - 1) / BN;
+    tb = 0;
+    te = n_tiles;
+    if (split >= 0) {
+      int count, per;
+      split_tiles(n_tiles, &count, &per);
+      tb = split * per;
+      te = min(n_tiles, tb + per);
+    }
+  }
+};
+
+// S (64 x BN) = Q K^T: 16-deep slices of D, 4 to a 64-wide box; both
+// operands K-major
+template <int DT>
+__device__ __forceinline__ void issue_s(float (&sacc)[BN / 2],
+                                        const uint8_t* q_s,
+                                        const uint8_t* k_s) {
+#pragma unroll
+  for (int kk = 0; kk < DT / 16; ++kk) {
+    const int c = kk / 4, w = kk % 4;
+    wgmma_ss_n64<0>(sacc, desc_sw128(q_s + c * Q_BOX + 32 * w, 16, 1024),
+                    desc_sw128(k_s + c * KV_BOX + 32 * w, 16, 1024));
+  }
+}
+
+// O (64 x DT) += P_hi V + P_lo V: 16-key slices of the V tile (MN-major)
+template <int DT>
+__device__ __forceinline__ void issue_pv(float (&o)[DT / 2],
+                                         const uint32_t (&p_hi)[BN / 16][4],
+                                         const uint32_t (&p_lo)[BN / 16][4],
+                                         const uint8_t* v_s) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    const uint64_t dv = desc_sw128(v_s + 2048 * kk, KV_BOX, 1024);
+    if constexpr (DT == 128) {
+      wgmma_rs_n128(o, p_hi[kk], dv);
+      wgmma_rs_n128(o, p_lo[kk], dv);
+    } else {
+      wgmma_rs_n64(o, p_hi[kk], dv);
+      wgmma_rs_n64(o, p_lo[kk], dv);
+    }
+  }
+}
+
+// P = P_hi + P_lo as bf16 register fragments (the accumulator's pattern)
+__device__ __forceinline__ void split_p(const float (&p)[BN / 2],
+                                        uint32_t (&p_hi)[BN / 16][4],
+                                        uint32_t (&p_lo)[BN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float x = p[8 * kk + 2 * w], y = p[8 * kk + 2 * w + 1];
+      const uint32_t hi = pack_bf16(x, y);
+      const __nv_bfloat162 hb = *reinterpret_cast<const __nv_bfloat162*>(&hi);
+      p_hi[kk][w] = hi;
+      p_lo[kk][w] = pack_bf16(x - __low2float(hb), y - __high2float(hb));
+    }
+}
+
+__device__ __forceinline__ void keep_regs(uint32_t (&a)[BN / 16][4],
+                                          uint32_t (&b)[BN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+      asm volatile("" : "+r"(a[kk][w]), "+r"(b[kk][w]));
+}
+
+// A persistent grid walks the work units (item, kv head) in a fixed
+// stride. Per unit the producer warp brings the tile's Q rows (rows x rep
+// heads of one kv head, one TMA box) and then, kv tile by kv tile, the live
+// pages of K and V through the last row's table (one TMA box a page and 64
+// D-values); the consumer warpgroup runs S = Q K^T and O += P V on wgmma
+// with an fp32 online softmax in registers, each M row masked by its own
+// kv_len.
+template <int DT>
+__global__ void __launch_bounds__(THREADS, 2)
+paged_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const int* __restrict__ table,
+                        const int* __restrict__ pos,
+                        const int* __restrict__ plan, bf16* __restrict__ out,
+                        float* __restrict__ part, int b, int hq, int hkv,
+                        int d, int page_size, int n_blocks,
+                        int rows_per_tile, float scale_log2) {
+  using L = Layout<DT>;
+  constexpr int NC = L::NC;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* q_s = smem;                           // [chunk] 8 KB boxes
+  uint8_t* k_s = q_s + L::Q_BYTES;               // [stage][chunk] 8 KB
+  uint8_t* v_s = k_s + STAGES * L::KV_BYTES;
+  __shared__ __align__(8) uint64_t q_full, q_empty, k_full[STAGES],
+      v_full[STAGES], kv_empty[STAGES];
+
+  const int rep = hq / hkv;
+  const int cap = n_blocks * page_size;
+  const int units = plan[0] * hkv;
+  const int4* items = reinterpret_cast<const int4*>(plan + items_at(b));
+
+  if (threadIdx.x == 0) {
+    mbar_init(&q_full, 1);
+    mbar_init(&q_empty, 1);
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&k_full[i], 1);
+      mbar_init(&v_full[i], 1);
+      mbar_init(&kv_empty[i], 1);
+    }
+    mbar_fence_init();
+  }
+  // A tile's last kv tile may hold fewer live pages than it has room for;
+  // the rest of the stage keeps what an earlier tile left there (finite
+  // K/V values, masked to p = 0 as past-cursor positions are). Zero the
+  // ring once so that nothing else can be read, then order these writes
+  // before the async proxy's reads.
+  for (int i = threadIdx.x; i < 2 * STAGES * L::KV_BYTES / 16;
+       i += blockDim.x)
+    reinterpret_cast<uint4*>(k_s)[i] = make_uint4(0, 0, 0, 0);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    // -------------------------------------------------------- producer
+    if (threadIdx.x == CONSUMERS) {
+      const uint32_t page_bytes = (uint32_t)page_size * 128;
+      const int per_tile = BN / page_size;
+      int it = 0, uc = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x, ++uc) {
+        const Span sp(items[u / hkv], pos, cap, page_size);
+        const int g = u % hkv;
+        const int* trow = table + (size_t)(sp.row0 + sp.n_rows - 1) * n_blocks;
+        wait_or_trap(&q_empty, (uc & 1) ^ 1);    // unit 0 passes at once
+        mbar_expect(&q_full, NC * rows_per_tile * rep * 128);
+        for (int c = 0; c < NC; ++c)
+          tma_load_3d(q_s + c * Q_BOX, &map_q, &q_full, c * 64, g * rep,
+                      sp.row0);
+        for (int t = sp.tb; t < sp.te; ++t, ++it) {
+          const int st = it % STAGES;
+          const uint32_t ph = (it / STAGES) & 1;
+          const int lp0 = t * per_tile;
+          const int np = min(per_tile, sp.live_last - lp0);
+          // the tile's page ids first: a load after a TMA issue would wait
+          // for it (the asm's memory clobber), one L2 round trip a page
+          int pages[BN / 8];
+#pragma unroll
+          for (int i = 0; i < BN / 8; ++i)
+            pages[i] = i < np ? trow[lp0 + i] : 0;
+          wait_or_trap(&kv_empty[st], ph ^ 1);
+          mbar_expect(&k_full[st], np * NC * page_bytes);
+#pragma unroll
+          for (int i = 0; i < BN / 8; ++i)
+            if (i < np)
+              for (int c = 0; c < NC; ++c)
+                tma_load_4d(k_s + st * L::KV_BYTES + c * KV_BOX +
+                                i * page_bytes,
+                            &map_k, &k_full[st], c * 64, g, 0, pages[i]);
+          mbar_expect(&v_full[st], np * NC * page_bytes);
+#pragma unroll
+          for (int i = 0; i < BN / 8; ++i)
+            if (i < np)
+              for (int c = 0; c < NC; ++c)
+                tma_load_4d(v_s + st * L::KV_BYTES + c * KV_BOX +
+                                i * page_bytes,
+                            &map_v, &v_full[st], c * 64, g, 0, pages[i]);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---------------------------------------------------------- consumer
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int mrow0 = 16 * (tid / 32) + lane / 4;  // and mrow0 + 8
+  const int col0 = 2 * (lane % 4);               // + 8 j + e
+  int it = 0, uc = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++uc) {
+    const Span sp(items[u / hkv], pos, cap, page_size);
+    const int g = u % hkv;
+    // M row m is query head g * rep + m % rep of row row0 + m / rep
+    int kvl[2], rowi[2], head[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = mrow0 + 8 * i;
+      const int rl = m / rep;
+      const bool real = rl < sp.n_rows && rl < rows_per_tile;
+      rowi[i] = real ? sp.row0 + rl : -1;
+      head[i] = g * rep + m % rep;
+      kvl[i] = real ? kv_len_of(pos, sp.row0 + rl, cap) : 0;
+    }
+    float o[DT / 2];
+    zero(o);
+    float m_run[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // l: this lane's
+    float sacc[BN / 2];
+    uint32_t p_hi[BN / 16][4], p_lo[BN / 16][4];
+    wait_or_trap(&q_full, uc & 1);
+    if (sp.te <= sp.tb && tid == 0) mbar_arrive(&q_empty);
+    for (int t = sp.tb; t < sp.te; ++t, ++it) {
+      const int st = it % STAGES;
+      const uint32_t ph = (it / STAGES) & 1;
+      zero(sacc);
+      wait_or_trap(&k_full[st], ph);
+      fence_regs(sacc);
+      wgmma_fence();
+      issue_s<DT>(sacc, q_s, k_s + st * L::KV_BYTES);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      if (t + 1 == sp.te && tid == 0) mbar_arrive(&q_empty);   // Q read
+      // online softmax in the log2 domain; each row lives in the 4 lanes
+      // of a quad; a key at or past the row's kv_len gets p = 0 exactly
+      float corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = m_run[i];
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kpos = t * BN + 8 * j + col0 + e;
+            float sv = sacc[4 * j + 2 * i + e] * scale_log2;
+            sv = kpos < kvl[i] ? sv : -INFINITY;
+            sacc[4 * j + 2 * i + e] = sv;
+            mx = fmaxf(mx, sv);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        corr[i] = exp2f(m_run[i] - mx);          // m starts finite: no NaN
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = exp2f(sacc[4 * j + 2 * i + e] - mx);
+            sacc[4 * j + 2 * i + e] = p;
+            sum += p;
+          }
+        l[i] = l[i] * corr[i] + sum;
+        m_run[i] = mx;
+      }
+#pragma unroll
+      for (int j = 0; j < DT / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          o[4 * j + 2 * i] *= corr[i];
+          o[4 * j + 2 * i + 1] *= corr[i];
+        }
+      split_p(sacc, p_hi, p_lo);
+      wait_or_trap(&v_full[st], ph);
+      fence_regs(o);
+      wgmma_fence();
+      issue_pv<DT>(o, p_hi, p_lo, v_s + st * L::KV_BYTES);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      keep_regs(p_hi, p_lo);
+      if (tid == 0) mbar_arrive(&kv_empty[st]);
+    }
+    // a whole item writes out = o / l (l == 0 read as 1: a row with no
+    // live key writes 0); a split writes its unnormalised o, m and l
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float li = l[i];
+      li += __shfl_xor_sync(0xffffffffu, li, 1);
+      li += __shfl_xor_sync(0xffffffffu, li, 2);
+      if (rowi[i] < 0) continue;
+      if (sp.split < 0) {
+        const float inv = 1.f / (li == 0.f ? 1.f : li);
+        bf16* orow = out + ((size_t)rowi[i] * hq + head[i]) * d;
+#pragma unroll
+        for (int j = 0; j < DT / 8; ++j) {
+          const int c = 8 * j + col0;
+          if (c < d)
+            *reinterpret_cast<uint32_t*>(orow + c) =
+                pack_bf16(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+        }
+      } else {
+        const size_t slot =
+            ((size_t)rowi[i] * MAX_SPLITS + sp.split) * hq + head[i];
+        float* prow = part + slot * (d + 2);
+#pragma unroll
+        for (int j = 0; j < DT / 8; ++j) {
+          const int c = 8 * j + col0;
+          if (c < d)
+            *reinterpret_cast<float2*>(prow + c) =
+                make_float2(o[4 * j + 2 * i], o[4 * j + 2 * i + 1]);
+        }
+        if (lane % 4 == 0) {
+          prow[d] = m_run[i];
+          prow[d + 1] = li;
+        }
+      }
+    }
+  }
+}
+
+// One block a row: a split row's partials added in split order,
+// out = sum_s o_s 2^(m_s - M) / sum_s l_s 2^(m_s - M), M = max_s m_s. The
+// weights of each (split, head) are computed once, into shared memory.
+__global__ void __launch_bounds__(COMBINE_THREADS)
+paged_combine_kernel(const int* __restrict__ plan,
+                     const float* __restrict__ part, bf16* __restrict__ out,
+                     int hq, int d) {
+  __shared__ float w_s[MAX_SPLITS * 128], den_s[128];
+  const int r = blockIdx.x;
+  const int n = plan[4 + r];
+  if (n < 2) return;
+  const size_t step = (size_t)hq * (d + 2);     // one split's partials
+  const float* p0 = part + (size_t)r * MAX_SPLITS * step;
+  for (int h0 = 0; h0 < hq; h0 += 128) {
+    const int hn = min(128, hq - h0);
+    if (threadIdx.x < hn) {
+      const float* ph = p0 + (size_t)(h0 + threadIdx.x) * (d + 2);
+      float m[MAX_SPLITS], l[MAX_SPLITS];
+#pragma unroll
+      for (int s = 0; s < MAX_SPLITS; ++s) {
+        m[s] = s < n ? ph[s * step + d] : NEG_INF;
+        l[s] = s < n ? ph[s * step + d + 1] : 0.f;
+      }
+      float mx = NEG_INF;
+#pragma unroll
+      for (int s = 0; s < MAX_SPLITS; ++s) mx = fmaxf(mx, m[s]);
+      float den = 0.f;
+#pragma unroll
+      for (int s = 0; s < MAX_SPLITS; ++s) {
+        const float w = s < n ? exp2f(m[s] - mx) : 0.f;
+        w_s[s * 128 + threadIdx.x] = w;
+        den += l[s] * w;
+      }
+      den_s[threadIdx.x] = den == 0.f ? 1.f : den;
+    }
+    __syncthreads();
+    // pairs of columns, 4 pairs a thread in flight
+    const int pairs = hn * d / 2;
+    for (int i0 = threadIdx.x; i0 < pairs; i0 += 4 * COMBINE_THREADS) {
+      float2 o[4][MAX_SPLITS];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int i = i0 + k * COMBINE_THREADS;
+        const int hl = 2 * i / d, c = 2 * i % d;
+        const float* ph = p0 + (size_t)(h0 + hl) * (d + 2) + c;
+#pragma unroll
+        for (int s = 0; s < MAX_SPLITS; ++s)
+          o[k][s] = i < pairs && s < n
+              ? *reinterpret_cast<const float2*>(ph + s * step)
+              : make_float2(0.f, 0.f);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int i = i0 + k * COMBINE_THREADS;
+        if (i >= pairs) continue;
+        const int hl = 2 * i / d, c = 2 * i % d;
+        float x = 0.f, y = 0.f;
+#pragma unroll
+        for (int s = 0; s < MAX_SPLITS; ++s)
+          if (s < n) {
+            x += o[k][s].x * w_s[s * 128 + hl];
+            y += o[k][s].y * w_s[s * 128 + hl];
+          }
+        *reinterpret_cast<uint32_t*>(out + ((size_t)r * hq + h0 + hl) * d +
+                                     c) =
+            pack_bf16(x / den_s[hl], y / den_s[hl]);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n < 1) n = 1;
+  }
+  return n;
+}
+
+template <int DT>
+int launch_dt(const void* q, const void* k, const void* v, const void* table,
+              const void* pos, void* out, int* plan, float* part, int b,
+              int hq, int hkv, int d, int page_size, int n_pages,
+              int n_blocks, cudaStream_t stream) {
+  const uint64_t e = sizeof(bf16);
+  const int rep = hq / hkv;
+  const int rows_per_tile = BM / rep;
+  CUtensorMap mq, mk, mv;
+  // q (D, Hq, B), innermost first: a box is 64 D-values x rep heads x
+  // rows_per_tile rows, one tile's M rows in row-major (row, head) order
+  const uint64_t qd[3] = {(uint64_t)d, (uint64_t)hq, (uint64_t)b};
+  const uint64_t qs[2] = {d * e, (uint64_t)hq * d * e};
+  const uint32_t qbox[3] = {64, (uint32_t)rep, (uint32_t)rows_per_tile};
+  // pools (D, Hkv, page position, page): a box is one page of one head
+  const uint64_t kd[4] = {(uint64_t)d, (uint64_t)hkv, (uint64_t)page_size,
+                          (uint64_t)n_pages};
+  const uint64_t ks[3] = {d * e, (uint64_t)hkv * d * e,
+                          (uint64_t)page_size * hkv * d * e};
+  const uint32_t kbox[4] = {64, 1, (uint32_t)page_size, 1};
+  if (!make_map(&mq, q, 3, qd, qs, qbox) ||
+      !make_map(&mk, k, 4, kd, ks, kbox) ||
+      !make_map(&mv, v, 4, kd, ks, kbox))
+    return (int)cudaErrorInvalidValue;
+  const int bytes = Layout<DT>::SMEM;
+  static bool smem_set = false;               // once a process and D tile
+  if (!smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        paged_attn_wgmma_kernel<DT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  paged_plan_kernel<<<1, PLAN_THREADS, 0, stream>>>(
+      (const int*)table, (const int*)pos, plan, b, n_blocks, page_size,
+      rows_per_tile);
+  const long long most = (long long)b * MAX_SPLITS * hkv;
+  const int grid = (int)(most < 2LL * sm_count() ? most : 2LL * sm_count());
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)d));
+  paged_attn_wgmma_kernel<DT><<<grid, THREADS, bytes, stream>>>(
+      mq, mk, mv, (const int*)table, (const int*)pos, plan, (bf16*)out, part,
+      b, hq, hkv, d, page_size, n_blocks, rows_per_tile, scale_log2);
+  paged_combine_kernel<<<b, COMBINE_THREADS, 0, stream>>>(plan, part,
+                                                          (bf16*)out, hq, d);
+  return (int)cudaGetLastError();
+}
+
+int launch_bf16(const void* q, const void* k, const void* v,
+                const void* table, const void* pos, void* out, void* plan,
+                void* part, int b, int hq, int hkv, int d, int page_size,
+                int n_pages, int n_blocks, void* stream) {
+  // TMA: 16-byte strides and bases; a page a power of two of 8..BN
+  // positions (whole 1024-byte swizzle atoms, whole pages a kv tile)
+  const bool page_ok = page_size >= 8 && page_size <= BN &&
+                       (page_size & (page_size - 1)) == 0;
+  if (b < 0 || hkv < 1 || hq < 1 || hq % hkv != 0 || hq / hkv > MAX_REP ||
+      d < 8 || d > 128 || d % 8 != 0 || !page_ok || n_pages < 1 ||
+      n_blocks < 1 || (long long)n_blocks * page_size > (1 << 30) ||
+      !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out) ||
+      !aligned16(plan))
+    return (int)cudaErrorInvalidValue;
+  if (b == 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  return d <= 64
+      ? launch_dt<64>(q, k, v, table, pos, out, (int*)plan, (float*)part, b,
+                      hq, hkv, d, page_size, n_pages, n_blocks, st)
+      : launch_dt<128>(q, k, v, table, pos, out, (int*)plan, (float*)part, b,
+                       hq, hkv, d, page_size, n_pages, n_blocks, st);
+}
+
+}  // namespace tc
+
 extern "C" int paged_attention_f32(const void* q, const void* k,
                                    const void* v, const void* table,
                                    const void* pos, void* out, int b, int hq,
@@ -209,11 +909,34 @@ extern "C" int paged_attention_f32(const void* q, const void* k,
                        n_blocks, stream);
 }
 
+// the bf16 entry's scratch: sizes[0] int32 plan words, sizes[1] fp32 words
+// of split partials (rows x MAX_SPLITS x Hq x (D + 2))
+extern "C" int paged_attention_bf16_scratch(int b, int hq, int d,
+                                            long long* sizes) {
+  sizes[0] = tc::plan_ints(b);
+  sizes[1] = (long long)b * tc::MAX_SPLITS * hq * (d + 2);
+  return 0;
+}
+
 extern "C" int paged_attention_bf16(const void* q, const void* k,
                                     const void* v, const void* table,
-                                    const void* pos, void* out, int b,
-                                    int hq, int hkv, int d, int page_size,
+                                    const void* pos, void* out, void* plan,
+                                    void* part, int b, int hq, int hkv,
+                                    int d, int page_size, int n_pages,
                                     int n_blocks, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, table, pos, out, b, hq, hkv, d,
-                               page_size, n_blocks, stream);
+  return tc::launch_bf16(q, k, v, table, pos, out, plan, part, b, hq, hkv, d,
+                         page_size, n_pages, n_blocks, stream);
+}
+
+// the plan alone (tests compare it with kernels/paged_attention.py::
+// tile_plan): plan as the bf16 entry's scratch, rep = Hq / Hkv
+extern "C" int paged_attention_plan(const void* table, const void* pos,
+                                    void* plan, int b, int n_blocks,
+                                    int page_size, int rep, void* stream) {
+  if (b < 1 || rep < 1 || rep > tc::MAX_REP || n_blocks < 1 || page_size < 1)
+    return (int)cudaErrorInvalidValue;
+  tc::paged_plan_kernel<<<1, tc::PLAN_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)table, (const int*)pos, (int*)plan, b, n_blocks, page_size,
+      tc::BM / rep);
+  return (int)cudaGetLastError();
 }

@@ -40,8 +40,14 @@ SIGNATURES = {
     "paged_attention": {
         # q, k_pages, v_pages, table, pos, out, B, Hq, Hkv, D, page_size,
         # P, stream
-        name: [_P] * 6 + [_I] * 6 + [_P]
-        for name in ("paged_attention_f32", "paged_attention_bf16")},
+        "paged_attention_f32": [_P] * 6 + [_I] * 6 + [_P],
+        # q, k_pages, v_pages, table, pos, out, plan, partials (scratch),
+        # B, Hq, Hkv, D, page_size, n_pages, P, stream
+        "paged_attention_bf16": [_P] * 8 + [_I] * 7 + [_P],
+        # B, Hq, D, out: the bf16 entry's scratch sizes (2 x int64)
+        "paged_attention_bf16_scratch": [_I] * 3 + [_P],
+        # table, pos, plan, B, P, page_size, rep, stream
+        "paged_attention_plan": [_P] * 3 + [_I] * 4 + [_P]},
     "fused_mlp": {
         # x, w_gate, w_up, w_down, h (scratch), out, T, d, f, stream
         "fused_mlp_f32": [_P] * 6 + [_I] * 3 + [_P],
@@ -53,10 +59,12 @@ SIGNATURES = {
         name: [_P] * 4 + [_I] * 8 + [_P]
         for name in ("flash_attention_f32", "flash_attention_bf16")},
     "ssd_scan": {
-        # x, dt, A, B, C, y, h_last, b, s, h, p, n, q, the batch and row
-        # strides of x, dt, B and C, stream
-        name: [_P] * 7 + [_I] * 6 + [_L] * 8 + [_P]
-        for name in ("ssd_scan_f32", "ssd_scan_bf16")},
+        # x, dt, A, B, C, y, h_last, scratch, b, s, h, p, n, q, the batch
+        # and row strides of x, dt, B and C, stream
+        **{name: [_P] * 8 + [_I] * 6 + [_L] * 8 + [_P]
+           for name in ("ssd_scan_f32", "ssd_scan_bf16")},
+        # b, s, h, p, n, q, out: the scratch size in fp32 words (1 x int64)
+        "ssd_scan_scratch": [_I] * 6 + [_P]},
 }
 
 #: name -> the ptxas ``-v`` lines of its last build (or of the cached one)

@@ -3,9 +3,11 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/paged_attention.py::
 paged_attention`` (body ``_kernel``), which runs the page axis as a
-sequential grid dimension with the online-softmax state in VMEM. Here one
-thread block per (row, kv-head) loops over the row's live pages itself;
-the design and its bound are in the source's header note.
+sequential grid dimension with the online-softmax state in VMEM. On the
+card, bf16 rows that share pages are tiled together (one load of each page
+for up to 64 / rep rows, on ``wgmma``) and long lone rows are split across
+blocks; :func:`tile_plan` states the plan the kernel makes on the device.
+The design and its bound are in the source's header note.
 
 Contract (shared with ``models/layers.paged_attention`` of the JAX
 package): q ``(B, 1, Hq, D)``; pools ``(n_pages, page_size, Hkv, D)``
@@ -19,8 +21,10 @@ CPU; on a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -29,10 +33,10 @@ from repro_torch.models.kvcache import gather_pages
 NEG_INF = -1e30
 
 
-def paged_attention_plain(q, k_pages, v_pages, page_table, pos):
-    """Gather each row's pages in logical order, mask to ``kv_len =
-    pos + 1`` and attend: fp32 scores, fp32 softmax, probs cast to q's
-    dtype before P·V (the JAX gather path's arithmetic)."""
+def _attend_gathered(q, k_pages, v_pages, page_table, pos, *, p_fp32):
+    """Gather each row's pages in logical order, mask to ``kv_len = pos +
+    1`` and attend: fp32 scores and softmax; the probs enter P·V in fp32
+    (``p_fp32``) or cast to q's dtype first."""
     b, _, hq, d = q.shape
     _, page_size, hkv, _ = k_pages.shape
     p = page_table.shape[1]
@@ -45,9 +49,116 @@ def paged_attention_plain(q, k_pages, v_pages, page_table, pos):
     kpos = torch.arange(p * page_size, device=q.device)
     live = kpos[None, :] < (pos.long() + 1)[:, None]            # (B, T)
     scores = scores.masked_fill(~live[:, None, None, :], NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    probs = torch.softmax(scores, dim=-1)
+    if not p_fp32:
+        probs = probs.to(q.dtype)
     out = torch.einsum("bgrt,btgd->bgrd", probs.float(), v.float())
     return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def paged_attention_plain(q, k_pages, v_pages, page_table, pos):
+    """Gather each row's pages in logical order, mask to ``kv_len =
+    pos + 1`` and attend: fp32 scores, fp32 softmax, probs cast to q's
+    dtype before P·V (the JAX gather path's arithmetic)."""
+    return _attend_gathered(q, k_pages, v_pages, page_table, pos,
+                            p_fp32=False)
+
+
+def paged_attention_plain_f32p(q, k_pages, v_pages, page_table, pos):
+    """The Pallas kernel's arithmetic on the gathered pages: fp32 scores
+    and softmax, the probs kept fp32 for P·V with V upcast
+    (``repro/kernels/paged_attention.py:67-89``) — what the bf16 kernel
+    computes, so it is held to this one value by value."""
+    return _attend_gathered(q, k_pages, v_pages, page_table, pos,
+                            p_fp32=True)
+
+
+#: the bf16 kernel's tiling (``csrc/paged_attention.cu``, namespace tc):
+#: M rows a tile, keys a kv tile, kv tiles a lone row keeps unsplit, splits
+TILE_M, TILE_KEYS, SPLIT_TILES, MAX_SPLITS = 64, 64, 4, 4
+
+
+def rows_per_tile(rep: int) -> int:
+    """Rows a tile: its M rows are rows x the ``rep`` query heads of one
+    kv head."""
+    return TILE_M // rep
+
+
+def split_tiles(n_tiles: int):
+    """(splits, kv tiles a split) of a lone row over ``n_tiles`` tiles of
+    ``TILE_KEYS`` keys: unsplit up to ``SPLIT_TILES``, else at most
+    ``MAX_SPLITS`` parts of equal size but the last — a function of the
+    row's own kv_len alone."""
+    if n_tiles <= SPLIT_TILES:
+        return 1, n_tiles
+    n0 = min(-(-n_tiles // SPLIT_TILES), MAX_SPLITS)
+    per = -(-n_tiles // n0)
+    return -(-n_tiles // per), per
+
+
+def tile_plan(page_table, pos, page_size: int, rep: int):
+    """The plan the bf16 kernel makes on the device (``paged_plan_kernel``),
+    in numpy: row ``r`` joins row ``r - 1``'s run when it holds at least as
+    many live pages and the two table rows agree over row ``r - 1``'s live
+    pages; runs are cut into tiles of :func:`rows_per_tile` rows; a tile
+    of one row is split by :func:`split_tiles`. Returns ``(items,
+    splits)``: items ``(first row, rows, split or -1)`` in row order, and
+    each row's split count (1 unless split)."""
+    tab = np.asarray(page_table)
+    n_blocks = tab.shape[1]
+    kv = np.clip(np.asarray(pos, np.int64) + 1, 0, n_blocks * page_size)
+    live = -(-kv // page_size)
+    b, r_max = len(kv), rows_per_tile(rep)
+    starts, run0 = [], 0
+    for r in range(b):
+        lp = live[r - 1] if r else 0
+        joins = r > 0 and 0 < lp <= live[r] and \
+            bool((tab[r, :lp] == tab[r - 1, :lp]).all())
+        if not joins:
+            run0 = r
+        if (r - run0) % r_max == 0:
+            starts.append(r)
+    items, splits = [], np.ones(b, np.int64)
+    for i, r in enumerate(starts):
+        n_rows = (starts[i + 1] if i + 1 < len(starts) else b) - r
+        count = split_tiles(-(-int(kv[r]) // TILE_KEYS))[0] \
+            if n_rows == 1 else 1
+        items += [(r, n_rows, s if count > 1 else -1) for s in range(count)]
+        splits[r:r + n_rows] = count
+    return items, splits
+
+
+def device_tile_plan(page_table, pos, page_size: int, rep: int):
+    """Run only the kernel's plan pass on the card and decode it as
+    :func:`tile_plan` returns it (for tests)."""
+    b = page_table.shape[0]
+    lib = build.load("paged_attention")
+    plan = torch.zeros(_scratch_bytes(lib, b, rep, 8)[0] // 4,
+                       dtype=torch.int32, device=page_table.device)
+    code = lib.paged_attention_plan(
+        page_table.data_ptr(), pos.data_ptr(), plan.data_ptr(), b,
+        page_table.shape[1], page_size, rep,
+        torch.cuda.current_stream(page_table.device).cuda_stream)
+    build.check(code, "paged_attention plan")
+    host = plan.cpu().numpy()
+    at = (4 + 2 * b + 3) & ~3                 # tc::items_at(b)
+    items = [tuple(int(x) for x in host[at + 4 * i:at + 4 * i + 3])
+             for i in range(int(host[0]))]
+    return items, host[4:4 + b].astype(np.int64)
+
+
+_SCRATCH = {}
+
+
+def _scratch_bytes(lib, b: int, hq: int, d: int):
+    """Bytes of the bf16 entry's plan and split partials at (B, Hq, D), the
+    plan's rounded up to 256 so that the partials stay aligned."""
+    key = (b, hq, d)
+    if key not in _SCRATCH:
+        sizes = (ctypes.c_longlong * 2)()
+        lib.paged_attention_bf16_scratch(b, hq, d, sizes)
+        _SCRATCH[key] = (-(-sizes[0] * 4 // 256) * 256, sizes[1] * 4)
+    return _SCRATCH[key]
 
 
 def paged_attention_cuda(q, k_pages, v_pages, page_table, pos):
@@ -73,15 +184,27 @@ def paged_attention_cuda(q, k_pages, v_pages, page_table, pos):
                              "tensors")
     out = torch.empty_like(q)
     lib = build.load("paged_attention")
-    fn = lib.paged_attention_bf16 if q.dtype == torch.bfloat16 \
-        else lib.paged_attention_f32
-    code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-              page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-              b, hq, hkv, d, page_size, page_table.shape[1],
-              torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.bfloat16:
+        # the plan and the split partials (csrc/paged_attention.cu), one
+        # allocation
+        plan_bytes, part_bytes = _scratch_bytes(lib, b, hq, d)
+        scratch = torch.empty(plan_bytes + part_bytes, dtype=torch.uint8,
+                              device=q.device)
+        code = lib.paged_attention_bf16(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), scratch.data_ptr() + plan_bytes, b, hq, hkv,
+            d, page_size, n_pages, page_table.shape[1], stream)
+    else:
+        code = lib.paged_attention_f32(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            page_table.data_ptr(), pos.data_ptr(), out.data_ptr(), b, hq,
+            hkv, d, page_size, page_table.shape[1], stream)
     # the kernel checks its own shape limits (csrc/paged_attention.cu)
-    build.check(code, f"paged_attention at Hq={hq} Hkv={hkv} D={d} "
-                      f"page_size={page_size}")
+    if code:
+        build.check(code, f"paged_attention at Hq={hq} Hkv={hkv} D={d} "
+                          f"page_size={page_size}")
     paged_attention.launches += 1
     return out
 

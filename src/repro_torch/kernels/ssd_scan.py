@@ -3,9 +3,11 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/ssd_scan.py::ssd_scan``
 (body ``_kernel``), which runs the chunk axis as a sequential grid
-dimension with the ``(n, p)`` fp32 state in VMEM scratch. Here one thread
-block per (batch, head) loops over its chunks with the state in shared
-memory; the design and its bound are in the source's header note.
+dimension with the ``(n, p)`` fp32 state in VMEM scratch. Here the scan
+runs as the chunk-parallel passes of the SSD algorithm (C·Bᵀ and the
+cumulative decay, chunk states, state passing, chunk scan), four launches
+over grids of (batch, chunk, head); :func:`pass_grids` gives their sizes.
+The design and its bound are in the source's header note.
 
 Contract: x ``(b, s, h, p)``; dt ``(b, s, h)`` fp32; A ``(h,)`` fp32
 (negative); B/C ``(b, s, n)``, one group shared by every head. With
@@ -23,6 +25,8 @@ trains through plain jnp.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import build
@@ -37,6 +41,23 @@ def chunk_rows(s: int, chunk: int) -> int:
             f"ssd_scan: s % min(chunk, s) == 0 is required (the "
             f"reference's precondition), got s={s}, chunk={chunk}")
     return q
+
+
+#: threads a block and rows (and columns) of a C·Bᵀ tile
+#: (``csrc/ssd_scan.cu``)
+THREADS, CB_ROWS = 256, 32
+
+
+def pass_grids(b: int, s: int, h: int, p: int, n: int, chunk: int) -> dict:
+    """Blocks of each of the kernel's four launches: C·Bᵀ tiles (b x
+    chunks x 32 x 32 tiles, those past the diagonal exiting at once), chunk
+    states and the chunk scan (b x chunks x heads each), state passing (b x
+    heads x state elements / (4 x THREADS))."""
+    q = chunk_rows(s, chunk)
+    nc = s // q
+    return {"prep": b * nc * (-(-q // CB_ROWS)) ** 2, "state": b * nc * h,
+            "pass": b * h * -(-(p * n) // (4 * THREADS)),
+            "chunk_scan": b * nc * h}
 
 
 def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 128):
@@ -77,6 +98,18 @@ def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 128):
     return y.to(x.dtype), hstate
 
 
+_SCRATCH = {}
+
+
+def _scratch_words(lib, *shape) -> int:
+    """fp32 words of scratch the kernel needs at (b, s, h, p, n, q)."""
+    if shape not in _SCRATCH:
+        size = (ctypes.c_longlong * 1)()
+        lib.ssd_scan_scratch(*shape, size)
+        _SCRATCH[shape] = max(size[0], 1)
+    return _SCRATCH[shape]
+
+
 def ssd_scan_cuda(x, dt, A, B, C, *, chunk: int = 128):
     """Launch the CUDA kernel on PyTorch's current stream. x, B and C are
     read in place through their strides (x may be a view of the conv
@@ -112,9 +145,13 @@ def ssd_scan_cuda(x, dt, A, B, C, *, chunk: int = 128):
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     h_last = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     lib = build.load("ssd_scan")
+    # C·Bᵀ, the cumulative decay and the chunk states (csrc/ssd_scan.cu)
+    scratch = torch.empty(_scratch_words(lib, b, s, h, p, n, q),
+                          dtype=torch.float32, device=x.device)
     fn = lib.ssd_scan_bf16 if x.dtype == torch.bfloat16 else lib.ssd_scan_f32
     code = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-              C.data_ptr(), y.data_ptr(), h_last.data_ptr(), b, s, h, p, n,
+              C.data_ptr(), y.data_ptr(), h_last.data_ptr(),
+              scratch.data_ptr(), b, s, h, p, n,
               q, x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
               B.stride(0), B.stride(1), C.stride(0), C.stride(1),
               torch.cuda.current_stream(x.device).cuda_stream)

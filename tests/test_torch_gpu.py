@@ -13,7 +13,9 @@ Tolerances: fp32 kernels against their plain versions at 2e-5 (paged
 attention, another summation order and ``expf``), 2e-6 (flash attention,
 tests/test_kernels.py:33) and 1e-5 (fused MLP); bf16 at 2e-2 for paged
 attention (the plain version rounds the softmax probs to bf16 where the
-kernel keeps them fp32, and bf16 has 8 bits of mantissa), at atol 1e-5 /
+kernel keeps them fp32, and bf16 has 8 bits of mantissa), and per value
+at atol 1e-5 + rtol 8e-3 against the plain version that keeps them fp32
+(the Pallas arithmetic; one bf16 ulp), at atol 1e-5 /
 rtol 8e-3 for flash attention (both sides compute in fp32 and round the
 output once: one bf16 ulp), and at atol 1e-3 / rtol 8e-3 for the fused
 MLP (one ulp of the output, plus h's bf16 rounding flips: the two sum
@@ -126,6 +128,103 @@ def test_paged_attention_kernel_refuses_shapes_past_its_limits(
     rng = np.random.default_rng(0)
     args = _paged(rng, b=2, width=2, n_pages=6, page_size=page_size, hq=hq,
                   hkv=hkv, d=d, dtype=torch.float32)
+    before = pa.paged_attention.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pa.paged_attention(*args)
+    assert pa.paged_attention.launches == before
+
+
+def _paged_mix(ctx, rows_slot, rows_pos, *, edit=None, seed=0):
+    """Qwen3-14B heads over a 257-page pool of 16-token pages: slots
+    holding ``ctx`` tokens on permuted pages, rows (slot, cursor)."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(np.arange(1, 257))
+    tables = np.zeros((len(ctx), 64), np.int32)
+    k = 0
+    for slot, n in enumerate(ctx):
+        blocks = -(-n // 16)
+        tables[slot, :blocks] = perm[k:k + blocks]
+        k += blocks
+    if edit is not None:
+        edit(tables)
+    arrs = [rng.standard_normal(sh).astype(np.float32)
+            for sh in ((len(rows_slot), 1, 40, 128), (257, 16, 8, 128),
+                       (257, 16, 8, 128))]
+    q, kp, vp = (torch.from_numpy(a).cuda().to(torch.bfloat16) for a in arrs)
+    return q, kp, vp, torch.from_numpy(tables[rows_slot]).cuda(), \
+        torch.tensor(rows_pos, dtype=torch.int32).cuda()
+
+
+def _share_first_pages(tables):
+    tables[1, :5] = tables[0, :5]
+
+
+# the row structures the bf16 kernel's tiling must get right (chip_smoke.py
+# phase 3): (ctx, rows' slots, rows' cursors, table edit)
+PAGED_MIXES = {
+    "serving mix T=256": ((716, 300, 520, 640), [0, 1, 2] + [3] * 253,
+                          [715, 299, 519] + list(range(256, 509)), None),
+    "tile straddling two slots": ((716, 300, 520, 640), [2] * 7 + [3] * 9,
+                                  list(range(100, 107))
+                                  + list(range(200, 209)), None),
+    "first pages agree only": ((716, 716), [0, 1, 0, 1], [300, 400, 70, 400],
+                               _share_first_pages),
+    "lone 1024-token row": ((1024,), [0], [1023], None),
+    "decode-only mix": ((716, 300, 520, 640), [0, 1, 2, 3] + [0] * 252,
+                        [715, 299, 519, 639] + [0] * 252, None),
+}
+
+
+@pytest.mark.parametrize("mix", sorted(PAGED_MIXES))
+def test_paged_attention_bf16_kernel_tiles_rows_correctly(cuda, mix):
+    """Per value against the Pallas arithmetic (P fp32, V upcast: one bf16
+    ulp, atol 1e-5 + rtol 8e-3), within 1e-2 of the gather plain version,
+    the device plan equal to tile_plan, and the same bits on a second
+    call."""
+    ctx, rows_slot, rows_pos, edit = PAGED_MIXES[mix]
+    args = _paged_mix(ctx, rows_slot, rows_pos, edit=edit)
+    got = pa.paged_attention(*args)
+    again = pa.paged_attention(*args)
+    want = pa.paged_attention_plain_f32p(*args).float()
+    torch.cuda.synchronize()
+    limit = 1e-5 + 8e-3 * want.abs()
+    assert ((got.float() - want).abs() <= limit).all()
+    torch.testing.assert_close(got.float(),
+                               pa.paged_attention_plain(*args).float(),
+                               atol=1e-2, rtol=0)
+    assert torch.equal(got, again)
+    tab, pos = args[3], args[4]
+    items, splits = pa.device_tile_plan(tab, pos, 16, 5)
+    want_items, want_splits = pa.tile_plan(tab.cpu().numpy(),
+                                           pos.cpu().numpy(), 16, 5)
+    assert items == want_items and (splits == want_splits).all()
+
+
+def test_paged_attention_bf16_check_rejects_a_dropped_live_page(cuda):
+    """The per-value check above fails a run whose table drops one live
+    page of the prefill slot (read by 253 rows) for the null page."""
+    ctx, rows_slot, rows_pos, _ = PAGED_MIXES["serving mix T=256"]
+    q, kp, vp, tab, pos = _paged_mix(ctx, rows_slot, rows_pos)
+    want = pa.paged_attention_plain_f32p(q, kp, vp, tab, pos).float()
+    dropped = tab.clone()
+    dropped[3:, 5] = 0
+    got = pa.paged_attention(q, kp, vp, dropped, pos).float()
+    assert ((got - want).abs() > 1e-5 + 8e-3 * want.abs()).any()
+
+
+@pytest.mark.parametrize("hq,hkv,d,page_size", [(34, 2, 16, 8),   # rep 17
+                                                (8, 2, 20, 8),    # D % 8
+                                                (8, 2, 136, 8),   # D > 128
+                                                (8, 2, 32, 4),    # page < 8
+                                                (8, 2, 32, 128),  # page > 64
+                                                (8, 2, 32, 24)])  # not 2^k
+def test_paged_attention_bf16_kernel_refuses_shapes_past_its_limits(
+        cuda, hq, hkv, d, page_size):
+    """TMA's 16-byte strides, whole swizzle atoms and whole pages a kv
+    tile: the bf16 entry returns an error and launches nothing past them."""
+    rng = np.random.default_rng(0)
+    args = _paged(rng, b=2, width=2, n_pages=6, page_size=page_size, hq=hq,
+                  hkv=hkv, d=d, dtype=torch.bfloat16)
     before = pa.paged_attention.launches
     with pytest.raises(RuntimeError, match="CUDA error"):
         pa.paged_attention(*args)
@@ -393,7 +492,8 @@ def _ssd_args(shape, dtype, seed=0, strided=False):
 # several chunks, a ragged p and n, the serving path's head
 SSD = [(2, 128, 2, 32, 16, 32), (2, 256, 3, 64, 32, 64),
        (1, 77, 2, 64, 128, 128), (1, 96, 2, 16, 16, 32),
-       (1, 60, 3, 24, 20, 20), (1, 256, 4, 64, 128, 128)]
+       (1, 60, 3, 24, 20, 20), (1, 256, 4, 64, 128, 128),
+       (2, 1024, 4, 64, 128, 128)]
 
 
 @pytest.mark.parametrize("strided", [False, True])
@@ -413,8 +513,30 @@ def test_ssd_scan_kernel_matches_plain(cuda, dtype, tol, case, strided):
     torch.testing.assert_close(y.float(), want_y.float(), atol=tol[0],
                                rtol=tol[1])
     torch.testing.assert_close(h_last, want_h, atol=1e-5, rtol=1e-4)
+    assert (h_last - want_h).abs().max() <= 1e-4 * want_h.abs().max()
     # a single writer per element: the same call gives the same bits
     assert torch.equal(y, sk.ssd_scan(*args, chunk=chunk)[0])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, (1e-4, 1e-4)),
+                                       (torch.bfloat16, (1e-5, 8e-3))])
+def test_ssd_scan_kernel_matches_plain_on_unaligned_views(cuda, dtype, tol):
+    """x, B and C one element off a 4-element boundary: the kernel stages
+    them element by element instead of in groups of 4."""
+    b, s, h, p, n = 1, 256, 4, 64, 128
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    buf = (torch.randn((b, s, 1 + h * p + 2 * n), generator=gen,
+                       device="cuda") * 0.4).to(dtype)
+    x = buf[..., 1:1 + h * p].reshape(b, s, h, p)
+    B, C = buf[..., 1 + h * p:1 + h * p + n], buf[..., 1 + h * p + n:]
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen,
+                                                  device="cuda"))
+    A = -torch.exp(torch.randn((h,), generator=gen, device="cuda"))
+    y, h_last = sk.ssd_scan(x, dt, A, B, C, chunk=128)
+    want_y, want_h = sk.ssd_scan_plain(x, dt, A, B, C, chunk=128)
+    torch.testing.assert_close(y.float(), want_y.float(), atol=tol[0],
+                               rtol=tol[1])
+    torch.testing.assert_close(h_last, want_h, atol=1e-5, rtol=1e-4)
 
 
 def test_ssd_scan_kernel_refuses_shapes_past_its_limits(cuda):

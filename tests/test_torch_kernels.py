@@ -26,6 +26,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_mlp as fm  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import ssd_scan as sk  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 
 
@@ -97,6 +98,126 @@ def test_paged_attention_plain_masks_poisoned_pages_bitwise():
     np.testing.assert_array_equal(clean.numpy(), dirty)
     np.testing.assert_allclose(dirty, gather, atol=2e-5, rtol=2e-5)
     np.testing.assert_allclose(dirty, pallas, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("hq,hkv", [(8, 2), (5, 1)])
+def test_paged_attention_plain_f32p_is_the_pallas_arithmetic_in_bf16(hq, hkv):
+    """bf16 inputs: the plain version that keeps P fp32 (what the bf16 CUDA
+    kernel is held to per value on the card) gives the Pallas kernel's
+    values (interpret mode), while the gather plain version, which rounds
+    P to bf16 first, is many bf16 ulps away."""
+    rng = np.random.default_rng(3)
+    q, kp, vp, tab, pos = _rand_paged(rng, b=5, width=4, n_pages=20,
+                                      page_size=8, hq=hq, hkv=hkv, d=32)
+    bf = jnp.bfloat16
+    pallas = np.asarray(ops.paged_attention(
+        jnp.asarray(q, bf), jnp.asarray(kp, bf), jnp.asarray(vp, bf),
+        jnp.asarray(tab), jnp.asarray(pos)).astype(jnp.float32))
+    args = [_t(a).to(torch.bfloat16) for a in (q, kp, vp)] + \
+        [_t(tab), _t(pos)]
+    limit = 1e-5 + 8e-3 * np.abs(pallas)
+    got = pa.paged_attention_plain_f32p(*args).float().numpy()
+    assert (np.abs(got - pallas) <= limit).all()
+    gather = pa.paged_attention_plain(*args).float().numpy()
+    assert (np.abs(gather - pallas) > limit).any()
+
+
+def test_paged_tile_sizes_and_splits():
+    """Rows a tile fill the 64 M rows of a wgmma with whole rows of rep
+    query heads; a lone row splits past 4 kv tiles of 64 keys into at most
+    4 parts, by its own length alone."""
+    assert [pa.rows_per_tile(r) for r in (1, 4, 5, 8, 16)] == [64, 16, 12,
+                                                                8, 4]
+    want = {0: (1, 0), 1: (1, 1), 4: (1, 4), 5: (2, 3), 8: (2, 4),
+            9: (3, 3), 12: (3, 4), 16: (4, 4), 17: (4, 5), 64: (4, 16)}
+    for n_tiles, split in want.items():
+        assert pa.split_tiles(n_tiles) == split
+        count, per = split
+        assert n_tiles == 0 or (count - 1) * per < n_tiles <= count * per
+
+
+def _slot_tables(ctx, width=64, page_size=16, seed=0):
+    perm = np.random.default_rng(seed).permutation(np.arange(1, 1 + sum(
+        -(-n // page_size) for n in ctx)))
+    tables = np.zeros((len(ctx), width), np.int32)
+    k = 0
+    for slot, n in enumerate(ctx):
+        blocks = -(-n // page_size)
+        tables[slot, :blocks] = perm[k:k + blocks]
+        k += blocks
+    return tables
+
+
+def test_tile_plan_on_the_serving_mixes():
+    """Phase 5's mixes (Qwen3-14B, rep 5, 16-token pages): the 253 rows of
+    a prefill chunk share 21 tiles of 12 rows and one lone row; decode rows
+    of different slots never share a tile; the 252 padding rows of a
+    decode-only step (slot 0, pos 0) take 21 tiles of one page each."""
+    tables = _slot_tables((716, 300, 520, 640))
+    slots = [0, 1, 2] + [3] * 253
+    items, splits = pa.tile_plan(tables[slots], [715, 299, 519]
+                                 + list(range(256, 509)), 16, 5)
+    decode = [(0, 1, s) for s in range(3)] + [(1, 1, s) for s in range(2)] \
+        + [(2, 1, s) for s in range(3)]
+    assert items[:8] == decode
+    assert items[8:29] == [(3 + 12 * i, 12, -1) for i in range(21)]
+    assert items[29:] == [(255, 1, 0), (255, 1, 1)]
+    assert list(splits[:4]) == [3, 2, 3, 1] and splits[255] == 2
+    slots = [0, 1, 2, 3] + [0] * 252
+    items, _ = pa.tile_plan(tables[slots], [715, 299, 519, 639] + [0] * 252,
+                            16, 5)
+    assert [it for it in items if it[0] >= 4] == [(4 + 12 * i, 12, -1)
+                                                  for i in range(21)]
+    assert len(items) == 11 + 21
+
+
+def test_tile_plan_never_shares_a_tile_across_tables():
+    """A tile straddling two slots is cut at the slot change; rows whose
+    tables agree on their first pages only share a tile just when the
+    earlier row's live pages are among those (then it reads the later
+    row's table, which agrees with its own over its live pages)."""
+    tables = _slot_tables((716, 300, 520, 640))
+    items, _ = pa.tile_plan(tables[[2] * 7 + [3] * 9],
+                            list(range(100, 107)) + list(range(200, 209)),
+                            16, 5)
+    assert items == [(0, 7, -1), (7, 9, -1)]
+    tables = _slot_tables((716, 716))
+    tables[1, :5] = tables[0, :5]
+    items, _ = pa.tile_plan(tables[[0, 1, 0, 1]], [300, 400, 70, 400], 16, 5)
+    assert items == [(0, 1, 0), (0, 1, 1), (1, 1, 0), (1, 1, 1), (2, 2, -1)]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_tile_plan_rows_read_only_their_own_pages(seed):
+    """Random rows over random fragmented tables, some sharing a slot's
+    table and some a prefix of it: every row of a tile agrees with the
+    tile's last row (whose table the tile reads) over its own live pages,
+    no tile exceeds its row count, and every row is covered exactly once
+    (or by all its splits)."""
+    rng = np.random.default_rng(seed)
+    tables = _slot_tables((900, 900, 400, 64), seed=seed)
+    tables[1, :7] = tables[0, :7]     # slot 1 shares slot 0's first pages
+    b = 200
+    slots = rng.integers(0, 4, size=b)
+    if seed % 2:                      # runs of one slot, as the engine packs
+        slots = np.sort(slots)
+    pos = rng.integers(0, 1024, size=b).astype(np.int32)
+    if seed >= 2:                     # cursors rising along the rows
+        pos = np.sort(pos)
+    tab = tables[slots]
+    rep = int(rng.choice([1, 4, 5, 8]))
+    items, splits = pa.tile_plan(tab, pos, 16, rep)
+    live = -(-(np.clip(pos + 1, 0, 1024)) // 16)
+    covered = np.zeros(b, np.int64)
+    for row0, n_rows, split in items:
+        last = row0 + n_rows - 1
+        assert 1 <= n_rows <= pa.rows_per_tile(rep)
+        assert split == -1 or n_rows == 1
+        for r in range(row0, row0 + n_rows):
+            assert (tab[r, :live[r]] == tab[last, :live[r]]).all()
+            assert live[r] <= live[last]
+            covered[r] += 1
+    assert (covered == splits).all()
 
 
 @pytest.mark.parametrize("t,d,f", [(128, 64, 256), (256, 128, 512),
@@ -290,6 +411,21 @@ def test_mlp_plan_fills_the_sms_in_whole_waves():
     assert fm.mlp_plan(70, 256, 17064, 132) == (8, 2, 4, 2 * 4 * 2 * 128
                                                  * 128)
     assert fm.mlp_plan(0, 5120, 17408, 132) == (8, 0, 1, 0)
+
+
+def test_ssd_pass_grids_are_parallel_over_chunks_and_heads():
+    """The SSD kernel's four launches at the serving prefill (b 1, s 1024,
+    h 48, p 64, n 128, chunk 128): C·Bᵀ per (chunk, 32 x 32 tile), chunk
+    states and chunk scan per (chunk, head) — 384 blocks for 132 SMs,
+    where one block per (batch, head) gave 48 — and state passing per
+    (head, 1024 state elements). A ragged single chunk keeps its rows."""
+    assert sk.pass_grids(1, 1024, 48, 64, 128, 128) == {
+        "prep": 8 * 16, "state": 8 * 48, "pass": 48 * 8,
+        "chunk_scan": 8 * 48}
+    assert sk.pass_grids(2, 77, 3, 24, 20, 128) == {
+        "prep": 2 * 9, "state": 2 * 3, "pass": 2 * 3, "chunk_scan": 6}
+    with pytest.raises(ValueError, match="precondition"):
+        sk.pass_grids(1, 200, 2, 16, 16, 128)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
