@@ -18,14 +18,18 @@ Phases (any failure exits non-zero; no result line is printed then):
    tolerance stated beside each (flash attention also on ragged,
    windowed and non-causal inputs, and its gradients; the bf16 flash and
    fused-MLP checks are per value, and each is shown to reject a
-   defective plain variant); bf16 paged attention also per value against
-   the Pallas arithmetic (P fp32), shown to reject a run with one live
-   page dropped, on a tile straddling two slots, rows whose tables agree
-   on their first pages only, a lone 1024-token row (split) and the
-   decode-only mix, its device plan equal to ``tile_plan``, two identical
-   calls equal bit for bit, and timed at the T = 256 and decode-only
-   mixes (by CUDA-graph replay, and eager with its host path); the SSD
-   scan in
+   defective plain variant; both also at every shape the split path of
+   phase 5b gives them: flash at each prefill bucket of one prompt, 32 to
+   1024 positions, and at generate's 4 x 512, the fused MLP at 4, 32,
+   64, 128, 512, 1024 and 2048 rows); bf16 paged attention also per
+   value against the Pallas arithmetic (P fp32), shown to reject a run
+   with one live page dropped, on a tile straddling two slots, rows
+   whose tables agree on their first pages only, a lone 1024-token row
+   (split), the decode-only mix and the split path's 4-row decode table
+   (with and without an idle slot; a dropped page rejected there too),
+   its device plan equal to ``tile_plan``, two identical calls equal bit
+   for bit, and timed at the T = 256 and decode-only mixes (by
+   CUDA-graph replay, and eager with its host path); the SSD scan in
    bf16 at the SSM prefill's shape (b 1, s 1024, h 48, p 64, n 128,
    chunk 128; x, B, C read in place as views of one conv-output buffer)
    with y within atol 1e-5 + rtol 8e-3 of each value and the final state
@@ -39,8 +43,12 @@ Phases (any failure exits non-zero; no result line is printed then):
    compute each kernel's bound from these inputs and NVIDIA's H100 SXM
    data sheet;
 4. tiny float32 configs on the card and on the CPU (TF32 off): through
-   the port's engine, first-step logits within 1e-4 and greedy streams
-   identical; through the split-path engine on ``mamba2-smoke``,
+   the port's engine on each layout — the mixed step, the split path on
+   the pool (``mixed=False``) and on the dense layout (``paged=False``),
+   and the sliding-window ring — first-step logits within 1e-4, greedy
+   streams identical and every kernel of the layout's path launched
+   layers x its programs on the card; through the split-path engine on
+   ``mamba2-smoke``,
    first-prefill logits within 1e-4 and greedy streams identical, the
    SSD kernel launched layers x prefills times on the card; through the
    train step, loss and gradients within 1e-4;
@@ -52,6 +60,21 @@ Phases (any failure exits non-zero; no result line is printed then):
    ``layers x program runs`` times. Prints tokens/s, step p50 and peak
    memory; then one more pair of requests runs under ``torch.profiler``
    for the device-time breakdown;
+5b. the SPLIT SERVING PATH on phase 5's weights (its pool freed first):
+   phase 5's six prompts, 16 new tokens each, through
+   ``session.serve(paged=False, mixed=False)`` and
+   ``session.serve(mixed=False)`` (4 slots x 1024 tokens), then one
+   ``session.generate`` of a (4, 512) prompt for 16 steps. Counts are
+   zeroed just before and read just after each: flash attention must have
+   run ``layers x prefills`` times, the fused MLP ``layers x (prefills +
+   decode steps)`` (``layers x 16`` for generate), paged attention
+   ``layers x decode steps`` on the pool and never on the dense layout;
+   every request must finish with 16 in-vocab tokens. Prints tokens/s,
+   step p50 (steps with prefills and decode-only steps apart), peak
+   memory, and the share of tokens equal to phase 5's streams (reported,
+   not checked: in bf16 the two paths round differently); then one more
+   pair of requests on each layout runs under ``torch.profiler``, its
+   admission step and its decode-only steps apart;
 6. the TRAIN PATH: the serving session is freed, then
    ``Session(qwen3-14b with num_layers=4, device="cuda").train(
    TrainConfig(steps=6, lr=3e-4), global_batch=1, seq_len=4096)`` with
@@ -156,6 +179,13 @@ def graph_ms(calls, iters: int = 10) -> float:
     return start.elapsed_time(end) / (iters * len(calls))
 
 
+def worst_excess(a, want, atol: float, rtol: float) -> float:
+    """The worst |a - want| / (atol + rtol |want|) over all values: <= 1
+    passes the per-value limit."""
+    a, want = a.float(), want.float()
+    return ((a - want).abs() / (atol + rtol * want.abs())).max().item()
+
+
 def bound_ms(nbytes: float, flops: float, dtype: str):
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -241,6 +271,10 @@ def phase_build():
 SLOT_CTX = (716, 300, 520, 640)
 MIX_T256 = ([0, 1, 2] + [3] * 253, [715, 299, 519] + list(range(256, 509)))
 MIX_DECODE = ([0, 1, 2, 3] + [0] * 252, [715, 299, 519, 639] + [0] * 252)
+#: the split path's decode (phase 5b): one row a slot; a retired slot's row
+#: holds the null page
+MIX_SPLIT = ([0, 1, 2, 3], [715, 299, 519, 639])
+MIX_SPLIT_IDLE = ([0, 1, 2, 3], [715, 299, 519, 0])
 
 
 def attention_inputs(rng, dtype, *, n_layers_copies=1, ctx=SLOT_CTX,
@@ -373,6 +407,9 @@ def phase_attention(rng):
     def first_pages_only(tables):             # slot 1 shares slot 0's first
         tables[1, :5] = tables[0, :5]         # 5 pages, then parts from it
 
+    def idle_slot_3(tables):                  # a retired slot's table row
+        tables[3] = 0
+
     cases = [
         ("a tile straddling two slots",
          dict(rows=([2] * 7 + [3] * 9, list(range(100, 107))
@@ -384,6 +421,11 @@ def phase_attention(rng):
          dict(ctx=(1024,), rows=([0], [1023]))),
         ("the decode-only mix (4 decode rows, 252 pad rows of slot 0 at "
          "pos 0)", dict(rows=MIX_DECODE)),
+        # phase 5b's paged split decode: one row a slot, no pad rows
+        ("the split decode table (4 rows, one a slot)",
+         dict(rows=MIX_SPLIT)),
+        ("the split decode table with an idle slot (its row on the null "
+         "page)", dict(edit=idle_slot_3, rows=MIX_SPLIT_IDLE)),
     ]
     res["cases"] = []
     for what, kw in cases:
@@ -411,6 +453,20 @@ def phase_attention(rng):
         res["cases"].append({"case": what, "error_of_limit": e_f32p,
                              "max_abs_err_gather": e_gather,
                              "items": len(items)})
+    # the same limit rejects the split decode table run with one live page
+    # of a lone (so split) row replaced by the null page
+    q, pools, tab, pos, *_ = attention_inputs(rng, torch.bfloat16,
+                                              rows=MIX_SPLIT)
+    kp, vp = pools[0]
+    dropped = tab.clone()
+    dropped[2, 10] = 0                        # slot 2's 11th of 33 pages
+    split_drop = excess(pa.paged_attention(q, kp, vp, dropped, pos),
+                        pa.paged_attention_plain_f32p(q, kp, vp, tab, pos))
+    check(split_drop > 1.0, f"the per-value check passes the split decode "
+          f"table with a live page dropped ({split_drop:.3f}x the limit)")
+    log(f"[attention bf16] the split decode table with a live page dropped "
+        f"would be {split_drop:.1f}x the limit")
+    res["split_dropped_page_error_of_limit"] = split_drop
 
     # null-page / tail poisoning (tests/test_serve_pallas.py:105): pages no
     # row references, page 0, and every slot's positions past its longest
@@ -497,6 +553,8 @@ def phase_attention(rng):
             "bf16_dropped_page_error_of_limit":
                 res["bf16_dropped_page_error_of_limit"],
             "cases": res["cases"],
+            "split_dropped_page_error_of_limit":
+                res["split_dropped_page_error_of_limit"],
             "ms": t256["ms"], "kernel_ms": t256["ms"],
             "eager_ms": t256["eager_ms"],
             "plain_ms": t256["plain_ms"], "bound_ms": t256["bound_ms"],
@@ -504,6 +562,11 @@ def phase_attention(rng):
             "device_us_by_launch": t256["device_us_by_launch"],
             "decode_only": times["decode_only"],
             "library": "scaled_dot_product_attention over gathered KV"}
+
+
+#: the fused MLP's row counts on the split path (phase 5b) beside the
+#: T = 256 of phase 5: a 4-slot decode, prefill buckets, generate's 4 x 512
+MLP_SPLIT_ROWS = (4, 32, 64, 128, 512, 1024, 2048)
 
 
 def phase_mlp(rng):
@@ -588,6 +651,34 @@ def phase_mlp(rng):
         f"{need['exact_h']:.2e}; plan (down splits, "
         f"gate/up tail units, their splits, scratch floats) {plan}")
     del got, want
+    # the row counts of the split path (phase 5b), each with its own plan:
+    # a decode of the 4-slot table, the prefill buckets from 32 (a 24-token
+    # prompt) to 1024, and generate's (4, 512) prefill; each held to the
+    # same per-value limit, and the limit shown to reject a dropped f tile
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wd_drop = wd.clone()
+    wd_drop[f // 2:f // 2 + 64] = 0
+    split_rows = []
+    for rows in MLP_SPLIT_ROWS:
+        xr = torch.randn((rows, d), generator=gen, device="cuda").to(bf)
+        want_r = fm.fused_mlp_plain(xr, wg, wu, wd)
+        got_r = fm.fused_mlp(xr, wg, wu, wd)
+        e = worst_excess(got_r, want_r, atol, rtol)
+        dr = worst_excess(fm.fused_mlp_plain(xr, wg, wu, wd_drop), want_r,
+                          atol, rtol)
+        plan_r = fm.mlp_plan(rows, d, f, sms)
+        check(bool(torch.isfinite(got_r).all()) and e <= 1.0,
+              f"fused MLP bf16 at T={rows} (plan {plan_r}): worst error "
+              f"{e:.3f}x atol {atol} + rtol {rtol}")
+        check(dr > 1.0, f"the bf16 check at T={rows} passes a dropped f "
+                        f"tile ({dr:.3f}x the limit)")
+        log(f"[mlp bf16 T={rows} d={d} f={f}] split-path row count, plan "
+            f"{plan_r[:3]}: worst error {e:.3f}x the limit (atol {atol}, "
+            f"rtol {rtol}); a dropped 64-wide f tile would be {dr:.1f}x")
+        split_rows.append({"t": rows, "plan": list(plan_r),
+                           "error_of_limit": e,
+                           "dropped_tile_error_of_limit": dr})
+    del wd_drop, xr, want_r, got_r
     kernel = time_ms(lambda: fm.fused_mlp(x, wg, wu, wd))
     plain = time_ms(lambda: fm.fused_mlp_plain(x, wg, wu, wd),
                     iters=3, warmup=1)
@@ -608,10 +699,17 @@ def phase_mlp(rng):
             "bf16_dropped_tile_error_of_limit": drop,
             "bf16_partials_error_of_limit": partials_bf16,
             "bf16_atol_needed": need,
-            "plan": plan,
+            "plan": plan, "split_path_rows": split_rows,
             "ms": kernel, "kernel_ms": kernel, "plain_ms": plain,
             "bound_ms": bms, "bound_by": by, "library_ms": library,
             "library": "matmul(silu(matmul(x,Wg))*matmul(x,Wu), Wd)"}
+
+
+#: flash attention's shapes on the split path (phase 5b), (B, S, T, Hq,
+#: Hkv, D): each prefill bucket of one prompt, and generate's 4 x 512
+FLASH_SPLIT_SHAPES = tuple((1, n, n, 40, 8, 128)
+                           for n in (32, 64, 128, 256, 512, 1024)) \
+    + ((4, 512, 512, 40, 8, 128),)
 
 
 def _flash_inputs(gen, shape, dtype):
@@ -660,6 +758,31 @@ def phase_flash(rng):
         f"{want.abs().max().item():.3e}); one dropped key tile would be "
         f"{drop:.1f}x the limit")
     del got, want
+    # the split path's prefill shapes (phase 5b): one prompt padded to its
+    # bucket (32 to 1024 positions) and generate's (4, 512) batch, each
+    # held to the same per-value limit and shown to reject a version that
+    # drops keys from its last rows
+    split_shapes = []
+    for shape in FLASH_SPLIT_SHAPES:
+        qa, ka, va = _flash_inputs(gen, shape, torch.bfloat16)
+        want_s = fa.flash_attention_plain(qa, ka, va, causal=True)
+        got_s = fa.flash_attention(qa, ka, va, causal=True)
+        e = worst_excess(got_s, want_s, atol, rtol)
+        n = shape[1]
+        dr = worst_excess(fa.flash_attention_plain(
+            qa, ka, va, causal=True, window=n - min(64, n // 2)), want_s,
+            atol, rtol)
+        check(bool(torch.isfinite(got_s).all()) and e <= 1.0,
+              f"flash bf16 at {shape} causal: worst error {e:.3f}x atol "
+              f"{atol} + rtol {rtol}")
+        check(dr > 1.0, f"the bf16 flash check at {shape} passes a version "
+                        f"that drops keys ({dr:.3f}x the limit)")
+        log(f"[flash bf16 {shape} causal] split-path prefill shape: worst "
+            f"error {e:.3f}x the limit (atol {atol}, rtol {rtol}); dropped "
+            f"keys would be {dr:.1f}x")
+        split_shapes.append({"shape": list(shape), "error_of_limit": e,
+                             "dropped_keys_error_of_limit": dr})
+    del qa, ka, va, want_s, got_s
     # (b), (c): fp32, 2e-6 as tests/test_kernels.py:33
     cases = [((2, 256, 256, 8, 2, 64), True, 0, "small causal GQA"),
              ((1, 100, 77, 4, 2, 16), True, 0, "ragged S > T"),
@@ -727,6 +850,7 @@ def phase_flash(rng):
                          "atol 2e-5 rtol 2e-4",
             "bf16_worst_error_of_limit": bf16_excess,
             "bf16_dropped_tile_error_of_limit": drop,
+            "split_path_shapes": split_shapes,
             "ms": kernel, "kernel_ms": kernel, "plain_ms": plain,
             "bound_ms": bms, "bound_by": by, "bound_split_p_ms": split_ms,
             "library_ms": library,
@@ -879,42 +1003,86 @@ def phase_ssd(rng):
 
 # ------------------------------------------------------------------ phase 4
 
+#: phase 4's tiny f32 dense config, and the engine layouts it is served
+#: on: the mixed step (the default), the split path on the pool and on
+#: the dense layout, and the sliding-window ring (window 16, prompts up
+#: to 40 tokens: the ring wraps, and the 23- and 40-token prompts prefill
+#: at their exact length as their buckets pass the window)
+PARITY_LAYOUTS = {"mixed": ({}, dict(chunk_tokens=16)),
+                  "split": ({}, dict(mixed=False)),
+                  "dense": ({}, dict(paged=False)),
+                  "swa ring": (dict(sliding_window=16), {})}
+
+
+def _want_launches(eng, layers: int) -> dict:
+    """Every kernel's launches a run of ``eng`` on the card must show: the
+    mixed step runs paged attention and the fused MLP once a layer a
+    program; the split path runs flash once a layer a prefill, the fused
+    MLP once a layer a program (prefill or decode) and, on the pool,
+    paged attention once a layer a decode."""
+    st = eng.stats
+    if eng.mixed:
+        n = layers * st["mixed_steps"]
+        return {"paged_attention": n, "fused_mlp": n, "flash_attention": 0,
+                "ssd_scan": 0}
+    pf, dec = st["prefills"], st["decode_steps"]
+    return {"paged_attention": layers * dec if eng.paged else 0,
+            "fused_mlp": layers * (pf + dec),
+            "flash_attention": layers * pf, "ssd_scan": 0}
+
+
 def phase_parity():
+    """The tiny f32 dense config (TF32 off) through the port's engine on
+    the card and on the CPU, on each of ``PARITY_LAYOUTS``: first-step
+    logits within 1e-4, greedy streams identical, and on the card every
+    kernel of the layout's path launched as ``_want_launches`` says.
+    Returns the first-step error of each layout."""
+    from repro_torch import kernels
     from repro_torch.configs.base import ModelConfig
     from repro_torch.params import init_params
     from repro_torch.serve.engine import ServeEngine
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = ModelConfig(name="pal-dense", arch_type="dense", num_layers=2,
-                      d_model=128, num_heads=4, num_kv_heads=2, d_ff=256,
-                      vocab_size=128, dtype="float32")
-    cpu = init_params(cfg, device="cpu", seed=3)
-    cuda = _to(cpu, "cuda")
+    base = ModelConfig(name="pal-dense", arch_type="dense", num_layers=2,
+                       d_model=128, num_heads=4, num_kv_heads=2, d_ff=256,
+                       vocab_size=128, dtype="float32")
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, 128, size=(n,)).astype(np.int32)
                for n in (5, 23, 9, 40, 6)]
-    engines = {}
-    for dev, params in (("cpu", cpu), ("cuda", cuda)):
-        eng = ServeEngine(cfg, params, slots=2, max_len=64,
-                          chunk_tokens=16)
-        for i, p in enumerate(prompts):
-            eng.submit(i, p, max_new=6)
-        eng.step()
-        engines[dev] = (eng, eng.last_logits.detach().float().cpu())
-    err = (engines["cpu"][1] - engines["cuda"][1]).abs().max().item()
-    check(err <= 1e-4, f"f32 first-step logits card vs CPU: {err} > 1e-4")
-    outs = {}
-    for dev, (eng, _) in engines.items():
-        res = eng.run()
-        outs[dev] = {i: list(res[i].out) for i in res}
-    check(outs["cpu"] == outs["cuda"],
-          f"greedy streams differ: cpu {outs['cpu']} cuda {outs['cuda']}")
-    check(engines["cuda"][0].stats["decode_backend"] == "kernel",
-          "card engine did not take the kernel path")
-    log(f"[parity f32, TF32 off] first-step logits max abs err card vs CPU "
-        f"{err:.3e} (<= 1e-4); greedy streams identical over {len(prompts)} "
-        f"requests")
-    return err
+    errs = {}
+    for name, (cfg_kw, eng_kw) in PARITY_LAYOUTS.items():
+        cfg = base.with_(**cfg_kw)
+        cpu = init_params(cfg, device="cpu", seed=3)
+        engines, outs = {}, {}
+        for dev, params in (("cpu", cpu), ("cuda", _to(cpu, "cuda"))):
+            eng = ServeEngine(cfg, params, slots=2, max_len=64, **eng_kw)
+            for i, p in enumerate(prompts):
+                eng.submit(i, p, max_new=6)
+            kernels.reset_launches()
+            eng.step()
+            engines[dev] = (eng, eng.last_logits.detach().float().cpu())
+            res = eng.run()
+            outs[dev] = {i: list(res[i].out) for i in res}
+            want = _want_launches(eng, cfg.num_layers) if dev == "cuda" \
+                else dict.fromkeys(kernels.launches(), 0)
+            check(kernels.launches() == want,
+                  f"[parity {name}] launches on {dev} {kernels.launches()} "
+                  f"!= {want}")
+        err = (engines["cpu"][1] - engines["cuda"][1]).abs().max().item()
+        check(err <= 1e-4, f"[parity {name}] f32 first-step logits card vs "
+                           f"CPU: {err} > 1e-4")
+        check(outs["cpu"] == outs["cuda"],
+              f"[parity {name}] greedy streams differ: cpu {outs['cpu']} "
+              f"cuda {outs['cuda']}")
+        check(engines["cuda"][0].stats["decode_backend"] == "kernel",
+              "card engine did not take the kernel path")
+        eng = engines["cuda"][0]
+        log(f"[parity f32, TF32 off] {name} (paged={eng.paged}, "
+            f"mixed={eng.mixed}): first-step logits max abs err card vs "
+            f"CPU {err:.3e} (<= 1e-4); greedy streams identical over "
+            f"{len(prompts)} requests")
+        errs[name] = err
+    return errs
 
 
 def phase_parity_ssm():
@@ -1032,9 +1200,10 @@ def phase_main(seed: int):
     lens = rng.integers(24, 701, size=6)
     lens[int(rng.integers(6))] = int(rng.integers(513, 701))  # > 2 chunks
     max_new = 16
+    prompts = []
     for rid, n in enumerate(lens):
-        eng.submit(rid, rng.integers(0, cfg.vocab_size, size=(int(n),)),
-                   max_new=max_new)
+        prompts.append(rng.integers(0, cfg.vocab_size, size=(int(n),)))
+        eng.submit(rid, prompts[-1], max_new=max_new)
     buckets = {page_bucket(max(pages_for(min(int(n) + max_new - 1, 1024), 16)
                                for n in lens[:i + 1]), cap=64)
                for i in range(len(lens))}
@@ -1083,7 +1252,8 @@ def phase_main(seed: int):
            "prefill_tokens": int(sum(lens)),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "decode_traces": eng.stats["decode_traces"],
-           "launches": counts}
+           "launches": counts,
+           "streams": [list(res[rid].out) for rid in range(len(lens))]}
     log(f"[main] {len(lens)} requests (prompts {out['prompt_lens']}), "
         f"{tokens} tokens in {wall:.2f}s = {out['tokens_per_s']:.2f} tok/s; "
         f"{runs} program runs, step p50 {out['step_p50_ms']:.1f} ms (with "
@@ -1093,7 +1263,151 @@ def phase_main(seed: int):
         f"{out['step_max_ms']:.1f} ms; peak memory "
         f"{out['peak_mem_gb']:.2f} GB; launches {counts}; "
         f"{eng.stats['decode_traces']} program shape(s)")
-    return out, eng
+    return out, eng, session, prompts
+
+
+# ----------------------------------------------------------------- phase 5b
+
+def phase_split(session, prompts, streams, seed: int, max_new: int = 16):
+    """The SPLIT SERVING PATH at full width, on phase 5's session (its
+    weights; phase 5's pool is freed first): phase 5's prompts, 16 new
+    tokens each, through ``session.serve(paged=False, mixed=False)`` (the
+    dense per-slot layout) and ``session.serve(mixed=False)`` (the paged
+    split path), 4 slots x 1024 tokens, then one ``session.generate`` of a
+    (4, 512) prompt for 16 steps. Counts are zeroed just before and read
+    just after each: flash attention once a layer a prefill, the fused MLP
+    once a layer a program, paged attention once a layer a decode on the
+    pool and never on the dense layout. Every request must finish with 16
+    in-vocab tokens. The share of tokens equal to phase 5's mixed-engine
+    streams is information only: in bf16 the split path prefills through
+    flash (P fp32) and the mixed step through paged attention, and the
+    fused MLP's split-K plan depends on the row count. Then one more pair
+    of requests (600 and 40 tokens, 4 new each) runs under
+    ``torch.profiler``, its admission step and its decode-only steps
+    apart."""
+    from repro_torch import kernels
+    from repro_torch.serve.step import prefill_bucket
+    cfg = session.cfg
+    layers = cfg.num_layers
+    buckets = {prefill_bucket(len(p), cap=1024) for p in prompts}
+    out = {}
+    for name, kw in (("dense", dict(paged=False, mixed=False)),
+                     ("paged split", dict(mixed=False))):
+        torch.cuda.reset_peak_memory_stats()
+        eng = session.serve(slots=4, max_len=1024, page_size=16, **kw)
+        for rid, p in enumerate(prompts):
+            eng.submit(rid, p, max_new=max_new)
+        kernels.reset_launches()
+        step_s, prefill_step = [], []
+        t0 = time.perf_counter()
+        while eng.busy():
+            s0 = time.perf_counter()
+            pf0 = eng.stats["prefills"]
+            eng.step()
+            step_s.append(time.perf_counter() - s0)
+            prefill_step.append(eng.stats["prefills"] > pf0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launches()
+        res = eng.results()
+        for rid in range(len(prompts)):
+            r = res[rid]
+            check(r.done and len(r.out) == max_new,
+                  f"[split {name}] request {rid} finished={r.done} with "
+                  f"{len(r.out)} tokens")
+            check(all(0 <= t < cfg.vocab_size for t in r.out),
+                  f"[split {name}] request {rid} tokens out of range")
+        want = _want_launches(eng, layers)
+        check(counts == want, f"[split {name}] launches {counts} != {want} "
+                              f"({layers} layers x prefills / programs / "
+                              f"decodes)")
+        check(eng.stats["prefill_traces"] == len(buckets),
+              f"[split {name}] prefill_traces "
+              f"{eng.stats['prefill_traces']} != {len(buckets)} buckets")
+        check(eng.stats["decode_traces"] == 1,
+              f"[split {name}] decode_traces {eng.stats['decode_traces']}")
+        check(bool(torch.isfinite(eng.last_logits).all()),
+              f"[split {name}] finite logits")
+        got = [list(res[rid].out) for rid in range(len(prompts))]
+        agree = sum(a == b for g, w in zip(got, streams)
+                    for a, b in zip(g, w)) / (max_new * len(prompts))
+        # the index of each request's first token unequal to phase 5's
+        first_diff = [next((i for i, (a, b) in enumerate(zip(g, w))
+                            if a != b), max_new)
+                      for g, w in zip(got, streams)]
+        tokens = sum(len(g) for g in got)
+        step_ms = np.asarray(step_s) * 1e3
+        with_pf = np.asarray(prefill_step)
+        run = {"paged": eng.paged, "tokens": tokens, "wall_s": wall,
+               "tokens_per_s": tokens / wall, "steps": len(step_s),
+               "prefills": eng.stats["prefills"],
+               "decode_steps": eng.stats["decode_steps"],
+               "step_p50_ms": float(np.percentile(step_ms, 50)),
+               "prefill_steps": int(with_pf.sum()),
+               "prefill_step_p50_ms": float(
+                   np.percentile(step_ms[with_pf], 50)),
+               "decode_only_step_p50_ms": float(
+                   np.percentile(step_ms[~with_pf], 50)),
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "kv_gb": eng.kv_bytes() / 1e9,
+               "prefill_traces": eng.stats["prefill_traces"],
+               "decode_traces": eng.stats["decode_traces"],
+               "launches": counts, "agree_with_mixed": agree,
+               "first_diff_with_mixed": first_diff,
+               "streams": got}
+        log(f"[split {name}] {len(prompts)} requests, {tokens} tokens in "
+            f"{wall:.2f}s = {run['tokens_per_s']:.2f} tok/s; "
+            f"{run['steps']} steps, step p50 {run['step_p50_ms']:.1f} ms "
+            f"(with prefills {run['prefill_step_p50_ms']:.1f} ms over "
+            f"{run['prefill_steps']} steps, decode only "
+            f"{run['decode_only_step_p50_ms']:.1f} ms); peak memory "
+            f"{run['peak_mem_gb']:.2f} GB (KV {run['kv_gb']:.2f} GB); "
+            f"launches {counts}; prefill_traces {run['prefill_traces']}, "
+            f"decode_traces {run['decode_traces']}; {agree:.1%} of tokens "
+            f"equal to phase 5's mixed-engine streams, first unequal token "
+            f"of each request at {first_diff} (information)")
+        # one more pair (600 and 40 tokens, 4 new each): its admission
+        # step (two prefills and a decode) and its decode-only steps under
+        # the profiler apart, each against the unprofiled p50 of its kind
+        pooled = ("paged_attention",) if eng.paged else ()
+        run["profile"] = phase_profile(
+            eng, np.random.default_rng(seed), run["prefill_step_p50_ms"],
+            groups=SPLIT_GROUPS, tag=f"split {name} profile: admission step",
+            steps=1, required=("flash_attention", "fused_mlp") + pooled)
+        run["profile_decode"] = _profile_steps(
+            eng, run["decode_only_step_p50_ms"], SPLIT_GROUPS,
+            f"split {name} profile: decode-only steps",
+            required=("fused_mlp",) + pooled)
+        out[name] = run
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the lockstep generate loop: one (4, 512) prefill, 15 decodes
+    rng = np.random.default_rng(17)
+    prompt = rng.integers(0, cfg.vocab_size, size=(4, 512)).astype(np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    toks = session.generate(prompt, steps=max_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launches()
+    want = {"paged_attention": 0, "fused_mlp": layers * max_new,
+            "flash_attention": layers, "ssd_scan": 0}
+    check(counts == want, f"[generate] launches {counts} != {want}")
+    check(tuple(toks.shape) == (4, max_new) and toks.is_cuda,
+          f"[generate] tokens {tuple(toks.shape)} on {toks.device}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "[generate] tokens out of range")
+    out["generate"] = {"prompt": [4, 512], "steps": max_new, "wall_s": wall,
+                       "tokens_per_s": toks.numel() / wall,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated()
+                       / 1e9, "launches": counts}
+    log(f"[generate] (4, 512) prompt, {max_new} steps: {toks.numel()} "
+        f"tokens in {wall:.2f}s = {out['generate']['tokens_per_s']:.2f} "
+        f"tok/s (prefill included); peak memory "
+        f"{out['generate']['peak_mem_gb']:.2f} GB; launches {counts}")
+    return out
 
 
 #: phase 5's kernel groups: name -> substrings of the device kernel's name
@@ -1105,6 +1419,10 @@ SERVE_GROUPS = {"paged_attention": ("paged_attention_kernel",
                                     *PAGED_LAUNCHES),
                 "fused_mlp": ("mlp_tma_wgmma_kernel", "mlp_tail_sum_kernel",
                               "mlp_split_sum_kernel", "gemm_f32")}
+#: phase 5b's kernel groups: phase 5's, flash attention (every split
+#: prefill) and the softmax of the plain decode attention (dense layout)
+SPLIT_GROUPS = {**SERVE_GROUPS, "flash_attention": ("flash_fwd",),
+                "softmax": ("softmax",)}
 
 
 def phase_profile(eng, rng, step_p50_ms: float, *, prompts=(600, 40),
@@ -1496,13 +1814,20 @@ def main():
     rng = np.random.default_rng(args.seed)
     kernels = [phase_attention(rng), phase_mlp(rng), phase_flash(rng),
                phase_ssd(rng)]
-    record["parity_logits_err"] = phase_parity()
+    parity = phase_parity()
+    record["parity_logits_err"] = parity.pop("mixed")
+    record["parity_split_logits_err"] = parity
     record["parity_ssm_logits_err"] = phase_parity_ssm()
     record["parity_train"] = phase_train_parity()
-    main_run, eng = phase_main(args.seed)
+    main_run, eng, session, prompts = phase_main(args.seed)
     record["main"] = main_run
     record["profile"] = phase_profile(eng, rng, main_run["step_p50_ms"])
-    del eng                               # free the serving session
+    del eng                               # free phase 5's pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["split"] = phase_split(session, prompts, main_run["streams"],
+                                  args.seed)
+    del session                           # free the serving weights
     gc.collect()
     torch.cuda.empty_cache()
     record["train"] = phase_train(args.seed)

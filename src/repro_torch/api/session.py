@@ -15,27 +15,36 @@
 
     ssm = Session(get_config("mamba2-780m")).serve(slots=4, max_len=2048)
 
+    tokens = session.generate(prompt_batch, steps=16)   # (B, 16) greedy
+
 One object owns the config, the strategy, the device and the params
 (random from ``seed`` unless given — e.g. from the JAX package's
 checkpoint through ``repro_torch.params.load_npz``). ``train`` trains
 those params in place, so a later ``serve`` sees the trained weights.
 ``serve`` takes the reference's keyword names and the reference's
-family rules: a dense decoder gets the paged mixed-step engine, the SSM
-family the split prefill/decode path on the dense layout; the features
-not ported yet raise ``NotImplementedError`` naming their ROADMAP.md
-item, as does ``train`` for the SSM family. Generate, the online stack
-and dry-runs come with later slices.
+family and layout rules: a full-attention dense decoder gets the paged
+mixed-step engine by default (``mixed=False``: the split prefill/decode
+path on the pool; ``paged=False``: the dense per-slot layout), a
+sliding-window config the dense ring, the SSM family the split path on
+the dense layout. ``generate`` is the lockstep greedy loop
+(``serve/step.py::greedy_generate``). The features not ported yet raise
+``NotImplementedError`` naming their ROADMAP.md item, as does ``train``
+for the SSM family. The online stack and dry-runs come with later
+slices.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.strategy import Strategy
 from repro_torch.params import init_params
 from repro_torch.serve.engine import ServeEngine, _todo
-from repro_torch.train.trainer import TrainConfig, Trainer
+from repro_torch.serve.step import greedy_generate
+from repro_torch.train.trainer import (TrainConfig, Trainer,
+                                       check_kernel_limits)
 from repro_torch.tree import tree_map
 
 
@@ -69,6 +78,7 @@ class Session:
         if self.cfg.arch_type != "dense":
             raise _todo(f"training the {self.cfg.arch_type} family",
                         f"Queue 1 item 10, {self.cfg.arch_type} training")
+        check_kernel_limits(self.cfg, self.strategy, self.device)
         tc = train_cfg or TrainConfig(seed=self.seed)
         trainer = Trainer(self.cfg, self.strategy, self.device, tc,
                           data=data, global_batch=global_batch,
@@ -76,6 +86,22 @@ class Session:
         if restore:
             trainer.maybe_restore()
         return trainer
+
+    def generate(self, prompt, steps: int = 16):
+        """Greedy-decode ``steps`` tokens on the session's device.
+        ``prompt`` is a (b, s) or (s,) array of token ids, or a model batch
+        dict. Returns (b, steps) int32 on the session's device."""
+        if isinstance(prompt, dict):
+            batch = {k: torch.as_tensor(v).to(self.device)
+                     for k, v in prompt.items()}
+        else:
+            arr = torch.from_numpy(np.asarray(prompt, np.int32))
+            if arr.ndim == 1:
+                arr = arr[None, :]
+            batch = {"tokens": arr.to(self.device)}
+        params = tree_map(torch.Tensor.detach, self.params)
+        return greedy_generate(params, self.cfg, self.strategy, batch,
+                               steps=steps)
 
     def serve(self, *, plan=None, tp: Optional[int] = None,
               dp: Optional[int] = None, slots: int = 4, max_len: int = 256,
@@ -87,11 +113,13 @@ class Session:
               chunk_tokens: int = 256, attn_backend: Optional[str] = None,
               spec=None, trace_level: int = 1) -> ServeEngine:
         """Continuous-batching engine over this session's params on its
-        device: for a dense decoder the paged pool and ONE mixed
-        token-slot program per step, for the SSM family exact-length
-        prefills and one batched recurrent decode a step (see
-        serve/engine.py). ``attn_backend`` exists for the reference's
-        signature only: the device picks the kernel or the plain path."""
+        device: for a full-attention dense decoder the paged pool and ONE
+        mixed token-slot program per step by default; otherwise
+        (``mixed=False``, ``paged=False``, sliding-window configs, the SSM
+        family) the split path, one prefill program a request and one
+        batched decode a step (see serve/engine.py). ``attn_backend``
+        exists for the reference's signature only: the device picks the
+        kernel or the plain path."""
         if plan is not None or (tp or 1) > 1 or (dp or 1) > 1:
             raise _todo("plan=/tp=/dp= serving", "Queue 1 item 11")
         if attn_backend is not None:

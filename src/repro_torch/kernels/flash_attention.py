@@ -31,6 +31,7 @@ CPU; on a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -45,6 +46,40 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
     return flash_attention_ref(q, k.repeat_interleave(rep, dim=2),
                                v.repeat_interleave(rep, dim=2),
                                causal=causal, window=window)
+
+
+def kernel_limits(dtype, hq: int, hkv: int, d: int) -> Optional[str]:
+    """Why the kernel cannot take these heads, or None: the limits its C
+    entries check (``csrc/flash_attention.cu`` header), stated on the host
+    so that a caller (the wrapper, the trainer on a CUDA device) refuses
+    before any launch."""
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        return f"takes float32 or bfloat16, not {dtype}"
+    if hkv < 1 or hq < 1 or hq % hkv:
+        return f"needs Hq ({hq}) a multiple of Hkv ({hkv})"
+    if dtype == torch.float32:
+        return None if 1 <= d <= 128 else \
+            f"takes float32 head dims 1..128, not {d}"
+    if d % 8 or not 8 <= d <= 128:
+        return f"takes bfloat16 head dims that are multiples of 8 in " \
+               f"8..128 (TMA's 16-byte rows), not {d}"
+    return None
+
+
+def launch_entry(q, k, v, out, *, causal: bool, window: int) -> int:
+    """Call the C entry of q's dtype on these tensors and return its code:
+    0, or the CUDA error it refused with (nothing launched then). No check
+    on this side: the wrapper checks ``kernel_limits`` first, and the
+    card's tests call this past them to hold the table to the C entries."""
+    b, s, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    lib = build.load("flash_attention")
+    fn = lib.flash_attention_bf16 if q.dtype == torch.bfloat16 \
+        else lib.flash_attention_f32
+    return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              b, s, t, hq, hkv, d, int(causal), int(window),
+              torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
@@ -63,15 +98,13 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
         if not a.is_cuda or not a.is_contiguous():
             raise ValueError("flash_attention kernel takes contiguous CUDA "
                              "tensors")
+    why = kernel_limits(q.dtype, hq, hkv, d)
+    if why:
+        raise ValueError(f"flash_attention kernel {why}")
     out = torch.empty_like(q)
-    lib = build.load("flash_attention")
-    fn = lib.flash_attention_bf16 if q.dtype == torch.bfloat16 \
-        else lib.flash_attention_f32
-    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-              b, s, t, hq, hkv, d, int(causal), int(window),
-              torch.cuda.current_stream(q.device).cuda_stream)
-    # the kernel checks its own shape limits (csrc/flash_attention.cu)
-    build.check(code, f"flash_attention at Hq={hq} Hkv={hkv} D={d} S={s}")
+    # the C entry checks the same limits (csrc/flash_attention.cu)
+    build.check(launch_entry(q, k, v, out, causal=causal, window=window),
+                f"flash_attention at Hq={hq} Hkv={hkv} D={d} S={s}")
     flash_attention.launches += 1
     return out
 

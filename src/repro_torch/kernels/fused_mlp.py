@@ -18,9 +18,12 @@ Contract: x ``(T, d)``; w_gate/w_up ``(d, f)``; w_down ``(f, d)`` ->
 ``(T, d)`` in x's dtype = ``(silu(x·Wg) ∘ (x·Wu))·Wd`` with fp32
 accumulation and ``h`` cast to Wd's dtype before the down-projection.
 Ragged T, d and f are masked, not asserted; the bf16 kernels take d and f
-that are multiples of 8 (TMA's 16-byte row strides) and raise otherwise.
+that are multiples of 8 (TMA's 16-byte row strides): ``kernel_limits``
+states it, and the wrapper raises ``ValueError`` otherwise.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -66,6 +69,43 @@ def mlp_plan(t: int, d: int, f: int, sms: int):
     return down_splits, tail, gate_splits, scratch
 
 
+def kernel_limits(dtype, d: int, f: int) -> Optional[str]:
+    """Why the kernels cannot take these widths, or None: the limits the C
+    entries check (``csrc/fused_mlp.cu`` header), stated on the host so
+    that a caller (the wrapper, the serving engine on a CUDA device)
+    refuses before any launch."""
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        return f"takes float32 or bfloat16, not {dtype}"
+    if dtype == torch.bfloat16 and (d % 8 or f % 8 or d < 8 or f < 8):
+        return f"takes bfloat16 widths d and f that are multiples of 8 " \
+               f"(TMA's 16-byte rows), not d={d}, f={f}"
+    return None
+
+
+def launch_entry(x, w_gate, w_up, w_down, out) -> int:
+    """Call the C entry of x's dtype on these tensors (with ``h`` and the
+    bf16 split-K scratch made here) and return its code: 0, or the CUDA
+    error it refused with (nothing launched then). No check on this
+    side: the wrapper checks ``kernel_limits`` first, and the card's
+    tests call this past them to hold the table to the C entries."""
+    t, d = x.shape
+    f = w_gate.shape[1]
+    h = torch.empty((t, f), dtype=w_down.dtype, device=x.device)
+    lib = build.load("fused_mlp")
+    ptrs = (x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+            w_down.data_ptr(), h.data_ptr())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if x.dtype == torch.bfloat16:
+        *plan, scratch = mlp_plan(t, d, f, torch.cuda.get_device_properties(
+            x.device).multi_processor_count)
+        partials = torch.empty((scratch,), dtype=torch.float32,
+                               device=x.device)
+        return lib.fused_mlp_bf16(*ptrs, partials.data_ptr(),
+                                  out.data_ptr(), t, d, f, *plan, stream)
+    return lib.fused_mlp_f32(*ptrs, out.data_ptr(), t, d, f, stream)
+
+
 def fused_mlp_cuda(x, w_gate, w_up, w_down):
     """Launch the gate/up and down kernels on PyTorch's current stream.
     The kernels have no backward and write through raw pointers, so a
@@ -90,22 +130,12 @@ def fused_mlp_cuda(x, w_gate, w_up, w_down):
         if not a.is_cuda or not a.is_contiguous():
             raise ValueError("fused_mlp kernel takes contiguous CUDA "
                              "tensors")
-    h = torch.empty((t, f), dtype=w_down.dtype, device=x.device)
+    why = kernel_limits(x.dtype, d, f)
+    if why:
+        raise ValueError(f"fused_mlp kernel {why}")
     out = torch.empty((t, d), dtype=x.dtype, device=x.device)
-    lib = build.load("fused_mlp")
-    ptrs = (x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
-            w_down.data_ptr(), h.data_ptr())
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    if x.dtype == torch.bfloat16:
-        *plan, scratch = mlp_plan(t, d, f, torch.cuda.get_device_properties(
-            x.device).multi_processor_count)
-        partials = torch.empty((scratch,), dtype=torch.float32,
-                               device=x.device)
-        code = lib.fused_mlp_bf16(*ptrs, partials.data_ptr(),
-                                  out.data_ptr(), t, d, f, *plan, stream)
-    else:
-        code = lib.fused_mlp_f32(*ptrs, out.data_ptr(), t, d, f, stream)
-    build.check(code, "fused_mlp")
+    # the C entry checks the same limits (csrc/fused_mlp.cu)
+    build.check(launch_entry(x, w_gate, w_up, w_down, out), "fused_mlp")
     fused_mlp.launches += 1
     return out
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -147,6 +148,39 @@ def device_tile_plan(page_table, pos, page_size: int, rep: int):
     return items, host[4:4 + b].astype(np.int64)
 
 
+#: the bf16 entry's page sizes: whole 1024-byte swizzle atoms, whole
+#: pages a 64-key tile (csrc/paged_attention.cu)
+BF16_PAGE_SIZES = (8, 16, 32, 64)
+
+
+def kernel_limits(dtype, page_size: int, hq: int, hkv: int,
+                  d: int) -> Optional[str]:
+    """Why the kernel cannot take these shapes, or None: the limits its C
+    entries check (``csrc/paged_attention.cu`` header), stated on the
+    host so that a caller can refuse before any launch. The wrapper and
+    the serving engine, on a CUDA device, both ask this one function."""
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        return f"takes float32 or bfloat16, not {dtype}"
+    if hkv < 1 or hq < 1 or hq % hkv:
+        return f"needs Hq ({hq}) a multiple of Hkv ({hkv})"
+    if hq // hkv > 16:
+        return f"takes Hq / Hkv <= 16, not {hq // hkv}"
+    if dtype == torch.float32:
+        if not 1 <= d <= 256:
+            return f"takes float32 head dims 1..256, not {d}"
+        if not 1 <= page_size <= 128:
+            return f"takes float32 page sizes 1..128, not {page_size}"
+        return None
+    if d % 8 or not 8 <= d <= 128:
+        return f"takes bfloat16 head dims that are multiples of 8 in " \
+               f"8..128 (TMA's 16-byte rows), not {d}"
+    if page_size not in BF16_PAGE_SIZES:
+        return f"takes bfloat16 page sizes {BF16_PAGE_SIZES}, not " \
+               f"{page_size}"
+    return None
+
+
 _SCRATCH = {}
 
 
@@ -159,6 +193,32 @@ def _scratch_bytes(lib, b: int, hq: int, d: int):
         lib.paged_attention_bf16_scratch(b, hq, d, sizes)
         _SCRATCH[key] = (-(-sizes[0] * 4 // 256) * 256, sizes[1] * 4)
     return _SCRATCH[key]
+
+
+def launch_entry(q, k_pages, v_pages, page_table, pos, out) -> int:
+    """Call the C entry of q's dtype on these tensors and return its code:
+    0, or the CUDA error it refused with (nothing launched then). No check
+    on this side: the wrapper checks ``kernel_limits`` first, and the
+    card's tests call this past them to hold the table to the C entries."""
+    b, _, hq, d = q.shape
+    n_pages, page_size, hkv, _ = k_pages.shape
+    lib = build.load("paged_attention")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.bfloat16:
+        # the plan and the split partials (csrc/paged_attention.cu), one
+        # allocation
+        plan_bytes, part_bytes = _scratch_bytes(lib, b, hq, d)
+        scratch = torch.empty(plan_bytes + part_bytes, dtype=torch.uint8,
+                              device=q.device)
+        return lib.paged_attention_bf16(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), scratch.data_ptr() + plan_bytes, b, hq, hkv,
+            d, page_size, n_pages, page_table.shape[1], stream)
+    return lib.paged_attention_f32(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_table.data_ptr(), pos.data_ptr(), out.data_ptr(), b, hq, hkv,
+        d, page_size, page_table.shape[1], stream)
 
 
 def paged_attention_cuda(q, k_pages, v_pages, page_table, pos):
@@ -182,26 +242,12 @@ def paged_attention_cuda(q, k_pages, v_pages, page_table, pos):
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError("paged_attention kernel takes contiguous CUDA "
                              "tensors")
+    why = kernel_limits(q.dtype, page_size, hq, hkv, d)
+    if why:
+        raise ValueError(f"paged_attention kernel {why}")
     out = torch.empty_like(q)
-    lib = build.load("paged_attention")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    if q.dtype == torch.bfloat16:
-        # the plan and the split partials (csrc/paged_attention.cu), one
-        # allocation
-        plan_bytes, part_bytes = _scratch_bytes(lib, b, hq, d)
-        scratch = torch.empty(plan_bytes + part_bytes, dtype=torch.uint8,
-                              device=q.device)
-        code = lib.paged_attention_bf16(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), scratch.data_ptr() + plan_bytes, b, hq, hkv,
-            d, page_size, n_pages, page_table.shape[1], stream)
-    else:
-        code = lib.paged_attention_f32(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_table.data_ptr(), pos.data_ptr(), out.data_ptr(), b, hq,
-            hkv, d, page_size, page_table.shape[1], stream)
-    # the kernel checks its own shape limits (csrc/paged_attention.cu)
+    # the C entry checks the same limits (csrc/paged_attention.cu)
+    code = launch_entry(q, k_pages, v_pages, page_table, pos, out)
     if code:
         build.check(code, f"paged_attention at Hq={hq} Hkv={hkv} D={d} "
                           f"page_size={page_size}")

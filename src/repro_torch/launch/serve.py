@@ -1,13 +1,21 @@
 """Serving launcher of the port: spin up the engine through
 ``repro_torch.api.Session`` and stream a synthetic batch of requests
 through it — the counterpart of ``python -m repro.launch.serve`` in batch
-mode. A dense decoder runs the paged mixed-step engine, the SSM family
-(``--arch mamba2-780m``) the split prefill/decode path on the dense
-layout.
+mode. A dense decoder runs the paged mixed-step engine by default,
+``--no-mixed`` the split prefill/decode path on the paged pool and
+``--dense`` the split path on the dense per-slot layout (the mixed step
+needs the pool); the SSM family (``--arch mamba2-780m``) runs the split
+path on the dense layout.
 
     # on the card, full-width Qwen3-14B (random weights from --seed)
     PYTHONPATH=src python -m repro_torch.launch.serve --full \\
         --slots 4 --max-len 1024 --chunk-tokens 256 --requests 6
+
+    # on the card, the split path: on the pool, and on the dense layout
+    PYTHONPATH=src python -m repro_torch.launch.serve --full --no-mixed \\
+        --slots 4 --max-len 1024 --requests 6
+    PYTHONPATH=src python -m repro_torch.launch.serve --full --dense \\
+        --slots 4 --max-len 1024 --requests 6
 
     # on the card, full-width Mamba2-780M
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
@@ -15,6 +23,7 @@ layout.
 
     # on the CPU, the reduced configs in float32
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --dense
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
         --device cpu
 
@@ -22,11 +31,11 @@ Without ``--full`` the arch's smoke config runs in float32, as the JAX
 launcher does; ``--full`` takes the arch's full ``CONFIG`` in its own
 dtype (bfloat16). The device picks the kernel path (CUDA: the
 hand-written kernels; CPU: their plain versions). Flags of features the
-port has not reached (``--dense`` and ``--no-mixed`` for a dense decoder,
-``--prefix-cache``, ``--lazy``, ``--spec-k``, ``--tp``/``--dp``) raise
-NotImplementedError naming their ROADMAP.md item (``--prefix-cache`` and
-``--lazy`` on the SSM family raise the reference's ValueError); the
-online mode (``--serve``) waits for the online stack.
+port has not reached (``--prefix-cache``, ``--lazy``, ``--spec-k``,
+``--tp``/``--dp``) raise NotImplementedError naming their ROADMAP.md
+item (``--prefix-cache`` and ``--lazy`` on the SSM family or with
+``--dense`` raise the reference's ValueError); the online mode
+(``--serve``) waits for the online stack.
 """
 from __future__ import annotations
 
@@ -57,8 +66,8 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy; >0 = temperature sampling")
     ap.add_argument("--dense", action="store_true",
-                    help="dense per-slot KV layout (the SSM family's "
-                         "layout; not ported for dense decoders)")
+                    help="dense per-slot KV layout instead of the paged "
+                         "pool (served by the split path)")
     ap.add_argument("--page-size", type=int, default=16,
                     help="tokens per KV page")
     ap.add_argument("--kv-pages", type=int, default=None,
@@ -69,8 +78,8 @@ def main(argv=None):
     ap.add_argument("--lazy", action="store_true",
                     help="lazy page growth (not ported yet)")
     ap.add_argument("--no-mixed", action="store_true",
-                    help="legacy split prefill/decode (the SSM family's "
-                         "path; not ported for dense decoders)")
+                    help="legacy split prefill/decode instead of the "
+                         "mixed token-slot step")
     ap.add_argument("--chunk-tokens", type=int, default=256,
                     help="mixed step token budget shared by decode tokens "
                          "and prefill chunks (must be >= --slots)")
@@ -120,8 +129,9 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     total = sum(len(r.out) for r in results.values())
     st = eng.stats
-    layout = f"paged/{eng.page_size}tok-pages" if eng.paged \
-        else "dense slot table, split prefill/decode"
+    layout = (f"paged/{eng.page_size}tok-pages" if eng.paged
+              else "dense slot table") + \
+        ("" if eng.mixed else ", split prefill/decode")
     print(f"served {len(results)} requests, {total} tokens in {dt:.2f}s "
           f"({total / dt:.1f} tok/s on {eng.device}, {args.slots} slots, "
           f"{layout}, {st['decode_backend']} path, "

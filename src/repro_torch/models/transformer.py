@@ -5,19 +5,31 @@ Parameters are nested dicts of tensors with the JAX tree's keys and the
 per-layer weights stacked on a leading L axis (``params.py``); the layer
 stack is a Python loop over that axis where the reference scans.
 
-  forward(params, batch, cfg, remat=, attn_impl=)  -> logits, aux
-  decode_step(params, cache, token, pos, cfg)      -> logits, cache
+  forward(params, batch, cfg, remat=, attn_impl=)         -> logits, aux
+  init_cache(cfg, batch, max_len, dtype=, device=)        -> cache
+  prefill(params, batch, cfg, cache, attn_impl=, last_pos=) -> logits, cache
+  decode_step(params, cache, token, pos, cfg)             -> logits, cache
 
 ``forward`` trains: ``remat=True`` wraps each layer in
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the scan
 body), and ``attn_impl`` picks the attention path (``layers.attention``:
-on a CUDA tensor ``auto`` and ``pallas`` run the flash kernel).
+on a CUDA tensor ``auto`` and ``pallas`` run the flash kernel, so every
+prefill does too, windowed on sliding-window configs).
 
-``decode_step`` is the paged branch only — the serve engine's mixed
-token-slot program: ``cache`` carries the pool ``"kv"`` (updated in
-place), the page table ``"ptab"`` and optionally the write table
-``"wtab"``. The dense, ring and context-parallel branches and ``prefill``
-wait for later slices (ROADMAP.md Queue 1 item 4), as does the MoE FFN.
+The cache is updated IN PLACE by ``prefill`` and ``decode_step`` (the
+reference returns new arrays). Its layouts (models/kvcache.py):
+
+* dense ``{"kv": (L, B, W, Hkv, D) leaves, "pos"}``, ``W = max_len``, or
+  the ring of ``W = sliding_window`` rows on sliding-window configs;
+  decode attends through ``layers.attention_full`` with per-row masks
+  (the reference computes it in XLA, not in a Pallas kernel);
+* paged ``{"kv": (L, n_pages, page_size, Hkv, D) pool, "ptab"[, "wtab"]}``:
+  every row's K/V is scattered through ``wtab`` (default ``ptab``) before
+  any row attends through ``ptab`` with the paged-attention kernel — the
+  serve engine's mixed token-slot program and its split decode.
+
+The context-parallel decode branch waits for ROADMAP.md Queue 1 item 11,
+the MoE FFN for item 10.
 """
 from __future__ import annotations
 
@@ -58,6 +70,13 @@ def _check_dense(cfg):
             f"{cfg.arch_type} waits for ROADMAP.md Queue 1 item 10")
 
 
+def _check_cp(cfg):
+    if cfg.cp_decode:
+        raise NotImplementedError(
+            f"{cfg.name}: the context-parallel decode (cp_decode) waits for "
+            "the parallelism slice, ROADMAP.md Queue 1 item 11")
+
+
 def _embed(params, tokens, cfg):
     return params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
 
@@ -95,31 +114,106 @@ def forward(params, batch, cfg, *, remat: bool = False,
     return _head(params, x, cfg), aux
 
 
-def decode_step(params, cache, token, pos, cfg):
-    """token: (B,1) int; pos: (B,) int32 per-row cursors. Every row's K/V
-    is scattered through ``cache.get("wtab", cache["ptab"])`` BEFORE any
-    row attends through ``cache["ptab"]`` — which is what makes chunked
-    prefill exact: a chunk's rows see each other's K/V. Returns
-    (logits (B,1,V), cache) with ``cache["kv"]`` updated in place."""
+def cache_window(cfg, max_len: int) -> int:
+    """Ring length: sliding-window configs hold only the window."""
+    if cfg.sliding_window > 0:
+        return min(max_len, cfg.sliding_window)
+    return max_len
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None):
+    """Zero dense (or ring) KV for ``batch`` rows and a scalar cursor."""
+    dtype = dtype or cfg.dtype
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    w = cache_window(cfg, max_len)
+    # every layer's rows in one allocation, the leading L axis a view
+    rows = kvcache.init_kv(cfg.num_layers * batch, w, cfg.num_kv_heads,
+                           cfg.head_dim, dtype, device)
+    return {"kv": {k: a.view(cfg.num_layers, batch, *a.shape[1:])
+                   for k, a in rows.items()},
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def prefill(params, batch, cfg, cache, *, attn_impl: str = "auto",
+            last_pos=None):
+    """Run the whole prompt, fill ``cache`` in place (each layer's K/V
+    through ``kvcache.fit_prefill``: a ring keeps the last ``window``
+    positions) and return the last token's logits (B, 1, V).
+
+    ``last_pos`` (scalar or (B,)): index of the last REAL token of a
+    prompt right-padded to a bucket; logits are gathered there. Padding
+    rows are causally invisible to real rows, and their cache entries stay
+    masked by ``kv_len`` / ``kpos`` until decode overwrites them.
+    """
     _check_dense(cfg)
-    if "ptab" not in cache:
-        raise NotImplementedError(
-            "decode_step: only the paged layout is ported; the dense and "
-            "ring caches wait for ROADMAP.md Queue 1 items 3-4")
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    kv = cache["kv"]
+    w = kv["k"].shape[2]
+    x = _embed(params, tokens, cfg)
+    for i, lp in enumerate(unstack_layers(params, cfg.num_layers)):
+        h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = attn_qkv(lp["attn"], h, cfg)
+        ctx = attention(q, k, v, causal=True, window=cfg.sliding_window,
+                        impl=attn_impl)
+        x = x + attn_out(lp["attn"], ctx, cfg)
+        h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+        x = x + mlp(lp["mlp"], h)
+        kv["k"][i] = kvcache.fit_prefill(k, w)
+        kv["v"][i] = kvcache.fit_prefill(v, w)
+    cache["pos"] = torch.tensor(s, dtype=torch.int32, device=x.device)
+    if last_pos is None:
+        return _head(params, x[:, -1:], cfg), cache
+    last = torch.as_tensor(last_pos, device=x.device).long().expand(b)
+    x = x[torch.arange(b, device=x.device), last][:, None]
+    return _head(params, x, cfg), cache
+
+
+def decode_step(params, cache, token, pos, cfg):
+    """token: (B,1) int; pos: scalar (the lockstep loop: tokens so far) or
+    (B,) per-row cursors (the engine's slot table). A cache with a
+    ``"ptab"`` takes the paged branch: every row's K/V is scattered
+    through ``cache.get("wtab", cache["ptab"])`` BEFORE any row attends
+    through ``cache["ptab"]`` — which is what makes chunked prefill exact:
+    a chunk's rows see each other's K/V. Otherwise the dense or ring
+    cache: each row writes at its cursor (``pos % W`` on the ring) and
+    attends to its own valid prefix. Returns (logits (B,1,V), cache) with
+    ``cache["kv"]`` updated in place and ``"pos"`` advanced."""
+    _check_dense(cfg)
     x = _embed(params, token, cfg)
-    ptab = cache["ptab"]
-    wtab = cache.get("wtab", ptab)
-    pos = pos.to(torch.int32)
-    positions = pos[:, None]
+    paged = "ptab" in cache
     pool = cache["kv"]
+    pos = torch.as_tensor(pos, device=x.device).to(torch.int32)
+    batched = pos.ndim > 0
+    positions = pos[:, None] if batched else pos.expand(token.shape[0], 1)
+    if paged:
+        ptab = cache["ptab"]
+        wtab = cache.get("wtab", ptab)
+        rows = pos if batched else positions[:, 0].contiguous()
+    else:
+        w = pool["k"].shape[2]
+        ring = cfg.sliding_window > 0 and w == cfg.sliding_window
+        if not ring and not batched:
+            _check_cp(cfg)
+        kpos = kvcache.ring_kpos(positions, w) if ring else None
+        kv_len = None if ring else torch.clamp(pos + 1, max=w)
     for i in range(cfg.num_layers):
         lp = layer_params(params, i)
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = attn_qkv(lp["attn"], h, cfg, positions=positions)
         kv = {"k": pool["k"][i], "v": pool["v"][i]}
-        kvcache.write_kv_paged(kv, k, v, wtab, pos)
-        ctx = paged_attention(q, kv["k"], kv["v"], ptab, pos)
+        if paged:
+            kvcache.write_kv_paged(kv, k, v, wtab, rows)
+            ctx = paged_attention(q, kv["k"], kv["v"], ptab, rows)
+        else:
+            kvcache.write_kv(kv, k, v, pos, ring=ring, window=w)
+            ctx = attention(q, kv["k"], kv["v"], causal=True,
+                            window=cfg.sliding_window, q_offset=pos,
+                            kv_len=kv_len, kpos=kpos)
         x = x + attn_out(lp["attn"], ctx, cfg)
         h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
         x = x + mlp(lp["mlp"], h)
-    return _head(params, x, cfg), cache
+    out = {"kv": pool, "pos": pos + 1}
+    if paged:
+        out["ptab"] = cache["ptab"]
+    return _head(params, x, cfg), out

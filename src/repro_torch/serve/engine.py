@@ -1,10 +1,11 @@
 """Serving engine: continuous batching over a slot table — the port of
 the paged mixed path and the legacy split path of
 ``repro/serve/engine.py``. The family and the layout decide the path, by
-the reference's rules: dense decoders take the paged pool and ONE mixed
-token-slot step per engine step; the SSM family (not pageable: its cache
-is a constant-size recurrent state) takes the dense per-slot layout and
-the split path.
+the reference's rules: full-attention dense decoders take the paged pool
+and ONE mixed token-slot step per engine step by default; the split path
+serves the rest — dense decoders with ``mixed=False`` (on the pool) or
+``paged=False``, sliding-window configs (on the dense ring), and the SSM
+family (not pageable: its cache is a constant-size recurrent state).
 
 **Mixed path (dense decoders).** The KV cache is a flat pool of
 ``page_size``-token pages shared by every slot plus a per-slot page
@@ -25,29 +26,45 @@ jit traces; PyTorch runs eagerly, so ``stats["decode_traces"]`` counts
 the distinct ``(chunk_tokens, page bucket)`` shapes the program has run
 at — the same bounded-shape invariant.
 
-**Split path (the SSM family).** Each admitted request is prefilled
-alone at its exact length (the recurrence is pad-sensitive, so no
-buckets), its first token sampled, and its final states written into row
-``slot`` of the engine's one batched cache in place; then ONE batched
-recurrent decode advances every slot per step (inactive rows run too and
-are overwritten at their next prefill, as in the reference).
-``stats["prefill_traces"]`` counts the distinct prefill lengths run and
-``stats["decode_traces"]`` the distinct decode shapes (one) — the
-reference's jit-trace counts. The reference's chunked-SSD precondition
-holds: a prompt longer than ``ssm_chunk`` that is not a multiple of it
-raises ``ValueError`` inside its prefill, after it left the queue, where
-the reference's assert fires.
+**Split path** (``mixed=False``: the SSM family's only path, and the
+legacy path of dense decoders). Each admitted request is prefilled alone
+by its own device program, its first token sampled and its fresh cache
+stored; then ONE batched decode advances every slot per step (inactive
+rows run too and are overwritten at their next prefill, as in the
+reference). Dense decoders pad the prompt to ``prefill_bucket(n,
+cap=window)`` and gather the logits at ``last_pos = n - 1``; on the
+dense layout the prefill writes row ``slot`` of every cache leaf in
+place, on the paged layout it fills a scratch cache of whole pages that
+``scatter_prefill_pages`` writes through the slot's pages (bucket padding
+to the null page). The SSM family prefills at the exact length (the
+recurrence is pad-sensitive) and keeps its constant-size states in the
+dense layout. ``stats["prefill_traces"]`` counts the distinct padded
+prefill lengths run and ``stats["decode_traces"]`` the distinct decode
+shapes (one, or one a page bucket) — the reference's jit-trace counts.
+The reference's chunked-SSD precondition holds: a prompt longer than
+``ssm_chunk`` that is not a multiple of it raises ``ValueError`` inside
+its prefill, after it left the queue, where the reference's assert
+fires.
+
+Layouts, by the reference's rules: the paged pool for full-attention
+dense decoders (``PAGEABLE_ARCHS``, no sliding window) unless
+``paged=False``; the dense per-slot layout otherwise, which is a ring of
+``sliding_window`` rows on sliding-window configs.
 
 The device decides the kernel path: CUDA runs the port's hand-written
-kernels (paged attention and the fused MLP on the mixed path, the SSD
-scan in every SSM prefill), the CPU their plain versions
-(``stats["decode_backend"]`` reads ``"kernel"`` or ``"plain"``).
+kernels (paged attention on the paged layout, the fused MLP in every
+dense-decoder program, flash attention in every dense split prefill, the
+SSD scan in every SSM prefill), the CPU their plain versions
+(``stats["decode_backend"]`` reads ``"kernel"`` or ``"plain"``). On a
+CUDA device an engine refuses, at construction, shapes a kernel of its
+path cannot take (each kernel's ``kernel_limits``: paged attention on
+the paged layout, flash attention on the dense split path, the fused
+MLP on every dense path); nothing falls back to a plain version there.
 
 Not ported yet, each raising ``NotImplementedError`` naming its
 ROADMAP.md item: prefix sharing, lazy growth / CoW / preemption, other
-schedulers and deadlines, speculative decode, the split path and the
-dense layout for dense decoders, TP/DP meshes, frames/images and the
-families other than dense and SSM.
+schedulers and deadlines, speculative decode, TP/DP meshes,
+frames/images and the families other than dense and SSM.
 """
 from __future__ import annotations
 
@@ -59,11 +76,13 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels import flash_attention, fused_mlp, paged_attention
 from repro_torch.models import get_model, kvcache, transformer
 from repro_torch.serve.paging import PageAllocator, pages_for
 from repro_torch.serve.sampling import sample_tokens
 from repro_torch.serve.scheduler import FifoLeastProgress
-from repro_torch.serve.step import pack_token_budget, page_bucket
+from repro_torch.serve.step import (pack_token_budget, page_bucket,
+                                    prefill_bucket, scatter_prefill_pages)
 from repro_torch.serve.tracing import (NULL_STEP, Tracer, chrome_trace,
                                        export_chrome_trace)
 
@@ -103,23 +122,28 @@ class ServeEngine:
                  chunk_tokens: int = 256, spec=None, tracer=None,
                  trace_level: int = 1, device=None):
         self.model = get_model(cfg)    # raises for the unported families
-        if cfg.sliding_window > 0:
-            raise _todo("the sliding-window ring cache", "Queue 1 item 10")
         # the reference's family and layout rules (engine.py:219-264)
-        pageable = cfg.arch_type in PAGEABLE_ARCHS
+        pageable = (cfg.arch_type in PAGEABLE_ARCHS
+                    and cfg.sliding_window == 0)
+        swa = " + SWA ring" if cfg.sliding_window else ""
         if (prefix_cache or lazy) and not pageable:
             raise ValueError(
                 f"{cfg.name}: prefix_cache/lazy ride on the paged KV "
                 f"pool, which needs a full-attention decoder "
                 f"({'/'.join(PAGEABLE_ARCHS)}, no sliding window) — "
-                f"unavailable for {cfg.arch_type}")
+                f"unavailable for {cfg.arch_type}{swa}")
         if paged is None:
             paged = True if (prefix_cache or lazy) else pageable
         if paged and not pageable:
             raise ValueError(
                 f"{cfg.name}: paged KV needs a full-attention decoder "
                 f"({'/'.join(PAGEABLE_ARCHS)}, no sliding window); "
-                f"{cfg.arch_type} keeps the dense layout (paged=False)")
+                f"{cfg.arch_type}{swa} keeps the dense layout "
+                "(paged=False)")
+        if (prefix_cache or lazy) and not paged:
+            raise ValueError(
+                f"{cfg.name}: prefix_cache/lazy ride on the paged pool; "
+                "drop paged=False to use them")
         if mixed is None:
             mixed = bool(paged)
         if mixed and not paged:
@@ -127,13 +151,6 @@ class ServeEngine:
                 f"{cfg.name}: the mixed token-slot step writes prefill "
                 "chunks through the paged KV scatter; drop paged=False "
                 "(or pass mixed=False) to serve this arch")
-        if pageable and not paged:
-            raise _todo("the dense KV layout (paged=False) for dense "
-                        "decoders", "Queue 1 item 5(d)")
-        if pageable and not mixed:
-            raise _todo("the legacy split prefill/decode path "
-                        "(mixed=False) for dense decoders",
-                        "Queue 1 item 5(d)")
         if prefix_cache:
             raise _todo("prefix_cache", "Queue 1 item 5(b)")
         if lazy:
@@ -163,6 +180,8 @@ class ServeEngine:
         self.temperature = temperature
         self.page_size = page_size
         self.chunk_tokens = int(chunk_tokens)
+        if self.device.type == "cuda":
+            self._check_kernel_limits()
         self.queue: Deque[Request] = deque()
         self.active: List[Optional[Request]] = [None] * slots
         self.finished: Dict[int, Request] = {}
@@ -191,17 +210,54 @@ class ServeEngine:
         #: split path: a prefill's (1, 1, V) or a decode's (slots, 1, V))
         self.last_logits = None
         # distinct program shapes run: (T, bucket) of the mixed step;
-        # prefill lengths and decode batch shapes of the split path
+        # padded prefill lengths and decode shapes of the split path
         self._shapes = set()
         self._prefill_lens = set()
         if self.paged:
             self._init_pool(kv_pages)
         else:
-            # the slot table: one batched cache, per-slot position vector
+            # the slot table: one batched cache (a ring of the window on
+            # sliding-window configs)
             self._cache = self.model.init_cache(cfg, slots, max_len,
                                                 device=self.device)
-            self._cache["pos"] = torch.zeros((slots,), dtype=torch.int32,
-                                             device=self.device)
+        self._cache["pos"] = torch.zeros((slots,), dtype=torch.int32,
+                                         device=self.device)
+        # bucketing: attention masks make right-padding exact for dense
+        # decoders; the SSM recurrence is perturbed by pad tokens, so the
+        # SSM family prefills at the exact length
+        self._bucketed = cfg.arch_type == "dense"
+        self._window = max_len if self.paged or "kv" not in self._cache \
+            else self._cache["kv"]["k"].shape[2]
+
+    def _check_kernel_limits(self):
+        """On a CUDA device, refuse at construction what a kernel of this
+        engine's path cannot take (it would refuse at the first step,
+        after ``submit`` took the request off the queue): paged attention
+        on the paged layout, flash attention in every split-path prefill
+        of a dense decoder (paged or not), the fused MLP in every
+        dense-decoder program."""
+        cfg = self.cfg
+        checks = []
+        if self.paged:
+            checks.append(("the paged KV layout runs the paged-attention "
+                           "kernel", "; pick a page_size or layout it takes "
+                           "(paged=False)", paged_attention.kernel_limits(
+                               cfg.dtype, self.page_size, cfg.num_heads,
+                               cfg.num_kv_heads, cfg.head_dim)))
+        if cfg.arch_type == "dense":
+            if not self.mixed:
+                checks.append(("every split-path prefill runs the "
+                               "flash-attention kernel", "",
+                               flash_attention.kernel_limits(
+                                   cfg.dtype, cfg.num_heads,
+                                   cfg.num_kv_heads, cfg.head_dim)))
+            checks.append(("every program runs the fused-MLP kernel", "",
+                           fused_mlp.kernel_limits(cfg.dtype, cfg.d_model,
+                                                   cfg.d_ff)))
+        for what, hint, why in checks:
+            if why:
+                raise ValueError(f"{cfg.name}: on {self.device} {what}, "
+                                 f"which {why}{hint}")
 
     def _init_pool(self, kv_pages: Optional[int]):
         """The paged pool (page 0 is the null page: padding / inactive),
@@ -261,10 +317,12 @@ class ServeEngine:
         return torch.where(active, tok, torch.zeros_like(tok))
 
     def _decode_fn(self, tokens, pos, active):
-        """Split path: ONE batched recurrent decode advancing every slot
-        (the cache in place), on-device sampling and active-slot masking.
-        Returns the sampled token per slot (0 where not active)."""
-        self._shapes.add(tuple(tokens.shape))
+        """Split path: ONE batched decode advancing every slot (the cache
+        in place; on the paged layout through the page table), on-device
+        sampling and active-slot masking. Returns the sampled token per
+        slot (0 where not active)."""
+        self._shapes.add((tuple(tokens.shape),
+                          self._gather if self.paged else 0))
         self.stats["decode_traces"] = len(self._shapes)
         logits, self._cache = self.model.decode_step(
             self.params, self._cache, tokens, pos, self.cfg)
@@ -275,22 +333,39 @@ class ServeEngine:
         self._cache["pos"] = torch.where(active, pos + 1, pos)
         return tok
 
-    def _prefill_fn(self, tokens, slot: int):
-        """Split path: prefill one prompt (1, n) at its exact length,
-        sample its first token, and write the fresh per-request states
-        into row ``slot`` of every cache leaf in place; ``pos[slot] = n``.
-        Returns the token (a 0-d tensor)."""
-        n = tokens.shape[1]
-        self._prefill_lens.add(n)
+    def _prefill_fn(self, tokens, slot: int, last_pos: int, pages=None):
+        """Split path: prefill one (bucket-padded) prompt (1, blen), sample
+        its first token at ``last_pos`` and store the fresh per-request
+        cache: the dense layout's row ``slot`` of every leaf, written in
+        place by the prefill itself; on the paged layout a scratch cache
+        of whole pages, scattered through ``pages``; the SSM states into
+        row ``slot``. ``pos[slot] = last_pos + 1``. Returns the token (a
+        0-d tensor)."""
+        blen = tokens.shape[1]
+        self._prefill_lens.add(blen)
         self.stats["prefill_traces"] = len(self._prefill_lens)
-        logits, c1 = self.model.prefill(self.params, {"tokens": tokens},
-                                        self.cfg)
+        batch = {"tokens": tokens}
+        if "kv" not in self._cache:       # the SSM family
+            logits, c1 = self.model.prefill(self.params, batch, self.cfg)
+            for key, leaf in self._cache["ssm"].items():
+                leaf[:, slot] = c1["ssm"][key][:, 0]
+        elif self.paged:
+            clen = pages_for(blen, self.page_size) * self.page_size
+            c1 = self.model.init_cache(self.cfg, 1, clen,
+                                       device=self.device)
+            logits, c1 = self.model.prefill(self.params, batch, self.cfg,
+                                            c1, last_pos=last_pos)
+            scatter_prefill_pages(self._cache["kv"], c1["kv"], pages,
+                                  self.page_size)
+        else:
+            row = {"kv": {k: leaf[:, slot:slot + 1]
+                          for k, leaf in self._cache["kv"].items()}}
+            logits, _ = self.model.prefill(self.params, batch, self.cfg,
+                                           row, last_pos=last_pos)
         self.last_logits = logits
         tok = sample_tokens(logits[0, -1], generator=self._gen,
                             temperature=self.temperature)
-        for key, leaf in self._cache["ssm"].items():
-            leaf[:, slot] = c1["ssm"][key][:, 0]
-        self._cache["pos"][slot] = n
+        self._cache["pos"][slot] = last_pos + 1
         return tok
 
     # --------------------------------------------------------- scheduling
@@ -366,7 +441,7 @@ class ServeEngine:
         if used > self.stats["peak_pages"]:
             self.stats["peak_pages"] = used
 
-    def _place_mixed(self, s: int, req: Request, ctx: np.ndarray):
+    def _place(self, s: int, req: Request, ctx: np.ndarray):
         """Reserve slot ``s``'s worst-case pages. Returns the
         block-ordered page ids, or None on backpressure."""
         reserve = min(len(ctx) + req.max_new - len(req.out) - 1,
@@ -391,7 +466,7 @@ class ServeEngine:
                 return
             req = self.queue[qi]
             ctx = req.prompt
-            got = self._place_mixed(s, req, ctx)
+            got = self._place(s, req, ctx)
             if got is None:
                 return
             self._ptab[s] = 0
@@ -410,8 +485,10 @@ class ServeEngine:
 
     def _admit(self):
         """Split path: admit into free slots, each with a synchronous
-        exact-length prefill (its own device program). A request complete
-        on its prefill token (max_new, EOS, capacity) never occupies the
+        prefill (its own device program); on the paged layout the slot's
+        worst-case pages are placed first, and when the scheduler's pick
+        cannot be placed, nothing is (head-of-line). A request complete on
+        its prefill token (max_new, EOS, capacity) never occupies the
         slot. A prompt the chunked SSD cannot take raises here, after it
         left the queue, as the reference's assert does."""
         while True:
@@ -424,11 +501,30 @@ class ServeEngine:
             req = self.queue[qi]
             ctx = req.prompt
             n = len(ctx)
+            blen = prefill_bucket(n, cap=self._window) if self._bucketed \
+                else n
+            pages = None
+            if self.paged:
+                got = self._place(s, req, ctx)
+                if got is None:
+                    return
+                self._ptab[s] = 0
+                self._ptab[s, :len(got)] = got
+                self._ptab_dirty = True
+                page_vec = np.zeros(pages_for(blen, self.page_size),
+                                    np.int64)
+                m = min(len(page_vec), len(got))
+                page_vec[:m] = got[:m]
+                pages = torch.from_numpy(page_vec).to(self.device)
             del self.queue[qi]
             self.tracer.req_event(req.rid, "admitted", slot=s,
                                   ctx_tokens=n, resumed=False)
-            tokens = torch.from_numpy(ctx[None]).to(self.device)
-            tok = int(self._prefill_fn(tokens, s))
+            if self.paged:
+                self._sync_ptab()
+            padded = np.zeros((1, blen), np.int32)
+            padded[0, :n] = ctx
+            tokens = torch.from_numpy(padded).to(self.device)
+            tok = int(self._prefill_fn(tokens, s, n - 1, pages))
             self.stats["prefills"] += 1
             self.stats["decode_tokens"] += 1
             req.out.append(tok)
@@ -445,6 +541,8 @@ class ServeEngine:
                 self.finished[req.rid] = req
                 self.tracer.finish_request(req.rid, "completed",
                                            tokens=len(req.out))
+                if self.paged:
+                    self._release_pages(s)
             else:
                 self.active[s] = req
 
@@ -488,6 +586,8 @@ class ServeEngine:
         tr.lap("admit")
         mask = np.array([r is not None for r in self.active])
         if mask.any():
+            if self.paged:
+                self._sync_ptab()
             tr.lap("pack")
             meta = np.stack([self._last, self._pos, mask]).astype(np.int32)
             dev = torch.from_numpy(meta).to(self.device)

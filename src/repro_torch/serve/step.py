@@ -1,7 +1,17 @@
-"""Host helpers of the serve step — the port's copies of the pure
-functions of ``repro/serve/step.py``: prompt-length and page-table
-bucketing and the mixed step's token-budget packer."""
+"""Serving steps — the port of ``repro/serve/step.py``: prefill and
+single-token decode, prompt-length and page-table bucketing, the mixed
+step's token-budget packer, the page-wise prefill scatter for the
+engine's paged KV layout, and the lockstep greedy/sampled generate loop.
+The host helpers are copies of the reference's pure functions."""
 from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.models import get_model
+from repro_torch.serve.sampling import sample_tokens
+from repro_torch.tree import tree_map
 
 MIN_PREFILL_BUCKET = 8
 
@@ -91,3 +101,90 @@ def pack_token_budget(budget: int, decode_rows, prefill_items):
         planned_end[it["slot"]] = it["cursor"] + take
         left -= take
     return allot
+
+
+def scatter_prefill_pages(pool, kvs, pages, page_size: int):
+    """Write a freshly prefilled per-request KV into its pool pages, in
+    place. pool leaves: (L, n_pages, page_size, Hkv, D) — the engine's
+    shared pool. kvs leaves: (L, 1, S, Hkv, D) with S a multiple of
+    ``page_size`` (the prefill cache is sized to whole pages). pages:
+    (S // page_size,) pool indices; entries past the slot's reservation
+    are the null page 0, so bucket padding lands in scratch instead of a
+    neighbour's page."""
+    for key, leaf in pool.items():
+        kv = kvs[key]
+        l, _, s, h, d = kv.shape
+        leaf[:, pages.long()] = kv.reshape(l, s // page_size, page_size, h,
+                                           d)
+    return pool
+
+
+def make_prefill_step(cfg, strategy) -> Callable:
+    """prefill_step(params, batch) -> (last-token logits, cache). With
+    ``strategy.microbatches`` > 1 dividing the batch, the batch is run in
+    that many chunks (bounding the transient activations to one chunk)
+    and the caches joined on the batch axis."""
+    model = get_model(cfg)
+    n_micro = strategy.microbatches
+
+    def one(params, batch):
+        tokens = batch["tokens"]
+        cache = model.init_cache(cfg, tokens.shape[0], tokens.shape[1],
+                                 device=tokens.device)
+        return model.prefill(params, batch, cfg, cache,
+                             attn_impl=strategy.attn_impl)
+
+    def prefill_step(params, batch):
+        b = batch["tokens"].shape[0]
+        if n_micro <= 1 or b % n_micro:
+            return one(params, batch)
+        size = b // n_micro
+        parts = [one(params, {k: v[i:i + size] for k, v in batch.items()})
+                 for i in range(0, b, size)]
+        logits = torch.cat([lg for lg, _ in parts], dim=0)
+
+        def join(*leaves):
+            if leaves[0].ndim <= 1:     # the scalar cursor: one per chunk
+                return leaves[0]
+            return torch.cat(leaves, dim=1)   # (L, b/n, ...) -> (L, b, ...)
+
+        caches = [c for _, c in parts]
+        return logits, tree_map(join, caches[0], *caches[1:])
+
+    return prefill_step
+
+
+def make_decode_step(cfg, strategy) -> Callable:
+    """decode_step(params, cache, token, pos): ONE new token against the
+    cache (updated in place)."""
+    model = get_model(cfg)
+
+    def decode_step(params, cache, token, pos):
+        return model.decode_step(params, cache, token, pos, cfg)
+
+    return decode_step
+
+
+@torch.no_grad()
+def greedy_generate(params, cfg, strategy, prompt, steps: int, *,
+                    temperature: float = 0.0,
+                    generator: Optional[torch.Generator] = None):
+    """The lockstep generate loop: prefill the (B, S) prompt into a cache
+    of S + steps positions, then ``steps - 1`` single-token decodes.
+    Greedy by default; ``temperature > 0`` with a ``generator`` samples
+    through the engine's sampler (seeded within the port: it cannot replay
+    ``jax.random``). Returns (B, steps) int32 on the prompt's device."""
+    model = get_model(cfg)
+    tokens = prompt["tokens"]
+    b, s = tokens.shape
+    cache = model.init_cache(cfg, b, s + steps, device=tokens.device)
+    logits, cache = model.prefill(params, prompt, cfg, cache)
+    tok = sample_tokens(logits[:, -1], generator=generator,
+                        temperature=temperature)[:, None]
+    out = [tok]
+    for i in range(steps - 1):
+        logits, cache = model.decode_step(params, cache, tok, s + i, cfg)
+        tok = sample_tokens(logits[:, -1], generator=generator,
+                            temperature=temperature)[:, None]
+        out.append(tok)
+    return torch.cat(out, dim=1)

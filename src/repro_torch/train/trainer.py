@@ -20,6 +20,7 @@ from repro_torch.checkpoint import (latest_step, load_checkpoint,
                                     save_checkpoint)
 from repro_torch.core.strategy import Strategy
 from repro_torch.data.pipeline import DataConfig, TokenDataset
+from repro_torch.kernels import flash_attention
 from repro_torch.params import init_params
 from repro_torch.train.step import init_opt_state, make_train_step
 from repro_torch.tree import flatten
@@ -35,12 +36,29 @@ class TrainConfig:
     seed: int = 0
 
 
+def check_kernel_limits(cfg, strategy: Strategy, device) -> None:
+    """On a CUDA device every layer's attention runs the flash kernel
+    (``attn_impl`` ``auto`` or ``pallas``): refuse, before any parameter
+    is made, heads it cannot take, rather than fail at the first step."""
+    if torch.device(device).type != "cuda" or \
+            strategy.attn_impl not in ("auto", "pallas"):
+        return
+    why = flash_attention.kernel_limits(cfg.dtype, cfg.num_heads,
+                                        cfg.num_kv_heads, cfg.head_dim)
+    if why:
+        raise ValueError(
+            f"{cfg.name}: training on {device} with attn_impl="
+            f"{strategy.attn_impl!r} runs the flash-attention kernel, "
+            f"which {why}")
+
+
 class Trainer:
     def __init__(self, cfg, strategy: Strategy, device,
                  train_cfg: TrainConfig, data: Optional[TokenDataset] = None,
                  global_batch: int = 8, seq_len: int = 256, params=None):
         self.cfg, self.strategy = cfg, strategy
         self.device = torch.device(device)
+        check_kernel_limits(cfg, strategy, self.device)
         self.tc = train_cfg
         self.data = data or TokenDataset(DataConfig(
             vocab_size=cfg.vocab_size, seq_len=seq_len,

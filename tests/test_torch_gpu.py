@@ -123,13 +123,14 @@ def test_paged_attention_kernel_ignores_poisoned_pages_bitwise(cuda):
                                                 (4, 2, 16, 256)])  # page
 def test_paged_attention_kernel_refuses_shapes_past_its_limits(
         cuda, hq, hkv, d, page_size):
-    """The C entry checks the limits its shared-memory arrays are sized
-    by and launches nothing past them."""
+    """Past the limits its shared-memory arrays are sized by, the wrapper
+    refuses by ``kernel_limits`` (the C entry checks the same) and
+    launches nothing."""
     rng = np.random.default_rng(0)
     args = _paged(rng, b=2, width=2, n_pages=6, page_size=page_size, hq=hq,
                   hkv=hkv, d=d, dtype=torch.float32)
     before = pa.paged_attention.launches
-    with pytest.raises(RuntimeError, match="CUDA error"):
+    with pytest.raises(ValueError, match="paged_attention kernel"):
         pa.paged_attention(*args)
     assert pa.paged_attention.launches == before
 
@@ -221,12 +222,13 @@ def test_paged_attention_bf16_check_rejects_a_dropped_live_page(cuda):
 def test_paged_attention_bf16_kernel_refuses_shapes_past_its_limits(
         cuda, hq, hkv, d, page_size):
     """TMA's 16-byte strides, whole swizzle atoms and whole pages a kv
-    tile: the bf16 entry returns an error and launches nothing past them."""
+    tile: past them the wrapper refuses by ``kernel_limits`` (the bf16
+    entry checks the same) and launches nothing."""
     rng = np.random.default_rng(0)
     args = _paged(rng, b=2, width=2, n_pages=6, page_size=page_size, hq=hq,
                   hkv=hkv, d=d, dtype=torch.bfloat16)
     before = pa.paged_attention.launches
-    with pytest.raises(RuntimeError, match="CUDA error"):
+    with pytest.raises(ValueError, match="paged_attention kernel"):
         pa.paged_attention(*args)
     assert pa.paged_attention.launches == before
 
@@ -290,6 +292,198 @@ def test_engine_on_card_matches_cpu(cuda):
         assert eng.stats["decode_backend"] == \
             ("kernel" if dev == "cuda" else "plain")
     assert outs["cpu"] == outs["cuda"]
+
+
+@pytest.mark.parametrize("layout", [dict(mixed=False), dict(paged=False)])
+def test_split_engines_on_card_match_cpu(cuda, layout):
+    """The f32 split path on the card — on the pool (``mixed=False``) and
+    on the dense layout (``paged=False``) — gives the CPU's first-step
+    logits within 1e-4 and its greedy streams; every prefill ran the
+    flash kernel once a layer, every program the fused MLP once a layer,
+    and every decode paged attention once a layer on the pool only."""
+    cfg = ModelConfig(name="pal-dense", arch_type="dense", num_layers=2,
+                      d_model=128, num_heads=4, num_kv_heads=2, d_ff=256,
+                      vocab_size=128, dtype="float32")
+    cpu = init_params(cfg, device="cpu", seed=3)
+    params = {"cpu": cpu, "cuda": tree_map(lambda t: t.cuda(), cpu)}
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 128, size=(n,)) for n in (5, 23, 9, 40, 6)]
+    outs, first = {}, {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, params[dev], slots=2, max_len=64, **layout)
+        for i, p in enumerate(prompts):
+            eng.submit(i, p, max_new=6)
+        kernels.reset_launches()
+        eng.step()
+        first[dev] = eng.last_logits.float().cpu()
+        res = eng.run()
+        outs[dev] = {i: list(res[i].out) for i in res}
+        pf, dec = eng.stats["prefills"], eng.stats["decode_steps"]
+        on = dev == "cuda"
+        assert kernels.launches() == {
+            "paged_attention": 2 * dec if on and eng.paged else 0,
+            "fused_mlp": 2 * (pf + dec) if on else 0,
+            "flash_attention": 2 * pf if on else 0, "ssd_scan": 0}
+    assert (first["cpu"] - first["cuda"]).abs().max().item() <= 1e-4
+    assert outs["cpu"] == outs["cuda"]
+
+
+def test_bf16_paged_engine_on_card_refuses_page_size_4(cuda):
+    """ROADMAP Queue 3's fault: a bf16 paged engine on the card with a
+    page size the kernel cannot take raises ValueError naming the limit
+    at construction, on the mixed and the split path, and nothing was
+    launched."""
+    cfg = ModelConfig(name="pal-dense", arch_type="dense", num_layers=2,
+                      d_model=128, num_heads=4, num_kv_heads=2, d_ff=256,
+                      vocab_size=128, dtype="bfloat16")
+    params = init_params(cfg, device="cuda", seed=0)
+    kernels.reset_launches()
+    for kw in (dict(page_size=4), dict(page_size=4, mixed=False)):
+        with pytest.raises(ValueError, match="page sizes"):
+            ServeEngine(cfg, params, **kw)
+    assert sum(kernels.launches().values()) == 0
+    ServeEngine(cfg, params, page_size=8)          # a size it takes
+
+
+#: (dtype, page_size, Hq, Hkv, D) -> refused? The refusals are the shapes
+#: of the kernels' refusal tests above; the accepted ones the serving
+#: path's (Qwen3-14B: 40 / 8 heads x 128, 16-token pages) and the f32
+#: parity configs'
+PAGED_LIMITS = [
+    (torch.float32, 4, 34, 2, 16, True), (torch.float32, 4, 6, 4, 16, True),
+    (torch.float32, 4, 4, 2, 512, True), (torch.float32, 256, 4, 2, 16, True),
+    (torch.bfloat16, 8, 34, 2, 16, True), (torch.bfloat16, 8, 8, 2, 20, True),
+    (torch.bfloat16, 8, 8, 2, 136, True), (torch.bfloat16, 4, 8, 2, 32, True),
+    (torch.bfloat16, 128, 8, 2, 32, True),
+    (torch.bfloat16, 24, 8, 2, 32, True), (torch.float16, 16, 8, 2, 32, True),
+    (torch.bfloat16, 16, 40, 8, 128, False),
+    (torch.bfloat16, 64, 32, 2, 64, False), ("bfloat16", 8, 8, 8, 8, False),
+    (torch.float32, 4, 4, 2, 32, False), ("float32", 128, 8, 2, 256, False)]
+FLASH_LIMITS = [(torch.bfloat16, 8, 2, 20, True),
+                (torch.bfloat16, 8, 2, 136, True),
+                (torch.float32, 2, 2, 256, True),
+                (torch.float32, 6, 4, 32, True),
+                (torch.bfloat16, 40, 8, 128, False),
+                ("bfloat16", 4, 2, 8, False), (torch.float32, 4, 2, 20, False)]
+#: (dtype, d, f) -> refused? The serving path's widths (Qwen3-14B) and
+#: the f32 ragged shape are taken
+MLP_LIMITS = [(torch.bfloat16, 64, 100, True), (torch.bfloat16, 4, 64, True),
+              (torch.bfloat16, 68, 64, True), (torch.float16, 64, 64, True),
+              (torch.bfloat16, 5120, 17408, False), ("bfloat16", 8, 8, False),
+              (torch.float32, 72, 100, False)]
+
+
+def test_kernel_limits_tables():
+    """On the CPU: ``kernel_limits`` refuses the shapes of the tables
+    above, with a reason naming the limit, and takes the serving path's
+    shapes. The ``*_table_matches_the_c_entries`` tests below send every
+    row to the C entries on the card."""
+    for dtype, page, hq, hkv, d, refused in PAGED_LIMITS:
+        why = pa.kernel_limits(dtype, page, hq, hkv, d)
+        assert (why is not None) == refused, (dtype, page, hq, hkv, d, why)
+    for dtype, hq, hkv, d, refused in FLASH_LIMITS:
+        why = fa.kernel_limits(dtype, hq, hkv, d)
+        assert (why is not None) == refused, (dtype, hq, hkv, d, why)
+    for dtype, d, f, refused in MLP_LIMITS:
+        why = fm.kernel_limits(dtype, d, f)
+        assert (why is not None) == refused, (dtype, d, f, why)
+    assert "multiples of 8" in fm.kernel_limits(torch.bfloat16, 64, 100)
+    assert "16" in pa.kernel_limits(torch.bfloat16, 8, 34, 2, 16)
+    assert "(8, 16, 32, 64)" in pa.kernel_limits(torch.bfloat16, 4, 8, 2,
+                                                 32)
+    assert "multiples of 8" in fa.kernel_limits(torch.bfloat16, 8, 2, 20)
+
+
+def _dt(dtype):
+    return getattr(torch, dtype) if isinstance(dtype, str) else dtype
+
+
+def _with_entry(table):
+    """The rows of a limits table whose dtype has a C entry."""
+    return [r for r in table if _dt(r[0]) in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("dtype,page,hq,hkv,d,refused",
+                         _with_entry(PAGED_LIMITS))
+def test_paged_limits_table_matches_the_c_entries(cuda, dtype, page, hq, hkv,
+                                                  d, refused):
+    """Each row of ``PAGED_LIMITS`` sent to the C entry itself, past the
+    wrapper's check: it refuses (a nonzero code, nothing written) exactly
+    the rows ``kernel_limits`` refuses, and the output of a row it takes
+    agrees with the plain version (bf16 per value with P fp32)."""
+    dtype = _dt(dtype)
+    args = _paged(np.random.default_rng(0), b=2, width=2, n_pages=6,
+                  page_size=page, hq=hq, hkv=hkv, d=d, dtype=dtype)
+    out = torch.zeros_like(args[0])
+    code = pa.launch_entry(*args, out)
+    torch.cuda.synchronize()
+    assert (code != 0) == refused, code
+    if refused:
+        assert not out.any()
+    elif dtype == torch.float32:
+        torch.testing.assert_close(out, pa.paged_attention_plain(*args),
+                                   atol=2e-5, rtol=2e-5)
+    else:
+        torch.testing.assert_close(
+            out.float(), pa.paged_attention_plain_f32p(*args).float(),
+            atol=1e-5, rtol=8e-3)
+
+
+@pytest.mark.parametrize("dtype,hq,hkv,d,refused", _with_entry(FLASH_LIMITS))
+def test_flash_limits_table_matches_the_c_entries(cuda, dtype, hq, hkv, d,
+                                                  refused):
+    """As above for ``FLASH_LIMITS`` (causal, 64 positions)."""
+    dtype = _dt(dtype)
+    q, k, v, kw = _flash_args((1, 64, 64, hq, hkv, d, True, 0), dtype)
+    out = torch.zeros_like(q)
+    code = fa.launch_entry(q, k, v, out, **kw)
+    torch.cuda.synchronize()
+    assert (code != 0) == refused, code
+    if refused:
+        assert not out.any()
+    else:
+        tol = (2e-6, 2e-6) if dtype == torch.float32 else (1e-5, 8e-3)
+        torch.testing.assert_close(
+            out.float(), fa.flash_attention_plain(q, k, v, **kw).float(),
+            atol=tol[0], rtol=tol[1])
+
+
+@pytest.mark.parametrize("dtype,d,f,refused", _with_entry(MLP_LIMITS))
+def test_mlp_limits_table_matches_the_c_entries(cuda, dtype, d, f, refused):
+    """As above for ``MLP_LIMITS`` (16 rows, the weights at the model's
+    init scales as in ``test_fused_mlp_kernel_matches_plain``)."""
+    dtype = _dt(dtype)
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    x = torch.randn((16, d), generator=gen, device="cuda").to(dtype)
+    ws = [(torch.randn(s, generator=gen, device="cuda") * sc).to(dtype)
+          for s, sc in (((d, f), 0.02), ((d, f), 0.02),
+                        ((f, d), 0.02 / 80 ** 0.5))]
+    out = torch.zeros_like(x)
+    code = fm.launch_entry(x, *ws, out)
+    torch.cuda.synchronize()
+    assert (code != 0) == refused, code
+    if refused:
+        assert not out.any()
+    else:
+        tol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-3, 8e-3)
+        torch.testing.assert_close(out.float(),
+                                   fm.fused_mlp_plain(x, *ws).float(),
+                                   atol=tol[0], rtol=tol[1])
+
+
+def test_trainer_on_cuda_refuses_flash_limits_at_construction():
+    """On the CPU: training a config whose heads the flash kernel cannot
+    take, on a CUDA device, raises ValueError at ``Trainer`` (and so
+    ``Session.train``) construction, before any parameter is made."""
+    from repro_torch.api import Session
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    cfg = ModelConfig(name="odd-heads", arch_type="dense", num_layers=1,
+                      d_model=80, num_heads=4, num_kv_heads=2, d_ff=64,
+                      vocab_size=64, dtype="bfloat16")   # D = 20
+    with pytest.raises(ValueError, match="flash-attention kernel"):
+        Trainer(cfg, Strategy(), "cuda", TrainConfig())
+    with pytest.raises(ValueError, match="multiples of 8"):
+        Session(cfg, device="cuda").train(global_batch=1, seq_len=16)
 
 
 # (B, S, T, Hq, Hkv, D, causal, window): causal, window, non-causal, GQA
@@ -359,10 +553,11 @@ def test_flash_attention_bf16_kernel_matches_plain(cuda, shape):
 def test_flash_attention_bf16_kernel_refuses_head_dims_tma_cannot_take(
         cuda, d):
     """TMA needs 16-byte row strides (D % 8 == 0) and the kernel's D tile
-    is at most 128: the bf16 entry launches nothing otherwise."""
+    is at most 128: the wrapper refuses by ``kernel_limits`` (the bf16
+    entry checks the same) and launches nothing otherwise."""
     q, k, v, kw = _flash_args((1, 64, 64, 2, 2, d, True, 0), torch.bfloat16)
     before = fa.flash_attention.launches
-    with pytest.raises(RuntimeError, match="CUDA error"):
+    with pytest.raises(ValueError, match="flash_attention kernel"):
         fa.flash_attention(q, k, v, **kw)
     assert fa.flash_attention.launches == before
 
@@ -373,7 +568,7 @@ def test_fused_mlp_bf16_kernel_refuses_f_not_a_multiple_of_8(cuda):
     ws = [torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
           for s in ((64, 100), (64, 100), (100, 64))]
     before = fm.fused_mlp.launches
-    with pytest.raises(RuntimeError, match="CUDA error"):
+    with pytest.raises(ValueError, match="fused_mlp kernel"):
         fm.fused_mlp(x, *ws)
     assert fm.fused_mlp.launches == before
 
@@ -382,7 +577,7 @@ def test_flash_attention_kernel_refuses_head_dim_past_its_limit(cuda):
     q, k, v, kw = _flash_args((1, 64, 64, 2, 2, 256, True, 0),
                               torch.float32)
     before = fa.flash_attention.launches
-    with pytest.raises(RuntimeError, match="CUDA error"):
+    with pytest.raises(ValueError, match="flash_attention kernel"):
         fa.flash_attention(q, k, v, **kw)
     assert fa.flash_attention.launches == before
 

@@ -1,8 +1,13 @@
 """The port's serving stack on the CPU (repro_torch/{serve,api,launch}).
 
-The paged mixed-step engine is held to the JAX ``ServeEngine(paged=True,
-mixed=True)``: identical greedy token streams on the same weights and
-prompts (tests/test_serve_mixed.py:86). Plus the engine's own contracts
+Every layout of the engine is held to the JAX ``ServeEngine`` with the
+same keywords: identical greedy token streams on the same weights and
+prompts — the paged mixed step (tests/test_serve_mixed.py:86), the split
+prefill/decode path on the pool (``mixed=False``) and on the dense layout
+(``paged=False``), and the sliding-window ring
+(tests/test_serve_engine.py:118) — and the same streams across the
+port's layouts; ``greedy_generate`` and ``Session.generate`` to the
+reference's generate loop. Plus the engine's own contracts
 (max_new=1, decode never stalled by a long prefill, bounded program
 shapes), the not-yet-ported features raising, the Session and launcher
 on ``device="cpu"``, the rule that the port imports no JAX, and
@@ -27,10 +32,12 @@ from repro.checkpoint.io import _flatten  # noqa: E402
 from repro.configs.base import ModelConfig as JaxConfig  # noqa: E402
 from repro.models import get_model  # noqa: E402
 from repro.serve.engine import ServeEngine as JaxEngine  # noqa: E402
+from repro.serve.step import greedy_generate as jax_generate  # noqa: E402
 from repro_torch.api import Session  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.params import from_numpy  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
+from repro_torch.serve.step import greedy_generate  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 KW = dict(name="mixed-dense", arch_type="dense", num_layers=2, d_model=64,
@@ -64,27 +71,273 @@ def _serve(params, prompts, new, **kw):
     return {i: list(res[i].out) for i in res}, eng
 
 
-def test_greedy_streams_match_jax_mixed_engine(weights):
-    jcfg, jparams, params = weights
-    prompts = _prompts(0, (5, 23, 9, 40, 6))
-    jeng = JaxEngine(jcfg, jparams, slots=2, max_len=64, paged=True,
-                     mixed=True, chunk_tokens=16)
-    for i, p in enumerate(prompts):
-        jeng.submit(i, p, max_new=6)
-    jres = jeng.run()
-    want = {i: list(jres[i].out) for i in jres}
-    got, eng = _serve(params, prompts, 6)
+#: the reference engine's keywords of each layout the port serves
+LAYOUTS = {"mixed": dict(paged=True, mixed=True, chunk_tokens=16),
+           "split": dict(mixed=False), "dense": dict(paged=False)}
+PROMPTS = _prompts(0, (5, 23, 9, 40, 6))
+
+
+@pytest.fixture(scope="module")
+def jax_streams(weights):
+    """The JAX engine's greedy streams and stats on PROMPTS, a layout a
+    key (slots 2, max_len 64, 6 new tokens each)."""
+    jcfg, jparams, _ = weights
+    out = {}
+    for name, kw in LAYOUTS.items():
+        jeng = JaxEngine(jcfg, jparams, slots=2, max_len=64, **kw)
+        for i, p in enumerate(PROMPTS):
+            jeng.submit(i, p, max_new=6)
+        jres = jeng.run()
+        out[name] = ({i: list(jres[i].out) for i in jres}, jeng.stats)
+    return out
+
+
+def test_greedy_streams_match_jax_mixed_engine(weights, jax_streams):
+    _, _, params = weights
+    want, jstats = jax_streams["mixed"]
+    got, eng = _serve(params, PROMPTS, 6)
     assert got == want
     assert all(r.done for r in eng.finished.values())
     for key in ("prefills", "decode_tokens", "prefill_chunk_tokens",
                 "decode_steps", "decode_slot_steps", "peak_pages",
                 "decode_traces", "prefill_traces"):
-        assert eng.stats[key] == jeng.stats[key], key
+        assert eng.stats[key] == jstats[key], key
     assert eng.stats["decode_backend"] == "plain"
     assert eng.stats["mixed_steps"] >= eng.stats["decode_steps"]
     # pages are all returned; the tracer saw every request complete
     assert eng.stats["pages_in_use"] == 0
     assert len(eng.trace()["traceEvents"]) > 0
+
+
+@pytest.mark.parametrize("layout", ["split", "dense"])
+def test_split_path_streams_match_jax_engine(weights, jax_streams, layout):
+    """The split prefill/decode path on the pool (``mixed=False``) and on
+    the dense layout (``paged=False``): the JAX engine's streams with the
+    same keywords, its trace counts (distinct padded prefill lengths, one
+    decode shape), and the port's mixed engine's streams."""
+    _, _, params = weights
+    want, jstats = jax_streams[layout]
+    kw = LAYOUTS[layout]
+    got, eng = _serve(params, PROMPTS, 6, **kw)
+    assert got == want == jax_streams["mixed"][0]
+    assert eng.paged == (layout == "split") and not eng.mixed
+    assert all(r.done for r in eng.finished.values())
+    for key in ("prefills", "decode_tokens", "decode_steps",
+                "decode_slot_steps", "peak_pages", "decode_traces",
+                "prefill_traces"):
+        assert eng.stats[key] == jstats[key], key
+    assert eng.stats["prefill_traces"] == 4   # buckets 8, 16, 32 and 64
+    assert eng.stats["decode_traces"] == 1
+    assert eng.stats["pages_in_use"] == 0
+    mixed, _ = _serve(params, PROMPTS, 6)
+    assert got == mixed
+
+
+SWA_KW = dict(KW, name="engine-swa", sliding_window=8)
+
+
+def test_swa_ring_streams_match_jax_engine_and_generate():
+    """tests/test_serve_engine.py:118 on the port: a sliding-window config
+    serves on the dense ring (window 8, prompts 5, 13 and 9, crossing and
+    straddling it) with the JAX engine's streams, each equal to the
+    request decoded alone by the port's ``greedy_generate``."""
+    jcfg = JaxConfig(**SWA_KW)
+    jparams = get_model(jcfg).init(jax.random.key(3), jcfg)
+    cfg = ModelConfig(**SWA_KW)
+    params = from_numpy(_flatten(jparams), cfg, "cpu")
+    prompts = _prompts(3, (5, 13, 9))
+    jeng = JaxEngine(jcfg, jparams, slots=2, max_len=32)
+    eng = ServeEngine(cfg, params, slots=2, max_len=32)
+    assert not eng.paged and not eng.mixed
+    assert eng._cache["kv"]["k"].shape[2] == 8          # the ring
+    for e in (jeng, eng):
+        for i, p in enumerate(prompts):
+            e.submit(i, p, max_new=6)
+    want = {i: list(r.out) for i, r in jeng.run().items()}
+    got = {i: list(r.out) for i, r in eng.run().items()}
+    assert got == want
+    for i, p in enumerate(prompts):
+        alone = greedy_generate(params, cfg, None,
+                                {"tokens": torch.from_numpy(p[None])}, 6)
+        assert alone[0].tolist() == got[i]
+    for key in ("decode_traces", "prefill_traces", "prefills",
+                "decode_steps"):
+        assert eng.stats[key] == jeng.stats[key], key
+
+
+def test_swa_paged_raises_the_reference_value_error():
+    """A sliding-window config is not pageable: ``paged=True`` raises the
+    reference's ValueError, word for word but for the list of pageable
+    families, which names the ported ones."""
+    from repro.serve.engine import PAGEABLE_ARCHS as JAX_PAGEABLE
+    from repro_torch.serve.engine import PAGEABLE_ARCHS
+    jcfg, cfg = JaxConfig(**SWA_KW), ModelConfig(**SWA_KW)
+    with pytest.raises(ValueError) as want:
+        JaxEngine(jcfg, {}, paged=True)
+    with pytest.raises(ValueError) as got:
+        ServeEngine(cfg, {"embed": torch.zeros(1)}, paged=True)
+    assert str(got.value) == str(want.value).replace(
+        "/".join(JAX_PAGEABLE), "/".join(PAGEABLE_ARCHS))
+    assert "SWA ring" in str(got.value)
+    with pytest.raises(ValueError, match="prefix_cache/lazy"):
+        ServeEngine(CFG, {"embed": torch.zeros(1)}, paged=False,
+                    prefix_cache=True)
+
+
+@pytest.mark.parametrize("steps", [1, 7])
+def test_greedy_generate_matches_reference(weights, steps):
+    """The lockstep generate loop (B 3, S 11) gives the reference's
+    tokens."""
+    jcfg, jparams, params = weights
+    toks = np.stack(_prompts(8, (11, 11, 11)))
+    want = np.asarray(jax_generate(jparams, jcfg, None,
+                                   {"tokens": jax.numpy.asarray(toks)},
+                                   steps=steps))
+    got = greedy_generate(params, CFG, None,
+                          {"tokens": torch.from_numpy(toks)}, steps)
+    assert got.dtype == torch.int32 and got.shape == (3, steps)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_session_generate_and_seeded_sampling(weights):
+    """``Session.generate`` on the CPU: a (s,) or (b, s) prompt, or a
+    batch dict, gives the reference's greedy tokens; sampling with
+    ``temperature > 0`` replays from one seed."""
+    jcfg, jparams, params = weights
+    toks = np.stack(_prompts(9, (9, 9)))
+    want = np.asarray(jax_generate(jparams, jcfg, None,
+                                   {"tokens": jax.numpy.asarray(toks)},
+                                   steps=5))
+    session = Session(CFG, device="cpu", params=params)
+    np.testing.assert_array_equal(session.generate(toks, steps=5).numpy(),
+                                  want)
+    np.testing.assert_array_equal(
+        session.generate({"tokens": toks}, steps=5).numpy(), want)
+    np.testing.assert_array_equal(
+        session.generate(toks[1], steps=5).numpy(), want[1:])
+    draws = [greedy_generate(params, CFG, None,
+                             {"tokens": torch.from_numpy(toks)}, 6,
+                             temperature=1.0,
+                             generator=torch.Generator().manual_seed(4))
+             for _ in range(2)]
+    assert torch.equal(draws[0], draws[1])
+    assert ((draws[0] >= 0) & (draws[0] < CFG.vocab_size)).all()
+
+
+def test_engine_on_cuda_refuses_paged_shapes_at_construction(weights):
+    """A bf16 paged engine asked for the card with a page size the
+    paged-attention kernel cannot take raises ValueError naming the limit
+    at construction — before ``submit`` could queue a request — and
+    launches nothing (no card is needed to refuse); so does a dense split
+    engine whose heads the flash kernel (every prefill) cannot take."""
+    from repro_torch import kernels
+    _, _, params = weights
+    cfg = CFG.with_(dtype="bfloat16")
+    kernels.reset_launches()
+    for kw in (dict(page_size=4), dict(page_size=4, mixed=False)):
+        with pytest.raises(ValueError, match=r"page sizes \(8, 16, 32, 64\)"):
+            ServeEngine(cfg, params, device="cuda", **kw)
+    odd = cfg.with_(head_dim=20)
+    with pytest.raises(ValueError, match="flash-attention kernel"):
+        ServeEngine(odd, params, device="cuda", paged=False)
+    assert sum(kernels.launches().values()) == 0
+
+
+@pytest.mark.parametrize("cfg_kw,eng_kw,match", [
+    # f32 paged attention takes D <= 256, flash D <= 128: the paged split
+    # path's prefills would refuse D = 160 at the first admission
+    (dict(dtype="float32", head_dim=160), dict(mixed=False),
+     "flash-attention kernel"),
+    (dict(dtype="bfloat16", d_ff=100), {}, "fused-MLP kernel"),
+    (dict(dtype="bfloat16", d_ff=100), dict(paged=False), "fused-MLP kernel"),
+])
+def test_engine_on_cuda_refuses_each_kernel_of_its_path(weights, cfg_kw,
+                                                        eng_kw, match):
+    """On a CUDA device the engine checks, at construction, the limits of
+    every kernel its path launches (no card needed to refuse): flash
+    attention on the paged split path too, and the fused MLP on every
+    dense path."""
+    from repro_torch import kernels
+    _, _, params = weights
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match=match):
+        ServeEngine(CFG.with_(**cfg_kw), params, device="cuda", **eng_kw)
+    assert sum(kernels.launches().values()) == 0
+
+
+def _alone(params, prompt, new):
+    """The request decoded alone by the lockstep loop (held to the
+    reference's by test_greedy_generate_matches_reference)."""
+    toks = greedy_generate(params, CFG, None,
+                           {"tokens": torch.from_numpy(prompt[None])}, new)
+    return toks[0].tolist()
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("case", ["capacity", "prompt_at_capacity",
+                                  "max_new_one", "eos_on_prefill",
+                                  "eos_mid_decode", "max_steps"])
+def test_edge_cases_on_every_layout(weights, layout, case):
+    """tests/test_serve_engine.py:180-285 on each of the port's layouts:
+    a request bound by max_len (12) gets prefill token + one a free
+    position, a prompt at max_len - 1 gets two; max_new 1 and EOS on the
+    prefill token finish at admission with no decode; EOS mid-decode cuts
+    the stream after it; ``run(max_steps=3)`` returns partial and queued
+    records (3 tokens on the mixed step, 4 on the split path) and a later
+    ``run()`` finishes both. Streams equal the request decoded alone."""
+    _, _, params = weights
+    kw = dict(LAYOUTS[layout], slots=1, max_len=12 if "capacity" in case
+              else 64)
+    kw.setdefault("chunk_tokens", 16)
+    prompt = np.arange(11 if case == "prompt_at_capacity" else 8,
+                       dtype=np.int32)
+    if case in ("capacity", "prompt_at_capacity"):
+        eng = ServeEngine(CFG, params, **kw)
+        eng.submit(0, prompt, max_new=100)
+        out = eng.run()[0]
+        assert out.done and len(out.out) == 12 - len(prompt) + 1
+        assert out.out == _alone(params, prompt, len(out.out))
+    elif case == "max_steps":
+        eng = ServeEngine(CFG, params, **kw)
+        eng.submit(0, prompt[:5], max_new=50)
+        eng.submit(1, prompt[:6], max_new=50)
+        res = eng.run(max_steps=3)
+        assert not res[0].done and not res[1].done and res[1].out == []
+        assert len(res[0].out) == (3 if eng.mixed else 4)
+        res = eng.run()
+        assert res[0].done and res[1].done
+        assert res[0].out == _alone(params, prompt[:5], 50)
+    else:
+        ref = _alone(params, prompt, 10)
+        eos = {"max_new_one": None, "eos_on_prefill": ref[0],
+               "eos_mid_decode": ref[3]}[case]
+        eng = ServeEngine(CFG, params, eos_id=eos, **kw)
+        eng.submit(0, prompt, max_new=1 if case == "max_new_one" else 10)
+        out = eng.run()[0]
+        want = ref[:1] if eos is None else ref[:ref.index(eos) + 1]
+        assert out.done and out.out == want
+        if len(want) == 1:
+            assert eng.stats["decode_steps"] == 0
+    if eng.paged:
+        assert eng.stats["pages_in_use"] == 0
+
+
+def test_split_path_on_the_pool_waits_head_of_line(weights):
+    """Backpressure on the paged split path: two requests of two pages
+    each on a two-page pool — the second waits in the queue until the
+    first retires, and both finish with the streams they get alone."""
+    _, _, params = weights
+    eng = ServeEngine(CFG, params, slots=2, max_len=48, kv_pages=2,
+                      mixed=False)
+    prompts = _prompts(5, (10, 10))
+    for i, p in enumerate(prompts):
+        eng.submit(i, p, max_new=10)
+    eng.step()
+    assert eng.active[1] is None and len(eng.queue) == 1
+    res = eng.run()
+    for i, p in enumerate(prompts):
+        assert res[i].done and res[i].out == _alone(params, p, 10)
+    assert eng.stats["peak_pages"] == 2 and eng.stats["pages_in_use"] == 0
 
 
 def test_max_new_one_finishes_on_the_prefill_token(weights):
@@ -212,7 +465,6 @@ def test_submit_validation_and_backpressure(weights):
 
 @pytest.mark.parametrize("kw,item", [
     ({"prefix_cache": True}, "5(b)"), ({"lazy": True}, "5(b)"),
-    ({"mixed": False}, "5(d)"), ({"paged": False}, "5(d)"),
     ({"scheduler": object()}, "5(c)"), ({"spec": 2}, "item 7"),
     ({"mesh": object()}, "item 11")])
 def test_unported_engine_features_raise(weights, kw, item):
@@ -258,6 +510,23 @@ def test_launcher_runs_on_cpu(capsys):
                              "--max-new", "3", "--trace-level", "0"])
     assert len(results) == 3 and all(r.done for r in results.values())
     assert "plain path" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flags,layout", [
+    (["--no-mixed"], "paged/16tok-pages, split prefill/decode"),
+    (["--dense"], "dense slot table, split prefill/decode")])
+def test_launcher_serves_the_split_path_on_cpu(capsys, flags, layout):
+    """``--no-mixed`` and ``--dense`` reach the split path and give the
+    default mixed run's streams (the same seeded requests)."""
+    from repro_torch.launch import serve as launcher
+    args = ["--device", "cpu", "--requests", "3", "--max-new", "3",
+            "--trace-level", "0"]
+    mixed = launcher.main(args)
+    capsys.readouterr()
+    split = launcher.main(args + flags)
+    assert layout in capsys.readouterr().out
+    assert {i: r.out for i, r in split.items()} == \
+        {i: r.out for i, r in mixed.items()}
 
 
 def _imports(path: Path):
