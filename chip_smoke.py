@@ -28,7 +28,10 @@ Phases (any failure exits non-zero; no result line is printed then):
    (split), the decode-only mix and the split path's 4-row decode table
    (with and without an idle slot; a dropped page rejected there too),
    its device plan equal to ``tile_plan``, two identical calls equal bit
-   for bit, and timed at the T = 256 and decode-only mixes (by
+   for bit, one row's output equal bit for bit alone, in runs of its
+   slot's rows and beside rows of slots sharing its pages at kv_len 255,
+   256, 257, 700, 1024 and 4096 (the row-alone check), and timed at the
+   T = 256 and decode-only mixes and four lone 4096-key decode rows (by
    CUDA-graph replay, and eager with its host path); the SSD scan in
    bf16 at the SSM prefill's shape (b 1, s 1024, h 48, p 64, n 128,
    chunk 128; x, B, C read in place as views of one conv-output buffer)
@@ -47,7 +50,12 @@ Phases (any failure exits non-zero; no result line is printed then):
    the pool (``mixed=False``) and on the dense layout (``paged=False``),
    and the sliding-window ring — first-step logits within 1e-4, greedy
    streams identical and every kernel of the layout's path launched
-   layers x its programs on the card; through the split-path engine on
+   layers x its programs on the card; through the pool with the prefix
+   cache off and on, lazy growth on a pool below demand and
+   ``Priority()``, on the mixed and the split path: streams identical to
+   the CPU's and to prefix off, every prefix, preemption and CoW counter
+   equal to the CPU's, at least one preemption and one copy-on-write in
+   the lazy runs; through the split-path engine on
    ``mamba2-smoke``,
    first-prefill logits within 1e-4 and greedy streams identical, the
    SSD kernel launched layers x prefills times on the card; through the
@@ -100,6 +108,19 @@ Phases (any failure exits non-zero; no result line is printed then):
    ``torch.profiler``, its admission step and its decode-only steps in
    two windows, for the device time by kernel group, the device ops a
    step and the idle share of each kind of step.
+
+8. PREFIX SHARING, LAZY GROWTH, COPY-ON-WRITE AND PREEMPTION on phase
+   5's session (run after phase 5b): 8 requests on one 512-token system
+   prompt (suffixes of 37-199 tokens; request 7 repeats request 2 and
+   arrives once request 2 has 8 tokens), 32 new tokens each, through the
+   mixed step without and with the prefix cache, with prefix cache and
+   lazy growth on a 56-page pool, and the split path on that pool. Runs B
+   and C must give run A's bf16 streams token for token; B takes >= 224
+   blocks from the cache at a lower page peak, C preempts and copies on
+   write at least once and returns every page once the cache is
+   released; exact launch counts in every run; run D's share of tokens
+   equal to A's is reported. Prints tokens/s, step p50, peak memory and
+   the counters of each run.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -278,14 +299,15 @@ MIX_SPLIT_IDLE = ([0, 1, 2, 3], [715, 299, 519, 0])
 
 
 def attention_inputs(rng, dtype, *, n_layers_copies=1, ctx=SLOT_CTX,
-                     rows=MIX_T256, edit=None):
-    """Paged-attention inputs on permuted, fragmented page tables of a
-    257-page pool: ``ctx`` tokens held per slot, ``rows`` (slots,
-    cursors). The default is the main path's T = 256 mix: three decode rows
-    at their slots' cursors and 253 rows of one slot's prefill chunk.
+                     rows=MIX_T256, edit=None, width=64, n_pages=257):
+    """Paged-attention inputs on permuted, fragmented page tables of
+    ``width`` pages over a pool of ``n_pages`` (257: 4 slots x 1024
+    tokens): ``ctx`` tokens held per slot, ``rows`` (slots, cursors). The
+    default is the main path's T = 256 mix: three decode rows at their
+    slots' cursors and 253 rows of one slot's prefill chunk.
     ``edit(tables)`` may change the slot tables before the rows take
     them."""
-    hq, hkv, d, ps, width, n_pages = 40, 8, 128, 16, 64, 257
+    hq, hkv, d, ps = 40, 8, 128, 16
     perm = rng.permutation(np.arange(1, n_pages))
     tables = np.zeros((len(ctx), width), np.int32)
     k = 0
@@ -330,6 +352,58 @@ def device_us(fn, calls: int = 5):
         name = re.search(r"\w+_kernel", e.key)
         if t:
             out[name.group(0) if name else e.key[:60]] = t / calls
+    return out
+
+
+#: kv lengths of the row-alone check: around the 256-key segment boundary
+#: and past it, up to 16 segments
+ROW_ALONE_KV = (255, 256, 257, 700, 1024, 4096)
+
+
+def row_alone_check():
+    """bf16, Qwen3-14B heads: one row (the same q, table row and kv_len)
+    computed alone (split past 256 keys), first and last in a run of its
+    slot's 1 + 4 rows, after a shorter row of a slot sharing its first
+    pages and before a longer row of a slot sharing all its pages
+    (``kernels/paged_attention.py::neighbour_mixes``) must give the same
+    bits in every case; alone, within the per-value limit of the fp32-P
+    plain version. Returns the cases checked a kv length."""
+    from repro_torch.kernels import paged_attention as pa
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    out = {}
+    for kv_len in ROW_ALONE_KV:
+        mixes, n_pages = pa.neighbour_mixes(kv_len, seed=kv_len)
+        kp, vp, q0 = rnd(n_pages, 16, 8, 128), rnd(n_pages, 16, 8, 128), \
+            rnd(40, 128)
+        rows, worst = {}, 0.0
+        for name, (tab, pos, r) in mixes.items():
+            q = rnd(len(pos), 1, 40, 128)
+            q[r, 0] = q0
+            args = (q, kp, vp, torch.from_numpy(tab).cuda(),
+                    torch.from_numpy(pos).cuda())
+            got = pa.paged_attention(*args)
+            rows[name] = got[r]
+            if name == "alone":
+                worst = worst_excess(got, pa.paged_attention_plain_f32p(
+                    *args), 1e-5, 8e-3)
+                items = pa.tile_plan(tab, pos, 16, 5)[0]
+        torch.cuda.synchronize()
+        differ = [name for name, o in rows.items()
+                  if not torch.equal(o, rows["alone"])]
+        check(not differ, f"paged attention bf16 at kv_len {kv_len}: the "
+              f"row's bits differ from its lone run in {differ}")
+        check(worst <= 1.0, f"paged attention bf16 lone row at kv_len "
+              f"{kv_len}: {worst:.3f}x the per-value limit")
+        log(f"[attention bf16 row alone] kv_len {kv_len}: {len(items)} "
+            f"work item(s) alone; equal bits in all {len(rows)} cases "
+            f"({', '.join(rows)}); alone {worst:.3f}x the per-value limit")
+        out[kv_len] = {"cases": list(rows), "items_alone": len(items),
+                       "error_of_limit": worst}
     return out
 
 
@@ -468,6 +542,8 @@ def phase_attention(rng):
         f"would be {split_drop:.1f}x the limit")
     res["split_dropped_page_error_of_limit"] = split_drop
 
+    res["row_alone"] = row_alone_check()
+
     # null-page / tail poisoning (tests/test_serve_pallas.py:105): pages no
     # row references, page 0, and every slot's positions past its longest
     # cursor hold 1e9 — the kernel output must not change, bit for bit
@@ -496,9 +572,17 @@ def phase_attention(rng):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     d, hkv, hq, esize = 128, 8, 40, 2
     times = {}
-    for name, rows in (("T256", MIX_T256), ("decode_only", MIX_DECODE)):
+    for name, kw in (("T256", dict(rows=MIX_T256)),
+                     ("decode_only", dict(rows=MIX_DECODE)),
+                     # four lone 4096-key decode rows: 16 segments each
+                     ("decode_4x4096", dict(
+                         ctx=(4096,) * 4, rows=([0, 1, 2, 3], [4095] * 4),
+                         width=256, n_pages=1025))):
+        # the long-decode mix draws from its own generator, so the later
+        # phases see the inputs they saw before it was added
         q, pools, tab, pos, live_tokens, *_ = attention_inputs(
-            rng, torch.bfloat16, n_layers_copies=8, rows=rows)
+            np.random.default_rng(4096) if name == "decode_4x4096" else rng,
+            torch.bfloat16, n_layers_copies=8, **kw)
         it = {"i": 0}
 
         def nxt():
@@ -561,6 +645,8 @@ def phase_attention(rng):
             "bound_by": t256["bound_by"], "library_ms": t256["library_ms"],
             "device_us_by_launch": t256["device_us_by_launch"],
             "decode_only": times["decode_only"],
+            "decode_4x4096": times["decode_4x4096"],
+            "row_alone": res["row_alone"],
             "library": "scaled_dot_product_attention over gathered KV"}
 
 
@@ -1085,6 +1171,106 @@ def phase_parity():
     return errs
 
 
+#: phase 4's prefix, lazy and scheduler runs: name -> engine keywords.
+#: The traffic (``_prefix_traffic``) shares a 24-token system prompt; its
+#: second wave opens with the first 28 tokens of wave 1's last prompt,
+#: which end inside a block registered from that prompt's decode (a
+#: partial-tail hit, so a copy-on-write under lazy); the lazy pool of 8
+#: pages of 8 tokens is below the first wave's demand (preemptions).
+PREFIX_RUNS = {
+    "prefix off": dict(),
+    "prefix on": dict(prefix_cache=True),
+    "lazy, pool below demand": dict(prefix_cache=True, lazy=True,
+                                    kv_pages=8),
+    "Priority()": dict(prefix_cache=True, lazy=True, kv_pages=8,
+                       scheduler="Priority"),
+}
+#: the counters that must equal the CPU run's (host logic)
+PREFIX_COUNTERS = ("prefix_hit_blocks", "prefix_miss_blocks",
+                   "prefix_tail_hits", "prefix_evictions", "preemptions",
+                   "cow_copies")
+
+
+def _prefix_traffic(eng, vocab: int, seed: int = 11):
+    """Two waves through ``eng``, 10 new tokens a request: five prompts
+    opening with one 24-token system prompt (priorities 1, 3, 0, 2, -1:
+    ``Priority()`` admits them out of order, the last one last), run to
+    the end; then three more, the first repeating 28 tokens of wave 1's
+    last prompt. Returns the streams."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, size=(24,)).astype(np.int32)
+    wave1 = [np.concatenate([system, rng.integers(0, vocab, size=(n,))])
+             .astype(np.int32) for n in (5, 9, 3, 14, 7)]
+    wave2 = [wave1[4][:28]] + [
+        np.concatenate([system, rng.integers(0, vocab, size=(n,))])
+        .astype(np.int32) for n in (11, 4)]
+    for rid, (p, pri) in enumerate(zip(wave1, (1, 3, 0, 2, -1))):
+        eng.submit(rid, p, max_new=10, priority=pri)
+    eng.run()
+    for rid, p in enumerate(wave2, len(wave1)):
+        eng.submit(rid, p, max_new=10, priority=rid % 3)
+    res = eng.run()
+    return {i: list(res[i].out) for i in sorted(res)}
+
+
+def phase_parity_prefix():
+    """The tiny f32 dense config (TF32 off), card vs CPU, through
+    ``_prefix_traffic`` with each of ``PREFIX_RUNS`` on the mixed path
+    and on the split path (``mixed=False``): greedy streams identical,
+    every counter of ``PREFIX_COUNTERS`` equal to the CPU run's, every
+    stream equal to the prefix-off run's, pages all back after
+    ``release_prefix_cache()``, and the lazy runs show at least one
+    preemption and one copy-on-write. Returns the counters of each run."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.params import init_params
+    from repro_torch.serve import scheduler
+    from repro_torch.serve.engine import ServeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig(name="pal-dense", arch_type="dense", num_layers=2,
+                      d_model=128, num_heads=4, num_kv_heads=2, d_ff=256,
+                      vocab_size=128, dtype="float32")
+    cpu = init_params(cfg, device="cpu", seed=3)
+    weights = {"cpu": cpu, "cuda": _to(cpu, "cuda")}
+    out, base = {}, {}
+    for mixed in (True, False):
+        for name, kw in PREFIX_RUNS.items():
+            kw = dict(kw)
+            if "scheduler" in kw:
+                kw["scheduler"] = getattr(scheduler, kw["scheduler"])()
+            runs = {}
+            for dev, params in weights.items():
+                eng = ServeEngine(cfg, params, slots=3, max_len=64,
+                                  page_size=8, mixed=mixed, chunk_tokens=16,
+                                  **kw)
+                streams = _prefix_traffic(eng, cfg.vocab_size)
+                eng.release_prefix_cache()
+                check(eng.stats["pages_in_use"] == 0,
+                      f"[parity prefix {name}] {eng.stats['pages_in_use']} "
+                      f"pages left on {dev}")
+                runs[dev] = (streams, {k: eng.stats[k]
+                                       for k in PREFIX_COUNTERS})
+            path = "mixed" if mixed else "split"
+            check(runs["cpu"][0] == runs["cuda"][0],
+                  f"[parity prefix {path}, {name}] greedy streams card vs "
+                  f"CPU differ")
+            check(runs["cpu"][1] == runs["cuda"][1],
+                  f"[parity prefix {path}, {name}] counters card "
+                  f"{runs['cuda'][1]} != CPU {runs['cpu'][1]}")
+            base.setdefault(mixed, runs["cuda"][0])
+            check(runs["cuda"][0] == base[mixed],
+                  f"[parity prefix {path}, {name}] streams differ from the "
+                  f"prefix-off run's")
+            if kw.get("lazy"):
+                c = runs["cuda"][1]
+                check(c["preemptions"] >= 1 and c["cow_copies"] >= 1,
+                      f"[parity prefix {path}, {name}] lazy run without a "
+                      f"preemption and a copy-on-write: {c}")
+            log(f"[parity prefix f32] {path}, {name}: streams card = CPU = "
+                f"prefix off; counters card = CPU {runs['cuda'][1]}")
+            out[f"{path}, {name}"] = runs["cuda"][1]
+    return out
+
+
 def phase_parity_ssm():
     """mamba2-smoke in fp32 (TF32 off) through the port's split-path
     engine on the card and on the CPU: the first prefill's logits within
@@ -1515,6 +1701,152 @@ def _profile_steps(eng, step_p50_ms: float, groups, tag: str, steps=None,
     return out
 
 
+# ------------------------------------------------------------------ phase 8
+
+#: phase 8's unique suffixes after the shared 512-token system prompt (32
+#: full pages); an eighth request repeats request 2's whole prompt
+PREFIX_SUFFIXES = (37, 61, 90, 118, 143, 171, 199)
+#: request 7 arrives once request 2 has emitted this many tokens: its
+#: decode has then registered the block holding its prompt's last 10
+#: tokens, which request 7's prompt ends inside (a partial-tail hit)
+REPEAT_AFTER = 8
+#: phase 8's runs: name -> serve() keywords (4 slots x 1024, 16-token
+#: pages, 256-row mixed step). Concurrency needs ~61 pages; 56 is below
+#: it, while one request's worst case (743 tokens, 47 pages) fits.
+PREFIX_PHASE_RUNS = {
+    "A: mixed, no prefix cache, eager": dict(),
+    "B: mixed, prefix cache": dict(prefix_cache=True),
+    "C: mixed, prefix cache, lazy, 56 pages": dict(
+        prefix_cache=True, lazy=True, kv_pages=56),
+    "D: split, prefix cache, lazy, 56 pages": dict(
+        prefix_cache=True, lazy=True, kv_pages=56, mixed=False),
+}
+
+
+def _cuda_sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def phase_prefix(session, seed: int, max_new: int = 32):
+    """PREFIX SHARING, LAZY GROWTH, COPY-ON-WRITE AND PREEMPTION at full
+    width, on phase 5's session (its weights): 8 prompts opening with one
+    512-token system prompt (``PREFIX_SUFFIXES``), ``max_new`` greedy
+    tokens each, through each of ``PREFIX_PHASE_RUNS``. Requests 0-6 are
+    submitted at once; request 7, a repeat of request 2's whole prompt
+    with a deadline (so the scheduler admits it at the next free slot),
+    arrives once request 2 has emitted ``REPEAT_AFTER`` tokens: under
+    lazy it takes a partial-tail hit on a page request 2 still holds, and
+    copies it on its first decode write. Counts are zeroed just
+    before and read just after each run: every kernel of the run's path
+    launched as ``_want_launches`` says. Runs B and C must give run A's
+    streams token for token (a paged row's bits do not depend on the
+    rows beside it); B takes >= 7 x 32 prefix blocks from the cache at a
+    lower page peak than A; C preempts and copies on write at least once,
+    finishes every request, runs one program shape a page bucket and
+    leaves no page in use once the prefix cache is released. Run D (the
+    split path, which prefills through flash attention) reports the share
+    of its tokens equal to run A's."""
+    from repro_torch import kernels
+    from repro_torch.serve.paging import pages_for
+    from repro_torch.serve.step import page_bucket
+    cfg = session.cfg
+    rng = np.random.default_rng(seed + 8)
+    system = rng.integers(0, cfg.vocab_size, size=(512,))
+    prompts = [np.concatenate([system, rng.integers(
+        0, cfg.vocab_size, size=(n,))]).astype(np.int32)
+        for n in PREFIX_SUFFIXES]
+    prompts.append(prompts[2].copy())
+    buckets = len({page_bucket(pages_for(min(len(p) + max_new - 1, 1024),
+                                         16), cap=64) for p in prompts})
+    out, streams = {}, {}
+    for name, kw in PREFIX_PHASE_RUNS.items():
+        key = name[0]
+        eng = session.serve(slots=4, max_len=1024, page_size=16,
+                            chunk_tokens=256, **kw)
+        live = [eng.submit(rid, p, max_new=max_new)
+                for rid, p in enumerate(prompts[:7])]
+        _cuda_sync()
+        if torch.cuda.is_available():
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        step_s = []
+        t0 = time.perf_counter()
+        while eng.busy():
+            s0 = time.perf_counter()
+            eng.step()
+            step_s.append(time.perf_counter() - s0)
+            if len(live) == 7 and len(live[2].out) >= REPEAT_AFTER:
+                live.append(eng.submit(7, prompts[7], max_new=max_new,
+                                       deadline_s=600.0))
+        _cuda_sync()
+        wall = time.perf_counter() - t0
+        counts = kernels.launches()
+        want = _want_launches(eng, cfg.num_layers) \
+            if eng.device.type == "cuda" else dict.fromkeys(counts, 0)
+        check(counts == want, f"[prefix {key}] launches {counts} != {want}")
+        res = eng.results()
+        for rid in range(len(prompts)):
+            r = res[rid]
+            check(r.done and len(r.out) == max_new
+                  and all(0 <= t < cfg.vocab_size for t in r.out),
+                  f"[prefix {key}] request {rid} done={r.done} with "
+                  f"{len(r.out)} tokens")
+        streams[key] = [list(res[rid].out) for rid in range(len(prompts))]
+        st = eng.stats
+        run = {k: st[k] for k in PREFIX_COUNTERS + (
+            "peak_pages", "decode_traces", "prefills", "decode_steps",
+            "mixed_steps", "prefill_chunk_tokens")}
+        run["kv_pages"] = eng.kv_pages
+        run["released_blocks"] = eng.release_prefix_cache()
+        run["pages_in_use_after_release"] = eng.stats["pages_in_use"]
+        check(run["pages_in_use_after_release"] == 0,
+              f"[prefix {key}] {run['pages_in_use_after_release']} pages in "
+              f"use after release_prefix_cache()")
+        check(st["decode_traces"] <= buckets,
+              f"[prefix {key}] {st['decode_traces']} program shapes > "
+              f"{buckets} page bucket(s)")
+        step_ms = np.asarray(step_s) * 1e3
+        tokens = sum(len(x) for x in streams[key])
+        run.update(tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+                   steps=len(step_s),
+                   step_p50_ms=float(np.percentile(step_ms, 50)),
+                   peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                                if torch.cuda.is_available() else 0.0),
+                   launches=counts)
+        if key != "A":
+            run["tokens_equal_to_A"] = sum(
+                a == b for g, w in zip(streams[key], streams["A"])
+                for a, b in zip(g, w)) / tokens
+        out[name] = run
+        log(f"[prefix {name}] {tokens} tokens in {wall:.2f}s = "
+            f"{run['tokens_per_s']:.2f} tok/s, {len(step_s)} steps, step "
+            f"p50 {run['step_p50_ms']:.1f} ms, peak {run['peak_mem_gb']:.2f}"
+            f" GB, peak pages {st['peak_pages']}/{eng.kv_pages}; "
+            + ", ".join(f"{k} {st[k]}" for k in PREFIX_COUNTERS)
+            + f"; {st['decode_traces']} program shape(s); launches {counts}"
+            + (f"; {run['tokens_equal_to_A']:.1%} of tokens equal to run A"
+               if key != "A" else ""))
+        del eng
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    a, b, c = (out[n] for n in list(PREFIX_PHASE_RUNS)[:3])
+    for key in "BC":
+        check(streams[key] == streams["A"],
+              f"[prefix {key}] greedy streams differ from run A's "
+              f"(share equal {out[[n for n in out if n[0] == key][0]]['tokens_equal_to_A']:.3f})")
+    check(b["prefix_hit_blocks"] >= 7 * 32,
+          f"[prefix B] {b['prefix_hit_blocks']} prefix hit blocks < 224")
+    check(b["peak_pages"] < a["peak_pages"],
+          f"[prefix B] peak pages {b['peak_pages']} not below run A's "
+          f"{a['peak_pages']}")
+    check(c["preemptions"] >= 1 and c["cow_copies"] >= 1,
+          f"[prefix C] preemptions {c['preemptions']}, CoW copies "
+          f"{c['cow_copies']}: each must be >= 1")
+    return out
+
+
 # ------------------------------------------------------------------ phase 6
 
 def phase_train(seed: int, steps: int = 6, layers: int = 4):
@@ -1817,6 +2149,7 @@ def main():
     parity = phase_parity()
     record["parity_logits_err"] = parity.pop("mixed")
     record["parity_split_logits_err"] = parity
+    record["parity_prefix"] = phase_parity_prefix()
     record["parity_ssm_logits_err"] = phase_parity_ssm()
     record["parity_train"] = phase_train_parity()
     main_run, eng, session, prompts = phase_main(args.seed)
@@ -1827,6 +2160,7 @@ def main():
     torch.cuda.empty_cache()
     record["split"] = phase_split(session, prompts, main_run["streams"],
                                   args.seed)
+    record["prefix"] = phase_prefix(session, args.seed)
     del session                           # free the serving weights
     gc.collect()
     torch.cuda.empty_cache()

@@ -26,11 +26,12 @@ family and layout rules: a full-attention dense decoder gets the paged
 mixed-step engine by default (``mixed=False``: the split prefill/decode
 path on the pool; ``paged=False``: the dense per-slot layout), a
 sliding-window config the dense ring, the SSM family the split path on
-the dense layout. ``generate`` is the lockstep greedy loop
-(``serve/step.py::greedy_generate``). The features not ported yet raise
-``NotImplementedError`` naming their ROADMAP.md item, as does ``train``
-for the SSM family. The online stack and dry-runs come with later
-slices.
+the dense layout; ``prefix_cache``, ``lazy`` and ``scheduler`` pass
+through to the engine (on the paged pool). ``generate`` is the lockstep
+greedy loop (``serve/step.py::greedy_generate``). The features not
+ported yet raise ``NotImplementedError`` naming their ROADMAP.md item,
+as does ``train`` for the SSM family. The online stack and dry-runs
+come with later slices.
 """
 from __future__ import annotations
 

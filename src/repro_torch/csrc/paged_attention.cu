@@ -28,10 +28,19 @@
 //     pages, a shorter row after a longer one: each starts a new run, so
 //     any table is right. Runs are cut into tiles of 64 / rep rows (12 at
 //     rep 5): a tile's M = rows x the rep query heads of one kv head;
-//   - a lone row (a tile of one row: a decode row) with more than 4 kv
-//     tiles of 64 keys is split into at most 4 parts by its own kv_len
-//     alone (flash-decoding); paged_combine_kernel adds the partial
-//     (m, l, o) of each split in split order;
+//   - key segments are fixed in absolute units: segment s holds the keys
+//     [256 s, 256 s + 256) (4 kv tiles of 64). A tile (or a lone row)
+//     whose last row has keys in one segment is one work item and writes
+//     its output; one with more is split, one work item a segment, each
+//     writing every row's (m, l, o) of that segment, and
+//     paged_combine_kernel folds each row's own segments in segment
+//     order. Every row keeps one fp32 online softmax a segment and every
+//     output comes from the same fold (fold_ml / fold_o from the empty
+//     state, then o / l). So a row's bits are a function of its own q,
+//     table row and kv_len alone, whether it is lone, in a run of its
+//     slot's rows or in a tile beside another slot's rows (chip_smoke.py
+//     phase 3 holds it bit for bit), and no item walks more than 4 kv
+//     tiles;
 //   - a persistent grid (2 blocks an SM) walks the work units (item, kv
 //     head) in a fixed stride. A producer warp brings the tile's Q (one
 //     TMA box of 64 D-values x rep heads x rows) and, kv tile by kv tile,
@@ -49,13 +58,19 @@
 //     upcast, :86-89): P_hi V + P_lo V in one accumulator, as in
 //     flash_attention.cu;
 //   - determinism: the plan, the work units and every sum order are fixed
-//     by the call's inputs, so the same call gives the same bits. A row's
-//     bits do not depend on which rows share its tile (each M row of a
-//     wgmma is its own dot products; kv tiles wholly past its kv_len leave
-//     m, l and o bit for bit as they were); they do depend on whether the
-//     row is lone and split (then its partials are combined) or in a tile.
+//     by the call's inputs, so the same call gives the same bits. Each M
+//     row of a wgmma is its own dot products, and kv tiles wholly past a
+//     row's kv_len leave its m, l and o bit for bit as they were; the
+//     folds and o / l use round-to-nearest intrinsics, which the compiler
+//     does not contract into FMAs, so the attention kernel and the
+//     combine kernel compute a one-segment row the same way.
 // Shared memory at D = 128: Q 16 KB + 2 stages x (K + V) 64 KB + 1 KB of
-// alignment slack = 81 KB, two blocks an SM.
+// alignment slack = 81 KB, two blocks an SM. Split partials: rows x
+// segments x Hq x (D + 2) fp32, segments = ceil(table keys / 256).
+// Cost of the fixed segments: the rows of a prefill chunk past 256 keys
+// go through the partials and the combine (10.5 MB each way at the T =
+// 256 mix), where a plan that splits lone rows only would walk them in
+// one block.
 //
 // fp32 path (paged_attention_kernel<float>, the parity runs): the earlier
 // design, one block per (row, kv head), fp32 FMAs, pages in a loop; on the
@@ -239,12 +254,11 @@ using namespace hopper;
 constexpr int BM = 64;                 // tile rows: rows x rep query heads
 constexpr int BN = 64;                 // keys a kv tile
 constexpr int STAGES = 2;              // K/V ring depth (2 blocks an SM)
-constexpr int SPLIT_TILES = 4;         // a lone row splits past 4 kv tiles
-constexpr int MAX_SPLITS = 4;          // ... into at most 4 splits
+constexpr int SPLIT_TILES = 4;         // kv tiles a key segment (256 keys)
 constexpr int CONSUMERS = 128;         // one consumer warpgroup
 constexpr int THREADS = CONSUMERS + 32;  // + one producer warp
 constexpr int PLAN_THREADS = 1024;
-constexpr int COMBINE_THREADS = 512;
+constexpr int COMBINE_THREADS = 128;
 constexpr int Q_BOX = BM * 128;        // bytes: 64 rows x 64 bf16
 constexpr int KV_BOX = BN * 128;       // bytes: 64 keys x 64 bf16
 constexpr int MAX_REP = 16;
@@ -261,15 +275,24 @@ struct Layout {
 // ------------------------------------------------------------------ plan
 // The plan (int32 scratch, written by paged_plan_kernel on the device):
 //   [0]                 number of work items
-//   [4, 4 + b)          splits of each row: >= 2 for a split lone row,
-//                       whose partials paged_combine_kernel adds up; else 1
+//   [4, 4 + b)          each row's segments that paged_combine_kernel
+//                       folds, for a row of a split tile; -1 for a row
+//                       whose work item writes its output
 //   [4 + b, 4 + 2b)     1 where a row starts a tile
-//   [items_at(b), ...)  items, int4 {first row, rows, split (-1: whole), 0}
+//   [items_at(b), ...)  items, int4 {first row, rows, segment (-1: whole),
+//                       0}
 __host__ __device__ __forceinline__ int items_at(int b) {
   return (4 + 2 * b + 3) & ~3;
 }
-__host__ __device__ __forceinline__ long long plan_ints(int b) {
-  return items_at(b) + 4LL * b * MAX_SPLITS;
+// key segments a row of a table of n_blocks pages can have
+__host__ __device__ __forceinline__ int max_segments(int n_blocks,
+                                                     int page_size) {
+  const long long keys = (long long)n_blocks * page_size;
+  const long long seg = (long long)SPLIT_TILES * BN;
+  return (int)((keys + seg - 1) / seg);
+}
+__host__ __device__ __forceinline__ long long plan_ints(int b, int segs) {
+  return items_at(b) + 4LL * b * segs;
 }
 
 // keys a row attends, clamped to its table (as the SIMT kernel's page loop)
@@ -277,18 +300,11 @@ __device__ __forceinline__ int kv_len_of(const int* pos, int r, int cap) {
   return min(max(pos[r] + 1, 0), cap);
 }
 
-// Splits of a lone row with n_tiles kv tiles: (count, tiles a split); a
-// function of the row's own kv_len alone.
-__host__ __device__ __forceinline__ void split_tiles(int n_tiles, int* count,
-                                                     int* per) {
-  if (n_tiles <= SPLIT_TILES) {
-    *count = 1;
-    *per = n_tiles;
-    return;
-  }
-  const int n0 = min((n_tiles + SPLIT_TILES - 1) / SPLIT_TILES, MAX_SPLITS);
-  *per = (n_tiles + n0 - 1) / n0;
-  *count = (n_tiles + *per - 1) / *per;
+// Work items of a tile whose last row has n_tiles kv tiles: one a key
+// segment when it has more than one, else 1 (whole).
+__host__ __device__ __forceinline__ int split_count(int n_tiles) {
+  return n_tiles <= SPLIT_TILES ? 1
+                                : (n_tiles + SPLIT_TILES - 1) / SPLIT_TILES;
 }
 
 // inclusive scan over the block (sum, or max when is_max)
@@ -321,8 +337,8 @@ __device__ __forceinline__ int block_scan(int v, bool is_max, int* buf) {
 // live pages and the two table rows agree over row r - 1's live pages:
 // then every row of a run agrees with the run's last row over its own live
 // pages, so a tile reads its pages through the last row's table. Runs are
-// cut into tiles of rows_per_tile rows; a tile of one row whose keys span
-// more than SPLIT_TILES kv tiles is split by its own kv_len.
+// cut into tiles of rows_per_tile rows; a tile whose last row's keys span
+// more than one segment is split into its segments.
 __global__ void __launch_bounds__(PLAN_THREADS)
 paged_plan_kernel(const int* __restrict__ table, const int* __restrict__ pos,
                   int* __restrict__ plan, int b, int n_blocks, int page_size,
@@ -330,7 +346,7 @@ paged_plan_kernel(const int* __restrict__ table, const int* __restrict__ pos,
   __shared__ int buf[32];
   __shared__ int carry;
   __shared__ int start_s[PLAN_THREADS + BM];  // a chunk's tile starts + BM
-  int* splits = plan + 4;
+  int* fold = plan + 4;
   int* start = plan + 4 + b;
   int4* items = reinterpret_cast<int4*>(plan + items_at(b));
   const int cap = n_blocks * page_size;
@@ -381,21 +397,21 @@ paged_plan_kernel(const int* __restrict__ table, const int* __restrict__ pos,
     for (int i = tid; i < PLAN_THREADS + BM; i += PLAN_THREADS)
       start_s[i] = base + i < b ? start[base + i] : 1;
     __syncthreads();
-    int n_rows = 0, count = 0, per = 0;
+    int n_rows = 0, count = 0;
     if (r < b && start_s[tid]) {
       n_rows = 1;
       while (n_rows < rows_per_tile && !start_s[tid + n_rows]) ++n_rows;
-      count = 1;
-      if (n_rows == 1) {
-        const int n_tiles = (kv_len_of(pos, r, cap) + BN - 1) / BN;
-        split_tiles(n_tiles, &count, &per);
-      }
+      count = split_count((kv_len_of(pos, r + n_rows - 1, cap) + BN - 1) /
+                          BN);
     }
     const int incl = block_scan(count, false, buf);
     const int first = carry + incl - count;
     for (int s = 0; s < count; ++s)
       items[first + s] = make_int4(r, n_rows, count > 1 ? s : -1, 0);
-    for (int i = 0; i < n_rows; ++i) splits[r + i] = count;
+    for (int i = 0; i < n_rows; ++i)
+      fold[r + i] = count > 1 ? (kv_len_of(pos, r + i, cap) +
+                                 SPLIT_TILES * BN - 1) / (SPLIT_TILES * BN)
+                              : -1;
     __syncthreads();
     if (tid == PLAN_THREADS - 1) carry = first + count;
     __syncthreads();
@@ -437,8 +453,33 @@ __device__ __forceinline__ void zero(float (&a)[R]) {
   for (int i = 0; i < R; ++i) a[i] = 0.f;
 }
 
+// Fold a segment's (m, l) into the running (M, L) and return the weights of
+// the running o and of the segment's o. Round-to-nearest intrinsics: never
+// contracted into FMAs, so both kernels compute the same bits.
+__device__ __forceinline__ float2 fold_ml(float& M, float& L, float m,
+                                          float l) {
+  const float mn = fmaxf(M, m);
+  const float a = exp2f(M - mn), b = exp2f(m - mn);
+  L = __fadd_rn(__fmul_rn(L, a), __fmul_rn(l, b));
+  M = mn;
+  return make_float2(a, b);
+}
+__device__ __forceinline__ float fold_o(float O, float o, float2 w) {
+  return __fadd_rn(__fmul_rn(O, w.x), __fmul_rn(o, w.y));
+}
+// 1 / l, with l == 0 (no live key) read as 1: such a row writes 0
+__device__ __forceinline__ float inv_of(float L) {
+  return __frcp_rn(L == 0.f ? 1.f : L);
+}
+// a row's l from the partial sums of the 4 lanes of its quad
+__device__ __forceinline__ float quad_sum(float l) {
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  return l;
+}
+
 // The kv tiles of an item: a whole item reads every tile its last row
-// holds, a split its share of a lone row's tiles.
+// holds (at most one segment's), a split the tiles of its segment.
 struct Span {
   int row0, n_rows, split, tb, te, live_last;
   __device__ Span(int4 it, const int* pos, int cap, int page_size)
@@ -449,10 +490,8 @@ struct Span {
     tb = 0;
     te = n_tiles;
     if (split >= 0) {
-      int count, per;
-      split_tiles(n_tiles, &count, &per);
-      tb = split * per;
-      te = min(n_tiles, tb + per);
+      tb = split * SPLIT_TILES;
+      te = min(n_tiles, tb + SPLIT_TILES);
     }
   }
 };
@@ -532,7 +571,7 @@ paged_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                         const int* __restrict__ plan, bf16* __restrict__ out,
                         float* __restrict__ part, int b, int hq, int hkv,
                         int d, int page_size, int n_blocks,
-                        int rows_per_tile, float scale_log2) {
+                        int rows_per_tile, int segs, float scale_log2) {
   using L = Layout<DT>;
   constexpr int NC = L::NC;
   extern __shared__ uint8_t smem_raw[];
@@ -707,27 +746,29 @@ paged_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       keep_regs(p_hi, p_lo);
       if (tid == 0) mbar_arrive(&kv_empty[st]);
     }
-    // a whole item writes out = o / l (l == 0 read as 1: a row with no
-    // live key writes 0); a split writes its unnormalised o, m and l
+    // a whole item writes its one segment folded from the empty state,
+    // o / l, as paged_combine_kernel folds; a split writes its segment's
+    // unnormalised o, m and l
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      float li = l[i];
-      li += __shfl_xor_sync(0xffffffffu, li, 1);
-      li += __shfl_xor_sync(0xffffffffu, li, 2);
+      const float li = quad_sum(l[i]);
       if (rowi[i] < 0) continue;
       if (sp.split < 0) {
-        const float inv = 1.f / (li == 0.f ? 1.f : li);
+        float M = NEG_INF, L = 0.f;
+        const float2 w = fold_ml(M, L, m_run[i], li);
+        const float inv = inv_of(L);
         bf16* orow = out + ((size_t)rowi[i] * hq + head[i]) * d;
 #pragma unroll
         for (int j = 0; j < DT / 8; ++j) {
           const int c = 8 * j + col0;
           if (c < d)
-            *reinterpret_cast<uint32_t*>(orow + c) =
-                pack_bf16(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+            *reinterpret_cast<uint32_t*>(orow + c) = pack_bf16(
+                __fmul_rn(fold_o(0.f, o[4 * j + 2 * i], w), inv),
+                __fmul_rn(fold_o(0.f, o[4 * j + 2 * i + 1], w), inv));
         }
       } else {
         const size_t slot =
-            ((size_t)rowi[i] * MAX_SPLITS + sp.split) * hq + head[i];
+            ((size_t)rowi[i] * segs + sp.split) * hq + head[i];
         float* prow = part + slot * (d + 2);
 #pragma unroll
         for (int j = 0; j < DT / 8; ++j) {
@@ -745,76 +786,56 @@ paged_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// One block a row: a split row's partials added in split order,
-// out = sum_s o_s 2^(m_s - M) / sum_s l_s 2^(m_s - M), M = max_s m_s. The
-// weights of each (split, head) are computed once, into shared memory.
+// The rows of split tiles: each row's own segments' partials folded in
+// segment order by the attention kernel's fold (fold_ml, fold_o, inv_of),
+// then o / l; a row with no key writes 0. One thread 4 output columns
+// (D is a multiple of 8), blocks (column quads / COMBINE_THREADS, rows);
+// each thread loads 4 segments at a time, then folds them, and every
+// thread of a head computes the same (M, L).
 __global__ void __launch_bounds__(COMBINE_THREADS)
 paged_combine_kernel(const int* __restrict__ plan,
                      const float* __restrict__ part, bf16* __restrict__ out,
-                     int hq, int d) {
-  __shared__ float w_s[MAX_SPLITS * 128], den_s[128];
-  const int r = blockIdx.x;
+                     int hq, int d, int segs) {
+  const int r = blockIdx.y;
   const int n = plan[4 + r];
-  if (n < 2) return;
-  const size_t step = (size_t)hq * (d + 2);     // one split's partials
-  const float* p0 = part + (size_t)r * MAX_SPLITS * step;
-  for (int h0 = 0; h0 < hq; h0 += 128) {
-    const int hn = min(128, hq - h0);
-    if (threadIdx.x < hn) {
-      const float* ph = p0 + (size_t)(h0 + threadIdx.x) * (d + 2);
-      float m[MAX_SPLITS], l[MAX_SPLITS];
+  const int i = blockIdx.x * COMBINE_THREADS + threadIdx.x;
+  if (n < 0 || i >= hq * d / 4) return;
+  const int h = 4 * i / d, c = 4 * i % d;
+  const size_t step = (size_t)hq * (d + 2);     // one segment's partials
+  const float* ph = part + (size_t)r * segs * step + (size_t)h * (d + 2);
+  float M = NEG_INF, L = 0.f;
+  float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s0 = 0; s0 < n; s0 += 4) {
+    float m[4], l[4];
+    float4 v[4];
 #pragma unroll
-      for (int s = 0; s < MAX_SPLITS; ++s) {
-        m[s] = s < n ? ph[s * step + d] : NEG_INF;
-        l[s] = s < n ? ph[s * step + d + 1] : 0.f;
-      }
-      float mx = NEG_INF;
-#pragma unroll
-      for (int s = 0; s < MAX_SPLITS; ++s) mx = fmaxf(mx, m[s]);
-      float den = 0.f;
-#pragma unroll
-      for (int s = 0; s < MAX_SPLITS; ++s) {
-        const float w = s < n ? exp2f(m[s] - mx) : 0.f;
-        w_s[s * 128 + threadIdx.x] = w;
-        den += l[s] * w;
-      }
-      den_s[threadIdx.x] = den == 0.f ? 1.f : den;
+    for (int k = 0; k < 4; ++k) {
+      const float* ps = ph + (size_t)(s0 + k) * step;
+      const bool in = s0 + k < n;
+      m[k] = in ? ps[d] : 0.f;
+      l[k] = in ? ps[d + 1] : 0.f;
+      // a head's (D + 2) floats start 8-byte aligned: two float2 loads
+      const float2 a = in ? *reinterpret_cast<const float2*>(ps + c)
+                          : make_float2(0.f, 0.f);
+      const float2 b = in ? *reinterpret_cast<const float2*>(ps + c + 2)
+                          : make_float2(0.f, 0.f);
+      v[k] = make_float4(a.x, a.y, b.x, b.y);
     }
-    __syncthreads();
-    // pairs of columns, 4 pairs a thread in flight
-    const int pairs = hn * d / 2;
-    for (int i0 = threadIdx.x; i0 < pairs; i0 += 4 * COMBINE_THREADS) {
-      float2 o[4][MAX_SPLITS];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int i = i0 + k * COMBINE_THREADS;
-        const int hl = 2 * i / d, c = 2 * i % d;
-        const float* ph = p0 + (size_t)(h0 + hl) * (d + 2) + c;
-#pragma unroll
-        for (int s = 0; s < MAX_SPLITS; ++s)
-          o[k][s] = i < pairs && s < n
-              ? *reinterpret_cast<const float2*>(ph + s * step)
-              : make_float2(0.f, 0.f);
+    for (int k = 0; k < 4; ++k)
+      if (s0 + k < n) {
+        const float2 w = fold_ml(M, L, m[k], l[k]);
+        x.x = fold_o(x.x, v[k].x, w);
+        x.y = fold_o(x.y, v[k].y, w);
+        x.z = fold_o(x.z, v[k].z, w);
+        x.w = fold_o(x.w, v[k].w, w);
       }
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int i = i0 + k * COMBINE_THREADS;
-        if (i >= pairs) continue;
-        const int hl = 2 * i / d, c = 2 * i % d;
-        float x = 0.f, y = 0.f;
-#pragma unroll
-        for (int s = 0; s < MAX_SPLITS; ++s)
-          if (s < n) {
-            x += o[k][s].x * w_s[s * 128 + hl];
-            y += o[k][s].y * w_s[s * 128 + hl];
-          }
-        *reinterpret_cast<uint32_t*>(out + ((size_t)r * hq + h0 + hl) * d +
-                                     c) =
-            pack_bf16(x / den_s[hl], y / den_s[hl]);
-      }
-    }
-    __syncthreads();
   }
+  const float inv = inv_of(L);
+  uint2 packed;
+  packed.x = pack_bf16(__fmul_rn(x.x, inv), __fmul_rn(x.y, inv));
+  packed.y = pack_bf16(__fmul_rn(x.z, inv), __fmul_rn(x.w, inv));
+  *reinterpret_cast<uint2*>(out + ((size_t)r * hq + h) * d + c) = packed;
 }
 
 int sm_count() {
@@ -864,14 +885,16 @@ int launch_dt(const void* q, const void* k, const void* v, const void* table,
   paged_plan_kernel<<<1, PLAN_THREADS, 0, stream>>>(
       (const int*)table, (const int*)pos, plan, b, n_blocks, page_size,
       rows_per_tile);
-  const long long most = (long long)b * MAX_SPLITS * hkv;
+  const int segs = max_segments(n_blocks, page_size);
+  const long long most = (long long)b * segs * hkv;
   const int grid = (int)(most < 2LL * sm_count() ? most : 2LL * sm_count());
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)d));
   paged_attn_wgmma_kernel<DT><<<grid, THREADS, bytes, stream>>>(
       mq, mk, mv, (const int*)table, (const int*)pos, plan, (bf16*)out, part,
-      b, hq, hkv, d, page_size, n_blocks, rows_per_tile, scale_log2);
-  paged_combine_kernel<<<b, COMBINE_THREADS, 0, stream>>>(plan, part,
-                                                          (bf16*)out, hq, d);
+      b, hq, hkv, d, page_size, n_blocks, rows_per_tile, segs, scale_log2);
+  const dim3 cgrid((hq * d / 4 + COMBINE_THREADS - 1) / COMBINE_THREADS, b);
+  paged_combine_kernel<<<cgrid, COMBINE_THREADS, 0, stream>>>(
+      plan, part, (bf16*)out, hq, d, segs);
   return (int)cudaGetLastError();
 }
 
@@ -909,12 +932,15 @@ extern "C" int paged_attention_f32(const void* q, const void* k,
                        n_blocks, stream);
 }
 
-// the bf16 entry's scratch: sizes[0] int32 plan words, sizes[1] fp32 words
-// of split partials (rows x MAX_SPLITS x Hq x (D + 2))
+// the bf16 entry's scratch for a (b, n_blocks) table: sizes[0] int32 plan
+// words, sizes[1] fp32 words of split partials (rows x segments x Hq x
+// (D + 2))
 extern "C" int paged_attention_bf16_scratch(int b, int hq, int d,
+                                            int n_blocks, int page_size,
                                             long long* sizes) {
-  sizes[0] = tc::plan_ints(b);
-  sizes[1] = (long long)b * tc::MAX_SPLITS * hq * (d + 2);
+  const int segs = tc::max_segments(n_blocks, page_size);
+  sizes[0] = tc::plan_ints(b, segs);
+  sizes[1] = (long long)b * segs * hq * (d + 2);
   return 0;
 }
 

@@ -44,8 +44,9 @@ SIGNATURES = {
         # q, k_pages, v_pages, table, pos, out, plan, partials (scratch),
         # B, Hq, Hkv, D, page_size, n_pages, P, stream
         "paged_attention_bf16": [_P] * 8 + [_I] * 7 + [_P],
-        # B, Hq, D, out: the bf16 entry's scratch sizes (2 x int64)
-        "paged_attention_bf16_scratch": [_I] * 3 + [_P],
+        # B, Hq, D, P, page_size, out: the bf16 entry's scratch sizes (2 x
+        # int64)
+        "paged_attention_bf16_scratch": [_I] * 5 + [_P],
         # table, pos, plan, B, P, page_size, rep, stream
         "paged_attention_plan": [_P] * 3 + [_I] * 4 + [_P]},
     "fused_mlp": {

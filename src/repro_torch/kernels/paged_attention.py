@@ -5,9 +5,12 @@ Replaces the Pallas TPU kernel ``repro/kernels/paged_attention.py::
 paged_attention`` (body ``_kernel``), which runs the page axis as a
 sequential grid dimension with the online-softmax state in VMEM. On the
 card, bf16 rows that share pages are tiled together (one load of each page
-for up to 64 / rep rows, on ``wgmma``) and long lone rows are split across
-blocks; :func:`tile_plan` states the plan the kernel makes on the device.
-The design and its bound are in the source's header note.
+for up to 64 / rep rows, on ``wgmma``), and a tile (or a lone row) whose
+keys span more than one fixed 256-key segment is split across blocks, one
+a segment; :func:`tile_plan` states the plan the kernel makes on the
+device. A row's bits depend on its own q, table row and kv_len alone:
+every row folds its own segments in the same order, lone or tiled. The
+design and its bound are in the source's header note.
 
 Contract (shared with ``models/layers.paged_attention`` of the JAX
 package): q ``(B, 1, Hq, D)``; pools ``(n_pages, page_size, Hkv, D)``
@@ -75,8 +78,9 @@ def paged_attention_plain_f32p(q, k_pages, v_pages, page_table, pos):
 
 
 #: the bf16 kernel's tiling (``csrc/paged_attention.cu``, namespace tc):
-#: M rows a tile, keys a kv tile, kv tiles a lone row keeps unsplit, splits
-TILE_M, TILE_KEYS, SPLIT_TILES, MAX_SPLITS = 64, 64, 4, 4
+#: M rows a tile, keys a kv tile, kv tiles a key segment
+TILE_M, TILE_KEYS, SPLIT_TILES = 64, 64, 4
+SEGMENT_KEYS = TILE_KEYS * SPLIT_TILES
 
 
 def rows_per_tile(rep: int) -> int:
@@ -86,25 +90,33 @@ def rows_per_tile(rep: int) -> int:
 
 
 def split_tiles(n_tiles: int):
-    """(splits, kv tiles a split) of a lone row over ``n_tiles`` tiles of
-    ``TILE_KEYS`` keys: unsplit up to ``SPLIT_TILES``, else at most
-    ``MAX_SPLITS`` parts of equal size but the last — a function of the
-    row's own kv_len alone."""
+    """(work items, kv tiles an item) of a tile whose last row has
+    ``n_tiles`` tiles of ``TILE_KEYS`` keys: whole up to one key segment,
+    else one item a segment of ``SPLIT_TILES`` tiles (the last may be
+    short), with no cap on the count."""
     if n_tiles <= SPLIT_TILES:
         return 1, n_tiles
-    n0 = min(-(-n_tiles // SPLIT_TILES), MAX_SPLITS)
-    per = -(-n_tiles // n0)
-    return -(-n_tiles // per), per
+    return -(-n_tiles // SPLIT_TILES), SPLIT_TILES
+
+
+def segments(kv_len: int):
+    """The key segments a row of ``kv_len`` keys folds, in order:
+    ``[start, end)`` key ranges fixed in absolute units of
+    ``SEGMENT_KEYS``, the last cut at kv_len."""
+    return [(k, min(k + SEGMENT_KEYS, kv_len))
+            for k in range(0, max(kv_len, 0), SEGMENT_KEYS)]
 
 
 def tile_plan(page_table, pos, page_size: int, rep: int):
     """The plan the bf16 kernel makes on the device (``paged_plan_kernel``),
     in numpy: row ``r`` joins row ``r - 1``'s run when it holds at least as
     many live pages and the two table rows agree over row ``r - 1``'s live
-    pages; runs are cut into tiles of :func:`rows_per_tile` rows; a tile
-    of one row is split by :func:`split_tiles`. Returns ``(items,
-    splits)``: items ``(first row, rows, split or -1)`` in row order, and
-    each row's split count (1 unless split)."""
+    pages; runs are cut into tiles of :func:`rows_per_tile` rows; a tile is
+    split by :func:`split_tiles` of its last row's kv tiles. Returns
+    ``(items, fold)``: items ``(first row, rows, segment or -1)`` in row
+    order, and for each row the count of its own segments the combine
+    kernel folds (a row of a split tile), or -1 (its whole item writes
+    it)."""
     tab = np.asarray(page_table)
     n_blocks = tab.shape[1]
     kv = np.clip(np.asarray(pos, np.int64) + 1, 0, n_blocks * page_size)
@@ -119,22 +131,85 @@ def tile_plan(page_table, pos, page_size: int, rep: int):
             run0 = r
         if (r - run0) % r_max == 0:
             starts.append(r)
-    items, splits = [], np.ones(b, np.int64)
+    items, fold = [], np.full(b, -1, np.int64)
     for i, r in enumerate(starts):
         n_rows = (starts[i + 1] if i + 1 < len(starts) else b) - r
-        count = split_tiles(-(-int(kv[r]) // TILE_KEYS))[0] \
-            if n_rows == 1 else 1
+        count = split_tiles(-(-int(kv[r + n_rows - 1]) // TILE_KEYS))[0]
         items += [(r, n_rows, s if count > 1 else -1) for s in range(count)]
-        splits[r:r + n_rows] = count
-    return items, splits
+        if count > 1:
+            fold[r:r + n_rows] = -(-kv[r:r + n_rows] // SEGMENT_KEYS)
+    return items, fold
+
+
+def row_segments(items, pos, page_size: int, n_blocks: int):
+    """The key segments each row accumulates and folds under ``items``,
+    as the kernel walks them: a split item the keys of its segment, a
+    whole item every kv tile of its last row, folding at each segment's
+    end (a row only the segments holding some of its keys). Returns row
+    -> ``[start, end)`` key ranges in fold order, to hold against
+    :func:`segments` of the row's own kv_len."""
+    kv = np.clip(np.asarray(pos, np.int64) + 1, 0, n_blocks * page_size)
+    out = {}
+    for row0, n_rows, seg in items:
+        last_tiles = -(-int(kv[row0 + n_rows - 1]) // TILE_KEYS)
+        if seg >= 0:
+            tb = seg * SPLIT_TILES
+            spans = [(tb, min(last_tiles, tb + SPLIT_TILES))]
+        else:
+            spans = [(t, min(last_tiles, t + SPLIT_TILES))
+                     for t in range(0, last_tiles, SPLIT_TILES)]
+        for r in range(row0, row0 + n_rows):
+            k = int(kv[r])
+            out.setdefault(r, []).extend(
+                (tb * TILE_KEYS, min(te * TILE_KEYS, k))
+                for tb, te in spans if tb * TILE_KEYS < k)
+    return out
+
+
+def neighbour_mixes(kv_len: int, page_size: int = 16, k: int = 4,
+                    seed: int = 0):
+    """Row structures around one row of ``kv_len`` keys (its cursor
+    ``kv_len - 1``) that must not change its bits (prefix sharing and
+    preemption change a row's neighbours): alone; first and last of a run
+    of its slot's ``1 + k`` rows (a decode row and its verify rows, a
+    re-prefilled chunk); after a shorter row of another slot that shares
+    its first pages; before a longer row of a slot whose table agrees with
+    its own over its live pages (a prefix hit). Returns ``(mixes,
+    n_pages)``: name -> (table (B, P) int32, pos (B,) int32, the row's
+    index), pages numbered ``1..n_pages - 1`` (page 0 the null page)."""
+    rng = np.random.default_rng(seed)
+    width = -(-(kv_len + k + 64) // page_size)
+    perm = rng.permutation(np.arange(1, 1 + 2 * width)).astype(np.int32)
+    own, other = perm[:width], perm[width:]
+    live = -(-kv_len // page_size)
+    n_sh = max(live - 1, 1)
+    short = other.copy()
+    short[:n_sh] = own[:n_sh]               # shares all but the last page
+    longer = other.copy()
+    longer[:live] = own[:live]              # agrees over its live pages
+    p = kv_len - 1
+    mixes = {
+        "alone": ([own], [p], 0),
+        f"first of its slot's run of {1 + k}": (
+            [own] * (k + 1), [p + i for i in range(k + 1)], 0),
+        f"last of its slot's run of {1 + k}": (
+            [own] * (k + 1), [max(p - k + i, 0) for i in range(k + 1)], k),
+        "after a shorter row of a slot sharing its first pages": (
+            [short, own], [max(min(n_sh * page_size, kv_len) - 4, 0), p], 1),
+        "before a longer row of a slot sharing its pages": (
+            [own, longer], [p, p + 37], 0),
+    }
+    return ({name: (np.stack(t).astype(np.int32), np.asarray(q, np.int32), r)
+             for name, (t, q, r) in mixes.items()}, 1 + 2 * width)
 
 
 def device_tile_plan(page_table, pos, page_size: int, rep: int):
     """Run only the kernel's plan pass on the card and decode it as
     :func:`tile_plan` returns it (for tests)."""
-    b = page_table.shape[0]
+    b, n_blocks = page_table.shape
     lib = build.load("paged_attention")
-    plan = torch.zeros(_scratch_bytes(lib, b, rep, 8)[0] // 4,
+    plan = torch.zeros(_scratch_bytes(lib, b, rep, 8, n_blocks,
+                                      page_size)[0] // 4,
                        dtype=torch.int32, device=page_table.device)
     code = lib.paged_attention_plan(
         page_table.data_ptr(), pos.data_ptr(), plan.data_ptr(), b,
@@ -184,13 +259,16 @@ def kernel_limits(dtype, page_size: int, hq: int, hkv: int,
 _SCRATCH = {}
 
 
-def _scratch_bytes(lib, b: int, hq: int, d: int):
-    """Bytes of the bf16 entry's plan and split partials at (B, Hq, D), the
-    plan's rounded up to 256 so that the partials stay aligned."""
-    key = (b, hq, d)
+def _scratch_bytes(lib, b: int, hq: int, d: int, n_blocks: int,
+                   page_size: int):
+    """Bytes of the bf16 entry's plan and split partials at (B, Hq, D) over
+    a table of ``n_blocks`` pages (a row's key segments), the plan's
+    rounded up to 256 so that the partials stay aligned."""
+    key = (b, hq, d, n_blocks, page_size)
     if key not in _SCRATCH:
         sizes = (ctypes.c_longlong * 2)()
-        lib.paged_attention_bf16_scratch(b, hq, d, sizes)
+        lib.paged_attention_bf16_scratch(b, hq, d, n_blocks, page_size,
+                                         sizes)
         _SCRATCH[key] = (-(-sizes[0] * 4 // 256) * 256, sizes[1] * 4)
     return _SCRATCH[key]
 
@@ -207,7 +285,9 @@ def launch_entry(q, k_pages, v_pages, page_table, pos, out) -> int:
     if q.dtype == torch.bfloat16:
         # the plan and the split partials (csrc/paged_attention.cu), one
         # allocation
-        plan_bytes, part_bytes = _scratch_bytes(lib, b, hq, d)
+        plan_bytes, part_bytes = _scratch_bytes(lib, b, hq, d,
+                                                page_table.shape[1],
+                                                page_size)
         scratch = torch.empty(plan_bytes + part_bytes, dtype=torch.uint8,
                               device=q.device)
         return lib.paged_attention_bf16(

@@ -17,6 +17,11 @@ path on the dense layout.
     PYTHONPATH=src python -m repro_torch.launch.serve --full --dense \\
         --slots 4 --max-len 1024 --requests 6
 
+    # on the card, prefix sharing + lazy growth over a shared system prompt
+    PYTHONPATH=src python -m repro_torch.launch.serve --full \
+        --slots 4 --max-len 1024 --requests 8 --shared-prefix 512 \
+        --prefix-cache --lazy --kv-pages 56
+
     # on the card, full-width Mamba2-780M
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
         --full --slots 4 --max-len 2048 --requests 6
@@ -24,18 +29,21 @@ path on the dense layout.
     # on the CPU, the reduced configs in float32
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --dense
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --slots 4 --requests 4 --max-new 24 --shared-prefix 32 \
+        --prefix-cache --lazy --kv-pages 6
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
         --device cpu
 
 Without ``--full`` the arch's smoke config runs in float32, as the JAX
 launcher does; ``--full`` takes the arch's full ``CONFIG`` in its own
 dtype (bfloat16). The device picks the kernel path (CUDA: the
-hand-written kernels; CPU: their plain versions). Flags of features the
-port has not reached (``--prefix-cache``, ``--lazy``, ``--spec-k``,
+hand-written kernels; CPU: their plain versions). ``--prefix-cache``
+and ``--lazy`` serve on the pool, on the mixed and the split path (on
+the SSM family or with ``--dense`` they raise the reference's
+ValueError). Flags of features the port has not reached (``--spec-k``,
 ``--tp``/``--dp``) raise NotImplementedError naming their ROADMAP.md
-item (``--prefix-cache`` and ``--lazy`` on the SSM family or with
-``--dense`` raise the reference's ValueError); the online mode
-(``--serve``) waits for the online stack.
+item; the online mode (``--serve``) waits for the online stack.
 """
 from __future__ import annotations
 
@@ -74,9 +82,10 @@ def main(argv=None):
                     help="shared pool size in pages (default: "
                          "slots*ceil(max_len/page_size))")
     ap.add_argument("--prefix-cache", action="store_true",
-                    help="prefix sharing (not ported yet)")
+                    help="share KV pages of common prompt prefixes")
     ap.add_argument("--lazy", action="store_true",
-                    help="lazy page growth (not ported yet)")
+                    help="reserve pages as the context grows (copy-on-"
+                         "write, preemption when the pool runs dry)")
     ap.add_argument("--no-mixed", action="store_true",
                     help="legacy split prefill/decode instead of the "
                          "mixed token-slot step")
@@ -139,7 +148,13 @@ def main(argv=None):
           f"steps, {st['decode_traces']} decode shapes, "
           f"{st['prefill_traces']} prefill lengths)")
     if eng.paged:
-        print(f"  pool: peak {st['peak_pages']}/{eng.kv_pages} pages")
+        print(f"  pool: peak {st['peak_pages']}/{eng.kv_pages} pages, "
+              f"prefix hit/miss {st['prefix_hit_blocks']}/"
+              f"{st['prefix_miss_blocks']} blocks "
+              f"(+{st['prefix_tail_hits']} tail), "
+              f"{st['preemptions']} preemptions, "
+              f"{st['cow_copies']} CoW copies, "
+              f"{st['prefix_evictions']} evictions")
     if args.trace_out:
         obj = eng.export_trace(args.trace_out)
         print(f"  trace: {len(obj['traceEvents'])} events written to "

@@ -61,10 +61,29 @@ path cannot take (each kernel's ``kernel_limits``: paged attention on
 the paged layout, flash attention on the dense split path, the fused
 MLP on every dense path); nothing falls back to a plain version there.
 
+**Prefix sharing, lazy growth, copy-on-write and preemption** (the
+paged pool, both paths), as the reference's: ``prefix_cache=True`` maps
+page-aligned prompt blocks to refcounted pool pages through a radix tree
+(serve/prefix.py), so requests with a common prefix hold one copy and
+skip its prefill (the mixed step also adopts pages a donor is still
+prefilling, and registers blocks as cursors pass them); ``lazy=True``
+reserves the context plus its first decode page at admission and grows
+the reservation as cursors cross pages, evicting cold prefix blocks and
+then PREEMPTING the scheduler's victim when the pool runs dry (the
+victim is requeued with its output and resumes by re-prefilling
+``prompt + out``); a partial-tail prefix hit is copied on the first
+decode write (``kvcache.copy_page``). ``scheduler=`` takes any policy
+object (``next_index``, ``prefill_key``, ``pick_victim``, ``requeue``,
+``explain``); ``submit(deadline_s=)`` admits nearest deadline first and
+expires a request still queued past it; ``abort_event`` (a
+``threading.Event``) makes a mixed step return before it launches its
+program. Greedy streams stay exactly those of the JAX engine: on the
+card in bf16 too, because a paged row's bits do not depend on the rows
+beside it (kernels/paged_attention.py).
+
 Not ported yet, each raising ``NotImplementedError`` naming its
-ROADMAP.md item: prefix sharing, lazy growth / CoW / preemption, other
-schedulers and deadlines, speculative decode, TP/DP meshes,
-frames/images and the families other than dense and SSM.
+ROADMAP.md item: speculative decode, TP/DP meshes, frames/images and the
+families other than dense and SSM.
 """
 from __future__ import annotations
 
@@ -79,6 +98,7 @@ import torch
 from repro_torch.kernels import flash_attention, fused_mlp, paged_attention
 from repro_torch.models import get_model, kvcache, transformer
 from repro_torch.serve.paging import PageAllocator, pages_for
+from repro_torch.serve.prefix import PrefixCache
 from repro_torch.serve.sampling import sample_tokens
 from repro_torch.serve.scheduler import FifoLeastProgress
 from repro_torch.serve.step import (pack_token_budget, page_bucket,
@@ -101,13 +121,18 @@ def _todo(what: str, item: str):
 class Request:
     """One request's lifecycle record; ``run()`` returns these.
     ``done=False`` marks a request cut by ``max_steps`` (partial or
-    empty ``out``)."""
+    empty ``out``). A preempted request keeps its partial ``out`` while
+    requeued and resumes by prefilling ``prompt + out``; one whose
+    ``deadline`` passes while still QUEUED finishes ``done=False,
+    expired=True``."""
     rid: int
     prompt: np.ndarray                 # (len,) int32
     max_new: int
     out: List[int] = field(default_factory=list)
     done: bool = False
     priority: int = 0                  # scheduler hint, ignored by FIFO
+    deadline: Optional[float] = None   # absolute time.monotonic() bound
+    expired: bool = False              # deadline passed while queued
     # host timestamp of the FIRST generated token
     first_tok_t: Optional[float] = field(default=None, repr=False)
 
@@ -151,14 +176,6 @@ class ServeEngine:
                 f"{cfg.name}: the mixed token-slot step writes prefill "
                 "chunks through the paged KV scatter; drop paged=False "
                 "(or pass mixed=False) to serve this arch")
-        if prefix_cache:
-            raise _todo("prefix_cache", "Queue 1 item 5(b)")
-        if lazy:
-            raise _todo("lazy page growth, CoW and preemption",
-                        "Queue 1 item 5(b)")
-        if scheduler is not None and type(scheduler) is not FifoLeastProgress:
-            raise _todo("scheduler= other than the default",
-                        "Queue 1 item 5(c)")
         if spec is not None:
             raise _todo("speculative decode (spec=)", "Queue 1 item 7")
         if mesh is not None:
@@ -174,6 +191,7 @@ class ServeEngine:
         self.device = torch.device(device) if device is not None \
             else params["embed"].device
         self.paged, self.mixed = bool(paged), bool(mixed)
+        self.lazy, self.prefix_cache = bool(lazy), bool(prefix_cache)
         self.slots = slots
         self.max_len = max_len
         self.eos_id = eos_id
@@ -192,9 +210,15 @@ class ServeEngine:
         self.stats = {"decode_steps": 0, "decode_traces": 0,
                       "prefills": 0, "prefill_traces": 0,
                       "pages_in_use": 0, "peak_pages": 0,
+                      "prefix_hit_blocks": 0, "prefix_miss_blocks": 0,
+                      "prefix_tail_hits": 0, "prefix_evictions": 0,
+                      "preemptions": 0, "cow_copies": 0,
                       "step_count": 0, "decode_tokens": 0,
                       "wall_time_s": 0.0, "tokens_per_s_ewma": 0.0,
-                      "prefill_chunk_tokens": 0, "decode_slot_steps": 0,
+                      # blocks registered from decode output
+                      "prefix_decode_blocks": 0,
+                      "prefill_chunk_tokens": 0, "expired": 0,
+                      "decode_slot_steps": 0,
                       # device program runs (decode_steps counts only
                       # those that carried a decode row)
                       "mixed_steps": 0,
@@ -206,6 +230,15 @@ class ServeEngine:
             else FifoLeastProgress()
         self._pos = np.zeros(slots, np.int64)    # host mirror: tokens in ctx
         self._last = np.zeros(slots, np.int64)   # host mirror: last token
+        self._prefix: Optional[PrefixCache] = None
+        # mid-prefill slot table (mixed step): slot -> {ctx, n, cursor,
+        # covered, dep, salt, seq}; always present so that _grow_and_cow
+        # and _preempt can test membership on either path
+        self._pf: Dict[int, dict] = {}
+        self._admit_seq = 0
+        # a set threading.Event makes a mixed step return before it
+        # launches its program (the online driver's watchdog sets it)
+        self.abort_event = None
         #: logits of the last device program run (mixed step: (T, 1, V);
         #: split path: a prefill's (1, 1, V) or a decode's (slots, 1, V))
         self.last_logits = None
@@ -281,9 +314,8 @@ class ServeEngine:
         self._ptab_dirty = True
         self._alloc = PageAllocator(self.kv_pages, self.page_size,
                                     first_page=1)
-        # mid-prefill slot table: slot -> {ctx, n, cursor, seq}
-        self._pf: Dict[int, dict] = {}
-        self._admit_seq = 0
+        if self.prefix_cache:
+            self._prefix = PrefixCache(self._alloc, self.page_size)
         self._sync_ptab()
 
     # ------------------------------------------------------------ memory
@@ -374,14 +406,17 @@ class ServeEngine:
                images: Optional[np.ndarray] = None, priority: int = 0,
                deadline_s: Optional[float] = None):
         """Queue a request. Rejects what the engine can NEVER hold —
-        prompts at/over ``max_len``, and requests whose worst-case pages
-        exceed the whole pool — instead of deadlocking the FIFO head.
+        prompts at/over ``max_len``, and on the pool requests whose
+        minimum admission reservation (lazy: the prompt plus its first
+        decode write) or worst-case context exceeds the whole pool —
+        instead of deadlocking the scheduler's head. ``deadline_s`` (> 0)
+        is an SLO: the shipped policies admit the nearest deadline first
+        and give it the mixed step's prefill budget first, and a request
+        still QUEUED past it finishes ``done=False, expired=True``.
         Returns the LIVE Request record (``out`` grows as it decodes)."""
         if frames is not None or images is not None:
             raise _todo("frames=/images= requests (enc-dec and VLM)",
                         "Queue 1 item 10")
-        if deadline_s is not None:
-            raise _todo("deadline_s", "Queue 1 item 5(c)")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError(f"request {rid}: empty prompt")
@@ -395,6 +430,15 @@ class ServeEngine:
         if self.paged:
             cap = min(prompt.size + max_new - 1, self.max_len)
             worst = pages_for(cap, self.page_size)
+            if self.lazy:
+                need = pages_for(min(prompt.size + 1, cap), self.page_size)
+                if need > self.kv_pages:
+                    raise ValueError(
+                        f"request {rid}: minimum admission reservation is "
+                        f"{need} KV pages ({self.page_size} tokens each) "
+                        f"but the pool holds {self.kv_pages} — it could "
+                        f"never be placed; raise kv_pages or shorten the "
+                        f"prompt")
             if worst > self.kv_pages:
                 raise ValueError(
                     f"request {rid}: worst-case context needs {worst} KV "
@@ -402,8 +446,17 @@ class ServeEngine:
                     f"holds {self.kv_pages}; raise kv_pages or lower "
                     f"prompt+max_new")
             # pre-book the worst case in the bounded-gather high-water mark
+            # at submit, so lazy growth never re-buckets mid-decode
             self._hw_blocks = max(self._hw_blocks, worst)
-        req = Request(rid, prompt, int(max_new), priority=int(priority))
+        deadline = None
+        if deadline_s is not None:
+            if deadline_s <= 0:
+                raise ValueError(
+                    f"request {rid}: deadline_s must be > 0, got "
+                    f"{deadline_s}")
+            deadline = time.monotonic() + float(deadline_s)
+        req = Request(rid, prompt, int(max_new), priority=int(priority),
+                      deadline=deadline)
         self.queue.append(req)
         explain = getattr(self._sched, "explain", None)
         self.tracer.req_event(
@@ -411,6 +464,24 @@ class ServeEngine:
             max_new=int(max_new), queue_depth=len(self.queue),
             **(explain(req) if explain is not None else {}))
         return req
+
+    def _expire_queued(self, now: float):
+        """Finish every QUEUED request whose deadline has passed with
+        ``done=False, expired=True`` (a preempted one keeps its partial
+        output). Active slots never expire."""
+        if not any(r.deadline is not None for r in self.queue):
+            return
+        kept: Deque[Request] = deque()
+        for req in self.queue:
+            if req.deadline is not None and now > req.deadline:
+                req.expired = True
+                self.finished[req.rid] = req
+                self.stats["expired"] += 1
+                self.tracer.finish_request(req.rid, "expired",
+                                           tokens=len(req.out))
+            else:
+                kept.append(req)
+        self.queue = kept
 
     def _free_slot(self) -> Optional[int]:
         for s in range(self.slots):
@@ -440,21 +511,146 @@ class ServeEngine:
         self.stats["pages_in_use"] = used
         if used > self.stats["peak_pages"]:
             self.stats["peak_pages"] = used
+        if self._prefix is not None:
+            self.stats["prefix_hit_blocks"] = self._prefix.hit_blocks
+            self.stats["prefix_miss_blocks"] = self._prefix.miss_blocks
+            self.stats["prefix_tail_hits"] = self._prefix.tail_hits
+
+    @staticmethod
+    def _salt(req: Request, ctx: np.ndarray):
+        """Prefix-cache namespace. Causal KV of a dense decoder depends on
+        the prefix alone, so every block is portable: None. (The
+        reference salts enc-dec blocks with a digest of the frames and MoE
+        blocks with one of the whole context; those families are not on
+        the port's pool yet.)"""
+        return None
+
+    def _reserve_tokens(self, req: Request, n: int) -> int:
+        """Tokens slot admission reserves for a context of ``n``: lazy,
+        the context plus its first decode write, clamped to the request's
+        remaining worst case (a request finishing on its prefill token
+        writes no decode token); else the worst case."""
+        worst = min(n + req.max_new - len(req.out) - 1, self.max_len)
+        return min(n + 1, worst) if self.lazy else worst
+
+    def _alloc_evicting(self, s: int, reserve: int, shared: List[int]):
+        """``allocator.alloc`` that evicts cold prefix blocks first when
+        that can cover the shortfall (else the request waits for
+        retirements, and flushed blocks would buy nothing)."""
+        got = self._alloc.alloc(s, reserve, shared=shared)
+        if got is None and self._prefix is not None:
+            need = (pages_for(reserve, self.page_size) - len(shared)
+                    - self._alloc.free_pages)
+            keep = frozenset(shared)
+            if 0 < need <= self._prefix.evictable_pages(keep=keep):
+                while need > 0 and self._prefix.evict_one(keep=keep):
+                    self.stats["prefix_evictions"] += 1
+                    need -= 1
+                got = self._alloc.alloc(s, reserve, shared=shared)
+        return got
 
     def _place(self, s: int, req: Request, ctx: np.ndarray):
-        """Reserve slot ``s``'s worst-case pages. Returns the
-        block-ordered page ids, or None on backpressure."""
-        reserve = min(len(ctx) + req.max_new - len(req.out) - 1,
-                      self.max_len)
-        got = self._alloc.alloc(s, reserve)
-        if got is not None:
-            self._note_pool()
-        return got
+        """Split path: reserve slot ``s``'s pages — prefix match, adopt
+        the shared pages, draw fresh ones (evicting cold prefix blocks
+        when short) and register the context's full blocks. Returns
+        (block-ordered pages, shared head count) or (None, 0) on
+        backpressure."""
+        n = len(ctx)
+        reserve = self._reserve_tokens(req, n)
+        shared: List[int] = []
+        salt = tail_page = None
+        if self._prefix is not None:
+            salt = self._salt(req, ctx)
+            # a partial-tail hit costs a copy-on-write at the first decode
+            # write, which only lazy mode's reclaim ladder can pay for
+            full_pages, tail_page, _ = self._prefix.match(
+                ctx, salt=salt, want_tail=self.lazy)
+            shared = list(full_pages)
+            if tail_page is not None:
+                shared.append(tail_page)
+        got = self._alloc_evicting(s, reserve, shared)
+        if got is None:
+            return None, 0
+        if self._prefix is not None:
+            # count reuse on successful adoption only (a backpressured
+            # head-of-line request re-matches every step)
+            full = len(shared) - (1 if tail_page is not None else 0)
+            self._prefix.hit_blocks += full
+            self._prefix.miss_blocks += n // self.page_size - full
+            if tail_page is not None:
+                self._prefix.tail_hits += 1
+            self._prefix.insert(ctx, got, salt=salt)
+        self._note_pool()
+        return got, len(shared)
+
+    def _place_mixed(self, s: int, req: Request, ctx: np.ndarray):
+        """Mixed path: as :meth:`_place`, but the prefill runs later,
+        chunk by chunk, so nothing is registered here (the step registers
+        blocks as the cursor passes them) and the match may also adopt
+        pages of a slot still MID-PREFILL over the same context. Returns
+        ``(pages, covered, dep)``: ``covered`` context tokens whose KV
+        this slot must not rewrite, ``dep`` ``(donor slot, tokens)`` while
+        a donor still has to write some of them; ``(None, 0, None)`` on
+        backpressure."""
+        n = len(ctx)
+        reserve = self._reserve_tokens(req, n)
+        ps = self.page_size
+        shared: List[int] = []
+        covered, dep, tail_page = 0, None, None
+        if self._prefix is not None:
+            salt = self._salt(req, ctx)
+            full_pages, tail_page, _ = self._prefix.match(
+                ctx, salt=salt, want_tail=self.lazy)
+            shared = list(full_pages)
+            covered = len(full_pages) * ps
+            if tail_page is not None:
+                # a matched tail covers the whole remaining context; CoW
+                # copies it before the first decode write
+                shared.append(tail_page)
+                covered = n
+            elif covered < n:
+                # an in-flight donor over the same context extends the
+                # coverage past the tree
+                for d, st in self._pf.items():
+                    if st["salt"] != salt:
+                        continue
+                    dctx = st["ctx"]
+                    lim = min(n, len(dctx)) // ps * ps
+                    m = covered
+                    while m + ps <= lim and np.array_equal(
+                            ctx[m:m + ps], dctx[m:m + ps]):
+                        m += ps
+                    if m > covered:
+                        shared.extend(
+                            self._alloc.pages_of(d)[covered // ps:m // ps])
+                        dep = (d, m)
+                        covered = m
+                        break
+        got = self._alloc_evicting(s, reserve, shared)
+        if got is None:
+            return None, 0, None
+        if self._prefix is not None:
+            # every covered block, tree hit or in-flight adoption, is
+            # prefill work this request skips
+            full = covered // ps if tail_page is None else len(full_pages)
+            self._prefix.hit_blocks += full
+            self._prefix.miss_blocks += n // ps - full
+            if tail_page is not None:
+                self._prefix.tail_hits += 1
+        self._note_pool()
+        return got, covered, dep
+
+    @staticmethod
+    def _context(req: Request) -> np.ndarray:
+        """What admission prefills: the prompt, plus the tokens already
+        emitted when a preempted request resumes."""
+        return req.prompt if not req.out else np.concatenate(
+            [req.prompt, np.asarray(req.out, np.int32)])
 
     def _admit_mixed(self):
         """Place pages and ENQUEUE the prefill work (no device call: the
         step drains it chunk by chunk). The slot is active at once; its
-        first token is sampled on the chunk holding the last prompt
+        first token is sampled on the chunk holding the last context
         position. Head-of-line: when the scheduler's pick cannot be
         placed, nothing is."""
         while True:
@@ -465,8 +661,9 @@ class ServeEngine:
             if s is None:
                 return
             req = self.queue[qi]
-            ctx = req.prompt
-            got = self._place(s, req, ctx)
+            ctx = self._context(req)
+            n = len(ctx)
+            got, covered, dep = self._place_mixed(s, req, ctx)
             if got is None:
                 return
             self._ptab[s] = 0
@@ -477,9 +674,15 @@ class ServeEngine:
             self._pos[s] = 0
             self._last[s] = 0
             self.tracer.req_event(req.rid, "admitted", slot=s,
-                                  ctx_tokens=len(ctx), covered=0,
-                                  resumed=False)
-            self._pf[s] = {"ctx": ctx, "n": len(ctx), "cursor": 0,
+                                  ctx_tokens=n, covered=int(covered),
+                                  resumed=bool(req.out))
+            # cursor = next context position to compute; covered KV is
+            # skipped but for the last context token, which runs for its
+            # first-token logits (its write goes to the null page)
+            self._pf[s] = {"ctx": ctx, "n": n,
+                           "cursor": int(min(covered, n - 1)),
+                           "covered": int(covered), "dep": dep,
+                           "salt": self._salt(req, ctx),
                            "seq": self._admit_seq}
             self._admit_seq += 1
 
@@ -499,13 +702,13 @@ class ServeEngine:
             if s is None:
                 return
             req = self.queue[qi]
-            ctx = req.prompt
+            ctx = self._context(req)
             n = len(ctx)
             blen = prefill_bucket(n, cap=self._window) if self._bucketed \
                 else n
             pages = None
             if self.paged:
-                got = self._place(s, req, ctx)
+                got, n_shared = self._place(s, req, ctx)
                 if got is None:
                     return
                 self._ptab[s] = 0
@@ -515,10 +718,13 @@ class ServeEngine:
                                     np.int64)
                 m = min(len(page_vec), len(got))
                 page_vec[:m] = got[:m]
+                # shared head pages already hold this prefix's KV, and
+                # other slots read them: their blocks go to the null page
+                page_vec[:min(n_shared, len(page_vec))] = 0
                 pages = torch.from_numpy(page_vec).to(self.device)
             del self.queue[qi]
             self.tracer.req_event(req.rid, "admitted", slot=s,
-                                  ctx_tokens=n, resumed=False)
+                                  ctx_tokens=n, resumed=bool(req.out))
             if self.paged:
                 self._sync_ptab()
             padded = np.zeros((1, blen), np.int32)
@@ -564,6 +770,128 @@ class ServeEngine:
         if self.paged:
             self._release_pages(s)
 
+    # -------------------------------------------- lazy growth + CoW + preempt
+    def _preempt(self, s: int):
+        """Evict slot ``s``: release its pages (prefix pages only drop a
+        reference and usually stay cached) and requeue the request,
+        partial output intact, for re-prefill. A MID-PREFILL victim
+        cascades to every slot that adopted its pages beyond what its
+        cursor wrote: that KV will never exist, so those re-prefill
+        too."""
+        req = self.active[s]
+        st = self._pf.pop(s, None)
+        self.active[s] = None
+        if self.paged:
+            self._release_pages(s)
+        self._sched.requeue(self.queue, req)
+        self.stats["preemptions"] += 1
+        self.tracer.req_preempted(req.rid, slot=s, tokens=len(req.out),
+                                  mid_prefill=st is not None)
+        if st is not None:
+            for d, dst in list(self._pf.items()):
+                if dst["dep"] is not None and dst["dep"][0] == s \
+                        and st["cursor"] < dst["dep"][1]:
+                    self._preempt(d)
+
+    def preempt(self, s: int):
+        """Cancel slot ``s`` and requeue its request (any layout): the
+        online driver's recovery path. The request keeps its partial
+        output and resumes by re-prefill; greedy streams do not change."""
+        if not 0 <= s < self.slots or self.active[s] is None:
+            raise ValueError(f"slot {s} holds no active request")
+        self._preempt(s)
+
+    def _reclaim_one(self, needy: int) -> bool:
+        """Free pool capacity for slot ``needy``: evict one cold prefix
+        block if there is one, else preempt the scheduler's victim.
+        False when ``needy`` itself was preempted or nothing is left to
+        reclaim (the caller skips the slot this step)."""
+        if self._prefix is not None and self._prefix.evict_one():
+            self.stats["prefix_evictions"] += 1
+            return True
+        victims = [(t, len(self.active[t].out), self.active[t].priority)
+                   for t in range(self.slots) if self.active[t] is not None]
+        if not victims:
+            return False
+        v = self._sched.pick_victim(victims)
+        self._preempt(v)
+        return v != needy
+
+    def _extend_reclaiming(self, s: int, n_tokens: int):
+        """``allocator.extend`` with the reclaim ladder: the fresh pages,
+        or None when slot ``s`` was preempted to satisfy itself."""
+        while True:
+            fresh = self._alloc.extend(s, n_tokens)
+            if fresh is not None:
+                self._note_pool()
+                return fresh
+            if not self._reclaim_one(s):
+                return None
+
+    def _cow_reclaiming(self, s: int, blk: int) -> bool:
+        """Copy-on-write slot ``s``'s page at ``blk`` (allocator swap, then
+        the device copy of every layer's K and V), reclaiming when no
+        page is free. False when slot ``s`` was preempted instead."""
+        while True:
+            old = self._alloc.pages_of(s)[blk]
+            new = self._alloc.cow(s, blk)
+            if new is not None:
+                if new != old:
+                    kvcache.copy_page(self._cache["kv"], old, new)
+                    self._ptab[s, blk] = new
+                    self._ptab_dirty = True
+                    self.stats["cow_copies"] += 1
+                    self._note_pool()
+                return True
+            if not self._reclaim_one(s):
+                return False
+
+    def _grow_and_cow(self):
+        """Before the decode rows write at each slot's cursor: grow lazy
+        reservations across page boundaries and copy-on-write a write
+        target that is still shared. Either may preempt slots (the needy
+        one included) when the pool runs dry."""
+        ps = self.page_size
+        for s in range(self.slots):
+            # mid-prefill slots write no decode row this step, and their
+            # shared head blocks must not be copied
+            if self.active[s] is None or s in self._pf:
+                continue
+            pos = int(self._pos[s])
+            if self.lazy and \
+                    pages_for(pos + 1, ps) > len(self._alloc.pages_of(s)):
+                fresh = self._extend_reclaiming(s, pos + 1)
+                if fresh is None:
+                    continue                  # s was preempted
+                w = len(self._alloc.pages_of(s))
+                self._ptab[s, w - len(fresh):w] = fresh
+                self._ptab_dirty = True
+            own = self._alloc.pages_of(s)
+            blk = pos // ps
+            if blk < len(own) and self._alloc.refcount(own[blk]) > 1:
+                self._cow_reclaiming(s, blk)
+
+    def _register_decode_block(self, s: int, req: Request):
+        """Slot ``s``'s cursor just crossed a page boundary: register the
+        context's full blocks, so a repeat continuation (or this request's
+        own re-prefill after a preemption) adopts them. KV exists for
+        ``prompt + out[:-1]`` (the newest token is the next step's
+        input)."""
+        ctx = np.concatenate([req.prompt, np.asarray(req.out[:-1],
+                                                     np.int32)])
+        self.stats["prefix_decode_blocks"] += self._prefix.insert(
+            ctx, self._alloc.pages_of(s), salt=self._salt(req, ctx))
+
+    def release_prefix_cache(self) -> int:
+        """Flush every prefix block no live request still shares, freeing
+        their pages. Returns the number of blocks evicted."""
+        if self._prefix is None:
+            return 0
+        n = self._prefix.flush()
+        self.stats["prefix_evictions"] += n
+        self._note_pool()
+        return n
+
     # -------------------------------------------------------------- serve
     def step(self) -> int:
         """Advance the engine by one step: the mixed token-slot step on
@@ -581,9 +909,13 @@ class ServeEngine:
         t0 = time.perf_counter()
         before = self.stats["decode_tokens"]
         tr = self.tracer.begin_step(self.stats["step_count"])
+        self._expire_queued(time.monotonic())
         tr.lap("bookkeeping")
         self._admit()
         tr.lap("admit")
+        if self.paged and (self.lazy or self._prefix is not None):
+            self._grow_and_cow()
+            tr.lap("bookkeeping")
         mask = np.array([r is not None for r in self.active])
         if mask.any():
             if self.paged:
@@ -610,6 +942,9 @@ class ServeEngine:
                 self.tracer.req_tokens(req.rid, 1)
                 self.tracer.req_detail(req.rid, "decode", slot=s,
                                        pos=int(self._pos[s]))
+                if self._prefix is not None and \
+                        self._pos[s] % self.page_size == 0:
+                    self._register_decode_block(s, req)
                 hit_eos = self.eos_id is not None and t == self.eos_id
                 if len(req.out) >= req.max_new or hit_eos or \
                         self._pos[s] >= self.max_len:
@@ -617,25 +952,48 @@ class ServeEngine:
         return self._finish_step(t0, before, tr)
 
     def _step_mixed(self) -> int:
-        """One MIXED token-slot step: admit into free slots (pages only),
-        fill the ``chunk_tokens`` budget with every decoding slot's next
-        token FIRST and prefill chunks after (admission order), and run
-        the whole batch as ONE device program. Admission runs again at
-        the END so a request finishing on its prefill token frees its slot
-        for the same-step queue. Returns the tokens produced."""
+        """One MIXED token-slot step: return at once while ``abort_event``
+        is set; expire overdue queued requests, admit into free slots
+        (pages only), grow and copy-on-write, then fill the
+        ``chunk_tokens`` budget with every decoding slot's next token
+        FIRST and prefill chunks after (the scheduler's ``prefill_key``
+        order, then admission order), and run the whole batch as ONE
+        device program. Admission runs again at the END so a request
+        finishing on its prefill token frees its slot for the same-step
+        queue. Returns the tokens produced."""
         t0 = time.perf_counter()
         before = self.stats["decode_tokens"]
         tr = self.tracer.begin_step(self.stats["step_count"])
+        abort = self.abort_event
+        if abort is not None and abort.is_set():
+            # a cancellation point at the chunk boundary: no program runs
+            return self._finish_step(t0, before, tr)
+        self._expire_queued(time.monotonic())
         self._admit_mixed()
+        if self.lazy or self._prefix is not None:
+            self._grow_and_cow()
         tr.lap("bookkeeping")
+        # a dependency is met once the donor left the prefill table (it
+        # finished; a donor preempted earlier already cascaded) or its
+        # cursor passed the needed point
+        for st in self._pf.values():
+            if st["dep"] is not None:
+                d, needed = st["dep"]
+                dst = self._pf.get(d)
+                if dst is None or dst["cursor"] >= needed:
+                    st["dep"] = None
         decode_slots = [s for s in range(self.slots)
                         if self.active[s] is not None and s not in self._pf]
         tr.lap("draft")
-        items = sorted(self._pf.items(), key=lambda kv: kv[1]["seq"])
+        pkey = getattr(self._sched, "prefill_key", None)
+        items = sorted(
+            self._pf.items(),
+            key=lambda kv: ((pkey(self.active[kv[0]])
+                             if pkey is not None else ()), kv[1]["seq"]))
         allot = pack_token_budget(
             self.chunk_tokens, len(decode_slots),
-            [{"slot": s, "cursor": st["cursor"], "n": st["n"]}
-             for s, st in items])
+            [{"slot": s, "cursor": st["cursor"], "n": st["n"],
+              "dep": st["dep"]} for s, st in items])
         if not decode_slots and not allot:
             self._admit_mixed()
             return self._finish_step(t0, before, tr)
@@ -651,14 +1009,20 @@ class ServeEngine:
         for s, start, count in allot:
             st = self._pf[s]
             ctx, last = st["ctx"], st["n"] - 1
+            span = np.arange(start, start + count)
             meta[0, r:r + count] = ctx[start:start + count]
-            meta[1, r:r + count] = np.arange(start, start + count)
+            meta[1, r:r + count] = span
             meta[2, r:r + count] = s
-            meta[4, r:r + count] = 0
+            # covered positions already live in shared pages: their
+            # writes go to the null page
+            meta[4, r:r + count] = span < st["covered"]
             if start <= last < start + count:
                 meta[3, r + last - start] = 1
                 emit_row[s] = r + last - start
             r += count
+        if abort is not None and abort.is_set():
+            # set while admission and growth ran: yield here instead
+            return self._finish_step(t0, before, tr)
         self._sync_ptab()
         self._shapes.add((T, self._gather))
         self.stats["decode_traces"] = len(self._shapes)
@@ -685,6 +1049,9 @@ class ServeEngine:
             self.tracer.req_detail(req.rid, "decode", slot=s, tokens=1,
                                    drafted=0, accepted=0)
             tr.note_decode(s, req.rid, 1, drafted=0, accepted=0)
+            if self._prefix is not None and \
+                    self._pos[s] % self.page_size == 0:
+                self._register_decode_block(s, req)
             hit_eos = self.eos_id is not None and t == self.eos_id
             if len(req.out) >= req.max_new or hit_eos or \
                     self._pos[s] >= self.max_len:
@@ -698,6 +1065,14 @@ class ServeEngine:
             self.tracer.req_chunk_tokens(req.rid, count)
             self.tracer.req_detail(req.rid, "prefill_chunk", slot=s,
                                    start=start, count=count)
+            if self._prefix is not None:
+                # register only blocks the cursor has fully passed: no
+                # later request (or cascade) may adopt an unwritten block
+                aligned = st["cursor"] // self.page_size * self.page_size
+                if aligned > 0:
+                    self._prefix.insert(st["ctx"][:aligned],
+                                        self._alloc.pages_of(s),
+                                        salt=st["salt"])
             if st["cursor"] > st["n"] - 1:
                 # final chunk ran the last prompt position: emit the first
                 # token and flip the slot to decoding
@@ -755,6 +1130,10 @@ class ServeEngine:
         for k, v in self.stats.items():
             if k not in keep:
                 self.stats[k] = 0.0 if isinstance(v, float) else 0
+        if self._prefix is not None:
+            self._prefix.hit_blocks = 0
+            self._prefix.miss_blocks = 0
+            self._prefix.tail_hits = 0
         if self.paged:
             self._note_pool()
             self.stats["peak_pages"] = self.stats["pages_in_use"]

@@ -201,6 +201,76 @@ def test_paged_attention_bf16_kernel_tiles_rows_correctly(cuda, mix):
     assert items == want_items and (splits == want_splits).all()
 
 
+#: kv lengths around the 256-key segment boundary and past it, up to 16
+#: segments (chip_smoke.py phase 3)
+ROW_ALONE_KV = (255, 256, 257, 700, 1024, 4096)
+
+
+@pytest.mark.parametrize("kv_len", ROW_ALONE_KV)
+def test_paged_bf16_row_bits_depend_on_the_row_alone(cuda, kv_len):
+    """Qwen3-14B heads, bf16: one row's output is the same bits alone
+    (split past 256 keys), first and last in a run of its slot's 5 rows,
+    and in a tile beside another slot's row that shares its pages
+    (``neighbour_mixes``); alone it is within the per-value limit of the
+    fp32-P plain version."""
+    mixes, n_pages = pa.neighbour_mixes(kv_len)
+    gen = torch.Generator(device="cuda").manual_seed(kv_len)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    kp, vp, q0 = rnd(n_pages, 16, 8, 128), rnd(n_pages, 16, 8, 128), \
+        rnd(40, 128)
+    outs = {}
+    for name, (tab, pos, r) in mixes.items():
+        q = rnd(len(pos), 1, 40, 128)
+        q[r, 0] = q0
+        args = (q, kp, vp, torch.from_numpy(tab).cuda(),
+                torch.from_numpy(pos).cuda())
+        out = pa.paged_attention(*args)
+        outs[name] = out[r]
+        if name == "alone":
+            want = pa.paged_attention_plain_f32p(*args).float()
+            assert ((out.float() - want).abs()
+                    <= 1e-5 + 8e-3 * want.abs()).all()
+    torch.cuda.synchronize()
+    for name, out in outs.items():
+        assert torch.equal(out, outs["alone"]), name
+
+
+def test_device_tile_plan_equals_tile_plan_on_a_prefix_shared_mix(cuda):
+    """Four slots whose tables share a 512-token prefix (32 pages), as the
+    prefix cache lays them out: three decode rows and 253 rows of the
+    fourth slot's chunk past the prefix, then a decode-only step (252 pad
+    rows on the null page); the device plan equals ``tile_plan`` and the
+    output is within the per-value limit of the fp32-P plain version."""
+    rng = np.random.default_rng(8)
+    perm = rng.permutation(np.arange(1, 257)).astype(np.int32)
+    tables = np.zeros((4, 64), np.int32)
+    tables[:, :32] = perm[:32]
+    for s in range(4):
+        tables[s, 32:44] = perm[32 + 12 * s:44 + 12 * s]
+    mixes = [([0, 1, 2] + [3] * 253, [548, 572, 601] + list(range(512, 765))),
+             ([0, 1, 2, 3] + [4] * 252, [549, 573, 602, 765] + [0] * 252)]
+    tables = np.concatenate([tables, np.zeros((1, 64), np.int32)])
+    for slots, cursors in mixes:
+        tab = torch.from_numpy(tables[slots]).cuda()
+        pos = torch.tensor(cursors, dtype=torch.int32).cuda()
+        items, splits = pa.device_tile_plan(tab, pos, 16, 5)
+        want_items, want_splits = pa.tile_plan(tab.cpu().numpy(),
+                                               pos.cpu().numpy(), 16, 5)
+        assert items == want_items and (splits == want_splits).all()
+        arrs = [rng.standard_normal(sh).astype(np.float32)
+                for sh in ((len(slots), 1, 40, 128), (257, 16, 8, 128),
+                           (257, 16, 8, 128))]
+        q, kp, vp = (torch.from_numpy(a).cuda().to(torch.bfloat16)
+                     for a in arrs)
+        got = pa.paged_attention(q, kp, vp, tab, pos).float()
+        want = pa.paged_attention_plain_f32p(q, kp, vp, tab, pos).float()
+        assert ((got - want).abs() <= 1e-5 + 8e-3 * want.abs()).all()
+
+
 def test_paged_attention_bf16_check_rejects_a_dropped_live_page(cuda):
     """The per-value check above fails a run whose table drops one live
     page of the prefill slot (read by 253 rows) for the null page."""

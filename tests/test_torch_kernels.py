@@ -14,6 +14,7 @@ forward (tests/test_kernels.py:33) and its custom VJP at 2e-5 / 2e-4
 """
 import numpy as np
 import pytest
+from hypothesis import given, settings, strategies as st
 
 torch = pytest.importorskip("torch")
 
@@ -124,16 +125,23 @@ def test_paged_attention_plain_f32p_is_the_pallas_arithmetic_in_bf16(hq, hkv):
 
 def test_paged_tile_sizes_and_splits():
     """Rows a tile fill the 64 M rows of a wgmma with whole rows of rep
-    query heads; a lone row splits past 4 kv tiles of 64 keys into at most
-    4 parts, by its own length alone."""
+    query heads; a tile splits past one 256-key segment (4 kv tiles of 64
+    keys) of its last row into one work item a segment, with no cap on
+    the count; ``segments`` are fixed in absolute keys."""
     assert [pa.rows_per_tile(r) for r in (1, 4, 5, 8, 16)] == [64, 16, 12,
                                                                 8, 4]
-    want = {0: (1, 0), 1: (1, 1), 4: (1, 4), 5: (2, 3), 8: (2, 4),
-            9: (3, 3), 12: (3, 4), 16: (4, 4), 17: (4, 5), 64: (4, 16)}
+    want = {0: (1, 0), 1: (1, 1), 4: (1, 4), 5: (2, 4), 8: (2, 4),
+            9: (3, 4), 12: (3, 4), 16: (4, 4), 17: (5, 4), 64: (16, 4)}
     for n_tiles, split in want.items():
         assert pa.split_tiles(n_tiles) == split
         count, per = split
         assert n_tiles == 0 or (count - 1) * per < n_tiles <= count * per
+    assert pa.segments(0) == []
+    assert pa.segments(255) == [(0, 255)]
+    assert pa.segments(256) == [(0, 256)]
+    assert pa.segments(257) == [(0, 256), (256, 257)]
+    assert pa.segments(700) == [(0, 256), (256, 512), (512, 700)]
+    assert len(pa.segments(4096)) == 16
 
 
 def _slot_tables(ctx, width=64, page_size=16, seed=0):
@@ -149,26 +157,36 @@ def _slot_tables(ctx, width=64, page_size=16, seed=0):
 
 
 def test_tile_plan_on_the_serving_mixes():
-    """Phase 5's mixes (Qwen3-14B, rep 5, 16-token pages): the 253 rows of
-    a prefill chunk share 21 tiles of 12 rows and one lone row; decode rows
-    of different slots never share a tile; the 252 padding rows of a
-    decode-only step (slot 0, pos 0) take 21 tiles of one page each."""
+    """Phase 5's mixes (Qwen3-14B, rep 5, 16-token pages): decode rows of
+    different slots never share a tile, and each splits into its 256-key
+    segments (716, 300, 520 keys: 3, 2, 3); the 253 rows of a prefill
+    chunk past 256 keys share 21 tiles of 12 rows and one lone row, each
+    split into its 2 segments, so every row's own segments go through the
+    combine; the 252 padding rows of a decode-only step (slot 0, pos 0)
+    take 21 whole tiles of one page each, written directly; a lone
+    4096-key row splits into 16 segments."""
     tables = _slot_tables((716, 300, 520, 640))
     slots = [0, 1, 2] + [3] * 253
-    items, splits = pa.tile_plan(tables[slots], [715, 299, 519]
-                                 + list(range(256, 509)), 16, 5)
+    items, fold = pa.tile_plan(tables[slots], [715, 299, 519]
+                               + list(range(256, 509)), 16, 5)
     decode = [(0, 1, s) for s in range(3)] + [(1, 1, s) for s in range(2)] \
         + [(2, 1, s) for s in range(3)]
     assert items[:8] == decode
-    assert items[8:29] == [(3 + 12 * i, 12, -1) for i in range(21)]
-    assert items[29:] == [(255, 1, 0), (255, 1, 1)]
-    assert list(splits[:4]) == [3, 2, 3, 1] and splits[255] == 2
+    assert items[8:50] == [(3 + 12 * (i // 2), 12, i % 2)
+                           for i in range(42)]
+    assert items[50:] == [(255, 1, 0), (255, 1, 1)]
+    assert list(fold[:4]) == [3, 2, 3, 2] and (fold[3:] == 2).all()
     slots = [0, 1, 2, 3] + [0] * 252
-    items, _ = pa.tile_plan(tables[slots], [715, 299, 519, 639] + [0] * 252,
-                            16, 5)
+    items, fold = pa.tile_plan(tables[slots],
+                               [715, 299, 519, 639] + [0] * 252, 16, 5)
     assert [it for it in items if it[0] >= 4] == [(4 + 12 * i, 12, -1)
                                                   for i in range(21)]
     assert len(items) == 11 + 21
+    assert list(fold[:4]) == [3, 2, 3, 3] and (fold[4:] == -1).all()
+    # a lone 4096-key decode row: one item a 256-key segment, 16 of them
+    items, fold = pa.tile_plan(np.arange(1, 257, dtype=np.int32)[None],
+                               [4095], 16, 5)
+    assert items == [(0, 1, s) for s in range(16)] and fold[0] == 16
 
 
 def test_tile_plan_never_shares_a_tile_across_tables():
@@ -183,8 +201,11 @@ def test_tile_plan_never_shares_a_tile_across_tables():
     assert items == [(0, 7, -1), (7, 9, -1)]
     tables = _slot_tables((716, 716))
     tables[1, :5] = tables[0, :5]
-    items, _ = pa.tile_plan(tables[[0, 1, 0, 1]], [300, 400, 70, 400], 16, 5)
-    assert items == [(0, 1, 0), (0, 1, 1), (1, 1, 0), (1, 1, 1), (2, 2, -1)]
+    items, fold = pa.tile_plan(tables[[0, 1, 0, 1]], [300, 400, 70, 400],
+                               16, 5)
+    assert items == [(0, 1, 0), (0, 1, 1), (1, 1, 0), (1, 1, 1), (2, 2, 0),
+                     (2, 2, 1)]
+    assert list(fold) == [2, 2, 1, 2]
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -192,8 +213,9 @@ def test_tile_plan_rows_read_only_their_own_pages(seed):
     """Random rows over random fragmented tables, some sharing a slot's
     table and some a prefix of it: every row of a tile agrees with the
     tile's last row (whose table the tile reads) over its own live pages,
-    no tile exceeds its row count, and every row is covered exactly once
-    (or by all its splits)."""
+    no tile exceeds its row count, every row lies in exactly one tile,
+    covered once by a whole item or by each of its tile's segment items,
+    and a row of a split tile has its own segment count to fold."""
     rng = np.random.default_rng(seed)
     tables = _slot_tables((900, 900, 400, 64), seed=seed)
     tables[1, :7] = tables[0, :7]     # slot 1 shares slot 0's first pages
@@ -206,18 +228,58 @@ def test_tile_plan_rows_read_only_their_own_pages(seed):
         pos = np.sort(pos)
     tab = tables[slots]
     rep = int(rng.choice([1, 4, 5, 8]))
-    items, splits = pa.tile_plan(tab, pos, 16, rep)
-    live = -(-(np.clip(pos + 1, 0, 1024)) // 16)
-    covered = np.zeros(b, np.int64)
+    items, fold = pa.tile_plan(tab, pos, 16, rep)
+    kv = np.clip(pos + 1, 0, 1024)
+    live = -(-kv // 16)
+    covered, tiles = np.zeros(b, np.int64), {}
     for row0, n_rows, split in items:
         last = row0 + n_rows - 1
         assert 1 <= n_rows <= pa.rows_per_tile(rep)
-        assert split == -1 or n_rows == 1
+        assert (split == -1) == (-(-kv[last] // 256) <= 1)
         for r in range(row0, row0 + n_rows):
             assert (tab[r, :live[r]] == tab[last, :live[r]]).all()
             assert live[r] <= live[last]
             covered[r] += 1
-    assert (covered == splits).all()
+            tiles.setdefault(r, set()).add(row0)
+    assert all(len(t) == 1 for t in tiles.values()) and len(tiles) == b
+    for r in range(b):
+        if fold[r] < 0:
+            assert covered[r] == 1
+        else:
+            assert fold[r] == len(pa.segments(int(kv[r])))
+            assert covered[r] >= max(fold[r], 2)
+
+
+@settings(max_examples=80, deadline=None)
+@given(seed=st.integers(0, 2 ** 32 - 1), rep=st.sampled_from([1, 4, 5, 8,
+                                                              16]),
+       b=st.integers(1, 80), runs=st.booleans())
+def test_tile_plan_segments_depend_on_own_kv_len(seed, rep, b, runs):
+    """Over random tables (slots sharing first pages, as prefix hits do),
+    cursors and rep: the key segments each row accumulates under the
+    plan's items, in order, are ``segments`` of its own kv_len — whether
+    it is lone, in a run of its slot's rows or in a tile beside another
+    slot's — and the combine folds exactly those (a whole item's row has
+    one)."""
+    rng = np.random.default_rng(seed)
+    tables = _slot_tables((1300, 1300, 700, 300), width=96, seed=seed % 7)
+    share = int(rng.integers(1, 60))
+    tables[1, :share] = tables[0, :share]
+    slots = rng.integers(0, 4, size=b)
+    pos = rng.integers(0, 1536, size=b).astype(np.int32)
+    if runs:                          # a slot's rows together, rising
+        order = np.lexsort((pos, slots))
+        slots, pos = slots[order], pos[order]
+    tab = tables[slots]
+    items, fold = pa.tile_plan(tab, pos, 16, rep)
+    got = pa.row_segments(items, pos, 16, tab.shape[1])
+    kv = np.clip(pos.astype(np.int64) + 1, 0, tab.shape[1] * 16)
+    for r in range(b):
+        assert got.get(r, []) == pa.segments(int(kv[r])), r
+        # the combine folds exactly those segments; a whole item's row has
+        # at most one
+        assert fold[r] == len(got.get(r, [])) if fold[r] >= 0 \
+            else len(got.get(r, [])) <= 1
 
 
 @pytest.mark.parametrize("t,d,f", [(128, 64, 256), (256, 128, 512),

@@ -464,9 +464,7 @@ def test_submit_validation_and_backpressure(weights):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"prefix_cache": True}, "5(b)"), ({"lazy": True}, "5(b)"),
-    ({"scheduler": object()}, "5(c)"), ({"spec": 2}, "item 7"),
-    ({"mesh": object()}, "item 11")])
+    ({"spec": 2}, "item 7"), ({"mesh": object()}, "item 11")])
 def test_unported_engine_features_raise(weights, kw, item):
     _, _, params = weights
     with pytest.raises(NotImplementedError, match=re.escape(item)):
@@ -479,8 +477,6 @@ def test_unported_requests_and_families_raise(weights):
     with pytest.raises(NotImplementedError, match="item 10"):
         eng.submit(0, np.ones(3, np.int32), max_new=2,
                    frames=np.zeros((2, 2), np.float32))
-    with pytest.raises(NotImplementedError, match=r"5\(c\)"):
-        eng.submit(0, np.ones(3, np.int32), max_new=2, deadline_s=1.0)
     moe = CFG.with_(arch_type="moe", num_experts=4, experts_per_token=2)
     with pytest.raises(NotImplementedError, match="item 10"):
         ServeEngine(moe, params)
@@ -527,6 +523,27 @@ def test_launcher_serves_the_split_path_on_cpu(capsys, flags, layout):
     assert layout in capsys.readouterr().out
     assert {i: r.out for i, r in split.items()} == \
         {i: r.out for i, r in mixed.items()}
+
+
+@pytest.mark.parametrize("flags", [[], ["--no-mixed"]])
+def test_launcher_serves_prefix_cache_and_lazy_on_cpu(capsys, flags):
+    """``--prefix-cache --lazy --shared-prefix`` on a pool below demand
+    serve on both paged paths, print the reference's counter line, and
+    give the streams of the run without them."""
+    from repro_torch.launch import serve as launcher
+    args = ["--device", "cpu", "--slots", "4", "--requests", "4",
+            "--max-new", "24", "--trace-level", "0", "--shared-prefix",
+            "32"] + flags
+    plain = launcher.main(args)
+    capsys.readouterr()
+    shared = launcher.main(args + ["--prefix-cache", "--lazy",
+                                   "--kv-pages", "6"])
+    out = capsys.readouterr().out
+    hits = re.search(r"prefix hit/miss (\d+)/(\d+) blocks .* (\d+) "
+                     r"preemptions, (\d+) CoW copies", out)
+    assert hits and int(hits.group(1)) >= 3 * 2 and int(hits.group(3)) >= 1
+    assert {i: r.out for i, r in shared.items()} == \
+        {i: r.out for i, r in plain.items()}
 
 
 def _imports(path: Path):
