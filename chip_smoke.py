@@ -21,7 +21,10 @@ Phases (any failure exits non-zero; no result line is printed then):
    defective plain variant; both also at every shape the split path of
    phase 5b gives them: flash at each prefill bucket of one prompt, 32 to
    1024 positions, and at generate's 4 x 512, the fused MLP at 4, 32,
-   64, 128, 512, 1024 and 2048 rows); bf16 paged attention also per
+   64, 128, 512, 1024 and 2048 rows, and on 16 draws of x at each of
+   those row counts and at 256, beside the plain version's and the
+   kernel's distance from an exactly rounded h); bf16 paged attention
+   also per
    value against the Pallas arithmetic (P fp32), shown to reject a run
    with one live page dropped, on a tile straddling two slots, rows
    whose tables agree on their first pages only, a lone 1024-token row
@@ -30,7 +33,8 @@ Phases (any failure exits non-zero; no result line is printed then):
    its device plan equal to ``tile_plan``, two identical calls equal bit
    for bit, one row's output equal bit for bit alone, in runs of its
    slot's rows and beside rows of slots sharing its pages at kv_len 255,
-   256, 257, 700, 1024 and 4096 (the row-alone check), and timed at the
+   256, 257, 700, 1024 and 4096, each with page tables of 1, 2 and 4
+   times the width its rows need (the row-alone check), and timed at the
    T = 256 and decode-only mixes and four lone 4096-key decode rows (by
    CUDA-graph replay, and eager with its host path); the SSD scan in
    bf16 at the SSM prefill's shape (b 1, s 1024, h 48, p 64, n 128,
@@ -55,7 +59,10 @@ Phases (any failure exits non-zero; no result line is printed then):
    ``Priority()``, on the mixed and the split path: streams identical to
    the CPU's and to prefix off, every prefix, preemption and CoW counter
    equal to the CPU's, at least one preemption and one copy-on-write in
-   the lazy runs; through the split-path engine on
+   the lazy runs; through the mixed step with speculative decode (k 4,
+   the ngram drafter) on repetitive prompts: streams identical to the
+   CPU's and to spec off, drafted and accepted counts equal to the CPU's
+   and above 0; through the split-path engine on
    ``mamba2-smoke``,
    first-prefill logits within 1e-4 and greedy streams identical, the
    SSD kernel launched layers x prefills times on the card; through the
@@ -121,6 +128,29 @@ Phases (any failure exits non-zero; no result line is printed then):
    released; exact launch counts in every run; run D's share of tokens
    equal to A's is reported. Prints tokens/s, step p50, peak memory and
    the counters of each run.
+9. SPECULATIVE DECODE on phase 5's session (after phase 8): 8 requests
+   (4 prompts of 3-6-token motifs tiled to 200-600 tokens, 4 random
+   prompts of 24-700 tokens), 32 new tokens each, through the mixed step
+   without speculation (A), with the ngram drafter, k 4 (B), as B with
+   the prefix cache and lazy growth on a 56-page pool (C), and with the
+   verifier's own config and weights as the draft model on 2 slots (D:
+   the first 2 requests, 16 new tokens). Runs B, C and D must give run
+   A's bf16 streams token for token (B with A's program shapes), B must
+   accept drafts and emit more than one token per (decode step, slot), C
+   must leave no page in use once its prefix cache is released; exact
+   launch counts in every run (D's draft forwards run flash and the fused
+   MLP once a layer a draft token). Prints tokens/s, steps, step p50,
+   accept rate, tokens per (decode step, slot), rollbacks, preemptions
+   and peak pages of each run.
+10. ONLINE SERVING on phase 5's session with run B's settings:
+   ``Session.serve_async(start=False)`` with all 8 requests submitted,
+   then started (streams must equal run B's); then
+   ``Session.serve_http(port=0)`` with the 8 prompts POSTed to
+   /generate from 8 client threads (one streaming), then /metrics and
+   /healthz: every response carries its 32 tokens, the TTFT count is 8
+   and /metrics' ``spec_drafted`` is the engine's; exact launch counts.
+   Prints TTFT and TPOT p50/p90 and the share of tokens equal to run B's
+   (reported, not checked).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -653,6 +683,57 @@ def phase_attention(rng):
 #: the fused MLP's row counts on the split path (phase 5b) beside the
 #: T = 256 of phase 5: a 4-slot decode, prefill buckets, generate's 4 x 512
 MLP_SPLIT_ROWS = (4, 32, 64, 128, 512, 1024, 2048)
+#: draws of x at each row count of the seed sweep
+MLP_SWEEP_SEEDS = 16
+
+
+def exact_h_mlp(x, wg64, wu64, wd64):
+    """The SwiGLU with h from fp64 sums rounded once to bf16 and the down
+    projection summed in fp64 and rounded once: the exactly rounded
+    reference of a bf16 kernel that stores h in bf16."""
+    x64 = x.double()
+    h = (torch.nn.functional.silu(x64 @ wg64) * (x64 @ wu64)).to(
+        torch.bfloat16)
+    return (h.double() @ wd64).to(torch.bfloat16)
+
+
+def mlp_seed_sweep(wg, wu, wd, atol: float, rtol: float):
+    """At every row count of the split path and at T = 256, draw x from
+    ``MLP_SWEEP_SEEDS`` seeds and measure, as multiples of the per-value
+    limit: (a) the kernel against the plain version, (b) the plain
+    version against the exactly rounded h reference, (c) the kernel
+    against that reference. Returns {T: {"a", "b", "c": worst over the
+    seeds, "seeds_a_over": seeds where (a) > 1}}."""
+    from repro_torch.kernels import fused_mlp as fm
+    wg64, wu64, wd64 = wg.double(), wu.double(), wd.double()
+    d = wg.shape[0]
+    out = {}
+    for rows in sorted(set(MLP_SPLIT_ROWS) | {256}):
+        worst = {"a": 0.0, "b": 0.0, "c": 0.0}
+        over = []
+        for seed in range(MLP_SWEEP_SEEDS):
+            gen = torch.Generator(device="cuda").manual_seed(
+                100_003 * rows + seed)
+            x = torch.randn((rows, d), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            got = fm.fused_mlp(x, wg, wu, wd)
+            plain = fm.fused_mlp_plain(x, wg, wu, wd)
+            exact = exact_h_mlp(x, wg64, wu64, wd64)
+            e = {"a": worst_excess(got, plain, atol, rtol),
+                 "b": worst_excess(plain, exact, atol, rtol),
+                 "c": worst_excess(got, exact, atol, rtol)}
+            if e["a"] > 1.0:
+                over.append(seed)
+            worst = {k: max(worst[k], e[k]) for k in worst}
+        torch.cuda.synchronize()
+        log(f"[mlp bf16 sweep T={rows}] worst of {MLP_SWEEP_SEEDS} seeds, "
+            f"x the limit (atol {atol}, rtol {rtol}): (a) kernel vs plain "
+            f"{worst['a']:.3f}, (b) plain vs exact h {worst['b']:.3f}, (c) "
+            f"kernel vs exact h {worst['c']:.3f}; seeds with (a) > 1: "
+            f"{over}")
+        out[rows] = {**worst, "seeds_a_over": over}
+    del wg64, wu64, wd64
+    return out
 
 
 def phase_mlp(rng):
@@ -671,13 +752,16 @@ def phase_mlp(rng):
     # bf16 at the main path's shape, weights at the init scales. The limit
     # is per value, atol + rtol |want|: rtol 8e-3 is one bf16 ulp of the
     # output (both round it once); atol 1e-3 covers h's rounding flips.
-    # Kernel and plain version sum x.Wg and x.Wu in other orders, so ~0.5%
-    # of the h values (up to |h| ~ 16, ulp 0.0625) round to the other
-    # neighbour, each moving an output by ulp(h) |Wd| ~ 1e-4. The run
-    # prints the atol the kernel needs and the atol a version with an
-    # exactly rounded h (from fp64 sums) needs: the second is over 1e-4,
-    # so 1e-4 would fail even an exact kernel. The same check rejects the
-    # two plain variants below.
+    # Kernel and plain version sum x.Wg and x.Wu in other orders, so some
+    # h values (up to |h| ~ 16, ulp 0.0625) round to the other neighbour,
+    # each moving an output by ulp(h) |Wd| ~ 1e-4. The run prints the atol
+    # the kernel needs and the atol a version with an exactly rounded h
+    # (from fp64 sums) needs: the second is over 1e-4, so 1e-4 would fail
+    # even an exact kernel. The same check rejects the two plain variants
+    # below, and holds on 16 draws of x at every row count (the seed
+    # sweep; before the kernel summed each stage's products from zero, its
+    # h flipped 8x as often as the plain version's and the outputs reached
+    # 1.14x the limit).
     t, d, f = 256, 5120, 17408
     atol, rtol = 1e-3, 8e-3
     bf = torch.bfloat16
@@ -718,12 +802,9 @@ def phase_mlp(rng):
     def atol_needed(a):
         return ((a.float() - want).abs() - rtol * want.abs()).max().item()
 
-    x64 = x.double()
-    h = (torch.nn.functional.silu(x64 @ wg.double())
-         * (x64 @ wu.double())).to(bf)
     need = {"kernel": atol_needed(got),
-            "exact_h": atol_needed((h.double() @ wd.double()).to(bf))}
-    del x64, h
+            "exact_h": atol_needed(exact_h_mlp(x, wg.double(), wu.double(),
+                                               wd.double()))}
     check(drop > 1.0 and partials_bf16 > 1.0,
           f"the bf16 check passes a defective version (dropped f tile "
           f"{drop:.3f}x, bf16 partials {partials_bf16:.3f}x the limit)")
@@ -765,6 +846,14 @@ def phase_mlp(rng):
                            "error_of_limit": e,
                            "dropped_tile_error_of_limit": dr})
     del wd_drop, xr, want_r, got_r
+    # the same per-value check on 16 draws of x at every row count and at
+    # T = 256, beside the plain version's and the kernel's distance from
+    # the exactly rounded h (ROADMAP.md Queue 3, closed)
+    sweep = mlp_seed_sweep(wg, wu, wd, atol, rtol)
+    for rows, w in sweep.items():
+        check(not w["seeds_a_over"], f"fused MLP bf16 at T={rows}: worst "
+              f"error {w['a']:.3f}x atol {atol} + rtol {rtol} on seeds "
+              f"{w['seeds_a_over']} of {MLP_SWEEP_SEEDS}")
     kernel = time_ms(lambda: fm.fused_mlp(x, wg, wu, wd))
     plain = time_ms(lambda: fm.fused_mlp_plain(x, wg, wu, wd),
                     iters=3, warmup=1)
@@ -786,6 +875,7 @@ def phase_mlp(rng):
             "bf16_partials_error_of_limit": partials_bf16,
             "bf16_atol_needed": need,
             "plan": plan, "split_path_rows": split_rows,
+            "seed_sweep": sweep,
             "ms": kernel, "kernel_ms": kernel, "plain_ms": plain,
             "bound_ms": bms, "bound_by": by, "library_ms": library,
             "library": "matmul(silu(matmul(x,Wg))*matmul(x,Wu), Wd)"}
@@ -1269,6 +1359,68 @@ def phase_parity_prefix():
                 f"prefix off; counters card = CPU {runs['cuda'][1]}")
             out[f"{path}, {name}"] = runs["cuda"][1]
     return out
+
+
+def phase_parity_spec():
+    """The tiny f32 dense config (TF32 off), card vs CPU, through the
+    mixed step with speculative decode (k 4, the ngram drafter) on
+    repetitive prompts (motifs of 3-6 tokens tiled to 20-40): streams
+    identical on card and CPU and to the card's spec-off run, drafted,
+    accepted and program-shape counters equal to the CPU's, both above 0,
+    and the card's launches the mixed step's. Returns the card's
+    counters."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.params import init_params
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.speculative import SpecConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig(name="pal-dense", arch_type="dense", num_layers=2,
+                      d_model=128, num_heads=4, num_kv_heads=2, d_ff=256,
+                      vocab_size=128, dtype="float32")
+    rng = np.random.default_rng(19)
+    prompts = [np.resize(rng.integers(0, 128, size=(int(rng.integers(3, 7)),)),
+                         int(rng.integers(20, 41))).astype(np.int32)
+               for _ in range(4)]
+    cpu = init_params(cfg, device="cpu", seed=3)
+    keys = ("spec_drafted", "spec_accepted", "decode_steps",
+            "decode_traces", "decode_tokens")
+    runs = {}
+    for dev, params, spec in (("cpu", cpu, SpecConfig(k=4)),
+                              ("cuda", _to(cpu, "cuda"), SpecConfig(k=4)),
+                              ("cuda off", None, None)):
+        if params is None:
+            params = _to(cpu, "cuda")
+        eng = ServeEngine(cfg, params, slots=2, max_len=64, chunk_tokens=16,
+                          spec=spec)
+        for i, p in enumerate(prompts):
+            eng.submit(i, p, max_new=12)
+        kernels.reset_launches()
+        res = eng.run()
+        counts = kernels.launches()
+        want = _want_launches(eng, cfg.num_layers) if dev != "cpu" \
+            else dict.fromkeys(counts, 0)
+        check(counts == want, f"[parity spec] launches on {dev} {counts} "
+              f"!= {want}")
+        runs[dev] = ({i: list(res[i].out) for i in res},
+                     {k: eng.stats[k] for k in keys})
+    check(runs["cpu"][0] == runs["cuda"][0] == runs["cuda off"][0],
+          "[parity spec] f32 greedy streams differ between the card with "
+          "spec, the CPU with spec and the card without")
+    check(runs["cpu"][1] == runs["cuda"][1], f"[parity spec] counters card "
+          f"{runs['cuda'][1]} != CPU {runs['cpu'][1]}")
+    st = runs["cuda"][1]
+    check(st["spec_drafted"] > 0 and st["spec_accepted"] > 0,
+          f"[parity spec] drafted {st['spec_drafted']}, accepted "
+          f"{st['spec_accepted']}: each must be > 0")
+    check(st["decode_traces"] == runs["cuda off"][1]["decode_traces"],
+          "[parity spec] program shapes differ spec on vs off")
+    log(f"[parity f32 spec, TF32 off] k 4, ngram: streams card = CPU = "
+        f"spec off over {len(prompts)} repetitive prompts; drafted "
+        f"{st['spec_drafted']}, accepted {st['spec_accepted']}, "
+        f"{st['decode_steps']} decode steps against "
+        f"{runs['cuda off'][1]['decode_steps']} without (card = CPU)")
+    return {"card": st, "spec_off": runs["cuda off"][1]}
 
 
 def phase_parity_ssm():
@@ -1847,6 +1999,308 @@ def phase_prefix(session, seed: int, max_new: int = 32):
     return out
 
 
+# ------------------------------------------------------------------ phase 9
+
+#: phase 9's runs: name -> serve() keywords beside 4 slots x 1024, 16-token
+#: pages and the 256-row mixed step ("spec" is filled in per run)
+SPEC_PHASE_RUNS = {
+    "A: spec off": dict(),
+    "B: ngram drafter, k 4": dict(spec="ngram"),
+    "C: as B, prefix cache, lazy, 56 pages": dict(
+        spec="ngram", prefix_cache=True, lazy=True, kv_pages=56),
+    "D: self-drafting model, k 4, 2 slots": dict(spec="model", slots=2),
+}
+#: run D serves the first requests only, with fewer new tokens (every draft
+#: token costs a 40-layer forward over up to 1024 positions)
+SPEC_D_REQUESTS, SPEC_D_NEW = 2, 16
+
+
+def _spec_prompts(rng, vocab: int):
+    """Phase 9's traffic: 4 prompts of motifs of 3-6 tokens tiled to
+    200-600 tokens (the reference's ``_repetitive_prompts`` at serving
+    length: repeated boilerplate and retrieved text) and 4 random prompts
+    of 24-700 tokens, interleaved."""
+    rep = []
+    for _ in range(4):
+        motif = rng.integers(0, vocab, size=(int(rng.integers(3, 7)),))
+        n = int(rng.integers(200, 601))
+        rep.append(np.resize(motif, n).astype(np.int32))
+    rnd = [rng.integers(0, vocab, size=(int(n),)).astype(np.int32)
+           for n in rng.integers(24, 701, size=4)]
+    return [p for pair in zip(rep, rnd) for p in pair]
+
+
+def _per_slot_step(st) -> float:
+    """Tokens per (decode step, slot): 1.0 without speculation."""
+    return (st["decode_tokens"] - st["prefills"]) / max(
+        st["decode_slot_steps"], 1)
+
+
+def phase_spec(session, seed: int, max_new: int = 32):
+    """SPECULATIVE DECODE at full width on phase 5's session (its
+    weights): ``_spec_prompts``, ``max_new`` greedy tokens each, through
+    each of ``SPEC_PHASE_RUNS``. Counts are zeroed just before and read
+    just after each run and must equal the mixed step's (plus the draft
+    model's forwards in run D). Runs B, C and D must give run A's bf16
+    streams token for token, with A's program shapes in B; B accepts some
+    drafts and emits more than one token per (decode step, slot); C
+    leaves no page in use once its prefix cache is released; D (the
+    verifier's own config and weights as the drafter) reports how often
+    the split forward's argmax agrees with the mixed step's."""
+    from repro_torch import kernels
+    from repro_torch.serve.speculative import SpecConfig
+    from repro_torch.tree import tree_map
+    cfg = session.cfg
+    prompts = _spec_prompts(np.random.default_rng(seed + 9), cfg.vocab_size)
+    draft_params = tree_map(torch.Tensor.detach, session.params)
+    out, streams = {}, {}
+    for name, kw in SPEC_PHASE_RUNS.items():
+        key, kw = name[0], dict(kw)
+        drafter = kw.pop("spec", None)
+        if drafter == "model":
+            spec = SpecConfig(k=4, drafter="model", draft_cfg=cfg,
+                              draft_params=draft_params)
+        else:
+            spec = None if drafter is None else SpecConfig(k=4)
+        kw.setdefault("slots", 4)
+        eng = session.serve(max_len=1024, page_size=16, chunk_tokens=256,
+                            spec=spec, **kw)
+        rollback = {"calls": 0, "pages": 0}
+        if eng.lazy:
+            real = eng._alloc.rollback
+
+            def counted(owner, n_tokens, real=real):
+                dropped = real(owner, n_tokens)
+                rollback["calls"] += 1
+                rollback["pages"] += len(dropped)
+                return dropped
+            eng._alloc.rollback = counted
+        reqs = prompts[:SPEC_D_REQUESTS] if key == "D" else prompts
+        new = SPEC_D_NEW if key == "D" else max_new
+        for rid, p in enumerate(reqs):
+            eng.submit(rid, p, max_new=new)
+        _cuda_sync()
+        kernels.reset_launches()
+        step_s = []
+        t0 = time.perf_counter()
+        while eng.busy():
+            s0 = time.perf_counter()
+            eng.step()
+            step_s.append(time.perf_counter() - s0)
+        _cuda_sync()
+        wall = time.perf_counter() - t0
+        counts = kernels.launches()
+        st = eng.stats
+        # the model drafter's forwards (one a draft token: no lazy pool
+        # truncates its drafts) run flash and the fused MLP once a layer
+        forwards = st["spec_drafted"] if key == "D" else 0
+        want = _want_launches(eng, cfg.num_layers)
+        want["fused_mlp"] += cfg.num_layers * forwards
+        want["flash_attention"] += cfg.num_layers * forwards
+        check(counts == want, f"[spec {key}] launches {counts} != {want}")
+        res = eng.results()
+        for rid in range(len(reqs)):
+            r = res[rid]
+            check(r.done and len(r.out) == new
+                  and all(0 <= t < cfg.vocab_size for t in r.out),
+                  f"[spec {key}] request {rid} done={r.done} with "
+                  f"{len(r.out)} tokens")
+        streams[key] = [list(res[rid].out) for rid in range(len(reqs))]
+        step_ms = np.asarray(step_s) * 1e3
+        tokens = sum(len(x) for x in streams[key])
+        # the host time of each step's drafting (the tracer's "draft" lap:
+        # the drafters' proposals and the draft pages' reservation)
+        draft_ms = [rec["phases"].get("draft", 0.0) * 1e3
+                    for rec in eng.tracer.flight()["steps"]]
+        run = {k: st[k] for k in (
+            "spec_drafted", "spec_accepted", "decode_steps", "mixed_steps",
+            "decode_slot_steps", "prefills", "decode_traces", "peak_pages",
+            "preemptions", "cow_copies", "prefix_hit_blocks")}
+        run.update(tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+                   steps=len(step_s),
+                   step_p50_ms=float(np.percentile(step_ms, 50)),
+                   accept_rate=st["spec_accepted"] / max(st["spec_drafted"],
+                                                         1),
+                   tokens_per_step_slot=_per_slot_step(st), launches=counts,
+                   draft_ms_p50=float(np.percentile(draft_ms, 50)),
+                   draft_ms_max=float(max(draft_ms)),
+                   rollback_calls=rollback["calls"],
+                   rollback_pages=rollback["pages"])
+        if eng.prefix_cache:
+            run["released_blocks"] = eng.release_prefix_cache()
+            run["pages_in_use_after_release"] = eng.stats["pages_in_use"]
+            check(run["pages_in_use_after_release"] == 0,
+                  f"[spec {key}] {run['pages_in_use_after_release']} pages "
+                  f"in use after release_prefix_cache()")
+        if key != "A":
+            want_streams = [s[:new] for s in streams["A"][:len(reqs)]]
+            check(streams[key] == want_streams,
+                  f"[spec {key}] greedy streams differ from run A's")
+        out[name] = run
+        log(f"[spec {name}] {tokens} tokens in {wall:.2f}s = "
+            f"{run['tokens_per_s']:.2f} tok/s, {len(step_s)} steps "
+            f"({st['decode_steps']} with decode rows), step p50 "
+            f"{run['step_p50_ms']:.1f} ms (drafting p50 "
+            f"{run['draft_ms_p50']:.2f} ms, max {run['draft_ms_max']:.2f});"
+            f" drafted {st['spec_drafted']}, "
+            f"accepted {st['spec_accepted']} ({run['accept_rate']:.1%}), "
+            f"{run['tokens_per_step_slot']:.3f} tokens per (decode step, "
+            f"slot); peak pages {st['peak_pages']}/{eng.kv_pages}, "
+            f"preemptions {st['preemptions']}, CoW {st['cow_copies']}, "
+            f"rollbacks {rollback['calls']} ({rollback['pages']} pages "
+            f"dropped); {st['decode_traces']} program shape(s); launches "
+            f"{counts}" + ("" if key == "A" else
+                           "; streams equal to run A's"))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = out[list(SPEC_PHASE_RUNS)[0]], out[list(SPEC_PHASE_RUNS)[1]]
+    check(b["decode_traces"] == a["decode_traces"],
+          f"[spec B] {b['decode_traces']} program shapes != run A's "
+          f"{a['decode_traces']}")
+    check(b["spec_accepted"] > 0 and b["tokens_per_step_slot"] > 1.0,
+          f"[spec B] accepted {b['spec_accepted']}, "
+          f"{b['tokens_per_step_slot']:.3f} tokens per (decode step, slot)")
+    return out, streams["B"], prompts
+
+
+# ----------------------------------------------------------------- phase 10
+
+def _post_json(url: str, body: dict, timeout: float):
+    import urllib.request
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    return urllib.request.urlopen(req, timeout=timeout)
+
+
+def phase_online(session, prompts, streams_b, max_new: int = 32):
+    """ONLINE SERVING at full width on phase 5's session with phase 9's
+    run B settings: ``Session.serve_async(start=False)``, all of phase
+    9's prompts submitted, then started (its streams must equal run B's);
+    then ``Session.serve_http(port=0)``: the same prompts POSTed to
+    /generate from one client thread each (one with chunked streaming)
+    while the loop runs, then GET /metrics and /healthz. Every response
+    must carry ``max_new`` tokens, ``serve_ttft_seconds_count`` must equal
+    the request count and /metrics' ``spec_drafted`` the engine's.
+    Launches are counted as in phase 9. Reports TTFT and TPOT p50/p90 and
+    (not asserted: arrival order changes the batches but not the bits of
+    a row) the share of tokens equal to run B's."""
+    import threading
+    import urllib.request
+    from repro_torch import kernels
+    from repro_torch.serve.speculative import SpecConfig
+    cfg = session.cfg
+    kw = dict(slots=4, max_len=1024, page_size=16, chunk_tokens=256,
+              spec=SpecConfig(k=4))
+    out = {}
+    drv = session.serve_async(start=False, watchdog_timeout=120.0, **kw)
+    live = [drv.submit(p, max_new=max_new, rid=i)
+            for i, p in enumerate(prompts)]
+    _cuda_sync()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    drv.start()
+    got = [list(s.result(timeout=600.0).out) for s in live]
+    wall = time.perf_counter() - t0
+    drv.stop(drain=True, timeout=60.0)
+    counts = kernels.launches()
+    want = _want_launches(drv.engine, cfg.num_layers)
+    check(counts == want, f"[online async] launches {counts} != {want}")
+    check(got == streams_b, "[online async] deferred-start driver streams "
+          "differ from phase 9's run B")
+    lat = drv.metrics.latency_summary()
+    out["async"] = {"tokens": sum(map(len, got)), "wall_s": wall,
+                    "tokens_per_s": sum(map(len, got)) / wall,
+                    "launches": counts, "latency": lat,
+                    "spec_drafted": drv.engine.stats["spec_drafted"],
+                    "spec_accepted": drv.engine.stats["spec_accepted"]}
+    log(f"[online async, deferred start] {out['async']['tokens']} tokens in "
+        f"{wall:.2f}s = {out['async']['tokens_per_s']:.2f} tok/s; streams "
+        f"equal to phase 9 run B's; TTFT p50 {lat['ttft_p50_s']:.3f} s, "
+        f"TPOT p50 {lat['tpot_p50_s'] * 1e3:.1f} ms; launches {counts}")
+    del drv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    server = session.serve_http(port=0, watchdog_timeout=120.0, **kw)
+    bodies, errors = {}, []
+
+    def client(i):
+        try:
+            body = {"prompt": [int(t) for t in prompts[i]],
+                    "max_new": max_new, "timeout": 600.0,
+                    "stream": i == 0}
+            with _post_json(f"{server.url}/generate", body, 600.0) as r:
+                if i == 0:
+                    lines = [json.loads(ln) for ln in r if ln.strip()]
+                    bodies[i] = {"tokens": [ln["token"] for ln in
+                                            lines[:-1]],
+                                 "closing": lines[-1]}
+                else:
+                    bodies[i] = json.loads(r.read())
+        except Exception as exc:       # reported below, fails the phase
+            errors.append(f"request {i}: {exc!r}")
+
+    try:
+        _cuda_sync()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900.0)
+        wall = time.perf_counter() - t0
+        check(not errors and not any(t.is_alive() for t in threads),
+              f"[online http] clients failed or hung: {errors}")
+        with urllib.request.urlopen(f"{server.url}/metrics",
+                                    timeout=60) as r:
+            metrics = r.read().decode()
+        with urllib.request.urlopen(f"{server.url}/healthz",
+                                    timeout=60) as r:
+            health = json.loads(r.read())
+        eng = server.driver.engine
+        counts = kernels.launches()
+        st = server.driver.stats()
+        lat = server.driver.metrics.latency_summary()
+    finally:
+        server.close(drain=False)
+    want = _want_launches(eng, cfg.num_layers)
+    check(counts == want, f"[online http] launches {counts} != {want}")
+    toks = [bodies[i]["tokens"] for i in range(len(prompts))]
+    check(all(len(t) == max_new for t in toks),
+          f"[online http] token counts {[len(t) for t in toks]}")
+    check(bodies[0]["closing"].get("done") is True
+          and bodies[0]["closing"]["tokens"] == toks[0],
+          "[online http] the streamed response's closing record")
+    check(f"serve_ttft_seconds_count {len(prompts)}" in metrics,
+          "[online http] serve_ttft_seconds_count != the request count")
+    drafted = re.search(r"^serve_engine_spec_drafted (\S+)$", metrics, re.M)
+    check(drafted is not None and float(drafted[1]) == st["spec_drafted"],
+          f"[online http] /metrics spec_drafted "
+          f"{drafted[1] if drafted else None} != {st['spec_drafted']}")
+    check(health["status"] == "ok", f"[online http] /healthz {health}")
+    equal = sum(a == b for g, w in zip(toks, streams_b)
+                for a, b in zip(g, w)) / sum(map(len, toks))
+    out["http"] = {"tokens": sum(map(len, toks)), "wall_s": wall,
+                   "tokens_per_s": sum(map(len, toks)) / wall,
+                   "launches": counts, "latency": lat,
+                   "tokens_equal_to_B": equal,
+                   "spec_drafted": st["spec_drafted"],
+                   "spec_accepted": st["spec_accepted"],
+                   "steps": st["step_count"]}
+    log(f"[online http] {len(prompts)} clients, {out['http']['tokens']} "
+        f"tokens in {wall:.2f}s = {out['http']['tokens_per_s']:.2f} tok/s, "
+        f"{st['step_count']} steps; TTFT p50 {lat['ttft_p50_s']:.3f} s, p90 "
+        f"{lat['ttft_p90_s']:.3f} s; TPOT p50 {lat['tpot_p50_s'] * 1e3:.1f} "
+        f"ms, p90 {lat['tpot_p90_s'] * 1e3:.1f} ms; accepted "
+        f"{st['spec_accepted']}/{st['spec_drafted']}; {equal:.1%} of tokens "
+        f"equal to phase 9 run B's (reported); /metrics spec_drafted = the "
+        f"engine's; launches {counts}")
+    return out
+
+
 # ------------------------------------------------------------------ phase 6
 
 def phase_train(seed: int, steps: int = 6, layers: int = 4):
@@ -2150,6 +2604,7 @@ def main():
     record["parity_logits_err"] = parity.pop("mixed")
     record["parity_split_logits_err"] = parity
     record["parity_prefix"] = phase_parity_prefix()
+    record["parity_spec"] = phase_parity_spec()
     record["parity_ssm_logits_err"] = phase_parity_ssm()
     record["parity_train"] = phase_train_parity()
     main_run, eng, session, prompts = phase_main(args.seed)
@@ -2161,6 +2616,8 @@ def main():
     record["split"] = phase_split(session, prompts, main_run["streams"],
                                   args.seed)
     record["prefix"] = phase_prefix(session, args.seed)
+    record["spec"], streams_b, spec_prompts = phase_spec(session, args.seed)
+    record["online"] = phase_online(session, spec_prompts, streams_b)
     del session                           # free the serving weights
     gc.collect()
     torch.cuda.empty_cache()
@@ -2168,9 +2625,14 @@ def main():
     gc.collect()                          # the trainer died with phase 6
     torch.cuda.empty_cache()
     record["ssm"] = phase_ssm(args.seed)
-    runs = {"flash_attention": record["train"], "ssd_scan": record["ssm"]}
+    # each kernel's launches on the paths that run it, each counted from 0
+    # just before its run: phase 5 and phases 9-10 (paged attention, the
+    # fused MLP; flash in phase 9's model drafter), phase 6 (flash), phase
+    # 7 (the SSD scan)
+    paths = [main_run, record["train"], record["ssm"],
+             *record["spec"].values(), *record["online"].values()]
     for k in kernels:
-        k["launches"] = runs.get(k["name"], main_run)["launches"][k["name"]]
+        k["launches"] = sum(run["launches"][k["name"]] for run in paths)
     record["kernels"] = kernels
     record["total_s"] = time.perf_counter() - t_all
     out_dir = ROOT / "chiprun_out"

@@ -28,10 +28,19 @@ path on the pool; ``paged=False``: the dense per-slot layout), a
 sliding-window config the dense ring, the SSM family the split path on
 the dense layout; ``prefix_cache``, ``lazy`` and ``scheduler`` pass
 through to the engine (on the paged pool). ``generate`` is the lockstep
-greedy loop (``serve/step.py::greedy_generate``). The features not
+greedy loop (``serve/step.py::greedy_generate``). ``serve_async`` wraps
+the engine in the online ``AsyncDriver`` (a background step loop,
+per-request token streams, TTFT/TPOT metrics, a watchdog) and
+``serve_http`` puts the stdlib HTTP front-end over that
+(serve/server.py). ``save`` / ``restore`` write and read the npz
+checkpoints both packages read (checkpoint/io.py). The features not
 ported yet raise ``NotImplementedError`` naming their ROADMAP.md item,
-as does ``train`` for the SSM family. The online stack and dry-runs
-come with later slices.
+as do ``train`` for the SSM family and ``from_plan``, ``dryrun`` and
+``lower`` (the planner, Queue 1 item 12).
+
+    driver = session.serve_async(slots=4, max_len=1024)
+    stream = driver.submit(prompt, max_new=16)      # tokens as they come
+    server = session.serve_http(port=0, slots=4)    # POST /generate ...
 """
 from __future__ import annotations
 
@@ -40,6 +49,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.io import (latest_step, load_checkpoint,
+                                       save_checkpoint)
 from repro_torch.core.strategy import Strategy
 from repro_torch.params import init_params
 from repro_torch.serve.engine import ServeEngine, _todo
@@ -69,6 +80,38 @@ class Session:
             self._params = init_params(self.cfg, device=self.device,
                                        seed=self.seed)
         return self._params
+
+    @classmethod
+    def from_plan(cls, *args, **kwargs):
+        """The reference builds a Session from the planner's ``Plan``;
+        the port has no planner yet."""
+        raise _todo("Session.from_plan (the planner and Plan)",
+                    "Queue 1 item 12")
+
+    def dryrun(self, *args, **kwargs):
+        """The reference lowers and compiles a step without params and
+        reports memory and roofline; not ported yet."""
+        raise _todo("Session.dryrun (launch/roofline and specs)",
+                    "Queue 1 item 12")
+
+    def lower(self, *args, **kwargs):
+        """See :meth:`dryrun`."""
+        raise _todo("Session.lower (launch/roofline and specs)",
+                    "Queue 1 item 12")
+
+    def restore(self, checkpoint_dir: str) -> Optional[int]:
+        """Load the latest checkpoint under ``checkpoint_dir`` into the
+        session (None if there is none). Returns the restored step."""
+        last = latest_step(checkpoint_dir)
+        if last is not None:
+            self._params = load_checkpoint(checkpoint_dir, last,
+                                           self.params)
+        return last
+
+    def save(self, checkpoint_dir: str, step: int = 0):
+        """Write the session's params as checkpoint ``step`` under
+        ``checkpoint_dir``; returns the step's directory."""
+        return save_checkpoint(checkpoint_dir, step, self.params)
 
     def train(self, train_cfg: Optional[TrainConfig] = None, *, data=None,
               global_batch: int = 8, seq_len: int = 256,
@@ -138,3 +181,31 @@ class Session:
             prefix_cache=prefix_cache, lazy=lazy, scheduler=scheduler,
             mixed=mixed, chunk_tokens=chunk_tokens, spec=spec,
             trace_level=trace_level, device=self.device)
+
+    # ------------------------------------------------------- online serving
+    def serve_async(self, *, watchdog_timeout: Optional[float] = None,
+                    metrics=None, start: bool = True, **serve_kw):
+        """ONLINE serving: :meth:`serve`'s engine (every ``serve`` keyword
+        passes through) wrapped in an :class:`~repro_torch.serve.driver.
+        AsyncDriver` — the step loop runs on a background thread,
+        ``submit()`` takes requests at any time and returns a per-request
+        TokenStream, TTFT/TPOT/step latencies land in ``driver.metrics``,
+        and ``watchdog_timeout`` arms stalled-step detection with
+        cancel-and-requeue recovery. ``start=False`` defers the loop so a
+        batch of submissions admits exactly as ``run()`` does."""
+        from repro_torch.serve.driver import AsyncDriver
+        return AsyncDriver(self.serve(**serve_kw),
+                           watchdog_timeout=watchdog_timeout,
+                           metrics=metrics, start=start)
+
+    def serve_http(self, *, host: str = "127.0.0.1", port: int = 0,
+                   watchdog_timeout: Optional[float] = None, **serve_kw):
+        """:meth:`serve_async` behind the stdlib HTTP front-end
+        (serve/server.py): ``POST /generate`` (optionally chunked token
+        streaming), ``GET /metrics`` (Prometheus text), ``GET /healthz``.
+        ``port=0`` binds a free port — read it back from ``.port``. The
+        returned server owns its driver; ``close()`` drains and stops
+        both."""
+        from repro_torch.serve.server import serve_http
+        return serve_http(self.serve(**serve_kw), host=host, port=port,
+                          watchdog_timeout=watchdog_timeout)

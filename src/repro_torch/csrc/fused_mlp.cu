@@ -31,7 +31,13 @@
 //   1. gate/up: A = x (K-major), B0 = Wg and B1 = Wu at the same 128
 //      columns (MN-major); the epilogue applies silu(g) * u and stores h.
 //      The two 128-row M tiles of one column strip are neighbouring blocks,
-//      so at T = 256 each weight byte comes from HBM about once.
+//      so at T = 256 each weight byte comes from HBM about once. Each
+//      stage's 64-deep products of g and of u are summed from zero by their
+//      own 4-wgmma chain and added to the fp32 sums with rounded FADDs
+//      (stage_chain), since a wgmma adds into its accumulator with
+//      truncation: chaining all of d's 80 stages rounded ~0.5% of h to the
+//      other bf16 neighbour, 8x the share of fp32 sums (chip_smoke.py's
+//      fused-MLP seed sweep).
 //   2. down: A = h, B0 and B1 = Wd's columns n0 .. n0 + 127 and n0 + 128 ..
 //      n0 + 255.
 // Waves. Blocks hold 193 KB of shared memory, so one runs on an SM and a
@@ -91,6 +97,28 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 __device__ __forceinline__ float silu(float g) { return g / (1.f + expf(-g)); }
+
+// acc += A (64 rows x BK, this warpgroup's) . B (BK x BN) of one stage, the
+// product summed from zero by its own chain of BK / 16 wgmmas in `part`,
+// then added with rounded FADDs; returns once the chain is done.
+__device__ __forceinline__ void stage_chain(float (&acc)[BN / 2],
+                                            float (&part)[BN / 2],
+                                            const uint8_t* a_s,
+                                            const uint8_t* b_s) {
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) part[i] = 0.f;
+  fence_regs(part);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_ss_n128<1>(part, desc_sw128(a_s + 32 * kk, 16, 1024),
+                     desc_sw128(b_s + 2048 * kk, B_BOX, 1024));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(part);
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+}
 
 // Output units are BM x n_span tiles, M tiles fastest. The last `tail`
 // units are split in K into `splits` blocks each (tail units of a split
@@ -168,6 +196,26 @@ mlp_tma_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     float acc0[BN / 2], acc1[BN / 2];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc0[i] = acc1[i] = 0.f;
+    if constexpr (GATED) {
+      // g and u: each stage's 64-deep product is summed by its own wgmma
+      // chain from zero and added to the fp32 accumulator with a rounded
+      // FADD. A wgmma adds into its accumulator with truncation, so 80
+      // chained steps over d = 5120 bias g and u by up to ~1e-5 of their
+      // size, and ~0.5% of h then rounds to the other bf16 neighbour (8x
+      // the plain fp32 sums' share; chip_smoke.py's seed sweep showed
+      // the outputs up to 1.14x the per-value limit). Zero-started chains
+      // of 4 steps keep the truncation to the stage's partial sum.
+      float part_acc[BN / 2];
+      for (int it = 0; it < n_kb; ++it) {
+        const int st = it % STAGES;
+        const uint8_t* a_s = smem + st * STAGE_BYTES + wg * (A_BYTES / 2);
+        const uint8_t* b0_s = smem + st * STAGE_BYTES + A_BYTES;
+        mbar_wait(&full[st], (it / STAGES) & 1);
+        stage_chain(acc0, part_acc, a_s, b0_s);
+        stage_chain(acc1, part_acc, a_s, b0_s + B_BYTES);
+        if (tid == 0) mbar_arrive(&empty[st]);
+      }
+    } else
     for (int it = 0; it < n_kb; ++it) {
       const int st = it % STAGES;
       const uint8_t* a_s = smem + st * STAGE_BYTES + wg * (A_BYTES / 2);

@@ -166,6 +166,11 @@ def row_segments(items, pos, page_size: int, n_blocks: int):
     return out
 
 
+#: page-table widths of :func:`neighbour_mixes`, in multiples of the pages
+#: a mix's rows need
+TABLE_WIDTHS = (1, 2, 4)
+
+
 def neighbour_mixes(kv_len: int, page_size: int = 16, k: int = 4,
                     seed: int = 0):
     """Row structures around one row of ``kv_len`` keys (its cursor
@@ -174,9 +179,14 @@ def neighbour_mixes(kv_len: int, page_size: int = 16, k: int = 4,
     of its slot's ``1 + k`` rows (a decode row and its verify rows, a
     re-prefilled chunk); after a shorter row of another slot that shares
     its first pages; before a longer row of a slot whose table agrees with
-    its own over its live pages (a prefix hit). Returns ``(mixes,
-    n_pages)``: name -> (table (B, P) int32, pos (B,) int32, the row's
-    index), pages numbered ``1..n_pages - 1`` (page 0 the null page)."""
+    its own over its live pages (a prefix hit). Each structure comes at
+    every page-table width of :data:`TABLE_WIDTHS` (the engine's page
+    bucket moves with the pool's high-water mark: speculative draft
+    writes can widen it); columns past the pages a row holds are the null
+    page. Returns ``(mixes, n_pages)``: name ->
+    (table (B, P) int32, pos (B,) int32, the row's index), pages numbered
+    ``1..n_pages - 1`` (page 0 the null page); "alone" is the lone row at
+    the width it needs."""
     rng = np.random.default_rng(seed)
     width = -(-(kv_len + k + 64) // page_size)
     perm = rng.permutation(np.arange(1, 1 + 2 * width)).astype(np.int32)
@@ -199,8 +209,17 @@ def neighbour_mixes(kv_len: int, page_size: int = 16, k: int = 4,
         "before a longer row of a slot sharing its pages": (
             [own, longer], [p, p + 37], 0),
     }
-    return ({name: (np.stack(t).astype(np.int32), np.asarray(q, np.int32), r)
-             for name, (t, q, r) in mixes.items()}, 1 + 2 * width)
+    out = {}
+    for name, (t, q, r) in mixes.items():
+        tab, pos = np.stack(t).astype(np.int32), np.asarray(q, np.int32)
+        need = -(-(int(pos.max()) + 1) // page_size)
+        for m in TABLE_WIDTHS:
+            w = m * need
+            wide = np.zeros((len(tab), w), np.int32)
+            wide[:, :min(w, width)] = tab[:, :w]
+            out[name if m == 1 else f"{name}, table {m}x its need"] = (
+                wide, pos, r)
+    return out, 1 + 2 * width
 
 
 def device_tile_plan(page_table, pos, page_size: int, rep: int):

@@ -41,9 +41,21 @@ dtype (bfloat16). The device picks the kernel path (CUDA: the
 hand-written kernels; CPU: their plain versions). ``--prefix-cache``
 and ``--lazy`` serve on the pool, on the mixed and the split path (on
 the SSM family or with ``--dense`` they raise the reference's
-ValueError). Flags of features the port has not reached (``--spec-k``,
-``--tp``/``--dp``) raise NotImplementedError naming their ROADMAP.md
-item; the online mode (``--serve``) waits for the online stack.
+ValueError). ``--spec-k K --drafter ngram|model`` turns on speculative
+decode on the mixed step (greedy only). ``--serve`` skips the synthetic
+batch and serves the engine over HTTP (``POST /generate``, ``GET
+/metrics``, ``GET /healthz``; ``--port 0`` picks a free port) until
+ctrl-c, with the watchdog at ``--watchdog-timeout`` seconds. Flags of
+features the port has not reached (``--tp``/``--dp``) raise
+NotImplementedError naming their ROADMAP.md item.
+
+    # on the card, speculative decode with the prompt-lookup drafter
+    PYTHONPATH=src python -m repro_torch.launch.serve --full \
+        --slots 4 --max-len 1024 --requests 8 --spec-k 4
+
+    # on the CPU, online over HTTP
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --serve --port 8000 --spec-k 2
 """
 from __future__ import annotations
 
@@ -55,6 +67,7 @@ import torch
 
 from repro_torch.api import Session
 from repro_torch.configs import ARCH_NAMES, get_config, get_smoke
+from repro_torch.serve.speculative import SpecConfig
 
 
 def main(argv=None):
@@ -93,7 +106,14 @@ def main(argv=None):
                     help="mixed step token budget shared by decode tokens "
                          "and prefill chunks (must be >= --slots)")
     ap.add_argument("--spec-k", type=int, default=0, metavar="K",
-                    help="speculative decode (not ported yet)")
+                    help="speculative decode: draft up to K tokens per "
+                         "slot per step and verify them in the same "
+                         "mixed step (0 disables; greedy only)")
+    ap.add_argument("--drafter", choices=("ngram", "model"),
+                    default="ngram",
+                    help="--spec-k drafter: 'ngram' prompt lookup or "
+                         "'model' (a tiny greedy draft model with fresh "
+                         "weights)")
     ap.add_argument("--shared-prefix", type=int, default=0, metavar="N",
                     help="prepend the same N-token system prompt to every "
                          "request")
@@ -101,6 +121,18 @@ def main(argv=None):
                     help="tensor-parallel degree (not ported yet)")
     ap.add_argument("--dp", type=int, default=1,
                     help="data-parallel replicas (not ported yet)")
+    ap.add_argument("--serve", action="store_true",
+                    help="ONLINE mode: skip the synthetic batch and "
+                         "serve over HTTP (POST /generate, GET /metrics, "
+                         "GET /healthz) until ctrl-c")
+    ap.add_argument("--port", type=int, default=8000,
+                    help="--serve: TCP port to bind (0 picks a free one)")
+    ap.add_argument("--host", default="127.0.0.1",
+                    help="--serve: bind address")
+    ap.add_argument("--watchdog-timeout", type=float, default=30.0,
+                    help="--serve: seconds one engine step may run before "
+                         "the watchdog cancels and requeues the active "
+                         "slots (<= 0 disables it)")
     ap.add_argument("--trace-level", type=int, choices=(0, 1, 2),
                     default=1,
                     help="tracer detail: 0 off, 1 lifecycle events + "
@@ -113,8 +145,9 @@ def main(argv=None):
     cfg = get_config(args.arch) if args.full \
         else get_smoke(args.arch).with_(dtype="float32")
     session = Session(cfg, device=args.device, seed=args.seed)
-    spec = args.spec_k if args.spec_k > 0 else None
-    eng = session.serve(
+    spec = SpecConfig(k=args.spec_k, drafter=args.drafter) \
+        if args.spec_k > 0 else None
+    serve_kw = dict(
         tp=args.tp, dp=args.dp, slots=args.slots, max_len=args.max_len,
         temperature=args.temperature,
         paged=False if args.dense else None, page_size=args.page_size,
@@ -122,6 +155,24 @@ def main(argv=None):
         lazy=args.lazy, mixed=False if args.no_mixed else None,
         chunk_tokens=args.chunk_tokens, spec=spec,
         trace_level=args.trace_level)
+    if args.serve:
+        wt = args.watchdog_timeout if args.watchdog_timeout > 0 else None
+        server = session.serve_http(host=args.host, port=args.port,
+                                    watchdog_timeout=wt, **serve_kw)
+        print(f"serving {cfg.name} on {server.url} (POST /generate, GET "
+              f"/metrics, GET /healthz, GET /debug/flight, GET "
+              f"/debug/trace; watchdog {'off' if wt is None else f'{wt}s'})"
+              f" — ctrl-c to stop", flush=True)
+        try:
+            while True:
+                time.sleep(3600)
+        except KeyboardInterrupt:
+            if args.trace_out:
+                server.driver.export_trace(args.trace_out)
+                print(f"trace written to {args.trace_out}", flush=True)
+            server.close(drain=False)
+        return None
+    eng = session.serve(**serve_kw)
 
     rng = np.random.default_rng(args.seed)
     system = rng.integers(0, cfg.vocab_size, size=(args.shared_prefix,))
@@ -155,6 +206,14 @@ def main(argv=None):
               f"{st['preemptions']} preemptions, "
               f"{st['cow_copies']} CoW copies, "
               f"{st['prefix_evictions']} evictions")
+    if spec is not None:
+        drafted, accepted = st["spec_drafted"], st["spec_accepted"]
+        per_step = ((st["decode_tokens"] - st["prefills"])
+                    / max(st["decode_slot_steps"], 1))
+        print(f"  spec: k={args.spec_k} drafter={args.drafter}, "
+              f"{accepted}/{drafted} drafts accepted "
+              f"({accepted / max(drafted, 1):.2f}), "
+              f"{per_step:.2f} tokens per (decode step, slot)")
     if args.trace_out:
         obj = eng.export_trace(args.trace_out)
         print(f"  trace: {len(obj['traceEvents'])} events written to "

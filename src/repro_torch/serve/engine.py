@@ -81,9 +81,19 @@ program. Greedy streams stay exactly those of the JAX engine: on the
 card in bf16 too, because a paged row's bits do not depend on the rows
 beside it (kernels/paged_attention.py).
 
+**Speculative decode** (``spec=SpecConfig(...)``, the mixed step and
+greedy sampling only): each decoding slot's base row is followed by up to
+``k`` drafted tokens at consecutive positions (serve/speculative.py), all
+verified in the same program; the longest prefix matching the verifier's
+argmax chain is accepted plus one bonus token, and under lazy growth the
+draft pages past the accepted cursor go back through
+``PageAllocator.rollback``. Greedy streams equal the non-speculative ones
+token for token, and the program set stays one per (``chunk_tokens``,
+page bucket).
+
 Not ported yet, each raising ``NotImplementedError`` naming its
-ROADMAP.md item: speculative decode, TP/DP meshes, frames/images and the
-families other than dense and SSM.
+ROADMAP.md item: TP/DP meshes, frames/images and the families other than
+dense and SSM.
 """
 from __future__ import annotations
 
@@ -101,6 +111,7 @@ from repro_torch.serve.paging import PageAllocator, pages_for
 from repro_torch.serve.prefix import PrefixCache
 from repro_torch.serve.sampling import sample_tokens
 from repro_torch.serve.scheduler import FifoLeastProgress
+from repro_torch.serve.speculative import default_draft_cfg, make_drafter
 from repro_torch.serve.step import (pack_token_budget, page_bucket,
                                     prefill_bucket, scatter_prefill_pages)
 from repro_torch.serve.tracing import (NULL_STEP, Tracer, chrome_trace,
@@ -177,7 +188,24 @@ class ServeEngine:
                 "chunks through the paged KV scatter; drop paged=False "
                 "(or pass mixed=False) to serve this arch")
         if spec is not None:
-            raise _todo("speculative decode (spec=)", "Queue 1 item 7")
+            # the reference's checks (engine.py:299-316), same text
+            if not mixed:
+                raise ValueError(
+                    f"{cfg.name}: speculative decode packs draft rows "
+                    "into the mixed token-slot step; it needs the paged "
+                    "layout with mixed=True (the default there)")
+            if temperature > 0.0:
+                raise ValueError(
+                    "speculative decode is greedy-only (temperature "
+                    f"0.0, got {temperature}): acceptance compares the "
+                    "verifier's argmax tokens — stochastic speculative "
+                    "sampling is a different acceptance rule")
+            if chunk_tokens < max(slots, 1) * (spec.k + 1):
+                raise ValueError(
+                    f"chunk_tokens ({chunk_tokens}) must be >= slots * "
+                    f"(spec.k + 1) = {slots * (spec.k + 1)}: every "
+                    "slot's base decode row plus its k draft rows is "
+                    "reserved in the budget before any prefill chunk")
         if mesh is not None:
             raise _todo("tp/dp meshes (mesh=)", "Queue 1 item 11")
         if page_size < 1:
@@ -198,8 +226,11 @@ class ServeEngine:
         self.temperature = temperature
         self.page_size = page_size
         self.chunk_tokens = int(chunk_tokens)
+        self.spec = spec
         if self.device.type == "cuda":
             self._check_kernel_limits()
+        self._drafter = None if spec is None else make_drafter(
+            spec, cfg, max_len=max_len, seed=seed, device=self.device)
         self.queue: Deque[Request] = deque()
         self.active: List[Optional[Request]] = [None] * slots
         self.finished: Dict[int, Request] = {}
@@ -219,6 +250,13 @@ class ServeEngine:
                       "prefix_decode_blocks": 0,
                       "prefill_chunk_tokens": 0, "expired": 0,
                       "decode_slot_steps": 0,
+                      # speculative decode: drafted tokens packed as
+                      # verify rows, and how many the verifier accepted
+                      # (bonus tokens are ordinary decode tokens); the
+                      # accept rate is spec_accepted / spec_drafted, and
+                      # (decode_tokens - prefills) / decode_slot_steps is
+                      # 1.0 without speculation, in [1, k + 1] with it
+                      "spec_drafted": 0, "spec_accepted": 0,
                       # device program runs (decode_steps counts only
                       # those that carried a decode row)
                       "mixed_steps": 0,
@@ -287,6 +325,16 @@ class ServeEngine:
             checks.append(("every program runs the fused-MLP kernel", "",
                            fused_mlp.kernel_limits(cfg.dtype, cfg.d_model,
                                                    cfg.d_ff)))
+        if self.spec is not None and self.spec.drafter == "model":
+            dc = self.spec.draft_cfg or default_draft_cfg(cfg)
+            checks.append((f"the draft model {dc.name}'s forward runs the "
+                           "flash-attention kernel", "",
+                           flash_attention.kernel_limits(
+                               dc.dtype, dc.num_heads, dc.num_kv_heads,
+                               dc.head_dim)))
+            checks.append((f"the draft model {dc.name}'s forward runs the "
+                           "fused-MLP kernel", "", fused_mlp.kernel_limits(
+                               dc.dtype, dc.d_model, dc.d_ff)))
         for what, hint, why in checks:
             if why:
                 raise ValueError(f"{cfg.name}: on {self.device} {what}, "
@@ -882,6 +930,52 @@ class ServeEngine:
         self.stats["prefix_decode_blocks"] += self._prefix.insert(
             ctx, self._alloc.pages_of(s), salt=self._salt(req, ctx))
 
+    # ------------------------------------------------ speculative decode
+    def _propose_drafts(self, decode_slots):
+        """Ask the drafter for up to ``spec.k`` continuation tokens per
+        decoding slot and reserve the pages their KV writes need (the
+        reference's ``_propose_drafts``).
+
+        ``k_s`` is clamped so every drafted position stays inside the
+        request's remaining budget (``max_new``) and the context cap, so
+        inside the worst case ``submit`` pre-booked in ``_hw_blocks``:
+        drafting never re-buckets the page table (the program set stays
+        one per (``chunk_tokens``, page bucket), speculation on or off).
+        Under lazy growth the reservation is extended to cover the draft
+        writes with a PLAIN extend — a guess never evicts prefix blocks
+        or preempts a neighbour, so a dry pool truncates the draft (the
+        rejection path returns the pages via ``PageAllocator.rollback``).
+        Eager reservations already hold the worst case."""
+        drafts = {}
+        for s in decode_slots:
+            req = self.active[s]
+            P = int(self._pos[s])
+            k_s = min(self.spec.k, req.max_new - len(req.out) - 1,
+                      self.max_len - 1 - P)
+            if k_s < 1:
+                continue
+            ctx = np.concatenate(
+                [req.prompt, np.asarray(req.out, np.int64)])
+            d = np.asarray(self._drafter.propose(ctx, k_s),
+                           np.int64).reshape(-1)[:k_s]
+            if len(d) and self.lazy:
+                if self._alloc.extend(s, P + 1 + len(d)) is None:
+                    # pool dry: keep only the drafts whose writes fit
+                    # the pages already held (possibly none)
+                    room = (len(self._alloc.pages_of(s)) * self.page_size
+                            - P - 1)
+                    d = d[:max(room, 0)]
+                    if len(d):
+                        self._alloc.extend(s, P + 1 + len(d))
+                if len(d):
+                    own = self._alloc.pages_of(s)
+                    self._ptab[s, :len(own)] = own
+                    self._ptab_dirty = True
+                    self._note_pool()
+            if len(d):
+                drafts[s] = d
+        return drafts
+
     def release_prefix_cache(self) -> int:
         """Flush every prefix block no live request still shares, freeing
         their pages. Returns the number of blocks evicted."""
@@ -984,6 +1078,8 @@ class ServeEngine:
                     st["dep"] = None
         decode_slots = [s for s in range(self.slots)
                         if self.active[s] is not None and s not in self._pf]
+        drafts = self._propose_drafts(decode_slots) \
+            if self._drafter is not None else {}
         tr.lap("draft")
         pkey = getattr(self._sched, "prefill_key", None)
         items = sorted(
@@ -991,7 +1087,8 @@ class ServeEngine:
             key=lambda kv: ((pkey(self.active[kv[0]])
                              if pkey is not None else ()), kv[1]["seq"]))
         allot = pack_token_budget(
-            self.chunk_tokens, len(decode_slots),
+            self.chunk_tokens,
+            [1 + len(drafts.get(s, ())) for s in decode_slots],
             [{"slot": s, "cursor": st["cursor"], "n": st["n"],
               "dep": st["dep"]} for s, st in items])
         if not decode_slots and not allot:
@@ -1002,9 +1099,27 @@ class ServeEngine:
         meta = np.zeros((5, T), np.int32)
         meta[4] = 1                       # pads write to the null page
         r = 0
+        base_row: Dict[int, int] = {}
         for s in decode_slots:
             meta[:, r] = (self._last[s], self._pos[s], s, 1, 0)
+            base_row[s] = r
             r += 1
+            # draft rows: same slot, consecutive positions. Draft row i
+            # carries d[i] at position P+1+i; its logits are the
+            # verifier's token for P+2+i, valid exactly when d[0..i] all
+            # matched. decode_step scatters every row's K/V before any
+            # row attends, and a row at p attends to kv_len p + 1, so the
+            # base row never sees draft KV and draft row i sees the base
+            # write and drafts 0..i-1.
+            d = drafts.get(s, ())
+            if len(d):
+                n = len(d)
+                meta[0, r:r + n] = d
+                meta[1, r:r + n] = self._pos[s] + 1 + np.arange(n)
+                meta[2, r:r + n] = s
+                meta[3, r:r + n] = 1
+                meta[4, r:r + n] = 0
+                r += n
         emit_row: Dict[int, int] = {}
         for s, start, count in allot:
             st = self._pf[s]
@@ -1037,25 +1152,59 @@ class ServeEngine:
         if decode_slots:
             self.stats["decode_steps"] += 1
             self.stats["decode_slot_steps"] += len(decode_slots)
-        for r, s in enumerate(decode_slots):
+        for s in decode_slots:
             req = self.active[s]
-            t = int(toks[r])
-            req.out.append(t)
-            self._pos[s] += 1
-            self._last[s] = t
-            self.stats["decode_tokens"] += 1
-            # count BEFORE a possible retire: finish_request seals the span
-            self.tracer.req_tokens(req.rid, 1)
-            self.tracer.req_detail(req.rid, "decode", slot=s, tokens=1,
-                                   drafted=0, accepted=0)
-            tr.note_decode(s, req.rid, 1, drafted=0, accepted=0)
-            if self._prefix is not None and \
-                    self._pos[s] % self.page_size == 0:
-                self._register_decode_block(s, req)
-            hit_eos = self.eos_id is not None and t == self.eos_id
-            if len(req.out) >= req.max_new or hit_eos or \
-                    self._pos[s] >= self.max_len:
+            d = drafts.get(s, ())
+            # greedy acceptance: the base row's argmax is the true next
+            # token; draft i's is valid iff d[0..i] matched the chain, so
+            # take the longest matching prefix plus one bonus token
+            b = base_row[s]
+            accepted = [int(toks[b])]
+            m = 0
+            while m < len(d) and int(d[m]) == accepted[-1]:
+                accepted.append(int(toks[b + 1 + m]))
+                m += 1
+            self.stats["spec_drafted"] += len(d)
+            self.stats["spec_accepted"] += m
+            # token by token, as without speculation: max_new, EOS and
+            # capacity stop the chain mid-draft
+            emitted, retired = 0, False
+            for t in accepted:
+                req.out.append(t)
+                self._pos[s] += 1
+                self._last[s] = t
+                self.stats["decode_tokens"] += 1
+                # count BEFORE a possible retire: finish_request seals
+                # the span
+                self.tracer.req_tokens(req.rid, 1)
+                emitted += 1
+                if self._prefix is not None and \
+                        self._pos[s] % self.page_size == 0:
+                    self._register_decode_block(s, req)
+                hit_eos = self.eos_id is not None and t == self.eos_id
+                if len(req.out) >= req.max_new or hit_eos or \
+                        self._pos[s] >= self.max_len:
+                    retired = True
+                    break
+            # the detail event first: retiring seals the span tree
+            self.tracer.req_detail(req.rid, "decode", slot=s,
+                                   tokens=emitted, drafted=len(d),
+                                   accepted=m)
+            if retired:
                 self._retire(s)
+            tr.note_decode(s, req.rid, emitted, drafted=len(d), accepted=m)
+            if self.lazy and len(d) and self.active[s] is req:
+                # rejection rollback: drop the draft pages past the
+                # accepted cursor (a retired slot freed all its pages);
+                # they are this step's extend-fresh private pages, so
+                # shared prefix pages are never touched, and stale KV in
+                # kept pages is masked by pos and overwritten
+                dropped = self._alloc.rollback(s, int(self._pos[s]))
+                if dropped:
+                    w = len(self._alloc.pages_of(s))
+                    self._ptab[s, w:w + len(dropped)] = 0
+                    self._ptab_dirty = True
+                self._note_pool()
         for s, start, count in allot:
             st = self._pf[s]
             st["cursor"] = start + count

@@ -364,6 +364,60 @@ def test_engine_on_card_matches_cpu(cuda):
     assert outs["cpu"] == outs["cuda"]
 
 
+@pytest.mark.parametrize("drafter", ["ngram", "model"])
+def test_spec_engine_on_card_matches_spec_off_and_cpu(cuda, drafter):
+    """f32 speculative decode on the card (k 4, on repetitive prompts):
+    the streams equal the card's spec-off run and the CPU's spec run, the
+    drafted/accepted counters equal the CPU's, and every program ran both
+    serving kernels once a layer; the model drafter (the reference's
+    one-layer fp32 default) runs flash and the fused MLP once a layer a
+    draft token (its weights drawn on the CPU and moved, so both devices
+    draft alike)."""
+    from repro_torch.serve.speculative import SpecConfig, default_draft_cfg
+    cfg = ModelConfig(name="pal-dense", arch_type="dense", num_layers=2,
+                      d_model=128, num_heads=4, num_kv_heads=2, d_ff=256,
+                      vocab_size=128, dtype="float32")
+    cpu = init_params(cfg, device="cpu", seed=3)
+    params = {"cpu": cpu, "cuda": tree_map(lambda t: t.cuda(), cpu)}
+    dcfg = default_draft_cfg(cfg)
+    dcpu = init_params(dcfg, device="cpu", seed=7)
+    draft = {"cpu": dcpu, "cuda": tree_map(lambda t: t.cuda(), dcpu)}
+
+    def make_spec(dev):
+        if drafter == "ngram":
+            return SpecConfig(k=4)
+        return SpecConfig(k=4, drafter="model", draft_cfg=dcfg,
+                          draft_params=draft[dev])
+
+    rng = np.random.default_rng(19)
+    prompts = [np.resize(rng.integers(0, 128, size=(int(rng.integers(3, 7)),)),
+                         int(rng.integers(20, 41))) for _ in range(4)]
+    runs = {}
+    for dev, spec in (("cpu", make_spec("cpu")),
+                      ("cuda", make_spec("cuda")), ("cuda", None)):
+        eng = ServeEngine(cfg, params[dev], slots=2, max_len=64,
+                          chunk_tokens=16, spec=spec)
+        for i, p in enumerate(prompts):
+            eng.submit(i, p, max_new=12)
+        kernels.reset_launches()
+        res = eng.run()
+        st = eng.stats
+        on = dev == "cuda"
+        drafts = st["spec_drafted"] if on and drafter == "model" else 0
+        assert kernels.launches() == {
+            "paged_attention": 2 * st["mixed_steps"] if on else 0,
+            "fused_mlp": 2 * st["mixed_steps"] + drafts if on else 0,
+            "flash_attention": drafts, "ssd_scan": 0}
+        runs[(dev, spec is not None)] = (
+            {i: list(res[i].out) for i in res},
+            (st["spec_drafted"], st["spec_accepted"], st["decode_traces"]))
+    assert runs[("cuda", True)][0] == runs[("cuda", False)][0] \
+        == runs[("cpu", True)][0]
+    assert runs[("cuda", True)][1] == runs[("cpu", True)][1]
+    assert runs[("cuda", True)][1][0] > 0
+    assert runs[("cuda", True)][1][2] == runs[("cuda", False)][1][2]
+
+
 @pytest.mark.parametrize("layout", [dict(mixed=False), dict(paged=False)])
 def test_split_engines_on_card_match_cpu(cuda, layout):
     """The f32 split path on the card — on the pool (``mixed=False``) and

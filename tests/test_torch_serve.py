@@ -464,11 +464,21 @@ def test_submit_validation_and_backpressure(weights):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"spec": 2}, "item 7"), ({"mesh": object()}, "item 11")])
+    ({"planner": ("from_plan", "dryrun", "lower")}, "item 12"),
+    ({"mesh": object()}, "item 11")])
 def test_unported_engine_features_raise(weights, kw, item):
+    """What is still missing raises naming its ROADMAP.md item: meshes on
+    the engine, and the Session entry points that need the planner
+    (speculative decode, the earlier case here, is ported)."""
     _, _, params = weights
-    with pytest.raises(NotImplementedError, match=re.escape(item)):
-        ServeEngine(CFG, params, **kw)
+    calls = [lambda: ServeEngine(CFG, params, **kw)]
+    if "planner" in kw:
+        session = Session(CFG, device="cpu", params=params)
+        calls = [lambda m=m: getattr(session, m)("decode_4k")
+                 for m in kw["planner"]]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match=re.escape(item)):
+            call()
 
 
 def test_unported_requests_and_families_raise(weights):
@@ -546,6 +556,44 @@ def test_launcher_serves_prefix_cache_and_lazy_on_cpu(capsys, flags):
         {i: r.out for i, r in plain.items()}
 
 
+def test_launcher_serves_speculative_decode_on_cpu(capsys):
+    """``--spec-k 2`` (both drafters) serves the default run's streams and
+    prints the drafted/accepted line."""
+    from repro_torch.launch import serve as launcher
+    args = ["--device", "cpu", "--requests", "3", "--max-new", "6",
+            "--trace-level", "0"]
+    plain = launcher.main(args)
+    capsys.readouterr()
+    for drafter in ("ngram", "model"):
+        spec = launcher.main(args + ["--spec-k", "2", "--drafter", drafter])
+        out = capsys.readouterr().out
+        assert re.search(rf"spec: k=2 drafter={drafter}, \d+/\d+ drafts "
+                         r"accepted", out), out
+        assert {i: r.out for i, r in spec.items()} == \
+            {i: r.out for i, r in plain.items()}
+
+
+def test_launcher_serve_mode_over_http_on_cpu(capsys, monkeypatch):
+    """``--serve --port 0``: the server comes up, answers /healthz while
+    the launcher waits, and closes on ctrl-c."""
+    import json
+    import urllib.request
+    from repro_torch.launch import serve as launcher
+    seen = {}
+
+    def sleep(_):
+        url = re.search(r"on (http://\S+) ", capsys.readouterr().out)[1]
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+            seen["health"] = json.loads(r.read())
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(launcher.time, "sleep", sleep)
+    assert launcher.main(["--device", "cpu", "--serve", "--port", "0",
+                          "--spec-k", "2", "--watchdog-timeout",
+                          "5"]) is None
+    assert seen["health"]["status"] == "ok"
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -571,7 +619,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch/core/strategy.py",
             "repro_torch/launch/train.py",
             "repro_torch/kernels/ssd_scan.py", "repro_torch/models/ssm.py",
-            "repro_torch/models/mamba_lm.py"} <= names
+            "repro_torch/models/mamba_lm.py",
+            "repro_torch/serve/speculative.py",
+            "repro_torch/serve/driver.py", "repro_torch/serve/server.py",
+            "repro_torch/serve/metrics.py"} <= names
     for path in files:
         for mod in _imports(path):
             root = mod.split(".")[0]
@@ -586,7 +637,9 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.kernels.flash_attention, repro_torch.core, "
             "repro_torch.optim, repro_torch.checkpoint, "
             "repro_torch.data.pipeline, repro_torch.train.trainer, "
-            "repro_torch.kernels.ssd_scan, repro_torch.models.mamba_lm; "
+            "repro_torch.kernels.ssd_scan, repro_torch.models.mamba_lm, "
+            "repro_torch.serve.speculative, repro_torch.serve.driver, "
+            "repro_torch.serve.server, repro_torch.serve.metrics; "
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
