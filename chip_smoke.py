@@ -48,7 +48,14 @@ Phases (any failure exits non-zero; no result line is printed then):
    (never called by the port; none exists for the SSD scan) with CUDA
    events, each launch of the multi-launch kernels by torch.profiler, and
    compute each kernel's bound from these inputs and NVIDIA's H100 SXM
-   data sheet;
+   data sheet; then the same three checks (each shown again to reject a
+   defective variant), times and bounds at the hybrid's shapes (phase
+   11's Zamba2-1.2B): flash at (1, S, S, 32, 32, 64) for S 128, 256, 640
+   and 1024 and at (4, 512, 512, 32, 32, 64) beside SDPA, the fused MLP at
+   d 2048, f 8192 for T 4, 77, 256 and 1024 beside three matmuls (and the
+   16-seed sweep at T 256 and 1024), the SSD scan at (1, s, 64, 64, 64),
+   chunk 128, for s 128 and 1024; these small calls time by CUDA-graph
+   replay (their host path outlasts their device work), eager beside;
 4. tiny float32 configs on the card and on the CPU (TF32 off): through
    the port's engine on each layout — the mixed step, the split path on
    the pool (``mixed=False``) and on the dense layout (``paged=False``),
@@ -66,7 +73,11 @@ Phases (any failure exits non-zero; no result line is printed then):
    ``mamba2-smoke``,
    first-prefill logits within 1e-4 and greedy streams identical, the
    SSD kernel launched layers x prefills times on the card; through the
-   train step, loss and gradients within 1e-4;
+   split-path engine on ``zamba2-smoke``, a 3-layer ``rest > 0`` variant
+   and a ``sliding_window=16`` variant, first-prefill logits within 1e-4,
+   streams identical and the SSD kernel, flash and the fused MLP launched
+   as the path says; through the train step (dense, ``mamba2-smoke`` and
+   ``zamba2-smoke``, remat on), loss and gradients within 1e-4;
 5. the SERVING PATH: ``Session(get_config("qwen3-14b"), device="cuda")
    .serve(slots=4, max_len=1024, page_size=16, chunk_tokens=256)`` at full
    width with random weights from ``--seed``, 6 requests of 24-700 prompt
@@ -151,6 +162,31 @@ Phases (any failure exits non-zero; no result line is printed then):
    and /metrics' ``spec_drafted`` is the engine's; exact launch counts.
    Prints TTFT and TPOT p50/p90 and the share of tokens equal to run B's
    (reported, not checked).
+11. HYBRID SERVING, after phase 7's session is freed:
+   ``Session(get_config("zamba2-1.2b"), device="cuda").serve(slots=4,
+   max_len=2048)`` at full width (38 layers: 6 groups of 6 Mamba layers,
+   each followed by the one shared attention + MLP block, and 2 trailing
+   Mamba layers; bf16, random weights from ``--seed``) through the split
+   path: 6 requests of 1024, 640, 384, 256, 128 and 77 prompt tokens, 32
+   new tokens each. Counts are zeroed just before and read just after:
+   ``ssd_scan`` must have run 38 x prefills times, ``flash_attention`` 6
+   x prefills, ``fused_mlp`` 6 x (prefills + decode steps), paged
+   attention never; every request finishes with 32 in-vocab tokens,
+   ``prefill_traces`` equals the 6 distinct lengths and ``decode_traces``
+   1. Prints tokens/s, step p50 (with a prefill, decode only), peak
+   memory and the decode state's bytes; one more pair under
+   torch.profiler (admission step, decode-only steps, by kernel group);
+   then ``Session.generate`` of a (4, 512) prompt for 16 steps (exact
+   launch counts).
+12. SSM AND HYBRID TRAINING, uncut: phase 6's run (AdamW, remat on, 1 x
+   4096 tokens, 6 steps; seq_len 2048 only on out-of-memory, said in the
+   record) on Mamba2-780M (48 layers) and on Zamba2-1.2B (38 layers).
+   Flash attention must have run 0 times for Mamba2 and 6 groups x steps
+   x 2 (forward and remat recompute) for the hybrid, the other kernels
+   never (training takes the plain SSD scan and SwiGLU). Prints step p50,
+   tokens/s, peak memory, the model-FLOPs share of 989 TFLOP/s (6
+   N_applied tokens + the causal attention forward and backward + the SSD
+   products forward and backward) and the profile by part.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -697,18 +733,20 @@ def exact_h_mlp(x, wg64, wu64, wd64):
     return (h.double() @ wd64).to(torch.bfloat16)
 
 
-def mlp_seed_sweep(wg, wu, wd, atol: float, rtol: float):
-    """At every row count of the split path and at T = 256, draw x from
-    ``MLP_SWEEP_SEEDS`` seeds and measure, as multiples of the per-value
-    limit: (a) the kernel against the plain version, (b) the plain
-    version against the exactly rounded h reference, (c) the kernel
-    against that reference. Returns {T: {"a", "b", "c": worst over the
-    seeds, "seeds_a_over": seeds where (a) > 1}}."""
+def mlp_seed_sweep(wg, wu, wd, atol: float, rtol: float,
+                   row_counts=tuple(sorted(set(MLP_SPLIT_ROWS) | {256}))):
+    """At each of ``row_counts`` (by default every row count of the split
+    path and T = 256), draw x from ``MLP_SWEEP_SEEDS`` seeds and measure,
+    as multiples of the per-value limit: (a) the kernel against the plain
+    version, (b) the plain version against the exactly rounded h
+    reference, (c) the kernel against that reference. Returns {T: {"a",
+    "b", "c": worst over the seeds, "seeds_a_over": seeds where (a) >
+    1}}."""
     from repro_torch.kernels import fused_mlp as fm
     wg64, wu64, wd64 = wg.double(), wu.double(), wd.double()
-    d = wg.shape[0]
+    d, f = wg.shape
     out = {}
-    for rows in sorted(set(MLP_SPLIT_ROWS) | {256}):
+    for rows in row_counts:
         worst = {"a": 0.0, "b": 0.0, "c": 0.0}
         over = []
         for seed in range(MLP_SWEEP_SEEDS):
@@ -726,7 +764,8 @@ def mlp_seed_sweep(wg, wu, wd, atol: float, rtol: float):
                 over.append(seed)
             worst = {k: max(worst[k], e[k]) for k in worst}
         torch.cuda.synchronize()
-        log(f"[mlp bf16 sweep T={rows}] worst of {MLP_SWEEP_SEEDS} seeds, "
+        log(f"[mlp bf16 sweep T={rows} d={d} f={f}] worst of "
+            f"{MLP_SWEEP_SEEDS} seeds, "
             f"x the limit (atol {atol}, rtol {rtol}): (a) kernel vs plain "
             f"{worst['a']:.3f}, (b) plain vs exact h {worst['b']:.3f}, (c) "
             f"kernel vs exact h {worst['c']:.3f}; seeds with (a) > 1: "
@@ -734,6 +773,49 @@ def mlp_seed_sweep(wg, wu, wd, atol: float, rtol: float):
         out[rows] = {**worst, "seeds_a_over": over}
     del wg64, wu64, wd64
     return out
+
+
+def _mlp_rows(gen, rows: int, wg, wu, wd, atol: float, rtol: float, *,
+              timed: bool):
+    """The bf16 fused MLP at ``rows`` rows of x against its plain version,
+    per value, the check shown to reject a version with one 64-wide f tile
+    of h dropped; ``timed``: kernel, plain version, three matmuls and the
+    bound too. Returns the row count's record."""
+    from repro_torch.kernels import fused_mlp as fm
+    d, f = wg.shape
+    x = torch.randn((rows, d), generator=gen, device="cuda").to(wg.dtype)
+    want = fm.fused_mlp_plain(x, wg, wu, wd)
+    got = fm.fused_mlp(x, wg, wu, wd)
+    e = worst_excess(got, want, atol, rtol)
+    wd_drop = wd.clone()
+    wd_drop[f // 2:f // 2 + 64] = 0
+    dr = worst_excess(fm.fused_mlp_plain(x, wg, wu, wd_drop), want, atol,
+                      rtol)
+    del wd_drop
+    plan = fm.mlp_plan(rows, d, f, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    check(bool(torch.isfinite(got).all()) and e <= 1.0,
+          f"fused MLP bf16 at T={rows} d={d} f={f} (plan {plan}): worst "
+          f"error {e:.3f}x atol {atol} + rtol {rtol}")
+    check(dr > 1.0, f"the bf16 check at T={rows} d={d} passes a dropped f "
+                    f"tile ({dr:.3f}x the limit)")
+    rec = {"t": rows, "d": d, "f": f, "plan": list(plan),
+           "error_of_limit": e, "dropped_tile_error_of_limit": dr}
+    msg = (f"[mlp bf16 T={rows} d={d} f={f}] plan {plan[:3]}: worst error "
+           f"{e:.3f}x the limit (atol {atol}, rtol {rtol}); a dropped "
+           f"64-wide f tile would be {dr:.1f}x")
+    if timed:
+        silu = torch.nn.functional.silu
+        rec.update(_small_times(
+            lambda: fm.fused_mlp(x, wg, wu, wd),
+            lambda: torch.matmul(silu(torch.matmul(x, wg))
+                                 * torch.matmul(x, wu), wd),
+            lambda: fm.fused_mlp_plain(x, wg, wu, wd)))
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            2 * (3 * d * f + 2 * rows * d), 6.0 * rows * d * f, "bfloat16")
+        msg += _small_times_text(rec, "3x matmul")
+    log(msg)
+    return rec
 
 
 def phase_mlp(rng):
@@ -822,30 +904,8 @@ def phase_mlp(rng):
     # a decode of the 4-slot table, the prefill buckets from 32 (a 24-token
     # prompt) to 1024, and generate's (4, 512) prefill; each held to the
     # same per-value limit, and the limit shown to reject a dropped f tile
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    wd_drop = wd.clone()
-    wd_drop[f // 2:f // 2 + 64] = 0
-    split_rows = []
-    for rows in MLP_SPLIT_ROWS:
-        xr = torch.randn((rows, d), generator=gen, device="cuda").to(bf)
-        want_r = fm.fused_mlp_plain(xr, wg, wu, wd)
-        got_r = fm.fused_mlp(xr, wg, wu, wd)
-        e = worst_excess(got_r, want_r, atol, rtol)
-        dr = worst_excess(fm.fused_mlp_plain(xr, wg, wu, wd_drop), want_r,
-                          atol, rtol)
-        plan_r = fm.mlp_plan(rows, d, f, sms)
-        check(bool(torch.isfinite(got_r).all()) and e <= 1.0,
-              f"fused MLP bf16 at T={rows} (plan {plan_r}): worst error "
-              f"{e:.3f}x atol {atol} + rtol {rtol}")
-        check(dr > 1.0, f"the bf16 check at T={rows} passes a dropped f "
-                        f"tile ({dr:.3f}x the limit)")
-        log(f"[mlp bf16 T={rows} d={d} f={f}] split-path row count, plan "
-            f"{plan_r[:3]}: worst error {e:.3f}x the limit (atol {atol}, "
-            f"rtol {rtol}); a dropped 64-wide f tile would be {dr:.1f}x")
-        split_rows.append({"t": rows, "plan": list(plan_r),
-                           "error_of_limit": e,
-                           "dropped_tile_error_of_limit": dr})
-    del wd_drop, xr, want_r, got_r
+    split_rows = [_mlp_rows(gen, rows, wg, wu, wd, atol, rtol, timed=False)
+                  for rows in MLP_SPLIT_ROWS]
     # the same per-value check on 16 draws of x at every row count and at
     # T = 256, beside the plain version's and the kernel's distance from
     # the exactly rounded h (ROADMAP.md Queue 3, closed)
@@ -894,6 +954,70 @@ def _flash_inputs(gen, shape, dtype):
                  for sh in ((b, s, hq, d), (b, t, hkv, d), (b, t, hkv, d)))
 
 
+def _small_times(kernel, library, plain) -> dict:
+    """Times of a kernel call and of the library call beside it at a small
+    shape, where a call's host path can take longer than its device work:
+    by CUDA-graph replay (the device's time, ``ms``) and eager by CUDA
+    events (``eager_ms``, ``library_eager_ms``); the plain version eager
+    (3 calls)."""
+    return {"ms": graph_ms([kernel]), "eager_ms": time_ms(kernel),
+            "library_ms": graph_ms([library]),
+            "library_eager_ms": time_ms(library),
+            "plain_ms": time_ms(plain, iters=3, warmup=1)}
+
+
+def _small_times_text(rec: dict, library: str) -> str:
+    return (f"; kernel {rec['ms']:.4f} ms by graph replay "
+            f"({rec['eager_ms']:.4f} eager), plain {rec['plain_ms']:.4f} "
+            f"ms, {library} {rec['library_ms']:.4f} ms by graph replay "
+            f"({rec['library_eager_ms']:.4f} eager), bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+
+
+def _flash_shape(gen, shape, atol: float, rtol: float, *, timed: bool):
+    """bf16 causal flash at ``shape`` against its plain version, per value
+    (worst |err| / (atol + rtol |want|) <= 1), the check shown to reject a
+    version that drops keys from the last rows; ``timed``: kernel, plain
+    version, SDPA and the bound too. Returns the shape's record."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _flash_inputs(gen, shape, torch.bfloat16)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    got = fa.flash_attention(q, k, v, causal=True)
+    e = worst_excess(got, want, atol, rtol)
+    n = shape[1]
+    dr = worst_excess(fa.flash_attention_plain(
+        q, k, v, causal=True, window=n - min(64, n // 2)), want, atol, rtol)
+    check(bool(torch.isfinite(got).all()) and e <= 1.0,
+          f"flash bf16 at {shape} causal: worst error {e:.3f}x atol "
+          f"{atol} + rtol {rtol}")
+    check(dr > 1.0, f"the bf16 flash check at {shape} passes a version "
+                    f"that drops keys ({dr:.3f}x the limit)")
+    rec = {"shape": list(shape), "error_of_limit": e,
+           "dropped_keys_error_of_limit": dr}
+    msg = (f"[flash bf16 {shape} causal] worst error {e:.3f}x the limit "
+           f"(atol {atol}, rtol {rtol}); dropped keys would be {dr:.1f}x")
+    if timed:
+        b, s, t, hq, hkv, d = shape
+        qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+
+        def kernel():
+            return fa.flash_attention(q, k, v, causal=True)
+
+        def library():
+            return sdpa(qs, ks, vs, is_causal=True, enable_gqa=hq != hkv)
+
+        rec.update(_small_times(kernel, library, lambda:
+                                fa.flash_attention_plain(q, k, v,
+                                                         causal=True)))
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            2 * (2 * b * s * hq * d + 2 * b * t * hkv * d),
+            4.0 * hq * d * b * s * (s + 1) / 2, "bfloat16")
+        msg += _small_times_text(rec, "sdpa")
+    log(msg)
+    return rec
+
+
 def phase_flash(rng):
     """Flash attention: (a) bf16 at the training shape, (b) fp32 at a
     small shape, (c) ragged / windowed / non-causal fp32 cases, (d) the
@@ -938,27 +1062,8 @@ def phase_flash(rng):
     # bucket (32 to 1024 positions) and generate's (4, 512) batch, each
     # held to the same per-value limit and shown to reject a version that
     # drops keys from its last rows
-    split_shapes = []
-    for shape in FLASH_SPLIT_SHAPES:
-        qa, ka, va = _flash_inputs(gen, shape, torch.bfloat16)
-        want_s = fa.flash_attention_plain(qa, ka, va, causal=True)
-        got_s = fa.flash_attention(qa, ka, va, causal=True)
-        e = worst_excess(got_s, want_s, atol, rtol)
-        n = shape[1]
-        dr = worst_excess(fa.flash_attention_plain(
-            qa, ka, va, causal=True, window=n - min(64, n // 2)), want_s,
-            atol, rtol)
-        check(bool(torch.isfinite(got_s).all()) and e <= 1.0,
-              f"flash bf16 at {shape} causal: worst error {e:.3f}x atol "
-              f"{atol} + rtol {rtol}")
-        check(dr > 1.0, f"the bf16 flash check at {shape} passes a version "
-                        f"that drops keys ({dr:.3f}x the limit)")
-        log(f"[flash bf16 {shape} causal] split-path prefill shape: worst "
-            f"error {e:.3f}x the limit (atol {atol}, rtol {rtol}); dropped "
-            f"keys would be {dr:.1f}x")
-        split_shapes.append({"shape": list(shape), "error_of_limit": e,
-                             "dropped_keys_error_of_limit": dr})
-    del qa, ka, va, want_s, got_s
+    split_shapes = [_flash_shape(gen, shape, atol, rtol, timed=False)
+                    for shape in FLASH_SPLIT_SHAPES]
     # (b), (c): fp32, 2e-6 as tests/test_kernels.py:33
     cases = [((2, 256, 256, 8, 2, 64), True, 0, "small causal GQA"),
              ((1, 100, 77, 4, 2, 16), True, 0, "ragged S > T"),
@@ -1175,6 +1280,98 @@ def phase_ssd(rng):
             "launch_kernels": list(SSD_LAUNCHES),
             "device_us_by_launch": launches, "blocks_by_pass": grids,
             "library": "none: no one PyTorch call computes the SSD scan"}
+
+
+#: the hybrid's kernel shapes (Zamba2-1.2B: the shared block's 32/32 heads
+#: x 64 and its 2048 x 8192 MLP, 64 SSD heads x p 64 with n 64), every one
+#: that phases 11 and 12 launch: one prompt of each length phase 11 and its
+#: profile prefill (77 to 1024 tokens), generate's 4 x 512 (2048 MLP rows)
+#: and phase 12's training forward (1 x 4096, flash only: the MLP and the
+#: SSD scan train through their plain versions); the MLP also at a 4-slot
+#: decode, and its seed sweep at 256 rows and at the two largest prefills
+HYBRID_PROMPTS = (77, 128, 256, 384, 512, 640, 1024)
+HYBRID_FLASH = tuple((1, n, n, 32, 32, 64) for n in HYBRID_PROMPTS) \
+    + ((4, 512, 512, 32, 32, 64), (1, 4096, 4096, 32, 32, 64))
+HYBRID_MLP = (2048, 8192, (4,) + HYBRID_PROMPTS + (2048,),
+              (256, 1024, 2048))
+HYBRID_SSD = tuple((1, n, 64, 64, 64) for n in HYBRID_PROMPTS) \
+    + ((4, 512, 64, 64, 64),)
+
+
+def phase_hybrid_kernels(rng):
+    """Flash attention, the fused MLP and the SSD scan in bf16 at the
+    hybrid's shapes (``HYBRID_*``), each held to the per-value limit of its
+    phase-3 check (shown again to reject a defective plain variant) and
+    timed beside its plain version, the PyTorch library call where there
+    is one, and its bound. Returns {kernel name: [shape records]} and the
+    MLP's seed sweep."""
+    from repro_torch.kernels import ssd_scan as sk
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
+    bf = torch.bfloat16
+    out = {"flash_attention": [_flash_shape(gen, shape, 1e-5, 8e-3,
+                                            timed=True)
+                               for shape in HYBRID_FLASH]}
+    d, f, rows_list, sweep_rows = HYBRID_MLP
+    atol, rtol = 1e-3, 8e-3
+    wg = (torch.randn((d, f), generator=gen, device="cuda") * 0.02).to(bf)
+    wu = (torch.randn((d, f), generator=gen, device="cuda") * 0.02).to(bf)
+    wd = (torch.randn((f, d), generator=gen, device="cuda")
+          * (0.02 / math.sqrt(2 * 38))).to(bf)
+    out["fused_mlp"] = [_mlp_rows(gen, rows, wg, wu, wd, atol, rtol,
+                                  timed=True) for rows in rows_list]
+    sweep = mlp_seed_sweep(wg, wu, wd, atol, rtol, row_counts=sweep_rows)
+    for rows, w in sweep.items():
+        check(not w["seeds_a_over"], f"fused MLP bf16 at the hybrid's "
+              f"T={rows}: worst error {w['a']:.3f}x the limit on seeds "
+              f"{w['seeds_a_over']} of {MLP_SWEEP_SEEDS}")
+    out["fused_mlp_seed_sweep"] = sweep
+    del wg, wu, wd
+    atol, rtol = 1e-5, 8e-3
+    chunk = 128
+    out["ssd_scan"] = []
+    for shape in HYBRID_SSD:
+        args = _ssd_inputs(gen, shape, bf, model_decay=True)
+        y, h_last = sk.ssd_scan(*args, chunk=chunk)
+        want_y, want_h = sk.ssd_scan_plain(*args, chunk=chunk)
+        e = worst_excess(y, want_y, atol, rtol)
+        h_err = ((h_last - want_h).abs().max() / want_h.abs().max()).item()
+        check(bool(torch.isfinite(y).all()) and e <= 1.0 and h_err <= 1e-4,
+              f"ssd bf16 at the hybrid's {shape}: y worst error {e:.3f}x "
+              f"the limit, final state err {h_err:.3e} of its max")
+        b, s, h, p, n = shape
+        if s > chunk:           # the last chunk scanned from a zero state
+            bad, _ = sk.ssd_scan_plain(
+                args[0][:, -chunk:], args[1][:, -chunk:], args[2],
+                args[3][:, -chunk:], args[4][:, -chunk:], chunk=chunk)
+            dr = worst_excess(bad, want_y[:, -chunk:], atol, rtol)
+            check(dr > 1.0, f"the bf16 ssd check at {shape} passes a scan "
+                            f"that drops the carried state ({dr:.3f}x)")
+        else:
+            dr = None
+        kernel = graph_ms([lambda: sk.ssd_scan(*args, chunk=chunk)])
+        eager = time_ms(lambda: sk.ssd_scan(*args, chunk=chunk))
+        plain = time_ms(lambda: sk.ssd_scan_plain(*args, chunk=chunk),
+                        iters=3, warmup=1)
+        q = sk.chunk_rows(s, chunk)     # a prompt under one chunk: q = s
+        nc = s // q
+        nbytes = (2 * (2 * b * s * h * p + 2 * b * s * n)
+                  + 4 * (b * s * h + h + b * h * p * n))
+        pairs = q * (q + 1) // 2
+        flops = 2.0 * b * nc * (pairs * n + h * (pairs * p
+                                                 + 2 * q * n * p))
+        bms, by = bound_ms(nbytes, flops, "bfloat16")
+        log(f"[ssd bf16 {shape} chunk={chunk}] y worst error "
+            f"{e:.3f}x the limit, final state err {h_err:.3e} of its max"
+            + (f", a dropped carried state {dr:.1f}x" if dr else "")
+            + f"; kernel {kernel:.4f} ms by graph replay ({eager:.4f} "
+            f"eager), plain {plain:.4f} ms, library none, bound {bms:.4f} ms "
+            f"({by})")
+        out["ssd_scan"].append(
+            {"shape": list(shape), "chunk": chunk, "error_of_limit": e,
+             "state_err_of_max": h_err, "dropped_state_error_of_limit": dr,
+             "ms": kernel, "eager_ms": eager, "plain_ms": plain,
+             "library_ms": None, "bound_ms": bms, "bound_by": by})
+    return out
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1506,6 +1703,111 @@ def phase_train_parity():
         f"vs CPU err {loss_err:.3e}, grads max abs err {grad_err:.3e} "
         f"(<= 1e-4)")
     return {"loss_err": loss_err, "grad_err": grad_err}
+
+
+#: phase 4's hybrid configs: zamba2-smoke (one group, rest 0), a rest > 0
+#: variant (one trailing Mamba layer) and a sliding-window variant (the
+#: ring of 16 rows wraps)
+HYBRID_PARITY = {"rest 0": {},
+                 "rest 1": dict(num_layers=3, hybrid_attn_every=2),
+                 "swa 16": dict(sliding_window=16)}
+
+
+def phase_parity_hybrid():
+    """zamba2-smoke and its two variants in fp32 (TF32 off) through the
+    split-path engine on the card and on the CPU: the first prefill's
+    logits within 1e-4 (a first request with max_new 1), then every
+    greedy stream identical; on the card the SSD kernel ran layers x
+    prefills, flash G x prefills and the fused MLP G x programs. Returns
+    the first-prefill error of each config."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_smoke
+    from repro_torch.params import init_params
+    from repro_torch.serve.engine import ServeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    errs = {}
+    for name, kw in HYBRID_PARITY.items():
+        cfg = get_smoke("zamba2-1.2b").with_(dtype="float32", **kw)
+        g = cfg.num_layers // cfg.hybrid_attn_every
+        cpu = init_params(cfg, device="cpu", seed=7)
+        rng = np.random.default_rng(7)
+        prompts = [rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+                   for n in (64, 17, 32, 96, 9)]
+        res, first = {}, {}
+        for dev, params in (("cpu", cpu), ("cuda", _to(cpu, "cuda"))):
+            eng = ServeEngine(cfg, params, slots=2, max_len=160)
+            kernels.reset_launches()
+            eng.submit(0, prompts[0], max_new=1)
+            eng.step()
+            first[dev] = eng.last_logits.detach().float().cpu()
+            for i, p in enumerate(prompts[1:], 1):
+                eng.submit(i, p, max_new=6)
+            out = eng.run()
+            res[dev] = {i: list(out[i].out) for i in out}
+            pf, dec = eng.stats["prefills"], eng.stats["decode_steps"]
+            on = dev == "cuda"
+            want = {"paged_attention": 0,
+                    "fused_mlp": g * (pf + dec) if on else 0,
+                    "flash_attention": g * pf if on else 0,
+                    "ssd_scan": cfg.num_layers * pf if on else 0}
+            check(kernels.launches() == want,
+                  f"[parity hybrid {name}] launches on {dev} "
+                  f"{kernels.launches()} != {want}")
+        err = (first["cpu"] - first["cuda"]).abs().max().item()
+        check(err <= 1e-4, f"[parity hybrid {name}] f32 first-prefill "
+                           f"logits card vs CPU: {err} > 1e-4")
+        check(res["cpu"] == res["cuda"],
+              f"[parity hybrid {name}] greedy streams differ: cpu "
+              f"{res['cpu']} cuda {res['cuda']}")
+        log(f"[parity hybrid f32, TF32 off] zamba2-smoke {name}: "
+            f"first-prefill logits max abs err card vs CPU {err:.3e} (<= "
+            f"1e-4); greedy streams identical over {len(prompts)} requests")
+        errs[name] = err
+    return errs
+
+
+def phase_train_parity_families():
+    """One fp32 train step (remat on, attn_impl="auto": flash on the card
+    in the hybrid's shared block, full attention on the CPU; the plain SSD
+    scan on both) on mamba2-smoke and zamba2-smoke: loss and gradients
+    within 1e-4, TF32 off."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.strategy import Strategy
+    from repro_torch.params import init_params
+    from repro_torch.train import step
+    from repro_torch.tree import flatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    strat = Strategy(dtype="float32")
+    out = {}
+    for arch in ("mamba2-780m", "zamba2-1.2b"):
+        cfg = get_smoke(arch).with_(dtype="float32")
+        cpu = init_params(cfg, device="cpu", seed=5)
+        tokens = torch.from_numpy(np.random.default_rng(5).integers(
+            0, cfg.vocab_size, size=(2, 128)).astype(np.int32))
+        res = {}
+        for dev, params in (("cpu", cpu), ("cuda", _to(cpu, "cuda"))):
+            leaves = flatten(params)
+            for t in leaves.values():
+                t.requires_grad_(True)
+            total, mets = step.make_loss_fn(cfg, strat)(
+                params, {"tokens": tokens.to(dev)})
+            grads = torch.autograd.grad(total, list(leaves.values()),
+                                        materialize_grads=True)
+            res[dev] = (float(mets["loss"].detach()),
+                        {k: g.cpu() for k, g in zip(leaves, grads)})
+        loss_err = abs(res["cpu"][0] - res["cuda"][0])
+        grad_err = max((res["cuda"][1][k] - g).abs().max().item()
+                       for k, g in res["cpu"][1].items())
+        check(loss_err <= 1e-4 and grad_err <= 1e-4,
+              f"{cfg.name} f32 train step card vs CPU: loss err {loss_err}, "
+              f"grads max abs err {grad_err} (limit 1e-4)")
+        log(f"[parity f32 train step, TF32 off] {cfg.name} loss "
+            f"{res['cpu'][0]:.6f}: card vs CPU err {loss_err:.3e}, grads max "
+            f"abs err {grad_err:.3e} (<= 1e-4)")
+        out[cfg.name] = {"loss_err": loss_err, "grad_err": grad_err}
+    return out
 
 
 def _to(tree, device):
@@ -2303,11 +2605,15 @@ def phase_online(session, prompts, streams_b, max_new: int = 32):
 
 # ------------------------------------------------------------------ phase 6
 
-def phase_train(seed: int, steps: int = 6, layers: int = 4):
-    """The TRAIN PATH at full width, depth cut to ``layers``; seq_len 4096
-    unless it does not fit the card, then 2048 (said in the record)."""
+def phase_train(seed: int, steps: int = 6, layers: int = 4, *,
+                arch: str = "qwen3-14b"):
+    """The TRAIN PATH of ``arch`` at full width, depth cut to ``layers``
+    (None: uncut); seq_len 4096 unless it does not fit the card, then 2048
+    (said in the record)."""
     from repro_torch.configs import get_config
-    cfg = get_config("qwen3-14b").with_(num_layers=layers)
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.with_(num_layers=layers)
     for seq_len in (4096, 2048):
         try:
             return _train_run(cfg, seed, steps, seq_len)
@@ -2324,6 +2630,7 @@ def phase_train(seed: int, steps: int = 6, layers: int = 4):
 def _train_run(cfg, seed: int, steps: int, seq_len: int):
     from repro_torch import kernels
     from repro_torch.api import Session
+    from repro_torch.configs import get_config
     from repro_torch.train.trainer import TrainConfig
     from repro_torch.tree import flatten
     card_bytes = torch.cuda.get_device_properties(0).total_memory
@@ -2337,10 +2644,15 @@ def _train_run(cfg, seed: int, steps: int, seq_len: int):
     n_params = sum(p.numel() for p in flatten(session.params).values())
     n_embed = session.params["embed"].numel()
     s = trainer.strategy
-    log(f"[train] {cfg.name} cut to {cfg.num_layers} layers (width uncut: "
+    full = get_config(cfg.name).num_layers == cfg.num_layers
+    log(f"[train] {cfg.name} "
+        + ("uncut" if full else f"cut to {cfg.num_layers} layers")
+        + f" ({cfg.num_layers} layers; width uncut: "
         f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads x "
-        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), "
-        f"{cfg.dtype}, {n_params / 1e9:.3f} B params; strategy "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, SSD heads {cfg.ssm_heads} x "
+        f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, vocab "
+        f"{cfg.vocab_size}), {cfg.dtype}, {n_params / 1e9:.3f} B params; "
+        f"strategy "
         f"{s.optimizer}, remat={s.remat}, attn_impl={s.attn_impl!r}; "
         f"params + AdamW state ready in {time.perf_counter() - t0:.1f}s")
     kernels.reset_launches()
@@ -2357,23 +2669,25 @@ def _train_run(cfg, seed: int, steps: int, seq_len: int):
         check(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]),
               f"step {h['step']}: loss {h['loss']}, grad_norm "
               f"{h['grad_norm']}")
-    want = {"flash_attention": cfg.num_layers * steps * 2,
+    flops, n_applied, attn_layers = train_flops(cfg, session.params,
+                                                seq_len)
+    want = {"flash_attention": attn_layers * steps * 2,
             "fused_mlp": 0, "paged_attention": 0, "ssd_scan": 0}
     check(counts == want, f"train launches {counts} != {want} (flash: "
-                          f"layers x steps x 2, forward + remat recompute)")
+                          f"{attn_layers} attention layers x steps x 2, "
+                          f"forward + remat recompute; the SSD scan trains "
+                          f"through its plain version)")
     peak = torch.cuda.max_memory_allocated()
     check(peak < card_bytes, f"peak {peak} >= card {card_bytes}")
     tokens = seq_len                                # global_batch 1
     p50 = float(np.percentile(step_s, 50))
-    # model FLOPs: 6 N tokens (N without the embedding gather) + causal
-    # attention, forward (4 S^2/2 Hq D a layer) and backward (2x forward)
-    attn = 3 * 4.0 * cfg.num_heads * cfg.head_dim * seq_len * (seq_len + 1) \
-        / 2 * cfg.num_layers
-    model_flops = 6.0 * (n_params - n_embed) * tokens + attn
-    out = {"layers": cfg.num_layers, "seq_len": seq_len,
+    model_flops = sum(flops.values())
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "depth_cut": not full,
+           "seq_len": seq_len,
            "seq_len_cut": seq_len != 4096, "global_batch": 1,
            "steps": steps, "params": n_params,
            "params_without_embed": n_params - n_embed,
+           "params_applied": n_applied, "model_flops_by_term": flops,
            "step_s": step_s, "step_p50_s": p50,
            "first_step_s": step_s[0], "tokens_per_s": tokens / p50,
            "peak_mem_gb": peak / 1e9, "card_mem_gb": card_bytes / 1e9,
@@ -2382,19 +2696,61 @@ def _train_run(cfg, seed: int, steps: int, seq_len: int):
            "losses": [h["loss"] for h in hist],
            "grad_norms": [h["grad_norm"] for h in hist],
            "launches": counts}
-    log(f"[train] {steps} steps of 1 x {seq_len} tokens: step p50 "
+    log(f"[train] {cfg.name}: {steps} steps of 1 x {seq_len} tokens: step "
+        f"p50 "
         f"{p50 * 1e3:.1f} ms (first {step_s[0] * 1e3:.1f} ms), "
         f"{out['tokens_per_s']:.1f} tokens/s, peak memory "
         f"{out['peak_mem_gb']:.2f} GB of {out['card_mem_gb']:.2f} GB, model "
         f"FLOPs {model_flops / 1e12:.2f} T a step = "
         f"{out['model_flops_share_of_989T']:.2%} of 989 TFLOP/s; losses "
         f"{[round(x, 4) for x in out['losses']]}; launches {counts}")
-    out["profile"] = _train_profile(trainer, p50)
+    out["profile"] = _train_profile(trainer, p50,
+                                    need_flash=attn_layers > 0)
     del trainer, session
     return out
 
 
-def _train_profile(trainer, step_p50_s: float):
+def ssd_flops(cfg, seq_len: int) -> float:
+    """The SSD scan's products a Mamba layer's forward needs at batch 1
+    (the phase-3 bound's count: C.B^T over the causal pairs of each
+    chunk, the intra-chunk y, the chunk states and the inter-chunk y)."""
+    q = min(cfg.ssm_chunk, seq_len)
+    pairs = q * (q + 1) // 2
+    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    return 2.0 * (seq_len // q) * (pairs * n + h * (pairs * p + 2 * q * n * p))
+
+
+def train_flops(cfg, params, seq_len: int):
+    """A training step's model FLOPs at batch 1, by term: 6 N_applied
+    tokens, N_applied the parameters without the embedding gather, the
+    hybrid's shared block counted once an application (G times); the
+    causal attention's forward (4 S (S + 1) / 2 Hq D a layer) and
+    backward (2x forward) in each attention layer (dense: every layer;
+    hybrid: G); the SSD scan's products (``ssd_flops``) forward and
+    backward (3x) in every Mamba layer. Returns (by term, N_applied,
+    attention layers)."""
+    from repro_torch.tree import flatten
+    flat = flatten(params)
+    n = sum(t.numel() for k, t in flat.items() if k != "embed")
+    attn_layers, mamba_layers = cfg.num_layers, 0
+    if cfg.arch_type == "ssm":
+        attn_layers, mamba_layers = 0, cfg.num_layers
+    elif cfg.arch_type == "hybrid":
+        attn_layers = cfg.num_layers // cfg.hybrid_attn_every
+        mamba_layers = cfg.num_layers
+        n += (attn_layers - 1) * sum(t.numel() for k, t in flat.items()
+                                     if k.startswith("shared/"))
+        if cfg.num_layers % cfg.hybrid_attn_every == 0:   # unused trailing
+            n -= sum(t.numel() for k, t in flat.items()
+                     if k.startswith("trailing/"))
+    attn = 3 * 4.0 * cfg.num_heads * cfg.head_dim * seq_len \
+        * (seq_len + 1) / 2 * attn_layers
+    return ({"6_n_tokens": 6.0 * n * seq_len, "attention": attn,
+             "ssd": 3 * ssd_flops(cfg, seq_len) * mamba_layers},
+            n, attn_layers)
+
+
+def _train_profile(trainer, step_p50_s: float, need_flash: bool = True):
     """Where a train step's time goes: one more step under torch.profiler
     (host and device activity, after a warm-up profiler session as phase 5
     does). Device time is summed by kernel group, and by the step's parts
@@ -2453,7 +2809,7 @@ def _train_profile(trainer, step_p50_s: float):
         groups[group] += ms
         kernels[name] = kernels.get(name, 0.0) + ms
     busy = sum(groups.values())
-    check(not busy or groups["flash_attention"] > 0,
+    check(not busy or not need_flash or groups["flash_attention"] > 0,
           f"[train profile] no device kernel matched flash_fwd: kernels "
           f"{sorted(kernels)}")
     out = {"parts_device_ms": parts, "window_ms": wall_ms,
@@ -2482,33 +2838,37 @@ def _train_profile(trainer, step_p50_s: float):
 
 # ------------------------------------------------------------------ phase 7
 
-def phase_ssm(seed: int):
-    """The SSM SERVING PATH: ``Session(get_config("mamba2-780m"),
-    device="cuda").serve(slots=4, max_len=2048)`` at full width (48
-    layers, bf16, random weights from ``seed``): the split path, one
-    exact-length prefill a request through the SSD kernel and one batched
-    recurrent decode a step. Six requests of 1024, 640, 384, 256, 128 and
-    77 prompt tokens (each <= 128 or a multiple of it: the reference's
-    chunk precondition), 32 new tokens each. Counts are zeroed just before
-    and read just after: the SSD kernel must have run layers x prefills
-    times, the other kernels never."""
+def _serve_family(arch: str, seed: int, tag: str, want_fn):
+    """Serve ``arch`` at full width through ``Session(get_config(arch),
+    device="cuda").serve(slots=4, max_len=2048)`` (random weights from
+    ``seed``): six requests of 1024, 640, 384, 256, 128 and 77 prompt
+    tokens (each <= 128 or a multiple of it: the reference's chunk
+    precondition), 32 new tokens each. Counts are zeroed just before and
+    read just after, and must equal ``want_fn(cfg, prefills, decode
+    steps)``; every request finishes with 32 in-vocab tokens,
+    ``prefill_traces`` equals the 6 distinct lengths and ``decode_traces``
+    1. Returns (record, engine, session, rng)."""
     from repro_torch import kernels
     from repro_torch.api import Session
     from repro_torch.configs import get_config
     from repro_torch.tree import flatten
-    cfg = get_config("mamba2-780m")
+    cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     session = Session(cfg, device="cuda", seed=seed)
     eng = session.serve(slots=4, max_len=2048)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in flatten(session.params).values())
-    log(f"[ssm] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.ssm_heads} SSD heads x {cfg.ssm_head_dim}, state "
-        f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, vocab {cfg.vocab_size}, "
-        f"{cfg.dtype}, {n_params / 1e6:.1f} M params; weights + states "
-        f"ready in {time.perf_counter() - t0:.1f}s (decode state "
-        f"{eng.kv_bytes() / 1e6:.1f} MB); paged={eng.paged}, "
+    heads = (f"shared block every {cfg.hybrid_attn_every} layers: "
+             f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.head_dim}, "
+             f"d_ff {cfg.d_ff}; " if cfg.arch_type == "hybrid" else "")
+    log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {heads}{cfg.ssm_heads} SSD heads x "
+        f"{cfg.ssm_head_dim}, "
+        f"state {cfg.ssm_state}, chunk {cfg.ssm_chunk}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}, {n_params / 1e6:.1f} M params; "
+        f"weights + decode state ready in {time.perf_counter() - t0:.1f}s "
+        f"(decode state {eng.kv_bytes() / 1e6:.1f} MB); paged={eng.paged}, "
         f"mixed={eng.mixed}")
     rng = np.random.default_rng(seed)
     lens = (1024, 640, 384, 256, 128, 77)
@@ -2529,23 +2889,21 @@ def phase_ssm(seed: int):
     wall = time.perf_counter() - t0
     counts = kernels.launches()
     res = eng.results()
-    prefills = eng.stats["prefills"]
+    st = eng.stats
     for rid in range(len(lens)):
         r = res[rid]
         check(r.done and len(r.out) == max_new,
               f"request {rid} finished={r.done} with {len(r.out)} tokens")
         check(all(0 <= t < cfg.vocab_size for t in r.out),
               f"request {rid} tokens out of range")
-    want = dict.fromkeys(counts, 0)
-    want["ssd_scan"] = cfg.num_layers * prefills
-    check(prefills == len(lens) and counts == want,
-          f"ssm launches {counts} != {want} ({cfg.num_layers} layers x "
-          f"{prefills} prefills for the SSD kernel, 0 for the others)")
-    check(eng.stats["prefill_traces"] == len(set(lens)),
-          f"prefill_traces {eng.stats['prefill_traces']} != "
-          f"{len(set(lens))} distinct prompt lengths")
-    check(eng.stats["decode_traces"] == 1,
-          f"decode_traces {eng.stats['decode_traces']} != 1")
+    want = want_fn(cfg, st["prefills"], st["decode_steps"])
+    check(st["prefills"] == len(lens) and counts == want,
+          f"{tag} launches {counts} != {want}")
+    check(st["prefill_traces"] == len(set(lens)),
+          f"prefill_traces {st['prefill_traces']} != {len(set(lens))} "
+          f"distinct prompt lengths")
+    check(st["decode_traces"] == 1,
+          f"decode_traces {st['decode_traces']} != 1")
     check(bool(torch.isfinite(eng.last_logits).all()), "finite logits")
     tokens = sum(len(res[r].out) for r in res)
     step_ms = np.asarray(step_s) * 1e3
@@ -2553,7 +2911,8 @@ def phase_ssm(seed: int):
     out = {"layers": cfg.num_layers, "params": n_params,
            "prompt_lens": list(lens), "max_new": max_new, "tokens": tokens,
            "wall_s": wall, "tokens_per_s": tokens / wall,
-           "steps": len(step_s), "prefills": prefills,
+           "steps": len(step_s), "prefills": st["prefills"],
+           "decode_steps": st["decode_steps"],
            "step_p50_ms": float(np.percentile(step_ms, 50)),
            "step_max_ms": float(step_ms.max()),
            "prefill_steps": int(with_pf.sum()),
@@ -2561,22 +2920,40 @@ def phase_ssm(seed: int):
            "decode_only_step_p50_ms": float(
                np.percentile(step_ms[~with_pf], 50)),
            "prefill_tokens": int(sum(lens)),
+           "decode_state_bytes": eng.kv_bytes(),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "decode_traces": eng.stats["decode_traces"],
-           "prefill_traces": eng.stats["prefill_traces"],
-           "launches": counts}
-    log(f"[ssm] {len(lens)} requests (prompts {list(lens)}), {tokens} tokens "
-        f"in {wall:.2f}s = {out['tokens_per_s']:.2f} tok/s; {len(step_s)} "
-        f"steps, step p50 {out['step_p50_ms']:.1f} ms (with a prefill "
-        f"{out['prefill_step_p50_ms']:.1f} ms over {out['prefill_steps']} "
-        f"steps, decode only {out['decode_only_step_p50_ms']:.1f} ms), max "
+           "decode_traces": st["decode_traces"],
+           "prefill_traces": st["prefill_traces"], "launches": counts}
+    log(f"[{tag}] {len(lens)} requests (prompts {list(lens)}), {tokens} "
+        f"tokens in {wall:.2f}s = {out['tokens_per_s']:.2f} tok/s; "
+        f"{len(step_s)} steps, step p50 {out['step_p50_ms']:.1f} ms (with a "
+        f"prefill {out['prefill_step_p50_ms']:.1f} ms over "
+        f"{out['prefill_steps']} steps, decode only "
+        f"{out['decode_only_step_p50_ms']:.1f} ms), max "
         f"{out['step_max_ms']:.1f} ms; peak memory {out['peak_mem_gb']:.2f} "
-        f"GB; launches {counts}; prefill_traces "
-        f"{eng.stats['prefill_traces']}, decode_traces "
-        f"{eng.stats['decode_traces']}")
-    # one more pair (512 and 77 tokens, 12 new each): the admission step
-    # (two prefills and a decode) and the decode-only steps after it are
-    # profiled apart, each against the unprofiled p50 of its kind
+        f"GB, decode state {eng.kv_bytes() / 1e6:.1f} MB; launches {counts}; "
+        f"prefill_traces {st['prefill_traces']}, decode_traces "
+        f"{st['decode_traces']}")
+    return out, eng, session, rng
+
+
+def _ssm_want(cfg, prefills: int, decode_steps: int) -> dict:
+    """Launches of a Mamba2 run on the card: the SSD scan in every layer
+    of every prefill, the other kernels never."""
+    return {"paged_attention": 0, "fused_mlp": 0, "flash_attention": 0,
+            "ssd_scan": cfg.num_layers * prefills}
+
+
+def phase_ssm(seed: int):
+    """The SSM SERVING PATH: ``_serve_family`` on Mamba2-780M (48 layers,
+    bf16): the split path, one exact-length prefill a request through the
+    SSD kernel and one batched recurrent decode a step; the SSD kernel
+    must have run layers x prefills times, the other kernels never. Then
+    one more pair of requests (512 and 77 tokens, 12 new each): the
+    admission step (two prefills and a decode) and the decode-only steps
+    after it are profiled apart, each against the unprofiled p50 of its
+    kind."""
+    out, eng, _, rng = _serve_family("mamba2-780m", seed, "ssm", _ssm_want)
     groups = {"ssd_scan": SSD_LAUNCHES}
     out["profile"] = phase_profile(
         eng, rng, out["prefill_step_p50_ms"], prompts=(512, 77),
@@ -2588,18 +2965,118 @@ def phase_ssm(seed: int):
     return out
 
 
+# ----------------------------------------------------------------- phase 11
+
+#: phase 11's kernel groups: the SSD scan's four launches, flash attention
+#: (the shared block's prefill) and the fused MLP's launches
+HYBRID_GROUPS = {"ssd_scan": SSD_LAUNCHES, "flash_attention": ("flash_fwd",),
+                 "fused_mlp": SERVE_GROUPS["fused_mlp"]}
+
+
+def _hybrid_want(cfg, prefills: int, decode_steps: int) -> dict:
+    """Launches of a hybrid run on the card: the SSD scan in every Mamba
+    layer of every prefill, flash in every application of the shared
+    block in every prefill, the fused MLP in every application in every
+    program (prefill or decode), paged attention never."""
+    g = cfg.num_layers // cfg.hybrid_attn_every
+    return {"paged_attention": 0, "fused_mlp": g * (prefills + decode_steps),
+            "flash_attention": g * prefills,
+            "ssd_scan": cfg.num_layers * prefills}
+
+
+def phase_hybrid(seed: int):
+    """HYBRID SERVING: ``_serve_family`` on Zamba2-1.2B (38 layers: 6
+    groups of 6 Mamba layers and the shared block, 2 trailing; bf16)
+    through the split path, with ``_hybrid_want``'s launch counts; then
+    one more pair under torch.profiler (admission step, decode-only
+    steps), then ``Session.generate`` of a (4, 512) prompt for 16 steps
+    (one prefill and 15 decodes)."""
+    from repro_torch import kernels
+    out, eng, session, rng = _serve_family("zamba2-1.2b", seed, "hybrid",
+                                           _hybrid_want)
+    cfg = session.cfg
+    check(set(out["prompt_lens"]) | {512, 77} <= set(HYBRID_PROMPTS),
+          f"phase 3 checks no kernel at some of phase 11's prompt lengths "
+          f"{sorted(set(out['prompt_lens']) - set(HYBRID_PROMPTS))}")
+    out["groups"] = cfg.num_layers // cfg.hybrid_attn_every
+    out["profile"] = phase_profile(
+        eng, rng, out["prefill_step_p50_ms"], prompts=(512, 77),
+        max_new=12, groups=HYBRID_GROUPS,
+        tag="hybrid profile: admission step", steps=1,
+        required=tuple(HYBRID_GROUPS))
+    out["profile_decode"] = _profile_steps(
+        eng, out["decode_only_step_p50_ms"], HYBRID_GROUPS,
+        "hybrid profile: decode-only steps", required=("fused_mlp",))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompt = rng.integers(0, cfg.vocab_size, size=(4, 512))
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = session.generate(prompt, steps=16)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_counts = kernels.launches()
+    want = _hybrid_want(cfg, 1, 15)
+    check(tuple(toks.shape) == (4, 16) and gen_counts == want,
+          f"generate: shape {tuple(toks.shape)}, launches {gen_counts} != "
+          f"{want}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "generate tokens out of range")
+    out["generate"] = {"batch": 4, "prompt": 512, "steps": 16,
+                       "wall_s": gen_s, "tokens_per_s": 64 / gen_s,
+                       "launches": gen_counts}
+    log(f"[hybrid generate] (4, 512) x 16 in {gen_s:.2f}s "
+        f"({64 / gen_s:.1f} tokens/s); launches {gen_counts}")
+    out["launches"] = {k: out["launches"][k] + gen_counts[k]
+                       for k in gen_counts}
+    del session
+    return out
+
+
+# ----------------------------------------------------------------- phase 12
+
+def phase_train_families(seed: int, steps: int = 6):
+    """SSM AND HYBRID TRAINING at full width, uncut: Mamba2-780M (48
+    layers) and Zamba2-1.2B (38 layers), AdamW, remat, 1 x 4096 tokens
+    (2048 only if 4096 does not fit, said in the record), ``steps`` steps
+    each, with phase 6's checks, FLOPs share and profile."""
+    out = {}
+    for arch in ("mamba2-780m", "zamba2-1.2b"):
+        out[arch] = phase_train(seed, steps, layers=None, arch=arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     t_all = time.perf_counter()
+    phase_s, t_last = {}, [t_all]
+
+    def mark(name):                   # wall seconds since the last mark
+        now = time.perf_counter()
+        phase_s[name] = now - t_last[0]
+        t_last[0] = now
+
     smi = phase_card()
     record = {"nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
               "torch": torch.__version__, "seed": args.seed}
     record["build_s"], record["sass"] = phase_build()
+    mark("1-2 card, build")
     rng = np.random.default_rng(args.seed)
     kernels = [phase_attention(rng), phase_mlp(rng), phase_flash(rng),
                phase_ssd(rng)]
+    mark("3 kernels")
+    hybrid_shapes = phase_hybrid_kernels(rng)
+    for k in kernels:
+        if k["name"] in hybrid_shapes:
+            k["hybrid_shapes"] = hybrid_shapes[k["name"]]
+    kernels[1]["hybrid_seed_sweep"] = hybrid_shapes["fused_mlp_seed_sweep"]
+    mark("3 kernels at the hybrid's shapes")
     parity = phase_parity()
     record["parity_logits_err"] = parity.pop("mixed")
     record["parity_split_logits_err"] = parity
@@ -2607,6 +3084,10 @@ def main():
     record["parity_spec"] = phase_parity_spec()
     record["parity_ssm_logits_err"] = phase_parity_ssm()
     record["parity_train"] = phase_train_parity()
+    mark("4 parity")
+    record["parity_hybrid_logits_err"] = phase_parity_hybrid()
+    record["parity_train_families"] = phase_train_parity_families()
+    mark("4 parity: hybrid, SSM and hybrid training")
     main_run, eng, session, prompts = phase_main(args.seed)
     record["main"] = main_run
     record["profile"] = phase_profile(eng, rng, main_run["step_p50_ms"])
@@ -2618,27 +3099,42 @@ def main():
     record["prefix"] = phase_prefix(session, args.seed)
     record["spec"], streams_b, spec_prompts = phase_spec(session, args.seed)
     record["online"] = phase_online(session, spec_prompts, streams_b)
+    mark("5-10 dense serving")
     del session                           # free the serving weights
     gc.collect()
     torch.cuda.empty_cache()
     record["train"] = phase_train(args.seed)
+    mark("6 dense training")
     gc.collect()                          # the trainer died with phase 6
     torch.cuda.empty_cache()
     record["ssm"] = phase_ssm(args.seed)
+    mark("7 SSM serving")
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["hybrid"] = phase_hybrid(args.seed)
+    mark("11 hybrid serving")
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["train_families"] = phase_train_families(args.seed)
+    mark("12 SSM and hybrid training")
     # each kernel's launches on the paths that run it, each counted from 0
     # just before its run: phase 5 and phases 9-10 (paged attention, the
     # fused MLP; flash in phase 9's model drafter), phase 6 (flash), phase
-    # 7 (the SSD scan)
+    # 7 (the SSD scan), phase 11 (the SSD scan, flash, the fused MLP, and
+    # generate's), phase 12 (flash in the hybrid's shared block)
     paths = [main_run, record["train"], record["ssm"],
-             *record["spec"].values(), *record["online"].values()]
+             *record["spec"].values(), *record["online"].values(),
+             record["hybrid"], *record["train_families"].values()]
     for k in kernels:
         k["launches"] = sum(run["launches"][k["name"]] for run in paths)
     record["kernels"] = kernels
     record["total_s"] = time.perf_counter() - t_all
+    record["phase_s"] = phase_s
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
-    log(f"[done] {record['total_s']:.1f}s on {smi}")
+    log(f"[done] {record['total_s']:.1f}s on {smi}; by phase: "
+        + ", ".join(f"{k} {v:.1f}s" for k, v in phase_s.items()))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,7 @@
     small.train(TrainConfig(steps=6), global_batch=1, seq_len=4096).run()
 
     ssm = Session(get_config("mamba2-780m")).serve(slots=4, max_len=2048)
+    Session(get_config("zamba2-1.2b")).train(global_batch=1, seq_len=4096)
 
     tokens = session.generate(prompt_batch, steps=16)   # (B, 16) greedy
 
@@ -25,18 +26,19 @@ those params in place, so a later ``serve`` sees the trained weights.
 family and layout rules: a full-attention dense decoder gets the paged
 mixed-step engine by default (``mixed=False``: the split prefill/decode
 path on the pool; ``paged=False``: the dense per-slot layout), a
-sliding-window config the dense ring, the SSM family the split path on
-the dense layout; ``prefix_cache``, ``lazy`` and ``scheduler`` pass
-through to the engine (on the paged pool). ``generate`` is the lockstep
-greedy loop (``serve/step.py::greedy_generate``). ``serve_async`` wraps
-the engine in the online ``AsyncDriver`` (a background step loop,
+sliding-window config the dense ring, the SSM family and the hybrid the
+split path on the dense layout; ``prefix_cache``, ``lazy`` and
+``scheduler`` pass through to the engine (on the paged pool).
+``generate`` is the lockstep greedy loop
+(``serve/step.py::greedy_generate``). ``serve_async`` wraps the engine
+in the online ``AsyncDriver`` (a background step loop,
 per-request token streams, TTFT/TPOT metrics, a watchdog) and
 ``serve_http`` puts the stdlib HTTP front-end over that
 (serve/server.py). ``save`` / ``restore`` write and read the npz
 checkpoints both packages read (checkpoint/io.py). The features not
 ported yet raise ``NotImplementedError`` naming their ROADMAP.md item,
-as do ``train`` for the SSM family and ``from_plan``, ``dryrun`` and
-``lower`` (the planner, Queue 1 item 12).
+as do ``train`` for the MoE, enc-dec and VLM families and
+``from_plan``, ``dryrun`` and ``lower`` (the planner, Queue 1 item 12).
 
     driver = session.serve_async(slots=4, max_len=1024)
     stream = driver.submit(prompt, max_new=16)      # tokens as they come
@@ -119,9 +121,10 @@ class Session:
         """A Trainer on this session's strategy, device and params (the
         session's seed initialises them). ``restore=True`` resumes from
         the TrainConfig's checkpoint dir first."""
-        if self.cfg.arch_type != "dense":
-            raise _todo(f"training the {self.cfg.arch_type} family",
-                        f"Queue 1 item 10, {self.cfg.arch_type} training")
+        family = "moe" if self.cfg.is_moe else self.cfg.arch_type
+        if family not in ("dense", "ssm", "hybrid"):
+            raise _todo(f"training the {family} family",
+                        f"Queue 1 item 10, {family} training")
         check_kernel_limits(self.cfg, self.strategy, self.device)
         tc = train_cfg or TrainConfig(seed=self.seed)
         trainer = Trainer(self.cfg, self.strategy, self.device, tc,
@@ -160,8 +163,8 @@ class Session:
         device: for a full-attention dense decoder the paged pool and ONE
         mixed token-slot program per step by default; otherwise
         (``mixed=False``, ``paged=False``, sliding-window configs, the SSM
-        family) the split path, one prefill program a request and one
-        batched decode a step (see serve/engine.py). ``attn_backend``
+        family, the hybrid) the split path, one prefill program a request
+        and one batched decode a step (see serve/engine.py). ``attn_backend``
         exists for the reference's signature only: the device picks the
         kernel or the plain path."""
         if plan is not None or (tp or 1) > 1 or (dp or 1) > 1:

@@ -100,6 +100,14 @@ class ModelConfig:
         return self.arch_type == "hybrid"
 
     @property
+    def hybrid_groups(self) -> tuple:
+        """(G, rest) of a hybrid: G groups of ``hybrid_attn_every`` Mamba
+        layers, each followed by the shared block, and ``rest`` trailing
+        Mamba layers."""
+        g = self.num_layers // self.hybrid_attn_every
+        return g, self.num_layers - g * self.hybrid_attn_every
+
+    @property
     def has_encoder(self) -> bool:
         return self.encoder_layers > 0
 

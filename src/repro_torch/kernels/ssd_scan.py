@@ -18,7 +18,9 @@ p, n)`` fp32 — ``repro/models/ssm.py::ssd_chunked``'s two results. All
 arithmetic is fp32.
 
 :func:`ssd_scan` takes the plain version only for a tensor on the CPU; on
-a CUDA tensor it launches the kernel or raises. The kernel has no
+a CUDA tensor it launches the kernel or raises. :func:`kernel_limits`
+states on the host the shapes the kernel takes (p <= 64, n <= 128, at
+most 128 rows a chunk). The kernel has no
 backward: with a gradient required, callers take :func:`ssd_scan_plain`
 (``models/ssm.py::ssd_chunked`` does so by itself), as the reference
 trains through plain jnp.
@@ -26,6 +28,7 @@ trains through plain jnp.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -46,6 +49,30 @@ def chunk_rows(s: int, chunk: int) -> int:
 #: threads a block and rows (and columns) of a C·Bᵀ tile
 #: (``csrc/ssd_scan.cu``)
 THREADS, CB_ROWS = 256, 32
+#: the largest rows a chunk, state size and channels a head the kernel's
+#: register tiles and shared memory are built for (``csrc/ssd_scan.cu``)
+MAX_Q, MAX_N, MAX_P = 128, 128, 64
+
+
+def kernel_limits(dtype, h: int, p: int, n: int, chunk: int) -> Optional[str]:
+    """Why the kernel cannot take these heads, or None: the limits its C
+    entries check (``csrc/ssd_scan.cu``), stated on the host so that a
+    caller (the wrapper, a serving engine on a CUDA device) refuses before
+    any launch. ``chunk`` is the rows of a chunk, ``min(ssm_chunk, s)``;
+    an engine passes ``ssm_chunk``, which every prompt longer than it
+    reaches."""
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        return f"takes float32 or bfloat16, not {dtype}"
+    if h < 1:
+        return f"needs at least one head, not {h}"
+    if not 1 <= p <= MAX_P:
+        return f"takes 1..{MAX_P} channels a head (ssm_head_dim), not {p}"
+    if not 1 <= n <= MAX_N:
+        return f"takes state sizes 1..{MAX_N} (ssm_state), not {n}"
+    if not 1 <= chunk <= MAX_Q:
+        return f"takes chunks of 1..{MAX_Q} rows (ssm_chunk), not {chunk}"
+    return None
 
 
 def pass_grids(b: int, s: int, h: int, p: int, n: int, chunk: int) -> dict:
@@ -110,6 +137,27 @@ def _scratch_words(lib, *shape) -> int:
     return _SCRATCH[shape]
 
 
+def launch_entry(x, dt, A, B, C, y, h_last, *, q: int) -> int:
+    """Call the C entry of x's dtype on these tensors (with the scratch
+    made here) and return its code: 0, or the CUDA error it refused with
+    (nothing launched then). No check on this side: the wrapper checks
+    ``kernel_limits`` first, and the card's tests call this past them to
+    hold the table to the C entry."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    lib = build.load("ssd_scan")
+    # C·Bᵀ, the cumulative decay and the chunk states (csrc/ssd_scan.cu)
+    scratch = torch.empty(_scratch_words(lib, b, s, h, p, n, q),
+                          dtype=torch.float32, device=x.device)
+    fn = lib.ssd_scan_bf16 if x.dtype == torch.bfloat16 else lib.ssd_scan_f32
+    return fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+              C.data_ptr(), y.data_ptr(), h_last.data_ptr(),
+              scratch.data_ptr(), b, s, h, p, n,
+              q, x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
+              B.stride(0), B.stride(1), C.stride(0), C.stride(1),
+              torch.cuda.current_stream(x.device).cuda_stream)
+
+
 def ssd_scan_cuda(x, dt, A, B, C, *, chunk: int = 128):
     """Launch the CUDA kernel on PyTorch's current stream. x, B and C are
     read in place through their strides (x may be a view of the conv
@@ -142,21 +190,15 @@ def ssd_scan_cuda(x, dt, A, B, C, *, chunk: int = 128):
             "ssd_scan kernel reads x with channel stride 1 and head stride "
             "p, and dt, B, C with unit stride along their last axis")
     q = chunk_rows(s, chunk)
+    why = kernel_limits(x.dtype, h, p, n, q)
+    if why:
+        raise ValueError(f"ssd_scan kernel {why}")
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     h_last = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
-    lib = build.load("ssd_scan")
-    # C·Bᵀ, the cumulative decay and the chunk states (csrc/ssd_scan.cu)
-    scratch = torch.empty(_scratch_words(lib, b, s, h, p, n, q),
-                          dtype=torch.float32, device=x.device)
-    fn = lib.ssd_scan_bf16 if x.dtype == torch.bfloat16 else lib.ssd_scan_f32
-    code = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-              C.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-              scratch.data_ptr(), b, s, h, p, n,
-              q, x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
-              B.stride(0), B.stride(1), C.stride(0), C.stride(1),
-              torch.cuda.current_stream(x.device).cuda_stream)
-    # the kernel checks its own shape limits (csrc/ssd_scan.cu)
-    build.check(code, f"ssd_scan at h={h} p={p} n={n} q={q}")
+    # the C entry checks the same limits, and its grids' sizes
+    # (csrc/ssd_scan.cu)
+    build.check(launch_entry(x, dt, A, B, C, y, h_last, q=q),
+                f"ssd_scan at h={h} p={p} n={n} q={q}")
     ssd_scan.launches += 1
     return y, h_last
 

@@ -4,8 +4,8 @@ through it — the counterpart of ``python -m repro.launch.serve`` in batch
 mode. A dense decoder runs the paged mixed-step engine by default,
 ``--no-mixed`` the split prefill/decode path on the paged pool and
 ``--dense`` the split path on the dense per-slot layout (the mixed step
-needs the pool); the SSM family (``--arch mamba2-780m``) runs the split
-path on the dense layout.
+needs the pool); the SSM family (``--arch mamba2-780m``) and the hybrid
+(``--arch zamba2-1.2b``) run the split path on the dense layout.
 
     # on the card, full-width Qwen3-14B (random weights from --seed)
     PYTHONPATH=src python -m repro_torch.launch.serve --full \\
@@ -22,8 +22,10 @@ path on the dense layout.
         --slots 4 --max-len 1024 --requests 8 --shared-prefix 512 \
         --prefix-cache --lazy --kv-pages 56
 
-    # on the card, full-width Mamba2-780M
+    # on the card, full-width Mamba2-780M and Zamba2-1.2B
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
+        --full --slots 4 --max-len 2048 --requests 6
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
         --full --slots 4 --max-len 2048 --requests 6
 
     # on the CPU, the reduced configs in float32
@@ -34,15 +36,17 @@ path on the dense layout.
         --prefix-cache --lazy --kv-pages 6
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
         --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+        --device cpu
 
 Without ``--full`` the arch's smoke config runs in float32, as the JAX
 launcher does; ``--full`` takes the arch's full ``CONFIG`` in its own
 dtype (bfloat16). The device picks the kernel path (CUDA: the
 hand-written kernels; CPU: their plain versions). ``--prefix-cache``
 and ``--lazy`` serve on the pool, on the mixed and the split path (on
-the SSM family or with ``--dense`` they raise the reference's
-ValueError). ``--spec-k K --drafter ngram|model`` turns on speculative
-decode on the mixed step (greedy only). ``--serve`` skips the synthetic
+the SSM family, the hybrid or with ``--dense`` they raise the
+reference's ValueError). ``--spec-k K --drafter ngram|model`` turns on
+speculative decode on the mixed step (greedy only). ``--serve`` skips the synthetic
 batch and serves the engine over HTTP (``POST /generate``, ``GET
 /metrics``, ``GET /healthz``; ``--port 0`` picks a free port) until
 ctrl-c, with the watchdog at ``--watchdog-timeout`` seconds. Flags of

@@ -5,20 +5,21 @@ Parameters are the nested dicts of ``params.py`` with the per-layer
 weights stacked on a leading L axis; the layer stack is a Python loop
 over that axis where the reference scans.
 
-  forward(params, batch, cfg)                    -> logits, aux
+  forward(params, batch, cfg, remat=)            -> logits, aux
   init_cache(cfg, batch, max_len, dtype=, device=) -> cache
   prefill(params, batch, cfg, cache)             -> last logits, cache
   decode_step(params, cache, token, pos, cfg)    -> logits, cache
 
 The cache is ``{"ssm": {"state": (L,B,H,P,N) fp32, "conv": (L,B,W-1,C)},
-"pos": ...}``. ``decode_step`` writes the new states into the cache's
-tensors in place (the reference returns a new tree): the serve engine
-holds one cache for its whole life, so no second copy of it is made a
-step.
+"pos": ...}``. ``prefill`` and ``decode_step`` write the new states into the
+cache's tensors in place (the reference returns a new tree): the serve
+engine holds one cache for its whole life, so no second copy of it is
+made a step.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import ssm
 from repro_torch.models.layers import rmsnorm
@@ -34,12 +35,22 @@ def _head(params, x, cfg):
     return x @ params["lm_head"]
 
 
-def forward(params, batch, cfg, **_):
-    """batch: {"tokens": (B,S) int}. Returns (logits (B,S,V), aux=0)."""
+def _layer(lp, x, cfg):
+    return x + ssm.mamba_forward(lp["mamba"],
+                                 rmsnorm(x, lp["norm"], cfg.norm_eps), cfg)
+
+
+def forward(params, batch, cfg, *, remat: bool = False, **_):
+    """batch: {"tokens": (B,S) int}. Returns (logits (B,S,V), aux=0).
+    ``remat=True`` wraps each layer in ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint`` of the scan body)."""
     x = _embed(params, batch["tokens"], cfg)
     for lp in unstack_layers(params, cfg.num_layers):
-        x = x + ssm.mamba_forward(lp["mamba"],
-                                  rmsnorm(x, lp["norm"], cfg.norm_eps), cfg)
+        if remat:
+            x = checkpoint(lambda y, lp=lp: _layer(lp, y, cfg), x,
+                           use_reentrant=False)
+        else:
+            x = _layer(lp, x, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _head(params, x, cfg), aux
 
@@ -56,21 +67,24 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None):
 
 
 def prefill(params, batch, cfg, cache=None, **_):
-    """Run the prompt, return the last position's logits (B,1,V) and a
-    fresh cache holding every layer's final state and conv tail."""
+    """Run the prompt, return the last position's logits (B,1,V) and the
+    cache, every layer's final state and conv tail written into it in
+    place (the serve engine hands row views of its own); ``cache=None``
+    makes one."""
     tokens = batch["tokens"]
+    if cache is None:
+        cache = init_cache(cfg, tokens.shape[0], tokens.shape[1],
+                           device=tokens.device)
     x = _embed(params, tokens, cfg)
-    states, convs = [], []
-    for lp in unstack_layers(params, cfg.num_layers):
+    for i, lp in enumerate(unstack_layers(params, cfg.num_layers)):
         y, st = ssm.mamba_forward(lp["mamba"],
                                   rmsnorm(x, lp["norm"], cfg.norm_eps), cfg,
                                   return_state=True)
         x = x + y
-        states.append(st["state"])
-        convs.append(st["conv"])
-    cache = {"ssm": {"state": torch.stack(states), "conv": torch.stack(convs)},
-             "pos": torch.tensor(tokens.shape[1], dtype=torch.int32,
-                                 device=x.device)}
+        for key in ("state", "conv"):
+            cache["ssm"][key][i] = st[key]
+    cache["pos"] = torch.tensor(tokens.shape[1], dtype=torch.int32,
+                                device=x.device)
     return _head(params, x[:, -1:], cfg), cache
 
 

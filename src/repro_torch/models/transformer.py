@@ -49,18 +49,22 @@ def layer_params(params, i: int):
     return pick(params["layers"])
 
 
+def unstack(tree, n: int):
+    """The ``n`` views along the leading axis of every leaf of ``tree``,
+    by ONE ``unbind`` a leaf: its backward stacks the layer grads once,
+    where indexing each layer would allocate a zero gradient of the whole
+    stack per layer."""
+    out = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = unstack(v, n) if isinstance(v, dict) else torch.unbind(v, 0)
+        for i in range(n):
+            out[i][k] = parts[i]
+    return out
+
+
 def unstack_layers(params, n: int):
-    """Per-layer views of the stacked L axis, by ONE ``unbind`` a leaf:
-    its backward stacks the layer grads once, where indexing each layer
-    would allocate a zero gradient of the whole stack per layer."""
-    def split(tree):
-        out = [{} for _ in range(n)]
-        for k, v in tree.items():
-            parts = split(v) if isinstance(v, dict) else torch.unbind(v, 0)
-            for i in range(n):
-                out[i][k] = parts[i]
-        return out
-    return split(params["layers"])
+    """Per-layer views of the stacked L axis (:func:`unstack`)."""
+    return unstack(params["layers"], n)
 
 
 def _check_dense(cfg):

@@ -11,10 +11,14 @@ fp32 ones, matrices in ``cfg.dtype``. The SSM family's mirrors
 embedding, head and norms, and per layer ``in_proj`` ``(d, 2 din + 2N +
 H)``, ``conv_w`` fp32 ``normal * 0.5``, ``conv_b`` zeros, ``dt_bias`` and
 ``A_log`` deterministic ``linspace`` formulas, ``D`` and ``gn_scale``
-ones, ``out_proj`` at ``0.02 / sqrt(2L)``. Leaves are keyed by the
-``"/"``-joined paths of ``repro/checkpoint/io.py::_flatten``
-(``layers/attn/wq``, ``layers/mamba/in_proj``, ...), which is the
-bridge's key map.
+ones, ``out_proj`` at ``0.02 / sqrt(2L)``. The hybrid's mirrors
+``repro/models/hybrid.py::init``: the same Mamba2 layers stacked ``(G,
+every, ...)`` under ``groups/`` and ``(max(rest, 1), ...)`` under
+``trailing/`` (with ``rest == 0`` the reference still keeps one unused
+trailing layer), and ONE shared attention + SwiGLU block under
+``shared/``. Leaves are keyed by the ``"/"``-joined paths of
+``repro/checkpoint/io.py::_flatten`` (``layers/attn/wq``,
+``groups/mamba/in_proj``, ...), which is the bridge's key map.
 
 The random draws are the port's own (``torch.Generator``), not
 ``jax.random``'s: parity tests initialise in JAX and load the tree here.
@@ -57,71 +61,91 @@ FIXED_INITS = {
 }
 
 
+#: stacked leaves: top-level key -> leading layer axes, drawn one layer at
+#: a time by :func:`init_params`
+STACK_AXES = {"layers": 1, "groups": 2, "trailing": 1}
+
+
 def _check_family(cfg):
-    if cfg.is_moe or cfg.arch_type not in ("dense", "ssm"):
+    if cfg.is_moe or cfg.arch_type not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: the port holds dense-decoder and SSM params only "
-            f"so far ({cfg.arch_type} waits for ROADMAP.md Queue 1 item 10)")
+            f"{cfg.name}: the port holds dense-decoder, SSM and hybrid "
+            f"params only so far ({cfg.arch_type} waits for ROADMAP.md "
+            f"Queue 1 item 10)")
 
 
-def _ssm_spec(cfg) -> Spec:
+def _mamba_spec(cfg, prefix: str, lead: tuple) -> Spec:
+    """Mamba2 layers (``mamba_lm.py::init_layer``) stacked on ``lead``."""
     dt = getattr(torch, cfg.dtype)
     f32 = torch.float32
-    L, d, v = cfg.num_layers, cfg.d_model, cfg.vocab_size
-    h, n, w = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_conv_width
+    d, h, n, w = cfg.d_model, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_conv_width
     din = h * cfg.ssm_head_dim
     ch = din + 2 * n
     return {
-        "embed": ((v, d), dt, 0.02),
-        "final_norm": ((d,), f32, "ones"),
-        "lm_head": ((d, v), dt, 0.02),
-        "layers/norm": ((L, d), f32, "ones"),
-        "layers/mamba/in_proj": ((L, d, 2 * din + 2 * n + h), dt, 0.02),
-        "layers/mamba/conv_w": ((L, w, ch), f32, 0.5),
-        "layers/mamba/conv_b": ((L, ch), f32, "zeros"),
-        "layers/mamba/dt_bias": ((L, h), f32, "dt_bias"),
-        "layers/mamba/A_log": ((L, h), f32, "a_log"),
-        "layers/mamba/D": ((L, h), f32, "ones"),
-        "layers/mamba/gn_scale": ((L, din), f32, "ones"),
-        "layers/mamba/out_proj": ((L, din, d), dt,
-                                  0.02 / math.sqrt(2 * L)),
+        f"{prefix}/norm": (lead + (d,), f32, "ones"),
+        f"{prefix}/mamba/in_proj": (lead + (d, 2 * din + 2 * n + h), dt, 0.02),
+        f"{prefix}/mamba/conv_w": (lead + (w, ch), f32, 0.5),
+        f"{prefix}/mamba/conv_b": (lead + (ch,), f32, "zeros"),
+        f"{prefix}/mamba/dt_bias": (lead + (h,), f32, "dt_bias"),
+        f"{prefix}/mamba/A_log": (lead + (h,), f32, "a_log"),
+        f"{prefix}/mamba/D": (lead + (h,), f32, "ones"),
+        f"{prefix}/mamba/gn_scale": (lead + (din,), f32, "ones"),
+        f"{prefix}/mamba/out_proj": (lead + (din, d), dt,
+                                     0.02 / math.sqrt(2 * cfg.num_layers)),
     }
+
+
+def _block_spec(cfg, prefix: str, lead: tuple) -> Spec:
+    """Attention + SwiGLU blocks (``init_attn``, ``init_mlp`` and the two
+    norms) stacked on ``lead``."""
+    dt = getattr(torch, cfg.dtype)
+    f32 = torch.float32
+    d, f = cfg.d_model, cfg.d_ff
+    deep = 0.02 / math.sqrt(2 * cfg.num_layers)
+    spec: Spec = {
+        f"{prefix}/attn/wq": (lead + (d, cfg.q_dim), dt, 0.02),
+        f"{prefix}/attn/wk": (lead + (d, cfg.kv_dim), dt, 0.02),
+        f"{prefix}/attn/wv": (lead + (d, cfg.kv_dim), dt, 0.02),
+        f"{prefix}/attn/wo": (lead + (cfg.q_dim, d), dt, deep),
+        f"{prefix}/ln1": (lead + (d,), f32, "ones"),
+        f"{prefix}/ln2": (lead + (d,), f32, "ones"),
+        f"{prefix}/mlp/w_gate": (lead + (d, f), dt, 0.02),
+        f"{prefix}/mlp/w_up": (lead + (d, f), dt, 0.02),
+        f"{prefix}/mlp/w_down": (lead + (f, d), dt, deep),
+    }
+    if cfg.qk_norm:
+        spec[f"{prefix}/attn/q_norm"] = (lead + (cfg.head_dim,), f32, "ones")
+        spec[f"{prefix}/attn/k_norm"] = (lead + (cfg.head_dim,), f32, "ones")
+    return spec
 
 
 def param_spec(cfg) -> Spec:
     """Every leaf of the family's tree, in ``_flatten`` key form."""
     _check_family(cfg)
-    if cfg.arch_type == "ssm":
-        return _ssm_spec(cfg)
     dt = getattr(torch, cfg.dtype)
-    f32 = torch.float32
-    L, d, f, v = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
-    deep = 0.02 / math.sqrt(2 * L)
-    spec: Spec = {
-        "embed": ((v, d), dt, 0.02),
-        "final_norm": ((d,), f32, "ones"),
-        "layers/attn/wq": ((L, d, cfg.q_dim), dt, 0.02),
-        "layers/attn/wk": ((L, d, cfg.kv_dim), dt, 0.02),
-        "layers/attn/wv": ((L, d, cfg.kv_dim), dt, 0.02),
-        "layers/attn/wo": ((L, cfg.q_dim, d), dt, deep),
-        "layers/ln1": ((L, d), f32, "ones"),
-        "layers/ln2": ((L, d), f32, "ones"),
-        "layers/mlp/w_gate": ((L, d, f), dt, 0.02),
-        "layers/mlp/w_up": ((L, d, f), dt, 0.02),
-        "layers/mlp/w_down": ((L, f, d), dt, deep),
-    }
-    if cfg.qk_norm:
-        spec["layers/attn/q_norm"] = ((L, cfg.head_dim), f32, "ones")
-        spec["layers/attn/k_norm"] = ((L, cfg.head_dim), f32, "ones")
-    if not cfg.tie_embeddings:
-        spec["lm_head"] = ((d, v), dt, 0.02)
-    return spec
+    d, v = cfg.d_model, cfg.vocab_size
+    spec: Spec = {"embed": ((v, d), dt, 0.02),
+                  "final_norm": ((d,), torch.float32, "ones")}
+    head = {"lm_head": ((d, v), dt, 0.02)}
+    if cfg.arch_type == "dense":
+        spec.update(_block_spec(cfg, "layers", (cfg.num_layers,)))
+        return spec if cfg.tie_embeddings else {**spec, **head}
+    # the SSM family and the hybrid draw the head before the layers
+    spec.update(head)
+    if cfg.arch_type == "ssm":
+        return {**spec, **_mamba_spec(cfg, "layers", (cfg.num_layers,))}
+    g, rest = cfg.hybrid_groups
+    return {**spec,
+            **_mamba_spec(cfg, "groups", (g, cfg.hybrid_attn_every)),
+            **_mamba_spec(cfg, "trailing", (max(rest, 1),)),
+            **_block_spec(cfg, "shared", ())}
 
 
 def init_params(cfg, *, device="cuda", generator=None, seed: int = 0):
     """Random weights on ``device`` from ``generator`` (or a fresh one
-    seeded with ``seed``). Stacked weights are drawn one layer at a time
-    so the fp32 draw never holds more than one layer."""
+    seeded with ``seed``). Stacked weights (:data:`STACK_AXES`) are drawn
+    one layer at a time so the fp32 draw never holds more than one
+    layer."""
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
     flat = {}
@@ -131,8 +155,8 @@ def init_params(cfg, *, device="cuda", generator=None, seed: int = 0):
                                                    dtype=dtype).contiguous()
             continue
         out = torch.empty(shape, dtype=dtype, device=device)
-        parts = out if key.startswith("layers/") else out[None]
-        for part in parts:
+        lead = STACK_AXES.get(key.split("/", 1)[0], 0)
+        for part in out.view(-1, *shape[lead:]):
             part.copy_(torch.randn(part.shape, generator=generator,
                                    device=device) * init)
         flat[key] = out

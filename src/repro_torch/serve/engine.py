@@ -4,8 +4,10 @@ the paged mixed path and the legacy split path of
 the reference's rules: full-attention dense decoders take the paged pool
 and ONE mixed token-slot step per engine step by default; the split path
 serves the rest — dense decoders with ``mixed=False`` (on the pool) or
-``paged=False``, sliding-window configs (on the dense ring), and the SSM
-family (not pageable: its cache is a constant-size recurrent state).
+``paged=False``, sliding-window configs (on the dense ring), the SSM
+family (not pageable: its cache is a constant-size recurrent state) and
+the hybrid (its Mamba states beside the shared block's dense K/V rows,
+not pageable either, as in the reference).
 
 **Mixed path (dense decoders).** The KV cache is a flat pool of
 ``page_size``-token pages shared by every slot plus a per-slot page
@@ -26,19 +28,20 @@ jit traces; PyTorch runs eagerly, so ``stats["decode_traces"]`` counts
 the distinct ``(chunk_tokens, page bucket)`` shapes the program has run
 at — the same bounded-shape invariant.
 
-**Split path** (``mixed=False``: the SSM family's only path, and the
-legacy path of dense decoders). Each admitted request is prefilled alone
-by its own device program, its first token sampled and its fresh cache
-stored; then ONE batched decode advances every slot per step (inactive
-rows run too and are overwritten at their next prefill, as in the
-reference). Dense decoders pad the prompt to ``prefill_bucket(n,
+**Split path** (``mixed=False``: the only path of the SSM family and the
+hybrid, and the legacy path of dense decoders). Each admitted request is
+prefilled alone by its own device program, its first token sampled and
+its fresh cache stored; then ONE batched decode advances every slot per
+step (inactive rows run too and are overwritten at their next prefill,
+as in the reference). Dense decoders pad the prompt to ``prefill_bucket(n,
 cap=window)`` and gather the logits at ``last_pos = n - 1``; on the
 dense layout the prefill writes row ``slot`` of every cache leaf in
 place, on the paged layout it fills a scratch cache of whole pages that
 ``scatter_prefill_pages`` writes through the slot's pages (bucket padding
-to the null page). The SSM family prefills at the exact length (the
-recurrence is pad-sensitive) and keeps its constant-size states in the
-dense layout. ``stats["prefill_traces"]`` counts the distinct padded
+to the null page). The SSM family and the hybrid prefill at the exact
+length (the recurrence is pad-sensitive) and keep their states (and the
+hybrid its K/V rows, a ring of the window on sliding-window configs) in
+the dense layout. ``stats["prefill_traces"]`` counts the distinct padded
 prefill lengths run and ``stats["decode_traces"]`` the distinct decode
 shapes (one, or one a page bucket) — the reference's jit-trace counts.
 The reference's chunked-SSD precondition holds: a prompt longer than
@@ -53,13 +56,16 @@ dense decoders (``PAGEABLE_ARCHS``, no sliding window) unless
 
 The device decides the kernel path: CUDA runs the port's hand-written
 kernels (paged attention on the paged layout, the fused MLP in every
-dense-decoder program, flash attention in every dense split prefill, the
-SSD scan in every SSM prefill), the CPU their plain versions
-(``stats["decode_backend"]`` reads ``"kernel"`` or ``"plain"``). On a
-CUDA device an engine refuses, at construction, shapes a kernel of its
-path cannot take (each kernel's ``kernel_limits``: paged attention on
-the paged layout, flash attention on the dense split path, the fused
-MLP on every dense path); nothing falls back to a plain version there.
+dense-decoder program and in every application of the hybrid's shared
+block, flash attention in every dense split prefill and every hybrid
+prefill, the SSD scan in every Mamba layer of an SSM or hybrid prefill),
+the CPU their plain versions (``stats["decode_backend"]`` reads
+``"kernel"`` or ``"plain"``). On a CUDA device an engine refuses, at
+construction, shapes a kernel of its path cannot take (each kernel's
+``kernel_limits``: paged attention on the paged layout, flash attention
+on the dense and hybrid split paths, the fused MLP on every dense and
+hybrid path, the SSD scan on every SSM and hybrid path); nothing falls
+back to a plain version there.
 
 **Prefix sharing, lazy growth, copy-on-write and preemption** (the
 paged pool, both paths), as the reference's: ``prefix_cache=True`` maps
@@ -93,7 +99,7 @@ page bucket).
 
 Not ported yet, each raising ``NotImplementedError`` naming its
 ROADMAP.md item: TP/DP meshes, frames/images and the families other than
-dense and SSM.
+dense, SSM and hybrid.
 """
 from __future__ import annotations
 
@@ -105,7 +111,8 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels import flash_attention, fused_mlp, paged_attention
+from repro_torch.kernels import (flash_attention, fused_mlp,
+                                 paged_attention, ssd_scan)
 from repro_torch.models import get_model, kvcache, transformer
 from repro_torch.serve.paging import PageAllocator, pages_for
 from repro_torch.serve.prefix import PrefixCache
@@ -295,7 +302,7 @@ class ServeEngine:
                                          device=self.device)
         # bucketing: attention masks make right-padding exact for dense
         # decoders; the SSM recurrence is perturbed by pad tokens, so the
-        # SSM family prefills at the exact length
+        # SSM family and the hybrid prefill at the exact length
         self._bucketed = cfg.arch_type == "dense"
         self._window = max_len if self.paged or "kv" not in self._cache \
             else self._cache["kv"]["k"].shape[2]
@@ -305,8 +312,9 @@ class ServeEngine:
         engine's path cannot take (it would refuse at the first step,
         after ``submit`` took the request off the queue): paged attention
         on the paged layout, flash attention in every split-path prefill
-        of a dense decoder (paged or not), the fused MLP in every
-        dense-decoder program."""
+        of a dense decoder (paged or not) or of the hybrid, the fused MLP
+        in every dense-decoder and hybrid program, the SSD scan in every
+        SSM and hybrid prefill."""
         cfg = self.cfg
         checks = []
         if self.paged:
@@ -315,7 +323,12 @@ class ServeEngine:
                            "(paged=False)", paged_attention.kernel_limits(
                                cfg.dtype, self.page_size, cfg.num_heads,
                                cfg.num_kv_heads, cfg.head_dim)))
-        if cfg.arch_type == "dense":
+        if cfg.arch_type in ("ssm", "hybrid"):
+            checks.append(("every prefill runs the SSD-scan kernel in each "
+                           "Mamba layer", "", ssd_scan.kernel_limits(
+                               cfg.dtype, cfg.ssm_heads, cfg.ssm_head_dim,
+                               cfg.ssm_state, cfg.ssm_chunk)))
+        if cfg.arch_type in ("dense", "hybrid"):
             if not self.mixed:
                 checks.append(("every split-path prefill runs the "
                                "flash-attention kernel", "",
@@ -369,7 +382,7 @@ class ServeEngine:
     # ------------------------------------------------------------ memory
     def kv_bytes(self) -> int:
         """Device bytes of the resident decode state, allocated up front:
-        the KV pool, or the SSM states and conv tails (cursors and the
+        the KV pool or rows, the SSM states and conv tails (cursors and the
         page table excluded)."""
         def size(tree):
             return sum(size(v) if isinstance(v, dict)
@@ -416,20 +429,17 @@ class ServeEngine:
     def _prefill_fn(self, tokens, slot: int, last_pos: int, pages=None):
         """Split path: prefill one (bucket-padded) prompt (1, blen), sample
         its first token at ``last_pos`` and store the fresh per-request
-        cache: the dense layout's row ``slot`` of every leaf, written in
-        place by the prefill itself; on the paged layout a scratch cache
-        of whole pages, scattered through ``pages``; the SSM states into
-        row ``slot``. ``pos[slot] = last_pos + 1``. Returns the token (a
-        0-d tensor)."""
+        cache: the dense layout's row ``slot`` of every leaf (K/V, and
+        the SSM states and conv tails of the SSM family and the hybrid),
+        written in place by the prefill itself; on the paged layout a
+        scratch cache of whole pages, scattered through ``pages``.
+        ``pos[slot] = last_pos + 1``. Returns the token (a 0-d
+        tensor)."""
         blen = tokens.shape[1]
         self._prefill_lens.add(blen)
         self.stats["prefill_traces"] = len(self._prefill_lens)
         batch = {"tokens": tokens}
-        if "kv" not in self._cache:       # the SSM family
-            logits, c1 = self.model.prefill(self.params, batch, self.cfg)
-            for key, leaf in self._cache["ssm"].items():
-                leaf[:, slot] = c1["ssm"][key][:, 0]
-        elif self.paged:
+        if self.paged:
             clen = pages_for(blen, self.page_size) * self.page_size
             c1 = self.model.init_cache(self.cfg, 1, clen,
                                        device=self.device)
@@ -438,8 +448,9 @@ class ServeEngine:
             scatter_prefill_pages(self._cache["kv"], c1["kv"], pages,
                                   self.page_size)
         else:
-            row = {"kv": {k: leaf[:, slot:slot + 1]
-                          for k, leaf in self._cache["kv"].items()}}
+            row = {key: {k: leaf[:, slot:slot + 1] for k, leaf in sub.items()}
+                   for key, sub in self._cache.items()
+                   if isinstance(sub, dict)}
             logits, _ = self.model.prefill(self.params, batch, self.cfg,
                                            row, last_pos=last_pos)
         self.last_logits = logits

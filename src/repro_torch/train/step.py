@@ -2,7 +2,8 @@
 — the port of ``repro/train/step.py``.
 
 ``make_train_step(cfg, strategy)`` returns
-``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``.
+``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``
+for the family ``get_model(cfg)`` names (dense, SSM, hybrid).
 Where the reference is a pure function under ``jax.jit``, this one runs
 eagerly and trains ``params`` and ``opt_state`` in place (the optimizers
 say why); every leaf of ``params`` is made to require grad. Gradient
@@ -21,7 +22,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.core.strategy import Strategy
-from repro_torch.models import transformer
+from repro_torch.models import get_model
 from repro_torch.optim import clip_by_global_norm, get_optimizer
 from repro_torch.train.losses import cross_entropy
 from repro_torch.tree import flatten, tree_map, unflatten
@@ -30,10 +31,12 @@ PARTS = ("forward_loss", "backward", "clip", "optimizer")
 
 
 def make_loss_fn(cfg, strategy: Strategy) -> Callable:
+    model = get_model(cfg)          # raises for the unported families
+
     def loss_fn(params, batch):
-        logits, aux = transformer.forward(params, batch, cfg,
-                                          remat=strategy.remat,
-                                          attn_impl=strategy.attn_impl)
+        logits, aux = model.forward(params, batch, cfg,
+                                    remat=strategy.remat,
+                                    attn_impl=strategy.attn_impl)
         labels = batch.get("labels")
         if labels is None:           # next token, -1 (ignored) at the end
             tokens = batch["tokens"]
@@ -64,7 +67,11 @@ def make_train_step(cfg, strategy: Strategy, *, lr: float = 3e-4,
         with record_function("forward_loss"):
             total, metrics = loss_fn(params, batch)
         with record_function("backward"):
-            grads = torch.autograd.grad(total, list(leaves.values()))
+            # a leaf the loss does not reach (the hybrid's one unused
+            # trailing layer when every layer is in a group) gets zeros, as
+            # jax.grad gives
+            grads = torch.autograd.grad(total, list(leaves.values()),
+                                        materialize_grads=True)
         return unflatten(dict(zip(leaves, grads))), \
             {k: v.detach() for k, v in metrics.items()}
 

@@ -313,6 +313,9 @@ def test_paged_attention_bf16_kernel_refuses_shapes_past_its_limits(
     (torch.bfloat16, (1e-3, 8e-3), 70, 256, 17064, (0.05, 0.05)),
     (torch.bfloat16, (1e-3, 8e-3), 256, 5120, 17408,
      (0.02, 0.02 / 80 ** 0.5)),
+    # the hybrid's shared block (Zamba2-1.2B: d 2048, f 8192, 38 layers)
+    (torch.bfloat16, (1e-3, 8e-3), 77, 2048, 8192,
+     (0.02, 0.02 / 76 ** 0.5)),
 ])
 def test_fused_mlp_kernel_matches_plain(cuda, dtype, tol, t, d, f, scales):
     gen = torch.Generator(device="cuda").manual_seed(t)
@@ -495,6 +498,19 @@ MLP_LIMITS = [(torch.bfloat16, 64, 100, True), (torch.bfloat16, 4, 64, True),
               (torch.bfloat16, 68, 64, True), (torch.float16, 64, 64, True),
               (torch.bfloat16, 5120, 17408, False), ("bfloat16", 8, 8, False),
               (torch.float32, 72, 100, False)]
+#: (dtype, h, p, n, rows a chunk) -> refused? The refusals are those of
+#: ``test_ssd_scan_kernel_refuses_shapes_past_its_limits``; Mamba2-780M's
+#: heads (48 x 64, n 128), the hybrid's (64 x 64, n 64) and a ragged f32
+#: shape are taken
+SSD_LIMITS = [(torch.float32, 2, 96, 16, 64, True),
+              (torch.float32, 2, 32, 160, 64, True),
+              (torch.float32, 2, 32, 16, 256, True),
+              (torch.bfloat16, 2, 65, 16, 64, True),
+              (torch.float16, 2, 32, 16, 64, True),
+              (torch.bfloat16, 48, 64, 128, 128, False),
+              (torch.bfloat16, 64, 64, 64, 128, False),
+              ("bfloat16", 1, 1, 1, 1, False),
+              (torch.float32, 3, 24, 20, 20, False)]
 
 
 def test_kernel_limits_tables():
@@ -511,6 +527,10 @@ def test_kernel_limits_tables():
     for dtype, d, f, refused in MLP_LIMITS:
         why = fm.kernel_limits(dtype, d, f)
         assert (why is not None) == refused, (dtype, d, f, why)
+    for dtype, h, p, n, q, refused in SSD_LIMITS:
+        why = sk.kernel_limits(dtype, h, p, n, q)
+        assert (why is not None) == refused, (dtype, h, p, n, q, why)
+    assert "state sizes" in sk.kernel_limits(torch.float32, 2, 32, 160, 64)
     assert "multiples of 8" in fm.kernel_limits(torch.bfloat16, 64, 100)
     assert "16" in pa.kernel_limits(torch.bfloat16, 8, 34, 2, 16)
     assert "(8, 16, 32, 64)" in pa.kernel_limits(torch.bfloat16, 4, 8, 2,
@@ -595,6 +615,31 @@ def test_mlp_limits_table_matches_the_c_entries(cuda, dtype, d, f, refused):
                                    atol=tol[0], rtol=tol[1])
 
 
+@pytest.mark.parametrize("dtype,h,p,n,q,refused", _with_entry(SSD_LIMITS))
+def test_ssd_limits_table_matches_the_c_entry(cuda, dtype, h, p, n, q,
+                                              refused):
+    """As above for ``SSD_LIMITS`` (two chunks of q rows, one when q is a
+    single row; x, B and C views of one buffer): the C entry refuses
+    exactly the rows ``kernel_limits`` refuses, and the output of a row it
+    takes agrees with the plain version (y and the final state)."""
+    dtype = _dt(dtype)
+    s = 2 * q if q > 1 else 1
+    args = _ssd_args((1, s, h, p, n), dtype, seed=h + p + n, strided=True)
+    y = torch.zeros((1, s, h, p), dtype=dtype, device="cuda")
+    h_last = torch.zeros((1, h, p, n), dtype=torch.float32, device="cuda")
+    code = sk.launch_entry(*args, y, h_last, q=q)
+    torch.cuda.synchronize()
+    assert (code != 0) == refused, code
+    if refused:
+        assert not y.any() and not h_last.any()
+    else:
+        want_y, want_h = sk.ssd_scan_plain(*args, chunk=q)
+        tol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-5, 8e-3)
+        torch.testing.assert_close(y.float(), want_y.float(), atol=tol[0],
+                                   rtol=tol[1])
+        torch.testing.assert_close(h_last, want_h, atol=1e-5, rtol=1e-4)
+
+
 def test_trainer_on_cuda_refuses_flash_limits_at_construction():
     """On the CPU: training a config whose heads the flash kernel cannot
     take, on a CUDA device, raises ValueError at ``Trainer`` (and so
@@ -655,10 +700,12 @@ def test_flash_attention_kernel_writes_zero_for_rows_without_live_keys(cuda):
         atol=2e-6, rtol=2e-6)
 
 
-# bf16 only: Kimi's head width (112) with causal GQA, and the training
-# shape's heads (40/8 x 128) at S = T = 1024
+# bf16 only: Kimi's head width (112) with causal GQA, the training
+# shape's heads (40/8 x 128) at S = T = 1024, and the hybrid's shared
+# block (32/32 x 64: GQA rep 1, D 64)
 FLASH_BF16 = [(1, 300, 300, 8, 2, 112, True, 0),
-              (1, 1024, 1024, 40, 8, 128, True, 0)]
+              (1, 1024, 1024, 40, 8, 128, True, 0),
+              (1, 300, 300, 32, 32, 64, True, 0)]
 
 
 @pytest.mark.parametrize("shape", FLASH_BF16)
@@ -808,11 +855,13 @@ def _ssd_args(shape, dtype, seed=0, strided=False):
 
 
 # (b, s, h, p, n, chunk): the reference's sweep, one ragged chunk (q = 77),
-# several chunks, a ragged p and n, the serving path's head
+# several chunks, a ragged p and n, the serving path's head, and the
+# hybrid's heads (64 x p 64 = MAX_P, n 64)
 SSD = [(2, 128, 2, 32, 16, 32), (2, 256, 3, 64, 32, 64),
        (1, 77, 2, 64, 128, 128), (1, 96, 2, 16, 16, 32),
        (1, 60, 3, 24, 20, 20), (1, 256, 4, 64, 128, 128),
-       (2, 1024, 4, 64, 128, 128)]
+       (2, 1024, 4, 64, 128, 128),
+       (1, 256, 64, 64, 64, 128)]             # the hybrid's Mamba layer
 
 
 @pytest.mark.parametrize("strided", [False, True])
@@ -859,13 +908,16 @@ def test_ssd_scan_kernel_matches_plain_on_unaligned_views(cuda, dtype, tol):
 
 
 def test_ssd_scan_kernel_refuses_shapes_past_its_limits(cuda):
-    """The C entry checks the sizes its register tiles and shared memory
-    are built for (p <= 64, n <= 128, q <= 128) and launches nothing."""
+    """The sizes its register tiles and shared memory are built for (p <=
+    64, n <= 128, q <= 128): the wrapper refuses past them by
+    ``kernel_limits`` (the C entry checks the same:
+    ``test_ssd_limits_table_matches_the_c_entry``) and launches
+    nothing."""
     for shape, chunk in (((1, 64, 2, 96, 16), 64), ((1, 64, 2, 32, 160), 64),
                          ((1, 256, 2, 32, 16), 256)):
         args = _ssd_args(shape, torch.float32)
         before = sk.ssd_scan.launches
-        with pytest.raises(RuntimeError, match="CUDA error"):
+        with pytest.raises(ValueError, match="ssd_scan kernel"):
             sk.ssd_scan(*args, chunk=chunk)
         assert sk.ssd_scan.launches == before
 
@@ -913,3 +965,61 @@ def test_ssm_engine_on_card_matches_cpu(cuda):
         assert kernels.launches() == {"paged_attention": 0, "fused_mlp": 0,
                                       "flash_attention": 0, "ssd_scan": want}
     assert outs["cpu"] == outs["cuda"]
+
+
+def test_hybrid_engine_on_card_matches_cpu(cuda):
+    """zamba2-smoke in fp32: the card's engine gives the CPU's greedy
+    streams; every prefill ran the SSD kernel once a Mamba layer and flash
+    once a group, every program (prefill or decode) the fused MLP once a
+    group, and nothing ran paged attention."""
+    from repro_torch.configs import get_smoke
+    cfg = get_smoke("zamba2-1.2b").with_(dtype="float32")
+    g = cfg.num_layers // cfg.hybrid_attn_every
+    cpu = init_params(cfg, device="cpu", seed=3)
+    params = {"cpu": cpu, "cuda": tree_map(lambda t: t.cuda(), cpu)}
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(n,))
+               for n in (64, 17, 32, 96, 9)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, params[dev], slots=2, max_len=128)
+        for i, p in enumerate(prompts):
+            eng.submit(i, p, max_new=6)
+        kernels.reset_launches()
+        res = eng.run()
+        outs[dev] = {i: list(res[i].out) for i in res}
+        pf, dec = eng.stats["prefills"], eng.stats["decode_steps"]
+        on = dev == "cuda"
+        assert kernels.launches() == {
+            "paged_attention": 0, "fused_mlp": g * (pf + dec) if on else 0,
+            "flash_attention": g * pf if on else 0,
+            "ssd_scan": cfg.num_layers * pf if on else 0}
+    assert outs["cpu"] == outs["cuda"]
+
+
+def test_ssm_train_step_on_card_matches_cpu(cuda):
+    """One fp32 AdamW step on mamba2-smoke (remat on): loss, grad norm and
+    params within 1e-4 of the CPU's; training takes the plain SSD scan
+    (no backward in the kernel), so no kernel runs."""
+    from repro_torch.configs import get_smoke
+    cfg = get_smoke("mamba2-780m").with_(dtype="float32")
+    strat = Strategy(dtype="float32")
+    cpu = init_params(cfg, device="cpu", seed=3)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(2, 64)).astype(np.int32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.to(dev, copy=True), cpu)
+        opt = step.init_opt_state(params, strat)
+        kernels.reset_launches()
+        params, opt, m = step.make_train_step(cfg, strat, lr=1e-5)(
+            params, opt, {"tokens": tokens.to(dev)})
+        assert sum(kernels.launches().values()) == 0
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    {k: v.detach().cpu() for k, v in flatten(params).items()})
+    for key in ("loss", "grad_norm"):
+        assert out["cuda"][0][key] == pytest.approx(out["cpu"][0][key],
+                                                    abs=1e-4)
+    for key, p in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][key], p, atol=1e-4,
+                                   rtol=1e-4)

@@ -620,6 +620,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch/launch/train.py",
             "repro_torch/kernels/ssd_scan.py", "repro_torch/models/ssm.py",
             "repro_torch/models/mamba_lm.py",
+            "repro_torch/models/hybrid.py",
             "repro_torch/serve/speculative.py",
             "repro_torch/serve/driver.py", "repro_torch/serve/server.py",
             "repro_torch/serve/metrics.py"} <= names
@@ -638,6 +639,7 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.optim, repro_torch.checkpoint, "
             "repro_torch.data.pipeline, repro_torch.train.trainer, "
             "repro_torch.kernels.ssd_scan, repro_torch.models.mamba_lm, "
+            "repro_torch.models.hybrid, "
             "repro_torch.serve.speculative, repro_torch.serve.driver, "
             "repro_torch.serve.server, repro_torch.serve.metrics; "
             "print('ok')")

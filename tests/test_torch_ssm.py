@@ -315,12 +315,15 @@ def test_prefill_then_decode_chain_matches_jax(smoke):
 
 
 def test_get_model_maps_the_ported_families():
-    from repro_torch.models import transformer
+    """dense, SSM and (since slice 9) the hybrid map to their modules; MoE,
+    enc-dec audio and VLM still raise naming Queue 1 item 10."""
+    from repro_torch.models import hybrid, transformer
     assert get_model(SSM_CFG) is mamba_lm
     assert get_model(SSM_CFG.with_(arch_type="dense", num_heads=4,
                                    num_kv_heads=2)) is transformer
+    assert get_model(get_smoke("zamba2-1.2b")) is hybrid
     for arch, kw in (("moe", {"num_experts": 4, "experts_per_token": 2}),
-                     ("hybrid", {}), ("audio", {}), ("vlm", {})):
+                     ("audio", {}), ("vlm", {})):
         with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
             get_model(SSM_CFG.with_(arch_type=arch, **kw))
 
@@ -400,11 +403,17 @@ def test_init_params_matches_reference_shapes_dtypes_and_scales():
 
 
 def test_other_families_still_raise_in_the_bridge():
+    """The bridge holds the hybrid's tree (since slice 9: ``groups/``,
+    ``trailing/``, ``shared/``); MoE, enc-dec audio and VLM still raise."""
     moe = SSM_CFG.with_(arch_type="moe", num_experts=4, experts_per_token=2)
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         param_spec(moe)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        param_spec(SSM_CFG.with_(arch_type="hybrid"))
+    for arch in ("audio", "vlm"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+            param_spec(SSM_CFG.with_(arch_type=arch))
+    spec = param_spec(get_smoke("zamba2-1.2b"))
+    assert {k.split("/")[0] for k in spec} == {
+        "embed", "final_norm", "lm_head", "groups", "trailing", "shared"}
 
 
 # ---------------------------------------------------------------- engine
@@ -504,8 +513,14 @@ def test_session_serves_ssm_on_cpu_and_refuses_training(engine_weights):
     for i, p in enumerate(_prompts(4, (5, 9, 6))):
         ref_eng.submit(i, p, max_new=5)
     assert got == {i: r.out for i, r in ref_eng.run().items()}
-    with pytest.raises(NotImplementedError, match="ssm training"):
-        session.train()
+    # since slice 9 the SSM family trains (tests/test_torch_train.py holds
+    # the step to the reference's); MoE, enc-dec audio and VLM still raise
+    trainer = session.train(global_batch=2, seq_len=16)
+    assert trainer.params is session.params
+    for arch, kw in (("moe", {"num_experts": 4, "experts_per_token": 2}),
+                     ("audio", {}), ("vlm", {})):
+        with pytest.raises(NotImplementedError, match=f"{arch} training"):
+            Session(SSM_CFG.with_(arch_type=arch, **kw), device="cpu").train()
     fresh = Session(SSM_CFG, device="cpu", seed=3)
     assert fresh.params["layers"]["mamba"]["in_proj"].shape == (2, 64, 164)
 

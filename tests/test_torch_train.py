@@ -391,3 +391,128 @@ def test_train_launcher_runs_on_cpu(capsys):
                          "--layers", "1"])
     assert len(out["history"]) == 1 and out["history"][0]["step"] == 2
     assert "tokens/s on cpu" in capsys.readouterr().out
+
+
+# ------------------------------------------------ the SSM family, the hybrid
+
+#: the families the train step dispatches to beside dense: arch -> the
+#: reference's smoke config in float32 (zamba2-smoke: one group, rest 0,
+#: so one unused trailing layer whose gradient is zero in both packages)
+FAMILIES = ("mamba2-780m", "zamba2-1.2b")
+_FAMILY_STEPS = {}
+
+
+def _jax_family_step(arch):
+    """One JAX train step on the arch's smoke config in float32 (remat
+    off: it changes no value; the reference's plain attention, where the
+    family has one: ``test_train_step_matches_reference`` holds the
+    port's flash forward and backward to the Pallas kernel in interpret
+    mode), with its loss gradients; made once an arch."""
+    if arch not in _FAMILY_STEPS:
+        jcfg = jax_smoke(arch).with_(dtype="float32")
+        cfg = ModelConfig(**jcfg.__dict__)
+        jparams = jax.jit(get_model(jcfg).init, static_argnums=1)(
+            jax.random.key(4), jcfg)
+        tokens = np.random.default_rng(9).integers(
+            0, cfg.vocab_size, size=(2, 64)).astype(np.int32)
+        strat = JaxStrategy(remat=False, attn_impl="auto", dtype="float32")
+        loss_fn = jstep.make_loss_fn(jcfg, strat)
+        train_step = jstep.make_train_step(jcfg, strat, lr=3e-4)
+
+        @jax.jit        # the gradients and one AdamW step, one compile
+        def grads_and_step(p, batch):
+            _, g = jax.value_and_grad(loss_fn, has_aux=True)(p, batch)
+            return (g,) + train_step(p, jstep.init_opt_state(p, strat),
+                                     batch)
+
+        grads, new_p, _, metrics = grads_and_step(
+            jparams, {"tokens": jnp.asarray(tokens)})
+        _FAMILY_STEPS[arch] = (
+            cfg, tokens, jio._flatten(jparams), jio._flatten(grads),
+            jio._flatten(new_p), {k: float(v) for k, v in metrics.items()})
+    return _FAMILY_STEPS[arch]
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_train_step_matches_reference(arch, remat):
+    """mamba2-smoke and zamba2-smoke, 2 x 64 tokens (two SSD chunks), the
+    port's remat off and on (per layer / per group ``checkpoint``): its
+    loss gradients within 1e-5 of ``jax.value_and_grad``'s, and
+    one AdamW step (``make_train_step``) within 1e-5 (params where the
+    reference's gradient exceeds 1e-6), its loss and grad norm within
+    rel 1e-5."""
+    cfg, tokens, jflat, jgrads, jnew, jmetrics = _jax_family_step(arch)
+    strat = Strategy(remat=remat, attn_impl="pallas", dtype="float32")
+    params = from_numpy(jflat, cfg, "cpu")
+    leaves = flatten(params)
+    for p in leaves.values():
+        p.requires_grad_(True)
+    total, _ = step.make_loss_fn(cfg, strat)(params, {"tokens": _t(tokens)})
+    grads = torch.autograd.grad(total, list(leaves.values()),
+                                materialize_grads=True)
+    for key, g in zip(leaves, grads):
+        np.testing.assert_allclose(g.numpy(), jgrads[key], atol=1e-5,
+                                   rtol=1e-5, err_msg=key)
+    train_step = step.make_train_step(cfg, strat, lr=3e-4)
+    new, _, metrics = train_step(params, step.init_opt_state(params, strat),
+                                 {"tokens": _t(tokens)})
+    assert float(metrics["loss"]) == pytest.approx(jmetrics["loss"],
+                                                   rel=1e-5)
+    assert float(metrics["grad_norm"]) == pytest.approx(
+        jmetrics["grad_norm"], rel=1e-5)
+    for key, p in flatten(new).items():
+        live = np.abs(jgrads[key]) > 1e-6
+        np.testing.assert_allclose(p.detach().numpy()[live], jnew[key][live],
+                                   atol=1e-5, rtol=1e-5, err_msg=key)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_session_trains_each_family_checkpoints_and_restores(arch, tmp_path):
+    """``Session.train`` on the CPU for the SSM family and the hybrid: two
+    steps with finite losses that move the params, a checkpoint, and a
+    fresh session that resumes from it bit for bit."""
+    cfg = ModelConfig(**jax_smoke(arch).with_(dtype="float32").__dict__)
+    strat = Strategy(remat=True, dtype="float32")
+    tc = TrainConfig(steps=2, lr=1e-3, log_every=1, checkpoint_every=2,
+                     checkpoint_dir=str(tmp_path))
+    session = Session(cfg, strategy=strat, device="cpu", seed=3)
+    init = {k: v.detach().clone() for k, v in flatten(session.params).items()}
+    hist = session.train(tc, global_batch=2, seq_len=32).run()["history"]
+    assert [h["step"] for h in hist] == [1, 2]
+    assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+               for h in hist)
+    trained = flatten(session.params)
+    assert any(not torch.equal(trained[k], init[k]) for k in init)
+    other = Session(cfg, strategy=strat, device="cpu", seed=9)
+    resumed = other.train(tc, global_batch=2, seq_len=32, restore=True)
+    assert resumed.step == 2
+    for key, p in flatten(other.params).items():
+        assert torch.equal(p, trained[key]), key
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_train_launcher_runs_each_family_on_cpu(arch, capsys):
+    from repro_torch.launch import train as launcher
+    out = launcher.main(["--device", "cpu", "--arch", arch, "--steps", "2",
+                         "--global-batch", "2", "--seq", "64"])
+    assert out["history"][-1]["step"] == 2
+    assert np.isfinite(out["history"][-1]["loss"])
+    assert "tokens/s on cpu" in capsys.readouterr().out
+
+
+def test_trainer_checks_flash_limits_by_family():
+    """On a CUDA device (no card needed to refuse) the trainer checks the
+    flash kernel's limits where attention runs — dense layers and the
+    hybrid's shared block — and never for the SSM family, which has no
+    heads (num_heads 0 would read "Hq (0) a multiple of Hkv (0)")."""
+    from repro_torch.train.trainer import check_kernel_limits
+    from repro_torch.configs import get_smoke
+    ssm = get_smoke("mamba2-780m")
+    assert ssm.num_heads == 0
+    check_kernel_limits(ssm, Strategy(), "cuda")
+    odd = get_smoke("zamba2-1.2b").with_(head_dim=20)      # bf16, D 20
+    with pytest.raises(ValueError, match="flash-attention kernel"):
+        check_kernel_limits(odd, Strategy(), "cuda")
+    check_kernel_limits(odd, Strategy(), "cpu")
+    check_kernel_limits(get_smoke("zamba2-1.2b"), Strategy(), "cuda")
