@@ -56,6 +56,17 @@ Phases (any failure exits non-zero; no result line is printed then):
    16-seed sweep at T 256 and 1024), the SSD scan at (1, s, 64, 64, 64),
    chunk 128, for s 128 and 1024; these small calls time by CUDA-graph
    replay (their host path outlasts their device work), eager beside;
+   then at OLMoE-1B-7B's heads (phases 13, 13b and 14: Hq = Hkv = 16, D
+   128, so rep 1): bf16 paged attention at the T = 256 mix, the
+   decode-only mix and the split path's 4-row decode table with and
+   without an idle slot, per value against the fp32-P plain version and
+   within 1e-2 of the gather, its device plan equal to ``tile_plan``, the
+   check shown to reject a dropped live page, the two mixes timed by
+   graph replay beside SDPA on the gathered KV with their bound; flash at
+   (1, S, S, 16, 16, 128) for each of phase 13b's prefill lengths (phase
+   5's six prompt lengths, exact: an MoE prefill is not bucketed, and the
+   profiled pair's 600 and 40) and phase 14's S 4096, per value (shown to
+   reject dropped keys), timed beside SDPA with its bound;
 4. tiny float32 configs on the card and on the CPU (TF32 off): through
    the port's engine on each layout — the mixed step, the split path on
    the pool (``mixed=False``) and on the dense layout (``paged=False``),
@@ -77,7 +88,12 @@ Phases (any failure exits non-zero; no result line is printed then):
    and a ``sliding_window=16`` variant, first-prefill logits within 1e-4,
    streams identical and the SSD kernel, flash and the fused MLP launched
    as the path says; through the train step (dense, ``mamba2-smoke`` and
-   ``zamba2-smoke``, remat on), loss and gradients within 1e-4;
+   ``zamba2-smoke``, remat on), loss and gradients within 1e-4; then
+   ``olmoe-smoke`` at capacity factor 2.0 (no-drop routing) on the mixed
+   step, the split path on the pool and the dense layout: first-step
+   logits within 1e-4, streams identical, paged attention, flash and the
+   fused MLP (never) launched as the path says; and its train step: loss,
+   aux loss and gradients within 1e-4;
 5. the SERVING PATH: ``Session(get_config("qwen3-14b"), device="cuda")
    .serve(slots=4, max_len=1024, page_size=16, chunk_tokens=256)`` at full
    width with random weights from ``--seed``, 6 requests of 24-700 prompt
@@ -187,6 +203,36 @@ Phases (any failure exits non-zero; no result line is printed then):
    tokens/s, peak memory, the model-FLOPs share of 989 TFLOP/s (6
    N_applied tokens + the causal attention forward and backward + the SSD
    products forward and backward) and the profile by part.
+13. MoE SERVING, after phase 12: ``Session(get_config("olmoe-1b-7b"),
+   device="cuda").serve(slots=4, max_len=1024, page_size=16,
+   chunk_tokens=256)`` uncut (16 layers, 64 experts top 8, bf16, random
+   weights from ``--seed``, 6.92 B params) on phase 5's six prompt
+   lengths (tokens in OLMoE's vocabulary), 16 new tokens each. Counts
+   are zeroed just before and read just after: paged attention exactly
+   16 x program runs, flash, the fused MLP and the SSD scan never; every
+   request finishes with 16 in-vocab tokens; ``decode_traces`` within the
+   (chunk, page bucket) pairs. Prints tokens/s, step p50 (steps with
+   prefill rows and decode-only steps apart), peak memory and peak
+   pages; one more pair of requests (600 and 40 tokens) runs under
+   torch.profiler: device time of paged attention, routing and dispatch,
+   the expert products and the combine (by ``models/moe.py``'s profiler
+   ranges), the other GEMMs and the rest, and the idle share.
+13b. the same session's split path on the pool (``serve(mixed=False)``)
+   on the same requests: flash 16 x prefills, paged attention 16 x
+   decode steps, the fused MLP never, ``prefill_traces`` the number of
+   distinct prompt lengths (no bucket), each length one phase 3 held;
+   the share of tokens equal to phase 13's streams is printed, not
+   checked (in bf16 capacity couples rows differently on the two paths);
+   the admission step and the decode-only steps of one more pair under
+   the profiler apart.
+14. MoE TRAINING: phase 6's run (AdamW, remat, 1 x 4096 tokens, 6 steps)
+   on OLMoE-1B-7B at full width cut to 4 layers (~1.88 B params; the 16
+   layers would need ~110 GB of weights, gradients and AdamW state):
+   flash 4 x 6 x 2, the fused MLP never; loss, aux loss and grad norm
+   finite. Prints step p50, tokens/s, peak memory, the profile by part
+   and the model-FLOPs share of 989 TFLOP/s (``train_flops``: the
+   experts at k / E of their parameters, the router in full, and the
+   causal attention).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -195,6 +241,7 @@ The full record also goes to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import bisect
 import gc
 import json
 import math
@@ -365,15 +412,16 @@ MIX_SPLIT_IDLE = ([0, 1, 2, 3], [715, 299, 519, 0])
 
 
 def attention_inputs(rng, dtype, *, n_layers_copies=1, ctx=SLOT_CTX,
-                     rows=MIX_T256, edit=None, width=64, n_pages=257):
+                     rows=MIX_T256, edit=None, width=64, n_pages=257,
+                     heads=(40, 8)):
     """Paged-attention inputs on permuted, fragmented page tables of
     ``width`` pages over a pool of ``n_pages`` (257: 4 slots x 1024
     tokens): ``ctx`` tokens held per slot, ``rows`` (slots, cursors). The
     default is the main path's T = 256 mix: three decode rows at their
     slots' cursors and 253 rows of one slot's prefill chunk.
     ``edit(tables)`` may change the slot tables before the rows take
-    them."""
-    hq, hkv, d, ps = 40, 8, 128, 16
+    them. ``heads``: (Hq, Hkv), Qwen3-14B's by default; D is 128."""
+    (hq, hkv), d, ps = heads, 128, 16
     perm = rng.permutation(np.arange(1, n_pages))
     tables = np.zeros((len(ctx), width), np.int32)
     k = 0
@@ -1374,6 +1422,132 @@ def phase_hybrid_kernels(rng):
     return out
 
 
+#: OLMoE-1B-7B's attention (phases 13, 13b and 14): Hq = Hkv = 16 heads of
+#: D 128, so rep 1 at D 128; phase 13b's profiled pair of prompts (its
+#: other prefills are phase 5's six prompt lengths, at their exact length:
+#: an MoE prefill is not bucketed) and phase 14's 1 x 4096 training forward
+MOE_HEADS = (16, 16)
+MOE_PROFILE_PROMPTS = (600, 40)
+
+
+def moe_flash_shapes(seed: int):
+    """Flash attention's shapes on phases 13b and 14 at ``seed``: one
+    (1, S, S, 16, 16, 128) a distinct prompt length, the profiled pair's
+    lengths and the training forward's S 4096."""
+    lens, _ = serving_prompts(seed, 2)
+    hq, hkv = MOE_HEADS
+    return tuple((1, n, n, hq, hkv, 128) for n in sorted(
+        {int(n) for n in lens} | set(MOE_PROFILE_PROMPTS))) \
+        + ((1, 4096, 4096, hq, hkv, 128),)
+
+
+def phase_moe_kernels(seed: int):
+    """Paged attention and flash attention in bf16 at OLMoE-1B-7B's heads
+    (``MOE_HEADS``), every shape phases 13, 13b and 14 launch: paged
+    attention at the T = 256 mix and the decode-only mix (phase 13's mixed
+    step) and at the split path's 4-row decode table with and without an
+    idle slot (phase 13b), each per value against the fp32-P plain version
+    (atol 1e-5 + rtol 8e-3) and within 1e-2 of the gather plain version,
+    its device plan equal to ``tile_plan`` and the check shown to reject a
+    run with a live page dropped; the two mixes timed by graph replay
+    beside SDPA on the gathered KV, with their bound. Flash at
+    ``moe_flash_shapes``, per value (shown to reject dropped keys), timed
+    beside SDPA with its bound. Inputs come from a generator of their own,
+    so the other phases see the inputs they saw before. Returns {kernel
+    name: records}."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models.kvcache import gather_pages
+    rng = np.random.default_rng(seed + 2409)
+    bf = torch.bfloat16
+    hq, hkv = MOE_HEADS
+    d, rep, esize = 128, hq // hkv, 2
+    atol, rtol = 1e-5, 8e-3
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def idle_slot_3(tables):                  # a retired slot's table row
+        tables[3] = 0
+
+    paged = {}
+    # (name, attention_inputs keywords, (row, page) to drop, timed)
+    for name, kw, drop_at, timed in (
+            ("T256", dict(rows=MIX_T256), (slice(3, None), 5), True),
+            ("decode_only", dict(rows=MIX_DECODE), (0, 10), True),
+            ("split", dict(rows=MIX_SPLIT), (2, 10), False),
+            ("split_idle", dict(rows=MIX_SPLIT_IDLE, edit=idle_slot_3),
+             (1, 5), False)):
+        q, pools, tab, pos, live_tokens, *_ = attention_inputs(
+            rng, bf, n_layers_copies=8 if timed else 1, heads=MOE_HEADS,
+            **kw)
+        kp, vp = pools[0]
+        got = pa.paged_attention(q, kp, vp, tab, pos)
+        want = pa.paged_attention_plain_f32p(q, kp, vp, tab, pos)
+        e = worst_excess(got, want, atol, rtol)
+        e_gather = (got.float() - pa.paged_attention_plain(
+            q, kp, vp, tab, pos).float()).abs().max().item()
+        items, splits = pa.device_tile_plan(tab, pos, 16, rep)
+        want_items, want_splits = pa.tile_plan(tab.cpu().numpy(),
+                                               pos.cpu().numpy(), 16, rep)
+        dropped = tab.clone()
+        dropped[drop_at] = 0
+        dr = worst_excess(pa.paged_attention(q, kp, vp, dropped, pos), want,
+                          atol, rtol)
+        check(bool(torch.isfinite(got).all()) and e <= 1.0
+              and e_gather <= 1e-2,
+              f"paged attention bf16 at OLMoE's heads, {name}: {e:.3f}x "
+              f"the per-value limit, {e_gather:.3e} from the gather plain "
+              f"version")
+        check(items == want_items and (splits == want_splits).all(),
+              f"paged attention at OLMoE's heads, {name}: device plan "
+              f"{items} != tile_plan {want_items}")
+        check(dr > 1.0, f"the per-value check at OLMoE's heads, {name}, "
+                        f"passes a run with a live page dropped ({dr:.3f}x)")
+        rec = {"mix": name, "heads": [hq, hkv, d], "error_of_limit": e,
+               "max_abs_err_gather": e_gather,
+               "dropped_page_error_of_limit": dr, "items": len(items)}
+        msg = (f"[attention bf16 OLMoE {hq}/{hkv}x{d} {name}] per value "
+               f"{e:.3f}x the limit, vs gather {e_gather:.3e} (atol 1e-2); "
+               f"{len(items)} work items, device plan = tile_plan; a "
+               f"dropped live page would be {dr:.1f}x the limit")
+        if timed:
+            it = {"i": 0}
+
+            def nxt():
+                it["i"] = (it["i"] + 1) % len(pools)
+                return pools[it["i"]]
+
+            kernel = graph_ms([lambda kv=kv: pa.paged_attention(q, *kv, tab,
+                                                                pos)
+                               for kv in pools])
+            eager = time_ms(lambda: pa.paged_attention(q, *nxt(), tab, pos))
+            plain = time_ms(lambda: pa.paged_attention_plain(
+                q, *nxt(), tab, pos), iters=3, warmup=1)
+            kg = gather_pages(kp, tab).transpose(1, 2)
+            vg = gather_pages(vp, tab).transpose(1, 2)
+            mask = (torch.arange(kg.shape[2], device="cuda")[None, :]
+                    < (pos.long() + 1)[:, None])[:, None, None, :]
+            qs = q.transpose(1, 2)
+            library = time_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask))
+            del kg, vg
+            nbytes = (live_tokens * hkv * d * 2 * esize
+                      + 2 * q.numel() * esize
+                      + tab.numel() * 4 + pos.numel() * 4)
+            flops = 4.0 * hq * d * float((pos.long() + 1).sum().item())
+            bms, by = bound_ms(nbytes, flops, "bfloat16")
+            rec.update({"ms": kernel, "eager_ms": eager, "plain_ms": plain,
+                        "library_ms": library, "bound_ms": bms,
+                        "bound_by": by})
+            msg += (f"; kernel {kernel:.4f} ms by graph replay ({eager:.4f} "
+                    f"eager), plain {plain:.4f} ms, sdpa {library:.4f} ms, "
+                    f"bound {bms:.4f} ms ({by}, {live_tokens} live tokens)")
+        log(msg)
+        paged[name] = rec
+        del pools
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
+    flash = [_flash_shape(gen, shape, atol, rtol, timed=True)
+             for shape in moe_flash_shapes(seed)]
+    return {"paged_attention": paged, "flash_attention": flash}
+
+
 # ------------------------------------------------------------------ phase 4
 
 #: phase 4's tiny f32 dense config, and the engine layouts it is served
@@ -1810,12 +1984,122 @@ def phase_train_parity_families():
     return out
 
 
+#: phase 4's MoE layouts for olmoe-smoke at capacity factor 2.0 (E / k:
+#: no-drop routing, the reference serving tests' setting): the mixed step,
+#: the split path on the pool and on the dense layout
+MOE_PARITY_LAYOUTS = {"mixed": dict(chunk_tokens=16),
+                      "split": dict(mixed=False),
+                      "dense": dict(paged=False)}
+
+
+def _moe_want(eng, layers: int) -> dict:
+    """An MoE run's launches on the card: as ``_want_launches`` says, but
+    the fused MLP never (the experts are batched matmuls)."""
+    return dict(_want_launches(eng, layers), fused_mlp=0)
+
+
+def phase_parity_moe():
+    """olmoe-smoke in fp32 at capacity factor 2.0 (TF32 off) through the
+    port's engine on the card and on the CPU, on each of
+    ``MOE_PARITY_LAYOUTS``: first-step logits within 1e-4, greedy streams
+    identical, and on the card paged attention, flash and the fused MLP
+    launched as ``_moe_want`` says; then one MoE train step (remat on,
+    flash on the card): loss, aux loss and gradients within 1e-4. Returns
+    the errors."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.strategy import Strategy
+    from repro_torch.params import init_params
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import step
+    from repro_torch.tree import flatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_smoke("olmoe-1b-7b").with_(dtype="float32",
+                                         moe_capacity_factor=2.0)
+    cpu = init_params(cfg, device="cpu", seed=3)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+               for n in (5, 23, 9, 40, 6)]
+    errs = {}
+    for name, eng_kw in MOE_PARITY_LAYOUTS.items():
+        first, outs = {}, {}
+        for dev, params in (("cpu", cpu), ("cuda", _to(cpu, "cuda"))):
+            eng = ServeEngine(cfg, params, slots=2, max_len=64, **eng_kw)
+            for i, p in enumerate(prompts):
+                eng.submit(i, p, max_new=6)
+            kernels.reset_launches()
+            eng.step()
+            first[dev] = eng.last_logits.detach().float().cpu()
+            res = eng.run()
+            outs[dev] = {i: list(res[i].out) for i in res}
+            want = _moe_want(eng, cfg.num_layers) if dev == "cuda" \
+                else dict.fromkeys(kernels.launches(), 0)
+            check(kernels.launches() == want,
+                  f"[parity moe {name}] launches on {dev} "
+                  f"{kernels.launches()} != {want}")
+        err = (first["cpu"] - first["cuda"]).abs().max().item()
+        check(err <= 1e-4, f"[parity moe {name}] f32 first-step logits card "
+                           f"vs CPU: {err} > 1e-4")
+        check(outs["cpu"] == outs["cuda"],
+              f"[parity moe {name}] greedy streams differ: cpu "
+              f"{outs['cpu']} cuda {outs['cuda']}")
+        log(f"[parity moe f32, TF32 off] olmoe-smoke cf 2.0, {name} "
+            f"(paged={eng.paged}, mixed={eng.mixed}): first-step logits max "
+            f"abs err card vs CPU {err:.3e} (<= 1e-4); greedy streams "
+            f"identical over {len(prompts)} requests")
+        errs[name] = err
+    strat = Strategy(dtype="float32")
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, size=(2, 160)).astype(np.int32))
+    res = {}
+    for dev, params in (("cpu", cpu), ("cuda", _to(cpu, "cuda"))):
+        leaves = flatten(params)
+        for t in leaves.values():
+            t.requires_grad_(True)
+        kernels.reset_launches()
+        total, mets = step.make_loss_fn(cfg, strat)(
+            params, {"tokens": tokens.to(dev)})
+        grads = torch.autograd.grad(total, list(leaves.values()))
+        flash = kernels.launches()["flash_attention"]
+        check(flash == (cfg.num_layers * 2 if dev == "cuda" else 0),
+              f"[parity moe train] flash launches on {dev}: {flash}")
+        res[dev] = (float(mets["loss"].detach()),
+                    float(mets["aux_loss"].detach()),
+                    {k: g.cpu() for k, g in zip(leaves, grads)})
+    loss_err = abs(res["cpu"][0] - res["cuda"][0])
+    aux_err = abs(res["cpu"][1] - res["cuda"][1])
+    grad_err = max((res["cuda"][2][k] - g).abs().max().item()
+                   for k, g in res["cpu"][2].items())
+    check(loss_err <= 1e-4 and aux_err <= 1e-4 and grad_err <= 1e-4,
+          f"olmoe-smoke f32 train step card vs CPU: loss err {loss_err}, "
+          f"aux err {aux_err}, grads max abs err {grad_err} (limit 1e-4)")
+    log(f"[parity moe f32 train step, TF32 off] olmoe-smoke loss "
+        f"{res['cpu'][0]:.6f}, aux {res['cpu'][1]:.6f}: card vs CPU loss err "
+        f"{loss_err:.3e}, aux err {aux_err:.3e}, grads max abs err "
+        f"{grad_err:.3e} (<= 1e-4)")
+    errs["train"] = {"loss_err": loss_err, "aux_err": aux_err,
+                     "grad_err": grad_err}
+    return errs
+
+
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
 
 
 # ------------------------------------------------------------------ phase 5
+
+def serving_prompts(seed: int, vocab: int):
+    """Phase 5's six requests (phases 13 and 13b serve them too): lengths
+    of 24-700 tokens, one of them over 512 (more than two 256-row
+    chunks), drawn from ``seed``; then each prompt's tokens below
+    ``vocab``. Returns (lengths, prompts)."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(24, 701, size=6)
+    lens[int(rng.integers(6))] = int(rng.integers(513, 701))  # > 2 chunks
+    return lens, [rng.integers(0, vocab, size=(int(n),)) for n in lens]
+
 
 def phase_main(seed: int):
     from repro_torch import kernels
@@ -1836,14 +2120,10 @@ def phase_main(seed: int):
     torch.cuda.synchronize()
     log(f"[main] weights + pool ready in {time.perf_counter() - t0:.1f}s "
         f"(kv pool {eng.kv_bytes() / 1e9:.2f} GB)")
-    rng = np.random.default_rng(seed)
-    lens = rng.integers(24, 701, size=6)
-    lens[int(rng.integers(6))] = int(rng.integers(513, 701))  # > 2 chunks
+    lens, prompts = serving_prompts(seed, cfg.vocab_size)
     max_new = 16
-    prompts = []
-    for rid, n in enumerate(lens):
-        prompts.append(rng.integers(0, cfg.vocab_size, size=(int(n),)))
-        eng.submit(rid, prompts[-1], max_new=max_new)
+    for rid, prompt in enumerate(prompts):
+        eng.submit(rid, prompt, max_new=max_new)
     buckets = {page_bucket(max(pages_for(min(int(n) + max_new - 1, 1024), 16)
                                for n in lens[:i + 1]), cap=64)
                for i in range(len(lens))}
@@ -2649,7 +2929,10 @@ def _train_run(cfg, seed: int, steps: int, seq_len: int):
         + ("uncut" if full else f"cut to {cfg.num_layers} layers")
         + f" ({cfg.num_layers} layers; width uncut: "
         f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads x "
-        f"{cfg.head_dim}, d_ff {cfg.d_ff}, SSD heads {cfg.ssm_heads} x "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, "
+        + (f"{cfg.num_experts} experts top {cfg.experts_per_token}, "
+           if cfg.is_moe else "")
+        + f"SSD heads {cfg.ssm_heads} x "
         f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, vocab "
         f"{cfg.vocab_size}), {cfg.dtype}, {n_params / 1e9:.3f} B params; "
         f"strategy "
@@ -2666,9 +2949,10 @@ def _train_run(cfg, seed: int, steps: int, seq_len: int):
     hist = trainer.history
     check(len(hist) == steps, f"{len(hist)} logged steps != {steps}")
     for h in hist:
-        check(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]),
-              f"step {h['step']}: loss {h['loss']}, grad_norm "
-              f"{h['grad_norm']}")
+        check(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+              and math.isfinite(h["aux_loss"]),
+              f"step {h['step']}: loss {h['loss']}, aux loss "
+              f"{h['aux_loss']}, grad_norm {h['grad_norm']}")
     flops, n_applied, attn_layers = train_flops(cfg, session.params,
                                                 seq_len)
     want = {"flash_attention": attn_layers * steps * 2,
@@ -2694,6 +2978,7 @@ def _train_run(cfg, seed: int, steps: int, seq_len: int):
            "model_flops_per_step": model_flops,
            "model_flops_share_of_989T": model_flops / p50 / 989e12,
            "losses": [h["loss"] for h in hist],
+           "aux_losses": [h["aux_loss"] for h in hist],
            "grad_norms": [h["grad_norm"] for h in hist],
            "launches": counts}
     log(f"[train] {cfg.name}: {steps} steps of 1 x {seq_len} tokens: step "
@@ -2703,7 +2988,9 @@ def _train_run(cfg, seed: int, steps: int, seq_len: int):
         f"{out['peak_mem_gb']:.2f} GB of {out['card_mem_gb']:.2f} GB, model "
         f"FLOPs {model_flops / 1e12:.2f} T a step = "
         f"{out['model_flops_share_of_989T']:.2%} of 989 TFLOP/s; losses "
-        f"{[round(x, 4) for x in out['losses']]}; launches {counts}")
+        f"{[round(x, 4) for x in out['losses']]}"
+        + (f", aux losses {[round(x, 4) for x in out['aux_losses']]}"
+           if cfg.is_moe else "") + f"; launches {counts}")
     out["profile"] = _train_profile(trainer, p50,
                                     need_flash=attn_layers > 0)
     del trainer, session
@@ -2723,15 +3010,20 @@ def ssd_flops(cfg, seq_len: int) -> float:
 def train_flops(cfg, params, seq_len: int):
     """A training step's model FLOPs at batch 1, by term: 6 N_applied
     tokens, N_applied the parameters without the embedding gather, the
-    hybrid's shared block counted once an application (G times); the
-    causal attention's forward (4 S (S + 1) / 2 Hq D a layer) and
-    backward (2x forward) in each attention layer (dense: every layer;
-    hybrid: G); the SSD scan's products (``ssd_flops``) forward and
-    backward (3x) in every Mamba layer. Returns (by term, N_applied,
-    attention layers)."""
+    hybrid's shared block counted once an application (G times), an MoE
+    layer's experts at k / E of their parameters (each token runs k of
+    the E experts) and its router in full; the causal attention's forward
+    (4 S (S + 1) / 2 Hq D a layer) and backward (2x forward) in each
+    attention layer (dense and MoE: every layer; hybrid: G); the SSD
+    scan's products (``ssd_flops``) forward and backward (3x) in every
+    Mamba layer. Returns (by term, N_applied, attention layers)."""
     from repro_torch.tree import flatten
     flat = flatten(params)
     n = sum(t.numel() for k, t in flat.items() if k != "embed")
+    if cfg.is_moe:
+        experts = sum(t.numel() for k, t in flat.items()
+                      if k.startswith("layers/moe/w_"))
+        n -= experts * (1 - cfg.experts_per_token / cfg.num_experts)
     attn_layers, mamba_layers = cfg.num_layers, 0
     if cfg.arch_type == "ssm":
         attn_layers, mamba_layers = 0, cfg.num_layers
@@ -2750,6 +3042,38 @@ def train_flops(cfg, params, seq_len: int):
             n, attn_layers)
 
 
+def _kernels_by_range(prof, ranges):
+    """The device kernels of a profile taken with host and device activity,
+    each as (name, ms, range): ``range`` is the one of ``ranges`` (names of
+    ``record_function`` ranges that do not overlap on the host) whose host
+    interval holds the start of the op that launched the kernel, else
+    None. The raw kineto events link each device event to that op
+    (``linked_correlation_id`` = the op's ``correlation_id``; runtime calls
+    carry a link of their own and are not ops). A range is matched by
+    time, not by thread: the backward's ops run on autograd's own thread
+    while its range stays open on the caller's."""
+    from torch.autograd import DeviceType
+    raw = prof.profiler.kineto_results.events()
+    cpu, dev = DeviceType.CPU, DeviceType.CUDA
+    spans = sorted((e.start_ns(), e.end_ns(), e.name()) for e in raw
+                   if e.device_type() == cpu and e.name() in ranges)
+    starts = [sp[0] for sp in spans]
+    op_start = {e.correlation_id(): e.start_ns() for e in raw
+                if e.device_type() == cpu and not e.linked_correlation_id()}
+    out = []
+    for e in raw:
+        if e.device_type() != dev or e.is_user_annotation() \
+                or e.name() in ranges:
+            continue                # a range's span on the device timeline
+        start = op_start.get(e.linked_correlation_id())
+        i = bisect.bisect_right(starts, start) - 1 if start is not None \
+            else -1
+        out.append((e.name(), (e.end_ns() - e.start_ns()) / 1e6,
+                    spans[i][2] if i >= 0 and start <= spans[i][1]
+                    else None))
+    return out
+
+
 def _train_profile(trainer, step_p50_s: float, need_flash: bool = True):
     """Where a train step's time goes: one more step under torch.profiler
     (host and device activity, after a warm-up profiler session as phase 5
@@ -2760,7 +3084,6 @@ def _train_profile(trainer, step_p50_s: float, need_flash: bool = True):
     thread while its range stays open on the caller's; what no part holds
     is ``outside_parts``. "Not measured" if the profiler records no device
     time; if it does, the flash group must have matched a device kernel."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.train.step import PARTS
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -2772,29 +3095,14 @@ def _train_profile(trainer, step_p50_s: float, need_flash: bool = True):
         trainer.run(1)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    # the raw kineto events: each device event names the op that launched
-    # it (linked_correlation_id = that op's correlation_id; runtime calls
-    # carry a link of their own and are not ops)
-    raw = prof.profiler.kineto_results.events()
-    cpu, dev = DeviceType.CPU, DeviceType.CUDA
-    spans = [(e.name(), e.start_ns(), e.end_ns()) for e in raw
-             if e.device_type() == cpu and e.name() in PARTS]
-    op_start = {e.correlation_id(): e.start_ns() for e in raw
-                if e.device_type() == cpu and not e.linked_correlation_id()}
     # fp32 GEMMs are the attention backward's einsums (the model's own
     # matmuls are bf16); softmax kernels are its recompute
     groups = {"flash_attention": 0.0, "gemm_bf16": 0.0, "gemm_fp32": 0.0,
               "softmax": 0.0, "other": 0.0}
     parts = dict.fromkeys(PARTS + ("outside_parts",), 0.0)
     kernels = {}
-    for e in raw:
-        name = e.name()
-        if e.device_type() != dev or e.is_user_annotation() or name in PARTS:
-            continue                # a range's span on the device timeline
-        ms = (e.end_ns() - e.start_ns()) / 1e6
-        start = op_start.get(e.linked_correlation_id())
-        parts[next((n for n, a, b in spans if start is not None
-                    and a <= start <= b), "outside_parts")] += ms
+    for name, ms, part in _kernels_by_range(prof, PARTS):
+        parts[part or "outside_parts"] += ms
         low = name.lower()
         if "flash_fwd" in name:     # flash_fwd_wgmma_kernel, flash_fwd_kernel
             group = "flash_attention"
@@ -3050,6 +3358,268 @@ def phase_train_families(seed: int, steps: int = 6):
     return out
 
 
+# ----------------------------------------------------------- phases 13-14
+
+#: the MoE serving profile's device-time groups: paged attention and flash
+#: by kernel name; the MoE FFN's parts by the ``record_function`` range
+#: (``models/moe.py::PARTS``) holding the op that launched each kernel
+MOE_KERNEL_GROUPS = {"paged_attention": ("paged_attention_kernel",
+                                         *PAGED_LAUNCHES),
+                     "flash_attention": ("flash_fwd",)}
+MOE_PART_GROUPS = {"moe_route": "routing_dispatch",
+                   "moe_experts": "expert_products",
+                   "moe_combine": "combine"}
+
+
+def _profile_moe(eng, step_p50_ms: float, tag: str, steps=None,
+                 required=("paged_attention",)):
+    """Run ``steps`` engine steps (None: until idle) under torch.profiler
+    (host and device activity) and sum the device time by group: the
+    attention kernels by name (``MOE_KERNEL_GROUPS``); routing and
+    dispatch (router matmul, softmax, sort, one-hot count, scatter), the
+    expert products (three batched matmuls and the SwiGLU) and the
+    combine by the MoE range holding the op that launched the kernel;
+    the rest as ``other_gemm`` (projections, head) or ``other``. The idle
+    share is 1 - device busy a step / the unprofiled step p50 of the same
+    kind of step (the profiler's host cost stays out of it). Fails if a
+    ``required`` group or an MoE part got no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    steps0 = eng.stats["step_count"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        while eng.busy() and (steps is None
+                              or eng.stats["step_count"] - steps0 < steps):
+            eng.step()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = dict.fromkeys((*MOE_KERNEL_GROUPS, *MOE_PART_GROUPS.values(),
+                            "other_gemm", "other"), 0.0)
+    kernels, ops = {}, 0
+    for name, ms, part in _kernels_by_range(prof, MOE_PART_GROUPS):
+        ops += 1
+        group = next((g for g, keys in MOE_KERNEL_GROUPS.items()
+                      if any(k in name for k in keys)), None) \
+            or MOE_PART_GROUPS.get(part)
+        if group is None:
+            low = name.lower()
+            group = "other_gemm" if any(
+                w in low for w in ("gemm", "xmma", "nvjet", "cutlass")) \
+                else "other"
+        groups[group] += ms
+        kernels[name] = kernels.get(name, 0.0) + ms
+    busy = sum(groups.values())
+    for g in (*required, *MOE_PART_GROUPS.values()):
+        check(not busy or groups[g] > 0,
+              f"[{tag}] no device time in group {g!r}: kernels "
+              f"{sorted(kernels)[:20]}")
+    n = eng.stats["step_count"] - steps0
+    busy_step = busy / max(n, 1)
+    out = {"steps": n, "window_ms": wall_ms, "device_busy_ms": busy,
+           "device_busy_per_step_ms": busy_step,
+           "device_ops_per_step": ops / max(n, 1),
+           "idle_share_vs_unprofiled_p50": (1 - busy_step / step_p50_ms)
+           if busy else "not measured",
+           "by_group_ms": groups,
+           "top_kernels_ms": sorted(kernels.items(),
+                                    key=lambda kv: -kv[1])[:8]}
+    if busy:
+        share = ", ".join(f"{g} {ms:.2f} ms ({ms / busy:.0%})"
+                          for g, ms in groups.items())
+        log(f"[{tag}] {n} steps in {wall_ms:.1f} ms wall under the "
+            f"profiler, device busy {busy:.1f} ms = {busy_step:.2f} ms a "
+            f"step, {ops / max(n, 1):.0f} device ops a step (idle share "
+            f"{out['idle_share_vs_unprofiled_p50']:.1%} of the unprofiled "
+            f"step p50 {step_p50_ms:.1f} ms): {share}")
+        for name, ms in out["top_kernels_ms"]:
+            log(f"[{tag}]   {ms:9.2f} ms  {name[:90]}")
+    else:
+        log(f"[{tag}] the profiler recorded no device time: not measured")
+    return out
+
+
+def _drive(eng, prompts, max_new: int, tag: str, *, mixed: bool):
+    """Submit ``prompts`` (``max_new`` new tokens each), zero the launch
+    counts, step the engine until idle and read them: each request must
+    finish with ``max_new`` in-vocab tokens. A step with prefill work is
+    one that moved prefill-chunk tokens (``mixed``) or ran a prefill.
+    Returns the run's record (its streams and launches in it)."""
+    from repro_torch import kernels
+    cfg = eng.cfg
+    for rid, p in enumerate(prompts):
+        eng.submit(rid, p, max_new=max_new)
+    key = "prefill_chunk_tokens" if mixed else "prefills"
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    step_s, prefill_step = [], []
+    t0 = time.perf_counter()
+    while eng.busy():
+        s0 = time.perf_counter()
+        before = eng.stats[key]
+        eng.step()
+        step_s.append(time.perf_counter() - s0)
+        prefill_step.append(eng.stats[key] > before)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launches()
+    res = eng.results()
+    for rid in range(len(prompts)):
+        r = res[rid]
+        check(r.done and len(r.out) == max_new,
+              f"[{tag}] request {rid} finished={r.done} with {len(r.out)} "
+              f"tokens")
+        check(all(0 <= t < cfg.vocab_size for t in r.out),
+              f"[{tag}] request {rid} tokens out of range")
+    check(bool(torch.isfinite(eng.last_logits).all()), f"[{tag}] finite "
+                                                        f"logits")
+    st = eng.stats
+    tokens = sum(len(res[r].out) for r in res)
+    step_ms = np.asarray(step_s) * 1e3
+    with_pf = np.asarray(prefill_step)
+    return {"tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+            "steps": len(step_s), "program_runs": st["mixed_steps"],
+            "prefills": st["prefills"], "decode_steps": st["decode_steps"],
+            "step_p50_ms": float(np.percentile(step_ms, 50)),
+            "step_max_ms": float(step_ms.max()),
+            "prefill_steps": int(with_pf.sum()),
+            "prefill_step_p50_ms": float(np.percentile(step_ms[with_pf], 50)),
+            "decode_only_step_p50_ms": float(
+                np.percentile(step_ms[~with_pf], 50)),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "kv_gb": eng.kv_bytes() / 1e9, "peak_pages": st["peak_pages"],
+            "decode_traces": st["decode_traces"],
+            "prefill_traces": st["prefill_traces"], "launches": counts,
+            "streams": [list(res[rid].out) for rid in range(len(prompts))]}
+
+
+def _run_text(tag: str, run: dict) -> str:
+    return (f"[{tag}] {run['tokens']} tokens in {run['wall_s']:.2f}s = "
+            f"{run['tokens_per_s']:.2f} tok/s; {run['steps']} steps, step "
+            f"p50 {run['step_p50_ms']:.1f} ms (with prefill work "
+            f"{run['prefill_step_p50_ms']:.1f} ms over {run['prefill_steps']}"
+            f" steps, decode only {run['decode_only_step_p50_ms']:.1f} ms), "
+            f"max {run['step_max_ms']:.1f} ms; peak memory "
+            f"{run['peak_mem_gb']:.2f} GB (KV {run['kv_gb']:.2f} GB), peak "
+            f"pages {run['peak_pages']}; launches {run['launches']}; "
+            f"decode_traces {run['decode_traces']}, prefill_traces "
+            f"{run['prefill_traces']}")
+
+
+def phase_moe_serve(seed: int, max_new: int = 16):
+    """MoE SERVING at full width, uncut (phases 13 and 13b):
+    ``Session(get_config("olmoe-1b-7b"), device="cuda").serve(slots=4,
+    max_len=1024, page_size=16, chunk_tokens=256)`` (16 layers, bf16,
+    random weights from ``seed``) on phase 5's six prompts, 16 new tokens
+    each, through the mixed step: paged attention exactly 16 x program
+    runs, the other kernels never, ``decode_traces`` within the (chunk,
+    page bucket) pairs; then ``serve(mixed=False)`` (the split path on
+    the pool) on the same requests: flash 16 x prefills, paged attention
+    16 x decode steps, the fused MLP never, one prefill shape a distinct
+    prompt length (no bucket) and each a length phase 3 checked, and the
+    share of tokens equal to phase 13's streams (reported: in bf16
+    capacity couples rows differently on the two paths). Each path then
+    serves one more pair under the profiler (``_profile_moe``)."""
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    from repro_torch.serve.paging import pages_for
+    from repro_torch.serve.step import page_bucket
+    from repro_torch.tree import flatten
+    cfg = get_config("olmoe-1b-7b")
+    layers = cfg.num_layers
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    session = Session(cfg, device="cuda", seed=seed)
+    n_params = sum(t.numel() for t in flatten(session.params).values())
+    log(f"[moe] {cfg.name}: {layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.head_dim}, "
+        f"{cfg.num_experts} experts top {cfg.experts_per_token} of d_ff "
+        f"{cfg.d_ff}, capacity factor {cfg.moe_capacity_factor}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}, {n_params / 1e9:.3f} B params "
+        f"({n_params * 2 / 1e9:.2f} GB); weights ready in "
+        f"{time.perf_counter() - t0:.1f}s")
+    lens, prompts = serving_prompts(seed, cfg.vocab_size)
+    out = {"params": n_params, "prompt_lens": [int(n) for n in lens],
+           "max_new": max_new}
+    rng = np.random.default_rng(seed + 13)
+
+    # phase 13: the mixed step
+    eng = session.serve(slots=4, max_len=1024, page_size=16,
+                        chunk_tokens=256)
+    run = _drive(eng, prompts, max_new, "moe mixed", mixed=True)
+    buckets = {page_bucket(max(pages_for(min(int(n) + max_new - 1, 1024), 16)
+                               for n in lens[:i + 1]), cap=64)
+               for i in range(len(lens))}
+    want = {"paged_attention": layers * run["program_runs"],
+            "fused_mlp": 0, "flash_attention": 0, "ssd_scan": 0}
+    check(run["launches"] == want,
+          f"[moe mixed] launches {run['launches']} != {want} (paged "
+          f"attention {layers} layers x {run['program_runs']} program runs)")
+    check(run["decode_traces"] <= len(buckets),
+          f"[moe mixed] {run['decode_traces']} program shapes > "
+          f"{len(buckets)} (chunk, page bucket) pairs")
+    log(_run_text("moe mixed", run))
+    run["profile"] = _profile_moe_pair(eng, rng, run["step_p50_ms"],
+                                       "moe mixed profile: the pair")
+    out["mixed"] = run
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 13b: the split path on the pool
+    eng = session.serve(slots=4, max_len=1024, page_size=16, mixed=False)
+    split = _drive(eng, prompts, max_new, "moe split", mixed=False)
+    want = {"paged_attention": layers * split["decode_steps"],
+            "fused_mlp": 0, "flash_attention": layers * split["prefills"],
+            "ssd_scan": 0}
+    check(split["launches"] == want,
+          f"[moe split] launches {split['launches']} != {want} (flash "
+          f"{layers} x prefills, paged attention {layers} x decode steps)")
+    check(split["prefill_traces"] == len({int(n) for n in lens}),
+          f"[moe split] prefill_traces {split['prefill_traces']} != "
+          f"{len(set(lens))} distinct prompt lengths (no bucket)")
+    check(split["decode_traces"] == 1,
+          f"[moe split] decode_traces {split['decode_traces']}")
+    checked = {shape[1] for shape in moe_flash_shapes(seed)}
+    check(set(eng._prefill_lens) <= checked,
+          f"[moe split] prefill lengths {sorted(eng._prefill_lens)} not all "
+          f"held by phase 3 ({sorted(checked)})")
+    agree = sum(a == b for g, w in zip(split["streams"], run["streams"])
+                for a, b in zip(g, w)) / (max_new * len(prompts))
+    split["agree_with_mixed"] = agree
+    log(_run_text("moe split", split)
+        + f"; {agree:.1%} of tokens equal to phase 13's mixed-step streams "
+        f"(information)")
+    split["profile"] = _profile_moe_pair(
+        eng, rng, split["prefill_step_p50_ms"],
+        "moe split profile: admission step", steps=1,
+        required=("paged_attention", "flash_attention"))
+    split["profile_decode"] = _profile_moe(
+        eng, split["decode_only_step_p50_ms"],
+        "moe split profile: decode-only steps")
+    check(set(eng._prefill_lens) <= checked,
+          f"[moe split] profiled prefill lengths {sorted(eng._prefill_lens)}"
+          f" not all held by phase 3 ({sorted(checked)})")
+    out["split"] = split
+    del eng, session
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _profile_moe_pair(eng, rng, step_p50_ms: float, tag: str, steps=None,
+                      required=("paged_attention",)):
+    """Submit one more pair (``MOE_PROFILE_PROMPTS`` tokens, 4 new each)
+    and profile the engine's next ``steps`` steps (``_profile_moe``)."""
+    for rid, n in enumerate(MOE_PROFILE_PROMPTS):
+        eng.submit(100 + rid, rng.integers(0, eng.cfg.vocab_size, size=n),
+                   max_new=4)
+    return _profile_moe(eng, step_p50_ms, tag, steps, required)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3077,6 +3647,11 @@ def main():
             k["hybrid_shapes"] = hybrid_shapes[k["name"]]
     kernels[1]["hybrid_seed_sweep"] = hybrid_shapes["fused_mlp_seed_sweep"]
     mark("3 kernels at the hybrid's shapes")
+    moe_shapes = phase_moe_kernels(args.seed)
+    for k in kernels:
+        if k["name"] in moe_shapes:
+            k["olmoe_shapes"] = moe_shapes[k["name"]]
+    mark("3 kernels at OLMoE's shapes")
     parity = phase_parity()
     record["parity_logits_err"] = parity.pop("mixed")
     record["parity_split_logits_err"] = parity
@@ -3088,6 +3663,8 @@ def main():
     record["parity_hybrid_logits_err"] = phase_parity_hybrid()
     record["parity_train_families"] = phase_train_parity_families()
     mark("4 parity: hybrid, SSM and hybrid training")
+    record["parity_moe"] = phase_parity_moe()
+    mark("4 parity: MoE serving and training")
     main_run, eng, session, prompts = phase_main(args.seed)
     record["main"] = main_run
     record["profile"] = phase_profile(eng, rng, main_run["step_p50_ms"])
@@ -3117,14 +3694,28 @@ def main():
     torch.cuda.empty_cache()
     record["train_families"] = phase_train_families(args.seed)
     mark("12 SSM and hybrid training")
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["moe"] = phase_moe_serve(args.seed)
+    mark("13-13b MoE serving")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 6's run on OLMoE-1B-7B at 4 layers: its 16 would need ~110 GB
+    record["moe_train"] = phase_train(args.seed, layers=4,
+                                      arch="olmoe-1b-7b")
+    mark("14 MoE training")
     # each kernel's launches on the paths that run it, each counted from 0
     # just before its run: phase 5 and phases 9-10 (paged attention, the
     # fused MLP; flash in phase 9's model drafter), phase 6 (flash), phase
     # 7 (the SSD scan), phase 11 (the SSD scan, flash, the fused MLP, and
-    # generate's), phase 12 (flash in the hybrid's shared block)
+    # generate's), phase 12 (flash in the hybrid's shared block), phase 13
+    # (paged attention), phase 13b (flash, paged attention), phase 14
+    # (flash)
     paths = [main_run, record["train"], record["ssm"],
              *record["spec"].values(), *record["online"].values(),
-             record["hybrid"], *record["train_families"].values()]
+             record["hybrid"], *record["train_families"].values(),
+             record["moe"]["mixed"], record["moe"]["split"],
+             record["moe_train"]]
     for k in kernels:
         k["launches"] = sum(run["launches"][k["name"]] for run in paths)
     record["kernels"] = kernels

@@ -14,6 +14,7 @@
     small.train(TrainConfig(steps=6), global_batch=1, seq_len=4096).run()
 
     ssm = Session(get_config("mamba2-780m")).serve(slots=4, max_len=2048)
+    moe = Session(get_config("olmoe-1b-7b")).serve(slots=4, max_len=1024)
     Session(get_config("zamba2-1.2b")).train(global_batch=1, seq_len=4096)
 
     tokens = session.generate(prompt_batch, steps=16)   # (B, 16) greedy
@@ -22,8 +23,8 @@ One object owns the config, the strategy, the device and the params
 (random from ``seed`` unless given — e.g. from the JAX package's
 checkpoint through ``repro_torch.params.load_npz``). ``train`` trains
 those params in place, so a later ``serve`` sees the trained weights.
-``serve`` takes the reference's keyword names and the reference's
-family and layout rules: a full-attention dense decoder gets the paged
+``serve`` takes the reference's keyword names and the reference's family
+and layout rules: a full-attention dense or MoE decoder gets the paged
 mixed-step engine by default (``mixed=False``: the split prefill/decode
 path on the pool; ``paged=False``: the dense per-slot layout), a
 sliding-window config the dense ring, the SSM family and the hybrid the
@@ -31,14 +32,14 @@ split path on the dense layout; ``prefix_cache``, ``lazy`` and
 ``scheduler`` pass through to the engine (on the paged pool).
 ``generate`` is the lockstep greedy loop
 (``serve/step.py::greedy_generate``). ``serve_async`` wraps the engine
-in the online ``AsyncDriver`` (a background step loop,
-per-request token streams, TTFT/TPOT metrics, a watchdog) and
-``serve_http`` puts the stdlib HTTP front-end over that
-(serve/server.py). ``save`` / ``restore`` write and read the npz
-checkpoints both packages read (checkpoint/io.py). The features not
-ported yet raise ``NotImplementedError`` naming their ROADMAP.md item,
-as do ``train`` for the MoE, enc-dec and VLM families and
-``from_plan``, ``dryrun`` and ``lower`` (the planner, Queue 1 item 12).
+in the online ``AsyncDriver`` (a background step loop, per-request token
+streams, TTFT/TPOT metrics, a watchdog) and ``serve_http`` puts the
+stdlib HTTP front-end over that (serve/server.py). ``save`` /
+``restore`` write and read the npz checkpoints both packages read
+(checkpoint/io.py). The features not ported yet raise
+``NotImplementedError`` naming their ROADMAP.md item, as do ``train``
+for the enc-dec and VLM families and ``from_plan``, ``dryrun`` and
+``lower`` (the planner, Queue 1 item 12).
 
     driver = session.serve_async(slots=4, max_len=1024)
     stream = driver.submit(prompt, max_new=16)      # tokens as they come
@@ -121,8 +122,8 @@ class Session:
         """A Trainer on this session's strategy, device and params (the
         session's seed initialises them). ``restore=True`` resumes from
         the TrainConfig's checkpoint dir first."""
-        family = "moe" if self.cfg.is_moe else self.cfg.arch_type
-        if family not in ("dense", "ssm", "hybrid"):
+        family = self.cfg.arch_type
+        if family not in ("dense", "moe", "ssm", "hybrid"):
             raise _todo(f"training the {family} family",
                         f"Queue 1 item 10, {family} training")
         check_kernel_limits(self.cfg, self.strategy, self.device)
@@ -160,8 +161,8 @@ class Session:
               chunk_tokens: int = 256, attn_backend: Optional[str] = None,
               spec=None, trace_level: int = 1) -> ServeEngine:
         """Continuous-batching engine over this session's params on its
-        device: for a full-attention dense decoder the paged pool and ONE
-        mixed token-slot program per step by default; otherwise
+        device: for a full-attention dense or MoE decoder the paged pool
+        and ONE mixed token-slot program per step by default; otherwise
         (``mixed=False``, ``paged=False``, sliding-window configs, the SSM
         family, the hybrid) the split path, one prefill program a request
         and one batched decode a step (see serve/engine.py). ``attn_backend``

@@ -1,11 +1,13 @@
 """Serving launcher of the port: spin up the engine through
 ``repro_torch.api.Session`` and stream a synthetic batch of requests
 through it — the counterpart of ``python -m repro.launch.serve`` in batch
-mode. A dense decoder runs the paged mixed-step engine by default,
-``--no-mixed`` the split prefill/decode path on the paged pool and
-``--dense`` the split path on the dense per-slot layout (the mixed step
-needs the pool); the SSM family (``--arch mamba2-780m``) and the hybrid
-(``--arch zamba2-1.2b``) run the split path on the dense layout.
+mode. A dense or MoE decoder (``--arch olmoe-1b-7b``; ``--arch
+kimi-k2-1t-a32b`` on its smoke config only) runs the paged mixed-step
+engine by default, ``--no-mixed`` the split prefill/decode path on the
+paged pool and ``--dense`` the split path on the dense per-slot layout
+(the mixed step needs the pool); the SSM family (``--arch
+mamba2-780m``) and the hybrid (``--arch zamba2-1.2b``) run the split
+path on the dense layout.
 
     # on the card, full-width Qwen3-14B (random weights from --seed)
     PYTHONPATH=src python -m repro_torch.launch.serve --full \\
@@ -22,6 +24,10 @@ needs the pool); the SSM family (``--arch mamba2-780m``) and the hybrid
         --slots 4 --max-len 1024 --requests 8 --shared-prefix 512 \
         --prefix-cache --lazy --kv-pages 56
 
+    # on the card, full-width OLMoE-1B-7B (16 layers, 64 experts, top 8)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
+        --full --slots 4 --max-len 1024 --chunk-tokens 256 --requests 6
+
     # on the card, full-width Mamba2-780M and Zamba2-1.2B
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
         --full --slots 4 --max-len 2048 --requests 6
@@ -36,6 +42,8 @@ needs the pool); the SSM family (``--arch mamba2-780m``) and the hybrid
         --prefix-cache --lazy --kv-pages 6
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
         --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
+        --device cpu --no-mixed
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
         --device cpu
 

@@ -6,6 +6,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train --full --layers 4 \\
         --steps 4 --global-batch 1 --seq 4096
 
+    # on the card, full-width OLMoE-1B-7B cut to 4 layers
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \\
+        --full --layers 4 --steps 4 --global-batch 1 --seq 4096
+
     # on the card, Zamba2-1.2B uncut (--arch mamba2-780m alike)
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
         --full --steps 4 --global-batch 1 --seq 4096
@@ -16,14 +20,18 @@
         --arch mamba2-780m --steps 2 --global-batch 2 --seq 64
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch zamba2-1.2b --steps 2 --global-batch 2 --seq 64
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch kimi-k2-1t-a32b --steps 2 --global-batch 2 --seq 64
 
 Without ``--full`` the arch's smoke config runs in float32 with remat off,
 as the JAX launcher does; ``--full`` takes the arch's full ``CONFIG`` in
 its own dtype (bfloat16) with the default Strategy (AdamW, remat on,
 ``attn_impl="auto"``: the flash kernel on the card where the family has
-attention). ``--layers`` cuts the depth only. Dense decoders, the SSM
-family (``--arch mamba2-780m``) and the hybrid (``--arch zamba2-1.2b``)
-train; the other families raise naming their ROADMAP.md item.
+attention). ``--layers`` cuts the depth only. Dense and MoE decoders
+(``--arch olmoe-1b-7b``: the loss adds ``router_aux_coef`` times the
+router's load-balance loss), the SSM family (``--arch mamba2-780m``) and
+the hybrid (``--arch zamba2-1.2b``) train; the other families raise
+naming their ROADMAP.md item.
 """
 from __future__ import annotations
 

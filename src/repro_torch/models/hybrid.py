@@ -53,7 +53,7 @@ def _group(glp, sp, x, cfg, attn_impl):
     """``every`` Mamba layers, then the shared block."""
     for lp in unstack(glp, cfg.hybrid_attn_every):
         x = _mamba_sub(lp, x, cfg)
-    return block(sp, x, cfg, attn_impl=attn_impl)
+    return block(sp, x, cfg, attn_impl=attn_impl)[0]
 
 
 def forward(params, batch, cfg, *, remat: bool = False,

@@ -1,4 +1,5 @@
-"""Decoder-only transformer LM (llama-style, dense FFN) — the port of
+"""Decoder-only transformer LM (llama-style: dense SwiGLU FFN, or the MoE
+FFN of models/moe.py on an MoE config) — the port of
 ``repro/models/transformer.py``.
 
 Parameters are nested dicts of tensors with the JAX tree's keys and the
@@ -12,7 +13,9 @@ stack is a Python loop over that axis where the reference scans.
 
 ``forward`` trains: ``remat=True`` wraps each layer in
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the scan
-body), and ``attn_impl`` picks the attention path (``layers.attention``:
+body; the checkpointed layer returns its router aux loss too), its aux is
+the layers' router load-balance losses summed (0 for a dense FFN), and
+``attn_impl`` picks the attention path (``layers.attention``:
 on a CUDA tensor ``auto`` and ``pallas`` run the flash kernel, so every
 prefill does too, windowed on sliding-window configs).
 
@@ -28,15 +31,19 @@ reference returns new arrays). Its layouts (models/kvcache.py):
   any row attends through ``ptab`` with the paged-attention kernel — the
   serve engine's mixed token-slot program and its split decode.
 
-The context-parallel decode branch waits for ROADMAP.md Queue 1 item 11,
-the MoE FFN for item 10.
+An MoE layer routes all the rows of one call together: ``prefill`` the
+prompt's tokens, ``decode_step`` its B rows (the mixed step's pads and the
+split path's inactive slots included, as in the reference), each expert
+with the capacity of that many tokens; ``prefill`` and ``decode_step``
+drop the aux loss. The context-parallel decode branch waits for
+ROADMAP.md Queue 1 item 11.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import kvcache
+from repro_torch.models import kvcache, moe as moe_lib
 from repro_torch.models.layers import (attention, attn_out, attn_qkv, mlp,
                                        paged_attention, rmsnorm)
 
@@ -68,9 +75,9 @@ def unstack_layers(params, n: int):
 
 
 def _check_dense(cfg):
-    if cfg.arch_type != "dense" or cfg.is_moe:
+    if cfg.arch_type not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense decoders only so far; "
+            f"{cfg.name}: this module runs dense and MoE decoders; "
             f"{cfg.arch_type} waits for ROADMAP.md Queue 1 item 10")
 
 
@@ -91,30 +98,43 @@ def _head(params, x, cfg):
     return x @ w
 
 
+def ffn(lp, h, cfg):
+    """The layer's FFN on ``h``: (y, router aux loss) on an MoE config,
+    (y, None) for the dense SwiGLU."""
+    if cfg.is_moe:
+        return moe_lib.moe_ffn(lp["moe"], h, cfg)
+    return mlp(lp["mlp"], h), None
+
+
 def block(lp, x, cfg, *, attn_impl: str = "auto"):
-    """Pre-norm attention + pre-norm SwiGLU FFN over a whole sequence."""
+    """Pre-norm attention + pre-norm FFN over a whole sequence. Returns
+    (y, aux): the MoE router's aux loss, None for a dense FFN."""
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = attn_qkv(lp["attn"], h, cfg)
     ctx = attention(q, k, v, causal=True, window=cfg.sliding_window,
                     impl=attn_impl)
     x = x + attn_out(lp["attn"], ctx, cfg)
-    h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp(lp["mlp"], h)
+    y, aux = ffn(lp, rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg)
+    return x + y, aux
 
 
 def forward(params, batch, cfg, *, remat: bool = False,
             attn_impl: str = "auto"):
-    """batch: {"tokens": (B,S) int}. Returns (logits (B,S,V), aux=0)."""
+    """batch: {"tokens": (B,S) int}. Returns (logits (B,S,V), aux): the
+    layers' router aux losses summed, 0 for a dense FFN."""
     _check_dense(cfg)
     x = _embed(params, batch["tokens"], cfg)
+    auxs = []
     for lp in unstack_layers(params, cfg.num_layers):
         if remat:
-            x = checkpoint(lambda y, lp=lp: block(lp, y, cfg,
-                                                  attn_impl=attn_impl),
-                           x, use_reentrant=False)
+            x, aux = checkpoint(lambda y, lp=lp: block(lp, y, cfg,
+                                                       attn_impl=attn_impl),
+                                x, use_reentrant=False)
         else:
-            x = block(lp, x, cfg, attn_impl=attn_impl)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, aux = block(lp, x, cfg, attn_impl=attn_impl)
+        auxs.append(aux)
+    aux = torch.stack(auxs).sum() if cfg.is_moe else \
+        torch.zeros((), dtype=torch.float32, device=x.device)
     return _head(params, x, cfg), aux
 
 
@@ -161,8 +181,7 @@ def prefill(params, batch, cfg, cache, *, attn_impl: str = "auto",
         ctx = attention(q, k, v, causal=True, window=cfg.sliding_window,
                         impl=attn_impl)
         x = x + attn_out(lp["attn"], ctx, cfg)
-        h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + mlp(lp["mlp"], h)
+        x = x + ffn(lp, rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg)[0]
         kv["k"][i] = kvcache.fit_prefill(k, w)
         kv["v"][i] = kvcache.fit_prefill(v, w)
     cache["pos"] = torch.tensor(s, dtype=torch.int32, device=x.device)
@@ -215,8 +234,7 @@ def decode_step(params, cache, token, pos, cfg):
                             window=cfg.sliding_window, q_offset=pos,
                             kv_len=kv_len, kpos=kpos)
         x = x + attn_out(lp["attn"], ctx, cfg)
-        h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + mlp(lp["mlp"], h)
+        x = x + ffn(lp, rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg)[0]
     out = {"kv": pool, "pos": pos + 1}
     if paged:
         out["ptab"] = cache["ptab"]

@@ -6,7 +6,10 @@ The dense decoder's tree mirrors ``repro/models/transformer.py::init``
 (with ``layers.py::dense_init``, ``init_attn`` and ``init_mlp``): nested
 dicts, per-layer weights stacked on a leading L axis, matrices ``normal *
 0.02`` except ``wo`` and ``w_down`` at ``0.02 / sqrt(2L)``, norm scales
-fp32 ones, matrices in ``cfg.dtype``. The SSM family's mirrors
+fp32 ones, matrices in ``cfg.dtype``. The MoE decoder's is the dense
+one with ``moe/`` in place of ``mlp/`` (``repro/models/moe.py::init_moe``):
+``router`` ``(d, E)`` fp32, ``w_gate`` and ``w_up`` ``(E, d, f)``,
+``w_down`` ``(E, f, d)`` at ``0.02 / sqrt(2L)``. The SSM family's mirrors
 ``repro/models/mamba_lm.py::init`` and ``ssm.py::init_mamba``: the same
 embedding, head and norms, and per layer ``in_proj`` ``(d, 2 din + 2N +
 H)``, ``conv_w`` fp32 ``normal * 0.5``, ``conv_b`` zeros, ``dt_bias`` and
@@ -67,11 +70,11 @@ STACK_AXES = {"layers": 1, "groups": 2, "trailing": 1}
 
 
 def _check_family(cfg):
-    if cfg.is_moe or cfg.arch_type not in ("dense", "ssm", "hybrid"):
+    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: the port holds dense-decoder, SSM and hybrid "
-            f"params only so far ({cfg.arch_type} waits for ROADMAP.md "
-            f"Queue 1 item 10)")
+            f"{cfg.name}: the port holds dense-decoder, MoE, SSM and "
+            f"hybrid params only so far ({cfg.arch_type} waits for "
+            f"ROADMAP.md Queue 1 item 10)")
 
 
 def _mamba_spec(cfg, prefix: str, lead: tuple) -> Spec:
@@ -96,8 +99,9 @@ def _mamba_spec(cfg, prefix: str, lead: tuple) -> Spec:
 
 
 def _block_spec(cfg, prefix: str, lead: tuple) -> Spec:
-    """Attention + SwiGLU blocks (``init_attn``, ``init_mlp`` and the two
-    norms) stacked on ``lead``."""
+    """Attention + FFN blocks (``init_attn``, the two norms, and
+    ``init_mlp``'s SwiGLU or, on an MoE config, ``init_moe``'s router and
+    experts) stacked on ``lead``."""
     dt = getattr(torch, cfg.dtype)
     f32 = torch.float32
     d, f = cfg.d_model, cfg.d_ff
@@ -109,10 +113,21 @@ def _block_spec(cfg, prefix: str, lead: tuple) -> Spec:
         f"{prefix}/attn/wo": (lead + (cfg.q_dim, d), dt, deep),
         f"{prefix}/ln1": (lead + (d,), f32, "ones"),
         f"{prefix}/ln2": (lead + (d,), f32, "ones"),
-        f"{prefix}/mlp/w_gate": (lead + (d, f), dt, 0.02),
-        f"{prefix}/mlp/w_up": (lead + (d, f), dt, 0.02),
-        f"{prefix}/mlp/w_down": (lead + (f, d), dt, deep),
     }
+    if cfg.is_moe:
+        e = cfg.num_experts
+        spec.update({
+            f"{prefix}/moe/router": (lead + (d, e), f32, 0.02),
+            f"{prefix}/moe/w_gate": (lead + (e, d, f), dt, 0.02),
+            f"{prefix}/moe/w_up": (lead + (e, d, f), dt, 0.02),
+            f"{prefix}/moe/w_down": (lead + (e, f, d), dt, deep),
+        })
+    else:
+        spec.update({
+            f"{prefix}/mlp/w_gate": (lead + (d, f), dt, 0.02),
+            f"{prefix}/mlp/w_up": (lead + (d, f), dt, 0.02),
+            f"{prefix}/mlp/w_down": (lead + (f, d), dt, deep),
+        })
     if cfg.qk_norm:
         spec[f"{prefix}/attn/q_norm"] = (lead + (cfg.head_dim,), f32, "ones")
         spec[f"{prefix}/attn/k_norm"] = (lead + (cfg.head_dim,), f32, "ones")
@@ -127,7 +142,7 @@ def param_spec(cfg) -> Spec:
     spec: Spec = {"embed": ((v, d), dt, 0.02),
                   "final_norm": ((d,), torch.float32, "ones")}
     head = {"lm_head": ((d, v), dt, 0.02)}
-    if cfg.arch_type == "dense":
+    if cfg.arch_type in ("dense", "moe"):
         spec.update(_block_spec(cfg, "layers", (cfg.num_layers,)))
         return spec if cfg.tie_embeddings else {**spec, **head}
     # the SSM family and the hybrid draw the head before the layers

@@ -1,15 +1,15 @@
 """Serving engine: continuous batching over a slot table — the port of
 the paged mixed path and the legacy split path of
 ``repro/serve/engine.py``. The family and the layout decide the path, by
-the reference's rules: full-attention dense decoders take the paged pool
-and ONE mixed token-slot step per engine step by default; the split path
-serves the rest — dense decoders with ``mixed=False`` (on the pool) or
-``paged=False``, sliding-window configs (on the dense ring), the SSM
-family (not pageable: its cache is a constant-size recurrent state) and
-the hybrid (its Mamba states beside the shared block's dense K/V rows,
-not pageable either, as in the reference).
+the reference's rules: full-attention dense and MoE decoders take the
+paged pool and ONE mixed token-slot step per engine step by default; the
+split path serves the rest — those decoders with ``mixed=False`` (on
+the pool) or ``paged=False``, sliding-window configs (on the dense
+ring), the SSM family (not pageable: its cache is a constant-size
+recurrent state) and the hybrid (its Mamba states beside the shared
+block's dense K/V rows, not pageable either, as in the reference).
 
-**Mixed path (dense decoders).** The KV cache is a flat pool of
+**Mixed path (dense and MoE decoders).** The KV cache is a flat pool of
 ``page_size``-token pages shared by every slot plus a per-slot page
 table (models/kvcache.py); which pages a slot owns is host bookkeeping
 (serve/paging.py). Each step runs one device program over a
@@ -29,43 +29,58 @@ the distinct ``(chunk_tokens, page bucket)`` shapes the program has run
 at — the same bounded-shape invariant.
 
 **Split path** (``mixed=False``: the only path of the SSM family and the
-hybrid, and the legacy path of dense decoders). Each admitted request is
-prefilled alone by its own device program, its first token sampled and
-its fresh cache stored; then ONE batched decode advances every slot per
-step (inactive rows run too and are overwritten at their next prefill,
-as in the reference). Dense decoders pad the prompt to ``prefill_bucket(n,
-cap=window)`` and gather the logits at ``last_pos = n - 1``; on the
-dense layout the prefill writes row ``slot`` of every cache leaf in
-place, on the paged layout it fills a scratch cache of whole pages that
-``scatter_prefill_pages`` writes through the slot's pages (bucket padding
-to the null page). The SSM family and the hybrid prefill at the exact
-length (the recurrence is pad-sensitive) and keep their states (and the
-hybrid its K/V rows, a ring of the window on sliding-window configs) in
-the dense layout. ``stats["prefill_traces"]`` counts the distinct padded
-prefill lengths run and ``stats["decode_traces"]`` the distinct decode
-shapes (one, or one a page bucket) — the reference's jit-trace counts.
-The reference's chunked-SSD precondition holds: a prompt longer than
-``ssm_chunk`` that is not a multiple of it raises ``ValueError`` inside
-its prefill, after it left the queue, where the reference's assert
-fires.
+hybrid, and the legacy path of dense and MoE decoders). Each admitted
+request is prefilled alone by its own device program, its first token
+sampled and its fresh cache stored; then ONE batched decode advances
+every slot per step (inactive rows run too and are overwritten at their
+next prefill, as in the reference). Dense decoders pad the prompt to
+``prefill_bucket(n, cap=window)`` and gather the logits at ``last_pos =
+n - 1``; on the dense layout the prefill writes row ``slot`` of every
+cache leaf in place, on the paged layout it fills a scratch cache of
+whole pages that ``scatter_prefill_pages`` writes through the slot's
+pages (bucket padding to the null page). MoE decoders prefill at the
+exact length (capacity routing is pad-sensitive), on either layout. The
+SSM family and the hybrid prefill at the exact length (the recurrence is
+pad-sensitive) and keep their states (and the hybrid its K/V rows, a
+ring of the window on sliding-window configs) in the dense layout.
+``stats["prefill_traces"]`` counts the distinct padded prefill lengths
+run and ``stats["decode_traces"]`` the distinct decode shapes (one, or
+one a page bucket) — the reference's jit-trace counts. The reference's
+chunked-SSD precondition holds: a prompt longer than ``ssm_chunk`` that
+is not a multiple of it raises ``ValueError`` inside its prefill, after
+it left the queue, where the reference's assert fires.
 
 Layouts, by the reference's rules: the paged pool for full-attention
-dense decoders (``PAGEABLE_ARCHS``, no sliding window) unless
+dense and MoE decoders (``PAGEABLE_ARCHS``, no sliding window) unless
 ``paged=False``; the dense per-slot layout otherwise, which is a ring of
 ``sliding_window`` rows on sliding-window configs.
+
+**MoE caveat** (the reference's): capacity-based expert routing couples
+the rows of one program, so an MoE decoder's batched output can differ
+from single-request decode. Every row of a program is routed and
+consumes expert capacity exactly as in the reference — the mixed step's
+pads (token 0, writing to the null page) and the split path's inactive
+slots included — so the port's streams equal the JAX engine's on the
+same inputs. MoE prompts are not bucketed (pad tokens would take
+capacity: the prefill runs at the exact length), and the prefix cache
+keys an MoE block on a digest of the WHOLE context (``_salt``): its KV
+is portable only between identical sequences. A preempted MoE request
+re-prefills its whole context under prefill capacity, where the
+uninterrupted run routed its tail token by token.
 
 The device decides the kernel path: CUDA runs the port's hand-written
 kernels (paged attention on the paged layout, the fused MLP in every
 dense-decoder program and in every application of the hybrid's shared
-block, flash attention in every dense split prefill and every hybrid
-prefill, the SSD scan in every Mamba layer of an SSM or hybrid prefill),
-the CPU their plain versions (``stats["decode_backend"]`` reads
-``"kernel"`` or ``"plain"``). On a CUDA device an engine refuses, at
-construction, shapes a kernel of its path cannot take (each kernel's
-``kernel_limits``: paged attention on the paged layout, flash attention
-on the dense and hybrid split paths, the fused MLP on every dense and
-hybrid path, the SSD scan on every SSM and hybrid path); nothing falls
-back to a plain version there.
+block — never in an MoE layer, whose experts are batched matmuls as in
+the reference — flash attention in every dense or MoE split prefill and
+every hybrid prefill, the SSD scan in every Mamba layer of an SSM or
+hybrid prefill), the CPU their plain versions
+(``stats["decode_backend"]`` reads ``"kernel"`` or ``"plain"``). On a
+CUDA device an engine refuses, at construction, shapes a kernel of its
+path cannot take (each kernel's ``kernel_limits``: paged attention on
+the paged layout, flash attention on the dense, MoE and hybrid split
+paths, the fused MLP on every dense and hybrid path, the SSD scan on
+every SSM and hybrid path); nothing falls back to a plain version there.
 
 **Prefix sharing, lazy growth, copy-on-write and preemption** (the
 paged pool, both paths), as the reference's: ``prefix_cache=True`` maps
@@ -98,11 +113,12 @@ token for token, and the program set stays one per (``chunk_tokens``,
 page bucket).
 
 Not ported yet, each raising ``NotImplementedError`` naming its
-ROADMAP.md item: TP/DP meshes, frames/images and the families other than
-dense, SSM and hybrid.
+ROADMAP.md item: TP/DP meshes, frames/images and the enc-dec and VLM
+families.
 """
 from __future__ import annotations
 
+import hashlib
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -127,7 +143,7 @@ from repro_torch.serve.tracing import (NULL_STEP, Tracer, chrome_trace,
 
 #: families whose decode cache can use the paged (block-table) layout —
 #: the reference's ``PAGEABLE_ARCHS`` among the families ported so far
-PAGEABLE_ARCHS = ("dense",)
+PAGEABLE_ARCHS = ("dense", "moe")
 
 
 def _todo(what: str, item: str):
@@ -153,6 +169,8 @@ class Request:
     expired: bool = False              # deadline passed while queued
     # host timestamp of the FIRST generated token
     first_tok_t: Optional[float] = field(default=None, repr=False)
+    # (context length, prefix-cache salt) memoised by ServeEngine._salt
+    salt_cache: Optional[tuple] = field(default=None, repr=False)
 
 
 class ServeEngine:
@@ -301,8 +319,9 @@ class ServeEngine:
         self._cache["pos"] = torch.zeros((slots,), dtype=torch.int32,
                                          device=self.device)
         # bucketing: attention masks make right-padding exact for dense
-        # decoders; the SSM recurrence is perturbed by pad tokens, so the
-        # SSM family and the hybrid prefill at the exact length
+        # decoders; MoE capacity routing and the SSM recurrence are
+        # perturbed by pad tokens, so the MoE and SSM families and the
+        # hybrid prefill at the exact length
         self._bucketed = cfg.arch_type == "dense"
         self._window = max_len if self.paged or "kv" not in self._cache \
             else self._cache["kv"]["k"].shape[2]
@@ -312,9 +331,9 @@ class ServeEngine:
         engine's path cannot take (it would refuse at the first step,
         after ``submit`` took the request off the queue): paged attention
         on the paged layout, flash attention in every split-path prefill
-        of a dense decoder (paged or not) or of the hybrid, the fused MLP
-        in every dense-decoder and hybrid program, the SSD scan in every
-        SSM and hybrid prefill."""
+        of a dense or MoE decoder (paged or not) or of the hybrid, the
+        fused MLP in every dense-decoder and hybrid program (an MoE layer
+        runs none), the SSD scan in every SSM and hybrid prefill."""
         cfg = self.cfg
         checks = []
         if self.paged:
@@ -328,13 +347,13 @@ class ServeEngine:
                            "Mamba layer", "", ssd_scan.kernel_limits(
                                cfg.dtype, cfg.ssm_heads, cfg.ssm_head_dim,
                                cfg.ssm_state, cfg.ssm_chunk)))
-        if cfg.arch_type in ("dense", "hybrid"):
-            if not self.mixed:
-                checks.append(("every split-path prefill runs the "
-                               "flash-attention kernel", "",
-                               flash_attention.kernel_limits(
-                                   cfg.dtype, cfg.num_heads,
-                                   cfg.num_kv_heads, cfg.head_dim)))
+        if cfg.arch_type in ("dense", "moe", "hybrid") and not self.mixed:
+            checks.append(("every split-path prefill runs the "
+                           "flash-attention kernel", "",
+                           flash_attention.kernel_limits(
+                               cfg.dtype, cfg.num_heads,
+                               cfg.num_kv_heads, cfg.head_dim)))
+        if cfg.arch_type in ("dense", "hybrid") and not cfg.is_moe:
             checks.append(("every program runs the fused-MLP kernel", "",
                            fused_mlp.kernel_limits(cfg.dtype, cfg.d_model,
                                                    cfg.d_ff)))
@@ -575,13 +594,20 @@ class ServeEngine:
             self.stats["prefix_miss_blocks"] = self._prefix.miss_blocks
             self.stats["prefix_tail_hits"] = self._prefix.tail_hits
 
-    @staticmethod
-    def _salt(req: Request, ctx: np.ndarray):
+    def _salt(self, req: Request, ctx: np.ndarray):
         """Prefix-cache namespace. Causal KV of a dense decoder depends on
-        the prefix alone, so every block is portable: None. (The
-        reference salts enc-dec blocks with a digest of the frames and MoE
-        blocks with one of the whole context; those families are not on
+        the prefix alone, so every block is portable: None. MoE capacity
+        routing depends on the whole sequence, so an MoE block keys on
+        ``("moe-ctx", sha1(ctx))``: only identical contexts share.
+        Memoised on the request: ``ctx`` (prompt + emitted) is determined
+        by its length over a request's lifetime. (The reference salts
+        enc-dec blocks with a digest of the frames; that family is not on
         the port's pool yet.)"""
+        if self.cfg.arch_type == "moe":
+            if req.salt_cache is None or req.salt_cache[0] != len(ctx):
+                req.salt_cache = (len(ctx), ("moe-ctx", hashlib.sha1(
+                    np.ascontiguousarray(ctx).tobytes()).hexdigest()))
+            return req.salt_cache[1]
         return None
 
     def _reserve_tokens(self, req: Request, n: int) -> int:

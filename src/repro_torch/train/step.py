@@ -3,7 +3,10 @@
 
 ``make_train_step(cfg, strategy)`` returns
 ``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``
-for the family ``get_model(cfg)`` names (dense, SSM, hybrid).
+for the family ``get_model(cfg)`` names (dense, MoE, SSM, hybrid); an
+MoE decoder's loss adds ``cfg.router_aux_coef`` times the router aux
+loss, and each microbatch routes under its own capacity, as in the
+reference.
 Where the reference is a pure function under ``jax.jit``, this one runs
 eagerly and trains ``params`` and ``opt_state`` in place (the optimizers
 say why); every leaf of ``params`` is made to require grad. Gradient

@@ -39,13 +39,14 @@ class TrainConfig:
 def check_kernel_limits(cfg, strategy: Strategy, device) -> None:
     """On a CUDA device every attention over the sequence runs the flash
     kernel (``attn_impl`` ``auto`` or ``pallas``): each layer of a dense
-    decoder, each application of the hybrid's shared block. Refuse, before
-    any parameter is made, heads it cannot take, rather than fail at the
-    first step. The SSM family runs no attention, and trains through the
-    plain SSD scan (the kernel has no backward): nothing to check."""
+    or MoE decoder, each application of the hybrid's shared block.
+    Refuse, before any parameter is made, heads it cannot take, rather
+    than fail at the first step. The SSM family runs no attention, and
+    trains through the plain SSD scan (the kernel has no backward):
+    nothing to check."""
     if torch.device(device).type != "cuda" or \
             strategy.attn_impl not in ("auto", "pallas") or \
-            cfg.arch_type not in ("dense", "hybrid"):
+            cfg.arch_type not in ("dense", "moe", "hybrid"):
         return
     why = flash_attention.kernel_limits(cfg.dtype, cfg.num_heads,
                                         cfg.num_kv_heads, cfg.head_dim)

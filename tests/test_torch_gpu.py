@@ -82,7 +82,8 @@ def _paged(rng, *, b, width, n_pages, page_size, hq, hkv, d, dtype):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("hq,hkv,d,page_size", [(8, 2, 32, 8),
-                                                (40, 8, 128, 16)])
+                                                (40, 8, 128, 16),
+                                                (16, 16, 128, 16)])
 def test_paged_attention_kernel_matches_plain(cuda, dtype, tol, hq, hkv, d,
                                               page_size):
     rng = np.random.default_rng(hq)
@@ -364,6 +365,43 @@ def test_engine_on_card_matches_cpu(cuda):
                                       "flash_attention": 0, "ssd_scan": 0}
         assert eng.stats["decode_backend"] == \
             ("kernel" if dev == "cuda" else "plain")
+    assert outs["cpu"] == outs["cuda"]
+
+
+@pytest.mark.parametrize("mixed", [True, False])
+def test_moe_engine_on_card_matches_cpu(cuda, mixed):
+    """tests/test_serve_pallas.py:165 on the card: the reference's MoE
+    config in fp32 on one slot with 8-token pages — the paged kernel's
+    streams (card) equal the plain gather's (CPU), on the mixed step and
+    on the split path; paged attention ran once a layer a program (a
+    decode step on the split path), flash once a layer a split prefill,
+    the fused MLP never (the experts are batched matmuls)."""
+    cfg = ModelConfig(name="pal-moe", arch_type="moe", num_layers=2,
+                      d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
+                      num_experts=4, experts_per_token=2, vocab_size=128,
+                      dtype="float32")
+    cpu = init_params(cfg, device="cpu", seed=5)
+    params = {"cpu": cpu, "cuda": tree_map(lambda t: t.cuda(), cpu)}
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, 128, size=(n,)) for n in (5, 8, 6)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, params[dev], slots=1, max_len=32,
+                          page_size=8, mixed=mixed)
+        for i, p in enumerate(prompts):
+            eng.submit(i, p, max_new=4)
+        kernels.reset_launches()
+        res = eng.run()
+        outs[dev] = {i: list(res[i].out) for i in res}
+        on = cfg.num_layers if dev == "cuda" else 0
+        runs = eng.stats["mixed_steps"] if mixed \
+            else eng.stats["decode_steps"]
+        flash = 0 if mixed else eng.stats["prefills"]
+        assert kernels.launches() == {"paged_attention": on * runs,
+                                      "fused_mlp": 0,
+                                      "flash_attention": on * flash,
+                                      "ssd_scan": 0}
+        assert eng.stats["decode_traces"] == 1
     assert outs["cpu"] == outs["cuda"]
 
 

@@ -35,7 +35,7 @@ from repro.serve.engine import ServeEngine as JaxEngine  # noqa: E402
 from repro.serve.step import greedy_generate as jax_generate  # noqa: E402
 from repro_torch.api import Session  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
-from repro_torch.params import from_numpy  # noqa: E402
+from repro_torch.params import from_numpy, init_params  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve.step import greedy_generate  # noqa: E402
 
@@ -487,9 +487,15 @@ def test_unported_requests_and_families_raise(weights):
     with pytest.raises(NotImplementedError, match="item 10"):
         eng.submit(0, np.ones(3, np.int32), max_new=2,
                    frames=np.zeros((2, 2), np.float32))
+    # the MoE family serves on the pool (mixed step by default) and
+    # prefills unbucketed (tests/test_torch_moe_serve.py
+    # holds its streams to the JAX engine's); enc-dec and VLM still raise
     moe = CFG.with_(arch_type="moe", num_experts=4, experts_per_token=2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ServeEngine(moe, params)
+    eng = ServeEngine(moe, init_params(moe, device="cpu", seed=0))
+    assert eng.paged and eng.mixed and not eng._bucketed
+    for arch in ("audio", "vlm"):
+        with pytest.raises(NotImplementedError, match="item 10"):
+            ServeEngine(CFG.with_(arch_type=arch), params)
 
 
 def test_session_serves_on_cpu_and_keeps_reference_keywords(weights):
@@ -620,7 +626,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch/launch/train.py",
             "repro_torch/kernels/ssd_scan.py", "repro_torch/models/ssm.py",
             "repro_torch/models/mamba_lm.py",
-            "repro_torch/models/hybrid.py",
+            "repro_torch/models/hybrid.py", "repro_torch/models/moe.py",
             "repro_torch/serve/speculative.py",
             "repro_torch/serve/driver.py", "repro_torch/serve/server.py",
             "repro_torch/serve/metrics.py"} <= names
@@ -639,7 +645,7 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.optim, repro_torch.checkpoint, "
             "repro_torch.data.pipeline, repro_torch.train.trainer, "
             "repro_torch.kernels.ssd_scan, repro_torch.models.mamba_lm, "
-            "repro_torch.models.hybrid, "
+            "repro_torch.models.hybrid, repro_torch.models.moe, "
             "repro_torch.serve.speculative, repro_torch.serve.driver, "
             "repro_torch.serve.server, repro_torch.serve.metrics; "
             "print('ok')")

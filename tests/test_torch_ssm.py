@@ -315,17 +315,19 @@ def test_prefill_then_decode_chain_matches_jax(smoke):
 
 
 def test_get_model_maps_the_ported_families():
-    """dense, SSM and (since slice 9) the hybrid map to their modules; MoE,
-    enc-dec audio and VLM still raise naming Queue 1 item 10."""
+    """dense, SSM, the hybrid and MoE map to their modules (MoE to the
+    decoder's, as in the reference); enc-dec audio and VLM still raise
+    naming Queue 1 item 10."""
     from repro_torch.models import hybrid, transformer
     assert get_model(SSM_CFG) is mamba_lm
     assert get_model(SSM_CFG.with_(arch_type="dense", num_heads=4,
                                    num_kv_heads=2)) is transformer
     assert get_model(get_smoke("zamba2-1.2b")) is hybrid
-    for arch, kw in (("moe", {"num_experts": 4, "experts_per_token": 2}),
-                     ("audio", {}), ("vlm", {})):
+    assert get_model(get_smoke("olmoe-1b-7b")) is transformer
+    assert get_model(get_smoke("kimi-k2-1t-a32b")) is transformer
+    for arch in ("audio", "vlm"):
         with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            get_model(SSM_CFG.with_(arch_type=arch, **kw))
+            get_model(SSM_CFG.with_(arch_type=arch))
 
 
 # ---------------------------------------------------------------- params
@@ -403,11 +405,13 @@ def test_init_params_matches_reference_shapes_dtypes_and_scales():
 
 
 def test_other_families_still_raise_in_the_bridge():
-    """The bridge holds the hybrid's tree (since slice 9: ``groups/``,
-    ``trailing/``, ``shared/``); MoE, enc-dec audio and VLM still raise."""
-    moe = SSM_CFG.with_(arch_type="moe", num_experts=4, experts_per_token=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        param_spec(moe)
+    """The bridge holds the hybrid's tree (``groups/``, ``trailing/``,
+    ``shared/``) and the MoE decoder's (``layers/moe/``; its round trip is
+    in tests/test_torch_moe.py); enc-dec audio and VLM still raise."""
+    moe = param_spec(get_smoke("olmoe-1b-7b"))
+    assert {k for k in moe if "/moe/" in k} == {
+        f"layers/moe/{w}" for w in ("router", "w_gate", "w_up", "w_down")}
+    assert not any("/mlp/" in k for k in moe)
     for arch in ("audio", "vlm"):
         with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
             param_spec(SSM_CFG.with_(arch_type=arch))
@@ -513,14 +517,18 @@ def test_session_serves_ssm_on_cpu_and_refuses_training(engine_weights):
     for i, p in enumerate(_prompts(4, (5, 9, 6))):
         ref_eng.submit(i, p, max_new=5)
     assert got == {i: r.out for i, r in ref_eng.run().items()}
-    # since slice 9 the SSM family trains (tests/test_torch_train.py holds
-    # the step to the reference's); MoE, enc-dec audio and VLM still raise
+    # the SSM family trains (tests/test_torch_train.py holds the step to
+    # the reference's), and so does MoE (tests/test_torch_moe.py); enc-dec
+    # audio and VLM still raise
     trainer = session.train(global_batch=2, seq_len=16)
     assert trainer.params is session.params
-    for arch, kw in (("moe", {"num_experts": 4, "experts_per_token": 2}),
-                     ("audio", {}), ("vlm", {})):
+    moe = get_smoke("olmoe-1b-7b").with_(dtype="float32")
+    moe_trainer = Session(moe, device="cpu").train(global_batch=2,
+                                                   seq_len=16)
+    assert "moe" in moe_trainer.params["layers"]
+    for arch in ("audio", "vlm"):
         with pytest.raises(NotImplementedError, match=f"{arch} training"):
-            Session(SSM_CFG.with_(arch_type=arch, **kw), device="cpu").train()
+            Session(SSM_CFG.with_(arch_type=arch), device="cpu").train()
     fresh = Session(SSM_CFG, device="cpu", seed=3)
     assert fresh.params["layers"]["mamba"]["in_proj"].shape == (2, 64, 164)
 
