@@ -66,7 +66,17 @@ Phases (any failure exits non-zero; no result line is printed then):
    (1, S, S, 16, 16, 128) for each of phase 13b's prefill lengths (phase
    5's six prompt lengths, exact: an MoE prefill is not bucketed, and the
    profiled pair's 600 and 40) and phase 14's S 4096, per value (shown to
-   reject dropped keys), timed beside SDPA with its bound;
+   reject dropped keys), timed beside SDPA with its bound; then at
+   whisper-tiny's heads (phases 15, 15b and 16: Hq = Hkv = 6, D 64):
+   bf16 paged attention at phase 15's T = 256 mix and decode-only mix
+   over 8 slots x 448 tokens (both timed beside SDPA with their bound)
+   and at the split path's 8-row decode table, per value, device plan =
+   ``tile_plan``, a dropped live page rejected; flash non-causal at the
+   encoder's (1, 1500, 1500, 6, 6, 64) and the training step's (8, 1500,
+   1500, 6, 6, 64), each shown to reject a version that drops the last,
+   ragged key tile (keys 1408-1499), and causal at each of phase 15b's
+   prompt lengths and at (8, 448, 448, 6, 6, 64), each shown to reject
+   dropped keys; all per value, timed beside SDPA with their bound;
 4. tiny float32 configs on the card and on the CPU (TF32 off): through
    the port's engine on each layout — the mixed step, the split path on
    the pool (``mixed=False``) and on the dense layout (``paged=False``),
@@ -93,7 +103,13 @@ Phases (any failure exits non-zero; no result line is printed then):
    step, the split path on the pool and the dense layout: first-step
    logits within 1e-4, streams identical, paged attention, flash and the
    fused MLP (never) launched as the path says; and its train step: loss,
-   aux loss and gradients within 1e-4;
+   aux loss and gradients within 1e-4; then ``whisper-smoke`` on the same
+   three layouts (each request with its own frames): first-step logits
+   within 1e-4, streams identical, paged attention, flash (the encoder at
+   each admission, and the decoder in each split prefill) and the fused
+   MLP (never) launched as the path says, one encode shape on the mixed
+   step; and its train step with remat and 2 microbatches: losses and
+   gradients within 1e-4;
 5. the SERVING PATH: ``Session(get_config("qwen3-14b"), device="cuda")
    .serve(slots=4, max_len=1024, page_size=16, chunk_tokens=256)`` at full
    width with random weights from ``--seed``, 6 requests of 24-700 prompt
@@ -233,6 +249,39 @@ Phases (any failure exits non-zero; no result line is printed then):
    and the model-FLOPs share of 989 TFLOP/s (``train_flops``: the
    experts at k / E of their parameters, the router in full, and the
    causal attention).
+
+15. AUDIO SERVING, after phase 14: ``Session(get_config("whisper-tiny"),
+   device="cuda").serve(slots=8, max_len=448, page_size=16,
+   chunk_tokens=256)`` uncut (4 encoder and 4 decoder layers, d 384, 6/6
+   heads x 64, vocab 51865, 1500 frames; bf16, random weights from
+   ``--seed``, 56.36 M params) on 8 requests of 4-224 prompt tokens, each
+   with its own (1500, 384) float32 frames from ``--seed``, 64 new tokens
+   each (batch transcription with a decoder prompt). Counts are zeroed
+   just before and read just after: paged attention exactly 4 x program
+   runs, flash exactly 4 x admissions (the encoder, its own program), the
+   fused MLP and the SSD scan never; ``encode_traces`` 1;
+   ``decode_traces`` within the (chunk, page bucket) pairs; every request
+   finishes with 64 in-vocab tokens. Prints tokens/s, step p50 (steps
+   with prefill rows and decode-only steps apart), the encode program's
+   device time a request, peak memory, peak pages and the resident
+   decode state's bytes; one more pair (200 and 20 tokens) runs under
+   torch.profiler: encoder flash, paged attention, cross-attention (by
+   ``models/encdec.py::CROSS_RANGE``), other GEMMs, elementwise, and the
+   idle share.
+15b. the same session's split path on the pool (``serve(mixed=False)``)
+   on the same requests: flash 8 x prefills (4 encoder and 4 decoder
+   layers), paged attention 4 x decode steps, the fused MLP never,
+   ``prefill_traces`` the number of distinct prompt lengths (no bucket),
+   each length one phase 3 held; the share of tokens equal to phase 15's
+   streams is printed, not checked (bf16 rounds differently on the two
+   paths).
+16. AUDIO TRAINING: whisper-tiny uncut, AdamW, remat, 6 steps on a
+   ``data=`` object yielding 8 x 448 tokens and 8 x 1500 x 384 frames
+   from ``--seed`` (``launch/train.py::FramesData``): flash 6 x (4
+   encoder + 4 decoder + 4 decoder recompute), the fused MLP never; loss
+   and grad norm finite. Prints step p50, tokens/s, peak memory, the
+   profile by part and the model-FLOPs share of 989 TFLOP/s
+   (``encdec_train_flops``).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -413,15 +462,16 @@ MIX_SPLIT_IDLE = ([0, 1, 2, 3], [715, 299, 519, 0])
 
 def attention_inputs(rng, dtype, *, n_layers_copies=1, ctx=SLOT_CTX,
                      rows=MIX_T256, edit=None, width=64, n_pages=257,
-                     heads=(40, 8)):
+                     heads=(40, 8), head_dim=128):
     """Paged-attention inputs on permuted, fragmented page tables of
     ``width`` pages over a pool of ``n_pages`` (257: 4 slots x 1024
     tokens): ``ctx`` tokens held per slot, ``rows`` (slots, cursors). The
     default is the main path's T = 256 mix: three decode rows at their
     slots' cursors and 253 rows of one slot's prefill chunk.
     ``edit(tables)`` may change the slot tables before the rows take
-    them. ``heads``: (Hq, Hkv), Qwen3-14B's by default; D is 128."""
-    (hq, hkv), d, ps = heads, 128, 16
+    them. ``heads``: (Hq, Hkv), Qwen3-14B's by default; D ``head_dim``,
+    128 by default."""
+    (hq, hkv), d, ps = heads, head_dim, 16
     perm = rng.permutation(np.arange(1, n_pages))
     tables = np.zeros((len(ctx), width), np.int32)
     k = 0
@@ -1022,45 +1072,59 @@ def _small_times_text(rec: dict, library: str) -> str:
             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
 
-def _flash_shape(gen, shape, atol: float, rtol: float, *, timed: bool):
-    """bf16 causal flash at ``shape`` against its plain version, per value
-    (worst |err| / (atol + rtol |want|) <= 1), the check shown to reject a
-    version that drops keys from the last rows; ``timed``: kernel, plain
+def _flash_shape(gen, shape, atol: float, rtol: float, *, timed: bool,
+                 causal: bool = True):
+    """bf16 flash at ``shape`` against its plain version, per value (worst
+    |err| / (atol + rtol |want|) <= 1), the check shown to reject a
+    defective version: causal, one that drops keys from the last rows;
+    non-causal, one that drops the last key tile (the ragged tail past the
+    last multiple of 128 keys, or the last 128). ``timed``: kernel, plain
     version, SDPA and the bound too. Returns the shape's record."""
     from repro_torch.kernels import flash_attention as fa
     q, k, v = _flash_inputs(gen, shape, torch.bfloat16)
-    want = fa.flash_attention_plain(q, k, v, causal=True)
-    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    got = fa.flash_attention(q, k, v, causal=causal)
     e = worst_excess(got, want, atol, rtol)
-    n = shape[1]
-    dr = worst_excess(fa.flash_attention_plain(
-        q, k, v, causal=True, window=n - min(64, n // 2)), want, atol, rtol)
+    n, t = shape[1], shape[2]
+    if causal:
+        what = "drops keys"
+        bad = fa.flash_attention_plain(q, k, v, causal=True,
+                                       window=n - min(64, n // 2))
+    else:
+        keep = t - (t % 128 or 128)
+        what = f"drops keys {keep}-{t - 1}"
+        bad = fa.flash_attention_plain(q, k[:, :keep], v[:, :keep],
+                                       causal=False)
+    dr = worst_excess(bad, want, atol, rtol)
+    mode = "causal" if causal else "non-causal"
     check(bool(torch.isfinite(got).all()) and e <= 1.0,
-          f"flash bf16 at {shape} causal: worst error {e:.3f}x atol "
+          f"flash bf16 at {shape} {mode}: worst error {e:.3f}x atol "
           f"{atol} + rtol {rtol}")
     check(dr > 1.0, f"the bf16 flash check at {shape} passes a version "
-                    f"that drops keys ({dr:.3f}x the limit)")
-    rec = {"shape": list(shape), "error_of_limit": e,
+                    f"that {what} ({dr:.3f}x the limit)")
+    rec = {"shape": list(shape), "causal": causal, "error_of_limit": e,
            "dropped_keys_error_of_limit": dr}
-    msg = (f"[flash bf16 {shape} causal] worst error {e:.3f}x the limit "
-           f"(atol {atol}, rtol {rtol}); dropped keys would be {dr:.1f}x")
+    msg = (f"[flash bf16 {shape} {mode}] worst error {e:.3f}x the limit "
+           f"(atol {atol}, rtol {rtol}); a version that {what} would be "
+           f"{dr:.1f}x")
     if timed:
         b, s, t, hq, hkv, d = shape
         qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
 
         def kernel():
-            return fa.flash_attention(q, k, v, causal=True)
+            return fa.flash_attention(q, k, v, causal=causal)
 
         def library():
-            return sdpa(qs, ks, vs, is_causal=True, enable_gqa=hq != hkv)
+            return sdpa(qs, ks, vs, is_causal=causal, enable_gqa=hq != hkv)
 
         rec.update(_small_times(kernel, library, lambda:
                                 fa.flash_attention_plain(q, k, v,
-                                                         causal=True)))
+                                                         causal=causal)))
+        pairs = b * s * (s + 1) / 2 if causal else b * s * t
         rec["bound_ms"], rec["bound_by"] = bound_ms(
             2 * (2 * b * s * hq * d + 2 * b * t * hkv * d),
-            4.0 * hq * d * b * s * (s + 1) / 2, "bfloat16")
+            4.0 * hq * d * pairs, "bfloat16")
         msg += _small_times_text(rec, "sdpa")
     log(msg)
     return rec
@@ -1441,49 +1505,37 @@ def moe_flash_shapes(seed: int):
         + ((1, 4096, 4096, hq, hkv, 128),)
 
 
-def phase_moe_kernels(seed: int):
-    """Paged attention and flash attention in bf16 at OLMoE-1B-7B's heads
-    (``MOE_HEADS``), every shape phases 13, 13b and 14 launch: paged
-    attention at the T = 256 mix and the decode-only mix (phase 13's mixed
-    step) and at the split path's 4-row decode table with and without an
-    idle slot (phase 13b), each per value against the fp32-P plain version
-    (atol 1e-5 + rtol 8e-3) and within 1e-2 of the gather plain version,
-    its device plan equal to ``tile_plan`` and the check shown to reject a
-    run with a live page dropped; the two mixes timed by graph replay
-    beside SDPA on the gathered KV, with their bound. Flash at
-    ``moe_flash_shapes``, per value (shown to reject dropped keys), timed
-    beside SDPA with its bound. Inputs come from a generator of their own,
-    so the other phases see the inputs they saw before. Returns {kernel
-    name: records}."""
+def _paged_cases(rng, heads, head_dim: int, cases, tag: str, *,
+                 gather_atol=1e-2, **inputs_kw):
+    """bf16 paged attention at ``heads`` (Hq, Hkv) x ``head_dim`` on each
+    of ``cases`` — (name, ``attention_inputs`` keywords, (row, page) to
+    drop, timed) — per value against the fp32-P plain version (atol 1e-5
+    + rtol 8e-3), per value against the gather plain version within the
+    gather's own rounding (``gather_bound``) and, unless ``gather_atol``
+    is None, within ``gather_atol`` of it; its device plan equal to
+    ``tile_plan`` and the check shown to reject a run with a live page
+    dropped; a timed case by graph replay beside SDPA on the gathered KV,
+    with its bound. ``inputs_kw`` go to every ``attention_inputs`` call.
+    Returns {case name: record}."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models.kvcache import gather_pages
-    rng = np.random.default_rng(seed + 2409)
     bf = torch.bfloat16
-    hq, hkv = MOE_HEADS
-    d, rep, esize = 128, hq // hkv, 2
+    hq, hkv = heads
+    d, rep, esize = head_dim, hq // hkv, 2
     atol, rtol = 1e-5, 8e-3
     sdpa = torch.nn.functional.scaled_dot_product_attention
-
-    def idle_slot_3(tables):                  # a retired slot's table row
-        tables[3] = 0
-
     paged = {}
-    # (name, attention_inputs keywords, (row, page) to drop, timed)
-    for name, kw, drop_at, timed in (
-            ("T256", dict(rows=MIX_T256), (slice(3, None), 5), True),
-            ("decode_only", dict(rows=MIX_DECODE), (0, 10), True),
-            ("split", dict(rows=MIX_SPLIT), (2, 10), False),
-            ("split_idle", dict(rows=MIX_SPLIT_IDLE, edit=idle_slot_3),
-             (1, 5), False)):
+    for name, kw, drop_at, timed in cases:
         q, pools, tab, pos, live_tokens, *_ = attention_inputs(
-            rng, bf, n_layers_copies=8 if timed else 1, heads=MOE_HEADS,
-            **kw)
+            rng, bf, n_layers_copies=8 if timed else 1, heads=heads,
+            head_dim=d, **inputs_kw, **kw)
         kp, vp = pools[0]
         got = pa.paged_attention(q, kp, vp, tab, pos)
         want = pa.paged_attention_plain_f32p(q, kp, vp, tab, pos)
         e = worst_excess(got, want, atol, rtol)
-        e_gather = (got.float() - pa.paged_attention_plain(
-            q, kp, vp, tab, pos).float()).abs().max().item()
+        gather = pa.paged_attention_plain(q, kp, vp, tab, pos)
+        e_gather = (got.float() - gather.float()).abs().max().item()
+        e_gather_pv = gather_bound(got, gather, q, kp, vp, tab, pos)
         items, splits = pa.device_tile_plan(tab, pos, 16, rep)
         want_items, want_splits = pa.tile_plan(tab.cpu().numpy(),
                                                pos.cpu().numpy(), 16, rep)
@@ -1492,20 +1544,26 @@ def phase_moe_kernels(seed: int):
         dr = worst_excess(pa.paged_attention(q, kp, vp, dropped, pos), want,
                           atol, rtol)
         check(bool(torch.isfinite(got).all()) and e <= 1.0
-              and e_gather <= 1e-2,
-              f"paged attention bf16 at OLMoE's heads, {name}: {e:.3f}x "
+              and e_gather_pv <= 1.0
+              and (gather_atol is None or e_gather <= gather_atol),
+              f"paged attention bf16 at {tag}'s heads, {name}: {e:.3f}x "
               f"the per-value limit, {e_gather:.3e} from the gather plain "
-              f"version")
+              f"version ({e_gather_pv:.3f}x its rounding bound, atol "
+              f"{gather_atol})")
         check(items == want_items and (splits == want_splits).all(),
-              f"paged attention at OLMoE's heads, {name}: device plan "
+              f"paged attention at {tag}'s heads, {name}: device plan "
               f"{items} != tile_plan {want_items}")
-        check(dr > 1.0, f"the per-value check at OLMoE's heads, {name}, "
+        check(dr > 1.0, f"the per-value check at {tag}'s heads, {name}, "
                         f"passes a run with a live page dropped ({dr:.3f}x)")
         rec = {"mix": name, "heads": [hq, hkv, d], "error_of_limit": e,
                "max_abs_err_gather": e_gather,
+               "gather_error_of_bound": e_gather_pv,
                "dropped_page_error_of_limit": dr, "items": len(items)}
-        msg = (f"[attention bf16 OLMoE {hq}/{hkv}x{d} {name}] per value "
-               f"{e:.3f}x the limit, vs gather {e_gather:.3e} (atol 1e-2); "
+        msg = (f"[attention bf16 {tag} {hq}/{hkv}x{d} {name}] per value "
+               f"{e:.3f}x the limit, vs gather {e_gather:.3e} "
+               f"({e_gather_pv:.3f}x its rounding bound"
+               + ("" if gather_atol is None else f", atol {gather_atol}")
+               + "); "
                f"{len(items)} work items, device plan = tile_plan; a "
                f"dropped live page would be {dr:.1f}x the limit")
         if timed:
@@ -1542,9 +1600,126 @@ def phase_moe_kernels(seed: int):
         log(msg)
         paged[name] = rec
         del pools
+    return paged
+
+
+def gather_bound(got, gather, q, kp, vp, tab, pos) -> float:
+    """The worst |kernel - gather| / bound over all values, bound = 1e-5 +
+    u (2 sum_j p_j |v_j| + |gather|), u = 2^-8 the unit roundoff of bf16:
+    the gather plain version rounds each probability to bf16 before P.V
+    (<= u sum_j p_j |v_j| in the sum), and both round the output to bf16
+    once (<= u |gather| and <= u |kernel| <= u sum_j p_j |v_j|). <= 1
+    passes. Where a row attends to few keys (a prefill chunk's first
+    rows), p is near 1 and this exceeds a fixed 1e-2: the gather's own
+    rounding, not the kernel's error."""
+    from repro_torch.kernels import paged_attention as pa
+    pv = pa.paged_attention_plain_f32p(q, kp, vp.abs(), tab, pos).float()
+    gather = gather.float()
+    return ((got.float() - gather).abs()
+            / (1e-5 + 2.0 ** -8 * (2 * pv + gather.abs()))).max().item()
+
+
+def _idle_slot_3(tables):                     # a retired slot's table row
+    tables[3] = 0
+
+
+def phase_moe_kernels(seed: int):
+    """Paged attention and flash attention in bf16 at OLMoE-1B-7B's heads
+    (``MOE_HEADS``), every shape phases 13, 13b and 14 launch: paged
+    attention (``_paged_cases``) at the T = 256 mix and the decode-only
+    mix (phase 13's mixed step), both timed, and at the split path's 4-row
+    decode table with and without an idle slot (phase 13b). Flash at
+    ``moe_flash_shapes``, per value (shown to reject dropped keys), timed
+    beside SDPA with its bound. Inputs come from a generator of their own,
+    so the other phases see the inputs they saw before. Returns {kernel
+    name: records}."""
+    rng = np.random.default_rng(seed + 2409)
+    paged = _paged_cases(rng, MOE_HEADS, 128, (
+        ("T256", dict(rows=MIX_T256), (slice(3, None), 5), True),
+        ("decode_only", dict(rows=MIX_DECODE), (0, 10), True),
+        ("split", dict(rows=MIX_SPLIT), (2, 10), False),
+        ("split_idle", dict(rows=MIX_SPLIT_IDLE, edit=_idle_slot_3),
+         (1, 5), False)), "OLMoE")
     gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
-    flash = [_flash_shape(gen, shape, atol, rtol, timed=True)
+    flash = [_flash_shape(gen, shape, 1e-5, 8e-3, timed=True)
              for shape in moe_flash_shapes(seed)]
+    return {"paged_attention": paged, "flash_attention": flash}
+
+
+#: whisper-tiny's heads (Hq, Hkv), head dim, and phases 15-16's shapes: 8
+#: slots x 448 decoder tokens of 16-token pages (28 pages a slot, a pool of
+#: 225 with the null page), 1500 encoder frames, training at 8 x 448
+WHISPER_HEADS, WHISPER_D = (6, 6), 64
+WHISPER_SLOTS, WHISPER_MAX_LEN, WHISPER_NEW, WHISPER_TRAIN = 8, 448, 64, 448
+#: tokens held per slot in the paged mixes (prompts of up to 224 tokens
+#: plus 64 new ones), and the mixes: a T = 256 step with seven decode rows
+#: beside slot 6's 224-token prefill chunk and 25 pads (slot 0, position
+#: 0, as the engine packs them); a decode-only step of 8 rows and 248 pads
+WHISPER_CTX = (288, 70, 200, 150, 260, 31, 224, 100)
+WHISPER_T256 = ([0, 1, 2, 3, 4, 5, 7] + [6] * 224 + [0] * 25,
+                [287, 69, 199, 149, 259, 30, 99] + list(range(224))
+                + [0] * 25)
+WHISPER_DECODE = (list(range(8)) + [0] * 248,
+                  [287, 69, 199, 149, 259, 30, 223, 99] + [0] * 248)
+#: the profiled pair of phase 15: prompt lengths
+WHISPER_PROFILE_PROMPTS = (200, 20)
+
+
+def whisper_requests(seed: int, vocab: int, d_model: int = 384,
+                     frames: int = 1500):
+    """Phases 15 and 15b's 8 requests from ``seed``: prompts of 4-224
+    tokens below ``vocab`` (Whisper's previous-text prompt is at most half
+    its 448-token decoder context) and each request's own (frames,
+    d_model) float32 frame embeddings, drawn in one block. Returns
+    (lengths, prompts, frames)."""
+    rng = np.random.default_rng(seed + 1500)
+    lens = rng.integers(4, 225, size=WHISPER_SLOTS)
+    prompts = [rng.integers(0, vocab, size=(int(n),)) for n in lens]
+    block = rng.standard_normal((WHISPER_SLOTS, frames, d_model),
+                                dtype=np.float32)
+    return lens, prompts, list(block)
+
+
+def whisper_flash_shapes(seed: int):
+    """Flash attention's shapes on phases 15, 15b and 16 at ``seed``,
+    (B, S, T, Hq, Hkv, D, causal): the encoder, non-causal over 1500
+    frames, at an admission (B 1) and a training step (B 8); the decoder,
+    causal, at each distinct prompt length of phase 15b (B 1, exact: an
+    enc-dec prefill is not bucketed) and at the training rows (8 x
+    448)."""
+    lens, _, _ = whisper_requests(seed, 2, frames=1)
+    hq, hkv = WHISPER_HEADS
+    d = WHISPER_D
+    return ((1, 1500, 1500, hq, hkv, d, False),
+            (8, 1500, 1500, hq, hkv, d, False)) \
+        + tuple((1, n, n, hq, hkv, d, True)
+                for n in sorted({int(n) for n in lens})) \
+        + ((8, WHISPER_TRAIN, WHISPER_TRAIN, hq, hkv, d, True),)
+
+
+def phase_whisper_kernels(seed: int):
+    """Paged attention and flash attention in bf16 at whisper-tiny's heads
+    (6/6 x 64: rep 1, D 64), every shape phases 15, 15b and 16 launch:
+    paged attention (``_paged_cases``) at phase 15's T = 256 mix and
+    decode-only mix over 8 slots x 448 tokens (both timed) and at the
+    split path's 8-row decode table (phase 15b); flash non-causal at the
+    encoder's (1, 1500, 1500) and the training step's (8, 1500, 1500),
+    each shown to reject a version that drops the last, ragged key tile
+    (keys 1408-1499), and causal at ``whisper_flash_shapes``' decoder
+    shapes, each shown to reject dropped keys; all per value, timed beside
+    SDPA with their bound. Inputs come from a generator of their own.
+    Returns {kernel name: records}."""
+    rng = np.random.default_rng(seed + 448)
+    split = (list(range(8)), list(WHISPER_DECODE[1][:8]))
+    paged = _paged_cases(rng, WHISPER_HEADS, WHISPER_D, (
+        ("T256", dict(rows=WHISPER_T256), (slice(7, 231), 5), True),
+        ("decode_only", dict(rows=WHISPER_DECODE), (0, 10), True),
+        ("split", dict(rows=split), (4, 12), False)), "whisper-tiny",
+        gather_atol=None, ctx=WHISPER_CTX, width=28, n_pages=225)
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
+    flash = [_flash_shape(gen, shape[:6], 1e-5, 8e-3, timed=True,
+                          causal=shape[6])
+             for shape in whisper_flash_shapes(seed)]
     return {"paged_attention": paged, "flash_attention": flash}
 
 
@@ -2080,6 +2255,119 @@ def phase_parity_moe():
         f"{grad_err:.3e} (<= 1e-4)")
     errs["train"] = {"loss_err": loss_err, "aux_err": aux_err,
                      "grad_err": grad_err}
+    return errs
+
+
+def _audio_want(eng, cfg) -> dict:
+    """An enc-dec run's launches on the card: paged attention once a
+    decoder layer a program (the mixed step) or a decode step (the split
+    path on the pool); flash once an encoder layer an admission (the
+    mixed step's encode program) or once an encoder and a decoder layer a
+    split prefill; the fused MLP never (plain GeLU)."""
+    st = eng.stats
+    if eng.mixed:
+        return {"paged_attention": cfg.num_layers * st["mixed_steps"],
+                "fused_mlp": 0, "ssd_scan": 0,
+                "flash_attention": cfg.encoder_layers * st["prefills"]}
+    return {"paged_attention": cfg.num_layers * st["decode_steps"]
+            if eng.paged else 0, "fused_mlp": 0, "ssd_scan": 0,
+            "flash_attention": (cfg.encoder_layers + cfg.num_layers)
+            * st["prefills"]}
+
+
+def phase_parity_audio():
+    """whisper-smoke in fp32 (TF32 off) through the port's engine on the
+    card and on the CPU, on the mixed step (chunk 16), the split path on
+    the pool and the dense layout: first-step logits within 1e-4, greedy
+    streams identical, and on the card each kernel launched as
+    ``_audio_want`` says (one encode shape on the mixed step); then one
+    train step (remat on, 2 microbatches, each slicing tokens and frames;
+    flash on the card): loss and gradients within 1e-4. Returns the
+    errors."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.strategy import Strategy
+    from repro_torch.params import init_params
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import step
+    from repro_torch.tree import flatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_smoke("whisper-tiny").with_(dtype="float32")
+    cpu = init_params(cfg, device="cpu", seed=3)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+               for n in (5, 23, 9, 40, 6)]
+    frames = list(rng.standard_normal((len(prompts), cfg.encoder_ctx,
+                                       cfg.d_model), dtype=np.float32))
+    errs = {}
+    for name, eng_kw in MOE_PARITY_LAYOUTS.items():
+        first, outs = {}, {}
+        for dev, params in (("cpu", cpu), ("cuda", _to(cpu, "cuda"))):
+            eng = ServeEngine(cfg, params, slots=2, max_len=64, **eng_kw)
+            for i, (p, f) in enumerate(zip(prompts, frames)):
+                eng.submit(i, p, max_new=6, frames=f)
+            kernels.reset_launches()
+            eng.step()
+            first[dev] = eng.last_logits.detach().float().cpu()
+            res = eng.run()
+            outs[dev] = {i: list(res[i].out) for i in res}
+            want = _audio_want(eng, cfg) if dev == "cuda" \
+                else dict.fromkeys(kernels.launches(), 0)
+            check(kernels.launches() == want,
+                  f"[parity audio {name}] launches on {dev} "
+                  f"{kernels.launches()} != {want}")
+            check(eng.stats["encode_traces"] == int(eng.mixed),
+                  f"[parity audio {name}] encode_traces "
+                  f"{eng.stats['encode_traces']}")
+        err = (first["cpu"] - first["cuda"]).abs().max().item()
+        check(err <= 1e-4, f"[parity audio {name}] f32 first-step logits "
+                           f"card vs CPU: {err} > 1e-4")
+        check(outs["cpu"] == outs["cuda"],
+              f"[parity audio {name}] greedy streams differ: cpu "
+              f"{outs['cpu']} cuda {outs['cuda']}")
+        log(f"[parity audio f32, TF32 off] whisper-smoke, {name} "
+            f"(paged={eng.paged}, mixed={eng.mixed}): first-step logits max "
+            f"abs err card vs CPU {err:.3e} (<= 1e-4); greedy streams "
+            f"identical over {len(prompts)} requests")
+        errs[name] = err
+    strat = Strategy(remat=True, microbatches=2, dtype="float32")
+    brng = np.random.default_rng(5)
+    batch = {"tokens": torch.from_numpy(brng.integers(
+        0, cfg.vocab_size, size=(4, 48)).astype(np.int32)),
+        "frames": torch.from_numpy(brng.standard_normal(
+            (4, cfg.encoder_ctx, cfg.d_model), dtype=np.float32))}
+    res = {}
+    for dev, params in (("cpu", cpu), ("cuda", _to(cpu, "cuda"))):
+        leaves = flatten(params)
+        for t in leaves.values():
+            t.requires_grad_(True)
+        kernels.reset_launches()
+        loss_fn = step.make_loss_fn(cfg, strat)
+        losses, grads = [], None
+        for i in (0, 2):          # the train step's two microbatches
+            total, mets = loss_fn(params, {k: v[i:i + 2].to(dev)
+                                           for k, v in batch.items()})
+            g = torch.autograd.grad(total, list(leaves.values()))
+            grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+            losses.append(float(mets["loss"].detach()))
+        flash = kernels.launches()["flash_attention"]
+        want = 2 * (cfg.encoder_layers + 2 * cfg.num_layers)
+        check(flash == (want if dev == "cuda" else 0),
+              f"[parity audio train] flash launches on {dev}: {flash}")
+        res[dev] = (losses, {k: (g / 2).cpu() for k, g in zip(leaves,
+                                                               grads)})
+    loss_err = max(abs(a - b) for a, b in zip(res["cpu"][0], res["cuda"][0]))
+    grad_err = max((res["cuda"][1][k] - g).abs().max().item()
+                   for k, g in res["cpu"][1].items())
+    check(loss_err <= 1e-4 and grad_err <= 1e-4,
+          f"whisper-smoke f32 train step card vs CPU: loss err {loss_err}, "
+          f"grads max abs err {grad_err} (limit 1e-4)")
+    log(f"[parity audio f32 train step, TF32 off] whisper-smoke, remat, 2 "
+        f"microbatches, losses {[round(x, 6) for x in res['cpu'][0]]}: card "
+        f"vs CPU loss err {loss_err:.3e}, grads max abs err {grad_err:.3e} "
+        f"(<= 1e-4)")
+    errs["train"] = {"loss_err": loss_err, "grad_err": grad_err}
     return errs
 
 
@@ -2907,7 +3195,12 @@ def phase_train(seed: int, steps: int = 6, layers: int = 4, *,
         torch.cuda.empty_cache()
 
 
-def _train_run(cfg, seed: int, steps: int, seq_len: int):
+def _train_run(cfg, seed: int, steps: int, seq_len: int, *,
+               global_batch: int = 1, data=None):
+    """``steps`` steps of ``global_batch`` x ``seq_len`` tokens through
+    ``Session.train`` (``data``: the trainer's data object, default the
+    token dataset): exact launch counts, finite losses, the step p50,
+    tokens/s, peak memory, the model-FLOPs share and the profile."""
     from repro_torch import kernels
     from repro_torch.api import Session
     from repro_torch.configs import get_config
@@ -2918,11 +3211,12 @@ def _train_run(cfg, seed: int, steps: int, seq_len: int):
     t0 = time.perf_counter()
     session = Session(cfg, device="cuda", seed=seed)
     trainer = session.train(TrainConfig(steps=steps, lr=3e-4, log_every=1,
-                                        seed=seed),
-                            global_batch=1, seq_len=seq_len)
+                                        seed=seed), data=data,
+                            global_batch=global_batch, seq_len=seq_len)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in flatten(session.params).values())
-    n_embed = session.params["embed"].numel()
+    n_embed = session.params["tok_embed" if cfg.arch_type == "audio"
+                             else "embed"].numel()
     s = trainer.strategy
     full = get_config(cfg.name).num_layers == cfg.num_layers
     log(f"[train] {cfg.name} "
@@ -2932,6 +3226,8 @@ def _train_run(cfg, seed: int, steps: int, seq_len: int):
         f"{cfg.head_dim}, d_ff {cfg.d_ff}, "
         + (f"{cfg.num_experts} experts top {cfg.experts_per_token}, "
            if cfg.is_moe else "")
+        + (f"{cfg.encoder_layers} encoder layers over "
+           f"{cfg.encoder_ctx} frames, " if cfg.arch_type == "audio" else "")
         + f"SSD heads {cfg.ssm_heads} x "
         f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, vocab "
         f"{cfg.vocab_size}), {cfg.dtype}, {n_params / 1e9:.3f} B params; "
@@ -2953,22 +3249,25 @@ def _train_run(cfg, seed: int, steps: int, seq_len: int):
               and math.isfinite(h["aux_loss"]),
               f"step {h['step']}: loss {h['loss']}, aux loss "
               f"{h['aux_loss']}, grad_norm {h['grad_norm']}")
-    flops, n_applied, attn_layers = train_flops(cfg, session.params,
-                                                seq_len)
-    want = {"flash_attention": attn_layers * steps * 2,
+    flops, n_applied, flash_step = train_flops(cfg, session.params, seq_len,
+                                               global_batch)
+    want = {"flash_attention": flash_step * steps,
             "fused_mlp": 0, "paged_attention": 0, "ssd_scan": 0}
     check(counts == want, f"train launches {counts} != {want} (flash: "
-                          f"{attn_layers} attention layers x steps x 2, "
-                          f"forward + remat recompute; the SSD scan trains "
-                          f"through its plain version)")
+                          f"{flash_step} a step, every attention layer's "
+                          f"forward and each decoder layer's remat "
+                          f"recompute; the SSD scan trains through its "
+                          f"plain version)")
     peak = torch.cuda.max_memory_allocated()
     check(peak < card_bytes, f"peak {peak} >= card {card_bytes}")
-    tokens = seq_len                                # global_batch 1
+    tokens = global_batch * seq_len
     p50 = float(np.percentile(step_s, 50))
     model_flops = sum(flops.values())
     out = {"arch": cfg.name, "layers": cfg.num_layers, "depth_cut": not full,
            "seq_len": seq_len,
-           "seq_len_cut": seq_len != 4096, "global_batch": 1,
+           "seq_len_cut": seq_len < (WHISPER_TRAIN if cfg.arch_type
+                                     == "audio" else 4096),
+           "global_batch": global_batch,
            "steps": steps, "params": n_params,
            "params_without_embed": n_params - n_embed,
            "params_applied": n_applied, "model_flops_by_term": flops,
@@ -2981,7 +3280,8 @@ def _train_run(cfg, seed: int, steps: int, seq_len: int):
            "aux_losses": [h["aux_loss"] for h in hist],
            "grad_norms": [h["grad_norm"] for h in hist],
            "launches": counts}
-    log(f"[train] {cfg.name}: {steps} steps of 1 x {seq_len} tokens: step "
+    log(f"[train] {cfg.name}: {steps} steps of {global_batch} x {seq_len} "
+        f"tokens: step "
         f"p50 "
         f"{p50 * 1e3:.1f} ms (first {step_s[0] * 1e3:.1f} ms), "
         f"{out['tokens_per_s']:.1f} tokens/s, peak memory "
@@ -2992,7 +3292,7 @@ def _train_run(cfg, seed: int, steps: int, seq_len: int):
         + (f", aux losses {[round(x, 4) for x in out['aux_losses']]}"
            if cfg.is_moe else "") + f"; launches {counts}")
     out["profile"] = _train_profile(trainer, p50,
-                                    need_flash=attn_layers > 0)
+                                    need_flash=flash_step > 0)
     del trainer, session
     return out
 
@@ -3007,18 +3307,50 @@ def ssd_flops(cfg, seq_len: int) -> float:
     return 2.0 * (seq_len // q) * (pairs * n + h * (pairs * p + 2 * q * n * p))
 
 
-def train_flops(cfg, params, seq_len: int):
-    """A training step's model FLOPs at batch 1, by term: 6 N_applied
-    tokens, N_applied the parameters without the embedding gather, the
-    hybrid's shared block counted once an application (G times), an MoE
-    layer's experts at k / E of their parameters (each token runs k of
-    the E experts) and its router in full; the causal attention's forward
-    (4 S (S + 1) / 2 Hq D a layer) and backward (2x forward) in each
-    attention layer (dense and MoE: every layer; hybrid: G); the SSD
-    scan's products (``ssd_flops``) forward and backward (3x) in every
-    Mamba layer. Returns (by term, N_applied, attention layers)."""
+def encdec_train_flops(cfg, flat, seq_len: int, batch: int):
+    """An enc-dec training step's model FLOPs, by term (``train_flops``):
+    6 x batch x (the encoder's parameters and the cross K/V projections
+    (``dec_layers/xattn/wk``, ``wv``) x the frames, the decoder's other
+    parameters and ``lm_head`` x the tokens; the embedding gather not
+    counted); the attention forward and backward (3x): the encoder's
+    non-causal self-attention 4 F^2 Hq D a layer, the decoder's causal 4 S
+    (S + 1) / 2 Hq D and its cross-attention 4 S F Hq D a layer. Returns
+    (by term, N_applied a token, flash launches a step: each encoder
+    layer, each decoder layer and its remat recompute)."""
+    f, s = cfg.encoder_ctx, seq_len
+    enc = sum(t.numel() for k, t in flat.items()
+              if k.startswith("enc_layers/") or k == "enc_norm")
+    xkv = sum(t.numel() for k, t in flat.items()
+              if k in ("dec_layers/xattn/wk", "dec_layers/xattn/wv"))
+    dec = sum(t.numel() for k, t in flat.items()
+              if k.startswith("dec_layers/") or k in ("final_norm",
+                                                     "lm_head")) - xkv
+    hd = 4.0 * cfg.num_heads * cfg.head_dim
+    attn = 3 * batch * (hd * f * f * cfg.encoder_layers
+                        + hd * s * (s + 1) / 2 * cfg.num_layers
+                        + hd * s * f * cfg.num_layers)
+    return ({"6_n_frames": 6.0 * batch * (enc + xkv) * f,
+             "6_n_tokens": 6.0 * batch * dec * s, "attention": attn},
+            dec + (enc + xkv) * f / s,
+            cfg.encoder_layers + 2 * cfg.num_layers)
+
+
+def train_flops(cfg, params, seq_len: int, batch: int = 1):
+    """A training step's model FLOPs at ``batch`` rows, by term: 6
+    N_applied tokens, N_applied the parameters without the embedding
+    gather, the hybrid's shared block counted once an application (G
+    times), an MoE layer's experts at k / E of their parameters (each
+    token runs k of the E experts) and its router in full; the causal
+    attention's forward (4 S (S + 1) / 2 Hq D a layer) and backward (2x
+    forward) in each attention layer (dense and MoE: every layer; hybrid:
+    G); the SSD scan's products (``ssd_flops``) forward and backward (3x)
+    in every Mamba layer; the enc-dec family by ``encdec_train_flops``.
+    Returns (by term, N_applied, flash launches a step: each attention
+    layer's forward and its remat recompute)."""
     from repro_torch.tree import flatten
     flat = flatten(params)
+    if cfg.arch_type == "audio":
+        return encdec_train_flops(cfg, flat, seq_len, batch)
     n = sum(t.numel() for k, t in flat.items() if k != "embed")
     if cfg.is_moe:
         experts = sum(t.numel() for k, t in flat.items()
@@ -3037,9 +3369,10 @@ def train_flops(cfg, params, seq_len: int):
                      if k.startswith("trailing/"))
     attn = 3 * 4.0 * cfg.num_heads * cfg.head_dim * seq_len \
         * (seq_len + 1) / 2 * attn_layers
-    return ({"6_n_tokens": 6.0 * n * seq_len, "attention": attn,
-             "ssd": 3 * ssd_flops(cfg, seq_len) * mamba_layers},
-            n, attn_layers)
+    return ({"6_n_tokens": 6.0 * batch * n * seq_len,
+             "attention": batch * attn,
+             "ssd": 3 * batch * ssd_flops(cfg, seq_len) * mamba_layers},
+            n, 2 * attn_layers)
 
 
 def _kernels_by_range(prof, ranges):
@@ -3371,18 +3704,21 @@ MOE_PART_GROUPS = {"moe_route": "routing_dispatch",
                    "moe_combine": "combine"}
 
 
-def _profile_moe(eng, step_p50_ms: float, tag: str, steps=None,
-                 required=("paged_attention",)):
+def _profile_groups(eng, step_p50_ms: float, tag: str, steps=None,
+                 required=("paged_attention",), *,
+                 kernel_groups=MOE_KERNEL_GROUPS,
+                 part_groups=MOE_PART_GROUPS):
     """Run ``steps`` engine steps (None: until idle) under torch.profiler
     (host and device activity) and sum the device time by group: the
-    attention kernels by name (``MOE_KERNEL_GROUPS``); routing and
+    attention kernels by name (``kernel_groups``); by default routing and
     dispatch (router matmul, softmax, sort, one-hot count, scatter), the
     expert products (three batched matmuls and the SwiGLU) and the
-    combine by the MoE range holding the op that launched the kernel;
-    the rest as ``other_gemm`` (projections, head) or ``other``. The idle
-    share is 1 - device busy a step / the unprofiled step p50 of the same
-    kind of step (the profiler's host cost stays out of it). Fails if a
-    ``required`` group or an MoE part got no device time."""
+    combine by the MoE range holding the op that launched the kernel
+    (``part_groups``: range -> group); the rest as ``other_gemm``
+    (projections, head) or ``other``. The idle share is 1 - device busy a
+    step / the unprofiled step p50 of the same kind of step (the
+    profiler's host cost stays out of it). Fails if a ``required`` group
+    or a part got no device time."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts):
@@ -3397,14 +3733,14 @@ def _profile_moe(eng, step_p50_ms: float, tag: str, steps=None,
             eng.step()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    groups = dict.fromkeys((*MOE_KERNEL_GROUPS, *MOE_PART_GROUPS.values(),
+    groups = dict.fromkeys((*kernel_groups, *part_groups.values(),
                             "other_gemm", "other"), 0.0)
     kernels, ops = {}, 0
-    for name, ms, part in _kernels_by_range(prof, MOE_PART_GROUPS):
+    for name, ms, part in _kernels_by_range(prof, part_groups):
         ops += 1
-        group = next((g for g, keys in MOE_KERNEL_GROUPS.items()
+        group = next((g for g, keys in kernel_groups.items()
                       if any(k in name for k in keys)), None) \
-            or MOE_PART_GROUPS.get(part)
+            or part_groups.get(part)
         if group is None:
             low = name.lower()
             group = "other_gemm" if any(
@@ -3413,7 +3749,7 @@ def _profile_moe(eng, step_p50_ms: float, tag: str, steps=None,
         groups[group] += ms
         kernels[name] = kernels.get(name, 0.0) + ms
     busy = sum(groups.values())
-    for g in (*required, *MOE_PART_GROUPS.values()):
+    for g in (*required, *part_groups.values()):
         check(not busy or groups[g] > 0,
               f"[{tag}] no device time in group {g!r}: kernels "
               f"{sorted(kernels)[:20]}")
@@ -3442,16 +3778,19 @@ def _profile_moe(eng, step_p50_ms: float, tag: str, steps=None,
     return out
 
 
-def _drive(eng, prompts, max_new: int, tag: str, *, mixed: bool):
-    """Submit ``prompts`` (``max_new`` new tokens each), zero the launch
-    counts, step the engine until idle and read them: each request must
-    finish with ``max_new`` in-vocab tokens. A step with prefill work is
-    one that moved prefill-chunk tokens (``mixed``) or ran a prefill.
-    Returns the run's record (its streams and launches in it)."""
+def _drive(eng, prompts, max_new: int, tag: str, *, mixed: bool,
+           frames=None):
+    """Submit ``prompts`` (``max_new`` new tokens each; with ``frames``,
+    each request's own), zero the launch counts, step the engine until
+    idle and read them: each request must finish with ``max_new``
+    in-vocab tokens. A step with prefill work is one that moved
+    prefill-chunk tokens (``mixed``) or ran a prefill. Returns the run's
+    record (its streams and launches in it)."""
     from repro_torch import kernels
     cfg = eng.cfg
     for rid, p in enumerate(prompts):
-        eng.submit(rid, p, max_new=max_new)
+        eng.submit(rid, p, max_new=max_new,
+                   frames=None if frames is None else frames[rid])
     key = "prefill_chunk_tokens" if mixed else "prefills"
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -3492,7 +3831,8 @@ def _drive(eng, prompts, max_new: int, tag: str, *, mixed: bool):
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "kv_gb": eng.kv_bytes() / 1e9, "peak_pages": st["peak_pages"],
             "decode_traces": st["decode_traces"],
-            "prefill_traces": st["prefill_traces"], "launches": counts,
+            "prefill_traces": st["prefill_traces"],
+            "encode_traces": st["encode_traces"], "launches": counts,
             "streams": [list(res[rid].out) for rid in range(len(prompts))]}
 
 
@@ -3522,7 +3862,7 @@ def phase_moe_serve(seed: int, max_new: int = 16):
     prompt length (no bucket) and each a length phase 3 checked, and the
     share of tokens equal to phase 13's streams (reported: in bf16
     capacity couples rows differently on the two paths). Each path then
-    serves one more pair under the profiler (``_profile_moe``)."""
+    serves one more pair under the profiler (``_profile_groups``)."""
     from repro_torch.api import Session
     from repro_torch.configs import get_config
     from repro_torch.serve.paging import pages_for
@@ -3597,7 +3937,7 @@ def phase_moe_serve(seed: int, max_new: int = 16):
         eng, rng, split["prefill_step_p50_ms"],
         "moe split profile: admission step", steps=1,
         required=("paged_attention", "flash_attention"))
-    split["profile_decode"] = _profile_moe(
+    split["profile_decode"] = _profile_groups(
         eng, split["decode_only_step_p50_ms"],
         "moe split profile: decode-only steps")
     check(set(eng._prefill_lens) <= checked,
@@ -3613,11 +3953,154 @@ def phase_moe_serve(seed: int, max_new: int = 16):
 def _profile_moe_pair(eng, rng, step_p50_ms: float, tag: str, steps=None,
                       required=("paged_attention",)):
     """Submit one more pair (``MOE_PROFILE_PROMPTS`` tokens, 4 new each)
-    and profile the engine's next ``steps`` steps (``_profile_moe``)."""
+    and profile the engine's next ``steps`` steps (``_profile_groups``)."""
     for rid, n in enumerate(MOE_PROFILE_PROMPTS):
         eng.submit(100 + rid, rng.integers(0, eng.cfg.vocab_size, size=n),
                    max_new=4)
-    return _profile_moe(eng, step_p50_ms, tag, steps, required)
+    return _profile_groups(eng, step_p50_ms, tag, steps, required)
+
+
+AUDIO_KERNEL_GROUPS = {"flash_attention": ("flash_fwd",),
+                       "paged_attention": ("paged_attention_kernel",
+                                           *PAGED_LAUNCHES)}
+
+
+def _audio_part_groups():
+    from repro_torch.models.encdec import CROSS_RANGE
+    return {CROSS_RANGE: "cross_attention"}
+
+
+def phase_whisper_serve(seed: int, max_new: int = WHISPER_NEW):
+    """AUDIO SERVING at full width, uncut (phases 15 and 15b):
+    ``Session(get_config("whisper-tiny"), device="cuda").serve(slots=8,
+    max_len=448, page_size=16, chunk_tokens=256)`` (4 encoder and 4
+    decoder layers, bf16, random weights from ``seed``) on 8 requests of
+    4-224 prompt tokens, each with its own (1500, 384) frames, 64 new
+    tokens each, through the mixed step: paged attention exactly 4 x
+    program runs, flash exactly 4 x admissions (the encoder program), the
+    fused MLP and the SSD scan never, one encode shape, ``decode_traces``
+    within the (chunk, page bucket) pairs; the encode program's device
+    time a request; one more pair under the profiler (encoder flash, paged
+    attention, cross-attention, other GEMMs, elementwise, idle share).
+    Then ``serve(mixed=False)`` (the split path on the pool) on the same
+    requests: flash 8 x prefills, paged attention 4 x decode steps, the
+    fused MLP never, one prefill shape a distinct prompt length (no
+    bucket), each a length phase 3 held; the share of tokens equal to
+    phase 15's streams (reported: bf16 rounds differently on the two
+    paths)."""
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    from repro_torch.serve.paging import pages_for
+    from repro_torch.serve.step import page_bucket
+    from repro_torch.tree import flatten
+    cfg = get_config("whisper-tiny")
+    layers, enc_layers = cfg.num_layers, cfg.encoder_layers
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    session = Session(cfg, device="cuda", seed=seed)
+    n_params = sum(t.numel() for t in flatten(session.params).values())
+    lens, prompts, frames = whisper_requests(seed, cfg.vocab_size,
+                                             cfg.d_model, cfg.encoder_ctx)
+    log(f"[audio] {cfg.name}: {enc_layers} encoder + {layers} decoder "
+        f"layers, d_model {cfg.d_model}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.encoder_ctx} frames, {cfg.dtype}, "
+        f"{n_params / 1e6:.2f} M params ({n_params * 2 / 1e6:.1f} MB); "
+        f"weights and requests ready in {time.perf_counter() - t0:.1f}s; "
+        f"prompt lengths {[int(n) for n in lens]}")
+    out = {"params": n_params, "prompt_lens": [int(n) for n in lens],
+           "max_new": max_new}
+    kw = dict(slots=WHISPER_SLOTS, max_len=WHISPER_MAX_LEN, page_size=16)
+
+    # phase 15: the mixed step
+    eng = session.serve(chunk_tokens=256, **kw)
+    run = _drive(eng, prompts, max_new, "audio mixed", mixed=True,
+                 frames=frames)
+    pps = pages_for(WHISPER_MAX_LEN, 16)
+    buckets = {page_bucket(max(pages_for(min(int(n) + max_new - 1,
+                                             WHISPER_MAX_LEN), 16)
+                               for n in lens[:i + 1]), cap=pps)
+               for i in range(len(lens))}
+    want = {"paged_attention": layers * run["program_runs"],
+            "fused_mlp": 0, "ssd_scan": 0,
+            "flash_attention": enc_layers * run["prefills"]}
+    check(run["launches"] == want,
+          f"[audio mixed] launches {run['launches']} != {want} (paged "
+          f"attention {layers} x {run['program_runs']} program runs, flash "
+          f"{enc_layers} x {run['prefills']} admissions)")
+    check(run["encode_traces"] == 1,
+          f"[audio mixed] encode_traces {run['encode_traces']} != 1")
+    check(run["decode_traces"] <= len(buckets),
+          f"[audio mixed] {run['decode_traces']} program shapes > "
+          f"{len(buckets)} (chunk, page bucket) pairs")
+    f0 = torch.from_numpy(frames[0][None]).cuda()
+    run["encode_ms"] = time_ms(lambda: eng._encode_fn(f0, 0), iters=5,
+                               warmup=1)
+    log(_run_text("audio mixed", run)
+        + f"; encode_traces {run['encode_traces']}; the encode program "
+        f"{run['encode_ms']:.3f} ms a request (CUDA events)")
+    rng = np.random.default_rng(seed + 15)
+    for rid, n in enumerate(WHISPER_PROFILE_PROMPTS):
+        eng.submit(100 + rid, rng.integers(0, cfg.vocab_size, size=n),
+                   max_new=4, frames=rng.standard_normal(
+                       (cfg.encoder_ctx, cfg.d_model), dtype=np.float32))
+    run["profile"] = _profile_groups(
+        eng, run["step_p50_ms"], "audio mixed profile: the pair",
+        required=("paged_attention", "flash_attention"),
+        kernel_groups=AUDIO_KERNEL_GROUPS, part_groups=_audio_part_groups())
+    out["mixed"] = run
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 15b: the split path on the pool
+    eng = session.serve(mixed=False, **kw)
+    split = _drive(eng, prompts, max_new, "audio split", mixed=False,
+                   frames=frames)
+    want = {"paged_attention": layers * split["decode_steps"],
+            "fused_mlp": 0, "ssd_scan": 0,
+            "flash_attention": (enc_layers + layers) * split["prefills"]}
+    check(split["launches"] == want,
+          f"[audio split] launches {split['launches']} != {want} (flash "
+          f"{enc_layers + layers} x prefills, paged attention {layers} x "
+          f"decode steps)")
+    check(split["prefill_traces"] == len({int(n) for n in lens}),
+          f"[audio split] prefill_traces {split['prefill_traces']} != "
+          f"{len(set(lens))} distinct prompt lengths (no bucket)")
+    check(split["decode_traces"] == 1,
+          f"[audio split] decode_traces {split['decode_traces']}")
+    checked = {shape[1] for shape in whisper_flash_shapes(seed)
+               if shape[6]}
+    check(set(eng._prefill_lens) <= checked,
+          f"[audio split] prefill lengths {sorted(eng._prefill_lens)} not "
+          f"all held by phase 3 ({sorted(checked)})")
+    agree = sum(a == b for g, w in zip(split["streams"], run["streams"])
+                for a, b in zip(g, w)) / (max_new * len(prompts))
+    split["agree_with_mixed"] = agree
+    log(_run_text("audio split", split)
+        + f"; {agree:.1%} of tokens equal to phase 15's mixed-step streams "
+        f"(information)")
+    out["split"] = split
+    del eng, session
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_whisper_train(seed: int, steps: int = 6):
+    """AUDIO TRAINING, uncut (phase 16): whisper-tiny, AdamW, remat, 6
+    steps on a ``data=`` object (``launch/train.py::FramesData``) yielding
+    8 x 448 tokens and one (8, 1500, 384) frames block from ``seed``:
+    flash 6 x (4 encoder + 4 decoder + 4 decoder recompute), the other
+    kernels never; loss and grad norm finite; step p50, tokens/s, peak
+    memory, the profile by part and the model-FLOPs share of 989 TFLOP/s
+    (``encdec_train_flops``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import FramesData
+    cfg = get_config("whisper-tiny")
+    data = FramesData(cfg, global_batch=8, seq_len=WHISPER_TRAIN, seed=seed)
+    return _train_run(cfg, seed, steps, WHISPER_TRAIN, global_batch=8,
+                      data=data)
 
 
 def main():
@@ -3652,6 +4135,11 @@ def main():
         if k["name"] in moe_shapes:
             k["olmoe_shapes"] = moe_shapes[k["name"]]
     mark("3 kernels at OLMoE's shapes")
+    whisper_shapes = phase_whisper_kernels(args.seed)
+    for k in kernels:
+        if k["name"] in whisper_shapes:
+            k["whisper_shapes"] = whisper_shapes[k["name"]]
+    mark("3 kernels at whisper-tiny's shapes")
     parity = phase_parity()
     record["parity_logits_err"] = parity.pop("mixed")
     record["parity_split_logits_err"] = parity
@@ -3665,6 +4153,8 @@ def main():
     mark("4 parity: hybrid, SSM and hybrid training")
     record["parity_moe"] = phase_parity_moe()
     mark("4 parity: MoE serving and training")
+    record["parity_audio"] = phase_parity_audio()
+    mark("4 parity: audio serving and training")
     main_run, eng, session, prompts = phase_main(args.seed)
     record["main"] = main_run
     record["profile"] = phase_profile(eng, rng, main_run["step_p50_ms"])
@@ -3704,18 +4194,28 @@ def main():
     record["moe_train"] = phase_train(args.seed, layers=4,
                                       arch="olmoe-1b-7b")
     mark("14 MoE training")
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["audio"] = phase_whisper_serve(args.seed)
+    mark("15-15b audio serving")
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["audio_train"] = phase_whisper_train(args.seed)
+    mark("16 audio training")
     # each kernel's launches on the paths that run it, each counted from 0
     # just before its run: phase 5 and phases 9-10 (paged attention, the
     # fused MLP; flash in phase 9's model drafter), phase 6 (flash), phase
     # 7 (the SSD scan), phase 11 (the SSD scan, flash, the fused MLP, and
     # generate's), phase 12 (flash in the hybrid's shared block), phase 13
     # (paged attention), phase 13b (flash, paged attention), phase 14
-    # (flash)
+    # (flash), phase 15 (paged attention, flash in the encoder), phase 15b
+    # (flash, paged attention), phase 16 (flash)
     paths = [main_run, record["train"], record["ssm"],
              *record["spec"].values(), *record["online"].values(),
              record["hybrid"], *record["train_families"].values(),
              record["moe"]["mixed"], record["moe"]["split"],
-             record["moe_train"]]
+             record["moe_train"], record["audio"]["mixed"],
+             record["audio"]["split"], record["audio_train"]]
     for k in kernels:
         k["launches"] = sum(run["launches"][k["name"]] for run in paths)
     record["kernels"] = kernels

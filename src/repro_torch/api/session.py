@@ -16,6 +16,8 @@
     ssm = Session(get_config("mamba2-780m")).serve(slots=4, max_len=2048)
     moe = Session(get_config("olmoe-1b-7b")).serve(slots=4, max_len=1024)
     Session(get_config("zamba2-1.2b")).train(global_batch=1, seq_len=4096)
+    audio = Session(get_config("whisper-tiny")).serve(slots=8, max_len=448)
+    audio.submit(0, prompt, max_new=64, frames=frames)  # (1500, 384)
 
     tokens = session.generate(prompt_batch, steps=16)   # (B, 16) greedy
 
@@ -36,10 +38,12 @@ in the online ``AsyncDriver`` (a background step loop, per-request token
 streams, TTFT/TPOT metrics, a watchdog) and ``serve_http`` puts the
 stdlib HTTP front-end over that (serve/server.py). ``save`` /
 ``restore`` write and read the npz checkpoints both packages read
-(checkpoint/io.py). The features not ported yet raise
-``NotImplementedError`` naming their ROADMAP.md item, as do ``train``
-for the enc-dec and VLM families and ``from_plan``, ``dryrun`` and
-``lower`` (the planner, Queue 1 item 12).
+(checkpoint/io.py). The enc-dec audio family serves (frames with each
+request), generates from a batch dict with ``frames`` and trains on a
+``data=`` object whose batches carry frames. The features not ported
+yet raise ``NotImplementedError`` naming their ROADMAP.md item, as do
+``train`` for the VLM family and ``from_plan``, ``dryrun`` and ``lower``
+(the planner, Queue 1 item 12).
 
     driver = session.serve_async(slots=4, max_len=1024)
     stream = driver.submit(prompt, max_new=16)      # tokens as they come
@@ -121,9 +125,13 @@ class Session:
               restore: bool = False) -> Trainer:
         """A Trainer on this session's strategy, device and params (the
         session's seed initialises them). ``restore=True`` resumes from
-        the TrainConfig's checkpoint dir first."""
+        the TrainConfig's checkpoint dir first. The enc-dec family trains
+        on a ``data=`` object whose ``batch(step)`` carries ``frames``
+        beside the tokens: the default token dataset has none, so its
+        first step raises in the model's forward, where the reference's
+        fails too."""
         family = self.cfg.arch_type
-        if family not in ("dense", "moe", "ssm", "hybrid"):
+        if family not in ("dense", "moe", "ssm", "hybrid", "audio"):
             raise _todo(f"training the {family} family",
                         f"Queue 1 item 10, {family} training")
         check_kernel_limits(self.cfg, self.strategy, self.device)
@@ -161,8 +169,10 @@ class Session:
               chunk_tokens: int = 256, attn_backend: Optional[str] = None,
               spec=None, trace_level: int = 1) -> ServeEngine:
         """Continuous-batching engine over this session's params on its
-        device: for a full-attention dense or MoE decoder the paged pool
-        and ONE mixed token-slot program per step by default; otherwise
+        device: for a full-attention dense or MoE decoder or the enc-dec
+        audio family the paged pool and ONE mixed token-slot program per
+        step by default (each audio request submits its ``frames``);
+        otherwise
         (``mixed=False``, ``paged=False``, sliding-window configs, the SSM
         family, the hybrid) the split path, one prefill program a request
         and one batched decode a step (see serve/engine.py). ``attn_backend``

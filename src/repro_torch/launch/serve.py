@@ -7,7 +7,9 @@ engine by default, ``--no-mixed`` the split prefill/decode path on the
 paged pool and ``--dense`` the split path on the dense per-slot layout
 (the mixed step needs the pool); the SSM family (``--arch
 mamba2-780m``) and the hybrid (``--arch zamba2-1.2b``) run the split
-path on the dense layout.
+path on the dense layout. The enc-dec audio family (``--arch
+whisper-tiny``) serves like a dense decoder, each request with its own
+``(encoder_ctx, d_model)`` frames drawn from ``--seed``.
 
     # on the card, full-width Qwen3-14B (random weights from --seed)
     PYTHONPATH=src python -m repro_torch.launch.serve --full \\
@@ -34,6 +36,10 @@ path on the dense layout.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
         --full --slots 4 --max-len 2048 --requests 6
 
+    # on the card, full-width whisper-tiny (4 + 4 layers, 1500 frames)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+        --full --slots 8 --max-len 448 --chunk-tokens 256 --requests 8
+
     # on the CPU, the reduced configs in float32
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --dense
@@ -46,6 +52,8 @@ path on the dense layout.
         --device cpu --no-mixed
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
         --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
+        --device cpu --no-mixed
 
 Without ``--full`` the arch's smoke config runs in float32, as the JAX
 launcher does; ``--full`` takes the arch's full ``CONFIG`` in its own
@@ -190,9 +198,13 @@ def main(argv=None):
     system = rng.integers(0, cfg.vocab_size, size=(args.shared_prefix,))
     for rid in range(args.requests):
         n = int(rng.integers(4, 16))
+        # an enc-dec request carries synthetic frame embeddings, standing
+        # in for the stubbed mel + conv frontend (the reference's draw)
+        frames = (rng.standard_normal((cfg.encoder_ctx, cfg.d_model))
+                  .astype(np.float32) if cfg.arch_type == "audio" else None)
         prompt = np.concatenate(
             [system, rng.integers(0, cfg.vocab_size, size=(n,))])
-        eng.submit(rid, prompt, max_new=args.max_new)
+        eng.submit(rid, prompt, max_new=args.max_new, frames=frames)
 
     t0 = time.perf_counter()
     results = eng.run()

@@ -14,8 +14,14 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
         --full --steps 4 --global-batch 1 --seq 4096
 
+    # on the card, whisper-tiny uncut (tokens and seeded frames)
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \
+        --full --steps 4 --global-batch 8 --seq 448
+
     # on the CPU, the reduced configs in float32
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --arch whisper-tiny --steps 2 --global-batch 2 --seq 32
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch mamba2-780m --steps 2 --global-batch 2 --seq 64
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
@@ -29,21 +35,44 @@ its own dtype (bfloat16) with the default Strategy (AdamW, remat on,
 ``attn_impl="auto"``: the flash kernel on the card where the family has
 attention). ``--layers`` cuts the depth only. Dense and MoE decoders
 (``--arch olmoe-1b-7b``: the loss adds ``router_aux_coef`` times the
-router's load-balance loss), the SSM family (``--arch mamba2-780m``) and
-the hybrid (``--arch zamba2-1.2b``) train; the other families raise
-naming their ROADMAP.md item.
+router's load-balance loss), the SSM family (``--arch mamba2-780m``),
+the hybrid (``--arch zamba2-1.2b``) and the enc-dec audio family
+(``--arch whisper-tiny``: the token batches beside one batch of
+``(global_batch, encoder_ctx, d_model)`` frames drawn from ``--seed``,
+:class:`FramesData`) train; the VLM family raises naming its ROADMAP.md
+item.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.api import Session
 from repro_torch.configs import ARCH_NAMES, get_config, get_smoke
 from repro_torch.core.strategy import Strategy
+from repro_torch.data.pipeline import DataConfig, TokenDataset
 from repro_torch.train.trainer import TrainConfig
+
+
+class FramesData:
+    """The synthetic token batches of ``TokenDataset`` beside one batch of
+    standard-normal frame embeddings ``(global_batch, encoder_ctx,
+    d_model)`` float32, drawn once from ``seed``: the enc-dec family's
+    training data while its mel + conv frontend is stubbed."""
+
+    def __init__(self, cfg, *, global_batch: int, seq_len: int,
+                 seed: int = 0):
+        self.tokens = TokenDataset(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=seq_len,
+            global_batch=global_batch, seed=seed))
+        self.frames = np.random.default_rng(seed).standard_normal(
+            (global_batch, cfg.encoder_ctx, cfg.d_model), dtype=np.float32)
+
+    def batch(self, step: int):
+        return {**self.tokens.batch(step), "frames": self.frames}
 
 
 def main(argv=None):
@@ -81,7 +110,10 @@ def main(argv=None):
                      else 0,
                      checkpoint_dir=args.checkpoint_dir or "checkpoints",
                      seed=args.seed)
-    trainer = session.train(tc, global_batch=args.global_batch,
+    data = FramesData(cfg, global_batch=args.global_batch,
+                      seq_len=args.seq, seed=args.seed) \
+        if cfg.arch_type == "audio" else None
+    trainer = session.train(tc, data=data, global_batch=args.global_batch,
                             seq_len=args.seq)
     on_card = session.device.type == "cuda"
     if on_card:

@@ -1,5 +1,6 @@
 """Core layers of the dense decoder — the port of ``repro/models/layers.py``
-(norms, RoPE, GQA attention, attention projections, SwiGLU MLP).
+(norms, RoPE, GQA attention, attention projections, SwiGLU and plain-GeLU
+MLPs).
 
 Layouts are the JAX package's: activations ``(B, S, d)``, heads
 ``(B, S, H, D)``, weights ``(in, out)`` applied as ``x @ w``. The
@@ -8,7 +9,8 @@ single card and are gone. The ops that were Pallas kernels on the TPU —
 flash attention, paged attention and the fused MLP — dispatch by device
 to the port's CUDA kernels (CUDA tensors) or their plain versions (CPU
 tensors). The fused MLP has no backward, so with a gradient required the
-MLP is the reference's plain matmul SwiGLU on either device.
+MLP is the reference's plain matmul SwiGLU on either device; the
+plain-GeLU MLP never runs a kernel.
 """
 from __future__ import annotations
 
@@ -235,15 +237,16 @@ def attn_out(p, ctx, cfg):
 # ----------------------------------------------------------------------- MLP
 
 def mlp(p, x):
-    """Gated (SwiGLU) MLP — the survey's §5.1 block. With a gradient
-    required (training) it is the reference's plain matmul SwiGLU, which
-    autograd differentiates; otherwise (serving) the fused kernel pair on
-    CUDA tensors, its plain version on CPU tensors. The reference's
-    plain-GeLU variant (no ``w_gate``) serves the enc-dec family, which
-    waits for a later slice."""
+    """Gated (SwiGLU) MLP — the survey's §5.1 block — when ``w_gate`` is
+    present, else the plain-GeLU MLP of the enc-dec family. SwiGLU with a
+    gradient required (training) is the reference's plain matmul SwiGLU,
+    which autograd differentiates; otherwise (serving) the fused kernel
+    pair on CUDA tensors, its plain version on CPU tensors. The GeLU MLP
+    is ``gelu(x @ w_up) @ w_down`` in plain PyTorch on either device, with
+    ``jax.nn.gelu``'s default tanh form (the fused kernel computes SwiGLU
+    only)."""
     if "w_gate" not in p:
-        raise NotImplementedError(
-            "plain-GeLU MLP (enc-dec family): ROADMAP.md Queue 1 item 10")
+        return F.gelu(x @ p["w_up"], approximate="tanh") @ p["w_down"]
     w_gate, w_up, w_down = p["w_gate"], p["w_up"], p["w_down"]
     if needs_grad(x, w_gate, w_up, w_down):
         h = x @ w_up

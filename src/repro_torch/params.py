@@ -19,7 +19,13 @@ ones, ``out_proj`` at ``0.02 / sqrt(2L)``. The hybrid's mirrors
 every, ...)`` under ``groups/`` and ``(max(rest, 1), ...)`` under
 ``trailing/`` (with ``rest == 0`` the reference still keeps one unused
 trailing layer), and ONE shared attention + SwiGLU block under
-``shared/``. Leaves are keyed by the ``"/"``-joined paths of
+``shared/``. The enc-dec audio family's mirrors
+``repro/models/encdec.py::init``: ``tok_embed``, ``enc_layers/`` and
+``dec_layers/`` stacked on their own depths (attention, in the decoder
+also ``xattn``, and the plain-GeLU MLP's ``w_up`` and ``w_down``; ``wo``
+and ``w_down`` at ``0.02 / sqrt(2L)`` with L the decoder's depth in both
+stacks), ``enc_norm``, ``final_norm`` and an untied ``lm_head``. Leaves
+are keyed by the ``"/"``-joined paths of
 ``repro/checkpoint/io.py::_flatten`` (``layers/attn/wq``,
 ``groups/mamba/in_proj``, ...), which is the bridge's key map.
 
@@ -66,15 +72,16 @@ FIXED_INITS = {
 
 #: stacked leaves: top-level key -> leading layer axes, drawn one layer at
 #: a time by :func:`init_params`
-STACK_AXES = {"layers": 1, "groups": 2, "trailing": 1}
+STACK_AXES = {"layers": 1, "groups": 2, "trailing": 1, "enc_layers": 1,
+              "dec_layers": 1}
 
 
 def _check_family(cfg):
-    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid"):
+    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid", "audio"):
         raise NotImplementedError(
-            f"{cfg.name}: the port holds dense-decoder, MoE, SSM and "
-            f"hybrid params only so far ({cfg.arch_type} waits for "
-            f"ROADMAP.md Queue 1 item 10)")
+            f"{cfg.name}: the port holds dense-decoder, MoE, SSM, hybrid "
+            f"and enc-dec audio params only so far ({cfg.arch_type} waits "
+            f"for ROADMAP.md Queue 1 item 10)")
 
 
 def _mamba_spec(cfg, prefix: str, lead: tuple) -> Spec:
@@ -98,6 +105,53 @@ def _mamba_spec(cfg, prefix: str, lead: tuple) -> Spec:
     }
 
 
+def _attn_spec(cfg, prefix: str, lead: tuple) -> Spec:
+    """``init_attn``'s leaves stacked on ``lead``: ``wo`` at ``0.02 /
+    sqrt(2L)``, L the decoder's depth in every stack."""
+    dt = getattr(torch, cfg.dtype)
+    d = cfg.d_model
+    spec: Spec = {
+        f"{prefix}/wq": (lead + (d, cfg.q_dim), dt, 0.02),
+        f"{prefix}/wk": (lead + (d, cfg.kv_dim), dt, 0.02),
+        f"{prefix}/wv": (lead + (d, cfg.kv_dim), dt, 0.02),
+        f"{prefix}/wo": (lead + (cfg.q_dim, d), dt,
+                         0.02 / math.sqrt(2 * cfg.num_layers)),
+    }
+    if cfg.qk_norm:
+        spec[f"{prefix}/q_norm"] = (lead + (cfg.head_dim,), torch.float32,
+                                    "ones")
+        spec[f"{prefix}/k_norm"] = (lead + (cfg.head_dim,), torch.float32,
+                                    "ones")
+    return spec
+
+
+def _encdec_spec(cfg) -> Spec:
+    """``repro/models/encdec.py::init``: the encoder's layers (attention,
+    plain-GeLU MLP ``w_up``/``w_down``, two norms) stacked on its depth,
+    the decoder's (self- and cross-attention, the MLP, three norms) on
+    its own, the embedding, the two final norms and an untied head."""
+    dt = getattr(torch, cfg.dtype)
+    f32 = torch.float32
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    deep = 0.02 / math.sqrt(2 * cfg.num_layers)
+    spec: Spec = {"tok_embed": ((v, d), dt, 0.02)}
+    for stack, lead, norms, attns in (
+            ("enc_layers", (cfg.encoder_layers,), ("ln1", "ln2"),
+             ("attn",)),
+            ("dec_layers", (cfg.num_layers,), ("ln1", "lnx", "ln2"),
+             ("attn", "xattn"))):
+        for a in attns:
+            spec.update(_attn_spec(cfg, f"{stack}/{a}", lead))
+        spec[f"{stack}/mlp/w_up"] = (lead + (d, f), dt, 0.02)
+        spec[f"{stack}/mlp/w_down"] = (lead + (f, d), dt, deep)
+        for n in norms:
+            spec[f"{stack}/{n}"] = (lead + (d,), f32, "ones")
+    spec["enc_norm"] = ((d,), f32, "ones")
+    spec["final_norm"] = ((d,), f32, "ones")
+    spec["lm_head"] = ((d, v), dt, 0.02)
+    return spec
+
+
 def _block_spec(cfg, prefix: str, lead: tuple) -> Spec:
     """Attention + FFN blocks (``init_attn``, the two norms, and
     ``init_mlp``'s SwiGLU or, on an MoE config, ``init_moe``'s router and
@@ -106,14 +160,9 @@ def _block_spec(cfg, prefix: str, lead: tuple) -> Spec:
     f32 = torch.float32
     d, f = cfg.d_model, cfg.d_ff
     deep = 0.02 / math.sqrt(2 * cfg.num_layers)
-    spec: Spec = {
-        f"{prefix}/attn/wq": (lead + (d, cfg.q_dim), dt, 0.02),
-        f"{prefix}/attn/wk": (lead + (d, cfg.kv_dim), dt, 0.02),
-        f"{prefix}/attn/wv": (lead + (d, cfg.kv_dim), dt, 0.02),
-        f"{prefix}/attn/wo": (lead + (cfg.q_dim, d), dt, deep),
-        f"{prefix}/ln1": (lead + (d,), f32, "ones"),
-        f"{prefix}/ln2": (lead + (d,), f32, "ones"),
-    }
+    spec: Spec = {**_attn_spec(cfg, f"{prefix}/attn", lead),
+                  f"{prefix}/ln1": (lead + (d,), f32, "ones"),
+                  f"{prefix}/ln2": (lead + (d,), f32, "ones")}
     if cfg.is_moe:
         e = cfg.num_experts
         spec.update({
@@ -128,15 +177,14 @@ def _block_spec(cfg, prefix: str, lead: tuple) -> Spec:
             f"{prefix}/mlp/w_up": (lead + (d, f), dt, 0.02),
             f"{prefix}/mlp/w_down": (lead + (f, d), dt, deep),
         })
-    if cfg.qk_norm:
-        spec[f"{prefix}/attn/q_norm"] = (lead + (cfg.head_dim,), f32, "ones")
-        spec[f"{prefix}/attn/k_norm"] = (lead + (cfg.head_dim,), f32, "ones")
     return spec
 
 
 def param_spec(cfg) -> Spec:
     """Every leaf of the family's tree, in ``_flatten`` key form."""
     _check_family(cfg)
+    if cfg.arch_type == "audio":
+        return _encdec_spec(cfg)
     dt = getattr(torch, cfg.dtype)
     d, v = cfg.d_model, cfg.vocab_size
     spec: Spec = {"embed": ((v, d), dt, 0.02),

@@ -1,25 +1,30 @@
 """Serving engine: continuous batching over a slot table — the port of
 the paged mixed path and the legacy split path of
 ``repro/serve/engine.py``. The family and the layout decide the path, by
-the reference's rules: full-attention dense and MoE decoders take the
-paged pool and ONE mixed token-slot step per engine step by default; the
-split path serves the rest — those decoders with ``mixed=False`` (on
-the pool) or ``paged=False``, sliding-window configs (on the dense
-ring), the SSM family (not pageable: its cache is a constant-size
-recurrent state) and the hybrid (its Mamba states beside the shared
-block's dense K/V rows, not pageable either, as in the reference).
+the reference's rules: full-attention dense and MoE decoders and the
+enc-dec audio family take the paged pool and ONE mixed token-slot step
+per engine step by default; the split path serves the rest — those
+models with ``mixed=False`` (on the pool) or ``paged=False``,
+sliding-window configs (on the dense ring), the SSM family (not pageable:
+its cache is a constant-size recurrent state) and the hybrid (its Mamba
+states beside the shared block's dense K/V rows, not pageable either, as
+in the reference).
 
-**Mixed path (dense and MoE decoders).** The KV cache is a flat pool of
-``page_size``-token pages shared by every slot plus a per-slot page
-table (models/kvcache.py); which pages a slot owns is host bookkeeping
-(serve/paging.py). Each step runs one device program over a
+**Mixed path (dense and MoE decoders, enc-dec audio).** The KV cache is
+a flat pool of ``page_size``-token pages shared by every slot plus a
+per-slot page table (models/kvcache.py); which pages a slot owns is
+host bookkeeping (serve/paging.py). Each step runs one device program over a
 ``chunk_tokens``-row batch: every decoding slot's next token first, then
 prefill CHUNKS of admitted requests (serve/step.py::pack_token_budget),
 then pads. Each row carries its context position, its
 page-table row, whether to sample from it, and whether its K/V write goes
 to the null page. ``decode_step`` scatters every row's K/V before any row
 attends, so chunked prefill is exact: greedy output equals the JAX
-engine's.
+engine's. An enc-dec request's frames run through the encoder as a
+program of their own at admission (a resumed one's too), which parks
+each decoder layer's cross K/V in the slot's dense ``(L, slots,
+encoder_ctx, Hkv, D)`` block; ``stats["encode_traces"]`` counts the
+distinct frame shapes it has run (one a config).
 
 The page table handed to the program is clipped to the power-of-two
 bucket of the live page high-water mark (serve/step.py::page_bucket), so
@@ -35,11 +40,15 @@ sampled and its fresh cache stored; then ONE batched decode advances
 every slot per step (inactive rows run too and are overwritten at their
 next prefill, as in the reference). Dense decoders pad the prompt to
 ``prefill_bucket(n, cap=window)`` and gather the logits at ``last_pos =
-n - 1``; on the dense layout the prefill writes row ``slot`` of every
-cache leaf in place, on the paged layout it fills a scratch cache of
+n - 1``; an enc-dec prefill takes the request's frames, runs the encoder
+and stores the cross K/V in the slot's block (both layouts); on the
+dense layout the prefill writes row ``slot`` of every cache leaf in
+place, on the paged layout it fills a scratch cache of
 whole pages that ``scatter_prefill_pages`` writes through the slot's
 pages (bucket padding to the null page). MoE decoders prefill at the
-exact length (capacity routing is pad-sensitive), on either layout. The
+exact length (capacity routing is pad-sensitive), on either layout, and
+so do enc-dec decoders (the reference's prefill gathers no ``last_pos``).
+The
 SSM family and the hybrid prefill at the exact length (the recurrence is
 pad-sensitive) and keep their states (and the hybrid its K/V rows, a
 ring of the window on sliding-window configs) in the dense layout.
@@ -73,14 +82,16 @@ kernels (paged attention on the paged layout, the fused MLP in every
 dense-decoder program and in every application of the hybrid's shared
 block — never in an MoE layer, whose experts are batched matmuls as in
 the reference — flash attention in every dense or MoE split prefill and
-every hybrid prefill, the SSD scan in every Mamba layer of an SSM or
-hybrid prefill), the CPU their plain versions
+every hybrid prefill, flash attention in every enc-dec encoder run and
+split prefill, the SSD scan in every Mamba layer of an SSM or hybrid
+prefill), the CPU their plain versions
 (``stats["decode_backend"]`` reads ``"kernel"`` or ``"plain"``). On a
 CUDA device an engine refuses, at construction, shapes a kernel of its
 path cannot take (each kernel's ``kernel_limits``: paged attention on
 the paged layout, flash attention on the dense, MoE and hybrid split
-paths, the fused MLP on every dense and hybrid path, the SSD scan on
-every SSM and hybrid path); nothing falls back to a plain version there.
+paths and on every enc-dec path, the fused MLP on every dense and
+hybrid path, the SSD scan on every SSM and hybrid path); nothing falls
+back to a plain version there.
 
 **Prefix sharing, lazy growth, copy-on-write and preemption** (the
 paged pool, both paths), as the reference's: ``prefix_cache=True`` maps
@@ -113,8 +124,7 @@ token for token, and the program set stays one per (``chunk_tokens``,
 page bucket).
 
 Not ported yet, each raising ``NotImplementedError`` naming its
-ROADMAP.md item: TP/DP meshes, frames/images and the enc-dec and VLM
-families.
+ROADMAP.md item: TP/DP meshes, ``images=`` and the VLM family.
 """
 from __future__ import annotations
 
@@ -142,8 +152,8 @@ from repro_torch.serve.tracing import (NULL_STEP, Tracer, chrome_trace,
 
 
 #: families whose decode cache can use the paged (block-table) layout —
-#: the reference's ``PAGEABLE_ARCHS`` among the families ported so far
-PAGEABLE_ARCHS = ("dense", "moe")
+#: the reference's ``PAGEABLE_ARCHS``
+PAGEABLE_ARCHS = ("dense", "moe", "audio")
 
 
 def _todo(what: str, item: str):
@@ -163,6 +173,7 @@ class Request:
     prompt: np.ndarray                 # (len,) int32
     max_new: int
     out: List[int] = field(default_factory=list)
+    frames: Optional[np.ndarray] = None   # (enc_ctx, d_model), audio only
     done: bool = False
     priority: int = 0                  # scheduler hint, ignored by FIFO
     deadline: Optional[float] = None   # absolute time.monotonic() bound
@@ -242,7 +253,8 @@ class ServeEngine:
                 "reserved in the budget before any prefill chunk")
         self.cfg, self.params = cfg, params
         self.device = torch.device(device) if device is not None \
-            else params["embed"].device
+            else params["tok_embed" if "tok_embed" in params
+                        else "embed"].device
         self.paged, self.mixed = bool(paged), bool(mixed)
         self.lazy, self.prefix_cache = bool(lazy), bool(prefix_cache)
         self.slots = slots
@@ -275,6 +287,9 @@ class ServeEngine:
                       "prefix_decode_blocks": 0,
                       "prefill_chunk_tokens": 0, "expired": 0,
                       "decode_slot_steps": 0,
+                      # distinct shapes the audio encoder's own program
+                      # (the mixed step's admission) has run at
+                      "encode_traces": 0,
                       # speculative decode: drafted tokens packed as
                       # verify rows, and how many the verifier accepted
                       # (bonus tokens are ordinary decode tokens); the
@@ -309,6 +324,7 @@ class ServeEngine:
         # padded prefill lengths and decode shapes of the split path
         self._shapes = set()
         self._prefill_lens = set()
+        self._encode_shapes = set()
         if self.paged:
             self._init_pool(kv_pages)
         else:
@@ -331,9 +347,11 @@ class ServeEngine:
         engine's path cannot take (it would refuse at the first step,
         after ``submit`` took the request off the queue): paged attention
         on the paged layout, flash attention in every split-path prefill
-        of a dense or MoE decoder (paged or not) or of the hybrid, the
-        fused MLP in every dense-decoder and hybrid program (an MoE layer
-        runs none), the SSD scan in every SSM and hybrid prefill."""
+        of a dense or MoE decoder (paged or not) or of the hybrid and in
+        every enc-dec admission on either path (the encoder), the fused
+        MLP in every dense-decoder and hybrid program (an MoE layer and
+        the enc-dec family's plain-GeLU MLP run none), the SSD scan in
+        every SSM and hybrid prefill."""
         cfg = self.cfg
         checks = []
         if self.paged:
@@ -353,6 +371,12 @@ class ServeEngine:
                            flash_attention.kernel_limits(
                                cfg.dtype, cfg.num_heads,
                                cfg.num_kv_heads, cfg.head_dim)))
+        if cfg.arch_type == "audio":
+            checks.append(("every admission's encoder (and each split-path "
+                           "prefill's decoder) runs the flash-attention "
+                           "kernel", "", flash_attention.kernel_limits(
+                               cfg.dtype, cfg.num_heads, cfg.num_kv_heads,
+                               cfg.head_dim)))
         if cfg.arch_type in ("dense", "hybrid") and not cfg.is_moe:
             checks.append(("every program runs the fused-MLP kernel", "",
                            fused_mlp.kernel_limits(cfg.dtype, cfg.d_model,
@@ -385,6 +409,10 @@ class ServeEngine:
             cfg.num_layers, self.kv_pages + 1, self.page_size,
             cfg.num_kv_heads, cfg.head_dim, getattr(torch, cfg.dtype),
             self.device)}
+        if cfg.arch_type == "audio":
+            # the cross K/V stays a dense block a slot (fixed length)
+            self._cache["xkv"] = self.model.init_cache(
+                cfg, self.slots, 1, device=self.device)["xkv"]
         # the DEVICE page table is clipped to the power-of-two bucket of
         # the page high-water mark (_sync_ptab); the host mirror is full
         self._pps = pps
@@ -401,8 +429,8 @@ class ServeEngine:
     # ------------------------------------------------------------ memory
     def kv_bytes(self) -> int:
         """Device bytes of the resident decode state, allocated up front:
-        the KV pool or rows, the SSM states and conv tails (cursors and the
-        page table excluded)."""
+        the KV pool or rows, the enc-dec cross K/V blocks, the SSM states
+        and conv tails (cursors and the page table excluded)."""
         def size(tree):
             return sum(size(v) if isinstance(v, dict)
                        else v.numel() * v.element_size()
@@ -416,17 +444,36 @@ class ServeEngine:
         ``chunk_tokens`` rows: decode tokens, prefill-chunk tokens and
         pads, each with its context position, page-table row, sample
         flag, and null-page write redirect (padding rows). Returns the
-        sampled token per row (0 where not active)."""
+        sampled token per row (0 where not active). An enc-dec row reads
+        its slot's cross K/V (``"xslot"``: gathered a layer at a time)."""
         ptab_rows = self._cache["ptab"][slot]          # (T, bucket)
         view = {"kv": self._cache["kv"], "ptab": ptab_rows,
                 "wtab": torch.where(wnull[:, None],
                                     torch.zeros_like(ptab_rows), ptab_rows)}
-        logits, _ = transformer.decode_step(self.params, view, tokens, pos,
-                                            self.cfg)
+        if "xkv" in self._cache:
+            view["xkv"], view["xslot"] = self._cache["xkv"], slot
+        logits, _ = self.model.decode_step(self.params, view, tokens, pos,
+                                           self.cfg)
         self.last_logits = logits
         tok = sample_tokens(logits[:, -1], generator=self._gen,
                             temperature=self.temperature)
         return torch.where(active, tok, torch.zeros_like(tok))
+
+    def _encode_fn(self, frames, slot: int):
+        """Audio admission under the mixed step: run the encoder (its own
+        program) on ``frames`` (1, enc_ctx, d) and park each decoder
+        layer's cross K/V in slot ``slot``'s block.
+        ``stats["encode_traces"]`` counts the distinct frame shapes run —
+        one a config, as the reference's one trace."""
+        self._encode_shapes.add(tuple(frames.shape))
+        self.stats["encode_traces"] = len(self._encode_shapes)
+        enc_out = self.model.encode(self.params, frames, self.cfg)
+        xkv = self._cache["xkv"]
+        for i, lp in enumerate(transformer.unstack(
+                self.params["dec_layers"], self.cfg.num_layers)):
+            for key, new in self.model.cross_kv(lp, enc_out,
+                                                self.cfg).items():
+                xkv[key][i, slot] = new[0]
 
     def _decode_fn(self, tokens, pos, active):
         """Split path: ONE batched decode advancing every slot (the cache
@@ -445,33 +492,42 @@ class ServeEngine:
         self._cache["pos"] = torch.where(active, pos + 1, pos)
         return tok
 
-    def _prefill_fn(self, tokens, slot: int, last_pos: int, pages=None):
+    def _prefill_fn(self, tokens, slot: int, last_pos: int, pages=None,
+                    frames=None):
         """Split path: prefill one (bucket-padded) prompt (1, blen), sample
         its first token at ``last_pos`` and store the fresh per-request
-        cache: the dense layout's row ``slot`` of every leaf (K/V, and
-        the SSM states and conv tails of the SSM family and the hybrid),
-        written in place by the prefill itself; on the paged layout a
-        scratch cache of whole pages, scattered through ``pages``.
+        cache: the dense layout's row ``slot`` of every leaf (K/V, the
+        enc-dec cross K/V, and the SSM states and conv tails of the SSM
+        family and the hybrid), written in place by the prefill itself;
+        on the paged layout a scratch cache of whole pages, scattered
+        through ``pages`` (and its cross K/V copied into the slot's
+        block). An enc-dec prefill takes the request's ``frames`` (1,
+        enc_ctx, d) and no ``last_pos`` (its prompt is never padded).
         ``pos[slot] = last_pos + 1``. Returns the token (a 0-d
         tensor)."""
         blen = tokens.shape[1]
         self._prefill_lens.add(blen)
         self.stats["prefill_traces"] = len(self._prefill_lens)
         batch = {"tokens": tokens}
+        kw = {"last_pos": last_pos}
+        if frames is not None:
+            batch["frames"], kw = frames, {}
         if self.paged:
             clen = pages_for(blen, self.page_size) * self.page_size
             c1 = self.model.init_cache(self.cfg, 1, clen,
                                        device=self.device)
             logits, c1 = self.model.prefill(self.params, batch, self.cfg,
-                                            c1, last_pos=last_pos)
+                                            c1, **kw)
             scatter_prefill_pages(self._cache["kv"], c1["kv"], pages,
                                   self.page_size)
+            for key, leaf in self._cache.get("xkv", {}).items():
+                leaf[:, slot] = c1["xkv"][key][:, 0]
         else:
             row = {key: {k: leaf[:, slot:slot + 1] for k, leaf in sub.items()}
                    for key, sub in self._cache.items()
                    if isinstance(sub, dict)}
             logits, _ = self.model.prefill(self.params, batch, self.cfg,
-                                           row, last_pos=last_pos)
+                                           row, **kw)
         self.last_logits = logits
         tok = sample_tokens(logits[0, -1], generator=self._gen,
                             temperature=self.temperature)
@@ -491,9 +547,13 @@ class ServeEngine:
         is an SLO: the shipped policies admit the nearest deadline first
         and give it the mixed step's prefill budget first, and a request
         still QUEUED past it finishes ``done=False, expired=True``.
+        An enc-dec (audio) request must carry ``frames``, its
+        ``(encoder_ctx, d_model)`` frame embeddings (the stubbed audio
+        frontend's output, stored as float32); frames on another family
+        are refused, as in the reference.
         Returns the LIVE Request record (``out`` grows as it decodes)."""
-        if frames is not None or images is not None:
-            raise _todo("frames=/images= requests (enc-dec and VLM)",
+        if images is not None:
+            raise _todo("images= requests (the VLM family)",
                         "Queue 1 item 10")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
@@ -526,6 +586,21 @@ class ServeEngine:
             # pre-book the worst case in the bounded-gather high-water mark
             # at submit, so lazy growth never re-buckets mid-decode
             self._hw_blocks = max(self._hw_blocks, worst)
+        if self.cfg.arch_type == "audio":
+            if frames is None:
+                raise ValueError(
+                    f"request {rid}: {self.cfg.name} is an enc-dec arch; "
+                    "submit(..., frames=(encoder_ctx, d_model)) frame "
+                    "embeddings (the stubbed audio frontend's output)")
+            frames = np.asarray(frames, np.float32)
+            want = (self.cfg.encoder_ctx, self.cfg.d_model)
+            if frames.shape != want:
+                raise ValueError(
+                    f"request {rid}: frames shape {frames.shape} != {want}")
+        elif frames is not None:
+            raise ValueError(
+                f"request {rid}: frames are only meaningful for audio "
+                f"archs, not {self.cfg.arch_type}")
         deadline = None
         if deadline_s is not None:
             if deadline_s <= 0:
@@ -533,8 +608,8 @@ class ServeEngine:
                     f"request {rid}: deadline_s must be > 0, got "
                     f"{deadline_s}")
             deadline = time.monotonic() + float(deadline_s)
-        req = Request(rid, prompt, int(max_new), priority=int(priority),
-                      deadline=deadline)
+        req = Request(rid, prompt, int(max_new), frames=frames,
+                      priority=int(priority), deadline=deadline)
         self.queue.append(req)
         explain = getattr(self._sched, "explain", None)
         self.tracer.req_event(
@@ -598,15 +673,21 @@ class ServeEngine:
         """Prefix-cache namespace. Causal KV of a dense decoder depends on
         the prefix alone, so every block is portable: None. MoE capacity
         routing depends on the whole sequence, so an MoE block keys on
-        ``("moe-ctx", sha1(ctx))``: only identical contexts share.
-        Memoised on the request: ``ctx`` (prompt + emitted) is determined
-        by its length over a request's lifetime. (The reference salts
-        enc-dec blocks with a digest of the frames; that family is not on
-        the port's pool yet.)"""
+        ``("moe-ctx", sha1(ctx))``: only identical contexts share. An
+        enc-dec decoder's KV also depends on the encoder output, so its
+        blocks key on ``("frames", sha1(frames))``: the same prompt prefix
+        under the same audio shares. Memoised on the request: frames never
+        change, and ``ctx`` (prompt + emitted) is determined by its length
+        over a request's lifetime."""
         if self.cfg.arch_type == "moe":
             if req.salt_cache is None or req.salt_cache[0] != len(ctx):
                 req.salt_cache = (len(ctx), ("moe-ctx", hashlib.sha1(
                     np.ascontiguousarray(ctx).tobytes()).hexdigest()))
+            return req.salt_cache[1]
+        if req.frames is not None:
+            if req.salt_cache is None:
+                req.salt_cache = (0, ("frames", hashlib.sha1(
+                    np.ascontiguousarray(req.frames).tobytes()).hexdigest()))
             return req.salt_cache[1]
         return None
 
@@ -755,6 +836,9 @@ class ServeEngine:
             self._ptab[s, :len(got)] = got
             self._ptab_dirty = True
             del self.queue[qi]
+            if req.frames is not None:
+                self._encode_fn(torch.from_numpy(req.frames[None]).to(
+                    self.device), s)
             self.active[s] = req
             self._pos[s] = 0
             self._last[s] = 0
@@ -767,7 +851,8 @@ class ServeEngine:
             self._pf[s] = {"ctx": ctx, "n": n,
                            "cursor": int(min(covered, n - 1)),
                            "covered": int(covered), "dep": dep,
-                           "salt": self._salt(req, ctx),
+                           "salt": (self._salt(req, ctx)
+                                    if self._prefix is not None else None),
                            "seq": self._admit_seq}
             self._admit_seq += 1
 
@@ -815,7 +900,9 @@ class ServeEngine:
             padded = np.zeros((1, blen), np.int32)
             padded[0, :n] = ctx
             tokens = torch.from_numpy(padded).to(self.device)
-            tok = int(self._prefill_fn(tokens, s, n - 1, pages))
+            frames = None if req.frames is None else \
+                torch.from_numpy(req.frames[None]).to(self.device)
+            tok = int(self._prefill_fn(tokens, s, n - 1, pages, frames))
             self.stats["prefills"] += 1
             self.stats["decode_tokens"] += 1
             req.out.append(tok)
@@ -1309,10 +1396,11 @@ class ServeEngine:
 
     def reset_stats(self):
         """Zero the telemetry counters (steady-state measurement) EXCEPT
-        ``decode_traces``/``prefill_traces`` — program-shape counts over
-        the engine's lifetime — and the backend name.
-        Pool gauges restart from the current occupancy."""
-        keep = ("decode_traces", "prefill_traces", "decode_backend")
+        ``decode_traces``/``prefill_traces``/``encode_traces`` —
+        program-shape counts over the engine's lifetime — and the backend
+        name. Pool gauges restart from the current occupancy."""
+        keep = ("decode_traces", "prefill_traces", "encode_traces",
+                "decode_backend")
         for k, v in self.stats.items():
             if k not in keep:
                 self.stats[k] = 0.0 if isinstance(v, float) else 0

@@ -83,7 +83,8 @@ def _paged(rng, *, b, width, n_pages, page_size, hq, hkv, d, dtype):
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("hq,hkv,d,page_size", [(8, 2, 32, 8),
                                                 (40, 8, 128, 16),
-                                                (16, 16, 128, 16)])
+                                                (16, 16, 128, 16),
+                                                (6, 6, 64, 16)])
 def test_paged_attention_kernel_matches_plain(cuda, dtype, tol, hq, hkv, d,
                                               page_size):
     rng = np.random.default_rng(hq)
@@ -402,6 +403,47 @@ def test_moe_engine_on_card_matches_cpu(cuda, mixed):
                                       "flash_attention": on * flash,
                                       "ssd_scan": 0}
         assert eng.stats["decode_traces"] == 1
+    assert outs["cpu"] == outs["cuda"]
+
+
+@pytest.mark.parametrize("mixed", [True, False])
+def test_encdec_engine_on_card_matches_cpu(cuda, mixed):
+    """tests/test_serve_pallas.py:176 on the card: the reference's enc-dec
+    config in fp32 — the paged kernel on the decoder's self-attention K/V
+    (card) gives the plain gather's streams (CPU) while the per-slot cross
+    K/V path is plain on both, on the mixed step and on the split path;
+    paged attention ran once a layer a program (a decode step on the
+    split path), flash once an encoder layer an admission (and once a
+    decoder layer a split prefill), the fused MLP never (plain GeLU)."""
+    cfg = ModelConfig(name="pal-encdec", arch_type="audio", num_layers=2,
+                      d_model=64, num_heads=4, num_kv_heads=4, d_ff=128,
+                      vocab_size=128, encoder_layers=1, encoder_ctx=12,
+                      dtype="float32")
+    cpu = init_params(cfg, device="cpu", seed=2)
+    params = {"cpu": cpu, "cuda": tree_map(lambda t: t.cuda(), cpu)}
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 128, size=(n,)) for n in (4, 7, 5)]
+    frames = [rng.standard_normal((12, 64)).astype(np.float32)
+              for _ in prompts]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, params[dev], slots=2, max_len=32,
+                          mixed=mixed)
+        for i, (p, f) in enumerate(zip(prompts, frames)):
+            eng.submit(i, p, max_new=5, frames=f)
+        kernels.reset_launches()
+        res = eng.run()
+        outs[dev] = {i: list(res[i].out) for i in res}
+        on = 1 if dev == "cuda" else 0
+        st = eng.stats
+        runs = st["mixed_steps"] if mixed else st["decode_steps"]
+        flash = st["prefills"] * (cfg.encoder_layers
+                                  + (0 if mixed else cfg.num_layers))
+        assert kernels.launches() == {
+            "paged_attention": on * cfg.num_layers * runs, "fused_mlp": 0,
+            "flash_attention": on * flash, "ssd_scan": 0}
+        assert st["decode_traces"] == 1
+        assert st["encode_traces"] == (1 if mixed else 0)
     assert outs["cpu"] == outs["cuda"]
 
 
@@ -739,11 +781,13 @@ def test_flash_attention_kernel_writes_zero_for_rows_without_live_keys(cuda):
 
 
 # bf16 only: Kimi's head width (112) with causal GQA, the training
-# shape's heads (40/8 x 128) at S = T = 1024, and the hybrid's shared
-# block (32/32 x 64: GQA rep 1, D 64)
+# shape's heads (40/8 x 128) at S = T = 1024, the hybrid's shared block
+# (32/32 x 64: GQA rep 1, D 64), and whisper-tiny's encoder (6/6 x 64,
+# non-causal over 1500 frames: 11 key tiles of 128 and a ragged tail of 92)
 FLASH_BF16 = [(1, 300, 300, 8, 2, 112, True, 0),
               (1, 1024, 1024, 40, 8, 128, True, 0),
-              (1, 300, 300, 32, 32, 64, True, 0)]
+              (1, 300, 300, 32, 32, 64, True, 0),
+              (1, 1500, 1500, 6, 6, 64, False, 0)]
 
 
 @pytest.mark.parametrize("shape", FLASH_BF16)

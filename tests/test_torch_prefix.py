@@ -9,7 +9,8 @@ keywords on the same weights (JAX-initialised, bridged), and shows three
 things: the greedy streams are equal; every prefix, preemption and CoW
 counter is equal (host logic, so exactly); the pages come back to the
 pool. The reference test's own assertions are kept beside them. The MoE
-and enc-dec cases wait for their families (ROADMAP Queue 1 item 10).
+and enc-dec cases are in tests/test_torch_moe_serve.py and
+tests/test_torch_encdec_serve.py.
 """
 from collections import deque
 

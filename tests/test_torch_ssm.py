@@ -315,19 +315,20 @@ def test_prefill_then_decode_chain_matches_jax(smoke):
 
 
 def test_get_model_maps_the_ported_families():
-    """dense, SSM, the hybrid and MoE map to their modules (MoE to the
-    decoder's, as in the reference); enc-dec audio and VLM still raise
-    naming Queue 1 item 10."""
-    from repro_torch.models import hybrid, transformer
+    """dense, SSM, the hybrid, MoE and enc-dec audio map to their modules
+    (MoE to the decoder's, as in the reference); VLM still raises naming
+    Queue 1 item 10."""
+    from repro_torch.models import encdec, hybrid, transformer
     assert get_model(SSM_CFG) is mamba_lm
     assert get_model(SSM_CFG.with_(arch_type="dense", num_heads=4,
                                    num_kv_heads=2)) is transformer
     assert get_model(get_smoke("zamba2-1.2b")) is hybrid
     assert get_model(get_smoke("olmoe-1b-7b")) is transformer
     assert get_model(get_smoke("kimi-k2-1t-a32b")) is transformer
-    for arch in ("audio", "vlm"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            get_model(SSM_CFG.with_(arch_type=arch))
+    assert get_model(get_smoke("whisper-tiny")) is encdec
+    assert get_model(SSM_CFG.with_(arch_type="audio")) is encdec
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        get_model(SSM_CFG.with_(arch_type="vlm"))
 
 
 # ---------------------------------------------------------------- params
@@ -406,15 +407,19 @@ def test_init_params_matches_reference_shapes_dtypes_and_scales():
 
 def test_other_families_still_raise_in_the_bridge():
     """The bridge holds the hybrid's tree (``groups/``, ``trailing/``,
-    ``shared/``) and the MoE decoder's (``layers/moe/``; its round trip is
-    in tests/test_torch_moe.py); enc-dec audio and VLM still raise."""
+    ``shared/``), the MoE decoder's (``layers/moe/``; its round trip is
+    in tests/test_torch_moe.py) and enc-dec audio's (``enc_layers/``,
+    ``dec_layers/``; tests/test_torch_encdec.py); VLM still raises."""
     moe = param_spec(get_smoke("olmoe-1b-7b"))
     assert {k for k in moe if "/moe/" in k} == {
         f"layers/moe/{w}" for w in ("router", "w_gate", "w_up", "w_down")}
     assert not any("/mlp/" in k for k in moe)
-    for arch in ("audio", "vlm"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            param_spec(SSM_CFG.with_(arch_type=arch))
+    audio = param_spec(get_smoke("whisper-tiny"))
+    assert {k.split("/")[0] for k in audio} == {
+        "tok_embed", "enc_layers", "dec_layers", "enc_norm", "final_norm",
+        "lm_head"}
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        param_spec(SSM_CFG.with_(arch_type="vlm"))
     spec = param_spec(get_smoke("zamba2-1.2b"))
     assert {k.split("/")[0] for k in spec} == {
         "embed", "final_norm", "lm_head", "groups", "trailing", "shared"}
@@ -518,17 +523,24 @@ def test_session_serves_ssm_on_cpu_and_refuses_training(engine_weights):
         ref_eng.submit(i, p, max_new=5)
     assert got == {i: r.out for i, r in ref_eng.run().items()}
     # the SSM family trains (tests/test_torch_train.py holds the step to
-    # the reference's), and so does MoE (tests/test_torch_moe.py); enc-dec
-    # audio and VLM still raise
+    # the reference's), and so do MoE (tests/test_torch_moe.py) and
+    # enc-dec audio on batches with frames (tests/test_torch_encdec.py);
+    # VLM still raises
     trainer = session.train(global_batch=2, seq_len=16)
     assert trainer.params is session.params
     moe = get_smoke("olmoe-1b-7b").with_(dtype="float32")
     moe_trainer = Session(moe, device="cpu").train(global_batch=2,
                                                    seq_len=16)
     assert "moe" in moe_trainer.params["layers"]
-    for arch in ("audio", "vlm"):
-        with pytest.raises(NotImplementedError, match=f"{arch} training"):
-            Session(SSM_CFG.with_(arch_type=arch), device="cpu").train()
+    from repro_torch.launch.train import FramesData
+    from repro_torch.train.trainer import TrainConfig
+    audio = get_smoke("whisper-tiny").with_(dtype="float32")
+    hist = Session(audio, device="cpu").train(
+        TrainConfig(steps=1, log_every=1),
+        data=FramesData(audio, global_batch=2, seq_len=16)).run()["history"]
+    assert np.isfinite(hist[-1]["loss"])
+    with pytest.raises(NotImplementedError, match="vlm training"):
+        Session(SSM_CFG.with_(arch_type="vlm"), device="cpu").train()
     fresh = Session(SSM_CFG, device="cpu", seed=3)
     assert fresh.params["layers"]["mamba"]["in_proj"].shape == (2, 64, 164)
 
