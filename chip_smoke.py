@@ -76,7 +76,16 @@ Phases (any failure exits non-zero; no result line is printed then):
    1500, 6, 6, 64), each shown to reject a version that drops the last,
    ragged key tile (keys 1408-1499), and causal at each of phase 15b's
    prompt lengths and at (8, 448, 448, 6, 6, 64), each shown to reject
-   dropped keys; all per value, timed beside SDPA with their bound;
+   dropped keys; all per value, timed beside SDPA with their bound; then
+   at Llama-3.2-Vision-90B's shapes (phases 17 and 18): flash causal at
+   (1, S, S, 64, 8, 128) — GQA rep 8 — for each of phase 17's prompt
+   lengths and S 2048 and 4096 (phase 18), the fused MLP at d 8192, f
+   28672 (weights at the uncut 100-layer model's init scales, which
+   phase 17 keeps) for T 4 (the decode step) and each prompt length,
+   each per value
+   and shown to reject its defect, timed beside SDPA / three matmuls with
+   its bound, the MLP on 16 draws of x at T 4 and at the shortest and the
+   longest prompt (its 1.4 GB weight set freed after);
 4. tiny float32 configs on the card and on the CPU (TF32 off): through
    the port's engine on each layout — the mixed step, the split path on
    the pool (``mixed=False``) and on the dense layout (``paged=False``),
@@ -109,7 +118,12 @@ Phases (any failure exits non-zero; no result line is printed then):
    each admission, and the decoder in each split prefill) and the fused
    MLP (never) launched as the path says, one encode shape on the mixed
    step; and its train step with remat and 2 microbatches: losses and
-   gradients within 1e-4;
+   gradients within 1e-4; then ``llama-vision-smoke`` (rest 0) and a
+   ``rest > 0`` variant with both gates open on the split path over dense
+   rows (each request with its own images): first-prefill logits within
+   1e-4, streams identical, flash once a self layer a prefill and the
+   fused MLP once a layer a program; and each one's train step (remat, 2
+   microbatches): loss and gradients within 1e-4;
 5. the SERVING PATH: ``Session(get_config("qwen3-14b"), device="cuda")
    .serve(slots=4, max_len=1024, page_size=16, chunk_tokens=256)`` at full
    width with random weights from ``--seed``, 6 requests of 24-700 prompt
@@ -282,6 +296,31 @@ Phases (any failure exits non-zero; no result line is printed then):
    and grad norm finite. Prints step p50, tokens/s, peak memory, the
    profile by part and the model-FLOPs share of 989 TFLOP/s
    (``encdec_train_flops``).
+17. VLM SERVING, after phase 16: ``Session(get_config(
+   "llama-3.2-vision-90b").with_(num_layers=20), device="cuda").serve(
+   slots=4, max_len=1024)`` at full width cut to 4 of its 20 groups (16
+   self and 4 cross layers, and the unused trailing layer: ~20.07 B
+   params, bf16, random weights from ``--seed`` with ``wo`` and
+   ``w_down`` at the uncut model's init scale, both gates of every cross
+   layer at 1.0) on the split path over dense rows, phase 5's six prompts
+   each with its own (1601, 8192) float32 images, 16 new tokens each.
+   Counts zeroed just before and read just after: flash exactly 16 x
+   prefills, the fused MLP 20 x (prefills + decode steps), paged
+   attention and the SSD scan never; ``prefill_traces`` the distinct
+   prompt lengths, ``decode_traces`` 1; the decode state is ``kv_g`` +
+   ``kv_t`` + ``xkv``. Prints tokens/s, the decode-only step p50 beside
+   the floor of reading its weights at 3.35 TB/s, each prefill's time,
+   peak memory, and one admission step and one decode-only step under
+   torch.profiler by group (flash, fused MLP, the cross-attention range,
+   other GEMMs, the rest) with the idle share.
+18. VLM TRAINING: Llama-3.2-Vision-90B at full width cut to one group
+   (``num_layers=5``: 4 self and 1 cross layer, ~7.24 B params), remat,
+   Adafactor, 6 steps on ``launch/train.py::ImagesData`` (1 x 4096 tokens,
+   2048 if 4096 does not fit, and 1 x 1601 x 8192 images from
+   ``--seed``): flash 6 x (4 forward + 4 recompute), the fused MLP never;
+   loss and grad norm finite. Prints step p50, tokens/s, peak memory, the
+   profile by part and the model-FLOPs share of 989 TFLOP/s
+   (``vlm_train_flops``).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -832,9 +871,10 @@ def exact_h_mlp(x, wg64, wu64, wd64):
 
 
 def mlp_seed_sweep(wg, wu, wd, atol: float, rtol: float,
-                   row_counts=tuple(sorted(set(MLP_SPLIT_ROWS) | {256}))):
+                   row_counts=tuple(sorted(set(MLP_SPLIT_ROWS) | {256})),
+                   seeds: int = MLP_SWEEP_SEEDS):
     """At each of ``row_counts`` (by default every row count of the split
-    path and T = 256), draw x from ``MLP_SWEEP_SEEDS`` seeds and measure,
+    path and T = 256), draw x from ``seeds`` seeds and measure,
     as multiples of the per-value limit: (a) the kernel against the plain
     version, (b) the plain version against the exactly rounded h
     reference, (c) the kernel against that reference. Returns {T: {"a",
@@ -847,7 +887,7 @@ def mlp_seed_sweep(wg, wu, wd, atol: float, rtol: float,
     for rows in row_counts:
         worst = {"a": 0.0, "b": 0.0, "c": 0.0}
         over = []
-        for seed in range(MLP_SWEEP_SEEDS):
+        for seed in range(seeds):
             gen = torch.Generator(device="cuda").manual_seed(
                 100_003 * rows + seed)
             x = torch.randn((rows, d), generator=gen, device="cuda").to(
@@ -863,7 +903,7 @@ def mlp_seed_sweep(wg, wu, wd, atol: float, rtol: float,
             worst = {k: max(worst[k], e[k]) for k in worst}
         torch.cuda.synchronize()
         log(f"[mlp bf16 sweep T={rows} d={d} f={f}] worst of "
-            f"{MLP_SWEEP_SEEDS} seeds, "
+            f"{seeds} seeds, "
             f"x the limit (atol {atol}, rtol {rtol}): (a) kernel vs plain "
             f"{worst['a']:.3f}, (b) plain vs exact h {worst['b']:.3f}, (c) "
             f"kernel vs exact h {worst['c']:.3f}; seeds with (a) > 1: "
@@ -3174,17 +3214,23 @@ def phase_online(session, prompts, streams_b, max_new: int = 32):
 # ------------------------------------------------------------------ phase 6
 
 def phase_train(seed: int, steps: int = 6, layers: int = 4, *,
-                arch: str = "qwen3-14b"):
+                arch: str = "qwen3-14b", strategy=None, data_cls=None):
     """The TRAIN PATH of ``arch`` at full width, depth cut to ``layers``
     (None: uncut); seq_len 4096 unless it does not fit the card, then 2048
-    (said in the record)."""
+    (said in the record). ``strategy``: the session's (default: the
+    default Strategy, AdamW); ``data_cls``: the trainer's data class
+    (``launch/train.py``'s ``FramesData`` or ``ImagesData``; default the
+    token dataset), one row of ``seq_len`` tokens from ``seed``."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     if layers:
         cfg = cfg.with_(num_layers=layers)
     for seq_len in (4096, 2048):
         try:
-            return _train_run(cfg, seed, steps, seq_len)
+            data = None if data_cls is None else data_cls(
+                cfg, global_batch=1, seq_len=seq_len, seed=seed)
+            return _train_run(cfg, seed, steps, seq_len, data=data,
+                              strategy=strategy)
         except torch.cuda.OutOfMemoryError as exc:
             if seq_len == 2048:
                 raise
@@ -3196,10 +3242,11 @@ def phase_train(seed: int, steps: int = 6, layers: int = 4, *,
 
 
 def _train_run(cfg, seed: int, steps: int, seq_len: int, *,
-               global_batch: int = 1, data=None):
+               global_batch: int = 1, data=None, strategy=None):
     """``steps`` steps of ``global_batch`` x ``seq_len`` tokens through
     ``Session.train`` (``data``: the trainer's data object, default the
-    token dataset): exact launch counts, finite losses, the step p50,
+    token dataset; ``strategy``: the session's, default the default
+    Strategy): exact launch counts, finite losses, the step p50,
     tokens/s, peak memory, the model-FLOPs share and the profile."""
     from repro_torch import kernels
     from repro_torch.api import Session
@@ -3209,7 +3256,7 @@ def _train_run(cfg, seed: int, steps: int, seq_len: int, *,
     card_bytes = torch.cuda.get_device_properties(0).total_memory
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    session = Session(cfg, device="cuda", seed=seed)
+    session = Session(cfg, device="cuda", seed=seed, strategy=strategy)
     trainer = session.train(TrainConfig(steps=steps, lr=3e-4, log_every=1,
                                         seed=seed), data=data,
                             global_batch=global_batch, seq_len=seq_len)
@@ -3228,12 +3275,16 @@ def _train_run(cfg, seed: int, steps: int, seq_len: int, *,
            if cfg.is_moe else "")
         + (f"{cfg.encoder_layers} encoder layers over "
            f"{cfg.encoder_ctx} frames, " if cfg.arch_type == "audio" else "")
+        + (f"a cross layer after every {cfg.cross_attn_every} self layers "
+           f"over {cfg.num_image_tokens} image tokens, "
+           if cfg.arch_type == "vlm" else "")
         + f"SSD heads {cfg.ssm_heads} x "
         f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, vocab "
         f"{cfg.vocab_size}), {cfg.dtype}, {n_params / 1e9:.3f} B params; "
         f"strategy "
         f"{s.optimizer}, remat={s.remat}, attn_impl={s.attn_impl!r}; "
-        f"params + AdamW state ready in {time.perf_counter() - t0:.1f}s")
+        f"params + {s.optimizer} state ready in "
+        f"{time.perf_counter() - t0:.1f}s")
     kernels.reset_launches()
     step_s = []
     for _ in range(steps):
@@ -3264,6 +3315,7 @@ def _train_run(cfg, seed: int, steps: int, seq_len: int, *,
     p50 = float(np.percentile(step_s, 50))
     model_flops = sum(flops.values())
     out = {"arch": cfg.name, "layers": cfg.num_layers, "depth_cut": not full,
+           "optimizer": s.optimizer,
            "seq_len": seq_len,
            "seq_len_cut": seq_len < (WHISPER_TRAIN if cfg.arch_type
                                      == "audio" else 4096),
@@ -3335,6 +3387,36 @@ def encdec_train_flops(cfg, flat, seq_len: int, batch: int):
             cfg.encoder_layers + 2 * cfg.num_layers)
 
 
+def vlm_train_flops(cfg, flat, seq_len: int, batch: int):
+    """A VLM training step's model FLOPs, by term (``train_flops``): 6 x
+    batch x (the applied self layers' parameters, the cross layers' ``wq``,
+    ``wo`` and MLP, and ``lm_head``) x the tokens; 6 x batch x the cross
+    layers' ``wk`` and ``wv`` x the image tokens; the attention forward
+    and backward (3x): the causal self-attention 4 S (S + 1) / 2 Hq D a
+    self layer and the cross-attention 4 S F Hq D a cross layer. The
+    embedding gather, the norms and gates, and the unused trailing layer
+    (rest 0) are not counted. Returns (by term, N_applied a token, flash
+    launches a step: each self layer's forward, and the remat recompute
+    of each grouped one)."""
+    g, rest = cfg.vlm_groups
+    f, s = cfg.num_image_tokens, seq_len
+
+    def size(prefixes):
+        return sum(t.numel() for k, t in flat.items()
+                   if k.startswith(prefixes))
+
+    xkv = size(("cross/xattn/wk", "cross/xattn/wv"))
+    tok = size(("self_groups/attn/", "self_groups/mlp/", "cross/xattn/wq",
+                "cross/xattn/wo", "cross/mlp/", "lm_head")) \
+        + (size(("trailing/attn/", "trailing/mlp/")) if rest else 0)
+    hd = 4.0 * cfg.num_heads * cfg.head_dim
+    self_layers = g * cfg.cross_attn_every + rest
+    attn = 3 * batch * (hd * s * (s + 1) / 2 * self_layers + hd * s * f * g)
+    return ({"6_n_tokens": 6.0 * batch * tok * s,
+             "6_n_images": 6.0 * batch * xkv * f, "attention": attn},
+            tok + xkv * f / s, 2 * g * cfg.cross_attn_every + rest)
+
+
 def train_flops(cfg, params, seq_len: int, batch: int = 1):
     """A training step's model FLOPs at ``batch`` rows, by term: 6
     N_applied tokens, N_applied the parameters without the embedding
@@ -3344,13 +3426,16 @@ def train_flops(cfg, params, seq_len: int, batch: int = 1):
     attention's forward (4 S (S + 1) / 2 Hq D a layer) and backward (2x
     forward) in each attention layer (dense and MoE: every layer; hybrid:
     G); the SSD scan's products (``ssd_flops``) forward and backward (3x)
-    in every Mamba layer; the enc-dec family by ``encdec_train_flops``.
+    in every Mamba layer; the enc-dec family by ``encdec_train_flops``,
+    the VLM by ``vlm_train_flops``.
     Returns (by term, N_applied, flash launches a step: each attention
     layer's forward and its remat recompute)."""
     from repro_torch.tree import flatten
     flat = flatten(params)
     if cfg.arch_type == "audio":
         return encdec_train_flops(cfg, flat, seq_len, batch)
+    if cfg.arch_type == "vlm":
+        return vlm_train_flops(cfg, flat, seq_len, batch)
     n = sum(t.numel() for k, t in flat.items() if k != "embed")
     if cfg.is_moe:
         experts = sum(t.numel() for k, t in flat.items()
@@ -3779,9 +3864,10 @@ def _profile_groups(eng, step_p50_ms: float, tag: str, steps=None,
 
 
 def _drive(eng, prompts, max_new: int, tag: str, *, mixed: bool,
-           frames=None):
-    """Submit ``prompts`` (``max_new`` new tokens each; with ``frames``,
-    each request's own), zero the launch counts, step the engine until
+           frames=None, images=None):
+    """Submit ``prompts`` (``max_new`` new tokens each; with ``frames`` or
+    ``images``, each request's own), zero the launch counts, step the
+    engine until
     idle and read them: each request must finish with ``max_new``
     in-vocab tokens. A step with prefill work is one that moved
     prefill-chunk tokens (``mixed``) or ran a prefill. Returns the run's
@@ -3790,7 +3876,8 @@ def _drive(eng, prompts, max_new: int, tag: str, *, mixed: bool,
     cfg = eng.cfg
     for rid, p in enumerate(prompts):
         eng.submit(rid, p, max_new=max_new,
-                   frames=None if frames is None else frames[rid])
+                   frames=None if frames is None else frames[rid],
+                   images=None if images is None else images[rid])
     key = "prefill_chunk_tokens" if mixed else "prefills"
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -4103,6 +4190,406 @@ def phase_whisper_train(seed: int, steps: int = 6):
                       data=data)
 
 
+# ------------------------------------------------------------ phases 17-18
+
+#: Llama-3.2-Vision-90B (phases 17 and 18, and their parts of phases 3
+#: and 4): self-attention heads (Hq, Hkv, D) = 64/8 x 128 (GQA rep 8), the
+#: MLP's (d, f) = (8192, 28672), and the depth cuts (the 100 layers hold
+#: ~177 GB of bf16 weights): phase 17 serves 4 of the 20 groups (16 self
+#: and 4 cross layers, ~40.1 GB), phase 18 trains one (4 self and 1
+#: cross layer, ~14.5 GB); each tree also holds the one trailing layer
+#: the reference keeps and never applies at rest 0
+VLM_HEADS = (64, 8, 128)
+VLM_MLP = (8192, 28672)
+VLM_SERVE_LAYERS, VLM_TRAIN_LAYERS, VLM_NEW = 20, 5, 16
+VLM_TRAIN_LENS = (2048, 4096)
+
+
+def vlm_prompt_lens(seed: int):
+    """Phase 17's distinct prompt lengths: phase 5's six (an exact length
+    each: a VLM prefill is not bucketed), ascending."""
+    return sorted({int(n) for n in serving_prompts(seed, 2)[0]})
+
+
+def vlm_images(seed: int, n: int, cfg):
+    """``n`` requests' own (num_image_tokens, d_model) float32 patch
+    embeddings from ``seed``, drawn in one block (the stubbed ViT tower
+    and projector's output)."""
+    rng = np.random.default_rng(seed + cfg.num_image_tokens)
+    return list(rng.standard_normal((n, cfg.num_image_tokens, cfg.d_model),
+                                    dtype=np.float32))
+
+
+def vlm_flash_shapes(seed: int):
+    """Flash attention's shapes on phases 17 and 18, (B, S, T, Hq, Hkv, D):
+    each prompt length of phase 17 and phase 18's training rows (4096,
+    and 2048 should 4096 not fit)."""
+    hq, hkv, d = VLM_HEADS
+    return tuple((1, n, n, hq, hkv, d)
+                 for n in vlm_prompt_lens(seed) + list(VLM_TRAIN_LENS))
+
+
+def phase_vlm_kernels(seed: int):
+    """Flash attention and the fused MLP in bf16 at Llama-3.2-Vision-90B's
+    shapes, every one phases 17 and 18 launch: flash causal at
+    ``vlm_flash_shapes`` (rep 8, never run before this phase), the fused
+    MLP at d 8192, f 28672 (K 8192 = 128 stages of 64; the widest before
+    was d 5120 x f 17408) for T = 4 (the decode step) and each prompt
+    length of phase 17, its weights at phase 17's init scales; each per
+    value at its phase-3 limit, shown to reject its defective plain
+    variant (dropped keys, a dropped 64-wide f tile), timed beside SDPA /
+    the three cuBLAS matmuls with its bound; the MLP on 16 draws of x at
+    T = 4 and at the shortest and the longest prompt. Inputs come from a
+    generator of their own. Returns {kernel name: records} and the
+    MLP's seed sweep; the 1.4 GB weight set is freed.
+
+    The MLP's weights are at Llama-3.2-Vision-90B's own init scales (100
+    layers: ``w_down`` 0.02 / sqrt(200)), which phase 17's depth-cut
+    weights keep (``_uncut_init_scales``). At the 20-layer cut's own
+    scale (0.02 / sqrt(40)) one flip of a bf16 h of 16-32 (ulp 0.125)
+    moves an output by up to ~1.5e-3, past atol 1e-3, and the plain
+    version itself then misses the exactly rounded h by more than the
+    limit on some draws of x: that sweep (4 seeds at the two longest
+    prompts) is printed beside, information, not a check."""
+    from repro_torch.configs import get_config
+    full_layers = get_config("llama-3.2-vision-90b").num_layers
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8192)
+    out = {"flash_attention": [_flash_shape(gen, shape, 1e-5, 8e-3,
+                                            timed=True)
+                               for shape in vlm_flash_shapes(seed)]}
+    d, f = VLM_MLP
+    atol, rtol = 1e-3, 8e-3
+    bf = torch.bfloat16
+    wg = (torch.randn((d, f), generator=gen, device="cuda") * 0.02).to(bf)
+    wu = (torch.randn((d, f), generator=gen, device="cuda") * 0.02).to(bf)
+    wd = (torch.randn((f, d), generator=gen, device="cuda")
+          * (0.02 / math.sqrt(2 * full_layers))).to(bf)
+    lens = vlm_prompt_lens(seed)
+    out["fused_mlp"] = [_mlp_rows(gen, rows, wg, wu, wd, atol, rtol,
+                                  timed=True) for rows in [4] + lens]
+    sweep = mlp_seed_sweep(wg, wu, wd, atol, rtol,
+                           row_counts=(4, lens[0], lens[-1]))
+    for rows, w in sweep.items():
+        check(not w["seeds_a_over"], f"fused MLP bf16 at the VLM's "
+              f"T={rows}: worst error {w['a']:.3f}x the limit on seeds "
+              f"{w['seeds_a_over']} of {MLP_SWEEP_SEEDS}")
+    out["fused_mlp_seed_sweep"] = sweep
+    wd.mul_(math.sqrt(full_layers / VLM_SERVE_LAYERS))
+    log(f"[mlp bf16 d={d} f={f}] information: w_down at the "
+        f"{VLM_SERVE_LAYERS}-layer cut's own init scale, 0.02 / "
+        f"sqrt({2 * VLM_SERVE_LAYERS}) — not checked")
+    out["fused_mlp_cut_scale_sweep"] = mlp_seed_sweep(
+        wg, wu, wd, atol, rtol, row_counts=tuple(lens[-2:]), seeds=4)
+    del wg, wu, wd
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+#: phase 4's VLM configs: llama-vision-smoke (rest 0: one unused trailing
+#: layer) and a rest > 0 variant (one group and one trailing self layer)
+VLM_PARITY = {"rest 0": {}, "rest 1": dict(num_layers=4)}
+
+
+def _vlm_want(cfg, prefills: int, decode_steps: int) -> dict:
+    """Launches of a VLM run on the card (the split path on dense rows):
+    flash once a self layer a prefill, the fused MLP once a layer (self
+    or cross) a program (prefill or decode), the others never."""
+    g, _ = cfg.vlm_groups
+    return {"paged_attention": 0, "ssd_scan": 0,
+            "fused_mlp": cfg.num_layers * (prefills + decode_steps),
+            "flash_attention": (cfg.num_layers - g) * prefills}
+
+
+def _open_gates(params):
+    """Both gates of every cross layer to 1.0 (0 at init: the images
+    would not move the logits, and a broken cross-attention would
+    pass)."""
+    with torch.no_grad():
+        for gate in ("gate_attn", "gate_mlp"):
+            params["cross"][gate].fill_(1.0)
+    return params
+
+
+def phase_parity_vlm():
+    """``VLM_PARITY``'s configs in fp32 (TF32 off), gates open, through the
+    split-path engine on dense rows on the card and on the CPU, each
+    request with its own images: the first prefill's logits within 1e-4
+    (a first request with max_new 1), every greedy stream identical, and
+    on the card each kernel launched as ``_vlm_want`` says; then one train
+    step each (remat on, 2 microbatches slicing tokens and images; flash
+    on the card once a self layer a microbatch, and again for each grouped
+    one's recompute): loss and gradients within 1e-4. Returns the
+    errors."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.strategy import Strategy
+    from repro_torch.params import init_params
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import step
+    from repro_torch.tree import flatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    errs = {}
+    for name, kw in VLM_PARITY.items():
+        cfg = get_smoke("llama-3.2-vision-90b").with_(dtype="float32", **kw)
+        g, rest = cfg.vlm_groups
+        cpu = _open_gates(init_params(cfg, device="cpu", seed=11))
+        rng = np.random.default_rng(11)
+        prompts = [rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+                   for n in (5, 23, 9, 40, 6)]
+        images = list(rng.standard_normal(
+            (len(prompts), cfg.num_image_tokens, cfg.d_model),
+            dtype=np.float32))
+        res, first = {}, {}
+        for dev, params in (("cpu", cpu), ("cuda", _to(cpu, "cuda"))):
+            eng = ServeEngine(cfg, params, slots=2, max_len=64)
+            check(not eng.paged and not eng.mixed,
+                  f"[parity vlm {name}] layout paged={eng.paged}, "
+                  f"mixed={eng.mixed}")
+            kernels.reset_launches()
+            eng.submit(0, prompts[0], max_new=1, images=images[0])
+            eng.step()
+            first[dev] = eng.last_logits.detach().float().cpu()
+            for i in range(1, len(prompts)):
+                eng.submit(i, prompts[i], max_new=6, images=images[i])
+            out = eng.run()
+            res[dev] = {i: list(out[i].out) for i in out}
+            want = _vlm_want(cfg, eng.stats["prefills"],
+                             eng.stats["decode_steps"]) if dev == "cuda" \
+                else dict.fromkeys(kernels.launches(), 0)
+            check(kernels.launches() == want,
+                  f"[parity vlm {name}] launches on {dev} "
+                  f"{kernels.launches()} != {want}")
+        err = (first["cpu"] - first["cuda"]).abs().max().item()
+        check(err <= 1e-4, f"[parity vlm {name}] f32 first-prefill logits "
+                           f"card vs CPU: {err} > 1e-4")
+        check(res["cpu"] == res["cuda"],
+              f"[parity vlm {name}] greedy streams differ: cpu "
+              f"{res['cpu']} cuda {res['cuda']}")
+        log(f"[parity vlm f32, TF32 off] llama-vision-smoke {name} (G {g}, "
+            f"rest {rest}, gates open): first-prefill logits max abs err "
+            f"card vs CPU {err:.3e} (<= 1e-4); greedy streams identical over "
+            f"{len(prompts)} requests")
+        strat = Strategy(remat=True, microbatches=2, dtype="float32")
+        brng = np.random.default_rng(12)
+        batch = {"tokens": torch.from_numpy(brng.integers(
+            0, cfg.vocab_size, size=(4, 48)).astype(np.int32)),
+            "image_embeds": torch.from_numpy(brng.standard_normal(
+                (4, cfg.num_image_tokens, cfg.d_model), dtype=np.float32))}
+        train = {}
+        for dev, params in (("cpu", cpu), ("cuda", _to(cpu, "cuda"))):
+            leaves = flatten(params)
+            for t in leaves.values():
+                t.requires_grad_(True)
+            kernels.reset_launches()
+            loss_fn = step.make_loss_fn(cfg, strat)
+            losses, grads = [], None
+            for i in (0, 2):      # the train step's two microbatches
+                total, mets = loss_fn(params, {k: v[i:i + 2].to(dev)
+                                               for k, v in batch.items()})
+                gr = torch.autograd.grad(total, list(leaves.values()),
+                                         materialize_grads=True)
+                grads = gr if grads is None \
+                    else [a + b for a, b in zip(grads, gr)]
+                losses.append(float(mets["loss"].detach()))
+            flash = kernels.launches()["flash_attention"]
+            want = 2 * (2 * g * cfg.cross_attn_every + rest)
+            check(flash == (want if dev == "cuda" else 0),
+                  f"[parity vlm {name} train] flash launches on {dev}: "
+                  f"{flash}")
+            train[dev] = (losses, {k: (gr / 2).cpu()
+                                   for k, gr in zip(leaves, grads)})
+        loss_err = max(abs(a - b)
+                       for a, b in zip(train["cpu"][0], train["cuda"][0]))
+        grad_err = max((train["cuda"][1][k] - gr).abs().max().item()
+                       for k, gr in train["cpu"][1].items())
+        check(loss_err <= 1e-4 and grad_err <= 1e-4,
+              f"llama-vision-smoke {name} f32 train step card vs CPU: loss "
+              f"err {loss_err}, grads max abs err {grad_err} (limit 1e-4)")
+        log(f"[parity vlm f32 train step, TF32 off] llama-vision-smoke "
+            f"{name}, remat, 2 microbatches, losses "
+            f"{[round(x, 6) for x in train['cpu'][0]]}: card vs CPU loss "
+            f"err {loss_err:.3e}, grads max abs err {grad_err:.3e} (<= "
+            f"1e-4)")
+        errs[name] = {"first_prefill_err": err, "loss_err": loss_err,
+                      "grad_err": grad_err}
+    return errs
+
+
+VLM_KERNEL_GROUPS = {"flash_attention": ("flash_fwd",),
+                     "fused_mlp": SERVE_GROUPS["fused_mlp"]}
+
+
+def _vlm_part_groups():
+    from repro_torch.models.vlm import CROSS_RANGE
+    return {CROSS_RANGE: "cross_attention"}
+
+
+def _uncut_init_scales(params, cfg, full_layers: int):
+    """Scale every ``wo`` and ``w_down`` of a depth-cut tree (drawn at
+    0.02 / sqrt(2 cfg.num_layers)) to the uncut model's 0.02 / sqrt(2
+    full_layers), in place: the cut serves layers distributed as the
+    full model's are, the scale phase 3 holds the fused MLP at."""
+    from repro_torch.tree import flatten
+    ratio = math.sqrt(cfg.num_layers / full_layers)
+    with torch.no_grad():
+        for key, t in flatten(params).items():
+            if key.endswith(("attn/wo", "mlp/w_down")):
+                t.mul_(ratio)
+    return params
+
+
+def phase_vlm_serve(seed: int, max_new: int = VLM_NEW):
+    """VLM SERVING at full width, depth cut (phase 17):
+    ``Session(get_config("llama-3.2-vision-90b").with_(num_layers=20),
+    device="cuda").serve(slots=4, max_len=1024)`` — the split path on dense
+    rows, the only layout the reference serves the family on — with bf16
+    random weights from ``seed`` (``wo`` and ``w_down`` at the uncut
+    model's init scale, ``_uncut_init_scales``) and both gates of every
+    cross layer at 1.0, on phase 5's six prompts, each with its own
+    (1601, 8192) float32 images, 16 new tokens each (a multimodal chat or
+    captioning user: one image and a text prompt a request). Counts are
+    zeroed just before and read just after: flash 16 x prefills, the
+    fused MLP 20 x (prefills + decode steps), the other kernels never; ``prefill_traces`` the number
+    of distinct prompt lengths (no bucket, each one phase 3 held),
+    ``decode_traces`` 1; every request finishes with 16 in-vocab tokens;
+    the decode state is the self K/V rows of 17 layers (16 and the unused
+    trailing one) and the image K/V blocks of 4. Prints tokens/s, the
+    decode-only step p50 beside the floor of reading the weights a decode
+    step needs at 3.35 TB/s, each prefill's time, peak memory; then one
+    more request under the profiler: its admission step (the prefill and
+    a decode) and one decode-only step, by group (flash, fused MLP, the
+    cross-attention range, other GEMMs, the rest) with the idle share."""
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    from repro_torch.tree import flatten
+    cfg = get_config("llama-3.2-vision-90b").with_(
+        num_layers=VLM_SERVE_LAYERS)
+    g, rest = cfg.vlm_groups
+    hq, hkv, hd = VLM_HEADS
+    check((cfg.num_heads, cfg.num_kv_heads, cfg.head_dim) == VLM_HEADS
+          and (cfg.d_model, cfg.d_ff) == VLM_MLP,
+          f"{cfg.name}'s widths differ from phase 3's")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    session = Session(cfg, device="cuda", seed=seed)
+    _uncut_init_scales(_open_gates(session.params), cfg,
+                       get_config("llama-3.2-vision-90b").num_layers)
+    flat = flatten(session.params)
+    n_params = sum(t.numel() for t in flat.values())
+    lens, prompts = serving_prompts(seed, cfg.vocab_size)
+    images = vlm_images(seed, len(prompts), cfg)
+    eng = session.serve(slots=4, max_len=1024)
+    torch.cuda.synchronize()
+    check(not eng.paged and not eng.mixed and not eng._bucketed,
+          f"[vlm] layout paged={eng.paged}, mixed={eng.mixed}")
+    row = 4 * 2 * hkv * hd * 2            # slots x (k, v) x Hkv x D x bf16
+    self_kv = row * 1024 * (g * cfg.cross_attn_every + max(rest, 1))
+    image_kv = row * cfg.num_image_tokens * g
+    kv_want = self_kv + image_kv
+    check(eng.kv_bytes() == kv_want,
+          f"[vlm] decode state {eng.kv_bytes()} B != {kv_want} B (kv_g + "
+          f"kv_t + xkv)")
+    # the weights one decode step must read: every applied layer (the
+    # cross layers' wk and wv only at prefill), the norms, lm_head
+    read = sum(t.numel() * t.element_size() for k, t in flat.items()
+               if k != "embed" and not k.startswith(
+                   ("trailing/", "cross/xattn/wk", "cross/xattn/wv")))
+    floor_ms = read / HBM_BYTES_PER_S * 1e3
+    log(f"[vlm] {cfg.name} cut to {g} of 20 groups ({cfg.num_layers} "
+        f"layers: {g * cfg.cross_attn_every} self + {g} cross, and the "
+        f"unused trailing layer; width uncut: d_model {cfg.d_model}, "
+        f"{hq}/{hkv} heads x {hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.num_image_tokens} image tokens), {cfg.dtype}, "
+        f"{n_params / 1e9:.3f} B params ({n_params * 2 / 1e9:.2f} GB), gates "
+        f"open; weights, images and decode state ready in "
+        f"{time.perf_counter() - t0:.1f}s (decode state "
+        f"{eng.kv_bytes() / 1e6:.1f} MB: self K/V {self_kv / 1e6:.1f} MB, "
+        f"image K/V {image_kv / 1e6:.1f} MB); "
+        f"prompt lengths {[int(n) for n in lens]}")
+    pf_ms = []
+
+    def timed_prefill(*args, **kw):   # the prefill program, synchronised
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        tok = type(eng)._prefill_fn(eng, *args, **kw)
+        torch.cuda.synchronize()
+        pf_ms.append((int(args[0].shape[1]),
+                      (time.perf_counter() - s0) * 1e3))
+        return tok
+
+    eng._prefill_fn = timed_prefill
+    run = _drive(eng, prompts, max_new, "vlm", mixed=False, images=images)
+    del eng._prefill_fn
+    want = _vlm_want(cfg, run["prefills"], run["decode_steps"])
+    check(run["prefills"] == len(prompts) and run["launches"] == want,
+          f"[vlm] launches {run['launches']} != {want} (flash "
+          f"{cfg.num_layers - g} self layers x prefills, the fused MLP "
+          f"{cfg.num_layers} layers x programs)")
+    check(run["prefill_traces"] == len(set(lens)),
+          f"[vlm] prefill_traces {run['prefill_traces']} != "
+          f"{len(set(lens))} distinct prompt lengths (no bucket)")
+    check(run["decode_traces"] == 1,
+          f"[vlm] decode_traces {run['decode_traces']}")
+    held = {shape[1] for shape in vlm_flash_shapes(seed)}
+    check(set(eng._prefill_lens) <= held,
+          f"[vlm] prefill lengths {sorted(eng._prefill_lens)} not all held "
+          f"by phase 3 ({sorted(held)})")
+    run.update(params=n_params, prompt_lens=[int(n) for n in lens],
+               max_new=max_new, decode_state_bytes=eng.kv_bytes(),
+               decode_weight_bytes=read, decode_floor_ms=floor_ms,
+               prefill_ms=pf_ms,
+               prefill_p50_ms=float(np.percentile([m for _, m in pf_ms],
+                                                  50)))
+    log(_run_text("vlm", run)
+        + f"; decode-only step p50 {run['decode_only_step_p50_ms']:.2f} ms "
+        f"beside the floor {floor_ms:.2f} ms ({read / 1e9:.2f} GB of weights "
+        f"at 3.35 TB/s); prefill per request (length, ms) "
+        f"{[(n, round(m, 2)) for n, m in pf_ms]}")
+    rng = np.random.default_rng(seed + 17)
+    n = int(max(lens))
+    eng.submit(100, rng.integers(0, cfg.vocab_size, size=n), max_new=4,
+               images=vlm_images(seed + 1, 1, cfg)[0])
+    kw = dict(kernel_groups=VLM_KERNEL_GROUPS,
+              part_groups=_vlm_part_groups())
+    run["profile"] = _profile_groups(
+        eng, run["prefill_step_p50_ms"],
+        f"vlm profile: admission step ({n}-token prefill + a decode)",
+        steps=1, required=("flash_attention", "fused_mlp"), **kw)
+    run["profile_decode"] = _profile_groups(
+        eng, run["decode_only_step_p50_ms"],
+        "vlm profile: a decode-only step", steps=1, required=("fused_mlp",),
+        **kw)
+    del eng, session, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase_vlm_train(seed: int, steps: int = 6):
+    """VLM TRAINING at full width, depth cut to one group (phase 18):
+    Llama-3.2-Vision-90B at ``num_layers=5`` (4 self and 1 cross layer, and
+    the unused trailing one: ~7.24 B params) with remat and Adafactor (the
+    reference's memory-lean optimizer: AdamW's fp32 master, m and v would
+    take >= 16 B a parameter, ~116 GB), ``steps`` steps on
+    ``launch/train.py::ImagesData`` (1 x 4096 tokens, 2048 if 4096 does
+    not fit, and one 1 x 1601 x 8192 image block from ``seed``), gates at
+    their init of 0, as the reference trains: flash 8 a step (4 forward, 4
+    recompute), the other kernels never; loss and grad norm finite; step
+    p50, tokens/s, peak memory, the profile by part and the model-FLOPs
+    share of 989 TFLOP/s (``vlm_train_flops``)."""
+    from repro_torch.core.strategy import Strategy
+    from repro_torch.launch.train import ImagesData
+    out = phase_train(seed, steps, layers=VLM_TRAIN_LAYERS,
+                      arch="llama-3.2-vision-90b",
+                      strategy=Strategy(optimizer="adafactor"),
+                      data_cls=ImagesData)
+    check(out["seq_len"] in VLM_TRAIN_LENS,
+          f"[vlm train] seq_len {out['seq_len']} not held by phase 3")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4140,6 +4627,12 @@ def main():
         if k["name"] in whisper_shapes:
             k["whisper_shapes"] = whisper_shapes[k["name"]]
     mark("3 kernels at whisper-tiny's shapes")
+    vlm_shapes = phase_vlm_kernels(args.seed)
+    for k in kernels:
+        if k["name"] in vlm_shapes:
+            k["vlm_shapes"] = vlm_shapes[k["name"]]
+    kernels[1]["vlm_seed_sweep"] = vlm_shapes["fused_mlp_seed_sweep"]
+    mark("3 kernels at Llama-3.2-Vision's shapes")
     parity = phase_parity()
     record["parity_logits_err"] = parity.pop("mixed")
     record["parity_split_logits_err"] = parity
@@ -4155,6 +4648,8 @@ def main():
     mark("4 parity: MoE serving and training")
     record["parity_audio"] = phase_parity_audio()
     mark("4 parity: audio serving and training")
+    record["parity_vlm"] = phase_parity_vlm()
+    mark("4 parity: VLM serving and training")
     main_run, eng, session, prompts = phase_main(args.seed)
     record["main"] = main_run
     record["profile"] = phase_profile(eng, rng, main_run["step_p50_ms"])
@@ -4202,6 +4697,12 @@ def main():
     torch.cuda.empty_cache()
     record["audio_train"] = phase_whisper_train(args.seed)
     mark("16 audio training")
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["vlm"] = phase_vlm_serve(args.seed)
+    mark("17 VLM serving")
+    record["vlm_train"] = phase_vlm_train(args.seed)
+    mark("18 VLM training")
     # each kernel's launches on the paths that run it, each counted from 0
     # just before its run: phase 5 and phases 9-10 (paged attention, the
     # fused MLP; flash in phase 9's model drafter), phase 6 (flash), phase
@@ -4209,13 +4710,15 @@ def main():
     # generate's), phase 12 (flash in the hybrid's shared block), phase 13
     # (paged attention), phase 13b (flash, paged attention), phase 14
     # (flash), phase 15 (paged attention, flash in the encoder), phase 15b
-    # (flash, paged attention), phase 16 (flash)
+    # (flash, paged attention), phase 16 (flash), phase 17 (flash, the
+    # fused MLP), phase 18 (flash)
     paths = [main_run, record["train"], record["ssm"],
              *record["spec"].values(), *record["online"].values(),
              record["hybrid"], *record["train_families"].values(),
              record["moe"]["mixed"], record["moe"]["split"],
              record["moe_train"], record["audio"]["mixed"],
-             record["audio"]["split"], record["audio_train"]]
+             record["audio"]["split"], record["audio_train"], record["vlm"],
+             record["vlm_train"]]
     for k in kernels:
         k["launches"] = sum(run["launches"][k["name"]] for run in paths)
     record["kernels"] = kernels

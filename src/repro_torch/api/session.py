@@ -18,6 +18,9 @@
     Session(get_config("zamba2-1.2b")).train(global_batch=1, seq_len=4096)
     audio = Session(get_config("whisper-tiny")).serve(slots=8, max_len=448)
     audio.submit(0, prompt, max_new=64, frames=frames)  # (1500, 384)
+    vlm = Session(get_config("llama-3.2-vision-90b").with_(num_layers=20))
+    vlm.serve(slots=4, max_len=1024).submit(0, prompt, max_new=16,
+                                            images=images)  # (1601, 8192)
 
     tokens = session.generate(prompt_batch, steps=16)   # (B, 16) greedy
 
@@ -40,10 +43,11 @@ stdlib HTTP front-end over that (serve/server.py). ``save`` /
 ``restore`` write and read the npz checkpoints both packages read
 (checkpoint/io.py). The enc-dec audio family serves (frames with each
 request), generates from a batch dict with ``frames`` and trains on a
-``data=`` object whose batches carry frames. The features not ported
-yet raise ``NotImplementedError`` naming their ROADMAP.md item, as do
-``train`` for the VLM family and ``from_plan``, ``dryrun`` and ``lower``
-(the planner, Queue 1 item 12).
+``data=`` object whose batches carry frames; the VLM likewise with
+``images`` (requests) and ``image_embeds`` (batches), on the split path
+over the dense layout only. The features not ported yet raise
+``NotImplementedError`` naming their ROADMAP.md item, as do
+``from_plan``, ``dryrun`` and ``lower`` (the planner, Queue 1 item 12).
 
     driver = session.serve_async(slots=4, max_len=1024)
     stream = driver.submit(prompt, max_new=16)      # tokens as they come
@@ -127,13 +131,10 @@ class Session:
         session's seed initialises them). ``restore=True`` resumes from
         the TrainConfig's checkpoint dir first. The enc-dec family trains
         on a ``data=`` object whose ``batch(step)`` carries ``frames``
-        beside the tokens: the default token dataset has none, so its
-        first step raises in the model's forward, where the reference's
-        fails too."""
-        family = self.cfg.arch_type
-        if family not in ("dense", "moe", "ssm", "hybrid", "audio"):
-            raise _todo(f"training the {family} family",
-                        f"Queue 1 item 10, {family} training")
+        beside the tokens, the VLM on one that carries ``image_embeds``:
+        the default token dataset has neither, so its first step raises
+        ``KeyError`` in the model's forward, where the reference's fails
+        too."""
         check_kernel_limits(self.cfg, self.strategy, self.device)
         tc = train_cfg or TrainConfig(seed=self.seed)
         trainer = Trainer(self.cfg, self.strategy, self.device, tc,
@@ -146,7 +147,8 @@ class Session:
     def generate(self, prompt, steps: int = 16):
         """Greedy-decode ``steps`` tokens on the session's device.
         ``prompt`` is a (b, s) or (s,) array of token ids, or a model batch
-        dict. Returns (b, steps) int32 on the session's device."""
+        dict (with ``frames`` for the enc-dec family, ``image_embeds`` for
+        the VLM). Returns (b, steps) int32 on the session's device."""
         if isinstance(prompt, dict):
             batch = {k: torch.as_tensor(v).to(self.device)
                      for k, v in prompt.items()}
@@ -174,7 +176,8 @@ class Session:
         step by default (each audio request submits its ``frames``);
         otherwise
         (``mixed=False``, ``paged=False``, sliding-window configs, the SSM
-        family, the hybrid) the split path, one prefill program a request
+        family, the hybrid, the VLM — each VLM request submits its
+        ``images``) the split path, one prefill program a request
         and one batched decode a step (see serve/engine.py). ``attn_backend``
         exists for the reference's signature only: the device picks the
         kernel or the plain path."""

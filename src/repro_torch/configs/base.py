@@ -108,6 +108,15 @@ class ModelConfig:
         return g, self.num_layers - g * self.hybrid_attn_every
 
     @property
+    def vlm_groups(self) -> tuple:
+        """(G, rest) of a VLM: G groups of ``cross_attn_every`` self
+        layers, each followed by one cross layer, and ``rest`` trailing
+        self layers (``repro/models/vlm.py::_gl``)."""
+        per = self.cross_attn_every + 1
+        g = self.num_layers // per
+        return g, self.num_layers - g * per
+
+    @property
     def has_encoder(self) -> bool:
         return self.encoder_layers > 0
 

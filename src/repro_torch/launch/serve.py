@@ -9,7 +9,12 @@ paged pool and ``--dense`` the split path on the dense per-slot layout
 mamba2-780m``) and the hybrid (``--arch zamba2-1.2b``) run the split
 path on the dense layout. The enc-dec audio family (``--arch
 whisper-tiny``) serves like a dense decoder, each request with its own
-``(encoder_ctx, d_model)`` frames drawn from ``--seed``.
+``(encoder_ctx, d_model)`` frames drawn from ``--seed``; the VLM
+(``--arch llama-3.2-vision-90b``) serves on the split path over the
+dense layout (not pageable, as in the reference), each request with its
+own ``(num_image_tokens, d_model)`` images drawn from ``--seed``.
+``--full`` needs more than one card for Llama-3.2-Vision-90B uncut (~177
+GB of bf16 weights): on one H100 cut its depth with ``--layers``.
 
     # on the card, full-width Qwen3-14B (random weights from --seed)
     PYTHONPATH=src python -m repro_torch.launch.serve --full \\
@@ -40,6 +45,12 @@ whisper-tiny``) serves like a dense decoder, each request with its own
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
         --full --slots 8 --max-len 448 --chunk-tokens 256 --requests 8
 
+    # on the card, full-width Llama-3.2-Vision-90B cut to 4 of its 20
+    # groups (16 self + 4 cross layers, ~40 GB of weights)
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch llama-3.2-vision-90b --full --layers 20 --slots 4 \
+        --max-len 1024 --requests 6 --max-new 16
+
     # on the CPU, the reduced configs in float32
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --dense
@@ -54,6 +65,8 @@ whisper-tiny``) serves like a dense decoder, each request with its own
         --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
         --device cpu --no-mixed
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch llama-3.2-vision-90b --device cpu
 
 Without ``--full`` the arch's smoke config runs in float32, as the JAX
 launcher does; ``--full`` takes the arch's full ``CONFIG`` in its own
@@ -98,6 +111,8 @@ def main(argv=None):
                          "(default: the float32 smoke config)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to N layers (width uncut)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and the workload")
     ap.add_argument("--requests", type=int, default=6)
@@ -164,6 +179,8 @@ def main(argv=None):
 
     cfg = get_config(args.arch) if args.full \
         else get_smoke(args.arch).with_(dtype="float32")
+    if args.layers:
+        cfg = cfg.with_(num_layers=args.layers)
     session = Session(cfg, device=args.device, seed=args.seed)
     spec = SpecConfig(k=args.spec_k, drafter=args.drafter) \
         if args.spec_k > 0 else None
@@ -202,9 +219,14 @@ def main(argv=None):
         # in for the stubbed mel + conv frontend (the reference's draw)
         frames = (rng.standard_normal((cfg.encoder_ctx, cfg.d_model))
                   .astype(np.float32) if cfg.arch_type == "audio" else None)
+        # a VLM request carries synthetic patch embeddings, standing in
+        # for the stubbed ViT + projector (the reference's draw)
+        images = (rng.standard_normal((cfg.num_image_tokens, cfg.d_model))
+                  .astype(np.float32) if cfg.arch_type == "vlm" else None)
         prompt = np.concatenate(
             [system, rng.integers(0, cfg.vocab_size, size=(n,))])
-        eng.submit(rid, prompt, max_new=args.max_new, frames=frames)
+        eng.submit(rid, prompt, max_new=args.max_new, frames=frames,
+                   images=images)
 
     t0 = time.perf_counter()
     results = eng.run()

@@ -18,10 +18,18 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \
         --full --steps 4 --global-batch 8 --seq 448
 
+    # on the card, full-width Llama-3.2-Vision-90B cut to one group (4
+    # self + 1 cross layer; tokens and seeded images)
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch llama-3.2-vision-90b --full --layers 5 --optimizer adafactor \
+        --steps 4 --global-batch 1 --seq 4096
+
     # on the CPU, the reduced configs in float32
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --arch whisper-tiny --steps 2 --global-batch 2 --seq 32
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --arch llama-3.2-vision-90b --steps 2 --global-batch 2 --seq 32
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch mamba2-780m --steps 2 --global-batch 2 --seq 64
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
@@ -39,8 +47,13 @@ router's load-balance loss), the SSM family (``--arch mamba2-780m``),
 the hybrid (``--arch zamba2-1.2b``) and the enc-dec audio family
 (``--arch whisper-tiny``: the token batches beside one batch of
 ``(global_batch, encoder_ctx, d_model)`` frames drawn from ``--seed``,
-:class:`FramesData`) train; the VLM family raises naming its ROADMAP.md
-item.
+:class:`FramesData`) and the VLM (``--arch llama-3.2-vision-90b``: one
+batch of ``(global_batch, num_image_tokens, d_model)`` image embeddings
+beside the tokens, :class:`ImagesData`) train. ``--full`` needs more than
+one card for Llama-3.2-Vision-90B uncut (~88.5 B parameters, ~177 GB in
+bf16): on one H100 cut its depth with ``--layers`` (5 = one group: 4
+self and 1 cross layer) and train it with ``--optimizer adafactor``
+(AdamW's fp32 master, m and v would need >= 16 bytes a parameter).
 """
 from __future__ import annotations
 
@@ -63,16 +76,29 @@ class FramesData:
     d_model)`` float32, drawn once from ``seed``: the enc-dec family's
     training data while its mel + conv frontend is stubbed."""
 
+    #: the batch key of the embeddings, and the config field of their length
+    KEY, LENGTH = "frames", "encoder_ctx"
+
     def __init__(self, cfg, *, global_batch: int, seq_len: int,
                  seed: int = 0):
         self.tokens = TokenDataset(DataConfig(
             vocab_size=cfg.vocab_size, seq_len=seq_len,
             global_batch=global_batch, seed=seed))
-        self.frames = np.random.default_rng(seed).standard_normal(
-            (global_batch, cfg.encoder_ctx, cfg.d_model), dtype=np.float32)
+        self.embeds = np.random.default_rng(seed).standard_normal(
+            (global_batch, getattr(cfg, self.LENGTH), cfg.d_model),
+            dtype=np.float32)
 
     def batch(self, step: int):
-        return {**self.tokens.batch(step), "frames": self.frames}
+        return {**self.tokens.batch(step), self.KEY: self.embeds}
+
+
+class ImagesData(FramesData):
+    """The twin of :class:`FramesData` for the VLM: token batches beside
+    one batch of standard-normal image patch embeddings ``(global_batch,
+    num_image_tokens, d_model)`` float32 from ``seed``, under
+    ``image_embeds``, while the ViT tower and projector are stubbed."""
+
+    KEY, LENGTH = "image_embeds", "num_image_tokens"
 
 
 def main(argv=None):
@@ -90,17 +116,20 @@ def main(argv=None):
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--optimizer", choices=("adamw", "adafactor"),
+                    default="adamw")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--checkpoint-dir", default="")
     args = ap.parse_args(argv)
 
     if args.full:
         cfg = get_config(args.arch)
-        strategy = Strategy(microbatches=args.microbatches, dtype=cfg.dtype)
+        strategy = Strategy(microbatches=args.microbatches,
+                            optimizer=args.optimizer, dtype=cfg.dtype)
     else:
         cfg = get_smoke(args.arch).with_(dtype="float32")
         strategy = Strategy(remat=False, microbatches=args.microbatches,
-                            dtype="float32")
+                            optimizer=args.optimizer, dtype="float32")
     if args.layers:
         cfg = cfg.with_(num_layers=args.layers)
     session = Session(cfg, strategy=strategy, device=args.device,
@@ -110,9 +139,9 @@ def main(argv=None):
                      else 0,
                      checkpoint_dir=args.checkpoint_dir or "checkpoints",
                      seed=args.seed)
-    data = FramesData(cfg, global_batch=args.global_batch,
-                      seq_len=args.seq, seed=args.seed) \
-        if cfg.arch_type == "audio" else None
+    data_cls = {"audio": FramesData, "vlm": ImagesData}.get(cfg.arch_type)
+    data = data_cls(cfg, global_batch=args.global_batch, seq_len=args.seq,
+                    seed=args.seed) if data_cls else None
     trainer = session.train(tc, data=data, global_batch=args.global_batch,
                             seq_len=args.seq)
     on_card = session.device.type == "cuda"

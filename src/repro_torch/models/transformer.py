@@ -74,13 +74,6 @@ def unstack_layers(params, n: int):
     return unstack(params["layers"], n)
 
 
-def _check_dense(cfg):
-    if cfg.arch_type not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"{cfg.name}: this module runs dense and MoE decoders; "
-            f"{cfg.arch_type} waits for ROADMAP.md Queue 1 item 10")
-
-
 def _check_cp(cfg):
     if cfg.cp_decode:
         raise NotImplementedError(
@@ -122,7 +115,6 @@ def forward(params, batch, cfg, *, remat: bool = False,
             attn_impl: str = "auto"):
     """batch: {"tokens": (B,S) int}. Returns (logits (B,S,V), aux): the
     layers' router aux losses summed, 0 for a dense FFN."""
-    _check_dense(cfg)
     x = _embed(params, batch["tokens"], cfg)
     auxs = []
     for lp in unstack_layers(params, cfg.num_layers):
@@ -169,7 +161,6 @@ def prefill(params, batch, cfg, cache, *, attn_impl: str = "auto",
     rows are causally invisible to real rows, and their cache entries stay
     masked by ``kv_len`` / ``kpos`` until decode overwrites them.
     """
-    _check_dense(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     kv = cache["kv"]
@@ -202,7 +193,6 @@ def decode_step(params, cache, token, pos, cfg):
     cache: each row writes at its cursor (``pos % W`` on the ring) and
     attends to its own valid prefix. Returns (logits (B,1,V), cache) with
     ``cache["kv"]`` updated in place and ``"pos"`` advanced."""
-    _check_dense(cfg)
     x = _embed(params, token, cfg)
     paged = "ptab" in cache
     pool = cache["kv"]

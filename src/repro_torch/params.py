@@ -24,8 +24,15 @@ trailing layer), and ONE shared attention + SwiGLU block under
 ``dec_layers/`` stacked on their own depths (attention, in the decoder
 also ``xattn``, and the plain-GeLU MLP's ``w_up`` and ``w_down``; ``wo``
 and ``w_down`` at ``0.02 / sqrt(2L)`` with L the decoder's depth in both
-stacks), ``enc_norm``, ``final_norm`` and an untied ``lm_head``. Leaves
-are keyed by the ``"/"``-joined paths of
+stacks), ``enc_norm``, ``final_norm`` and an untied ``lm_head``. The
+VLM's mirrors ``repro/models/vlm.py::init``: the dense decoder's layers
+stacked ``(G, cross_attn_every, ...)`` under ``self_groups/``, one gated
+cross-attention layer a group stacked ``(G, ...)`` under ``cross/``
+(``xattn``, the SwiGLU ``mlp``, the norms ``lnx`` and ``ln2``, and the
+fp32 gates ``gate_attn`` and ``gate_mlp``, zero at init), ``(max(rest,
+1), ...)`` dense layers under ``trailing/`` (one unused layer when
+``rest == 0``, as the reference keeps), the embedding, ``final_norm`` and
+an untied ``lm_head``. Leaves are keyed by the ``"/"``-joined paths of
 ``repro/checkpoint/io.py::_flatten`` (``layers/attn/wq``,
 ``groups/mamba/in_proj``, ...), which is the bridge's key map.
 
@@ -73,15 +80,7 @@ FIXED_INITS = {
 #: stacked leaves: top-level key -> leading layer axes, drawn one layer at
 #: a time by :func:`init_params`
 STACK_AXES = {"layers": 1, "groups": 2, "trailing": 1, "enc_layers": 1,
-              "dec_layers": 1}
-
-
-def _check_family(cfg):
-    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: the port holds dense-decoder, MoE, SSM, hybrid "
-            f"and enc-dec audio params only so far ({cfg.arch_type} waits "
-            f"for ROADMAP.md Queue 1 item 10)")
+              "dec_layers": 1, "self_groups": 2, "cross": 1}
 
 
 def _mamba_spec(cfg, prefix: str, lead: tuple) -> Spec:
@@ -172,19 +171,49 @@ def _block_spec(cfg, prefix: str, lead: tuple) -> Spec:
             f"{prefix}/moe/w_down": (lead + (e, f, d), dt, deep),
         })
     else:
-        spec.update({
-            f"{prefix}/mlp/w_gate": (lead + (d, f), dt, 0.02),
-            f"{prefix}/mlp/w_up": (lead + (d, f), dt, 0.02),
-            f"{prefix}/mlp/w_down": (lead + (f, d), dt, deep),
-        })
+        spec.update(_mlp_spec(cfg, f"{prefix}/mlp", lead))
+    return spec
+
+
+def _mlp_spec(cfg, prefix: str, lead: tuple) -> Spec:
+    """``init_mlp``'s SwiGLU stacked on ``lead``: ``w_down`` at ``0.02 /
+    sqrt(2L)``."""
+    dt = getattr(torch, cfg.dtype)
+    d, f = cfg.d_model, cfg.d_ff
+    return {f"{prefix}/w_gate": (lead + (d, f), dt, 0.02),
+            f"{prefix}/w_up": (lead + (d, f), dt, 0.02),
+            f"{prefix}/w_down": (lead + (f, d), dt,
+                                 0.02 / math.sqrt(2 * cfg.num_layers))}
+
+
+def _vlm_spec(cfg) -> Spec:
+    """``repro/models/vlm.py::init`` and ``init_cross_layer``."""
+    dt = getattr(torch, cfg.dtype)
+    f32 = torch.float32
+    d, v = cfg.d_model, cfg.vocab_size
+    g, rest = cfg.vlm_groups
+    spec: Spec = {"embed": ((v, d), dt, 0.02)}
+    spec.update(_block_spec(cfg, "self_groups", (g, cfg.cross_attn_every)))
+    spec.update(_attn_spec(cfg, "cross/xattn", (g,)))
+    spec.update(_mlp_spec(cfg, "cross/mlp", (g,)))
+    spec.update({
+        "cross/lnx": ((g, d), f32, "ones"),
+        "cross/ln2": ((g, d), f32, "ones"),
+        "cross/gate_attn": ((g,), f32, "zeros"),
+        "cross/gate_mlp": ((g,), f32, "zeros"),
+    })
+    spec.update(_block_spec(cfg, "trailing", (max(rest, 1),)))
+    spec["final_norm"] = ((d,), f32, "ones")
+    spec["lm_head"] = ((d, v), dt, 0.02)
     return spec
 
 
 def param_spec(cfg) -> Spec:
     """Every leaf of the family's tree, in ``_flatten`` key form."""
-    _check_family(cfg)
     if cfg.arch_type == "audio":
         return _encdec_spec(cfg)
+    if cfg.arch_type == "vlm":
+        return _vlm_spec(cfg)
     dt = getattr(torch, cfg.dtype)
     d, v = cfg.d_model, cfg.vocab_size
     spec: Spec = {"embed": ((v, d), dt, 0.02),

@@ -6,9 +6,10 @@ enc-dec audio family take the paged pool and ONE mixed token-slot step
 per engine step by default; the split path serves the rest — those
 models with ``mixed=False`` (on the pool) or ``paged=False``,
 sliding-window configs (on the dense ring), the SSM family (not pageable:
-its cache is a constant-size recurrent state) and the hybrid (its Mamba
+its cache is a constant-size recurrent state), the hybrid (its Mamba
 states beside the shared block's dense K/V rows, not pageable either, as
-in the reference).
+in the reference) and the VLM (its image K/V a separate block a slot:
+the reference serves it on the dense layout only).
 
 **Mixed path (dense and MoE decoders, enc-dec audio).** The KV cache is
 a flat pool of ``page_size``-token pages shared by every slot plus a
@@ -33,21 +34,24 @@ jit traces; PyTorch runs eagerly, so ``stats["decode_traces"]`` counts
 the distinct ``(chunk_tokens, page bucket)`` shapes the program has run
 at — the same bounded-shape invariant.
 
-**Split path** (``mixed=False``: the only path of the SSM family and the
-hybrid, and the legacy path of dense and MoE decoders). Each admitted
-request is prefilled alone by its own device program, its first token
+**Split path** (``mixed=False``: the only path of the SSM family, the
+hybrid and the VLM, and the legacy path of dense and MoE decoders). Each
+admitted request is prefilled alone by its own device program, its first token
 sampled and its fresh cache stored; then ONE batched decode advances
 every slot per step (inactive rows run too and are overwritten at their
 next prefill, as in the reference). Dense decoders pad the prompt to
 ``prefill_bucket(n, cap=window)`` and gather the logits at ``last_pos =
 n - 1``; an enc-dec prefill takes the request's frames, runs the encoder
-and stores the cross K/V in the slot's block (both layouts); on the
+and stores the cross K/V in the slot's block (both layouts), a VLM
+prefill takes the request's images and stores each cross layer's image
+K/V in the slot's block; on the
 dense layout the prefill writes row ``slot`` of every cache leaf in
 place, on the paged layout it fills a scratch cache of
 whole pages that ``scatter_prefill_pages`` writes through the slot's
 pages (bucket padding to the null page). MoE decoders prefill at the
 exact length (capacity routing is pad-sensitive), on either layout, and
-so do enc-dec decoders (the reference's prefill gathers no ``last_pos``).
+so do enc-dec decoders and the VLM (the reference's prefill gathers no
+``last_pos``).
 The
 SSM family and the hybrid prefill at the exact length (the recurrence is
 pad-sensitive) and keep their states (and the hybrid its K/V rows, a
@@ -83,15 +87,17 @@ dense-decoder program and in every application of the hybrid's shared
 block — never in an MoE layer, whose experts are batched matmuls as in
 the reference — flash attention in every dense or MoE split prefill and
 every hybrid prefill, flash attention in every enc-dec encoder run and
-split prefill, the SSD scan in every Mamba layer of an SSM or hybrid
-prefill), the CPU their plain versions
+split prefill, flash attention in every self layer of a VLM prefill and
+the fused MLP in every VLM layer, self or cross, of every program, the
+SSD scan in every Mamba layer of an SSM or hybrid prefill), the CPU
+their plain versions
 (``stats["decode_backend"]`` reads ``"kernel"`` or ``"plain"``). On a
 CUDA device an engine refuses, at construction, shapes a kernel of its
 path cannot take (each kernel's ``kernel_limits``: paged attention on
-the paged layout, flash attention on the dense, MoE and hybrid split
-paths and on every enc-dec path, the fused MLP on every dense and
-hybrid path, the SSD scan on every SSM and hybrid path); nothing falls
-back to a plain version there.
+the paged layout, flash attention on the dense, MoE, hybrid and VLM
+split paths and on every enc-dec path, the fused MLP on every dense,
+hybrid and VLM path, the SSD scan on every SSM and hybrid path); nothing
+falls back to a plain version there.
 
 **Prefix sharing, lazy growth, copy-on-write and preemption** (the
 paged pool, both paths), as the reference's: ``prefix_cache=True`` maps
@@ -123,8 +129,8 @@ draft pages past the accepted cursor go back through
 token for token, and the program set stays one per (``chunk_tokens``,
 page bucket).
 
-Not ported yet, each raising ``NotImplementedError`` naming its
-ROADMAP.md item: TP/DP meshes, ``images=`` and the VLM family.
+Not ported yet, raising ``NotImplementedError`` naming its ROADMAP.md
+item: TP/DP meshes.
 """
 from __future__ import annotations
 
@@ -174,6 +180,7 @@ class Request:
     max_new: int
     out: List[int] = field(default_factory=list)
     frames: Optional[np.ndarray] = None   # (enc_ctx, d_model), audio only
+    images: Optional[np.ndarray] = None   # (n_img_tok, d_model), vlm only
     done: bool = False
     priority: int = 0                  # scheduler hint, ignored by FIFO
     deadline: Optional[float] = None   # absolute time.monotonic() bound
@@ -347,11 +354,11 @@ class ServeEngine:
         engine's path cannot take (it would refuse at the first step,
         after ``submit`` took the request off the queue): paged attention
         on the paged layout, flash attention in every split-path prefill
-        of a dense or MoE decoder (paged or not) or of the hybrid and in
-        every enc-dec admission on either path (the encoder), the fused
-        MLP in every dense-decoder and hybrid program (an MoE layer and
-        the enc-dec family's plain-GeLU MLP run none), the SSD scan in
-        every SSM and hybrid prefill."""
+        of a dense or MoE decoder (paged or not), of the hybrid or of the
+        VLM and in every enc-dec admission on either path (the encoder),
+        the fused MLP in every dense-decoder, hybrid and VLM program (an
+        MoE layer and the enc-dec family's plain-GeLU MLP run none), the
+        SSD scan in every SSM and hybrid prefill."""
         cfg = self.cfg
         checks = []
         if self.paged:
@@ -365,7 +372,8 @@ class ServeEngine:
                            "Mamba layer", "", ssd_scan.kernel_limits(
                                cfg.dtype, cfg.ssm_heads, cfg.ssm_head_dim,
                                cfg.ssm_state, cfg.ssm_chunk)))
-        if cfg.arch_type in ("dense", "moe", "hybrid") and not self.mixed:
+        if cfg.arch_type in ("dense", "moe", "hybrid", "vlm") \
+                and not self.mixed:
             checks.append(("every split-path prefill runs the "
                            "flash-attention kernel", "",
                            flash_attention.kernel_limits(
@@ -377,7 +385,7 @@ class ServeEngine:
                            "kernel", "", flash_attention.kernel_limits(
                                cfg.dtype, cfg.num_heads, cfg.num_kv_heads,
                                cfg.head_dim)))
-        if cfg.arch_type in ("dense", "hybrid") and not cfg.is_moe:
+        if cfg.arch_type in ("dense", "hybrid", "vlm") and not cfg.is_moe:
             checks.append(("every program runs the fused-MLP kernel", "",
                            fused_mlp.kernel_limits(cfg.dtype, cfg.d_model,
                                                    cfg.d_ff)))
@@ -429,8 +437,10 @@ class ServeEngine:
     # ------------------------------------------------------------ memory
     def kv_bytes(self) -> int:
         """Device bytes of the resident decode state, allocated up front:
-        the KV pool or rows, the enc-dec cross K/V blocks, the SSM states
-        and conv tails (cursors and the page table excluded)."""
+        the KV pool or rows, the enc-dec cross K/V blocks, the VLM's self
+        K/V rows (``kv_g``, ``kv_t``) and image K/V blocks (``xkv``), the
+        SSM states and conv tails (cursors and the page table
+        excluded)."""
         def size(tree):
             return sum(size(v) if isinstance(v, dict)
                        else v.numel() * v.element_size()
@@ -493,7 +503,7 @@ class ServeEngine:
         return tok
 
     def _prefill_fn(self, tokens, slot: int, last_pos: int, pages=None,
-                    frames=None):
+                    extra=None):
         """Split path: prefill one (bucket-padded) prompt (1, blen), sample
         its first token at ``last_pos`` and store the fresh per-request
         cache: the dense layout's row ``slot`` of every leaf (K/V, the
@@ -501,17 +511,17 @@ class ServeEngine:
         family and the hybrid), written in place by the prefill itself;
         on the paged layout a scratch cache of whole pages, scattered
         through ``pages`` (and its cross K/V copied into the slot's
-        block). An enc-dec prefill takes the request's ``frames`` (1,
-        enc_ctx, d) and no ``last_pos`` (its prompt is never padded).
-        ``pos[slot] = last_pos + 1``. Returns the token (a 0-d
-        tensor)."""
+        block). ``extra`` holds the request's modality tensor beside the
+        tokens: an enc-dec request's ``frames`` (1, enc_ctx, d), a VLM
+        request's ``image_embeds`` (1, N, d). Only a bucketed (dense)
+        prefill gathers its logits at ``last_pos``; the others run at the
+        exact length. ``pos[slot] = last_pos + 1``. Returns the token (a
+        0-d tensor)."""
         blen = tokens.shape[1]
         self._prefill_lens.add(blen)
         self.stats["prefill_traces"] = len(self._prefill_lens)
-        batch = {"tokens": tokens}
-        kw = {"last_pos": last_pos}
-        if frames is not None:
-            batch["frames"], kw = frames, {}
+        batch = {"tokens": tokens, **(extra or {})}
+        kw = {"last_pos": last_pos} if self._bucketed else {}
         if self.paged:
             clen = pages_for(blen, self.page_size) * self.page_size
             c1 = self.model.init_cache(self.cfg, 1, clen,
@@ -549,12 +559,11 @@ class ServeEngine:
         still QUEUED past it finishes ``done=False, expired=True``.
         An enc-dec (audio) request must carry ``frames``, its
         ``(encoder_ctx, d_model)`` frame embeddings (the stubbed audio
-        frontend's output, stored as float32); frames on another family
-        are refused, as in the reference.
+        frontend's output), and a VLM request ``images``, its
+        ``(num_image_tokens, d_model)`` patch embeddings (the stubbed
+        vision frontend's output), each stored as float32; either on
+        another family is refused, as in the reference.
         Returns the LIVE Request record (``out`` grows as it decodes)."""
-        if images is not None:
-            raise _todo("images= requests (the VLM family)",
-                        "Queue 1 item 10")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError(f"request {rid}: empty prompt")
@@ -601,6 +610,22 @@ class ServeEngine:
             raise ValueError(
                 f"request {rid}: frames are only meaningful for audio "
                 f"archs, not {self.cfg.arch_type}")
+        if self.cfg.arch_type == "vlm":
+            if images is None:
+                raise ValueError(
+                    f"request {rid}: {self.cfg.name} is a VLM arch; "
+                    "submit(..., images=(num_image_tokens, d_model)) "
+                    "patch embeddings (the stubbed vision frontend's "
+                    "output)")
+            images = np.asarray(images, np.float32)
+            want = (self.cfg.num_image_tokens, self.cfg.d_model)
+            if images.shape != want:
+                raise ValueError(
+                    f"request {rid}: images shape {images.shape} != {want}")
+        elif images is not None:
+            raise ValueError(
+                f"request {rid}: images are only meaningful for vlm "
+                f"archs, not {self.cfg.arch_type}")
         deadline = None
         if deadline_s is not None:
             if deadline_s <= 0:
@@ -609,7 +634,8 @@ class ServeEngine:
                     f"{deadline_s}")
             deadline = time.monotonic() + float(deadline_s)
         req = Request(rid, prompt, int(max_new), frames=frames,
-                      priority=int(priority), deadline=deadline)
+                      images=images, priority=int(priority),
+                      deadline=deadline)
         self.queue.append(req)
         explain = getattr(self._sched, "explain", None)
         self.tracer.req_event(
@@ -900,9 +926,11 @@ class ServeEngine:
             padded = np.zeros((1, blen), np.int32)
             padded[0, :n] = ctx
             tokens = torch.from_numpy(padded).to(self.device)
-            frames = None if req.frames is None else \
-                torch.from_numpy(req.frames[None]).to(self.device)
-            tok = int(self._prefill_fn(tokens, s, n - 1, pages, frames))
+            extra = {key: torch.from_numpy(arr[None]).to(self.device)
+                     for key, arr in (("frames", req.frames),
+                                      ("image_embeds", req.images))
+                     if arr is not None}
+            tok = int(self._prefill_fn(tokens, s, n - 1, pages, extra))
             self.stats["prefills"] += 1
             self.stats["decode_tokens"] += 1
             req.out.append(tok)

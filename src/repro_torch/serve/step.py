@@ -170,7 +170,8 @@ def greedy_generate(params, cfg, strategy, prompt, steps: int, *,
                     temperature: float = 0.0,
                     generator: Optional[torch.Generator] = None):
     """The lockstep generate loop: prefill the prompt batch (``"tokens"``
-    (B, S), and ``"frames"`` for the enc-dec family) into a cache of S +
+    (B, S), and ``"frames"`` for the enc-dec family or ``"image_embeds"``
+    for the VLM) into a cache of S +
     steps positions, then ``steps - 1`` single-token decodes.
     Greedy by default; ``temperature > 0`` with a ``generator`` samples
     through the engine's sampler (seeded within the port: it cannot replay

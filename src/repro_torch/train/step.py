@@ -3,7 +3,8 @@
 
 ``make_train_step(cfg, strategy)`` returns
 ``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``
-for the family ``get_model(cfg)`` names (dense, MoE, SSM, hybrid); an
+for the family ``get_model(cfg)`` names (dense, MoE, SSM, hybrid,
+enc-dec audio, VLM); an
 MoE decoder's loss adds ``cfg.router_aux_coef`` times the router aux
 loss, and each microbatch routes under its own capacity, as in the
 reference.
@@ -70,9 +71,9 @@ def make_train_step(cfg, strategy: Strategy, *, lr: float = 3e-4,
         with record_function("forward_loss"):
             total, metrics = loss_fn(params, batch)
         with record_function("backward"):
-            # a leaf the loss does not reach (the hybrid's one unused
-            # trailing layer when every layer is in a group) gets zeros, as
-            # jax.grad gives
+            # a leaf the loss does not reach (the hybrid's and the VLM's one
+            # unused trailing layer when every layer is in a group) gets
+            # zeros, as jax.grad gives
             grads = torch.autograd.grad(total, list(leaves.values()),
                                         materialize_grads=True)
         return unflatten(dict(zip(leaves, grads))), \

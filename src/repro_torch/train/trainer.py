@@ -40,14 +40,15 @@ def check_kernel_limits(cfg, strategy: Strategy, device) -> None:
     """On a CUDA device every attention over the sequence runs the flash
     kernel (``attn_impl`` ``auto`` or ``pallas``): each layer of a dense
     or MoE decoder, each application of the hybrid's shared block, each
-    encoder and decoder self-attention of the enc-dec family.
+    encoder and decoder self-attention of the enc-dec family, each self
+    layer of the VLM (its cross-attention is plain).
     Refuse, before any parameter is made, heads it cannot take, rather
     than fail at the first step. The SSM family runs no attention, and
     trains through the plain SSD scan (the kernel has no backward):
     nothing to check."""
     if torch.device(device).type != "cuda" or \
             strategy.attn_impl not in ("auto", "pallas") or \
-            cfg.arch_type not in ("dense", "moe", "hybrid", "audio"):
+            cfg.arch_type not in ("dense", "moe", "hybrid", "audio", "vlm"):
         return
     why = flash_attention.kernel_limits(cfg.dtype, cfg.num_heads,
                                         cfg.num_kv_heads, cfg.head_dim)

@@ -227,7 +227,8 @@ def test_frames_validation_matches_the_reference(params):
     """tests/test_serve_paged.py:209: an audio request without frames, or
     with frames of another shape, raises the reference's ``ValueError``
     with its text; frames on a dense engine raise naming ``audio``; the
-    stored frames are float32; ``images=`` still raises naming item 10."""
+    stored frames are float32; ``images=`` on an audio engine raises the
+    reference's ``ValueError`` naming ``vlm``."""
     jeng = JaxEngine(JaxConfig(**KW), _jax_params(), slots=1, max_len=32)
     eng = ServeEngine(ModelConfig(**KW), params, slots=1, max_len=32)
     prompt = np.arange(4, dtype=np.int32)
@@ -250,10 +251,13 @@ def test_frames_validation_matches_the_reference(params):
     req = eng.submit(1, prompt, max_new=2,
                      frames=np.zeros((12, 64), np.float64))
     assert req.frames.dtype == np.float32
-    with pytest.raises(NotImplementedError, match="item 10"):
-        eng.submit(2, prompt, max_new=2,
-                   frames=np.zeros((12, 64), np.float32),
-                   images=np.zeros((4, 64), np.float32))
+    kw = dict(frames=np.zeros((12, 64), np.float32),
+              images=np.zeros((4, 64), np.float32))
+    with pytest.raises(ValueError, match="vlm") as want:
+        jeng.submit(2, prompt, max_new=2, **kw)
+    with pytest.raises(ValueError, match="vlm") as got:
+        eng.submit(2, prompt, max_new=2, **kw)
+    assert str(got.value) == str(want.value)
 
 
 def test_prefix_cache_salts_blocks_with_the_frames_as_jax(params):

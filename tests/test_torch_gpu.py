@@ -318,6 +318,10 @@ def test_paged_attention_bf16_kernel_refuses_shapes_past_its_limits(
     # the hybrid's shared block (Zamba2-1.2B: d 2048, f 8192, 38 layers)
     (torch.bfloat16, (1e-3, 8e-3), 77, 2048, 8192,
      (0.02, 0.02 / 76 ** 0.5)),
+    # Llama-3.2-Vision-90B's decode step (4 slots; d 8192, f 28672, 100
+    # layers): K 8192 is 128 stages, the down product 4 K-splits
+    (torch.bfloat16, (1e-3, 8e-3), 4, 8192, 28672,
+     (0.02, 0.02 / 200 ** 0.5)),
 ])
 def test_fused_mlp_kernel_matches_plain(cuda, dtype, tol, t, d, f, scales):
     gen = torch.Generator(device="cuda").manual_seed(t)
@@ -444,6 +448,44 @@ def test_encdec_engine_on_card_matches_cpu(cuda, mixed):
             "flash_attention": on * flash, "ssd_scan": 0}
         assert st["decode_traces"] == 1
         assert st["encode_traces"] == (1 if mixed else 0)
+    assert outs["cpu"] == outs["cuda"]
+
+
+def test_vlm_engine_on_card_matches_cpu(cuda):
+    """llama-vision-smoke in fp32 with both gates of its cross layer open
+    (closed, the images would not reach the logits): the card's engine
+    (split path, dense rows) gives the CPU's greedy streams; every prefill
+    ran flash once a self layer, every program (prefill or decode) the
+    fused MLP once a layer, self or cross, and nothing ran paged
+    attention or the SSD scan."""
+    from repro_torch.configs import get_smoke
+    cfg = get_smoke("llama-3.2-vision-90b").with_(dtype="float32")
+    g, _ = cfg.vlm_groups
+    cpu = init_params(cfg, device="cpu", seed=3)
+    for gate in ("gate_attn", "gate_mlp"):
+        cpu["cross"][gate].fill_(1.0)
+    params = {"cpu": cpu, "cuda": tree_map(lambda t: t.cuda(), cpu)}
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(n,))
+               for n in (5, 23, 9, 40, 6)]
+    images = rng.standard_normal((len(prompts), cfg.num_image_tokens,
+                                  cfg.d_model)).astype(np.float32)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, params[dev], slots=2, max_len=64)
+        assert not eng.paged and not eng.mixed
+        for i, (p, im) in enumerate(zip(prompts, images)):
+            eng.submit(i, p, max_new=6, images=im)
+        kernels.reset_launches()
+        res = eng.run()
+        outs[dev] = {i: list(res[i].out) for i in res}
+        pf, dec = eng.stats["prefills"], eng.stats["decode_steps"]
+        on = dev == "cuda"
+        assert kernels.launches() == {
+            "paged_attention": 0,
+            "fused_mlp": cfg.num_layers * (pf + dec) if on else 0,
+            "flash_attention": (cfg.num_layers - g) * pf if on else 0,
+            "ssd_scan": 0}
     assert outs["cpu"] == outs["cuda"]
 
 
@@ -782,12 +824,14 @@ def test_flash_attention_kernel_writes_zero_for_rows_without_live_keys(cuda):
 
 # bf16 only: Kimi's head width (112) with causal GQA, the training
 # shape's heads (40/8 x 128) at S = T = 1024, the hybrid's shared block
-# (32/32 x 64: GQA rep 1, D 64), and whisper-tiny's encoder (6/6 x 64,
-# non-causal over 1500 frames: 11 key tiles of 128 and a ragged tail of 92)
+# (32/32 x 64: GQA rep 1, D 64), whisper-tiny's encoder (6/6 x 64,
+# non-causal over 1500 frames: 11 key tiles of 128 and a ragged tail of
+# 92) and Llama-3.2-Vision-90B's self layers (64/8 x 128: GQA rep 8)
 FLASH_BF16 = [(1, 300, 300, 8, 2, 112, True, 0),
               (1, 1024, 1024, 40, 8, 128, True, 0),
               (1, 300, 300, 32, 32, 64, True, 0),
-              (1, 1500, 1500, 6, 6, 64, False, 0)]
+              (1, 1500, 1500, 6, 6, 64, False, 0),
+              (1, 512, 512, 64, 8, 128, True, 0)]
 
 
 @pytest.mark.parametrize("shape", FLASH_BF16)

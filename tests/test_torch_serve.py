@@ -488,13 +488,18 @@ def test_unported_requests_and_families_raise(weights):
     with pytest.raises(ValueError, match="only meaningful for audio"):
         eng.submit(0, np.ones(3, np.int32), max_new=2,
                    frames=np.zeros((2, 2), np.float32))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # images on a dense engine: the reference's ValueError naming vlm
+    with pytest.raises(ValueError) as got:
         eng.submit(0, np.ones(3, np.int32), max_new=2,
                    images=np.zeros((2, 2), np.float32))
+    assert str(got.value) == ("request 0: images are only meaningful for "
+                              "vlm archs, not dense")
     # the MoE family serves on the pool (mixed step by default) and
     # prefills unbucketed (tests/test_torch_moe_serve.py
     # holds its streams to the JAX engine's), and so does the enc-dec
-    # audio family (tests/test_torch_encdec_serve.py); VLM still raises
+    # audio family (tests/test_torch_encdec_serve.py); the VLM on dense
+    # rows through the split path, unbucketed
+    # (tests/test_torch_vlm_serve.py)
     moe = CFG.with_(arch_type="moe", num_experts=4, experts_per_token=2)
     eng = ServeEngine(moe, init_params(moe, device="cpu", seed=0))
     assert eng.paged and eng.mixed and not eng._bucketed
@@ -503,8 +508,12 @@ def test_unported_requests_and_families_raise(weights):
     eng = ServeEngine(audio, init_params(audio, device="cpu", seed=0))
     assert eng.paged and eng.mixed and not eng._bucketed
     assert eng._cache["xkv"]["k"].shape == (2, 4, 8, 4, 16)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ServeEngine(CFG.with_(arch_type="vlm"), params)
+    vlm = CFG.with_(arch_type="vlm", num_layers=3, cross_attn_every=2,
+                    num_image_tokens=8)
+    eng = ServeEngine(vlm, init_params(vlm, device="cpu", seed=0))
+    assert not eng.paged and not eng.mixed and not eng._bucketed
+    assert eng._cache["xkv"]["k"].shape == (1, 4, 8, 2, 16)
+    assert eng._cache["kv_g"]["k"].shape == (2, 4, 256, 2, 16)
 
 
 def test_session_serves_on_cpu_and_keeps_reference_keywords(weights):
@@ -636,7 +645,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch/kernels/ssd_scan.py", "repro_torch/models/ssm.py",
             "repro_torch/models/mamba_lm.py",
             "repro_torch/models/hybrid.py", "repro_torch/models/moe.py",
-            "repro_torch/models/encdec.py",
+            "repro_torch/models/encdec.py", "repro_torch/models/vlm.py",
             "repro_torch/serve/speculative.py",
             "repro_torch/serve/driver.py", "repro_torch/serve/server.py",
             "repro_torch/serve/metrics.py"} <= names
@@ -656,7 +665,7 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.data.pipeline, repro_torch.train.trainer, "
             "repro_torch.kernels.ssd_scan, repro_torch.models.mamba_lm, "
             "repro_torch.models.hybrid, repro_torch.models.moe, "
-            "repro_torch.models.encdec, "
+            "repro_torch.models.encdec, repro_torch.models.vlm, "
             "repro_torch.serve.speculative, repro_torch.serve.driver, "
             "repro_torch.serve.server, repro_torch.serve.metrics; "
             "print('ok')")

@@ -315,10 +315,9 @@ def test_prefill_then_decode_chain_matches_jax(smoke):
 
 
 def test_get_model_maps_the_ported_families():
-    """dense, SSM, the hybrid, MoE and enc-dec audio map to their modules
-    (MoE to the decoder's, as in the reference); VLM still raises naming
-    Queue 1 item 10."""
-    from repro_torch.models import encdec, hybrid, transformer
+    """dense, SSM, the hybrid, MoE, enc-dec audio and the VLM map to their
+    modules (MoE to the decoder's, as in the reference)."""
+    from repro_torch.models import encdec, hybrid, transformer, vlm
     assert get_model(SSM_CFG) is mamba_lm
     assert get_model(SSM_CFG.with_(arch_type="dense", num_heads=4,
                                    num_kv_heads=2)) is transformer
@@ -327,8 +326,8 @@ def test_get_model_maps_the_ported_families():
     assert get_model(get_smoke("kimi-k2-1t-a32b")) is transformer
     assert get_model(get_smoke("whisper-tiny")) is encdec
     assert get_model(SSM_CFG.with_(arch_type="audio")) is encdec
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        get_model(SSM_CFG.with_(arch_type="vlm"))
+    assert get_model(get_smoke("llama-3.2-vision-90b")) is vlm
+    assert get_model(SSM_CFG.with_(arch_type="vlm")) is vlm
 
 
 # ---------------------------------------------------------------- params
@@ -409,7 +408,9 @@ def test_other_families_still_raise_in_the_bridge():
     """The bridge holds the hybrid's tree (``groups/``, ``trailing/``,
     ``shared/``), the MoE decoder's (``layers/moe/``; its round trip is
     in tests/test_torch_moe.py) and enc-dec audio's (``enc_layers/``,
-    ``dec_layers/``; tests/test_torch_encdec.py); VLM still raises."""
+    ``dec_layers/``; tests/test_torch_encdec.py) and the VLM's
+    (``self_groups/``, ``cross/``, ``trailing/``;
+    tests/test_torch_vlm.py)."""
     moe = param_spec(get_smoke("olmoe-1b-7b"))
     assert {k for k in moe if "/moe/" in k} == {
         f"layers/moe/{w}" for w in ("router", "w_gate", "w_up", "w_down")}
@@ -418,8 +419,11 @@ def test_other_families_still_raise_in_the_bridge():
     assert {k.split("/")[0] for k in audio} == {
         "tok_embed", "enc_layers", "dec_layers", "enc_norm", "final_norm",
         "lm_head"}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        param_spec(SSM_CFG.with_(arch_type="vlm"))
+    vlm = param_spec(get_smoke("llama-3.2-vision-90b"))
+    assert {k.split("/")[0] for k in vlm} == {
+        "embed", "self_groups", "cross", "trailing", "final_norm",
+        "lm_head"}
+    assert vlm["cross/gate_attn"][0] == (1,)
     spec = param_spec(get_smoke("zamba2-1.2b"))
     assert {k.split("/")[0] for k in spec} == {
         "embed", "final_norm", "lm_head", "groups", "trailing", "shared"}
@@ -524,23 +528,26 @@ def test_session_serves_ssm_on_cpu_and_refuses_training(engine_weights):
     assert got == {i: r.out for i, r in ref_eng.run().items()}
     # the SSM family trains (tests/test_torch_train.py holds the step to
     # the reference's), and so do MoE (tests/test_torch_moe.py) and
-    # enc-dec audio on batches with frames (tests/test_torch_encdec.py);
-    # VLM still raises
+    # enc-dec audio on batches with frames (tests/test_torch_encdec.py),
+    # and the VLM on batches with images (tests/test_torch_vlm.py)
     trainer = session.train(global_batch=2, seq_len=16)
     assert trainer.params is session.params
     moe = get_smoke("olmoe-1b-7b").with_(dtype="float32")
     moe_trainer = Session(moe, device="cpu").train(global_batch=2,
                                                    seq_len=16)
     assert "moe" in moe_trainer.params["layers"]
-    from repro_torch.launch.train import FramesData
+    from repro_torch.launch.train import FramesData, ImagesData
     from repro_torch.train.trainer import TrainConfig
     audio = get_smoke("whisper-tiny").with_(dtype="float32")
     hist = Session(audio, device="cpu").train(
         TrainConfig(steps=1, log_every=1),
         data=FramesData(audio, global_batch=2, seq_len=16)).run()["history"]
     assert np.isfinite(hist[-1]["loss"])
-    with pytest.raises(NotImplementedError, match="vlm training"):
-        Session(SSM_CFG.with_(arch_type="vlm"), device="cpu").train()
+    vlm = get_smoke("llama-3.2-vision-90b").with_(dtype="float32")
+    hist = Session(vlm, device="cpu").train(
+        TrainConfig(steps=1, log_every=1),
+        data=ImagesData(vlm, global_batch=2, seq_len=16)).run()["history"]
+    assert np.isfinite(hist[-1]["loss"])
     fresh = Session(SSM_CFG, device="cpu", seed=3)
     assert fresh.params["layers"]["mamba"]["in_proj"].shape == (2, 64, 164)
 
