@@ -85,7 +85,16 @@ Phases (any failure exits non-zero; no result line is printed then):
    each per value
    and shown to reject its defect, timed beside SDPA / three matmuls with
    its bound, the MLP on 16 draws of x at T 4 and at the shortest and the
-   longest prompt (its 1.4 GB weight set freed after);
+   longest prompt (its 1.4 GB weight set freed after); then at
+   tensor-parallel Qwen3-14B's rank shapes (``TP_SHAPES``): at tp 2
+   (phase 19's: 20/4 heads x 128, d_ff 8704 a rank) paged attention at
+   the T = 256 mix and the split path's 4-row decode table, the fused MLP
+   at d 5120, f 8704 for T 256 and each of phase 5b's row counts, flash
+   at (1, S, S, 20, 4, 128) for each of phase 5b's prefill buckets, each
+   per value, shown to reject its defect and timed beside SDPA / three
+   matmuls with its bound; at tp 4 (10/2 heads, f 4352) and tp 8 (5/1
+   heads, f 2176), which a box of 4 or 8 cards would launch, the three
+   at T = 256, per value, untimed;
 4. tiny float32 configs on the card and on the CPU (TF32 off): through
    the port's engine on each layout — the mixed step, the split path on
    the pool (``mixed=False``) and on the dense layout (``paged=False``),
@@ -123,7 +132,14 @@ Phases (any failure exits non-zero; no result line is printed then):
    rows (each request with its own images): first-prefill logits within
    1e-4, streams identical, flash once a self layer a prefill and the
    fused MLP once a layer a program; and each one's train step (remat, 2
-   microbatches): loss and gradients within 1e-4;
+   microbatches): loss and gradients within 1e-4; then the tiny dense
+   config served tensor-parallel by two rank processes sharing the card
+   over gloo (``launch/ranks.py``; ``ServeEngine(mesh=)``, one K/V head
+   a rank) on the mixed step and the split path: both ranks' streams
+   identical to the unsharded engine's on the card, ``decode_traces`` 1,
+   the KV bytes a rank exactly half, every kernel launched on each rank
+   as its path says, one all-reduce after ``wo`` and one after ``w_down``
+   a layer a program;
 5. the SERVING PATH: ``Session(get_config("qwen3-14b"), device="cuda")
    .serve(slots=4, max_len=1024, page_size=16, chunk_tokens=256)`` at full
    width with random weights from ``--seed``, 6 requests of 24-700 prompt
@@ -322,6 +338,29 @@ Phases (any failure exits non-zero; no result line is printed then):
    profile by part and the model-FLOPs share of 989 TFLOP/s
    (``vlm_train_flops``).
 
+19. TENSOR-PARALLEL SERVING, after phase 10's session is freed (run
+   before phase 6): Qwen3-14B at full width, 40 layers uncut, tp 2 over
+   two rank processes sharing the one card over gloo, each through
+   ``Session.serve(tp=2)`` and drawing only its shards (20/4 heads x
+   128 and d_ff 8704 of every layer, half the vocabulary, ~14.8 GB):
+   phase 5's settings and six prompts on the mixed step, then the split
+   path on the same shards. Counts zeroed just before and read just
+   after, on each rank: paged attention and the fused MLP 40 x program
+   runs on the mixed step; flash 40 x prefills, the fused MLP 40 x
+   programs and paged attention 40 x decode steps on the split path;
+   every request finishes with 16 in-vocab tokens, both ranks' streams
+   equal, the KV bytes a rank half of phase 5's pool. Prints tokens/s,
+   steps, step p50, each rank's peak memory, the collectives a rank and
+   the share of tokens equal to phase 5's streams (reported, not
+   checked: bf16 sums the row-parallel partials in another order). Two
+   ranks share one card's SMs and gloo stages every all-reduce through
+   host memory: these numbers are not tensor parallelism's speed. A
+   rank's failure or timeout (``TP_TIMEOUT_S``) fails the run.
+
+Last, every process the run started (nvcc, cuobjdump, the rank
+processes and the ``multiprocessing`` resource tracker their start
+launched) must have ended and been reaped, or the run fails.
+
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The full record also goes to ``chiprun_out/chip_smoke.json``.
@@ -333,6 +372,7 @@ import bisect
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -357,6 +397,23 @@ def log(msg: str) -> None:
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def child_processes() -> list:
+    """(pid, state, command) of every process whose parent is this one,
+    zombies included, from ``/proc``."""
+    me, out = os.getpid(), []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:                   # ended while we looked
+            continue
+        if int(ppid) == me:
+            out.append((int(pid), state, cmd.strip()[:160]))
+    return out
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -1619,8 +1676,12 @@ def _paged_cases(rng, heads, head_dim: int, cases, tag: str, *,
             eager = time_ms(lambda: pa.paged_attention(q, *nxt(), tab, pos))
             plain = time_ms(lambda: pa.paged_attention_plain(
                 q, *nxt(), tab, pos), iters=3, warmup=1)
-            kg = gather_pages(kp, tab).transpose(1, 2)
-            vg = gather_pages(vp, tab).transpose(1, 2)
+            # SDPA over the gathered, GQA-expanded KV (as phase 3's main
+            # row: the gather and the expansion are done before the timing)
+            kg = gather_pages(kp, tab).transpose(1, 2).repeat_interleave(
+                rep, 1)
+            vg = gather_pages(vp, tab).transpose(1, 2).repeat_interleave(
+                rep, 1)
             mask = (torch.arange(kg.shape[2], device="cuda")[None, :]
                     < (pos.long() + 1)[:, None])[:, None, None, :]
             qs = q.transpose(1, 2)
@@ -2500,7 +2561,7 @@ def phase_main(seed: int):
            "prefill_tokens": int(sum(lens)),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "decode_traces": eng.stats["decode_traces"],
-           "launches": counts,
+           "launches": counts, "kv_bytes": eng.kv_bytes(),
            "streams": [list(res[rid].out) for rid in range(len(lens))]}
     log(f"[main] {len(lens)} requests (prompts {out['prompt_lens']}), "
         f"{tokens} tokens in {wall:.2f}s = {out['tokens_per_s']:.2f} tok/s; "
@@ -4590,6 +4651,340 @@ def phase_vlm_train(seed: int, steps: int = 6):
     return out
 
 
+# ------------------------------------------ tensor-parallel serving (19)
+
+#: Qwen3-14B's per-rank shapes at tp 2 (phase 19, on one card), and at tp
+#: 4 and 8, which a box of 4 or 8 cards would launch: (Hq, Hkv) a rank,
+#: d_model, d_ff a rank
+TP_SHAPES = {2: ((20, 4), 5120, 8704), 4: ((10, 2), 5120, 4352),
+             8: ((5, 1), 5120, 2176)}
+#: phase 19's degree and the seconds its two rank processes may take
+TP_DEGREE, TP_TIMEOUT_S = 2, 480.0
+
+
+def phase_tp_kernels(seed: int):
+    """The three serving kernels at the rank shapes of tensor-parallel
+    Qwen3-14B (``TP_SHAPES``), bf16, each per value against its plain
+    version at the limits phase 3 uses. At tp 2 (phase 19's): paged
+    attention (``_paged_cases``) at the T = 256 mix and the split path's
+    4-row decode table, both timed beside SDPA on the gathered KV with
+    their bound; the fused MLP at d 5120, f 8704 for T 256 and each of
+    phase 5b's row counts (``MLP_SPLIT_ROWS``), timed beside three
+    matmuls; flash at (1, S, S, 20, 4, 128) for each of phase 5b's
+    prefill buckets, timed beside SDPA. At tp 4 and 8: the three at T =
+    256 (flash at S 256), untimed. The MLP's weights are a rank's blocks
+    of the init-scale full weights (``wo`` / ``w_down`` at 0.02 /
+    sqrt(80)). Inputs come from a generator of their own. Returns
+    {kernel name: records}."""
+    rng = np.random.default_rng(seed + 1913)
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
+    bf = torch.bfloat16
+    out = {"paged_attention": {}, "fused_mlp": {}, "flash_attention": {}}
+    for degree, (heads, d, f) in TP_SHAPES.items():
+        timed = degree == TP_DEGREE
+        tag = f"Qwen3-14B tp {degree}"
+        cases = [("T256", dict(rows=MIX_T256), (slice(3, None), 5), timed)]
+        if timed:
+            cases.append(("split", dict(rows=MIX_SPLIT), (2, 10), True))
+        out["paged_attention"][degree] = _paged_cases(rng, heads, 128, cases,
+                                                      tag)
+        wg = (torch.randn((d, f), generator=gen, device="cuda")
+              * 0.02).to(bf)
+        wu = (torch.randn((d, f), generator=gen, device="cuda")
+              * 0.02).to(bf)
+        wd = (torch.randn((f, d), generator=gen, device="cuda")
+              * (0.02 / math.sqrt(80))).to(bf)
+        rows = sorted(set(MLP_SPLIT_ROWS) | {256}) if timed else [256]
+        out["fused_mlp"][degree] = [
+            _mlp_rows(gen, t, wg, wu, wd, 1e-3, 8e-3, timed=timed)
+            for t in rows]
+        del wg, wu, wd
+        hq, hkv = heads
+        lens = [n for (_, n, *_) in FLASH_SPLIT_SHAPES] if timed else [256]
+        out["flash_attention"][degree] = [
+            _flash_shape(gen, (1, n, n, hq, hkv, 128), 1e-5, 8e-3,
+                         timed=timed) for n in sorted(set(lens))]
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_rank_setup():
+    """A rank on the one card: cuda:0, TF32 off (the f32 parity)."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+#: phase 4's tp run: phase 4's tiny f32 dense config, and the layouts two
+#: gloo ranks serve it on (engine keywords)
+TP_PARITY_CFG = dict(name="pal-dense", arch_type="dense", num_layers=2,
+                     d_model=128, num_heads=4, num_kv_heads=2, d_ff=256,
+                     vocab_size=128, dtype="float32")
+TP_PARITY_LAYOUTS = {"mixed": dict(chunk_tokens=16),
+                     "split": dict(mixed=False)}
+
+
+def _tp_parity_rank(rank: int, world: int, flat, prompts):
+    """One rank of phase 4's tp run: the tiny f32 dense config sharded
+    over ``world`` ranks on cuda:0 (gloo), on each of
+    ``TP_PARITY_LAYOUTS``; kernel launches counted from 0 just before
+    each run."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core.strategy import Strategy
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.params import from_numpy
+    from repro_torch.serve.engine import ServeEngine
+    _tp_rank_setup()
+    cfg = ModelConfig(**TP_PARITY_CFG)
+    mesh = make_mesh((1, world), ("data", "model"))
+    params = from_numpy(flat, cfg, "cuda", shard=(Strategy(dtype=cfg.dtype),
+                                                  mesh))
+    out = {}
+    for name, kw in TP_PARITY_LAYOUTS.items():
+        eng = ServeEngine(cfg, params, slots=2, max_len=64, mesh=mesh, **kw)
+        for i, p in enumerate(prompts):
+            eng.submit(i, p, max_new=6)
+        kernels.reset_launches()
+        res = eng.run()
+        out[name] = {"streams": {i: list(res[i].out) for i in res},
+                     "launches": kernels.launches(),
+                     "want": _want_launches(eng, cfg.num_layers),
+                     "decode_traces": eng.stats["decode_traces"],
+                     "backend": eng.stats["decode_backend"],
+                     "per_device": eng.per_device_kv_bytes(),
+                     "kv_bytes": eng.kv_bytes(), "tp": eng.tp,
+                     "collectives": dict(eng._rank.counts)}
+    return out
+
+
+def _spawn_ranks(fn, args, timeout: float, tag: str):
+    """``fn`` on ``TP_DEGREE`` rank processes sharing cuda:0 over gloo
+    (``launch/ranks.py``), their store in ``chiprun_out/``; a rank's
+    failure or timeout fails the phase."""
+    from repro_torch.launch.ranks import run_ranks
+    store = ROOT / "chiprun_out"
+    store.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    outs = run_ranks(fn, TP_DEGREE, args=args, backend="gloo",
+                     store_dir=str(store), timeout=timeout)
+    log(f"[{tag}] {TP_DEGREE} rank processes done in "
+        f"{time.perf_counter() - t0:.1f}s")
+    return outs
+
+
+def phase_parity_tp():
+    """The tiny f32 dense config (Hkv 2: one K/V head a rank) served by
+    two tensor-parallel ranks sharing the card over gloo, on the mixed
+    step and the split path on the pool, against the unsharded engine on
+    the card: streams identical, one program shape, the per-rank KV bytes
+    half of the unsharded engine's, every kernel launched as
+    ``_want_launches`` says on each rank, and one all-reduce after ``wo``
+    and one after ``w_down`` a layer a program."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.params import init_params
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.tree import flatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ModelConfig(**TP_PARITY_CFG)
+    params = init_params(cfg, device="cuda", seed=3)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 128, size=(n,)).astype(np.int32)
+               for n in (5, 23, 9, 40, 6)]
+    base = {}
+    for name, kw in TP_PARITY_LAYOUTS.items():
+        eng = ServeEngine(cfg, params, slots=2, max_len=64, **kw)
+        for i, p in enumerate(prompts):
+            eng.submit(i, p, max_new=6)
+        res = eng.run()
+        base[name] = ({i: list(res[i].out) for i in res},
+                      eng.per_device_kv_bytes())
+    flat = {k: v.cpu().numpy() for k, v in flatten(params).items()}
+    ranks = _spawn_ranks(_tp_parity_rank, (flat, prompts), 240.0,
+                         "parity tp 2")
+    out = {}
+    for name in TP_PARITY_LAYOUTS:
+        want_streams, want_kv = base[name]
+        for r, got in enumerate(ranks):
+            run = got[name]
+            check(run["streams"] == want_streams,
+                  f"[parity tp {name}] rank {r} streams {run['streams']} != "
+                  f"the unsharded engine's {want_streams}")
+            check(run["launches"] == run["want"] and run["backend"] ==
+                  "kernel", f"[parity tp {name}] rank {r} launches "
+                  f"{run['launches']} != {run['want']}")
+            check(run["decode_traces"] == 1,
+                  f"[parity tp {name}] decode_traces {run['decode_traces']}")
+            check(run["per_device"] * 2 == want_kv
+                  and run["kv_bytes"] == want_kv,
+                  f"[parity tp {name}] per-rank KV {run['per_device']} B, "
+                  f"global {run['kv_bytes']} B; unsharded {want_kv} B")
+            coll = run["collectives"]
+            check(coll["attn_out"] == coll["mlp_out"]
+                  == cfg.num_layers * coll["tokens"],
+                  f"[parity tp {name}] rank {r} collectives {coll}")
+        run = ranks[0][name]
+        log(f"[parity tp 2, f32] {name}: both ranks' streams equal the "
+            f"unsharded engine's on the card over {len(prompts)} requests; "
+            f"decode_traces 1; KV {run['per_device']} B a rank = half of "
+            f"{want_kv} B; launches a rank {run['launches']}; collectives "
+            f"a rank {run['collectives']}")
+        out[name] = {k: ranks[0][name][k] for k in
+                     ("launches", "per_device", "kv_bytes", "collectives")}
+        out[name]["unsharded_kv_bytes"] = want_kv
+    return out
+
+
+def _tp_serve_rank(rank: int, world: int, seed: int, prompts, max_new: int):
+    """One rank of phase 19: Qwen3-14B through ``Session.serve(tp=)`` on
+    the mixed step, then the same rank shards on the split path; each run
+    timed step by step with its launches counted from 0 just before and
+    read just after, and checked as phase 5 / 5b check theirs."""
+    from repro_torch import kernels
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    from repro_torch.serve.paging import pages_for
+    from repro_torch.serve.step import page_bucket, prefill_bucket
+    torch.cuda.set_device(0)
+    cfg = get_config("qwen3-14b")
+    layers = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    session = Session(cfg, device="cuda", seed=seed)
+    eng = session.serve(tp=world, slots=4, max_len=1024, page_size=16,
+                        chunk_tokens=256)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    weights_gb = sum(v.numel() * v.element_size() for v in
+                     _leaves(eng.params)) / 1e9
+    out = {"rank": rank, "build_s": build_s, "weights_gb": weights_gb,
+           "heads": [eng._rank.heads, eng._rank.kv_heads]}
+    lens = [len(p) for p in prompts]
+    buckets = {page_bucket(max(pages_for(min(n + max_new - 1, 1024), 16)
+                               for n in lens[:i + 1]), cap=64)
+               for i in range(len(lens))}
+    split_buckets = {prefill_bucket(n, cap=1024) for n in lens}
+    params = eng.params
+    for name in ("mixed", "split"):
+        if name == "split":
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+            eng = Session(cfg, device="cuda", params=params).serve(
+                tp=world, slots=4, max_len=1024, page_size=16, mixed=False)
+        for rid, p in enumerate(prompts):
+            eng.submit(rid, p, max_new=max_new)
+        kernels.reset_launches()
+        eng._rank.counts.clear()
+        step_s = []
+        t0 = time.perf_counter()
+        while eng.busy():
+            s0 = time.perf_counter()
+            eng.step()
+            step_s.append(time.perf_counter() - s0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launches()
+        res = eng.results()
+        for rid in range(len(prompts)):
+            r = res[rid]
+            check(r.done and len(r.out) == max_new
+                  and all(0 <= t < cfg.vocab_size for t in r.out),
+                  f"[tp {name}] rank {rank} request {rid} finished={r.done} "
+                  f"with {len(r.out)} tokens")
+        want = _want_launches(eng, layers)
+        check(counts == want, f"[tp {name}] rank {rank} launches {counts} "
+                              f"!= {want}")
+        if name == "mixed":
+            check(eng.stats["decode_traces"] <= len(buckets),
+                  f"[tp mixed] {eng.stats['decode_traces']} program shapes")
+        else:
+            check(eng.stats["decode_traces"] == 1
+                  and eng.stats["prefill_traces"] == len(split_buckets),
+                  f"[tp split] traces {eng.stats['decode_traces']} / "
+                  f"{eng.stats['prefill_traces']}")
+        check(bool(torch.isfinite(eng.last_logits).all()),
+              f"[tp {name}] rank {rank}: finite logits")
+        tokens = sum(len(res[r].out) for r in res)
+        step_ms = np.asarray(step_s) * 1e3
+        out[name] = {"tokens": tokens, "wall_s": wall,
+                     "tokens_per_s": tokens / wall, "steps": len(step_s),
+                     "step_p50_ms": float(np.percentile(step_ms, 50)),
+                     "step_max_ms": float(step_ms.max()),
+                     "launches": counts,
+                     "collectives": dict(eng._rank.counts),
+                     "decode_traces": eng.stats["decode_traces"],
+                     "prefill_traces": eng.stats["prefill_traces"],
+                     "per_device_kv_bytes": eng.per_device_kv_bytes(),
+                     "kv_bytes": eng.kv_bytes(),
+                     "streams": [list(res[r].out)
+                                 for r in range(len(prompts))]}
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def phase_tp_serve(seed: int, main_run: dict, max_new: int = 16):
+    """Phase 19: full-width Qwen3-14B (40 layers, uncut) served
+    tensor-parallel at tp 2 by two rank processes sharing the card over
+    gloo (``Session.serve(tp=2)`` in each; each rank draws only its
+    shards: 20/4 heads x 128 and d_ff 8704 of every layer, half the
+    vocabulary), phase 5's settings and six prompts on the mixed step,
+    then the split path on the same shards. Checks on each rank as phase 5
+    and 5b check theirs; the per-rank KV bytes must be half of phase 5's
+    pool. Prints tokens/s, step p50, each rank's peak memory and the
+    share of tokens equal to phase 5's streams (reported: bf16 sums the
+    row-parallel partials in another order). Two ranks share one card's
+    SMs and gloo stages every all-reduce through host memory: these
+    numbers are not tensor parallelism's speed."""
+    from repro_torch.configs import get_config
+    _, prompts = serving_prompts(seed, get_config("qwen3-14b").vocab_size)
+    prompts = [np.asarray(p, np.int32) for p in prompts]
+    ranks = _spawn_ranks(_tp_serve_rank, (seed, prompts, max_new),
+                         TP_TIMEOUT_S, "tp serve")
+    note = ("two ranks share one card's SMs and gloo stages each "
+            "all-reduce through host memory: not tensor parallelism's "
+            "speed")
+    out = {"note": note, "ranks": []}
+    for r in ranks:
+        kv = r["mixed"]["per_device_kv_bytes"]
+        check(kv * 2 == main_run["kv_bytes"],
+              f"[tp serve] rank {r['rank']} KV {kv} B x 2 != phase 5's "
+              f"{main_run['kv_bytes']} B")
+        for name in ("mixed", "split"):
+            check(r[name]["streams"] == ranks[0][name]["streams"],
+                  f"[tp serve {name}] rank {r['rank']} streams differ from "
+                  f"rank 0's")
+        out["ranks"].append({k: v for k, v in r.items()})
+    r0 = ranks[0]
+    for name in ("mixed", "split"):
+        run = r0[name]
+        got, want = run["streams"], main_run["streams"]
+        run["agree_with_phase5"] = sum(
+            a == b for g, w in zip(got, want) for a, b in zip(g, w)) / (
+            max_new * len(prompts))
+        log(f"[tp serve {name}] Qwen3-14B tp 2 ({r0['heads'][0]}/"
+            f"{r0['heads'][1]} heads a rank, {r0['weights_gb']:.2f} GB of "
+            f"weights a rank, built in {r0['build_s']:.1f}s): "
+            f"{run['tokens']} tokens in {run['wall_s']:.2f}s = "
+            f"{run['tokens_per_s']:.2f} tok/s, {run['steps']} steps, step "
+            f"p50 {run['step_p50_ms']:.1f} ms (max {run['step_max_ms']:.1f}"
+            f"); peak memory a rank "
+            f"{[round(x['peak_mem_gb'], 2) for x in ranks]} GB; KV "
+            f"{run['per_device_kv_bytes'] / 1e9:.3f} GB a rank of "
+            f"{run['kv_bytes'] / 1e9:.3f} GB; launches a rank "
+            f"{run['launches']}; collectives a rank {run['collectives']}; "
+            f"{run['agree_with_phase5']:.1%} of tokens equal to phase 5's "
+            f"streams (information) — {note}")
+    out["mixed"], out["split"] = r0["mixed"], r0["split"]
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4633,6 +5028,11 @@ def main():
             k["vlm_shapes"] = vlm_shapes[k["name"]]
     kernels[1]["vlm_seed_sweep"] = vlm_shapes["fused_mlp_seed_sweep"]
     mark("3 kernels at Llama-3.2-Vision's shapes")
+    tp_shapes = phase_tp_kernels(args.seed)
+    for k in kernels:
+        if k["name"] in tp_shapes:
+            k["tp_shapes"] = tp_shapes[k["name"]]
+    mark("3 kernels at tensor-parallel Qwen3-14B's rank shapes")
     parity = phase_parity()
     record["parity_logits_err"] = parity.pop("mixed")
     record["parity_split_logits_err"] = parity
@@ -4650,6 +5050,8 @@ def main():
     mark("4 parity: audio serving and training")
     record["parity_vlm"] = phase_parity_vlm()
     mark("4 parity: VLM serving and training")
+    record["parity_tp"] = phase_parity_tp()
+    mark("4 parity: tp 2 over gloo")
     main_run, eng, session, prompts = phase_main(args.seed)
     record["main"] = main_run
     record["profile"] = phase_profile(eng, rng, main_run["step_p50_ms"])
@@ -4665,6 +5067,8 @@ def main():
     del session                           # free the serving weights
     gc.collect()
     torch.cuda.empty_cache()
+    record["tp"] = phase_tp_serve(args.seed, main_run)
+    mark("19 tensor-parallel serving")
     record["train"] = phase_train(args.seed)
     mark("6 dense training")
     gc.collect()                          # the trainer died with phase 6
@@ -4711,14 +5115,19 @@ def main():
     # (paged attention), phase 13b (flash, paged attention), phase 14
     # (flash), phase 15 (paged attention, flash in the encoder), phase 15b
     # (flash, paged attention), phase 16 (flash), phase 17 (flash, the
-    # fused MLP), phase 18 (flash)
+    # fused MLP), phase 18 (flash), phase 19 (each rank: paged attention
+    # and the fused MLP on the mixed step, flash, paged attention and the
+    # fused MLP on the split path)
     paths = [main_run, record["train"], record["ssm"],
              *record["spec"].values(), *record["online"].values(),
              record["hybrid"], *record["train_families"].values(),
              record["moe"]["mixed"], record["moe"]["split"],
              record["moe_train"], record["audio"]["mixed"],
              record["audio"]["split"], record["audio_train"], record["vlm"],
-             record["vlm_train"]]
+             record["vlm_train"],
+             # phase 19: each rank's own launches, on both paths
+             *(r[name] for r in record["tp"]["ranks"]
+               for name in ("mixed", "split"))]
     for k in kernels:
         k["launches"] = sum(run["launches"][k["name"]] for run in paths)
     record["kernels"] = kernels
@@ -4727,6 +5136,10 @@ def main():
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    # nvcc, cuobjdump, the rank processes and the resource tracker their
+    # start launched: each must have ended and been reaped by now
+    left = child_processes()
+    check(not left, f"processes this run started are still there: {left}")
     log(f"[done] {record['total_s']:.1f}s on {smi}; by phase: "
         + ", ".join(f"{k} {v:.1f}s" for k, v in phase_s.items()))
     print(json.dumps({"kernels": kernels}))

@@ -24,6 +24,9 @@
 
     tokens = session.generate(prompt_batch, steps=16)   # (B, 16) greedy
 
+    # tensor-parallel, in each of 2 rank processes (torchrun)
+    engine = Session(get_config("qwen3-14b")).serve(tp=2, slots=4)
+
 One object owns the config, the strategy, the device and the params
 (random from ``seed`` unless given — e.g. from the JAX package's
 checkpoint through ``repro_torch.params.load_npz``). ``train`` trains
@@ -34,7 +37,8 @@ mixed-step engine by default (``mixed=False``: the split prefill/decode
 path on the pool; ``paged=False``: the dense per-slot layout), a
 sliding-window config the dense ring, the SSM family and the hybrid the
 split path on the dense layout; ``prefix_cache``, ``lazy`` and
-``scheduler`` pass through to the engine (on the paged pool).
+``scheduler`` pass through to the engine (on the paged pool); ``tp=N``
+serves a dense decoder tensor-parallel, one engine a rank process.
 ``generate`` is the lockstep greedy loop
 (``serve/step.py::greedy_generate``). ``serve_async`` wraps the engine
 in the online ``AsyncDriver`` (a background step loop, per-request token
@@ -63,6 +67,7 @@ import torch
 from repro_torch.checkpoint.io import (latest_step, load_checkpoint,
                                        save_checkpoint)
 from repro_torch.core.strategy import Strategy
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.params import init_params
 from repro_torch.serve.engine import ServeEngine, _todo
 from repro_torch.serve.step import greedy_generate
@@ -180,16 +185,39 @@ class Session:
         ``images``) the split path, one prefill program a request
         and one batched decode a step (see serve/engine.py). ``attn_backend``
         exists for the reference's signature only: the device picks the
-        kernel or the plain path."""
-        if plan is not None or (tp or 1) > 1 or (dp or 1) > 1:
-            raise _todo("plan=/tp=/dp= serving", "Queue 1 item 11")
+        kernel or the plain path.
+
+        ``tp=N`` (N > 1), called on every rank of an initialised process
+        group of N ranks (one process a rank, as ``torchrun`` starts
+        them), builds the ("data", "model") = (1, N) mesh on the
+        session's device type (``launch/mesh.py``) and returns this
+        rank's tensor-parallel engine (serve/engine.py): the session's
+        params sliced to the rank's shards, or, when the session has none
+        yet, only the rank's shards drawn from its seed. ``dp > 1`` (the
+        replica router) raises naming ROADMAP.md Queue 1 item 11,
+        ``plan=`` item 12."""
+        if plan is not None:
+            raise _todo("Session.serve(plan=) (the planner's Plan)",
+                        "Queue 1 item 12")
+        if (dp or 1) > 1:
+            raise _todo("Session.serve(dp=) (the data-parallel "
+                        "ReplicaRouter)", "Queue 1 item 11")
         if attn_backend is not None:
             raise ValueError(
                 "repro_torch picks the attention path by device (CUDA: "
                 "the hand-written kernel, CPU: its plain version); drop "
                 f"attn_backend={attn_backend!r}")
-        # serving needs no gradient: detached views of (trained) params
-        params = tree_map(torch.Tensor.detach, self.params)
+        mesh = None
+        if (tp or 1) > 1:
+            mesh = make_mesh((1, tp), ("data", "model"),
+                             device_type=self.device.type)
+        if mesh is not None and self._params is None:
+            params = init_params(self.cfg, device=self.device,
+                                 seed=self.seed,
+                                 shard=(self.strategy, mesh))
+        else:
+            # serving needs no gradient: detached views of (trained) params
+            params = tree_map(torch.Tensor.detach, self.params)
         return ServeEngine(
             self.cfg, params, slots=slots, max_len=max_len,
             eos_id=eos_id, temperature=temperature,
@@ -197,7 +225,8 @@ class Session:
             page_size=page_size, kv_pages=kv_pages,
             prefix_cache=prefix_cache, lazy=lazy, scheduler=scheduler,
             mixed=mixed, chunk_tokens=chunk_tokens, spec=spec,
-            trace_level=trace_level, device=self.device)
+            trace_level=trace_level, device=self.device, mesh=mesh,
+            strategy=self.strategy if mesh is not None else None)
 
     # ------------------------------------------------------- online serving
     def serve_async(self, *, watchdog_timeout: Optional[float] = None,

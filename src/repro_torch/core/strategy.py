@@ -1,27 +1,55 @@
-"""Strategy — the port's copy of ``repro/core/strategy.py`` for one device.
+"""Parallelisation Strategy — the port of ``repro/core/strategy.py``.
 
-It keeps the execution knobs the training step reads: the optimizer, the
+A Strategy fixes, for a given mesh, how each parallelisable dimension
+(survey §3.1.2) maps onto mesh axes — dp on "data" (x "pod"), tp and ep
+on "model" (Megatron §5.1), sp (Korthikanti) on "model" — plus the
+execution knobs the training step reads: the optimizer, the
 gradient-accumulation dtype, remat (activation checkpointing per layer,
 survey §3.1.3), the microbatch count (GPipe Fig. 5d) and the attention
-path. The sharding half — ``seq_parallel``, ``fsdp`` and ``rules()``,
-which map logical axes onto a mesh — waits for the parallelism slice
-(ROADMAP.md Queue 1 item 11); ``zero1`` shards optimizer state over data
-replicas, so on one device it is accepted and does nothing.
+path.
+
+``rules(mesh)`` is the reference's logical-axis table. It reads only the
+mesh's axis names and sizes, so it takes a plain ``{axis: size}`` mapping
+as well as a ``torch.distributed`` ``DeviceMesh`` (``mesh_axes``): the
+sharding tables (``core/sharding.py``) need no process group. What the
+port runs on a mesh so far is tensor-parallel serving of dense decoders
+(``serve/engine.py``); the knobs of the later steps of ROADMAP.md Queue 1
+item 11 — ``seq_parallel`` (sequence-sharded activations) and ``fsdp``
+(parameters sharded over "data") — shape the tables but raise
+``NotImplementedError`` where a trainer or an engine would run them
+(``refuse_unported``). ``zero1`` shards optimizer state over data
+replicas: on one device it is accepted and does nothing.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Dict, Mapping
 
-_ITEM_11 = "the parallelism slice, ROADMAP.md Queue 1 item 11"
+ITEM_11 = "the parallelism slice, ROADMAP.md Queue 1 item 11"
+
+
+def mesh_axes(mesh) -> Dict[str, int]:
+    """``{axis name: size}`` of a ``DeviceMesh`` (its dim names and
+    ``size(dim)``), or of a mapping given as it is."""
+    if isinstance(mesh, Mapping):
+        return {str(k): int(v) for k, v in mesh.items()}
+    names = mesh.mesh_dim_names
+    if names is None:
+        raise ValueError("a DeviceMesh needs mesh_dim_names "
+                         "(e.g. ('data', 'model'))")
+    return {name: int(mesh.size(i)) for i, name in enumerate(names)}
 
 
 @dataclass(frozen=True)
 class Strategy:
     name: str = "megatron"
-    seq_parallel: bool = False       # Korthikanti SP: item 11
-    zero1: bool = True               # optimizer-state sharding: no-op here
-    fsdp: bool = False               # ZeRO-3 param sharding: item 11
+    # parallel degrees are implied by the mesh axes; these flags pick HOW
+    # the logical dims map onto them.
+    seq_parallel: bool = False       # Korthikanti SP: item 11, later step
+    expert_parallel: bool = True     # MoE experts on "model" (vs TP-in-expert)
+    zero1: bool = True               # shard optimizer states over "data"
+    fsdp: bool = False               # ZeRO-3 param sharding: item 11, later
     optimizer: str = "adamw"         # adamw | adafactor
     grad_accum_dtype: str = "float32"  # bfloat16 halves the accumulator
     remat: bool = True               # full activation checkpointing per layer
@@ -29,13 +57,40 @@ class Strategy:
     attn_impl: str = "auto"          # auto | pallas | full | masked | triangle
     dtype: str = "bfloat16"
 
-    def __post_init__(self):
-        if self.seq_parallel or self.fsdp:
-            raise NotImplementedError(
-                f"seq_parallel / fsdp shard over a mesh: {_ITEM_11}")
-
-    def rules(self, mesh=None) -> dict:
-        raise NotImplementedError(f"Strategy.rules(mesh): {_ITEM_11}")
+    def rules(self, mesh) -> dict:
+        """Logical-axis -> mesh-axis table (the reference's, entry for
+        entry) for a ``DeviceMesh`` or an ``{axis: size}`` mapping."""
+        axes = tuple(mesh_axes(mesh))
+        batch = tuple(a for a in ("pod", "data") if a in axes) or None
+        if batch and len(batch) == 1:
+            batch = batch[0]
+        return {
+            "batch": batch,
+            "seq": "model" if self.seq_parallel else None,
+            "heads": "model",
+            "kv_heads": "model",
+            "d_ff": "model",
+            "vocab": "model",
+            "ssm_inner": "model",
+            "ssm_heads": "model",
+            "experts": "model" if self.expert_parallel else None,
+            "d_ff_moe": None if self.expert_parallel else "model",
+            # the expert-capacity dim of the (E, C, d) dispatch buffer
+            "moe_cap": batch,
+            # the dispatch scatter / combine gather index dim 0 only
+            "moe_dispatch_d": "model",
+            "d_model": None,
+        }
 
     def with_(self, **kw) -> "Strategy":
         return dataclasses.replace(self, **kw)
+
+
+def refuse_unported(strategy: Strategy, where: str):
+    """Raise ``NotImplementedError`` naming item 11 when ``strategy`` asks
+    ``where`` for sequence parallelism or FSDP."""
+    on = [k for k in ("seq_parallel", "fsdp") if getattr(strategy, k)]
+    if on:
+        raise NotImplementedError(
+            f"{where} with {' and '.join(on)}: sequence-sharded activations "
+            f"and parameters sharded over 'data' wait for {ITEM_11}")

@@ -78,9 +78,21 @@ reference's ValueError). ``--spec-k K --drafter ngram|model`` turns on
 speculative decode on the mixed step (greedy only). ``--serve`` skips the synthetic
 batch and serves the engine over HTTP (``POST /generate``, ``GET
 /metrics``, ``GET /healthz``; ``--port 0`` picks a free port) until
-ctrl-c, with the watchdog at ``--watchdog-timeout`` seconds. Flags of
-features the port has not reached (``--tp``/``--dp``) raise
-NotImplementedError naming their ROADMAP.md item.
+ctrl-c, with the watchdog at ``--watchdog-timeout`` seconds.
+
+``--tp N`` serves a dense decoder tensor-parallel over N ranks, one
+process a rank as ``torchrun --nproc-per-node N`` starts them (each rank
+builds only its shards; serve/engine.py). The process group's backend is
+``--backend`` (default NCCL on CUDA, gloo on the CPU; ranks sharing one
+card need gloo: NCCL refuses two ranks on one device). Rank 0 prints.
+Flags of features the port has not reached (``--dp``; ``--serve`` with
+``--tp``) raise NotImplementedError naming their ROADMAP.md item.
+
+    # two ranks on the CPU, or sharing one card over gloo
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --tp 2 --device cpu --requests 3
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --tp 2 --backend gloo --full --slots 4 --max-len 1024 --requests 6
 
     # on the card, speculative decode with the prompt-lookup drafter
     PYTHONPATH=src python -m repro_torch.launch.serve --full \
@@ -93,6 +105,7 @@ NotImplementedError naming their ROADMAP.md item.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -153,7 +166,12 @@ def main(argv=None):
                     help="prepend the same N-token system prompt to every "
                          "request")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel degree (not ported yet)")
+                    help="tensor-parallel degree: run under torchrun "
+                         "--nproc-per-node N, one process a rank")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="--tp: the process group's backend (default "
+                         "nccl on cuda, gloo on cpu; ranks sharing one "
+                         "card need gloo)")
     ap.add_argument("--dp", type=int, default=1,
                     help="data-parallel replicas (not ported yet)")
     ap.add_argument("--serve", action="store_true",
@@ -176,6 +194,10 @@ def main(argv=None):
                     help="write a Chrome/Perfetto trace_event JSON of the "
                          "run to PATH")
     args = ap.parse_args(argv)
+    if args.tp > 1:
+        _join_ranks(args)
+    lead = args.tp == 1 or torch.distributed.get_rank() == 0
+    log = print if lead else (lambda *a, **k: None)
 
     cfg = get_config(args.arch) if args.full \
         else get_smoke(args.arch).with_(dtype="float32")
@@ -196,7 +218,7 @@ def main(argv=None):
         wt = args.watchdog_timeout if args.watchdog_timeout > 0 else None
         server = session.serve_http(host=args.host, port=args.port,
                                     watchdog_timeout=wt, **serve_kw)
-        print(f"serving {cfg.name} on {server.url} (POST /generate, GET "
+        log(f"serving {cfg.name} on {server.url} (POST /generate, GET "
               f"/metrics, GET /healthz, GET /debug/flight, GET "
               f"/debug/trace; watchdog {'off' if wt is None else f'{wt}s'})"
               f" — ctrl-c to stop", flush=True)
@@ -206,7 +228,7 @@ def main(argv=None):
         except KeyboardInterrupt:
             if args.trace_out:
                 server.driver.export_trace(args.trace_out)
-                print(f"trace written to {args.trace_out}", flush=True)
+                log(f"trace written to {args.trace_out}", flush=True)
             server.close(drain=False)
         return None
     eng = session.serve(**serve_kw)
@@ -238,14 +260,17 @@ def main(argv=None):
     layout = (f"paged/{eng.page_size}tok-pages" if eng.paged
               else "dense slot table") + \
         ("" if eng.mixed else ", split prefill/decode")
-    print(f"served {len(results)} requests, {total} tokens in {dt:.2f}s "
+    tp_text = "" if args.tp == 1 else (
+        f", tp {eng.tp} over {torch.distributed.get_backend()}, "
+        f"{eng.per_device_kv_bytes() / 1e6:.1f}MB of it a rank")
+    log(f"served {len(results)} requests, {total} tokens in {dt:.2f}s "
           f"({total / dt:.1f} tok/s on {eng.device}, {args.slots} slots, "
           f"{layout}, {st['decode_backend']} path, "
           f"state {eng.kv_bytes() / 1e6:.1f}MB, {st['decode_steps']} decode "
           f"steps, {st['decode_traces']} decode shapes, "
-          f"{st['prefill_traces']} prefill lengths)")
+          f"{st['prefill_traces']} prefill lengths{tp_text})")
     if eng.paged:
-        print(f"  pool: peak {st['peak_pages']}/{eng.kv_pages} pages, "
+        log(f"  pool: peak {st['peak_pages']}/{eng.kv_pages} pages, "
               f"prefix hit/miss {st['prefix_hit_blocks']}/"
               f"{st['prefix_miss_blocks']} blocks "
               f"(+{st['prefix_tail_hits']} tail), "
@@ -256,19 +281,37 @@ def main(argv=None):
         drafted, accepted = st["spec_drafted"], st["spec_accepted"]
         per_step = ((st["decode_tokens"] - st["prefills"])
                     / max(st["decode_slot_steps"], 1))
-        print(f"  spec: k={args.spec_k} drafter={args.drafter}, "
+        log(f"  spec: k={args.spec_k} drafter={args.drafter}, "
               f"{accepted}/{drafted} drafts accepted "
               f"({accepted / max(drafted, 1):.2f}), "
               f"{per_step:.2f} tokens per (decode step, slot)")
     if args.trace_out:
         obj = eng.export_trace(args.trace_out)
-        print(f"  trace: {len(obj['traceEvents'])} events written to "
+        log(f"  trace: {len(obj['traceEvents'])} events written to "
               f"{args.trace_out}")
     for rid in sorted(results):
         r = results[rid]
-        print(f"  req {rid}{'' if r.done else ' [truncated]'}: {r.out}")
+        log(f"  req {rid}{'' if r.done else ' [truncated]'}: {r.out}")
     return results
 
 
+def _join_ranks(args):
+    """Join the process group ``torchrun`` set up in the environment
+    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``) with
+    ``--backend``, and put a CUDA rank on its card (``LOCAL_RANK`` modulo
+    the cards there are)."""
+    cuda = torch.device(args.device).type == "cuda"
+    if cuda:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0"))
+                              % torch.cuda.device_count())
+    if not torch.distributed.is_initialized():
+        torch.distributed.init_process_group(
+            args.backend or ("nccl" if cuda else "gloo"))
+
+
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()

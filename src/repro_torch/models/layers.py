@@ -4,8 +4,11 @@ MLPs).
 
 Layouts are the JAX package's: activations ``(B, S, d)``, heads
 ``(B, S, H, D)``, weights ``(in, out)`` applied as ``x @ w``. The
-sharding hints (``constrain``) of the reference have no counterpart on a
-single card and are gone. The ops that were Pallas kernels on the TPU —
+reference's sharding hints (``constrain``) have no counterpart: under a
+tensor-parallel mesh each rank runs these layers on its own shards
+(``core/tp.py``) — the head counts follow the local weights, and the
+row-parallel attention out and MLP end in ``tp.all_reduce``, a no-op
+unsharded. The ops that were Pallas kernels on the TPU —
 flash attention, paged attention and the fused MLP — dispatch by device
 to the port's CUDA kernels (CUDA tensors) or their plain versions (CPU
 tensors). The fused MLP has no backward, so with a gradient required the
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import tp
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_mlp import fused_mlp, needs_grad
 # decode-time block-table attention over the paged pool, q (B, 1, Hq, D):
@@ -213,11 +217,13 @@ def attention(q, k, v, *, causal: bool, window: int = 0, q_offset=0,
 # ------------------------------------------------------- attention (module)
 
 def attn_qkv(p, x, cfg, *, positions=None, rope: bool = True):
-    """Project to q,k,v (+qk_norm, +rope). x:(B,S,d) -> q(B,S,Hq,D), k/v."""
+    """Project to q,k,v (+qk_norm, +rope). x:(B,S,d) -> q(B,S,Hq,D), k/v.
+    The head counts are the projections' own: a rank's shards give its
+    local heads."""
     b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = (x @ p["wk"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = (x @ p["wv"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    q = (x @ p["wq"]).reshape(b, s, -1, cfg.head_dim)
+    k = (x @ p["wk"]).reshape(b, s, -1, cfg.head_dim)
+    v = (x @ p["wv"]).reshape(b, s, -1, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -230,8 +236,10 @@ def attn_qkv(p, x, cfg, *, positions=None, rope: bool = True):
 
 
 def attn_out(p, ctx, cfg):
+    """The output projection of the heads in ``ctx`` (a rank's local
+    heads: its row block of ``wo``, summed over the ranks)."""
     b, s = ctx.shape[:2]
-    return ctx.reshape(b, s, cfg.q_dim) @ p["wo"]
+    return tp.all_reduce(ctx.reshape(b, s, -1) @ p["wo"], "attn_out")
 
 
 # ----------------------------------------------------------------------- MLP
@@ -244,12 +252,14 @@ def mlp(p, x):
     pair on CUDA tensors, its plain version on CPU tensors. The GeLU MLP
     is ``gelu(x @ w_up) @ w_down`` in plain PyTorch on either device, with
     ``jax.nn.gelu``'s default tanh form (the fused kernel computes SwiGLU
-    only)."""
+    only). Under a tensor-parallel mesh a rank holds column blocks of
+    ``w_gate`` / ``w_up`` and the row block of ``w_down``: the kernel or
+    its plain version gives the row-parallel partial, and one all-reduce
+    sums it (the collective stays outside the kernel)."""
     if "w_gate" not in p:
-        return F.gelu(x @ p["w_up"], approximate="tanh") @ p["w_down"]
-    w_gate, w_up, w_down = p["w_gate"], p["w_up"], p["w_down"]
-    if needs_grad(x, w_gate, w_up, w_down):
-        h = x @ w_up
-        h = F.silu(x @ w_gate) * h
-        return h @ w_down
-    return fused_mlp(x, w_gate, w_up, w_down)
+        y = F.gelu(x @ p["w_up"], approximate="tanh") @ p["w_down"]
+    elif needs_grad(x, p["w_gate"], p["w_up"], p["w_down"]):
+        y = (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    else:
+        y = fused_mlp(x, p["w_gate"], p["w_up"], p["w_down"])
+    return tp.all_reduce(y, "mlp_out")

@@ -37,12 +37,21 @@ split path's inactive slots included, as in the reference), each expert
 with the capacity of that many tokens; ``prefill`` and ``decode_step``
 drop the aux loss. The context-parallel decode branch waits for
 ROADMAP.md Queue 1 item 11.
+
+Under a tensor-parallel mesh (``core/tp.py``, made current by the serving
+engine) ``prefill`` and ``decode_step`` run on the rank's shards: its
+query heads, its K/V heads (all of them where Hkv does not divide tp,
+its query heads then reading theirs), its column blocks of the MLP and
+its vocabulary rows — the embedding is a vocab-parallel lookup and the
+logits are assembled to the full vocabulary. ``forward`` (training)
+raises there: sharded training is a later step of item 11.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import tp
 from repro_torch.models import kvcache, moe as moe_lib
 from repro_torch.models.layers import (attention, attn_out, attn_qkv, mlp,
                                        paged_attention, rmsnorm)
@@ -82,13 +91,14 @@ def _check_cp(cfg):
 
 
 def _embed(params, tokens, cfg):
-    return params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
+    return tp.vocab_embed(params["embed"], tokens, cfg.vocab_size).to(
+        getattr(torch, cfg.dtype))
 
 
 def _head(params, x, cfg):
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     w = params["lm_head"] if "lm_head" in params else params["embed"].T
-    return x @ w
+    return tp.vocab_logits(x @ w, cfg.vocab_size)
 
 
 def ffn(lp, h, cfg):
@@ -115,6 +125,7 @@ def forward(params, batch, cfg, *, remat: bool = False,
             attn_impl: str = "auto"):
     """batch: {"tokens": (B,S) int}. Returns (logits (B,S,V), aux): the
     layers' router aux losses summed, 0 for a dense FFN."""
+    tp.check_training("transformer.forward")
     x = _embed(params, batch["tokens"], cfg)
     auxs = []
     for lp in unstack_layers(params, cfg.num_layers):
@@ -169,8 +180,8 @@ def prefill(params, batch, cfg, cache, *, attn_impl: str = "auto",
     for i, lp in enumerate(unstack_layers(params, cfg.num_layers)):
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = attn_qkv(lp["attn"], h, cfg)
-        ctx = attention(q, k, v, causal=True, window=cfg.sliding_window,
-                        impl=attn_impl)
+        ctx = attention(q, tp.kv_read(k), tp.kv_read(v), causal=True,
+                        window=cfg.sliding_window, impl=attn_impl)
         x = x + attn_out(lp["attn"], ctx, cfg)
         x = x + ffn(lp, rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg)[0]
         kv["k"][i] = kvcache.fit_prefill(k, w)
@@ -217,12 +228,13 @@ def decode_step(params, cache, token, pos, cfg):
         kv = {"k": pool["k"][i], "v": pool["v"][i]}
         if paged:
             kvcache.write_kv_paged(kv, k, v, wtab, rows)
-            ctx = paged_attention(q, kv["k"], kv["v"], ptab, rows)
+            ctx = paged_attention(q, tp.kv_read(kv["k"]),
+                                  tp.kv_read(kv["v"]), ptab, rows)
         else:
             kvcache.write_kv(kv, k, v, pos, ring=ring, window=w)
-            ctx = attention(q, kv["k"], kv["v"], causal=True,
-                            window=cfg.sliding_window, q_offset=pos,
-                            kv_len=kv_len, kpos=kpos)
+            ctx = attention(q, tp.kv_read(kv["k"]), tp.kv_read(kv["v"]),
+                            causal=True, window=cfg.sliding_window,
+                            q_offset=pos, kv_len=kv_len, kpos=kpos)
         x = x + attn_out(lp["attn"], ctx, cfg)
         x = x + ffn(lp, rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg)[0]
     out = {"kv": pool, "pos": pos + 1}

@@ -48,6 +48,8 @@ from typing import Dict, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core import tp
+from repro_torch.core.strategy import mesh_axes
 from repro_torch.tree import unflatten
 
 #: key -> (shape, dtype, init): init is the std of a normal draw, or one
@@ -233,24 +235,58 @@ def param_spec(cfg) -> Spec:
             **_block_spec(cfg, "shared", ())}
 
 
-def init_params(cfg, *, device="cuda", generator=None, seed: int = 0):
+def _rank_blocks(cfg, shard):
+    """For ``shard=(strategy, mesh)``: a function giving this rank's block
+    of a full leaf (``core/tp.py::rank_pspecs``' spec at its coordinate)
+    and one giving a leaf's block shape; None, None unsharded."""
+    if shard is None:
+        return None, None
+    strategy, mesh = shard
+    specs = tp.leaf_specs(full_shapes(cfg), strategy, mesh, cfg)
+    axes, coord = mesh_axes(mesh), tp.coordinate(mesh)
+
+    def block(key, leaf, lead: int = 0):
+        return tp.shard_leaf(leaf, specs[key][lead:], axes, coord)
+
+    def block_shape(key, shape):
+        return tp.local_shape(shape, specs[key], axes)
+
+    return block, block_shape
+
+
+def full_shapes(cfg) -> Dict[str, tuple]:
+    """``{key: shape}`` of every leaf of the family's tree."""
+    return {k: v[0] for k, v in param_spec(cfg).items()}
+
+
+def init_params(cfg, *, device="cuda", generator=None, seed: int = 0,
+                shard=None):
     """Random weights on ``device`` from ``generator`` (or a fresh one
     seeded with ``seed``). Stacked weights (:data:`STACK_AXES`) are drawn
     one layer at a time so the fp32 draw never holds more than one
-    layer."""
+    layer. ``shard=(strategy, mesh)`` keeps only this rank's block of
+    every leaf (``core/tp.py``): each layer is drawn whole, as unsharded,
+    and sliced, so every rank's blocks are blocks of the same weights and
+    the device never holds more than the rank's share and one layer's
+    draw."""
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
+    block, block_shape = _rank_blocks(cfg, shard)
     flat = {}
     for key, (shape, dtype, init) in param_spec(cfg).items():
         if isinstance(init, str):
-            flat[key] = FIXED_INITS[init](shape).to(device=device,
-                                                   dtype=dtype).contiguous()
+            leaf = FIXED_INITS[init](shape)
+            if block is not None:
+                leaf = block(key, leaf)
+            flat[key] = leaf.to(device=device, dtype=dtype).contiguous()
             continue
-        out = torch.empty(shape, dtype=dtype, device=device)
         lead = STACK_AXES.get(key.split("/", 1)[0], 0)
-        for part in out.view(-1, *shape[lead:]):
-            part.copy_(torch.randn(part.shape, generator=generator,
-                                   device=device) * init)
+        out = torch.empty(shape if block is None else block_shape(key, shape),
+                          dtype=dtype, device=device)
+        for part in out.view(-1, *out.shape[lead:]):
+            draw = torch.randn(shape[lead:], generator=generator,
+                               device=device) * init
+            part.copy_(draw if block is None else block(key, draw, lead))
         flat[key] = out
     return unflatten(flat)
 
@@ -268,23 +304,27 @@ def _to_tensor(key: str, arr: np.ndarray, dtype: torch.dtype):
     return torch.from_numpy(np.array(arr))
 
 
-def from_numpy(flat: Dict[str, np.ndarray], cfg, device="cuda") -> dict:
+def from_numpy(flat: Dict[str, np.ndarray], cfg, device="cuda",
+               shard=None) -> dict:
     """The JAX tree flattened to numpy (``checkpoint/io.py::_flatten``
     keys) -> the port's tree on ``device``. Total: every JAX leaf is
     consumed and every port parameter filled, with shapes and dtypes
-    checked — anything else raises."""
+    checked — anything else raises. ``shard=(strategy, mesh)`` puts only
+    this rank's block of each leaf on the device, a leaf at a time."""
     spec = param_spec(cfg)
     missing = sorted(set(spec) - set(flat))
     extra = sorted(set(flat) - set(spec))
     if missing or extra:
         raise KeyError(f"{cfg.name}: weight bridge keys differ — missing "
                        f"{missing}, unexpected {extra}")
+    block, _ = _rank_blocks(cfg, shard)
     out = {}
     for key, (shape, dtype, _) in spec.items():
         arr = np.asarray(flat[key])
         if tuple(arr.shape) != shape:
             raise ValueError(f"{key}: shape {tuple(arr.shape)} != {shape}")
-        out[key] = _to_tensor(key, arr, dtype).to(device)
+        leaf = _to_tensor(key, arr, dtype)
+        out[key] = (leaf if block is None else block(key, leaf)).to(device)
     return unflatten(out)
 
 

@@ -153,6 +153,12 @@ class AsyncDriver:
                  idle_wait_s: float = 0.2):
         from repro_torch.serve.metrics import ServeMetrics
 
+        if getattr(engine, "tp", 1) > 1:
+            raise NotImplementedError(
+                "online serving of a tensor-parallel engine: only rank 0 "
+                "would see the requests, and every rank must step on the "
+                "same submissions — the parallelism slice, ROADMAP.md Queue "
+                "1 item 11")
         self.engine = engine
         self.metrics = metrics if metrics is not None else ServeMetrics()
         self.watchdog_timeout = watchdog_timeout

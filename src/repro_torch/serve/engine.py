@@ -129,13 +129,34 @@ draft pages past the accepted cursor go back through
 token for token, and the program set stays one per (``chunk_tokens``,
 page bucket).
 
-Not ported yet, raising ``NotImplementedError`` naming its ROADMAP.md
-item: TP/DP meshes.
+**Tensor-parallel serving** (``mesh=``, a ("data", "model") = (1, tp)
+``DeviceMesh``; ``Session.serve(tp=)`` builds it), for dense decoders.
+The reference runs its programs GSPMD-sharded from one controller; the
+port runs one process a rank (``torchrun``), each with this engine over
+its own shards (``core/tp.py``): the Megatron layout of
+``core/sharding.py`` with heads kept whole — Hq/tp query heads, Hkv/tp
+K/V heads of every page (all Hkv, replicated, where they do not divide),
+d_ff/tp of the MLP and V/tp of the vocabulary — and one all-reduce after
+``wo``, one after ``w_down``, one for the embedding and one to assemble
+the logits. The kernels run at the rank's shapes, checked at
+construction. Every rank runs the same host engine (scheduler,
+allocator, prefix cache) on the same submissions, so pages, prefix hits,
+CoW, preemption and speculative decode match across ranks; what could
+still diverge is fixed by rank 0: the sampled tokens (broadcast after
+each program) and the clock every deadline decision reads (broadcast
+each step and at ``submit(deadline_s=)``). Before each program the ranks
+compare a checksum of what they packed (one all-reduce of ``(c, -c)``
+with MAX) and raise if it differs. ``kv_bytes`` stays global;
+``per_device_kv_bytes`` is one rank's share. The other families, a mesh
+with data parallelism and the online stack (only rank 0 would see the
+requests) raise ``NotImplementedError`` naming ROADMAP.md Queue 1 item
+11.
 """
 from __future__ import annotations
 
 import hashlib
 import time
+import zlib
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional
@@ -143,9 +164,12 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import tp
+from repro_torch.core.strategy import Strategy, mesh_axes, refuse_unported
 from repro_torch.kernels import (flash_attention, fused_mlp,
                                  paged_attention, ssd_scan)
 from repro_torch.models import get_model, kvcache, transformer
+from repro_torch.params import full_shapes
 from repro_torch.serve.paging import PageAllocator, pages_for
 from repro_torch.serve.prefix import PrefixCache
 from repro_torch.serve.sampling import sample_tokens
@@ -197,7 +221,8 @@ class ServeEngine:
                  seed: int = 0, paged: Optional[bool] = None,
                  page_size: int = 16, kv_pages: Optional[int] = None,
                  prefix_cache: bool = False, lazy: bool = False,
-                 scheduler=None, mesh=None, mixed: Optional[bool] = None,
+                 scheduler=None, mesh=None, strategy=None,
+                 mixed: Optional[bool] = None,
                  chunk_tokens: int = 256, spec=None, tracer=None,
                  trace_level: int = 1, device=None):
         self.model = get_model(cfg)    # raises for the unported families
@@ -249,8 +274,6 @@ class ServeEngine:
                     f"(spec.k + 1) = {slots * (spec.k + 1)}: every "
                     "slot's base decode row plus its k draft rows is "
                     "reserved in the budget before any prefill chunk")
-        if mesh is not None:
-            raise _todo("tp/dp meshes (mesh=)", "Queue 1 item 11")
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         if mixed and chunk_tokens < max(slots, 1):
@@ -258,6 +281,16 @@ class ServeEngine:
                 f"chunk_tokens ({chunk_tokens}) must be >= slots "
                 f"({slots}): every active slot's decode token is "
                 "reserved in the budget before any prefill chunk")
+        # -------- intra-operator (TP) sharding: the rank's view and shards
+        self.mesh = mesh
+        self.strategy = strategy
+        self._rank = None
+        if mesh is not None:
+            self.strategy = strategy if strategy is not None \
+                else Strategy(dtype=cfg.dtype)
+            self._rank, params = self._shard(cfg, params, mesh,
+                                             self.strategy)
+        self.tp = self._rank.tp if self._rank is not None else 1
         self.cfg, self.params = cfg, params
         self.device = torch.device(device) if device is not None \
             else params["tok_embed" if "tok_embed" in params
@@ -332,13 +365,16 @@ class ServeEngine:
         self._shapes = set()
         self._prefill_lens = set()
         self._encode_shapes = set()
+        # the caches hold the rank's K/V heads (all of them unsharded)
+        self._cache_cfg = cfg if self._rank is None else \
+            cfg.with_(num_kv_heads=self._rank.kv_heads)
         if self.paged:
             self._init_pool(kv_pages)
         else:
             # the slot table: one batched cache (a ring of the window on
             # sliding-window configs)
-            self._cache = self.model.init_cache(cfg, slots, max_len,
-                                                device=self.device)
+            self._cache = self.model.init_cache(self._cache_cfg, slots,
+                                                max_len, device=self.device)
         self._cache["pos"] = torch.zeros((slots,), dtype=torch.int32,
                                          device=self.device)
         # bucketing: attention masks make right-padding exact for dense
@@ -349,6 +385,23 @@ class ServeEngine:
         self._window = max_len if self.paged or "kv" not in self._cache \
             else self._cache["kv"]["k"].shape[2]
 
+    @staticmethod
+    def _shard(cfg, params, mesh, strategy):
+        """The rank's view of ``mesh`` and its shards of ``params`` (full
+        leaves are sliced; leaves already of the rank's block shape are
+        kept). Refuses what tensor-parallel serving does not run yet."""
+        if cfg.arch_type != "dense":
+            raise _todo(f"tensor-parallel serving of the {cfg.arch_type} "
+                        "family (mesh=)", "Queue 1 item 11")
+        axes = mesh_axes(mesh)
+        if set(axes) - {"data", "model"} or axes.get("data", 1) > 1:
+            raise _todo(f"serving on a {axes} mesh (data-parallel replicas "
+                        "are the ReplicaRouter's)", "Queue 1 item 11")
+        refuse_unported(strategy, "serving on a mesh")
+        rank = tp.Rank.of(mesh, cfg)
+        return rank, tp.shard_params(params, full_shapes(cfg), strategy,
+                                     mesh, cfg)
+
     def _check_kernel_limits(self):
         """On a CUDA device, refuse at construction what a kernel of this
         engine's path cannot take (it would refuse at the first step,
@@ -358,15 +411,22 @@ class ServeEngine:
         VLM and in every enc-dec admission on either path (the encoder),
         the fused MLP in every dense-decoder, hybrid and VLM program (an
         MoE layer and the enc-dec family's plain-GeLU MLP run none), the
-        SSD scan in every SSM and hybrid prefill."""
+        SSD scan in every SSM and hybrid prefill. Under a mesh the
+        kernels see the rank's shapes: its query heads, the K/V heads they
+        read and its d_ff / tp."""
         cfg = self.cfg
+        hq, hkv, d_ff = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
+        r = getattr(self, "_rank", None)      # None: unsharded
+        if r is not None:
+            hq, d_ff = r.heads, d_ff // r.tp
+            hkv = r.kv_heads if r.kv_read is None else 1
         checks = []
         if self.paged:
             checks.append(("the paged KV layout runs the paged-attention "
                            "kernel", "; pick a page_size or layout it takes "
                            "(paged=False)", paged_attention.kernel_limits(
-                               cfg.dtype, self.page_size, cfg.num_heads,
-                               cfg.num_kv_heads, cfg.head_dim)))
+                               cfg.dtype, self.page_size, hq, hkv,
+                               cfg.head_dim)))
         if cfg.arch_type in ("ssm", "hybrid"):
             checks.append(("every prefill runs the SSD-scan kernel in each "
                            "Mamba layer", "", ssd_scan.kernel_limits(
@@ -377,8 +437,7 @@ class ServeEngine:
             checks.append(("every split-path prefill runs the "
                            "flash-attention kernel", "",
                            flash_attention.kernel_limits(
-                               cfg.dtype, cfg.num_heads,
-                               cfg.num_kv_heads, cfg.head_dim)))
+                               cfg.dtype, hq, hkv, cfg.head_dim)))
         if cfg.arch_type == "audio":
             checks.append(("every admission's encoder (and each split-path "
                            "prefill's decoder) runs the flash-attention "
@@ -388,7 +447,7 @@ class ServeEngine:
         if cfg.arch_type in ("dense", "hybrid", "vlm") and not cfg.is_moe:
             checks.append(("every program runs the fused-MLP kernel", "",
                            fused_mlp.kernel_limits(cfg.dtype, cfg.d_model,
-                                                   cfg.d_ff)))
+                                                   d_ff)))
         if self.spec is not None and self.spec.drafter == "model":
             dc = self.spec.draft_cfg or default_draft_cfg(cfg)
             checks.append((f"the draft model {dc.name}'s forward runs the "
@@ -415,8 +474,8 @@ class ServeEngine:
         cfg = self.cfg
         self._cache = {"kv": kvcache.init_paged_kv(
             cfg.num_layers, self.kv_pages + 1, self.page_size,
-            cfg.num_kv_heads, cfg.head_dim, getattr(torch, cfg.dtype),
-            self.device)}
+            self._cache_cfg.num_kv_heads, cfg.head_dim,
+            getattr(torch, cfg.dtype), self.device)}
         if cfg.arch_type == "audio":
             # the cross K/V stays a dense block a slot (fixed length)
             self._cache["xkv"] = self.model.init_cache(
@@ -436,11 +495,20 @@ class ServeEngine:
 
     # ------------------------------------------------------------ memory
     def kv_bytes(self) -> int:
-        """Device bytes of the resident decode state, allocated up front:
-        the KV pool or rows, the enc-dec cross K/V blocks, the VLM's self
-        K/V rows (``kv_g``, ``kv_t``) and image K/V blocks (``xkv``), the
-        SSM states and conv tails (cursors and the page table
-        excluded)."""
+        """GLOBAL device bytes of the resident decode state, allocated up
+        front: the KV pool or rows, the enc-dec cross K/V blocks, the
+        VLM's self K/V rows (``kv_g``, ``kv_t``) and image K/V blocks
+        (``xkv``), the SSM states and conv tails (cursors and the page
+        table excluded). Under a mesh: the rank's bytes times tp where the
+        K/V heads are sharded, the rank's where they are replicated."""
+        r = self._rank
+        scale = r.tp if r is not None and r.kv_sharded else 1
+        return self.per_device_kv_bytes() * scale
+
+    def per_device_kv_bytes(self) -> int:
+        """Resident decode-state bytes on this rank's device: 1/tp of
+        :meth:`kv_bytes` where the K/V heads divide the model axis; equal
+        to it unsharded."""
         def size(tree):
             return sum(size(v) if isinstance(v, dict)
                        else v.numel() * v.element_size()
@@ -462,11 +530,11 @@ class ServeEngine:
                                     torch.zeros_like(ptab_rows), ptab_rows)}
         if "xkv" in self._cache:
             view["xkv"], view["xslot"] = self._cache["xkv"], slot
-        logits, _ = self.model.decode_step(self.params, view, tokens, pos,
-                                           self.cfg)
+        with tp.active(self._rank):
+            logits, _ = self.model.decode_step(self.params, view, tokens,
+                                               pos, self.cfg)
+            tok = self._sample(logits[:, -1])
         self.last_logits = logits
-        tok = sample_tokens(logits[:, -1], generator=self._gen,
-                            temperature=self.temperature)
         return torch.where(active, tok, torch.zeros_like(tok))
 
     def _encode_fn(self, frames, slot: int):
@@ -493,11 +561,11 @@ class ServeEngine:
         self._shapes.add((tuple(tokens.shape),
                           self._gather if self.paged else 0))
         self.stats["decode_traces"] = len(self._shapes)
-        logits, self._cache = self.model.decode_step(
-            self.params, self._cache, tokens, pos, self.cfg)
+        with tp.active(self._rank):
+            logits, self._cache = self.model.decode_step(
+                self.params, self._cache, tokens, pos, self.cfg)
+            tok = self._sample(logits[:, -1])
         self.last_logits = logits
-        tok = sample_tokens(logits[:, -1], generator=self._gen,
-                            temperature=self.temperature)
         tok = torch.where(active, tok, torch.zeros_like(tok))
         self._cache["pos"] = torch.where(active, pos + 1, pos)
         return tok
@@ -522,9 +590,20 @@ class ServeEngine:
         self.stats["prefill_traces"] = len(self._prefill_lens)
         batch = {"tokens": tokens, **(extra or {})}
         kw = {"last_pos": last_pos} if self._bucketed else {}
+        with tp.active(self._rank):
+            logits = self._prefill_run(batch, slot, pages, kw)
+            tok = self._sample(logits[0, -1])
+        self.last_logits = logits
+        self._cache["pos"][slot] = last_pos + 1
+        return tok
+
+    def _prefill_run(self, batch, slot: int, pages, kw):
+        """:meth:`_prefill_fn`'s program: the prefill and its cache
+        writes. Returns the logits."""
         if self.paged:
-            clen = pages_for(blen, self.page_size) * self.page_size
-            c1 = self.model.init_cache(self.cfg, 1, clen,
+            clen = pages_for(batch["tokens"].shape[1],
+                             self.page_size) * self.page_size
+            c1 = self.model.init_cache(self._cache_cfg, 1, clen,
                                        device=self.device)
             logits, c1 = self.model.prefill(self.params, batch, self.cfg,
                                             c1, **kw)
@@ -538,11 +617,42 @@ class ServeEngine:
                    if isinstance(sub, dict)}
             logits, _ = self.model.prefill(self.params, batch, self.cfg,
                                            row, **kw)
-        self.last_logits = logits
-        tok = sample_tokens(logits[0, -1], generator=self._gen,
+        return logits
+
+    def _sample(self, logits):
+        """Sample a token a row of ``logits`` (the last position's); under
+        a mesh every rank takes rank 0's tokens."""
+        tok = sample_tokens(logits, generator=self._gen,
                             temperature=self.temperature)
-        self._cache["pos"][slot] = last_pos + 1
-        return tok
+        return tp.broadcast_from_root(tok, "tokens")
+
+    # ------------------------------------------------ agreement of ranks
+    def _now(self) -> float:
+        """The clock every deadline decision reads: ``time.monotonic()``,
+        rank 0's under a mesh."""
+        now = time.monotonic()
+        if self._rank is None:
+            return now
+        t = torch.tensor([now], dtype=torch.float64, device=self.device)
+        with tp.active(self._rank):
+            return float(tp.broadcast_from_root(t, "clock").item())
+
+    def _same_step(self, *arrays):
+        """Under a mesh: raise unless every rank packed the same host
+        arrays for the program about to run (one all-reduce of a
+        checksum)."""
+        if self._rank is None:
+            return
+        crc = 0
+        for a in arrays:
+            crc = zlib.crc32(np.ascontiguousarray(a).tobytes(), crc)
+        with tp.active(self._rank):
+            same = tp.same_on_all(crc, "step_check", self.device)
+        if not same:
+            raise RuntimeError(
+                f"tensor-parallel rank {self._rank.rank} of {self.tp}: the "
+                f"ranks packed different programs at step "
+                f"{self.stats['step_count']} (their host engines diverged)")
 
     # --------------------------------------------------------- scheduling
     def submit(self, rid: int, prompt: np.ndarray, max_new: int, *,
@@ -632,7 +742,7 @@ class ServeEngine:
                 raise ValueError(
                     f"request {rid}: deadline_s must be > 0, got "
                     f"{deadline_s}")
-            deadline = time.monotonic() + float(deadline_s)
+            deadline = self._now() + float(deadline_s)
         req = Request(rid, prompt, int(max_new), frames=frames,
                       images=images, priority=int(priority),
                       deadline=deadline)
@@ -925,6 +1035,8 @@ class ServeEngine:
                 self._sync_ptab()
             padded = np.zeros((1, blen), np.int32)
             padded[0, :n] = ctx
+            self._same_step(padded, np.array([s, n], np.int64),
+                            page_vec if self.paged else np.zeros(0))
             tokens = torch.from_numpy(padded).to(self.device)
             extra = {key: torch.from_numpy(arr[None]).to(self.device)
                      for key, arr in (("frames", req.frames),
@@ -1155,7 +1267,7 @@ class ServeEngine:
         t0 = time.perf_counter()
         before = self.stats["decode_tokens"]
         tr = self.tracer.begin_step(self.stats["step_count"])
-        self._expire_queued(time.monotonic())
+        self._expire_queued(self._now())
         tr.lap("bookkeeping")
         self._admit()
         tr.lap("admit")
@@ -1168,6 +1280,8 @@ class ServeEngine:
                 self._sync_ptab()
             tr.lap("pack")
             meta = np.stack([self._last, self._pos, mask]).astype(np.int32)
+            self._same_step(meta, self._ptab[:, :self._gather]
+                            if self.paged else np.zeros(0))
             dev = torch.from_numpy(meta).to(self.device)
             tok = self._decode_fn(dev[0][:, None], dev[1], dev[2].bool())
             tr.lap("dispatch")
@@ -1214,7 +1328,7 @@ class ServeEngine:
         if abort is not None and abort.is_set():
             # a cancellation point at the chunk boundary: no program runs
             return self._finish_step(t0, before, tr)
-        self._expire_queued(time.monotonic())
+        self._expire_queued(self._now())
         self._admit_mixed()
         if self.lazy or self._prefix is not None:
             self._grow_and_cow()
@@ -1293,6 +1407,7 @@ class ServeEngine:
         self._sync_ptab()
         self._shapes.add((T, self._gather))
         self.stats["decode_traces"] = len(self._shapes)
+        self._same_step(meta, self._ptab[:, :self._gather])
         tr.lap("pack")
         dev = torch.from_numpy(meta).to(self.device)
         tok = self._mixed_fn(dev[0][:, None], dev[1], dev[2].long(),

@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.checkpoint import (latest_step, load_checkpoint,
                                     save_checkpoint)
-from repro_torch.core.strategy import Strategy
+from repro_torch.core.strategy import Strategy, refuse_unported
 from repro_torch.data.pipeline import DataConfig, TokenDataset
 from repro_torch.kernels import flash_attention
 from repro_torch.params import init_params
@@ -63,6 +63,7 @@ class Trainer:
     def __init__(self, cfg, strategy: Strategy, device,
                  train_cfg: TrainConfig, data: Optional[TokenDataset] = None,
                  global_batch: int = 8, seq_len: int = 256, params=None):
+        refuse_unported(strategy, "training")
         self.cfg, self.strategy = cfg, strategy
         self.device = torch.device(device)
         check_kernel_limits(cfg, strategy, self.device)

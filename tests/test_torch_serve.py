@@ -465,13 +465,20 @@ def test_submit_validation_and_backpressure(weights):
 
 @pytest.mark.parametrize("kw,item", [
     ({"planner": ("from_plan", "dryrun", "lower")}, "item 12"),
-    ({"mesh": object()}, "item 11")])
+    ({"mesh": object(), "arch_type": "moe"}, "item 11")])
 def test_unported_engine_features_raise(weights, kw, item):
-    """What is still missing raises naming its ROADMAP.md item: meshes on
-    the engine, and the Session entry points that need the planner
-    (speculative decode, the earlier case here, is ported)."""
+    """What is still missing raises naming its ROADMAP.md item: a mesh on
+    an engine of a family other than dense (tensor-parallel serving of
+    dense decoders is ported: tests/test_torch_tp.py), and the Session
+    entry points that need the planner (speculative decode, the earlier
+    case here, is ported)."""
     _, _, params = weights
-    calls = [lambda: ServeEngine(CFG, params, **kw)]
+    cfg = CFG
+    if "arch_type" in kw:
+        cfg = CFG.with_(arch_type=kw.pop("arch_type"), num_experts=4,
+                        experts_per_token=2)
+        params = init_params(cfg, device="cpu", seed=0)
+    calls = [lambda: ServeEngine(cfg, params, **kw)]
     if "planner" in kw:
         session = Session(CFG, device="cpu", params=params)
         calls = [lambda m=m: getattr(session, m)("decode_4k")
@@ -526,8 +533,14 @@ def test_session_serves_on_cpu_and_keeps_reference_keywords(weights):
     got = {i: list(r.out) for i, r in eng.run().items()}
     ref, _ = _serve(params, _prompts(0, (5, 23)), 3)
     assert got == ref
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # tp= needs a process group of that many ranks (tests/test_torch_tp.py
+    # serves under one); dp= and plan= still raise naming their items
+    with pytest.raises(ValueError, match="no process group"):
         session.serve(tp=2)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        session.serve(dp=2)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        session.serve(plan=object())
     with pytest.raises(ValueError, match="attn_backend"):
         session.serve(attn_backend="gather")
     fresh = Session(CFG, device="cpu", seed=7)
@@ -648,7 +661,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch/models/encdec.py", "repro_torch/models/vlm.py",
             "repro_torch/serve/speculative.py",
             "repro_torch/serve/driver.py", "repro_torch/serve/server.py",
-            "repro_torch/serve/metrics.py"} <= names
+            "repro_torch/serve/metrics.py", "repro_torch/core/pspec.py",
+            "repro_torch/core/sharding.py", "repro_torch/core/tp.py",
+            "repro_torch/launch/mesh.py",
+            "repro_torch/launch/ranks.py"} <= names
     for path in files:
         for mod in _imports(path):
             root = mod.split(".")[0]
@@ -667,7 +683,9 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.models.hybrid, repro_torch.models.moe, "
             "repro_torch.models.encdec, repro_torch.models.vlm, "
             "repro_torch.serve.speculative, repro_torch.serve.driver, "
-            "repro_torch.serve.server, repro_torch.serve.metrics; "
+            "repro_torch.serve.server, repro_torch.serve.metrics, "
+            "repro_torch.core.sharding, repro_torch.core.tp, "
+            "repro_torch.launch.mesh, repro_torch.launch.ranks; "
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,

@@ -1,0 +1,496 @@
+"""Tensor-parallel serving of dense decoders in the port, on CPU gloo
+ranks: the twin of tests/test_serve_parallel.py's tp cases and of
+tests/test_tp_collectives.py.
+
+The reference shards one GSPMD program over conftest's 8 host devices;
+the port runs one process a rank (serve/engine.py with ``mesh=``,
+core/tp.py). One spawn starts two ranks (``launch/ranks.py``: a
+``spawn`` context, a FileStore rendezvous under ``tmp_path``, one thread
+a rank, a timeout that kills the ranks) which import ``repro_torch``
+only, take numpy params from this process and run every case. The tp 2
+streams are held to the JAX engine's tp 1 streams on the same weights
+(the reference's own tests pin its tp 2 = tp 1), its counters to the JAX
+engine's, its logits to the JAX ``decode_step``'s within
+tests/test_torch_decode.py's ``LOGITS_TOL``. Each JAX run is made once
+and shared.
+
+This module imports JAX and the reference only inside functions: the
+ranks import it by name to find their entry points.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs.base import ModelConfig  # noqa: E402
+from repro_torch.core import tp  # noqa: E402
+from repro_torch.core.strategy import Strategy  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.ranks import run_ranks  # noqa: E402
+from repro_torch.params import from_numpy  # noqa: E402
+from repro_torch.serve.engine import ServeEngine  # noqa: E402
+
+LOGITS_TOL = 1e-4               # tests/test_torch_decode.py's
+RANK_TIMEOUT = 120.0            # seconds a spawn may take before it fails
+
+#: tests/test_serve_parallel.py's CFG, and the same with one KV head (the
+#: pool replicated on both ranks: 1 does not divide tp 2)
+KW = dict(name="par-dense", arch_type="dense", num_layers=2, d_model=128,
+          num_heads=4, num_kv_heads=2, d_ff=256, vocab_size=128,
+          dtype="float32")
+KW_KV1 = dict(KW, name="par-dense-kv1", num_kv_heads=1)
+KW_RING = dict(KW, name="par-dense-swa", sliding_window=8)
+
+COUNTERS = ("prefills", "decode_tokens", "decode_steps", "peak_pages",
+            "decode_traces", "prefill_traces", "prefix_hit_blocks",
+            "prefix_miss_blocks", "prefix_tail_hits", "prefix_evictions",
+            "prefix_decode_blocks", "preemptions", "cow_copies",
+            "spec_drafted", "spec_accepted")
+
+
+def _prompts(seed, lens):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 128, size=(n,)).astype(np.int32) for n in lens]
+
+
+def _shared_prefix():
+    """tests/test_serve_parallel.py:381's prompts: a 16-token system
+    prompt and 5 tokens each."""
+    rng = np.random.default_rng(4)
+    sys_p = rng.integers(0, 128, size=(16,))
+    return [np.concatenate([sys_p, rng.integers(0, 128, size=(5,))])
+            .astype(np.int32) for _ in range(4)]
+
+
+def _repeats():
+    """p, p, q, p (tests/test_serve_prefix.py:81): a repeat of an
+    unaligned prompt takes a partial tail page, copied on write."""
+    rng = np.random.default_rng(6)
+    p = rng.integers(0, 128, size=(11,)).astype(np.int32)
+    q = rng.integers(0, 128, size=(9,)).astype(np.int32)
+    return [p, p, q, p]
+
+
+def _motifs():
+    """tests/test_serve_spec.py:172's prompts: two random, two tiled
+    motifs (the ngram drafter's proposals get accepted)."""
+    rng = np.random.default_rng(5)
+    out = [rng.integers(0, 128, size=(n,)).astype(np.int32) for n in (5, 19)]
+    for _ in range(2):
+        motif = rng.integers(0, 128, size=(int(rng.integers(3, 6)),))
+        out.append(np.tile(motif, int(rng.integers(4, 7))).astype(np.int32))
+    return out
+
+
+#: run -> (config, prompts, max_new, engine keywords; ``spec`` the draft
+#: length k): (a) the reference's tp 2 run, (b) the split path on the pool
+#: and dense rows and the SWA ring, (c) the prefix cache with lazy
+#: growth, as the reference's and on a pool below demand (preemption,
+#: CoW), and speculative decode, (e) one KV head
+RUNS = {
+    "mixed": (KW, _prompts(0, (5, 7, 6, 8, 5)), 6,
+              dict(slots=2, max_len=64, paged=True)),
+    "split_pool": (KW, _prompts(0, (5, 7, 6, 8, 5)), 6,
+                   dict(slots=2, max_len=64, paged=True, mixed=False)),
+    "split_dense": (KW, _prompts(0, (5, 7, 6, 8, 5)), 6,
+                    dict(slots=2, max_len=64, paged=False)),
+    "ring": (KW_RING, _prompts(1, (5, 7, 6, 8, 5)), 6,
+             dict(slots=2, max_len=64)),
+    "prefix": (KW, _shared_prefix(), 6,
+               dict(slots=2, max_len=64, paged=True, prefix_cache=True,
+                    lazy=True)),
+    "prefix_dry": (KW, _repeats(), 6,
+                   dict(slots=2, max_len=64, paged=True, page_size=4,
+                        kv_pages=6, chunk_tokens=16, prefix_cache=True,
+                        lazy=True)),
+    "spec": (KW, _motifs(), 6,
+             dict(slots=2, max_len=64, paged=True, chunk_tokens=16,
+                  spec=4)),
+    "kv1": (KW_KV1, _prompts(2, (5, 7, 6, 8)), 6,
+            dict(slots=2, max_len=64, paged=True, chunk_tokens=16)),
+}
+
+
+def _spec_kw(ekw, spec_cls):
+    return dict(ekw, spec=spec_cls(k=ekw["spec"])) if "spec" in ekw else ekw
+
+_JAX = {}
+
+
+def _weights(kw):
+    """The name of the config whose weights ``kw`` takes: the ring's are
+    par-dense's (a sliding window changes no shape)."""
+    return KW["name"] if kw["name"] == KW_RING["name"] else kw["name"]
+
+
+def _jax_params(kw):
+    """(the reference's config of ``kw``, its init at seed 0, that init
+    flattened to numpy with the bridge's keys); each init made once."""
+    from repro.configs.base import ModelConfig as JaxConfig
+    key = ("params", _weights(kw))
+    if key not in _JAX:
+        import jax
+        from repro.checkpoint.io import _flatten
+        from repro.models import get_model
+        jcfg = JaxConfig(**kw)
+        jparams = jax.jit(get_model(jcfg).init, static_argnums=1)(
+            jax.random.key(0), jcfg)
+        _JAX[key] = (jparams, {k: np.asarray(v)
+                               for k, v in _flatten(jparams).items()})
+    return (JaxConfig(**kw),) + _JAX[key]
+
+
+def _flat(kw):
+    return _jax_params(kw)[2]
+
+
+def _jax_run(name):
+    """(streams, stats, kv_bytes, per-device kv bytes) of the JAX engine,
+    unsharded, on run ``name``, made once."""
+    if name not in _JAX:
+        from repro.serve.engine import ServeEngine as JaxEngine
+        from repro.serve.speculative import SpecConfig as JaxSpec
+        kw, prompts, new, ekw = RUNS[name]
+        jcfg, jparams, _ = _jax_params(kw)
+        eng = JaxEngine(jcfg, jparams, **_spec_kw(ekw, JaxSpec))
+        for i, p in enumerate(prompts):
+            eng.submit(i, p, max_new=new)
+        res = eng.run()
+        _JAX[name] = ({i: list(res[i].out) for i in res}, dict(eng.stats),
+                      eng.kv_bytes(), eng.per_device_kv_bytes())
+    return _JAX[name]
+
+
+# ------------------------------------------------------------- the ranks
+
+def _mesh(world):
+    torch.set_num_threads(1)
+    return make_mesh((1, world), ("data", "model"), device_type="cpu")
+
+
+def _engine_rank(rank, world, flats, runs):
+    """Every engine run on this rank: the full params handed to the engine
+    (it shards them) on even runs, only the rank's blocks from the bridge
+    (``from_numpy(shard=)``) on odd ones."""
+    from repro_torch.serve.speculative import SpecConfig
+    mesh = _mesh(world)
+    out = {}
+    for i, (name, (kw, prompts, new, ekw)) in enumerate(runs.items()):
+        cfg = ModelConfig(**kw)
+        shard = (Strategy(dtype=cfg.dtype), mesh) if i % 2 else None
+        params = from_numpy(flats[_weights(kw)], cfg, "cpu", shard=shard)
+        eng = ServeEngine(cfg, params, mesh=mesh,
+                          **_spec_kw(ekw, SpecConfig))
+        for j, p in enumerate(prompts):
+            eng.submit(j, p, max_new=new)
+        res = eng.run()
+        out[name] = {"streams": {j: list(res[j].out) for j in res},
+                     "done": all(r.done for r in res.values()),
+                     "stats": {k: eng.stats[k] for k in COUNTERS
+                               + ("mixed_steps",)},
+                     "tp": eng.tp, "kv_bytes": eng.kv_bytes(),
+                     "per_device": eng.per_device_kv_bytes(),
+                     "counts": dict(eng._rank.counts)}
+    return out
+
+
+def _logits_rank(rank, world, flats, toks):
+    """Prefill 20 tokens and decode 4 on the dense cache, under tp, for
+    each config; with the collectives of the prefill and of the last
+    decode step, and what a training forward says under the mesh."""
+    from repro_torch.models import transformer
+    mesh = _mesh(world)
+    out = {}
+    for kw in (KW, KW_KV1):
+        cfg = ModelConfig(**kw)
+        params = from_numpy(flats[kw["name"]], cfg, "cpu",
+                            shard=(Strategy(dtype=cfg.dtype), mesh))
+        rank_view = tp.Rank.of(mesh, cfg)
+        cache = transformer.init_cache(
+            cfg.with_(num_kv_heads=rank_view.kv_heads), 2, 40)
+        logits, counts = [], []
+        with tp.active(rank_view):
+            t = torch.from_numpy(toks)
+            transformer.prefill(params, {"tokens": t[:, :20]}, cfg, cache)
+            counts.append(dict(rank_view.counts))
+            for pos in range(20, 24):
+                rank_view.counts.clear()
+                got, cache = transformer.decode_step(
+                    params, cache, t[:, pos:pos + 1], pos, cfg)
+                logits.append(got.numpy())
+            counts.append(dict(rank_view.counts))
+            try:
+                transformer.forward(params, {"tokens": t}, cfg)
+            except NotImplementedError as e:
+                counts.append(str(e))
+        out[kw["name"]] = {"logits": logits, "counts": counts,
+                           "cache_heads": cache["kv"]["k"].shape[3]}
+    return out
+
+
+def _session_rank(rank, world):
+    """(d): ``Session.serve(tp=2)`` and ``Session.serve()`` of one
+    session (random weights from its seed: the tp engine draws only the
+    rank's blocks), and the refusals of (g)."""
+    from repro_torch.api import Session
+    from repro_torch.params import init_params
+    from repro_torch.serve.driver import AsyncDriver
+    _mesh(world)
+    cfg = ModelConfig(**KW)
+    prompts = _prompts(3, (5, 7, 6))
+    out = {}
+    for tp_n in (None, world):
+        session = Session(cfg, device="cpu", seed=3)
+        eng = session.serve(tp=tp_n, slots=2, max_len=64)
+        for i, p in enumerate(prompts):
+            eng.submit(i, p, max_new=6)
+        res = eng.run()
+        out[tp_n or 1] = ({i: list(res[i].out) for i in res},
+                          eng.stats["decode_traces"], eng.tp)
+    refused = {}
+    try:
+        make_mesh((1, 2 * world), ("data", "model"), device_type="cpu")
+    except ValueError as e:
+        refused["mesh"] = str(e)
+    mesh = _mesh(world)
+    for family, extra in (("moe", dict(num_experts=4, experts_per_token=2)),
+                          ("audio", dict(num_kv_heads=4, encoder_layers=1,
+                                         encoder_ctx=8)),
+                          ("ssm", dict(ssm_heads=4, ssm_head_dim=16,
+                                       ssm_state=8, ssm_chunk=16))):
+        fcfg = cfg.with_(arch_type=family, **extra)
+        try:
+            ServeEngine(fcfg, init_params(fcfg, device="cpu", seed=0),
+                        mesh=mesh)
+        except NotImplementedError as e:
+            refused[family] = str(e)
+    eng = ServeEngine(cfg, init_params(cfg, device="cpu", seed=0),
+                      mesh=mesh)
+    try:
+        AsyncDriver(eng, start=False)
+    except NotImplementedError as e:
+        refused["online"] = str(e)
+    try:
+        ServeEngine(cfg, init_params(cfg, device="cpu", seed=0), mesh=mesh,
+                    strategy=Strategy(fsdp=True))
+    except NotImplementedError as e:
+        refused["fsdp"] = str(e)
+    # d_ff 264 takes the MLP kernel whole (a multiple of 8), not its rank
+    # block of 132: refused at construction on a CUDA device (no card
+    # needed to refuse)
+    bad = cfg.with_(dtype="bfloat16", d_ff=264)
+    try:
+        ServeEngine(bad, init_params(bad, device="cpu", seed=0), mesh=mesh,
+                    device="cuda")
+    except ValueError as e:
+        refused["rank_shape"] = str(e)
+    # ranks whose host engines diverge (here: different submissions) stop
+    # at the checksum before the program, on every rank, on either path
+    for mixed in (True, False):
+        eng = ServeEngine(cfg, init_params(cfg, device="cpu", seed=0),
+                          mesh=mesh, mixed=mixed, slots=2, max_len=64)
+        eng.submit(0, np.arange(5 + rank, dtype=np.int32), max_new=2)
+        try:
+            eng.run()
+        except RuntimeError as e:
+            refused[f"diverged mixed={mixed}"] = str(e)
+    out["refused"] = refused
+    return out
+
+
+# --------------------------------------------------------- the spawns
+
+def _all_ranks(rank, world, flats, runs, toks):
+    """Every case of this module on one rank: one spawn for all."""
+    return {"engine": _engine_rank(rank, world, flats, runs),
+            "logits": _logits_rank(rank, world, flats, toks),
+            "session": _session_rank(rank, world)}
+
+
+@pytest.fixture(scope="module")
+def spawned(tmp_path_factory):
+    """Both ranks' results of every case, from one spawn."""
+    toks = np.random.default_rng(5).integers(0, 128, size=(2, 24)).astype(
+        np.int32)
+    flats = {kw["name"]: _flat(kw) for kw in (KW, KW_KV1)}
+    return toks, run_ranks(_all_ranks, 2, args=(flats, RUNS, toks),
+                           store_dir=str(tmp_path_factory.mktemp("tp")),
+                           timeout=RANK_TIMEOUT)
+
+
+@pytest.fixture(scope="module")
+def engine_runs(spawned):
+    ranks = [r["engine"] for r in spawned[1]]
+    # every rank ran the same host engine: same streams, same counters
+    assert all(r[n]["streams"] == ranks[0][n]["streams"]
+               and r[n]["stats"] == ranks[0][n]["stats"]
+               for r in ranks for n in RUNS)
+    return ranks[0]
+
+
+@pytest.fixture(scope="module")
+def model_runs(spawned):
+    toks, ranks = spawned
+    return (toks, [r["logits"] for r in ranks],
+            [r["session"] for r in ranks])
+
+
+# ----------------------------------------------------------------- (a)-(c)
+
+def test_tp2_mixed_matches_jax_tp1(engine_runs):
+    """tests/test_serve_parallel.py:315: the head-sharded engine's
+    streams equal the JAX engine's, one program shape, no prefill
+    program, the global pool bytes unchanged and half of them on each
+    rank; one all-reduce each after ``wo`` and ``w_down`` a layer, one
+    for the embedding and one for the logits, a program run."""
+    want, jstats, jkv, jdev = _jax_run("mixed")
+    run = engine_runs["mixed"]
+    assert run["tp"] == 2 and run["done"]
+    assert run["streams"] == want
+    assert run["stats"]["decode_traces"] == 1
+    assert run["stats"]["prefill_traces"] == 0
+    assert run["kv_bytes"] == jkv
+    assert run["per_device"] * 2 == jdev
+    steps, layers = run["stats"]["mixed_steps"], KW["num_layers"]
+    assert {k: run["counts"][k] for k in ("attn_out", "mlp_out", "embed",
+                                          "logits", "tokens")} == \
+        {"attn_out": layers * steps, "mlp_out": layers * steps,
+         "embed": steps, "logits": steps, "tokens": steps}
+    # one checksum a program, one clock a step
+    assert run["counts"]["step_check"] == steps
+    assert run["counts"]["clock"] >= steps
+
+
+@pytest.mark.parametrize("name", ["split_pool", "split_dense", "ring"])
+def test_tp2_split_path_matches_jax_tp1(engine_runs, name):
+    """The split path under tp 2, on the pool, on dense rows and on the
+    sliding-window ring (window 8 < the contexts): the JAX engine's
+    streams and program shapes, half the decode state on each rank."""
+    want, jstats, jkv, jdev = _jax_run(name)
+    run = engine_runs[name]
+    assert run["done"] and run["streams"] == want
+    for key in ("decode_traces", "prefill_traces", "prefills",
+                "decode_steps"):
+        assert run["stats"][key] == jstats[key], key
+    assert run["kv_bytes"] == jkv and run["per_device"] * 2 == jkv
+
+
+@pytest.mark.parametrize("name", ["prefix", "prefix_dry"])
+def test_tp2_prefix_cache_lazy_matches_jax_tp1(engine_runs, name):
+    """tests/test_serve_parallel.py:377 and a pool below demand: sharing,
+    lazy growth, preemption and copy-on-write under tp 2 — the JAX
+    engine's streams and every prefix, preemption and CoW counter."""
+    want, jstats, _, _ = _jax_run(name)
+    run = engine_runs[name]
+    assert run["done"] and run["streams"] == want
+    for key in COUNTERS:
+        assert run["stats"][key] == jstats[key], key
+    assert run["stats"]["prefix_hit_blocks"] > 0
+    if name == "prefix_dry":
+        assert run["stats"]["preemptions"] > 0
+        assert run["stats"]["cow_copies"] > 0
+
+
+def test_tp2_speculative_decode_matches_jax_tp1(engine_runs):
+    """Speculative decode (ngram, k 4) under tp 2: the drafts are host
+    work every rank does alike; the JAX engine's streams, drafted and
+    accepted counts, one program shape."""
+    want, jstats, _, _ = _jax_run("spec")
+    run = engine_runs["spec"]
+    assert run["done"] and run["streams"] == want
+    for key in COUNTERS:
+        assert run["stats"][key] == jstats[key], key
+    assert run["stats"]["spec_accepted"] > 0
+    assert run["stats"]["decode_traces"] == 1
+
+
+def test_tp2_one_kv_head_replicates_the_pool(engine_runs):
+    """Hkv 1 at tp 2: the pool keeps its one head on both ranks (the
+    table's replicated fallback), each rank's two query heads read it;
+    the JAX engine's streams, and the per-rank bytes are the global."""
+    want, _, jkv, _ = _jax_run("kv1")
+    run = engine_runs["kv1"]
+    assert run["done"] and run["streams"] == want
+    assert run["kv_bytes"] == run["per_device"] == jkv
+
+
+# --------------------------------------------------------------- (d)-(g)
+
+def test_session_serve_tp2_matches_plain(model_runs):
+    """tests/test_serve_parallel.py:528: ``Session.serve(tp=2)`` (only
+    the rank's blocks drawn from the session's seed) gives the streams of
+    ``Session.serve()`` on the same session, one program shape."""
+    _, _, session = model_runs
+    for r in session:
+        assert r[2][0] == r[1][0]
+        assert r[2][1] == 1 and r[2][2] == 2 and r[1][2] == 1
+
+
+@pytest.mark.parametrize("name", ["par-dense", "par-dense-kv1"])
+def test_tp2_decode_logits_match_jax(model_runs, name):
+    """Four decode steps after a 20-token prefill on the dense cache,
+    under tp 2: logits within LOGITS_TOL of the reference's
+    ``decode_step`` on both ranks (with one KV head, both ranks hold it
+    and read it)."""
+    import jax.numpy as jnp
+    from repro.models import get_model
+    toks, logits, _ = model_runs
+    jcfg, jparams, _ = _jax_params(KW if name == "par-dense" else KW_KV1)
+    mod = get_model(jcfg)
+    _, jcache = mod.prefill(jparams, {"tokens": jnp.asarray(toks[:, :20])},
+                            jcfg, mod.init_cache(jcfg, 2, 40))
+    for pos in range(20, 24):
+        want, jcache = mod.decode_step(jparams, jcache,
+                                       jnp.asarray(toks[:, pos:pos + 1]),
+                                       jnp.asarray(pos, jnp.int32), jcfg)
+        for r in logits:
+            np.testing.assert_allclose(r[name]["logits"][pos - 20],
+                                       np.asarray(want), atol=LOGITS_TOL,
+                                       rtol=0, err_msg=str(pos))
+    # one K/V head a rank: Hkv 2 split over 2 ranks, or Hkv 1 on both
+    assert [r[name]["cache_heads"] for r in logits] == [1, 1]
+
+
+def test_tp2_forward_has_two_all_reduces_a_layer(model_runs):
+    """tests/test_tp_collectives.py's claim in the port: a prefill and a
+    decode step each issue exactly one all-reduce after attention and one
+    after the MLP a layer, one for the vocab-parallel embedding and one to
+    assemble the logits — nothing else; training under a mesh raises
+    naming item 11."""
+    _, logits, _ = model_runs
+    layers = KW["num_layers"]
+    want = {"attn_out": layers, "mlp_out": layers, "embed": 1,
+            "logits": 1}
+    for r in logits:
+        for name in ("par-dense", "par-dense-kv1"):
+            prefill, decode, refused = r[name]["counts"]
+            assert prefill == want and decode == want
+            assert "item 11" in refused
+
+
+def test_tp_refusals(model_runs):
+    """A mesh larger than the process group raises ValueError with the
+    count; MoE, audio and SSM engines on a mesh, online serving of a tp
+    engine and FSDP on a mesh raise naming item 11; on a CUDA device a
+    kernel that refuses a rank's shape refuses at construction; ranks
+    that packed different programs raise on every rank (no hang);
+    ``serve(dp=2)`` and ``serve(plan=)`` keep their items."""
+    from repro_torch.api import Session
+    _, _, session = model_runs
+    refused = session[0]["refused"]
+    assert "needs 4 ranks" in refused["mesh"] and "has 2" in refused["mesh"]
+    for key in ("moe", "audio", "ssm", "online", "fsdp"):
+        assert "item 11" in refused[key], key
+    assert "fused-MLP kernel" in refused["rank_shape"]
+    assert "132" in refused["rank_shape"]
+    for r in session:
+        for mixed in (True, False):
+            assert "packed different programs" in \
+                r["refused"][f"diverged mixed={mixed}"]
+    s = Session(ModelConfig(**KW), device="cpu", seed=0)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        s.serve(dp=2)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        s.serve(plan=object())
+    with pytest.raises(ValueError, match="no process group"):
+        s.serve(tp=2)

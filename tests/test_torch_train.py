@@ -38,7 +38,7 @@ from repro_torch.models import layers  # noqa: E402
 from repro_torch.optim import optimizers as topt  # noqa: E402
 from repro_torch.params import from_numpy  # noqa: E402
 from repro_torch.train import losses, step  # noqa: E402
-from repro_torch.train.trainer import TrainConfig  # noqa: E402
+from repro_torch.train.trainer import TrainConfig, Trainer  # noqa: E402
 from repro_torch.tree import flatten, unflatten  # noqa: E402
 
 
@@ -341,15 +341,20 @@ def test_microbatched_step_equals_one_batch():
 
 
 def test_strategy_keeps_the_single_device_knobs():
+    """The training knobs; ``rules`` is the sharding table (held to the
+    reference's in tests/test_torch_sharding.py), and ``seq_parallel`` /
+    ``fsdp`` shape that table but raise naming item 11 where a trainer
+    would run them."""
     s = Strategy()
     assert (s.optimizer, s.remat, s.microbatches, s.attn_impl, s.zero1) == \
         ("adamw", True, 1, "auto", True)
     assert s.with_(remat=False).remat is False
+    assert s.rules({"data": 2, "model": 4})["d_ff"] == "model"
+    cfg = ModelConfig(**jax_smoke("qwen3-14b").__dict__)
     for kw in (dict(seq_parallel=True), dict(fsdp=True)):
         with pytest.raises(NotImplementedError, match="item 11"):
-            Strategy(**kw)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        s.rules()
+            Trainer(cfg, Strategy(dtype="float32", **kw), "cpu",
+                    TrainConfig(steps=1), global_batch=2, seq_len=8)
 
 
 # ------------------------------------------------- Trainer and Session
