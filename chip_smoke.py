@@ -94,7 +94,15 @@ Phases (any failure exits non-zero; no result line is printed then):
    per value, shown to reject its defect and timed beside SDPA / three
    matmuls with its bound; at tp 4 (10/2 heads, f 4352) and tp 8 (5/1
    heads, f 2176), which a box of 4 or 8 cards would launch, the three
-   at T = 256, per value, untimed;
+   at T = 256, per value, untimed; then at the rank shapes of phases 21
+   and 22 (tp 2): paged attention at OLMoE-1B-7B's 8/8 heads x 128 (the
+   T = 256 mix, the 4-row split decode table) and at whisper-tiny's 3/3
+   x 64 (its T = 256 mix over 8 slots x 448, the 8-row split decode
+   table), flash at (1, S, S, 8, 8, 128) for each of phase 21's prompt
+   lengths and at whisper-tiny's (1 | 8, 1500, 1500, 3, 3, 64)
+   non-causal and (1, S, S, 3, 3, 64) causal at each of phase 22's
+   prompt lengths; each per value, its defect rejected, timed beside
+   SDPA with its bound;
 4. tiny float32 configs on the card and on the CPU (TF32 off): through
    the port's engine on each layout — the mixed step, the split path on
    the pool (``mixed=False``) and on the dense layout (``paged=False``),
@@ -139,7 +147,19 @@ Phases (any failure exits non-zero; no result line is printed then):
    identical to the unsharded engine's on the card, ``decode_traces`` 1,
    the KV bytes a rank exactly half, every kernel launched on each rank
    as its path says, one all-reduce after ``wo`` and one after ``w_down``
-   a layer a program;
+   a layer a program; then the reference tests' tiny MoE (E 4, capacity
+   factor 2.0: two experts a rank) and enc-dec configs served the same
+   way on both paths: streams identical to the unsharded engine's on the
+   card, the KV a rank half, launches as the path says, one ``moe_out``
+   all-reduce a layer a program (MoE), two a layer of each encoder run
+   and three a decoder layer a program (enc-dec); then data parallelism
+   on the tiny dense config: a dp 2 ``ReplicaRouter`` in this process,
+   both replicas on cuda:0 sharing one set of weights, on both paths
+   (streams identical to the single engine's, both replicas prefill,
+   launches summed over the replicas), and dp 2 x tp 2 over four rank
+   processes sharing the card over gloo (every rank's union of streams
+   equal to the single engine's, one program shape a replica, half the
+   KV a rank, two disjoint rows of two ranks);
 5. the SERVING PATH: ``Session(get_config("qwen3-14b"), device="cuda")
    .serve(slots=4, max_len=1024, page_size=16, chunk_tokens=256)`` at full
    width with random weights from ``--seed``, 6 requests of 24-700 prompt
@@ -356,6 +376,41 @@ Phases (any failure exits non-zero; no result line is printed then):
    ranks share one card's SMs and gloo stages every all-reduce through
    host memory: these numbers are not tensor parallelism's speed. A
    rank's failure or timeout (``TP_TIMEOUT_S``) fails the run.
+20. DATA-PARALLEL SERVING on phase 10's session (after phase 10, before
+   it is freed): a dp 2 ``ReplicaRouter`` (``Session.serve(dp=2,
+   devices=["cuda:0"] * 2)``), both replicas on the one card sharing its
+   29.5 GB of weights, each with its own pool of 4 slots x 1024 tokens;
+   phase 5's six prompts (16 new tokens), then phase 8's shared-prompt
+   traffic with the prefix cache (32 new tokens; request 7 arrives once
+   request 2 has 8 tokens). Counts zeroed just before and read just
+   after: paged attention and the fused MLP 40 x the replicas' program
+   runs; every request finishes; both replicas prefill phase 5's
+   traffic; each replica within its (chunk, page bucket) pairs; a
+   request whose first block a replica took goes there while that
+   replica is within ``slots`` of the least loaded; the streams equal
+   phase 5's and phase 8's bit for bit. Prints tokens/s, the round
+   p50, each replica's prefix hits and peak pages and the peak memory
+   (one host thread steps both replicas: not data parallelism's speed).
+21. MoE TENSOR-PARALLEL SERVING, after phase 13b: OLMoE-1B-7B uncut at
+   tp 2 over two rank processes sharing the card over gloo, each through
+   ``Session.serve(tp=2)`` drawing only its shards (8/8 heads x 128, 32
+   of 64 experts a layer, half the vocabulary, ~6.9 GB); phase 13's
+   settings and prompts on the mixed step, then the split path on the
+   same shards. Counts zeroed just before and read just after on each
+   rank: paged attention 16 x program runs on the mixed step, flash 16 x
+   prefills and paged attention 16 x decode steps on the split path, the
+   fused MLP never; every request finishes, both ranks' streams equal,
+   the KV a rank half of phase 13's. Prints tokens/s, step p50, peak
+   memory, the collectives a rank and the share of tokens equal to phase
+   13's streams (reported, not checked: bf16 sums the attention
+   partials in another order).
+22. AUDIO TENSOR-PARALLEL SERVING, after phase 15b: whisper-tiny uncut at
+   tp 2 (3/3 heads x 64 a rank; the odd 51,865-token vocabulary whole on
+   both) over two rank processes on the card over gloo, phase 15's
+   settings and requests (8 slots x 448, frames, 64 new tokens), the
+   mixed step then the split path: launches as ``_audio_want`` says on
+   each rank, both ranks' streams equal, the KV and cross blocks a rank
+   half of phase 15's; the share of tokens equal to phase 15's reported.
 
 Last, every process the run started (nvcc, cuobjdump, the rank
 processes and the ``multiprocessing`` resource tracker their start
@@ -2851,6 +2906,18 @@ def _cuda_sync():
         torch.cuda.synchronize()
 
 
+def prefix_prompts(seed: int, vocab: int):
+    """Phase 8's 8 prompts (phase 20 serves them too): one 512-token
+    system prompt and ``PREFIX_SUFFIXES``' suffixes, drawn from ``seed``;
+    the last repeats the third."""
+    rng = np.random.default_rng(seed + 8)
+    system = rng.integers(0, vocab, size=(512,))
+    prompts = [np.concatenate([system, rng.integers(
+        0, vocab, size=(n,))]).astype(np.int32) for n in PREFIX_SUFFIXES]
+    prompts.append(prompts[2].copy())
+    return prompts
+
+
 def phase_prefix(session, seed: int, max_new: int = 32):
     """PREFIX SHARING, LAZY GROWTH, COPY-ON-WRITE AND PREEMPTION at full
     width, on phase 5's session (its weights): 8 prompts opening with one
@@ -2874,12 +2941,7 @@ def phase_prefix(session, seed: int, max_new: int = 32):
     from repro_torch.serve.paging import pages_for
     from repro_torch.serve.step import page_bucket
     cfg = session.cfg
-    rng = np.random.default_rng(seed + 8)
-    system = rng.integers(0, cfg.vocab_size, size=(512,))
-    prompts = [np.concatenate([system, rng.integers(
-        0, cfg.vocab_size, size=(n,))]).astype(np.int32)
-        for n in PREFIX_SUFFIXES]
-    prompts.append(prompts[2].copy())
+    prompts = prefix_prompts(seed, cfg.vocab_size)
     buckets = len({page_bucket(pages_for(min(len(p) + max_new - 1, 1024),
                                          16), cap=64) for p in prompts})
     out, streams = {}, {}
@@ -2936,7 +2998,7 @@ def phase_prefix(session, seed: int, max_new: int = 32):
                    step_p50_ms=float(np.percentile(step_ms, 50)),
                    peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
                                 if torch.cuda.is_available() else 0.0),
-                   launches=counts)
+                   launches=counts, streams=streams[key])
         if key != "A":
             run["tokens_equal_to_A"] = sum(
                 a == b for g, w in zip(streams[key], streams["A"])
@@ -3977,7 +4039,9 @@ def _drive(eng, prompts, max_new: int, tag: str, *, mixed: bool,
             "decode_only_step_p50_ms": float(
                 np.percentile(step_ms[~with_pf], 50)),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "kv_gb": eng.kv_bytes() / 1e9, "peak_pages": st["peak_pages"],
+            "kv_gb": eng.kv_bytes() / 1e9, "kv_bytes": eng.kv_bytes(),
+            "per_device_kv_bytes": eng.per_device_kv_bytes(),
+            "peak_pages": st["peak_pages"],
             "decode_traces": st["decode_traces"],
             "prefill_traces": st["prefill_traces"],
             "encode_traces": st["encode_traces"], "launches": counts,
@@ -4758,17 +4822,18 @@ def _tp_parity_rank(rank: int, world: int, flat, prompts):
     return out
 
 
-def _spawn_ranks(fn, args, timeout: float, tag: str):
-    """``fn`` on ``TP_DEGREE`` rank processes sharing cuda:0 over gloo
+def _spawn_ranks(fn, args, timeout: float, tag: str,
+                 world: int = TP_DEGREE):
+    """``fn`` on ``world`` rank processes sharing cuda:0 over gloo
     (``launch/ranks.py``), their store in ``chiprun_out/``; a rank's
     failure or timeout fails the phase."""
     from repro_torch.launch.ranks import run_ranks
     store = ROOT / "chiprun_out"
     store.mkdir(exist_ok=True)
     t0 = time.perf_counter()
-    outs = run_ranks(fn, TP_DEGREE, args=args, backend="gloo",
+    outs = run_ranks(fn, world, args=args, backend="gloo",
                      store_dir=str(store), timeout=timeout)
-    log(f"[{tag}] {TP_DEGREE} rank processes done in "
+    log(f"[{tag}] {world} rank processes done in "
         f"{time.perf_counter() - t0:.1f}s")
     return outs
 
@@ -4985,6 +5050,560 @@ def phase_tp_serve(seed: int, main_run: dict, max_new: int = 16):
     return out
 
 
+# ------------------------------------- phases 3, 4, 20-22: dp and tp slices
+
+#: the rank shapes of phases 21 and 22 (tp 2): OLMoE-1B-7B's 8/8 heads x
+#: 128 and whisper-tiny's 3/3 x 64 a rank
+OLMOE_TP2_HEADS = (MOE_HEADS[0] // 2, MOE_HEADS[1] // 2)
+WHISPER_TP2_HEADS = (WHISPER_HEADS[0] // 2, WHISPER_HEADS[1] // 2)
+#: the seconds phases 21 and 22's two rank processes may take
+FAMILY_TP_TIMEOUT_S = 480.0
+
+
+def olmoe_tp2_flash_shapes(seed: int):
+    """Flash's shapes on phase 21's split path at ``seed``: one (1, S, S,
+    8, 8, 128) a distinct prompt length of phase 5's six (an MoE prefill
+    is not bucketed)."""
+    lens, _ = serving_prompts(seed, 2)
+    hq, hkv = OLMOE_TP2_HEADS
+    return tuple((1, n, n, hq, hkv, 128) for n in sorted({int(n)
+                                                          for n in lens}))
+
+
+def whisper_tp2_flash_shapes(seed: int):
+    """Flash's shapes on phase 22 at ``seed``, (B, S, T, Hq, Hkv, D,
+    causal): the encoder non-causal over 1500 frames at an admission (B
+    1) and at B 8, and the decoder causal at each distinct prompt length
+    of phase 22's split path, 3/3 heads x 64 a rank."""
+    hq, hkv = WHISPER_TP2_HEADS
+    return tuple(shape[:3] + (hq, hkv) + shape[5:]
+                 for shape in whisper_flash_shapes(seed)
+                 if shape[2] != WHISPER_TRAIN)
+
+
+def phase_tp_family_kernels(seed: int):
+    """Paged attention and flash in bf16 at the rank shapes of phases 21
+    (OLMoE-1B-7B at tp 2: 8/8 heads x 128) and 22 (whisper-tiny at tp 2:
+    3/3 x 64): paged attention (``_paged_cases``) at OLMoE's T = 256 mix
+    and 4-row split decode table, at whisper-tiny's T = 256 mix over 8
+    slots x 448 and its 8-row split decode table; flash at
+    ``olmoe_tp2_flash_shapes`` and ``whisper_tp2_flash_shapes`` (the
+    encoder non-causal, each shown to reject a version that drops the last
+    key tile; the decoder causal). Each per value against its plain
+    version with its defect rejected, timed beside SDPA with its bound.
+    Inputs come from a generator of their own. Returns {kernel name:
+    {"olmoe_tp2": records, "whisper_tp2": records}}."""
+    rng = np.random.default_rng(seed + 2122)
+    paged = {"olmoe_tp2": _paged_cases(rng, OLMOE_TP2_HEADS, 128, (
+        ("T256", dict(rows=MIX_T256), (slice(3, None), 5), True),
+        ("split", dict(rows=MIX_SPLIT), (2, 10), True)), "OLMoE tp 2")}
+    split = (list(range(8)), list(WHISPER_DECODE[1][:8]))
+    paged["whisper_tp2"] = _paged_cases(rng, WHISPER_TP2_HEADS, WHISPER_D, (
+        ("T256", dict(rows=WHISPER_T256), (slice(7, 231), 5), True),
+        ("split", dict(rows=split), (4, 12), True)), "whisper-tiny tp 2",
+        gather_atol=None, ctx=WHISPER_CTX, width=28, n_pages=225)
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
+    flash = {"olmoe_tp2": [_flash_shape(gen, shape, 1e-5, 8e-3, timed=True)
+                           for shape in olmoe_tp2_flash_shapes(seed)],
+             "whisper_tp2": [_flash_shape(gen, shape[:6], 1e-5, 8e-3,
+                                          timed=True, causal=shape[6])
+                             for shape in whisper_tp2_flash_shapes(seed)]}
+    return {"paged_attention": paged, "flash_attention": flash}
+
+
+#: phase 4's tp families: tests/test_serve_parallel.py's MOE_CFG (at
+#: capacity factor 2.0, phase 4's no-drop MoE setting) and AUDIO_CFG, and
+#: the layouts two gloo ranks serve each on
+TP_FAMILY_PARITY = {
+    "moe": dict(name="pal-moe", arch_type="moe", num_layers=2, d_model=64,
+                num_heads=4, num_kv_heads=2, d_ff=128, num_experts=4,
+                experts_per_token=2, vocab_size=128,
+                moe_capacity_factor=2.0, dtype="float32"),
+    "audio": dict(name="pal-encdec", arch_type="audio", num_layers=2,
+                  d_model=64, num_heads=4, num_kv_heads=4, d_ff=128,
+                  vocab_size=128, encoder_layers=1, encoder_ctx=12,
+                  dtype="float32")}
+
+
+def _family_requests(cfg, seed: int = 3):
+    """Phase 4's five prompts below ``cfg``'s vocabulary, and each one's
+    frames on an enc-dec config (else None)."""
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+               for n in (5, 23, 9, 40, 6)]
+    frames = list(rng.standard_normal(
+        (len(prompts), cfg.encoder_ctx, cfg.d_model), dtype=np.float32)) \
+        if cfg.arch_type == "audio" else None
+    return prompts, frames
+
+
+def _family_want(eng, cfg) -> dict:
+    return _audio_want(eng, cfg) if cfg.arch_type == "audio" \
+        else _moe_want(eng, cfg.num_layers)
+
+
+def _serve_run(eng, prompts, frames, max_new: int = 6):
+    """Submit, count launches from 0, run; (streams, launches)."""
+    from repro_torch import kernels
+    for i, p in enumerate(prompts):
+        eng.submit(i, p, max_new=max_new,
+                   frames=None if frames is None else frames[i])
+    kernels.reset_launches()
+    res = eng.run()
+    return {i: list(res[i].out) for i in res}, kernels.launches()
+
+
+def _tp_family_parity_rank(rank: int, world: int, flats):
+    """One rank of phase 4's tp families: each of ``TP_FAMILY_PARITY``
+    sharded over ``world`` ranks on cuda:0 (gloo) on the mixed step and
+    the split path (``TP_PARITY_LAYOUTS``)."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.params import from_numpy
+    from repro_torch.serve.engine import ServeEngine
+    _tp_rank_setup()
+    mesh = make_mesh((1, world), ("data", "model"))
+    out = {}
+    for family, kw in TP_FAMILY_PARITY.items():
+        cfg = ModelConfig(**kw)
+        params = from_numpy(flats[family], cfg, "cuda")
+        prompts, frames = _family_requests(cfg)
+        for name, lkw in TP_PARITY_LAYOUTS.items():
+            eng = ServeEngine(cfg, params, slots=2, max_len=64, mesh=mesh,
+                              **lkw)
+            streams, launches = _serve_run(eng, prompts, frames)
+            out[family, name] = {
+                "streams": streams, "launches": launches,
+                "want": _family_want(eng, cfg),
+                "decode_traces": eng.stats["decode_traces"],
+                "per_device": eng.per_device_kv_bytes(),
+                "collectives": dict(eng._rank.counts)}
+    return out
+
+
+def phase_parity_tp_families():
+    """The reference tests' tiny MoE (E 4: two experts a rank) and enc-dec
+    configs in f32 (TF32 off) served by two tensor-parallel ranks sharing
+    the card over gloo, on the mixed step and the split path, against the
+    unsharded engine on the card: streams identical, one program shape,
+    the KV bytes a rank half of the unsharded engine's, every kernel
+    launched as ``_moe_want`` / ``_audio_want`` say on each rank, and one
+    ``moe_out`` all-reduce a layer a program (MoE) or the two a layer of
+    each encoder run and the three a decoder layer a program (enc-dec)."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.params import init_params
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.tree import flatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base, flats = {}, {}
+    for family, kw in TP_FAMILY_PARITY.items():
+        cfg = ModelConfig(**kw)
+        params = init_params(cfg, device="cuda", seed=3)
+        flats[family] = {k: v.cpu().numpy()
+                         for k, v in flatten(params).items()}
+        prompts, frames = _family_requests(cfg)
+        for name, lkw in TP_PARITY_LAYOUTS.items():
+            eng = ServeEngine(cfg, params, slots=2, max_len=64, **lkw)
+            base[family, name] = (_serve_run(eng, prompts, frames)[0],
+                                  eng.per_device_kv_bytes())
+    ranks = _spawn_ranks(_tp_family_parity_rank, (flats,), 240.0,
+                         "parity tp 2 families")
+    out = {}
+    for (family, name), (want, want_kv) in base.items():
+        cfg = ModelConfig(**TP_FAMILY_PARITY[family])
+        for r, got in enumerate(ranks):
+            run = got[family, name]
+            tag = f"[parity tp {family} {name}] rank {r}"
+            check(run["streams"] == want, f"{tag} streams {run['streams']} "
+                                          f"!= the unsharded engine's {want}")
+            check(run["launches"] == run["want"],
+                  f"{tag} launches {run['launches']} != {run['want']}")
+            check(run["decode_traces"] == 1,
+                  f"{tag} decode_traces {run['decode_traces']}")
+            check(run["per_device"] * 2 == want_kv,
+                  f"{tag} KV {run['per_device']} B x 2 != {want_kv} B")
+            c, programs = run["collectives"], run["collectives"]["tokens"]
+            if family == "moe":
+                ok = c["moe_out"] == c["attn_out"] \
+                    == cfg.num_layers * programs and "mlp_out" not in c
+            else:
+                admissions = len(want)
+                ok = c["mlp_out"] == cfg.encoder_layers * admissions \
+                    + cfg.num_layers * programs and c["attn_out"] == \
+                    cfg.encoder_layers * admissions \
+                    + 2 * cfg.num_layers * programs
+            check(ok, f"{tag} collectives {c}")
+        run = ranks[0][family, name]
+        log(f"[parity tp 2 {family}, f32] {name}: both ranks' streams equal "
+            f"the unsharded engine's on the card over {len(want)} requests; "
+            f"decode_traces 1; KV {run['per_device']} B a rank = half of "
+            f"{want_kv} B; launches a rank {run['launches']}; collectives a "
+            f"rank {run['collectives']}")
+        out[f"{family} {name}"] = {k: run[k] for k in
+                                   ("launches", "per_device", "collectives")}
+    return out
+
+
+def phase_parity_dp():
+    """Data parallelism on phase 4's tiny f32 dense config: a dp 2
+    ``ReplicaRouter`` in this process, both replicas on cuda:0 sharing one
+    set of weights, on the mixed step and the split path, against the
+    single engine on the card (streams identical, both replicas prefill,
+    one program shape a replica, every kernel launched as
+    ``_want_launches`` says summed over the replicas); then dp 2 x tp 2
+    over four rank processes sharing the card over gloo
+    (``_dp_tp_parity_rank``): on every rank the union of the streams
+    equals the single engine's, one program shape a replica, the KV a
+    rank half of the single engine's, two disjoint rows of two ranks."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.params import init_params
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.parallel import ReplicaRouter
+    from repro_torch.tree import flatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ModelConfig(**TP_PARITY_CFG)
+    params = init_params(cfg, device="cuda", seed=3)
+    prompts, _ = _family_requests(cfg)
+    out, base = {}, {}
+    for name, lkw in TP_PARITY_LAYOUTS.items():
+        eng = ServeEngine(cfg, params, slots=2, max_len=64, **lkw)
+        want, _ = _serve_run(eng, prompts, None)
+        want_kv = eng.per_device_kv_bytes()
+        base[name] = (want, want_kv)
+        router = ReplicaRouter(cfg, params, dp=2, devices=["cuda:0"] * 2,
+                               slots=2, max_len=64, **lkw)
+        got, launches = _serve_run(router, prompts, None)
+        per = router.stats["replicas"]
+        need = {}
+        for e in router.engines:
+            for k, v in _want_launches(e, cfg.num_layers).items():
+                need[k] = need.get(k, 0) + v
+        tag = f"[parity dp 2 {name}]"
+        check(got == want, f"{tag} streams {got} != the single engine's "
+                           f"{want}")
+        check(launches == need, f"{tag} launches {launches} != {need}")
+        check(all(r["prefills"] > 0 and r["decode_traces"] == 1
+                  for r in per), f"{tag} replicas {per}")
+        check(router.engines[0].params["embed"].data_ptr()
+              == router.engines[1].params["embed"].data_ptr(),
+              f"{tag} the replicas hold two copies of the weights")
+        log(f"[parity dp 2, f32] {name}: the router's streams equal the "
+            f"single engine's on the card over {len(prompts)} requests "
+            f"(replicas {[router.replica_of(i) for i in range(len(prompts))]}"
+            f"); one set of weights; launches {launches}")
+        out[name] = {"launches": launches, "kv_bytes": want_kv,
+                     "homes": [router.replica_of(i)
+                               for i in range(len(prompts))]}
+    flat = {k: v.cpu().numpy() for k, v in flatten(params).items()}
+    ranks = _spawn_ranks(_dp_tp_parity_rank, (flat, prompts), 240.0,
+                         "parity dp 2 x tp 2", world=4)
+    want, want_kv = base["mixed"]
+    rows = ranks[0]["rows"]
+    check(sorted(sum(map(list, rows), [])) == [0, 1, 2, 3]
+          and not set(rows[0]) & set(rows[1]),
+          f"[parity dp 2 x tp 2] rows {rows}")
+    for r, got in enumerate(ranks):
+        tag = f"[parity dp 2 x tp 2] rank {r}"
+        check(got["streams"] == want, f"{tag} streams {got['streams']} != "
+                                      f"the single engine's {want}")
+        check(got["traces"] == [1, 1], f"{tag} decode_traces {got['traces']}")
+        check(got["per_device"] * 2 == want_kv,
+              f"{tag} KV {got['per_device']} B x 2 != {want_kv} B")
+        check(got["launches"] == got["want"],
+              f"{tag} launches {got['launches']} != {got['want']}")
+        check(got["rows"] == rows and r in rows[got["row"]],
+              f"{tag} rows {got['rows']}")
+    log(f"[parity dp 2 x tp 2, f32] four ranks on the card over gloo, rows "
+        f"{rows}: every rank's union of streams equals the single engine's "
+        f"over {len(prompts)} requests; decode_traces 1 a replica; KV "
+        f"{ranks[0]['per_device']} B a rank = half of {want_kv} B; "
+        f"collectives rank 0 {ranks[0]['collectives']}")
+    out["dp2_tp2"] = {k: ranks[0][k] for k in
+                      ("rows", "per_device", "launches", "collectives")}
+    return out
+
+
+def _dp_tp_parity_rank(rank: int, world: int, flat, prompts):
+    """One rank of phase 4's dp 2 x tp 2 run: a ``ReplicaRouter`` over a
+    (2, 2) ("data", "model") mesh on cuda:0 (gloo), the mixed step."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.params import from_numpy
+    from repro_torch.serve.parallel import ReplicaRouter
+    _tp_rank_setup()
+    cfg = ModelConfig(**TP_PARITY_CFG)
+    router = ReplicaRouter(cfg, from_numpy(flat, cfg, "cuda"), dp=2, tp=2,
+                           slots=2, max_len=64, **TP_PARITY_LAYOUTS["mixed"])
+    streams, launches = _serve_run(router, prompts, None)
+    eng = router.engines[0]
+    return {"streams": streams, "launches": launches,
+            "want": _want_launches(eng, cfg.num_layers),
+            "traces": [r["decode_traces"] for r in router.stats["replicas"]],
+            "per_device": router.per_device_kv_bytes(), "row": router.row,
+            "rows": router.meshes, "collectives": dict(eng._rank.counts)}
+
+
+def _drive_router(router, prompts, max_new: int, tag: str, *,
+                  late=None):
+    """Submit ``prompts`` to ``router`` (``late``: (rid, after rid, after
+    n tokens): request ``rid`` arrives once request ``after`` has ``n``
+    tokens, with a 600 s deadline), zero the launch counts, step until
+    every replica is idle and read them: each request finishes with
+    ``max_new`` in-vocab tokens, paged attention and the fused MLP ran
+    layers x program runs summed over the replicas. Before each
+    submission the replicas' loads are read: a prompt whose first block
+    a replica took before must land there whenever that replica's load
+    was within ``slots`` of the least (the affinity). Returns the run's
+    record."""
+    from repro_torch import kernels
+    cfg = router.cfg
+    records, loads = {}, {}
+
+    def submit(rid):
+        loads[rid] = [router._load(e) for e in router.engines]
+        r = router.submit(rid, prompts[rid], max_new=max_new,
+                          deadline_s=None if late is None
+                          or rid != late[0] else 600.0)
+        records[rid] = router.engines[r].queue[-1]
+
+    first = [rid for rid in range(len(prompts))
+             if late is None or rid != late[0]]
+    for rid in first:
+        submit(rid)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    step_s = []
+    t0 = time.perf_counter()
+    while router.busy():
+        s0 = time.perf_counter()
+        router.step()
+        step_s.append(time.perf_counter() - s0)
+        if late is not None and late[0] not in records \
+                and len(records[late[1]].out) >= late[2]:
+            submit(late[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launches()
+    res = router.results()
+    for rid in range(len(prompts)):
+        r = res[rid]
+        check(r.done and len(r.out) == max_new
+              and all(0 <= t < cfg.vocab_size for t in r.out),
+              f"[{tag}] request {rid} finished={r.done} with {len(r.out)} "
+              f"tokens")
+    per = router.stats["replicas"]
+    n = cfg.num_layers * sum(p["mixed_steps"] for p in per)
+    want = {"paged_attention": n, "fused_mlp": n, "flash_attention": 0,
+            "ssd_scan": 0}
+    check(counts == want, f"[{tag}] launches {counts} != {want}")
+    homes = [router.replica_of(rid) for rid in range(len(prompts))]
+    owner, gave_way = {}, 0
+    for rid in sorted(loads, key=lambda i: (i == (late or (None,))[0], i)):
+        key = router._affinity_key(np.asarray(prompts[rid]))
+        if key is None:
+            continue
+        if key in owner:
+            aff = owner[key]
+            if loads[rid][aff] <= min(loads[rid]) + router._local.slots:
+                check(homes[rid] == aff,
+                      f"[{tag}] request {rid} went to replica {homes[rid]} "
+                      f"though replica {aff} holds its first block at load "
+                      f"{loads[rid]}")
+            gave_way += homes[rid] != aff
+        else:
+            owner[key] = homes[rid]
+    step_ms = np.asarray(step_s) * 1e3
+    tokens = sum(len(res[r].out) for r in res)
+    return {"tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+            "steps": len(step_s),
+            "step_p50_ms": float(np.percentile(step_ms, 50)),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "homes": homes, "gave_way": gave_way, "launches": counts,
+            "replicas": [{k: p[k] for k in (
+                "prefills", "mixed_steps", "decode_traces", "peak_pages",
+                "prefix_hit_blocks", "prefix_miss_blocks")} for p in per],
+            "streams": [list(res[rid].out) for rid in range(len(prompts))]}
+
+
+def phase_dp_serve(session, main_run: dict, prefix_run: dict, seed: int):
+    """Phase 20: Qwen3-14B (40 layers, uncut) served by a dp 2
+    ``ReplicaRouter`` in this process on phase 10's session: both replicas
+    on cuda:0, sharing its one set of weights, each with its own pool of 4
+    slots x 1024 tokens (16-token pages, 256-row mixed step). Phase 5's six
+    prompts (16 new tokens each), then phase 8's shared-prompt traffic
+    with the prefix cache (32 new tokens each; request 7 arrives once
+    request 2 has ``REPEAT_AFTER`` tokens). Checks: every request
+    finishes; both replicas prefill phase 5's traffic; each replica runs
+    within the (chunk, page bucket) pairs; the affinity holds
+    (``_drive_router``); the streams equal phase 5's and phase 8's bit for
+    bit (a mixed row's bits depend on that row alone). Prints tokens/s,
+    step p50, each replica's prefix hits and peak pages and the peak
+    memory: one host thread steps two replicas on one card, so this is
+    not data parallelism's speed."""
+    from repro_torch.serve.paging import pages_for
+    from repro_torch.serve.step import page_bucket
+    cfg = session.cfg
+    note = ("one host thread steps both replicas on one card: not data "
+            "parallelism's speed")
+    kw = dict(slots=4, max_len=1024, page_size=16, chunk_tokens=256)
+    out = {"note": note}
+    for name, prompts, max_new, extra, want, late in (
+            ("phase 5's traffic",
+             [np.asarray(p, np.int32)
+              for p in serving_prompts(seed, cfg.vocab_size)[1]], 16, {},
+             main_run["streams"], None),
+            ("phase 8's traffic, prefix cache",
+             prefix_prompts(seed, cfg.vocab_size), 32,
+             dict(prefix_cache=True), prefix_run["streams"],
+             (7, 2, REPEAT_AFTER))):
+        router = session.serve(dp=2, devices=["cuda:0"] * 2, **kw, **extra)
+        check(router.engines[0].params["embed"].data_ptr()
+              == router.engines[1].params["embed"].data_ptr(),
+              "[dp serve] the replicas hold two copies of the weights")
+        run = _drive_router(router, prompts, max_new, f"dp serve {name}",
+                            late=late)
+        buckets = len({page_bucket(pages_for(min(len(p) + max_new - 1,
+                                                 1024), 16), cap=64)
+                       for p in prompts})
+        check(all(r["decode_traces"] <= buckets for r in run["replicas"]),
+              f"[dp serve {name}] program shapes {run['replicas']} > "
+              f"{buckets} page bucket(s)")
+        if not extra:
+            check(all(r["prefills"] > 0 for r in run["replicas"]),
+                  f"[dp serve {name}] replicas {run['replicas']}: each must "
+                  f"prefill")
+        same = sum(a == b for g, w in zip(run["streams"], want)
+                   for a, b in zip(g, w)) / run["tokens"]
+        check(run["streams"] == want,
+              f"[dp serve {name}] streams differ from the single engine's "
+              f"({same:.3f} of tokens equal)")
+        run["kv_bytes"] = router.kv_bytes()
+        log(f"[dp serve {name}] Qwen3-14B dp 2 on one card: {run['tokens']} "
+            f"tokens in {run['wall_s']:.2f}s = {run['tokens_per_s']:.2f} "
+            f"tok/s, {run['steps']} rounds, round p50 "
+            f"{run['step_p50_ms']:.1f} ms; replicas {run['homes']} (gave "
+            f"way {run['gave_way']}); per replica "
+            + "; ".join(f"{i}: prefills {r['prefills']}, programs "
+                        f"{r['mixed_steps']}, prefix hits "
+                        f"{r['prefix_hit_blocks']}, peak pages "
+                        f"{r['peak_pages']}, shapes {r['decode_traces']}"
+                        for i, r in enumerate(run["replicas"]))
+            + f"; peak memory {run['peak_mem_gb']:.2f} GB; KV "
+            f"{run['kv_bytes'] / 1e9:.3f} GB; launches {run['launches']}; "
+            f"streams equal the single engine's — {note}")
+        out[name] = run
+        del router
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _family_tp_rank(rank: int, world: int, arch: str, seed: int,
+                    max_new: int):
+    """One rank of phase 21 (``olmoe-1b-7b``) or 22 (``whisper-tiny``):
+    ``Session.serve(tp=)`` on the settings of phase 13 / 15 (the rank
+    drawing only its shards), the mixed step, then the split path on the
+    same shards; each run through ``_drive`` (launches counted from 0
+    just before), its launches as ``_moe_want`` / ``_audio_want`` say."""
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    torch.cuda.set_device(0)
+    cfg = get_config(arch)
+    if cfg.arch_type == "audio":
+        _, prompts, frames = whisper_requests(seed, cfg.vocab_size,
+                                              cfg.d_model, cfg.encoder_ctx)
+        kw = dict(slots=WHISPER_SLOTS, max_len=WHISPER_MAX_LEN,
+                  page_size=16)
+        shapes = {s[1] for s in whisper_tp2_flash_shapes(seed) if s[6]}
+    else:
+        _, prompts = serving_prompts(seed, cfg.vocab_size)
+        frames = None
+        kw = dict(slots=4, max_len=1024, page_size=16)
+        shapes = {s[1] for s in olmoe_tp2_flash_shapes(seed)}
+    t0 = time.perf_counter()
+    session = Session(cfg, device="cuda", seed=seed)
+    eng = session.serve(tp=world, chunk_tokens=256, **kw)
+    torch.cuda.synchronize()
+    out = {"rank": rank, "build_s": time.perf_counter() - t0,
+           "weights_gb": sum(v.numel() * v.element_size()
+                             for v in _leaves(eng.params)) / 1e9,
+           "heads": [eng._rank.heads, eng._rank.kv_heads]}
+    if cfg.is_moe:
+        out["experts"] = int(eng.params["layers"]["moe"]["w_up"].shape[1])
+    params = eng.params
+    for name in ("mixed", "split"):
+        if name == "split":
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+            eng = Session(cfg, device="cuda", params=params).serve(
+                tp=world, mixed=False, **kw)
+        eng._rank.counts.clear()
+        run = _drive(eng, prompts, max_new, f"{arch} tp {name} rank {rank}",
+                     mixed=name == "mixed", frames=frames)
+        want = _family_want(eng, cfg)
+        check(run["launches"] == want, f"[{arch} tp {name}] rank {rank} "
+                                       f"launches {run['launches']} != {want}")
+        if name == "split":
+            check(set(eng._prefill_lens) <= shapes,
+                  f"[{arch} tp split] prefill lengths "
+                  f"{sorted(eng._prefill_lens)} not all held by phase 3 "
+                  f"({sorted(shapes)})")
+        run["collectives"] = dict(eng._rank.counts)
+        out[name] = run
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def phase_family_tp_serve(arch: str, seed: int, single: dict, max_new: int):
+    """Phases 21 and 22: ``arch`` uncut at tp 2 over two rank processes
+    sharing the card over gloo (``_family_tp_rank``), on the settings and
+    requests of its single-card phase (``single``: phase 13's or 15's
+    record). Checks on each rank as ``_drive`` and ``_family_want`` say;
+    both ranks' streams equal; the decode state a rank (the pool, and the
+    cross blocks of whisper-tiny) half of the single-card phase's. The
+    share of tokens equal to the single-card streams is reported, not
+    checked: bf16 sums the row-parallel attention partials in another
+    order. Two ranks share one card's SMs and gloo stages each
+    all-reduce through host memory: not tensor parallelism's speed."""
+    ranks = _spawn_ranks(_family_tp_rank, (arch, seed, max_new),
+                         FAMILY_TP_TIMEOUT_S, f"{arch} tp serve")
+    note = ("two ranks share one card's SMs and gloo stages each "
+            "all-reduce through host memory: not tensor parallelism's "
+            "speed")
+    out = {"note": note, "ranks": ranks}
+    for r in ranks:
+        kv = r["mixed"]["per_device_kv_bytes"]
+        check(kv * 2 == single["mixed"]["kv_bytes"],
+              f"[{arch} tp] rank {r['rank']} KV {kv} B x 2 != the single "
+              f"card's {single['mixed']['kv_bytes']} B")
+        for name in ("mixed", "split"):
+            check(r[name]["streams"] == ranks[0][name]["streams"],
+                  f"[{arch} tp {name}] rank {r['rank']} streams differ from "
+                  f"rank 0's")
+    r0 = ranks[0]
+    for name in ("mixed", "split"):
+        run = r0[name]
+        run["agree_with_single"] = sum(
+            a == b for g, w in zip(run["streams"], single[name]["streams"])
+            for a, b in zip(g, w)) / run["tokens"]
+        log(_run_text(f"{arch} tp 2 {name}, rank 0", run)
+            + f"; {r0['heads'][0]}/{r0['heads'][1]} heads a rank"
+            + (f", {r0['experts']} experts a layer" if "experts" in r0
+               else "")
+            + f", {r0['weights_gb']:.3f} GB of weights a rank (built in "
+            f"{r0['build_s']:.1f}s); KV {run['per_device_kv_bytes']} B a "
+            f"rank; peak memory a rank "
+            f"{[round(x['peak_mem_gb'], 2) for x in ranks]} GB; collectives "
+            f"a rank {run['collectives']}; {run['agree_with_single']:.1%} of "
+            f"tokens equal to the single card's streams (information) — "
+            f"{note}")
+        out[name] = run
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5033,6 +5652,11 @@ def main():
         if k["name"] in tp_shapes:
             k["tp_shapes"] = tp_shapes[k["name"]]
     mark("3 kernels at tensor-parallel Qwen3-14B's rank shapes")
+    family_shapes = phase_tp_family_kernels(args.seed)
+    for k in kernels:
+        if k["name"] in family_shapes:
+            k["tp_family_shapes"] = family_shapes[k["name"]]
+    mark("3 kernels at OLMoE's and whisper-tiny's tp 2 rank shapes")
     parity = phase_parity()
     record["parity_logits_err"] = parity.pop("mixed")
     record["parity_split_logits_err"] = parity
@@ -5052,6 +5676,10 @@ def main():
     mark("4 parity: VLM serving and training")
     record["parity_tp"] = phase_parity_tp()
     mark("4 parity: tp 2 over gloo")
+    record["parity_tp_families"] = phase_parity_tp_families()
+    mark("4 parity: MoE and enc-dec at tp 2 over gloo")
+    record["parity_dp"] = phase_parity_dp()
+    mark("4 parity: dp 2, and dp 2 x tp 2 over gloo")
     main_run, eng, session, prompts = phase_main(args.seed)
     record["main"] = main_run
     record["profile"] = phase_profile(eng, rng, main_run["step_p50_ms"])
@@ -5064,6 +5692,10 @@ def main():
     record["spec"], streams_b, spec_prompts = phase_spec(session, args.seed)
     record["online"] = phase_online(session, spec_prompts, streams_b)
     mark("5-10 dense serving")
+    record["dp"] = phase_dp_serve(session, main_run,
+                                  record["prefix"]["B: mixed, prefix cache"],
+                                  args.seed)
+    mark("20 data-parallel serving")
     del session                           # free the serving weights
     gc.collect()
     torch.cuda.empty_cache()
@@ -5087,6 +5719,9 @@ def main():
     torch.cuda.empty_cache()
     record["moe"] = phase_moe_serve(args.seed)
     mark("13-13b MoE serving")
+    record["moe_tp"] = phase_family_tp_serve("olmoe-1b-7b", args.seed,
+                                             record["moe"], 16)
+    mark("21 MoE tensor-parallel serving")
     gc.collect()
     torch.cuda.empty_cache()
     # phase 6's run on OLMoE-1B-7B at 4 layers: its 16 would need ~110 GB
@@ -5097,6 +5732,9 @@ def main():
     torch.cuda.empty_cache()
     record["audio"] = phase_whisper_serve(args.seed)
     mark("15-15b audio serving")
+    record["audio_tp"] = phase_family_tp_serve("whisper-tiny", args.seed,
+                                               record["audio"], WHISPER_NEW)
+    mark("22 audio tensor-parallel serving")
     gc.collect()
     torch.cuda.empty_cache()
     record["audio_train"] = phase_whisper_train(args.seed)
@@ -5117,7 +5755,10 @@ def main():
     # (flash, paged attention), phase 16 (flash), phase 17 (flash, the
     # fused MLP), phase 18 (flash), phase 19 (each rank: paged attention
     # and the fused MLP on the mixed step, flash, paged attention and the
-    # fused MLP on the split path)
+    # fused MLP on the split path), phase 20 (paged attention and the
+    # fused MLP, both runs), phases 21 and 22 (each rank: paged attention
+    # on the mixed step, flash in whisper-tiny's encoder there, flash and
+    # paged attention on the split path)
     paths = [main_run, record["train"], record["ssm"],
              *record["spec"].values(), *record["online"].values(),
              record["hybrid"], *record["train_families"].values(),
@@ -5127,6 +5768,11 @@ def main():
              record["vlm_train"],
              # phase 19: each rank's own launches, on both paths
              *(r[name] for r in record["tp"]["ranks"]
+               for name in ("mixed", "split")),
+             *(record["dp"][name] for name in record["dp"]
+               if name != "note"),
+             *(r[name] for phase in ("moe_tp", "audio_tp")
+               for r in record[phase]["ranks"]
                for name in ("mixed", "split"))]
     for k in kernels:
         k["launches"] = sum(run["launches"][k["name"]] for run in paths)

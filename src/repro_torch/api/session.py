@@ -26,6 +26,10 @@
 
     # tensor-parallel, in each of 2 rank processes (torchrun)
     engine = Session(get_config("qwen3-14b")).serve(tp=2, slots=4)
+    # two data-parallel replicas in one process, here on one card
+    router = session.serve(dp=2, devices=["cuda:0"] * 2, slots=4)
+    # dp 2 x tp 2, in each of 4 rank processes (torchrun)
+    router = Session(get_config("qwen3-14b")).serve(dp=2, tp=2, slots=4)
 
 One object owns the config, the strategy, the device and the params
 (random from ``seed`` unless given — e.g. from the JAX package's
@@ -38,7 +42,9 @@ path on the pool; ``paged=False``: the dense per-slot layout), a
 sliding-window config the dense ring, the SSM family and the hybrid the
 split path on the dense layout; ``prefix_cache``, ``lazy`` and
 ``scheduler`` pass through to the engine (on the paged pool); ``tp=N``
-serves a dense decoder tensor-parallel, one engine a rank process.
+serves a dense or MoE decoder or the enc-dec family tensor-parallel, one
+engine a rank process; ``dp=M`` serves M replicas behind a
+``ReplicaRouter`` (serve/parallel.py).
 ``generate`` is the lockstep greedy loop
 (``serve/step.py::greedy_generate``). ``serve_async`` wraps the engine
 in the online ``AsyncDriver`` (a background step loop, per-request token
@@ -174,7 +180,7 @@ class Session:
               prefix_cache: bool = False, lazy: bool = False,
               scheduler=None, mixed: Optional[bool] = None,
               chunk_tokens: int = 256, attn_backend: Optional[str] = None,
-              spec=None, trace_level: int = 1) -> ServeEngine:
+              spec=None, trace_level: int = 1, devices=None):
         """Continuous-batching engine over this session's params on its
         device: for a full-attention dense or MoE decoder or the enc-dec
         audio family the paged pool and ONE mixed token-slot program per
@@ -187,29 +193,34 @@ class Session:
         exists for the reference's signature only: the device picks the
         kernel or the plain path.
 
-        ``tp=N`` (N > 1), called on every rank of an initialised process
-        group of N ranks (one process a rank, as ``torchrun`` starts
-        them), builds the ("data", "model") = (1, N) mesh on the
-        session's device type (``launch/mesh.py``) and returns this
-        rank's tensor-parallel engine (serve/engine.py): the session's
-        params sliced to the rank's shards, or, when the session has none
-        yet, only the rank's shards drawn from its seed. ``dp > 1`` (the
-        replica router) raises naming ROADMAP.md Queue 1 item 11,
-        ``plan=`` item 12."""
+        The reference's branches (``repro/api/session.py:250-273``):
+        ``tp`` and ``dp`` 1 give one engine. ``tp=N`` (N > 1) with ``dp``
+        1, called on every rank of an initialised process group of N
+        ranks (one process a rank, as ``torchrun`` starts them), builds
+        the ("data", "model") = (1, N) mesh on the session's device type
+        (``launch/mesh.py``) and returns this rank's tensor-parallel
+        engine (serve/engine.py): the session's params sliced to the
+        rank's shards, or, when the session has none yet, only the rank's
+        shards drawn from its seed. ``dp=M`` (M > 1) returns a
+        ``ReplicaRouter`` (serve/parallel.py): at tp 1 in this process,
+        replica r on ``devices[r]`` (default: the visible devices of the
+        session's type; a list may repeat a device, and the replicas on
+        it share the session's weights); at tp N on every rank of a
+        process group of M x N ranks, over a (M, N) mesh, each process
+        serving its row's replica. ``plan=`` raises naming ROADMAP.md
+        Queue 1 item 12."""
         if plan is not None:
             raise _todo("Session.serve(plan=) (the planner's Plan)",
                         "Queue 1 item 12")
-        if (dp or 1) > 1:
-            raise _todo("Session.serve(dp=) (the data-parallel "
-                        "ReplicaRouter)", "Queue 1 item 11")
         if attn_backend is not None:
             raise ValueError(
                 "repro_torch picks the attention path by device (CUDA: "
                 "the hand-written kernel, CPU: its plain version); drop "
                 f"attn_backend={attn_backend!r}")
+        tp, dp = tp or 1, dp or 1
         mesh = None
-        if (tp or 1) > 1:
-            mesh = make_mesh((1, tp), ("data", "model"),
+        if tp > 1:
+            mesh = make_mesh((dp, tp), ("data", "model"),
                              device_type=self.device.type)
         if mesh is not None and self._params is None:
             params = init_params(self.cfg, device=self.device,
@@ -218,15 +229,24 @@ class Session:
         else:
             # serving needs no gradient: detached views of (trained) params
             params = tree_map(torch.Tensor.detach, self.params)
+        kw = dict(slots=slots, max_len=max_len, eos_id=eos_id,
+                  temperature=temperature,
+                  seed=self.seed if seed is None else seed, paged=paged,
+                  page_size=page_size, kv_pages=kv_pages,
+                  prefix_cache=prefix_cache, lazy=lazy, scheduler=scheduler,
+                  mixed=mixed, chunk_tokens=chunk_tokens, spec=spec,
+                  trace_level=trace_level)
+        if dp > 1:
+            from repro_torch.serve.parallel import ReplicaRouter
+            return ReplicaRouter(self.cfg, params, dp=dp, tp=tp,
+                                 devices=devices, mesh=mesh,
+                                 strategy=self.strategy, **kw)
+        if devices is not None:
+            raise ValueError("devices= places the replicas of dp > 1; one "
+                             "engine serves on the session's device")
         return ServeEngine(
-            self.cfg, params, slots=slots, max_len=max_len,
-            eos_id=eos_id, temperature=temperature,
-            seed=self.seed if seed is None else seed, paged=paged,
-            page_size=page_size, kv_pages=kv_pages,
-            prefix_cache=prefix_cache, lazy=lazy, scheduler=scheduler,
-            mixed=mixed, chunk_tokens=chunk_tokens, spec=spec,
-            trace_level=trace_level, device=self.device, mesh=mesh,
-            strategy=self.strategy if mesh is not None else None)
+            self.cfg, params, device=self.device, mesh=mesh,
+            strategy=self.strategy if mesh is not None else None, **kw)
 
     # ------------------------------------------------------- online serving
     def serve_async(self, *, watchdog_timeout: Optional[float] = None,

@@ -12,12 +12,15 @@ path.
 mesh's axis names and sizes, so it takes a plain ``{axis: size}`` mapping
 as well as a ``torch.distributed`` ``DeviceMesh`` (``mesh_axes``): the
 sharding tables (``core/sharding.py``) need no process group. What the
-port runs on a mesh so far is tensor-parallel serving of dense decoders
-(``serve/engine.py``); the knobs of the later steps of ROADMAP.md Queue 1
-item 11 — ``seq_parallel`` (sequence-sharded activations) and ``fsdp``
-(parameters sharded over "data") — shape the tables but raise
-``NotImplementedError`` where a trainer or an engine would run them
-(``refuse_unported``). ``zero1`` shards optimizer state over data
+port runs on a mesh so far is serving: tensor-parallel dense and MoE
+decoders (the experts over "model" with ``expert_parallel``) and the
+enc-dec family (``serve/engine.py``), and data-parallel replicas over
+"data" (``serve/parallel.py``); ``expert_parallel=False`` (TP inside
+each expert) raises ``NotImplementedError`` on a mesh, and the knobs of
+the later steps of ROADMAP.md Queue 1 item 11 — ``seq_parallel``
+(sequence-sharded activations) and ``fsdp`` (parameters sharded over
+"data") — shape the tables but raise ``NotImplementedError`` where a
+trainer or an engine would run them (``refuse_unported``). ``zero1`` shards optimizer state over data
 replicas: on one device it is accepted and does nothing.
 """
 from __future__ import annotations

@@ -80,19 +80,36 @@ batch and serves the engine over HTTP (``POST /generate``, ``GET
 /metrics``, ``GET /healthz``; ``--port 0`` picks a free port) until
 ctrl-c, with the watchdog at ``--watchdog-timeout`` seconds.
 
-``--tp N`` serves a dense decoder tensor-parallel over N ranks, one
-process a rank as ``torchrun --nproc-per-node N`` starts them (each rank
-builds only its shards; serve/engine.py). The process group's backend is
-``--backend`` (default NCCL on CUDA, gloo on the CPU; ranks sharing one
-card need gloo: NCCL refuses two ranks on one device). Rank 0 prints.
-Flags of features the port has not reached (``--dp``; ``--serve`` with
-``--tp``) raise NotImplementedError naming their ROADMAP.md item.
+``--tp N`` serves a dense or MoE decoder or the enc-dec family
+tensor-parallel over N ranks, one process a rank as ``torchrun
+--nproc-per-node N`` starts them (each rank builds only its shards;
+serve/engine.py). The process group's backend is ``--backend`` (default
+NCCL on CUDA, gloo on the CPU; ranks sharing one card need gloo: NCCL
+refuses two ranks on one device). Rank 0 prints. ``--dp M`` serves M
+replicas behind a ``ReplicaRouter`` (serve/parallel.py): in this one
+process at tp 1 — on ``--device`` M times where it names one device
+(``cpu``, ``cuda:0``: the replicas share its weights), on the visible
+cards of a bare ``cuda`` — and under ``torchrun --nproc-per-node M*N``
+with ``--tp N``, each process serving its row's replica. The report
+sums the replicas' counters and gives the worst replica's program-shape
+count. ``--serve`` with ``--tp`` raises NotImplementedError naming its
+ROADMAP.md item.
 
     # two ranks on the CPU, or sharing one card over gloo
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
         --tp 2 --device cpu --requests 3
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
         --tp 2 --backend gloo --full --slots 4 --max-len 1024 --requests 6
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch olmoe-1b-7b --tp 2 --backend gloo --full --slots 4 \
+        --max-len 1024 --requests 6
+
+    # two replicas in one process (on the CPU; on card 0), and dp 2 x tp 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --dp 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cuda:0 \
+        --dp 2 --full --slots 4 --max-len 1024 --requests 6
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --dp 2 --tp 2 --device cpu --requests 6
 
     # on the card, speculative decode with the prompt-lookup drafter
     PYTHONPATH=src python -m repro_torch.launch.serve --full \
@@ -173,7 +190,9 @@ def main(argv=None):
                          "nccl on cuda, gloo on cpu; ranks sharing one "
                          "card need gloo)")
     ap.add_argument("--dp", type=int, default=1,
-                    help="data-parallel replicas (not ported yet)")
+                    help="data-parallel replicas behind a ReplicaRouter "
+                         "(one process at --tp 1; under torchrun with "
+                         "dp*tp processes otherwise)")
     ap.add_argument("--serve", action="store_true",
                     help="ONLINE mode: skip the synthetic batch and "
                          "serve over HTTP (POST /generate, GET /metrics, "
@@ -206,8 +225,12 @@ def main(argv=None):
     session = Session(cfg, device=args.device, seed=args.seed)
     spec = SpecConfig(k=args.spec_k, drafter=args.drafter) \
         if args.spec_k > 0 else None
+    one = torch.device(args.device)
+    devices = [one] * args.dp if args.dp > 1 and args.tp == 1 and (
+        one.type == "cpu" or one.index is not None) else None
     serve_kw = dict(
-        tp=args.tp, dp=args.dp, slots=args.slots, max_len=args.max_len,
+        tp=args.tp, dp=args.dp, devices=devices, slots=args.slots,
+        max_len=args.max_len,
         temperature=args.temperature,
         paged=False if args.dense else None, page_size=args.page_size,
         kv_pages=args.kv_pages, prefix_cache=args.prefix_cache,
@@ -252,25 +275,37 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     results = eng.run()
-    if eng.device.type == "cuda":
-        torch.cuda.synchronize(eng.device)
+    # a dp > 1 serve() returns a ReplicaRouter: its stats sum the
+    # replicas' counters, and its first replica describes the layout
+    rep = eng.engines[0] if hasattr(eng, "engines") else eng
+    if rep.device.type == "cuda":
+        torch.cuda.synchronize(rep.device)
     dt = time.perf_counter() - t0
     total = sum(len(r.out) for r in results.values())
     st = eng.stats
-    layout = (f"paged/{eng.page_size}tok-pages" if eng.paged
+    # program-shape counts are per replica: the worst replica's
+    per = st.get("replicas", [st])
+    traces = {k: max(r[k] for r in per)
+              for k in ("decode_traces", "prefill_traces")}
+    layout = (f"paged/{rep.page_size}tok-pages" if rep.paged
               else "dense slot table") + \
-        ("" if eng.mixed else ", split prefill/decode")
-    tp_text = "" if args.tp == 1 else (
-        f", tp {eng.tp} over {torch.distributed.get_backend()}, "
+        ("" if rep.mixed else ", split prefill/decode")
+    par = "" if args.tp == 1 else (
+        f", tp {rep.tp} over {torch.distributed.get_backend()}, "
         f"{eng.per_device_kv_bytes() / 1e6:.1f}MB of it a rank")
+    if args.dp > 1:
+        homes = [eng.replica_of(r) for r in results]
+        par += (f", dp {args.dp}, requests a replica "
+                f"{[homes.count(r) for r in range(args.dp)]}")
     log(f"served {len(results)} requests, {total} tokens in {dt:.2f}s "
-          f"({total / dt:.1f} tok/s on {eng.device}, {args.slots} slots, "
+          f"({total / dt:.1f} tok/s on {rep.device}, {args.slots} slots, "
           f"{layout}, {st['decode_backend']} path, "
           f"state {eng.kv_bytes() / 1e6:.1f}MB, {st['decode_steps']} decode "
-          f"steps, {st['decode_traces']} decode shapes, "
-          f"{st['prefill_traces']} prefill lengths{tp_text})")
-    if eng.paged:
-        log(f"  pool: peak {st['peak_pages']}/{eng.kv_pages} pages, "
+          f"steps, {traces['decode_traces']} decode shapes, "
+          f"{traces['prefill_traces']} prefill lengths a replica{par})")
+    if rep.paged:
+        log(f"  pool: peak {st['peak_pages']}/{rep.kv_pages * args.dp} "
+              f"pages, "
               f"prefix hit/miss {st['prefix_hit_blocks']}/"
               f"{st['prefix_miss_blocks']} blocks "
               f"(+{st['prefix_tail_hits']} tail), "

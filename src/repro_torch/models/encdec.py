@@ -37,6 +37,18 @@ stays a dense block a slot — its length is the fixed encoder context.
 leading axis of ``"xkv"``: each layer then gathers its own rows' cross
 K/V (the engine's mixed step, whose rows are many tokens of few slots),
 so one layer's gathered block is live at a time, not the whole stack.
+
+Under a tensor-parallel mesh (``core/tp.py``, made current by the serving
+engine) the encoder and the decoder run on the rank's shards, as the
+decoder-only transformer does: its query and K/V heads (self and cross:
+the head counts are the projections' own), its column blocks of the MLP
+and, where the vocabulary divides tp, its rows of ``tok_embed`` and
+columns of ``lm_head`` (``tp.vocab_embed`` / ``tp.vocab_logits``; a
+whole table passes through). Each encoder layer ends in the two
+all-reduces of ``attn_out`` and ``mlp``, each decoder layer in three:
+self-attention, cross-attention and the MLP. The cross K/V holds the
+rank's heads. ``forward`` (training) raises there: sharded training is a
+later step of item 11.
 """
 from __future__ import annotations
 
@@ -47,6 +59,7 @@ import torch
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import tp
 from repro_torch.models import kvcache
 from repro_torch.models.layers import (attention, attn_out, attn_qkv, mlp,
                                        paged_attention, rmsnorm)
@@ -83,7 +96,8 @@ def encode(params, frames, cfg, *, attn_impl: str = "auto"):
     for lp in unstack(params["enc_layers"], cfg.encoder_layers):
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = attn_qkv(lp["attn"], h, cfg, rope=False)
-        ctx = attention(q, k, v, causal=False, impl=attn_impl)
+        ctx = attention(q, tp.kv_read(k), tp.kv_read(v), causal=False,
+                        impl=attn_impl)
         x = x + attn_out(lp["attn"], ctx, cfg)
         x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
     return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
@@ -100,30 +114,35 @@ def _cross(lp, x, enc_kv, cfg):
     with record_function(CROSS_RANGE):
         h = rmsnorm(x, lp["lnx"], cfg.norm_eps)
         b, s, _ = h.shape
-        q = (h @ lp["xattn"]["wq"]).reshape(b, s, cfg.num_heads,
-                                            cfg.head_dim)
-        ctx = attention(q, enc_kv["k"], enc_kv["v"], causal=False,
-                        impl="full")
+        q = (h @ lp["xattn"]["wq"]).reshape(b, s, -1, cfg.head_dim)
+        ctx = attention(q, tp.kv_read(enc_kv["k"]), tp.kv_read(enc_kv["v"]),
+                        causal=False, impl="full")
         return x + attn_out(lp["xattn"], ctx, cfg)
 
 
 def cross_kv(lp, enc_out, cfg):
-    """One decoder layer's cross K/V of ``enc_out``, (B, T, Hkv, D)."""
+    """One decoder layer's cross K/V of ``enc_out``, (B, T, Hkv, D) (a
+    rank's K/V heads under a mesh)."""
     b, t, _ = enc_out.shape
-    k = (enc_out @ lp["xattn"]["wk"]).reshape(b, t, cfg.num_kv_heads,
-                                              cfg.head_dim)
-    v = (enc_out @ lp["xattn"]["wv"]).reshape(b, t, cfg.num_kv_heads,
-                                              cfg.head_dim)
+    k = (enc_out @ lp["xattn"]["wk"]).reshape(b, t, -1, cfg.head_dim)
+    v = (enc_out @ lp["xattn"]["wv"]).reshape(b, t, -1, cfg.head_dim)
     return {"k": k, "v": v}
 
 
+def _lookup(params, tokens, cfg):
+    return tp.vocab_embed(params["tok_embed"], tokens,
+                          cfg.vocab_size).to(_dtype(cfg))
+
+
 def _embed(params, tokens, cfg):
-    x = params["tok_embed"][tokens.long()].to(_dtype(cfg))
+    x = _lookup(params, tokens, cfg)
     return x + sinusoid(x.shape[1], cfg.d_model, x.device).to(x.dtype)
 
 
 def _head(params, x, cfg):
-    return rmsnorm(x, params["final_norm"], cfg.norm_eps) @ params["lm_head"]
+    return tp.vocab_logits(
+        rmsnorm(x, params["final_norm"], cfg.norm_eps) @ params["lm_head"],
+        cfg.vocab_size)
 
 
 def _dec_block(lp, x, enc_out, cfg, attn_impl):
@@ -146,6 +165,7 @@ def forward(params, batch, cfg, *, remat: bool = False,
             f"frames: {cfg.name} is an enc-dec model; its batches carry "
             "'frames' (B, encoder_ctx, d_model) beside 'tokens' (train it "
             "on a data= object whose batch(step) yields them)")
+    tp.check_training("encdec.forward")
     enc_out = encode(params, batch["frames"], cfg, attn_impl=attn_impl)
     x = _embed(params, batch["tokens"], cfg)
     for lp in unstack(params["dec_layers"], cfg.num_layers):
@@ -185,7 +205,8 @@ def prefill(params, batch, cfg, cache, *, attn_impl: str = "auto"):
     for i, lp in enumerate(unstack(params["dec_layers"], cfg.num_layers)):
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = attn_qkv(lp["attn"], h, cfg, rope=False)
-        ctx = attention(q, k, v, causal=True, impl=attn_impl)
+        ctx = attention(q, tp.kv_read(k), tp.kv_read(v), causal=True,
+                        impl=attn_impl)
         x = x + attn_out(lp["attn"], ctx, cfg)
         ckv = cross_kv(lp, enc_out, cfg)
         x = _cross(lp, x, ckv, cfg)
@@ -218,8 +239,7 @@ def decode_step(params, cache, token, pos, cfg):
     at = torch.clamp(pos.long(), 0, w - 1)
     pe = sinusoid(w, cfg.d_model, dev)[at]
     pe = pe[:, None] if batched else pe[None, None]
-    x = params["tok_embed"][token.long()].to(_dtype(cfg))
-    x = x + pe.to(x.dtype)
+    x = _lookup(params, token, cfg) + pe.to(_dtype(cfg))
     rows = pos if batched else pos.expand(token.shape[0]).contiguous()
     if paged:
         ptab = cache["ptab"]
@@ -233,11 +253,12 @@ def decode_step(params, cache, token, pos, cfg):
         kv = {"k": pool["k"][i], "v": pool["v"][i]}
         if paged:
             kvcache.write_kv_paged(kv, k, v, wtab, rows)
-            ctx = paged_attention(q, kv["k"], kv["v"], ptab, rows)
+            ctx = paged_attention(q, tp.kv_read(kv["k"]),
+                                  tp.kv_read(kv["v"]), ptab, rows)
         else:
             kvcache.write_kv(kv, k, v, pos)
-            ctx = attention(q, kv["k"], kv["v"], causal=True, q_offset=pos,
-                            kv_len=kv_len)
+            ctx = attention(q, tp.kv_read(kv["k"]), tp.kv_read(kv["v"]),
+                            causal=True, q_offset=pos, kv_len=kv_len)
         x = x + attn_out(lp["attn"], ctx, cfg)
         with record_function(CROSS_RANGE):
             ckv = {n: a[i] if xslot is None else a[i][xslot]

@@ -21,6 +21,22 @@ the reference's einsums are: no Pallas kernel runs here on the TPU, so
 no hand kernel runs here on the card (and the fused MLP never does).
 The sharding hints (``constrain``) have no counterpart on one card.
 
+Under a tensor-parallel mesh (``core/tp.py``) the experts are split over
+the "model" axis (the table's ``experts`` rule, reference ``moe.py:8-12``):
+a rank holds ``E / tp`` experts of ``w_gate`` / ``w_up`` / ``w_down`` and
+the whole router. The activations are the same on every rank, so every
+rank routes every token as above; it fills only its own experts'
+``(E / tp, C, d)`` buffer (the same capacity ``C``), runs the three
+products on it, gathers the kept slots whose expert is its own (zeros
+elsewhere) and one all-reduce (``"moe_out"``) sums the ``(T k, d)``
+slots before the gate-weighted sum over k. Each kept slot has exactly one
+rank that writes it, so the sum adds only zeros: the output is the
+unsharded one bit for bit, and the k-sum runs in the unsharded order. A
+rank holding all ``E`` experts (the table keeps them whole where ``E``
+does not divide tp) computes the unsharded FFN and reduces nothing. The
+reference's all-to-all has no counterpart: gloo has none on CUDA tensors,
+and every rank already holds every token.
+
 ``moe_ffn``'s parts run under ``torch.profiler.record_function`` ranges
 named by :data:`PARTS` (routing and dispatch, the expert products, the
 combine), so a profiled run splits the FFN's device time by them.
@@ -34,6 +50,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
+
+from repro_torch.core import tp
 
 PARTS = ("moe_route", "moe_experts", "moe_combine")
 
@@ -104,33 +122,61 @@ def dispatch(idx, cfg, cap: int):
     return dest, keep
 
 
+def _local_experts(p, cfg):
+    """(first expert, experts) this rank holds of ``p``'s expert stack:
+    (0, E) unsharded or where the stack is whole."""
+    n = p["w_up"].shape[0]
+    if n == cfg.num_experts:
+        return 0, n
+    r = tp.current()
+    if r is None or n * r.tp != cfg.num_experts:
+        raise ValueError(f"{cfg.name}: an expert stack of {n} of "
+                         f"{cfg.num_experts} experts needs the rank that "
+                         "holds it current (core/tp.py::active)")
+    return r.rank * n, n
+
+
 def moe_ffn(p, x, cfg):
     """x: (B, S, d) -> (B, S, d), aux loss (fp32 scalar). Capacity is that
-    of the B * S tokens together: rows share every expert's budget."""
+    of the B * S tokens together: rows share every expert's budget. Under a
+    mesh, a rank's slice of the experts (see the module docstring)."""
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
-    k, e = cfg.experts_per_token, cfg.num_experts
+    k = cfg.experts_per_token
     cap = capacity(t, cfg)
+    first, n_local = _local_experts(p, cfg)
     with record_function("moe_route"):
         gates, idx, aux = router_topk(p["router"], xt, cfg)
         dest, keep = dispatch(idx, cfg, cap)
+        if n_local < cfg.num_experts:
+            # this rank's slots: their rows in its (E / tp * C, d) buffer
+            mine = keep & (idx.reshape(-1) >= first) \
+                & (idx.reshape(-1) < first + n_local)
+            dest = torch.where(mine, dest - first * cap,
+                               torch.zeros_like(dest))
+        else:
+            mine = keep
         src = xt.repeat_interleave(k, dim=0)              # (T*k, d)
-        src = torch.where(keep[:, None], src, torch.zeros_like(src))
+        src = torch.where(mine[:, None], src, torch.zeros_like(src))
         # kept rows are unique and dropped ones add +0 to row 0: the sums
         # are the reference's scatter-add values exactly
-        buf = torch.zeros((e * cap, d), dtype=xt.dtype, device=x.device
-                          ).index_add(0, dest, src).view(e, cap, d)
+        buf = torch.zeros((n_local * cap, d), dtype=xt.dtype,
+                          device=x.device
+                          ).index_add(0, dest, src).view(n_local, cap, d)
     with record_function("moe_experts"):
         h = torch.bmm(buf, p["w_up"])
         g = torch.bmm(buf, p["w_gate"])
         h = F.silu(g) * h
-        y = torch.bmm(h, p["w_down"]).reshape(e * cap, d)
+        y = torch.bmm(h, p["w_down"]).reshape(n_local * cap, d)
     with record_function("moe_combine"):
         flat_gate = torch.where(keep, gates.reshape(-1),
                                 torch.zeros_like(gates.reshape(-1)))
-        gathered = torch.where(keep[:, None], y.index_select(0, dest),
+        gathered = torch.where(mine[:, None], y.index_select(0, dest),
                                torch.zeros_like(src))
+        if n_local < cfg.num_experts:
+            # one writer a kept slot: the sum adds zeros only
+            gathered = tp.all_reduce(gathered, "moe_out")
         out = (gathered * flat_gate[:, None].to(gathered.dtype)
                ).reshape(t, k, d).sum(dim=1)
     return out.reshape(b, s, d), aux

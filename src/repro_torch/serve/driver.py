@@ -46,10 +46,12 @@ construction) and instrumented ``step_fn``s (tests inject stalls this
 way) return early — recovery then lands at sub-step latency instead of
 waiting out the full step.
 
-The driver serves a single :class:`~repro_torch.serve.engine.ServeEngine` or a
-replica router (``engines``; the port's comes with ROADMAP.md Queue 1
-item 11) identically (``step`` /
-``busy`` / ``submit`` are the shared surface). Construction normally
+The driver serves a single :class:`~repro_torch.serve.engine.ServeEngine` or
+a one-process :class:`~repro_torch.serve.parallel.ReplicaRouter`
+(``engines``) identically (``step`` / ``busy`` / ``submit`` are the
+shared surface). A tensor-parallel engine or router (``tp > 1``) is
+refused: every rank must step on the same submissions, and only rank 0
+would see them (ROADMAP.md Queue 1 item 11). Construction normally
 goes through ``repro_torch.api.Session.serve_async(...)`` or the HTTP layer in
 serve/server.py.
 """
@@ -155,7 +157,8 @@ class AsyncDriver:
 
         if getattr(engine, "tp", 1) > 1:
             raise NotImplementedError(
-                "online serving of a tensor-parallel engine: only rank 0 "
+                "online serving of a tensor-parallel engine or router: "
+                "only rank 0 "
                 "would see the requests, and every rank must step on the "
                 "same submissions — the parallelism slice, ROADMAP.md Queue "
                 "1 item 11")

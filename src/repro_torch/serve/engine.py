@@ -130,27 +130,34 @@ token for token, and the program set stays one per (``chunk_tokens``,
 page bucket).
 
 **Tensor-parallel serving** (``mesh=``, a ("data", "model") = (1, tp)
-``DeviceMesh``; ``Session.serve(tp=)`` builds it), for dense decoders.
-The reference runs its programs GSPMD-sharded from one controller; the
-port runs one process a rank (``torchrun``), each with this engine over
-its own shards (``core/tp.py``): the Megatron layout of
-``core/sharding.py`` with heads kept whole — Hq/tp query heads, Hkv/tp
-K/V heads of every page (all Hkv, replicated, where they do not divide),
-d_ff/tp of the MLP and V/tp of the vocabulary — and one all-reduce after
-``wo``, one after ``w_down``, one for the embedding and one to assemble
-the logits. The kernels run at the rank's shapes, checked at
-construction. Every rank runs the same host engine (scheduler,
-allocator, prefix cache) on the same submissions, so pages, prefix hits,
-CoW, preemption and speculative decode match across ranks; what could
+``DeviceMesh``; ``Session.serve(tp=)`` builds it), for dense and MoE
+decoders and the enc-dec audio family. The reference runs its programs
+GSPMD-sharded from one controller; the port runs one process a rank
+(``torchrun``), each with this engine over its own shards
+(``core/tp.py``): the Megatron layout of ``core/sharding.py`` with heads
+kept whole — Hq/tp query heads, Hkv/tp K/V heads of every page (all Hkv,
+replicated, where they do not divide), d_ff/tp of the MLP, E/tp of an MoE
+layer's experts (models/moe.py) and V/tp of the vocabulary — and one
+all-reduce after ``wo``, one after ``w_down`` (an MoE layer: one over its
+experts' slots, ``"moe_out"``), one for the embedding and one to
+assemble the logits. An enc-dec engine runs each admission's encoder on
+the rank's shards too, and its cross K/V blocks hold the rank's heads.
+The kernels run at the rank's shapes, checked at construction. Every
+rank runs the same host engine (scheduler, allocator, prefix cache) on
+the same submissions, so pages, prefix hits, CoW, preemption and
+speculative decode match across ranks; what could
 still diverge is fixed by rank 0: the sampled tokens (broadcast after
 each program) and the clock every deadline decision reads (broadcast
 each step and at ``submit(deadline_s=)``). Before each program the ranks
 compare a checksum of what they packed (one all-reduce of ``(c, -c)``
 with MAX) and raise if it differs. ``kv_bytes`` stays global;
-``per_device_kv_bytes`` is one rank's share. The other families, a mesh
-with data parallelism and the online stack (only rank 0 would see the
-requests) raise ``NotImplementedError`` naming ROADMAP.md Queue 1 item
-11.
+``per_device_kv_bytes`` is one rank's share. On a mesh with ``data`` > 1
+each row of the mesh is one replica: this engine serves its row, with
+its collectives on the row's "model" group (serve/parallel.py's
+``ReplicaRouter`` routes across the rows). The SSM family, the hybrid and
+the VLM on a mesh, TP-in-expert (``Strategy(expert_parallel=False)``)
+and the online stack on a tp engine (only rank 0 would see the requests)
+raise ``NotImplementedError`` naming ROADMAP.md Queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -184,6 +191,8 @@ from repro_torch.serve.tracing import (NULL_STEP, Tracer, chrome_trace,
 #: families whose decode cache can use the paged (block-table) layout —
 #: the reference's ``PAGEABLE_ARCHS``
 PAGEABLE_ARCHS = ("dense", "moe", "audio")
+#: families a mesh serves (``ServeEngine(mesh=)``)
+MESH_ARCHS = ("dense", "moe", "audio")
 
 
 def _todo(what: str, item: str):
@@ -390,13 +399,16 @@ class ServeEngine:
         """The rank's view of ``mesh`` and its shards of ``params`` (full
         leaves are sliced; leaves already of the rank's block shape are
         kept). Refuses what tensor-parallel serving does not run yet."""
-        if cfg.arch_type != "dense":
+        if cfg.arch_type not in MESH_ARCHS:
             raise _todo(f"tensor-parallel serving of the {cfg.arch_type} "
                         "family (mesh=)", "Queue 1 item 11")
         axes = mesh_axes(mesh)
-        if set(axes) - {"data", "model"} or axes.get("data", 1) > 1:
-            raise _todo(f"serving on a {axes} mesh (data-parallel replicas "
-                        "are the ReplicaRouter's)", "Queue 1 item 11")
+        if set(axes) - {"data", "model"}:
+            raise _todo(f"serving on a {axes} mesh (only 'data' and "
+                        "'model' axes)", "Queue 1 item 11")
+        if cfg.is_moe and not strategy.expert_parallel:
+            raise _todo("TP-in-expert MoE serving on a mesh (Strategy("
+                        "expert_parallel=False))", "Queue 1 item 11")
         refuse_unported(strategy, "serving on a mesh")
         rank = tp.Rank.of(mesh, cfg)
         return rank, tp.shard_params(params, full_shapes(cfg), strategy,
@@ -442,8 +454,7 @@ class ServeEngine:
             checks.append(("every admission's encoder (and each split-path "
                            "prefill's decoder) runs the flash-attention "
                            "kernel", "", flash_attention.kernel_limits(
-                               cfg.dtype, cfg.num_heads, cfg.num_kv_heads,
-                               cfg.head_dim)))
+                               cfg.dtype, hq, hkv, cfg.head_dim)))
         if cfg.arch_type in ("dense", "hybrid", "vlm") and not cfg.is_moe:
             checks.append(("every program runs the fused-MLP kernel", "",
                            fused_mlp.kernel_limits(cfg.dtype, cfg.d_model,
@@ -477,9 +488,10 @@ class ServeEngine:
             self._cache_cfg.num_kv_heads, cfg.head_dim,
             getattr(torch, cfg.dtype), self.device)}
         if cfg.arch_type == "audio":
-            # the cross K/V stays a dense block a slot (fixed length)
+            # the cross K/V stays a dense block a slot (fixed length), of
+            # the rank's K/V heads
             self._cache["xkv"] = self.model.init_cache(
-                cfg, self.slots, 1, device=self.device)["xkv"]
+                self._cache_cfg, self.slots, 1, device=self.device)["xkv"]
         # the DEVICE page table is clipped to the power-of-two bucket of
         # the page high-water mark (_sync_ptab); the host mirror is full
         self._pps = pps
@@ -545,13 +557,14 @@ class ServeEngine:
         one a config, as the reference's one trace."""
         self._encode_shapes.add(tuple(frames.shape))
         self.stats["encode_traces"] = len(self._encode_shapes)
-        enc_out = self.model.encode(self.params, frames, self.cfg)
         xkv = self._cache["xkv"]
-        for i, lp in enumerate(transformer.unstack(
-                self.params["dec_layers"], self.cfg.num_layers)):
-            for key, new in self.model.cross_kv(lp, enc_out,
-                                                self.cfg).items():
-                xkv[key][i, slot] = new[0]
+        with tp.active(self._rank):
+            enc_out = self.model.encode(self.params, frames, self.cfg)
+            for i, lp in enumerate(transformer.unstack(
+                    self.params["dec_layers"], self.cfg.num_layers)):
+                for key, new in self.model.cross_kv(lp, enc_out,
+                                                    self.cfg).items():
+                    xkv[key][i, slot] = new[0]
 
     def _decode_fn(self, tokens, pos, active):
         """Split path: ONE batched decode advancing every slot (the cache
@@ -674,6 +687,33 @@ class ServeEngine:
         vision frontend's output), each stored as float32; either on
         another family is refused, as in the reference.
         Returns the LIVE Request record (``out`` grows as it decodes)."""
+        prompt, frames, images, worst = self.check_request(
+            rid, prompt, max_new, frames=frames, images=images,
+            deadline_s=deadline_s)
+        if self.paged:
+            # pre-book the worst case in the bounded-gather high-water mark
+            # at submit, so lazy growth never re-buckets mid-decode
+            self._hw_blocks = max(self._hw_blocks, worst)
+        deadline = None
+        if deadline_s is not None:
+            deadline = self._now() + float(deadline_s)
+        req = Request(rid, prompt, int(max_new), frames=frames,
+                      images=images, priority=int(priority),
+                      deadline=deadline)
+        self.queue.append(req)
+        explain = getattr(self._sched, "explain", None)
+        self.tracer.req_event(
+            rid, "submitted", prompt_tokens=int(prompt.size),
+            max_new=int(max_new), queue_depth=len(self.queue),
+            **(explain(req) if explain is not None else {}))
+        return req
+
+    def check_request(self, rid: int, prompt, max_new: int, *,
+                      frames=None, images=None, deadline_s=None):
+        """``submit``'s checks, changing nothing: raises ``ValueError`` for
+        a request this engine could never serve. Returns (prompt as int32,
+        frames and images as float32 or None, the worst-case pages of its
+        context on the pool)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError(f"request {rid}: empty prompt")
@@ -684,6 +724,7 @@ class ServeEngine:
                 f"{self.max_len - 1} tokens")
         if max_new < 1:
             raise ValueError(f"request {rid}: max_new must be >= 1")
+        worst = 0
         if self.paged:
             cap = min(prompt.size + max_new - 1, self.max_len)
             worst = pages_for(cap, self.page_size)
@@ -702,9 +743,6 @@ class ServeEngine:
                     f"pages ({self.page_size} tokens each) but the pool "
                     f"holds {self.kv_pages}; raise kv_pages or lower "
                     f"prompt+max_new")
-            # pre-book the worst case in the bounded-gather high-water mark
-            # at submit, so lazy growth never re-buckets mid-decode
-            self._hw_blocks = max(self._hw_blocks, worst)
         if self.cfg.arch_type == "audio":
             if frames is None:
                 raise ValueError(
@@ -736,23 +774,10 @@ class ServeEngine:
             raise ValueError(
                 f"request {rid}: images are only meaningful for vlm "
                 f"archs, not {self.cfg.arch_type}")
-        deadline = None
-        if deadline_s is not None:
-            if deadline_s <= 0:
-                raise ValueError(
-                    f"request {rid}: deadline_s must be > 0, got "
-                    f"{deadline_s}")
-            deadline = self._now() + float(deadline_s)
-        req = Request(rid, prompt, int(max_new), frames=frames,
-                      images=images, priority=int(priority),
-                      deadline=deadline)
-        self.queue.append(req)
-        explain = getattr(self._sched, "explain", None)
-        self.tracer.req_event(
-            rid, "submitted", prompt_tokens=int(prompt.size),
-            max_new=int(max_new), queue_depth=len(self.queue),
-            **(explain(req) if explain is not None else {}))
-        return req
+        if deadline_s is not None and deadline_s <= 0:
+            raise ValueError(
+                f"request {rid}: deadline_s must be > 0, got {deadline_s}")
+        return prompt, frames, images, worst
 
     def _expire_queued(self, now: float):
         """Finish every QUEUED request whose deadline has passed with

@@ -2,7 +2,8 @@
 server.py over the port's ``ServeEngine``, and ``Session.serve_async`` /
 ``serve_http`` / ``save`` / ``restore``.
 
-The dense, non-router cases of tests/test_serve_online.py, the driver's
+The dense cases of tests/test_serve_online.py (the dp 2 router's in one
+process, ``serve/parallel.py``), the driver's
 abort recovery (tests/test_serve_mixed.py:341), the driver's speculative
 metrics (tests/test_serve_spec.py:274) and the Session checkpoint round
 trip (tests/test_api_session.py:104), each on the port: quantile and
@@ -42,6 +43,7 @@ from repro_torch.serve.driver import AsyncDriver  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve.metrics import (  # noqa: E402
     Histogram, MetricsRegistry, ServeMetrics, quantile)
+from repro_torch.serve.parallel import ReplicaRouter  # noqa: E402
 from repro_torch.serve.server import ServeHTTPServer, serve_http  # noqa: E402
 from repro_torch.serve.speculative import SpecConfig  # noqa: E402
 from repro_torch.train.trainer import TrainConfig  # noqa: E402
@@ -225,6 +227,27 @@ def test_session_serve_async_matches_run(weights):
     assert not any(t.is_alive() for t in drv._threads)
 
 
+def _router(params, **kw):
+    """A dp 2 router of ``ENG`` engines, both replicas on the CPU."""
+    return ReplicaRouter(CFG, params, dp=2, devices=["cpu"] * 2,
+                         **{**ENG, **kw})
+
+
+def test_stream_matches_run_dp2(weights):
+    """tests/test_serve_online.py:188: the driver over a dp 2 router
+    streams the single engine's batch output (the JAX engine's too), one
+    program shape a replica."""
+    jcfg, jp, tp = weights
+    prompts = _prompts(2, (5, 7, 6, 8, 5, 4))
+    base = _batch(JaxEngine(jcfg, jp, **ENG), prompts, 6)
+    assert base == _batch(ServeEngine(CFG, tp, **ENG), prompts, 6)
+    router = _router(tp)
+    out, drv = _driver_outputs(router, prompts, 6)
+    assert out == base
+    assert all(r["decode_traces"] == 1 for r in router.stats["replicas"])
+    assert drv.metrics.completed.value == len(prompts)
+
+
 def test_live_submit_while_running(weights):
     _, _, tp = weights
     prompts = _prompts(3, (5, 7, 6))
@@ -258,6 +281,44 @@ def test_reset_stats_keeps_trace_counters(weights):
         eng.submit(10 + i, p, max_new=4)
     eng.run()
     assert eng.stats["decode_traces"] == 1
+
+
+def test_router_stats_aggregate_and_reset(weights):
+    """tests/test_serve_online.py:247: the router's stats sum the
+    replicas' (no double counting), and ``reset_stats`` resets every
+    replica but its program-shape counts."""
+    _, _, tp = weights
+    router = _router(tp)
+    for i, p in enumerate(_prompts(5, (5, 7, 6, 8))):
+        router.submit(i, p, max_new=4)
+    router.run()
+    st = router.stats
+    per = st["replicas"]
+    assert st["step_count"] == sum(r["step_count"] for r in per)
+    assert st["decode_tokens"] == sum(r["decode_tokens"] for r in per)
+    assert st["tokens_per_s_ewma"] == pytest.approx(
+        sum(r["tokens_per_s_ewma"] for r in per))
+    assert st["decode_backend"] == "plain"
+    router.reset_stats()
+    st = router.stats
+    assert st["step_count"] == 0
+    assert all(r["decode_traces"] == 1 for r in st["replicas"])
+
+
+def test_router_latency_aware_routing(weights):
+    """tests/test_serve_online.py:268: with both EWMAs set the router
+    scores load / rate (the 4x faster replica takes the request at equal
+    load); while a replica is cold the least load decides."""
+    _, _, tp = weights
+    router = _router(tp, slots=1)
+    p = np.arange(5, dtype=np.int32) % CFG.vocab_size
+    assert router.route(p) == 0
+    router.engines[0].stats["tokens_per_s_ewma"] = 10.0
+    assert router.route(p) == 0                 # replica 1 still cold
+    router.engines[1].stats["tokens_per_s_ewma"] = 40.0
+    router.engines[0].submit(0, p, max_new=4)
+    router.engines[1].submit(1, p, max_new=4)
+    assert router.route(p) == 1                 # 1/40 < 1/10
 
 
 def test_decode_blocks_register_into_prefix_cache(weights):

@@ -1,0 +1,393 @@
+"""Data-parallel replica routing in the port (serve/parallel.py), on the
+CPU: the twin of tests/test_serve_parallel.py's dp cases and routing
+policy.
+
+In one process (tp 1) the port's ``ReplicaRouter`` holds both replicas,
+here on the one CPU device twice (``devices=["cpu"] * 2``): its streams
+are held to the JAX single engine's on the same weights, its routing
+decisions to the JAX ``ReplicaRouter``'s (``replica_of``) on the same
+submissions — least load, prefix affinity and its give-way, and the
+latency-aware ``load / rate`` route with the EWMAs set by hand — and
+``Session.serve(dp=2)`` and ``launch/serve.py --dp 2`` to the single
+engine. The JAX router builds its replicas on conftest's 8 host devices.
+
+The dp 2 x tp 2 topology runs in one spawn of four rank processes
+(``launch/ranks.py``: gloo, a FileStore under ``tmp_path``, a timeout
+that kills the ranks), each serving its row's tp 2 replica: the union of
+the streams on every rank equals the JAX single engine's, one program
+shape a replica, half the KV a rank, the replicas' ranks disjoint; the
+same with speculative decode, through ``Session.serve(dp=2, tp=2)``, and
+through ``launch/serve.py --dp 2 --tp 2``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.api import Session  # noqa: E402
+from repro_torch.configs.base import ModelConfig  # noqa: E402
+from repro_torch.launch.ranks import run_ranks  # noqa: E402
+from repro_torch.params import from_numpy  # noqa: E402
+from repro_torch.serve.engine import ServeEngine  # noqa: E402
+from repro_torch.serve.parallel import (ReplicaRouter,  # noqa: E402
+                                        replica_meshes)
+
+RANK_TIMEOUT = 120.0            # seconds the spawn may take before it fails
+
+#: tests/test_serve_parallel.py's CFG and AUDIO_CFG
+KW = dict(name="par-dense", arch_type="dense", num_layers=2, d_model=128,
+          num_heads=4, num_kv_heads=2, d_ff=256, vocab_size=128,
+          dtype="float32")
+AUDIO_KW = dict(name="par-encdec", arch_type="audio", num_layers=2,
+                d_model=64, num_heads=4, num_kv_heads=4, d_ff=128,
+                vocab_size=128, encoder_layers=1, encoder_ctx=12,
+                dtype="float32")
+SEEDS = {"par-dense": 0, "par-encdec": 2}
+ENG = dict(slots=2, max_len=64, paged=True)
+CPU2 = ["cpu"] * 2
+
+_JAX = {}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """These shapes are tiny: one intra-op thread computes them as fast,
+    and the test workers running beside this one keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _jax_params(kw):
+    """(JAX config, JAX params at the reference test's seed, their
+    bridge into the port on the CPU), made once a config."""
+    if kw["name"] not in _JAX:
+        import jax
+        from repro.checkpoint.io import _flatten
+        from repro.configs.base import ModelConfig as JaxConfig
+        from repro.models import get_model
+        jcfg = JaxConfig(**kw)
+        jp = jax.jit(get_model(jcfg).init, static_argnums=1)(
+            jax.random.key(SEEDS[kw["name"]]), jcfg)
+        flat = {k: np.asarray(v) for k, v in _flatten(jp).items()}
+        _JAX[kw["name"]] = (jcfg, jp, flat)
+    jcfg, jp, flat = _JAX[kw["name"]]
+    return jcfg, jp, from_numpy(flat, ModelConfig(**kw), "cpu")
+
+
+def _prompts(seed, lens):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 128, size=(n,)).astype(np.int32) for n in lens]
+
+
+def _jax_streams(kw, prompts, new, frames=None, **ekw):
+    """The JAX single engine's streams, made once a case."""
+    key = (kw["name"], tuple(map(tuple, prompts)), new,
+           tuple(sorted(ekw.items())))
+    if key not in _JAX:
+        from repro.serve.engine import ServeEngine as JaxEngine
+        jcfg, jp, _ = _jax_params(kw)
+        eng = JaxEngine(jcfg, jp, **ekw)
+        for i, p in enumerate(prompts):
+            eng.submit(i, p, max_new=new,
+                       frames=None if frames is None else frames[i])
+        res = eng.run()
+        _JAX[key] = {i: list(res[i].out) for i in res}
+    return _JAX[key]
+
+
+def _jax_router(kw, **ekw):
+    from repro.serve.parallel import ReplicaRouter as JaxRouter
+    jcfg, jp, _ = _jax_params(kw)
+    return JaxRouter(jcfg, jp, dp=2, **ekw)
+
+
+def _run(router, prompts, new):
+    homes = [router.submit(i, p, max_new=new) for i, p in enumerate(prompts)]
+    res = router.run()
+    return homes, {i: list(res[i].out) for i in res}, res
+
+
+# ------------------------------------------------------- one process
+
+def test_dp2_router_matches_single_engine():
+    """tests/test_serve_parallel.py:403: the dp 2 router's streams equal
+    the JAX single engine's, every request done, both replicas prefill,
+    one program shape each, and every request on the replica the JAX
+    router puts it on."""
+    prompts = _prompts(1, (5, 7, 6, 8, 5, 7))
+    want = _jax_streams(KW, prompts, 6, **ENG)
+    router = ReplicaRouter(ModelConfig(**KW), _jax_params(KW)[2],
+                           dp=2, devices=CPU2, **ENG)
+    homes, got, res = _run(router, prompts, 6)
+    assert got == want
+    assert all(r.done for r in res.values())
+    st = router.stats
+    assert [r["decode_traces"] for r in st["replicas"]] == [1, 1]
+    assert all(r["prefills"] > 0 for r in st["replicas"])
+    jr = _jax_router(KW, **ENG)
+    assert homes == [jr.submit(i, p, max_new=6)
+                     for i, p in enumerate(prompts)]
+    # one process, one card: the replicas share one set of weights
+    assert router.engines[0].params["embed"].data_ptr() == \
+        router.engines[1].params["embed"].data_ptr()
+    assert router.kv_bytes() == 2 * router.engines[0].kv_bytes()
+
+
+def test_router_least_load_matches_jax_router():
+    """tests/test_serve_parallel.py:446: without a prefix cache the
+    submissions alternate (least load, the lowest index on ties) as the
+    JAX router's do; a rid submitted twice raises its text."""
+    params = _jax_params(KW)[2]
+    router = ReplicaRouter(ModelConfig(**KW), params, dp=2, devices=CPU2,
+                           **ENG)
+    jr = _jax_router(KW, **ENG)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 128, size=(6,)) for _ in range(6)]
+    homes = [router.submit(i, p, max_new=4) for i, p in enumerate(prompts)]
+    assert homes == [jr.submit(i, p, max_new=4)
+                     for i, p in enumerate(prompts)] == [0, 1, 0, 1, 0, 1]
+    assert router.replica_of(3) == jr.replica_of(3) == 1
+    with pytest.raises(ValueError, match="already submitted"):
+        router.submit(3, prompts[0], max_new=4)
+
+
+def test_router_prefix_affinity_matches_jax_router():
+    """tests/test_serve_parallel.py:462: prompts sharing a first block go
+    to the replica that took it while it is within ``slots`` of the least
+    loaded one, then give way — on the same replicas as the JAX router's;
+    a prompt without a full block keys nothing."""
+    params = _jax_params(KW)[2]
+    kw = dict(slots=1, max_len=64, paged=True, prefix_cache=True)
+    router = ReplicaRouter(ModelConfig(**KW), params, dp=2, devices=CPU2,
+                           **kw)
+    jr = _jax_router(KW, **kw)
+    rng = np.random.default_rng(1)
+    shared = rng.integers(0, 128, size=(16,))
+    mk = lambda: np.concatenate(  # noqa: E731
+        [shared, rng.integers(0, 128, size=(4,))]).astype(np.int32)
+    prompts = [mk(), rng.integers(0, 128, size=(6,)).astype(np.int32),
+               mk(), mk()]
+    homes = [router.submit(i, p, max_new=4) for i, p in enumerate(prompts)]
+    assert homes == [jr.submit(i, p, max_new=4)
+                     for i, p in enumerate(prompts)] == [0, 1, 0, 0]
+    tail = mk()
+    assert router.route(tail) == jr.route(tail) == 1     # the give-way
+    assert router._affinity_key(np.arange(3)) is None
+
+
+def test_router_latency_aware_route_matches_jax_router():
+    """tests/test_serve_online.py:268 on both routers, the EWMAs set by
+    hand: least load while a replica is cold, then ``load / rate``."""
+    params = _jax_params(KW)[2]
+    kw = dict(slots=1, max_len=64, paged=True)
+    router = ReplicaRouter(ModelConfig(**KW), params, dp=2, devices=CPU2,
+                           **kw)
+    jr = _jax_router(KW, **kw)
+    p = np.arange(5, dtype=np.int32)
+    picks = []
+    for rt in (router, jr):
+        got = [rt.route(p)]
+        rt.engines[0].stats["tokens_per_s_ewma"] = 10.0
+        got.append(rt.route(p))
+        rt.engines[1].stats["tokens_per_s_ewma"] = 40.0
+        rt.engines[0].submit(0, p, max_new=4)
+        rt.engines[1].submit(1, p, max_new=4)
+        got.append(rt.route(p))
+        # a slower replica 1 at equal load loses it
+        rt.engines[1].stats["tokens_per_s_ewma"] = 5.0
+        got.append(rt.route(p))
+        picks.append(got)
+    assert picks[0] == picks[1] == [0, 0, 1, 0]
+
+
+def test_replica_meshes_validation():
+    """tests/test_serve_parallel.py:486: too few devices and degrees
+    below 1 raise the reference's texts; a list of 4 gives two slices of
+    2 devices, ("data", "model") = (1, 2) each; a repeated device
+    counts once a slot."""
+    with pytest.raises(ValueError, match="devices needed"):
+        replica_meshes(4, 4, ["cpu"] * 8)
+    with pytest.raises(ValueError, match="devices needed"):
+        replica_meshes(2, 1, device_type="cpu")
+    with pytest.raises(ValueError, match="must be >= 1"):
+        replica_meshes(0, 2)
+    meshes = replica_meshes(2, 2, ["cpu"] * 4)
+    assert len(meshes) == 2
+    assert all(m.shape == {"data": 1, "model": 2} for m in meshes)
+    assert all(d.type == "cpu" for m in meshes for d in m.devices)
+
+
+def test_dp2_encdec_router_with_frames_matches_single_engine():
+    """tests/test_serve_parallel.py:368, the router half: an enc-dec dp 2
+    router, each request with its frames, streams the JAX single
+    engine's, one program and one encode shape a replica."""
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 128, size=(n,)).astype(np.int32)
+               for n in (4, 7, 5)]
+    frames = [rng.standard_normal((12, 64)).astype(np.float32)
+              for _ in prompts]
+    kw = dict(slots=2, max_len=32, paged=True)
+    want = _jax_streams(AUDIO_KW, prompts, 5, frames=frames, **kw)
+    router = ReplicaRouter(ModelConfig(**AUDIO_KW), _jax_params(AUDIO_KW)[2],
+                           dp=2, devices=CPU2, **kw)
+    for i, (p, f) in enumerate(zip(prompts, frames)):
+        router.submit(i, p, max_new=5, frames=f)
+    res = router.run()
+    assert {i: list(res[i].out) for i in res} == want
+    assert all(r["decode_traces"] == 1 and r["encode_traces"] == 1
+               for r in router.stats["replicas"])
+    with pytest.raises(ValueError, match="enc-dec"):
+        router.submit(9, prompts[0], max_new=5)
+    assert router.replica_of(9) is None
+
+
+def test_session_serve_dp2_matches_plain():
+    """``Session.serve(dp=2, devices=)`` is a router whose streams equal
+    ``Session.serve()``'s on the same session; without devices the one
+    CPU device is too few; ``devices=`` on one engine is refused."""
+    cfg = ModelConfig(**KW)
+    session = Session(cfg, device="cpu", seed=3)
+    prompts = _prompts(3, (5, 7, 6))
+    plain = session.serve(slots=2, max_len=64)
+    router = session.serve(dp=2, devices=CPU2, slots=2, max_len=64)
+    assert isinstance(router, ReplicaRouter) and router.dp == 2
+    assert isinstance(plain, ServeEngine)
+    for i, p in enumerate(prompts):
+        plain.submit(i, p, max_new=6)
+        router.submit(i, p, max_new=6)
+    a, b = plain.run(), router.run()
+    assert {i: a[i].out for i in a} == {i: b[i].out for i in b}
+    with pytest.raises(ValueError, match="devices needed"):
+        session.serve(dp=2)
+    with pytest.raises(ValueError, match="devices="):
+        session.serve(devices=CPU2)
+
+
+def test_launch_serve_dp2_on_the_cpu(capsys):
+    """``launch/serve.py --device cpu --dp 2``: both replicas on the CPU,
+    the streams of ``--dp 1``, the summed report with the worst replica's
+    program shapes."""
+    from repro_torch.launch.serve import main
+    argv = ["--device", "cpu", "--requests", "4", "--max-new", "4"]
+    one = main(argv)
+    two = main(argv + ["--dp", "2"])
+    assert {r: v.out for r, v in one.items()} == \
+        {r: v.out for r, v in two.items()}
+    text = capsys.readouterr().out
+    assert "dp 2, requests a replica [2, 2]" in text
+    assert "1 decode shapes" in text
+
+
+# --------------------------------------------- dp 2 x tp 2, four ranks
+
+def _topology_rank(rank, world, flat, prompts, spec_prompts):
+    """One rank of the dp 2 x tp 2 runs: the router over a (2, 2) mesh
+    on the engine keywords of the reference's test, with spec on, through
+    ``Session.serve(dp=2, tp=2)`` and through the launcher."""
+    import torch.distributed as dist
+    from repro_torch.launch.serve import main
+    from repro_torch.serve.speculative import SpecConfig
+    torch.set_num_threads(1)
+    cfg = ModelConfig(**KW)
+    params = from_numpy(flat, cfg, "cpu")
+    out = {}
+    for name, ps, ekw in (
+            ("plain", prompts, ENG),
+            ("spec", spec_prompts, dict(ENG, chunk_tokens=16,
+                                        spec=SpecConfig(k=4)))):
+        router = ReplicaRouter(cfg, params, dp=2, tp=2, **ekw)
+        homes, streams, res = _run(router, ps, 6)
+        st = router.stats
+        out[name] = {"homes": homes, "streams": streams,
+                     "done": all(r.done for r in res.values()),
+                     "row": router.row, "rows": router.meshes,
+                     "group": dist.get_process_group_ranks(
+                         router.mesh.get_group("model")),
+                     "root": router.engines[0]._rank.root,
+                     "traces": [r["decode_traces"] for r in st["replicas"]],
+                     "prefills": [r["prefills"] for r in st["replicas"]],
+                     "drafted": st["spec_drafted"],
+                     "per_device": router.per_device_kv_bytes(),
+                     "kv_bytes": router.kv_bytes(),
+                     "counts": dict(router.engines[0]._rank.counts)}
+    session = Session(cfg, device="cpu", seed=3)
+    router = session.serve(dp=2, tp=2, slots=2, max_len=64)
+    out["session"] = _run(router, prompts, 6)[1]
+    out["launch"] = {r: v.out for r, v in main(
+        ["--device", "cpu", "--dp", "2", "--tp", "2", "--requests", "4",
+         "--max-new", "4"]).items()}
+    return out
+
+
+@pytest.fixture(scope="module")
+def topology(tmp_path_factory):
+    """Every rank's results of the dp 2 x tp 2 runs, from one spawn."""
+    prompts = _prompts(2, (5, 7, 6, 8))
+    rng = np.random.default_rng(7)
+    spec_prompts = [rng.integers(0, 128, size=(n,)).astype(np.int32)
+                    for n in (5, 21)]
+    for _ in range(2):
+        motif = rng.integers(0, 128, size=(int(rng.integers(3, 6)),))
+        spec_prompts.append(np.tile(motif, int(rng.integers(4, 7)))
+                            .astype(np.int32))
+    _jax_params(KW)
+    flat = _JAX[KW["name"]][2]
+    ranks = run_ranks(_topology_rank, 4,
+                      args=(flat, prompts, spec_prompts),
+                      store_dir=str(tmp_path_factory.mktemp("dp2tp2")),
+                      timeout=RANK_TIMEOUT)
+    return prompts, spec_prompts, ranks
+
+
+def test_dp2_tp2_full_topology_matches(topology):
+    """tests/test_serve_parallel.py:420 over four gloo ranks: on every
+    rank the union of the streams equals the JAX single engine's and the
+    routing the JAX router's; one program shape a replica, both prefill;
+    half the unsharded pool a rank; two disjoint rows of two ranks, each
+    rank's "model" group its row and its root the row's first rank; one
+    world all-reduce a round of ``run``."""
+    prompts, _, ranks = topology
+    want = _jax_streams(KW, prompts, 6, **ENG)
+    jr = _jax_router(KW, **ENG)
+    jhomes = [jr.submit(i, p, max_new=6) for i, p in enumerate(prompts)]
+    from repro.serve.engine import ServeEngine as JaxEngine
+    jcfg, jp, _ = _jax_params(KW)
+    jdev = JaxEngine(jcfg, jp, **ENG).per_device_kv_bytes()
+    rows = ranks[0]["plain"]["rows"]
+    assert sorted(sum(map(list, rows), [])) == [0, 1, 2, 3]
+    assert not set(rows[0]) & set(rows[1]) and all(len(r) == 2 for r in rows)
+    for rank, r in enumerate(ranks):
+        run = r["plain"]
+        assert run["done"] and run["streams"] == want
+        assert run["homes"] == jhomes
+        assert run["traces"] == [1, 1] and all(n > 0 for n in run["prefills"])
+        assert run["per_device"] * 2 == jdev
+        assert run["rows"] == rows and rank in rows[run["row"]]
+        assert run["group"] == list(rows[run["row"]])
+        assert run["root"] == rows[run["row"]][0]
+        assert run["counts"]["router_table"] == len(prompts)
+        assert run["counts"]["router_layout"] == 1
+
+
+def test_dp2_tp2_spec_session_and_launcher_match(topology):
+    """The same four ranks with spec on (k 4; the tp 2 x dp 2 case of
+    tests/test_serve_spec.py:231): the JAX single engine's plain streams,
+    drafts made; ``Session.serve(dp=2, tp=2)`` (only the rank's shards
+    drawn from the seed) gives ``Session.serve()``'s streams; ``launch/
+    serve.py --dp 2 --tp 2`` gives ``--dp 1``'s."""
+    from repro_torch.launch.serve import main
+    _, spec_prompts, ranks = topology
+    want = _jax_streams(KW, spec_prompts, 6, **ENG)
+    session = Session(ModelConfig(**KW), device="cpu", seed=3)
+    plain = _run(session.serve(slots=2, max_len=64),
+                 _prompts(2, (5, 7, 6, 8)), 6)[1]
+    launched = {r: v.out for r, v in main(
+        ["--device", "cpu", "--requests", "4", "--max-new", "4"]).items()}
+    for r in ranks:
+        assert r["spec"]["done"] and r["spec"]["streams"] == want
+        assert r["spec"]["drafted"] > 0
+        assert r["spec"]["traces"] == [1, 1]
+        assert r["session"] == plain
+        assert r["launch"] == launched

@@ -465,18 +465,19 @@ def test_submit_validation_and_backpressure(weights):
 
 @pytest.mark.parametrize("kw,item", [
     ({"planner": ("from_plan", "dryrun", "lower")}, "item 12"),
-    ({"mesh": object(), "arch_type": "moe"}, "item 11")])
+    ({"mesh": object(), "arch_type": "ssm"}, "item 11")])
 def test_unported_engine_features_raise(weights, kw, item):
     """What is still missing raises naming its ROADMAP.md item: a mesh on
-    an engine of a family other than dense (tensor-parallel serving of
-    dense decoders is ported: tests/test_torch_tp.py), and the Session
-    entry points that need the planner (speculative decode, the earlier
-    case here, is ported)."""
+    an engine of a family the mesh does not serve yet, the SSM family
+    (tensor-parallel serving of dense and MoE decoders and the enc-dec
+    family is ported: tests/test_torch_tp.py), and the Session entry
+    points that need the planner (speculative decode, the earlier case
+    here, is ported)."""
     _, _, params = weights
     cfg = CFG
     if "arch_type" in kw:
-        cfg = CFG.with_(arch_type=kw.pop("arch_type"), num_experts=4,
-                        experts_per_token=2)
+        cfg = CFG.with_(arch_type=kw.pop("arch_type"), ssm_heads=4,
+                        ssm_head_dim=16, ssm_state=8, ssm_chunk=16)
         params = init_params(cfg, device="cpu", seed=0)
     calls = [lambda: ServeEngine(cfg, params, **kw)]
     if "planner" in kw:
@@ -534,10 +535,12 @@ def test_session_serves_on_cpu_and_keeps_reference_keywords(weights):
     ref, _ = _serve(params, _prompts(0, (5, 23)), 3)
     assert got == ref
     # tp= needs a process group of that many ranks (tests/test_torch_tp.py
-    # serves under one); dp= and plan= still raise naming their items
+    # serves under one); dp= needs as many devices as replicas (the one CPU
+    # device repeated serves, tests/test_torch_parallel.py); plan= still
+    # raises naming its item
     with pytest.raises(ValueError, match="no process group"):
         session.serve(tp=2)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="devices needed"):
         session.serve(dp=2)
     with pytest.raises(NotImplementedError, match="item 12"):
         session.serve(plan=object())
@@ -664,7 +667,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch/serve/metrics.py", "repro_torch/core/pspec.py",
             "repro_torch/core/sharding.py", "repro_torch/core/tp.py",
             "repro_torch/launch/mesh.py",
-            "repro_torch/launch/ranks.py"} <= names
+            "repro_torch/launch/ranks.py",
+            "repro_torch/serve/parallel.py"} <= names
     for path in files:
         for mod in _imports(path):
             root = mod.split(".")[0]
@@ -685,7 +689,8 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.serve.speculative, repro_torch.serve.driver, "
             "repro_torch.serve.server, repro_torch.serve.metrics, "
             "repro_torch.core.sharding, repro_torch.core.tp, "
-            "repro_torch.launch.mesh, repro_torch.launch.ranks; "
+            "repro_torch.launch.mesh, repro_torch.launch.ranks, "
+            "repro_torch.serve.parallel; "
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,

@@ -9,8 +9,11 @@ shape counts are equal (host logic and argmax tokens, so exactly), and
 the reference test's own assertions hold on the port (spec on == spec
 off, more than one token per (step, slot) on repetitive prompts, EOS and
 ``max_new`` inside an accepted draft, rollback bookkeeping, prefix pages
-intact). The MoE, enc-dec and tp2/dp2 cases wait for ROADMAP.md Queue 1
-items 10 and 11.
+intact), and the dp 2 router with spec on (tests/test_serve_spec.py:231).
+The reference's MoE and enc-dec spec cases are in
+tests/test_torch_moe_serve.py and tests/test_torch_encdec_serve.py; the
+spec runs at tp 2 and dp 2 x tp 2 are in tests/test_torch_tp.py and
+tests/test_torch_parallel.py (rank processes).
 """
 import numpy as np
 import pytest
@@ -30,6 +33,7 @@ from repro_torch.params import from_numpy, init_params  # noqa: E402
 from repro_torch.serve import speculative as spec_mod  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve.paging import PageAllocator  # noqa: E402
+from repro_torch.serve.parallel import ReplicaRouter  # noqa: E402
 from repro_torch.serve.speculative import (DraftModelDrafter,  # noqa: E402
                                            NgramDrafter, SpecConfig)
 
@@ -242,6 +246,25 @@ def test_spec_matches_plain_prefix_cache_lazy(weights):
     assert se.stats["prefix_hit_blocks"] >= pe.stats["prefix_hit_blocks"]
     assert se.stats["decode_traces"] == pe.stats["decode_traces"]
     _drained(se)
+
+
+def test_spec_matches_plain_tp2_dp2(weights):
+    """tests/test_serve_spec.py:231's router half on the port: a dp 2
+    router with spec on (k 4) streams the JAX engine's plain streams and
+    drafts; its replicas draft on their own requests' contexts. (The tp 2
+    half: tests/test_torch_tp.py's ``spec`` run on two gloo ranks.)"""
+    rng = np.random.default_rng(7)
+    prompts = _prompts(rng, (5, 21)) + _repetitive_prompts(rng, 2)
+    plain, _ = _both(weights, prompts, 6)
+    router = ReplicaRouter(CFG, weights[2], dp=2, devices=["cpu"] * 2,
+                           slots=2, max_len=64, paged=True, mixed=True,
+                           chunk_tokens=16, spec=SpecConfig(k=SPEC_K))
+    for i, p in enumerate(prompts):
+        router.submit(i, p, max_new=6)
+    res = router.run()
+    assert {i: list(res[i].out) for i in res} == plain
+    assert router.stats["spec_drafted"] > 0
+    assert all(r["decode_traces"] == 1 for r in router.stats["replicas"])
 
 
 def test_spec_matches_plain_pallas_backend(weights):

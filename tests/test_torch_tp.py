@@ -1,6 +1,6 @@
-"""Tensor-parallel serving of dense decoders in the port, on CPU gloo
-ranks: the twin of tests/test_serve_parallel.py's tp cases and of
-tests/test_tp_collectives.py.
+"""Tensor-parallel serving in the port, on CPU gloo ranks: the twin of
+tests/test_serve_parallel.py's tp cases (dense, expert-parallel MoE,
+enc-dec) and of tests/test_tp_collectives.py.
 
 The reference shards one GSPMD program over conftest's 8 host devices;
 the port runs one process a rank (serve/engine.py with ``mesh=``,
@@ -11,8 +11,13 @@ only, take numpy params from this process and run every case. The tp 2
 streams are held to the JAX engine's tp 1 streams on the same weights
 (the reference's own tests pin its tp 2 = tp 1), its counters to the JAX
 engine's, its logits to the JAX ``decode_step``'s within
-tests/test_torch_decode.py's ``LOGITS_TOL``. Each JAX run is made once
-and shared.
+tests/test_torch_decode.py's ``LOGITS_TOL`` (the MoE config's within the
+ROADMAP's parity bar, 1e-5). The MoE config (``MOE_KW``: E 4 over tp 2,
+two experts a rank, and ``MOE_E3_KW``: E 3, which the table keeps whole
+on both ranks) and the enc-dec config (``AUDIO_KW``, frames with each
+request) are the reference's ``MOE_CFG`` and ``AUDIO_CFG``
+(tests/test_serve_parallel.py:23-31) at its seeds. Each JAX run is made
+once and shared.
 
 This module imports JAX and the reference only inside functions: the
 ranks import it by name to find their entry points.
@@ -31,6 +36,7 @@ from repro_torch.params import from_numpy  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
 LOGITS_TOL = 1e-4               # tests/test_torch_decode.py's
+MOE_LOGITS_TOL = 1e-5           # the ROADMAP's parity bar in f32
 RANK_TIMEOUT = 120.0            # seconds a spawn may take before it fails
 
 #: tests/test_serve_parallel.py's CFG, and the same with one KV head (the
@@ -40,6 +46,18 @@ KW = dict(name="par-dense", arch_type="dense", num_layers=2, d_model=128,
           dtype="float32")
 KW_KV1 = dict(KW, name="par-dense-kv1", num_kv_heads=1)
 KW_RING = dict(KW, name="par-dense-swa", sliding_window=8)
+#: tests/test_serve_parallel.py's MOE_CFG and AUDIO_CFG, and MOE_CFG with 3
+#: experts (3 does not divide tp 2: every rank keeps all three)
+MOE_KW = dict(name="par-moe", arch_type="moe", num_layers=2, d_model=64,
+              num_heads=4, num_kv_heads=2, d_ff=128, num_experts=4,
+              experts_per_token=2, vocab_size=128, dtype="float32")
+MOE_E3_KW = dict(MOE_KW, name="par-moe-e3", num_experts=3)
+AUDIO_KW = dict(name="par-encdec", arch_type="audio", num_layers=2,
+                d_model=64, num_heads=4, num_kv_heads=4, d_ff=128,
+                vocab_size=128, encoder_layers=1, encoder_ctx=12,
+                dtype="float32")
+#: each config's init seed (the reference tests' own)
+SEEDS = {"par-moe": 5, "par-moe-e3": 5, "par-encdec": 2}
 
 COUNTERS = ("prefills", "decode_tokens", "decode_steps", "peak_pages",
             "decode_traces", "prefill_traces", "prefix_hit_blocks",
@@ -111,6 +129,43 @@ RUNS = {
 }
 
 
+def _audio_requests():
+    """tests/test_serve_parallel.py:97's prompts, then each one's frames,
+    from one generator."""
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 128, size=(n,)).astype(np.int32)
+               for n in (4, 7, 5)]
+    frames = [rng.standard_normal((AUDIO_KW["encoder_ctx"],
+                                   AUDIO_KW["d_model"])).astype(np.float32)
+              for _ in prompts]
+    return prompts, frames
+
+
+_AUDIO = _audio_requests()
+
+#: run -> (config, prompts, frames or None, max_new, engine keywords): the
+#: reference's MoE tp 2 case (one slot, 8-token pages) on the mixed step
+#: and the split path, two slots with the prefix cache and lazy growth,
+#: the experts kept whole (E 3); the reference's enc-dec tp 2 case on the
+#: mixed step and the split path
+FAMILY_RUNS = {
+    "moe_mixed": (MOE_KW, _prompts(6, (5, 8, 6)), None, 4,
+                  dict(slots=1, max_len=32, paged=True, page_size=8)),
+    "moe_split": (MOE_KW, _prompts(6, (5, 8, 6)), None, 4,
+                  dict(slots=1, max_len=32, paged=True, page_size=8,
+                       mixed=False)),
+    "moe_prefix": (MOE_KW, _repeats(), None, 4,
+                   dict(slots=2, max_len=32, paged=True, page_size=4,
+                        prefix_cache=True, lazy=True)),
+    "moe_e3": (MOE_E3_KW, _prompts(6, (5, 8, 6)), None, 4,
+               dict(slots=1, max_len=32, paged=True, page_size=8)),
+    "audio_mixed": (AUDIO_KW, _AUDIO[0], _AUDIO[1], 5,
+                    dict(slots=2, max_len=32, paged=True)),
+    "audio_split": (AUDIO_KW, _AUDIO[0], _AUDIO[1], 5,
+                    dict(slots=2, max_len=32, paged=True, mixed=False)),
+}
+
+
 def _spec_kw(ekw, spec_cls):
     return dict(ekw, spec=spec_cls(k=ekw["spec"])) if "spec" in ekw else ekw
 
@@ -134,7 +189,7 @@ def _jax_params(kw):
         from repro.models import get_model
         jcfg = JaxConfig(**kw)
         jparams = jax.jit(get_model(jcfg).init, static_argnums=1)(
-            jax.random.key(0), jcfg)
+            jax.random.key(SEEDS.get(kw["name"], 0)), jcfg)
         _JAX[key] = (jparams, {k: np.asarray(v)
                                for k, v in _flatten(jparams).items()})
     return (JaxConfig(**kw),) + _JAX[key]
@@ -158,6 +213,23 @@ def _jax_run(name):
         res = eng.run()
         _JAX[name] = ({i: list(res[i].out) for i in res}, dict(eng.stats),
                       eng.kv_bytes(), eng.per_device_kv_bytes())
+    return _JAX[name]
+
+
+def _jax_family_run(name):
+    """(streams, stats, per-device kv bytes) of the JAX engine, unsharded,
+    on ``FAMILY_RUNS[name]``, made once."""
+    if name not in _JAX:
+        from repro.serve.engine import ServeEngine as JaxEngine
+        kw, prompts, frames, new, ekw = FAMILY_RUNS[name]
+        jcfg, jparams, _ = _jax_params(kw)
+        eng = JaxEngine(jcfg, jparams, **ekw)
+        for i, p in enumerate(prompts):
+            eng.submit(i, p, max_new=new,
+                       frames=None if frames is None else frames[i])
+        res = eng.run()
+        _JAX[name] = ({i: list(res[i].out) for i in res}, dict(eng.stats),
+                      eng.per_device_kv_bytes())
     return _JAX[name]
 
 
@@ -194,6 +266,30 @@ def _engine_rank(rank, world, flats, runs):
     return out
 
 
+def _family_rank(rank, world, flats, runs):
+    """Every MoE and enc-dec run on this rank, the full params handed to
+    the engine."""
+    mesh = _mesh(world)
+    out = {}
+    for name, (kw, prompts, frames, new, ekw) in runs.items():
+        cfg = ModelConfig(**kw)
+        eng = ServeEngine(cfg, from_numpy(flats[kw["name"]], cfg, "cpu"),
+                          mesh=mesh, **ekw)
+        for j, p in enumerate(prompts):
+            eng.submit(j, p, max_new=new,
+                       frames=None if frames is None else frames[j])
+        res = eng.run()
+        out[name] = {"streams": {j: list(res[j].out) for j in res},
+                     "done": all(r.done for r in res.values()),
+                     "stats": {k: eng.stats[k] for k in COUNTERS
+                               + ("mixed_steps", "encode_traces")},
+                     "per_device": eng.per_device_kv_bytes(),
+                     "experts": eng.params["layers"]["moe"]["w_up"].shape[1]
+                     if cfg.is_moe else None,
+                     "counts": dict(eng._rank.counts)}
+    return out
+
+
 def _logits_rank(rank, world, flats, toks):
     """Prefill 20 tokens and decode 4 on the dense cache, under tp, for
     each config; with the collectives of the prefill and of the last
@@ -201,7 +297,7 @@ def _logits_rank(rank, world, flats, toks):
     from repro_torch.models import transformer
     mesh = _mesh(world)
     out = {}
-    for kw in (KW, KW_KV1):
+    for kw in (KW, KW_KV1, MOE_KW):
         cfg = ModelConfig(**kw)
         params = from_numpy(flats[kw["name"]], cfg, "cpu",
                             shard=(Strategy(dtype=cfg.dtype), mesh))
@@ -247,12 +343,28 @@ def _session_rank(rank, world):
         res = eng.run()
         out[tp_n or 1] = ({i: list(res[i].out) for i in res},
                           eng.stats["decode_traces"], eng.tp)
+    # the MoE and enc-dec families through the session: the tp engine
+    # draws only the rank's blocks (experts, heads, vocabulary)
+    for kw in (MOE_KW, AUDIO_KW):
+        fcfg = ModelConfig(**kw)
+        frames = _AUDIO[1] if fcfg.arch_type == "audio" else None
+        got = []
+        for tp_n in (None, world):
+            eng = Session(fcfg, device="cpu", seed=4).serve(
+                tp=tp_n, slots=2, max_len=32)
+            for i, p in enumerate(_AUDIO[0]):
+                eng.submit(i, p, max_new=4,
+                           frames=None if frames is None else frames[i])
+            res = eng.run()
+            got.append({i: list(res[i].out) for i in res})
+        out[kw["name"]] = got
     refused = {}
     try:
         make_mesh((1, 2 * world), ("data", "model"), device_type="cpu")
     except ValueError as e:
         refused["mesh"] = str(e)
     mesh = _mesh(world)
+    built = {}
     for family, extra in (("moe", dict(num_experts=4, experts_per_token=2)),
                           ("audio", dict(num_kv_heads=4, encoder_layers=1,
                                          encoder_ctx=8)),
@@ -260,10 +372,19 @@ def _session_rank(rank, world):
                                        ssm_state=8, ssm_chunk=16))):
         fcfg = cfg.with_(arch_type=family, **extra)
         try:
-            ServeEngine(fcfg, init_params(fcfg, device="cpu", seed=0),
-                        mesh=mesh)
+            built[family] = ServeEngine(
+                fcfg, init_params(fcfg, device="cpu", seed=0),
+                mesh=mesh).tp
         except NotImplementedError as e:
             refused[family] = str(e)
+    out["built"] = built
+    moe = cfg.with_(arch_type="moe", num_experts=4, experts_per_token=2)
+    try:
+        ServeEngine(moe, init_params(moe, device="cpu", seed=0), mesh=mesh,
+                    strategy=Strategy(dtype=moe.dtype,
+                                      expert_parallel=False))
+    except NotImplementedError as e:
+        refused["tp_in_expert"] = str(e)
     eng = ServeEngine(cfg, init_params(cfg, device="cpu", seed=0),
                       mesh=mesh)
     try:
@@ -300,9 +421,10 @@ def _session_rank(rank, world):
 
 # --------------------------------------------------------- the spawns
 
-def _all_ranks(rank, world, flats, runs, toks):
+def _all_ranks(rank, world, flats, runs, family_runs, toks):
     """Every case of this module on one rank: one spawn for all."""
     return {"engine": _engine_rank(rank, world, flats, runs),
+            "family": _family_rank(rank, world, flats, family_runs),
             "logits": _logits_rank(rank, world, flats, toks),
             "session": _session_rank(rank, world)}
 
@@ -312,8 +434,10 @@ def spawned(tmp_path_factory):
     """Both ranks' results of every case, from one spawn."""
     toks = np.random.default_rng(5).integers(0, 128, size=(2, 24)).astype(
         np.int32)
-    flats = {kw["name"]: _flat(kw) for kw in (KW, KW_KV1)}
-    return toks, run_ranks(_all_ranks, 2, args=(flats, RUNS, toks),
+    flats = {kw["name"]: _flat(kw)
+             for kw in (KW, KW_KV1, MOE_KW, MOE_E3_KW, AUDIO_KW)}
+    return toks, run_ranks(_all_ranks, 2,
+                           args=(flats, RUNS, FAMILY_RUNS, toks),
                            store_dir=str(tmp_path_factory.mktemp("tp")),
                            timeout=RANK_TIMEOUT)
 
@@ -326,6 +450,15 @@ def engine_runs(spawned):
                and r[n]["stats"] == ranks[0][n]["stats"]
                for r in ranks for n in RUNS)
     return ranks[0]
+
+
+@pytest.fixture(scope="module")
+def family_runs(spawned):
+    ranks = [r["family"] for r in spawned[1]]
+    assert all(r[n]["streams"] == ranks[0][n]["streams"]
+               and r[n]["stats"] == ranks[0][n]["stats"]
+               for r in ranks for n in FAMILY_RUNS)
+    return ranks
 
 
 @pytest.fixture(scope="module")
@@ -419,23 +552,29 @@ def test_tp2_one_kv_head_replicates_the_pool(engine_runs):
 def test_session_serve_tp2_matches_plain(model_runs):
     """tests/test_serve_parallel.py:528: ``Session.serve(tp=2)`` (only
     the rank's blocks drawn from the session's seed) gives the streams of
-    ``Session.serve()`` on the same session, one program shape."""
+    ``Session.serve()`` on the same session, one program shape; on the
+    MoE and enc-dec configs as well."""
     _, _, session = model_runs
     for r in session:
         assert r[2][0] == r[1][0]
         assert r[2][1] == 1 and r[2][2] == 2 and r[1][2] == 1
+        # the MoE and enc-dec configs too: serve(tp=2) == serve()
+        for name in (MOE_KW["name"], AUDIO_KW["name"]):
+            assert r[name][1] == r[name][0], name
 
 
-@pytest.mark.parametrize("name", ["par-dense", "par-dense-kv1"])
+@pytest.mark.parametrize("name", ["par-dense", "par-dense-kv1", "par-moe"])
 def test_tp2_decode_logits_match_jax(model_runs, name):
     """Four decode steps after a 20-token prefill on the dense cache,
     under tp 2: logits within LOGITS_TOL of the reference's
     ``decode_step`` on both ranks (with one KV head, both ranks hold it
-    and read it)."""
+    and read it; the expert-parallel MoE within MOE_LOGITS_TOL)."""
     import jax.numpy as jnp
     from repro.models import get_model
     toks, logits, _ = model_runs
-    jcfg, jparams, _ = _jax_params(KW if name == "par-dense" else KW_KV1)
+    kw = {"par-dense": KW, "par-dense-kv1": KW_KV1, "par-moe": MOE_KW}[name]
+    tol = MOE_LOGITS_TOL if name == "par-moe" else LOGITS_TOL
+    jcfg, jparams, _ = _jax_params(kw)
     mod = get_model(jcfg)
     _, jcache = mod.prefill(jparams, {"tokens": jnp.asarray(toks[:, :20])},
                             jcfg, mod.init_cache(jcfg, 2, 40))
@@ -445,7 +584,7 @@ def test_tp2_decode_logits_match_jax(model_runs, name):
                                        jnp.asarray(pos, jnp.int32), jcfg)
         for r in logits:
             np.testing.assert_allclose(r[name]["logits"][pos - 20],
-                                       np.asarray(want), atol=LOGITS_TOL,
+                                       np.asarray(want), atol=tol,
                                        rtol=0, err_msg=str(pos))
     # one K/V head a rank: Hkv 2 split over 2 ranks, or Hkv 1 on both
     assert [r[name]["cache_heads"] for r in logits] == [1, 1]
@@ -470,17 +609,21 @@ def test_tp2_forward_has_two_all_reduces_a_layer(model_runs):
 
 def test_tp_refusals(model_runs):
     """A mesh larger than the process group raises ValueError with the
-    count; MoE, audio and SSM engines on a mesh, online serving of a tp
+    count; MoE and audio engines build on a mesh, while an SSM engine,
+    TP-in-expert MoE (``expert_parallel=False``), online serving of a tp
     engine and FSDP on a mesh raise naming item 11; on a CUDA device a
     kernel that refuses a rank's shape refuses at construction; ranks
     that packed different programs raise on every rank (no hang);
-    ``serve(dp=2)`` and ``serve(plan=)`` keep their items."""
+    ``serve(dp=2)`` on the one CPU device raises the reference's "devices
+    needed" and ``serve(plan=)`` keeps its item."""
     from repro_torch.api import Session
     _, _, session = model_runs
     refused = session[0]["refused"]
     assert "needs 4 ranks" in refused["mesh"] and "has 2" in refused["mesh"]
-    for key in ("moe", "audio", "ssm", "online", "fsdp"):
+    for key in ("ssm", "tp_in_expert", "online", "fsdp"):
         assert "item 11" in refused[key], key
+    assert "moe" not in refused and "audio" not in refused
+    assert session[0]["built"] == {"moe": 2, "audio": 2}
     assert "fused-MLP kernel" in refused["rank_shape"]
     assert "132" in refused["rank_shape"]
     for r in session:
@@ -488,9 +631,82 @@ def test_tp_refusals(model_runs):
             assert "packed different programs" in \
                 r["refused"][f"diverged mixed={mixed}"]
     s = Session(ModelConfig(**KW), device="cpu", seed=0)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="devices needed"):
         s.serve(dp=2)
     with pytest.raises(NotImplementedError, match="item 12"):
         s.serve(plan=object())
     with pytest.raises(ValueError, match="no process group"):
         s.serve(tp=2)
+
+
+# ------------------------------------------- expert-parallel MoE, enc-dec
+
+@pytest.mark.parametrize("name", ["moe_mixed", "moe_split"])
+def test_tp2_moe_matches_jax_tp1(family_runs, name):
+    """tests/test_serve_parallel.py:336 (one slot, 8-token pages) on the
+    mixed step and the split path: two experts a rank, the JAX engine's
+    tp 1 streams and counters, one program shape, half the pool a rank,
+    and one ``moe_out`` all-reduce a layer a program (where a dense
+    layer has its ``mlp_out``)."""
+    want, jstats, jdev = _jax_family_run(name)
+    for r in family_runs:
+        run = r[name]
+        assert run["done"] and run["streams"] == want
+        for key in COUNTERS:
+            assert run["stats"][key] == jstats[key], key
+        assert run["stats"]["decode_traces"] == 1
+        assert run["per_device"] * 2 == jdev
+        assert run["experts"] == MOE_KW["num_experts"] // 2
+        counts, layers = run["counts"], MOE_KW["num_layers"]
+        assert "mlp_out" not in counts
+        assert counts["moe_out"] == counts["attn_out"] \
+            == layers * counts["tokens"]
+
+
+def test_tp2_moe_prefix_cache_lazy_matches_jax_tp1(family_runs):
+    """Two slots with the prefix cache (the MoE whole-context salt) and
+    lazy growth under tp 2: the JAX engine's streams and every prefix,
+    preemption and CoW counter."""
+    want, jstats, _ = _jax_family_run("moe_prefix")
+    for r in family_runs:
+        run = r["moe_prefix"]
+        assert run["done"] and run["streams"] == want
+        for key in COUNTERS:
+            assert run["stats"][key] == jstats[key], key
+    assert jstats["prefix_hit_blocks"] > 0
+
+
+def test_tp2_moe_experts_kept_whole_reduce_nothing(family_runs):
+    """E 3 does not divide tp 2: the table keeps all three experts on
+    both ranks, each rank computes the whole FFN and no ``moe_out``
+    all-reduce runs (a sum over the ranks would count each output twice);
+    the JAX engine's streams."""
+    want, _, _ = _jax_family_run("moe_e3")
+    for r in family_runs:
+        run = r["moe_e3"]
+        assert run["done"] and run["streams"] == want
+        assert run["experts"] == 3
+        assert "moe_out" not in run["counts"]
+
+
+@pytest.mark.parametrize("name", ["audio_mixed", "audio_split"])
+def test_tp2_encdec_matches_jax_tp1(family_runs, name):
+    """tests/test_serve_parallel.py:348's tp half on the mixed step and
+    the split path: frames through the sharded encoder, the decoder pages
+    and the cross K/V blocks sharded by head; the JAX engine's streams,
+    program and encode shapes, half its decode state a rank; the encoder
+    layer's two all-reduces at each admission and the decoder layer's
+    three (self, cross, MLP) a program."""
+    want, jstats, jdev = _jax_family_run(name)
+    for r in family_runs:
+        run = r[name]
+        assert run["done"] and run["streams"] == want
+        for key in ("decode_traces", "prefill_traces", "encode_traces",
+                    "prefills", "decode_steps"):
+            assert run["stats"][key] == jstats[key], key
+        assert run["per_device"] * 2 == jdev
+        counts = run["counts"]
+        enc, dec = AUDIO_KW["encoder_layers"], AUDIO_KW["num_layers"]
+        admissions, programs = run["stats"]["prefills"], counts["tokens"]
+        assert counts["mlp_out"] == enc * admissions + dec * programs
+        assert counts["attn_out"] == enc * admissions + 2 * dec * programs

@@ -10,8 +10,9 @@ level 2 adding detail (the tokens unchanged), a valid Chrome
 ``trace_event`` export, the driver's phase histogram, a render-vs-observe
 hammer on every metric class, ``/healthz`` and ``/debug/*`` answering
 while a stalled step holds the driver lock, and the overhead envelope of
-tracing on vs off. The dp2 merge waits for the router (ROADMAP.md Queue 1
-item 11).
+tracing on vs off; and the dp 2 router's merged export
+(tests/test_serve_tracing.py:238): one process lane a replica, each
+request's spans in its home replica's lane only.
 """
 import json
 import threading
@@ -33,6 +34,7 @@ from repro_torch.params import from_numpy  # noqa: E402
 from repro_torch.serve.driver import AsyncDriver  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve.metrics import MetricsRegistry  # noqa: E402
+from repro_torch.serve.parallel import ReplicaRouter  # noqa: E402
 from repro_torch.serve.scheduler import Priority  # noqa: E402
 from repro_torch.serve.server import ServeHTTPServer  # noqa: E402
 from repro_torch.serve.speculative import SpecConfig  # noqa: E402
@@ -225,6 +227,35 @@ def test_chrome_export_is_valid_trace_event_json(params, tmp_path):
 
 
 # ------------------------------------------------- driver + metrics drain
+
+def test_dp2_trace_merge_has_both_replica_lanes(params, tmp_path):
+    """tests/test_serve_tracing.py:238 on the port: the router stamps
+    each replica's tracer, its merged export has both lanes, each lane's
+    spans in time order, each request's spans only in its home replica's
+    lane, the request trees keyed by replica, and one flight snapshot a
+    replica."""
+    rng = np.random.default_rng(5)
+    prompts = _prompts(rng, (18, 7, 22, 9, 13, 6))
+    router = ReplicaRouter(CFG, params, dp=2, tp=1, devices=["cpu"] * 2,
+                           **MIXED)
+    assert [t.replica for t in router.tracers] == [0, 1]
+    for i, p in enumerate(prompts):
+        router.submit(i, p, max_new=4)
+    router.run()
+    path = tmp_path / "dp2.json"
+    obj = router.export_trace(str(path))
+    evs = json.loads(path.read_text())["traceEvents"]
+    assert {e["pid"] for e in evs if e["ph"] == "X"} == {0, 1}
+    _lane_ts_monotonic(evs)
+    for rid in range(len(prompts)):
+        owning = {e["pid"] for e in evs if e["ph"] == "X"
+                  and e.get("args", {}).get("rid") == rid}
+        assert owning == {router.replica_of(rid)}
+    assert set(obj["otherData"]["requests"]) == {"0", "1"}
+    assert {e["pid"] for e in router.trace()["traceEvents"]
+            if e["ph"] == "X"} == {0, 1}
+    assert [f["replica"] for f in router.flight()["replicas"]] == [0, 1]
+
 
 def test_driver_feeds_phase_histogram_and_render(params):
     prompts = _prompts(np.random.default_rng(6), (20, 6))
