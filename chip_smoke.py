@@ -102,7 +102,12 @@ Phases (any failure exits non-zero; no result line is printed then):
    lengths and at whisper-tiny's (1 | 8, 1500, 1500, 3, 3, 64)
    non-causal and (1, S, S, 3, 3, 64) causal at each of phase 22's
    prompt lengths; each per value, its defect rejected, timed beside
-   SDPA with its bound;
+   SDPA with its bound; then at the shapes phase 23 adds: bf16 flash at
+   (1, 8192, 8192, 20, 4, 128) causal and the fused MLP at d 5120, f 8704
+   for T 8192 and T 1, each per value, its defect rejected, timed beside
+   SDPA / three matmuls with its bound; its f32 check's shapes in fp32:
+   flash at (1, 1024, 1024, 20, 4, 128) within 2e-6 and the MLP at T 1024
+   and T 1 within 1e-5, each shown to reject its defect;
 4. tiny float32 configs on the card and on the CPU (TF32 off): through
    the port's engine on each layout — the mixed step, the split path on
    the pool (``mixed=False``) and on the dense layout (``paged=False``),
@@ -159,7 +164,16 @@ Phases (any failure exits non-zero; no result line is printed then):
    launches summed over the replicas), and dp 2 x tp 2 over four rank
    processes sharing the card over gloo (every rank's union of streams
    equal to the single engine's, one program shape a replica, half the
-   KV a rank, two disjoint rows of two ranks);
+   KV a rank, two disjoint rows of two ranks); then the context-parallel
+   decode on two gloo ranks on the card: the Qwen3 smoke config with
+   ``cp_decode`` at tp 2 (B 4, 16 of 32 positions a rank) after prompts
+   of 28 and 14, four CP decode steps each, logits within the
+   reference's 5e-4 of the unsharded decode on the card and a version
+   that drops rank 0's (l, o) partial failing that check; and the Hkv-1
+   dense config on dense rows, each rank its sequence slice of every
+   row: streams equal to the unsharded engine's, the KV a rank half,
+   launches as the path says, one head-assembly sum, one MAX and one SUM
+   a layer a decode step;
 5. the SERVING PATH: ``Session(get_config("qwen3-14b"), device="cuda")
    .serve(slots=4, max_len=1024, page_size=16, chunk_tokens=256)`` at full
    width with random weights from ``--seed``, 6 requests of 24-700 prompt
@@ -411,6 +425,23 @@ Phases (any failure exits non-zero; no result line is printed then):
    mixed step then the split path: launches as ``_audio_want`` says on
    each rank, both ranks' streams equal, the KV and cross blocks a rank
    half of phase 15's; the share of tokens equal to phase 15's reported.
+23. CONTEXT-PARALLEL DECODE, after phase 19: Qwen3-14B at full width (40
+   layers uncut) with ``cp_decode`` at tp 2, two rank processes on the
+   card over gloo, each drawing only its shards (14.77 GB):
+   ``greedy_generate`` under the rank on one 8,192-token prompt for 32
+   new tokens (8,224 positions, 4,112 a rank with all 8 K/V heads; every
+   decode step context-parallel), then the head-sharded path on the same
+   shards. Launches counted from 0 just before each and read just after:
+   flash 40, the fused MLP 40 x 32, the others never; both ranks' streams
+   equal; one ``cp_qkv``, ``cp_max`` and ``cp_sum`` a layer a CP decode
+   step. Prints prefill seconds, decode step p50, a decode step's
+   collectives and bytes by label, KV bytes and peak memory a rank and
+   the share of tokens equal between the paths (information). Then the
+   f32 check (TF32 off) at 2 layers, full width: 8 teacher-forced decode
+   steps after a 1,024-token prompt, the CP logits within 1e-4 x the
+   head-sharded logits' largest magnitude of the head-sharded path's, a
+   version dropping rank 0's partial outside it. Not context
+   parallelism's speed: two ranks share one card over gloo.
 
 Last, every process the run started (nvcc, cuobjdump, the rank
 processes and the ``multiprocessing`` resource tracker their start
@@ -432,6 +463,7 @@ import re
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -5604,6 +5636,542 @@ def phase_family_tp_serve(arch: str, seed: int, single: dict, max_new: int):
     return out
 
 
+# ---------------------------------- phases 3, 4, 23: context-parallel decode
+
+#: phase 23: Qwen3-14B uncut at tp 2 with ``cp_decode``: an 8,192-token
+#: prompt and 32 new tokens (8,224 cache positions: 4,112 a rank); its f32
+#: check at 2 layers, full width: a 1,024-token prompt and 8 decode steps
+CP_PROMPT, CP_NEW = 8192, 32
+CP_F32_LAYERS, CP_F32_PROMPT, CP_F32_STEPS = 2, 1024, 8
+#: the f32 check's bound on |CP - head-sharded| logits, as a share of the
+#: head-sharded logits' largest magnitude: the two differ only in the
+#: order of the fp32 attention sums (per-slice partials combined vs one
+#: softmax over every key; the head assembly adds zeros), ~1e-7 relative a
+#: sum, so ~1e-6 of the scale is expected; 1e-4 leaves 100x
+CP_F32_REL = 1e-4
+#: the seconds phase 23's two rank processes may take
+CP_TIMEOUT_S = 600.0
+#: phase 23's rank shapes at tp 2 (20/4 heads x 128, d 5120, f 8704 a
+#: rank): flash over the prompt; the fused MLP over the prompt's rows and
+#: the decode step's one row; the f32 check's prompt and row
+CP_HEADS, CP_D, CP_F = TP_SHAPES[2]
+CP_FLASH = (1, CP_PROMPT, CP_PROMPT) + CP_HEADS + (128,)
+CP_MLP_ROWS = (CP_PROMPT, 1)
+CP_F32_FLASH = (1, CP_F32_PROMPT, CP_F32_PROMPT) + CP_HEADS + (128,)
+CP_F32_MLP_ROWS = (CP_F32_PROMPT, 1)
+
+
+def _tp2_mlp_weights(gen, dtype):
+    """A tp 2 rank's MLP blocks of Qwen3-14B at its init scales (``wo`` /
+    ``w_down`` at 0.02 / sqrt(80)), as ``phase_tp_kernels`` draws them."""
+    wg, wu = ((torch.randn((CP_D, CP_F), generator=gen, device="cuda")
+               * 0.02).to(dtype) for _ in range(2))
+    wd = (torch.randn((CP_F, CP_D), generator=gen, device="cuda")
+          * (0.02 / math.sqrt(80))).to(dtype)
+    return wg, wu, wd
+
+
+def phase_cp_kernels(seed: int):
+    """Flash and the fused MLP at the shapes phase 23 gives them that no
+    earlier check holds: bf16 flash at ``CP_FLASH`` (causal) and the MLP
+    at d 5120, f 8704 for T 8192 and T 1, per value at phase 3's limits
+    (flash atol 1e-5 + rtol 8e-3, the MLP atol 1e-3 + rtol 8e-3), each
+    shown to reject its defect and timed beside SDPA / three matmuls with
+    its bound; the f32 check's shapes in fp32 (TF32 off): flash at
+    ``CP_F32_FLASH`` within phase 3's fp32 2e-6 and the MLP at T 1024 and
+    T 1 within its fp32 1e-5 (max abs), each shown to reject its defect
+    (dropped keys; a dropped 64-wide f tile). Inputs come from a
+    generator of their own. Returns {kernel name: records}."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_mlp as fm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(seed + 2326)
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
+    out = {"flash_attention": [_flash_shape(gen, CP_FLASH, 1e-5, 8e-3,
+                                            timed=True)]}
+    torch.cuda.empty_cache()
+    w = _tp2_mlp_weights(gen, torch.bfloat16)
+    out["fused_mlp"] = [_mlp_rows(gen, t, *w, 1e-3, 8e-3, timed=True)
+                        for t in CP_MLP_ROWS]
+    del w
+    # fp32 at the f32 check's shapes
+    q, k, v = _flash_inputs(gen, CP_F32_FLASH, torch.float32)
+    n = CP_F32_FLASH[1]
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    err = (fa.flash_attention(q, k, v, causal=True) - want).abs().max().item()
+    bad = (fa.flash_attention_plain(q, k, v, causal=True, window=n - 64)
+           - want).abs().max().item()
+    check(err <= 2e-6, f"flash fp32 at {CP_F32_FLASH}: max abs err {err} "
+                       "> 2e-6")
+    check(bad > 2e-6, f"the fp32 flash check at {CP_F32_FLASH} passes a "
+                      f"version that drops keys ({bad})")
+    log(f"[flash f32 {CP_F32_FLASH} causal] max_abs_err {err:.3e} (atol "
+        f"2e-6); a version that drops keys would be {bad:.3e}")
+    out["flash_attention"].append({"shape": list(CP_F32_FLASH),
+                                   "dtype": "float32", "max_abs_err": err,
+                                   "dropped_keys_max_abs_err": bad})
+    del q, k, v, want
+    wg, wu, wd = _tp2_mlp_weights(gen, torch.float32)
+    for t in CP_F32_MLP_ROWS:
+        x = torch.randn((t, CP_D), generator=gen, device="cuda")
+        want = fm.fused_mlp_plain(x, wg, wu, wd)
+        err = (fm.fused_mlp(x, wg, wu, wd) - want).abs().max().item()
+        wd_drop = wd.clone()
+        wd_drop[CP_F // 2:CP_F // 2 + 64] = 0
+        bad = (fm.fused_mlp_plain(x, wg, wu, wd_drop) - want).abs().max() \
+            .item()
+        check(err <= 1e-5, f"fused MLP fp32 at T={t} d={CP_D} f={CP_F}: "
+                           f"max abs err {err} > 1e-5")
+        check(bad > 1e-5, f"the fp32 MLP check at T={t} passes a dropped f "
+                          f"tile ({bad})")
+        log(f"[mlp f32 T={t} d={CP_D} f={CP_F}] max_abs_err {err:.3e} (atol "
+            f"1e-5); a dropped 64-wide f tile would be {bad:.3e}")
+        out["fused_mlp"].append({"t": t, "d": CP_D, "f": CP_F,
+                                 "dtype": "float32", "max_abs_err": err,
+                                 "dropped_tile_max_abs_err": bad})
+    del wg, wu, wd
+    torch.cuda.empty_cache()
+    return out
+
+
+#: phase 4's CP runs: tests/test_cp_attention.py's Qwen3 smoke config in
+#: f32 with ``cp_decode`` at tp 2, B 4 in a 32-position cache (16 a rank),
+#: after a prompt of 28 (the reference test's: every decode position on
+#: rank 1) and of 14 (rank 1's slice all masked for two steps, then the
+#: cursor on its first position); the reference test's tolerance
+CP_PARITY_PROMPTS, CP_PARITY_S, CP_PARITY_TOL = (28, 14), 32, 5e-4
+#: phase 4's tp run on one KV head: each rank its sequence slice of the
+#: dense rows
+CP_PARITY_KV1 = dict(TP_PARITY_CFG, name="pal-dense-kv1", num_kv_heads=1)
+
+
+def _cp_smoke_cfg():
+    from repro_torch.configs import get_smoke
+    return get_smoke("qwen3-14b").with_(dtype="float32", cp_decode=True)
+
+
+def _drop_partial(rank: int):
+    """A defective ``cp_attention.combine``: rank ``rank``'s (l, o)
+    partial dropped before the sum (its m still in the max)."""
+    from repro_torch.core import tp
+    from repro_torch.models import cp_attention
+    good = cp_attention.combine
+
+    def combine(m, l, o):
+        if tp.current().rank == rank:
+            l, o = torch.zeros_like(l), torch.zeros_like(o)
+        return good(m, l, o)
+    return good, combine
+
+
+def _cp_logits(params, cfg, tokens, prompt: int, total: int):
+    """Prefill ``prompt`` tokens of ``tokens`` (B, S) into a cache of
+    ``total`` positions (the rank's rows under a current rank), then one
+    decode step a remaining token, teacher-forced. Returns (the decode
+    steps' logits (steps, B, V) in fp32, the cache)."""
+    from repro_torch.models import transformer
+    cache = transformer.init_cache(cfg, tokens.shape[0], total,
+                                   device=tokens.device)
+    transformer.prefill(params, {"tokens": tokens[:, :prompt]}, cfg, cache)
+    out = []
+    for pos in range(prompt, tokens.shape[1]):
+        lg, cache = transformer.decode_step(params, cache,
+                                            tokens[:, pos:pos + 1], pos, cfg)
+        out.append(lg[:, 0].float())
+    return torch.stack(out), cache
+
+
+def _cp_parity_rank(rank: int, world: int, flat, toks, flat_kv1, prompts):
+    """One rank of phase 4's CP runs on cuda:0 (gloo): (a) the Qwen3 smoke
+    config's CP decode after each of ``CP_PARITY_PROMPTS``, then the same
+    with rank 0's (l, o) partial dropped; (b) the Hkv-1 config on dense
+    rows through the engine (the split path), launches counted from 0
+    just before."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core import tp
+    from repro_torch.core.strategy import Strategy
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import cp_attention
+    from repro_torch.params import from_numpy
+    from repro_torch.serve.engine import ServeEngine
+    _tp_rank_setup()
+    cfg = _cp_smoke_cfg()
+    mesh = make_mesh((1, world), ("data", "model"))
+    params = from_numpy(flat, cfg, "cuda",
+                        shard=(Strategy(dtype=cfg.dtype), mesh))
+    view = tp.Rank.of(mesh, cfg)
+    tokens = torch.from_numpy(toks).cuda()
+    out = {"cp": {}}
+    good, bad = _drop_partial(0)
+    for p in CP_PARITY_PROMPTS:
+        with tp.active(view):
+            view.counts.clear()
+            got, cache = _cp_logits(params, cfg, tokens, p, CP_PARITY_S)
+            counts = dict(view.counts)
+            cp_attention.combine = bad
+            try:
+                dropped, _ = _cp_logits(params, cfg, tokens, p, CP_PARITY_S)
+            finally:
+                cp_attention.combine = good
+        sl = cache["kv_slice"]
+        out["cp"][p] = {"logits": got.cpu().numpy(),
+                        "dropped": dropped.cpu().numpy(),
+                        "slice": [sl.start, sl.length, sl.total],
+                        "heads": cache["kv"]["k"].shape[3],
+                        "collectives": counts}
+    kcfg = ModelConfig(**CP_PARITY_KV1)
+    eng = ServeEngine(kcfg, from_numpy(flat_kv1, kcfg, "cuda"), slots=2,
+                      max_len=64, mesh=mesh, paged=False, mixed=False)
+    for i, p in enumerate(prompts):
+        eng.submit(i, p, max_new=6)
+    kernels.reset_launches()
+    res = eng.run()
+    out["kv1"] = {"streams": {i: list(res[i].out) for i in res},
+                  "launches": kernels.launches(),
+                  "want": _want_launches(eng, kcfg.num_layers),
+                  "per_device": eng.per_device_kv_bytes(),
+                  "kv_bytes": eng.kv_bytes(),
+                  "slice": [eng._cache["kv_slice"].start,
+                            eng._cache["kv_slice"].length],
+                  "decode_steps": eng.stats["decode_steps"],
+                  "collectives": dict(eng._rank.counts)}
+    return out
+
+
+def phase_parity_cp():
+    """Phase 4's context-parallel runs on two gloo ranks sharing the card
+    (TF32 off): (a) the Qwen3 smoke config with ``cp_decode`` at tp 2 (B
+    4, 16 of 32 positions a rank) after a prompt of 28 and of 14, four CP
+    decode steps each: logits within the reference's 5e-4 of the
+    unsharded decode on the card, and a version that drops rank 0's (l,
+    o) partial fails that check; (b) the Hkv-1 dense config on dense rows
+    (``paged=False``: each rank its sequence slice of every row): streams
+    equal to the unsharded engine's on the card, the KV a rank half,
+    every kernel launched as ``_want_launches`` says, one head-assembly
+    sum, one MAX and one SUM a layer a decode step."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.params import init_params
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.tree import flatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _cp_smoke_cfg()
+    params = init_params(cfg, device="cuda", seed=4)
+    toks = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, size=(4, CP_PARITY_S)).astype(np.int32)
+    want = {p: _cp_logits(params, cfg, torch.from_numpy(toks).cuda(), p,
+                          CP_PARITY_S)[0].cpu().numpy()
+            for p in CP_PARITY_PROMPTS}
+    kcfg = ModelConfig(**CP_PARITY_KV1)
+    kparams = init_params(kcfg, device="cuda", seed=3)
+    prompts, _ = _family_requests(kcfg)
+    eng = ServeEngine(kcfg, kparams, slots=2, max_len=64, paged=False,
+                      mixed=False)
+    want_kv1, _ = _serve_run(eng, prompts, None)
+    want_kv = eng.per_device_kv_bytes()
+
+    def numpy_tree(p):
+        return {k: v.cpu().numpy() for k, v in flatten(p).items()}
+
+    ranks = _spawn_ranks(_cp_parity_rank, (numpy_tree(params), toks,
+                                           numpy_tree(kparams), prompts),
+                         240.0, "parity cp tp 2")
+    out = {"cp": {}}
+    for p in CP_PARITY_PROMPTS:
+        errs, drops = [], []
+        for r, got in enumerate(ranks):
+            run = got["cp"][p]
+            err = float(np.abs(run["logits"] - want[p]).max())
+            drop = float(np.abs(run["dropped"] - want[p]).max())
+            tag = f"[parity cp, prompt {p}] rank {r}"
+            check(err <= CP_PARITY_TOL, f"{tag}: logits {err} from the "
+                  f"unsharded decode's > {CP_PARITY_TOL}")
+            check(drop > CP_PARITY_TOL, f"{tag}: a version that drops rank "
+                  f"0's (l, o) partial passes the check ({drop})")
+            n = CP_PARITY_S // 2
+            check(run["slice"] == [r * n, n, CP_PARITY_S]
+                  and run["heads"] == cfg.num_kv_heads,
+                  f"{tag}: cache slice {run['slice']}, {run['heads']} heads")
+            layers, steps = cfg.num_layers, CP_PARITY_S - p
+            check(all(run["collectives"].get(k) == layers * steps
+                      for k in ("cp_qkv", "cp_max", "cp_sum")),
+                  f"{tag}: collectives {run['collectives']}")
+            errs.append(err)
+            drops.append(drop)
+        log(f"[parity cp tp 2, f32] Qwen3 smoke, prompt {p}, 4 CP decode "
+            f"steps, 16 of 32 positions a rank: logits max abs err vs the "
+            f"unsharded decode on the card {max(errs):.3e} (<= "
+            f"{CP_PARITY_TOL}); rank 0's partial dropped: {min(drops):.3e}")
+        out["cp"][p] = {"max_abs_err": max(errs),
+                        "dropped_partial_err": min(drops)}
+    for r, got in enumerate(ranks):
+        run = got["kv1"]
+        tag = f"[parity cp kv1 dense rows] rank {r}"
+        check(run["streams"] == want_kv1, f"{tag} streams {run['streams']} "
+                                          f"!= the unsharded engine's")
+        check(run["launches"] == run["want"], f"{tag} launches "
+                                              f"{run['launches']}")
+        check(run["per_device"] * 2 == want_kv == run["kv_bytes"],
+              f"{tag} KV {run['per_device']} B a rank, global "
+              f"{run['kv_bytes']}; unsharded {want_kv}")
+        check(run["slice"] == [r * 32, 32], f"{tag} slice {run['slice']}")
+        coll, steps = run["collectives"], run["decode_steps"]
+        check(all(coll.get(k) == kcfg.num_layers * steps
+                  for k in ("cp_qkv", "cp_max", "cp_sum")),
+              f"{tag} collectives {coll}")
+    run = ranks[0]["kv1"]
+    log(f"[parity cp tp 2, f32] Hkv-1 dense rows: both ranks' streams equal "
+        f"the unsharded engine's over {len(prompts)} requests; KV "
+        f"{run['per_device']} B a rank = half of {want_kv} B (positions "
+        f"{run['slice']}); launches a rank {run['launches']}; collectives a "
+        f"rank {run['collectives']}")
+    out["kv1"] = {k: run[k] for k in ("per_device", "kv_bytes", "launches",
+                                      "collectives")}
+    return out
+
+
+class _Timed:
+    """Times ``transformer.prefill`` and each ``transformer.decode_step``
+    (synchronised before and after) while active, and snapshots the
+    rank's collectives and bytes of each decode step; keeps the cache the
+    prefill filled."""
+
+    def __init__(self, view):
+        self.view = view
+        self.prefill_s, self.step_s, self.steps, self.cache = 0.0, [], [], None
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+        self.mod = transformer
+        self.orig = (transformer.prefill, transformer.decode_step)
+        prefill, decode = self.orig
+
+        def timed_prefill(params, batch, cfg, cache, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = prefill(params, batch, cfg, cache, **kw)
+            torch.cuda.synchronize()
+            self.prefill_s, self.cache = time.perf_counter() - t0, cache
+            return out
+
+        def timed_decode(params, cache, token, pos, cfg):
+            counts, nbytes = Counter(self.view.counts), \
+                Counter(self.view.bytes)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = decode(params, cache, token, pos, cfg)
+            torch.cuda.synchronize()
+            self.step_s.append(time.perf_counter() - t0)
+            self.steps.append((dict(self.view.counts - counts),
+                               dict(self.view.bytes - nbytes)))
+            return out
+
+        transformer.prefill, transformer.decode_step = timed_prefill, \
+            timed_decode
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.prefill, self.mod.decode_step = self.orig
+
+
+def _cp_serve_rank(rank: int, world: int, seed: int, prompt, f32_tokens):
+    """One rank of phase 23 on cuda:0 (gloo): Qwen3-14B's shards drawn
+    from ``seed``; ``greedy_generate`` under the rank with ``cp_decode``
+    (every decode step context-parallel), then without (head-sharded) on
+    the same shards, each timed and its launches counted from 0 just
+    before; then the f32 check at ``CP_F32_LAYERS`` layers: the CP decode,
+    the head-sharded one and the CP decode with rank 0's partial dropped,
+    teacher-forced on ``f32_tokens``."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import tp
+    from repro_torch.core.strategy import Strategy
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import cp_attention
+    from repro_torch.params import init_params
+    from repro_torch.serve.step import greedy_generate
+    torch.cuda.set_device(0)
+    mesh = make_mesh((1, world), ("data", "model"))
+    base = get_config("qwen3-14b")
+    strategy = Strategy(dtype=base.dtype)
+    t0 = time.perf_counter()
+    params = init_params(base, device="cuda", seed=seed,
+                         shard=(strategy, mesh))
+    torch.cuda.synchronize()
+    out = {"rank": rank, "build_s": time.perf_counter() - t0,
+           "weights_gb": sum(v.numel() * v.element_size()
+                             for v in _leaves(params)) / 1e9,
+           "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    view = tp.Rank.of(mesh, base)
+    tokens = torch.from_numpy(prompt).cuda()[None]
+    for name, cp in (("cp", True), ("heads", False)):
+        cfg = base.with_(cp_decode=cp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        view.counts.clear()
+        view.bytes.clear()
+        with tp.active(view), _Timed(view) as timed:
+            t0 = time.perf_counter()
+            streams = greedy_generate(params, cfg, strategy,
+                                      {"tokens": tokens}, CP_NEW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kv = timed.cache["kv"]
+        sl = timed.cache.get("kv_slice")
+        step_ms = np.asarray(timed.step_s) * 1e3
+        counts, nbytes = timed.steps[-1]
+        out[name] = {"streams": streams[0].tolist(), "wall_s": wall,
+                     "prefill_s": timed.prefill_s,
+                     "decode_steps": len(timed.step_s),
+                     "step_p50_ms": float(np.percentile(step_ms, 50)),
+                     "step_max_ms": float(step_ms.max()),
+                     "step_collectives": counts, "step_bytes": nbytes,
+                     "collectives": dict(view.counts),
+                     "bytes": dict(view.bytes),
+                     "kv_bytes_rank": sum(a.numel() * a.element_size()
+                                          for a in kv.values()),
+                     "kv_positions": kv["k"].shape[2],
+                     "kv_heads": kv["k"].shape[3],
+                     "slice": None if sl is None else [sl.start, sl.length],
+                     "launches": kernels.launches(),
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "finite": bool(all(0 <= t < base.vocab_size
+                                        for t in streams[0].tolist()))}
+        del timed
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the f32 check: full width, 2 layers, TF32 off
+    _tp_rank_setup()
+    c32 = base.with_(num_layers=CP_F32_LAYERS, dtype="float32")
+    p32 = init_params(c32, device="cuda", seed=seed + 1,
+                      shard=(Strategy(dtype=c32.dtype), mesh))
+    view32 = tp.Rank.of(mesh, c32)
+    toks = torch.from_numpy(f32_tokens).cuda()[None]
+    total = toks.shape[1]
+    logits = {}
+    good, bad = _drop_partial(0)
+    for name, cp, defect in (("cp", True, False), ("heads", False, False),
+                             ("cp, rank 0's partial dropped", True, True)):
+        cp_attention.combine = bad if defect else good
+        try:
+            with tp.active(view32):
+                logits[name] = _cp_logits(p32, c32.with_(cp_decode=cp),
+                                          toks, CP_F32_PROMPT, total)[0]
+        finally:
+            cp_attention.combine = good
+    ref = logits["heads"]
+    scale = float(ref.abs().max())
+    out["f32"] = {"scale": scale, "bound": CP_F32_REL * scale,
+                  "err": float((logits["cp"] - ref).abs().max()),
+                  "dropped_err": float(
+                      (logits["cp, rank 0's partial dropped"] - ref)
+                      .abs().max()),
+                  "positions": total, "streams_equal": bool(torch.equal(
+                      logits["cp"].argmax(-1), ref.argmax(-1)))}
+    return out
+
+
+def phase_cp_serve(seed: int, smi: str):
+    """Phase 23: Qwen3-14B at full width (40 layers uncut, 40/8 heads x
+    128, d_ff 17408, bf16) with ``cp_decode`` at tp 2, two rank processes
+    sharing the card over gloo, each drawing only its shards (20/4 heads,
+    d_ff 8704, half the vocabulary: 14.77 GB). ``greedy_generate`` on one
+    8,192-token prompt for 32 new tokens under the rank (8,224 positions:
+    4,112 a rank, all 8 K/V heads; every decode step context-parallel),
+    then the head-sharded path on the same shards (all 8,224 positions, 4
+    heads a rank). Launches counted from 0 just before each and read just
+    after: flash 40 (one prefill), the fused MLP 40 x 32 (the prefill and
+    31 decode steps), paged attention and the SSD scan never; both ranks'
+    streams equal on each path, every token in the vocabulary, the CP
+    cache a rank its 4,112 positions. Prints prefill seconds, decode
+    step p50, the collectives and bytes of a decode step by label, the KV
+    bytes and peak memory a rank and the share of tokens equal between
+    the two paths (information: bf16 sums in another order). Then the f32
+    check (TF32 off) at 2 layers, full width: after a 1,024-token prompt,
+    8 teacher-forced decode steps' logits of the CP path within
+    ``CP_F32_REL`` x the head-sharded logits' largest magnitude of the
+    head-sharded path's, and a version that drops rank 0's (l, o) partial
+    outside it. Two ranks share one card's SMs and gloo stages each
+    collective through host memory: not context parallelism's speed."""
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen3-14b")
+    rng = np.random.default_rng(seed + 23)
+    prompt = rng.integers(0, cfg.vocab_size, size=(CP_PROMPT,)).astype(
+        np.int32)
+    f32_tokens = rng.integers(0, cfg.vocab_size, size=(
+        CP_F32_PROMPT + CP_F32_STEPS,)).astype(np.int32)
+    ranks = _spawn_ranks(_cp_serve_rank, (seed, prompt, f32_tokens),
+                         CP_TIMEOUT_S, "cp serve")
+    note = ("two ranks share one card's SMs and gloo stages each "
+            "collective through host memory: not context parallelism's "
+            "speed")
+    layers, total = cfg.num_layers, CP_PROMPT + CP_NEW
+    want = {"flash_attention": layers, "fused_mlp": layers * CP_NEW,
+            "paged_attention": 0, "ssd_scan": 0}
+    for r in ranks:
+        tag = f"[cp serve] rank {r['rank']}"
+        for name in ("cp", "heads"):
+            run = r[name]
+            check(run["streams"] == ranks[0][name]["streams"],
+                  f"{tag} {name} streams differ from rank 0's")
+            check(len(run["streams"]) == CP_NEW and run["finite"],
+                  f"{tag} {name}: {len(run['streams'])} tokens")
+            check(run["launches"] == want,
+                  f"{tag} {name} launches {run['launches']} != {want}")
+            check(run["decode_steps"] == CP_NEW - 1,
+                  f"{tag} {name}: {run['decode_steps']} decode steps")
+        check(r["cp"]["slice"] == [r["rank"] * total // 2, total // 2]
+              and r["cp"]["kv_heads"] == cfg.num_kv_heads,
+              f"{tag} CP cache {r['cp']['slice']}, {r['cp']['kv_heads']} "
+              "heads")
+        check(r["heads"]["slice"] is None
+              and r["heads"]["kv_positions"] == total
+              and r["heads"]["kv_heads"] == cfg.num_kv_heads // 2,
+              f"{tag} head-sharded cache {r['heads']['kv_positions']} x "
+              f"{r['heads']['kv_heads']}")
+        check(all(r["cp"]["step_collectives"].get(k) == layers
+                  for k in ("cp_qkv", "cp_max", "cp_sum")),
+              f"{tag} CP step collectives {r['cp']['step_collectives']}")
+        f = r["f32"]
+        check(f["err"] <= f["bound"], f"{tag} f32 CP logits {f['err']} from "
+              f"the head-sharded path's > {f['bound']} ({CP_F32_REL} x "
+              f"{f['scale']})")
+        check(f["dropped_err"] > f["bound"], f"{tag} f32: a version that "
+              f"drops rank 0's partial passes ({f['dropped_err']} <= "
+              f"{f['bound']})")
+    r0 = ranks[0]
+    agree = sum(a == b for a, b in zip(r0["cp"]["streams"],
+                                       r0["heads"]["streams"])) / CP_NEW
+    out = {"note": note, "card": smi, "agree_cp_heads": agree,
+           "ranks": ranks}
+    for name in ("cp", "heads"):
+        run = r0[name]
+        log(f"[cp serve {name}] Qwen3-14B tp 2 on {smi} ({r0['weights_gb']:.2f}"
+            f" GB of weights a rank, drawn in {r0['build_s']:.1f}s): prompt "
+            f"{CP_PROMPT}, {CP_NEW} new tokens; prefill {run['prefill_s']:.2f}"
+            f" s, decode step p50 {run['step_p50_ms']:.1f} ms (max "
+            f"{run['step_max_ms']:.1f}); a decode step's collectives "
+            f"{run['step_collectives']} and bytes {run['step_bytes']}; KV "
+            f"{run['kv_bytes_rank'] / 1e9:.4f} GB a rank ({run['kv_positions']}"
+            f" positions x {run['kv_heads']} heads); peak memory a rank "
+            f"{[round(x[name]['peak_mem_gb'], 2) for x in ranks]} GB; "
+            f"launches a rank {run['launches']} — {note}")
+    f = r0["f32"]
+    log(f"[cp serve] {agree:.1%} of tokens equal between the CP and the "
+        f"head-sharded streams (information: bf16 sums in another order); "
+        f"f32 check at {CP_F32_LAYERS} layers, full width, prompt "
+        f"{CP_F32_PROMPT}, {CP_F32_STEPS} steps: CP vs head-sharded logits "
+        f"max abs {f['err']:.3e} <= {f['bound']:.3e} ({CP_F32_REL} x "
+        f"{f['scale']:.3f}); rank 0's partial dropped: "
+        f"{f['dropped_err']:.3e}; argmax equal {f['streams_equal']}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5657,6 +6225,11 @@ def main():
         if k["name"] in family_shapes:
             k["tp_family_shapes"] = family_shapes[k["name"]]
     mark("3 kernels at OLMoE's and whisper-tiny's tp 2 rank shapes")
+    cp_shapes = phase_cp_kernels(args.seed)
+    for k in kernels:
+        if k["name"] in cp_shapes:
+            k["cp_shapes"] = cp_shapes[k["name"]]
+    mark("3 kernels at the context-parallel Qwen3-14B's new shapes")
     parity = phase_parity()
     record["parity_logits_err"] = parity.pop("mixed")
     record["parity_split_logits_err"] = parity
@@ -5680,6 +6253,8 @@ def main():
     mark("4 parity: MoE and enc-dec at tp 2 over gloo")
     record["parity_dp"] = phase_parity_dp()
     mark("4 parity: dp 2, and dp 2 x tp 2 over gloo")
+    record["parity_cp"] = phase_parity_cp()
+    mark("4 parity: context-parallel decode at tp 2 over gloo")
     main_run, eng, session, prompts = phase_main(args.seed)
     record["main"] = main_run
     record["profile"] = phase_profile(eng, rng, main_run["step_p50_ms"])
@@ -5701,6 +6276,8 @@ def main():
     torch.cuda.empty_cache()
     record["tp"] = phase_tp_serve(args.seed, main_run)
     mark("19 tensor-parallel serving")
+    record["cp"] = phase_cp_serve(args.seed, smi)
+    mark("23 context-parallel decode")
     record["train"] = phase_train(args.seed)
     mark("6 dense training")
     gc.collect()                          # the trainer died with phase 6
@@ -5758,7 +6335,8 @@ def main():
     # fused MLP on the split path), phase 20 (paged attention and the
     # fused MLP, both runs), phases 21 and 22 (each rank: paged attention
     # on the mixed step, flash in whisper-tiny's encoder there, flash and
-    # paged attention on the split path)
+    # paged attention on the split path), phase 23 (each rank: flash and
+    # the fused MLP on the CP and the head-sharded paths)
     paths = [main_run, record["train"], record["ssm"],
              *record["spec"].values(), *record["online"].values(),
              record["hybrid"], *record["train_families"].values(),
@@ -5773,7 +6351,9 @@ def main():
                if name != "note"),
              *(r[name] for phase in ("moe_tp", "audio_tp")
                for r in record[phase]["ranks"]
-               for name in ("mixed", "split"))]
+               for name in ("mixed", "split")),
+             *(r[name] for r in record["cp"]["ranks"]
+               for name in ("cp", "heads"))]
     for k in kernels:
         k["launches"] = sum(run["launches"][k["name"]] for run in paths)
     record["kernels"] = kernels

@@ -17,7 +17,10 @@ code on it, and calls the collective where GSPMD would have put one
   vocabulary by one sum into a zero-filled buffer where each rank writes
   its slice (exact: only zeros are added);
 * ``broadcast_from_root`` for what one rank decides for all (the serving
-  engine's sampled tokens and clock).
+  engine's sampled tokens and clock);
+* ``all_reduce(x, what, op=MAX)`` and the zero-filled sums of
+  ``gather_heads`` for the context-parallel decode
+  (``models/cp_attention.py``).
 
 Only ``all_reduce`` and ``broadcast`` are used: gloo supports just these
 two on CUDA tensors, so the same code runs with gloo on CPU tensors (the
@@ -35,9 +38,19 @@ with fewer KV heads than ranks), every rank keeps all Hkv heads of K/V
 the one KV head they read (``kv_read``); the table itself would split
 ``wk``/``wv`` inside a head there (``_divisible`` tests the flattened
 ``Hkv * D``), which the port never does (``rank_pspecs``).
+
+A dense K/V cache follows the reference's ``cache_pspecs``
+(``cache_rows``): the rank's K/V heads where Hkv divides tp, otherwise
+the rank's SEQUENCE slice of every row with all Hkv heads where the
+cache's positions divide tp (replicated where neither does); under
+``cfg.cp_decode`` a lockstep cache that is no ring is sequence-sharded
+whatever the heads, as the reference's ``shard_map`` reshards it. A
+sliced cache carries its :class:`SeqSlice` under ``"kv_slice"``, and
+``decode_step`` then takes the context-parallel branch.
 """
 from __future__ import annotations
 
+import math
 import threading
 from collections import Counter
 from contextlib import contextmanager
@@ -63,7 +76,8 @@ class Rank:
     (Hkv / tp, or all Hkv where they do not divide), of which its query
     heads read ``kv_read`` (a slice of the cache's head axis; None: all
     of them). ``counts`` tallies the collectives issued, by what they
-    carry."""
+    carry, and ``bytes`` the bytes each put in (``numel *
+    element_size`` of the tensor reduced or broadcast)."""
     tp: int
     rank: int
     group: object
@@ -72,6 +86,7 @@ class Rank:
     kv_heads: int
     kv_read: Optional[slice]
     counts: Counter = field(default_factory=Counter)
+    bytes: Counter = field(default_factory=Counter)
 
     @classmethod
     def of(cls, mesh, cfg) -> "Rank":
@@ -108,6 +123,38 @@ class Rank:
     def kv_sharded(self) -> bool:
         return self.kv_read is None
 
+    def tally(self, what: str, x: torch.Tensor):
+        self.counts[what] += 1
+        self.bytes[what] += x.numel() * x.element_size()
+
+
+@dataclass(frozen=True)
+class SeqSlice:
+    """A rank's rows of a dense K/V cache of ``total`` positions
+    sequence-sharded over "model": positions ``[start, start +
+    length)`` (ring slots on a ring), with every K/V head."""
+    start: int
+    length: int
+    total: int
+
+
+def cache_rows(cfg, length: int, *, ring: bool, cp: bool):
+    """(K/V heads, :class:`SeqSlice` or None) the current rank holds of
+    a dense K/V cache of ``length`` positions, by the reference's
+    ``cache_pspecs`` (core/sharding.py:231-240): the sequence slice with
+    all Hkv heads where ``length`` divides tp and either Hkv does not, or
+    ``cp`` asks for it on a cache that is no ring (the context-parallel
+    decode's reshard); else Hkv / tp heads where they divide, all of them
+    otherwise. Without a live rank: all heads, whole rows."""
+    r = _live()
+    hkv = cfg.num_kv_heads
+    if r is None:
+        return hkv, None
+    if length % r.tp == 0 and (hkv % r.tp or (cp and not ring)):
+        n = length // r.tp
+        return hkv, SeqSlice(r.rank * n, n, length)
+    return r.kv_heads, None
+
 
 def current() -> Optional[Rank]:
     """The rank made current for this thread by ``active``, or None."""
@@ -130,14 +177,15 @@ def _live() -> Optional[Rank]:
     return r if r is not None and r.tp > 1 else None
 
 
-def all_reduce(x: torch.Tensor, what: str) -> torch.Tensor:
-    """Sum ``x`` over the current rank's group, in place (``x`` must be
-    contiguous); a no-op without one or at tp 1."""
+def all_reduce(x: torch.Tensor, what: str,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Sum (or ``op``: MAX) ``x`` over the current rank's group, in
+    place (``x`` must be contiguous); a no-op without one or at tp 1."""
     r = _live()
     if r is None:
         return x
-    r.counts[what] += 1
-    dist.all_reduce(x, group=r.group)
+    r.tally(what, x)
+    dist.all_reduce(x, op=op, group=r.group)
     return x
 
 
@@ -146,7 +194,7 @@ def broadcast_from_root(x: torch.Tensor, what: str) -> torch.Tensor:
     r = _live()
     if r is None:
         return x
-    r.counts[what] += 1
+    r.tally(what, x)
     dist.broadcast(x, src=r.root, group=r.group)
     return x
 
@@ -159,7 +207,7 @@ def same_on_all(value: int, what: str, device) -> bool:
     if r is None:
         return True
     t = torch.tensor([value, -value], dtype=torch.int64, device=device)
-    r.counts[what] += 1
+    r.tally(what, t)
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=r.group)
     return int(t[0]) == -int(t[1])
 
@@ -194,6 +242,31 @@ def vocab_logits(local: torch.Tensor, vocab_size: int) -> torch.Tensor:
     out = local.new_zeros(local.shape[:-1] + (vocab_size,))
     out[..., r.rank * n:(r.rank + 1) * n] = local
     return all_reduce(out, "logits")
+
+
+def gather_heads(parts, heads, what: str):
+    """Every rank's heads of the tensors in ``parts``, each ``(..., h,
+    D)`` of this rank's ``h`` consecutive heads of ``heads[i]``,
+    assembled by ONE sum: each rank writes its heads into a zero-filled
+    buffer of all of them (exact: only zeros are added). A tensor that
+    already has all its heads is returned as it is and not sent."""
+    r = _live()
+    out = list(parts)
+    todo = [i for i, x in enumerate(parts) if x.shape[-2] != heads[i]]
+    if r is None or not todo:
+        return out
+    shapes = [parts[i].shape[:-2] + (heads[i], parts[i].shape[-1])
+              for i in todo]
+    buf = parts[todo[0]].new_zeros(sum(math.prod(sh) for sh in shapes))
+    at = 0
+    for i, sh in zip(todo, shapes):
+        full = buf[at:at + math.prod(sh)].view(sh)
+        at += full.numel()
+        h = parts[i].shape[-2]
+        full[..., r.rank * h:(r.rank + 1) * h, :] = parts[i]
+        out[i] = full
+    all_reduce(buf, what)
+    return out
 
 
 def kv_read(x: torch.Tensor) -> torch.Tensor:

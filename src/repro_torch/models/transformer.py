@@ -35,16 +35,24 @@ An MoE layer routes all the rows of one call together: ``prefill`` the
 prompt's tokens, ``decode_step`` its B rows (the mixed step's pads and the
 split path's inactive slots included, as in the reference), each expert
 with the capacity of that many tokens; ``prefill`` and ``decode_step``
-drop the aux loss. The context-parallel decode branch waits for
-ROADMAP.md Queue 1 item 11.
+drop the aux loss.
 
 Under a tensor-parallel mesh (``core/tp.py``, made current by the serving
 engine) ``prefill`` and ``decode_step`` run on the rank's shards: its
 query heads, its K/V heads (all of them where Hkv does not divide tp,
 its query heads then reading theirs), its column blocks of the MLP and
 its vocabulary rows — the embedding is a vocab-parallel lookup and the
-logits are assembled to the full vocabulary. ``forward`` (training)
-raises there: sharded training is a later step of item 11.
+logits are assembled to the full vocabulary. ``init_cache`` then gives
+the rank's rows of the dense cache (``tp.cache_rows``, the reference's
+``cache_pspecs``): where they are a SEQUENCE slice of every K/V head
+(Hkv does not divide tp, or ``cfg.cp_decode``), the cache carries its
+``tp.SeqSlice`` under ``"kv_slice"``, ``prefill`` fills the slice and
+``decode_step`` takes the context-parallel branch
+(``models/cp_attention.py``: the reference's ``cp_decode`` path for a
+scalar ``pos``, and the engine's per-row cursors). Without a rank, or
+at tp 1, ``cfg.cp_decode`` changes nothing, as the reference's
+``cp_available`` is False there. ``forward`` (training) raises under a
+rank: sharded training is a later step of item 11.
 """
 from __future__ import annotations
 
@@ -52,7 +60,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import tp
-from repro_torch.models import kvcache, moe as moe_lib
+from repro_torch.models import cp_attention, kvcache, moe as moe_lib
 from repro_torch.models.layers import (attention, attn_out, attn_qkv, mlp,
                                        paged_attention, rmsnorm)
 
@@ -81,13 +89,6 @@ def unstack(tree, n: int):
 def unstack_layers(params, n: int):
     """Per-layer views of the stacked L axis (:func:`unstack`)."""
     return unstack(params["layers"], n)
-
-
-def _check_cp(cfg):
-    if cfg.cp_decode:
-        raise NotImplementedError(
-            f"{cfg.name}: the context-parallel decode (cp_decode) waits for "
-            "the parallelism slice, ROADMAP.md Queue 1 item 11")
 
 
 def _embed(params, tokens, cfg):
@@ -148,17 +149,45 @@ def cache_window(cfg, max_len: int) -> int:
     return max_len
 
 
-def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None):
-    """Zero dense (or ring) KV for ``batch`` rows and a scalar cursor."""
+def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None, *,
+               cp=None):
+    """Zero dense (or ring) KV for ``batch`` rows and a scalar cursor.
+    Under a live rank: the rank's rows (``tp.cache_rows``; ``cp``,
+    default ``cfg.cp_decode``, asks for the sequence slice of a cache
+    that is no ring), with ``"kv_slice"`` where they are a slice."""
     dtype = dtype or cfg.dtype
     dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
     w = cache_window(cfg, max_len)
+    heads, sl = tp.cache_rows(cfg, w, ring=_is_ring(cfg, w),
+                              cp=cfg.cp_decode if cp is None else cp)
     # every layer's rows in one allocation, the leading L axis a view
-    rows = kvcache.init_kv(cfg.num_layers * batch, w, cfg.num_kv_heads,
+    rows = kvcache.init_kv(cfg.num_layers * batch,
+                           w if sl is None else sl.length, heads,
                            cfg.head_dim, dtype, device)
-    return {"kv": {k: a.view(cfg.num_layers, batch, *a.shape[1:])
-                   for k, a in rows.items()},
-            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+    cache = {"kv": {k: a.view(cfg.num_layers, batch, *a.shape[1:])
+                    for k, a in rows.items()},
+             "pos": torch.zeros((), dtype=torch.int32, device=device)}
+    if sl is not None:
+        cache["kv_slice"] = sl
+    return cache
+
+
+def _is_ring(cfg, w: int) -> bool:
+    return cfg.sliding_window > 0 and w == cfg.sliding_window
+
+
+def _fill(kv, i: int, k, v, w: int, sl):
+    """Layer ``i``'s prefill K/V into the cache (``kvcache.fit_prefill``),
+    or into the rank's slice ``sl`` of it: every K/V head, assembled
+    over the group by one zero-filled sum where the rank computed only
+    its own (``"prefill_kv"``)."""
+    if sl is not None:
+        k, v = tp.gather_heads([k, v], [kv["k"].shape[3]] * 2,
+                               "prefill_kv")
+    for key, new in (("k", k), ("v", v)):
+        new = kvcache.fit_prefill(new, w)
+        kv[key][i] = new if sl is None else \
+            new[:, sl.start:sl.start + sl.length]
 
 
 def prefill(params, batch, cfg, cache, *, attn_impl: str = "auto",
@@ -175,7 +204,8 @@ def prefill(params, batch, cfg, cache, *, attn_impl: str = "auto",
     tokens = batch["tokens"]
     b, s = tokens.shape
     kv = cache["kv"]
-    w = kv["k"].shape[2]
+    sl = cache.get("kv_slice")
+    w = kv["k"].shape[2] if sl is None else sl.total
     x = _embed(params, tokens, cfg)
     for i, lp in enumerate(unstack_layers(params, cfg.num_layers)):
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
@@ -184,8 +214,7 @@ def prefill(params, batch, cfg, cache, *, attn_impl: str = "auto",
                         window=cfg.sliding_window, impl=attn_impl)
         x = x + attn_out(lp["attn"], ctx, cfg)
         x = x + ffn(lp, rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg)[0]
-        kv["k"][i] = kvcache.fit_prefill(k, w)
-        kv["v"][i] = kvcache.fit_prefill(v, w)
+        _fill(kv, i, k, v, w, sl)
     cache["pos"] = torch.tensor(s, dtype=torch.int32, device=x.device)
     if last_pos is None:
         return _head(params, x[:, -1:], cfg), cache
@@ -202,23 +231,24 @@ def decode_step(params, cache, token, pos, cfg):
     through ``cache["ptab"]`` — which is what makes chunked prefill exact:
     a chunk's rows see each other's K/V. Otherwise the dense or ring
     cache: each row writes at its cursor (``pos % W`` on the ring) and
-    attends to its own valid prefix. Returns (logits (B,1,V), cache) with
-    ``cache["kv"]`` updated in place and ``"pos"`` advanced."""
+    attends to its own valid prefix; a cache whose rows are the rank's
+    sequence slice (``"kv_slice"``) goes through
+    ``cp_attention.cp_decode_attention``. Returns (logits (B,1,V), cache)
+    with ``cache["kv"]`` updated in place and ``"pos"`` advanced."""
     x = _embed(params, token, cfg)
     paged = "ptab" in cache
     pool = cache["kv"]
     pos = torch.as_tensor(pos, device=x.device).to(torch.int32)
     batched = pos.ndim > 0
     positions = pos[:, None] if batched else pos.expand(token.shape[0], 1)
+    sl = cache.get("kv_slice")
     if paged:
         ptab = cache["ptab"]
         wtab = cache.get("wtab", ptab)
         rows = pos if batched else positions[:, 0].contiguous()
     else:
-        w = pool["k"].shape[2]
-        ring = cfg.sliding_window > 0 and w == cfg.sliding_window
-        if not ring and not batched:
-            _check_cp(cfg)
+        w = pool["k"].shape[2] if sl is None else sl.total
+        ring = _is_ring(cfg, w)
         kpos = kvcache.ring_kpos(positions, w) if ring else None
         kv_len = None if ring else torch.clamp(pos + 1, max=w)
     for i in range(cfg.num_layers):
@@ -230,6 +260,10 @@ def decode_step(params, cache, token, pos, cfg):
             kvcache.write_kv_paged(kv, k, v, wtab, rows)
             ctx = paged_attention(q, tp.kv_read(kv["k"]),
                                   tp.kv_read(kv["v"]), ptab, rows)
+        elif sl is not None:
+            ctx = cp_attention.cp_decode_attention(
+                q, kv, k, v, pos, window=cfg.sliding_window, rows=sl,
+                ring=ring)
         else:
             kvcache.write_kv(kv, k, v, pos, ring=ring, window=w)
             ctx = attention(q, tp.kv_read(kv["k"]), tp.kv_read(kv["v"]),
@@ -238,6 +272,7 @@ def decode_step(params, cache, token, pos, cfg):
         x = x + attn_out(lp["attn"], ctx, cfg)
         x = x + ffn(lp, rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg)[0]
     out = {"kv": pool, "pos": pos + 1}
-    if paged:
-        out["ptab"] = cache["ptab"]
+    for key in ("ptab", "kv_slice"):
+        if key in cache:
+            out[key] = cache[key]
     return _head(params, x, cfg), out

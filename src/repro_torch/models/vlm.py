@@ -49,11 +49,12 @@ import torch
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import tp
 from repro_torch.models import kvcache
 from repro_torch.models.encdec import cross_kv
 from repro_torch.models.layers import (attention, attn_out, attn_qkv, mlp,
                                        rmsnorm)
-from repro_torch.models.transformer import (_check_cp, _embed, _head, block,
+from repro_torch.models.transformer import (_embed, _head, block,
                                             cache_window, unstack)
 
 #: the ``record_function`` range the cross layers' attention (and their
@@ -158,11 +159,23 @@ def _prefill_layer(lp, x, cfg, kv, i: int, attn_impl):
     return x
 
 
+def _check_unsharded(what: str):
+    """Raise ``NotImplementedError`` naming item 11 under a live rank:
+    the VLM's layers do not run on a rank's shards yet."""
+    r = tp.current()
+    if r is not None and r.tp > 1:
+        raise NotImplementedError(
+            f"{what} under a tensor-parallel rank waits for ROADMAP.md "
+            "Queue 1 item 11, the step 'the SSM family, the hybrid and "
+            "the VLM under a mesh'")
+
+
 def prefill(params, batch, cfg, cache, *, attn_impl: str = "auto"):
     """Run the whole prompt (never padded: no ``last_pos``), fill
     ``cache`` in place — every self layer's K/V, every cross layer's image
     K/V, ``kv_t`` zeroed when there are no trailing layers — and return
     the last token's logits (B, 1, V)."""
+    _check_unsharded("vlm.prefill")
     tokens = batch["tokens"]
     x = _embed(params, tokens, cfg)
     img = _images(batch, cfg, x.dtype)
@@ -195,9 +208,11 @@ def decode_step(params, cache, token, pos, cfg):
     K/V at the row's cursor (``pos % W`` on the ring) and attends to its
     valid prefix, ``kv_len = min(pos + 1, W)``, or through
     ``kvcache.ring_kpos`` on the ring; each cross layer attends to its
-    image K/V. The context-parallel decode (``cfg.cp_decode``) waits for
-    ROADMAP.md Queue 1 item 11. Returns (logits (B, 1, V), cache) with the
-    K/V updated in place and ``"pos"`` advanced."""
+    image K/V. Without a rank ``cfg.cp_decode`` changes nothing (the
+    reference's ``cp_available`` is False there); under a live rank the
+    call raises, naming item 11. Returns (logits (B, 1, V), cache)
+    with the K/V updated in place and ``"pos"`` advanced."""
+    _check_unsharded("vlm.decode_step")
     x = _embed(params, token, cfg)
     g, rest = cfg.vlm_groups
     e = cfg.cross_attn_every
@@ -205,8 +220,6 @@ def decode_step(params, cache, token, pos, cfg):
     ring = cfg.sliding_window > 0 and w == cfg.sliding_window
     pos = torch.as_tensor(pos, device=x.device).to(torch.int32)
     batched = pos.ndim > 0
-    if not ring and not batched:
-        _check_cp(cfg)
     positions = pos[:, None] if batched else pos.expand(token.shape[0], 1)
     kpos = kvcache.ring_kpos(positions, w) if ring else None
     kv_len = None if ring else torch.clamp(pos + 1, max=w)

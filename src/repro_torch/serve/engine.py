@@ -136,7 +136,11 @@ GSPMD-sharded from one controller; the port runs one process a rank
 (``torchrun``), each with this engine over its own shards
 (``core/tp.py``): the Megatron layout of ``core/sharding.py`` with heads
 kept whole — Hq/tp query heads, Hkv/tp K/V heads of every page (all Hkv,
-replicated, where they do not divide), d_ff/tp of the MLP, E/tp of an MoE
+replicated, where they do not divide; the dense rows of a dense or MoE
+decoder then hold the rank's sequence slice of every row where the
+rows' length divides tp, decoded by the context-parallel branch of
+``transformer.decode_step``, as the reference's ``cache_pspecs`` lays
+them out), d_ff/tp of the MLP, E/tp of an MoE
 layer's experts (models/moe.py) and V/tp of the vocabulary — and one
 all-reduce after ``wo``, one after ``w_down`` (an MoE layer: one over its
 experts' slots, ``"moe_out"``), one for the embedding and one to
@@ -374,14 +378,21 @@ class ServeEngine:
         self._shapes = set()
         self._prefill_lens = set()
         self._encode_shapes = set()
-        # the caches hold the rank's K/V heads (all of them unsharded)
+        # the pool and the enc-dec caches hold the rank's K/V heads (all
+        # of them unsharded)
         self._cache_cfg = cfg if self._rank is None else \
             cfg.with_(num_kv_heads=self._rank.kv_heads)
         if self.paged:
             self._init_pool(kv_pages)
+        elif self.model is transformer:
+            # the slot table's dense rows (a ring of the window on
+            # sliding-window configs) by the reference's cache_pspecs:
+            # the rank's K/V heads, or, where Hkv does not divide tp, its
+            # sequence slice of every row (tp.cache_rows)
+            with tp.active(self._rank):
+                self._cache = transformer.init_cache(
+                    cfg, slots, max_len, device=self.device, cp=False)
         else:
-            # the slot table: one batched cache (a ring of the window on
-            # sliding-window configs)
             self._cache = self.model.init_cache(self._cache_cfg, slots,
                                                 max_len, device=self.device)
         self._cache["pos"] = torch.zeros((slots,), dtype=torch.int32,
@@ -391,7 +402,9 @@ class ServeEngine:
         # perturbed by pad tokens, so the MoE and SSM families and the
         # hybrid prefill at the exact length
         self._bucketed = cfg.arch_type == "dense"
+        sl = self._cache.get("kv_slice")
         self._window = max_len if self.paged or "kv" not in self._cache \
+            else sl.total if sl is not None \
             else self._cache["kv"]["k"].shape[2]
 
     @staticmethod
@@ -512,21 +525,23 @@ class ServeEngine:
         VLM's self K/V rows (``kv_g``, ``kv_t``) and image K/V blocks
         (``xkv``), the SSM states and conv tails (cursors and the page
         table excluded). Under a mesh: the rank's bytes times tp where the
-        K/V heads are sharded, the rank's where they are replicated."""
+        K/V heads or the dense rows' sequence are sharded, the rank's where
+        they are replicated."""
         r = self._rank
-        scale = r.tp if r is not None and r.kv_sharded else 1
-        return self.per_device_kv_bytes() * scale
+        split = r is not None and (r.kv_sharded or "kv_slice" in self._cache)
+        return self.per_device_kv_bytes() * (r.tp if split else 1)
 
     def per_device_kv_bytes(self) -> int:
         """Resident decode-state bytes on this rank's device: 1/tp of
-        :meth:`kv_bytes` where the K/V heads divide the model axis; equal
-        to it unsharded."""
+        :meth:`kv_bytes` where the K/V heads divide the model axis or the
+        dense rows are the rank's sequence slice; equal to it
+        unsharded."""
         def size(tree):
             return sum(size(v) if isinstance(v, dict)
                        else v.numel() * v.element_size()
                        for v in tree.values())
         return size({k: v for k, v in self._cache.items()
-                     if k not in ("pos", "ptab")})
+                     if k not in ("pos", "ptab", "kv_slice")})
 
     # -------------------------------------------------------- the program
     def _mixed_fn(self, tokens, pos, slot, active, wnull):
@@ -616,8 +631,9 @@ class ServeEngine:
         if self.paged:
             clen = pages_for(batch["tokens"].shape[1],
                              self.page_size) * self.page_size
-            c1 = self.model.init_cache(self._cache_cfg, 1, clen,
-                                       device=self.device)
+            with tp.active(None):      # the pool's heads, whole rows
+                c1 = self.model.init_cache(self._cache_cfg, 1, clen,
+                                           device=self.device)
             logits, c1 = self.model.prefill(self.params, batch, self.cfg,
                                             c1, **kw)
             scatter_prefill_pages(self._cache["kv"], c1["kv"], pages,
@@ -628,6 +644,8 @@ class ServeEngine:
             row = {key: {k: leaf[:, slot:slot + 1] for k, leaf in sub.items()}
                    for key, sub in self._cache.items()
                    if isinstance(sub, dict)}
+            if "kv_slice" in self._cache:
+                row["kv_slice"] = self._cache["kv_slice"]
             logits, _ = self.model.prefill(self.params, batch, self.cfg,
                                            row, **kw)
         return logits

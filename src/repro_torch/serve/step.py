@@ -9,6 +9,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.core import tp
 from repro_torch.models import get_model
 from repro_torch.serve.sampling import sample_tokens
 from repro_torch.tree import tree_map
@@ -175,18 +176,28 @@ def greedy_generate(params, cfg, strategy, prompt, steps: int, *,
     steps positions, then ``steps - 1`` single-token decodes.
     Greedy by default; ``temperature > 0`` with a ``generator`` samples
     through the engine's sampler (seeded within the port: it cannot replay
-    ``jax.random``). Returns (B, steps) int32 on the prompt's device."""
+    ``jax.random``). Returns (B, steps) int32 on the prompt's device.
+
+    Under a current rank (``tp.active``; ``params`` the rank's shards,
+    ``prompt`` the rank's own rows) the cache holds the rank's rows
+    (``init_cache``), so with ``cfg.cp_decode`` every decode step is the
+    context-parallel one (``cp_attention.cp_available``), and each
+    sampled token is the group root's, broadcast, so every rank feeds
+    the same token."""
     model = get_model(cfg)
     tokens = prompt["tokens"]
     b, s = tokens.shape
     cache = model.init_cache(cfg, b, s + steps, device=tokens.device)
     logits, cache = model.prefill(params, prompt, cfg, cache)
-    tok = sample_tokens(logits[:, -1], generator=generator,
-                        temperature=temperature)[:, None]
-    out = [tok]
-    for i in range(steps - 1):
-        logits, cache = model.decode_step(params, cache, tok, s + i, cfg)
+
+    def sample(logits):
         tok = sample_tokens(logits[:, -1], generator=generator,
-                            temperature=temperature)[:, None]
-        out.append(tok)
+                            temperature=temperature)
+        return tp.broadcast_from_root(tok.contiguous(), "tokens")[:, None]
+
+    out = [sample(logits)]
+    for i in range(steps - 1):
+        logits, cache = model.decode_step(params, cache, out[-1], s + i,
+                                          cfg)
+        out.append(sample(logits))
     return torch.cat(out, dim=1)

@@ -248,14 +248,29 @@ def test_ring_cache_decode_matches_forward(qwen_swa, prompt):
 
 
 def test_cp_decode_still_raises_naming_its_item(qwen):
-    cfg, _, _, params = qwen
-    cfg = cfg.with_(cp_decode=True)
-    cache = transformer.init_cache(cfg, 1, 16)
-    transformer.prefill(params, {"tokens": torch.ones((1, 4), dtype=torch.int32)},
-                        cfg, cache)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        transformer.decode_step(params, cache,
-                                torch.ones((1, 1), dtype=torch.int32), 4, cfg)
+    """``cp_decode=True`` with no rank current raises nothing: it is the
+    ordinary decode, as the reference's is where ``cp_available`` is
+    False (no mesh). A prefill of 4 and four decode steps on whole rows
+    (no ``"kv_slice"``) give the reference's ``decode_step`` logits with
+    ``cp_decode`` on within LOGITS_TOL. Under a rank the CP branch runs
+    (tests/test_torch_tp.py, tests/test_torch_parallel.py)."""
+    cfg, jcfg, jparams, params = qwen
+    cfg, jcfg = cfg.with_(cp_decode=True), jcfg.with_(cp_decode=True)
+    toks = _tokens(8, 2, 8, cfg.vocab_size)
+    mod = get_model(jcfg)
+    _, jcache = mod.prefill(jparams, {"tokens": jnp.asarray(toks[:, :4])},
+                            jcfg, mod.init_cache(jcfg, 2, 16))
+    cache = transformer.init_cache(cfg, 2, 16)
+    assert "kv_slice" not in cache and cache["kv"]["k"].shape[2:4] == (16, 2)
+    transformer.prefill(params, {"tokens": _t(toks[:, :4])}, cfg, cache)
+    for pos in range(4, 8):
+        want, jcache = mod.decode_step(jparams, jcache,
+                                       jnp.asarray(toks[:, pos:pos + 1]),
+                                       jnp.asarray(pos, jnp.int32), jcfg)
+        got, cache = transformer.decode_step(
+            params, cache, _t(toks[:, pos:pos + 1]), pos, cfg)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=LOGITS_TOL, rtol=0)
 
 
 # ------------------------------------------------------------- serve steps

@@ -17,7 +17,11 @@ that kills the ranks), each serving its row's tp 2 replica: the union of
 the streams on every rank equals the JAX single engine's, one program
 shape a replica, half the KV a rank, the replicas' ranks disjoint; the
 same with speculative decode, through ``Session.serve(dp=2, tp=2)``, and
-through ``launch/serve.py --dp 2 --tp 2``.
+through ``launch/serve.py --dp 2 --tp 2``. The same four ranks run the
+context-parallel lockstep decode of tests/test_cp_attention.py on
+meshes (1, 4) and (2, 2) (tests/test_torch_tp.py's ``cp_rank``; at (2,
+2) each data row of ranks takes its 2 batch rows), held to JAX's CP
+``decode_step`` under the same mesh and to the JAX full forward.
 """
 import numpy as np
 import pytest
@@ -31,6 +35,10 @@ from repro_torch.params import from_numpy  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve.parallel import (ReplicaRouter,  # noqa: E402
                                         replica_meshes)
+from test_torch_tp import _jax_cp_params, check_cp_rank, cp_rank  # noqa: E402
+
+#: the context-parallel decode's meshes on the four ranks
+CP_MESHES = ((1, 4), (2, 2))
 
 RANK_TIMEOUT = 120.0            # seconds the spawn may take before it fails
 
@@ -282,10 +290,11 @@ def test_launch_serve_dp2_on_the_cpu(capsys):
 
 # --------------------------------------------- dp 2 x tp 2, four ranks
 
-def _topology_rank(rank, world, flat, prompts, spec_prompts):
+def _topology_rank(rank, world, flat, prompts, spec_prompts, cp_flat):
     """One rank of the dp 2 x tp 2 runs: the router over a (2, 2) mesh
     on the engine keywords of the reference's test, with spec on, through
-    ``Session.serve(dp=2, tp=2)`` and through the launcher."""
+    ``Session.serve(dp=2, tp=2)`` and through the launcher; then the CP
+    decode on each of ``CP_MESHES``."""
     import torch.distributed as dist
     from repro_torch.launch.serve import main
     from repro_torch.serve.speculative import SpecConfig
@@ -318,6 +327,7 @@ def _topology_rank(rank, world, flat, prompts, spec_prompts):
     out["launch"] = {r: v.out for r, v in main(
         ["--device", "cpu", "--dp", "2", "--tp", "2", "--requests", "4",
          "--max-new", "4"]).items()}
+    out["cp"] = {shape: cp_rank(shape, cp_flat) for shape in CP_MESHES}
     return out
 
 
@@ -335,7 +345,8 @@ def topology(tmp_path_factory):
     _jax_params(KW)
     flat = _JAX[KW["name"]][2]
     ranks = run_ranks(_topology_rank, 4,
-                      args=(flat, prompts, spec_prompts),
+                      args=(flat, prompts, spec_prompts,
+                            _jax_cp_params()[2]),
                       store_dir=str(tmp_path_factory.mktemp("dp2tp2")),
                       timeout=RANK_TIMEOUT)
     return prompts, spec_prompts, ranks
@@ -391,3 +402,18 @@ def test_dp2_tp2_spec_session_and_launcher_match(topology):
         assert r["spec"]["traces"] == [1, 1]
         assert r["session"] == plain
         assert r["launch"] == launched
+
+
+@pytest.mark.parametrize("shape", CP_MESHES)
+def test_cp_decode_on_four_ranks_matches_jax(topology, shape):
+    """tests/test_cp_attention.py at meshes (1, 4) and (2, 2): on every
+    rank the port's lockstep CP decode (at (2, 2) the data row's 2 batch
+    rows) equals JAX's CP ``decode_step`` under the same mesh within
+    1e-4 and the JAX full forward within 5e-4; each rank's cache holds
+    S / tp positions of both K/V heads (Hkv 2 does not divide tp 4: the
+    reference's ``cache_pspecs`` shards the sequence there too)."""
+    _, _, ranks = topology
+    for r in ranks:
+        check_cp_rank(r["cp"][shape], shape)
+    if shape == (2, 2):
+        assert sorted(r["cp"][shape]["row"] for r in ranks) == [0, 0, 1, 1]

@@ -12,7 +12,16 @@ streams are held to the JAX engine's tp 1 streams on the same weights
 (the reference's own tests pin its tp 2 = tp 1), its counters to the JAX
 engine's, its logits to the JAX ``decode_step``'s within
 tests/test_torch_decode.py's ``LOGITS_TOL`` (the MoE config's within the
-ROADMAP's parity bar, 1e-5). The MoE config (``MOE_KW``: E 4 over tp 2,
+ROADMAP's parity bar, 1e-5). With one KV head (``KW_KV1``) the split
+path's dense rows and SWA ring hold each rank's sequence slice (the
+reference's ``cache_pspecs``) and decode context-parallel. The
+context-parallel lockstep decode (models/cp_attention.py) of
+tests/test_cp_attention.py's Qwen3 smoke config runs on the same spawn:
+its logits against JAX's CP ``decode_step`` under a (1, 2) mesh and the
+JAX full forward, its collective bytes against one cache, and
+``greedy_generate`` under the rank against JAX's streams
+(tests/test_torch_parallel.py runs the (1, 4) and (2, 2) meshes). The
+MoE config (``MOE_KW``: E 4 over tp 2,
 two experts a rank, and ``MOE_E3_KW``: E 3, which the table keeps whole
 on both ranks) and the enc-dec config (``AUDIO_KW``, frames with each
 request) are the reference's ``MOE_CFG`` and ``AUDIO_CFG``
@@ -46,6 +55,7 @@ KW = dict(name="par-dense", arch_type="dense", num_layers=2, d_model=128,
           dtype="float32")
 KW_KV1 = dict(KW, name="par-dense-kv1", num_kv_heads=1)
 KW_RING = dict(KW, name="par-dense-swa", sliding_window=8)
+KW_KV1_RING = dict(KW_KV1, name="par-dense-kv1-swa", sliding_window=8)
 #: tests/test_serve_parallel.py's MOE_CFG and AUDIO_CFG, and MOE_CFG with 3
 #: experts (3 does not divide tp 2: every rank keeps all three)
 MOE_KW = dict(name="par-moe", arch_type="moe", num_layers=2, d_model=64,
@@ -104,7 +114,8 @@ def _motifs():
 #: length k): (a) the reference's tp 2 run, (b) the split path on the pool
 #: and dense rows and the SWA ring, (c) the prefix cache with lazy
 #: growth, as the reference's and on a pool below demand (preemption,
-#: CoW), and speculative decode, (e) one KV head
+#: CoW), and speculative decode, (e) one KV head: the pool replicated,
+#: the dense rows and the ring sequence-sharded
 RUNS = {
     "mixed": (KW, _prompts(0, (5, 7, 6, 8, 5)), 6,
               dict(slots=2, max_len=64, paged=True)),
@@ -126,7 +137,26 @@ RUNS = {
                   spec=4)),
     "kv1": (KW_KV1, _prompts(2, (5, 7, 6, 8)), 6,
             dict(slots=2, max_len=64, paged=True, chunk_tokens=16)),
+    "split_dense_kv1": (KW_KV1, _prompts(2, (5, 7, 6, 8)), 6,
+                        dict(slots=2, max_len=64, paged=False)),
+    "ring_kv1": (KW_KV1_RING, _prompts(1, (5, 7, 6, 8, 5)), 6,
+                 dict(slots=2, max_len=64)),
 }
+
+#: tests/test_cp_attention.py's case: the Qwen3 smoke config (Hkv 2) in
+#: f32 with ``cp_decode``, B 4, S 32 (a 28-token prefill, four decode
+#: steps); its collective-volume case at B 8, S 64; the tolerance of its
+#: logits against the full forward
+CP_B, CP_S, CP_PROMPT = 4, 32, 28
+#: and a 14-token prompt: at tp 2 rank 1's 16 positions are all masked
+#: for two steps, then the cursor lands on the first of them
+CP_SHORT = 14
+CP_VOL_B, CP_VOL_S = 8, 64
+CP_TOL = 5e-4
+CP_TOKS = np.random.default_rng(26).integers(0, 512, size=(CP_B, CP_S)) \
+    .astype(np.int32)
+CP_VOL_TOKS = np.random.default_rng(27).integers(
+    0, 512, size=(CP_VOL_B, CP_VOL_S)).astype(np.int32)
 
 
 def _audio_requests():
@@ -173,9 +203,10 @@ _JAX = {}
 
 
 def _weights(kw):
-    """The name of the config whose weights ``kw`` takes: the ring's are
-    par-dense's (a sliding window changes no shape)."""
-    return KW["name"] if kw["name"] == KW_RING["name"] else kw["name"]
+    """The name of the config whose weights ``kw`` takes: a ring's are
+    its full-attention config's (a sliding window changes no shape)."""
+    return {KW_RING["name"]: KW["name"],
+            KW_KV1_RING["name"]: KW_KV1["name"]}.get(kw["name"], kw["name"])
 
 
 def _jax_params(kw):
@@ -231,6 +262,162 @@ def _jax_family_run(name):
         _JAX[name] = ({i: list(res[i].out) for i in res}, dict(eng.stats),
                       eng.per_device_kv_bytes())
     return _JAX[name]
+
+
+def _cp_cfg(jax=False):
+    """The CP case's config: the port's, or the reference's."""
+    if jax:
+        from repro.configs import get_smoke
+    else:
+        from repro_torch.configs import get_smoke
+    return get_smoke("qwen3-14b").with_(dtype="float32", cp_decode=True)
+
+
+def _jax_cp_params():
+    """(the reference's CP config, its init at key 0, flattened to numpy),
+    made once."""
+    if "cp_params" not in _JAX:
+        import jax
+        from repro.checkpoint.io import _flatten
+        from repro.models import get_model
+        jcfg = _cp_cfg(jax=True)
+        jp = jax.jit(get_model(jcfg).init, static_argnums=1)(
+            jax.random.key(0), jcfg)
+        _JAX["cp_params"] = (jcfg, jp, {k: np.asarray(v) for k, v in
+                                        _flatten(jp).items()})
+    return _JAX["cp_params"]
+
+
+def jax_cp(mesh_shape, prompt=CP_PROMPT):
+    """(JAX's CP ``decode_step`` logits of the steps after ``prompt``
+    tokens under a ``mesh_shape`` ("data", "model") mesh, the cache laid
+    out by its ``cache_pspecs``; JAX's full-forward logits), made once a
+    (mesh, prompt): the steps of tests/test_cp_attention.py on
+    ``CP_TOKS``."""
+    key = ("cp", tuple(mesh_shape), prompt)
+    if key not in _JAX:
+        import jax
+        import jax.numpy as jnp
+        from repro.core import sharding as shd
+        from repro.core.pspec import sharding_rules
+        from repro.core.strategy import Strategy as JaxStrategy
+        from repro.launch.mesh import make_mesh as jax_mesh
+        from repro.models import get_model
+        jcfg, jp, _ = _jax_cp_params()
+        mod = get_model(jcfg)
+        toks = jnp.asarray(CP_TOKS)
+        full, _ = mod.forward(jp, {"tokens": toks}, jcfg)
+        _, cache0 = mod.prefill(jp, {"tokens": toks[:, :prompt]}, jcfg,
+                                mod.init_cache(jcfg, CP_B, CP_S))
+        mesh = jax_mesh(tuple(mesh_shape), ("data", "model"))
+        st = JaxStrategy(remat=False, dtype="float32")
+
+        def named(specs):
+            return jax.tree.map(lambda sp: jax.NamedSharding(mesh, sp),
+                                specs)
+
+        logits = []
+        with sharding_rules(mesh, st.rules(mesh)):
+            # the cache starts as cache_pspecs lays it out and keeps the
+            # layout the CP step returns (the sequence, over "model")
+            step = jax.jit(
+                lambda p, c, t, i: mod.decode_step(p, c, t, i, jcfg),
+                in_shardings=(named(shd.param_pspecs(jp, st, mesh)), None,
+                              None, None))
+            c = jax.device_put(cache0, named(
+                shd.cache_pspecs(cache0, st, mesh, CP_B)))
+            for pos in range(prompt, CP_S):
+                lg, c = step(jp, c, toks[:, pos:pos + 1],
+                             jnp.asarray(pos, jnp.int32))
+                logits.append(np.asarray(lg))
+        _JAX[key] = (logits, np.asarray(full))
+    return _JAX[key]
+
+
+def check_cp_rank(got, mesh_shape):
+    """One rank's CP decode (``cp_rank``) against JAX's CP decode under
+    the same mesh (LOGITS_TOL) and the JAX full forward (CP_TOL), on the
+    rank's data row; its cache holding S / tp positions, every K/V
+    head."""
+    want, full = jax_cp(mesh_shape, got["prompt"])
+    dp, model = mesh_shape
+    b = CP_B // dp
+    rows = slice(got["row"] * b, (got["row"] + 1) * b)
+    for i, pos in enumerate(range(got["prompt"], CP_S)):
+        np.testing.assert_allclose(got["logits"][i], want[i][rows],
+                                   atol=LOGITS_TOL, rtol=0, err_msg=str(pos))
+        np.testing.assert_allclose(got["logits"][i][:, 0], full[rows, pos],
+                                   atol=CP_TOL, rtol=0, err_msg=str(pos))
+    assert got["positions"] == CP_S // model
+    assert got["slice"] == (got["model_rank"] * CP_S // model, CP_S // model)
+    assert got["heads"] == _cp_cfg().num_kv_heads
+    assert got["available"]
+
+
+def cp_rank(mesh_shape, flat, prompt=CP_PROMPT):
+    """The lockstep CP decode on a ``mesh_shape`` ("data", "model") CPU
+    mesh: the rank's shards (``from_numpy(shard=)``), its data row's B /
+    dp rows of ``CP_TOKS``, a ``prompt``-token prefill and a decode step
+    a remaining position under ``tp.active``; each step's logits, what
+    the rank's cache holds and ``cp_available`` after the steps."""
+    toks = CP_TOKS
+    from repro_torch.models import transformer
+    from repro_torch.models.cp_attention import cp_available
+    cfg = _cp_cfg()
+    mesh = make_mesh(tuple(mesh_shape), ("data", "model"),
+                     device_type="cpu")
+    params = from_numpy(flat, cfg, "cpu",
+                        shard=(Strategy(dtype=cfg.dtype), mesh))
+    view = tp.Rank.of(mesh, cfg)
+    row = tp.coordinate(mesh)["data"]
+    b = toks.shape[0] // mesh_shape[0]
+    t = torch.from_numpy(toks[row * b:(row + 1) * b])
+    logits = []
+    with tp.active(view):
+        cache = transformer.init_cache(cfg, b, CP_S)
+        transformer.prefill(params, {"tokens": t[:, :prompt]}, cfg, cache)
+        for pos in range(prompt, CP_S):
+            got, cache = transformer.decode_step(
+                params, cache, t[:, pos:pos + 1], pos, cfg)
+            logits.append(got.numpy())
+        available = cp_available(cfg, cache, CP_S - 1)
+    sl = cache["kv_slice"]
+    return {"row": row, "model_rank": view.rank, "prompt": prompt,
+            "logits": logits,
+            "positions": cache["kv"]["k"].shape[2],
+            "heads": cache["kv"]["k"].shape[3],
+            "slice": (sl.start, sl.length), "available": available}
+
+
+def _cp_extra_rank(world, flat):
+    """(b) the collective volume of one CP decode step at B 8, S 64 (a
+    60-token prefill), by label, bytes and counts; (c) ``greedy_generate``
+    under the rank on ``CP_TOKS``'s prompts; both on a (1, world)
+    mesh."""
+    from repro_torch.models import transformer
+    from repro_torch.serve.step import greedy_generate
+    cfg = _cp_cfg()
+    mesh = _mesh(world)
+    strategy = Strategy(dtype=cfg.dtype)
+    params = from_numpy(flat, cfg, "cpu", shard=(strategy, mesh))
+    view = tp.Rank.of(mesh, cfg)
+    t = torch.from_numpy(CP_VOL_TOKS)
+    with tp.active(view):
+        cache = transformer.init_cache(cfg, CP_VOL_B, CP_VOL_S)
+        transformer.prefill(params, {"tokens": t[:, :-4]}, cfg, cache)
+        prefill = (dict(view.counts), dict(view.bytes))
+        view.counts.clear()
+        view.bytes.clear()
+        transformer.decode_step(params, cache, t[:, -4:-3], CP_VOL_S - 4,
+                                cfg)
+        step = (dict(view.counts), dict(view.bytes))
+        view.counts.clear()
+        streams = greedy_generate(
+            params, cfg, strategy,
+            {"tokens": torch.from_numpy(CP_TOKS[:, :CP_PROMPT])},
+            CP_S - CP_PROMPT)
+    return {"prefill": prefill, "step": step,
+            "greedy": streams.numpy(), "greedy_counts": dict(view.counts)}
 
 
 # ------------------------------------------------------------- the ranks
@@ -426,7 +613,10 @@ def _all_ranks(rank, world, flats, runs, family_runs, toks):
     return {"engine": _engine_rank(rank, world, flats, runs),
             "family": _family_rank(rank, world, flats, family_runs),
             "logits": _logits_rank(rank, world, flats, toks),
-            "session": _session_rank(rank, world)}
+            "session": _session_rank(rank, world),
+            "cp": {p: cp_rank((1, world), flats["cp"], p)
+                   for p in (CP_PROMPT, CP_SHORT)},
+            "cp_extra": _cp_extra_rank(world, flats["cp"])}
 
 
 @pytest.fixture(scope="module")
@@ -436,6 +626,7 @@ def spawned(tmp_path_factory):
         np.int32)
     flats = {kw["name"]: _flat(kw)
              for kw in (KW, KW_KV1, MOE_KW, MOE_E3_KW, AUDIO_KW)}
+    flats["cp"] = _jax_cp_params()[2]
     return toks, run_ranks(_all_ranks, 2,
                            args=(flats, RUNS, FAMILY_RUNS, toks),
                            store_dir=str(tmp_path_factory.mktemp("tp")),
@@ -494,11 +685,16 @@ def test_tp2_mixed_matches_jax_tp1(engine_runs):
     assert run["counts"]["clock"] >= steps
 
 
-@pytest.mark.parametrize("name", ["split_pool", "split_dense", "ring"])
+@pytest.mark.parametrize("name", ["split_pool", "split_dense", "ring",
+                                  "split_dense_kv1", "ring_kv1"])
 def test_tp2_split_path_matches_jax_tp1(engine_runs, name):
     """The split path under tp 2, on the pool, on dense rows and on the
     sliding-window ring (window 8 < the contexts): the JAX engine's
-    streams and program shapes, half the decode state on each rank."""
+    streams and program shapes, half the decode state on each rank. With
+    one KV head the dense rows and the ring hold each rank's sequence
+    slice (the reference's ``cache_pspecs``) and every decode step is
+    context-parallel: one head-assembly sum, one MAX and one SUM a layer,
+    and no K/V assembled in the prefill (both ranks compute the head)."""
     want, jstats, jkv, jdev = _jax_run(name)
     run = engine_runs[name]
     assert run["done"] and run["streams"] == want
@@ -506,6 +702,11 @@ def test_tp2_split_path_matches_jax_tp1(engine_runs, name):
                 "decode_steps"):
         assert run["stats"][key] == jstats[key], key
     assert run["kv_bytes"] == jkv and run["per_device"] * 2 == jkv
+    counts, layers = run["counts"], KW["num_layers"]
+    cp = {k: counts.get(k, 0) for k in ("cp_qkv", "cp_max", "cp_sum")}
+    steps = run["stats"]["decode_steps"] if name.endswith("kv1") else 0
+    assert cp == dict.fromkeys(cp, layers * steps)
+    assert "prefill_kv" not in counts
 
 
 @pytest.mark.parametrize("name", ["prefix", "prefix_dry"])
@@ -710,3 +911,64 @@ def test_tp2_encdec_matches_jax_tp1(family_runs, name):
         admissions, programs = run["stats"]["prefills"], counts["tokens"]
         assert counts["mlp_out"] == enc * admissions + dec * programs
         assert counts["attn_out"] == enc * admissions + 2 * dec * programs
+
+
+# ------------------------------------------- the context-parallel decode
+
+@pytest.mark.parametrize("prompt", [CP_PROMPT, CP_SHORT])
+def test_tp2_cp_decode_matches_jax_cp_decode(spawned, prompt):
+    """tests/test_cp_attention.py at mesh (1, 2): the port's lockstep CP
+    decode on each rank equals JAX's CP ``decode_step`` under the same
+    mesh within LOGITS_TOL and the JAX full forward within 5e-4; each
+    rank's cache holds its 16 of the 32 positions, both K/V heads. After
+    the 14-token prompt rank 1's slice is all masked for two steps (its
+    partial weighs 0), then rank 1 owns the cursor at its first
+    position."""
+    for r in spawned[1]:
+        check_cp_rank(r["cp"][prompt], (1, 2))
+
+
+def test_tp2_cp_collective_volume_is_tiny(spawned):
+    """tests/test_cp_attention.py:50 in the port, at B 8, S 64, tp 2 by
+    ``Rank``'s byte tally: a CP decode step adds per layer one
+    head-assembly sum of q and the new K/V row, one MAX of m and one SUM
+    of (l, o), O(B Hq D) bytes and below one cache's B S Hkv D 4 bytes;
+    no collective of the step carries a cache. The prefill assembles each
+    layer's K/V (its heads are sharded: Hkv 2 over tp 2) by one sum."""
+    cfg = _cp_cfg()
+    b, hq, hkv, d, layers = (CP_VOL_B, cfg.num_heads, cfg.num_kv_heads,
+                             cfg.head_dim, cfg.num_layers)
+    cache_bytes = b * CP_VOL_S * hkv * d * 4
+    want = {"cp_qkv": (b * hq * d + 2 * b * hkv * d) * 4,
+            "cp_max": b * hq * 4, "cp_sum": b * hq * (d + 1) * 4}
+    for r in spawned[1]:
+        counts, nbytes = r["cp_extra"]["step"]
+        for label, per_layer in want.items():
+            assert counts[label] == layers
+            assert nbytes[label] == layers * per_layer
+        extra = sum(want.values())
+        assert extra < cache_bytes and extra <= 4 * b * hq * (d + 1) * 4
+        assert all(nbytes[k] / counts[k] < cache_bytes for k in counts)
+        assert set(counts) == set(want) | {"embed", "attn_out", "mlp_out",
+                                           "logits"}
+        pcounts, pbytes = r["cp_extra"]["prefill"]
+        assert pcounts["prefill_kv"] == layers
+        assert pbytes["prefill_kv"] == layers * 2 * b * (CP_VOL_S - 4) \
+            * hkv * d * 4
+
+
+def test_tp2_greedy_generate_cp_matches_jax(spawned):
+    """``greedy_generate`` under the tp 2 rank with ``cp_decode`` (the
+    rank's cache rows, its prefill, CP decode steps, the root's token
+    broadcast each step) gives JAX ``greedy_generate``'s streams on both
+    ranks."""
+    import jax.numpy as jnp
+    from repro.core.strategy import Strategy as JaxStrategy
+    from repro.serve.step import greedy_generate
+    jcfg, jp, _ = _jax_cp_params()
+    want = np.asarray(greedy_generate(
+        jp, jcfg, JaxStrategy(), {"tokens": jnp.asarray(
+            CP_TOKS[:, :CP_PROMPT])}, CP_S - CP_PROMPT))
+    for r in spawned[1]:
+        np.testing.assert_array_equal(r["cp_extra"]["greedy"], want)
+        assert r["cp_extra"]["greedy_counts"]["tokens"] == CP_S - CP_PROMPT

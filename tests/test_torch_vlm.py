@@ -362,12 +362,47 @@ def test_decode_matches_forward_and_reference(name):
     assert int(cache["pos"]) == int(jcache["pos"]) == p + 4
 
 
-def test_cp_decode_raises_naming_the_parallelism_item():
+def test_cp_decode_without_a_rank_equals_the_reference():
+    """``cp_decode=True`` with no rank current is the ordinary decode, as
+    the reference's is where ``cp_available`` is False (no mesh, so its
+    decode is the one ``_jax_outputs`` ran): a prefill and four decode
+    steps give the reference's logits within 1e-5."""
     _, cfg, _, params = _pair("rest0")
+    cfg = cfg.with_(cp_decode=True)
+    toks, img, p, _, steps, _ = _jax_outputs("rest0")
+    with torch.no_grad():
+        cache = vlm.init_cache(cfg, 2, 32, device="cpu")
+        lg, cache = vlm.prefill(params, {"tokens": _t(toks[:, :p]),
+                                         "image_embeds": _t(img)}, cfg, cache)
+        out = [lg]
+        for i in range(4):
+            lg, cache = vlm.decode_step(params, cache,
+                                        _t(toks[:, p + i:p + i + 1]), p + i,
+                                        cfg)
+            out.append(lg)
+    np.testing.assert_allclose(torch.cat(out, dim=1).numpy(), steps,
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_cp_decode_raises_naming_the_parallelism_item():
+    """Under a live tensor-parallel rank the VLM's prefill and decode
+    raise naming item 11 and its step (the VLM under a mesh), before any
+    collective: its layers do not run on a rank's shards yet."""
+    from repro_torch.core import tp
+    _, cfg, _, params = _pair("rest0")
+    cfg = cfg.with_(cp_decode=True)
     cache = vlm.init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        vlm.decode_step(params, cache, torch.zeros((1, 1), dtype=torch.int32),
-                        0, cfg.with_(cp_decode=True))
+    rank = tp.Rank(tp=2, rank=0, group=None, root=0, heads=cfg.num_heads // 2,
+                   kv_heads=cfg.num_kv_heads, kv_read=None)
+    tok = torch.zeros((1, 1), dtype=torch.int32)
+    with tp.active(rank):
+        with pytest.raises(NotImplementedError,
+                           match="item 11.*the VLM under a mesh"):
+            vlm.decode_step(params, cache, tok, 0, cfg)
+        with pytest.raises(NotImplementedError,
+                           match="item 11.*the VLM under a mesh"):
+            vlm.prefill(params, {"tokens": tok, "image_embeds": torch.zeros(
+                (1, cfg.num_image_tokens, cfg.d_model))}, cfg, cache)
 
 
 # -------------------------------------------------------------- training
