@@ -107,7 +107,12 @@ Phases (any failure exits non-zero; no result line is printed then):
    for T 8192 and T 1, each per value, its defect rejected, timed beside
    SDPA / three matmuls with its bound; its f32 check's shapes in fp32:
    flash at (1, 1024, 1024, 20, 4, 128) within 2e-6 and the MLP at T 1024
-   and T 1 within 1e-5, each shown to reject its defect;
+   and T 1 within 1e-5, each shown to reject its defect; then at the
+   shapes phase 24 adds: bf16 flash at a tp 2 training rank's (1, 2048,
+   2048, 20, 4, 128) causal, per value, its defect rejected, timed beside
+   SDPA with its bound and its plain backward timed; fp32 flash at the
+   f32 check's (1, 256, 256, 20, 4, 128) and (2, 256, 256, 40, 8, 128)
+   within 2e-6, each shown to reject dropped keys;
 4. tiny float32 configs on the card and on the CPU (TF32 off): through
    the port's engine on each layout — the mixed step, the split path on
    the pool (``mixed=False``) and on the dense layout (``paged=False``),
@@ -442,6 +447,26 @@ Phases (any failure exits non-zero; no result line is printed then):
    head-sharded logits' largest magnitude of the head-sharded path's, a
    version dropping rank 0's partial outside it. Not context
    parallelism's speed: two ranks share one card over gloo.
+24. SHARDED TRAINING, after phase 6: Qwen3-14B at full width cut to 2
+   layers at dp 2 x tp 2, four rank processes sharing the card over gloo,
+   each through ``Trainer(mesh=)`` drawing only its shards (20/4 heads,
+   d_ff 8704, half the vocabulary a rank; 1.108 B params): 3 AdamW steps
+   (remat on), a fresh global batch of 2 x 2048 tokens each step (the
+   token dataset), under ZeRO-1 (the default), FSDP and sequence
+   parallelism. Counts zeroed just before
+   each run and read just after, on each rank: flash 2 layers x 2
+   (forward and remat recompute) x 3 steps, the others never. Every
+   rank's loss and grad norm equal each step, the two data replicas'
+   param blocks equal bit for bit after each step. Prints step p50,
+   tokens/s, peak memory a rank and a step's collectives and bytes by
+   label. Then the f32 check (TF32 off) at 1 layer, full width, 2 x 256
+   tokens, lr 1e-3: the one-device step first (the first rank; moved to
+   the host, freed and broadcast to every rank's host), then each run at
+   (2, 2): loss within 1e-4 and
+   every param within atol / rtol 5e-4 of it, and a version that drops
+   the "data" gradient sum outside that bound. Four ranks share one
+   card's SMs and gloo stages every collective through host memory: not
+   parallelism's speed.
 
 Last, every process the run started (nvcc, cuobjdump, the rank
 processes and the ``multiprocessing`` resource tracker their start
@@ -6171,6 +6196,387 @@ def phase_cp_serve(seed: int, smi: str):
         f"{f['dropped_err']:.3e}; argmax equal {f['streams_equal']}")
     return out
 
+# ----------------------------------------------------------- phase 24
+
+#: phase 24: Qwen3-14B at full width cut to 2 layers, dp 2 x tp 2 over
+#: four gloo rank processes on the card, a fresh global batch of 2 x 2048
+#: each step (one 2048-token row a data rank), 3 AdamW steps of each run
+SHARDED_LAYERS, SHARDED_STEPS, SHARDED_SEQ, SHARDED_BATCH = 2, 3, 2048, 2
+SHARDED_MESH = (2, 2)
+SHARDED_RUNS = {"zero1": {}, "fsdp": dict(fsdp=True),
+                "sp": dict(seq_parallel=True)}
+#: its f32 check: 1 layer, full width, global batch 2 x 256, lr 1e-3,
+#: against the one-device step at the reference test's bounds
+SHARDED_F32_LAYERS, SHARDED_F32_SEQ, SHARDED_F32_LR = 1, 256, 1e-3
+SHARDED_LOSS_TOL, SHARDED_PARAM_TOL = 1e-4, 5e-4
+SHARDED_TIMEOUT_S = 600.0
+#: the rank shapes flash takes there: a tp 2 rank's 20/4 heads x 128 over
+#: one data rank's 2048 positions (bf16); the f32 check's 256 positions at
+#: a rank's heads and the one-device step's (2, 256) at all 40/8
+TRAIN_TP_FLASH = (1, SHARDED_SEQ, SHARDED_SEQ) + TP_SHAPES[2][0] + (128,)
+TRAIN_TP_F32_FLASH = ((1, SHARDED_F32_SEQ, SHARDED_F32_SEQ)
+                      + TP_SHAPES[2][0] + (128,),
+                      (SHARDED_BATCH, SHARDED_F32_SEQ, SHARDED_F32_SEQ, 40,
+                       8, 128))
+
+
+def phase_train_tp_kernels(seed: int):
+    """Flash at the shapes phase 24 gives it: bf16 at ``TRAIN_TP_FLASH``
+    (causal) per value at phase 3's limits (atol 1e-5 + rtol 8e-3), shown
+    to reject dropped keys, timed beside SDPA with its bound, and its
+    plain backward (softmax recompute) timed at that shape; fp32 at the
+    f32 check's shapes within phase 3's fp32 2e-6, each shown to reject
+    dropped keys. Returns {"flash_attention": records}."""
+    from repro_torch.kernels import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(seed + 2427)
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
+    rec = _flash_shape(gen, TRAIN_TP_FLASH, 1e-5, 8e-3, timed=True)
+    q, k, v = _flash_inputs(gen, TRAIN_TP_FLASH, torch.bfloat16)
+    g = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    rec["backward_ms"] = time_ms(lambda: fa.flash_attention_bwd(
+        q, k, v, g, causal=True), iters=3, warmup=1)
+    log(f"[flash bf16 {TRAIN_TP_FLASH}] plain backward (softmax recompute) "
+        f"{rec['backward_ms']:.4f} ms")
+    out = [rec]
+    del q, k, v, g
+    for shape in TRAIN_TP_F32_FLASH:
+        q, k, v = _flash_inputs(gen, shape, torch.float32)
+        n = shape[1]
+        want = fa.flash_attention_plain(q, k, v, causal=True)
+        err = (fa.flash_attention(q, k, v, causal=True) - want).abs().max() \
+            .item()
+        bad = (fa.flash_attention_plain(q, k, v, causal=True,
+                                        window=n - 64) - want).abs().max() \
+            .item()
+        check(err <= 2e-6, f"flash fp32 at {shape}: max abs err {err} > 2e-6")
+        check(bad > 2e-6, f"the fp32 flash check at {shape} passes a "
+                          f"version that drops keys ({bad})")
+        log(f"[flash f32 {shape} causal] max_abs_err {err:.3e} (atol 2e-6); "
+            f"a version that drops keys would be {bad:.3e}")
+        out.append({"shape": list(shape), "dtype": "float32",
+                    "max_abs_err": err, "dropped_keys_max_abs_err": bad})
+    torch.cuda.empty_cache()
+    return {"flash_attention": out}
+
+
+def _fingerprint(x: torch.Tensor) -> int:
+    """A position-weighted sum of ``x``'s bits (int64, wrapping): two
+    tensors that differ in one element differ in it."""
+    bits = x.detach().reshape(-1).view(
+        {2: torch.int16, 4: torch.int32}[x.element_size()])
+    total = torch.zeros((), dtype=torch.int64, device=x.device)
+    step = 1 << 24
+    for at in range(0, bits.numel(), step):
+        part = bits[at:at + step].long()
+        w = torch.arange(at, at + part.numel(), device=x.device) % 65521 + 1
+        total += (part * w).sum()
+    return int(total)
+
+
+def _chunked_excess(got, want_host, atol: float, rtol: float) -> float:
+    """``worst_excess`` of ``got`` (on the card) against ``want_host`` (on
+    the host), 2^24 values at a time: a whole embedding's temporaries
+    would not fit beside four ranks."""
+    a, b = got.reshape(-1), want_host.reshape(-1)
+    step = 1 << 24
+    return max(worst_excess(a[at:at + step], b[at:at + step].cuda(), atol,
+                            rtol) for at in range(0, a.numel(), step))
+
+
+def _rank_log(rank: int, msg: str) -> None:
+    """Progress of the first rank process of phase 24 (the others are
+    silent), so a failed or slow run shows where it stood."""
+    if rank == 0:
+        print(f"[sharded train rank 0] {msg}", flush=True)
+
+
+def _sharded_bf16_run(mesh, cfg, name: str, seed: int):
+    """One of phase 24's runs on this rank: a Trainer on ``mesh`` drawing
+    only its shards, ``SHARDED_STEPS`` steps on the token dataset's
+    global batches from ``seed``; launches counted from 0 just before
+    the steps; each step's time, metrics and the fingerprints of the
+    data-replicated param blocks; the last step's collectives and
+    bytes."""
+    from repro_torch import kernels
+    from repro_torch.core.strategy import Strategy
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    from repro_torch.tree import flatten
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    strategy = Strategy(dtype=cfg.dtype, **SHARDED_RUNS[name])
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, strategy, "cuda", TrainConfig(
+        steps=SHARDED_STEPS, lr=3e-4, log_every=1, seed=seed),
+        global_batch=SHARDED_BATCH, seq_len=SHARDED_SEQ, mesh=mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    r = trainer.rank
+    flat = flatten(trainer.params)
+    replicated = [k for k in flat if r.leaves[k].fsdp_dim is None]
+    out = {"build_s": build_s, "step_s": [], "fingerprints": [],
+           "params_rank": sum(v.numel() for v in flat.values()),
+           "param_gb_rank": sum(v.numel() * v.element_size()
+                                for v in flat.values()) / 1e9,
+           "state_gb_rank": sum(v.numel() * v.element_size()
+                                for sub in trainer.opt_state.values()
+                                if isinstance(sub, dict)
+                                for v in flatten(sub).values()) / 1e9,
+           "replicated_leaves": len(replicated)}
+    kernels.reset_launches()
+    for i in range(SHARDED_STEPS):
+        if i == SHARDED_STEPS - 1:
+            r.counts.clear()
+            r.bytes.clear()
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        trainer.run(1)                      # ends in float(loss): a sync
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - s0)
+        flat = flatten(trainer.params)
+        out["fingerprints"].append({k: _fingerprint(flat[k])
+                                    for k in replicated})
+    out["launches"] = kernels.launches()
+    out["history"] = [{k: h[k] for k in ("loss", "aux_loss", "grad_norm")}
+                      for h in trainer.history]
+    out["step_collectives"] = dict(r.counts)
+    out["step_bytes"] = dict(r.bytes)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del trainer, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sharded_f32_rank(mesh, seed: int, tokens):
+    """Phase 24's f32 check on this rank (TF32 off): the first rank runs
+    the one-device step (full width, ``SHARDED_F32_LAYERS`` layer) alone
+    on the card and broadcasts its new params and metrics from the host
+    to every rank's host (gloo on CPU tensors); then every rank runs one
+    step of each of ``SHARDED_RUNS`` on its shards — and the ZeRO-1 run
+    without the "data" gradient sum, the defect — and holds its blocks to
+    the same blocks of the one-device step's: the worst |err| / (atol +
+    rtol |want|) at the reference test's 5e-4, and the loss's
+    distance."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import tp
+    from repro_torch.core.strategy import Strategy, mesh_axes
+    from repro_torch.params import full_shapes, init_params
+    from repro_torch.train import step as tstep
+    from repro_torch.tree import flatten
+    cfg = get_config("qwen3-14b").with_(num_layers=SHARDED_F32_LAYERS,
+                                        dtype="float32")
+    batch = {"tokens": torch.from_numpy(tokens).cuda()}
+    shapes = full_shapes(cfg)
+    lead = dist.get_rank() == 0
+    out, ref = {}, {}
+    metrics = torch.zeros(2, dtype=torch.float64)
+    if lead:
+        st = Strategy(dtype="float32")
+        params = init_params(cfg, device="cuda", seed=seed + 1)
+        step = tstep.make_train_step(cfg, st, lr=SHARDED_F32_LR)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        new, opt, m = step(params, tstep.init_opt_state(params, st), batch)
+        torch.cuda.synchronize()
+        out["one_device"] = {"step_s": time.perf_counter() - t0,
+                             "peak_mem_gb":
+                             torch.cuda.max_memory_allocated() / 1e9}
+        metrics[:] = torch.tensor([float(m["loss"]), float(m["grad_norm"])])
+        ref = {k: v.detach().cpu() for k, v in flatten(new).items()}
+        del params, new, opt, step, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the first rank's result to every rank, on the host (gloo, CPU)
+    t0 = time.perf_counter()
+    dist.broadcast(metrics, src=0)
+    for key, shape in shapes.items():
+        if not lead:
+            ref[key] = torch.empty(shape, dtype=torch.float32)
+        dist.broadcast(ref[key], src=0)
+    out["broadcast_s"] = time.perf_counter() - t0
+    out.setdefault("one_device", {}).update(loss=float(metrics[0]),
+                                            grad_norm=float(metrics[1]))
+    axes, coord = mesh_axes(mesh), tp.coordinate(mesh)
+    real_sum = tp.axis_sum
+
+    def dropped(x, axis, what, r=None):     # the defect: no "data" grad sum
+        return x if what == "dp_grads" else real_sum(x, axis, what, r)
+    runs = dict(SHARDED_RUNS)
+    runs["zero1, data gradient sum dropped"] = {}
+    for name, kw in runs.items():
+        st = Strategy(dtype="float32", **kw)
+        rank = tp.Rank.of(mesh, cfg, st, shapes)
+        params = init_params(cfg, device="cuda", seed=seed + 1,
+                             shard=(st, mesh))
+        step = tstep.make_train_step(cfg, st, lr=SHARDED_F32_LR)
+        tp.axis_sum = dropped if "dropped" in name else real_sum
+        try:
+            with tp.active(rank):
+                opt = tstep.init_opt_state(params, st)
+                new, opt, m = step(params, opt, batch)
+        finally:
+            tp.axis_sum = real_sum
+        worst, worst_key = 0.0, None
+        for key, block in flatten(new).items():
+            want = tp.shard_leaf(ref[key], rank.leaves[key].spec, axes,
+                                 coord)
+            e = _chunked_excess(block.detach(), want, SHARDED_PARAM_TOL,
+                                SHARDED_PARAM_TOL)
+            if e > worst:
+                worst, worst_key = e, key
+        out[name] = {"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "param_error_of_limit": worst, "worst_leaf": worst_key,
+                     "loss_err": abs(float(m["loss"])
+                                     - out["one_device"]["loss"])}
+        del params, new, opt, step, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sharded_train_rank(rank: int, world: int, seed: int, f32_tokens):
+    """One rank of phase 24 on cuda:0 (gloo): the three bf16 runs, then
+    the f32 check."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    _tp_rank_setup()
+    mesh = make_mesh(SHARDED_MESH, ("data", "model"))
+    cfg = get_config("qwen3-14b").with_(num_layers=SHARDED_LAYERS)
+    out = {"rank": rank, "coord": {n: int(mesh[n].get_local_rank())
+                                   for n in mesh.mesh_dim_names}}
+    t0 = time.perf_counter()
+    for name in SHARDED_RUNS:
+        out[name] = _sharded_bf16_run(mesh, cfg, name, seed)
+        _rank_log(rank, f"{name} done at {time.perf_counter() - t0:.1f}s: "
+                        f"steps {[round(x, 3) for x in out[name]['step_s']]}"
+                        f" s, peak {out[name]['peak_mem_gb']:.2f} GB")
+    out["f32"] = _sharded_f32_rank(mesh, seed, f32_tokens)
+    _rank_log(rank, f"f32 check done at {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def phase_train_sharded(seed: int, smi: str):
+    """Phase 24: SHARDED TRAINING of Qwen3-14B at full width (40/8 heads x
+    128, d_ff 17408, vocab 151,936; depth cut to ``SHARDED_LAYERS``) at
+    dp 2 x tp 2: four rank processes sharing the card over gloo
+    (``launch/ranks.py``; NCCL refuses two ranks on one device), each
+    drawing only its shards through ``Trainer(mesh=)``. Three runs of
+    ``SHARDED_STEPS`` AdamW steps (remat on), each on a fresh global
+    batch of 2 x 2048 tokens from the token dataset (``--seed``): ZeRO-1
+    (the default), FSDP and sequence parallelism.
+    Launches counted from 0 around each run: flash layers x 2 (forward
+    and remat recompute) a step a rank, the others never. Every rank
+    reports the same loss and grad norm each step; the two data replicas'
+    param blocks are equal bit for bit after each step (a fingerprint of
+    each data-replicated block); a rank's failure or timeout fails the
+    run. Prints step p50, tokens/s, peak memory a rank and a step's
+    collectives and bytes by label. Then the f32 check (TF32 off) at
+    ``SHARDED_F32_LAYERS`` layer, full width, global batch 2 x 256: the
+    one-device step first (the first rank alone on the card, its result
+    moved to the host and broadcast), then each run at (2, 2): loss
+    within 1e-4 and every param block within atol / rtol 5e-4 of the
+    one-device step's (the reference test's bounds), and a version that
+    drops the "data" gradient sum outside them. Four ranks share one
+    card's SMs and gloo stages every collective through host memory:
+    these numbers are not parallelism's speed."""
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen3-14b")
+    rng = np.random.default_rng(seed + 24)
+    f32_tokens = rng.integers(0, cfg.vocab_size, size=(
+        SHARDED_BATCH, SHARDED_F32_SEQ)).astype(np.int32)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = _spawn_ranks(_sharded_train_rank, (seed, f32_tokens),
+                         SHARDED_TIMEOUT_S, "sharded train",
+                         world=math.prod(SHARDED_MESH))
+    note = ("four ranks share one card's SMs and gloo stages every "
+            "collective through host memory: not parallelism's speed")
+    layers = SHARDED_LAYERS
+    want = {"flash_attention": layers * 2 * SHARDED_STEPS, "fused_mlp": 0,
+            "paged_attention": 0, "ssd_scan": 0}
+    out = {"note": note, "card": smi, "ranks": ranks}
+    tokens_step = SHARDED_BATCH * SHARDED_SEQ
+    for name in SHARDED_RUNS:
+        for r in ranks:
+            run, tag = r[name], f"[sharded train {name}] rank {r['rank']}"
+            check(run["launches"] == want,
+                  f"{tag} launches {run['launches']} != {want}")
+            check(run["history"] == ranks[0][name]["history"],
+                  f"{tag} metrics {run['history']} differ from rank 0's "
+                  f"{ranks[0][name]['history']}")
+            check(all(math.isfinite(h["loss"]) and math.isfinite(
+                h["grad_norm"]) for h in run["history"]),
+                f"{tag} metrics {run['history']}")
+            for other in ranks:
+                if other["coord"]["model"] == r["coord"]["model"]:
+                    check(other[name]["fingerprints"] == run["fingerprints"],
+                          f"{tag}: its data replica's param blocks differ")
+        r0 = ranks[0][name]
+        check(name == "fsdp" or r0["replicated_leaves"] > 0,
+              f"[sharded train {name}] no data-replicated block to compare")
+        p50 = float(np.percentile(r0["step_s"], 50))
+        out[name] = {"step_p50_s": p50, "tokens_per_s": tokens_step / p50,
+                     "peak_mem_gb_ranks": [x[name]["peak_mem_gb"]
+                                           for x in ranks],
+                     "losses": [h["loss"] for h in r0["history"]]}
+        log(f"[sharded train {name}] Qwen3-14B {layers} layers, full width, "
+            f"dp 2 x tp 2 on {smi}: {r0['params_rank'] / 1e9:.3f} B params "
+            f"({r0['param_gb_rank']:.2f} GB) and {r0['state_gb_rank']:.2f} GB "
+            f"of AdamW state a rank (drawn in {r0['build_s']:.1f}s); "
+            f"{SHARDED_STEPS} steps of {SHARDED_BATCH} x {SHARDED_SEQ} "
+            f"tokens: step p50 {p50:.3f} s ({[round(x, 3) for x in r0['step_s']]}"
+            f"), {tokens_step / p50:.1f} tokens/s; peak memory a rank "
+            f"{[round(x[name]['peak_mem_gb'], 2) for x in ranks]} GB; losses "
+            f"{[round(h['loss'], 4) for h in r0['history']]}, grad norms "
+            f"{[round(h['grad_norm'], 4) for h in r0['history']]}; a step's "
+            f"collectives {r0['step_collectives']} and MB "
+            f"{ {k: round(v / 1e6, 1) for k, v in r0['step_bytes'].items()} };"
+            f" data replicas equal bit for bit on {r0['replicated_leaves']} "
+            f"blocks; launches {r0['launches']} — {note}")
+    f = ranks[0]["f32"]
+    check(all(r["f32"]["one_device"]["loss"] == f["one_device"]["loss"]
+              for r in ranks), "[sharded f32] the one-device step's loss "
+                               "differs between ranks after its broadcast")
+    for r in ranks:             # each rank's own blocks; the worst kept
+        for name in list(SHARDED_RUNS) + ["zero1, data gradient sum "
+                                          "dropped"]:
+            if r["f32"][name]["param_error_of_limit"] > \
+                    f[name]["param_error_of_limit"]:
+                f[name] = r["f32"][name]
+            f[name]["loss_err"] = max(f[name]["loss_err"],
+                                      r["f32"][name]["loss_err"])
+    for name in SHARDED_RUNS:
+        rec = f[name]
+        check(rec["loss_err"] <= SHARDED_LOSS_TOL,
+              f"[sharded f32 {name}] loss {rec['loss']} is {rec['loss_err']} "
+              f"from the one-device step's")
+        check(rec["param_error_of_limit"] <= 1.0,
+              f"[sharded f32 {name}] {rec['worst_leaf']} at "
+              f"{rec['param_error_of_limit']:.3f}x atol/rtol 5e-4")
+    bad = f["zero1, data gradient sum dropped"]
+    check(bad["param_error_of_limit"] > 1.0,
+          f"[sharded f32] the check passes a version that drops the 'data' "
+          f"gradient sum ({bad['param_error_of_limit']:.3f}x)")
+    out["f32"] = f
+    log(f"[sharded f32] Qwen3-14B {SHARDED_F32_LAYERS} layer, full width, "
+        f"f32, {SHARDED_BATCH} x {SHARDED_F32_SEQ} tokens, lr "
+        f"{SHARDED_F32_LR}: one-device loss {f['one_device']['loss']:.6f} "
+        f"(step {f['one_device']['step_s']:.2f} s, peak "
+        f"{f['one_device']['peak_mem_gb']:.2f} GB; broadcast to the ranks "
+        f"in {max(r['f32']['broadcast_s'] for r in ranks):.1f} s); "
+        + "; ".join(f"{n}: loss err {f[n]['loss_err']:.2e}, worst param "
+                    f"{f[n]['param_error_of_limit']:.3f}x the limit "
+                    f"({f[n]['worst_leaf']})" for n in SHARDED_RUNS)
+        + f"; the data gradient sum dropped: "
+        f"{bad['param_error_of_limit']:.1f}x the limit (atol / rtol "
+        f"{SHARDED_PARAM_TOL}, loss {SHARDED_LOSS_TOL})")
+    return out
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -6230,6 +6636,11 @@ def main():
         if k["name"] in cp_shapes:
             k["cp_shapes"] = cp_shapes[k["name"]]
     mark("3 kernels at the context-parallel Qwen3-14B's new shapes")
+    train_tp_shapes = phase_train_tp_kernels(args.seed)
+    for k in kernels:
+        if k["name"] in train_tp_shapes:
+            k["train_tp_shapes"] = train_tp_shapes[k["name"]]
+    mark("3 kernels at the sharded training's rank shapes")
     parity = phase_parity()
     record["parity_logits_err"] = parity.pop("mixed")
     record["parity_split_logits_err"] = parity
@@ -6282,6 +6693,8 @@ def main():
     mark("6 dense training")
     gc.collect()                          # the trainer died with phase 6
     torch.cuda.empty_cache()
+    record["sharded_train"] = phase_train_sharded(args.seed, smi)
+    mark("24 sharded training")
     record["ssm"] = phase_ssm(args.seed)
     mark("7 SSM serving")
     gc.collect()
@@ -6336,7 +6749,8 @@ def main():
     # fused MLP, both runs), phases 21 and 22 (each rank: paged attention
     # on the mixed step, flash in whisper-tiny's encoder there, flash and
     # paged attention on the split path), phase 23 (each rank: flash and
-    # the fused MLP on the CP and the head-sharded paths)
+    # the fused MLP on the CP and the head-sharded paths), phase 24 (each
+    # rank: flash in each of the ZeRO-1, FSDP and SP runs)
     paths = [main_run, record["train"], record["ssm"],
              *record["spec"].values(), *record["online"].values(),
              record["hybrid"], *record["train_families"].values(),
@@ -6353,7 +6767,10 @@ def main():
                for r in record[phase]["ranks"]
                for name in ("mixed", "split")),
              *(r[name] for r in record["cp"]["ranks"]
-               for name in ("cp", "heads"))]
+               for name in ("cp", "heads")),
+             # phase 24: each rank's own launches, in each of its runs
+             *(r[name] for r in record["sharded_train"]["ranks"]
+               for name in SHARDED_RUNS)]
     for k in kernels:
         k["launches"] = sum(run["launches"][k["name"]] for run in paths)
     record["kernels"] = kernels

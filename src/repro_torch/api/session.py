@@ -30,6 +30,9 @@
     router = session.serve(dp=2, devices=["cuda:0"] * 2, slots=4)
     # dp 2 x tp 2, in each of 4 rank processes (torchrun)
     router = Session(get_config("qwen3-14b")).serve(dp=2, tp=2, slots=4)
+    # sharded training, dp 2 x tp 2, in each of 4 rank processes
+    small.train(TrainConfig(steps=3), global_batch=2, seq_len=2048,
+                tp=2, dp=2).run()
 
 One object owns the config, the strategy, the device and the params
 (random from ``seed`` unless given — e.g. from the JAX package's
@@ -44,7 +47,9 @@ split path on the dense layout; ``prefix_cache``, ``lazy`` and
 ``scheduler`` pass through to the engine (on the paged pool); ``tp=N``
 serves a dense or MoE decoder or the enc-dec family tensor-parallel, one
 engine a rank process; ``dp=M`` serves M replicas behind a
-``ReplicaRouter`` (serve/parallel.py).
+``ReplicaRouter`` (serve/parallel.py). ``train(tp=, dp=)`` trains a
+dense or MoE decoder on a ("data", "model") mesh, one trainer a rank
+process, with the strategy's ZeRO-1, FSDP and sequence parallelism.
 ``generate`` is the lockstep greedy loop
 (``serve/step.py::greedy_generate``). ``serve_async`` wraps the engine
 in the online ``AsyncDriver`` (a background step loop, per-request token
@@ -137,7 +142,8 @@ class Session:
 
     def train(self, train_cfg: Optional[TrainConfig] = None, *, data=None,
               global_batch: int = 8, seq_len: int = 256,
-              restore: bool = False) -> Trainer:
+              restore: bool = False, tp: Optional[int] = None,
+              dp: Optional[int] = None) -> Trainer:
         """A Trainer on this session's strategy, device and params (the
         session's seed initialises them). ``restore=True`` resumes from
         the TrainConfig's checkpoint dir first. The enc-dec family trains
@@ -145,12 +151,30 @@ class Session:
         beside the tokens, the VLM on one that carries ``image_embeds``:
         the default token dataset has neither, so its first step raises
         ``KeyError`` in the model's forward, where the reference's fails
-        too."""
-        check_kernel_limits(self.cfg, self.strategy, self.device)
+        too.
+
+        ``tp=N`` and / or ``dp=M`` (with N x M > 1), called on every rank
+        of an initialised process group of M x N ranks (one process a
+        rank, as ``torchrun`` starts them), train a dense or MoE decoder
+        as this rank of the ("data", "model") = (M, N) mesh on the
+        session's device type (``train/trainer.py``): the session's
+        params cut to the rank's blocks, or, when the session has none
+        yet, only the rank's blocks drawn from its seed (kept by the
+        trainer: the session's ``params`` stay the full tree, or none)."""
         tc = train_cfg or TrainConfig(seed=self.seed)
-        trainer = Trainer(self.cfg, self.strategy, self.device, tc,
-                          data=data, global_batch=global_batch,
-                          seq_len=seq_len, params=self.params)
+        tp, dp = tp or 1, dp or 1
+        if tp * dp > 1:
+            mesh = make_mesh((dp, tp), ("data", "model"),
+                             device_type=self.device.type)
+            trainer = Trainer(self.cfg, self.strategy, self.device, tc,
+                              data=data, global_batch=global_batch,
+                              seq_len=seq_len, params=self._params,
+                              mesh=mesh)
+        else:
+            check_kernel_limits(self.cfg, self.strategy, self.device)
+            trainer = Trainer(self.cfg, self.strategy, self.device, tc,
+                              data=data, global_batch=global_batch,
+                              seq_len=seq_len, params=self.params)
         if restore:
             trainer.maybe_restore()
         return trainer

@@ -15,7 +15,7 @@ from __future__ import annotations
 import json
 import re
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -59,9 +59,12 @@ def latest_step(directory) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def load_checkpoint(directory, step: int, like):
+def load_checkpoint(directory, step: int, like, *,
+                    block: Optional[Callable] = None):
     """Restore into the keys of ``like``, each leaf on its device and in
-    its dtype (shape- and dtype-checked)."""
+    its dtype (shape- and dtype-checked). ``block(key, full)``: the part
+    of the full leaf that ``like`` holds (a sharded trainer's rank
+    block), cut on the host before it is checked and moved."""
     d = Path(directory) / f"step_{step:08d}"
     flat_like = flatten(like)
     with np.load(d / "arrays.npz") as data:
@@ -71,9 +74,11 @@ def load_checkpoint(directory, step: int, like):
                 f"checkpoint missing keys: {sorted(missing)[:5]}")
         out = {}
         for key, leaf in flat_like.items():
-            arr = data[key]
-            if tuple(arr.shape) != tuple(leaf.shape):
+            t = _to_tensor(key, data[key], leaf.dtype)
+            if block is not None:
+                t = block(key, t)
+            if tuple(t.shape) != tuple(leaf.shape):
                 raise ValueError(f"shape mismatch for {key}: "
-                                 f"{arr.shape} vs {tuple(leaf.shape)}")
-            out[key] = _to_tensor(key, arr, leaf.dtype).to(leaf.device)
+                                 f"{tuple(t.shape)} vs {tuple(leaf.shape)}")
+            out[key] = t.to(leaf.device)
     return unflatten(out)

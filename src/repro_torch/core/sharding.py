@@ -19,9 +19,10 @@ Trees are nested dicts (lists and tuples too) whose leaves carry
 stand-ins (``jax.ShapeDtypeStruct`` in the parity tests). ``mesh`` is a
 ``DeviceMesh`` or an ``{axis: size}`` mapping (``strategy.mesh_axes``),
 so the tables run without a process group. The serving engine reads
-``param_pspecs`` and ``cache_pspecs``; the optimizer-state specs are held
-to the reference's now and wait for training sharding (ROADMAP.md Queue
-1 item 11).
+``param_pspecs`` and ``cache_pspecs``; the trainer on a mesh reads
+``param_pspecs`` (through ``core/tp.py::rank_pspecs``), ``zero1_spec``
+and ``_state_leaf_spec`` (``opt_state_pspecs``' rule a leaf) for the
+blocks a rank holds and updates.
 """
 from __future__ import annotations
 

@@ -12,16 +12,19 @@ path.
 mesh's axis names and sizes, so it takes a plain ``{axis: size}`` mapping
 as well as a ``torch.distributed`` ``DeviceMesh`` (``mesh_axes``): the
 sharding tables (``core/sharding.py``) need no process group. What the
-port runs on a mesh so far is serving: tensor-parallel dense and MoE
-decoders (the experts over "model" with ``expert_parallel``) and the
-enc-dec family (``serve/engine.py``), and data-parallel replicas over
-"data" (``serve/parallel.py``); ``expert_parallel=False`` (TP inside
-each expert) raises ``NotImplementedError`` on a mesh, and the knobs of
-the later steps of ROADMAP.md Queue 1 item 11 — ``seq_parallel``
-(sequence-sharded activations) and ``fsdp`` (parameters sharded over
-"data") — shape the tables but raise ``NotImplementedError`` where a
-trainer or an engine would run them (``refuse_unported``). ``zero1`` shards optimizer state over data
-replicas: on one device it is accepted and does nothing.
+port runs on a mesh: serving tensor-parallel dense and MoE decoders (the
+experts over "model" with ``expert_parallel``) and the enc-dec family
+(``serve/engine.py``), data-parallel replicas over "data"
+(``serve/parallel.py``), and training dense and MoE decoders on a
+("data", "model") mesh (``train/trainer.py``, ``train/step.py``):
+gradient sums over "data", ``zero1`` (optimizer state over "data"),
+``fsdp`` (parameters over "data", gathered a layer at a time),
+Megatron TP and experts over "model", and ``seq_parallel`` (the
+residual stream sequence-sharded over "model"). On one device
+``zero1``, ``fsdp`` and ``seq_parallel`` are accepted and change
+nothing. ``expert_parallel=False`` (TP inside each expert) raises
+``NotImplementedError`` on a mesh, and an engine on a mesh takes
+neither ``seq_parallel`` nor ``fsdp`` (``refuse_unported``).
 """
 from __future__ import annotations
 
@@ -49,10 +52,10 @@ class Strategy:
     name: str = "megatron"
     # parallel degrees are implied by the mesh axes; these flags pick HOW
     # the logical dims map onto them.
-    seq_parallel: bool = False       # Korthikanti SP: item 11, later step
+    seq_parallel: bool = False       # Korthikanti SP (training on a mesh)
     expert_parallel: bool = True     # MoE experts on "model" (vs TP-in-expert)
     zero1: bool = True               # shard optimizer states over "data"
-    fsdp: bool = False               # ZeRO-3 param sharding: item 11, later
+    fsdp: bool = False               # ZeRO-3 param sharding over "data"
     optimizer: str = "adamw"         # adamw | adafactor
     grad_accum_dtype: str = "float32"  # bfloat16 halves the accumulator
     remat: bool = True               # full activation checkpointing per layer
@@ -91,9 +94,11 @@ class Strategy:
 
 def refuse_unported(strategy: Strategy, where: str):
     """Raise ``NotImplementedError`` naming item 11 when ``strategy`` asks
-    ``where`` for sequence parallelism or FSDP."""
+    ``where`` (a serving engine on a mesh) for sequence parallelism or
+    FSDP, which only the trainer runs."""
     on = [k for k in ("seq_parallel", "fsdp") if getattr(strategy, k)]
     if on:
         raise NotImplementedError(
             f"{where} with {' and '.join(on)}: sequence-sharded activations "
-            f"and parameters sharded over 'data' wait for {ITEM_11}")
+            f"and parameters sharded over 'data' train (Trainer(mesh=)); "
+            f"an engine runs neither, {ITEM_11}")

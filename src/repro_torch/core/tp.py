@@ -1,4 +1,5 @@
-"""Tensor parallelism on explicit local shards — one process a rank.
+"""Tensor, sequence and data parallelism on explicit local shards — one
+process a rank.
 
 The reference runs one GSPMD program over the mesh: every parameter is a
 global array laid out by ``core/sharding.py``'s specs, and XLA inserts
@@ -22,6 +23,39 @@ code on it, and calls the collective where GSPMD would have put one
   ``gather_heads`` for the context-parallel decode
   (``models/cp_attention.py``).
 
+Training differentiates through them (Megatron's conjugate pair, as
+``torch.autograd.Function`` classes). Every rank computes the same replicated
+loss, and the gradient taken is that of ONE copy of it:
+
+* **g** — the sums above on a tensor that requires grad: a sum forward,
+  the gradient as it is backward (``all_reduce``, ``vocab_embed``,
+  ``vocab_logits``; serving keeps the in-place, no-grad sum);
+* **f** — ``enter``: identity forward, the gradient summed over "model"
+  backward, where a replicated tensor is used inside the rank's share of
+  the work: the normed ``h`` before ``wq``/``wk``/``wv``, ``w_gate``/
+  ``w_up``, the MoE dispatch and the vocab-parallel head, and the
+  replicated leaves used there (Qwen3's ``q_norm``/``k_norm``, ``wk``/
+  ``wv`` kept whole where Hkv does not divide tp; under sequence
+  parallelism the norm scales, used on the rank's sequence slice);
+* sequence parallelism (Korthikanti): the residual stream between blocks
+  is the rank's slice of the sequence. ``seq_gather`` assembles the
+  sequence by a zero-filled sum (exact) and hands back the rank's slice
+  of the gradient; with ``enter`` after it the pair's backward is the
+  reduce-scatter. ``seq_scatter`` is the reduce-scatter — a sum, then the
+  rank's slice — whose backward is the zero-filled gather, and
+  ``seq_split`` takes the slice of a replicated tensor (its backward the
+  same gather);
+* the "data" axis (``axis_sum``): the batch rows a rank holds
+  (``data/pipeline.py::shard_batch``), the loss normaliser, the MoE
+  routing of the global batch, the gradient sums, ZeRO-1's parameter
+  assembly and FSDP's gathers (``fsdp_full``, ``layer_sources``: a
+  layer's leaves gathered when it is applied, inside the remat
+  checkpoint, the gradient summed and sliced back to the rank's block).
+
+Every collective is tallied in ``Rank.counts`` and ``Rank.bytes`` by its
+label; one run in backward carries the label of its forward with
+``.grad`` appended.
+
 Only ``all_reduce`` and ``broadcast`` are used: gloo supports just these
 two on CUDA tensors, so the same code runs with gloo on CPU tensors (the
 tests), with gloo on CUDA tensors (ranks sharing one card: NCCL refuses
@@ -29,9 +63,10 @@ two ranks on one device) and with NCCL (one card a rank). The backend is
 the process group's, chosen by the caller; nothing here switches it.
 
 A rank's view (:class:`Rank`) is made from the mesh and the model config
-by the caller (the serving engine) and made current for a thread by
-``active``; without a current rank, or at tp 1, every collective here is
-a no-op and the model code runs unsharded. Attention is split by whole
+by the caller (the serving engine, the trainer) and made current for a
+thread by ``active``; without a current rank, or at tp 1, every "model"
+collective here is a no-op and the model code runs unsharded (at dp 1
+every "data" one). Attention is split by whole
 heads only: Hq must divide by tp. Where Hkv does not divide by tp (GQA
 with fewer KV heads than ranks), every rank keeps all Hkv heads of K/V
 (the table's replicated fallback) and attends its query heads against
@@ -53,7 +88,7 @@ from __future__ import annotations
 import math
 import threading
 from collections import Counter
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from typing import Dict, Optional
 
@@ -61,23 +96,49 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.pspec import P
-from repro_torch.core.sharding import (param_logical, param_pspecs,
-                                      tree_map_with_path)
-from repro_torch.core.strategy import mesh_axes
-from repro_torch.tree import flatten, unflatten
+from repro_torch.core.sharding import (_divisible, param_logical,
+                                      param_pspecs, tree_map_with_path,
+                                      zero1_spec)
+from repro_torch.core.strategy import ITEM_11, mesh_axes
+from repro_torch.tree import flatten, unbind_leaves, unflatten
 
 _state = threading.local()
 
 
+@dataclass(frozen=True)
+class LeafBlocks:
+    """How one parameter leaf lies on a training rank: its full
+    ``shape``; ``spec``, the block the rank holds (``rank_pspecs``);
+    ``update``, the block it updates and keeps optimizer state for
+    (ZeRO-1: ``spec`` sliced over "data" on one more dim,
+    ``core/sharding.py::zero1_spec``); ``fsdp_dim``, the dim of
+    ``spec`` split over "data" (FSDP), and ``zero_dim``, the dim of
+    ``update`` split over "data" that ``spec`` is not (None where
+    there is none, or at dp 1)."""
+    shape: tuple
+    spec: P
+    update: P
+    fsdp_dim: Optional[int]
+    zero_dim: Optional[int]
+
+
 @dataclass
 class Rank:
-    """One rank's place on the "model" axis and what it holds of the
-    model: ``heads`` query heads, ``kv_heads`` K/V heads in its cache
-    (Hkv / tp, or all Hkv where they do not divide), of which its query
-    heads read ``kv_read`` (a slice of the cache's head axis; None: all
-    of them). ``counts`` tallies the collectives issued, by what they
-    carry, and ``bytes`` the bytes each put in (``numel *
-    element_size`` of the tensor reduced or broadcast)."""
+    """One rank's place on the mesh and what it holds of the model: on
+    the "model" axis (``tp`` ranks, this one ``rank``) its ``heads``
+    query heads, ``kv_heads`` K/V heads in its cache (Hkv / tp, or all
+    Hkv where they do not divide), of which its query heads read
+    ``kv_read`` (a slice of the cache's head axis; None: all of them); on
+    the "data" axis (``dp`` replicas, this one ``data_rank``) its rows of
+    the batch. A training rank (``of(..., strategy=, shapes=)``) also
+    carries ``leaves``, each parameter's :class:`LeafBlocks`,
+    ``seq_parallel`` and ``zero1``; ``split_rows`` says whether the step
+    in flight runs on this rank's rows of the batch (True) or on the
+    whole batch (the batch does not split over "data"), set only for the
+    step's span by ``step_rows``. ``counts``
+    tallies the collectives issued, by what they carry, and ``bytes`` the
+    bytes each put in (``numel * element_size`` of the tensor reduced or
+    broadcast)."""
     tp: int
     rank: int
     group: object
@@ -87,13 +148,24 @@ class Rank:
     kv_read: Optional[slice]
     counts: Counter = field(default_factory=Counter)
     bytes: Counter = field(default_factory=Counter)
+    dp: int = 1
+    data_rank: int = 0
+    data_group: object = None
+    axes: Dict[str, int] = field(default_factory=dict)
+    seq_parallel: bool = False
+    zero1: bool = False
+    leaves: Dict[str, LeafBlocks] = field(default_factory=dict)
+    split_rows: bool = False
 
     @classmethod
-    def of(cls, mesh, cfg) -> "Rank":
-        """The calling process's view of ``mesh``'s "model" axis for
-        ``cfg``'s attention. Raises ``ValueError`` for shapes that cannot
-        be split by whole heads."""
-        tp = mesh_axes(mesh).get("model", 1)
+    def of(cls, mesh, cfg, strategy=None, shapes=None) -> "Rank":
+        """The calling process's view of ``mesh`` ("model", and "data"
+        where the mesh has it) for ``cfg``'s attention; with
+        ``strategy`` and ``shapes`` (each flat parameter key's full
+        shape) a training rank's. Raises ``ValueError`` for shapes that
+        cannot be split by whole heads."""
+        axes = mesh_axes(mesh)
+        tp = axes.get("model", 1)
         sub = mesh["model"]
         group = mesh.get_group("model")
         hq, hkv = cfg.num_heads, cfg.num_kv_heads
@@ -115,9 +187,21 @@ class Rank:
         else:
             i = r // (tp // hkv)
             kv_heads, kv_read = hkv, slice(i, i + 1)
-        return cls(tp=tp, rank=r, group=group,
-                   root=dist.get_global_rank(group, 0),
-                   heads=hq // tp, kv_heads=kv_heads, kv_read=kv_read)
+        dp = axes.get("data", 1)
+        out = cls(tp=tp, rank=r, group=group,
+                  root=dist.get_global_rank(group, 0),
+                  heads=hq // tp, kv_heads=kv_heads, kv_read=kv_read,
+                  dp=dp, axes=axes,
+                  data_rank=int(mesh["data"].get_local_rank())
+                  if "data" in axes else 0,
+                  data_group=mesh.get_group("data") if "data" in axes
+                  else None)
+        if strategy is not None:
+            out.seq_parallel = bool(strategy.seq_parallel) and tp > 1
+            out.zero1 = bool(strategy.zero1)
+            if shapes is not None:
+                out.leaves = leaf_blocks(shapes, strategy, axes, cfg)
+        return out
 
     @property
     def kv_sharded(self) -> bool:
@@ -177,16 +261,238 @@ def _live() -> Optional[Rank]:
     return r if r is not None and r.tp > 1 else None
 
 
+def _sum_(x: torch.Tensor, group, r: Rank, what: str,
+          op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` summed (or ``op``) over ``group`` in place, tallied."""
+    r.tally(what, x)
+    dist.all_reduce(x, op=op, group=group)
+    return x
+
+
+def _grad_on(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _Sum(torch.autograd.Function):
+    """g: the sum over "model" forward, the gradient as it is backward
+    (every rank's loss is the same function of the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, r, what):
+        return _sum_(x.clone(memory_format=torch.contiguous_format),
+                     r.group, r, what)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Enter(torch.autograd.Function):
+    """f: identity forward, the gradient summed over "model" backward."""
+
+    @staticmethod
+    def forward(ctx, x, r, what):
+        ctx.r, ctx.what = r, what
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_(g.clone(memory_format=torch.contiguous_format),
+                     ctx.r.group, ctx.r, ctx.what + ".grad"), None, None
+
+
+def _group(r: Rank, axis: str):
+    return r.group if axis == "model" else r.data_group
+
+
+def axis_index(r: Rank, axis: str) -> int:
+    return r.rank if axis == "model" else r.data_rank
+
+
+def fill_sum(part: torch.Tensor, shape, where, r: Rank, axis: str,
+             what: str, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Every rank's ``part`` assembled over ``axis``: each writes its
+    part at ``where`` (an index; None: nothing) of a zero buffer of
+    ``shape`` (``out``, zeroed, where given) and one sum joins them —
+    exact, only zeros are added. No gradient."""
+    full = part.new_zeros(shape) if out is None else out.zero_()
+    if where is not None:
+        full[where] = part
+    return _sum_(full, _group(r, axis), r, what)
+
+
+class _Assemble(torch.autograd.Function):
+    """Each rank writes ``part`` at ``where`` (a tuple of slices; None:
+    nothing) of a zero buffer of ``shape``, and one sum over ``axis``
+    assembles it — exact, only zeros are added. Backward: the gradient's
+    ``where`` slice, summed over ``axis`` first when ``summed`` (the
+    assembled tensor feeds each rank's own work, so each rank's gradient
+    is a partial)."""
+
+    @staticmethod
+    def forward(ctx, part, r, axis, shape, where, what, summed):
+        ctx.r, ctx.axis, ctx.where = r, axis, where
+        ctx.what, ctx.summed = what, summed
+        return fill_sum(part, shape, where, r, axis, what)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.summed:              # every rank takes part, writer or not
+            g = _sum_(g.clone(memory_format=torch.contiguous_format),
+                      _group(ctx.r, ctx.axis), ctx.r, ctx.what + ".grad")
+        if ctx.where is None:
+            return (None,) * 7
+        return (g[ctx.where].contiguous(),) + (None,) * 6
+
+
+def slice_at(dim: int, index: int, n: int) -> tuple:
+    return (slice(None),) * dim + (slice(index * n, (index + 1) * n),)
+
+
+class _Scatter(torch.autograd.Function):
+    """The reduce-scatter over "model" along ``dim``: a sum, then the
+    rank's slice (``summed=False``: the slice of a replicated tensor).
+    Backward: the slices' gradients assembled by a zero-filled sum."""
+
+    @staticmethod
+    def forward(ctx, x, r, dim, what, summed):
+        ctx.r, ctx.dim, ctx.what = r, dim, what
+        ctx.shape = x.shape
+        if summed:
+            x = _sum_(x.clone(memory_format=torch.contiguous_format),
+                      r.group, r, what)
+        n = x.shape[dim] // r.tp
+        return x[slice_at(dim, r.rank, n)].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        r = ctx.r
+        return fill_sum(g, ctx.shape,
+                        slice_at(ctx.dim, r.rank, g.shape[ctx.dim]), r,
+                        "model", ctx.what + ".grad"), None, None, None, None
+
+
 def all_reduce(x: torch.Tensor, what: str,
                op=dist.ReduceOp.SUM) -> torch.Tensor:
     """Sum (or ``op``: MAX) ``x`` over the current rank's group, in
-    place (``x`` must be contiguous); a no-op without one or at tp 1."""
+    place (``x`` must be contiguous); a no-op without one or at tp 1. On
+    a tensor that requires grad (training) the sum is out of place and
+    differentiable, its backward the identity (g)."""
     r = _live()
     if r is None:
         return x
-    r.tally(what, x)
-    dist.all_reduce(x, op=op, group=r.group)
-    return x
+    if _grad_on(x):
+        if op != dist.ReduceOp.SUM:
+            raise ValueError(f"{what}: only a sum trains")
+        return _Sum.apply(x, r, what)
+    return _sum_(x, r.group, r, what, op)
+
+
+def enter(x: torch.Tensor, what: str) -> torch.Tensor:
+    """f: ``x`` as it is, its gradient summed over "model" — for a
+    replicated tensor used inside the rank's share of the work. A no-op
+    without a live rank or a gradient."""
+    r = _live()
+    if r is None or not _grad_on(x):
+        return x
+    return _Enter.apply(x, r, what)
+
+
+def seq_parallel(seq_len: int) -> bool:
+    """Whether a forward over ``seq_len`` positions runs sequence
+    parallel: the current rank asks for it and the sequence splits over
+    "model" (a sequence that does not runs replicated, as the table
+    drops a sharding that does not divide)."""
+    r = _live()
+    return r is not None and r.seq_parallel and seq_len % r.tp == 0
+
+
+def seq_gather(x: torch.Tensor, what: str) -> torch.Tensor:
+    """(B, S / tp, ...) slices -> (B, S, ...): every rank's slice
+    assembled by a zero-filled sum; backward, the rank's slice of the
+    gradient (``enter`` after it sums the gradient first)."""
+    r = _live()
+    if r is None:
+        return x
+    n = x.shape[1]
+    shape = (x.shape[0], n * r.tp) + tuple(x.shape[2:])
+    return _Assemble.apply(x, r, "model", shape, slice_at(1, r.rank, n),
+                           what, False)
+
+
+def seq_scatter(x: torch.Tensor, what: str) -> torch.Tensor:
+    """The reduce-scatter: (B, S, ...) partials summed over "model",
+    then the rank's (B, S / tp, ...) slice; backward, the zero-filled
+    gather of the slices' gradients."""
+    r = _live()
+    if r is None:
+        return x
+    return _Scatter.apply(x, r, 1, what, True)
+
+
+def seq_split(x: torch.Tensor, what: str) -> torch.Tensor:
+    """The rank's (B, S / tp, ...) slice of a replicated (B, S, ...)
+    tensor; backward, the zero-filled gather of the slices' gradients."""
+    r = _live()
+    if r is None:
+        return x
+    return _Scatter.apply(x, r, 1, what, False)
+
+
+def reduce_out(x: torch.Tensor, what: str, *, seq: bool = False):
+    """The row-parallel output ``x`` (this rank's partial) summed over
+    "model": ``all_reduce``, or under sequence parallelism (``seq``) the
+    reduce-scatter to the rank's slice."""
+    return seq_scatter(x, what) if seq else all_reduce(x, what)
+
+
+def region_in(h: torch.Tensor, what: str, *, seq: bool = False):
+    """The input of a split region (column-parallel projections): under
+    sequence parallelism the sequence gathered, then ``enter``."""
+    if seq:
+        h = seq_gather(h, what + "_seq")
+    return enter(h, what + "_in")
+
+
+def data_rows() -> Optional[Rank]:
+    """The current rank where the step in flight runs on its rows of a
+    batch split over "data" (dp > 1), else None."""
+    r = current()
+    return r if r is not None and r.dp > 1 and r.split_rows else None
+
+
+@contextmanager
+def step_rows(r: Rank, split: bool):
+    """For the step in flight, mark ``r`` as running on its rows of a
+    batch split over "data" (``split``) or on the whole batch; restored
+    when the step ends, so no later forward on ``r`` reads it. The mark
+    lives on the rank, not the thread: the autograd engine may run the
+    remat recompute on another thread."""
+    old = r.split_rows
+    r.split_rows = split
+    try:
+        yield r
+    finally:
+        r.split_rows = old
+
+
+def axis_sum(x: torch.Tensor, axis: str, what: str,
+             r: Optional[Rank] = None) -> torch.Tensor:
+    """``x`` summed over ``axis`` ("model" or "data") of rank ``r``
+    (default: the current one) in place, no gradient; a no-op where the
+    axis has one rank."""
+    r = r if r is not None else current()
+    if r is None or r.axes.get(axis, 1) == 1:
+        return x
+    return _sum_(x, _group(r, axis), r, what)
+
+
+def data_assemble(part: torch.Tensor, what: str) -> torch.Tensor:
+    """(dp, *part.shape): every data rank's ``part`` stacked, by one
+    zero-filled sum over "data" (no gradient)."""
+    r = current()
+    return fill_sum(part, (r.dp,) + tuple(part.shape), r.data_rank, r,
+                    "data", what)
 
 
 def broadcast_from_root(x: torch.Tensor, what: str) -> torch.Tensor:
@@ -213,35 +519,43 @@ def same_on_all(value: int, what: str, device) -> bool:
 
 
 def vocab_embed(table: torch.Tensor, tokens: torch.Tensor,
-                vocab_size: int) -> torch.Tensor:
+                vocab_size: int, *, seq: bool = False) -> torch.Tensor:
     """``table[tokens]`` for a vocab-parallel ``table`` (this rank's
     ``V / tp`` rows): rows of tokens outside the rank's range are zero,
     and one sum gives every rank the full lookup. A whole table is looked
-    up as it is."""
+    up as it is. ``seq``: the rank's sequence slice of the lookup (the
+    sum is the reduce-scatter)."""
     tokens = tokens.long()
     r = _live()
-    if r is None or table.shape[0] == vocab_size:
+    if r is None:
         return table[tokens]
+    if table.shape[0] == vocab_size:
+        out = table[tokens]
+        return seq_split(out, "embed") if seq else out
     n = table.shape[0]
     local = tokens - r.rank * n
     hit = (local >= 0) & (local < n)
     rows = table[local.clamp(0, n - 1)]
     out = torch.where(hit[..., None], rows, torch.zeros_like(rows))
-    return all_reduce(out, "embed")
+    return reduce_out(out, "embed", seq=seq)
 
 
 def vocab_logits(local: torch.Tensor, vocab_size: int) -> torch.Tensor:
     """Full-vocabulary logits from this rank's ``(..., V / tp)`` slice:
     each rank writes its slice into a zero-filled ``(..., V)`` buffer and
-    one sum assembles it. Logits already over the whole vocabulary are
-    returned as they are."""
+    one sum assembles it (in training its backward is the gradient's
+    slice). Logits already over the whole vocabulary are returned as they
+    are."""
     r = _live()
     n = local.shape[-1]
     if r is None or n == vocab_size:
         return local
-    out = local.new_zeros(local.shape[:-1] + (vocab_size,))
-    out[..., r.rank * n:(r.rank + 1) * n] = local
-    return all_reduce(out, "logits")
+    shape = local.shape[:-1] + (vocab_size,)
+    where = slice_at(local.ndim - 1, r.rank, n)
+    if _grad_on(local):
+        return _Assemble.apply(local, r, "model", shape, where, "logits",
+                               False)
+    return fill_sum(local, shape, where, r, "model", "logits")
 
 
 def gather_heads(parts, heads, what: str):
@@ -269,6 +583,13 @@ def gather_heads(parts, heads, what: str):
     return out
 
 
+def kv_split() -> bool:
+    """Whether the current rank holds its own K/V heads (Hkv / tp) —
+    True without a live rank."""
+    r = _live()
+    return r is None or r.kv_read is None
+
+
 def kv_read(x: torch.Tensor) -> torch.Tensor:
     """The KV heads the current rank's query heads read, of a K or V
     tensor whose second-to-last axis is the cache's heads."""
@@ -278,13 +599,125 @@ def kv_read(x: torch.Tensor) -> torch.Tensor:
     return x[..., r.kv_read, :]
 
 
-def check_training(what: str):
-    """Raise ``NotImplementedError`` naming item 11 when a rank is
-    current: sharded training waits for a later step."""
-    if _live() is not None:
-        raise NotImplementedError(
-            f"{what} under a tensor-parallel mesh: sharded training waits "
-            "for the parallelism slice, ROADMAP.md Queue 1 item 11")
+def unported(what: str, step: str) -> NotImplementedError:
+    """The error for ``what`` on a mesh, naming item 11's ``step``."""
+    return NotImplementedError(
+        f"{what} under a mesh waits for {ITEM_11}, step {step}")
+
+
+def check_training(what: str, step: str):
+    """Raise ``unported(what, step)`` when a rank of a mesh larger than
+    one is current: ``what`` (a family's forward) does not run on a
+    rank's shards yet."""
+    r = current()
+    if r is not None and (r.tp > 1 or r.dp > 1):
+        raise unported(what, step)
+
+
+#: item 11's step for the families that do not run on a mesh yet
+FAMILY_STEP = ("7: the SSM family, the hybrid, the enc-dec family and "
+               "the VLM under a mesh")
+
+
+# ------------------------------------------------------------- FSDP gathers
+
+def _data_block(leaf: torch.Tensor, dim: int, r: Rank, what: str):
+    """The whole of ``leaf`` (this rank's block along ``dim`` over
+    "data") by a zero-filled sum; backward, the gradient summed over
+    "data" where the step runs on split rows, then sliced back."""
+    n = leaf.shape[dim]
+    shape = leaf.shape[:dim] + (n * r.dp,) + leaf.shape[dim + 1:]
+    return _Assemble.apply(leaf, r, "data", shape,
+                           slice_at(dim, r.data_rank, n), what,
+                           r.split_rows)
+
+
+def fsdp_full(leaf: torch.Tensor, key: str) -> torch.Tensor:
+    """Parameter ``key`` whole over "data" where FSDP splits it (a
+    gather, ``"fsdp_gather"``); as it is otherwise."""
+    r = current()
+    lb = None if r is None else r.leaves.get(key)
+    if lb is None or lb.fsdp_dim is None:
+        return leaf
+    return _data_block(leaf, lb.fsdp_dim, r, "fsdp_gather")
+
+
+def layer_sources(tree, n: int, prefix: str):
+    """``n`` callables, the i-th returning layer i's leaves of the
+    stacked subtree ``tree`` (flat keys under ``prefix``): views of the
+    one ``unbind`` a leaf (``tree.unbind_leaves``), and where FSDP splits a leaf over "data", the layer's whole leaf
+    gathered when it is called — inside a remat checkpoint the
+    recompute gathers it again, so no more than the layers being applied
+    are ever whole. A leaf split on its layer axis is gathered from the
+    data rank that owns the layer (a zero-filled sum, the others
+    writing nothing)."""
+    r = current()
+    parts = unbind_leaves(tree)
+    dims = {}
+    for k in parts:
+        lb = None if r is None else r.leaves.get(f"{prefix}/{k}")
+        if lb is not None and lb.fsdp_dim is not None:
+            dims[k] = lb.fsdp_dim
+
+    def layer(i: int):
+        out = {}
+        for k, p in parts.items():
+            dim = dims.get(k)
+            if dim is None:
+                out[k] = p[i]
+            elif dim > 0:
+                out[k] = _data_block(p[i], dim - 1, r, "fsdp_gather")
+            else:
+                per = len(p)                       # layers a data rank owns
+                own = i // per == r.data_rank
+                out[k] = _Assemble.apply(
+                    p[i % per if own else 0], r, "data", p[0].shape,
+                    (slice(None),) if own else None, "fsdp_gather",
+                    r.split_rows)
+        return unflatten(out)
+
+    return [(lambda i=i: layer(i)) for i in range(n)]
+
+
+def checkpoint(fn, *args):
+    """``torch.utils.checkpoint`` (non-reentrant) of ``fn(*args)`` with
+    the current rank made current again for the recompute, which the
+    autograd engine may run on another thread."""
+    from torch.utils.checkpoint import checkpoint as _checkpoint
+    r = current()
+    return _checkpoint(fn, *args, use_reentrant=False,
+                       context_fn=lambda: (nullcontext(), active(r)))
+
+
+def zero_block(x: torch.Tensor, lb: LeafBlocks,
+               r: Optional[Rank] = None) -> torch.Tensor:
+    """Rank ``r``'s (default: the current one's) ZeRO-1 block of ``x`` (a
+    tensor of the rank's param block shape), contiguous; ``x`` itself
+    where the leaf has none."""
+    if lb.zero_dim is None:
+        return x
+    r = r if r is not None else current()
+    n = x.shape[lb.zero_dim] // r.dp
+    return x.narrow(lb.zero_dim, r.data_rank * n, n).contiguous()
+
+
+def assemble(block: torch.Tensor, spec, what: str,
+             r: Optional[Rank] = None) -> torch.Tensor:
+    """The whole leaf from rank ``r``'s (default: the current one's)
+    ``block`` under ``spec``: one zero-filled sum over each mesh axis that
+    splits it (no gradient)."""
+    r = r if r is not None else current()
+    out = block
+    for dim, ax in enumerate(tuple(spec)):
+        if ax is None or r is None or r.axes.get(ax, 1) == 1:
+            continue
+        if isinstance(ax, tuple):
+            raise ValueError(f"{what}: a dim split over {ax}")
+        n = out.shape[dim]
+        shape = out.shape[:dim] + (n * r.axes[ax],) + out.shape[dim + 1:]
+        out = fill_sum(out, shape, slice_at(dim, axis_index(r, ax), n), r,
+                       ax, what)
+    return out
 
 
 # ------------------------------------------------------- sharding leaves
@@ -312,7 +745,7 @@ def coordinate(mesh) -> Dict[str, int]:
     return {n: int(mesh[n].get_local_rank()) for n in mesh.mesh_dim_names}
 
 
-def _parts(ax, axes: Dict[str, int], coord: Dict[str, int]):
+def block_of(ax, axes: Dict[str, int], coord: Dict[str, int]):
     """(number of blocks, this rank's block) of a dim sharded over
     ``ax`` (an axis name or a tuple of them, major first)."""
     size, index = 1, 0
@@ -323,7 +756,7 @@ def _parts(ax, axes: Dict[str, int], coord: Dict[str, int]):
 
 def local_shape(shape, spec, axes: Dict[str, int]) -> tuple:
     """The block shape of a leaf of ``shape`` under ``spec``."""
-    return tuple(n if ax is None else n // _parts(ax, axes, {})[0]
+    return tuple(n if ax is None else n // block_of(ax, axes, {})[0]
                  for n, ax in zip(shape, spec))
 
 
@@ -334,13 +767,16 @@ def shard_leaf(leaf: torch.Tensor, spec, axes: Dict[str, int],
     out = leaf
     for dim, ax in enumerate(spec):
         if ax is not None:
-            size, index = _parts(ax, axes, coord)
+            size, index = block_of(ax, axes, coord)
+            if leaf.shape[dim] % size:
+                raise ValueError(f"dim {dim} of a {tuple(leaf.shape)} leaf "
+                                 f"does not split into {size} blocks")
             n = leaf.shape[dim] // size
             out = out.narrow(dim, index * n, n)
     return out.contiguous()
 
 
-class _Shape:
+class Shape:
     """A leaf stand-in: what the tables read of a parameter."""
 
     def __init__(self, shape):
@@ -351,8 +787,33 @@ class _Shape:
 def leaf_specs(shapes: Dict[str, tuple], strategy, mesh, cfg):
     """``{key: spec}`` (``rank_pspecs``) for flat ``{key: full shape}``
     parameter shapes."""
-    tree = unflatten({k: _Shape(s) for k, s in shapes.items()})
+    tree = unflatten({k: Shape(s) for k, s in shapes.items()})
     return flatten(rank_pspecs(tree, strategy, mesh, cfg))
+
+
+def leaf_blocks(shapes: Dict[str, tuple], strategy, mesh, cfg
+                ) -> Dict[str, LeafBlocks]:
+    """``{key: LeafBlocks}`` for flat ``{key: full shape}`` parameter
+    shapes: the rank's block (``rank_pspecs``, "data" on a dim where
+    FSDP splits it) and the block it updates (``zero1_spec`` over it when
+    ``strategy.zero1``, as ``opt_state_pspecs`` lays out the state)."""
+    axes = mesh_axes(mesh)
+    dp = axes.get("data", 1)
+    specs = leaf_specs(shapes, strategy, axes, cfg)
+    out = {}
+    for key, shape in shapes.items():
+        shape = tuple(shape)
+        spec = P(*(tuple(specs[key]) + (None,) * (len(shape)
+                                                   - len(specs[key]))))
+        update = _divisible(shape, zero1_spec(spec, shape, axes), axes) \
+            if strategy.zero1 else spec
+        fsdp = [i for i, ax in enumerate(spec) if ax == "data"]
+        zero = [i for i, ax in enumerate(update) if ax == "data"]
+        fsdp_dim = fsdp[0] if fsdp and dp > 1 else None
+        zero_dim = zero[0] if zero and dp > 1 and fsdp_dim is None \
+            else None
+        out[key] = LeafBlocks(shape, spec, update, fsdp_dim, zero_dim)
+    return out
 
 
 def shard_params(params, shapes: Dict[str, tuple], strategy, mesh, cfg):

@@ -5,6 +5,11 @@ the reference's, seed for seed and step for step.
 Synthetic corpus: a mixture of (a) Zipf-distributed unigrams and (b) short
 arithmetic-progression motifs, so a small model's loss drops visibly
 within a few hundred steps, with no download.
+
+``shard_batch`` gives a data rank its rows of a global batch (the
+reference's ``batch_shardings`` and ``shard_batch``): its contiguous
+share of every microbatch where the batch splits over "data"
+(``rows_split``), else the whole batch.
 """
 from __future__ import annotations
 
@@ -12,6 +17,7 @@ from dataclasses import dataclass
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+import torch
 
 
 @dataclass
@@ -75,7 +81,38 @@ class TokenDataset:
             step += 1
 
 
-def shard_batch(batch, mesh, batch_sharding):
-    raise NotImplementedError(
-        "shard_batch places a batch over a mesh: the parallelism slice, "
-        "ROADMAP.md Queue 1 item 11")
+def rows_split(global_batch: int, dp: int, microbatches: int = 1) -> bool:
+    """Whether a batch of ``global_batch`` rows goes over "data" (the
+    reference's ``batch_shardings``: the batch over "data" where it
+    divides, else whole on every data rank). With ``microbatches`` each
+    data rank holds its contiguous share of every microbatch
+    (``shard_batch``), so each microbatch must divide too."""
+    return dp > 1 and global_batch % microbatches == 0 and \
+        (global_batch // microbatches) % dp == 0
+
+
+def shard_batch(batch: Dict[str, np.ndarray], dp: int, index: int, *,
+                microbatches: int = 1):
+    """Data rank ``index`` of ``dp``'s rows of ``batch`` (numpy arrays or
+    tensors, rows first): the whole batch where it does not split
+    (:func:`rows_split`), else its contiguous share of every microbatch —
+    the reference's microbatch ``i`` is the global rows ``[i * mb, (i +
+    1) * mb)`` (``repro/train/step.py:67-71``), and this rank's rows of
+    it ``[i * mb + index * mb / dp, ...)`` — in microbatch order, so the
+    step's own split of the rank's rows into ``microbatches`` gives its
+    share of each."""
+    rows = len(next(iter(batch.values())))
+    if not rows_split(rows, dp, microbatches):
+        return dict(batch)
+    mb = rows // microbatches
+    per = mb // dp
+    take = np.concatenate([np.arange(i * mb + index * per,
+                                     i * mb + (index + 1) * per)
+                           for i in range(microbatches)])
+    out = {}
+    for key, v in batch.items():
+        if isinstance(v, np.ndarray):
+            out[key] = v[take]
+        else:
+            out[key] = v[torch.from_numpy(take).to(v.device)]
+    return out

@@ -24,8 +24,16 @@
         --arch llama-3.2-vision-90b --full --layers 5 --optimizer adafactor \
         --steps 4 --global-batch 1 --seq 4096
 
+    # sharded: dp 2 x tp 2 on four processes (torchrun; on one card the
+    # ranks share it over gloo), ZeRO-1 by default, + FSDP / + SP
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --dp 2 --tp 2 --backend gloo --full --layers 2 --steps 3 \
+        --global-batch 2 --seq 2048 --fsdp
+
     # on the CPU, the reduced configs in float32
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --device cpu --dp 2 --tp 2 --steps 2 --global-batch 4 --seq 32
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --arch whisper-tiny --steps 2 --global-batch 2 --seq 32
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
@@ -54,6 +62,14 @@ one card for Llama-3.2-Vision-90B uncut (~88.5 B parameters, ~177 GB in
 bf16): on one H100 cut its depth with ``--layers`` (5 = one group: 4
 self and 1 cross layer) and train it with ``--optimizer adafactor``
 (AdamW's fp32 master, m and v would need >= 16 bytes a parameter).
+
+``--tp N`` and ``--dp M`` train a dense or MoE decoder on a ("data",
+"model") = (M, N) mesh under ``torchrun --nproc-per-node M*N``, one
+process a rank (``Session.train(tp=, dp=)``): ZeRO-1 over "data" by
+default, ``--fsdp`` (parameters over "data") and ``--seq-parallel``
+(the reference's own flags); the process group's backend is
+``--backend`` (default nccl on cuda, gloo on cpu; ranks sharing one
+card need gloo). Rank 0 prints.
 """
 from __future__ import annotations
 
@@ -120,16 +136,35 @@ def main(argv=None):
                     default="adamw")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--checkpoint-dir", default="")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree (under torchrun, "
+                         "dp * tp processes)")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel degree (under torchrun, dp * tp "
+                         "processes)")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="--tp / --dp: the process group's backend "
+                         "(default nccl on cuda, gloo on cpu)")
+    ap.add_argument("--seq-parallel", action="store_true",
+                    help="Korthikanti sequence parallelism over 'model'")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="ZeRO-3: parameters sharded over 'data'")
     args = ap.parse_args(argv)
+    sharded = args.tp * args.dp > 1
+    if sharded:
+        from repro_torch.launch.serve import _join_ranks
+        _join_ranks(args)
+    lead = not sharded or torch.distributed.get_rank() == 0
+    log = print if lead else (lambda *a, **k: None)
+    knobs = dict(microbatches=args.microbatches, optimizer=args.optimizer,
+                 seq_parallel=args.seq_parallel, fsdp=args.fsdp)
 
     if args.full:
         cfg = get_config(args.arch)
-        strategy = Strategy(microbatches=args.microbatches,
-                            optimizer=args.optimizer, dtype=cfg.dtype)
+        strategy = Strategy(dtype=cfg.dtype, **knobs)
     else:
         cfg = get_smoke(args.arch).with_(dtype="float32")
-        strategy = Strategy(remat=False, microbatches=args.microbatches,
-                            optimizer=args.optimizer, dtype="float32")
+        strategy = Strategy(remat=False, dtype="float32", **knobs)
     if args.layers:
         cfg = cfg.with_(num_layers=args.layers)
     session = Session(cfg, strategy=strategy, device=args.device,
@@ -143,7 +178,7 @@ def main(argv=None):
     data = data_cls(cfg, global_batch=args.global_batch, seq_len=args.seq,
                     seed=args.seed) if data_cls else None
     trainer = session.train(tc, data=data, global_batch=args.global_batch,
-                            seq_len=args.seq)
+                            seq_len=args.seq, tp=args.tp, dp=args.dp)
     on_card = session.device.type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats(session.device)
@@ -156,12 +191,22 @@ def main(argv=None):
     peak = (f", peak memory "
             f"{torch.cuda.max_memory_allocated(session.device) / 1e9:.2f} GB"
             if on_card else "")
-    print(f"trained {cfg.name} ({cfg.num_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.dtype}) for {args.steps} steps of "
-          f"{args.global_batch}x{args.seq} tokens in {dt:.2f}s "
-          f"({tokens / dt:.1f} tokens/s on {session.device}{peak})")
+    par = "" if not sharded else (
+        f", dp {args.dp} x tp {args.tp} over "
+        f"{torch.distributed.get_backend()}"
+        + "".join(f", {k}" for k in ("fsdp", "seq_parallel")
+                  if getattr(strategy, k))
+        + f"; a rank's collectives {dict(trainer.rank.counts)}")
+    log(f"trained {cfg.name} ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.dtype}) for {args.steps} steps of "
+        f"{args.global_batch}x{args.seq} tokens in {dt:.2f}s "
+        f"({tokens / dt:.1f} tokens/s on {session.device}{peak}{par})")
     return out
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()

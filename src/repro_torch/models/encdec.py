@@ -47,8 +47,8 @@ columns of ``lm_head`` (``tp.vocab_embed`` / ``tp.vocab_logits``; a
 whole table passes through). Each encoder layer ends in the two
 all-reduces of ``attn_out`` and ``mlp``, each decoder layer in three:
 self-attention, cross-attention and the MLP. The cross K/V holds the
-rank's heads. ``forward`` (training) raises there: sharded training is a
-later step of item 11.
+rank's heads. ``forward`` (training) raises there, naming item 11's step
+7 (the family on a mesh); the dense and MoE decoders train sharded.
 """
 from __future__ import annotations
 
@@ -165,7 +165,7 @@ def forward(params, batch, cfg, *, remat: bool = False,
             f"frames: {cfg.name} is an enc-dec model; its batches carry "
             "'frames' (B, encoder_ctx, d_model) beside 'tokens' (train it "
             "on a data= object whose batch(step) yields them)")
-    tp.check_training("encdec.forward")
+    tp.check_training("encdec.forward", tp.FAMILY_STEP)
     enc_out = encode(params, batch["frames"], cfg, attn_impl=attn_impl)
     x = _embed(params, batch["tokens"], cfg)
     for lp in unstack(params["dec_layers"], cfg.num_layers):

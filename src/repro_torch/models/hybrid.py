@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import tp
 from repro_torch.models import kvcache, ssm
 from repro_torch.models.layers import (attention, attn_out, attn_qkv, mlp,
                                        rmsnorm)
@@ -62,6 +63,7 @@ def forward(params, batch, cfg, *, remat: bool = False,
     ``remat=True`` wraps each group (its Mamba layers and the shared
     block) in ``torch.utils.checkpoint``, as the reference checkpoints its
     group scan body; the trailing layers are not rematerialized."""
+    tp.check_training("hybrid.forward", tp.FAMILY_STEP)
     x = _embed(params, batch["tokens"], cfg)
     g, rest = cfg.hybrid_groups
     sp = params["shared"]

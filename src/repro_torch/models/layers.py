@@ -7,9 +7,10 @@ Layouts are the JAX package's: activations ``(B, S, d)``, heads
 reference's sharding hints (``constrain``) have no counterpart: under a
 tensor-parallel mesh each rank runs these layers on its own shards
 (``core/tp.py``) — the head counts follow the local weights, and the
-row-parallel attention out and MLP end in ``tp.all_reduce``, a no-op
-unsharded. The ops that were Pallas kernels on the TPU —
-flash attention, paged attention and the fused MLP — dispatch by device
+row-parallel attention out and MLP end in ``tp.all_reduce`` (the
+reduce-scatter under sequence parallelism), a no-op unsharded. The ops
+that were Pallas kernels on the TPU — flash attention, paged attention
+and the fused MLP — dispatch by device
 to the port's CUDA kernels (CUDA tensors) or their plain versions (CPU
 tensors). The fused MLP has no backward, so with a gradient required the
 MLP is the reference's plain matmul SwiGLU on either device; the
@@ -219,14 +220,20 @@ def attention(q, k, v, *, causal: bool, window: int = 0, q_offset=0,
 def attn_qkv(p, x, cfg, *, positions=None, rope: bool = True):
     """Project to q,k,v (+qk_norm, +rope). x:(B,S,d) -> q(B,S,Hq,D), k/v.
     The head counts are the projections' own: a rank's shards give its
-    local heads."""
+    local heads. In training under a rank, the replicated leaves used on
+    the rank's heads — ``q_norm``/``k_norm``, and ``wk``/``wv`` kept whole
+    where Hkv does not divide tp — get their gradient summed over
+    "model" (``tp.enter``)."""
     b, s, _ = x.shape
+    wk, wv = p["wk"], p["wv"]
+    if not tp.kv_split():
+        wk, wv = tp.enter(wk, "kv_proj"), tp.enter(wv, "kv_proj")
     q = (x @ p["wq"]).reshape(b, s, -1, cfg.head_dim)
-    k = (x @ p["wk"]).reshape(b, s, -1, cfg.head_dim)
-    v = (x @ p["wv"]).reshape(b, s, -1, cfg.head_dim)
+    k = (x @ wk).reshape(b, s, -1, cfg.head_dim)
+    v = (x @ wv).reshape(b, s, -1, cfg.head_dim)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+        q = rmsnorm(q, tp.enter(p["q_norm"], "qk_norm"), cfg.norm_eps)
+        k = rmsnorm(k, tp.enter(p["k_norm"], "qk_norm"), cfg.norm_eps)
     if rope:
         if positions is None:
             positions = torch.arange(s, device=x.device)[None, :]
@@ -235,16 +242,18 @@ def attn_qkv(p, x, cfg, *, positions=None, rope: bool = True):
     return q, k, v
 
 
-def attn_out(p, ctx, cfg):
+def attn_out(p, ctx, cfg, *, sp: bool = False):
     """The output projection of the heads in ``ctx`` (a rank's local
-    heads: its row block of ``wo``, summed over the ranks)."""
+    heads: its row block of ``wo``, summed over the ranks; ``sp``: the
+    reduce-scatter to the rank's sequence slice)."""
     b, s = ctx.shape[:2]
-    return tp.all_reduce(ctx.reshape(b, s, -1) @ p["wo"], "attn_out")
+    return tp.reduce_out(ctx.reshape(b, s, -1) @ p["wo"], "attn_out",
+                         seq=sp)
 
 
 # ----------------------------------------------------------------------- MLP
 
-def mlp(p, x):
+def mlp(p, x, *, sp: bool = False):
     """Gated (SwiGLU) MLP — the survey's §5.1 block — when ``w_gate`` is
     present, else the plain-GeLU MLP of the enc-dec family. SwiGLU with a
     gradient required (training) is the reference's plain matmul SwiGLU,
@@ -255,11 +264,12 @@ def mlp(p, x):
     only). Under a tensor-parallel mesh a rank holds column blocks of
     ``w_gate`` / ``w_up`` and the row block of ``w_down``: the kernel or
     its plain version gives the row-parallel partial, and one all-reduce
-    sums it (the collective stays outside the kernel)."""
+    sums it (the collective stays outside the kernel; ``sp``: the
+    reduce-scatter to the rank's sequence slice)."""
     if "w_gate" not in p:
         y = F.gelu(x @ p["w_up"], approximate="tanh") @ p["w_down"]
     elif needs_grad(x, p["w_gate"], p["w_up"], p["w_down"]):
         y = (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
     else:
         y = fused_mlp(x, p["w_gate"], p["w_up"], p["w_down"])
-    return tp.all_reduce(y, "mlp_out")
+    return tp.reduce_out(y, "mlp_out", seq=sp)

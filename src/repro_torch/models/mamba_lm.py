@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import tp
 from repro_torch.models import ssm
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.transformer import unstack_layers
@@ -44,6 +45,7 @@ def forward(params, batch, cfg, *, remat: bool = False, **_):
     """batch: {"tokens": (B,S) int}. Returns (logits (B,S,V), aux=0).
     ``remat=True`` wraps each layer in ``torch.utils.checkpoint`` (the
     reference's ``jax.checkpoint`` of the scan body)."""
+    tp.check_training("mamba_lm.forward", tp.FAMILY_STEP)
     x = _embed(params, batch["tokens"], cfg)
     for lp in unstack_layers(params, cfg.num_layers):
         if remat:

@@ -37,6 +37,15 @@ does not divide tp) computes the unsharded FFN and reduces nothing. The
 reference's all-to-all has no counterpart: gloo has none on CUDA tensors,
 and every rank already holds every token.
 
+In training the rank's experts take their input through ``tp.enter``
+(the gradient of the replicated tokens summed over "model"; the router,
+which every rank runs on every token, takes it as it is), and the
+``moe_out`` sum's backward is the identity. On rows split over "data"
+every data rank routes its tokens as part of the global batch the
+reference routes: the capacity of all of its tokens, each slot offset by
+the entries of the earlier data ranks, and the aux loss from the global
+means (``_global_route``).
+
 ``moe_ffn``'s parts run under ``torch.profiler.record_function`` ranges
 named by :data:`PARTS` (routing and dispatch, the expert products, the
 combine), so a profiled run splits the FFN's device time by them.
@@ -81,15 +90,23 @@ def _fp32_matmul(a, b):
             torch.backends.cuda.matmul.allow_tf32 = was
 
 
+def _route(router_w, x, cfg):
+    """x: (T, d) -> gates (T, k) fp32, expert ids (T, k) int64 and the
+    router's probabilities (T, E) fp32."""
+    probs = torch.softmax(_fp32_matmul(x.float(), router_w), dim=-1)
+    k = cfg.experts_per_token
+    vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = vals[:, :k], order[:, :k]
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return gates, idx, probs
+
+
 def router_topk(router_w, x, cfg) -> Tuple[torch.Tensor, torch.Tensor,
                                            torch.Tensor]:
     """x: (T, d) -> gates (T, k) fp32, expert ids (T, k) int64, and the
     Shazeer load-balance loss ``E * sum_e mean_prob_e * frac_e``."""
-    probs = torch.softmax(_fp32_matmul(x.float(), router_w), dim=-1)
-    k, e = cfg.experts_per_token, cfg.num_experts
-    vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gates, idx = vals[:, :k], order[:, :k]
-    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    gates, idx, probs = _route(router_w, x, cfg)
+    e = cfg.num_experts
     me = probs.mean(0)                                   # (E,)
     ce = torch.zeros((e,), dtype=torch.float32, device=x.device).index_add_(
         0, idx.reshape(-1), torch.full((idx.numel(),), 1.0 / idx.numel(),
@@ -99,27 +116,55 @@ def router_topk(router_w, x, cfg) -> Tuple[torch.Tensor, torch.Tensor,
     return gates, idx, aux
 
 
-def dispatch(idx, cfg, cap: int):
+def expert_counts(idx, cfg):
+    """(E,) entries of ``idx`` that chose each expert (a scatter-add, not
+    ``bincount``: that reads the largest id back to the host, a sync in
+    every layer of a serving step)."""
+    flat_e = idx.reshape(-1)
+    return torch.zeros((cfg.num_experts,), dtype=flat_e.dtype,
+                       device=flat_e.device
+                       ).scatter_add_(0, flat_e, torch.ones_like(flat_e))
+
+
+def dispatch(idx, cfg, cap: int, offset=None):
     """Each (token, choice) entry's row in the ``(E * cap, d)`` dispatch
     buffer, flattened token-major, and whether it fits its expert's
     capacity. A dropped entry points at row 0 (its source is zeroed).
     An entry's slot is the number of entries before it, in token-major
     order, that chose the same expert: its rank within a stable sort by
-    expert id, less the entries of the experts before."""
-    e = cfg.num_experts
+    expert id, less the entries of the experts before; ``offset`` (E,)
+    adds the entries that came before these tokens (the earlier data
+    ranks' rows of a batch routed together)."""
     flat_e = idx.reshape(-1)                              # (T*k,)
     order = torch.sort(flat_e, stable=True).indices
-    # a scatter-add, not ``bincount``: that reads the largest id back to
-    # the host, a sync in every layer of a serving step
-    counts = torch.zeros((e,), dtype=flat_e.dtype, device=flat_e.device
-                         ).scatter_add_(0, flat_e, torch.ones_like(flat_e))
+    counts = expert_counts(idx, cfg)
     first = torch.cumsum(counts, dim=0) - counts          # (E,)
     rank = torch.arange(flat_e.numel(), device=flat_e.device) \
         - first[flat_e[order]]
     pos = torch.empty_like(rank).scatter_(0, order, rank)
+    if offset is not None:
+        pos = pos + offset[flat_e]
     keep = pos < cap
     dest = torch.where(keep, flat_e * cap + pos, torch.zeros_like(pos))
     return dest, keep
+
+
+def _global_route(router_w, x, cfg, r, t_all: int, cap: int):
+    """Routing of this data rank's tokens as part of the batch all data
+    ranks route together (the reference routes the global batch): each
+    entry's slot offset by the entries the earlier data ranks sent to its
+    expert, and this rank's share of the aux loss — the global
+    ``E * sum_e me_e * ce_e`` with ``me`` summed over this rank's tokens
+    only, so the data ranks' shares sum to it once. One zero-filled (dp,
+    E) sum of the expert counts (``"moe_counts"``)."""
+    gates, idx, probs = _route(router_w, x, cfg)
+    counts = tp.data_assemble(expert_counts(idx, cfg), "moe_counts")
+    offset = counts[:r.data_rank].sum(0)
+    dest, keep = dispatch(idx, cfg, cap, offset=offset)
+    me = probs.sum(0) / t_all
+    ce = counts.sum(0).float() / (t_all * cfg.experts_per_token)
+    aux = cfg.num_experts * torch.sum(me * ce)
+    return gates, idx, aux, dest, keep
 
 
 def _local_experts(p, cfg):
@@ -136,25 +181,39 @@ def _local_experts(p, cfg):
     return r.rank * n, n
 
 
-def moe_ffn(p, x, cfg):
+def moe_ffn(p, x, cfg, *, sp: bool = False):
     """x: (B, S, d) -> (B, S, d), aux loss (fp32 scalar). Capacity is that
     of the B * S tokens together: rows share every expert's budget. Under a
-    mesh, a rank's slice of the experts (see the module docstring)."""
+    mesh, a rank's slice of the experts (see the module docstring); in
+    training on rows split over "data", the capacity and the slots of the
+    batch all data ranks hold (``_global_route``); ``sp``: ``x`` is the
+    rank's sequence slice, gathered before routing, and so is the
+    output."""
+    if sp:
+        x = tp.seq_gather(x, "moe_seq")
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
     k = cfg.experts_per_token
-    cap = capacity(t, cfg)
     first, n_local = _local_experts(p, cfg)
+    split = n_local < cfg.num_experts
+    rows = tp.data_rows()
+    t_all = t * rows.dp if rows is not None else t
+    cap = capacity(t_all, cfg)
     with record_function("moe_route"):
-        gates, idx, aux = router_topk(p["router"], xt, cfg)
-        dest, keep = dispatch(idx, cfg, cap)
-        if n_local < cfg.num_experts:
+        if rows is None:
+            gates, idx, aux = router_topk(p["router"], xt, cfg)
+            dest, keep = dispatch(idx, cfg, cap)
+        else:
+            gates, idx, aux, dest, keep = _global_route(
+                p["router"], xt, cfg, rows, t_all, cap)
+        if split:
             # this rank's slots: their rows in its (E / tp * C, d) buffer
             mine = keep & (idx.reshape(-1) >= first) \
                 & (idx.reshape(-1) < first + n_local)
             dest = torch.where(mine, dest - first * cap,
                                torch.zeros_like(dest))
+            xt = tp.enter(xt, "moe_in")
         else:
             mine = keep
         src = xt.repeat_interleave(k, dim=0)              # (T*k, d)
@@ -174,9 +233,12 @@ def moe_ffn(p, x, cfg):
                                 torch.zeros_like(gates.reshape(-1)))
         gathered = torch.where(mine[:, None], y.index_select(0, dest),
                                torch.zeros_like(src))
-        if n_local < cfg.num_experts:
+        if split:
             # one writer a kept slot: the sum adds zeros only
             gathered = tp.all_reduce(gathered, "moe_out")
         out = (gathered * flat_gate[:, None].to(gathered.dtype)
                ).reshape(t, k, d).sum(dim=1)
-    return out.reshape(b, s, d), aux
+    out = out.reshape(b, s, d)
+    if sp:
+        out = tp.seq_split(out, "moe_seq")
+    return out, aux

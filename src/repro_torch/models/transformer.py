@@ -51,18 +51,19 @@ the rank's rows of the dense cache (``tp.cache_rows``, the reference's
 (``models/cp_attention.py``: the reference's ``cp_decode`` path for a
 scalar ``pos``, and the engine's per-row cursors). Without a rank, or
 at tp 1, ``cfg.cp_decode`` changes nothing, as the reference's
-``cp_available`` is False there. ``forward`` (training) raises under a
-rank: sharded training is a later step of item 11.
+``cp_available`` is False there. ``forward`` trains under a rank on a
+("data", "model") mesh (``train/step.py``): Megatron's heads, MLP
+blocks, experts and vocabulary over "model", sequence parallelism and
+FSDP's layer gathers as the rank's strategy says (``core/tp.py``).
 """
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
-
 from repro_torch.core import tp
 from repro_torch.models import cp_attention, kvcache, moe as moe_lib
 from repro_torch.models.layers import (attention, attn_out, attn_qkv, mlp,
                                        paged_attention, rmsnorm)
+from repro_torch.tree import unbind_leaves, unflatten
 
 
 def layer_params(params, i: int):
@@ -74,16 +75,11 @@ def layer_params(params, i: int):
 
 
 def unstack(tree, n: int):
-    """The ``n`` views along the leading axis of every leaf of ``tree``,
-    by ONE ``unbind`` a leaf: its backward stacks the layer grads once,
-    where indexing each layer would allocate a zero gradient of the whole
-    stack per layer."""
-    out = [{} for _ in range(n)]
-    for k, v in tree.items():
-        parts = unstack(v, n) if isinstance(v, dict) else torch.unbind(v, 0)
-        for i in range(n):
-            out[i][k] = parts[i]
-    return out
+    """The ``n`` views along the leading axis of every leaf of ``tree``
+    (``tree.unbind_leaves``: one ``unbind`` a leaf)."""
+    parts = unbind_leaves(tree)
+    return [unflatten({k: p[i] for k, p in parts.items()})
+            for i in range(n)]
 
 
 def unstack_layers(params, n: int):
@@ -91,55 +87,75 @@ def unstack_layers(params, n: int):
     return unstack(params["layers"], n)
 
 
-def _embed(params, tokens, cfg):
-    return tp.vocab_embed(params["embed"], tokens, cfg.vocab_size).to(
+def _embed(params, tokens, cfg, *, sp: bool = False):
+    table = tp.fsdp_full(params["embed"], "embed")
+    return tp.vocab_embed(table, tokens, cfg.vocab_size, seq=sp).to(
         getattr(torch, cfg.dtype))
 
 
-def _head(params, x, cfg):
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    w = params["lm_head"] if "lm_head" in params else params["embed"].T
+def _head(params, x, cfg, *, sp: bool = False):
+    """The final norm and the (vocab-parallel) head. ``sp``: ``x`` is the
+    rank's sequence slice, gathered after the norm."""
+    scale = tp.fsdp_full(params["final_norm"], "final_norm")
+    x = rmsnorm(x, tp.enter(scale, "norm") if sp else scale, cfg.norm_eps)
+    if sp:
+        x = tp.seq_gather(x, "head_seq")
+    w = tp.fsdp_full(params["lm_head"], "lm_head") if "lm_head" in params \
+        else tp.fsdp_full(params["embed"], "embed").T
+    if w.shape[-1] != cfg.vocab_size:
+        x = tp.enter(x, "head_in")
     return tp.vocab_logits(x @ w, cfg.vocab_size)
 
 
-def ffn(lp, h, cfg):
+def ffn(lp, h, cfg, *, sp: bool = False):
     """The layer's FFN on ``h``: (y, router aux loss) on an MoE config,
-    (y, None) for the dense SwiGLU."""
+    (y, None) for the dense SwiGLU. ``sp``: ``h`` is the rank's sequence
+    slice, and so is ``y``."""
     if cfg.is_moe:
-        return moe_lib.moe_ffn(lp["moe"], h, cfg)
-    return mlp(lp["mlp"], h), None
+        return moe_lib.moe_ffn(lp["moe"], h, cfg, sp=sp)
+    return mlp(lp["mlp"], tp.region_in(h, "mlp", seq=sp), sp=sp), None
 
 
-def block(lp, x, cfg, *, attn_impl: str = "auto"):
+def block(lp, x, cfg, *, attn_impl: str = "auto", sp: bool = False):
     """Pre-norm attention + pre-norm FFN over a whole sequence. Returns
-    (y, aux): the MoE router's aux loss, None for a dense FFN."""
-    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    (y, aux): the MoE router's aux loss, None for a dense FFN. Under a
+    rank the projections are the rank's heads and blocks (``tp``'s f and
+    g around them); ``sp``: ``x`` and ``y`` are the rank's slice of the
+    sequence, gathered before each column-parallel region and
+    reduce-scattered after each row-parallel one, the norms applied to
+    the slice."""
+    ln1, ln2 = lp["ln1"], lp["ln2"]
+    if sp:
+        ln1, ln2 = tp.enter(ln1, "norm"), tp.enter(ln2, "norm")
+    h = tp.region_in(rmsnorm(x, ln1, cfg.norm_eps), "attn", seq=sp)
     q, k, v = attn_qkv(lp["attn"], h, cfg)
-    ctx = attention(q, k, v, causal=True, window=cfg.sliding_window,
-                    impl=attn_impl)
-    x = x + attn_out(lp["attn"], ctx, cfg)
-    y, aux = ffn(lp, rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg)
+    ctx = attention(q, tp.kv_read(k), tp.kv_read(v), causal=True,
+                    window=cfg.sliding_window, impl=attn_impl)
+    x = x + attn_out(lp["attn"], ctx, cfg, sp=sp)
+    y, aux = ffn(lp, rmsnorm(x, ln2, cfg.norm_eps), cfg, sp=sp)
     return x + y, aux
 
 
 def forward(params, batch, cfg, *, remat: bool = False,
             attn_impl: str = "auto"):
     """batch: {"tokens": (B,S) int}. Returns (logits (B,S,V), aux): the
-    layers' router aux losses summed, 0 for a dense FFN."""
-    tp.check_training("transformer.forward")
-    x = _embed(params, batch["tokens"], cfg)
+    layers' router aux losses summed, 0 for a dense FFN. Under a rank
+    (``tp.active``) each rank runs its shards; FSDP's layers are gathered
+    one at a time inside the checkpoint (``tp.layer_sources``), and
+    under sequence parallelism the residual stream is the rank's slice
+    of the sequence."""
+    sp = tp.seq_parallel(batch["tokens"].shape[1])
+    x = _embed(params, batch["tokens"], cfg, sp=sp)
     auxs = []
-    for lp in unstack_layers(params, cfg.num_layers):
-        if remat:
-            x, aux = checkpoint(lambda y, lp=lp: block(lp, y, cfg,
-                                                       attn_impl=attn_impl),
-                                x, use_reentrant=False)
-        else:
-            x, aux = block(lp, x, cfg, attn_impl=attn_impl)
+    for layer in tp.layer_sources(params["layers"], cfg.num_layers,
+                                  "layers"):
+        def run(y, layer=layer):
+            return block(layer(), y, cfg, attn_impl=attn_impl, sp=sp)
+        x, aux = tp.checkpoint(run, x) if remat else run(x)
         auxs.append(aux)
     aux = torch.stack(auxs).sum() if cfg.is_moe else \
         torch.zeros((), dtype=torch.float32, device=x.device)
-    return _head(params, x, cfg), aux
+    return _head(params, x, cfg, sp=sp), aux
 
 
 def cache_window(cfg, max_len: int) -> int:

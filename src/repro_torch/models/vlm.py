@@ -106,6 +106,7 @@ def forward(params, batch, cfg, *, remat: bool = False,
     (B, S, V), aux 0). A batch without images raises ``KeyError`` here, as
     the reference's forward does (its token dataset yields tokens
     only)."""
+    tp.check_training("vlm.forward", tp.FAMILY_STEP)
     x = _embed(params, batch["tokens"], cfg)
     img = _images(batch, cfg, x.dtype)
     g, rest = cfg.vlm_groups

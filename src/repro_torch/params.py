@@ -237,10 +237,13 @@ def param_spec(cfg) -> Spec:
 
 def _rank_blocks(cfg, shard):
     """For ``shard=(strategy, mesh)``: a function giving this rank's block
-    of a full leaf (``core/tp.py::rank_pspecs``' spec at its coordinate)
-    and one giving a leaf's block shape; None, None unsharded."""
+    of a full leaf (``core/tp.py::rank_pspecs``' spec at its coordinate),
+    one giving a leaf's block shape, and one giving where a leading index
+    of a stacked leaf lies in the rank's block (None where another rank
+    holds it: FSDP splits the layer axis over "data"); None, None, None
+    unsharded."""
     if shard is None:
-        return None, None
+        return None, None, None
     strategy, mesh = shard
     specs = tp.leaf_specs(full_shapes(cfg), strategy, mesh, cfg)
     axes, coord = mesh_axes(mesh), tp.coordinate(mesh)
@@ -251,7 +254,20 @@ def _rank_blocks(cfg, shard):
     def block_shape(key, shape):
         return tp.local_shape(shape, specs[key], axes)
 
-    return block, block_shape
+    def local_index(key, index, shape):
+        out = []
+        for i, ax, n in zip(index, tuple(specs[key]), shape):
+            if ax is None:
+                out.append(i)
+                continue
+            size, mine = tp.block_of(ax, axes, coord)
+            per = n // size
+            if i // per != mine:
+                return None
+            out.append(i % per)
+        return tuple(out)
+
+    return block, block_shape, local_index
 
 
 def full_shapes(cfg) -> Dict[str, tuple]:
@@ -268,10 +284,11 @@ def init_params(cfg, *, device="cuda", generator=None, seed: int = 0,
     every leaf (``core/tp.py``): each layer is drawn whole, as unsharded,
     and sliced, so every rank's blocks are blocks of the same weights and
     the device never holds more than the rank's share and one layer's
-    draw."""
+    draw (where FSDP splits the layer axis over "data", a rank draws every
+    layer and keeps its own)."""
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
-    block, block_shape = _rank_blocks(cfg, shard)
+    block, block_shape, local_index = _rank_blocks(cfg, shard)
     flat = {}
     for key, (shape, dtype, init) in param_spec(cfg).items():
         if isinstance(init, str):
@@ -283,10 +300,15 @@ def init_params(cfg, *, device="cuda", generator=None, seed: int = 0,
         lead = STACK_AXES.get(key.split("/", 1)[0], 0)
         out = torch.empty(shape if block is None else block_shape(key, shape),
                           dtype=dtype, device=device)
-        for part in out.view(-1, *out.shape[lead:]):
+        for index in np.ndindex(*shape[:lead]):
             draw = torch.randn(shape[lead:], generator=generator,
                                device=device) * init
-            part.copy_(draw if block is None else block(key, draw, lead))
+            if block is None:
+                out[index].copy_(draw)
+                continue
+            at = local_index(key, index, shape[:lead])
+            if at is not None:
+                out[at].copy_(block(key, draw, lead))
         flat[key] = out
     return unflatten(flat)
 
@@ -317,7 +339,7 @@ def from_numpy(flat: Dict[str, np.ndarray], cfg, device="cuda",
     if missing or extra:
         raise KeyError(f"{cfg.name}: weight bridge keys differ — missing "
                        f"{missing}, unexpected {extra}")
-    block, _ = _rank_blocks(cfg, shard)
+    block, _, _ = _rank_blocks(cfg, shard)
     out = {}
     for key, (shape, dtype, _) in spec.items():
         arr = np.asarray(flat[key])

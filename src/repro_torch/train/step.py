@@ -14,6 +14,29 @@ say why); every leaf of ``params`` is made to require grad. Gradient
 accumulation over ``strategy.microbatches`` sums ``g / n_micro`` in
 ``strategy.grad_accum_dtype``, as the reference's scan does.
 
+Under a training rank (``core/tp.py``: ``tp.active(Rank.of(mesh, cfg,
+strategy, shapes))``, params and state the rank's blocks, as the Trainer
+makes them) the step computes what the reference's unsharded step
+computes on the same global batch, which it takes whole on every rank:
+
+* ``data/pipeline.py::shard_batch`` gives the rank its rows — its
+  contiguous share of every global microbatch — where the batch splits
+  over "data" (``rows_split``), else the whole batch;
+* the forward runs the rank's shards (Megatron TP, experts over
+  "model", sequence parallelism, FSDP's layer gathers); the loss is the
+  rank's share of the global batch's mean, and the MoE routes the global
+  batch;
+* after the backward every gradient is summed over "data"
+  (``"dp_grads"``; not where FSDP's gather already summed it, and not
+  where the batch is whole on every data rank) and cut to the leaf's
+  update block (ZeRO-1);
+* the norm, the optimizer and the metrics (``loss``, ``aux_loss``,
+  ``grad_norm``, summed over "data": ``"metrics"``) are the global
+  ones, equal on every rank.
+
+``train_step.grads(params, batch)`` is the step up to there: (the
+rank's update blocks of the gradient before clipping, the metrics).
+
 The step's parts run under ``torch.profiler.record_function`` ranges named
 by :data:`PARTS`, so a profiled step splits its time by them (a range costs
 a few microseconds when no profiler runs).
@@ -25,13 +48,15 @@ from typing import Callable
 import torch
 from torch.profiler import record_function
 
+from repro_torch.core import tp
 from repro_torch.core.strategy import Strategy
+from repro_torch.data.pipeline import rows_split, shard_batch
 from repro_torch.models import get_model
 from repro_torch.optim import clip_by_global_norm, get_optimizer
 from repro_torch.train.losses import cross_entropy
 from repro_torch.tree import flatten, tree_map, unflatten
 
-PARTS = ("forward_loss", "backward", "clip", "optimizer")
+PARTS = ("forward_loss", "backward", "dp_grads", "clip", "optimizer")
 
 
 def make_loss_fn(cfg, strategy: Strategy) -> Callable:
@@ -53,9 +78,32 @@ def make_loss_fn(cfg, strategy: Strategy) -> Callable:
     return loss_fn
 
 
-def init_opt_state(params, strategy: Strategy):
+def _training_rank():
+    """The current rank where it is a training one (with its leaves)."""
+    r = tp.current()
+    return r if r is not None and r.leaves else None
+
+
+def init_opt_state(params, strategy: Strategy, rank=None):
+    """The optimizer's state of ``params`` — on a training ``rank`` (or
+    the current one) its blocks."""
     init, _ = get_optimizer(strategy.optimizer)
-    return init(params)
+    rank = rank if rank is not None else _training_rank()
+    return init(params) if rank is None else init(params, rank=rank)
+
+
+@torch.no_grad()
+def reduce_grads(grads, rank, split: bool):
+    """The rank's gradients summed over "data" where the rows were split
+    (a leaf FSDP gathers is summed already) and cut to each leaf's update
+    block."""
+    out = {}
+    for key, g in flatten(grads).items():
+        lb = rank.leaves[key]
+        if split and lb.fsdp_dim is None:
+            g = tp.axis_sum(g.contiguous(), "data", "dp_grads", rank)
+        out[key] = tp.zero_block(g, lb, rank)
+    return unflatten(out)
 
 
 def make_train_step(cfg, strategy: Strategy, *, lr: float = 3e-4,
@@ -79,7 +127,7 @@ def make_train_step(cfg, strategy: Strategy, *, lr: float = 3e-4,
         return unflatten(dict(zip(leaves, grads))), \
             {k: v.detach() for k, v in metrics.items()}
 
-    def train_step(params, opt_state, batch):
+    def accumulate(params, batch):
         if n_micro > 1:
             acc_dt = getattr(torch, strategy.grad_accum_dtype)
             b = batch["tokens"].shape[0]
@@ -102,11 +150,36 @@ def make_train_step(cfg, strategy: Strategy, *, lr: float = 3e-4,
                     {k: metrics[k] + m[k] for k in m}
         else:
             grads, metrics = grads_of(params, batch)
+        return grads, metrics
 
+    def grads(params, batch):
+        r = _training_rank()
+        if r is None:
+            return accumulate(params, batch)
+        rows = len(batch["tokens"])
+        split = rows_split(rows, r.dp, n_micro)
+        with tp.step_rows(r, split):
+            grads, metrics = accumulate(params, shard_batch(
+                batch, r.dp, r.data_rank, microbatches=n_micro))
+        with record_function("dp_grads"):
+            grads = reduce_grads(grads, r, split)
+            if split:
+                vec = torch.stack([metrics["loss"].float(),
+                                   metrics["aux_loss"].float()])
+                tp.axis_sum(vec, "data", "metrics", r)
+                metrics = {"loss": vec[0], "aux_loss": vec[1]}
+        return grads, metrics
+
+    def train_step(params, opt_state, batch):
+        g, metrics = grads(params, batch)
+        r = _training_rank()
+        kw = {} if r is None else {"rank": r}
         with record_function("clip"):
-            grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+            g, gnorm = clip_by_global_norm(g, max_grad_norm, **kw)
         with record_function("optimizer"):
-            params, opt_state = opt_update(grads, opt_state, params, lr=lr)
+            params, opt_state = opt_update(g, opt_state, params, lr=lr,
+                                           **kw)
         return params, opt_state, dict(metrics, grad_norm=gnorm)
 
+    train_step.grads = grads
     return train_step

@@ -502,11 +502,12 @@ def _logits_rank(rank, world, flats, toks):
                     params, cache, t[:, pos:pos + 1], pos, cfg)
                 logits.append(got.numpy())
             counts.append(dict(rank_view.counts))
-            try:
-                transformer.forward(params, {"tokens": t}, cfg)
-            except NotImplementedError as e:
-                counts.append(str(e))
+            rank_view.counts.clear()
+            with torch.no_grad():
+                full, _ = transformer.forward(params, {"tokens": t}, cfg)
+            counts.append(dict(rank_view.counts))
         out[kw["name"]] = {"logits": logits, "counts": counts,
+                           "forward": full.numpy(),
                            "cache_heads": cache["kv"]["k"].shape[3]}
     return out
 
@@ -792,20 +793,27 @@ def test_tp2_decode_logits_match_jax(model_runs, name):
 
 
 def test_tp2_forward_has_two_all_reduces_a_layer(model_runs):
-    """tests/test_tp_collectives.py's claim in the port: a prefill and a
-    decode step each issue exactly one all-reduce after attention and one
-    after the MLP a layer, one for the vocab-parallel embedding and one to
-    assemble the logits — nothing else; training under a mesh raises
-    naming item 11."""
-    _, logits, _ = model_runs
+    """tests/test_tp_collectives.py's claim in the port: a prefill, a
+    decode step and the training forward (``transformer.forward``, which
+    runs under a mesh) each issue exactly one all-reduce after attention
+    and one after the MLP a layer, one for the vocab-parallel embedding
+    and one to assemble the logits — nothing else; the forward's logits
+    within LOGITS_TOL of the reference's ``forward``."""
+    import jax.numpy as jnp
+    from repro.models import get_model
+    toks, logits, _ = model_runs
     layers = KW["num_layers"]
     want = {"attn_out": layers, "mlp_out": layers, "embed": 1,
             "logits": 1}
-    for r in logits:
-        for name in ("par-dense", "par-dense-kv1"):
-            prefill, decode, refused = r[name]["counts"]
-            assert prefill == want and decode == want
-            assert "item 11" in refused
+    for name, kw in (("par-dense", KW), ("par-dense-kv1", KW_KV1)):
+        jcfg, jparams, _ = _jax_params(kw)
+        ref, _ = get_model(jcfg).forward(
+            jparams, {"tokens": jnp.asarray(toks)}, jcfg)
+        for r in logits:
+            prefill, decode, forward = r[name]["counts"]
+            assert prefill == want and decode == want and forward == want
+            np.testing.assert_allclose(r[name]["forward"], np.asarray(ref),
+                                       atol=LOGITS_TOL, rtol=0)
 
 
 def test_tp_refusals(model_runs):

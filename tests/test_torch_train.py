@@ -232,8 +232,22 @@ def test_token_dataset_batches_equal_reference(kind, tmp_path):
         for key in a:
             assert a[key].dtype == b[key].dtype
             np.testing.assert_array_equal(a[key], b[key])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tdata.shard_batch(a, None, None)
+    # shard_batch places a data rank's rows: its contiguous share of
+    # every microbatch where the batch splits over "data", else all rows
+    # (the reference's batch_shardings drops a sharding that does not
+    # divide)
+    rows = np.arange(8)
+    got = [tdata.shard_batch({"t": rows}, 2, i, microbatches=2)["t"]
+           for i in range(2)]
+    assert [g.tolist() for g in got] == [[0, 1, 4, 5], [2, 3, 6, 7]]
+    assert tdata.shard_batch(a, 2, 1)["tokens"].tolist() == \
+        a["tokens"].tolist()                       # 3 rows: whole
+    assert not tdata.rows_split(8, 2, microbatches=8)
+    assert tdata.rows_split(8, 4) and not tdata.rows_split(8, 1)
+    half = tdata.shard_batch({k: torch.from_numpy(v) for k, v in
+                              mine.batch(0).items()}, 3, 2)
+    np.testing.assert_array_equal(half["labels"].numpy(),
+                                  mine.batch(0)["labels"][2:])
 
 
 # --------------------------------------------------------- checkpoints
@@ -343,18 +357,28 @@ def test_microbatched_step_equals_one_batch():
 def test_strategy_keeps_the_single_device_knobs():
     """The training knobs; ``rules`` is the sharding table (held to the
     reference's in tests/test_torch_sharding.py), and ``seq_parallel`` /
-    ``fsdp`` shape that table but raise naming item 11 where a trainer
-    would run them."""
+    ``fsdp``, like ``zero1``, shape that table and train on a mesh
+    (tests/test_torch_train_parallel.py): a one-device trainer accepts
+    them and steps as it would without them."""
     s = Strategy()
     assert (s.optimizer, s.remat, s.microbatches, s.attn_impl, s.zero1) == \
         ("adamw", True, 1, "auto", True)
     assert s.with_(remat=False).remat is False
     assert s.rules({"data": 2, "model": 4})["d_ff"] == "model"
-    cfg = ModelConfig(**jax_smoke("qwen3-14b").__dict__)
-    for kw in (dict(seq_parallel=True), dict(fsdp=True)):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            Trainer(cfg, Strategy(dtype="float32", **kw), "cpu",
-                    TrainConfig(steps=1), global_batch=2, seq_len=8)
+    cfg = ModelConfig(**jax_smoke("qwen3-14b").__dict__).with_(
+        dtype="float32", num_layers=1)
+    runs = []
+    for kw in ({}, dict(seq_parallel=True), dict(fsdp=True)):
+        trainer = Trainer(cfg, Strategy(dtype="float32", remat=False, **kw),
+                          "cpu", TrainConfig(steps=1, log_every=1),
+                          global_batch=2, seq_len=8)
+        assert trainer.rank is None
+        runs.append((trainer.run()["history"][0]["loss"],
+                     flatten(trainer.params)))
+    for loss, params in runs[1:]:
+        assert loss == runs[0][0]
+        for key, p in params.items():
+            assert torch.equal(p, runs[0][1][key]), key
 
 
 # ------------------------------------------------- Trainer and Session

@@ -1,0 +1,558 @@
+"""Sharded training in the port (core/tp.py, train/step.py,
+train/trainer.py, optim/optimizers.py) on four CPU gloo ranks: the twin
+of tests/test_parallel_equivalence.py's ``test_train_step_sharded_
+equals_reference`` for the dense and MoE families.
+
+One spawn (``launch/ranks.py``: four ``spawn``-started rank processes,
+a FileStore under ``tmp_path``, a timeout that kills the ranks) runs
+every case. Each case trains one step (two for Adafactor, so its second
+step reads the state blocks the first wrote) of the reference's smoke
+config in float32 — ``qwen3-14b`` (Hq 8, Hkv 2: at tp 4 the K/V
+projections are whole on every rank, and with ``q_norm``/``k_norm``
+their gradients are summed over "model") and ``olmoe-1b-7b`` (E 4, at
+the reference test's capacity factor 16.0, and at the default 1.25 on a
+batch whose routing drops entries) — on a ("data", "model") mesh, from
+the JAX init's params through the weight bridge, on the global batch
+(the step takes the rank's rows). Each is held:
+
+* to the JAX package's unsharded ``make_train_step`` on the same params
+  and batch: loss within abs 1e-4 and every param block within atol /
+  rtol 5e-4 of the reference's new params at the rank's block (the
+  reference test's bounds); ``aux_loss`` and ``grad_norm`` within rel
+  1e-5;
+* to the port's one-device step: each rank's gradient update block
+  before clipping within atol 1e-6 + rtol 1e-5 of the one-device
+  gradient's block (only the order of fp32 sums differs);
+* loss, aux loss and grad norm equal bit for bit on every rank, and the
+  data replicas' param blocks equal bit for bit;
+* the blocks a rank holds: its param blocks the shapes of the port's
+  table (FSDP: "data" on the first free divisible dim), its AdamW
+  ``m``/``v``/``master`` and Adafactor ``vr``/``vc`` the blocks of
+  ``core/sharding.py``'s state specs (ZeRO-1 over "data"), smaller than
+  the param blocks where they split.
+
+The same spawn trains through ``Session.train(tp=2, dp=2)`` (a
+checkpoint at step 2 that a one-device trainer restores leaf for leaf,
+and a (2, 2) trainer cuts to its blocks), through ``launch/train.py --dp
+2 --tp 2 --fsdp``, and shows the families that do not train on a mesh
+yet (SSM, hybrid, enc-dec, VLM) refusing, in the trainer and in their
+forward, naming ROADMAP.md Queue 1 item 11's step.
+
+This module imports JAX and the reference only in this process; the
+ranks import ``repro_torch`` only.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs.base import ModelConfig  # noqa: E402
+from repro_torch.core import tp  # noqa: E402
+from repro_torch.core.pspec import P  # noqa: E402
+from repro_torch.core.sharding import _state_leaf_spec  # noqa: E402
+from repro_torch.core.strategy import Strategy  # noqa: E402
+from repro_torch.launch.ranks import run_ranks  # noqa: E402
+from repro_torch.params import from_numpy, full_shapes  # noqa: E402
+from repro_torch.train import step as tstep  # noqa: E402
+from repro_torch.tree import flatten  # noqa: E402
+
+RANK_TIMEOUT = 240.0            # seconds the spawn may take before it fails
+LR = 1e-3                       # the reference test's
+LOSS_TOL, PARAM_TOL = 1e-4, 5e-4        # the reference test's bounds
+GRAD_ATOL, GRAD_RTOL = 1e-6, 1e-5       # vs the port's one-device step
+METRIC_REL = 1e-5
+
+#: case -> (arch, (data, model), Strategy keywords, capacity factor,
+#: batch, steps)
+CASES = {
+    "qwen 2x2": ("qwen3-14b", (2, 2), {}, 16.0, "uniform", 1),
+    "qwen 2x2 sp": ("qwen3-14b", (2, 2), dict(seq_parallel=True), 16.0,
+                    "uniform", 1),
+    "qwen 2x2 fsdp": ("qwen3-14b", (2, 2), dict(fsdp=True), 16.0,
+                      "uniform", 1),
+    "qwen 2x2 fsdp sp remat": ("qwen3-14b", (2, 2),
+                               dict(fsdp=True, seq_parallel=True,
+                                    remat=True), 16.0, "uniform", 1),
+    "qwen 1x4": ("qwen3-14b", (1, 4), {}, 16.0, "uniform", 1),
+    "qwen 4x1": ("qwen3-14b", (4, 1), {}, 16.0, "uniform", 1),
+    "qwen 2x2 adafactor": ("qwen3-14b", (2, 2),
+                           dict(optimizer="adafactor"), 16.0, "uniform", 2),
+    "olmoe 2x2": ("olmoe-1b-7b", (2, 2), {}, 16.0, "uniform", 1),
+    "olmoe 2x2 sp": ("olmoe-1b-7b", (2, 2), dict(seq_parallel=True), 16.0,
+                     "uniform", 1),
+    "olmoe 2x2 fsdp": ("olmoe-1b-7b", (2, 2), dict(fsdp=True), 16.0,
+                       "uniform", 1),
+    "olmoe 1x4": ("olmoe-1b-7b", (1, 4), {}, 16.0, "uniform", 1),
+    "olmoe 4x1": ("olmoe-1b-7b", (4, 1), {}, 16.0, "uniform", 1),
+    "olmoe 2x2 microbatches": ("olmoe-1b-7b", (2, 2),
+                               dict(microbatches=2), 16.0, "uniform", 1),
+    "olmoe 2x2 drops": ("olmoe-1b-7b", (2, 2), {}, 1.25, "skewed", 1),
+}
+
+#: the batches: 4 x 64 tokens over the whole vocabulary, and over its
+#: first 4 ids (the router sends them to few experts: at the default
+#: capacity factor entries drop)
+BATCHES = {"uniform": 512, "skewed": 4}
+
+_JAX = {}
+
+
+def _tokens(kind):
+    return np.random.default_rng(7).integers(
+        0, BATCHES[kind], size=(4, 64)).astype(np.int32)
+
+
+def _strategy_kw(case):
+    arch, _, kw, _, _, _ = CASES[case]
+    return dict(dict(remat=False, microbatches=1, dtype="float32"), **kw)
+
+
+def _ref_key(case):
+    """What the unsharded step depends on: the sharding knobs do not."""
+    arch, _, kw, cf, batch, steps = CASES[case]
+    return (arch, cf, batch, kw.get("optimizer", "adamw"),
+            kw.get("microbatches", 1), steps)
+
+
+def _cfg_kw(arch, cf):
+    from repro.configs import get_smoke
+    return dict(get_smoke(arch).with_(dtype="float32",
+                                      moe_capacity_factor=cf).__dict__)
+
+
+def _jax_ref(key):
+    """The JAX package's unsharded step(s) for ``key`` (``_ref_key``): (cfg
+    keywords, the init flattened, [(new params flattened, metrics) a
+    step]); made once a key."""
+    if key not in _JAX:
+        import jax
+        import jax.numpy as jnp
+        from repro.checkpoint.io import _flatten
+        from repro.configs.base import ModelConfig as JaxConfig
+        from repro.core.strategy import Strategy as JaxStrategy
+        from repro.models import get_model
+        from repro.train import step as jstep
+        arch, cf, batch, optimizer, micro, steps = key
+        kw = _cfg_kw(arch, cf)
+        jcfg = JaxConfig(**kw)
+        params = get_model(jcfg).init(jax.random.key(0), jcfg)
+        st = JaxStrategy(remat=False, microbatches=micro, dtype="float32",
+                         optimizer=optimizer)
+        step = jax.jit(jstep.make_train_step(jcfg, st, lr=LR))
+        p, o = params, jstep.init_opt_state(params, st)
+        tokens = {"tokens": jnp.asarray(_tokens(batch))}
+        out = []
+        for _ in range(steps):
+            p, o, m = step(p, o, tokens)
+            out.append(({k: np.asarray(v) for k, v in _flatten(p).items()},
+                        {k: float(v) for k, v in m.items()}))
+        _JAX[key] = (kw, {k: np.asarray(v)
+                          for k, v in _flatten(params).items()}, out)
+    return _JAX[key]
+
+
+def _one_device_grads(case):
+    """The port's one-device gradients (before clipping) of the case's
+    first step."""
+    key = ("grads",) + _ref_key(case)
+    if key not in _JAX:
+        kw, flat, _ = _jax_ref(_ref_key(case))
+        cfg = ModelConfig(**kw)
+        st = Strategy(**_strategy_kw(case))
+        params = from_numpy(flat, cfg, "cpu")
+        g, _ = tstep.make_train_step(cfg, st, lr=LR).grads(
+            params, {"tokens": torch.from_numpy(_tokens(CASES[case][4]))})
+        _JAX[key] = {k: v.numpy().copy() for k, v in flatten(g).items()}
+    return _JAX[key]
+
+
+# ----------------------------------------------------------- the ranks
+
+def _meshes():
+    from repro_torch.launch.mesh import make_mesh
+    cache = {}
+
+    def get(shape):
+        if shape not in cache:
+            cache[shape] = make_mesh(shape, ("data", "model"),
+                                     device_type="cpu")
+        return cache[shape]
+    return get
+
+
+def _case_rank(mesh, case, kw, flat, tokens):
+    """One case on this rank: the rank's blocks after each step, its
+    first step's gradient blocks, metrics, state and param shapes."""
+    cfg = ModelConfig(**kw)
+    st = Strategy(**_strategy_kw(case))
+    steps = CASES[case][5]
+    rank = tp.Rank.of(mesh, cfg, st, full_shapes(cfg))
+    params = from_numpy(flat, cfg, "cpu", shard=(st, mesh))
+    batch = {"tokens": torch.from_numpy(tokens)}
+    step = tstep.make_train_step(cfg, st, lr=LR)
+    out = {"coord": tp.coordinate(mesh), "metrics": [], "params": []}
+    with tp.active(rank):
+        opt = tstep.init_opt_state(params, st)
+        g, _ = step.grads(params, batch)
+        out["grads"] = {k: v.numpy().copy() for k, v in flatten(g).items()}
+        del g
+        rank.counts.clear()
+        for _ in range(steps):
+            params, opt, m = step(params, opt, batch)
+            out["metrics"].append({k: float(v) for k, v in m.items()})
+            out["params"].append({k: v.detach().numpy().copy()
+                                  for k, v in flatten(params).items()})
+    out["counts"] = dict(rank.counts)
+    out["split_rows_after"] = rank.split_rows
+    out["state"] = {name: {k: tuple(v.shape)
+                           for k, v in flatten(opt[name]).items()}
+                    for name in opt if name != "step"}
+    return out
+
+
+def _session_rank(tmp, flat_kw):
+    """``Session.train(tp=2, dp=2)`` for two steps with a checkpoint at
+    step 2; then a (2, 2) trainer on other params restoring it."""
+    from repro_torch.api import Session
+    from repro_torch.train.trainer import TrainConfig
+    kw, flat = flat_kw
+    cfg = ModelConfig(**kw).with_(num_layers=2)
+    st = Strategy(remat=True, dtype="float32")
+    tc = TrainConfig(steps=2, lr=LR, log_every=1, checkpoint_every=2,
+                     checkpoint_dir=tmp, seed=3)
+    trainer = Session(cfg, strategy=st, device="cpu", seed=3).train(
+        tc, global_batch=4, seq_len=16, tp=2, dp=2)
+    hist = trainer.run()["history"]
+    blocks = {k: v.detach().numpy().copy()
+              for k, v in flatten(trainer.params).items()}
+    other = Session(cfg, strategy=st, device="cpu", seed=9).train(
+        tc, global_batch=4, seq_len=16, tp=2, dp=2, restore=True)
+    restored = {k: v.detach().numpy().copy()
+                for k, v in flatten(other.params).items()}
+    master = {k: v.numpy().copy()
+              for k, v in flatten(other.opt_state["master"]).items()}
+    return {"history": hist, "blocks": blocks, "restored": restored,
+            "restored_step": other.step, "master": master,
+            "full_shapes": {k: tuple(v) for k, v in
+                            full_shapes(cfg).items()}}
+
+
+def _refusals(get_mesh):
+    """The families that do not train on a mesh: the trainer refuses
+    them, and so does their forward under a rank."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import encdec, hybrid, mamba_lm, vlm
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    mesh = get_mesh((2, 2))
+    out = {}
+    for arch, fwd in (("mamba2-780m", mamba_lm.forward),
+                      ("zamba2-1.2b", hybrid.forward),
+                      ("whisper-tiny", encdec.forward),
+                      ("llama-3.2-vision-90b", vlm.forward)):
+        cfg = get_smoke(arch).with_(dtype="float32")
+        try:
+            Trainer(cfg, Strategy(dtype="float32"), "cpu",
+                    TrainConfig(steps=1), global_batch=4, seq_len=8,
+                    mesh=mesh)
+        except NotImplementedError as e:
+            out[f"{arch} trainer"] = str(e)
+        view = tp.Rank.of(mesh, get_smoke("qwen3-14b"))
+        batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
+                 "frames": torch.zeros((1, 4, cfg.d_model)),
+                 "image_embeds": torch.zeros((1, 4, cfg.d_model))}
+        try:
+            with tp.active(view):
+                fwd({}, batch, cfg)
+        except NotImplementedError as e:
+            out[f"{arch} forward"] = str(e)
+    return out
+
+
+def _all_ranks(rank, world, refs, tmp):
+    """Every case of this module on one rank: one spawn for all."""
+    torch.set_num_threads(1)
+    from repro_torch.launch import train as launcher
+    get_mesh = _meshes()
+    out = {"cases": {}}
+    for case, (kw, flat, tokens) in refs["cases"].items():
+        out["cases"][case] = _case_rank(get_mesh(CASES[case][1]), case, kw,
+                                        flat, tokens)
+    out["session"] = _session_rank(tmp, refs["session"])
+    out["launcher"] = launcher.main(
+        ["--device", "cpu", "--dp", "2", "--tp", "2", "--fsdp", "--steps",
+         "2", "--global-batch", "4", "--seq", "16", "--layers", "2"])
+    out["refused"] = _refusals(get_mesh)
+    return out
+
+
+@pytest.fixture(scope="module")
+def spawned(tmp_path_factory):
+    """Every rank's results of every case, from one spawn."""
+    cases = {}
+    for case in CASES:
+        kw, flat, _ = _jax_ref(_ref_key(case))
+        cases[case] = (kw, flat, _tokens(CASES[case][4]))
+    kw, flat, _ = _jax_ref(_ref_key("qwen 2x2"))
+    refs = {"cases": cases, "session": (kw, flat)}
+    tmp = str(tmp_path_factory.mktemp("ckpt"))
+    ranks = run_ranks(_all_ranks, 4, args=(refs, tmp),
+                      store_dir=str(tmp_path_factory.mktemp("store")),
+                      timeout=RANK_TIMEOUT)
+    return ranks, tmp
+
+
+def _axes(case):
+    data, model = CASES[case][1]
+    return {"data": data, "model": model}
+
+
+def _leaves(case):
+    kw = _jax_ref(_ref_key(case))[0]
+    cfg = ModelConfig(**kw)
+    return cfg, tp.leaf_blocks(full_shapes(cfg), Strategy(
+        **_strategy_kw(case)), _axes(case), cfg)
+
+
+def _block(full, spec, case, coord):
+    return tp.shard_leaf(torch.from_numpy(np.array(full)),
+                         spec, _axes(case), coord).numpy()
+
+
+# ------------------------------------------------------------ the cases
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_sharded_step_matches_jax_unsharded(spawned, case):
+    """Loss within 1e-4, every param block within atol / rtol 5e-4 of the
+    reference's unsharded step (each step of it), ``aux_loss`` and
+    ``grad_norm`` within rel 1e-5; the metrics equal on every rank, the
+    data replicas' blocks equal bit for bit; no step's mark of split rows
+    left on the rank after it."""
+    ranks, _ = spawned
+    _, leaves = _leaves(case)
+    _, _, ref = _jax_ref(_ref_key(case))
+    runs = [r["cases"][case] for r in ranks]
+    assert not any(run["split_rows_after"] for run in runs)
+    for i, (jparams, jmet) in enumerate(ref):
+        for run in runs:
+            m = run["metrics"][i]
+            assert m == runs[0]["metrics"][i]
+            assert m["loss"] == pytest.approx(jmet["loss"], abs=LOSS_TOL)
+            for k in ("aux_loss", "grad_norm"):
+                assert m[k] == pytest.approx(jmet[k], rel=METRIC_REL,
+                                             abs=1e-7), k
+            for key, block in run["params"][i].items():
+                want = _block(jparams[key], leaves[key].spec, case,
+                              run["coord"])
+                np.testing.assert_allclose(block, want, atol=PARAM_TOL,
+                                           rtol=PARAM_TOL,
+                                           err_msg=f"{case} step {i} {key}")
+        for a in runs:
+            for b in runs:
+                if a["coord"]["model"] != b["coord"]["model"]:
+                    continue
+                for key, lb in leaves.items():
+                    if lb.fsdp_dim is None:
+                        assert np.array_equal(a["params"][i][key],
+                                              b["params"][i][key]), key
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_sharded_grads_match_one_device(spawned, case):
+    """Each rank's gradient update block before clipping (summed over
+    "data", ZeRO-1's slice) within atol 1e-6 + rtol 1e-5 of the port's
+    one-device gradient at that block."""
+    ranks, _ = spawned
+    _, leaves = _leaves(case)
+    want = _one_device_grads(case)
+    for r in ranks:
+        run = r["cases"][case]
+        for key, g in run["grads"].items():
+            np.testing.assert_allclose(
+                g, _block(want[key], leaves[key].update, case, run["coord"]),
+                atol=GRAD_ATOL, rtol=GRAD_RTOL, err_msg=f"{case} {key}")
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_rank_holds_its_blocks(spawned, case):
+    """A rank's params are its blocks of the port's table (FSDP: "data"
+    on the first free divisible dim) and its optimizer state the blocks
+    of ``core/sharding.py``'s state specs over them (ZeRO-1 over
+    "data"): by shape, and smaller than the params where "data"
+    splits."""
+    from repro_torch.optim.optimizers import _factored_dims
+    ranks, _ = spawned
+    _, leaves = _leaves(case)
+    axes, kw = _axes(case), _strategy_kw(case)
+    zero1 = Strategy(**kw).zero1
+
+    def state_shape(name, shape):
+        if name == "vr" and _factored_dims(shape) is not None:
+            return shape[:-1]
+        if name == "vc":
+            return () if _factored_dims(shape) is None \
+                else shape[:-2] + shape[-1:]
+        return shape
+
+    for r in ranks:
+        run = r["cases"][case]
+        for key, lb in leaves.items():
+            assert run["params"][0][key].shape == \
+                tp.local_shape(lb.shape, lb.spec, axes), key
+            for name, sub in run["state"].items():
+                sshape = state_shape(name, lb.shape)
+                spec = _state_leaf_spec(tp.Shape(sshape), tp.Shape(lb.shape),
+                                        lb.spec, axes, zero1)
+                assert sub[key] == tp.local_shape(sshape, spec, axes), \
+                    (name, key, sub[key], spec)
+        if axes["data"] == 1:
+            continue
+        # what "data" saves: FSDP's param blocks against the model-only
+        # blocks, ZeRO-1's state against the param blocks
+        blocks = sum(np.prod(tp.local_shape(lb.shape, lb.spec, axes))
+                     for lb in leaves.values())
+        if kw.get("fsdp"):
+            model_only = sum(np.prod(tp.local_shape(lb.shape, P(*(
+                None if a == "data" else a for a in lb.spec)), axes))
+                for lb in leaves.values())
+            assert blocks < 0.6 * model_only
+        else:
+            first = next(iter(run["state"]))
+            held = sum(np.prod(s) for s in run["state"][first].values())
+            assert held < 0.6 * blocks
+
+
+def test_default_capacity_drops_entries():
+    """The "drops" case's batch overflows experts at the default capacity
+    factor in the one-device step (so the data ranks' slot offsets
+    decide which entries stay), and the reference batch does not at
+    16.0."""
+    from repro_torch.models import moe
+    dropped = {}
+    for case in ("olmoe 2x2 drops", "olmoe 2x2"):
+        kw, flat, _ = _jax_ref(_ref_key(case))
+        cfg = ModelConfig(**kw)
+        seen = []
+        real = moe.dispatch
+
+        def counting(idx, cfg_, cap, offset=None):
+            dest, keep = real(idx, cfg_, cap, offset)
+            seen.append(int((~keep).sum()))
+            return dest, keep
+        moe.dispatch = counting
+        try:
+            params = from_numpy(flat, cfg, "cpu")
+            with torch.no_grad():
+                tstep.make_loss_fn(cfg, Strategy(remat=False,
+                                                 dtype="float32"))(
+                    params, {"tokens": torch.from_numpy(
+                        _tokens(CASES[case][4]))})
+        finally:
+            moe.dispatch = real
+        dropped[case] = sum(seen)
+    assert dropped["olmoe 2x2 drops"] > 0
+    assert dropped["olmoe 2x2"] == 0
+
+
+def test_collectives_by_label(spawned):
+    """A step's collectives carry their labels: at (2, 2) one
+    ``attn_out`` and ``mlp_out`` sum a layer forward and one ``attn_in``
+    and ``mlp_in`` gradient sum a layer backward, the gradient sums over
+    "data" and ZeRO-1's assembly one a leaf; under sequence parallelism
+    the gathers and the reduce-scatters' backward; under FSDP a gather a
+    layer leaf forward and backward and no "data" gradient sum."""
+    ranks, _ = spawned
+    layers, n_leaves = 2, 14
+    for r in ranks:
+        c = r["cases"]["qwen 2x2"]["counts"]
+        assert c["attn_out"] == c["mlp_out"] == layers
+        assert c["attn_in.grad"] == c["mlp_in.grad"] == layers
+        assert c["qk_norm.grad"] == 2 * layers
+        assert c["dp_grads"] == n_leaves and c["embed"] == 1
+        assert 0 < c["zero_params"] <= n_leaves
+        assert c["metrics"] == 1 and c["loss_tokens"] == 1
+        s = r["cases"]["qwen 2x2 sp"]["counts"]
+        for key in ("attn_seq", "mlp_seq", "attn_out.grad", "mlp_out.grad"):
+            assert s[key] == layers, key
+        assert s["head_seq"] == 1 and s["embed.grad"] == 1
+        f = r["cases"]["qwen 2x2 fsdp"]["counts"]
+        assert "dp_grads" not in f and "zero_params" not in f
+        assert f["fsdp_gather"] == f["fsdp_gather.grad"] > 0
+        k = r["cases"]["qwen 1x4"]["counts"]
+        assert k["kv_proj.grad"] == 2 * layers          # wk, wv whole
+        m = r["cases"]["olmoe 2x2"]["counts"]
+        assert m["moe_counts"] == m["moe_out"] == m["moe_in.grad"] == layers
+
+
+# ------------------------------------------- Session, launcher, refusals
+
+def test_session_train_tp2_dp2_checkpoint_restores(spawned):
+    """``Session.train(tp=2, dp=2)``: two steps with finite losses equal
+    on every rank; its checkpoint holds the full tree (written by the
+    first rank), which a one-device trainer restores leaf for leaf and
+    which equals the ranks' blocks; a (2, 2) trainer with other params
+    restores its blocks of it (AdamW's master rebuilt from them)."""
+    from repro_torch.api import Session
+    from repro_torch.checkpoint import latest_step, load_checkpoint
+    from repro_torch.train.trainer import TrainConfig
+    ranks, tmp = spawned
+    hists = [[{k: v for k, v in h.items() if k != "wall"}
+              for h in r["session"]["history"]] for r in ranks]
+    assert [h["step"] for h in hists[0]] == [1, 2]
+    assert all(h == hists[0] for h in hists)
+    assert all(np.isfinite(h["loss"]) for h in hists[0])
+    assert latest_step(tmp) == 2
+    kw, _ = _jax_ref(_ref_key("qwen 2x2"))[:2]
+    cfg = ModelConfig(**kw).with_(num_layers=2)
+    st = Strategy(remat=True, dtype="float32")
+    one = Session(cfg, strategy=st, device="cpu", seed=5).train(
+        TrainConfig(steps=2, checkpoint_dir=tmp), global_batch=4,
+        seq_len=16, restore=True)
+    assert one.step == 2
+    saved = flatten(load_checkpoint(tmp, 2, one.params))
+    axes = {"data": 2, "model": 2}
+    leaves = tp.leaf_blocks(ranks[0]["session"]["full_shapes"], st, axes,
+                            cfg)
+    for key, p in flatten(one.params).items():
+        assert torch.equal(p, saved[key]), key
+        for i, r in enumerate(ranks):
+            coord = {"data": i // 2, "model": i % 2}
+            want = tp.shard_leaf(p, leaves[key].spec, axes, coord).numpy()
+            assert np.array_equal(r["session"]["blocks"][key], want), key
+            assert np.array_equal(r["session"]["restored"][key], want), key
+    for r in ranks:
+        assert r["session"]["restored_step"] == 2
+    # the sharded run trained what the one-device run trains
+    fresh = Session(cfg, strategy=st, device="cpu", seed=3)
+    trained = fresh.train(TrainConfig(steps=2, lr=LR, log_every=1, seed=3),
+                          global_batch=4, seq_len=16)
+    hist = trained.run()["history"]
+    for a, b in zip(hist, hists[0]):
+        assert a["loss"] == pytest.approx(b["loss"], abs=LOSS_TOL)
+    for key, p in flatten(fresh.params).items():
+        np.testing.assert_allclose(saved[key].numpy(),
+                                   p.detach().numpy(), atol=PARAM_TOL,
+                                   rtol=PARAM_TOL, err_msg=key)
+
+
+def test_train_launcher_dp2_tp2_fsdp_runs_on_ranks(spawned):
+    """``launch/train.py --dp 2 --tp 2 --fsdp`` on the four ranks: two
+    steps, the same finite loss on every rank."""
+    ranks, _ = spawned
+    outs = [[{k: v for k, v in h.items() if k != "wall"}
+             for h in r["launcher"]["history"]] for r in ranks]
+    assert outs[0][-1]["step"] == 2 and np.isfinite(outs[0][-1]["loss"])
+    assert all(o == outs[0] for o in outs)
+
+
+def test_unported_families_refuse_on_a_mesh(spawned):
+    """The SSM family, the hybrid, the enc-dec family and the VLM do not
+    train on a mesh yet: their Trainer and their forward under a rank
+    raise naming ROADMAP.md Queue 1 item 11, step 7."""
+    ranks, _ = spawned
+    refused = ranks[0]["refused"]
+    for arch in ("mamba2-780m", "zamba2-1.2b", "whisper-tiny",
+                 "llama-3.2-vision-90b"):
+        for where in ("trainer", "forward"):
+            msg = refused[f"{arch} {where}"]
+            assert "item 11" in msg and "step 7" in msg, (arch, where)
+            assert "under a mesh" in msg
