@@ -112,7 +112,10 @@ Phases (any failure exits non-zero; no result line is printed then):
    2048, 20, 4, 128) causal, per value, its defect rejected, timed beside
    SDPA with its bound and its plain backward timed; fp32 flash at the
    f32 check's (1, 256, 256, 20, 4, 128) and (2, 256, 256, 40, 8, 128)
-   within 2e-6, each shown to reject dropped keys;
+   within 2e-6, each shown to reject dropped keys; then at the shapes
+   phase 25 adds: bf16 flash at a pipeline stage's (1, 2048, 2048, 40,
+   8, 128) causal the same way, and fp32 at its f32 check's (1, 256,
+   256, 40, 8, 128);
 4. tiny float32 configs on the card and on the CPU (TF32 off): through
    the port's engine on each layout — the mixed step, the split path on
    the pool (``mixed=False``) and on the dense layout (``paged=False``),
@@ -467,6 +470,28 @@ Phases (any failure exits non-zero; no result line is printed then):
    the "data" gradient sum outside that bound. Four ranks share one
    card's SMs and gloo stages every collective through host memory: not
    parallelism's speed.
+25. THE GPIPE PIPELINE, on phase 24's four rank processes: Qwen3-14B at
+   full width cut to 8 layers, 2 a stage, over a (1, 4, 1) ("data",
+   "pipe", "model") mesh (``make_pipeline_mesh``); the reference's
+   ``pipeline_apply`` with the port's ``transformer.block`` as the stage
+   function on M = 1, 4 and 8 microbatches of 1 x 2048 seeded hidden
+   states: a ``no_grad`` forward and a forward + backward of ``(y **
+   2).mean()`` (each block rematerialised), 3 times each. Counts zeroed
+   just before each run and read just after, on each rank: flash 2 (M +
+   3) without a gradient and 4 (M + 3) with one (the recompute), the
+   fused MLP 2 (M + 3) without a gradient and 0 with one, the others
+   never; M + 3 stage
+   moves, M + 2 backward moves, one output copy. Every rank's output
+   equal bit for bit to the first rank's in every repeat and to the
+   first rank's one-device run of the 8 layers per microbatch. Prints
+   step p50 by M, ms a microbatch against that one-device run beside
+   the simulator's (M + P - 1) / M, moves and bytes by label and peak
+   memory a rank. Then the f32 check (TF32 off) at 1 layer a stage, 4 x
+   256 tokens: output within atol / rtol 1e-5 and each stage gradient
+   within atol 1e-5 of the tensor's largest value + rtol 1e-4 of each
+   rank's own one-device run, and a broken backward ring outside that.
+   Not pipeline parallelism's speed: four ranks share one card over
+   gloo.
 
 Last, every process the run started (nvcc, cuobjdump, the rank
 processes and the ``multiprocessing`` resource tracker their start
@@ -6222,26 +6247,32 @@ TRAIN_TP_F32_FLASH = ((1, SHARDED_F32_SEQ, SHARDED_F32_SEQ)
 
 def phase_train_tp_kernels(seed: int):
     """Flash at the shapes phase 24 gives it: bf16 at ``TRAIN_TP_FLASH``
+    and fp32 at ``TRAIN_TP_F32_FLASH`` (``_training_flash``)."""
+    return _training_flash(seed + 2427, TRAIN_TP_FLASH, TRAIN_TP_F32_FLASH)
+
+
+def _training_flash(seed: int, shape, f32_shapes):
+    """Flash at the shapes a training phase gives it: bf16 at ``shape``
     (causal) per value at phase 3's limits (atol 1e-5 + rtol 8e-3), shown
     to reject dropped keys, timed beside SDPA with its bound, and its
-    plain backward (softmax recompute) timed at that shape; fp32 at the
-    f32 check's shapes within phase 3's fp32 2e-6, each shown to reject
+    plain backward (softmax recompute) timed at that shape; fp32 at
+    ``f32_shapes`` within phase 3's fp32 2e-6, each shown to reject
     dropped keys. Returns {"flash_attention": records}."""
     from repro_torch.kernels import flash_attention as fa
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rng = np.random.default_rng(seed + 2427)
+    rng = np.random.default_rng(seed)
     gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
-    rec = _flash_shape(gen, TRAIN_TP_FLASH, 1e-5, 8e-3, timed=True)
-    q, k, v = _flash_inputs(gen, TRAIN_TP_FLASH, torch.bfloat16)
+    rec = _flash_shape(gen, shape, 1e-5, 8e-3, timed=True)
+    q, k, v = _flash_inputs(gen, shape, torch.bfloat16)
     g = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
     rec["backward_ms"] = time_ms(lambda: fa.flash_attention_bwd(
         q, k, v, g, causal=True), iters=3, warmup=1)
-    log(f"[flash bf16 {TRAIN_TP_FLASH}] plain backward (softmax recompute) "
+    log(f"[flash bf16 {shape}] plain backward (softmax recompute) "
         f"{rec['backward_ms']:.4f} ms")
     out = [rec]
     del q, k, v, g
-    for shape in TRAIN_TP_F32_FLASH:
+    for shape in f32_shapes:
         q, k, v = _flash_inputs(gen, shape, torch.float32)
         n = shape[1]
         want = fa.flash_attention_plain(q, k, v, causal=True)
@@ -6285,11 +6316,11 @@ def _chunked_excess(got, want_host, atol: float, rtol: float) -> float:
                             rtol) for at in range(0, a.numel(), step))
 
 
-def _rank_log(rank: int, msg: str) -> None:
-    """Progress of the first rank process of phase 24 (the others are
-    silent), so a failed or slow run shows where it stood."""
+def _rank_log(rank: int, msg: str, tag: str = "sharded train") -> None:
+    """Progress of the first rank process of phases 24-25 (the others
+    are silent), so a failed or slow run shows where it stood."""
     if rank == 0:
-        print(f"[sharded train rank 0] {msg}", flush=True)
+        print(f"[{tag} rank 0] {msg}", flush=True)
 
 
 def _sharded_bf16_run(mesh, cfg, name: str, seed: int):
@@ -6441,7 +6472,7 @@ def _sharded_f32_rank(mesh, seed: int, tokens):
 
 def _sharded_train_rank(rank: int, world: int, seed: int, f32_tokens):
     """One rank of phase 24 on cuda:0 (gloo): the three bf16 runs, then
-    the f32 check."""
+    the f32 check; then phase 25 (``_pipe_rank``) on the same ranks."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_mesh
     _tp_rank_setup()
@@ -6457,6 +6488,7 @@ def _sharded_train_rank(rank: int, world: int, seed: int, f32_tokens):
                         f" s, peak {out[name]['peak_mem_gb']:.2f} GB")
     out["f32"] = _sharded_f32_rank(mesh, seed, f32_tokens)
     _rank_log(rank, f"f32 check done at {time.perf_counter() - t0:.1f}s")
+    out["pipe"] = _pipe_rank(rank, seed)           # phase 25, same ranks
     return out
 
 
@@ -6492,7 +6524,8 @@ def phase_train_sharded(seed: int, smi: str):
     gc.collect()
     torch.cuda.empty_cache()
     ranks = _spawn_ranks(_sharded_train_rank, (seed, f32_tokens),
-                         SHARDED_TIMEOUT_S, "sharded train",
+                         SHARDED_TIMEOUT_S + PIPE_TIMEOUT_S,
+                         "sharded train and pipeline",
                          world=math.prod(SHARDED_MESH))
     note = ("four ranks share one card's SMs and gloo stages every "
             "collective through host memory: not parallelism's speed")
@@ -6578,6 +6611,407 @@ def phase_train_sharded(seed: int, smi: str):
     return out
 
 
+# ----------------------------------------------------------- phase 25
+
+#: phase 25: GPipe over a (1, 4, 1) ("data", "pipe", "model") mesh of four
+#: gloo rank processes on the card (phase 24's), Qwen3-14B at full width
+#: cut to 8 layers, 2 a stage; M microbatches of 1 x 2048 hidden states
+PIPE_MESH, PIPE_LAYERS, PIPE_SEQ, PIPE_MS = (1, 4, 1), 8, 2048, (1, 4, 8)
+PIPE_REPEATS = 3
+#: its f32 check: 1 layer a stage, M 4 microbatches of 1 x 256; output at
+#: the reference test's atol / rtol 1e-5, gradients at its atol 1e-5 (of
+#: each tensor's largest value: see ``_pipe_f32``) and rtol 1e-4
+PIPE_F32_LAYERS, PIPE_F32_SEQ, PIPE_F32_M = 4, 256, 4
+PIPE_OUT_TOL, PIPE_GRAD_ATOL, PIPE_GRAD_RTOL = 1e-5, 1e-5, 1e-4
+#: the seconds phase 25 adds to phase 24's rank processes
+PIPE_TIMEOUT_S = 300.0
+#: flash's shapes there: a stage's (1, 2048) microbatch at all 40/8 heads
+#: (bf16), the f32 check's (1, 256)
+PIPE_FLASH = (1, PIPE_SEQ, PIPE_SEQ, 40, 8, 128)
+PIPE_F32_FLASH = ((1, PIPE_F32_SEQ, PIPE_F32_SEQ, 40, 8, 128),)
+
+
+def phase_pipe_kernels(seed: int):
+    """Flash at the shapes phase 25 gives it (``_training_flash``); the
+    fused MLP's T 2048 at d 5120, f 17408 is phase 3's."""
+    return _training_flash(seed + 2528, PIPE_FLASH, PIPE_F32_FLASH)
+
+
+def _pipe_layers(cfg, layers, seed: int):
+    """Layers ``layers`` of phase 25's weights, stacked: ``{key: (len(
+    layers), ...)}`` by the dense block's keys, each layer drawn from its
+    own seed, so every rank draws the same layer j."""
+    from repro_torch.params import FIXED_INITS, _block_spec
+    spec = _block_spec(cfg, "s", ())
+    out = {k[2:]: torch.empty((len(layers),) + shape, dtype=dt,
+                              device="cuda")
+           for k, (shape, dt, _) in spec.items()}
+    for i, j in enumerate(layers):
+        gen = torch.Generator(device="cuda").manual_seed(seed * 1000 + j)
+        for k, (shape, dt, init) in spec.items():
+            out[k[2:]][i] = FIXED_INITS[init](shape) if isinstance(init, str) \
+                else torch.randn(shape, generator=gen, device="cuda") * init
+    return out
+
+
+def _pipe_stage_fn(cfg, per: int):
+    """``per`` of the port's ``transformer.block``s; with a gradient each
+    is rematerialised in the backward (GPipe's re-materialisation: the
+    four ranks' saved activations at M 8 would not fit 60 GB)."""
+    from repro_torch.core import tp
+    from repro_torch.models.transformer import block, unstack
+
+    def layer(lp, h):
+        return block(lp, h, cfg)[0]
+
+    def stage_fn(local, h):
+        for lp in unstack(local, per):
+            h = tp.checkpoint(layer, lp, h) if torch.is_grad_enabled() \
+                else layer(lp, h)
+        return h
+    return stage_fn
+
+
+def _pipe_tree(own: dict, p: int):
+    """The (P, ...) stage tree a rank hands ``pipeline_apply``: a rank
+    reads only its own stage's slice, so every slice is a stride-0 view
+    of its own layers (not P stages' weights)."""
+    from repro_torch.tree import unflatten
+    return unflatten({k: v.expand((p,) + v.shape) for k, v in own.items()})
+
+
+def _pipe_bf16(rank: int, mesh, seed: int):
+    """Phase 25's bf16 runs on this rank: a ``no_grad`` forward and a
+    forward + backward of ``(y ** 2).mean()`` at each M, ``PIPE_REPEATS``
+    times, launches and moves counted from 0 around each run; then, on
+    the first rank alone (the others wait at a barrier), the one-device
+    sequential application of all 8 layers per microbatch, forward and
+    forward + backward, whose outputs the pipeline's must equal and whose
+    time a microbatch is the schedule's ideal."""
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import pipeline
+    cfg = get_config("qwen3-14b").with_(num_layers=PIPE_LAYERS)
+    p = PIPE_MESH[1]
+    per = PIPE_LAYERS // p
+    stage = pipeline.Stage.of(mesh)
+    own = _pipe_layers(cfg, range(stage.index * per, (stage.index + 1) * per),
+                       seed)
+    stage_fn = _pipe_stage_fn(cfg, per)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 25)
+    x = torch.randn((max(PIPE_MS), PIPE_SEQ, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run(m: int, grad: bool):
+        for v in own.values():
+            v.requires_grad_(grad)
+            v.grad = None
+        with torch.set_grad_enabled(grad):
+            y = pipeline.pipeline_apply(stage_fn, _pipe_tree(own, p), x[:m],
+                                        mesh=mesh,
+                                        num_microbatches=m, stage=stage)
+            if grad:
+                (y.float() ** 2).mean().backward()
+        return y.detach()
+
+    for grad in (False, True):                      # warm up, uncounted
+        run(1, grad)
+    out = {"stage": stage.index, "runs": {}}
+    keep = {}
+    for grad in (False, True):
+        for m in PIPE_MS:
+            name = f"{'fwd+bwd' if grad else 'no_grad'} M{m}"
+            rec = {"step_s": [], "fingerprints": []}
+            for _ in range(PIPE_REPEATS):
+                stage.counts.clear()
+                stage.bytes.clear()
+                kernels.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y = run(m, grad)
+                torch.cuda.synchronize()
+                rec["step_s"].append(time.perf_counter() - t0)
+                rec["launches"] = kernels.launches()
+                rec["fingerprints"].append(_fingerprint(y))
+            rec["moves"] = dict(stage.counts)
+            rec["move_bytes"] = dict(stage.bytes)
+            rec["finite"] = bool(torch.isfinite(y).all())
+            out["runs"][name] = rec
+            keep[name] = y
+            _rank_log(rank, f"pipeline {name}: steps "
+                            f"{[round(s, 3) for s in rec['step_s']]} s",
+                      "pipeline")
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del own
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        out["sequential"] = _pipe_sequential(cfg, seed, x, keep)
+    else:
+        del keep
+    dist.barrier()
+    return out
+
+
+def _pipe_sequential(cfg, seed: int, x, keep: dict):
+    """The first rank's one-device run of phase 25's 8 layers on each
+    microbatch in turn: ``no_grad`` and forward + backward, each twice
+    (the second timed); whether each pipeline output equals it bit for
+    bit, and its largest |difference|."""
+    weights = _pipe_layers(cfg, range(PIPE_LAYERS), seed)
+    stage_fn = _pipe_stage_fn(cfg, PIPE_LAYERS)
+    m_all = max(PIPE_MS)
+    out = {}
+    for grad in (False, True):
+        for v in weights.values():
+            v.requires_grad_(grad)
+        for _ in range(2):
+            for v in weights.values():
+                v.grad = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ys = []
+            for i in range(m_all):
+                with torch.set_grad_enabled(grad):
+                    y = stage_fn(weights, x[i:i + 1])
+                    if grad:
+                        (y.float() ** 2).mean().backward()
+                ys.append(y.detach())
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        mode = "fwd+bwd" if grad else "no_grad"
+        seq = torch.cat(ys)
+        out[mode] = {"ms_per_microbatch": dt * 1e3 / m_all}
+        for m in PIPE_MS:
+            got = keep[f"{mode} M{m}"]
+            out[f"{mode} M{m}"] = {
+                "equal": bool(torch.equal(got, seq[:m])),
+                "max_abs_err": (got.float() - seq[:m].float()).abs().max()
+                .item()}
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pipe_f32(rank: int, mesh, seed: int):
+    """Phase 25's f32 check on this rank (TF32 off): ``PIPE_F32_LAYERS``
+    layers, one a stage, M ``PIPE_F32_M`` microbatches of 1 x
+    ``PIPE_F32_SEQ``. First this rank's own one-device sequential run of
+    all the layers, a microbatch at a time (the gradients of
+    ``(y ** 2).mean()`` kept for its stage's layers only); then the
+    pipeline's output and its stage's gradients, and the same with the
+    backward ring broken (each gradient sent on to the NEXT stage: the
+    defect), each held to it. At full width a gradient's values are
+    ~1e-7 to 1e-5, so the reference's atol 1e-5 would pass anything: it
+    is taken relative to each tensor's largest value, the rtol as it
+    is; the output (values ~1) keeps the absolute bounds."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import pipeline
+    cfg = get_config("qwen3-14b").with_(num_layers=PIPE_F32_LAYERS,
+                                        dtype="float32")
+    p = PIPE_MESH[1]
+    per = PIPE_F32_LAYERS // p
+    stage = pipeline.Stage.of(mesh)
+    lo, hi = stage.index * per, (stage.index + 1) * per
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2525)
+    x = torch.randn((PIPE_F32_M, PIPE_F32_SEQ, cfg.d_model), generator=gen,
+                    device="cuda")
+    full = _pipe_layers(cfg, range(PIPE_F32_LAYERS), seed + 1)
+    parts = [({k: v[:lo] for k, v in full.items()}, lo),
+             ({k: v[lo:hi].detach().requires_grad_() for k, v in
+               full.items()}, per),
+             ({k: v[hi:] for k, v in full.items()}, PIPE_F32_LAYERS - hi)]
+    ys = []
+    for i in range(PIPE_F32_M):
+        # every layer then runs its gradient path (the plain SwiGLU), as
+        # every stage of the pipeline does: its input carries the ring's
+        h = x[i:i + 1].detach().requires_grad_()
+        for part, n in parts:
+            h = _pipe_stage_fn(cfg, n)(part, h)
+        ((h ** 2).sum() / x.numel()).backward()
+        ys.append(h.detach())
+    want_y = torch.cat(ys)
+    want_g = {k: v.grad for k, v in parts[1][0].items()}
+    del full, parts, ys
+    gc.collect()
+    torch.cuda.empty_cache()
+    real = pipeline._shift
+
+    def broken(t, st, what, forward):        # the defect: no inverse ring
+        return real(t, st, what, forward or what.endswith(".grad"))
+
+    out = {"stage": stage.index}
+    stage_fn = _pipe_stage_fn(cfg, per)
+    for name, shift in (("pipeline", real), ("backward ring broken", broken)):
+        own = _pipe_layers(cfg, range(lo, hi), seed + 1)
+        for v in own.values():
+            v.requires_grad_(True)
+        pipeline._shift = shift
+        try:
+            y = pipeline.pipeline_apply(stage_fn, _pipe_tree(own, p), x,
+                                        mesh=mesh,
+                                        num_microbatches=PIPE_F32_M,
+                                        stage=stage)
+            (y ** 2).mean().backward()
+        finally:
+            pipeline._shift = real
+        rec = {"stage": stage.index, "grads": {},
+               "output_error_of_limit": worst_excess(
+                   y.detach(), want_y, PIPE_OUT_TOL, PIPE_OUT_TOL)}
+        worst = 0.0
+        for k, v in own.items():
+            w = want_g[k]
+            scale = w.abs().max().item()
+            e = worst_excess(v.grad, w, PIPE_GRAD_ATOL * scale,
+                             PIPE_GRAD_RTOL) if scale > 0 \
+                else float((v.grad != 0).any())
+            rec["grads"][k] = {"error_of_limit": e, "scale": scale,
+                               "max_abs_err": (v.grad - w).abs().max()
+                               .item()}
+            worst = max(worst, e)
+        rec["grad_error_of_limit"] = worst
+        out[name] = rec
+        del own, y
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _pipe_rank(rank: int, seed: int):
+    """Phase 25 on this rank of phase 24's spawn: the bf16 runs, then the
+    f32 check, on a (1, 4, 1) pipeline mesh."""
+    from repro_torch.launch.mesh import make_pipeline_mesh
+    t0 = time.perf_counter()
+    mesh = make_pipeline_mesh(data=PIPE_MESH[0], pipe=PIPE_MESH[1],
+                              model=PIPE_MESH[2])
+    out = _pipe_bf16(rank, mesh, seed)
+    _rank_log(rank, f"bf16 runs done at {time.perf_counter() - t0:.1f}s",
+              "pipeline")
+    out["f32"] = _pipe_f32(rank, mesh, seed)
+    out["wall_s"] = time.perf_counter() - t0
+    _rank_log(rank, f"f32 check done at {out['wall_s']:.1f}s", "pipeline")
+    return out
+
+
+def phase_pipeline(ranks, smi: str):
+    """Phase 25: GPIPE PIPELINE PARALLELISM of Qwen3-14B at full width
+    (40/8 heads x 128, d_ff 17408; depth cut to ``PIPE_LAYERS``, 2 a
+    stage) over a (1, 4, 1) ("data", "pipe", "model") mesh: phase 24's
+    four gloo rank processes on the card, each one stage.
+    ``core/pipeline.py::pipeline_apply`` with the port's own
+    ``transformer.block`` as the stage function, on M = 1, 4 and 8
+    microbatches of 1 x 2048 seeded hidden states: a ``no_grad`` forward
+    (flash and the fused MLP each launched 2 x (M + 3) times a rank) and
+    a forward + backward of ``(y ** 2).mean()``, each block
+    rematerialised (flash 2 x 2 x (M + 3), the plain SwiGLU),
+    ``PIPE_REPEATS`` times each. Checks: every rank's
+    output equal bit for bit to the first rank's and across repeats,
+    finite, and equal bit for bit to the one-device sequential run of the
+    same 8 layers per microbatch (the same kernels on the same shapes);
+    T = M + 3 stage moves a forward, T - 1 a backward, one output copy;
+    then the f32 check (1 layer a stage, M 4 x 256 tokens): output within
+    atol / rtol 1e-5 and every stage gradient within atol 1e-5 (of the
+    tensor's largest value) + rtol 1e-4 of the one-device run, and the
+    backward ring broken outside them. Prints step time by M, ms a
+    microbatch against the one-device ideal beside the schedule's (M + P
+    - 1) / M, moves and bytes by label and peak memory a rank. Four
+    ranks share one card's SMs and gloo stages every move through host
+    memory: not pipeline parallelism's speed."""
+    from repro_torch.core.pipeline import simulate_schedule
+    note = ("four ranks share one card's SMs and gloo stages every move "
+            "through host memory: not pipeline parallelism's speed")
+    p = PIPE_MESH[1]
+    per = PIPE_LAYERS // p
+    r0 = ranks[0]
+    seq = r0["sequential"]
+    out = {"note": note, "card": smi, "ranks": ranks, "runs": {}}
+    for name, rec0 in r0["runs"].items():
+        mode, m = name.split(" M")
+        m = int(m)
+        ticks = m + p - 1
+        want = {"flash_attention": ticks * per * (2 if mode == "fwd+bwd"
+                                                  else 1),
+                "fused_mlp": 0 if mode == "fwd+bwd" else ticks * per,
+                "paged_attention": 0, "ssd_scan": 0}
+        moves = {"pipe_send": ticks, "pipe_out": 1}
+        if mode == "fwd+bwd":
+            moves["pipe_send.grad"] = ticks - 1
+        for r in ranks:
+            run, tag = r["runs"][name], f"[pipeline {name}] rank {r['rank']}"
+            check(run["launches"] == want,
+                  f"{tag} launches {run['launches']} != {want}")
+            check(run["moves"] == moves, f"{tag} moves {run['moves']} != "
+                                         f"{moves}")
+            check(run["finite"], f"{tag}: output not finite")
+            check(run["fingerprints"] == [rec0["fingerprints"][0]]
+                  * PIPE_REPEATS, f"{tag}: output differs from rank 0's "
+                                  f"first or between repeats")
+        eq = seq[name]
+        check(eq["equal"], f"[pipeline {name}] output differs from the "
+                           f"one-device sequential run (max abs "
+                           f"{eq['max_abs_err']})")
+        p50 = float(np.percentile(rec0["step_s"], 50))
+        ideal = seq[mode]["ms_per_microbatch"]
+        per_mb = p50 * 1e3 / m
+        sim = simulate_schedule(p, m)
+        out["runs"][name] = {
+            "step_p50_s": p50, "step_s": rec0["step_s"],
+            "ms_per_microbatch": per_mb, "ideal_ms_per_microbatch": ideal,
+            "of_ideal": per_mb / ideal,
+            "schedule_of_ideal": sim["total_time"] / sim["ideal_time"],
+            "simulated_bubble": sim["bubble_fraction"],
+            "measured_bubble": 1.0 - ideal / per_mb,
+            "moves": rec0["moves"],
+            "move_mb": {k: v / 1e6 for k, v in rec0["move_bytes"].items()}}
+        rec = out["runs"][name]
+        log(f"[pipeline {name}] Qwen3-14B {PIPE_LAYERS} layers over {p} "
+            f"stages, full width, {m} x 1 x {PIPE_SEQ} tokens on {smi}: step "
+            f"p50 {p50:.3f} s ({[round(s, 3) for s in rec0['step_s']]}), "
+            f"{per_mb:.1f} ms a microbatch = {rec['of_ideal']:.3f}x the "
+            f"one-device {ideal:.1f} ms (the simulator's GPipe (M + P - 1) "
+            f"/ M = {rec['schedule_of_ideal']:.3f}; bubble measured "
+            f"{rec['measured_bubble']:.3f}, simulated "
+            f"{rec['simulated_bubble']:.3f}); equal bit for bit to the one-device run on "
+            f"every rank; moves {rec0['moves']}, MB "
+            f"{ {k: round(v, 1) for k, v in rec['move_mb'].items()} }; "
+            f"launches {rec0['launches']} — {note}")
+    out["peak_mem_gb_ranks"] = [r["peak_mem_gb"] for r in ranks]
+    check(sum(out["peak_mem_gb_ranks"]) < 60.0,
+          f"[pipeline] the four ranks peak at {out['peak_mem_gb_ranks']} GB")
+    log(f"[pipeline] peak memory a rank "
+        f"{[round(x, 2) for x in out['peak_mem_gb_ranks']]} GB on {smi}; "
+        f"phase 25 took {r0['wall_s']:.1f} s of the rank processes")
+    f32 = {name: max((r["f32"][name] for r in ranks),
+                     key=lambda rec: rec["grad_error_of_limit"])
+           for name in ("pipeline", "backward ring broken")}
+    good, bad = f32["pipeline"], f32["backward ring broken"]
+    out_err = max(r["f32"]["pipeline"]["output_error_of_limit"]
+                  for r in ranks)
+    scales = sorted(g["scale"] for r in ranks
+                    for g in r["f32"]["pipeline"]["grads"].values())
+    out["f32"] = dict(f32, output_error_of_limit=out_err)
+    log(f"[pipeline f32] Qwen3-14B {PIPE_F32_LAYERS} layers over {p} stages, "
+        f"full width, f32, {PIPE_F32_M} x 1 x {PIPE_F32_SEQ} tokens: output "
+        f"worst {out_err:.3f}x atol / rtol {PIPE_OUT_TOL}, stage gradients "
+        f"worst {good['grad_error_of_limit']:.3f}x (atol {PIPE_GRAD_ATOL} of "
+        f"each tensor's largest value, {scales[0]:.3e}-{scales[-1]:.3e}, "
+        f"rtol {PIPE_GRAD_RTOL}); the backward ring broken: "
+        f"{bad['grad_error_of_limit']:.1f}x")
+    check(out_err <= 1.0, f"[pipeline f32] output at {out_err:.3f}x atol / "
+                          f"rtol 1e-5")
+    check(good["grad_error_of_limit"] <= 1.0,
+          f"[pipeline f32] stage {good['stage']} gradients at "
+          f"{good['grad_error_of_limit']:.3f}x the limit")
+    check(bad["grad_error_of_limit"] > 1.0,
+          f"[pipeline f32] the check passes a broken backward ring "
+          f"({bad['grad_error_of_limit']:.3f}x)")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6641,6 +7075,11 @@ def main():
         if k["name"] in train_tp_shapes:
             k["train_tp_shapes"] = train_tp_shapes[k["name"]]
     mark("3 kernels at the sharded training's rank shapes")
+    pipe_shapes = phase_pipe_kernels(args.seed)
+    for k in kernels:
+        if k["name"] in pipe_shapes:
+            k["pipe_shapes"] = pipe_shapes[k["name"]]
+    mark("3 kernels at the pipeline's shapes")
     parity = phase_parity()
     record["parity_logits_err"] = parity.pop("mixed")
     record["parity_split_logits_err"] = parity
@@ -6694,7 +7133,10 @@ def main():
     gc.collect()                          # the trainer died with phase 6
     torch.cuda.empty_cache()
     record["sharded_train"] = phase_train_sharded(args.seed, smi)
-    mark("24 sharded training")
+    record["pipeline"] = phase_pipeline(
+        [dict(r.pop("pipe"), rank=r["rank"])
+         for r in record["sharded_train"]["ranks"]], smi)
+    mark("24-25 sharded training and the pipeline")
     record["ssm"] = phase_ssm(args.seed)
     mark("7 SSM serving")
     gc.collect()
@@ -6750,7 +7192,9 @@ def main():
     # on the mixed step, flash in whisper-tiny's encoder there, flash and
     # paged attention on the split path), phase 23 (each rank: flash and
     # the fused MLP on the CP and the head-sharded paths), phase 24 (each
-    # rank: flash in each of the ZeRO-1, FSDP and SP runs)
+    # rank: flash in each of the ZeRO-1, FSDP and SP runs), phase 25 (each
+    # rank: flash and the fused MLP in the no_grad runs, flash in the
+    # forward + backward runs; the last repeat of each)
     paths = [main_run, record["train"], record["ssm"],
              *record["spec"].values(), *record["online"].values(),
              record["hybrid"], *record["train_families"].values(),
@@ -6770,7 +7214,10 @@ def main():
                for name in ("cp", "heads")),
              # phase 24: each rank's own launches, in each of its runs
              *(r[name] for r in record["sharded_train"]["ranks"]
-               for name in SHARDED_RUNS)]
+               for name in SHARDED_RUNS),
+             # phase 25: each rank's own launches, in each of its runs
+             *(run for r in record["pipeline"]["ranks"]
+               for run in r["runs"].values())]
     for k in kernels:
         k["launches"] = sum(run["launches"][k["name"]] for run in paths)
     record["kernels"] = kernels

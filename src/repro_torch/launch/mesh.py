@@ -12,8 +12,8 @@ alike on the torch releases the port runs on are used on a mesh:
 ``mesh[axis].get_local_rank()``, ``mesh[axis].size()``,
 ``mesh.size(dim)`` and ``mesh.get_group(axis)``.
 
-``make_pipeline_mesh`` waits for the pipeline step of ROADMAP.md Queue 1
-item 11.
+``make_pipeline_mesh`` adds the inter-operator "pipe" axis between the two
+(``core/pipeline.py`` moves stage outputs along it).
 """
 from __future__ import annotations
 
@@ -68,3 +68,12 @@ def make_production_mesh(*, multi_pod: bool = False,
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_mesh(shape, axes, device_type=device_type)
+
+
+def make_pipeline_mesh(*, data: int, pipe: int, model: int,
+                       device_type: str = "cuda"):
+    """("data", "pipe", "model") with an explicit inter-operator axis for
+    ``core/pipeline.py`` — the survey's hybrid dp x pp x tp layout (Table
+    2), ranks laid out row-major as the reference's mesh."""
+    return make_mesh((data, pipe, model), ("data", "pipe", "model"),
+                     device_type=device_type)
