@@ -160,7 +160,10 @@ Phases (any failure exits non-zero; no result line is printed then):
    identical to the unsharded engine's on the card, ``decode_traces`` 1,
    the KV bytes a rank exactly half, every kernel launched on each rank
    as its path says, one all-reduce after ``wo`` and one after ``w_down``
-   a layer a program; then the reference tests' tiny MoE (E 4, capacity
+   a layer a program, and the same two ranks serving the mixed step
+   online (``AsyncDriver`` on each rank, rank 0 submitting before the
+   start): rank 0's streams identical to the lockstep streams, launches
+   as the path says on each rank; then the reference tests' tiny MoE (E 4, capacity
    factor 2.0: two experts a rank) and enc-dec configs served the same
    way on both paths: streams identical to the unsharded engine's on the
    card, the KV a rank half, launches as the path says, one ``moe_out``
@@ -172,7 +175,10 @@ Phases (any failure exits non-zero; no result line is printed then):
    launches summed over the replicas), and dp 2 x tp 2 over four rank
    processes sharing the card over gloo (every rank's union of streams
    equal to the single engine's, one program shape a replica, half the
-   KV a rank, two disjoint rows of two ranks); then the context-parallel
+   KV a rank, two disjoint rows of two ranks), and the same router
+   online on the four ranks (rank 0's streams, row 1's requests'
+   tokens returned by row 1's root, equal to the single engine's, each
+   request on the lockstep router's replica); then the context-parallel
    decode on two gloo ranks on the card: the Qwen3 smoke config with
    ``cp_decode`` at tp 2 (B 4, 16 of 32 positions a rank) after prompts
    of 28 and 14, four CP decode steps each, logits within the
@@ -492,6 +498,24 @@ Phases (any failure exits non-zero; no result line is printed then):
    rank's own one-device run, and a broken backward ring outside that.
    Not pipeline parallelism's speed: four ranks share one card over
    gloo.
+26. ONLINE TENSOR-PARALLEL SERVING, on phase 19's two rank processes
+   after its split run, on the same rank shards (no new weights):
+   Qwen3-14B at tp 2 through ``Session.serve_async(tp=2, start=False,
+   watchdog_timeout=120)`` on every rank (phase 5's settings), phase
+   19's six prompts submitted on rank 0 (16 new tokens each), then
+   started on both (run A): rank 0's streams equal to phase 19's mixed
+   lockstep streams bit for bit, launches as ``_want_launches`` says on
+   each rank, ``decode_traces`` within phase 19's bound; then
+   ``Session.serve_http(tp=2, port=0)`` on both ranks, rank 0 POSTing
+   the six prompts to ``/generate`` from one client thread each (one
+   chunked) while the loop runs, then ``GET /metrics`` and ``/healthz``
+   (run B): every response 16 tokens, ``serve_ttft_seconds_count`` 6,
+   the follower's engine counters equal to rank 0's. Prints tokens/s,
+   step p50, TTFT and TPOT p50 / p90, the control channel's broadcasts,
+   bytes and ms a pass, each rank's peak memory, and run B's share of
+   tokens equal to phase 19's (reported: arrival order changes the
+   batches). Two ranks share one card over gloo: not tensor
+   parallelism's speed.
 
 Last, every process the run started (nvcc, cuobjdump, the rank
 processes and the ``multiprocessing`` resource tracker their start
@@ -4901,7 +4925,31 @@ def _tp_parity_rank(rank: int, world: int, flat, prompts):
                      "per_device": eng.per_device_kv_bytes(),
                      "kv_bytes": eng.kv_bytes(), "tp": eng.tp,
                      "collectives": dict(eng._rank.counts)}
+    # the mixed step online: a driver on each rank, rank 0 submitting
+    # before the start
+    kernels.reset_launches()
+    eng = ServeEngine(cfg, params, slots=2, max_len=64, mesh=mesh,
+                      **TP_PARITY_LAYOUTS["mixed"])
+    out["online"] = _online_run(eng, prompts, 6)
+    out["online"]["want"] = _want_launches(eng, cfg.num_layers)
     return out
+
+
+def _online_run(backend, prompts, max_new: int, timeout: float = 240.0):
+    """``prompts`` through an ``AsyncDriver`` over ``backend`` on this
+    rank (rank 0 submits, then every rank starts and stops it): rank 0's
+    streams, this rank's launches since the caller zeroed them, and the
+    loop's fault."""
+    from repro_torch import kernels
+    from repro_torch.serve.driver import AsyncDriver
+    drv = AsyncDriver(backend, start=False)
+    live = [drv.submit(p, max_new=max_new, rid=i)
+            for i, p in enumerate(prompts)] if drv.lead else []
+    drv.start()
+    streams = {s.rid: list(s.result(timeout=timeout).out) for s in live}
+    drv.stop(timeout=timeout)
+    return {"streams": streams, "launches": kernels.launches(),
+            "lead": drv.lead, "error": repr(drv.error)}
 
 
 def _spawn_ranks(fn, args, timeout: float, tag: str,
@@ -4927,7 +4975,9 @@ def phase_parity_tp():
     the card: streams identical, one program shape, the per-rank KV bytes
     half of the unsharded engine's, every kernel launched as
     ``_want_launches`` says on each rank, and one all-reduce after ``wo``
-    and one after ``w_down`` a layer a program."""
+    and one after ``w_down`` a layer a program; then the mixed step
+    online (``AsyncDriver`` on both ranks, rank 0 submitting): rank 0's
+    streams equal the lockstep streams, launches as the path says."""
     from repro_torch.configs.base import ModelConfig
     from repro_torch.params import init_params
     from repro_torch.serve.engine import ServeEngine
@@ -4980,6 +5030,21 @@ def phase_parity_tp():
         out[name] = {k: ranks[0][name][k] for k in
                      ("launches", "per_device", "kv_bytes", "collectives")}
         out[name]["unsharded_kv_bytes"] = want_kv
+    lockstep = ranks[0]["mixed"]["streams"]
+    check(ranks[0]["online"]["streams"] == lockstep,
+          f"[parity tp online] rank 0's driver streams "
+          f"{ranks[0]['online']['streams']} != the lockstep {lockstep}")
+    for r, got in enumerate(ranks):
+        run = got["online"]
+        check(run["error"] == "None" and run["lead"] == (r == 0),
+              f"[parity tp online] rank {r}: {run['error']}")
+        check(run["launches"] == run["want"],
+              f"[parity tp online] rank {r} launches {run['launches']} != "
+              f"{run['want']}")
+    log(f"[parity tp 2 online, f32] rank 0's driver streams equal the "
+        f"lockstep mixed streams over {len(prompts)} requests; launches a "
+        f"rank {ranks[0]['online']['launches']}")
+    out["online"] = {"launches": ranks[0]["online"]["launches"]}
     return out
 
 
@@ -5068,6 +5133,125 @@ def _tp_serve_rank(rank: int, world: int, seed: int, prompts, max_new: int):
                      "streams": [list(res[r].out)
                                  for r in range(len(prompts))]}
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del eng                               # phase 26 builds its own engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["online"] = _online_tp_rank(rank, cfg, params, prompts, max_new)
+    return out
+
+
+#: phase 26's engine settings (phase 5's) and the seconds a request or a
+#: client may wait
+ONLINE_TP_KW = dict(slots=4, max_len=1024, page_size=16, chunk_tokens=256)
+ONLINE_TP_WAIT_S = 600.0
+
+
+def _online_tp_rank(rank: int, cfg, params, prompts, max_new: int):
+    """Phase 26 on one rank of phase 19, on its shards: run A (deferred
+    start, rank 0 submits) and run B (HTTP on rank 0), each with the
+    launches zeroed just before its engine is built and read after its
+    loop ended; the engine counters, the control channel's tallies and
+    this rank's peak memory. The checks are ``phase_online_tp``'s."""
+    import threading
+    import urllib.request
+    from repro_torch import kernels
+    from repro_torch.api import Session
+    session = Session(cfg, device="cuda", params=params)
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+
+    def record(drv, wall, tokens):
+        eng = drv.engine
+        chan = drv._chan
+        lat = drv.metrics.latency_summary()
+        step = drv.metrics.step_latency
+        return {"lead": drv.lead, "error": repr(drv.error),
+                "launches": kernels.launches(),
+                "want": _want_launches(eng, cfg.num_layers),
+                "stats": {k: eng.stats[k] for k in (
+                    "step_count", "mixed_steps", "decode_steps",
+                    "decode_tokens", "prefills", "decode_traces",
+                    "peak_pages", "preemptions", "expired")},
+                "passes": chan.passes, "channel_s": chan.seconds,
+                "events": eng._rank.counts["driver_events"],
+                "events_bytes": eng._rank.bytes["driver_events"],
+                "collectives": dict(eng._rank.counts),
+                "steps": step.count,
+                "step_p50_ms": step.quantile(0.5) * 1e3,
+                "latency": lat, "wall_s": wall, "tokens": tokens,
+                "tokens_per_s": tokens / wall if wall else None}
+
+    # run A: deferred start, the streams of phase 19's mixed run
+    kernels.reset_launches()
+    drv = session.serve_async(tp=TP_DEGREE, start=False,
+                              watchdog_timeout=120.0, **ONLINE_TP_KW)
+    live = [drv.submit(p, max_new=max_new, rid=i)
+            for i, p in enumerate(prompts)] if drv.lead else []
+    t0 = time.perf_counter()
+    drv.start()
+    streams = [list(s.result(timeout=ONLINE_TP_WAIT_S).out) for s in live]
+    wall = time.perf_counter() - t0
+    drv.stop(timeout=ONLINE_TP_WAIT_S)
+    torch.cuda.synchronize()
+    out["A"] = dict(record(drv, wall, sum(map(len, streams))),
+                    streams=streams)
+    del drv, live
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # run B: HTTP on rank 0, six client threads while the loop runs
+    kernels.reset_launches()
+    server = session.serve_http(tp=TP_DEGREE, port=0, watchdog_timeout=120.0,
+                                **ONLINE_TP_KW)
+    bodies, errors, http = {}, [], {}
+
+    def client(i):
+        try:
+            body = {"prompt": [int(t) for t in prompts[i]],
+                    "max_new": max_new, "timeout": ONLINE_TP_WAIT_S,
+                    "stream": i == 0}
+            with _post_json(f"{server.url}/generate", body,
+                            ONLINE_TP_WAIT_S) as r:
+                if i == 0:
+                    lines = [json.loads(ln) for ln in r if ln.strip()]
+                    bodies[i] = {"tokens": [ln["token"]
+                                            for ln in lines[:-1]],
+                                 "closing": lines[-1]}
+                else:
+                    bodies[i] = json.loads(r.read())
+        except Exception as exc:       # reported below, fails the phase
+            errors.append(f"request {i}: {exc!r}")
+
+    wall = 0.0
+    try:
+        if server.driver.lead:
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(prompts))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=ONLINE_TP_WAIT_S)
+            wall = time.perf_counter() - t0
+            errors += [f"client {i} hung" for i, t in enumerate(threads)
+                       if t.is_alive()]
+            with urllib.request.urlopen(f"{server.url}/metrics",
+                                        timeout=60) as r:
+                http["metrics"] = r.read().decode()
+            with urllib.request.urlopen(f"{server.url}/healthz",
+                                        timeout=60) as r:
+                http["health"] = json.loads(r.read())
+    finally:
+        server.close(drain=False)
+    torch.cuda.synchronize()
+    toks = [bodies[i]["tokens"] for i in sorted(bodies)]
+    out["B"] = dict(record(server.driver, wall, sum(map(len, toks))),
+                    tokens_by_request=toks, errors=errors,
+                    closing=bodies.get(0, {}).get("closing"), **http)
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return out
 
 
@@ -5129,6 +5313,90 @@ def phase_tp_serve(seed: int, main_run: dict, max_new: int = 16):
             f"{run['agree_with_phase5']:.1%} of tokens equal to phase 5's "
             f"streams (information) — {note}")
     out["mixed"], out["split"] = r0["mixed"], r0["split"]
+    return out
+
+
+def phase_online_tp(ranks, lockstep: dict, smi: str, max_new: int = 16):
+    """Phase 26's checks and report on each rank's ``_online_tp_rank``
+    (``ranks``, each with its ``"rank"``) against phase 19's record
+    (``lockstep``): run A's streams equal to phase 19's mixed streams bit
+    for bit, launches as the path says on each rank, ``decode_traces``
+    within phase 19's; run B's six responses with ``max_new`` tokens each
+    (the chunked one's closing record too), ``serve_ttft_seconds_count``
+    6, the follower's engine counters equal to rank 0's. Reports
+    tokens/s, step p50, TTFT / TPOT p50 / p90, the control channel a
+    pass, peak memory a rank and run B's share of tokens equal to phase
+    19's (not checked: arrival order changes the batches)."""
+    note = ("two ranks share one card's SMs over gloo: not tensor "
+            "parallelism's speed")
+    r0 = ranks[0]
+    base = lockstep["mixed"]["streams"]
+    n = len(base)
+    check(r0["A"]["lead"] and not any(r["A"]["lead"] for r in ranks[1:]),
+          "[online tp] rank 0 leads")
+    check(r0["A"]["streams"] == base,
+          f"[online tp A] rank 0's driver streams differ from phase 19's "
+          f"mixed lockstep streams: {r0['A']['streams']} != {base}")
+    for r in ranks:
+        for run in ("A", "B"):
+            got = r[run]
+            tag = f"[online tp {run}] rank {r['rank']}"
+            check(got["error"] == "None", f"{tag}: {got['error']}")
+            check(got["launches"] == got["want"],
+                  f"{tag} launches {got['launches']} != {got['want']}")
+            check(got["stats"] == r0[run]["stats"],
+                  f"{tag} engine counters {got['stats']} != rank 0's "
+                  f"{r0[run]['stats']}")
+            check(got["events"] == 2 * got["passes"],
+                  f"{tag} {got['events']} event broadcasts for "
+                  f"{got['passes']} passes")
+        check(r["A"]["stats"]["decode_traces"]
+              <= lockstep["mixed"]["decode_traces"],
+              f"[online tp A] rank {r['rank']} decode_traces "
+              f"{r['A']['stats']['decode_traces']} > phase 19's")
+    b = r0["B"]
+    toks = b["tokens_by_request"]
+    check(not b["errors"] and len(toks) == n
+          and all(len(t) == max_new for t in toks),
+          f"[online tp B] responses {[len(t) for t in toks]}, errors "
+          f"{b['errors']}")
+    check(b["closing"] is not None and b["closing"].get("done") is True
+          and b["closing"]["tokens"] == toks[0],
+          "[online tp B] the streamed response's closing record")
+    check(f"serve_ttft_seconds_count {n}" in b["metrics"],
+          f"[online tp B] serve_ttft_seconds_count != {n}")
+    check(b["health"]["status"] == "ok", f"[online tp B] /healthz "
+                                         f"{b['health']}")
+    b["tokens_equal_to_phase19"] = sum(
+        a == w for g, ws in zip(toks, base) for a, w in zip(g, ws)) / (
+        max_new * n)
+    out = {"note": note, "ranks": ranks}
+    for run in ("A", "B"):
+        got = r0[run]
+        lat = got["latency"]
+        per_pass_ms = got["channel_s"] * 1e3 / max(got["passes"], 1)
+        got["channel"] = {
+            "broadcasts_a_pass": got["events"] / max(got["passes"], 1),
+            "bytes_a_pass": got["events_bytes"] / max(got["passes"], 1),
+            "ms_a_pass": per_pass_ms}
+        extra = "" if run == "A" else (
+            f"; {b['tokens_equal_to_phase19']:.1%} of tokens equal to "
+            f"phase 19's streams (reported)")
+        log(f"[online tp {run}] Qwen3-14B tp 2 on {smi}: "
+            f"{got['tokens']} tokens in {got['wall_s']:.2f}s = "
+            f"{got['tokens_per_s']:.2f} tok/s, {got['steps']} steps, step "
+            f"p50 {got['step_p50_ms']:.1f} ms (phase 19 mixed "
+            f"{lockstep['mixed']['step_p50_ms']:.1f}); TTFT p50 "
+            f"{lat['ttft_p50_s']:.3f} s, p90 {lat['ttft_p90_s']:.3f} s; "
+            f"TPOT p50 {lat['tpot_p50_s'] * 1e3:.1f} ms, p90 "
+            f"{lat['tpot_p90_s'] * 1e3:.1f} ms; control channel "
+            f"{got['passes']} passes, {got['channel']['broadcasts_a_pass']:.1f}"
+            f" broadcasts and {got['channel']['bytes_a_pass']:.1f} B a pass, "
+            f"{per_pass_ms:.2f} ms a pass on rank 0; launches a rank "
+            f"{got['launches']}; peak memory a rank "
+            f"{[round(r['peak_mem_gb'], 2) for r in ranks]} GB{extra} — "
+            f"{note}")
+    out["A"], out["B"] = r0["A"], r0["B"]
     return out
 
 
@@ -5337,7 +5605,10 @@ def phase_parity_dp():
     over four rank processes sharing the card over gloo
     (``_dp_tp_parity_rank``): on every rank the union of the streams
     equals the single engine's, one program shape a replica, the KV a
-    rank half of the single engine's, two disjoint rows of two ranks."""
+    rank half of the single engine's, two disjoint rows of two ranks;
+    online there (``AsyncDriver`` on each rank over the router) rank 0's
+    streams equal the single engine's and each request lands on the
+    lockstep router's replica."""
     from repro_torch.configs.base import ModelConfig
     from repro_torch.params import init_params
     from repro_torch.serve.engine import ServeEngine
@@ -5397,6 +5668,22 @@ def phase_parity_dp():
               f"{tag} launches {got['launches']} != {got['want']}")
         check(got["rows"] == rows and r in rows[got["row"]],
               f"{tag} rows {got['rows']}")
+    check(ranks[0]["online"]["streams"] == want,
+          f"[parity dp 2 x tp 2 online] rank 0's driver streams "
+          f"{ranks[0]['online']['streams']} != the single engine's {want}")
+    for r, got in enumerate(ranks):
+        run = got["online"]
+        tag = f"[parity dp 2 x tp 2 online] rank {r}"
+        check(run["error"] == "None" and run["lead"] == (r == 0),
+              f"{tag}: {run['error']}")
+        check(run["homes"] == got["homes"],
+              f"{tag} replicas {run['homes']} != the lockstep router's "
+              f"{got['homes']}")
+        check(run["launches"] == run["want"],
+              f"{tag} launches {run['launches']} != {run['want']}")
+    log(f"[parity dp 2 x tp 2 online, f32] rank 0's driver streams (row 1's "
+        f"tokens returned by its root) equal the single engine's; replicas "
+        f"{ranks[0]['online']['homes']} as the lockstep router's")
     log(f"[parity dp 2 x tp 2, f32] four ranks on the card over gloo, rows "
         f"{rows}: every rank's union of streams equals the single engine's "
         f"over {len(prompts)} requests; decode_traces 1 a replica; KV "
@@ -5409,21 +5696,41 @@ def phase_parity_dp():
 
 def _dp_tp_parity_rank(rank: int, world: int, flat, prompts):
     """One rank of phase 4's dp 2 x tp 2 run: a ``ReplicaRouter`` over a
-    (2, 2) ("data", "model") mesh on cuda:0 (gloo), the mixed step."""
+    (2, 2) ("data", "model") mesh on cuda:0 (gloo), the mixed step, in
+    lockstep and then online."""
+    from repro_torch import kernels
     from repro_torch.configs.base import ModelConfig
     from repro_torch.params import from_numpy
     from repro_torch.serve.parallel import ReplicaRouter
     _tp_rank_setup()
     cfg = ModelConfig(**TP_PARITY_CFG)
-    router = ReplicaRouter(cfg, from_numpy(flat, cfg, "cuda"), dp=2, tp=2,
+    params = from_numpy(flat, cfg, "cuda")
+    router = ReplicaRouter(cfg, params, dp=2, tp=2,
                            slots=2, max_len=64, **TP_PARITY_LAYOUTS["mixed"])
     streams, launches = _serve_run(router, prompts, None)
     eng = router.engines[0]
-    return {"streams": streams, "launches": launches,
-            "want": _want_launches(eng, cfg.num_layers),
-            "traces": [r["decode_traces"] for r in router.stats["replicas"]],
-            "per_device": router.per_device_kv_bytes(), "row": router.row,
-            "rows": router.meshes, "collectives": dict(eng._rank.counts)}
+    out = {"streams": streams, "launches": launches,
+           "want": _want_launches(eng, cfg.num_layers),
+           "traces": [r["decode_traces"] for r in router.stats["replicas"]],
+           "per_device": router.per_device_kv_bytes(), "row": router.row,
+           "rows": router.meshes, "collectives": dict(eng._rank.counts),
+           "homes": [router.replica_of(i) for i in range(len(prompts))]}
+    # the same router online on the four ranks: rank 0 submits, each
+    # other row's root returns its requests' tokens to rank 0
+    kernels.reset_launches()
+    router = ReplicaRouter(cfg, params, dp=2, tp=2,
+                           slots=2, max_len=64, **TP_PARITY_LAYOUTS["mixed"])
+    homes, submit = [], router.submit
+
+    def routed(*args, **kw):
+        homes.append(submit(*args, **kw))
+        return homes[-1]
+
+    router.submit = routed
+    out["online"] = _online_run(router, prompts, 6)
+    out["online"].update(homes=homes, want=_want_launches(
+        router.engines[0], cfg.num_layers))
+    return out
 
 
 def _drive_router(router, prompts, max_new: int, tag: str, *,
@@ -7125,7 +7432,10 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     record["tp"] = phase_tp_serve(args.seed, main_run)
-    mark("19 tensor-parallel serving")
+    record["tp_online"] = phase_online_tp(
+        [dict(r.pop("online"), rank=r["rank"])
+         for r in record["tp"]["ranks"]], record["tp"], smi)
+    mark("19 and 26 tensor-parallel serving, lockstep and online")
     record["cp"] = phase_cp_serve(args.seed, smi)
     mark("23 context-parallel decode")
     record["train"] = phase_train(args.seed)
@@ -7187,7 +7497,8 @@ def main():
     # (flash, paged attention), phase 16 (flash), phase 17 (flash, the
     # fused MLP), phase 18 (flash), phase 19 (each rank: paged attention
     # and the fused MLP on the mixed step, flash, paged attention and the
-    # fused MLP on the split path), phase 20 (paged attention and the
+    # fused MLP on the split path), phase 26 (each rank: paged attention
+    # and the fused MLP in runs A and B), phase 20 (paged attention and the
     # fused MLP, both runs), phases 21 and 22 (each rank: paged attention
     # on the mixed step, flash in whisper-tiny's encoder there, flash and
     # paged attention on the split path), phase 23 (each rank: flash and
@@ -7205,6 +7516,9 @@ def main():
              # phase 19: each rank's own launches, on both paths
              *(r[name] for r in record["tp"]["ranks"]
                for name in ("mixed", "split")),
+             # phase 26: each rank's own launches, in runs A and B
+             *(r[name] for r in record["tp_online"]["ranks"]
+               for name in ("A", "B")),
              *(record["dp"][name] for name in record["dp"]
                if name != "note"),
              *(r[name] for phase in ("moe_tp", "audio_tp")

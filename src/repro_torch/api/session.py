@@ -67,6 +67,8 @@ over the dense layout only. The features not ported yet raise
     driver = session.serve_async(slots=4, max_len=1024)
     stream = driver.submit(prompt, max_new=16)      # tokens as they come
     server = session.serve_http(port=0, slots=4)    # POST /generate ...
+    # online at tp 2, in each of 2 rank processes: rank 0 binds the port
+    server = Session(get_config("qwen3-14b")).serve_http(tp=2, port=8000)
 """
 from __future__ import annotations
 
@@ -282,7 +284,14 @@ class Session:
         TokenStream, TTFT/TPOT/step latencies land in ``driver.metrics``,
         and ``watchdog_timeout`` arms stalled-step detection with
         cancel-and-requeue recovery. ``start=False`` defers the loop so a
-        batch of submissions admits exactly as ``run()`` does."""
+        batch of submissions admits exactly as ``run()`` does.
+
+        With ``tp=`` (and ``dp=``) call it on every rank, as ``serve(tp=)``
+        is, and start it on every rank: rank 0's driver takes the
+        submissions and broadcasts them, with its deadlines, aborts and
+        watchdog requeues, to every rank before each step; another
+        rank's driver (``lead`` False) replays them, and its ``stop``
+        waits for rank 0's (serve/driver.py)."""
         from repro_torch.serve.driver import AsyncDriver
         return AsyncDriver(self.serve(**serve_kw),
                            watchdog_timeout=watchdog_timeout,
@@ -295,7 +304,10 @@ class Session:
         streaming), ``GET /metrics`` (Prometheus text), ``GET /healthz``.
         ``port=0`` binds a free port — read it back from ``.port``. The
         returned server owns its driver; ``close()`` drains and stops
-        both."""
+        both. With ``tp=`` (and ``dp=``) call it on every rank: only rank
+        0 binds the port; another rank's server binds nothing, replays
+        rank 0's events, and its ``close()`` returns once rank 0 has
+        stopped."""
         from repro_torch.serve.server import serve_http
         return serve_http(self.serve(**serve_kw), host=host, port=port,
                           watchdog_timeout=watchdog_timeout)

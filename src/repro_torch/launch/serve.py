@@ -92,8 +92,11 @@ process at tp 1 — on ``--device`` M times where it names one device
 cards of a bare ``cuda`` — and under ``torchrun --nproc-per-node M*N``
 with ``--tp N``, each process serving its row's replica. The report
 sums the replicas' counters and gives the worst replica's program-shape
-count. ``--serve`` with ``--tp`` raises NotImplementedError naming its
-ROADMAP.md item.
+count. ``--serve`` with ``--tp`` (and ``--dp``) serves online on every
+rank: rank 0 binds the HTTP port and takes the requests, and every rank
+steps on the host events it broadcasts before each step
+(serve/driver.py); a ctrl-c reaches every rank, and a follower leaves
+only when rank 0 has sent "stop".
 
     # two ranks on the CPU, or sharing one card over gloo
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
@@ -118,6 +121,12 @@ ROADMAP.md item.
     # on the CPU, online over HTTP
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --serve --port 8000 --spec-k 2
+
+    # online at tp 2 (rank 0 binds port 8000), and at dp 2 x tp 2
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --tp 2 --backend gloo --device cpu --serve --port 8000
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --dp 2 --tp 2 --device cpu --serve --port 8000
 """
 from __future__ import annotations
 
@@ -245,6 +254,15 @@ def main(argv=None):
               f"/metrics, GET /healthz, GET /debug/flight, GET "
               f"/debug/trace; watchdog {'off' if wt is None else f'{wt}s'})"
               f" — ctrl-c to stop", flush=True)
+        if not server.driver.lead:
+            # a follower rank replays rank 0's events until rank 0 sends
+            # "stop": the ctrl-c that reaches it too must not end it first
+            while True:
+                try:
+                    server.driver.wait()
+                    return None
+                except KeyboardInterrupt:
+                    continue
         try:
             while True:
                 time.sleep(3600)

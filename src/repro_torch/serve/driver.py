@@ -1,6 +1,7 @@
 """AsyncDriver: the online front of the serve engine — the port's copy of
-``repro/serve/driver.py`` (framework-free; it drives the port's
-``ServeEngine`` through the interface listed in ROADMAP.md).
+``repro/serve/driver.py`` (it drives the port's ``ServeEngine`` through
+the interface listed in ROADMAP.md, and over tensor-parallel ranks
+broadcasts its host events with ``torch.distributed``).
 
 Everything below ``ServeEngine.step`` is a batch machine: submit, then
 ``run()`` to drain. Real traffic is the opposite shape — requests arrive
@@ -47,22 +48,59 @@ way) return early — recovery then lands at sub-step latency instead of
 waiting out the full step.
 
 The driver serves a single :class:`~repro_torch.serve.engine.ServeEngine` or
-a one-process :class:`~repro_torch.serve.parallel.ReplicaRouter`
-(``engines``) identically (``step`` / ``busy`` / ``submit`` are the
-shared surface). A tensor-parallel engine or router (``tp > 1``) is
-refused: every rank must step on the same submissions, and only rank 0
-would see them (ROADMAP.md Queue 1 item 11). Construction normally
-goes through ``repro_torch.api.Session.serve_async(...)`` or the HTTP layer in
-serve/server.py.
+a :class:`~repro_torch.serve.parallel.ReplicaRouter` (``engines``)
+identically (``step`` / ``busy`` / ``submit`` are the shared surface).
+Construction normally goes through ``repro_torch.api.Session.
+serve_async(...)`` or the HTTP layer in serve/server.py.
+
+**Over tensor-parallel ranks** (an engine with ``tp > 1``, or a dp x tp
+router: one process a rank, each with its own driver over its own
+engine). The reference's driver runs one controller; here every rank's
+host engine must step on the same submissions in the same order, while
+``submit`` and the HTTP server live on rank 0 (the engine group's root;
+the router's row 0 root, for the whole world). So rank 0 owns the loop
+and every other rank is a follower: before each pass of the loop rank 0
+broadcasts one batch of the host events gathered since the last pass, in
+arrival order — "requeue every active slot" (the watchdog's recovery),
+submissions (rid, prompt, ``max_new``, frames, images, priority and the
+deadline's seconds left, counted from the request's arrival on rank 0),
+records to forget, the pass's abort and "stop" — as one broadcast of its
+length and one of the pickled bytes (``_Channel``; tallied as
+``driver_events`` in the engine's ``rank.counts`` / ``rank.bytes``).
+Every rank applies the batch in order, calls ``busy`` once (a world
+all-reduce on a router) and steps when it is true. A follower decides
+nothing: its ``submit`` raises, it runs no watchdog, and it leaves only
+when rank 0's "stop" arrives. An idle rank 0 still sends an empty batch
+every ``idle_wait_s``, so a follower never waits in a collective longer
+than that plus one step. Rank 0's ``submit`` checks the request on the
+host (``check_request``) and raises its ``ValueError`` at once, but only
+queues the event: no engine call (each may be a collective) runs outside
+a pass. On a router each other row's root sends rank 0 its requests' new
+tokens and their done / expired state after every pass that stepped
+(``driver_tokens``), so rank 0's streams carry every row's tokens.
+``/metrics`` and ``stats`` read the engine stats the loop took after its
+last stepped pass, ``busy`` the last pass's answer: no HTTP thread
+issues a collective. One difference from the reference: the watchdog's
+abort cannot cut a step short. The engine reads the abort fixed in the
+batch (``abort_event`` is the pass's copy), so an abort raised mid-step
+takes effect at the next pass boundary, where the batch also carries
+the requeue; the streams stay the same. A fault in the loop (such as
+the engine's check that the ranks packed the same program) ends the
+loop on every rank that sees it, closes rank 0's streams with their
+partial records and is kept in ``error``.
 """
 from __future__ import annotations
 
 import logging
+import pickle
 import queue as _queue
 import threading
 import time
 from contextlib import contextmanager
 from typing import Dict, List, Optional
+
+import torch
+import torch.distributed as dist
 
 log = logging.getLogger("repro_torch.serve")
 
@@ -125,6 +163,62 @@ class TokenStream:
         return self._done.is_set()
 
 
+class _Channel:
+    """The driver's control channel over tensor-parallel ranks: a picklable
+    object from one rank to every rank of ``group`` (None: the world) as
+    two broadcasts, its length and its bytes — only what ``core/tp.py``
+    uses, so it runs with gloo and with NCCL. Over gloo the bytes stay on
+    the host; NCCL takes them on ``device``. Each broadcast is tallied in
+    ``rank.counts`` / ``rank.bytes`` under its label; ``passes`` and
+    ``seconds`` count the event batches and the time spent in them."""
+
+    def __init__(self, rank, group, src: int, device):
+        self.rank, self.group, self.src = rank, group, src
+        self.lead = dist.get_rank() == src
+        self.device = torch.device("cpu") \
+            if dist.get_backend(group) == "gloo" else torch.device(device)
+        self.passes = 0
+        self.seconds = 0.0
+
+    def _broadcast(self, t: torch.Tensor, src: int, what: str):
+        self.rank.tally(what, t)
+        dist.broadcast(t, src=src, group=self.group)
+
+    def send(self, obj, src: int, what: str):
+        """``obj`` of rank ``src`` on every rank (the others pass None)."""
+        data = pickle.dumps(obj) if dist.get_rank() == src else b""
+        n = torch.tensor([len(data)], dtype=torch.int64, device=self.device)
+        self._broadcast(n, src, what)
+        size = int(n.item())
+        buf = torch.zeros((max(size, 1),), dtype=torch.uint8,
+                          device=self.device)
+        if data:
+            buf[:size] = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+        self._broadcast(buf, src, what)
+        return pickle.loads(buf[:size].cpu().numpy().tobytes())
+
+    def exchange(self, batch):
+        """Rank 0's event batch on every rank (a follower passes None)."""
+        t0 = time.perf_counter()
+        batch = self.send(batch, self.src, "driver_events")
+        self.seconds += time.perf_counter() - t0
+        self.passes += 1
+        return batch
+
+
+def _channel(engine) -> Optional[_Channel]:
+    """The control channel of a tensor-parallel engine (its "model"
+    group, from its root) or dp x tp router (the world, from row 0's
+    root); None for one process."""
+    if getattr(engine, "tp", 1) <= 1:
+        return None
+    if hasattr(engine, "engines"):
+        local = engine.engines[0]
+        return _Channel(local._rank, None, engine.meshes[0][0], local.device)
+    r = engine._rank
+    return _Channel(r, r.group, r.root, engine.device)
+
+
 class AsyncDriver:
     """Background step loop + per-request streaming + watchdog.
 
@@ -147,7 +241,14 @@ class AsyncDriver:
     step_fn : callable(driver) | None
         Override for one engine step (None -> ``engine.step()``). The
         instrumentation hook: tests inject stalls, a chunked step could
-        poll ``driver.abort_step`` between chunks.
+        poll ``driver.abort_step`` between chunks. Over tensor-parallel
+        ranks each rank's driver calls its own, and each must run the
+        engine's step whenever the pass has one.
+
+    Over tensor-parallel ranks (see the module docstring) build one
+    driver on every rank of the engine's group (the router's world) and
+    start it on every rank: ``lead`` is True on rank 0, which takes the
+    submissions; a follower's ``stop`` waits for rank 0's.
     """
 
     def __init__(self, engine, *, watchdog_timeout: Optional[float] = None,
@@ -155,14 +256,20 @@ class AsyncDriver:
                  idle_wait_s: float = 0.2):
         from repro_torch.serve.metrics import ServeMetrics
 
-        if getattr(engine, "tp", 1) > 1:
-            raise NotImplementedError(
-                "online serving of a tensor-parallel engine or router: "
-                "only rank 0 "
-                "would see the requests, and every rank must step on the "
-                "same submissions — the parallelism slice, ROADMAP.md Queue "
-                "1 item 11")
         self.engine = engine
+        self._chan = _channel(engine)
+        self.lead = self._chan is None or self._chan.lead
+        # rank 0's host events for the next pass, in arrival order
+        self._pending: List[tuple] = []
+        self._last_busy = False
+        self._stats_snap: Optional[Dict] = None
+        # the abort fixed in the pass's batch (what a tp engine reads)
+        self._pass_abort = threading.Event()
+        # a row root's tokens returned to rank 0 a rid, and the rids it
+        # reported finished
+        self._sent: Dict[int, int] = {}
+        self._closed: set = set()
+        self.error: Optional[BaseException] = None
         self.metrics = metrics if metrics is not None else ServeMetrics()
         self.watchdog_timeout = watchdog_timeout
         self._step_fn = step_fn
@@ -180,6 +287,7 @@ class AsyncDriver:
         self._next_rid = 0
         self._stop_evt = threading.Event()
         self._started = False
+        self._ended = threading.Event()          # the loop has returned
         # ---- watchdog channel (never lock-guarded: the watchdog must
         # stay responsive while a stalled step holds the lock)
         self.abort_step = threading.Event()
@@ -190,10 +298,12 @@ class AsyncDriver:
         self._threads: List[threading.Thread] = []
         # chunk-boundary cancellation: a mixed-step engine polls this
         # event at the top of each step and skips launching its program
-        # while set, so watchdog recovery lands at sub-step latency
+        # while set, so watchdog recovery lands at sub-step latency; over
+        # ranks it reads the pass's copy, the same on every rank
         for e in self._engines():
             if hasattr(e, "abort_event"):
-                e.abort_event = self.abort_step
+                e.abort_event = self.abort_step if self._chan is None \
+                    else self._pass_abort
         # previous engine-counter readings for per-step chunk telemetry
         self._prev_pf_tokens = 0
         self._prev_decode_tokens = 0
@@ -226,11 +336,12 @@ class AsyncDriver:
             if self._started:
                 return self
             self._started = True
-        t = threading.Thread(target=self._loop, name="serve-driver",
-                             daemon=True)
+        t = threading.Thread(
+            target=self._loop if self._chan is None else self._rank_loop,
+            name="serve-driver", daemon=True)
         t.start()
         self._threads = [t]
-        if self.watchdog_timeout is not None:
+        if self.watchdog_timeout is not None and self.lead:
             w = threading.Thread(target=self._watchdog_loop,
                                  name="serve-watchdog", daemon=True)
             w.start()
@@ -242,7 +353,13 @@ class AsyncDriver:
         """Shut the loop down. ``drain=True`` (default) keeps stepping
         until in-flight requests finish first; ``drain=False`` stops at
         the next step boundary and closes open streams with their
-        partial records (``done=False``)."""
+        partial records (``done=False``). Over tensor-parallel ranks
+        rank 0 sends "stop" to every rank at that pass; a follower's
+        ``stop`` waits for it (``wait``)."""
+        if not self.lead:
+            if wait:
+                self.wait()
+            return
         if drain and self._started:
             self.join(timeout=timeout)
         self._stop_evt.set()
@@ -252,9 +369,20 @@ class AsyncDriver:
             for t in self._threads:
                 t.join(timeout=timeout)
         with self._lock:
-            for rid, stream in list(self._streams.items()):
-                stream._finish(self._requests.get(rid))
-            self._streams.clear()
+            self._close_streams()
+
+    def _close_streams(self):
+        for rid, stream in list(self._streams.items()):
+            stream._finish(self._requests.get(rid))
+        self._streams.clear()
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        """Block until the loop has ended (a follower's: until rank 0's
+        "stop" arrived); True when it has, or when it never started. A
+        ctrl-c reaches the caller and leaves the loop running."""
+        if not self._started:
+            return True
+        return self._ended.wait(timeout)
 
     def join(self, timeout: Optional[float] = None) -> bool:
         """Block until every submitted request has completed (True) or
@@ -288,7 +416,14 @@ class AsyncDriver:
         Validation failures (bad prompt/pool bounds) raise the engine's
         ValueError synchronously — nothing is enqueued. ``deadline_s``
         declares an SLO (see ServeEngine.submit): an expired-while-queued
-        request's stream closes with ``done=False, expired=True``."""
+        request's stream closes with ``done=False, expired=True``.
+        Over tensor-parallel ranks only rank 0 takes submissions: the
+        request is checked here and reaches every rank's engine at the
+        next pass."""
+        if not self.lead:
+            raise RuntimeError(
+                f"submit on rank {self._chan.src}: rank {dist.get_rank()} "
+                "follows rank 0's events")
         if self._stop_evt.is_set():
             raise RuntimeError("driver is stopped")
         t_submit = time.monotonic()
@@ -298,9 +433,13 @@ class AsyncDriver:
             elif rid in self._streams:
                 raise ValueError(f"request {rid} already in flight")
             self._next_rid = max(self._next_rid, rid + 1)
-            req = self._engine_submit(rid, prompt, max_new, frames=frames,
-                                      images=images, priority=priority,
-                                      deadline_s=deadline_s)
+            if self._chan is None:
+                req = self._engine_submit(
+                    rid, prompt, max_new, frames=frames, images=images,
+                    priority=priority, deadline_s=deadline_s)
+            else:
+                req = self._enqueue(rid, prompt, max_new, frames, images,
+                                    priority, deadline_s, t_submit)
             stream = TokenStream(rid)
             self._streams[rid] = stream
             self._requests[rid] = req
@@ -311,22 +450,51 @@ class AsyncDriver:
 
     def _engine_submit(self, rid, prompt, max_new, *, frames, priority,
                        images=None, deadline_s=None):
-        """Submit to either backend and return the Request record."""
+        """Submit to either backend and return the Request record (None
+        for a request another rank's replica took)."""
         ret = self.engine.submit(rid, prompt, max_new, frames=frames,
                                  images=images, priority=priority,
                                  deadline_s=deadline_s)
         if isinstance(ret, int):       # ReplicaRouter returns the replica
-            return self.engine.engines[ret].queue[-1]
+            replicas = self.engine._replicas()
+            if ret not in replicas:
+                return None
+            return self.engine.engines[replicas.index(ret)].queue[-1]
         return ret
+
+    def _enqueue(self, rid, prompt, max_new, frames, images, priority,
+                 deadline_s, t_submit):
+        """Rank 0: check a request on the host and queue it for the next
+        pass; returns its record until the engine's replaces it (kept,
+        and fed by the row roots' returns, where another row serves
+        it)."""
+        from repro_torch.serve.engine import Request
+        prompt, frames, images, _ = self._engines()[0].check_request(
+            rid, prompt, max_new, frames=frames, images=images,
+            deadline_s=deadline_s)
+        self._pending.append(("submit", rid, prompt, int(max_new), frames,
+                              images, int(priority), deadline_s, t_submit))
+        return Request(rid, prompt, int(max_new), frames=frames,
+                       images=images, priority=int(priority))
 
     # ----------------------------------------------------------- metrics
     def _engines(self) -> List:
         return list(getattr(self.engine, "engines", [self.engine]))
 
     def stats(self) -> Dict:
-        """The backend's stats dict (router: aggregated), lock-guarded."""
+        """The backend's stats dict (router: aggregated), lock-guarded;
+        over ranks the loop's copy after its last stepped pass (empty
+        before the first pass)."""
+        if self._chan is not None:
+            return dict(self._stats_snap or {})
         with self._locked():
             return dict(self.engine.stats)
+
+    def busy(self) -> bool:
+        """Whether a request is queued or in a slot; over ranks the last
+        pass's answer (the router's is a collective only the loop
+        calls)."""
+        return self._last_busy if self._chan is not None else self._busy()
 
     def render_metrics(self) -> str:
         """Prometheus text: driver latency metrics + engine telemetry."""
@@ -382,8 +550,9 @@ class AsyncDriver:
 
     # ------------------------------------------------------------- loop
     def _busy(self) -> bool:
-        engines = self._engines()
-        return any(e.busy() for e in engines)
+        # a router's busy spans every replica (over ranks, a world
+        # all-reduce)
+        return bool(self.engine.busy())
 
     def _take_snapshot(self):
         """Pre-step state for the watchdog's diagnostic dump — captured
@@ -408,6 +577,12 @@ class AsyncDriver:
         self._snapshot = snap
 
     def _loop(self):
+        try:
+            self._step_loop()
+        finally:
+            self._ended.set()
+
+    def _step_loop(self):
         while not self._stop_evt.is_set():
             with self._wake:
                 while not self._busy() and not self._stop_evt.is_set():
@@ -418,10 +593,125 @@ class AsyncDriver:
             while self._waiting and not self._stop_evt.is_set():
                 time.sleep(1e-4)             # let a waiting caller in
 
+    # ------------------------------------------------- loop over ranks
+    def _rank_loop(self):
+        """The loop over tensor-parallel ranks: rank 0 takes a batch of
+        its host events, every rank receives it and runs the pass; a
+        fault ends the loop (kept in ``error``) and closes the
+        streams."""
+        try:
+            while True:
+                batch = self._take_batch() if self.lead else None
+                batch = self._chan.exchange(batch)
+                with self._lock:
+                    if self._pass(batch):
+                        return
+                while self._waiting and not self._stop_evt.is_set():
+                    time.sleep(1e-4)         # let a waiting caller in
+        except BaseException as exc:
+            self.error = exc
+            log.error("serve driver: the loop on rank %d ended: %r",
+                      dist.get_rank(), exc)
+            self._stop_evt.set()
+            with self._lock:
+                self._close_streams()
+        finally:
+            self._ended.set()
+
+    def _take_batch(self) -> Dict:
+        """Rank 0: wait (at most ``idle_wait_s`` while idle) and take the
+        events since the last pass; a deadline becomes the seconds left
+        of it now (at least 1 us: an overdue request expires at the next
+        step, on every rank)."""
+        with self._wake:
+            if not (self._pending or self._last_busy
+                    or self._stop_evt.is_set()
+                    or self._stall_fired.is_set()):
+                self._wake.wait(self._idle_wait_s)
+            now = time.monotonic()
+            events = []
+            for ev in self._pending:
+                if ev[0] == "submit":
+                    *head, deadline_s, t_submit = ev
+                    left = None if deadline_s is None else \
+                        max(deadline_s - (now - t_submit), 1e-6)
+                    ev = (*head, left)
+                events.append(ev)
+            self._pending = []
+            requeue = self._stall_fired.is_set()
+            return {"requeue": requeue, "events": events,
+                    "abort": self.abort_step.is_set() and not requeue,
+                    "stop": self._stop_evt.is_set()}
+
+    def _pass(self, batch: Dict) -> bool:
+        """One pass on every rank, under the lock: the watchdog's
+        requeue, the events in order, then (unless "stop": True is
+        returned) one ``busy`` and, while busy, one step."""
+        if batch["requeue"]:
+            self._recover()
+        for ev in batch["events"]:
+            if ev[0] == "submit":
+                _, rid, prompt, max_new, frames, images, prio, left = ev
+                req = self._engine_submit(
+                    rid, prompt, max_new, frames=frames, images=images,
+                    priority=prio, deadline_s=left)
+                if self.lead and req is not None:
+                    self._requests[rid] = req
+            else:                                    # ("forget", rid)
+                self._forget_now(ev[1])
+        if batch["stop"]:
+            return True
+        if batch["abort"]:
+            self._pass_abort.set()
+        else:
+            self._pass_abort.clear()
+        self._last_busy = self._busy()
+        if self._last_busy:
+            self._step_once()
+        elif self._stats_snap is None:
+            self._stats_snap = dict(self.engine.stats)
+        return False
+
+    def _row_returns(self):
+        """Router over ranks, after a stepped pass: each other row's root
+        sends rank 0 its requests' new tokens and finished states (every
+        process takes part); rank 0 extends the records it keeps for
+        them."""
+        router = self.engine
+        for ranks in router.meshes:
+            root = ranks[0]
+            if root == self._chan.src:
+                continue                  # rank 0 reads its own replica
+            mine = self._fresh_tokens() \
+                if dist.get_rank() == root else None
+            for rid, fresh, done, expired in self._chan.send(
+                    mine, root, "driver_tokens"):
+                req = self._requests.get(rid) if self.lead else None
+                if req is not None:
+                    req.out.extend(fresh)
+                    req.done, req.expired = done, expired
+
+    def _fresh_tokens(self) -> List[tuple]:
+        """A row root's (rid, new tokens, done, expired) of each of its
+        requests that changed since its last return."""
+        out = []
+        for rid, req in self.engine.engines[0].results().items():
+            if rid in self._closed:
+                continue
+            sent = self._sent.get(rid, 0)
+            fresh = [int(t) for t in req.out[sent:]]
+            if fresh or req.done or req.expired:
+                out.append((rid, fresh, bool(req.done), bool(req.expired)))
+                self._sent[rid] = len(req.out)
+                if req.done or req.expired:
+                    self._closed.add(rid)
+        return out
+
     def _step_once(self):
         """One engine step under the lock: snapshot, step (watchdog-
-        timed), recover if the watchdog fired, then stream fresh tokens
-        and record latencies."""
+        timed), recover if the watchdog fired (over ranks: at the next
+        pass, from its batch), then stream fresh tokens and record
+        latencies."""
         self._take_snapshot()
         occupancy = len(self._snapshot["active"])
         self.metrics.occupancy.observe(occupancy)
@@ -437,11 +727,18 @@ class AsyncDriver:
         now = time.monotonic()
         self._last_step_done = now
         self.metrics.step_latency.observe(now - t0)
-        if self._stall_fired.is_set():
+        if self._stall_fired.is_set() and self._chan is None:
             self._recover()
-        self._observe_chunking()
-        self._observe_spec()
+        # one read a step (a world collective on a router over ranks),
+        # kept for stats() there
+        st = dict(self.engine.stats)
+        if self._chan is not None:
+            self._stats_snap = st
+        self._observe_chunking(st)
+        self._observe_spec(st)
         self._drain_phases()
+        if self._chan is not None and hasattr(self.engine, "engines"):
+            self._row_returns()
         self._drain_tokens(now)
         self.metrics.queue_depth.set(
             sum(len(e.queue) for e in self._engines()))
@@ -449,7 +746,7 @@ class AsyncDriver:
             sum(sum(r is not None for r in e.active)
                 for e in self._engines()))
 
-    def _observe_chunking(self):
+    def _observe_chunking(self, st: Dict):
         """Per-step mixed-batch telemetry: how many prefill-chunk tokens
         the step processed and what fraction of its work was prefill —
         counter DELTAS against the previous reading, clamped at zero so
@@ -457,7 +754,6 @@ class AsyncDriver:
         feeding negative samples."""
         if not any(getattr(e, "mixed", False) for e in self._engines()):
             return
-        st = self.engine.stats
         pf, dec = st.get("prefill_chunk_tokens", 0), st["decode_tokens"]
         dpf = max(0, pf - self._prev_pf_tokens)
         ddec = max(0, dec - self._prev_decode_tokens)
@@ -466,7 +762,7 @@ class AsyncDriver:
             self.metrics.prefill_chunk.observe(dpf)
             self.metrics.prefill_frac.observe(dpf / (dpf + ddec))
 
-    def _observe_spec(self):
+    def _observe_spec(self, st: Dict):
         """Speculative-decode telemetry (same delta-vs-previous pattern
         as :meth:`_observe_chunking`, its own counter set): export the
         drafted/accepted totals, the cumulative accept-rate gauge, and a
@@ -477,7 +773,6 @@ class AsyncDriver:
         if not any(getattr(e, "spec", None) is not None
                    for e in self._engines()):
             return
-        st = self.engine.stats
         cur = {k: st.get(k, 0) for k in self._prev_spec}
         d = {k: max(0, cur[k] - self._prev_spec[k]) for k in cur}
         self._prev_spec = cur
@@ -551,12 +846,21 @@ class AsyncDriver:
 
     def _forget(self, rid: int):
         """Drop the engine's finished record (the stream owns it now) so
-        a long-lived server's ``finished`` dict stays bounded."""
+        a long-lived server's ``finished`` dict stays bounded; over ranks
+        every rank drops it at the next pass."""
+        if self._chan is None:
+            self._forget_now(rid)
+        else:
+            self._pending.append(("forget", rid))
+
+    def _forget_now(self, rid: int):
         for e in self._engines():
             e.finished.pop(rid, None)
-        home = getattr(self.engine, "_home", None)
-        if home is not None:
-            home.pop(rid, None)
+        for book in (getattr(self.engine, "_home", None),
+                     getattr(self.engine, "_subs", None), self._sent):
+            if book is not None:
+                book.pop(rid, None)
+        self._closed.discard(rid)
 
     # ---------------------------------------------------------- watchdog
     def _watchdog_loop(self):

@@ -158,10 +158,13 @@ with MAX) and raise if it differs. ``kv_bytes`` stays global;
 ``per_device_kv_bytes`` is one rank's share. On a mesh with ``data`` > 1
 each row of the mesh is one replica: this engine serves its row, with
 its collectives on the row's "model" group (serve/parallel.py's
-``ReplicaRouter`` routes across the rows). The SSM family, the hybrid and
-the VLM on a mesh, TP-in-expert (``Strategy(expert_parallel=False)``)
-and the online stack on a tp engine (only rank 0 would see the requests)
-raise ``NotImplementedError`` naming ROADMAP.md Queue 1 item 11.
+``ReplicaRouter`` routes across the rows). The online driver
+(serve/driver.py) serves such an engine from rank 0, broadcasting its
+host events to every rank before each step; under it ``abort_event`` is
+the pass's copy of the abort, the same on every rank. The SSM family,
+the hybrid and the VLM on a mesh and TP-in-expert
+(``Strategy(expert_parallel=False)``) raise ``NotImplementedError``
+naming ROADMAP.md Queue 1 item 11.
 """
 from __future__ import annotations
 

@@ -49,8 +49,10 @@ Two layouts, chosen by ``tp``:
   there too: every process calls them. The router's collectives are
   tallied in the local engine's ``rank.counts`` under ``router_table``,
   ``router_busy``, ``router_results``, ``router_stats`` and
-  ``router_layout``. The online driver refuses a tp router (only rank 0
-  would see the requests; ROADMAP.md Queue 1 item 11).
+  ``router_layout``. The online driver (serve/driver.py) serves this
+  layout from global rank 0: it broadcasts the submissions to the world
+  before each step, and each other row's root returns its requests' new
+  tokens to rank 0.
 
 ``Session.serve(dp=, tp=)`` and ``launch/serve.py --dp/--tp`` build the
 router; it is usable with hand-built device lists as well.

@@ -43,6 +43,13 @@ it down; it closes over an existing :class:`AsyncDriver` so the engine,
 driver, and HTTP layers stay independently testable. Construction
 normally goes through ``repro_torch.api.Session.serve_http(...)`` or
 ``launch/serve.py --serve --port N``.
+
+Over tensor-parallel ranks (serve/driver.py) the server is built on every
+rank, and only rank 0's (``driver.lead``) binds a port: a follower's
+holds no socket (``port`` and ``url`` None), its driver replays rank 0's
+events, and its ``close()`` returns when rank 0 has stopped. The
+handlers call nothing that issues a collective: ``/metrics`` renders
+the stats the loop took, ``/healthz`` reads the last pass's ``busy``.
 """
 from __future__ import annotations
 
@@ -115,7 +122,7 @@ def _make_handler(driver: AsyncDriver,
                 # while a stalled step holds it
                 h = driver.health()
                 h["status"] = "ok"
-                h["busy"] = driver._busy()
+                h["busy"] = driver.busy()
                 h["active_slots"] = int(
                     driver.metrics.active_slots.value)
                 h["watchdog_fired"] = int(
@@ -222,6 +229,10 @@ class ServeHTTPServer:
                  result_timeout: Optional[float] = None):
         self.driver = driver
         self._own_driver = own_driver
+        self._httpd = None
+        self.host = self.port = None
+        if not driver.lead:            # a follower rank binds nothing
+            return
         self._httpd = ThreadingHTTPServer(
             (host, port), _make_handler(driver,
                                         result_timeout=result_timeout))
@@ -232,13 +243,18 @@ class ServeHTTPServer:
         self._thread.start()
 
     @property
-    def url(self) -> str:
+    def url(self) -> Optional[str]:
+        if self._httpd is None:
+            return None
         return f"http://{self.host}:{self.port}"
 
     def close(self, drain: bool = True):
-        self._httpd.shutdown()
-        self._httpd.server_close()
-        self._thread.join(timeout=10.0)
+        """Stop listening and, when the server owns its driver, stop it
+        (a follower's: wait until rank 0 has stopped)."""
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._thread.join(timeout=10.0)
         if self._own_driver:
             self.driver.stop(drain=drain)
 

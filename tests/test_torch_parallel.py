@@ -21,7 +21,11 @@ through ``launch/serve.py --dp 2 --tp 2``. The same four ranks run the
 context-parallel lockstep decode of tests/test_cp_attention.py on
 meshes (1, 4) and (2, 2) (tests/test_torch_tp.py's ``cp_rank``; at (2,
 2) each data row of ranks takes its 2 batch rows), held to JAX's CP
-``decode_step`` under the same mesh and to the JAX full forward.
+``decode_step`` under the same mesh and to the JAX full forward. They
+also serve tests/test_serve_online.py's dp 2 case online: the driver on
+every rank over a dp 2 x tp 2 router, rank 0 taking the requests, its
+streams held to the JAX engine's batch and its routing to the lockstep
+router's.
 """
 import numpy as np
 import pytest
@@ -35,7 +39,9 @@ from repro_torch.params import from_numpy  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve.parallel import (ReplicaRouter,  # noqa: E402
                                         replica_meshes)
-from test_torch_tp import _jax_cp_params, check_cp_rank, cp_rank  # noqa: E402
+from test_torch_tp import (ONLINE_ENG, ONLINE_KW, ONLINE_RUNS,  # noqa: E402
+                           _flat, _jax_cp_params, check_cp_rank, cp_rank,
+                           jax_online)
 
 #: the context-parallel decode's meshes on the four ranks
 CP_MESHES = ((1, 4), (2, 2))
@@ -50,7 +56,7 @@ AUDIO_KW = dict(name="par-encdec", arch_type="audio", num_layers=2,
                 d_model=64, num_heads=4, num_kv_heads=4, d_ff=128,
                 vocab_size=128, encoder_layers=1, encoder_ctx=12,
                 dtype="float32")
-SEEDS = {"par-dense": 0, "par-encdec": 2}
+SEEDS = {"par-dense": 0, "par-encdec": 2, "online-dense": 0}
 ENG = dict(slots=2, max_len=64, paged=True)
 CPU2 = ["cpu"] * 2
 
@@ -290,11 +296,45 @@ def test_launch_serve_dp2_on_the_cpu(capsys):
 
 # --------------------------------------------- dp 2 x tp 2, four ranks
 
-def _topology_rank(rank, world, flat, prompts, spec_prompts, cp_flat):
+def _online_router_rank(flat):
+    """The online driver on this rank over a dp 2 x tp 2 router
+    (deferred start, rank 0 submits), after the same submissions through
+    the lockstep router: each one's replicas, rank 0's streams, and the
+    collectives."""
+    from repro_torch.serve.driver import AsyncDriver
+    cfg = ModelConfig(**ONLINE_KW)
+    params = from_numpy(flat, cfg, "cpu")
+    prompts, new = ONLINE_RUNS["router"]
+    lockstep = _run(ReplicaRouter(cfg, params, dp=2, tp=2, **ONLINE_ENG),
+                    prompts, new)[0]
+    router = ReplicaRouter(cfg, params, dp=2, tp=2, **ONLINE_ENG)
+    homes, submit = [], router.submit
+
+    def routed(*args, **kw):
+        homes.append(submit(*args, **kw))
+        return homes[-1]
+
+    router.submit = routed
+    drv = AsyncDriver(router, start=False)
+    live = [drv.submit(p, max_new=new, rid=i)
+            for i, p in enumerate(prompts)] if drv.lead else []
+    drv.start()
+    streams = {s.rid: s.tokens() for s in live}
+    done = all(s.result(timeout=60.0).done for s in live)
+    drv.stop()
+    return {"lead": drv.lead, "streams": streams, "done": done,
+            "homes": homes, "lockstep": lockstep,
+            "ttft": drv.metrics.ttft.count,
+            "counts": dict(router.engines[0]._rank.counts),
+            "left": (len(router._home), len(router.engines[0].finished))}
+
+
+def _topology_rank(rank, world, flat, prompts, spec_prompts, cp_flat,
+                   online_flat):
     """One rank of the dp 2 x tp 2 runs: the router over a (2, 2) mesh
     on the engine keywords of the reference's test, with spec on, through
     ``Session.serve(dp=2, tp=2)`` and through the launcher; then the CP
-    decode on each of ``CP_MESHES``."""
+    decode on each of ``CP_MESHES``, and the online router."""
     import torch.distributed as dist
     from repro_torch.launch.serve import main
     from repro_torch.serve.speculative import SpecConfig
@@ -328,6 +368,7 @@ def _topology_rank(rank, world, flat, prompts, spec_prompts, cp_flat):
         ["--device", "cpu", "--dp", "2", "--tp", "2", "--requests", "4",
          "--max-new", "4"]).items()}
     out["cp"] = {shape: cp_rank(shape, cp_flat) for shape in CP_MESHES}
+    out["online"] = _online_router_rank(online_flat)
     return out
 
 
@@ -346,7 +387,7 @@ def topology(tmp_path_factory):
     flat = _JAX[KW["name"]][2]
     ranks = run_ranks(_topology_rank, 4,
                       args=(flat, prompts, spec_prompts,
-                            _jax_cp_params()[2]),
+                            _jax_cp_params()[2], _flat(ONLINE_KW)),
                       store_dir=str(tmp_path_factory.mktemp("dp2tp2")),
                       timeout=RANK_TIMEOUT)
     return prompts, spec_prompts, ranks
@@ -417,3 +458,36 @@ def test_cp_decode_on_four_ranks_matches_jax(topology, shape):
         check_cp_rank(r["cp"][shape], shape)
     if shape == (2, 2):
         assert sorted(r["cp"][shape]["row"] for r in ranks) == [0, 0, 1, 1]
+
+
+#: the collectives every process of a dp x tp router issues (the row
+#: ones differ between the rows)
+WORLD_LABELS = ("driver_events", "driver_tokens", "router_busy",
+                "router_stats", "router_table")
+
+
+def test_online_dp2_tp2_router_matches_jax_run(topology):
+    """tests/test_serve_online.py::test_stream_matches_run_dp2 over four
+    gloo ranks: the driver on every rank over the dp 2 x tp 2 router, rank
+    0 submitting before the start. Rank 0's streams, row 1's requests'
+    included (their tokens returned by row 1's root), equal the JAX
+    engine's batch ``run()``; every rank routes each request where the
+    lockstep router and the JAX router put it; every rank took part in
+    every return; no record is left behind."""
+    _, _, ranks = topology
+    prompts, new = ONLINE_RUNS["router"]
+    jr = _jax_router(ONLINE_KW, **ONLINE_ENG)
+    jhomes = [jr.submit(i, p, max_new=new) for i, p in enumerate(prompts)]
+    lead = ranks[0]["online"]
+    assert lead["lead"] and lead["done"]
+    assert lead["streams"] == jax_online("router")
+    assert lead["ttft"] == len(prompts)
+    assert 0 in jhomes and 1 in jhomes
+    for r in ranks:
+        run = r["online"]
+        assert run["homes"] == run["lockstep"] == jhomes
+        assert run["counts"]["driver_tokens"] > 0
+        assert {k: run["counts"][k] for k in WORLD_LABELS} == \
+            {k: lead["counts"][k] for k in WORLD_LABELS}
+        assert run["left"] == (0, 0)
+    assert not any(r["online"]["lead"] for r in ranks[1:])

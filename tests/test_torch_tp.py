@@ -21,6 +21,13 @@ its logits against JAX's CP ``decode_step`` under a (1, 2) mesh and the
 JAX full forward, its collective bytes against one cache, and
 ``greedy_generate`` under the rank against JAX's streams
 (tests/test_torch_parallel.py runs the (1, 4) and (2, 2) meshes). The
+online driver and HTTP server over the two ranks (serve/driver.py's
+control channel) run on the same spawn on tests/test_serve_online.py's
+config, prompts and ``max_new``: deferred start, live submission, a
+deadline that expires while queued, a watchdog requeue after a stall on
+rank 0, ``stop(drain=False)``, ``/generate`` / ``/metrics`` /
+``/healthz`` on rank 0, and ranks fed different batches; their streams
+are held to the JAX engine's batch ``run()``. The
 MoE config (``MOE_KW``: E 4 over tp 2,
 two experts a rank, and ``MOE_E3_KW``: E 3, which the table keeps whole
 on both ranks) and the enc-dec config (``AUDIO_KW``, frames with each
@@ -262,6 +269,44 @@ def _jax_family_run(name):
         _JAX[name] = ({i: list(res[i].out) for i in res}, dict(eng.stats),
                       eng.per_device_kv_bytes())
     return _JAX[name]
+
+
+#: tests/test_serve_online.py's CFG and engine keywords, and its cases
+#: run through the online driver over the ranks: run -> (prompts,
+#: max_new) of the JAX batch each is held to ("deadline": the third
+#: prompt expires while queued, so the batch is of the first two;
+#: "stop": the streams cut short are prefixes of it)
+ONLINE_KW = dict(name="online-dense", arch_type="dense", num_layers=2,
+                 d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
+                 vocab_size=128, dtype="float32")
+ONLINE_ENG = dict(slots=2, max_len=64, paged=True)
+ONLINE_RUNS = {"deferred": (_prompts(1, (5, 7, 6, 8, 5)), 6),
+               "live": (_prompts(3, (5, 7, 6)), 5),
+               "deadline": (_prompts(4, (5, 7, 6)), 6),
+               "watchdog": (_prompts(7, (6,)), 8),
+               "stop": (_prompts(11, (5, 6)), 40),
+               "http": (_prompts(8, (5, 7)), 6),
+               # tests/test_serve_online.py::test_stream_matches_run_dp2's,
+               # served by the dp 2 x tp 2 router (test_torch_parallel.py)
+               "router": (_prompts(2, (5, 7, 6, 8, 5, 4)), 6)}
+
+
+def jax_online(name):
+    """The JAX engine's batch ``run()`` streams of ``ONLINE_RUNS[name]``
+    (the deadline run's first two prompts), made once."""
+    key = ("online", name)
+    if key not in _JAX:
+        from repro.serve.engine import ServeEngine as JaxEngine
+        prompts, new = ONLINE_RUNS[name]
+        if name == "deadline":
+            prompts = prompts[:2]
+        jcfg, jparams, _ = _jax_params(ONLINE_KW)
+        eng = JaxEngine(jcfg, jparams, **ONLINE_ENG)
+        for i, p in enumerate(prompts):
+            eng.submit(i, p, max_new=new)
+        res = eng.run()
+        _JAX[key] = {i: list(res[i].out) for i in res}
+    return _JAX[key]
 
 
 def _cp_cfg(jax=False):
@@ -518,7 +563,6 @@ def _session_rank(rank, world):
     rank's blocks), and the refusals of (g)."""
     from repro_torch.api import Session
     from repro_torch.params import init_params
-    from repro_torch.serve.driver import AsyncDriver
     _mesh(world)
     cfg = ModelConfig(**KW)
     prompts = _prompts(3, (5, 7, 6))
@@ -573,12 +617,6 @@ def _session_rank(rank, world):
                                       expert_parallel=False))
     except NotImplementedError as e:
         refused["tp_in_expert"] = str(e)
-    eng = ServeEngine(cfg, init_params(cfg, device="cpu", seed=0),
-                      mesh=mesh)
-    try:
-        AsyncDriver(eng, start=False)
-    except NotImplementedError as e:
-        refused["online"] = str(e)
     try:
         ServeEngine(cfg, init_params(cfg, device="cpu", seed=0), mesh=mesh,
                     strategy=Strategy(fsdp=True))
@@ -607,6 +645,208 @@ def _session_rank(rank, world):
     return out
 
 
+def _online_rank(rank, world, flat):
+    """The online driver over the ``world`` ranks, one case of
+    ``ONLINE_RUNS`` after another, each on a fresh engine; rank 0 takes
+    every submission. Returns each case's streams, records, metrics and
+    each rank's engine counters and collectives."""
+    import json
+    import logging
+    import time
+    import urllib.request
+    from repro_torch.api import Session
+    from repro_torch.serve.driver import AsyncDriver
+    mesh = _mesh(world)
+    cfg = ModelConfig(**ONLINE_KW)
+    params = from_numpy(flat, cfg, "cpu")
+    lead = rank == 0
+    out = {}
+
+    def engine():
+        return ServeEngine(cfg, params, mesh=mesh, **ONLINE_ENG)
+
+    def counters(eng):
+        return {"stats": {k: eng.stats[k] for k in COUNTERS
+                          + ("expired", "step_count")},
+                "counts": dict(eng._rank.counts)}
+
+    # deferred start: rank 0 submits, every rank starts
+    prompts, new = ONLINE_RUNS["deferred"]
+    eng = engine()
+    drv = AsyncDriver(eng, start=False)
+    streams = [drv.submit(p, max_new=new, rid=i)
+               for i, p in enumerate(prompts)] if lead else []
+    refused = None
+    if not lead:
+        try:
+            drv.submit(prompts[0], max_new=new)
+        except RuntimeError as e:
+            refused = str(e)
+    drv.start()
+    got = {s.rid: s.tokens() for s in streams}
+    records = {s.rid: s.result(timeout=60.0) for s in streams}
+    drv.stop()
+    out["deferred"] = {
+        "streams": got, "records": {i: list(r.out)
+                                    for i, r in records.items()},
+        "done": all(r.done for r in records.values()),
+        "ttft": drv.metrics.ttft.count, "lead": drv.lead,
+        "refused": refused, "passes": drv._chan.passes,
+        "left": (len(eng.finished), len(drv._streams)), **counters(eng)}
+
+    # live submission through Session.serve_async(tp=), started at once
+    prompts, new = ONLINE_RUNS["live"]
+    drv = Session(cfg, device="cpu", params=params).serve_async(
+        tp=world, **ONLINE_ENG)
+    got = {}
+    if lead:
+        streams = []
+        for i, p in enumerate(prompts):
+            streams.append(drv.submit(p, max_new=new, rid=i))
+            time.sleep(0.01)            # interleave with stepping
+        got = {s.rid: list(s.result(timeout=60.0).out) for s in streams}
+    drv.stop()
+    out["live"] = {"streams": got, **counters(drv.engine)}
+
+    # a deadline that passes while the request waits behind two others
+    prompts, new = ONLINE_RUNS["deadline"]
+    eng = engine()
+    drv = AsyncDriver(eng, start=False)
+    if lead:
+        streams = [drv.submit(p, max_new=new, rid=i)
+                   for i, p in enumerate(prompts[:2])]
+        late = drv.submit(prompts[2], max_new=new, rid=2, deadline_s=1e-3)
+        time.sleep(0.01)
+    drv.start()
+    got = {}
+    if lead:
+        got = {s.rid: list(s.result(timeout=60.0).out) for s in streams}
+        rec = late.result(timeout=60.0)
+        got["late"] = (list(rec.out), rec.done, rec.expired)
+    drv.stop()
+    out["deadline"] = {"streams": got,
+                       "expired": drv.metrics.expired.value,
+                       **counters(eng)}
+
+    # a stall on rank 0 fires its watchdog: every rank requeues
+    prompts, new = ONLINE_RUNS["watchdog"]
+    eng = engine()
+    eng.submit(100, prompts[0], max_new=2)     # warm, in lockstep
+    eng.run()
+    calls = {"n": 0}
+
+    def stalled(d):
+        calls["n"] += 1
+        if lead and calls["n"] == 2:           # rid 0 is mid-decode
+            deadline = time.monotonic() + 20.0
+            while not d.abort_step.is_set() and \
+                    time.monotonic() < deadline:
+                time.sleep(0.01)
+        d.engine.step()
+
+    lines = []
+    handler = logging.Handler(logging.ERROR)
+    handler.emit = lambda record: lines.append(record.getMessage())
+    logger = logging.getLogger("repro_torch.serve")
+    logger.addHandler(handler)
+    try:
+        drv = AsyncDriver(eng, watchdog_timeout=0.5, step_fn=stalled,
+                          start=False)
+        stream = drv.submit(prompts[0], max_new=new, rid=0) if lead \
+            else None
+        drv.start()
+        rec = stream.result(timeout=60.0) if lead else None
+        drv.stop()
+    finally:
+        logger.removeHandler(handler)
+    out["watchdog"] = {
+        "out": None if rec is None else (list(rec.out), rec.done),
+        "fired": drv.metrics.watchdog_fired.value,
+        "requeued": drv.metrics.watchdog_requeued.value,
+        "abort": drv.abort_step.is_set(), "log": "\n".join(lines),
+        **counters(eng)}
+
+    # stop(drain=False) mid-flight: every rank returns, records partial
+    prompts, new = ONLINE_RUNS["stop"]
+    eng = engine()
+
+    def slow(d):
+        d.engine.step()
+        if lead:
+            time.sleep(0.05)
+
+    drv = AsyncDriver(eng, step_fn=slow, start=False)
+    streams = [drv.submit(p, max_new=new, rid=i)
+               for i, p in enumerate(prompts)] if lead else []
+    drv.start()
+    got = {}
+    if lead:
+        it = iter(streams[0])
+        first = [next(it), next(it)]
+        drv.stop(drain=False)
+        got = {s.rid: (list(s.result(timeout=10.0).out),
+                       s.result(timeout=10.0).done) for s in streams}
+        got["first"] = first
+    else:
+        drv.stop()
+    out["stop"] = {"streams": got, "ended": drv.wait(0.0),
+                   "error": repr(drv.error), **counters(eng)}
+
+    # HTTP on rank 0 through Session.serve_http(tp=): /generate (JSON,
+    # chunked), then /metrics and /healthz with the loop idle
+    prompts, new = ONLINE_RUNS["http"]
+    server = Session(cfg, device="cpu", params=params).serve_http(
+        tp=world, port=0, **ONLINE_ENG)
+    http = {"url": server.url}
+    if lead:
+        def post(body):
+            req = urllib.request.Request(
+                f"{server.url}/generate", data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            return urllib.request.urlopen(req, timeout=60)
+
+        with post({"prompt": [int(t) for t in prompts[0]],
+                   "max_new": new}) as r:
+            http["json"] = json.loads(r.read())
+        with post({"prompt": [int(t) for t in prompts[1]],
+                   "max_new": new, "stream": True}) as r:
+            http["chunked"] = r.headers["Transfer-Encoding"]
+            http["lines"] = [json.loads(ln) for ln in r if ln.strip()]
+        time.sleep(0.3)                 # a few idle passes
+        with urllib.request.urlopen(f"{server.url}/metrics",
+                                    timeout=30) as r:
+            http["metrics"] = r.read().decode()
+        with urllib.request.urlopen(f"{server.url}/healthz",
+                                    timeout=30) as r:
+            http["health"] = json.loads(r.read())
+    server.close()
+    out["http"] = {**http, **counters(server.driver.engine)}
+
+    # a fault feeds the follower a different prompt: the engines'
+    # checksum before the program raises on every rank
+    prompts, new = ONLINE_RUNS["deferred"]
+    eng = engine()
+    drv = AsyncDriver(eng, start=False)
+    if not lead:
+        real = drv._chan.exchange
+
+        def faulty(batch):
+            batch = real(batch)
+            batch["events"] = [
+                (ev[0], ev[1], (ev[2] + 1) % 128, *ev[3:])
+                if ev[0] == "submit" else ev for ev in batch["events"]]
+            return batch
+
+        drv._chan.exchange = faulty
+    stream = drv.submit(prompts[0], max_new=new, rid=0) if lead else None
+    drv.start()
+    rec = stream.result(timeout=60.0) if lead else None
+    drv.stop()
+    out["diverged"] = {"error": repr(drv.error), "ended": drv.wait(0.0),
+                       "done": None if rec is None else rec.done}
+    return out
+
+
 # --------------------------------------------------------- the spawns
 
 def _all_ranks(rank, world, flats, runs, family_runs, toks):
@@ -617,7 +857,8 @@ def _all_ranks(rank, world, flats, runs, family_runs, toks):
             "session": _session_rank(rank, world),
             "cp": {p: cp_rank((1, world), flats["cp"], p)
                    for p in (CP_PROMPT, CP_SHORT)},
-            "cp_extra": _cp_extra_rank(world, flats["cp"])}
+            "cp_extra": _cp_extra_rank(world, flats["cp"]),
+            "online": _online_rank(rank, world, flats[ONLINE_KW["name"]])}
 
 
 @pytest.fixture(scope="module")
@@ -626,7 +867,7 @@ def spawned(tmp_path_factory):
     toks = np.random.default_rng(5).integers(0, 128, size=(2, 24)).astype(
         np.int32)
     flats = {kw["name"]: _flat(kw)
-             for kw in (KW, KW_KV1, MOE_KW, MOE_E3_KW, AUDIO_KW)}
+             for kw in (KW, KW_KV1, MOE_KW, MOE_E3_KW, AUDIO_KW, ONLINE_KW)}
     flats["cp"] = _jax_cp_params()[2]
     return toks, run_ranks(_all_ranks, 2,
                            args=(flats, RUNS, FAMILY_RUNS, toks),
@@ -819,8 +1060,8 @@ def test_tp2_forward_has_two_all_reduces_a_layer(model_runs):
 def test_tp_refusals(model_runs):
     """A mesh larger than the process group raises ValueError with the
     count; MoE and audio engines build on a mesh, while an SSM engine,
-    TP-in-expert MoE (``expert_parallel=False``), online serving of a tp
-    engine and FSDP on a mesh raise naming item 11; on a CUDA device a
+    TP-in-expert MoE (``expert_parallel=False``) and FSDP on a mesh raise
+    naming item 11; on a CUDA device a
     kernel that refuses a rank's shape refuses at construction; ranks
     that packed different programs raise on every rank (no hang);
     ``serve(dp=2)`` on the one CPU device raises the reference's "devices
@@ -829,7 +1070,7 @@ def test_tp_refusals(model_runs):
     _, _, session = model_runs
     refused = session[0]["refused"]
     assert "needs 4 ranks" in refused["mesh"] and "has 2" in refused["mesh"]
-    for key in ("ssm", "tp_in_expert", "online", "fsdp"):
+    for key in ("ssm", "tp_in_expert", "fsdp"):
         assert "item 11" in refused[key], key
     assert "moe" not in refused and "audio" not in refused
     assert session[0]["built"] == {"moe": 2, "audio": 2}
@@ -980,3 +1221,128 @@ def test_tp2_greedy_generate_cp_matches_jax(spawned):
     for r in spawned[1]:
         np.testing.assert_array_equal(r["cp_extra"]["greedy"], want)
         assert r["cp_extra"]["greedy_counts"]["tokens"] == CP_S - CP_PROMPT
+
+
+# ------------------------------------------- the online driver over ranks
+
+@pytest.fixture(scope="module")
+def online(spawned):
+    """Both ranks' online cases; the ranks' engines must have run the same
+    programs (equal counters and collectives) in every case but the
+    deliberate divergence."""
+    ranks = [r["online"] for r in spawned[1]]
+    for name in ("deferred", "live", "deadline", "watchdog", "stop",
+                 "http"):
+        assert ranks[1][name]["stats"] == ranks[0][name]["stats"], name
+        assert ranks[1][name]["counts"] == ranks[0][name]["counts"], name
+    return ranks
+
+
+def test_online_tp2_deferred_start_matches_jax_run(online):
+    """tests/test_serve_online.py::test_stream_matches_run_tp2 on two
+    ranks: rank 0 submits five requests before the loop starts, every
+    rank starts its driver; rank 0's streams equal the JAX engine's batch
+    ``run()`` token for token (and their records), one program shape on
+    every rank, a TTFT a request on rank 0, no record left behind. A
+    follower's ``submit`` raises naming rank 0; the control channel is
+    two broadcasts a pass."""
+    want = jax_online("deferred")
+    lead, follower = online[0]["deferred"], online[1]["deferred"]
+    assert lead["lead"] and not follower["lead"]
+    assert lead["done"] and lead["streams"] == want
+    assert lead["records"] == want
+    assert lead["ttft"] == len(want) and follower["ttft"] == 0
+    for r in (lead, follower):
+        assert r["stats"]["decode_traces"] == 1
+        assert r["counts"]["driver_events"] == 2 * r["passes"]
+        assert r["left"] == (0, 0)
+    assert "rank 0" in follower["refused"]
+
+
+def test_online_tp2_live_submission_matches_jax_run(online):
+    """tests/test_serve_online.py::test_live_submit_while_running over
+    ``Session.serve_async(tp=2)``: requests submitted on rank 0 while the
+    loop already steps finish with the JAX batch's streams."""
+    assert online[0]["live"]["streams"] == jax_online("live")
+    assert online[0]["live"]["stats"]["decode_traces"] == 1
+
+
+def test_online_tp2_deadline_expires_while_queued(online):
+    """A request whose deadline passes while two others hold both slots
+    closes ``done=False, expired=True`` with no tokens; every rank's
+    engine expired it at the same step (the counters above are equal and
+    the later programs' checksums passed), and the two others stream the
+    JAX batch's tokens."""
+    got = online[0]["deadline"]["streams"]
+    want = jax_online("deadline")
+    assert {i: got[i] for i in want} == want
+    assert got["late"] == ([], False, True)
+    assert online[0]["deadline"]["expired"] == 1
+    for r in online:
+        assert r["deadline"]["stats"]["expired"] == 1
+
+
+def test_online_tp2_watchdog_requeues_on_every_rank(online):
+    """tests/test_serve_online.py::test_watchdog_detects_injected_stall
+    over two ranks: a stall on rank 0 only fires rank 0's watchdog (a
+    follower runs none); the requeue reaches every rank in the next
+    batch, both preempt the active slot, and the stream still equals the
+    JAX batch's. The abort is cleared after the recovery."""
+    lead, follower = online[0]["watchdog"], online[1]["watchdog"]
+    assert lead["out"] == (jax_online("watchdog")[0], True)
+    assert lead["fired"] >= 1 and follower["fired"] == 0
+    for r in (lead, follower):
+        assert r["requeued"] >= 1
+        assert r["stats"]["preemptions"] >= 1
+        assert not r["abort"]
+        assert "requeued 1 active request(s)" in r["log"]
+    assert "stalled" in lead["log"] and "slot r0/s" in lead["log"]
+
+
+def test_online_tp2_stop_without_drain_returns_partial(online):
+    """``stop(drain=False)`` on rank 0 after two tokens: every rank's loop
+    ends (a follower's at rank 0's "stop"), the records are partial
+    (``done=False``, fewer than 40 tokens) and each is a prefix of the
+    JAX batch's stream."""
+    got = online[0]["stop"]["streams"]
+    want = jax_online("stop")
+    assert got["first"] == want[0][:2]
+    for rid, stream in want.items():
+        out, done = got[rid]
+        assert not done and len(out) < len(stream)
+        assert out == stream[:len(out)]
+    for r in online:
+        assert r["stop"]["ended"] and r["stop"]["error"] == "None"
+
+
+def test_online_tp2_http_on_rank_0(online):
+    """tests/test_serve_online.py::test_http_endpoints_over_socket over
+    ``Session.serve_http(tp=2)``: only rank 0 binds a port; /generate as
+    JSON and chunked returns the JAX batch's tokens; /metrics and
+    /healthz answer while the loop idles. No HTTP thread issued a
+    collective: both ranks' collectives are equal in number and kind."""
+    want = jax_online("http")
+    lead, follower = online[0]["http"], online[1]["http"]
+    assert lead["url"].startswith("http://") and follower["url"] is None
+    assert lead["json"]["done"] is True and lead["json"]["tokens"] == want[0]
+    assert lead["chunked"] == "chunked"
+    *toks, closing = lead["lines"]
+    assert [ln["token"] for ln in toks] == want[1]
+    assert closing["done"] is True and closing["tokens"] == want[1]
+    metrics = lead["metrics"]
+    assert "serve_ttft_seconds_count 2" in metrics
+    assert "serve_requests_completed_total 2.0" in metrics
+    assert "serve_engine_pages_in_use" in metrics
+    assert lead["health"]["status"] == "ok"
+    assert lead["health"]["step_count"] > 0
+    assert lead["health"]["busy"] is False
+
+
+def test_online_tp2_divergence_raises_on_every_rank(online):
+    """A fault hands the follower a batch with another prompt: the
+    engines' checksum before the first program raises on both ranks, both
+    loops end (no hang) and rank 0's stream closes unfinished."""
+    for r in online:
+        assert "packed different programs" in r["diverged"]["error"]
+        assert r["diverged"]["ended"]
+    assert online[0]["diverged"]["done"] is False
