@@ -13,10 +13,10 @@ mesh's axis names and sizes, so it takes a plain ``{axis: size}`` mapping
 as well as a ``torch.distributed`` ``DeviceMesh`` (``mesh_axes``): the
 sharding tables (``core/sharding.py``) need no process group. What the
 port runs on a mesh: serving tensor-parallel dense and MoE decoders (the
-experts over "model" with ``expert_parallel``) and the enc-dec family
-(``serve/engine.py``), data-parallel replicas over "data"
-(``serve/parallel.py``), and training dense and MoE decoders on a
-("data", "model") mesh (``train/trainer.py``, ``train/step.py``):
+experts over "model" with ``expert_parallel``), the enc-dec family, the
+SSM family and the hybrid (``serve/engine.py``), data-parallel replicas
+over "data" (``serve/parallel.py``), and training dense and MoE
+decoders, the SSM family and the hybrid on a ("data", "model") mesh (``train/trainer.py``, ``train/step.py``):
 gradient sums over "data", ``zero1`` (optimizer state over "data"),
 ``fsdp`` (parameters over "data", gathered a layer at a time),
 Megatron TP and experts over "model", and ``seq_parallel`` (the

@@ -21,7 +21,11 @@ code on it, and calls the collective where GSPMD would have put one
   engine's sampled tokens and clock);
 * ``all_reduce(x, what, op=MAX)`` and the zero-filled sums of
   ``gather_heads`` for the context-parallel decode
-  (``models/cp_attention.py``).
+  (``models/cp_attention.py``);
+* in a Mamba2 block (``models/ssm.py``) ``all_reduce(y, "ssm_out")``
+  after ``out_proj`` (row-parallel) and ``norm_sum(ss, "ssm_norm")``, the
+  gated RMSNorm's sum of squares over the block's heads: one each a
+  layer.
 
 Training differentiates through them (Megatron's conjugate pair, as
 ``torch.autograd.Function`` classes). Every rank computes the same replicated
@@ -73,6 +77,19 @@ with fewer KV heads than ranks), every rank keeps all Hkv heads of K/V
 the one KV head they read (``kv_read``); the table itself would split
 ``wk``/``wv`` inside a head there (``_divisible`` tests the flattened
 ``Hkv * D``), which the port never does (``rank_pspecs``).
+
+A Mamba2 block is split by whole SSD heads too (H must divide by tp). Its
+``in_proj`` columns are the concatenation ``[z | x | B | C | dt]`` and
+its conv channels ``[x | B | C]``; the reference's table splits that flat
+axis contiguously (rank 0 would take all of ``z`` and part of ``x``) and
+leaves GSPMD to regather. On a rank the dim is laid out by heads instead
+(:class:`Segmented`, ``rank_pspecs``): ``din / tp`` columns of ``z`` and
+of ``x``, ``H / tp`` of ``dt``, and all of ``B`` and ``C`` (one group,
+read by every head), so the rank's block is the ``in_proj`` and conv of a
+Mamba2 block with ``H / tp`` heads. The replicated ``B``/``C`` columns
+feed each rank's own heads: their gradient is summed over "model"
+(``enter_part``), and a sum of squares over the dim counts them once
+(``once``).
 
 A dense K/V cache follows the reference's ``cache_pspecs``
 (``cache_rows``): the rank's K/V heads where Hkv divides tp, otherwise
@@ -181,6 +198,7 @@ class Rank:
         if cfg.d_ff % tp:
             raise ValueError(f"{cfg.name}: d_ff {cfg.d_ff} does not split "
                              f"over tp={tp}")
+        check_ssm_heads(cfg, tp)
         r = int(sub.get_local_rank())
         if hkv % tp == 0:
             kv_heads, kv_read = hkv // tp, None
@@ -615,8 +633,109 @@ def check_training(what: str, step: str):
 
 
 #: item 11's step for the families that do not run on a mesh yet
-FAMILY_STEP = ("7: the SSM family, the hybrid, the enc-dec family and "
-               "the VLM under a mesh")
+FAMILY_STEP = "7b: the enc-dec family and the VLM under a mesh"
+
+
+# ------------------------------------------------ Mamba2 blocks by head
+
+def check_ssm_heads(cfg, tp: int):
+    """Raise ``ValueError`` where ``cfg``'s SSD heads do not split over
+    ``tp`` ranks (a Mamba2 block is split by whole heads)."""
+    if cfg.ssm_heads % tp:
+        raise ValueError(
+            f"{cfg.name}: {cfg.ssm_heads} SSD heads do not split over "
+            f"tp={tp} (a Mamba2 block is split by whole heads)")
+
+
+def ssm_heads(cfg) -> int:
+    """The SSD heads the current rank holds of a Mamba2 block: H / tp,
+    all H without a live rank."""
+    r = _live()
+    return cfg.ssm_heads if r is None else cfg.ssm_heads // r.tp
+
+
+class Segmented(str):
+    """A spec entry for a dim that is a concatenation of segments: equal
+    to (and hashed as) the name of the mesh axis that splits it, so the
+    tables read it as that axis, and carrying ``segments``, a tuple of
+    ``(length, split)``: a split segment's block is its ``length / n``
+    slice at the rank's index, a segment that is not split is whole on
+    every rank."""
+
+    def __new__(cls, axis: str, segments):
+        out = super().__new__(cls, axis)
+        out.segments = tuple((int(n), bool(s)) for n, s in segments)
+        return out
+
+    def __repr__(self) -> str:
+        return f"Segmented({str(self)!r}, {self.segments})"
+
+    def runs(self, n: int, index: int):
+        """``(start, length, split)`` in the full dim of block ``index`` of
+        ``n``, segment by segment."""
+        out, at = [], 0
+        for length, split in self.segments:
+            if split:
+                k = length // n
+                out.append((at + index * k, k, True))
+            else:
+                out.append((at, length, False))
+            at += length
+        return out
+
+
+#: Mamba2 leaves laid out by head on a rank (``ssm_segments``)
+SEGMENTED_LEAVES = ("in_proj", "conv_w", "conv_b")
+
+
+def ssm_segments(cfg, name: str) -> tuple:
+    """The segments of the last dim of Mamba2 leaf ``name``: ``in_proj``'s
+    ``[z | x | B | C | dt]`` columns, the conv's ``[x | B | C]`` channels
+    (``B`` and ``C`` not split)."""
+    din, n = cfg.ssm_heads * cfg.ssm_head_dim, cfg.ssm_state
+    if name == "in_proj":
+        return ((din, True), (din, True), (n, False), (n, False),
+                (cfg.ssm_heads, True))
+    return ((din, True), (n, False), (n, False))
+
+
+def enter_part(x: torch.Tensor, start: int, length: int,
+               what: str) -> torch.Tensor:
+    """``x`` with its last dim's ``[start, start + length)`` under
+    ``enter`` (the gradient of those entries summed over "model"): the
+    replicated ``B``/``C`` columns of a rank's Mamba2 weights. ``x``
+    itself without a live rank or a gradient."""
+    r = _live()
+    if r is None or not _grad_on(x):
+        return x
+    head, part, tail = x.split(
+        [start, length, x.shape[-1] - start - length], dim=-1)
+    return torch.cat([head, _Enter.apply(part, r, what), tail], dim=-1)
+
+
+def norm_sum(x: torch.Tensor, what: str) -> torch.Tensor:
+    """A sum over "model" whose total each rank uses on its own share of
+    the work (a norm's sum of squares over the rank's heads): the sum
+    forward and, in training, the gradient summed backward (g, then
+    f)."""
+    return enter(all_reduce(x, what), what)
+
+
+def once(x: torch.Tensor, spec, r: Rank) -> torch.Tensor:
+    """``x`` (a block under ``spec``) with the segments that are not split
+    zeroed on every rank of their axis but the first: summed over the
+    dim and then over the axis, they count once."""
+    for dim, ax in enumerate(tuple(spec)):
+        if not isinstance(ax, Segmented) or r.axes.get(ax, 1) == 1 \
+                or axis_index(r, ax) == 0:
+            continue
+        x = x.clone()
+        at = 0
+        for _, length, split in ax.runs(r.axes[ax], 0):
+            if not split:
+                x.narrow(dim, at, length).zero_()
+            at += length
+    return x
 
 
 # ------------------------------------------------------------- FSDP gathers
@@ -713,11 +832,32 @@ def assemble(block: torch.Tensor, spec, what: str,
             continue
         if isinstance(ax, tuple):
             raise ValueError(f"{what}: a dim split over {ax}")
+        if isinstance(ax, Segmented):
+            out = _assemble_segments(out, dim, ax, r, what)
+            continue
         n = out.shape[dim]
         shape = out.shape[:dim] + (n * r.axes[ax],) + out.shape[dim + 1:]
         out = fill_sum(out, shape, slice_at(dim, axis_index(r, ax), n), r,
                        ax, what)
     return out
+
+
+def _assemble_segments(block, dim: int, ax: Segmented, r: Rank,
+                       what: str) -> torch.Tensor:
+    """The whole of ``dim`` laid out as ``ax``'s segments: each rank
+    writes its slices of the split segments, the first rank the segments
+    that are not split, into a zero buffer; one sum joins them."""
+    shape = list(block.shape)
+    shape[dim] = sum(n for n, _ in ax.segments)
+    full = block.new_zeros(shape)
+    first = axis_index(r, ax) == 0
+    at = 0
+    for start, length, split in ax.runs(r.axes[ax], axis_index(r, ax)):
+        if split or first:
+            full.narrow(dim, start, length).copy_(
+                block.narrow(dim, at, length))
+        at += length
+    return _sum_(full, _group(r, ax), r, what)
 
 
 # ------------------------------------------------------- sharding leaves
@@ -726,15 +866,23 @@ def rank_pspecs(params, strategy, mesh, cfg):
     """``core/sharding.param_pspecs`` with every head kept whole: a
     query, key or value projection (and ``wo``) whose head count does not
     divide the "model" axis stays replicated where the table would split
-    its flattened ``heads * head_dim`` dimension."""
+    its flattened ``heads * head_dim`` dimension, and a Mamba2 block's
+    ``in_proj`` / ``conv_w`` / ``conv_b`` split over "model" by head
+    (:class:`Segmented` by ``ssm_segments``) where the table splits the
+    flat dim contiguously."""
     model = mesh_axes(mesh).get("model", 1)
     counts = {"heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads}
+    if model > 1 and cfg.ssm_heads:
+        check_ssm_heads(cfg, model)
 
     def whole(path, leaf, spec):
         logical = param_logical(path, leaf)
-        return P(*(None if ax is not None and logical[i] in counts
-                   and counts[logical[i]] % model else ax
-                   for i, ax in enumerate(spec)))
+        out = [None if ax is not None and logical[i] in counts
+               and counts[logical[i]] % model else ax
+               for i, ax in enumerate(spec)]
+        if model > 1 and cfg.ssm_heads and path[-1] in SEGMENTED_LEAVES:
+            out[-1] = Segmented("model", ssm_segments(cfg, path[-1]))
+        return P(*out)
 
     return tree_map_with_path(whole, params,
                               param_pspecs(params, strategy, mesh))
@@ -756,8 +904,14 @@ def block_of(ax, axes: Dict[str, int], coord: Dict[str, int]):
 
 def local_shape(shape, spec, axes: Dict[str, int]) -> tuple:
     """The block shape of a leaf of ``shape`` under ``spec``."""
-    return tuple(n if ax is None else n // block_of(ax, axes, {})[0]
-                 for n, ax in zip(shape, spec))
+    def one(n, ax):
+        if ax is None:
+            return n
+        size = block_of(ax, axes, {})[0]
+        if isinstance(ax, Segmented):
+            return sum(k for _, k, _ in ax.runs(size, 0))
+        return n // size
+    return tuple(one(n, ax) for n, ax in zip(shape, spec))
 
 
 def shard_leaf(leaf: torch.Tensor, spec, axes: Dict[str, int],
@@ -768,6 +922,11 @@ def shard_leaf(leaf: torch.Tensor, spec, axes: Dict[str, int],
     for dim, ax in enumerate(spec):
         if ax is not None:
             size, index = block_of(ax, axes, coord)
+            if isinstance(ax, Segmented):
+                out = torch.cat([out.narrow(dim, start, length) for
+                                 start, length, _ in ax.runs(size, index)],
+                                dim=dim)
+                continue
             if leaf.shape[dim] % size:
                 raise ValueError(f"dim {dim} of a {tuple(leaf.shape)} leaf "
                                  f"does not split into {size} blocks")
@@ -807,6 +966,8 @@ def leaf_blocks(shapes: Dict[str, tuple], strategy, mesh, cfg
                                                    - len(specs[key]))))
         update = _divisible(shape, zero1_spec(spec, shape, axes), axes) \
             if strategy.zero1 else spec
+        update = P(*(a if isinstance(a, Segmented) else u
+                     for a, u in zip(spec, update)))
         fsdp = [i for i, ax in enumerate(spec) if ax == "data"]
         zero = [i for i, ax in enumerate(update) if ax == "data"]
         fsdp_dim = fsdp[0] if fsdp and dp > 1 else None

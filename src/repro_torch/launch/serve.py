@@ -80,8 +80,9 @@ batch and serves the engine over HTTP (``POST /generate``, ``GET
 /metrics``, ``GET /healthz``; ``--port 0`` picks a free port) until
 ctrl-c, with the watchdog at ``--watchdog-timeout`` seconds.
 
-``--tp N`` serves a dense or MoE decoder or the enc-dec family
-tensor-parallel over N ranks, one process a rank as ``torchrun
+``--tp N`` serves a dense or MoE decoder, the enc-dec family, the SSM
+family or the hybrid tensor-parallel over N ranks (a Mamba2 block by
+whole heads), one process a rank as ``torchrun
 --nproc-per-node N`` starts them (each rank builds only its shards;
 serve/engine.py). The process group's backend is ``--backend`` (default
 NCCL on CUDA, gloo on the CPU; ranks sharing one card need gloo: NCCL

@@ -63,8 +63,8 @@ bf16): on one H100 cut its depth with ``--layers`` (5 = one group: 4
 self and 1 cross layer) and train it with ``--optimizer adafactor``
 (AdamW's fp32 master, m and v would need >= 16 bytes a parameter).
 
-``--tp N`` and ``--dp M`` train a dense or MoE decoder on a ("data",
-"model") = (M, N) mesh under ``torchrun --nproc-per-node M*N``, one
+``--tp N`` and ``--dp M`` train a dense or MoE decoder, the SSM family
+or the hybrid on a ("data", "model") = (M, N) mesh under ``torchrun --nproc-per-node M*N``, one
 process a rank (``Session.train(tp=, dp=)``): ZeRO-1 over "data" by
 default, ``--fsdp`` (parameters over "data") and ``--seq-parallel``
 (the reference's own flags); the process group's backend is

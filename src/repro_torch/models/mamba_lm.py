@@ -15,51 +15,57 @@ The cache is ``{"ssm": {"state": (L,B,H,P,N) fp32, "conv": (L,B,W-1,C)},
 cache's tensors in place (the reference returns a new tree): the serve
 engine holds one cache for its whole life, so no second copy of it is
 made a step.
+
+Under a tensor-parallel rank (``core/tp.py``, made current by the serving
+engine or the trainer) every function runs on the rank's shards: the
+vocab-parallel embedding and head of ``transformer._embed`` / ``_head``,
+and in each layer the rank's ``H / tp`` heads of the Mamba2 block
+(``models/ssm.py``); ``init_cache`` then gives the rank's (L, B, H/tp, P,
+N) states and (L, B, W-1, din/tp + 2N) conv tails. ``forward`` trains on
+a ("data", "model") mesh as ``transformer.forward`` does: FSDP's layers
+gathered one at a time (``tp.layer_sources``, inside ``tp.checkpoint``
+under remat) and, under sequence parallelism, the residual stream the
+rank's slice of the sequence, gathered before ``in_proj`` and
+reduce-scattered after ``out_proj`` while the conv and the scan run on the
+whole sequence.
 """
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import tp
 from repro_torch.models import ssm
 from repro_torch.models.layers import rmsnorm
-from repro_torch.models.transformer import unstack_layers
+from repro_torch.models.transformer import _embed, _head, unstack_layers
 
 
-def _embed(params, tokens, cfg):
-    return params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
-
-
-def _head(params, x, cfg):
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["lm_head"]
-
-
-def _layer(lp, x, cfg):
+def mamba_layer(lp, x, cfg, *, sp: bool = False):
+    """Pre-norm Mamba2 block with its residual (``sp``: ``x`` is the
+    rank's sequence slice, the norm applied to it)."""
+    norm = tp.enter(lp["norm"], "norm") if sp else lp["norm"]
     return x + ssm.mamba_forward(lp["mamba"],
-                                 rmsnorm(x, lp["norm"], cfg.norm_eps), cfg)
+                                 rmsnorm(x, norm, cfg.norm_eps), cfg, sp=sp)
 
 
 def forward(params, batch, cfg, *, remat: bool = False, **_):
     """batch: {"tokens": (B,S) int}. Returns (logits (B,S,V), aux=0).
-    ``remat=True`` wraps each layer in ``torch.utils.checkpoint`` (the
-    reference's ``jax.checkpoint`` of the scan body)."""
-    tp.check_training("mamba_lm.forward", tp.FAMILY_STEP)
-    x = _embed(params, batch["tokens"], cfg)
-    for lp in unstack_layers(params, cfg.num_layers):
-        if remat:
-            x = checkpoint(lambda y, lp=lp: _layer(lp, y, cfg), x,
-                           use_reentrant=False)
-        else:
-            x = _layer(lp, x, cfg)
+    ``remat=True`` wraps each layer in ``tp.checkpoint`` (the reference's
+    ``jax.checkpoint`` of the scan body). Under a rank each rank runs its
+    shards (module docstring)."""
+    sp = tp.seq_parallel(batch["tokens"].shape[1])
+    x = _embed(params, batch["tokens"], cfg, sp=sp)
+    for layer in tp.layer_sources(params["layers"], cfg.num_layers,
+                                  "layers"):
+        def run(y, layer=layer):
+            return mamba_layer(layer(), y, cfg, sp=sp)
+        x = tp.checkpoint(run, x) if remat else run(x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _head(params, x, cfg), aux
+    return _head(params, x, cfg, sp=sp), aux
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None):
     """Zero states for ``batch`` rows (``max_len`` is unused: the state
-    does not grow with the context)."""
+    does not grow with the context); under a live rank its heads'."""
     dtype = dtype or getattr(torch, cfg.dtype)
     one = ssm.init_mamba_cache(cfg, batch, dtype, device)
     return {"ssm": {k: torch.zeros((cfg.num_layers,) + tuple(v.shape),

@@ -167,8 +167,7 @@ def _check_unsharded(what: str):
     if r is not None and r.tp > 1:
         raise NotImplementedError(
             f"{what} under a tensor-parallel rank waits for ROADMAP.md "
-            "Queue 1 item 11, the step 'the SSM family, the hybrid and "
-            "the VLM under a mesh'")
+            f"Queue 1 item 11, step {tp.FAMILY_STEP}")
 
 
 def prefill(params, batch, cfg, cache, *, attn_impl: str = "auto"):

@@ -26,7 +26,8 @@ the reference computes on the global arrays:
   ``opt_state_pspecs`` lays them out;
 * ``clip_by_global_norm`` takes the norm of the global gradient: each
   block's sum of squares summed over the axes that split it (a leaf
-  replicated on an axis counted once);
+  replicated on an axis counted once, and so are the ``B``/``C`` columns
+  a Mamba2 block keeps whole on every rank: ``tp.once``);
 * each rank updates its block; where the param is not itself split over
   "data", the new param is assembled over "data" by a zero-filled sum
   (``"zero_params"``);
@@ -101,9 +102,9 @@ def clip_by_global_norm(grads, max_norm: float, rank=None):
     else:
         by_axes = {}
         for key, g in flat.items():
-            axes = _split_axes(rank.leaves[key].update, rank)
-            by_axes.setdefault(axes, []).append(
-                torch.sum(torch.square(g.float())))
+            spec = rank.leaves[key].update
+            by_axes.setdefault(_split_axes(spec, rank), []).append(
+                torch.sum(torch.square(tp.once(g.float(), spec, rank))))
         groups = sorted(by_axes)
         sums = torch.stack([sum(by_axes[a]) for a in groups])
         for axis in ("model", "data"):
@@ -277,8 +278,8 @@ def _adafactor_blocks(grads, state, params, rank, *, lr, beta, eps,
         nd = len(shape)
         if _factored_dims(shape) is not None:
             rows_spec, cols_spec = u_spec[:-1], u_spec[:-2] + u_spec[-1:]
-            row = _global_sum(g2.sum(-1), u_spec, rank, [nd - 1],
-                              "adafactor_stats") / shape[-1]
+            row = _global_sum(tp.once(g2, u_spec, rank).sum(-1), u_spec,
+                              rank, [nd - 1], "adafactor_stats") / shape[-1]
             col = _global_sum(g2.sum(-2), u_spec, rank, [nd - 2],
                               "adafactor_stats") / shape[-2]
             vr_new = beta * _reblock(vr, rs, rows_spec, rank) \
@@ -295,8 +296,8 @@ def _adafactor_blocks(grads, state, params, rank, *, lr, beta, eps,
         else:
             vr.copy_(beta * vr + (1 - beta) * g2)
             u = g * torch.rsqrt(vr + eps)
-        ss = _global_sum(torch.sum(u * u).reshape(1), u_spec, rank,
-                         None, "adafactor_stats")[0]
+        ss = _global_sum(torch.sum(tp.once(u * u, u_spec, rank)).reshape(1),
+                         u_spec, rank, None, "adafactor_stats")[0]
         rms_u = torch.sqrt(ss / math.prod(shape) + eps)
         u = u / torch.clamp(rms_u / clip_threshold, min=1.0)
         p32 = tp.zero_block(p, lb, rank).float()

@@ -332,7 +332,10 @@ def from_numpy(flat: Dict[str, np.ndarray], cfg, device="cuda",
     keys) -> the port's tree on ``device``. Total: every JAX leaf is
     consumed and every port parameter filled, with shapes and dtypes
     checked — anything else raises. ``shard=(strategy, mesh)`` puts only
-    this rank's block of each leaf on the device, a leaf at a time."""
+    this rank's block of each leaf on the device, a leaf at a time (a
+    Mamba2 block's ``in_proj`` and conv laid out by head: the rank's
+    columns of ``z``, ``x`` and ``dt`` with all of ``B`` and ``C``,
+    ``core/tp.py::Segmented``)."""
     spec = param_spec(cfg)
     missing = sorted(set(spec) - set(flat))
     extra = sorted(set(flat) - set(spec))

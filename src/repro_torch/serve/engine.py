@@ -131,7 +131,7 @@ page bucket).
 
 **Tensor-parallel serving** (``mesh=``, a ("data", "model") = (1, tp)
 ``DeviceMesh``; ``Session.serve(tp=)`` builds it), for dense and MoE
-decoders and the enc-dec audio family. The reference runs its programs
+decoders, the enc-dec audio family, the SSM family and the hybrid. The reference runs its programs
 GSPMD-sharded from one controller; the port runs one process a rank
 (``torchrun``), each with this engine over its own shards
 (``core/tp.py``): the Megatron layout of ``core/sharding.py`` with heads
@@ -141,9 +141,13 @@ decoder then hold the rank's sequence slice of every row where the
 rows' length divides tp, decoded by the context-parallel branch of
 ``transformer.decode_step``, as the reference's ``cache_pspecs`` lays
 them out), d_ff/tp of the MLP, E/tp of an MoE
-layer's experts (models/moe.py) and V/tp of the vocabulary — and one
+layer's experts (models/moe.py), H/tp whole heads of a Mamba2 block
+(its ``in_proj`` and conv by head with all of B and C, its states and
+conv tails the rank's: models/ssm.py) and V/tp of the vocabulary — and one
 all-reduce after ``wo``, one after ``w_down`` (an MoE layer: one over its
-experts' slots, ``"moe_out"``), one for the embedding and one to
+experts' slots, ``"moe_out"``; a Mamba layer: one after ``out_proj``,
+``"ssm_out"``, and one for its gated norm, ``"ssm_norm"``), one for the
+embedding and one to
 assemble the logits. An enc-dec engine runs each admission's encoder on
 the rank's shards too, and its cross K/V blocks hold the rank's heads.
 The kernels run at the rank's shapes, checked at construction. Every
@@ -161,10 +165,9 @@ its collectives on the row's "model" group (serve/parallel.py's
 ``ReplicaRouter`` routes across the rows). The online driver
 (serve/driver.py) serves such an engine from rank 0, broadcasting its
 host events to every rank before each step; under it ``abort_event`` is
-the pass's copy of the abort, the same on every rank. The SSM family,
-the hybrid and the VLM on a mesh and TP-in-expert
-(``Strategy(expert_parallel=False)``) raise ``NotImplementedError``
-naming ROADMAP.md Queue 1 item 11.
+the pass's copy of the abort, the same on every rank. The VLM on a mesh
+and TP-in-expert (``Strategy(expert_parallel=False)``) raise
+``NotImplementedError`` naming ROADMAP.md Queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -199,7 +202,13 @@ from repro_torch.serve.tracing import (NULL_STEP, Tracer, chrome_trace,
 #: the reference's ``PAGEABLE_ARCHS``
 PAGEABLE_ARCHS = ("dense", "moe", "audio")
 #: families a mesh serves (``ServeEngine(mesh=)``)
-MESH_ARCHS = ("dense", "moe", "audio")
+MESH_ARCHS = ("dense", "moe", "audio", "ssm", "hybrid")
+
+
+def _tree_bytes(tree) -> int:
+    """Bytes of the tensors of a nested dict."""
+    return sum(_tree_bytes(v) if isinstance(v, dict)
+               else v.numel() * v.element_size() for v in tree.values())
 
 
 def _todo(what: str, item: str):
@@ -395,6 +404,12 @@ class ServeEngine:
             with tp.active(self._rank):
                 self._cache = transformer.init_cache(
                     cfg, slots, max_len, device=self.device, cp=False)
+        elif cfg.arch_type in ("ssm", "hybrid"):
+            # the rank's H / tp heads of every state and conv tail, and the
+            # hybrid's dense rows by tp.cache_rows
+            with tp.active(self._rank):
+                self._cache = self.model.init_cache(cfg, slots, max_len,
+                                                    device=self.device)
         else:
             self._cache = self.model.init_cache(self._cache_cfg, slots,
                                                 max_len, device=self.device)
@@ -441,13 +456,15 @@ class ServeEngine:
         MoE layer and the enc-dec family's plain-GeLU MLP run none), the
         SSD scan in every SSM and hybrid prefill. Under a mesh the
         kernels see the rank's shapes: its query heads, the K/V heads they
-        read and its d_ff / tp."""
+        read, its d_ff / tp and its SSD heads H / tp."""
         cfg = self.cfg
         hq, hkv, d_ff = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
+        ssm_heads = cfg.ssm_heads
         r = getattr(self, "_rank", None)      # None: unsharded
         if r is not None:
             hq, d_ff = r.heads, d_ff // r.tp
             hkv = r.kv_heads if r.kv_read is None else 1
+            ssm_heads //= r.tp
         checks = []
         if self.paged:
             checks.append(("the paged KV layout runs the paged-attention "
@@ -458,7 +475,7 @@ class ServeEngine:
         if cfg.arch_type in ("ssm", "hybrid"):
             checks.append(("every prefill runs the SSD-scan kernel in each "
                            "Mamba layer", "", ssd_scan.kernel_limits(
-                               cfg.dtype, cfg.ssm_heads, cfg.ssm_head_dim,
+                               cfg.dtype, ssm_heads, cfg.ssm_head_dim,
                                cfg.ssm_state, cfg.ssm_chunk)))
         if cfg.arch_type in ("dense", "moe", "hybrid", "vlm") \
                 and not self.mixed:
@@ -529,8 +546,16 @@ class ServeEngine:
         (``xkv``), the SSM states and conv tails (cursors and the page
         table excluded). Under a mesh: the rank's bytes times tp where the
         K/V heads or the dense rows' sequence are sharded, the rank's where
-        they are replicated."""
+        they are replicated; for the SSM family and the hybrid the bytes
+        of the unsharded cache (each rank's conv tails hold all of B and
+        C)."""
         r = self._rank
+        if r is not None and self.cfg.arch_type in ("ssm", "hybrid"):
+            with tp.active(None):
+                full = self.model.init_cache(self.cfg, self.slots,
+                                             self.max_len, device="meta")
+            return _tree_bytes({k: v for k, v in full.items()
+                                if k != "pos"})
         split = r is not None and (r.kv_sharded or "kv_slice" in self._cache)
         return self.per_device_kv_bytes() * (r.tp if split else 1)
 
@@ -539,12 +564,8 @@ class ServeEngine:
         :meth:`kv_bytes` where the K/V heads divide the model axis or the
         dense rows are the rank's sequence slice; equal to it
         unsharded."""
-        def size(tree):
-            return sum(size(v) if isinstance(v, dict)
-                       else v.numel() * v.element_size()
-                       for v in tree.values())
-        return size({k: v for k, v in self._cache.items()
-                     if k not in ("pos", "ptab", "kv_slice")})
+        return _tree_bytes({k: v for k, v in self._cache.items()
+                            if k not in ("pos", "ptab", "kv_slice")})
 
     # -------------------------------------------------------- the program
     def _mixed_fn(self, tokens, pos, slot, active, wnull):

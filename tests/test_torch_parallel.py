@@ -25,7 +25,12 @@ meshes (1, 4) and (2, 2) (tests/test_torch_tp.py's ``cp_rank``; at (2,
 also serve tests/test_serve_online.py's dp 2 case online: the driver on
 every rank over a dp 2 x tp 2 router, rank 0 taking the requests, its
 streams held to the JAX engine's batch and its routing to the lockstep
-router's.
+router's. The SSM family serves there too (tests/test_serve_engine.py's
+``SSM_CFG`` over the dp 2 x tp 2 router, a Mamba2 block split by whole
+heads: the JAX engine's batch streams), and the lockstep SSM and hybrid
+decode of tests/test_torch_tp.py's ``ssm_model_rank`` runs on (1, 4):
+the reference's ``test_decode_sharded_equals_reference`` logits within
+5e-4, the states of the rank's one head.
 """
 import numpy as np
 import pytest
@@ -40,8 +45,9 @@ from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve.parallel import (ReplicaRouter,  # noqa: E402
                                         replica_meshes)
 from test_torch_tp import (ONLINE_ENG, ONLINE_KW, ONLINE_RUNS,  # noqa: E402
-                           _flat, _jax_cp_params, check_cp_rank, cp_rank,
-                           jax_online)
+                           SSM_KW, _flat, _jax_cp_params,
+                           check_cp_rank, check_ssm_model_rank, cp_rank,
+                           jax_online, ssm_flats, ssm_model_rank)
 
 #: the context-parallel decode's meshes on the four ranks
 CP_MESHES = ((1, 4), (2, 2))
@@ -56,7 +62,10 @@ AUDIO_KW = dict(name="par-encdec", arch_type="audio", num_layers=2,
                 d_model=64, num_heads=4, num_kv_heads=4, d_ff=128,
                 vocab_size=128, encoder_layers=1, encoder_ctx=12,
                 dtype="float32")
-SEEDS = {"par-dense": 0, "par-encdec": 2, "online-dense": 0}
+SEEDS = {"par-dense": 0, "par-encdec": 2, "online-dense": 0,
+         "engine-ssm": 4}
+#: tests/test_serve_engine.py::test_engine_ssm_matches_sequential's engine
+SSM_ENG = dict(slots=2, max_len=64)
 ENG = dict(slots=2, max_len=64, paged=True)
 CPU2 = ["cpu"] * 2
 
@@ -330,7 +339,7 @@ def _online_router_rank(flat):
 
 
 def _topology_rank(rank, world, flat, prompts, spec_prompts, cp_flat,
-                   online_flat):
+                   online_flat, ssm):
     """One rank of the dp 2 x tp 2 runs: the router over a (2, 2) mesh
     on the engine keywords of the reference's test, with spec on, through
     ``Session.serve(dp=2, tp=2)`` and through the launcher; then the CP
@@ -369,6 +378,16 @@ def _topology_rank(rank, world, flat, prompts, spec_prompts, cp_flat,
          "--max-new", "4"]).items()}
     out["cp"] = {shape: cp_rank(shape, cp_flat) for shape in CP_MESHES}
     out["online"] = _online_router_rank(online_flat)
+    ssm_cfg = ModelConfig(**SSM_KW)
+    router = ReplicaRouter(ssm_cfg, from_numpy(ssm["flat"], ssm_cfg, "cpu"),
+                           dp=2, tp=2, **SSM_ENG)
+    homes, streams, res = _run(router, ssm["prompts"], 5)
+    out["ssm_router"] = {"streams": streams, "homes": homes,
+                         "done": all(r.done for r in res.values()),
+                         "traces": [r["decode_traces"]
+                                    for r in router.stats["replicas"]],
+                         "counts": dict(router.engines[0]._rank.counts)}
+    out["ssm"] = ssm_model_rank((1, world), ssm["lockstep"])
     return out
 
 
@@ -385,9 +404,12 @@ def topology(tmp_path_factory):
                             .astype(np.int32))
     _jax_params(KW)
     flat = _JAX[KW["name"]][2]
+    _jax_params(SSM_KW)
+    ssm = {"flat": _JAX[SSM_KW["name"]][2], "prompts": SSM_PROMPTS,
+           "lockstep": ssm_flats()}
     ranks = run_ranks(_topology_rank, 4,
                       args=(flat, prompts, spec_prompts,
-                            _jax_cp_params()[2], _flat(ONLINE_KW)),
+                            _jax_cp_params()[2], _flat(ONLINE_KW), ssm),
                       store_dir=str(tmp_path_factory.mktemp("dp2tp2")),
                       timeout=RANK_TIMEOUT)
     return prompts, spec_prompts, ranks
@@ -458,6 +480,40 @@ def test_cp_decode_on_four_ranks_matches_jax(topology, shape):
         check_cp_rank(r["cp"][shape], shape)
     if shape == (2, 2):
         assert sorted(r["cp"][shape]["row"] for r in ranks) == [0, 0, 1, 1]
+
+
+#: tests/test_serve_engine.py::test_engine_ssm_matches_sequential's
+#: prompts and one more, so both replicas take two
+SSM_PROMPTS = _prompts(4, (5, 9, 6, 7))
+
+
+def test_dp2_tp2_ssm_router_matches_jax_batch(topology):
+    """The SSM family over the dp 2 x tp 2 router on four gloo ranks: on
+    every rank the union of the streams equals the JAX engine's batch run
+    of the same requests, both replicas served, one decode program shape
+    each; one ``ssm_out`` and one ``ssm_norm`` sum a Mamba layer a
+    program on the replica's row."""
+    _, _, ranks = topology
+    want = _jax_streams(SSM_KW, SSM_PROMPTS, 5, **SSM_ENG)
+    for r in ranks:
+        run = r["ssm_router"]
+        assert run["done"] and run["streams"] == want
+        assert sorted(set(run["homes"])) == [0, 1]
+        assert run["traces"] == [1, 1]
+        assert run["counts"]["ssm_out"] == run["counts"]["ssm_norm"] > 0
+        assert run["counts"]["ssm_out"] % SSM_KW["num_layers"] == 0
+
+
+def test_ssm_decode_on_four_ranks_matches_jax(topology):
+    """tests/test_parallel_equivalence.py::test_decode_sharded_equals_
+    reference on (1, 4) for the mamba2 and zamba2 smokes (one SSD head a
+    rank), and a prefill and decode steps after it: logits within its
+    5e-4, the states and conv tails JAX's for the rank's head."""
+    _, _, ranks = topology
+    for r in ranks:
+        check_ssm_model_rank(r["ssm"])
+    assert sorted(r["ssm"]["zamba2-1.2b"]["model_rank"]
+                  for r in ranks) == [0, 1, 2, 3]
 
 
 #: the collectives every process of a dp x tp router issues (the row

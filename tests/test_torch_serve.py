@@ -465,19 +465,19 @@ def test_submit_validation_and_backpressure(weights):
 
 @pytest.mark.parametrize("kw,item", [
     ({"planner": ("from_plan", "dryrun", "lower")}, "item 12"),
-    ({"mesh": object(), "arch_type": "ssm"}, "item 11")])
+    ({"mesh": object(), "cfg": dict(arch_type="vlm", cross_attn_every=1,
+                                    num_image_tokens=4)}, "item 11")])
 def test_unported_engine_features_raise(weights, kw, item):
     """What is still missing raises naming its ROADMAP.md item: a mesh on
-    an engine of a family the mesh does not serve yet, the SSM family
-    (tensor-parallel serving of dense and MoE decoders and the enc-dec
-    family is ported: tests/test_torch_tp.py), and the Session entry
-    points that need the planner (speculative decode, the earlier case
-    here, is ported)."""
+    an engine of a family the mesh does not serve yet, the VLM
+    (tensor-parallel serving of dense and MoE decoders, the enc-dec
+    family, the SSM family and the hybrid is ported:
+    tests/test_torch_tp.py), and the Session entry points that need the
+    planner (speculative decode, the earlier case here, is ported)."""
     _, _, params = weights
     cfg = CFG
-    if "arch_type" in kw:
-        cfg = CFG.with_(arch_type=kw.pop("arch_type"), ssm_heads=4,
-                        ssm_head_dim=16, ssm_state=8, ssm_chunk=16)
+    if "cfg" in kw:
+        cfg = CFG.with_(**kw.pop("cfg"))
         params = init_params(cfg, device="cpu", seed=0)
     calls = [lambda: ServeEngine(cfg, params, **kw)]
     if "planner" in kw:

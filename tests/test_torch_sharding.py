@@ -215,3 +215,94 @@ def test_logical_to_spec_reads_the_active_rules():
         assert tuple(pspec.logical_to_spec(logical)) == tuple(want)
         assert pspec._mesh() == axes
     assert pspec._rules() is None and pspec._mesh() is None
+
+
+# ------------------------------------------- Mamba2 blocks laid out by head
+
+@pytest.mark.parametrize("name", ["mamba2-780m", "zamba2-1.2b"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_mamba_blocks_by_head_reassemble(name, shape):
+    """The table still splits ``in_proj`` / ``conv_w`` / ``conv_b``
+    contiguously, as the reference's does (``param_pspecs``); the port's
+    rank spec (``core/tp.py::rank_pspecs``) lays the dim out by head: each
+    rank's block is ``[z_r | x_r | B | C | dt_r]`` (the conv ``[x_r | B |
+    C]``) of the full leaf, and the blocks of the ranks along "model"
+    reassemble it: z, x and dt in rank order, B and C once."""
+    from repro_torch.configs import get_smoke as port_smoke
+    from repro_torch.core import tp
+    from repro_torch.params import full_shapes
+    cfg = port_smoke(name)
+    data, model = shape
+    axes = {"data": data, "model": model}
+    st = Strategy()
+    specs = tp.leaf_specs(full_shapes(cfg), st, axes, cfg)
+    from repro_torch.tree import flatten, unflatten
+    table = flatten(shd.param_pspecs(unflatten(
+        {k: tp.Shape(s) for k, s in full_shapes(cfg).items()}), st, axes))
+    din, n, h = cfg.ssm_heads * cfg.ssm_head_dim, cfg.ssm_state, \
+        cfg.ssm_heads
+    for key, full in full_shapes(cfg).items():
+        leaf = key.rsplit("/", 1)[-1]
+        if leaf not in tp.SEGMENTED_LEAVES:
+            continue
+        assert tuple(table[key])[-1] == "model"      # the flat split
+        spec = specs[key]
+        assert isinstance(spec[-1], tp.Segmented)
+        x = torch.arange(int(np.prod(full)), dtype=torch.float64) \
+            .reshape(full)
+        blocks = [tp.shard_leaf(x, spec, axes, {"data": 0, "model": r})
+                  for r in range(model)]
+        hr, dr = h // model, din // model
+        for r, b in enumerate(blocks):
+            assert b.shape == tp.local_shape(full, spec, axes)
+            if leaf == "in_proj":
+                parts = [x[..., r * dr:(r + 1) * dr],
+                         x[..., din + r * dr:din + (r + 1) * dr],
+                         x[..., 2 * din:2 * din + 2 * n],
+                         x[..., 2 * din + 2 * n + r * hr:
+                           2 * din + 2 * n + (r + 1) * hr]]
+            else:
+                parts = [x[..., r * dr:(r + 1) * dr], x[..., din:]]
+            assert torch.equal(b, torch.cat(parts, dim=-1)), (key, r)
+        # reassembled: each rank's split segments at its offsets, the
+        # replicated ones from the first rank
+        got = torch.zeros_like(x)
+        for r, b in enumerate(blocks):
+            at = 0
+            for start, length, split in spec[-1].runs(model, r):
+                if split or r == 0:
+                    got[..., start:start + length] = b[..., at:at + length]
+                at += length
+        assert torch.equal(got, x), key
+
+
+@pytest.mark.parametrize("model", [2, 4])
+def test_once_counts_replicated_segments_once(model):
+    """``core/tp.py::once``: summed over the ranks of "model", the squares
+    of each rank's ``in_proj`` block with its B/C columns zeroed on every
+    rank but the first equal the full leaf's (the global grad norm and
+    Adafactor's sums); the blocks as they are count B and C once a
+    rank."""
+    from repro_torch.configs import get_smoke as port_smoke
+    from repro_torch.core import tp
+    cfg = port_smoke("mamba2-780m")
+    seg = tp.Segmented("model", tp.ssm_segments(cfg, "in_proj"))
+    spec = P(None, None, seg)
+    axes = {"model": model}
+    width = sum(n for n, _ in seg.segments)
+    x = torch.randn((2, 8, width), dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(0))
+    once, plain = 0.0, 0.0
+    for r in range(model):
+        rank = tp.Rank(tp=model, rank=r, group=None, root=0, heads=0,
+                       kv_heads=0, kv_read=None, axes=axes)
+        block = tp.shard_leaf(x, spec, axes, {"model": r})
+        kept = block.clone()
+        once += float((tp.once(block, spec, rank) ** 2).sum())
+        plain += float((block ** 2).sum())
+        assert torch.equal(block, kept)          # the block is not changed
+    din, n = cfg.ssm_heads * cfg.ssm_head_dim, cfg.ssm_state
+    bc = float((x[..., 2 * din:2 * din + 2 * n] ** 2).sum())
+    assert once == pytest.approx(float((x ** 2).sum()), rel=1e-12)
+    assert plain == pytest.approx(float((x ** 2).sum()) + (model - 1) * bc,
+                                  rel=1e-12)

@@ -32,8 +32,16 @@ MoE config (``MOE_KW``: E 4 over tp 2,
 two experts a rank, and ``MOE_E3_KW``: E 3, which the table keeps whole
 on both ranks) and the enc-dec config (``AUDIO_KW``, frames with each
 request) are the reference's ``MOE_CFG`` and ``AUDIO_CFG``
-(tests/test_serve_parallel.py:23-31) at its seeds. Each JAX run is made
-once and shared.
+(tests/test_serve_parallel.py:23-31) at its seeds. The SSM family
+(tests/test_serve_engine.py's ``SSM_CFG`` at its seed) and the hybrid
+(the zamba2 smoke in f32) serve on the same spawn, a Mamba2 block split by
+whole heads: the JAX engine's streams and counters, one ``ssm_out`` and
+one ``ssm_norm`` sum a Mamba layer a program, half the states a rank;
+and the reference's ``test_decode_sharded_equals_reference`` runs on
+(1, 2) for both smokes (``ssm_model_rank``: ``decode_step`` from a zero
+cache and after a prefill within its 5e-4, the prefill's states the JAX
+states of the rank's heads and its conv tails JAX's ``[x_r | B | C]``
+channels). Each JAX run is made once and shared.
 
 This module imports JAX and the reference only inside functions: the
 ranks import it by name to find their entry points.
@@ -43,6 +51,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.core import tp  # noqa: E402
 from repro_torch.core.strategy import Strategy  # noqa: E402
@@ -73,8 +82,18 @@ AUDIO_KW = dict(name="par-encdec", arch_type="audio", num_layers=2,
                 d_model=64, num_heads=4, num_kv_heads=4, d_ff=128,
                 vocab_size=128, encoder_layers=1, encoder_ctx=12,
                 dtype="float32")
+#: tests/test_serve_engine.py's SSM_CFG, and the hybrid's smoke in f32
+SSM_KW = dict(name="engine-ssm", arch_type="ssm", num_layers=2, d_model=64,
+              num_heads=0, num_kv_heads=0, d_ff=128, ssm_state=16,
+              ssm_heads=4, ssm_head_dim=16, vocab_size=128, dtype="float32")
+ZAMBA_KW = dict(get_smoke("zamba2-1.2b").with_(dtype="float32").__dict__)
+#: the hybrid with one KV head: at tp 2 its dense rows hold each rank's
+#: sequence slice (the reference's ``cache_pspecs``), decoded
+#: context-parallel
+ZAMBA_KV1_KW = dict(ZAMBA_KW, name="zamba2-smoke-kv1", num_kv_heads=1)
 #: each config's init seed (the reference tests' own)
-SEEDS = {"par-moe": 5, "par-moe-e3": 5, "par-encdec": 2}
+SEEDS = {"par-moe": 5, "par-moe-e3": 5, "par-encdec": 2, "engine-ssm": 4,
+         "zamba2-smoke": 4, "zamba2-smoke-kv1": 4}
 
 COUNTERS = ("prefills", "decode_tokens", "decode_steps", "peak_pages",
             "decode_traces", "prefill_traces", "prefix_hit_blocks",
@@ -83,9 +102,10 @@ COUNTERS = ("prefills", "decode_tokens", "decode_steps", "peak_pages",
             "spec_drafted", "spec_accepted")
 
 
-def _prompts(seed, lens):
+def _prompts(seed, lens, vocab=128):
     rng = np.random.default_rng(seed)
-    return [rng.integers(0, 128, size=(n,)).astype(np.int32) for n in lens]
+    return [rng.integers(0, vocab, size=(n,)).astype(np.int32)
+            for n in lens]
 
 
 def _shared_prefix():
@@ -200,6 +220,14 @@ FAMILY_RUNS = {
                     dict(slots=2, max_len=32, paged=True)),
     "audio_split": (AUDIO_KW, _AUDIO[0], _AUDIO[1], 5,
                     dict(slots=2, max_len=32, paged=True, mixed=False)),
+    # tests/test_serve_engine.py::test_engine_ssm_matches_sequential's
+    # run, and the hybrid smoke's on the same engine keywords
+    "ssm": (SSM_KW, _prompts(4, (5, 9, 6)), None, 5,
+            dict(slots=2, max_len=64)),
+    "hybrid": (ZAMBA_KW, _prompts(9, (5, 9, 6), vocab=512), None, 5,
+               dict(slots=2, max_len=64)),
+    "hybrid_kv1": (ZAMBA_KV1_KW, _prompts(9, (5, 9, 6), vocab=512), None,
+                   5, dict(slots=2, max_len=64)),
 }
 
 
@@ -465,6 +493,159 @@ def _cp_extra_rank(world, flat):
             "greedy": streams.numpy(), "greedy_counts": dict(view.counts)}
 
 
+# ------------------------------------ the SSM family and the hybrid, lockstep
+
+#: tests/test_parallel_equivalence.py::test_decode_sharded_equals_reference
+#: (B 4, a cache of S 32, one decode step at position 0 from a zero cache,
+#: key 1 for the init and the token, atol = rtol 5e-4) for both smokes;
+#: and a 32-token prefill (one chunk) of ``SSM_TOKS`` then ``SSM_STEPS``
+#: decode steps
+SSM_ARCHS = ("mamba2-780m", "zamba2-1.2b")
+SSM_B, SSM_S, SSM_STEPS = 4, 32, 3
+SSM_TOL = 5e-4
+SSM_TOKS = np.random.default_rng(30).integers(
+    0, 512, size=(SSM_B, SSM_S + SSM_STEPS)).astype(np.int32)
+
+
+def _ssm_cfg(arch, jax=False):
+    if jax:
+        from repro.configs import get_smoke as smoke
+    else:
+        smoke = get_smoke
+    return smoke(arch).with_(dtype="float32")
+
+
+def _np_tree(tree, prefix=""):
+    """A nested dict of arrays flattened to numpy by "/"-joined keys."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_np_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def jax_ssm(arch):
+    """The reference's lockstep run of ``arch``'s smoke: (its init at key 1
+    flattened, the token, the zero-cache decode logits, the prefill's
+    cache leaves, the decode logits after it), made once."""
+    key = ("ssm", arch)
+    if key not in _JAX:
+        import jax
+        import jax.numpy as jnp
+        from repro.checkpoint.io import _flatten
+        from repro.models import get_model
+        jcfg = _ssm_cfg(arch, jax=True)
+        mod = get_model(jcfg)
+        k = jax.random.key(1)
+        jp = mod.init(k, jcfg)
+        tok = jax.random.randint(k, (SSM_B, 1), 0, jcfg.vocab_size)
+        zero, _ = mod.decode_step(jp, mod.init_cache(jcfg, SSM_B, SSM_S),
+                                  tok, jnp.asarray(0, jnp.int32), jcfg)
+        toks = jnp.asarray(SSM_TOKS)
+        _, c = mod.prefill(jp, {"tokens": toks[:, :SSM_S]}, jcfg,
+                           mod.init_cache(jcfg, SSM_B, SSM_S + SSM_STEPS))
+        leaves = _np_tree(c)
+        steps = []
+        for pos in range(SSM_S, SSM_S + SSM_STEPS):
+            lg, c = mod.decode_step(jp, c, toks[:, pos:pos + 1],
+                                    jnp.asarray(pos, jnp.int32), jcfg)
+            steps.append(np.asarray(lg))
+        _JAX[key] = ({k: np.asarray(v) for k, v in _flatten(jp).items()},
+                     np.asarray(tok), np.asarray(zero), leaves, steps)
+    return _JAX[key]
+
+
+def ssm_flats():
+    """What ``ssm_model_rank`` takes: each arch's (flat params, token)."""
+    return {a: jax_ssm(a)[:2] for a in SSM_ARCHS}
+
+
+def ssm_model_rank(mesh_shape, flats):
+    """The lockstep SSM and hybrid runs on a ``mesh_shape`` ("data",
+    "model") CPU mesh from the rank's shards (``from_numpy(shard=)``):
+    the zero-cache decode logits, the prefill's cache leaves and
+    collectives, each later decode step's logits and the last one's
+    collectives."""
+    from repro_torch.models import get_model
+    from repro_torch.tree import flatten
+    mesh = make_mesh(tuple(mesh_shape), ("data", "model"),
+                     device_type="cpu")
+    out = {}
+    for arch in SSM_ARCHS:
+        cfg = _ssm_cfg(arch)
+        flat, tok = flats[arch]
+        mod = get_model(cfg)
+        params = from_numpy(flat, cfg, "cpu",
+                            shard=(Strategy(dtype=cfg.dtype), mesh))
+        view = tp.Rank.of(mesh, cfg)
+        t = torch.from_numpy(SSM_TOKS)
+        with tp.active(view):
+            zero, _ = mod.decode_step(params,
+                                      mod.init_cache(cfg, SSM_B, SSM_S),
+                                      torch.from_numpy(tok), 0, cfg)
+            view.counts.clear()
+            cache = mod.init_cache(cfg, SSM_B, SSM_S + SSM_STEPS)
+            mod.prefill(params, {"tokens": t[:, :SSM_S]}, cfg, cache)
+            prefill = dict(view.counts)
+            leaves = {k: v.numpy().copy() for k, v in flatten(cache).items()
+                      if k != "pos"}
+            steps = []
+            for pos in range(SSM_S, SSM_S + SSM_STEPS):
+                view.counts.clear()
+                lg, cache = mod.decode_step(params, cache,
+                                            t[:, pos:pos + 1], pos, cfg)
+                steps.append(lg.numpy())
+        out[arch] = {"zero": zero.numpy(), "leaves": leaves,
+                     "steps": steps, "counts": (prefill, dict(view.counts)),
+                     "model_rank": view.rank, "tp": view.tp}
+    return out
+
+
+def check_ssm_model_rank(got):
+    """One rank's ``ssm_model_rank`` against the reference: logits within
+    ``SSM_TOL``; the states JAX's for the rank's heads and the conv tails
+    JAX's ``[x_r | B | C]`` channels; one ``ssm_norm`` and one
+    ``ssm_out`` sum a Mamba layer (the hybrid: one ``attn_out`` and one
+    ``mlp_out`` a shared-block application) besides the embedding and the
+    logits, in a prefill and in a decode step — nothing else."""
+    for arch in SSM_ARCHS:
+        cfg = _ssm_cfg(arch)
+        _, _, zero, leaves, steps = jax_ssm(arch)
+        run = got[arch]
+        np.testing.assert_allclose(run["zero"], zero, atol=SSM_TOL,
+                                   rtol=SSM_TOL, err_msg=arch)
+        for i, want in enumerate(steps):
+            np.testing.assert_allclose(run["steps"][i], want, atol=SSM_TOL,
+                                       rtol=SSM_TOL, err_msg=f"{arch} {i}")
+        n, r = run["tp"], run["model_rank"]
+        h = cfg.ssm_heads // n
+        conv = tp.Segmented("model", tp.ssm_segments(cfg, "conv_b"))
+        chans = np.concatenate([np.arange(a, a + k)
+                                for a, k, _ in conv.runs(n, r)])
+        for key, leaf in run["leaves"].items():
+            want = leaves[key]
+            if key.endswith("/state"):
+                want = want[:, :, r * h:(r + 1) * h]
+            elif key.endswith("/conv"):
+                want = want[..., chans]
+            elif key.startswith("kv/"):
+                hk = leaf.shape[3]
+                want = want[:, :, :, r * hk:(r + 1) * hk]
+            assert leaf.shape == want.shape, (arch, key)
+            np.testing.assert_allclose(leaf, want, atol=SSM_TOL,
+                                       rtol=SSM_TOL, err_msg=f"{arch} {key}")
+        g, _ = cfg.hybrid_groups if cfg.arch_type == "hybrid" else (0, 0)
+        mamba = g * cfg.hybrid_attn_every if g else cfg.num_layers
+        want_counts = {"ssm_norm": mamba, "ssm_out": mamba, "embed": 1,
+                       "logits": 1}
+        if g:
+            want_counts.update(attn_out=g, mlp_out=g)
+        for counts in run["counts"]:
+            assert counts == want_counts, (arch, counts)
+
+
 # ------------------------------------------------------------- the ranks
 
 def _mesh(world):
@@ -516,10 +697,20 @@ def _family_rank(rank, world, flats, runs):
                      "stats": {k: eng.stats[k] for k in COUNTERS
                                + ("mixed_steps", "encode_traces")},
                      "per_device": eng.per_device_kv_bytes(),
+                     "kv_bytes": eng.kv_bytes(),
+                     "state_bytes": state_bytes(eng),
                      "experts": eng.params["layers"]["moe"]["w_up"].shape[1]
                      if cfg.is_moe else None,
                      "counts": dict(eng._rank.counts)}
     return out
+
+
+def state_bytes(eng) -> int:
+    """Bytes of an engine's SSM states (every ``state`` leaf)."""
+    from repro_torch.tree import flatten
+    return sum(v.numel() * v.element_size()
+               for k, v in flatten(eng._cache).items()
+               if k.endswith("/state"))
 
 
 def _logits_rank(rank, world, flats, toks):
@@ -610,6 +801,18 @@ def _session_rank(rank, world):
         except NotImplementedError as e:
             refused[family] = str(e)
     out["built"] = built
+    vlm = get_smoke("llama-3.2-vision-90b").with_(dtype="float32")
+    try:
+        ServeEngine(vlm, init_params(vlm, device="cpu", seed=0), mesh=mesh)
+    except NotImplementedError as e:
+        refused["vlm"] = str(e)
+    # SSD heads that do not split over the ranks
+    odd = cfg.with_(arch_type="ssm", ssm_heads=3, ssm_head_dim=16,
+                    ssm_state=8, ssm_chunk=16)
+    try:
+        ServeEngine(odd, init_params(odd, device="cpu", seed=0), mesh=mesh)
+    except ValueError as e:
+        refused["ssm_heads"] = str(e)
     moe = cfg.with_(arch_type="moe", num_experts=4, experts_per_token=2)
     try:
         ServeEngine(moe, init_params(moe, device="cpu", seed=0), mesh=mesh,
@@ -853,6 +1056,7 @@ def _all_ranks(rank, world, flats, runs, family_runs, toks):
     """Every case of this module on one rank: one spawn for all."""
     return {"engine": _engine_rank(rank, world, flats, runs),
             "family": _family_rank(rank, world, flats, family_runs),
+            "ssm": ssm_model_rank((1, world), flats["ssm"]),
             "logits": _logits_rank(rank, world, flats, toks),
             "session": _session_rank(rank, world),
             "cp": {p: cp_rank((1, world), flats["cp"], p)
@@ -867,8 +1071,10 @@ def spawned(tmp_path_factory):
     toks = np.random.default_rng(5).integers(0, 128, size=(2, 24)).astype(
         np.int32)
     flats = {kw["name"]: _flat(kw)
-             for kw in (KW, KW_KV1, MOE_KW, MOE_E3_KW, AUDIO_KW, ONLINE_KW)}
+             for kw in (KW, KW_KV1, MOE_KW, MOE_E3_KW, AUDIO_KW, ONLINE_KW,
+                        SSM_KW, ZAMBA_KW, ZAMBA_KV1_KW)}
     flats["cp"] = _jax_cp_params()[2]
+    flats["ssm"] = ssm_flats()
     return toks, run_ranks(_all_ranks, 2,
                            args=(flats, RUNS, FAMILY_RUNS, toks),
                            store_dir=str(tmp_path_factory.mktemp("tp")),
@@ -1059,21 +1265,25 @@ def test_tp2_forward_has_two_all_reduces_a_layer(model_runs):
 
 def test_tp_refusals(model_runs):
     """A mesh larger than the process group raises ValueError with the
-    count; MoE and audio engines build on a mesh, while an SSM engine,
-    TP-in-expert MoE (``expert_parallel=False``) and FSDP on a mesh raise
-    naming item 11; on a CUDA device a
+    count; MoE, audio and SSM engines build on a mesh, while a VLM
+    engine, TP-in-expert MoE (``expert_parallel=False``) and FSDP on a
+    mesh raise naming item 11; on a CUDA device a
     kernel that refuses a rank's shape refuses at construction; ranks
     that packed different programs raise on every rank (no hang);
     ``serve(dp=2)`` on the one CPU device raises the reference's "devices
-    needed" and ``serve(plan=)`` keeps its item."""
+    needed" and ``serve(plan=)`` keeps its item. An SSM engine builds on
+    the mesh; one whose SSD heads do not split over the ranks raises
+    ValueError naming the config."""
     from repro_torch.api import Session
     _, _, session = model_runs
     refused = session[0]["refused"]
     assert "needs 4 ranks" in refused["mesh"] and "has 2" in refused["mesh"]
-    for key in ("ssm", "tp_in_expert", "fsdp"):
+    for key in ("vlm", "tp_in_expert", "fsdp"):
         assert "item 11" in refused[key], key
     assert "moe" not in refused and "audio" not in refused
-    assert session[0]["built"] == {"moe": 2, "audio": 2}
+    assert "ssm" not in refused
+    assert session[0]["built"] == {"moe": 2, "audio": 2, "ssm": 2}
+    assert "3 SSD heads" in refused["ssm_heads"]
     assert "fused-MLP kernel" in refused["rank_shape"]
     assert "132" in refused["rank_shape"]
     for r in session:
@@ -1221,6 +1431,96 @@ def test_tp2_greedy_generate_cp_matches_jax(spawned):
     for r in spawned[1]:
         np.testing.assert_array_equal(r["cp_extra"]["greedy"], want)
         assert r["cp_extra"]["greedy_counts"]["tokens"] == CP_S - CP_PROMPT
+
+
+# -------------------------------------- the SSM family and the hybrid
+
+def _mamba_layers(kw):
+    cfg = ModelConfig(**kw)
+    if cfg.arch_type != "hybrid":
+        return cfg.num_layers, 0
+    g, _ = cfg.hybrid_groups
+    return g * cfg.hybrid_attn_every, g
+
+
+@pytest.mark.parametrize("name", ["ssm", "hybrid"])
+def test_tp2_ssm_engine_matches_jax_tp1(family_runs, name):
+    """tests/test_serve_engine.py::test_engine_ssm_matches_sequential's run
+    (and the hybrid smoke's) under tp 2, a Mamba2 block split by whole
+    heads: the JAX engine's streams and counters, one decode program
+    shape; one ``ssm_out`` and one ``ssm_norm`` sum a Mamba layer a
+    program (the hybrid: one ``attn_out`` and one ``mlp_out`` an
+    application of the shared block) and no other collective in a
+    layer."""
+    want, jstats, _ = _jax_family_run(name)
+    kw = FAMILY_RUNS[name][0]
+    mamba, groups = _mamba_layers(kw)
+    for run in family_runs:
+        r = run[name]
+        assert r["done"] and r["streams"] == want
+        for key in COUNTERS:
+            assert r["stats"][key] == jstats[key], key
+        assert r["stats"]["decode_traces"] == 1
+        programs = r["stats"]["prefills"] + r["stats"]["decode_steps"]
+        counts = r["counts"]
+        assert counts["ssm_out"] == counts["ssm_norm"] == mamba * programs
+        assert counts.get("attn_out", 0) == counts.get("mlp_out", 0) == \
+            groups * programs
+        assert counts["embed"] == counts["logits"] == programs
+        assert set(counts) <= {"ssm_out", "ssm_norm", "attn_out", "mlp_out",
+                               "embed", "logits", "tokens", "clock",
+                               "step_check"}, counts
+
+
+@pytest.mark.parametrize("name", ["ssm", "hybrid"])
+def test_tp2_ssm_engine_holds_half_the_states(family_runs, name):
+    """Each rank's SSM states are its H / 2 heads: half the unsharded
+    engine's state bytes; ``kv_bytes`` stays the unsharded engine's
+    (the conv tails keep all of B and C on each rank, so a rank holds
+    more than half of them)."""
+    from repro_torch.params import init_params
+    kw, _, _, _, ekw = FAMILY_RUNS[name]
+    cfg = ModelConfig(**kw)
+    one = ServeEngine(cfg, init_params(cfg, device="cpu", seed=0), **ekw)
+    for run in family_runs:
+        r = run[name]
+        assert r["state_bytes"] * 2 == state_bytes(one)
+        assert r["kv_bytes"] == one.kv_bytes()
+        assert one.kv_bytes() / 2 < r["per_device"] < one.kv_bytes()
+
+
+def test_tp2_hybrid_one_kv_head_decodes_context_parallel(family_runs):
+    """The hybrid with one KV head under tp 2: the shared block's dense
+    rows hold each rank's sequence slice with the one head (half the K/V
+    a rank), every decode step's attention is context-parallel (one
+    ``cp_qkv``, ``cp_max`` and ``cp_sum`` an application) and each
+    prefill assembles no K/V heads (both ranks compute the one head);
+    the JAX engine's streams."""
+    want, jstats, _ = _jax_family_run("hybrid_kv1")
+    kw = FAMILY_RUNS["hybrid_kv1"][0]
+    _, groups = _mamba_layers(kw)
+    for run in family_runs:
+        r = run["hybrid_kv1"]
+        assert r["done"] and r["streams"] == want
+        for key in COUNTERS:
+            assert r["stats"][key] == jstats[key], key
+        steps = r["stats"]["decode_steps"]
+        c = r["counts"]
+        assert {k: c[k] for k in ("cp_qkv", "cp_max", "cp_sum")} == \
+            dict.fromkeys(("cp_qkv", "cp_max", "cp_sum"), groups * steps)
+        assert "prefill_kv" not in c
+
+
+def test_tp2_ssm_decode_logits_and_states_match_jax(spawned):
+    """tests/test_parallel_equivalence.py::test_decode_sharded_equals_
+    reference on (1, 2) for the mamba2 and zamba2 smokes, and a prefill
+    and decode steps after it: logits within its 5e-4, the states and
+    conv tails the JAX ones of the rank's heads (``check_ssm_model_
+    rank``)."""
+    for r in spawned[1]:
+        check_ssm_model_rank(r["ssm"])
+    assert sorted(r["ssm"]["mamba2-780m"]["model_rank"]
+                  for r in spawned[1]) == [0, 1]
 
 
 # ------------------------------------------- the online driver over ranks

@@ -31,12 +31,21 @@ the JAX init's params through the weight bridge, on the global batch
   ``core/sharding.py``'s state specs (ZeRO-1 over "data"), smaller than
   the param blocks where they split.
 
+The SSM family (``mamba2-780m``, the reference test's third arch, at (2,
+2) with Megatron, +SP and +FSDP and at (1, 4); two Adafactor steps at
+(2, 2)) and the hybrid
+(``zamba2-1.2b`` at (2, 2)) train the same way, each rank holding a
+Mamba2 block of whole heads (``in_proj`` and the conv by head with all of
+B and C): the same bounds, and a checkpoint of their sharded trees equal
+to the unsharded tree leaf for leaf.
+
 The same spawn trains through ``Session.train(tp=2, dp=2)`` (a
 checkpoint at step 2 that a one-device trainer restores leaf for leaf,
 and a (2, 2) trainer cuts to its blocks), through ``launch/train.py --dp
-2 --tp 2 --fsdp``, and shows the families that do not train on a mesh
-yet (SSM, hybrid, enc-dec, VLM) refusing, in the trainer and in their
-forward, naming ROADMAP.md Queue 1 item 11's step.
+2 --tp 2 --fsdp`` (and ``--arch mamba2-780m --seq-parallel``), and shows
+the families that do not train on a mesh yet (enc-dec, VLM) refusing, in
+the trainer and in their forward, naming ROADMAP.md Queue 1 item 11's
+step.
 
 This module imports JAX and the reference only in this process; the
 ranks import ``repro_torch`` only.
@@ -87,6 +96,17 @@ CASES = {
     "olmoe 2x2 microbatches": ("olmoe-1b-7b", (2, 2),
                                dict(microbatches=2), 16.0, "uniform", 1),
     "olmoe 2x2 drops": ("olmoe-1b-7b", (2, 2), {}, 1.25, "skewed", 1),
+    # the SSM family (the reference test's third arch) and the hybrid: a
+    # Mamba2 block split by whole heads over "model"
+    "mamba 2x2": ("mamba2-780m", (2, 2), {}, 16.0, "uniform", 1),
+    "mamba 2x2 sp": ("mamba2-780m", (2, 2), dict(seq_parallel=True), 16.0,
+                     "uniform", 1),
+    "mamba 2x2 fsdp": ("mamba2-780m", (2, 2), dict(fsdp=True), 16.0,
+                       "uniform", 1),
+    "mamba 1x4": ("mamba2-780m", (1, 4), {}, 16.0, "uniform", 1),
+    "mamba 2x2 adafactor": ("mamba2-780m", (2, 2),
+                            dict(optimizer="adafactor"), 16.0, "uniform", 2),
+    "zamba 2x2": ("zamba2-1.2b", (2, 2), {}, 16.0, "uniform", 1),
 }
 
 #: the batches: 4 x 64 tokens over the whole vocabulary, and over its
@@ -237,17 +257,37 @@ def _session_rank(tmp, flat_kw):
                             full_shapes(cfg).items()}}
 
 
+def _ssm_checkpoint_rank(get_mesh, tmp, flats):
+    """A (2, 2) FSDP trainer of each SSM smoke on the full JAX init (the
+    trainer cuts the rank's blocks) writes its checkpoint at step 0; a
+    (2, 2) trainer on other params restores it. Returns the restored
+    blocks."""
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    mesh = get_mesh((2, 2))
+    st = Strategy(fsdp=True, remat=False, dtype="float32")
+    out = {}
+    for arch, (kw, flat) in flats.items():
+        cfg = ModelConfig(**kw)
+        tc = TrainConfig(steps=1, checkpoint_dir=f"{tmp}/{arch}", seed=3)
+        Trainer(cfg, st, "cpu", tc, global_batch=4, seq_len=64,
+                params=from_numpy(flat, cfg, "cpu"), mesh=mesh).save(0)
+        other = Trainer(cfg, st, "cpu", tc, global_batch=4, seq_len=64,
+                        mesh=mesh)
+        other.maybe_restore()
+        out[arch] = {k: v.detach().numpy().copy()
+                     for k, v in flatten(other.params).items()}
+    return out
+
+
 def _refusals(get_mesh):
     """The families that do not train on a mesh: the trainer refuses
     them, and so does their forward under a rank."""
     from repro_torch.configs import get_smoke
-    from repro_torch.models import encdec, hybrid, mamba_lm, vlm
+    from repro_torch.models import encdec, vlm
     from repro_torch.train.trainer import TrainConfig, Trainer
     mesh = get_mesh((2, 2))
     out = {}
-    for arch, fwd in (("mamba2-780m", mamba_lm.forward),
-                      ("zamba2-1.2b", hybrid.forward),
-                      ("whisper-tiny", encdec.forward),
+    for arch, fwd in (("whisper-tiny", encdec.forward),
                       ("llama-3.2-vision-90b", vlm.forward)):
         cfg = get_smoke(arch).with_(dtype="float32")
         try:
@@ -281,6 +321,12 @@ def _all_ranks(rank, world, refs, tmp):
     out["launcher"] = launcher.main(
         ["--device", "cpu", "--dp", "2", "--tp", "2", "--fsdp", "--steps",
          "2", "--global-batch", "4", "--seq", "16", "--layers", "2"])
+    out["ssm_launcher"] = launcher.main(
+        ["--device", "cpu", "--arch", "mamba2-780m", "--dp", "2", "--tp",
+         "2", "--fsdp", "--seq-parallel", "--steps", "2", "--global-batch",
+         "4", "--seq", "64"])
+    out["ssm_checkpoint"] = _ssm_checkpoint_rank(get_mesh, tmp,
+                                                 refs["ssm_checkpoint"])
     out["refused"] = _refusals(get_mesh)
     return out
 
@@ -293,7 +339,9 @@ def spawned(tmp_path_factory):
         kw, flat, _ = _jax_ref(_ref_key(case))
         cases[case] = (kw, flat, _tokens(CASES[case][4]))
     kw, flat, _ = _jax_ref(_ref_key("qwen 2x2"))
-    refs = {"cases": cases, "session": (kw, flat)}
+    refs = {"cases": cases, "session": (kw, flat),
+            "ssm_checkpoint": {arch: _jax_ref(_ref_key(case))[:2]
+                               for arch, case in SSM_CHECKPOINTS.items()}}
     tmp = str(tmp_path_factory.mktemp("ckpt"))
     ranks = run_ranks(_all_ranks, 4, args=(refs, tmp),
                       store_dir=str(tmp_path_factory.mktemp("store")),
@@ -545,14 +593,95 @@ def test_train_launcher_dp2_tp2_fsdp_runs_on_ranks(spawned):
 
 
 def test_unported_families_refuse_on_a_mesh(spawned):
-    """The SSM family, the hybrid, the enc-dec family and the VLM do not
-    train on a mesh yet: their Trainer and their forward under a rank
-    raise naming ROADMAP.md Queue 1 item 11, step 7."""
+    """The enc-dec family and the VLM do not train on a mesh yet: their
+    Trainer and their forward under a rank raise naming ROADMAP.md Queue
+    1 item 11, step 7."""
     ranks, _ = spawned
     refused = ranks[0]["refused"]
-    for arch in ("mamba2-780m", "zamba2-1.2b", "whisper-tiny",
-                 "llama-3.2-vision-90b"):
+    for arch in ("whisper-tiny", "llama-3.2-vision-90b"):
         for where in ("trainer", "forward"):
             msg = refused[f"{arch} {where}"]
             assert "item 11" in msg and "step 7" in msg, (arch, where)
             assert "under a mesh" in msg
+
+
+# ------------------------------------------- the SSM family, the hybrid
+
+#: arch -> the case whose JAX init the checkpoint test takes
+SSM_CHECKPOINTS = {"mamba2-780m": "mamba 2x2", "zamba2-1.2b": "zamba 2x2"}
+
+
+def test_ssm_collectives_by_label(spawned):
+    """A Mamba layer's collectives in a training step at (2, 2): one
+    ``ssm_out`` and one ``ssm_norm`` sum forward; backward the norm's sum
+    again (``ssm_norm.grad``), the block input's (``ssm_in.grad``) and
+    the replicated B/C columns' of ``in_proj``, ``conv_w`` and ``conv_b``
+    (``ssm_bc.grad``, three); under sequence parallelism the gather
+    before ``in_proj`` and the reduce-scatter's backward a layer."""
+    ranks, _ = spawned
+    layers = 2
+    for r in ranks:
+        c = r["cases"]["mamba 2x2"]["counts"]
+        assert c["ssm_out"] == c["ssm_norm"] == layers
+        assert c["ssm_norm.grad"] == c["ssm_in.grad"] == layers
+        assert c["ssm_bc.grad"] == 3 * layers
+        assert "ssm_out.grad" not in c
+        s = r["cases"]["mamba 2x2 sp"]["counts"]
+        assert s["ssm_seq"] == s["ssm_out.grad"] == layers
+        assert s["head_seq"] == 1 and s["embed.grad"] == 1
+        z = r["cases"]["zamba 2x2"]["counts"]
+        assert z["ssm_out"] == z["ssm_norm"] == 2
+        assert z["attn_out"] == z["mlp_out"] == 1
+
+
+def test_ssm_rank_holds_whole_heads(spawned):
+    """Each rank's ``in_proj`` block is ``[z_r | x_r | B | C | dt_r]`` of
+    the full leaf (din / tp columns of z and x, H / tp of dt, all of B
+    and C) and its conv ``[x_r | B | C]``: at (1, 4) the smoke's 548
+    columns give 161 a rank (64 + 64 + 16 + 16 + 1) where the table's
+    contiguous split gives 137, its 288 conv channels 96 (64 + 16 + 16)
+    where the table gives 72."""
+    ranks, _ = spawned
+    for r in ranks:
+        run = r["cases"]["mamba 1x4"]
+        assert run["params"][0]["layers/mamba/in_proj"].shape == (2, 128,
+                                                                  161)
+        assert run["params"][0]["layers/mamba/conv_w"].shape == (2, 4, 96)
+
+
+def test_ssm_checkpoint_from_a_mesh_is_the_full_tree(spawned):
+    """A (2, 2) FSDP trainer of the mamba2 and zamba2 smokes, handed the
+    JAX init, writes a checkpoint equal to that init leaf for leaf (B/C
+    from one rank, z/x/dt in rank order); a (2, 2) trainer on other
+    params restores its blocks of it."""
+    from repro_torch.checkpoint import latest_step, load_checkpoint
+    from repro_torch.params import init_params
+    ranks, tmp = spawned
+    st = Strategy(fsdp=True, remat=False, dtype="float32")
+    axes = {"data": 2, "model": 2}
+    for arch, case in SSM_CHECKPOINTS.items():
+        kw, flat, _ = _jax_ref(_ref_key(case))
+        cfg = ModelConfig(**kw)
+        d = f"{tmp}/{arch}"
+        assert latest_step(d) == 0
+        saved = flatten(load_checkpoint(d, 0, init_params(cfg, device="cpu")))
+        assert set(saved) == set(flat)
+        leaves = tp.leaf_blocks(full_shapes(cfg), st, axes, cfg)
+        for key, want in flat.items():
+            assert np.array_equal(saved[key].numpy(), want), key
+            for i, r in enumerate(ranks):
+                coord = {"data": i // 2, "model": i % 2}
+                assert np.array_equal(r["ssm_checkpoint"][arch][key],
+                                      _block(want, leaves[key].spec, case,
+                                             coord)), key
+
+
+def test_ssm_train_launcher_runs_on_ranks(spawned):
+    """``launch/train.py --arch mamba2-780m --dp 2 --tp 2 --fsdp
+    --seq-parallel`` on the four ranks: two steps, the same finite loss
+    on every rank."""
+    ranks, _ = spawned
+    outs = [[{k: v for k, v in h.items() if k != "wall"}
+             for h in r["ssm_launcher"]["history"]] for r in ranks]
+    assert outs[0][-1]["step"] == 2 and np.isfinite(outs[0][-1]["loss"])
+    assert all(o == outs[0] for o in outs)
