@@ -121,7 +121,15 @@ Phases (any failure exits non-zero; no result line is printed then):
    lengths, flash at Zamba2's (1, S, S, 16, 16, 64) for each and the
    fused MLP at its d 2048, f 4096 for T 4 and each, per value, each
    defect rejected, timed beside its library call (SDPA, three matmuls;
-   none for the SSD scan) with its bound;
+   none for the SSD scan) with its bound; then at the shapes phase 29
+   adds: bf16 flash at a dp 2 x tp 2 whisper-tiny training rank's (4,
+   1500, 1500, 3, 3, 64) non-causal (the encoder, the last key tile
+   dropped as the defect) and (4, 448, 448, 3, 3, 64) causal (the
+   decoder), each per value, its defect rejected, timed beside SDPA with
+   its bound and its plain backward timed; fp32 at the f32 check's rank
+   shapes (1, 1500 | 448, ..., 3, 3, 64) and one-device shapes (2, 1500 |
+   448, ..., 6, 6, 64), non-causal and causal, within 2e-6, each shown to
+   reject dropped keys;
 4. tiny float32 configs on the card and on the CPU (TF32 off): through
    the port's engine on each layout — the mixed step, the split path on
    the pool (``mixed=False``) and on the dense layout (``paged=False``),
@@ -178,7 +186,12 @@ Phases (any failure exits non-zero; no result line is printed then):
    a tiny hybrid (one group, one trailing layer) on the split path, a
    Mamba2 block of H / 2 whole heads a rank: streams identical, launches
    as the path says, the SSM states a rank half, one ``ssm_out`` and one
-   ``ssm_norm`` sum a Mamba layer a program; then data parallelism
+   ``ssm_norm`` sum a Mamba layer a program; the enc-dec config with one
+   K/V head on the split path's dense rows, each rank's decoder K/V and
+   cross K/V its slice of the positions with the head (the reference's
+   ``cache_pspecs``): streams identical, the K/V a rank half, every
+   decode step context-parallel in its self- and cross-attention; then
+   data parallelism
    on the tiny dense config: a dp 2 ``ReplicaRouter`` in this process,
    both replicas on cuda:0 sharing one set of weights, on both paths
    (streams identical to the single engine's, both replicas prefill,
@@ -557,6 +570,22 @@ Phases (any failure exits non-zero; no result line is printed then):
    rtol 5e-4 of the one-device step's, and two defects outside that
    bound (the "data" gradient sum dropped; the gated norm's sum over
    "model" without its backward sum).
+29. SHARDED TRAINING OF THE ENC-DEC FAMILY, on phase 24's four rank
+   processes after phase 28: whisper-tiny at full width, uncut (4
+   encoder and 4 decoder layers, 3/3 heads x 64 a rank, the whole
+   51,865-row head on every rank), at dp 2 x tp 2, phase 24's three runs
+   (ZeRO-1, FSDP, SP: the encoder's 1500 frames and the decoder's 448
+   tokens each split over "model") of 3 AdamW steps on 8 x 448 tokens
+   and one (8, 1500, 384) frames block (``FramesData``) and its checks
+   (flash 3 x (4 encoder + 4 decoder + 4 decoder recompute) a run a rank,
+   the other kernels never), then the f32 check uncut on 2 x 448 tokens
+   and their frames: loss within 1e-4 and every param within atol / rtol
+   5e-4 of the one-device step's, and two defects outside that bound
+   (the "data" gradient sum dropped; ``enc_out``'s backward "model" sum
+   into each decoder layer's cross K/V dropped). Prints step p50,
+   tokens/s, peak memory a rank, a step's collectives and bytes by label
+   and the flash launches. Not parallelism's speed: four ranks share one
+   card over gloo.
 
 Last, every process the run started (nvcc, cuobjdump, the rank
 processes and the ``multiprocessing`` resource tracker their start
@@ -5532,6 +5561,14 @@ TP_FAMILY_PARITY = {
                   d_model=64, num_heads=4, num_kv_heads=4, d_ff=128,
                   vocab_size=128, encoder_layers=1, encoder_ctx=12,
                   dtype="float32"),
+    # AUDIO_CFG with one K/V head: 1 does not divide tp 2, so on the
+    # split path's dense rows each rank holds its slice of the decoder's
+    # and the encoder's positions with the one head (the reference's
+    # cache_pspecs), decoded context-parallel
+    "audio_kv1": dict(name="pal-encdec-kv1", arch_type="audio",
+                      num_layers=2, d_model=64, num_heads=4, num_kv_heads=1,
+                      d_ff=128, vocab_size=128, encoder_layers=1,
+                      encoder_ctx=12, dtype="float32"),
     # tests/test_serve_engine.py's SSM_CFG (chunk 64: phase 4's prompts
     # are single chunks), and a hybrid of one group of two Mamba layers
     # and the shared block, then one trailing layer
@@ -5547,7 +5584,11 @@ TP_FAMILY_PARITY = {
 
 def _family_layouts(family: str) -> dict:
     """The layouts phase 4 serves a tp family on: the SSM family and the
-    hybrid have one (the split path on dense rows)."""
+    hybrid have one (the split path on dense rows), and so does the
+    one-K/V-head enc-dec (the split path on dense rows, its sequence
+    slices)."""
+    if family == "audio_kv1":
+        return {"dense": dict(paged=False, mixed=False)}
     return {"split": {}} if family in ("ssm", "hybrid") \
         else TP_PARITY_LAYOUTS
 
@@ -5588,6 +5629,7 @@ def _tp_family_parity_rank(rank: int, world: int, flats):
     sharded over ``world`` ranks on cuda:0 (gloo) on the mixed step and
     the split path (``TP_PARITY_LAYOUTS``)."""
     from repro_torch.configs.base import ModelConfig
+    from repro_torch.core import tp
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.params import from_numpy
     from repro_torch.serve.engine import ServeEngine
@@ -5610,6 +5652,8 @@ def _tp_family_parity_rank(rank: int, world: int, flats):
                 "kv_bytes": eng.kv_bytes(), "state": _state_bytes(eng),
                 "programs": eng.stats["prefills"]
                 + eng.stats["decode_steps"],
+                "slices": sum(isinstance(v, tp.SeqSlice)
+                              for v in eng._cache.values()),
                 "collectives": dict(eng._rank.counts)}
     return out
 
@@ -5623,6 +5667,11 @@ def phase_parity_tp_families():
     launched as ``_moe_want`` / ``_audio_want`` say on each rank, and one
     ``moe_out`` all-reduce a layer a program (MoE) or the two a layer of
     each encoder run and the three a decoder layer a program (enc-dec).
+    The one-K/V-head enc-dec on the split path's dense rows: each rank's
+    decoder K/V and cross K/V its slice of the positions with the head,
+    every decode step's self- and cross-attention context-parallel (one
+    ``cp_qkv``, one ``cp_xq``, two ``cp_max`` and two ``cp_sum`` a layer),
+    the streams the unsharded engine's.
     Then the SSM family and the hybrid (a Mamba2 block of H / 2 whole
     heads a rank) on the split path: streams identical, every kernel
     launched as ``_ssm_want`` / ``_hybrid_want`` say, the SSM states a
@@ -5686,6 +5735,12 @@ def phase_parity_tp_families():
                     + cfg.num_layers * programs and c["attn_out"] == \
                     cfg.encoder_layers * admissions \
                     + 2 * cfg.num_layers * programs
+                if family == "audio_kv1":   # every decode step on slices
+                    steps = programs - admissions
+                    ok = ok and run["slices"] == 2 and c["cp_qkv"] == \
+                        c["cp_xq"] == cfg.num_layers * steps and \
+                        c["cp_max"] == c["cp_sum"] == \
+                        2 * cfg.num_layers * steps
             check(ok, f"{tag} collectives {c}")
         run = ranks[0][family, name]
         log(f"[parity tp 2 {family}, f32] {name}: both ranks' streams equal "
@@ -6918,14 +6973,22 @@ TRAIN_TP_F32_FLASH = ((1, SHARDED_F32_SEQ, SHARDED_F32_SEQ)
 def phase_train_tp_kernels(seed: int):
     """Flash at the shapes phase 24 gives it: bf16 at ``TRAIN_TP_FLASH``
     and fp32 at ``TRAIN_TP_F32_FLASH`` (``_training_flash``)."""
-    return _training_flash(seed + 2427, TRAIN_TP_FLASH, TRAIN_TP_F32_FLASH)
+    return _training_flash(seed + 2427, (TRAIN_TP_FLASH,),
+                           TRAIN_TP_F32_FLASH)
 
 
-def _training_flash(seed: int, shape, f32_shapes):
-    """Flash at the shapes a training phase gives it: bf16 at ``shape``
-    (causal) per value at phase 3's limits (atol 1e-5 + rtol 8e-3), shown
-    to reject dropped keys, timed beside SDPA with its bound, and its
-    plain backward (softmax recompute) timed at that shape; fp32 at
+def _causal_shape(entry):
+    """(B, S, T, Hq, Hkv, D) and its causal flag from a shape entry of six
+    (causal) or seven (the flag last)."""
+    return tuple(entry[:6]), bool(entry[6]) if len(entry) > 6 else True
+
+
+def _training_flash(seed: int, shapes, f32_shapes):
+    """Flash at the shapes a training phase gives it: bf16 at each of
+    ``shapes`` (``_causal_shape`` entries) per value at phase 3's limits
+    (atol 1e-5 + rtol 8e-3), shown to reject dropped keys (non-causal:
+    the last key tile), timed beside SDPA with its bound, and its plain
+    backward (softmax recompute) timed at that shape; fp32 at
     ``f32_shapes`` within phase 3's fp32 2e-6, each shown to reject
     dropped keys. Returns {"flash_attention": records}."""
     from repro_torch.kernels import flash_attention as fa
@@ -6933,31 +6996,45 @@ def _training_flash(seed: int, shape, f32_shapes):
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
-    rec = _flash_shape(gen, shape, 1e-5, 8e-3, timed=True)
-    q, k, v = _flash_inputs(gen, shape, torch.bfloat16)
-    g = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
-    rec["backward_ms"] = time_ms(lambda: fa.flash_attention_bwd(
-        q, k, v, g, causal=True), iters=3, warmup=1)
-    log(f"[flash bf16 {shape}] plain backward (softmax recompute) "
-        f"{rec['backward_ms']:.4f} ms")
-    out = [rec]
-    del q, k, v, g
-    for shape in f32_shapes:
+    out = []
+    for entry in shapes:
+        shape, causal = _causal_shape(entry)
+        rec = _flash_shape(gen, shape, 1e-5, 8e-3, timed=True, causal=causal)
+        q, k, v = _flash_inputs(gen, shape, torch.bfloat16)
+        g = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        rec["backward_ms"] = time_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, g, causal=causal), iters=3, warmup=1)
+        log(f"[flash bf16 {shape} {'causal' if causal else 'non-causal'}] "
+            f"plain backward (softmax recompute) "
+            f"{rec['backward_ms']:.4f} ms")
+        out.append(rec)
+        del q, k, v, g
+    for entry in f32_shapes:
+        shape, causal = _causal_shape(entry)
         q, k, v = _flash_inputs(gen, shape, torch.float32)
-        n = shape[1]
-        want = fa.flash_attention_plain(q, k, v, causal=True)
-        err = (fa.flash_attention(q, k, v, causal=True) - want).abs().max() \
-            .item()
-        bad = (fa.flash_attention_plain(q, k, v, causal=True,
-                                        window=n - 64) - want).abs().max() \
-            .item()
-        check(err <= 2e-6, f"flash fp32 at {shape}: max abs err {err} > 2e-6")
-        check(bad > 2e-6, f"the fp32 flash check at {shape} passes a "
-                          f"version that drops keys ({bad})")
-        log(f"[flash f32 {shape} causal] max_abs_err {err:.3e} (atol 2e-6); "
-            f"a version that drops keys would be {bad:.3e}")
+        n, t = shape[1], shape[2]
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        err = (fa.flash_attention(q, k, v, causal=causal) - want).abs() \
+            .max().item()
+        if causal:
+            bad = fa.flash_attention_plain(q, k, v, causal=True,
+                                           window=n - 64)
+        else:
+            keep = t - (t % 128 or 128)
+            bad = fa.flash_attention_plain(q, k[:, :keep], v[:, :keep],
+                                           causal=False)
+        bad = (bad - want).abs().max().item()
+        mode = "causal" if causal else "non-causal"
+        check(err <= 2e-6, f"flash fp32 at {shape} {mode}: max abs err "
+                           f"{err} > 2e-6")
+        check(bad > 2e-6, f"the fp32 flash check at {shape} {mode} passes "
+                          f"a version that drops keys ({bad})")
+        log(f"[flash f32 {shape} {mode}] max_abs_err {err:.3e} (atol "
+            f"2e-6); a version that drops keys would be {bad:.3e}")
         out.append({"shape": list(shape), "dtype": "float32",
-                    "max_abs_err": err, "dropped_keys_max_abs_err": bad})
+                    "causal": causal, "max_abs_err": err,
+                    "dropped_keys_max_abs_err": bad})
+        del q, k, v, want
     torch.cuda.empty_cache()
     return {"flash_attention": out}
 
@@ -6993,13 +7070,15 @@ def _rank_log(rank: int, msg: str, tag: str = "sharded train") -> None:
         print(f"[{tag} rank 0] {msg}", flush=True)
 
 
-def _sharded_bf16_run(mesh, cfg, name: str, seed: int):
+def _sharded_bf16_run(mesh, cfg, name: str, seed: int, *,
+                      steps: int = SHARDED_STEPS, batch: int = SHARDED_BATCH,
+                      seq: int = SHARDED_SEQ, data=None):
     """One of phase 24's runs on this rank: a Trainer on ``mesh`` drawing
-    only its shards, ``SHARDED_STEPS`` steps on the token dataset's
-    global batches from ``seed``; launches counted from 0 just before
-    the steps; each step's time, metrics and the fingerprints of the
-    data-replicated param blocks; the last step's collectives and
-    bytes."""
+    only its shards, ``steps`` steps on the token dataset's global
+    batches of ``batch`` x ``seq`` from ``seed`` (or on ``data``);
+    launches counted from 0 just before the steps; each step's time,
+    metrics and the fingerprints of the data-replicated param blocks; the
+    last step's collectives and bytes."""
     from repro_torch import kernels
     from repro_torch.core.strategy import Strategy
     from repro_torch.train.trainer import TrainConfig, Trainer
@@ -7010,8 +7089,8 @@ def _sharded_bf16_run(mesh, cfg, name: str, seed: int):
     strategy = Strategy(dtype=cfg.dtype, **SHARDED_RUNS[name])
     t0 = time.perf_counter()
     trainer = Trainer(cfg, strategy, "cuda", TrainConfig(
-        steps=SHARDED_STEPS, lr=3e-4, log_every=1, seed=seed),
-        global_batch=SHARDED_BATCH, seq_len=SHARDED_SEQ, mesh=mesh)
+        steps=steps, lr=3e-4, log_every=1, seed=seed), data=data,
+        global_batch=batch, seq_len=seq, mesh=mesh)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     r = trainer.rank
@@ -7027,8 +7106,8 @@ def _sharded_bf16_run(mesh, cfg, name: str, seed: int):
                                 for v in flatten(sub).values()) / 1e9,
            "replicated_leaves": len(replicated)}
     kernels.reset_launches()
-    for i in range(SHARDED_STEPS):
-        if i == SHARDED_STEPS - 1:
+    for i in range(steps):
+        if i == steps - 1:
             r.counts.clear()
             r.bytes.clear()
         torch.cuda.synchronize()
@@ -7084,12 +7163,13 @@ def _unsummed_norm_grad():
 SHARDED_DEFECTS = {"zero1, data gradient sum dropped": _dropped_dp_grads}
 
 
-def _sharded_f32_rank(mesh, seed: int, tokens, cfg=None, defects=None):
+def _sharded_f32_rank(mesh, seed: int, data, cfg=None, defects=None):
     """Phase 24's f32 check on this rank (TF32 off): the first rank runs
     the one-device step (full width, ``SHARDED_F32_LAYERS`` layer of
     Qwen3-14B, or ``cfg``) alone on the card and broadcasts its new params
     and metrics from the host to every rank's host (gloo on CPU tensors);
-    then every rank runs one step of each of ``SHARDED_RUNS`` on its
+    then every rank runs one step of each of ``SHARDED_RUNS`` on ``data``
+    (the global batch, a dict of numpy arrays) on its
     shards — and a ZeRO-1 run under each of ``defects`` (default
     ``SHARDED_DEFECTS``: without the "data" gradient sum) — and holds its
     blocks to the same blocks of the one-device step's: the worst |err| /
@@ -7106,7 +7186,7 @@ def _sharded_f32_rank(mesh, seed: int, tokens, cfg=None, defects=None):
         cfg = get_config("qwen3-14b").with_(num_layers=SHARDED_F32_LAYERS,
                                             dtype="float32")
     defects = SHARDED_DEFECTS if defects is None else defects
-    batch = {"tokens": torch.from_numpy(tokens).cuda()}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
     shapes = full_shapes(cfg)
     lead = dist.get_rank() == 0
     out, ref = {}, {}
@@ -7169,10 +7249,11 @@ def _sharded_f32_rank(mesh, seed: int, tokens, cfg=None, defects=None):
 
 
 def _sharded_train_rank(rank: int, world: int, seed: int, f32_tokens,
-                        ssm_tokens):
+                        ssm_tokens, whisper_f32):
     """One rank of phase 24 on cuda:0 (gloo): the three bf16 runs, then
-    the f32 check; then phase 25 (``_pipe_rank``) and phase 28
-    (``_ssm_sharded_rank``) on the same ranks."""
+    the f32 check; then phase 25 (``_pipe_rank``), phase 28
+    (``_ssm_sharded_rank``) and phase 29 (``_whisper_sharded_rank``) on
+    the same ranks."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_mesh
     _tp_rank_setup()
@@ -7186,10 +7267,11 @@ def _sharded_train_rank(rank: int, world: int, seed: int, f32_tokens,
         _rank_log(rank, f"{name} done at {time.perf_counter() - t0:.1f}s: "
                         f"steps {[round(x, 3) for x in out[name]['step_s']]}"
                         f" s, peak {out[name]['peak_mem_gb']:.2f} GB")
-    out["f32"] = _sharded_f32_rank(mesh, seed, f32_tokens)
+    out["f32"] = _sharded_f32_rank(mesh, seed, {"tokens": f32_tokens})
     _rank_log(rank, f"f32 check done at {time.perf_counter() - t0:.1f}s")
     out["pipe"] = _pipe_rank(rank, seed)           # phase 25, same ranks
     out["ssm"] = _ssm_sharded_rank(rank, mesh, seed, ssm_tokens)
+    out["whisper"] = _whisper_sharded_rank(rank, mesh, seed, whisper_f32)
     return out
 
 
@@ -7219,7 +7301,7 @@ def _ssm_sharded_rank(rank: int, mesh, seed: int, tokens):
                         f" s, peak {out[name]['peak_mem_gb']:.2f} GB",
                   "ssm sharded train")
     out["f32"] = _sharded_f32_rank(
-        mesh, seed, tokens, cfg.with_(num_layers=SSM_SHARDED_F32_LAYERS,
+        mesh, seed, {"tokens": tokens}, cfg.with_(num_layers=SSM_SHARDED_F32_LAYERS,
                                       dtype="float32"), SSM_SHARDED_DEFECTS)
     _rank_log(rank, f"f32 check done at {time.perf_counter() - t0:.1f}s",
               "ssm sharded train")
@@ -7258,13 +7340,22 @@ def phase_train_sharded(seed: int, smi: str):
     ssm_tokens = rng.integers(0, get_config(SSM_SHARDED_ARCH).vocab_size,
                               size=(SHARDED_BATCH, SHARDED_F32_SEQ)
                               ).astype(np.int32)
+    wcfg = get_config("whisper-tiny")
+    whisper_f32 = {
+        "tokens": rng.integers(0, wcfg.vocab_size, size=(
+            WHISPER_SHARDED_F32_BATCH, WHISPER_TRAIN)).astype(np.int32),
+        "frames": rng.standard_normal((WHISPER_SHARDED_F32_BATCH,
+                                       wcfg.encoder_ctx, wcfg.d_model),
+                                      dtype=np.float32)}
     gc.collect()
     torch.cuda.empty_cache()
-    ranks = _spawn_ranks(_sharded_train_rank, (seed, f32_tokens, ssm_tokens),
+    ranks = _spawn_ranks(_sharded_train_rank,
+                         (seed, f32_tokens, ssm_tokens, whisper_f32),
                          SHARDED_TIMEOUT_S + PIPE_TIMEOUT_S
-                         + SSM_SHARDED_TIMEOUT_S,
-                         "sharded train, pipeline, SSM sharded train",
-                         world=math.prod(SHARDED_MESH))
+                         + SSM_SHARDED_TIMEOUT_S
+                         + WHISPER_SHARDED_TIMEOUT_S,
+                         "sharded train, pipeline, SSM and whisper sharded "
+                         "train", world=math.prod(SHARDED_MESH))
     want = {"flash_attention": SHARDED_LAYERS * 2 * SHARDED_STEPS,
             "fused_mlp": 0, "paged_attention": 0, "ssd_scan": 0}
     out = _sharded_checks(ranks, f"Qwen3-14B {SHARDED_LAYERS} layers",
@@ -7298,17 +7389,139 @@ def phase_ssm_train_sharded(ranks, smi: str):
     return out
 
 
+# ----------------------------------------------------------- phase 29
+
+#: phase 29: whisper-tiny at full width, uncut (4 encoder and 4 decoder
+#: layers, 6/6 heads x 64, 1500 frames, vocabulary 51,865), dp 2 x tp 2 on
+#: phase 24's four rank processes after phase 28: phase 24's three runs of
+#: ``WHISPER_SHARDED_STEPS`` AdamW steps (remat on), each step a global
+#: batch of 8 x 448 tokens beside one (8, 1500, 384) frames block
+#: (``launch/train.py::FramesData``, from ``--seed``); its f32 check
+#: uncut on a global batch of 2 x 448 tokens with (2, 1500, 384) frames
+WHISPER_SHARDED_STEPS, WHISPER_SHARDED_BATCH = 3, 8
+WHISPER_SHARDED_F32_BATCH = 2
+WHISPER_SHARDED_TIMEOUT_S = 300.0
+#: the rank shapes flash takes there (B, S, T, Hq, Hkv, D, causal): a tp 2
+#: rank's 3/3 heads x 64 over a data rank's 4 rows, the encoder non-causal
+#: and the decoder causal (bf16); the f32 check's at a rank (1 row) and
+#: in its one-device step (2 rows, 6/6 heads)
+WHISPER_TRAIN_TP_FLASH = tuple(
+    (WHISPER_SHARDED_BATCH // SHARDED_MESH[0], n, n) + WHISPER_TP2_HEADS
+    + (WHISPER_D, causal) for n, causal in ((1500, False),
+                                            (WHISPER_TRAIN, True)))
+WHISPER_TRAIN_TP_F32_FLASH = tuple(
+    (b, n, n) + heads + (WHISPER_D, causal)
+    for b, heads in ((1, WHISPER_TP2_HEADS), (2, WHISPER_HEADS))
+    for n, causal in ((1500, False), (WHISPER_TRAIN, True)))
+
+
+def phase_whisper_train_tp_kernels(seed: int):
+    """Flash at the shapes phase 29 gives it: bf16 at
+    ``WHISPER_TRAIN_TP_FLASH`` (the encoder non-causal, the decoder
+    causal) and fp32 at ``WHISPER_TRAIN_TP_F32_FLASH``
+    (``_training_flash``)."""
+    return _training_flash(seed + 2929, WHISPER_TRAIN_TP_FLASH,
+                           WHISPER_TRAIN_TP_F32_FLASH)
+
+
+@contextmanager
+def _dropped_cross_sum():
+    """The defect: ``enc_out`` enters each decoder layer's cross K/V
+    projection without its backward "model" sum (``cross_in``), so each
+    rank's gradient into the encoder is the partial of its own heads."""
+    from repro_torch.core import tp
+    real = tp.region_in
+
+    def dropped(h, what, *, seq=False):
+        return h if what == "cross" else real(h, what, seq=seq)
+    tp.region_in = dropped
+    try:
+        yield
+    finally:
+        tp.region_in = real
+
+
+#: phase 29's f32 defects: phase 24's, and the cross K/V's input without
+#: its backward sum
+WHISPER_SHARDED_DEFECTS = dict(SHARDED_DEFECTS, **{
+    "zero1, enc_out gradient not summed": _dropped_cross_sum})
+
+
+def _whisper_sharded_rank(rank: int, mesh, seed: int, f32_batch):
+    """One rank of phase 29: phase 24's three bf16 runs on whisper-tiny
+    uncut (``WHISPER_SHARDED_*``, frames from ``FramesData``) and the f32
+    check on ``f32_batch`` with ``WHISPER_SHARDED_DEFECTS``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import FramesData
+    cfg = get_config("whisper-tiny")
+    out = {}
+    t0 = time.perf_counter()
+    for name in SHARDED_RUNS:
+        data = FramesData(cfg, global_batch=WHISPER_SHARDED_BATCH,
+                          seq_len=WHISPER_TRAIN, seed=seed)
+        out[name] = _sharded_bf16_run(
+            mesh, cfg, name, seed, steps=WHISPER_SHARDED_STEPS,
+            batch=WHISPER_SHARDED_BATCH, seq=WHISPER_TRAIN, data=data)
+        _rank_log(rank, f"{name} done at {time.perf_counter() - t0:.1f}s: "
+                        f"steps {[round(x, 3) for x in out[name]['step_s']]}"
+                        f" s, peak {out[name]['peak_mem_gb']:.2f} GB",
+                  "whisper sharded train")
+    out["f32"] = _sharded_f32_rank(mesh, seed, f32_batch,
+                                   cfg.with_(dtype="float32"),
+                                   WHISPER_SHARDED_DEFECTS)
+    _rank_log(rank, f"f32 check done at {time.perf_counter() - t0:.1f}s",
+              "whisper sharded train")
+    return out
+
+
+def phase_whisper_train_sharded(ranks, smi: str):
+    """Phase 29: SHARDED TRAINING OF THE ENC-DEC FAMILY, on phase 24's
+    four rank processes (``_whisper_sharded_rank``): whisper-tiny at full
+    width, uncut, 3/3 heads a rank (self and cross), the whole 51,865-row
+    ``lm_head`` and ``tok_embed`` on every model rank (the vocabulary does
+    not divide tp 2), at dp 2 x tp 2, phase 24's three runs (ZeRO-1, FSDP,
+    sequence parallelism: the encoder's 1500 frames and the decoder's 448
+    tokens each split over "model") and its checks (``_sharded_checks``):
+    flash once an encoder and a decoder layer a step and once more a
+    decoder layer for the remat recompute (a data rank's (4, 1500, 1500,
+    3, 3, 64) non-causal and (4, 448, 448, 3, 3, 64) causal), the other
+    kernels never. Then the f32 check, uncut, with two defects outside its
+    bound: the "data" gradient sum dropped, and ``enc_out``'s backward
+    "model" sum into the cross K/V dropped (every encoder parameter's
+    gradient a rank's partial)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("whisper-tiny")
+    want = {"flash_attention": WHISPER_SHARDED_STEPS
+            * (cfg.encoder_layers + 2 * cfg.num_layers),
+            "fused_mlp": 0, "paged_attention": 0, "ssd_scan": 0}
+    runs = [dict(r.pop("whisper"), rank=r["rank"], coord=r["coord"])
+            for r in ranks]
+    out = _sharded_checks(
+        runs, "whisper-tiny uncut", "whisper-tiny uncut", want,
+        WHISPER_SHARDED_DEFECTS, smi, "whisper sharded train",
+        steps=WHISPER_SHARDED_STEPS, batch=WHISPER_SHARDED_BATCH,
+        seq=WHISPER_TRAIN,
+        f32_shape=(WHISPER_SHARDED_F32_BATCH, WHISPER_TRAIN))
+    out["ranks"] = runs
+    return out
+
+
 def _sharded_checks(ranks, model: str, f32_model: str, want: dict,
-                    defects: dict, smi: str, tag: str) -> dict:
-    """Phase 24's (and 28's) checks over the ranks' records: launches as
-    ``want`` on each rank and run; the same metrics on every rank each
-    step, finite; the data replicas' param blocks equal bit for bit; then
-    the f32 check's runs within its bounds and each of ``defects``
-    outside them. Logs each run and returns the summary."""
+                    defects: dict, smi: str, tag: str, *,
+                    steps: int = SHARDED_STEPS, batch: int = SHARDED_BATCH,
+                    seq: int = SHARDED_SEQ,
+                    f32_shape=(SHARDED_BATCH, SHARDED_F32_SEQ)) -> dict:
+    """Phase 24's (and 28's, 29's) checks over the ranks' records:
+    launches as ``want`` on each rank and run; the same metrics on every
+    rank each step, finite; the data replicas' param blocks equal bit for
+    bit; then the f32 check's runs within its bounds and each of
+    ``defects`` outside them. ``steps`` of ``batch`` x ``seq`` tokens a
+    run, the f32 check's ``f32_shape``. Logs each run and returns the
+    summary."""
     note = ("four ranks share one card's SMs and gloo stages every "
             "collective through host memory: not parallelism's speed")
     out = {"note": note, "card": smi}
-    tokens_step = SHARDED_BATCH * SHARDED_SEQ
+    tokens_step = batch * seq
     for name in SHARDED_RUNS:
         for r in ranks:
             run, rt = r[name], f"[{tag} {name}] rank {r['rank']}"
@@ -7336,7 +7549,7 @@ def _sharded_checks(ranks, model: str, f32_model: str, want: dict,
             f"dp 2 x tp 2 on {smi}: {r0['params_rank'] / 1e9:.3f} B params "
             f"({r0['param_gb_rank']:.2f} GB) and {r0['state_gb_rank']:.2f} GB "
             f"of AdamW state a rank (drawn in {r0['build_s']:.1f}s); "
-            f"{SHARDED_STEPS} steps of {SHARDED_BATCH} x {SHARDED_SEQ} "
+            f"{steps} steps of {batch} x {seq} "
             f"tokens: step p50 {p50:.3f} s ({[round(x, 3) for x in r0['step_s']]}"
             f"), {tokens_step / p50:.1f} tokens/s; peak memory a rank "
             f"{[round(x[name]['peak_mem_gb'], 2) for x in ranks]} GB; losses "
@@ -7371,7 +7584,7 @@ def _sharded_checks(ranks, model: str, f32_model: str, want: dict,
               f"({f[name]['param_error_of_limit']:.3f}x)")
     out["f32"] = f
     log(f"[{tag} f32] {f32_model}, full width, "
-        f"f32, {SHARDED_BATCH} x {SHARDED_F32_SEQ} tokens, lr "
+        f"f32, {f32_shape[0]} x {f32_shape[1]} tokens, lr "
         f"{SHARDED_F32_LR}: one-device loss {f['one_device']['loss']:.6f} "
         f"(step {f['one_device']['step_s']:.2f} s, peak "
         f"{f['one_device']['peak_mem_gb']:.2f} GB; broadcast to the ranks "
@@ -7408,7 +7621,7 @@ PIPE_F32_FLASH = ((1, PIPE_F32_SEQ, PIPE_F32_SEQ, 40, 8, 128),)
 def phase_pipe_kernels(seed: int):
     """Flash at the shapes phase 25 gives it (``_training_flash``); the
     fused MLP's T 2048 at d 5120, f 17408 is phase 3's."""
-    return _training_flash(seed + 2528, PIPE_FLASH, PIPE_F32_FLASH)
+    return _training_flash(seed + 2528, (PIPE_FLASH,), PIPE_F32_FLASH)
 
 
 def _pipe_layers(cfg, layers, seed: int):
@@ -7859,6 +8072,11 @@ def main():
         if k["name"] in ssm_tp_shapes:
             k["ssm_tp_shapes"] = ssm_tp_shapes[k["name"]]
     mark("3 kernels at the SSM family's and the hybrid's tp 2 rank shapes")
+    whisper_tp_shapes = phase_whisper_train_tp_kernels(args.seed)
+    for k in kernels:
+        if k["name"] in whisper_tp_shapes:
+            k["whisper_train_tp_shapes"] = whisper_tp_shapes[k["name"]]
+    mark("3 kernels at whisper-tiny's sharded training rank shapes")
     parity = phase_parity()
     record["parity_logits_err"] = parity.pop("mixed")
     record["parity_split_logits_err"] = parity
@@ -7920,7 +8138,10 @@ def main():
          for r in record["sharded_train"]["ranks"]], smi)
     record["ssm_sharded_train"] = phase_ssm_train_sharded(
         record["sharded_train"]["ranks"], smi)
-    mark("24-25, 28 sharded training, the pipeline, SSM sharded training")
+    record["whisper_sharded_train"] = phase_whisper_train_sharded(
+        record["sharded_train"]["ranks"], smi)
+    mark("24-25, 28-29 sharded training, the pipeline, SSM and enc-dec "
+         "sharded training")
     record["ssm"] = phase_ssm(args.seed)
     mark("7 SSM serving")
     gc.collect()
@@ -7985,7 +8206,9 @@ def main():
     # rank: flash and the fused MLP in the no_grad runs, flash in the
     # forward + backward runs; the last repeat of each), phase 27 (each
     # rank: the SSD scan in both models' prefills, flash and the fused MLP
-    # in Zamba2's, bf16 and f32), phase 28 (each rank, each run: none)
+    # in Zamba2's, bf16 and f32), phase 28 (each rank, each run: none),
+    # phase 29 (each rank, each run: flash in the encoder, the decoder and
+    # its remat recompute)
     paths = [main_run, record["train"], record["ssm"],
              *record["spec"].values(), *record["online"].values(),
              record["hybrid"], *record["train_families"].values(),
@@ -8015,9 +8238,10 @@ def main():
              # phase 27: each rank's own launches, each model and dtype
              *(r[arch][dtype] for r in record["ssm_tp"]["ranks"]
                for arch in SSM_TP_SSD for dtype in ("bfloat16", "float32")),
-             # phase 28: each rank's own launches, in each of its runs
-             *(r[name] for r in record["ssm_sharded_train"]["ranks"]
-               for name in SHARDED_RUNS)]
+             # phases 28-29: each rank's own launches, in each of its runs
+             *(r[name] for phase in ("ssm_sharded_train",
+                                     "whisper_sharded_train")
+               for r in record[phase]["ranks"] for name in SHARDED_RUNS)]
     for k in kernels:
         k["launches"] = sum(run["launches"][k["name"]] for run in paths)
     record["kernels"] = kernels

@@ -48,9 +48,11 @@ split path on the dense layout; ``prefix_cache``, ``lazy`` and
 serves a dense or MoE decoder, the enc-dec family, the SSM family or the
 hybrid tensor-parallel, one engine a rank process; ``dp=M`` serves M
 replicas behind a ``ReplicaRouter`` (serve/parallel.py). ``train(tp=,
-dp=)`` trains a dense or MoE decoder, the SSM family or the hybrid on a
-("data", "model") mesh, one trainer a rank process, with the strategy's
-ZeRO-1, FSDP and sequence parallelism.
+dp=)`` trains a dense or MoE decoder, the SSM family, the hybrid or the
+enc-dec family on a ("data", "model") mesh, one trainer a rank process,
+with the strategy's ZeRO-1, FSDP and sequence parallelism (the VLM, and
+TP inside each expert, raise naming their step of ROADMAP.md Queue 1
+item 11).
 ``generate`` is the lockstep greedy loop
 (``serve/step.py::greedy_generate``). ``serve_async`` wraps the engine
 in the online ``AsyncDriver`` (a background step loop, per-request token
@@ -158,8 +160,11 @@ class Session:
 
         ``tp=N`` and / or ``dp=M`` (with N x M > 1), called on every rank
         of an initialised process group of M x N ranks (one process a
-        rank, as ``torchrun`` starts them), train a dense or MoE decoder
-        as this rank of the ("data", "model") = (M, N) mesh on the
+        rank, as ``torchrun`` starts them), train a dense or MoE decoder,
+        the SSM family, the hybrid or the enc-dec family (on the same
+        ``data=`` object on every rank: each rank takes its rows of the
+        global batch, frames with their tokens) as this rank of the
+        ("data", "model") = (M, N) mesh on the
         session's device type (``train/trainer.py``): the session's
         params cut to the rank's blocks, or, when the session has none
         yet, only the rank's blocks drawn from its seed (kept by the

@@ -37,7 +37,8 @@ loss, and the gradient taken is that of ONE copy of it:
 * **f** — ``enter``: identity forward, the gradient summed over "model"
   backward, where a replicated tensor is used inside the rank's share of
   the work: the normed ``h`` before ``wq``/``wk``/``wv``, ``w_gate``/
-  ``w_up``, the MoE dispatch and the vocab-parallel head, and the
+  ``w_up``, the MoE dispatch, the vocab-parallel head and the enc-dec
+  family's cross K/V (``enc_out`` in every decoder layer), and the
   replicated leaves used there (Qwen3's ``q_norm``/``k_norm``, ``wk``/
   ``wv`` kept whole where Hkv does not divide tp; under sequence
   parallelism the norm scales, used on the rank's sequence slice);
@@ -97,8 +98,9 @@ the rank's SEQUENCE slice of every row with all Hkv heads where the
 cache's positions divide tp (replicated where neither does); under
 ``cfg.cp_decode`` a lockstep cache that is no ring is sequence-sharded
 whatever the heads, as the reference's ``shard_map`` reshards it. A
-sliced cache carries its :class:`SeqSlice` under ``"kv_slice"``, and
-``decode_step`` then takes the context-parallel branch.
+sliced cache carries its :class:`SeqSlice` under ``"kv_slice"`` (the
+enc-dec family's cross K/V under ``"xkv_slice"``), and ``decode_step``
+then takes the context-parallel branch.
 """
 from __future__ import annotations
 
@@ -180,9 +182,13 @@ class Rank:
         where the mesh has it) for ``cfg``'s attention; with
         ``strategy`` and ``shapes`` (each flat parameter key's full
         shape) a training rank's. Raises ``ValueError`` for shapes that
-        cannot be split by whole heads."""
+        cannot be split by whole heads, and ``NotImplementedError`` for
+        a training ``strategy`` not ported to a mesh
+        (``check_moe_strategy``)."""
         axes = mesh_axes(mesh)
         tp = axes.get("model", 1)
+        if strategy is not None:
+            check_moe_strategy(cfg, strategy, tp)
         sub = mesh["model"]
         group = mesh.get_group("model")
         hq, hkv = cfg.num_heads, cfg.num_kv_heads
@@ -425,6 +431,16 @@ def seq_parallel(seq_len: int) -> bool:
     return r is not None and r.seq_parallel and seq_len % r.tp == 0
 
 
+def seq_rows(total: int) -> slice:
+    """The positions of the current rank's slice of a sequence of
+    ``total`` split over "model" (all of them without a live rank)."""
+    r = _live()
+    if r is None:
+        return slice(0, total)
+    n = total // r.tp
+    return slice(r.rank * n, (r.rank + 1) * n)
+
+
 def seq_gather(x: torch.Tensor, what: str) -> torch.Tensor:
     """(B, S / tp, ...) slices -> (B, S, ...): every rank's slice
     assembled by a zero-filled sum; backward, the rank's slice of the
@@ -632,8 +648,22 @@ def check_training(what: str, step: str):
         raise unported(what, step)
 
 
-#: item 11's step for the families that do not run on a mesh yet
-FAMILY_STEP = "7b: the enc-dec family and the VLM under a mesh"
+#: item 11's step for the family that does not run on a mesh yet
+FAMILY_STEP = "7b b: the VLM under a mesh"
+
+#: item 11's step for TP inside each expert
+MOE_TP_STEP = "6: TP-in-expert MoE"
+
+
+def check_moe_strategy(cfg, strategy, tp: int):
+    """Raise ``unported`` (item 11 step 6) for an MoE ``cfg`` trained
+    with ``Strategy(expert_parallel=False)`` over ``tp`` > 1 "model"
+    ranks: the table splits each expert's ``d_ff_moe`` there, and the MoE
+    layer has no sum after the experts' ``w_down`` yet, so each rank's
+    output would be a partial."""
+    if cfg.is_moe and not strategy.expert_parallel and tp > 1:
+        raise unported("TP-in-expert MoE training (Strategy("
+                       "expert_parallel=False))", MOE_TP_STEP)
 
 
 # ------------------------------------------------ Mamba2 blocks by head

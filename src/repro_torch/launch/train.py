@@ -30,12 +30,20 @@
         --dp 2 --tp 2 --backend gloo --full --layers 2 --steps 3 \
         --global-batch 2 --seq 2048 --fsdp
 
+    # whisper-tiny uncut at dp 2 x tp 2 (3 of 6 heads a rank), + SP
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch whisper-tiny --dp 2 --tp 2 --backend gloo --full --steps 3 \
+        --global-batch 8 --seq 448 --seq-parallel
+
     # on the CPU, the reduced configs in float32
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --device cpu --dp 2 --tp 2 --steps 2 --global-batch 4 --seq 32
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --arch whisper-tiny --steps 2 --global-batch 2 --seq 32
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --device cpu --arch whisper-tiny --dp 2 --tp 2 --seq-parallel \
+        --steps 2 --global-batch 4 --seq 16
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --arch llama-3.2-vision-90b --steps 2 --global-batch 2 --seq 32
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
@@ -63,8 +71,10 @@ bf16): on one H100 cut its depth with ``--layers`` (5 = one group: 4
 self and 1 cross layer) and train it with ``--optimizer adafactor``
 (AdamW's fp32 master, m and v would need >= 16 bytes a parameter).
 
-``--tp N`` and ``--dp M`` train a dense or MoE decoder, the SSM family
-or the hybrid on a ("data", "model") = (M, N) mesh under ``torchrun --nproc-per-node M*N``, one
+``--tp N`` and ``--dp M`` train a dense or MoE decoder, the SSM family,
+the hybrid or the enc-dec family (``--arch whisper-tiny``: every rank
+draws the same :class:`FramesData` and takes its rows) on a ("data",
+"model") = (M, N) mesh under ``torchrun --nproc-per-node M*N``, one
 process a rank (``Session.train(tp=, dp=)``): ZeRO-1 over "data" by
 default, ``--fsdp`` (parameters over "data") and ``--seq-parallel``
 (the reference's own flags); the process group's backend is

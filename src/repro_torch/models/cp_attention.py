@@ -22,6 +22,12 @@ runs on CUDA tensors.
   local_stats(q, k, v, kpos, pos, window)             -> m, l, o
   cp_decode_attention(q, kv, k_new, v_new, pos, window=, rows=, ring=)
                                                       -> ctx
+  cp_cross_attention(q, kv, rows=)                    -> ctx
+
+``cp_cross_attention`` is the same arithmetic over a block that is not
+written and has no cursor: the enc-dec family's cross K/V on the rank's
+slice of the encoder positions (every position valid), one sum
+assembling the query heads (``cp_xq``), then the same MAX and SUM.
 
 ``pos`` is a scalar (the lockstep loop) or per-row (B,) cursors (the
 serving engine's dense rows, which the reference's GSPMD program gathers
@@ -125,6 +131,36 @@ def _write_row(kv, k_new, v_new, at, n: int):
         leaf[rows, idx] = torch.where(live, new[:, 0], leaf[rows, idx])
 
 
+def _slice_rank(what: str):
+    """The live rank a cache slice decodes under; ``ValueError`` without
+    one: a slice alone holds only part of each row's keys."""
+    r = tp.current()
+    if r is None or r.tp < 2:
+        raise ValueError(f"a cache of a rank's sequence slice ({what}) "
+                         "decodes only under that rank (tp.active)")
+    return r
+
+
+def cp_cross_attention(q, kv, *, rows: tp.SeqSlice):
+    """Non-causal attention of q over a K/V block sequence-sharded over
+    "model" (every position of the rank's slice ``rows`` valid): the
+    rank's query heads assembled by one zero-filled sum (``cp_xq``),
+    fp32 partials over the slice (``local_stats``) and ``combine``'s one
+    MAX and one SUM.
+
+    q (B, 1, h, D): the rank's h = Hq / tp query heads; kv {"k", "v"}
+    (B, n, Hkv, D): the rank's slice of every head. Returns ctx (B, 1, h,
+    D) in q's dtype, the rank's heads. Raises ``ValueError`` without a
+    live rank."""
+    h = q.shape[2]
+    r = _slice_rank("xkv_slice")
+    (q_all,) = tp.gather_heads([q], [h * r.tp], "cp_xq")
+    n = rows.length
+    kpos = torch.arange(n, device=q.device)
+    ctx = combine(*local_stats(q_all, kv["k"], kv["v"], kpos, n, 0))
+    return ctx[:, r.rank * h:(r.rank + 1) * h].to(q.dtype)[:, None]
+
+
 def cp_decode_attention(q, kv, k_new, v_new, pos, *, window: int = 0,
                         rows: tp.SeqSlice, ring: bool = False):
     """One decode step's attention over a sequence-sharded cache, and its
@@ -138,10 +174,7 @@ def cp_decode_attention(q, kv, k_new, v_new, pos, *, window: int = 0,
     for its row block of ``wo``. Raises ``ValueError`` without a live
     rank: a slice alone holds only part of each row's keys."""
     b, _, h, d = q.shape
-    r = tp.current()
-    if r is None or r.tp < 2:
-        raise ValueError("a cache of a rank's sequence slice (kv_slice) "
-                         "decodes only under that rank (tp.active)")
+    r = _slice_rank("kv_slice")
     q_all, k_new, v_new = tp.gather_heads(
         [q, k_new, v_new], [h * r.tp] + [kv["k"].shape[2]] * 2, "cp_qkv")
     n = rows.length

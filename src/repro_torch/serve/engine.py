@@ -404,9 +404,10 @@ class ServeEngine:
             with tp.active(self._rank):
                 self._cache = transformer.init_cache(
                     cfg, slots, max_len, device=self.device, cp=False)
-        elif cfg.arch_type in ("ssm", "hybrid"):
+        elif cfg.arch_type in ("ssm", "hybrid", "audio"):
             # the rank's H / tp heads of every state and conv tail, and the
-            # hybrid's dense rows by tp.cache_rows
+            # hybrid's and the enc-dec family's dense rows (its decoder K/V
+            # and cross K/V each) by tp.cache_rows
             with tp.active(self._rank):
                 self._cache = self.model.init_cache(cfg, slots, max_len,
                                                     device=self.device)
@@ -439,7 +440,8 @@ class ServeEngine:
                         "'model' axes)", "Queue 1 item 11")
         if cfg.is_moe and not strategy.expert_parallel:
             raise _todo("TP-in-expert MoE serving on a mesh (Strategy("
-                        "expert_parallel=False))", "Queue 1 item 11")
+                        "expert_parallel=False))",
+                        f"Queue 1 item 11, step {tp.MOE_TP_STEP}")
         refuse_unported(strategy, "serving on a mesh")
         rank = tp.Rank.of(mesh, cfg)
         return rank, tp.shard_params(params, full_shapes(cfg), strategy,
@@ -556,7 +558,8 @@ class ServeEngine:
                                              self.max_len, device="meta")
             return _tree_bytes({k: v for k, v in full.items()
                                 if k != "pos"})
-        split = r is not None and (r.kv_sharded or "kv_slice" in self._cache)
+        split = r is not None and (r.kv_sharded or any(
+            isinstance(v, tp.SeqSlice) for v in self._cache.values()))
         return self.per_device_kv_bytes() * (r.tp if split else 1)
 
     def per_device_kv_bytes(self) -> int:
@@ -565,7 +568,8 @@ class ServeEngine:
         dense rows are the rank's sequence slice; equal to it
         unsharded."""
         return _tree_bytes({k: v for k, v in self._cache.items()
-                            if k not in ("pos", "ptab", "kv_slice")})
+                            if k not in ("pos", "ptab")
+                            and not isinstance(v, tp.SeqSlice)})
 
     # -------------------------------------------------------- the program
     def _mixed_fn(self, tokens, pos, slot, active, wnull):
@@ -668,8 +672,8 @@ class ServeEngine:
             row = {key: {k: leaf[:, slot:slot + 1] for k, leaf in sub.items()}
                    for key, sub in self._cache.items()
                    if isinstance(sub, dict)}
-            if "kv_slice" in self._cache:
-                row["kv_slice"] = self._cache["kv_slice"]
+            row.update({k: v for k, v in self._cache.items()
+                        if isinstance(v, tp.SeqSlice)})
             logits, _ = self.model.prefill(self.params, batch, self.cfg,
                                            row, **kw)
         return logits

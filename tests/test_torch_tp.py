@@ -82,6 +82,9 @@ AUDIO_KW = dict(name="par-encdec", arch_type="audio", num_layers=2,
                 d_model=64, num_heads=4, num_kv_heads=4, d_ff=128,
                 vocab_size=128, encoder_layers=1, encoder_ctx=12,
                 dtype="float32")
+#: AUDIO_CFG with one KV head: at tp 2 its dense rows and cross K/V hold
+#: each rank's sequence slice (the reference's ``cache_pspecs``)
+AUDIO_KV1_KW = dict(AUDIO_KW, name="par-encdec-kv1", num_kv_heads=1)
 #: tests/test_serve_engine.py's SSM_CFG, and the hybrid's smoke in f32
 SSM_KW = dict(name="engine-ssm", arch_type="ssm", num_layers=2, d_model=64,
               num_heads=0, num_kv_heads=0, d_ff=128, ssm_state=16,
@@ -92,7 +95,8 @@ ZAMBA_KW = dict(get_smoke("zamba2-1.2b").with_(dtype="float32").__dict__)
 #: context-parallel
 ZAMBA_KV1_KW = dict(ZAMBA_KW, name="zamba2-smoke-kv1", num_kv_heads=1)
 #: each config's init seed (the reference tests' own)
-SEEDS = {"par-moe": 5, "par-moe-e3": 5, "par-encdec": 2, "engine-ssm": 4,
+SEEDS = {"par-moe": 5, "par-moe-e3": 5, "par-encdec": 2,
+         "par-encdec-kv1": 2, "engine-ssm": 4,
          "zamba2-smoke": 4, "zamba2-smoke-kv1": 4}
 
 COUNTERS = ("prefills", "decode_tokens", "decode_steps", "peak_pages",
@@ -220,6 +224,11 @@ FAMILY_RUNS = {
                     dict(slots=2, max_len=32, paged=True)),
     "audio_split": (AUDIO_KW, _AUDIO[0], _AUDIO[1], 5,
                     dict(slots=2, max_len=32, paged=True, mixed=False)),
+    # one KV head on the split path's dense rows: each rank holds half of
+    # the decoder's and the encoder's positions with the one head
+    "audio_kv1_dense": (AUDIO_KV1_KW, _AUDIO[0], _AUDIO[1], 5,
+                        dict(slots=2, max_len=32, paged=False,
+                             mixed=False)),
     # tests/test_serve_engine.py::test_engine_ssm_matches_sequential's
     # run, and the hybrid smoke's on the same engine keywords
     "ssm": (SSM_KW, _prompts(4, (5, 9, 6)), None, 5,
@@ -701,7 +710,13 @@ def _family_rank(rank, world, flats, runs):
                      "state_bytes": state_bytes(eng),
                      "experts": eng.params["layers"]["moe"]["w_up"].shape[1]
                      if cfg.is_moe else None,
-                     "counts": dict(eng._rank.counts)}
+                     "counts": dict(eng._rank.counts),
+                     "kv_shapes": {k: tuple(eng._cache[k]["k"].shape)
+                                   for k in ("kv", "xkv")
+                                   if k in eng._cache},
+                     "slices": {k: (v.start, v.length, v.total)
+                                for k, v in eng._cache.items()
+                                if isinstance(v, tp.SeqSlice)}}
     return out
 
 
@@ -1071,8 +1086,9 @@ def spawned(tmp_path_factory):
     toks = np.random.default_rng(5).integers(0, 128, size=(2, 24)).astype(
         np.int32)
     flats = {kw["name"]: _flat(kw)
-             for kw in (KW, KW_KV1, MOE_KW, MOE_E3_KW, AUDIO_KW, ONLINE_KW,
-                        SSM_KW, ZAMBA_KW, ZAMBA_KV1_KW)}
+             for kw in (KW, KW_KV1, MOE_KW, MOE_E3_KW, AUDIO_KW,
+                        AUDIO_KV1_KW, ONLINE_KW, SSM_KW, ZAMBA_KW,
+                        ZAMBA_KV1_KW)}
     flats["cp"] = _jax_cp_params()[2]
     flats["ssm"] = ssm_flats()
     return toks, run_ranks(_all_ranks, 2,
@@ -1508,6 +1524,36 @@ def test_tp2_hybrid_one_kv_head_decodes_context_parallel(family_runs):
         c = r["counts"]
         assert {k: c[k] for k in ("cp_qkv", "cp_max", "cp_sum")} == \
             dict.fromkeys(("cp_qkv", "cp_max", "cp_sum"), groups * steps)
+        assert "prefill_kv" not in c
+
+
+def test_tp2_encdec_one_kv_head_holds_sequence_slices(family_runs):
+    """The enc-dec config with one KV head under tp 2 on the split path's
+    dense rows (the twin of the hybrid's case): each rank's ``kv`` and
+    ``xkv`` hold half the positions (its slice, ``kv_slice`` /
+    ``xkv_slice``) with the one head, as the reference's ``cache_pspecs``
+    shards them; every decode step attends context-parallel (a layer:
+    one ``cp_qkv`` and one ``cp_xq`` sum, two ``cp_max`` and two
+    ``cp_sum``), no prefill sends K/V heads; the JAX engine's unsharded
+    f32 streams and counters."""
+    want, jstats, jdev = _jax_family_run("audio_kv1_dense")
+    kw = FAMILY_RUNS["audio_kv1_dense"][0]
+    layers, ctx = kw["num_layers"], kw["encoder_ctx"]
+    for i, run in enumerate(family_runs):
+        r = run["audio_kv1_dense"]
+        assert r["done"] and r["streams"] == want
+        for key in ("decode_traces", "prefill_traces", "prefills",
+                    "decode_steps"):
+            assert r["stats"][key] == jstats[key], key
+        assert r["slices"] == {"kv_slice": (16 * i, 16, 32),
+                               "xkv_slice": (ctx // 2 * i, ctx // 2, ctx)}
+        assert r["kv_shapes"] == {"kv": (layers, 2, 16, 1, 16),
+                                  "xkv": (layers, 2, ctx // 2, 1, 16)}
+        assert r["per_device"] * 2 == jdev
+        steps = r["stats"]["decode_steps"]
+        c = r["counts"]
+        assert c["cp_qkv"] == c["cp_xq"] == layers * steps
+        assert c["cp_max"] == c["cp_sum"] == 2 * layers * steps
         assert "prefill_kv" not in c
 
 

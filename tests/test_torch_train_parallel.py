@@ -39,13 +39,21 @@ Mamba2 block of whole heads (``in_proj`` and the conv by head with all of
 B and C): the same bounds, and a checkpoint of their sharded trees equal
 to the unsharded tree leaf for leaf.
 
+The enc-dec family (``whisper-tiny``'s smoke, its frames a seeded numpy
+block beside the tokens) trains at (2, 2) with Megatron, +SP and
++FSDP+SP+remat and at (1, 4): the same bounds, and its collectives by
+label (the backward sum of ``enc_out`` into each decoder layer's cross
+K/V, ``cross_in.grad``, among them).
+
 The same spawn trains through ``Session.train(tp=2, dp=2)`` (a
 checkpoint at step 2 that a one-device trainer restores leaf for leaf,
-and a (2, 2) trainer cuts to its blocks), through ``launch/train.py --dp
-2 --tp 2 --fsdp`` (and ``--arch mamba2-780m --seq-parallel``), and shows
-the families that do not train on a mesh yet (enc-dec, VLM) refusing, in
-the trainer and in their forward, naming ROADMAP.md Queue 1 item 11's
-step.
+and a (2, 2) trainer cuts to its blocks; whisper's on ``FramesData``
+too), through ``launch/train.py --dp 2 --tp 2 --fsdp`` (and ``--arch
+mamba2-780m --seq-parallel``, ``--arch whisper-tiny --seq-parallel``),
+and shows what does not train on a mesh yet refusing, naming ROADMAP.md
+Queue 1 item 11's step: the VLM (in the trainer and in its forward) and
+TP inside each expert (``Strategy(expert_parallel=False)`` on the olmoe
+smoke at (1, 2) and (2, 2), in the trainer and in the train step).
 
 This module imports JAX and the reference only in this process; the
 ranks import ``repro_torch`` only.
@@ -107,6 +115,15 @@ CASES = {
     "mamba 2x2 adafactor": ("mamba2-780m", (2, 2),
                             dict(optimizer="adafactor"), 16.0, "uniform", 2),
     "zamba 2x2": ("zamba2-1.2b", (2, 2), {}, 16.0, "uniform", 1),
+    # the enc-dec family: frames beside the tokens, the cross K/V of the
+    # rank's heads, the encoder's and decoder's sequences split under SP
+    "whisper 2x2": ("whisper-tiny", (2, 2), {}, 16.0, "uniform", 1),
+    "whisper 2x2 sp": ("whisper-tiny", (2, 2), dict(seq_parallel=True),
+                       16.0, "uniform", 1),
+    "whisper 2x2 fsdp sp remat": ("whisper-tiny", (2, 2),
+                                  dict(fsdp=True, seq_parallel=True,
+                                       remat=True), 16.0, "uniform", 1),
+    "whisper 1x4": ("whisper-tiny", (1, 4), {}, 16.0, "uniform", 1),
 }
 
 #: the batches: 4 x 64 tokens over the whole vocabulary, and over its
@@ -120,6 +137,22 @@ _JAX = {}
 def _tokens(kind):
     return np.random.default_rng(7).integers(
         0, BATCHES[kind], size=(4, 64)).astype(np.int32)
+
+
+def _batch(arch, kind):
+    """The case's numpy batch: ``_tokens``, and for the enc-dec family a
+    (4, encoder_ctx, d_model) block of standard-normal frames from a seed
+    of their own."""
+    out = {"tokens": _tokens(kind)}
+    if arch == "whisper-tiny":
+        kw = _cfg_kw(arch, 16.0)
+        out["frames"] = np.random.default_rng(8).standard_normal(
+            (4, kw["encoder_ctx"], kw["d_model"])).astype(np.float32)
+    return out
+
+
+def _torch_batch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
 def _strategy_kw(case):
@@ -160,10 +193,10 @@ def _jax_ref(key):
                          optimizer=optimizer)
         step = jax.jit(jstep.make_train_step(jcfg, st, lr=LR))
         p, o = params, jstep.init_opt_state(params, st)
-        tokens = {"tokens": jnp.asarray(_tokens(batch))}
+        data = {k: jnp.asarray(v) for k, v in _batch(arch, batch).items()}
         out = []
         for _ in range(steps):
-            p, o, m = step(p, o, tokens)
+            p, o, m = step(p, o, data)
             out.append(({k: np.asarray(v) for k, v in _flatten(p).items()},
                         {k: float(v) for k, v in m.items()}))
         _JAX[key] = (kw, {k: np.asarray(v)
@@ -181,7 +214,7 @@ def _one_device_grads(case):
         st = Strategy(**_strategy_kw(case))
         params = from_numpy(flat, cfg, "cpu")
         g, _ = tstep.make_train_step(cfg, st, lr=LR).grads(
-            params, {"tokens": torch.from_numpy(_tokens(CASES[case][4]))})
+            params, _torch_batch(_batch(CASES[case][0], CASES[case][4])))
         _JAX[key] = {k: v.numpy().copy() for k, v in flatten(g).items()}
     return _JAX[key]
 
@@ -200,7 +233,7 @@ def _meshes():
     return get
 
 
-def _case_rank(mesh, case, kw, flat, tokens):
+def _case_rank(mesh, case, kw, flat, data):
     """One case on this rank: the rank's blocks after each step, its
     first step's gradient blocks, metrics, state and param shapes."""
     cfg = ModelConfig(**kw)
@@ -208,7 +241,7 @@ def _case_rank(mesh, case, kw, flat, tokens):
     steps = CASES[case][5]
     rank = tp.Rank.of(mesh, cfg, st, full_shapes(cfg))
     params = from_numpy(flat, cfg, "cpu", shard=(st, mesh))
-    batch = {"tokens": torch.from_numpy(tokens)}
+    batch = _torch_batch(data)
     step = tstep.make_train_step(cfg, st, lr=LR)
     out = {"coord": tp.coordinate(mesh), "metrics": [], "params": []}
     with tp.active(rank):
@@ -280,32 +313,67 @@ def _ssm_checkpoint_rank(get_mesh, tmp, flats):
 
 
 def _refusals(get_mesh):
-    """The families that do not train on a mesh: the trainer refuses
-    them, and so does their forward under a rank."""
+    """What does not train on a mesh: the VLM (the trainer refuses it,
+    and so does its forward under a rank) and TP inside each expert (the
+    olmoe smoke with ``expert_parallel=False``: the trainer at (1, 2) and
+    (2, 2), and the train step's ``grads`` under a (2, 2) rank)."""
     from repro_torch.configs import get_smoke
-    from repro_torch.models import encdec, vlm
+    from repro_torch.models import vlm
     from repro_torch.train.trainer import TrainConfig, Trainer
-    mesh = get_mesh((2, 2))
     out = {}
-    for arch, fwd in (("whisper-tiny", encdec.forward),
-                      ("llama-3.2-vision-90b", vlm.forward)):
-        cfg = get_smoke(arch).with_(dtype="float32")
+    mesh = get_mesh((2, 2))
+    cfg = get_smoke("llama-3.2-vision-90b").with_(dtype="float32")
+    try:
+        Trainer(cfg, Strategy(dtype="float32"), "cpu", TrainConfig(steps=1),
+                global_batch=4, seq_len=8, mesh=mesh)
+    except NotImplementedError as e:
+        out["vlm trainer"] = str(e)
+    view = tp.Rank.of(mesh, get_smoke("qwen3-14b"))
+    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
+             "image_embeds": torch.zeros((1, 4, cfg.d_model))}
+    try:
+        with tp.active(view):
+            vlm.forward({}, batch, cfg)
+    except NotImplementedError as e:
+        out["vlm forward"] = str(e)
+    moe = get_smoke("olmoe-1b-7b").with_(dtype="float32")
+    tp_in_expert = Strategy(expert_parallel=False, dtype="float32")
+    for shape in ((1, 2), (2, 2)):
         try:
-            Trainer(cfg, Strategy(dtype="float32"), "cpu",
-                    TrainConfig(steps=1), global_batch=4, seq_len=8,
-                    mesh=mesh)
+            Trainer(moe, tp_in_expert, "cpu", TrainConfig(steps=1),
+                    global_batch=4, seq_len=8, mesh=get_mesh(shape))
         except NotImplementedError as e:
-            out[f"{arch} trainer"] = str(e)
-        view = tp.Rank.of(mesh, get_smoke("qwen3-14b"))
-        batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
-                 "frames": torch.zeros((1, 4, cfg.d_model)),
-                 "image_embeds": torch.zeros((1, 4, cfg.d_model))}
-        try:
-            with tp.active(view):
-                fwd({}, batch, cfg)
-        except NotImplementedError as e:
-            out[f"{arch} forward"] = str(e)
+            out[f"moe {shape} trainer"] = str(e)
+    rank = tp.Rank.of(mesh, moe, Strategy(dtype="float32"),
+                      full_shapes(moe))
+    try:
+        with tp.active(rank):
+            tstep.make_train_step(moe, tp_in_expert).grads(
+                {}, {"tokens": torch.zeros((4, 8), dtype=torch.int32)})
+    except NotImplementedError as e:
+        out["moe (2, 2) grads"] = str(e)
     return out
+
+
+def _encdec_session_rank(tmp):
+    """``Session.train(tp=2, dp=2)`` of the whisper smoke with sequence
+    parallelism on ``FramesData``, two steps and a checkpoint at step 2:
+    the history and the rank's blocks."""
+    from repro_torch.api import Session
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.train import FramesData
+    from repro_torch.train.trainer import TrainConfig
+    cfg = get_smoke("whisper-tiny").with_(dtype="float32")
+    tc = TrainConfig(steps=2, lr=LR, log_every=1, checkpoint_every=2,
+                     checkpoint_dir=f"{tmp}/whisper", seed=3)
+    trainer = Session(cfg, strategy=ENCDEC_SESSION_ST, device="cpu",
+                      seed=3).train(tc, data=FramesData(
+                          cfg, global_batch=4, seq_len=16, seed=3),
+                          global_batch=4, seq_len=16, tp=2, dp=2)
+    hist = trainer.run()["history"]
+    return {"history": hist,
+            "blocks": {k: v.detach().numpy().copy()
+                       for k, v in flatten(trainer.params).items()}}
 
 
 def _all_ranks(rank, world, refs, tmp):
@@ -325,6 +393,11 @@ def _all_ranks(rank, world, refs, tmp):
         ["--device", "cpu", "--arch", "mamba2-780m", "--dp", "2", "--tp",
          "2", "--fsdp", "--seq-parallel", "--steps", "2", "--global-batch",
          "4", "--seq", "64"])
+    out["encdec_launcher"] = launcher.main(
+        ["--device", "cpu", "--arch", "whisper-tiny", "--dp", "2", "--tp",
+         "2", "--seq-parallel", "--steps", "2", "--global-batch", "4",
+         "--seq", "16"])
+    out["encdec_session"] = _encdec_session_rank(tmp)
     out["ssm_checkpoint"] = _ssm_checkpoint_rank(get_mesh, tmp,
                                                  refs["ssm_checkpoint"])
     out["refused"] = _refusals(get_mesh)
@@ -337,7 +410,7 @@ def spawned(tmp_path_factory):
     cases = {}
     for case in CASES:
         kw, flat, _ = _jax_ref(_ref_key(case))
-        cases[case] = (kw, flat, _tokens(CASES[case][4]))
+        cases[case] = (kw, flat, _batch(CASES[case][0], CASES[case][4]))
     kw, flat, _ = _jax_ref(_ref_key("qwen 2x2"))
     refs = {"cases": cases, "session": (kw, flat),
             "ssm_checkpoint": {arch: _jax_ref(_ref_key(case))[:2]
@@ -593,16 +666,30 @@ def test_train_launcher_dp2_tp2_fsdp_runs_on_ranks(spawned):
 
 
 def test_unported_families_refuse_on_a_mesh(spawned):
-    """The enc-dec family and the VLM do not train on a mesh yet: their
-    Trainer and their forward under a rank raise naming ROADMAP.md Queue
-    1 item 11, step 7."""
+    """The VLM does not train on a mesh yet: its Trainer and its forward
+    under a rank raise naming ROADMAP.md Queue 1 item 11, step 7b b."""
     ranks, _ = spawned
     refused = ranks[0]["refused"]
-    for arch in ("whisper-tiny", "llama-3.2-vision-90b"):
-        for where in ("trainer", "forward"):
-            msg = refused[f"{arch} {where}"]
-            assert "item 11" in msg and "step 7" in msg, (arch, where)
-            assert "under a mesh" in msg
+    for where in ("trainer", "forward"):
+        msg = refused[f"vlm {where}"]
+        assert "item 11" in msg and "step 7b b" in msg, where
+        assert "under a mesh" in msg
+
+
+def test_tp_in_expert_moe_training_refuses_on_a_mesh(spawned):
+    """TP inside each expert (``Strategy(expert_parallel=False)``) on an
+    MoE over "model" > 1 raises ``NotImplementedError`` naming item 11
+    step 6 on every rank — in the Trainer at (1, 2) and (2, 2), before any
+    parameter is made, and in the train step's ``grads`` under a (2, 2)
+    rank — instead of training on partial expert outputs."""
+    ranks, _ = spawned
+    for r in ranks:
+        refused = r["refused"]
+        for where in ("moe (1, 2) trainer", "moe (2, 2) trainer",
+                      "moe (2, 2) grads"):
+            msg = refused[where]
+            assert "item 11" in msg and "step 6" in msg, where
+            assert "expert_parallel=False" in msg, where
 
 
 # ------------------------------------------- the SSM family, the hybrid
@@ -685,3 +772,111 @@ def test_ssm_train_launcher_runs_on_ranks(spawned):
              for h in r["ssm_launcher"]["history"]] for r in ranks]
     assert outs[0][-1]["step"] == 2 and np.isfinite(outs[0][-1]["loss"])
     assert all(o == outs[0] for o in outs)
+
+
+# --------------------------------------------------------- the enc-dec family
+
+#: the strategy of the enc-dec Session run on the ranks
+ENCDEC_SESSION_ST = Strategy(remat=True, seq_parallel=True, dtype="float32")
+
+
+def test_encdec_collectives_by_label(spawned):
+    """A whisper step's collectives at (2, 2): an ``attn_out`` sum an
+    encoder layer and two a decoder layer (self and cross), an
+    ``mlp_out`` a layer of both; backward the ``attn_in`` and ``mlp_in``
+    sums a layer, the cross query's ``xattn_in`` and ``enc_out``'s
+    ``cross_in`` a decoder layer; under sequence parallelism the gathers
+    before each column-parallel region (``enc_out`` gathered once), the
+    reduce-scatters' backward, and the norms' scales summed."""
+    ranks, _ = spawned
+    kw = _jax_ref(_ref_key("whisper 2x2"))[0]
+    enc, dec = kw["encoder_layers"], kw["num_layers"]
+    for r in ranks:
+        c = r["cases"]["whisper 2x2"]["counts"]
+        assert c["attn_out"] == enc + 2 * dec and c["mlp_out"] == enc + dec
+        assert c["attn_in.grad"] == c["mlp_in.grad"] == enc + dec
+        assert c["xattn_in.grad"] == c["cross_in.grad"] == dec
+        assert c["embed"] == c["logits"] == 1
+        assert c["dp_grads"] == len(_leaves("whisper 2x2")[1])
+        s = r["cases"]["whisper 2x2 sp"]["counts"]
+        assert s["attn_seq"] == s["mlp_seq"] == enc + dec
+        assert s["xattn_seq"] == s["cross_in.grad"] == dec
+        assert s["enc_seq"] == s["head_seq"] == 1 and s["embed.grad"] == 1
+        assert s["attn_out.grad"] == enc + 2 * dec
+        assert s["mlp_out.grad"] == enc + dec
+        assert s["norm.grad"] == 2 * enc + 3 * dec + 2
+        f = r["cases"]["whisper 2x2 fsdp sp remat"]["counts"]
+        assert "dp_grads" not in f
+        assert f["fsdp_gather"] > f["fsdp_gather.grad"] > 0   # recompute
+        k = r["cases"]["whisper 1x4"]["counts"]
+        assert k["cross_in.grad"] == dec and "dp_grads" not in k
+
+
+def test_encdec_train_launcher_and_session_on_ranks(spawned):
+    """``launch/train.py --arch whisper-tiny --dp 2 --tp 2
+    --seq-parallel`` and ``Session.train(tp=2, dp=2)`` on ``FramesData``:
+    two steps, the same finite losses on every rank; the Session's
+    checkpoint at step 2 holds the full tree, which a one-device trainer
+    restores leaf for leaf and which equals each rank's blocks; the
+    sharded run's losses and params those of the one-device run."""
+    from repro_torch.api import Session
+    from repro_torch.checkpoint import latest_step, load_checkpoint
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.train import FramesData
+    from repro_torch.train.trainer import TrainConfig
+    ranks, tmp = spawned
+    for key in ("encdec_launcher", "encdec_session"):
+        outs = [[{k: v for k, v in h.items() if k != "wall"}
+                 for h in r[key]["history"]] for r in ranks]
+        assert outs[0][-1]["step"] == 2, key
+        assert all(np.isfinite(h["loss"]) for h in outs[0]), key
+        assert all(o == outs[0] for o in outs), key
+    assert [h["step"] for h in ranks[0]["encdec_session"]["history"]] == \
+        [1, 2]
+    d = f"{tmp}/whisper"
+    assert latest_step(d) == 2
+    cfg = get_smoke("whisper-tiny").with_(dtype="float32")
+
+    def data():
+        return FramesData(cfg, global_batch=4, seq_len=16, seed=3)
+    one = Session(cfg, strategy=ENCDEC_SESSION_ST, device="cpu",
+                  seed=5).train(TrainConfig(steps=2, checkpoint_dir=d),
+                                data=data(), global_batch=4, seq_len=16,
+                                restore=True)
+    assert one.step == 2
+    saved = flatten(load_checkpoint(d, 2, one.params))
+    axes = {"data": 2, "model": 2}
+    leaves = tp.leaf_blocks(full_shapes(cfg), ENCDEC_SESSION_ST, axes, cfg)
+    for key, p in flatten(one.params).items():
+        assert torch.equal(p, saved[key]), key
+        for i, r in enumerate(ranks):
+            coord = {"data": i // 2, "model": i % 2}
+            want = tp.shard_leaf(p, leaves[key].spec, axes, coord).numpy()
+            assert np.array_equal(r["encdec_session"]["blocks"][key],
+                                  want), key
+    fresh = Session(cfg, strategy=ENCDEC_SESSION_ST, device="cpu", seed=3)
+    hist = fresh.train(TrainConfig(steps=2, lr=LR, log_every=1, seed=3),
+                       data=data(), global_batch=4,
+                       seq_len=16).run()["history"]
+    for a, b in zip(hist, ranks[0]["encdec_session"]["history"]):
+        assert a["loss"] == pytest.approx(b["loss"], abs=LOSS_TOL)
+    for key, p in flatten(fresh.params).items():
+        np.testing.assert_allclose(saved[key].numpy(), p.detach().numpy(),
+                                   atol=PARAM_TOL, rtol=PARAM_TOL,
+                                   err_msg=key)
+
+
+def test_encdec_flash_limits_at_a_rank():
+    """On a CUDA device (no card needed to refuse) the trainer checks the
+    flash kernel at a rank's heads: whisper-tiny's 3 of 6 query and K/V
+    heads x 64 a tp 2 rank pass, and so do they at D 64 unsharded; at a
+    head dim the kernel does not take (D 20) the rank's check refuses."""
+    from repro_torch.configs import get_config
+    from repro_torch.train.trainer import check_kernel_limits
+    cfg = get_config("whisper-tiny")
+    rank = tp.Rank(tp=2, rank=0, group=None, root=0, heads=3, kv_heads=3,
+                   kv_read=None)
+    check_kernel_limits(cfg, Strategy(), "cuda", rank)
+    check_kernel_limits(cfg, Strategy(), "cuda")
+    with pytest.raises(ValueError, match="flash-attention kernel"):
+        check_kernel_limits(cfg.with_(head_dim=20), Strategy(), "cuda", rank)
