@@ -129,7 +129,18 @@ Phases (any failure exits non-zero; no result line is printed then):
    its bound and its plain backward timed; fp32 at the f32 check's rank
    shapes (1, 1500 | 448, ..., 3, 3, 64) and one-device shapes (2, 1500 |
    448, ..., 6, 6, 64), non-causal and causal, within 2e-6, each shown to
-   reject dropped keys;
+   reject dropped keys; then at the shapes phases 30 and 31 add
+   (Llama-3.2-Vision-90B at a tp 2 rank: 32/4 heads x 128, d_ff 14336):
+   bf16 flash causal at (1, S, S, 32, 4, 128) for each of phase 17's
+   prompt lengths and at a dp 2 x tp 2 training rank's (1, 1024, 1024,
+   32, 4, 128) (its plain backward timed), the fused MLP at d 8192, f
+   14336 for the split path's 4 decode rows and each prompt length, each
+   per value, its defect rejected, timed beside SDPA / three matmuls with
+   its bound; fp32 flash at the f32 checks' shapes (phase 31's (1, 256,
+   256, 32, 4, 128) and (2, 256, 256, 64, 8, 128), phase 30's prefills at
+   the shortest and the longest prompt at 32/4 and 64/8 heads) within
+   2e-6 and the fp32 MLP at f 14336 and 28672 for 4 rows and the longest
+   prompt per value (atol 1e-5 + rtol 1e-4), each rejecting its defect;
 4. tiny float32 configs on the card and on the CPU (TF32 off): through
    the port's engine on each layout — the mixed step, the split path on
    the pool (``mixed=False``) and on the dense layout (``paged=False``),
@@ -412,20 +423,20 @@ Phases (any failure exits non-zero; no result line is printed then):
    (``vlm_train_flops``).
 
 19. TENSOR-PARALLEL SERVING, after phase 10's session is freed (run
-   before phase 6): Qwen3-14B at full width, 40 layers uncut, tp 2 over
+   before phase 6): Qwen3-14B at full width, depth cut to 20 of its 40
+   layers (the script's time limit, since phases 30-31), tp 2 over
    two rank processes sharing the one card over gloo, each through
    ``Session.serve(tp=2)`` and drawing only its shards (20/4 heads x
-   128 and d_ff 8704 of every layer, half the vocabulary, ~14.8 GB):
+   128 and d_ff 8704 of every layer, half the vocabulary, ~8 GB):
    phase 5's settings and six prompts on the mixed step, then the split
    path on the same shards. Counts zeroed just before and read just
-   after, on each rank: paged attention and the fused MLP 40 x program
-   runs on the mixed step; flash 40 x prefills, the fused MLP 40 x
-   programs and paged attention 40 x decode steps on the split path;
+   after, on each rank: paged attention and the fused MLP 20 x program
+   runs on the mixed step; flash 20 x prefills, the fused MLP 20 x
+   programs and paged attention 20 x decode steps on the split path;
    every request finishes with 16 in-vocab tokens, both ranks' streams
-   equal, the KV bytes a rank half of phase 5's pool. Prints tokens/s,
-   steps, step p50, each rank's peak memory, the collectives a rank and
-   the share of tokens equal to phase 5's streams (reported, not
-   checked: bf16 sums the row-parallel partials in another order). Two
+   equal, the KV bytes a rank half of phase 5's pool's share of 20
+   layers. Prints tokens/s, steps, step p50, each rank's peak memory and
+   the collectives a rank. Two
    ranks share one card's SMs and gloo stages every all-reduce through
    host memory: these numbers are not tensor parallelism's speed. A
    rank's failure or timeout (``TP_TIMEOUT_S``) fails the run.
@@ -464,14 +475,15 @@ Phases (any failure exits non-zero; no result line is printed then):
    mixed step then the split path: launches as ``_audio_want`` says on
    each rank, both ranks' streams equal, the KV and cross blocks a rank
    half of phase 15's; the share of tokens equal to phase 15's reported.
-23. CONTEXT-PARALLEL DECODE, after phase 19: Qwen3-14B at full width (40
-   layers uncut) with ``cp_decode`` at tp 2, two rank processes on the
-   card over gloo, each drawing only its shards (14.77 GB):
+23. CONTEXT-PARALLEL DECODE, after phase 19: Qwen3-14B at full width,
+   depth cut to 20 of its 40 layers (the script's time limit, since
+   phases 30-31), with ``cp_decode`` at tp 2, two rank processes on the
+   card over gloo, each drawing only its shards (~8.2 GB):
    ``greedy_generate`` under the rank on one 8,192-token prompt for 32
    new tokens (8,224 positions, 4,112 a rank with all 8 K/V heads; every
    decode step context-parallel), then the head-sharded path on the same
    shards. Launches counted from 0 just before each and read just after:
-   flash 40, the fused MLP 40 x 32, the others never; both ranks' streams
+   flash 20, the fused MLP 20 x 32, the others never; both ranks' streams
    equal; one ``cp_qkv``, ``cp_max`` and ``cp_sum`` a layer a CP decode
    step. Prints prefill seconds, decode step p50, a decode step's
    collectives and bytes by label, KV bytes and peak memory a rank and
@@ -559,10 +571,12 @@ Phases (any failure exits non-zero; no result line is printed then):
    rank's SSM states half of the one-device engine's. Prints tokens/s,
    step p50, bytes a rank, collectives a program by label and the bf16
    share of tokens equal to phase 7's / 11's (information). Not tensor
-   parallelism's speed: two ranks share one card over gloo.
+   parallelism's speed: two ranks share one card over gloo. Phase 27 (and
+   30 on its ranks) runs after phase 18.
 28. SHARDED TRAINING OF THE SSM FAMILY, on phase 24's four rank
-   processes after phase 25: Mamba2-780M at full width, depth cut to 24
-   of its 48 layers (the script's time limit: 48 layers took 93.5 s), at
+   processes after phase 25: Mamba2-780M at full width, depth cut to 12
+   of its 48 layers (the script's time limit: 48 layers took 93.5 s, 24
+   until phases 30-31 joined), at
    dp 2 x tp 2, phase 24's three runs (ZeRO-1, FSDP, SP) of
    3 AdamW steps on 2 x 2048 tokens and its checks (no kernel runs: the
    SSM family trains through the plain SSD scan), then the f32 check at
@@ -586,6 +600,45 @@ Phases (any failure exits non-zero; no result line is printed then):
    tokens/s, peak memory a rank, a step's collectives and bytes by label
    and the flash launches. Not parallelism's speed: four ranks share one
    card over gloo.
+30. TENSOR-PARALLEL SERVING OF THE VLM, on phase 27's two rank processes
+   after they free their models: Llama-3.2-Vision-90B at full width cut
+   to phase 17's 20 layers (16 self and 4 cross, 20.07 B params), tp 2
+   through ``Session.serve(tp=2)`` (each rank drawing only its shards:
+   32/4 heads x 128 of every self and cross layer, d_ff 14336, half the
+   vocabulary, ~20 GB), phase 17's weights' scales, open gates, six
+   requests and images, 16 new tokens each on the split path. Counts
+   zeroed just before and read just after, on each rank: flash 16 x
+   prefills, the fused MLP 20 x programs; every request finishes with 16
+   in-vocab tokens, both ranks' streams equal, one ``attn_out`` and one
+   ``mlp_out`` sum a self and a cross layer a program (and the
+   embedding, logits and tokens; nothing else but the clock and the step
+   check). Prints tokens/s, step p50 with prefill and decode-only apart,
+   collectives a program by label, peak memory a rank and the share of
+   tokens equal to phase 17's (information). Then the f32 check (TF32
+   off) at full width cut to ``cross_attn_every=1, num_layers=2`` (4.67
+   B params): the one-device engine first (in this process, before the
+   ranks start, then freed), then the ranks: streams equal and the first
+   prefill's logits within 1e-3 of the one device's, and a run without
+   the cross layer's ``attn_out`` sum outside that.
+31. SHARDED TRAINING OF THE VLM, on phase 24's four rank processes after
+   phase 29: Llama-3.2-Vision-90B at full width cut to one group (4 self
+   and 1 cross layer, 7.235 B params), dp 2 x tp 2 under FSDP, sequence
+   parallelism and remat with Adafactor, gates open, 2 steps (the time
+   limit) of 2 x 1024 tokens beside a (2, 1601, 8192) image block, phase
+   24's checks (flash 2 x (4 + 4 recompute) a rank, the other kernels
+   never), then the f32
+   check at ``cross_attn_every=1, num_layers=2`` on 2 x 256 tokens and
+   their images: the one-device step (Adafactor) on each rank in turn
+   (no rank holds another's reference), then the (2, 2) FSDP + SP step
+   and a (1, 4) SP step of the same ranks: loss within 1e-4, every
+   param within atol / rtol 5e-4 and the norms' and gates' gradients
+   before clipping within atol 1e-6 + rtol 1e-3 of it; and three defects
+   outside those bounds (at (2, 2) no "data" gradient sum; at (1, 4) no
+   gate sum under SP, and the cross query's ``region_in`` without its
+   ``enter``: there a step sends no weights through gloo). Prints step
+   p50,
+   tokens/s, peak memory a rank and a step's collectives and bytes by
+   label. Not parallelism's speed: four ranks share one card over gloo.
 
 Last, every process the run started (nvcc, cuobjdump, the rank
 processes and the ``multiprocessing`` resource tracker their start
@@ -4916,8 +4969,11 @@ def phase_vlm_train(seed: int, steps: int = 6):
 #: d_model, d_ff a rank
 TP_SHAPES = {2: ((20, 4), 5120, 8704), 4: ((10, 2), 5120, 4352),
              8: ((5, 1), 5120, 2176)}
-#: phase 19's degree and the seconds its two rank processes may take
+#: phase 19's degree and the seconds its two rank processes may take; the
+#: depth at which phases 19 and 26 serve Qwen3-14B (20 of its 40 layers:
+#: the script's time limit, since phases 30-31 joined it)
 TP_DEGREE, TP_TIMEOUT_S = 2, 480.0
+TP_SERVE_LAYERS = 20
 
 
 def phase_tp_kernels(seed: int):
@@ -5040,17 +5096,31 @@ def _online_run(backend, prompts, max_new: int, timeout: float = 240.0):
             "lead": drv.lead, "error": repr(drv.error)}
 
 
+def _rank_env(world: int) -> dict:
+    """The environment of ``world`` rank processes sharing the host and
+    the card: the host's cores split between them (``OMP_NUM_THREADS``,
+    as ``torchrun`` sets it), and the caching allocator's expandable
+    segments, so that memory a rank frees between its runs goes back to
+    the card for the next rank's (a freed block inside a segment with one
+    live block would otherwise stay reserved); either left as the caller's
+    environment sets it."""
+    env = {"OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 1) // world)),
+           "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    return {k: os.environ.get(k, v) for k, v in env.items()}
+
+
 def _spawn_ranks(fn, args, timeout: float, tag: str,
                  world: int = TP_DEGREE):
     """``fn`` on ``world`` rank processes sharing cuda:0 over gloo
-    (``launch/ranks.py``), their store in ``chiprun_out/``; a rank's
-    failure or timeout fails the phase."""
+    (``launch/ranks.py``, ``_rank_env``), their store in ``chiprun_out/``;
+    a rank's failure or timeout fails the phase."""
     from repro_torch.launch.ranks import run_ranks
     store = ROOT / "chiprun_out"
     store.mkdir(exist_ok=True)
     t0 = time.perf_counter()
     outs = run_ranks(fn, world, args=args, backend="gloo",
-                     store_dir=str(store), timeout=timeout)
+                     store_dir=str(store), timeout=timeout,
+                     env=_rank_env(world))
     log(f"[{tag}] {world} rank processes done in "
         f"{time.perf_counter() - t0:.1f}s")
     return outs
@@ -5147,7 +5217,7 @@ def _tp_serve_rank(rank: int, world: int, seed: int, prompts, max_new: int):
     from repro_torch.serve.paging import pages_for
     from repro_torch.serve.step import page_bucket, prefill_bucket
     torch.cuda.set_device(0)
-    cfg = get_config("qwen3-14b")
+    cfg = get_config("qwen3-14b").with_(num_layers=TP_SERVE_LAYERS)
     layers = cfg.num_layers
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -5349,18 +5419,17 @@ def _leaves(tree):
 
 
 def phase_tp_serve(seed: int, main_run: dict, max_new: int = 16):
-    """Phase 19: full-width Qwen3-14B (40 layers, uncut) served
-    tensor-parallel at tp 2 by two rank processes sharing the card over
-    gloo (``Session.serve(tp=2)`` in each; each rank draws only its
-    shards: 20/4 heads x 128 and d_ff 8704 of every layer, half the
-    vocabulary), phase 5's settings and six prompts on the mixed step,
-    then the split path on the same shards. Checks on each rank as phase 5
-    and 5b check theirs; the per-rank KV bytes must be half of phase 5's
-    pool. Prints tokens/s, step p50, each rank's peak memory and the
-    share of tokens equal to phase 5's streams (reported: bf16 sums the
-    row-parallel partials in another order). Two ranks share one card's
-    SMs and gloo stages every all-reduce through host memory: these
-    numbers are not tensor parallelism's speed."""
+    """Phase 19: full-width Qwen3-14B, depth cut to ``TP_SERVE_LAYERS``
+    (20 of 40), served tensor-parallel at tp 2 by two rank processes
+    sharing the card over gloo (``Session.serve(tp=2)`` in each; each rank
+    draws only its shards: 20/4 heads x 128 and d_ff 8704 of every layer,
+    half the vocabulary), phase 5's settings and six prompts on the mixed
+    step, then the split path on the same shards. Checks on each rank as
+    phase 5 and 5b check theirs; the per-rank KV bytes must be half of
+    phase 5's pool's share of its layers. Prints tokens/s, step p50 and
+    each rank's peak memory. Two ranks share one card's SMs and gloo
+    stages every all-reduce through host memory: these numbers are not
+    tensor parallelism's speed."""
     from repro_torch.configs import get_config
     _, prompts = serving_prompts(seed, get_config("qwen3-14b").vocab_size)
     prompts = [np.asarray(p, np.int32) for p in prompts]
@@ -5372,9 +5441,9 @@ def phase_tp_serve(seed: int, main_run: dict, max_new: int = 16):
     out = {"note": note, "ranks": []}
     for r in ranks:
         kv = r["mixed"]["per_device_kv_bytes"]
-        check(kv * 2 == main_run["kv_bytes"],
+        check(kv * 2 * 40 == main_run["kv_bytes"] * TP_SERVE_LAYERS,
               f"[tp serve] rank {r['rank']} KV {kv} B x 2 != phase 5's "
-              f"{main_run['kv_bytes']} B")
+              f"{main_run['kv_bytes']} B x {TP_SERVE_LAYERS} / 40 layers")
         for name in ("mixed", "split"):
             check(r[name]["streams"] == ranks[0][name]["streams"],
                   f"[tp serve {name}] rank {r['rank']} streams differ from "
@@ -5383,11 +5452,8 @@ def phase_tp_serve(seed: int, main_run: dict, max_new: int = 16):
     r0 = ranks[0]
     for name in ("mixed", "split"):
         run = r0[name]
-        got, want = run["streams"], main_run["streams"]
-        run["agree_with_phase5"] = sum(
-            a == b for g, w in zip(got, want) for a, b in zip(g, w)) / (
-            max_new * len(prompts))
-        log(f"[tp serve {name}] Qwen3-14B tp 2 ({r0['heads'][0]}/"
+        log(f"[tp serve {name}] Qwen3-14B {TP_SERVE_LAYERS} layers tp 2 "
+            f"({r0['heads'][0]}/"
             f"{r0['heads'][1]} heads a rank, {r0['weights_gb']:.2f} GB of "
             f"weights a rank, built in {r0['build_s']:.1f}s): "
             f"{run['tokens']} tokens in {run['wall_s']:.2f}s = "
@@ -5397,9 +5463,8 @@ def phase_tp_serve(seed: int, main_run: dict, max_new: int = 16):
             f"{[round(x['peak_mem_gb'], 2) for x in ranks]} GB; KV "
             f"{run['per_device_kv_bytes'] / 1e9:.3f} GB a rank of "
             f"{run['kv_bytes'] / 1e9:.3f} GB; launches a rank "
-            f"{run['launches']}; collectives a rank {run['collectives']}; "
-            f"{run['agree_with_phase5']:.1%} of tokens equal to phase 5's "
-            f"streams (information) — {note}")
+            f"{run['launches']}; collectives a rank {run['collectives']} — "
+            f"{note}")
     out["mixed"], out["split"] = r0["mixed"], r0["split"]
     return out
 
@@ -6203,6 +6268,8 @@ ZAMBA_TP_FLASH = tuple((1, n, n, 16, 16, 64) for n in SSM_PROMPTS)
 ZAMBA_TP_MLP = (2048, 4096, (4,) + SSM_PROMPTS)
 SSM_TP_NEW, SSM_TP_F32_NEW = 32, 8
 SSM_TP_TIMEOUT_S = 480.0
+#: the seconds phase 30 adds to phase 27's rank processes
+VLM_TP_TIMEOUT_S = 360.0
 
 
 def phase_ssm_tp_kernels(seed: int):
@@ -6253,7 +6320,8 @@ def _ssm_tp_rank(rank: int, world: int, seed: int):
     ``seed``) on phase 7's / 11's six prompts, in bf16 (32 new tokens)
     and in f32 (8), each run through ``_drive`` (launches counted from 0
     just before, as ``_ssm_want`` / ``_hybrid_want`` say), its
-    collectives and their bytes by label."""
+    collectives and their bytes by label; then phase 30 on the same rank
+    process (``_vlm_tp_rank``)."""
     from repro_torch.api import Session
     from repro_torch.configs import get_config
     _tp_rank_setup()
@@ -6296,6 +6364,7 @@ def _ssm_tp_rank(rank: int, world: int, seed: int):
             gc.collect()
             torch.cuda.empty_cache()
         out[arch] = rec
+    out["vlm"] = _vlm_tp_rank(rank, world, seed)     # phase 30, same ranks
     return out
 
 
@@ -6317,7 +6386,11 @@ def phase_ssm_tp_serve(seed: int, singles: dict, smi: str):
     share of bf16 tokens equal to phase 7's / 11's streams is reported:
     bf16 sums the row-parallel partials in another order. Two ranks share
     one card's SMs and gloo stages each all-reduce through host memory:
-    not tensor parallelism's speed."""
+    not tensor parallelism's speed. Phase 30's f32 reference
+    (``_vlm_one_device_f32``) runs and is freed before the ranks start,
+    and phase 30 runs on the same rank processes after phase 27: its
+    records stay in ``out["ranks"]`` (``"vlm"``) and its reference in
+    ``out["vlm_one_device_f32"]`` for ``phase_vlm_tp_serve``."""
     from repro_torch.api import Session
     from repro_torch.configs import get_config
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6336,12 +6409,15 @@ def phase_ssm_tp_serve(seed: int, singles: dict, smi: str):
         del eng
         gc.collect()
         torch.cuda.empty_cache()
-    ranks = _spawn_ranks(_ssm_tp_rank, (seed,), SSM_TP_TIMEOUT_S,
-                         "SSM and hybrid tp serve")
+    vlm_one = _vlm_one_device_f32(seed)        # phase 30's f32 reference
+    ranks = _spawn_ranks(_ssm_tp_rank, (seed,),
+                         SSM_TP_TIMEOUT_S + VLM_TP_TIMEOUT_S,
+                         "SSM, hybrid and VLM tp serve")
     note = ("two ranks share one card's SMs and gloo stages each "
             "all-reduce through host memory: not tensor parallelism's "
             "speed")
-    out = {"note": note, "card": smi, "ranks": ranks, "one_device_f32": one}
+    out = {"note": note, "card": smi, "ranks": ranks, "one_device_f32": one,
+           "vlm_one_device_f32": vlm_one}
     for arch in SSM_TP_SSD:
         cfg = get_config(arch)
         g = cfg.num_layers // cfg.hybrid_attn_every \
@@ -6412,10 +6488,12 @@ def phase_ssm_tp_serve(seed: int, singles: dict, smi: str):
 
 # ---------------------------------- phases 3, 4, 23: context-parallel decode
 
-#: phase 23: Qwen3-14B uncut at tp 2 with ``cp_decode``: an 8,192-token
-#: prompt and 32 new tokens (8,224 cache positions: 4,112 a rank); its f32
-#: check at 2 layers, full width: a 1,024-token prompt and 8 decode steps
-CP_PROMPT, CP_NEW = 8192, 32
+#: phase 23: Qwen3-14B at full width, depth cut to ``CP_LAYERS`` (20 of
+#: 40: the script's time limit, since phases 30-31), at tp 2 with
+#: ``cp_decode``: an 8,192-token prompt and 32 new tokens (8,224 cache
+#: positions: 4,112 a rank); its f32 check at 2 layers, full width: a
+#: 1,024-token prompt and 8 decode steps
+CP_LAYERS, CP_PROMPT, CP_NEW = 20, 8192, 32
 CP_F32_LAYERS, CP_F32_PROMPT, CP_F32_STEPS = 2, 1024, 8
 #: the f32 check's bound on |CP - head-sharded| logits, as a share of the
 #: head-sharded logits' largest magnitude: the two differ only in the
@@ -6768,7 +6846,7 @@ def _cp_serve_rank(rank: int, world: int, seed: int, prompt, f32_tokens):
     from repro_torch.serve.step import greedy_generate
     torch.cuda.set_device(0)
     mesh = make_mesh((1, world), ("data", "model"))
-    base = get_config("qwen3-14b")
+    base = get_config("qwen3-14b").with_(num_layers=CP_LAYERS)
     strategy = Strategy(dtype=base.dtype)
     t0 = time.perf_counter()
     params = init_params(base, device="cuda", seed=seed,
@@ -6851,15 +6929,15 @@ def _cp_serve_rank(rank: int, world: int, seed: int, prompt, f32_tokens):
 
 
 def phase_cp_serve(seed: int, smi: str):
-    """Phase 23: Qwen3-14B at full width (40 layers uncut, 40/8 heads x
-    128, d_ff 17408, bf16) with ``cp_decode`` at tp 2, two rank processes
-    sharing the card over gloo, each drawing only its shards (20/4 heads,
-    d_ff 8704, half the vocabulary: 14.77 GB). ``greedy_generate`` on one
+    """Phase 23: Qwen3-14B at full width (40/8 heads x 128, d_ff 17408,
+    bf16), depth cut to ``CP_LAYERS`` (20 of 40), with ``cp_decode`` at
+    tp 2, two rank processes sharing the card over gloo, each drawing only
+    its shards (20/4 heads, d_ff 8704, half the vocabulary: ~8.2 GB). ``greedy_generate`` on one
     8,192-token prompt for 32 new tokens under the rank (8,224 positions:
     4,112 a rank, all 8 K/V heads; every decode step context-parallel),
     then the head-sharded path on the same shards (all 8,224 positions, 4
     heads a rank). Launches counted from 0 just before each and read just
-    after: flash 40 (one prefill), the fused MLP 40 x 32 (the prefill and
+    after: flash 20 (one prefill), the fused MLP 20 x 32 (the prefill and
     31 decode steps), paged attention and the SSD scan never; both ranks'
     streams equal on each path, every token in the vocabulary, the CP
     cache a rank its 4,112 positions. Prints prefill seconds, decode
@@ -6873,7 +6951,7 @@ def phase_cp_serve(seed: int, smi: str):
     outside it. Two ranks share one card's SMs and gloo stages each
     collective through host memory: not context parallelism's speed."""
     from repro_torch.configs import get_config
-    cfg = get_config("qwen3-14b")
+    cfg = get_config("qwen3-14b").with_(num_layers=CP_LAYERS)
     rng = np.random.default_rng(seed + 23)
     prompt = rng.integers(0, cfg.vocab_size, size=(CP_PROMPT,)).astype(
         np.int32)
@@ -7018,7 +7096,7 @@ def _training_flash(seed: int, shapes, f32_shapes):
             .max().item()
         if causal:
             bad = fa.flash_attention_plain(q, k, v, causal=True,
-                                           window=n - 64)
+                                           window=n - min(64, n // 2))
         else:
             keep = t - (t % 128 or 128)
             bad = fa.flash_attention_plain(q, k[:, :keep], v[:, :keep],
@@ -7072,13 +7150,15 @@ def _rank_log(rank: int, msg: str, tag: str = "sharded train") -> None:
 
 def _sharded_bf16_run(mesh, cfg, name: str, seed: int, *,
                       steps: int = SHARDED_STEPS, batch: int = SHARDED_BATCH,
-                      seq: int = SHARDED_SEQ, data=None):
-    """One of phase 24's runs on this rank: a Trainer on ``mesh`` drawing
-    only its shards, ``steps`` steps on the token dataset's global
-    batches of ``batch`` x ``seq`` from ``seed`` (or on ``data``);
-    launches counted from 0 just before the steps; each step's time,
-    metrics and the fingerprints of the data-replicated param blocks; the
-    last step's collectives and bytes."""
+                      seq: int = SHARDED_SEQ, data=None,
+                      runs=SHARDED_RUNS, prepare=None):
+    """One of phase 24's runs on this rank (``runs[name]``: its Strategy
+    keywords): a Trainer on ``mesh`` drawing only its shards (then
+    ``prepare(params)``, where given), ``steps`` steps on the token
+    dataset's global batches of ``batch`` x ``seq`` from ``seed`` (or on
+    ``data``); launches counted from 0 just before the steps; each step's
+    time, metrics and the fingerprints of the data-replicated param
+    blocks; the last step's collectives and bytes."""
     from repro_torch import kernels
     from repro_torch.core.strategy import Strategy
     from repro_torch.train.trainer import TrainConfig, Trainer
@@ -7086,11 +7166,13 @@ def _sharded_bf16_run(mesh, cfg, name: str, seed: int, *,
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    strategy = Strategy(dtype=cfg.dtype, **SHARDED_RUNS[name])
+    strategy = Strategy(dtype=cfg.dtype, **runs[name])
     t0 = time.perf_counter()
     trainer = Trainer(cfg, strategy, "cuda", TrainConfig(
         steps=steps, lr=3e-4, log_every=1, seed=seed), data=data,
         global_batch=batch, seq_len=seq, mesh=mesh)
+    if prepare is not None:
+        prepare(trainer.params)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     r = trainer.rank
@@ -7249,11 +7331,11 @@ def _sharded_f32_rank(mesh, seed: int, data, cfg=None, defects=None):
 
 
 def _sharded_train_rank(rank: int, world: int, seed: int, f32_tokens,
-                        ssm_tokens, whisper_f32):
+                        ssm_tokens, whisper_f32, vlm_f32):
     """One rank of phase 24 on cuda:0 (gloo): the three bf16 runs, then
     the f32 check; then phase 25 (``_pipe_rank``), phase 28
-    (``_ssm_sharded_rank``) and phase 29 (``_whisper_sharded_rank``) on
-    the same ranks."""
+    (``_ssm_sharded_rank``), phase 29 (``_whisper_sharded_rank``) and
+    phase 31 (``_vlm_sharded_rank``) on the same ranks."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_mesh
     _tp_rank_setup()
@@ -7272,15 +7354,17 @@ def _sharded_train_rank(rank: int, world: int, seed: int, f32_tokens,
     out["pipe"] = _pipe_rank(rank, seed)           # phase 25, same ranks
     out["ssm"] = _ssm_sharded_rank(rank, mesh, seed, ssm_tokens)
     out["whisper"] = _whisper_sharded_rank(rank, mesh, seed, whisper_f32)
+    out["vlm"] = _vlm_sharded_rank(rank, mesh, seed, vlm_f32)
     return out
 
 
-#: phase 28: Mamba2-780M at full width, depth cut to 24 of 48 layers
-#: (the script's time limit), at dp 2 x tp 2 on phase 24's ranks, its
+#: phase 28: Mamba2-780M at full width, depth cut to 12 of 48 layers
+#: (the script's time limit: 24 until phases 30-31), at dp 2 x tp 2 on
+#: phase 24's ranks, its
 #: runs, steps, batch and sequence; its f32 check at 2 layers, full width,
 #: on phase 24's 2 x 256 tokens
 SSM_SHARDED_ARCH, SSM_SHARDED_LAYERS, SSM_SHARDED_F32_LAYERS = \
-    "mamba2-780m", 24, 2
+    "mamba2-780m", 12, 2
 #: its f32 defects: phase 24's, and the gated norm's sum with the
 #: identity for a backward
 SSM_SHARDED_DEFECTS = dict(SHARDED_DEFECTS, **{
@@ -7347,15 +7431,24 @@ def phase_train_sharded(seed: int, smi: str):
         "frames": rng.standard_normal((WHISPER_SHARDED_F32_BATCH,
                                        wcfg.encoder_ctx, wcfg.d_model),
                                       dtype=np.float32)}
+    vcfg = get_config("llama-3.2-vision-90b")
+    vlm_f32 = {
+        "tokens": rng.integers(0, vcfg.vocab_size, size=(
+            VLM_SHARDED_F32_BATCH, VLM_SHARDED_F32_SEQ)).astype(np.int32),
+        "image_embeds": rng.standard_normal(
+            (VLM_SHARDED_F32_BATCH, vcfg.num_image_tokens, vcfg.d_model),
+            dtype=np.float32)}
     gc.collect()
     torch.cuda.empty_cache()
     ranks = _spawn_ranks(_sharded_train_rank,
-                         (seed, f32_tokens, ssm_tokens, whisper_f32),
+                         (seed, f32_tokens, ssm_tokens, whisper_f32,
+                          vlm_f32),
                          SHARDED_TIMEOUT_S + PIPE_TIMEOUT_S
                          + SSM_SHARDED_TIMEOUT_S
-                         + WHISPER_SHARDED_TIMEOUT_S,
-                         "sharded train, pipeline, SSM and whisper sharded "
-                         "train", world=math.prod(SHARDED_MESH))
+                         + WHISPER_SHARDED_TIMEOUT_S
+                         + VLM_SHARDED_TIMEOUT_S,
+                         "sharded train, pipeline, SSM, whisper and VLM "
+                         "sharded train", world=math.prod(SHARDED_MESH))
     want = {"flash_attention": SHARDED_LAYERS * 2 * SHARDED_STEPS,
             "fused_mlp": 0, "paged_attention": 0, "ssd_scan": 0}
     out = _sharded_checks(ranks, f"Qwen3-14B {SHARDED_LAYERS} layers",
@@ -7368,7 +7461,7 @@ def phase_train_sharded(seed: int, smi: str):
 def phase_ssm_train_sharded(ranks, smi: str):
     """Phase 28: SHARDED TRAINING OF THE SSM FAMILY, on phase 24's four
     rank processes (``_ssm_sharded_rank``): Mamba2-780M at full width,
-    depth cut to ``SSM_SHARDED_LAYERS`` (24 of 48), 24 of 48 SSD heads a
+    depth cut to ``SSM_SHARDED_LAYERS`` (12 of 48), 24 of 48 SSD heads a
     rank (``in_proj`` and the conv by head with all of B and C), at dp 2
     x tp 2, phase 24's three runs
     (ZeRO-1, FSDP, sequence parallelism) of its steps and batches, and its
@@ -7510,19 +7603,22 @@ def _sharded_checks(ranks, model: str, f32_model: str, want: dict,
                     defects: dict, smi: str, tag: str, *,
                     steps: int = SHARDED_STEPS, batch: int = SHARDED_BATCH,
                     seq: int = SHARDED_SEQ,
-                    f32_shape=(SHARDED_BATCH, SHARDED_F32_SEQ)) -> dict:
-    """Phase 24's (and 28's, 29's) checks over the ranks' records:
-    launches as ``want`` on each rank and run; the same metrics on every
-    rank each step, finite; the data replicas' param blocks equal bit for
-    bit; then the f32 check's runs within its bounds and each of
-    ``defects`` outside them. ``steps`` of ``batch`` x ``seq`` tokens a
+                    f32_shape=(SHARDED_BATCH, SHARDED_F32_SEQ),
+                    runs_by_name=SHARDED_RUNS, f32_runs=None) -> dict:
+    """Phase 24's (and 28's, 29's, 31's) checks over the ranks' records:
+    launches as ``want`` on each rank and run of ``runs_by_name``; the
+    same metrics on every rank each step, finite; the data replicas'
+    param blocks equal bit for bit; then the f32 check's runs within its
+    bounds (params; gradients too where a run reports them; the runs of
+    ``f32_runs``, default ``runs_by_name``) and each of ``defects``
+    outside them. ``steps`` of ``batch`` x ``seq`` tokens a
     run, the f32 check's ``f32_shape``. Logs each run and returns the
     summary."""
     note = ("four ranks share one card's SMs and gloo stages every "
             "collective through host memory: not parallelism's speed")
     out = {"note": note, "card": smi}
     tokens_step = batch * seq
-    for name in SHARDED_RUNS:
+    for name in runs_by_name:
         for r in ranks:
             run, rt = r[name], f"[{tag} {name}] rank {r['rank']}"
             check(run["launches"] == want,
@@ -7538,7 +7634,7 @@ def _sharded_checks(ranks, model: str, f32_model: str, want: dict,
                     check(other[name]["fingerprints"] == run["fingerprints"],
                           f"{rt}: its data replica's param blocks differ")
         r0 = ranks[0][name]
-        check(name == "fsdp" or r0["replicated_leaves"] > 0,
+        check("fsdp" in name or r0["replicated_leaves"] > 0,
               f"[{tag} {name}] no data-replicated block to compare")
         p50 = float(np.percentile(r0["step_s"], 50))
         out[name] = {"step_p50_s": p50, "tokens_per_s": tokens_step / p50,
@@ -7548,7 +7644,7 @@ def _sharded_checks(ranks, model: str, f32_model: str, want: dict,
         log(f"[{tag} {name}] {model}, full width, "
             f"dp 2 x tp 2 on {smi}: {r0['params_rank'] / 1e9:.3f} B params "
             f"({r0['param_gb_rank']:.2f} GB) and {r0['state_gb_rank']:.2f} GB "
-            f"of AdamW state a rank (drawn in {r0['build_s']:.1f}s); "
+            f"of optimizer state a rank (drawn in {r0['build_s']:.1f}s); "
             f"{steps} steps of {batch} x {seq} "
             f"tokens: step p50 {p50:.3f} s ({[round(x, 3) for x in r0['step_s']]}"
             f"), {tokens_step / p50:.1f} tokens/s; peak memory a rank "
@@ -7563,14 +7659,19 @@ def _sharded_checks(ranks, model: str, f32_model: str, want: dict,
     check(all(r["f32"]["one_device"]["loss"] == f["one_device"]["loss"]
               for r in ranks), f"[{tag} f32] the one-device step's loss "
                                "differs between ranks after its broadcast")
+    def worst(rec):
+        return max(rec["param_error_of_limit"],
+                   rec.get("grad_error_of_limit", 0.0))
+
+    f32_runs = runs_by_name if f32_runs is None else f32_runs
     for r in ranks:             # each rank's own blocks; the worst kept
-        for name in list(SHARDED_RUNS) + list(defects):
-            if r["f32"][name]["param_error_of_limit"] > \
-                    f[name]["param_error_of_limit"]:
-                f[name] = r["f32"][name]
-            f[name]["loss_err"] = max(f[name]["loss_err"],
-                                      r["f32"][name]["loss_err"])
-    for name in SHARDED_RUNS:
+        for name in list(f32_runs) + list(defects):
+            mine = r["f32"][name]
+            loss_err = max(f[name]["loss_err"], mine["loss_err"])
+            if worst(mine) > worst(f[name]):
+                f[name] = dict(mine)
+            f[name]["loss_err"] = loss_err
+    for name in f32_runs:
         rec = f[name]
         check(rec["loss_err"] <= SHARDED_LOSS_TOL,
               f"[{tag} f32 {name}] loss {rec['loss']} is {rec['loss_err']} "
@@ -7578,23 +7679,674 @@ def _sharded_checks(ranks, model: str, f32_model: str, want: dict,
         check(rec["param_error_of_limit"] <= 1.0,
               f"[{tag} f32 {name}] {rec['worst_leaf']} at "
               f"{rec['param_error_of_limit']:.3f}x atol/rtol 5e-4")
+        check(rec.get("grad_error_of_limit", 0.0) <= 1.0,
+              f"[{tag} f32 {name}] the gradient of {rec.get('worst_grad_leaf')}"
+              f" at {rec.get('grad_error_of_limit', 0.0):.3f}x its bound")
     for name in defects:
-        check(f[name]["param_error_of_limit"] > 1.0,
+        check(worst(f[name]) > 1.0,
               f"[{tag} f32] the check passes the defect '{name}' "
-              f"({f[name]['param_error_of_limit']:.3f}x)")
+              f"({worst(f[name]):.3f}x)")
     out["f32"] = f
     log(f"[{tag} f32] {f32_model}, full width, "
         f"f32, {f32_shape[0]} x {f32_shape[1]} tokens, lr "
         f"{SHARDED_F32_LR}: one-device loss {f['one_device']['loss']:.6f} "
         f"(step {f['one_device']['step_s']:.2f} s, peak "
-        f"{f['one_device']['peak_mem_gb']:.2f} GB; broadcast to the ranks "
-        f"in {max(r['f32']['broadcast_s'] for r in ranks):.1f} s); "
+        f"{f['one_device']['peak_mem_gb']:.2f} GB; "
+        + (f"broadcast to the ranks in "
+           f"{max(r['f32']['broadcast_s'] for r in ranks):.1f} s); "
+           if "broadcast_s" in f else "run by each rank in turn); ")
         + "; ".join(f"{n}: loss err {f[n]['loss_err']:.2e}, worst param "
                     f"{f[n]['param_error_of_limit']:.3f}x the limit "
-                    f"({f[n]['worst_leaf']})" for n in SHARDED_RUNS)
-        + "; " + "; ".join(f"{n}: {f[n]['param_error_of_limit']:.1f}x the "
-                           f"limit" for n in defects)
+                    f"({f[n]['worst_leaf']})"
+                    + (f", worst gradient {f[n]['grad_error_of_limit']:.3f}x"
+                       f" ({f[n]['worst_grad_leaf']})"
+                       if "grad_error_of_limit" in f[n] else "")
+                    for n in f32_runs)
+        + "; " + "; ".join(f"{n}: {worst(f[n]):.1f}x the limit"
+                           for n in defects)
         + f" (atol / rtol {SHARDED_PARAM_TOL}, loss {SHARDED_LOSS_TOL})")
+    return out
+
+
+# ------------------------------------------ phases 3, 30-31: the VLM on a mesh
+
+#: Llama-3.2-Vision-90B at a tp 2 rank: 32/4 heads x 128 and d_ff 14336
+#: of 28672. Phase 30 serves phase 17's cut (20 layers) at tp 2 on phase
+#: 27's two ranks; its f32 check, and phase 31's, at full width cut to one
+#: self and one cross layer (``cross_attn_every=1, num_layers=2``, and the
+#: unused trailing layer: 4.67 B params, 18.7 GB in f32)
+VLM_TP_HEADS = (VLM_HEADS[0] // 2, VLM_HEADS[1] // 2, VLM_HEADS[2])
+VLM_TP_MLP = (VLM_MLP[0], VLM_MLP[1] // 2)
+VLM_F32_CUT = dict(cross_attn_every=1, num_layers=2)
+VLM_TP_F32_NEW = 8
+#: the f32 check's bound on the first prefill's logits (tp 2 against one
+#: device: only the order of fp32 sums differs)
+VLM_TP_LOGITS_TOL = 1e-3
+#: phase 31: one group (4 self and 1 cross layer, the unused trailing one:
+#: 7.235 B params) at dp 2 x tp 2 on phase 24's four ranks, FSDP + SP +
+#: remat with Adafactor, gates open, 2 steps (the script's time limit: a
+#: step sends ~17 GB a rank through gloo) of 2 x 1024 tokens beside a
+#: (2, 1601, 8192) image block; its f32 check at ``VLM_F32_CUT`` on 2 x
+#: 256 tokens and 2 image blocks, lr 1e-3, params at the reference test's
+#: 5e-4 and the norms' and gates' gradients before clipping at atol 1e-6
+#: + rtol 1e-3
+VLM_SHARDED_LAYERS, VLM_SHARDED_STEPS = 5, 2
+VLM_SHARDED_BATCH, VLM_SHARDED_SEQ = 2, 1024
+VLM_SHARDED_RUNS = {"fsdp sp remat": dict(fsdp=True, seq_parallel=True,
+                                          optimizer="adafactor")}
+VLM_SHARDED_F32_BATCH, VLM_SHARDED_F32_SEQ = 2, 256
+VLM_GRAD_LEAVES = ("ln1", "ln2", "lnx", "final_norm", "gate_attn",
+                   "gate_mlp")
+VLM_GRAD_ATOL, VLM_GRAD_RTOL = 1e-6, 1e-3
+VLM_SHARDED_TIMEOUT_S = 600.0
+#: the rank shapes flash takes in phase 31: a data rank's one row of 1024
+#: tokens at a tp 2 rank's heads (bf16); the f32 check's one row of 256 at
+#: a rank and its one-device step's two rows at all 64/8 heads
+VLM_TRAIN_TP_FLASH = ((1, VLM_SHARDED_SEQ, VLM_SHARDED_SEQ) + VLM_TP_HEADS,)
+VLM_TRAIN_TP_F32_FLASH = (
+    (1, VLM_SHARDED_F32_SEQ, VLM_SHARDED_F32_SEQ) + VLM_TP_HEADS,
+    (VLM_SHARDED_F32_BATCH, VLM_SHARDED_F32_SEQ, VLM_SHARDED_F32_SEQ)
+    + VLM_HEADS)
+
+
+def _vlm_mlp_weights(gen, dtype, f: int):
+    """An MLP's weights of Llama-3.2-Vision-90B at d 8192 and ``f`` (a tp 2
+    rank's 14336, or the whole 28672) at the uncut model's init scales
+    (``w_down`` at 0.02 / sqrt(200), as phases 17 and 30 serve them)."""
+    from repro_torch.configs import get_config
+    d = VLM_MLP[0]
+    layers = get_config("llama-3.2-vision-90b").num_layers
+    wg, wu = ((torch.randn((d, f), generator=gen, device="cuda")
+               * 0.02).to(dtype) for _ in range(2))
+    wd = (torch.randn((f, d), generator=gen, device="cuda")
+          * (0.02 / math.sqrt(2 * layers))).to(dtype)
+    return wg, wu, wd
+
+
+def _mlp_f32(gen, f: int, rows: int) -> dict:
+    """The fp32 fused MLP (TF32 off) at d 8192, ``f``, ``rows`` rows per
+    value against its plain version (atol 1e-5 + rtol 1e-4), shown to
+    reject a dropped 64-wide f tile."""
+    from repro_torch.kernels import fused_mlp as fm
+    wg, wu, wd = _vlm_mlp_weights(gen, torch.float32, f)
+    x = torch.randn((rows, VLM_MLP[0]), generator=gen, device="cuda")
+    want = fm.fused_mlp_plain(x, wg, wu, wd)
+    e = worst_excess(fm.fused_mlp(x, wg, wu, wd), want, 1e-5, 1e-4)
+    wd[f // 2:f // 2 + 64] = 0
+    bad = worst_excess(fm.fused_mlp_plain(x, wg, wu, wd), want, 1e-5, 1e-4)
+    check(e <= 1.0, f"fused MLP fp32 at T={rows} d=8192 f={f}: worst error "
+                    f"{e:.3f}x atol 1e-5 + rtol 1e-4")
+    check(bad > 1.0, f"the fp32 MLP check at T={rows} f={f} passes a "
+                     f"dropped f tile ({bad:.3f}x)")
+    log(f"[mlp f32 T={rows} d=8192 f={f}] worst error {e:.3f}x the limit "
+        f"(atol 1e-5, rtol 1e-4); a dropped 64-wide f tile would be "
+        f"{bad:.1f}x")
+    return {"t": rows, "d": VLM_MLP[0], "f": f, "dtype": "float32",
+            "error_of_limit": e, "dropped_tile_error_of_limit": bad}
+
+
+def phase_vlm_tp_kernels(seed: int):
+    """Flash and the fused MLP at the rank shapes phases 30 and 31 give
+    them. bf16, per value at phase 3's limits, each shown to reject its
+    defect, timed beside SDPA / three matmuls with its bound: flash causal
+    at (1, S, S, 32, 4, 128) for each of phase 17's prompt lengths (phase
+    30's prefills) and at ``VLM_TRAIN_TP_FLASH`` (phase 31's forward, with
+    its plain backward timed); the fused MLP at d 8192, f 14336 for the 4
+    rows of a split-path decode step and each prompt length. fp32 (TF32
+    off): flash at the f32 checks' shapes (phase 30's prefills at a rank's
+    32/4 heads and at the one device's 64/8, phase 31's
+    ``VLM_TRAIN_TP_F32_FLASH``) within phase 3's 2e-6, each rejecting
+    dropped keys; the MLP at a rank's and the whole f for the decode step
+    and the longest prompt (``_mlp_f32``). Inputs come from a generator of
+    their own. Returns {kernel name: records}."""
+    rng = np.random.default_rng(seed + 3031)
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
+    hq, hkv, d = VLM_TP_HEADS
+    lens = vlm_prompt_lens(seed)
+    serve = [_flash_shape(gen, (1, n, n, hq, hkv, d), 1e-5, 8e-3, timed=True)
+             for n in lens]
+    serve_f32 = tuple((1, n, n) + heads for n in (lens[0], lens[-1])
+                      for heads in (VLM_TP_HEADS, VLM_HEADS))
+    train = _training_flash(seed + 3131, VLM_TRAIN_TP_FLASH,
+                            VLM_TRAIN_TP_F32_FLASH + serve_f32)
+    wg, wu, wd = _vlm_mlp_weights(gen, torch.bfloat16, VLM_TP_MLP[1])
+    mlp = [_mlp_rows(gen, rows, wg, wu, wd, 1e-3, 8e-3, timed=True)
+           for rows in [4] + lens]
+    del wg, wu, wd
+    torch.cuda.empty_cache()
+    mlp += [_mlp_f32(gen, f, rows) for f in (VLM_TP_MLP[1], VLM_MLP[1])
+            for rows in (4, lens[-1])]
+    torch.cuda.empty_cache()
+    return {"flash_attention": {"vlm_tp2": serve,
+                                "vlm_train_tp": train["flash_attention"]},
+            "fused_mlp": {"vlm_tp2": mlp}}
+
+
+def _vlm_serve_f32(cfg, seed: int, prompts, images, tag: str, tp=None):
+    """The f32 check's run of phase 30 on one engine: on one device, or
+    (``tp``) on this rank's shards through ``Session.serve(tp=)``, the
+    weights drawn from ``seed`` either way (a rank draws only its blocks
+    of them) with both gates open; the first request alone for one token
+    (its prefill's logits kept), then the others for ``VLM_TP_F32_NEW``
+    tokens each; launches counted from 0 just before the first step.
+    Returns the first logits (on the host), the streams, the launches and
+    what ``_vlm_want`` says of them."""
+    from repro_torch import kernels
+    from repro_torch.api import Session
+    eng = Session(cfg, device="cuda", seed=seed).serve(tp=tp, slots=4,
+                                                       max_len=1024)
+    _open_gates(eng.params)
+    kernels.reset_launches()
+    eng.submit(0, prompts[0], max_new=1, images=images[0])
+    eng.step()
+    first = eng.last_logits.detach().float().cpu()
+    for rid in range(1, len(prompts)):
+        eng.submit(rid, prompts[rid], max_new=VLM_TP_F32_NEW,
+                   images=images[rid])
+    while eng.busy():
+        eng.step()
+    torch.cuda.synchronize()
+    res = eng.results()
+    check(all(res[r].done for r in res), f"[{tag}] unfinished requests")
+    out = {"first": first,
+           "streams": [list(res[r].out) for r in range(len(prompts))],
+           "launches": kernels.launches(),
+           "want": _vlm_want(cfg, eng.stats["prefills"],
+                             eng.stats["decode_steps"])}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextmanager
+def _dropped_cross_out_sum():
+    """The defect: each cross layer's output projection without its sum
+    over "model" (``attn_out`` in ``encdec.cross_out``): the rank adds its
+    own heads' partial to the residual. The self layers keep theirs."""
+    from repro_torch.models import encdec, vlm
+    real_out, real_cross = encdec.attn_out, vlm._cross_block
+    inside = []
+
+    def out(p, ctx, cfg, *, sp=False):
+        if not inside:
+            return real_out(p, ctx, cfg, sp=sp)
+        b, s = ctx.shape[:2]
+        return ctx.reshape(b, s, -1) @ p["wo"]
+
+    def cross(*args, **kw):
+        inside.append(True)
+        try:
+            return real_cross(*args, **kw)
+        finally:
+            inside.pop()
+    encdec.attn_out, vlm._cross_block = out, cross
+    try:
+        yield
+    finally:
+        encdec.attn_out, vlm._cross_block = real_out, real_cross
+
+
+def _vlm_requests(seed: int, cfg):
+    """Phase 17's six prompts and their images (``cfg``'s widths)."""
+    _, prompts = serving_prompts(seed, cfg.vocab_size)
+    return ([np.asarray(p, np.int32) for p in prompts],
+            vlm_images(seed, len(prompts), cfg))
+
+
+def _vlm_tp_rank(rank: int, world: int, seed: int):
+    """One rank of phase 30, after phase 27's runs on the same rank
+    process: Llama-3.2-Vision-90B at phase 17's cut through
+    ``Session.serve(tp=)`` (the rank drawing only its shards from
+    ``seed``; ``wo`` and ``w_down`` at the uncut model's init scale and
+    the gates open, as phase 17 serves it) on phase 17's six requests
+    with their images, 16 new tokens each, through ``_drive`` (launches
+    counted from 0 just before: ``_vlm_want`` on the rank's shapes), its
+    collectives and bytes by label; then the f32 check's runs at
+    ``VLM_F32_CUT``: the rank's engine, and the same under
+    ``_dropped_cross_out_sum``."""
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    _tp_rank_setup()
+    full = get_config("llama-3.2-vision-90b")
+    cfg = full.with_(num_layers=VLM_SERVE_LAYERS)
+    prompts, images = _vlm_requests(seed, cfg)
+    t0 = time.perf_counter()
+    eng = Session(cfg, device="cuda", seed=seed).serve(tp=world, slots=4,
+                                                       max_len=1024)
+    _uncut_init_scales(_open_gates(eng.params), cfg, full.num_layers)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    eng._rank.counts.clear()
+    eng._rank.bytes.clear()
+    run = _drive(eng, prompts, VLM_NEW, f"vlm tp bf16 rank {rank}",
+                 mixed=False, images=images)
+    want = _vlm_want(cfg, run["prefills"], run["decode_steps"])
+    check(run["launches"] == want,
+          f"[vlm tp] rank {rank} launches {run['launches']} != {want}")
+    held = {shape[1] for shape in vlm_flash_shapes(seed)}
+    check(set(eng._prefill_lens) <= held,
+          f"[vlm tp] prefill lengths {sorted(eng._prefill_lens)} not all "
+          f"held by phase 3")
+    run.update(rank=rank, build_s=build_s,
+               heads=[eng._rank.heads, eng._rank.kv_heads],
+               weights_gb=sum(v.numel() * v.element_size()
+                              for v in _leaves(eng.params)) / 1e9,
+               collectives=dict(eng._rank.counts),
+               collective_bytes=dict(eng._rank.bytes))
+    out = {"rank": rank, "bfloat16": run}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = full.with_(dtype="float32", **VLM_F32_CUT)
+    prompts, images = _vlm_requests(seed, cfg32)
+    out["float32"] = _vlm_serve_f32(cfg32, seed, prompts, images,
+                                    f"vlm tp f32 rank {rank}", tp=world)
+    with _dropped_cross_out_sum():
+        out["defect"] = _vlm_serve_f32(cfg32, seed, prompts, images,
+                                       f"vlm tp f32 defect rank {rank}",
+                                       tp=world)
+    for key in ("float32", "defect"):
+        out[key]["first"] = out[key]["first"].numpy()
+    return out
+
+
+def _vlm_one_device_f32(seed: int):
+    """Phase 30's f32 reference, run before the ranks start: the engine
+    on one device at ``VLM_F32_CUT`` (TF32 off), freed after its run."""
+    from repro_torch.configs import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("llama-3.2-vision-90b").with_(dtype="float32",
+                                                   **VLM_F32_CUT)
+    prompts, images = _vlm_requests(seed, cfg)
+    t0 = time.perf_counter()
+    out = _vlm_serve_f32(cfg, seed, prompts, images, "vlm f32 one device")
+    out["first"] = out["first"].numpy()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_vlm_tp_serve(ranks, one: dict, single: dict, smi: str):
+    """Phase 30: TENSOR-PARALLEL SERVING OF THE VLM — Llama-3.2-Vision-90B
+    at full width (64/8 heads x 128, d_ff 28672, vocab 128,256, 1601
+    image tokens) cut to phase 17's 20 layers (16 self and 4 cross, the
+    unused trailing one; 20.07 B params), at tp 2 on phase 27's two rank
+    processes (``_vlm_tp_rank``): each rank 32/4 heads of every self and
+    cross layer, d_ff 14336 and half the vocabulary (~20 GB of bf16
+    weights), phase 17's six requests and images, 16 new tokens each, the
+    split path on dense rows (each rank's self K/V rows and image K/V of
+    its 4 K/V heads). Checks on each rank: every request finishes with
+    in-vocab tokens, launches as ``_vlm_want`` says, both ranks' streams
+    equal, one ``attn_out`` and one ``mlp_out`` sum a self and a cross
+    layer a program beside the embedding, logits and sampled-token sums
+    and nothing else but the clock and the program checks. Reports
+    tokens/s, step p50 with prefill and decode-only apart, collectives a
+    program by label and their bytes, peak memory a rank, and the share of
+    tokens equal to phase 17's streams (``single``; information: bf16
+    sums the row-parallel partials in another order). Then the f32 check
+    at full width, depth cut to one self and one cross layer
+    (``VLM_F32_CUT``): both ranks' streams equal the one-device engine's
+    (``one``, run and freed before the ranks started) and their first
+    prefill's logits within ``VLM_TP_LOGITS_TOL``; a run without the
+    cross layer's ``attn_out`` sum is outside it. Two ranks share one
+    card's SMs and gloo stages each all-reduce through host memory: not
+    tensor parallelism's speed."""
+    from repro_torch.configs import get_config
+    cfg = get_config("llama-3.2-vision-90b").with_(
+        num_layers=VLM_SERVE_LAYERS)
+    g, rest = cfg.vlm_groups
+    layers = g * (cfg.cross_attn_every + 1) + rest
+    note = ("two ranks share one card's SMs and gloo stages each "
+            "all-reduce through host memory: not tensor parallelism's "
+            "speed")
+    out = {"note": note, "card": smi, "ranks": ranks,
+           "one_device_f32": {k: v for k, v in one.items() if k != "first"}}
+    r0 = ranks[0]["bfloat16"]
+    for r in ranks:
+        run, tag = r["bfloat16"], f"[vlm tp bf16] rank {r['rank']}"
+        check(run["streams"] == r0["streams"],
+              f"{tag} streams differ from rank 0's")
+        programs = run["prefills"] + run["decode_steps"]
+        c = run["collectives"]
+        want = {"attn_out": layers * programs, "mlp_out": layers * programs,
+                "embed": programs, "logits": programs, "tokens": programs}
+        check({k: c.get(k, 0) for k in want} == want and set(c)
+              <= set(want) | {"clock", "step_check"},
+              f"{tag} collectives {c} != {want} (and the clock and step "
+              f"checks)")
+        check(run["heads"] == [VLM_TP_HEADS[0], VLM_TP_HEADS[1]],
+              f"{tag} heads {run['heads']}")
+        f32 = r["float32"]
+        check(f32["launches"] == f32["want"],
+              f"[vlm tp f32] rank {r['rank']} launches {f32['launches']} != "
+              f"{f32['want']}")
+        check(f32["streams"] == one["streams"],
+              f"[vlm tp f32] rank {r['rank']} streams {f32['streams']} != "
+              f"the one-device f32 engine's {one['streams']}")
+        err = float(np.abs(f32.pop("first") - one["first"]).max())
+        bad = float(np.abs(r["defect"].pop("first") - one["first"]).max())
+        check(err <= VLM_TP_LOGITS_TOL,
+              f"[vlm tp f32] rank {r['rank']} first logits {err:.3e} from "
+              f"the one-device engine's (limit {VLM_TP_LOGITS_TOL})")
+        check(bad > VLM_TP_LOGITS_TOL,
+              f"[vlm tp f32] the check passes a run without the cross "
+              f"layer's attn_out sum ({bad:.3e})")
+        f32.update(first_logits_err=err, defect_first_logits_err=bad,
+                   defect_streams_equal=r["defect"]["streams"]
+                   == one["streams"])
+    r0["agree_with_single"] = sum(
+        a == b for got, want in zip(r0["streams"], single["streams"])
+        for a, b in zip(got, want)) / r0["tokens"]
+    programs = r0["prefills"] + r0["decode_steps"]
+    per_program = {k: round(v / programs, 2)
+                   for k, v in r0["collectives"].items()}
+    mb = {k: round(v / 1e6, 2) for k, v in r0["collective_bytes"].items()}
+    log(_run_text("vlm tp 2 bf16, rank 0", r0)
+        + f"; {r0['heads'][0]}/{r0['heads'][1]} heads a rank, "
+        f"{r0['weights_gb']:.2f} GB of weights a rank (built in "
+        f"{r0['build_s']:.1f}s); peak memory a rank "
+        f"{[round(x['bfloat16']['peak_mem_gb'], 2) for x in ranks]} GB; "
+        f"collectives a program {per_program} (MB in all {mb}); "
+        f"{r0['agree_with_single']:.1%} of tokens equal to phase 17's "
+        f"streams (information) — {note}")
+    f = ranks[0]["float32"]
+    log(f"[vlm tp 2 f32] full width, {VLM_F32_CUT}: both ranks' streams "
+        f"equal the one-device engine's over {len(one['streams'])} requests "
+        f"(one device {one['wall_s']:.1f}s); first prefill's logits max abs "
+        f"err {max(r['float32']['first_logits_err'] for r in ranks):.3e} "
+        f"(limit {VLM_TP_LOGITS_TOL}); without the cross layer's attn_out "
+        f"sum {min(r['float32']['defect_first_logits_err'] for r in ranks):.3e}"
+        f" (streams equal: {f['defect_streams_equal']}); launches a rank "
+        f"{f['launches']} on {smi}")
+    out["bfloat16"], out["float32"] = r0, f
+    return out
+
+
+# -------------------------------------------------------------- phase 31
+
+@contextmanager
+def _dropped_data_sums():
+    """The defect: no gradient sum over "data" — neither "dp_grads" (the
+    leaves FSDP keeps whole) nor the sum in the backward of FSDP's
+    gathers."""
+    from repro_torch.core import tp
+    real = tp._Assemble.apply
+
+    def apply(part, r, axis, shape, where, what, summed):
+        return real(part, r, axis, shape, where, what,
+                    summed and axis != "data")
+    tp._Assemble.apply = apply
+    try:
+        with _dropped_dp_grads():
+            yield
+    finally:
+        del tp._Assemble.apply
+
+
+@contextmanager
+def _dropped_gate_sum():
+    """The defect: under sequence parallelism the two gates without their
+    backward "model" sum (each rank's gradient the partial of its slice
+    of the sequence)."""
+    from repro_torch.models import vlm
+    real = vlm._gate
+    vlm._gate = lambda cp, key, x, sp: real(cp, key, x, False)
+    try:
+        yield
+    finally:
+        vlm._gate = real
+
+
+@contextmanager
+def _dropped_cross_query_entry():
+    """The defect: the cross query's ``region_in`` without its ``enter``
+    (the sequence still gathered under SP): each rank's gradient into the
+    residual stream from its query heads is a partial, never summed."""
+    from repro_torch.core import tp
+    real = tp.region_in
+
+    def dropped(h, what, *, seq=False):
+        if what != "xattn":
+            return real(h, what, seq=seq)
+        return tp.seq_gather(h, what + "_seq") if seq else h
+    tp.region_in = dropped
+    try:
+        yield
+    finally:
+        tp.region_in = real
+
+
+#: phase 31's f32 runs: name -> (mesh shape, Strategy keywords, defect or
+#: None). The good run is the bf16 run's strategy at (2, 2) without remat
+#: (the bf16 run has it; a recompute would gather the layers over gloo
+#: once more); the "data" defect runs there too. The "model" defects run
+#: at (1, 4) under SP without FSDP, beside a good run there: each rank
+#: then holds its quarter of the model whole and a step sends no weights
+#: through gloo (a (2, 2) FSDP step sends ~12 GB a rank in f32)
+VLM_F32_SP = dict(seq_parallel=True, optimizer="adafactor", remat=False)
+VLM_F32_FSDP = dict(VLM_F32_SP, fsdp=True)
+VLM_F32_RUNS = {"(2, 2) fsdp sp": ((2, 2), VLM_F32_FSDP, None),
+                "(1, 4) sp": ((1, 4), VLM_F32_SP, None)}
+VLM_SHARDED_DEFECTS = {
+    "(2, 2) fsdp sp, data gradient sums dropped":
+        ((2, 2), VLM_F32_FSDP, _dropped_data_sums),
+    "(1, 4) sp, gate gradient sums dropped":
+        ((1, 4), VLM_F32_SP, _dropped_gate_sum),
+    "(1, 4) sp, cross query's region_in dropped":
+        ((1, 4), VLM_F32_SP, _dropped_cross_query_entry)}
+
+
+@contextmanager
+def _captured_grads(keep):
+    """The train step's gradient update blocks before clipping, of each
+    flat key ``keep`` accepts, copied to the host into the dict yielded."""
+    from repro_torch.train import step as tstep
+    from repro_torch.tree import flatten
+    real = tstep.clip_by_global_norm
+    got = {}
+
+    def capture(g, max_norm, **kw):
+        got.update({k: v.detach().float().cpu()
+                    for k, v in flatten(g).items() if keep(k)})
+        return real(g, max_norm, **kw)
+    tstep.clip_by_global_norm = capture
+    try:
+        yield got
+    finally:
+        tstep.clip_by_global_norm = real
+
+
+def _vlm_grad_leaf(key: str) -> bool:
+    return key.rsplit("/", 1)[-1] in VLM_GRAD_LEAVES
+
+
+def _vlm_f32_reference(cfg, seed: int, batch, views):
+    """Phase 31's one-device f32 step (Adafactor, gates open), run by
+    each rank in turn alone on the card (a barrier between turns): the
+    rank keeps, on the host, its blocks of the new params and of the
+    norms' and gates' gradients before clipping under each of ``views``
+    ({mesh shape: (training rank, its coordinate)}), and nothing else —
+    no 18.7 GB broadcast."""
+    import torch.distributed as dist
+    from repro_torch.core import tp
+    from repro_torch.core.strategy import Strategy
+    from repro_torch.params import init_params
+    from repro_torch.train import step as tstep
+    from repro_torch.tree import flatten
+    out = {}
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            gc.collect()
+            torch.cuda.empty_cache()
+            st = Strategy(dtype="float32", optimizer="adafactor",
+                          remat=False)
+            params = _open_gates(init_params(cfg, device="cuda",
+                                             seed=seed + 1))
+            step = tstep.make_train_step(cfg, st, lr=SHARDED_F32_LR)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with _captured_grads(_vlm_grad_leaf) as got:
+                new, opt, m = step(params, tstep.init_opt_state(params, st),
+                                   batch)
+            torch.cuda.synchronize()
+            out["one_device"] = {
+                "step_s": time.perf_counter() - t0,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+            flat = flatten(new)
+            for shape, (view, coord) in views.items():
+                out[shape] = (
+                    {k: tp.shard_leaf(v.detach(), view.leaves[k].spec,
+                                      view.axes, coord).cpu()
+                     for k, v in flat.items()},
+                    {k: tp.shard_leaf(g, view.leaves[k].update, view.axes,
+                                      coord) for k, g in got.items()})
+            del params, new, opt, step, m, flat
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def _vlm_sharded_f32_rank(meshes, seed: int, data):
+    """Phase 31's f32 check on this rank (TF32 off), at ``VLM_F32_CUT``
+    with the gates open: the one-device reference (``_vlm_f32_reference``),
+    then each of ``VLM_F32_RUNS`` and ``VLM_SHARDED_DEFECTS`` on the
+    rank's shards (``meshes``: {shape: DeviceMesh}): the run's worst param
+    error of the reference test's 5e-4, worst gradient error of
+    ``VLM_GRAD_ATOL`` + ``VLM_GRAD_RTOL``, its loss's distance and its
+    step's seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tp
+    from repro_torch.core.strategy import Strategy
+    from repro_torch.params import full_shapes, init_params
+    from repro_torch.train import step as tstep
+    from repro_torch.tree import flatten
+    cfg = get_config("llama-3.2-vision-90b").with_(dtype="float32",
+                                                   **VLM_F32_CUT)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+    shapes = full_shapes(cfg)
+    runs = {**VLM_F32_RUNS, **VLM_SHARDED_DEFECTS}
+    views = {}
+    for shape, kw, _ in runs.values():
+        if shape not in views:
+            views[shape] = (tp.Rank.of(meshes[shape], cfg,
+                                       Strategy(dtype="float32", **kw),
+                                       shapes),
+                            tp.coordinate(meshes[shape]))
+    ref = _vlm_f32_reference(cfg, seed, batch, views)
+    out = {"one_device": ref["one_device"]}
+    for name, (shape, kw, defect) in runs.items():
+        mesh = meshes[shape]
+        st = Strategy(dtype="float32", **kw)
+        rank = tp.Rank.of(mesh, cfg, st, shapes)
+        params = _open_gates(init_params(cfg, device="cuda", seed=seed + 1,
+                                         shard=(st, mesh)))
+        step = tstep.make_train_step(cfg, st, lr=SHARDED_F32_LR)
+        want, want_grads = ref[shape]
+        gc.collect()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (defect or nullcontext)(), tp.active(rank), \
+                _captured_grads(_vlm_grad_leaf) as got:
+            opt = tstep.init_opt_state(params, st)
+            new, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        worst, worst_key = 0.0, None
+        for key, block in flatten(new).items():
+            e = _chunked_excess(block.detach(), want[key], SHARDED_PARAM_TOL,
+                                SHARDED_PARAM_TOL)
+            if e > worst:
+                worst, worst_key = e, key
+        gworst, gkey = 0.0, None
+        for key, g in got.items():
+            e = worst_excess(g, want_grads[key], VLM_GRAD_ATOL,
+                             VLM_GRAD_RTOL)
+            if e > gworst:
+                gworst, gkey = e, key
+        out[name] = {"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]), "step_s": step_s,
+                     "param_error_of_limit": worst, "worst_leaf": worst_key,
+                     "grad_error_of_limit": gworst, "worst_grad_leaf": gkey,
+                     "loss_err": abs(float(m["loss"])
+                                     - ref["one_device"]["loss"])}
+        del params, new, opt, step, m, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _vlm_sharded_rank(rank: int, mesh, seed: int, f32_data):
+    """One rank of phase 31, after phase 29 on the same rank processes:
+    the bf16 run (``VLM_SHARDED_RUNS``: a Trainer drawing only its shards,
+    the gates opened before the first step, ``ImagesData`` from ``seed``),
+    then the f32 check (``_vlm_sharded_f32_rank``) on ``mesh`` and a (1,
+    4) mesh of the same ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import ImagesData
+    cfg = get_config("llama-3.2-vision-90b").with_(
+        num_layers=VLM_SHARDED_LAYERS)
+    out = {}
+    t0 = time.perf_counter()
+    for name in VLM_SHARDED_RUNS:
+        data = ImagesData(cfg, global_batch=VLM_SHARDED_BATCH,
+                          seq_len=VLM_SHARDED_SEQ, seed=seed)
+        out[name] = _sharded_bf16_run(
+            mesh, cfg, name, seed, steps=VLM_SHARDED_STEPS,
+            batch=VLM_SHARDED_BATCH, seq=VLM_SHARDED_SEQ, data=data,
+            runs=VLM_SHARDED_RUNS, prepare=_open_gates)
+        _rank_log(rank, f"{name} done at {time.perf_counter() - t0:.1f}s: "
+                        f"steps {[round(x, 3) for x in out[name]['step_s']]}"
+                        f" s, peak {out[name]['peak_mem_gb']:.2f} GB",
+                  "vlm sharded train")
+    meshes = {tuple(SHARDED_MESH): mesh,
+              (1, 4): make_mesh((1, 4), ("data", "model"))}
+    out["f32"] = _vlm_sharded_f32_rank(meshes, seed, f32_data)
+    _rank_log(rank, f"f32 check done at {time.perf_counter() - t0:.1f}s "
+                    f"(one-device step {out['f32']['one_device']['step_s']:.1f}"
+                    f" s): " + ", ".join(
+                        f"{k} {v['step_s']:.1f}s" for k, v in out["f32"].items()
+                        if k != "one_device"), "vlm sharded train")
+    return out
+
+
+def phase_vlm_train_sharded(ranks, smi: str):
+    """Phase 31: SHARDED TRAINING OF THE VLM, on phase 24's four rank
+    processes after phase 29 (``_vlm_sharded_rank``):
+    Llama-3.2-Vision-90B at full width cut to one group
+    (``VLM_SHARDED_LAYERS``: 4 self and 1 cross layer and the unused
+    trailing one, 7.235 B params) at dp 2 x tp 2 under FSDP, sequence
+    parallelism and remat with Adafactor, gates open, 2 steps of 2 x 1024
+    tokens beside a (2, 1601, 8192) image block (``ImagesData``): only
+    FSDP fits four ranks on the card (ZeRO-1 would hold ~7.2 GB of bf16
+    params and as much of gradients a rank). Checks (``_sharded_checks``):
+    flash once a self layer a step and once more for the remat recompute
+    (a data rank's (1, 1024, 1024, 32, 4, 128)), the other kernels never;
+    the same metrics on every rank, the data replicas' whole blocks (the
+    gates) equal bit for bit. Then the f32 check at ``VLM_F32_CUT``
+    (``VLM_F32_RUNS``) with three defects outside its bounds
+    (``VLM_SHARDED_DEFECTS``): no "data" gradient sum, no gate sum under
+    SP, and the cross query's ``region_in`` without its ``enter``."""
+    from repro_torch.configs import get_config
+    cfg = get_config("llama-3.2-vision-90b").with_(
+        num_layers=VLM_SHARDED_LAYERS)
+    g, rest = cfg.vlm_groups
+    selfs = g * cfg.cross_attn_every + rest
+    want = {"flash_attention": VLM_SHARDED_STEPS * 2 * selfs,
+            "fused_mlp": 0, "paged_attention": 0, "ssd_scan": 0}
+    runs = [dict(r.pop("vlm"), rank=r["rank"], coord=r["coord"])
+            for r in ranks]
+    out = _sharded_checks(
+        runs, f"Llama-3.2-Vision-90B {VLM_SHARDED_LAYERS} layers",
+        f"Llama-3.2-Vision-90B {VLM_F32_CUT}", want, VLM_SHARDED_DEFECTS,
+        smi, "vlm sharded train", steps=VLM_SHARDED_STEPS,
+        batch=VLM_SHARDED_BATCH, seq=VLM_SHARDED_SEQ,
+        f32_shape=(VLM_SHARDED_F32_BATCH, VLM_SHARDED_F32_SEQ),
+        runs_by_name=VLM_SHARDED_RUNS, f32_runs=VLM_F32_RUNS)
+    out["ranks"] = runs
     return out
 
 
@@ -8077,6 +8829,11 @@ def main():
         if k["name"] in whisper_tp_shapes:
             k["whisper_train_tp_shapes"] = whisper_tp_shapes[k["name"]]
     mark("3 kernels at whisper-tiny's sharded training rank shapes")
+    vlm_tp_shapes = phase_vlm_tp_kernels(args.seed)
+    for k in kernels:
+        if k["name"] in vlm_tp_shapes:
+            k["vlm_tp_shapes"] = vlm_tp_shapes[k["name"]]
+    mark("3 kernels at Llama-3.2-Vision's tp 2 rank shapes")
     parity = phase_parity()
     record["parity_logits_err"] = parity.pop("mixed")
     record["parity_split_logits_err"] = parity
@@ -8140,8 +8897,10 @@ def main():
         record["sharded_train"]["ranks"], smi)
     record["whisper_sharded_train"] = phase_whisper_train_sharded(
         record["sharded_train"]["ranks"], smi)
-    mark("24-25, 28-29 sharded training, the pipeline, SSM and enc-dec "
-         "sharded training")
+    record["vlm_sharded_train"] = phase_vlm_train_sharded(
+        record["sharded_train"]["ranks"], smi)
+    mark("24-25, 28-29, 31 sharded training, the pipeline, SSM, enc-dec "
+         "and VLM sharded training")
     record["ssm"] = phase_ssm(args.seed)
     mark("7 SSM serving")
     gc.collect()
@@ -8150,10 +8909,6 @@ def main():
     mark("11 hybrid serving")
     gc.collect()
     torch.cuda.empty_cache()
-    record["ssm_tp"] = phase_ssm_tp_serve(
-        args.seed, {"mamba2-780m": record["ssm"],
-                    "zamba2-1.2b": record["hybrid"]}, smi)
-    mark("27 SSM and hybrid tensor-parallel serving")
     record["train_families"] = phase_train_families(args.seed)
     mark("12 SSM and hybrid training")
     gc.collect()
@@ -8186,6 +8941,15 @@ def main():
     mark("17 VLM serving")
     record["vlm_train"] = phase_vlm_train(args.seed)
     mark("18 VLM training")
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["ssm_tp"] = phase_ssm_tp_serve(
+        args.seed, {"mamba2-780m": record["ssm"],
+                    "zamba2-1.2b": record["hybrid"]}, smi)
+    record["vlm_tp"] = phase_vlm_tp_serve(
+        [r.pop("vlm") for r in record["ssm_tp"]["ranks"]],
+        record["ssm_tp"].pop("vlm_one_device_f32"), record["vlm"], smi)
+    mark("27, 30 SSM, hybrid and VLM tensor-parallel serving")
     # each kernel's launches on the paths that run it, each counted from 0
     # just before its run: phase 5 and phases 9-10 (paged attention, the
     # fused MLP; flash in phase 9's model drafter), phase 6 (flash), phase
@@ -8208,7 +8972,8 @@ def main():
     # rank: the SSD scan in both models' prefills, flash and the fused MLP
     # in Zamba2's, bf16 and f32), phase 28 (each rank, each run: none),
     # phase 29 (each rank, each run: flash in the encoder, the decoder and
-    # its remat recompute)
+    # its remat recompute), phase 30 (each rank: flash and the fused MLP,
+    # bf16 and f32), phase 31 (each rank: flash and its remat recompute)
     paths = [main_run, record["train"], record["ssm"],
              *record["spec"].values(), *record["online"].values(),
              record["hybrid"], *record["train_families"].values(),
@@ -8241,7 +9006,13 @@ def main():
              # phases 28-29: each rank's own launches, in each of its runs
              *(r[name] for phase in ("ssm_sharded_train",
                                      "whisper_sharded_train")
-               for r in record[phase]["ranks"] for name in SHARDED_RUNS)]
+               for r in record[phase]["ranks"] for name in SHARDED_RUNS),
+             # phase 30: each rank's own launches, bf16 and f32
+             *(r[dtype] for r in record["vlm_tp"]["ranks"]
+               for dtype in ("bfloat16", "float32")),
+             # phase 31: each rank's own launches
+             *(r[name] for r in record["vlm_sharded_train"]["ranks"]
+               for name in VLM_SHARDED_RUNS)]
     for k in kernels:
         k["launches"] = sum(run["launches"][k["name"]] for run in paths)
     record["kernels"] = kernels

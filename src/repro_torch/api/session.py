@@ -45,14 +45,12 @@ path on the pool; ``paged=False``: the dense per-slot layout), a
 sliding-window config the dense ring, the SSM family and the hybrid the
 split path on the dense layout; ``prefix_cache``, ``lazy`` and
 ``scheduler`` pass through to the engine (on the paged pool); ``tp=N``
-serves a dense or MoE decoder, the enc-dec family, the SSM family or the
-hybrid tensor-parallel, one engine a rank process; ``dp=M`` serves M
-replicas behind a ``ReplicaRouter`` (serve/parallel.py). ``train(tp=,
-dp=)`` trains a dense or MoE decoder, the SSM family, the hybrid or the
-enc-dec family on a ("data", "model") mesh, one trainer a rank process,
-with the strategy's ZeRO-1, FSDP and sequence parallelism (the VLM, and
-TP inside each expert, raise naming their step of ROADMAP.md Queue 1
-item 11).
+serves any family tensor-parallel, one engine a rank process; ``dp=M``
+serves M replicas behind a ``ReplicaRouter`` (serve/parallel.py).
+``train(tp=, dp=)`` trains any family on a ("data", "model") mesh, one
+trainer a rank process, with the strategy's ZeRO-1, FSDP and sequence
+parallelism (TP inside each expert raises naming its step of ROADMAP.md
+Queue 1 item 11).
 ``generate`` is the lockstep greedy loop
 (``serve/step.py::greedy_generate``). ``serve_async`` wraps the engine
 in the online ``AsyncDriver`` (a background step loop, per-request token

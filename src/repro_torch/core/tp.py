@@ -41,7 +41,8 @@ loss, and the gradient taken is that of ONE copy of it:
   family's cross K/V (``enc_out`` in every decoder layer), and the
   replicated leaves used there (Qwen3's ``q_norm``/``k_norm``, ``wk``/
   ``wv`` kept whole where Hkv does not divide tp; under sequence
-  parallelism the norm scales, used on the rank's sequence slice);
+  parallelism the norm scales and the VLM's cross-layer gates, used on
+  the rank's sequence slice);
 * sequence parallelism (Korthikanti): the residual stream between blocks
   is the rank's slice of the sequence. ``seq_gather`` assembles the
   sequence by a zero-filled sum (exact) and hands back the rank's slice
@@ -99,8 +100,8 @@ cache's positions divide tp (replicated where neither does); under
 ``cfg.cp_decode`` a lockstep cache that is no ring is sequence-sharded
 whatever the heads, as the reference's ``shard_map`` reshards it. A
 sliced cache carries its :class:`SeqSlice` under ``"kv_slice"`` (the
-enc-dec family's cross K/V under ``"xkv_slice"``), and ``decode_step``
-then takes the context-parallel branch.
+enc-dec family's and the VLM's cross K/V under ``"xkv_slice"``), and
+``decode_step`` then takes the context-parallel branch.
 """
 from __future__ import annotations
 
@@ -638,18 +639,6 @@ def unported(what: str, step: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} under a mesh waits for {ITEM_11}, step {step}")
 
-
-def check_training(what: str, step: str):
-    """Raise ``unported(what, step)`` when a rank of a mesh larger than
-    one is current: ``what`` (a family's forward) does not run on a
-    rank's shards yet."""
-    r = current()
-    if r is not None and (r.tp > 1 or r.dp > 1):
-        raise unported(what, step)
-
-
-#: item 11's step for the family that does not run on a mesh yet
-FAMILY_STEP = "7b b: the VLM under a mesh"
 
 #: item 11's step for TP inside each expert
 MOE_TP_STEP = "6: TP-in-expert MoE"

@@ -80,9 +80,9 @@ batch and serves the engine over HTTP (``POST /generate``, ``GET
 /metrics``, ``GET /healthz``; ``--port 0`` picks a free port) until
 ctrl-c, with the watchdog at ``--watchdog-timeout`` seconds.
 
-``--tp N`` serves a dense or MoE decoder, the enc-dec family, the SSM
-family or the hybrid tensor-parallel over N ranks (a Mamba2 block by
-whole heads), one process a rank as ``torchrun
+``--tp N`` serves any family tensor-parallel over N ranks (a Mamba2
+block by whole heads; the VLM's cross layers by head like its self
+layers), one process a rank as ``torchrun
 --nproc-per-node N`` starts them (each rank builds only its shards;
 serve/engine.py). The process group's backend is ``--backend`` (default
 NCCL on CUDA, gloo on the CPU; ranks sharing one card need gloo: NCCL
@@ -107,6 +107,9 @@ only when rank 0 has sent "stop".
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
         --arch olmoe-1b-7b --tp 2 --backend gloo --full --slots 4 \
         --max-len 1024 --requests 6
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch llama-3.2-vision-90b --tp 2 --backend gloo --full \
+        --layers 20 --slots 4 --max-len 1024 --requests 6
 
     # two replicas in one process (on the CPU; on card 0), and dp 2 x tp 2
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --dp 2

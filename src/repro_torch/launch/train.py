@@ -35,6 +35,13 @@
         --arch whisper-tiny --dp 2 --tp 2 --backend gloo --full --steps 3 \
         --global-batch 8 --seq 448 --seq-parallel
 
+    # Llama-3.2-Vision-90B at full width, one group, dp 2 x tp 2 under
+    # FSDP + SP + remat with Adafactor
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch llama-3.2-vision-90b --dp 2 --tp 2 --backend gloo --full \
+        --layers 5 --optimizer adafactor --fsdp --seq-parallel --steps 3 \
+        --global-batch 2 --seq 1024
+
     # on the CPU, the reduced configs in float32
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
@@ -71,10 +78,10 @@ bf16): on one H100 cut its depth with ``--layers`` (5 = one group: 4
 self and 1 cross layer) and train it with ``--optimizer adafactor``
 (AdamW's fp32 master, m and v would need >= 16 bytes a parameter).
 
-``--tp N`` and ``--dp M`` train a dense or MoE decoder, the SSM family,
-the hybrid or the enc-dec family (``--arch whisper-tiny``: every rank
-draws the same :class:`FramesData` and takes its rows) on a ("data",
-"model") = (M, N) mesh under ``torchrun --nproc-per-node M*N``, one
+``--tp N`` and ``--dp M`` train any family (``--arch whisper-tiny`` and
+``--arch llama-3.2-vision-90b``: every rank draws the same
+:class:`FramesData` / :class:`ImagesData` and takes its rows) on a
+("data", "model") = (M, N) mesh under ``torchrun --nproc-per-node M*N``, one
 process a rank (``Session.train(tp=, dp=)``): ZeRO-1 over "data" by
 default, ``--fsdp`` (parameters over "data") and ``--seq-parallel``
 (the reference's own flags); the process group's backend is

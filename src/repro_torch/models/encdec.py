@@ -166,23 +166,31 @@ def encode(params, frames, cfg, *, attn_impl: str = "auto",
 CROSS_RANGE = "encdec_cross"
 
 
+def cross_out(lp, x, kv, cfg, *, sp: bool = False, rows=None):
+    """The pre-norm cross-attention's output (before the residual add)
+    over precomputed K/V (B, T, Hkv, D), ``lp["lnx"]`` its norm: the
+    rank's query heads (``sp``: of its slice of the tokens, the norm's
+    scale under ``tp.enter``), summed by ``attn_out``; ``rows`` (a
+    ``tp.SeqSlice``): the K/V are the rank's slice of the positions with
+    every head, attended context-parallel. The VLM's cross layers use it
+    too."""
+    lnx = tp.enter(lp["lnx"], "norm") if sp else lp["lnx"]
+    h = tp.region_in(rmsnorm(x, lnx, cfg.norm_eps), "xattn", seq=sp)
+    b, s, _ = h.shape
+    q = (h @ lp["xattn"]["wq"]).reshape(b, s, -1, cfg.head_dim)
+    if rows is not None:
+        ctx = cp_attention.cp_cross_attention(q, kv, rows=rows)
+    else:
+        ctx = attention(q, tp.kv_read(kv["k"]), tp.kv_read(kv["v"]),
+                        causal=False, impl="full")
+    return attn_out(lp["xattn"], ctx, cfg, sp=sp)
+
+
 def _cross(lp, x, enc_kv, cfg, *, sp: bool = False, rows=None):
-    """Cross-attention with precomputed encoder K/V (B, T, Hkv, D): the
-    rank's query heads (``sp``: of its slice of the tokens); ``rows``
-    (a ``tp.SeqSlice``): the K/V are the rank's slice of the encoder
-    positions with every head, attended context-parallel."""
+    """``x`` plus the cross-attention over the encoder K/V
+    (``cross_out``)."""
     with record_function(CROSS_RANGE):
-        lnx = tp.enter(lp["lnx"], "norm") if sp else lp["lnx"]
-        h = tp.region_in(rmsnorm(x, lnx, cfg.norm_eps), "xattn", seq=sp)
-        b, s, _ = h.shape
-        q = (h @ lp["xattn"]["wq"]).reshape(b, s, -1, cfg.head_dim)
-        if rows is not None:
-            ctx = cp_attention.cp_cross_attention(q, enc_kv, rows=rows)
-        else:
-            ctx = attention(q, tp.kv_read(enc_kv["k"]),
-                            tp.kv_read(enc_kv["v"]), causal=False,
-                            impl="full")
-        return x + attn_out(lp["xattn"], ctx, cfg, sp=sp)
+        return x + cross_out(lp, x, enc_kv, cfg, sp=sp, rows=rows)
 
 
 def cross_kv(lp, enc_out, cfg):

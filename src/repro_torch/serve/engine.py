@@ -130,8 +130,9 @@ token for token, and the program set stays one per (``chunk_tokens``,
 page bucket).
 
 **Tensor-parallel serving** (``mesh=``, a ("data", "model") = (1, tp)
-``DeviceMesh``; ``Session.serve(tp=)`` builds it), for dense and MoE
-decoders, the enc-dec audio family, the SSM family and the hybrid. The reference runs its programs
+``DeviceMesh``; ``Session.serve(tp=)`` builds it), for every family:
+dense and MoE decoders, the enc-dec audio family, the SSM family, the
+hybrid and the VLM. The reference runs its programs
 GSPMD-sharded from one controller; the port runs one process a rank
 (``torchrun``), each with this engine over its own shards
 (``core/tp.py``): the Megatron layout of ``core/sharding.py`` with heads
@@ -149,7 +150,11 @@ experts' slots, ``"moe_out"``; a Mamba layer: one after ``out_proj``,
 ``"ssm_out"``, and one for its gated norm, ``"ssm_norm"``), one for the
 embedding and one to
 assemble the logits. An enc-dec engine runs each admission's encoder on
-the rank's shards too, and its cross K/V blocks hold the rank's heads.
+the rank's shards too, and its cross K/V blocks hold the rank's heads; a
+VLM's cross layers run on the rank's heads and MLP block like its self
+layers (two sums each), its image K/V blocks the rank's heads, or its
+slice of the image positions with every head where Hkv does not divide
+tp (``vlm.decode_step`` then attends context-parallel).
 The kernels run at the rank's shapes, checked at construction. Every
 rank runs the same host engine (scheduler, allocator, prefix cache) on
 the same submissions, so pages, prefix hits, CoW, preemption and
@@ -165,8 +170,8 @@ its collectives on the row's "model" group (serve/parallel.py's
 ``ReplicaRouter`` routes across the rows). The online driver
 (serve/driver.py) serves such an engine from rank 0, broadcasting its
 host events to every rank before each step; under it ``abort_event`` is
-the pass's copy of the abort, the same on every rank. The VLM on a mesh
-and TP-in-expert (``Strategy(expert_parallel=False)``) raise
+the pass's copy of the abort, the same on every rank. A mesh with a
+third axis and TP-in-expert (``Strategy(expert_parallel=False)``) raise
 ``NotImplementedError`` naming ROADMAP.md Queue 1 item 11.
 """
 from __future__ import annotations
@@ -201,8 +206,6 @@ from repro_torch.serve.tracing import (NULL_STEP, Tracer, chrome_trace,
 #: families whose decode cache can use the paged (block-table) layout —
 #: the reference's ``PAGEABLE_ARCHS``
 PAGEABLE_ARCHS = ("dense", "moe", "audio")
-#: families a mesh serves (``ServeEngine(mesh=)``)
-MESH_ARCHS = ("dense", "moe", "audio", "ssm", "hybrid")
 
 
 def _tree_bytes(tree) -> int:
@@ -404,16 +407,14 @@ class ServeEngine:
             with tp.active(self._rank):
                 self._cache = transformer.init_cache(
                     cfg, slots, max_len, device=self.device, cp=False)
-        elif cfg.arch_type in ("ssm", "hybrid", "audio"):
+        else:
             # the rank's H / tp heads of every state and conv tail, and the
-            # hybrid's and the enc-dec family's dense rows (its decoder K/V
-            # and cross K/V each) by tp.cache_rows
+            # hybrid's, the enc-dec family's and the VLM's dense rows (self
+            # K/V and cross K/V each) by tp.cache_rows
+            kw = {"cp": False} if cfg.arch_type == "vlm" else {}
             with tp.active(self._rank):
                 self._cache = self.model.init_cache(cfg, slots, max_len,
-                                                    device=self.device)
-        else:
-            self._cache = self.model.init_cache(self._cache_cfg, slots,
-                                                max_len, device=self.device)
+                                                    device=self.device, **kw)
         self._cache["pos"] = torch.zeros((slots,), dtype=torch.int32,
                                          device=self.device)
         # bucketing: attention masks make right-padding exact for dense
@@ -431,9 +432,6 @@ class ServeEngine:
         """The rank's view of ``mesh`` and its shards of ``params`` (full
         leaves are sliced; leaves already of the rank's block shape are
         kept). Refuses what tensor-parallel serving does not run yet."""
-        if cfg.arch_type not in MESH_ARCHS:
-            raise _todo(f"tensor-parallel serving of the {cfg.arch_type} "
-                        "family (mesh=)", "Queue 1 item 11")
         axes = mesh_axes(mesh)
         if set(axes) - {"data", "model"}:
             raise _todo(f"serving on a {axes} mesh (only 'data' and "

@@ -41,9 +41,10 @@ An MoE step with ``Strategy(expert_parallel=False)`` under a rank with
 (``tp.check_moe_strategy``), as ``tp.Rank.of`` does for such a training
 rank.
 
-The enc-dec family's batches carry ``frames`` beside ``tokens``:
-``shard_batch`` and the microbatch split cut every key of the batch by
-its rows, so a data rank's frames are those of its token rows.
+The enc-dec family's batches carry ``frames`` beside ``tokens``, the
+VLM's ``image_embeds``: ``shard_batch`` and the microbatch split cut
+every key of the batch by its rows, so a data rank's frames or images
+are those of its token rows (whole on every "model" rank).
 
 The step's parts run under ``torch.profiler.record_function`` ranges named
 by :data:`PARTS`, so a profiled step splits its time by them (a range costs

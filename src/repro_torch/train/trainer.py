@@ -15,12 +15,13 @@ process group, one process a rank) the trainer builds the rank
 (drawn from the seed, or cut from the full tree it is given) and of the
 optimizer state (ZeRO-1 by ``Strategy.zero1``), and runs the step under
 the rank: each step's batch is the global one, of which the step takes
-the rank's rows (``data/pipeline.py::shard_batch``). Dense and MoE
-decoders, the SSM family, the hybrid (a Mamba2 block by whole heads,
-``core/tp.py``) and the enc-dec family (its frames cut with their token
-rows) train so; the VLM, and an MoE with ``Strategy(expert_parallel=
-False)`` over "model" > 1, raise naming their step of ROADMAP.md Queue 1
-item 11 before any parameter is made. A checkpoint holds the full tree, assembled
+the rank's rows (``data/pipeline.py::shard_batch``). Every family
+trains so: dense and MoE decoders, the SSM family, the hybrid (a Mamba2
+block by whole heads, ``core/tp.py``), the enc-dec family (its frames
+cut with their token rows) and the VLM (its images likewise); an MoE
+with ``Strategy(expert_parallel=False)`` over "model" > 1 raises naming
+its step of ROADMAP.md Queue 1 item 11 (``tp.Rank.of``) before any
+parameter is made. A checkpoint holds the full tree, assembled
 from the blocks and written by the first rank, the same file an
 unsharded trainer writes; ``maybe_restore`` cuts a full checkpoint to
 the rank's blocks. On one device ``seq_parallel`` and ``fsdp``, like
@@ -84,21 +85,6 @@ def check_kernel_limits(cfg, strategy: Strategy, device, rank=None) -> None:
             f"which {why}")
 
 
-#: families the trainer runs on a mesh
-MESH_ARCHS = ("dense", "moe", "ssm", "hybrid", "audio")
-
-
-def mesh_rank(mesh, cfg, strategy: Strategy) -> tp.Rank:
-    """The training rank of this process on ``mesh`` for ``cfg``: dense
-    and MoE decoders, the SSM family, the hybrid and the enc-dec family;
-    the VLM raises naming its step, and so does an MoE trained with
-    ``expert_parallel=False`` over "model" > 1 (``tp.Rank.of``)."""
-    if cfg.arch_type not in MESH_ARCHS:
-        raise tp.unported(f"training the {cfg.arch_type} family",
-                          tp.FAMILY_STEP)
-    return tp.Rank.of(mesh, cfg, strategy, full_shapes(cfg))
-
-
 class Trainer:
     def __init__(self, cfg, strategy: Strategy, device,
                  train_cfg: TrainConfig, data: Optional[TokenDataset] = None,
@@ -109,7 +95,7 @@ class Trainer:
         self.mesh = mesh
         self.rank = None
         if mesh is not None:
-            self.rank = mesh_rank(mesh, cfg, strategy)
+            self.rank = tp.Rank.of(mesh, cfg, strategy, full_shapes(cfg))
         check_kernel_limits(cfg, strategy, self.device, self.rank)
         self.tc = train_cfg
         self.data = data or TokenDataset(DataConfig(

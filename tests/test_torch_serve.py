@@ -465,13 +465,11 @@ def test_submit_validation_and_backpressure(weights):
 
 @pytest.mark.parametrize("kw,item", [
     ({"planner": ("from_plan", "dryrun", "lower")}, "item 12"),
-    ({"mesh": object(), "cfg": dict(arch_type="vlm", cross_attn_every=1,
-                                    num_image_tokens=4)}, "item 11")])
+    ({"mesh": {"pod": 1, "data": 1, "model": 1}}, "item 11")])
 def test_unported_engine_features_raise(weights, kw, item):
-    """What is still missing raises naming its ROADMAP.md item: a mesh on
-    an engine of a family the mesh does not serve yet, the VLM
-    (tensor-parallel serving of dense and MoE decoders, the enc-dec
-    family, the SSM family and the hybrid is ported:
+    """What is still missing raises naming its ROADMAP.md item: a mesh
+    with an axis beside "data" and "model" (tensor-parallel serving of
+    every family on a ("data", "model") mesh is ported:
     tests/test_torch_tp.py), and the Session entry points that need the
     planner (speculative decode, the earlier case here, is ported)."""
     _, _, params = weights

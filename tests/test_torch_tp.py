@@ -41,7 +41,14 @@ and the reference's ``test_decode_sharded_equals_reference`` runs on
 (1, 2) for both smokes (``ssm_model_rank``: ``decode_step`` from a zero
 cache and after a prefill within its 5e-4, the prefill's states the JAX
 states of the rank's heads and its conv tails JAX's ``[x_r | B | C]``
-channels). Each JAX run is made once and shared.
+channels). The VLM (tests/test_serve_vlm.py's ``VLM_CFG``, its gates
+opened to 1.0 as that test does, seeded images with each request) serves
+on the same spawn: the JAX engine's unsharded streams and counters, two
+sums a self and a cross layer; with one KV head its self rows and image
+K/V hold each rank's sequence slice, decoded context-parallel; its
+lockstep ``cp_decode`` against JAX's CP ``decode_step`` under a (1, 2)
+mesh; and ``Session.serve(tp=2)`` of the VLM smoke with images against
+``serve()``. Each JAX run is made once and shared.
 
 This module imports JAX and the reference only inside functions: the
 ranks import it by name to find their entry points.
@@ -94,6 +101,14 @@ ZAMBA_KW = dict(get_smoke("zamba2-1.2b").with_(dtype="float32").__dict__)
 #: sequence slice (the reference's ``cache_pspecs``), decoded
 #: context-parallel
 ZAMBA_KV1_KW = dict(ZAMBA_KW, name="zamba2-smoke-kv1", num_kv_heads=1)
+#: tests/test_serve_vlm.py's VLM_CFG (3 layers: 2 self and 1 cross, the
+#: unused trailing layer; 8 image tokens; its gates opened to 1.0 as that
+#: test does), and the same with one KV head: at tp 2 its self rows and
+#: its image K/V hold each rank's sequence slice
+VLM_KW = dict(name="serve-vlm", arch_type="vlm", num_layers=3, d_model=64,
+              num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=128,
+              cross_attn_every=2, num_image_tokens=8, dtype="float32")
+VLM_KV1_KW = dict(VLM_KW, name="serve-vlm-kv1", num_kv_heads=1)
 #: each config's init seed (the reference tests' own)
 SEEDS = {"par-moe": 5, "par-moe-e3": 5, "par-encdec": 2,
          "par-encdec-kv1": 2, "engine-ssm": 4,
@@ -204,11 +219,35 @@ def _audio_requests():
 
 _AUDIO = _audio_requests()
 
-#: run -> (config, prompts, frames or None, max_new, engine keywords): the
-#: reference's MoE tp 2 case (one slot, 8-token pages) on the mixed step
-#: and the split path, two slots with the prefix cache and lazy growth,
-#: the experts kept whole (E 3); the reference's enc-dec tp 2 case on the
-#: mixed step and the split path
+
+def _vlm_requests():
+    """Three prompts, then each one's (8, 64) image embeddings, from one
+    generator."""
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, 128, size=(n,)).astype(np.int32)
+               for n in (5, 9, 6)]
+    images = [rng.standard_normal((VLM_KW["num_image_tokens"],
+                                   VLM_KW["d_model"])).astype(np.float32)
+              for _ in prompts]
+    return prompts, images
+
+
+_VLM = _vlm_requests()
+
+
+def _media(kw, media, i: int) -> dict:
+    """Request ``i``'s keyword of ``media``: an enc-dec request's
+    ``frames``, a VLM request's ``images`` (none: nothing)."""
+    if media is None:
+        return {}
+    return {"images" if kw["arch_type"] == "vlm" else "frames": media[i]}
+
+#: run -> (config, prompts, frames / images or None, max_new, engine
+#: keywords): the reference's MoE tp 2 case (one slot, 8-token pages) on
+#: the mixed step and the split path, two slots with the prefix cache and
+#: lazy growth, the experts kept whole (E 3); the reference's enc-dec tp 2
+#: case on the mixed step and the split path; the VLM on the split path's
+#: dense rows (its only layout), with Hkv 2 and Hkv 1
 FAMILY_RUNS = {
     "moe_mixed": (MOE_KW, _prompts(6, (5, 8, 6)), None, 4,
                   dict(slots=1, max_len=32, paged=True, page_size=8)),
@@ -237,6 +276,8 @@ FAMILY_RUNS = {
                dict(slots=2, max_len=64)),
     "hybrid_kv1": (ZAMBA_KV1_KW, _prompts(9, (5, 9, 6), vocab=512), None,
                    5, dict(slots=2, max_len=64)),
+    "vlm": (VLM_KW, _VLM[0], _VLM[1], 5, dict(slots=2, max_len=32)),
+    "vlm_kv1": (VLM_KV1_KW, _VLM[0], _VLM[1], 5, dict(slots=2, max_len=32)),
 }
 
 
@@ -254,8 +295,9 @@ def _weights(kw):
 
 
 def _jax_params(kw):
-    """(the reference's config of ``kw``, its init at seed 0, that init
-    flattened to numpy with the bridge's keys); each init made once."""
+    """(the reference's config of ``kw``, its init at seed 0 — a VLM's
+    with both gates opened to 1.0 — that init flattened to numpy with the
+    bridge's keys); each init made once."""
     from repro.configs.base import ModelConfig as JaxConfig
     key = ("params", _weights(kw))
     if key not in _JAX:
@@ -265,6 +307,11 @@ def _jax_params(kw):
         jcfg = JaxConfig(**kw)
         jparams = jax.jit(get_model(jcfg).init, static_argnums=1)(
             jax.random.key(SEEDS.get(kw["name"], 0)), jcfg)
+        if jcfg.arch_type == "vlm":
+            # the gates init to 0 (the images move nothing): open them
+            for gate in ("gate_attn", "gate_mlp"):
+                jparams["cross"][gate] = jax.numpy.ones_like(
+                    jparams["cross"][gate])
         _JAX[key] = (jparams, {k: np.asarray(v)
                                for k, v in _flatten(jparams).items()})
     return (JaxConfig(**kw),) + _JAX[key]
@@ -296,12 +343,11 @@ def _jax_family_run(name):
     on ``FAMILY_RUNS[name]``, made once."""
     if name not in _JAX:
         from repro.serve.engine import ServeEngine as JaxEngine
-        kw, prompts, frames, new, ekw = FAMILY_RUNS[name]
+        kw, prompts, media, new, ekw = FAMILY_RUNS[name]
         jcfg, jparams, _ = _jax_params(kw)
         eng = JaxEngine(jcfg, jparams, **ekw)
         for i, p in enumerate(prompts):
-            eng.submit(i, p, max_new=new,
-                       frames=None if frames is None else frames[i])
+            eng.submit(i, p, max_new=new, **_media(kw, media, i))
         res = eng.run()
         _JAX[name] = ({i: list(res[i].out) for i in res}, dict(eng.stats),
                       eng.per_device_kv_bytes())
@@ -502,6 +548,98 @@ def _cp_extra_rank(world, flat):
             "greedy": streams.numpy(), "greedy_counts": dict(view.counts)}
 
 
+# ------------------------------------------------ the VLM's CP decode, lockstep
+
+#: the VLM's lockstep case: ``VLM_KW`` with ``cp_decode``, B 2, a cache of
+#: S 16 (8 positions a rank at tp 2), a 12-token prefill with each row's
+#: images, then four decode steps at a scalar ``pos``; its logits within
+#: the ROADMAP's parity bar of JAX's CP ``decode_step``
+VLM_CP_B, VLM_CP_S, VLM_CP_PROMPT = 2, 16, 12
+VLM_CP_TOL = 1e-5
+VLM_CP_TOKS = np.random.default_rng(14).integers(
+    0, 128, size=(VLM_CP_B, VLM_CP_S)).astype(np.int32)
+VLM_CP_IMAGES = np.random.default_rng(15).standard_normal(
+    (VLM_CP_B, VLM_KW["num_image_tokens"], VLM_KW["d_model"])).astype(
+    np.float32)
+
+
+def jax_vlm_cp():
+    """JAX's CP ``decode_step`` logits of the VLM's four steps under a
+    (1, 2) ("data", "model") mesh (the cache laid out by its
+    ``cache_pspecs``, as ``jax_cp`` builds it), after an unsharded
+    prefill; made once."""
+    key = "vlm_cp"
+    if key not in _JAX:
+        import jax
+        import jax.numpy as jnp
+        from repro.configs.base import ModelConfig as JaxConfig
+        from repro.core import sharding as shd
+        from repro.core.pspec import sharding_rules
+        from repro.core.strategy import Strategy as JaxStrategy
+        from repro.launch.mesh import make_mesh as jax_mesh
+        from repro.models import get_model
+        _, jp, _ = _jax_params(VLM_KW)
+        jcfg = JaxConfig(**dict(VLM_KW, cp_decode=True))
+        mod = get_model(jcfg)
+        toks = jnp.asarray(VLM_CP_TOKS)
+        _, cache0 = mod.prefill(
+            jp, {"tokens": toks[:, :VLM_CP_PROMPT],
+                 "image_embeds": jnp.asarray(VLM_CP_IMAGES)}, jcfg,
+            mod.init_cache(jcfg, VLM_CP_B, VLM_CP_S))
+        mesh = jax_mesh((1, 2), ("data", "model"))
+        st = JaxStrategy(remat=False, dtype="float32")
+
+        def named(specs):
+            return jax.tree.map(lambda sp: jax.NamedSharding(mesh, sp),
+                                specs)
+
+        logits = []
+        with sharding_rules(mesh, st.rules(mesh)):
+            step = jax.jit(
+                lambda p, c, t, i: mod.decode_step(p, c, t, i, jcfg),
+                in_shardings=(named(shd.param_pspecs(jp, st, mesh)), None,
+                              None, None))
+            c = jax.device_put(cache0, named(
+                shd.cache_pspecs(cache0, st, mesh, VLM_CP_B)))
+            for pos in range(VLM_CP_PROMPT, VLM_CP_S):
+                lg, c = step(jp, c, toks[:, pos:pos + 1],
+                             jnp.asarray(pos, jnp.int32))
+                logits.append(np.asarray(lg))
+        _JAX[key] = logits
+    return _JAX[key]
+
+
+def vlm_cp_rank(world, flat):
+    """The VLM's lockstep CP decode on a (1, ``world``) CPU mesh from the
+    rank's shards: each step's logits, the cache's slice and shapes, and
+    the collectives of the prefill and of the last decode step."""
+    from repro_torch.models import vlm
+    cfg = ModelConfig(**VLM_KW).with_(cp_decode=True)
+    mesh = _mesh(world)
+    params = from_numpy(flat, cfg, "cpu",
+                        shard=(Strategy(dtype=cfg.dtype), mesh))
+    view = tp.Rank.of(mesh, cfg)
+    t = torch.from_numpy(VLM_CP_TOKS)
+    logits = []
+    with tp.active(view):
+        cache = vlm.init_cache(cfg, VLM_CP_B, VLM_CP_S)
+        vlm.prefill(params, {"tokens": t[:, :VLM_CP_PROMPT],
+                             "image_embeds": torch.from_numpy(
+                                 VLM_CP_IMAGES)}, cfg, cache)
+        prefill = dict(view.counts)
+        for pos in range(VLM_CP_PROMPT, VLM_CP_S):
+            view.counts.clear()
+            got, cache = vlm.decode_step(params, cache, t[:, pos:pos + 1],
+                                         pos, cfg)
+            logits.append(got.numpy())
+    sl = cache["kv_slice"]
+    return {"logits": logits, "counts": (prefill, dict(view.counts)),
+            "slice": (sl.start, sl.length, sl.total),
+            "xkv_slice": "xkv_slice" in cache, "model_rank": view.rank,
+            "shapes": {k: tuple(cache[k]["k"].shape)
+                       for k in ("kv_g", "kv_t", "xkv")}}
+
+
 # ------------------------------------ the SSM family and the hybrid, lockstep
 
 #: tests/test_parallel_equivalence.py::test_decode_sharded_equals_reference
@@ -689,17 +827,16 @@ def _engine_rank(rank, world, flats, runs):
 
 
 def _family_rank(rank, world, flats, runs):
-    """Every MoE and enc-dec run on this rank, the full params handed to
-    the engine."""
+    """Every run of ``FAMILY_RUNS`` on this rank, the full params handed
+    to the engine."""
     mesh = _mesh(world)
     out = {}
-    for name, (kw, prompts, frames, new, ekw) in runs.items():
+    for name, (kw, prompts, media, new, ekw) in runs.items():
         cfg = ModelConfig(**kw)
         eng = ServeEngine(cfg, from_numpy(flats[kw["name"]], cfg, "cpu"),
                           mesh=mesh, **ekw)
         for j, p in enumerate(prompts):
-            eng.submit(j, p, max_new=new,
-                       frames=None if frames is None else frames[j])
+            eng.submit(j, p, max_new=new, **_media(kw, media, j))
         res = eng.run()
         out[name] = {"streams": {j: list(res[j].out) for j in res},
                      "done": all(r.done for r in res.values()),
@@ -712,7 +849,7 @@ def _family_rank(rank, world, flats, runs):
                      if cfg.is_moe else None,
                      "counts": dict(eng._rank.counts),
                      "kv_shapes": {k: tuple(eng._cache[k]["k"].shape)
-                                   for k in ("kv", "xkv")
+                                   for k in ("kv", "kv_g", "xkv")
                                    if k in eng._cache},
                      "slices": {k: (v.start, v.length, v.total)
                                 for k, v in eng._cache.items()
@@ -726,6 +863,19 @@ def state_bytes(eng) -> int:
     return sum(v.numel() * v.element_size()
                for k, v in flatten(eng._cache).items()
                if k.endswith("/state"))
+
+
+def _vlm_smoke():
+    """The VLM smoke config in f32, its params from seed 4 with both gates
+    opened to 1.0, and three requests' (16, 256) images from seed 13."""
+    from repro_torch.params import init_params
+    cfg = get_smoke("llama-3.2-vision-90b").with_(dtype="float32")
+    params = init_params(cfg, device="cpu", seed=4)
+    for gate in ("gate_attn", "gate_mlp"):
+        params["cross"][gate].fill_(1.0)
+    images = np.random.default_rng(13).standard_normal(
+        (3, cfg.num_image_tokens, cfg.d_model)).astype(np.float32)
+    return cfg, params, images
 
 
 def _logits_rank(rank, world, flats, toks):
@@ -796,6 +946,19 @@ def _session_rank(rank, world):
             res = eng.run()
             got.append({i: list(res[i].out) for i in res})
         out[kw["name"]] = got
+    # the VLM smoke with its gates open, each request with its images:
+    # serve(tp=2) slices the session's params to the rank's shards
+    vcfg, vparams, images = _vlm_smoke()
+    prompts = _prompts(3, (5, 7, 6), vocab=vcfg.vocab_size)
+    got = []
+    for tp_n in (None, world):
+        eng = Session(vcfg, device="cpu", params=vparams).serve(
+            tp=tp_n, slots=2, max_len=32)
+        for i, p in enumerate(prompts):
+            eng.submit(i, p, max_new=4, images=images[i])
+        res = eng.run()
+        got.append({i: list(res[i].out) for i in res})
+    out[vcfg.name] = got
     refused = {}
     try:
         make_mesh((1, 2 * world), ("data", "model"), device_type="cpu")
@@ -807,7 +970,9 @@ def _session_rank(rank, world):
                           ("audio", dict(num_kv_heads=4, encoder_layers=1,
                                          encoder_ctx=8)),
                           ("ssm", dict(ssm_heads=4, ssm_head_dim=16,
-                                       ssm_state=8, ssm_chunk=16))):
+                                       ssm_state=8, ssm_chunk=16)),
+                          ("vlm", dict(num_layers=3, cross_attn_every=2,
+                                       num_image_tokens=8))):
         fcfg = cfg.with_(arch_type=family, **extra)
         try:
             built[family] = ServeEngine(
@@ -816,11 +981,12 @@ def _session_rank(rank, world):
         except NotImplementedError as e:
             refused[family] = str(e)
     out["built"] = built
-    vlm = get_smoke("llama-3.2-vision-90b").with_(dtype="float32")
+    # a mesh with a third axis
     try:
-        ServeEngine(vlm, init_params(vlm, device="cpu", seed=0), mesh=mesh)
+        ServeEngine(cfg, init_params(cfg, device="cpu", seed=0),
+                    mesh={"pod": 1, "data": 1, "model": world})
     except NotImplementedError as e:
-        refused["vlm"] = str(e)
+        refused["pod"] = str(e)
     # SSD heads that do not split over the ranks
     odd = cfg.with_(arch_type="ssm", ssm_heads=3, ssm_head_dim=16,
                     ssm_state=8, ssm_chunk=16)
@@ -1077,6 +1243,7 @@ def _all_ranks(rank, world, flats, runs, family_runs, toks):
             "cp": {p: cp_rank((1, world), flats["cp"], p)
                    for p in (CP_PROMPT, CP_SHORT)},
             "cp_extra": _cp_extra_rank(world, flats["cp"]),
+            "vlm_cp": vlm_cp_rank(world, flats[VLM_KW["name"]]),
             "online": _online_rank(rank, world, flats[ONLINE_KW["name"]])}
 
 
@@ -1088,7 +1255,7 @@ def spawned(tmp_path_factory):
     flats = {kw["name"]: _flat(kw)
              for kw in (KW, KW_KV1, MOE_KW, MOE_E3_KW, AUDIO_KW,
                         AUDIO_KV1_KW, ONLINE_KW, SSM_KW, ZAMBA_KW,
-                        ZAMBA_KV1_KW)}
+                        ZAMBA_KV1_KW, VLM_KW, VLM_KV1_KW)}
     flats["cp"] = _jax_cp_params()[2]
     flats["ssm"] = ssm_flats()
     return toks, run_ranks(_all_ranks, 2,
@@ -1218,13 +1385,15 @@ def test_session_serve_tp2_matches_plain(model_runs):
     """tests/test_serve_parallel.py:528: ``Session.serve(tp=2)`` (only
     the rank's blocks drawn from the session's seed) gives the streams of
     ``Session.serve()`` on the same session, one program shape; on the
-    MoE and enc-dec configs as well."""
+    MoE and enc-dec configs as well, and on the VLM smoke with its gates
+    open and each request's images (the session's params sliced to the
+    rank's shards)."""
     _, _, session = model_runs
     for r in session:
         assert r[2][0] == r[1][0]
         assert r[2][1] == 1 and r[2][2] == 2 and r[1][2] == 1
-        # the MoE and enc-dec configs too: serve(tp=2) == serve()
-        for name in (MOE_KW["name"], AUDIO_KW["name"]):
+        # the MoE, enc-dec and VLM configs too: serve(tp=2) == serve()
+        for name in (MOE_KW["name"], AUDIO_KW["name"], "llama-vision-smoke"):
             assert r[name][1] == r[name][0], name
 
 
@@ -1281,9 +1450,9 @@ def test_tp2_forward_has_two_all_reduces_a_layer(model_runs):
 
 def test_tp_refusals(model_runs):
     """A mesh larger than the process group raises ValueError with the
-    count; MoE, audio and SSM engines build on a mesh, while a VLM
-    engine, TP-in-expert MoE (``expert_parallel=False``) and FSDP on a
-    mesh raise naming item 11; on a CUDA device a
+    count; MoE, audio, SSM and VLM engines build on a mesh, while a mesh
+    with a third axis, TP-in-expert MoE (``expert_parallel=False``) and
+    FSDP on a mesh raise naming item 11; on a CUDA device a
     kernel that refuses a rank's shape refuses at construction; ranks
     that packed different programs raise on every rank (no hang);
     ``serve(dp=2)`` on the one CPU device raises the reference's "devices
@@ -1294,11 +1463,12 @@ def test_tp_refusals(model_runs):
     _, _, session = model_runs
     refused = session[0]["refused"]
     assert "needs 4 ranks" in refused["mesh"] and "has 2" in refused["mesh"]
-    for key in ("vlm", "tp_in_expert", "fsdp"):
+    for key in ("pod", "tp_in_expert", "fsdp"):
         assert "item 11" in refused[key], key
-    assert "moe" not in refused and "audio" not in refused
-    assert "ssm" not in refused
-    assert session[0]["built"] == {"moe": 2, "audio": 2, "ssm": 2}
+    assert "'pod'" in refused["pod"]
+    assert not {"moe", "audio", "ssm", "vlm"} & set(refused)
+    assert session[0]["built"] == {"moe": 2, "audio": 2, "ssm": 2,
+                                   "vlm": 2}
     assert "3 SSD heads" in refused["ssm_heads"]
     assert "fused-MLP kernel" in refused["rank_shape"]
     assert "132" in refused["rank_shape"]
@@ -1555,6 +1725,108 @@ def test_tp2_encdec_one_kv_head_holds_sequence_slices(family_runs):
         assert c["cp_qkv"] == c["cp_xq"] == layers * steps
         assert c["cp_max"] == c["cp_sum"] == 2 * layers * steps
         assert "prefill_kv" not in c
+
+
+# ------------------------------------------------------------------ the VLM
+
+def _vlm_layers(kw):
+    """(self layers, cross layers) a VLM program applies."""
+    cfg = ModelConfig(**kw)
+    g, rest = cfg.vlm_groups
+    return g * cfg.cross_attn_every + rest, g
+
+
+def test_tp2_vlm_matches_jax_tp1(family_runs):
+    """tests/test_serve_vlm.py's config (gates open, each request with its
+    images) under tp 2 on the split path's dense rows: the JAX engine's
+    unsharded f32 streams and counters, one decode program shape, half
+    its decode state a rank (the self rows and image K/V of one of the
+    two K/V heads); every program's self and cross layers end in one
+    ``attn_out`` and one ``mlp_out`` sum each, and nothing attends
+    context-parallel."""
+    want, jstats, jdev = _jax_family_run("vlm")
+    selfs, cross = _vlm_layers(VLM_KW)
+    for run in family_runs:
+        r = run["vlm"]
+        assert r["done"] and r["streams"] == want
+        for key in COUNTERS:
+            assert r["stats"][key] == jstats[key], key
+        assert r["stats"]["decode_traces"] == 1
+        assert r["per_device"] * 2 == jdev and r["slices"] == {}
+        assert r["kv_shapes"] == {"kv_g": (2, 2, 32, 1, 16),
+                                  "xkv": (1, 2, 8, 1, 16)}
+        programs = r["stats"]["prefills"] + r["stats"]["decode_steps"]
+        c = r["counts"]
+        assert c["attn_out"] == c["mlp_out"] == (selfs + cross) * programs
+        assert c["embed"] == c["logits"] == programs
+        assert not {"cp_qkv", "cp_xq", "prefill_kv"} & set(c)
+
+
+def test_tp2_vlm_one_kv_head_holds_sequence_slices(family_runs):
+    """The VLM with one KV head under tp 2: each rank's self rows and
+    image K/V hold half the positions (``kv_slice`` / ``xkv_slice``) with
+    the one head, as the reference's ``cache_pspecs`` shards them; every
+    decode step attends context-parallel (a self layer: one ``cp_qkv``,
+    a cross layer: one ``cp_xq``; one ``cp_max`` and one ``cp_sum``
+    each), no prefill sends K/V heads; the JAX engine's unsharded f32
+    streams and counters."""
+    want, jstats, jdev = _jax_family_run("vlm_kv1")
+    selfs, cross = _vlm_layers(VLM_KV1_KW)
+    n = VLM_KV1_KW["num_image_tokens"]
+    for i, run in enumerate(family_runs):
+        r = run["vlm_kv1"]
+        assert r["done"] and r["streams"] == want
+        for key in COUNTERS:
+            assert r["stats"][key] == jstats[key], key
+        assert r["slices"] == {"kv_slice": (16 * i, 16, 32),
+                               "xkv_slice": (n // 2 * i, n // 2, n)}
+        assert r["kv_shapes"] == {"kv_g": (2, 2, 16, 1, 16),
+                                  "xkv": (1, 2, n // 2, 1, 16)}
+        assert r["per_device"] * 2 == jdev
+        steps = r["stats"]["decode_steps"]
+        c = r["counts"]
+        assert c["cp_qkv"] == selfs * steps and c["cp_xq"] == cross * steps
+        assert c["cp_max"] == c["cp_sum"] == (selfs + cross) * steps
+        assert "prefill_kv" not in c
+
+
+def test_tp2_vlm_cp_decode_matches_jax_cp_decode(spawned):
+    """The VLM's lockstep decode with ``cp_decode`` at a scalar ``pos``
+    under tp 2 (the reference's ``use_cp`` branch): a 12-token prefill
+    with images and four steps, logits within 1e-5 of JAX's CP
+    ``decode_step`` under a (1, 2) mesh on both ranks; each rank's self
+    rows hold its 8 of the 16 positions with both K/V heads, its image
+    K/V its one head (Hkv 2 divides tp 2)."""
+    want = jax_vlm_cp()
+    for r in spawned[1]:
+        got = r["vlm_cp"]
+        for i, pos in enumerate(range(VLM_CP_PROMPT, VLM_CP_S)):
+            np.testing.assert_allclose(got["logits"][i], want[i],
+                                       atol=VLM_CP_TOL, rtol=0,
+                                       err_msg=str(pos))
+        i = got["model_rank"]
+        assert got["slice"] == (8 * i, 8, 16) and not got["xkv_slice"]
+        assert got["shapes"] == {"kv_g": (2, 2, 8, 2, 16),
+                                 "kv_t": (1, 2, 8, 2, 16),
+                                 "xkv": (1, 2, 8, 1, 16)}
+
+
+def test_tp2_vlm_decode_collectives_by_label(spawned):
+    """A VLM decode step under tp 2 issues one ``attn_out`` and one
+    ``mlp_out`` sum a self layer and a cross layer, one for the
+    embedding and one for the logits; on the CP rows each self layer adds
+    its head assembly, MAX and SUM — nothing else. The prefill assembles
+    each self layer's K/V heads once (``prefill_kv``: the rank computed
+    its one head of two)."""
+    selfs, cross = _vlm_layers(VLM_KW)
+    for r in spawned[1]:
+        prefill, step = r["vlm_cp"]["counts"]
+        assert step == {"attn_out": selfs + cross, "mlp_out": selfs + cross,
+                        "embed": 1, "logits": 1, "cp_qkv": selfs,
+                        "cp_max": selfs, "cp_sum": selfs}
+        assert prefill == {"attn_out": selfs + cross,
+                           "mlp_out": selfs + cross, "embed": 1,
+                           "logits": 1, "prefill_kv": selfs}
 
 
 def test_tp2_ssm_decode_logits_and_states_match_jax(spawned):

@@ -45,13 +45,19 @@ block beside the tokens) trains at (2, 2) with Megatron, +SP and
 label (the backward sum of ``enc_out`` into each decoder layer's cross
 K/V, ``cross_in.grad``, among them).
 
+The VLM (``llama-3.2-vision-90b``'s smoke, its gates opened to 1.0 on
+the JAX init, a seeded numpy block of images beside the tokens) trains
+at (2, 2) with Megatron, +SP, +FSDP+SP+remat and Adafactor, and at (1,
+4): the same bounds, and its collectives by label (the gates' gradient
+sums under SP only, no sum into the images).
+
 The same spawn trains through ``Session.train(tp=2, dp=2)`` (a
 checkpoint at step 2 that a one-device trainer restores leaf for leaf,
 and a (2, 2) trainer cuts to its blocks; whisper's on ``FramesData``
 too), through ``launch/train.py --dp 2 --tp 2 --fsdp`` (and ``--arch
-mamba2-780m --seq-parallel``, ``--arch whisper-tiny --seq-parallel``),
-and shows what does not train on a mesh yet refusing, naming ROADMAP.md
-Queue 1 item 11's step: the VLM (in the trainer and in its forward) and
+mamba2-780m --seq-parallel``, ``--arch whisper-tiny --seq-parallel``,
+``--arch llama-3.2-vision-90b --seq-parallel``), and shows what does not
+train on a mesh yet refusing, naming ROADMAP.md Queue 1 item 11's step:
 TP inside each expert (``Strategy(expert_parallel=False)`` on the olmoe
 smoke at (1, 2) and (2, 2), in the trainer and in the train step).
 
@@ -78,6 +84,8 @@ LR = 1e-3                       # the reference test's
 LOSS_TOL, PARAM_TOL = 1e-4, 5e-4        # the reference test's bounds
 GRAD_ATOL, GRAD_RTOL = 1e-6, 1e-5       # vs the port's one-device step
 METRIC_REL = 1e-5
+
+VLM = "llama-3.2-vision-90b"
 
 #: case -> (arch, (data, model), Strategy keywords, capacity factor,
 #: batch, steps)
@@ -124,6 +132,18 @@ CASES = {
                                   dict(fsdp=True, seq_parallel=True,
                                        remat=True), 16.0, "uniform", 1),
     "whisper 1x4": ("whisper-tiny", (1, 4), {}, 16.0, "uniform", 1),
+    # the VLM (its gates opened on the JAX init): images beside the
+    # tokens, whole on every "model" rank; at (1, 4) Hkv 2 over tp 4 keeps
+    # wk / wv whole (self and image K/V) and each rank reads its one head
+    "vlm 2x2": (VLM, (2, 2), {}, 16.0, "uniform", 1),
+    "vlm 2x2 sp": (VLM, (2, 2), dict(seq_parallel=True), 16.0, "uniform",
+                   1),
+    "vlm 2x2 fsdp sp remat": (VLM, (2, 2),
+                              dict(fsdp=True, seq_parallel=True,
+                                   remat=True), 16.0, "uniform", 1),
+    "vlm 1x4": (VLM, (1, 4), {}, 16.0, "uniform", 1),
+    "vlm 2x2 adafactor": (VLM, (2, 2), dict(optimizer="adafactor"), 16.0,
+                          "uniform", 2),
 }
 
 #: the batches: 4 x 64 tokens over the whole vocabulary, and over its
@@ -141,13 +161,17 @@ def _tokens(kind):
 
 def _batch(arch, kind):
     """The case's numpy batch: ``_tokens``, and for the enc-dec family a
-    (4, encoder_ctx, d_model) block of standard-normal frames from a seed
-    of their own."""
+    (4, encoder_ctx, d_model) block of standard-normal frames, for the VLM
+    a (4, num_image_tokens, d_model) block of images, each from a seed of
+    its own."""
     out = {"tokens": _tokens(kind)}
-    if arch == "whisper-tiny":
+    media = {"whisper-tiny": ("frames", "encoder_ctx", 8),
+             VLM: ("image_embeds", "num_image_tokens", 9)}.get(arch)
+    if media is not None:
+        key, length, seed = media
         kw = _cfg_kw(arch, 16.0)
-        out["frames"] = np.random.default_rng(8).standard_normal(
-            (4, kw["encoder_ctx"], kw["d_model"])).astype(np.float32)
+        out[key] = np.random.default_rng(seed).standard_normal(
+            (4, kw[length], kw["d_model"])).astype(np.float32)
     return out
 
 
@@ -176,7 +200,9 @@ def _cfg_kw(arch, cf):
 def _jax_ref(key):
     """The JAX package's unsharded step(s) for ``key`` (``_ref_key``): (cfg
     keywords, the init flattened, [(new params flattened, metrics) a
-    step]); made once a key."""
+    step]); made once a key. A VLM's init has both gates opened to 1.0:
+    at 0 no cross weight gets a gradient and a cross layer's defect
+    hides."""
     if key not in _JAX:
         import jax
         import jax.numpy as jnp
@@ -189,6 +215,9 @@ def _jax_ref(key):
         kw = _cfg_kw(arch, cf)
         jcfg = JaxConfig(**kw)
         params = get_model(jcfg).init(jax.random.key(0), jcfg)
+        if jcfg.arch_type == "vlm":
+            for gate in ("gate_attn", "gate_mlp"):
+                params["cross"][gate] = jnp.ones_like(params["cross"][gate])
         st = JaxStrategy(remat=False, microbatches=micro, dtype="float32",
                          optimizer=optimizer)
         step = jax.jit(jstep.make_train_step(jcfg, st, lr=LR))
@@ -313,29 +342,13 @@ def _ssm_checkpoint_rank(get_mesh, tmp, flats):
 
 
 def _refusals(get_mesh):
-    """What does not train on a mesh: the VLM (the trainer refuses it,
-    and so does its forward under a rank) and TP inside each expert (the
-    olmoe smoke with ``expert_parallel=False``: the trainer at (1, 2) and
-    (2, 2), and the train step's ``grads`` under a (2, 2) rank)."""
+    """What does not train on a mesh: TP inside each expert (the olmoe
+    smoke with ``expert_parallel=False``: the trainer at (1, 2) and (2,
+    2), and the train step's ``grads`` under a (2, 2) rank)."""
     from repro_torch.configs import get_smoke
-    from repro_torch.models import vlm
     from repro_torch.train.trainer import TrainConfig, Trainer
     out = {}
     mesh = get_mesh((2, 2))
-    cfg = get_smoke("llama-3.2-vision-90b").with_(dtype="float32")
-    try:
-        Trainer(cfg, Strategy(dtype="float32"), "cpu", TrainConfig(steps=1),
-                global_batch=4, seq_len=8, mesh=mesh)
-    except NotImplementedError as e:
-        out["vlm trainer"] = str(e)
-    view = tp.Rank.of(mesh, get_smoke("qwen3-14b"))
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
-             "image_embeds": torch.zeros((1, 4, cfg.d_model))}
-    try:
-        with tp.active(view):
-            vlm.forward({}, batch, cfg)
-    except NotImplementedError as e:
-        out["vlm forward"] = str(e)
     moe = get_smoke("olmoe-1b-7b").with_(dtype="float32")
     tp_in_expert = Strategy(expert_parallel=False, dtype="float32")
     for shape in ((1, 2), (2, 2)):
@@ -397,6 +410,10 @@ def _all_ranks(rank, world, refs, tmp):
         ["--device", "cpu", "--arch", "whisper-tiny", "--dp", "2", "--tp",
          "2", "--seq-parallel", "--steps", "2", "--global-batch", "4",
          "--seq", "16"])
+    out["vlm_launcher"] = launcher.main(
+        ["--device", "cpu", "--arch", VLM, "--dp", "2", "--tp", "2",
+         "--seq-parallel", "--steps", "2", "--global-batch", "4", "--seq",
+         "16"])
     out["encdec_session"] = _encdec_session_rank(tmp)
     out["ssm_checkpoint"] = _ssm_checkpoint_rank(get_mesh, tmp,
                                                  refs["ssm_checkpoint"])
@@ -665,17 +682,6 @@ def test_train_launcher_dp2_tp2_fsdp_runs_on_ranks(spawned):
     assert all(o == outs[0] for o in outs)
 
 
-def test_unported_families_refuse_on_a_mesh(spawned):
-    """The VLM does not train on a mesh yet: its Trainer and its forward
-    under a rank raise naming ROADMAP.md Queue 1 item 11, step 7b b."""
-    ranks, _ = spawned
-    refused = ranks[0]["refused"]
-    for where in ("trainer", "forward"):
-        msg = refused[f"vlm {where}"]
-        assert "item 11" in msg and "step 7b b" in msg, where
-        assert "under a mesh" in msg
-
-
 def test_tp_in_expert_moe_training_refuses_on_a_mesh(spawned):
     """TP inside each expert (``Strategy(expert_parallel=False)``) on an
     MoE over "model" > 1 raises ``NotImplementedError`` naming item 11
@@ -880,3 +886,66 @@ def test_encdec_flash_limits_at_a_rank():
     check_kernel_limits(cfg, Strategy(), "cuda")
     with pytest.raises(ValueError, match="flash-attention kernel"):
         check_kernel_limits(cfg.with_(head_dim=20), Strategy(), "cuda", rank)
+
+
+# ------------------------------------------------------------------ the VLM
+
+def test_vlm_collectives_by_label(spawned):
+    """A VLM step's collectives at (2, 2), the smoke's one group (2 self
+    layers and 1 cross layer): an ``attn_out`` and an ``mlp_out`` sum a
+    self and a cross layer forward; backward ``attn_in`` a self layer,
+    the cross query's ``xattn_in`` and ``mlp_in`` a layer of both. The
+    images are data: no ``cross_in`` gradient sum. Without sequence
+    parallelism the gates' outputs are whole on every rank: no ``gate``
+    sum; under it each of the two gates scales the rank's slice and its
+    gradient is summed (``gate.grad``, two a cross layer), beside the
+    norms' scales, the gathers before each column-parallel region and the
+    reduce-scatters' backward. Under FSDP only the (G,) gates, which do
+    not split over "data", take a "data" gradient sum. At (1, 4) the
+    whole ``wk`` / ``wv`` of every self and cross layer sum their
+    gradients (``kv_proj``)."""
+    ranks, _ = spawned
+    kw = _jax_ref(_ref_key("vlm 2x2"))[0]
+    cfg = ModelConfig(**kw)
+    g, rest = cfg.vlm_groups
+    selfs, cross = g * cfg.cross_attn_every + rest, g
+    for r in ranks:
+        c = r["cases"]["vlm 2x2"]["counts"]
+        assert c["attn_out"] == c["mlp_out"] == selfs + cross
+        assert c["attn_in.grad"] == selfs and c["xattn_in.grad"] == cross
+        assert c["mlp_in.grad"] == selfs + cross
+        assert c["embed"] == c["logits"] == 1
+        assert c["dp_grads"] == len(_leaves("vlm 2x2")[1])
+        assert not {"gate.grad", "cross_in.grad", "kv_proj.grad"} & set(c)
+        s = r["cases"]["vlm 2x2 sp"]["counts"]
+        assert s["gate.grad"] == 2 * cross
+        assert s["attn_seq"] == selfs and s["xattn_seq"] == cross
+        assert s["mlp_seq"] == selfs + cross
+        assert s["attn_out.grad"] == s["mlp_out.grad"] == selfs + cross
+        assert s["norm.grad"] == 2 * (selfs + cross) + 1
+        assert s["head_seq"] == 1 and s["embed.grad"] == 1
+        assert "cross_in.grad" not in s
+        f = r["cases"]["vlm 2x2 fsdp sp remat"]["counts"]
+        assert f["gate.grad"] == 2 * cross
+        # FSDP's gathers sum the gradient of each leaf they split; the
+        # (G,) gates do not split over "data" and take the "data" sum
+        whole = [k for k, lb in _leaves("vlm 2x2 fsdp sp remat")[1].items()
+                 if lb.fsdp_dim is None]
+        assert whole and all("gate" in k for k in whole)
+        assert f["dp_grads"] == len(whole)
+        assert f["fsdp_gather"] > f["fsdp_gather.grad"] > 0   # recompute
+        k = r["cases"]["vlm 1x4"]["counts"]
+        assert k["kv_proj.grad"] == 2 * (selfs + cross)
+        assert not {"gate.grad", "cross_in.grad", "dp_grads"} & set(k)
+
+
+def test_vlm_train_launcher_runs_on_ranks(spawned):
+    """``launch/train.py --arch llama-3.2-vision-90b --dp 2 --tp 2
+    --seq-parallel`` on the four ranks (``ImagesData``: every rank draws
+    the same images and takes its rows): two steps, the same finite loss
+    on every rank."""
+    ranks, _ = spawned
+    outs = [[{k: v for k, v in h.items() if k != "wall"}
+             for h in r["vlm_launcher"]["history"]] for r in ranks]
+    assert outs[0][-1]["step"] == 2 and np.isfinite(outs[0][-1]["loss"])
+    assert all(o == outs[0] for o in outs)

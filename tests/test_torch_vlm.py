@@ -384,27 +384,6 @@ def test_cp_decode_without_a_rank_equals_the_reference():
                                atol=1e-5, rtol=1e-5)
 
 
-def test_cp_decode_raises_naming_the_parallelism_item():
-    """Under a live tensor-parallel rank the VLM's prefill and decode
-    raise naming item 11 and its step (the VLM under a mesh), before any
-    collective: its layers do not run on a rank's shards yet."""
-    from repro_torch.core import tp
-    _, cfg, _, params = _pair("rest0")
-    cfg = cfg.with_(cp_decode=True)
-    cache = vlm.init_cache(cfg, 1, 8, device="cpu")
-    rank = tp.Rank(tp=2, rank=0, group=None, root=0, heads=cfg.num_heads // 2,
-                   kv_heads=cfg.num_kv_heads, kv_read=None)
-    tok = torch.zeros((1, 1), dtype=torch.int32)
-    with tp.active(rank):
-        with pytest.raises(NotImplementedError,
-                           match="item 11.*the VLM under a mesh"):
-            vlm.decode_step(params, cache, tok, 0, cfg)
-        with pytest.raises(NotImplementedError,
-                           match="item 11.*the VLM under a mesh"):
-            vlm.prefill(params, {"tokens": tok, "image_embeds": torch.zeros(
-                (1, cfg.num_image_tokens, cfg.d_model))}, cfg, cache)
-
-
 # -------------------------------------------------------------- training
 
 _TRAIN = {}
