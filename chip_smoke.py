@@ -3,7 +3,14 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Phases (any failure exits non-zero; no result line is printed then):
+Phases (any failure exits non-zero; no result line is printed then).
+The phases on gloo rank processes (4's tp 2 and dp 2 x tp 2 runs, 19-33)
+run their single-process part in the order below, up to their ranks;
+their rank work then runs on one set of four rank processes (4's dp 2 x
+tp 2, then 24, 25, 28, 29, 31, 33) and one set of two (4's tp 2, tp 2
+families and CP runs, then 19 with 26, 23, 21 with 32, 22, 27 with 30),
+each phase's in turn on the same processes (``_run_jobs``: a process's
+start costs seconds), and each phase's checks after its set:
 
 1. the card: ``torch.cuda.is_available()`` or exit 1; name and power
    limit from ``nvidia-smi``;
@@ -141,6 +148,12 @@ Phases (any failure exits non-zero; no result line is printed then):
    the shortest and the longest prompt at 32/4 and 64/8 heads) within
    2e-6 and the fp32 MLP at f 14336 and 28672 for 4 rows and the longest
    prompt per value (atol 1e-5 + rtol 1e-4), each rejecting its defect;
+   then at the shapes phase 33 adds: bf16 flash at a dp 2 x tp 2
+   OLMoE-1B-7B training rank's (1, 2048, 2048, 8, 8, 128) causal, per
+   value, its defect rejected, timed beside SDPA with its bound and its
+   plain backward timed; fp32 flash at the f32 check's rank shape (1,
+   256, 256, 8, 8, 128) and one-device shape (2, 256, 256, 16, 16, 128)
+   within 2e-6, each shown to reject dropped keys;
 4. tiny float32 configs on the card and on the CPU (TF32 off): through
    the port's engine on each layout — the mixed step, the split path on
    the pool (``mixed=False``) and on the dense layout (``paged=False``),
@@ -193,7 +206,11 @@ Phases (any failure exits non-zero; no result line is printed then):
    way on both paths: streams identical to the unsharded engine's on the
    card, the KV a rank half, launches as the path says, one ``moe_out``
    all-reduce a layer a program (MoE), two a layer of each encoder run
-   and three a decoder layer a program (enc-dec); the tiny SSM config and
+   and three a decoder layer a program (enc-dec); the MoE again with TP
+   inside each expert (``Strategy(expert_parallel=False)``: every expert
+   at half its d_ff a rank), the same checks and its ``moe_out`` bytes
+   half the expert-parallel run's (1/k, k = 2) on the same programs; the
+   tiny SSM config and
    a tiny hybrid (one group, one trailing layer) on the split path, a
    Mamba2 block of H / 2 whole heads a rank: streams identical, launches
    as the path says, the SSM states a rank half, one ``ssm_out`` and one
@@ -224,9 +241,11 @@ Phases (any failure exits non-zero; no result line is printed then):
    row: streams equal to the unsharded engine's, the KV a rank half,
    launches as the path says, one head-assembly sum, one MAX and one SUM
    a layer a decode step;
-5. the SERVING PATH: ``Session(get_config("qwen3-14b"), device="cuda")
-   .serve(slots=4, max_len=1024, page_size=16, chunk_tokens=256)`` at full
-   width with random weights from ``--seed``, 6 requests of 24-700 prompt
+5. the SERVING PATH: ``Session(get_config("qwen3-14b").with_(
+   num_layers=16), device="cuda").serve(slots=4, max_len=1024,
+   page_size=16, chunk_tokens=256)`` at full width, depth cut to 16 of
+   its 40 layers (``MAIN_LAYERS``, the script's time limit; phases 5-10
+   and 20 on these weights), with random weights from ``--seed``, 6 requests of 24-700 prompt
    tokens and 16 new tokens each. Launch counts are zeroed just before and
    read just after: paged attention and the fused MLP must each have run
    ``layers x program runs`` times. Prints tokens/s, step p50 and peak
@@ -258,8 +277,9 @@ Phases (any failure exits non-zero; no result line is printed then):
    must be finite and the peak memory under the card's. Prints step p50,
    tokens/s, peak memory and the model-FLOPs share of 989 TFLOP/s;
 7. the SSM SERVING PATH, after the trainer is freed:
-   ``Session(get_config("mamba2-780m"), device="cuda").serve(slots=4,
-   max_len=2048)`` at full width (48 layers, bf16, random weights from
+   ``Session(family_config("mamba2-780m"), device="cuda").serve(slots=4,
+   max_len=2048)`` at full width (24 of its 48 layers, ``FAMILY_LAYERS``:
+   the script's time limit; bf16, random weights from
    ``--seed``) through the split path: 6 requests of 1024, 640, 384,
    256, 128 and 77 prompt tokens (each <= 128 or a multiple of 128, the
    reference's chunk precondition), 32 new tokens each. Launch counts are
@@ -309,14 +329,14 @@ Phases (any failure exits non-zero; no result line is printed then):
    Prints TTFT and TPOT p50/p90 and the share of tokens equal to run B's
    (reported, not checked).
 11. HYBRID SERVING, after phase 7's session is freed:
-   ``Session(get_config("zamba2-1.2b"), device="cuda").serve(slots=4,
-   max_len=2048)`` at full width (38 layers: 6 groups of 6 Mamba layers,
-   each followed by the one shared attention + MLP block, and 2 trailing
-   Mamba layers; bf16, random weights from ``--seed``) through the split
+   ``Session(family_config("zamba2-1.2b"), device="cuda").serve(slots=4,
+   max_len=2048)`` at full width (20 of its 38 layers, ``FAMILY_LAYERS``:
+   3 groups of 6 Mamba layers, each followed by the one shared attention
+   + MLP block, and 2 trailing Mamba layers, as its 6 groups and 2; bf16, random weights from ``--seed``) through the split
    path: 6 requests of 1024, 640, 384, 256, 128 and 77 prompt tokens, 32
    new tokens each. Counts are zeroed just before and read just after:
-   ``ssd_scan`` must have run 38 x prefills times, ``flash_attention`` 6
-   x prefills, ``fused_mlp`` 6 x (prefills + decode steps), paged
+   ``ssd_scan`` must have run 20 x prefills times, ``flash_attention`` 3
+   x prefills, ``fused_mlp`` 3 x (prefills + decode steps), paged
    attention never; every request finishes with 32 in-vocab tokens,
    ``prefill_traces`` equals the 6 distinct lengths and ``decode_traces``
    1. Prints tokens/s, step p50 (with a prefill, decode only), peak
@@ -324,10 +344,11 @@ Phases (any failure exits non-zero; no result line is printed then):
    torch.profiler (admission step, decode-only steps, by kernel group);
    then ``Session.generate`` of a (4, 512) prompt for 16 steps (exact
    launch counts).
-12. SSM AND HYBRID TRAINING, uncut: phase 6's run (AdamW, remat on, 1 x
-   4096 tokens, 6 steps; seq_len 2048 only on out-of-memory, said in the
-   record) on Mamba2-780M (48 layers) and on Zamba2-1.2B (38 layers).
-   Flash attention must have run 0 times for Mamba2 and 6 groups x steps
+12. SSM AND HYBRID TRAINING at phase 7's and 11's depth: phase 6's run
+   (AdamW, remat on, 1 x 4096 tokens, 3 steps (6 until phases 32-33: the
+   script's time limit); seq_len 2048 only on out-of-memory, said in the
+   record) on Mamba2-780M (24 of 48 layers) and on Zamba2-1.2B (20 of
+   38). Flash attention must have run 0 times for Mamba2 and 3 groups x steps
    x 2 (forward and remat recompute) for the hybrid, the other kernels
    never (training takes the plain SSD scan and SwiGLU). Prints step p50,
    tokens/s, peak memory, the model-FLOPs share of 989 TFLOP/s (6
@@ -423,18 +444,20 @@ Phases (any failure exits non-zero; no result line is printed then):
    (``vlm_train_flops``).
 
 19. TENSOR-PARALLEL SERVING, after phase 10's session is freed (run
-   before phase 6): Qwen3-14B at full width, depth cut to 20 of its 40
-   layers (the script's time limit, since phases 30-31), tp 2 over
-   two rank processes sharing the one card over gloo, each through
-   ``Session.serve(tp=2)`` and drawing only its shards (20/4 heads x
-   128 and d_ff 8704 of every layer, half the vocabulary, ~8 GB):
+   before phase 6): Qwen3-14B at full width, depth cut to 5 of its 40
+   layers (the script's time limit: 20 since phases 30-31, 10 since
+   phases 32-33, 5 since then), tp 2 over two rank processes sharing the
+   one card over
+   gloo, each through ``Session.serve(tp=2)`` and drawing only its
+   shards (20/4 heads x 128 and d_ff 8704 of every layer, half the
+   vocabulary):
    phase 5's settings and six prompts on the mixed step, then the split
    path on the same shards. Counts zeroed just before and read just
-   after, on each rank: paged attention and the fused MLP 20 x program
-   runs on the mixed step; flash 20 x prefills, the fused MLP 20 x
-   programs and paged attention 20 x decode steps on the split path;
+   after, on each rank: paged attention and the fused MLP 5 x program
+   runs on the mixed step; flash 5 x prefills, the fused MLP 5 x
+   programs and paged attention 5 x decode steps on the split path;
    every request finishes with 16 in-vocab tokens, both ranks' streams
-   equal, the KV bytes a rank half of phase 5's pool's share of 20
+   equal, the KV bytes a rank half of phase 5's pool's share of 5
    layers. Prints tokens/s, steps, step p50, each rank's peak memory and
    the collectives a rank. Two
    ranks share one card's SMs and gloo stages every all-reduce through
@@ -443,11 +466,11 @@ Phases (any failure exits non-zero; no result line is printed then):
 20. DATA-PARALLEL SERVING on phase 10's session (after phase 10, before
    it is freed): a dp 2 ``ReplicaRouter`` (``Session.serve(dp=2,
    devices=["cuda:0"] * 2)``), both replicas on the one card sharing its
-   29.5 GB of weights, each with its own pool of 4 slots x 1024 tokens;
+   weights (29.5 GB uncut), each with its own pool of 4 slots x 1024 tokens;
    phase 5's six prompts (16 new tokens), then phase 8's shared-prompt
    traffic with the prefix cache (32 new tokens; request 7 arrives once
    request 2 has 8 tokens). Counts zeroed just before and read just
-   after: paged attention and the fused MLP 40 x the replicas' program
+   after: paged attention and the fused MLP 16 x the replicas' program
    runs; every request finishes; both replicas prefill phase 5's
    traffic; each replica within its (chunk, page bucket) pairs; a
    request whose first block a replica took goes there while that
@@ -476,14 +499,15 @@ Phases (any failure exits non-zero; no result line is printed then):
    each rank, both ranks' streams equal, the KV and cross blocks a rank
    half of phase 15's; the share of tokens equal to phase 15's reported.
 23. CONTEXT-PARALLEL DECODE, after phase 19: Qwen3-14B at full width,
-   depth cut to 20 of its 40 layers (the script's time limit, since
-   phases 30-31), with ``cp_decode`` at tp 2, two rank processes on the
-   card over gloo, each drawing only its shards (~8.2 GB):
+   depth cut to 5 of its 40 layers (the script's time limit: 20 since
+   phases 30-31, 10 since phases 32-33, 5 since then), with
+   ``cp_decode`` at tp 2, two
+   rank processes on the card over gloo, each drawing only its shards:
    ``greedy_generate`` under the rank on one 8,192-token prompt for 32
    new tokens (8,224 positions, 4,112 a rank with all 8 K/V heads; every
    decode step context-parallel), then the head-sharded path on the same
    shards. Launches counted from 0 just before each and read just after:
-   flash 20, the fused MLP 20 x 32, the others never; both ranks' streams
+   flash 5, the fused MLP 5 x 32, the others never; both ranks' streams
    equal; one ``cp_qkv``, ``cp_max`` and ``cp_sum`` a layer a CP decode
    step. Prints prefill seconds, decode step p50, a decode step's
    collectives and bytes by label, KV bytes and peak memory a rank and
@@ -496,19 +520,20 @@ Phases (any failure exits non-zero; no result line is printed then):
 24. SHARDED TRAINING, after phase 6: Qwen3-14B at full width cut to 2
    layers at dp 2 x tp 2, four rank processes sharing the card over gloo,
    each through ``Trainer(mesh=)`` drawing only its shards (20/4 heads,
-   d_ff 8704, half the vocabulary a rank; 1.108 B params): 3 AdamW steps
-   (remat on), a fresh global batch of 2 x 2048 tokens each step (the
-   token dataset), under ZeRO-1 (the default), FSDP and sequence
-   parallelism. Counts zeroed just before
-   each run and read just after, on each rank: flash 2 layers x 2
-   (forward and remat recompute) x 3 steps, the others never. Every
+   d_ff 8704, half the vocabulary a rank; 1.108 B params): 1 AdamW step
+   (remat on; 3 until phases 32-33, the time limit), a fresh global
+   batch of 2 x 2048 tokens each step (the token dataset), under ZeRO-1
+   (the default), FSDP and sequence parallelism. Counts zeroed just
+   before each run and read just after, on each rank: flash 2 layers x 2
+   (forward and remat recompute) a step, the others never. Every
    rank's loss and grad norm equal each step, the two data replicas'
    param blocks equal bit for bit after each step. Prints step p50,
    tokens/s, peak memory a rank and a step's collectives and bytes by
    label. Then the f32 check (TF32 off) at 1 layer, full width, 2 x 256
-   tokens, lr 1e-3: the one-device step first (the first rank; moved to
-   the host, freed and broadcast to every rank's host), then each run at
-   (2, 2): loss within 1e-4 and
+   tokens, lr 1e-3: the one-device step made in this process before the
+   ranks start, its new params written to ``chip_tmp/`` (each rank reads
+   its blocks by memory map), then each run at (2, 2): loss within 1e-4
+   and
    every param within atol / rtol 5e-4 of it, and a version that drops
    the "data" gradient sum outside that bound. Four ranks share one
    card's SMs and gloo stages every collective through host memory: not
@@ -519,7 +544,8 @@ Phases (any failure exits non-zero; no result line is printed then):
    ``pipeline_apply`` with the port's ``transformer.block`` as the stage
    function on M = 1, 4 and 8 microbatches of 1 x 2048 seeded hidden
    states: a ``no_grad`` forward and a forward + backward of ``(y **
-   2).mean()`` (each block rematerialised), 3 times each. Counts zeroed
+   2).mean()`` (each block rematerialised), 2 times each (3 until the
+   phases on rank processes shared them). Counts zeroed
    just before each run and read just after, on each rank: flash 2 (M +
    3) without a gradient and 4 (M + 3) with one (the recompute), the
    fused MLP 2 (M + 3) without a gradient and 0 with one, the others
@@ -555,12 +581,14 @@ Phases (any failure exits non-zero; no result line is printed then):
    parallelism's speed.
 
 27. THE SSM FAMILY AND THE HYBRID AT TP 2, after phase 11: Mamba2-780M
-   (48 layers) and Zamba2-1.2B (38) uncut, two rank processes on the
+   and Zamba2-1.2B at phase 7's and 11's depth (24 of 48 and 20 of 38
+   layers), two rank processes on the
    card over gloo, each drawing only its shards (a Mamba2 block of H / 2
    whole heads: ``in_proj`` and the conv by head with all of B and C;
    Zamba2's shared block at 16/16 heads, d_ff 4096), phase 7's / 11's
-   six prompts through ``Session.serve(tp=2)`` on the split path: 32 new
-   tokens in bf16, then 8 in f32 (TF32 off), whose streams must equal
+   six prompts through ``Session.serve(tp=2)`` on the split path: 16 new
+   tokens in bf16 (32 until phases 32-33), then 8 in f32 (TF32 off),
+   whose streams must equal
    the one-device f32 engine's (run first in this process). Counts zeroed
    just before each run and read just after, on each rank: the SSD scan
    layers x prefills (Zamba2 also flash 6 x prefills and the fused MLP 6
@@ -578,7 +606,7 @@ Phases (any failure exits non-zero; no result line is printed then):
    of its 48 layers (the script's time limit: 48 layers took 93.5 s, 24
    until phases 30-31 joined), at
    dp 2 x tp 2, phase 24's three runs (ZeRO-1, FSDP, SP) of
-   3 AdamW steps on 2 x 2048 tokens and its checks (no kernel runs: the
+   1 AdamW step on 2 x 2048 tokens and its checks (no kernel runs: the
    SSM family trains through the plain SSD scan), then the f32 check at
    2 layers, full width: loss within 1e-4 and every param within atol /
    rtol 5e-4 of the one-device step's, and two defects outside that
@@ -589,9 +617,9 @@ Phases (any failure exits non-zero; no result line is printed then):
    encoder and 4 decoder layers, 3/3 heads x 64 a rank, the whole
    51,865-row head on every rank), at dp 2 x tp 2, phase 24's three runs
    (ZeRO-1, FSDP, SP: the encoder's 1500 frames and the decoder's 448
-   tokens each split over "model") of 3 AdamW steps on 8 x 448 tokens
+   tokens each split over "model") of 2 AdamW steps on 8 x 448 tokens
    and one (8, 1500, 384) frames block (``FramesData``) and its checks
-   (flash 3 x (4 encoder + 4 decoder + 4 decoder recompute) a run a rank,
+   (flash 2 x (4 encoder + 4 decoder + 4 decoder recompute) a run a rank,
    the other kernels never), then the f32 check uncut on 2 x 448 tokens
    and their frames: loss within 1e-4 and every param within atol / rtol
    5e-4 of the one-device step's, and two defects outside that bound
@@ -623,9 +651,9 @@ Phases (any failure exits non-zero; no result line is printed then):
 31. SHARDED TRAINING OF THE VLM, on phase 24's four rank processes after
    phase 29: Llama-3.2-Vision-90B at full width cut to one group (4 self
    and 1 cross layer, 7.235 B params), dp 2 x tp 2 under FSDP, sequence
-   parallelism and remat with Adafactor, gates open, 2 steps (the time
+   parallelism and remat with Adafactor, gates open, 1 step (the time
    limit) of 2 x 1024 tokens beside a (2, 1601, 8192) image block, phase
-   24's checks (flash 2 x (4 + 4 recompute) a rank, the other kernels
+   24's checks (flash 4 + 4 recompute a rank, the other kernels
    never), then the f32
    check at ``cross_attn_every=1, num_layers=2`` on 2 x 256 tokens and
    their images: the one-device step (Adafactor) on each rank in turn
@@ -639,6 +667,44 @@ Phases (any failure exits non-zero; no result line is printed then):
    p50,
    tokens/s, peak memory a rank and a step's collectives and bytes by
    label. Not parallelism's speed: four ranks share one card over gloo.
+32. TP INSIDE EACH EXPERT, SERVING, on phase 21's two rank processes
+   after its runs free their engines: OLMoE-1B-7B uncut through
+   ``Session(cfg, strategy=Strategy(expert_parallel=False)).serve(tp=2,
+   chunk_tokens=256, slots=4, max_len=1024, page_size=16)`` (each rank
+   drawing only its shards: 8/8 heads x 128, all 64 experts at 512 of
+   their 1024 d_ff, half the vocabulary), phase 13's six requests on the
+   mixed step, 16 new tokens each. Counts zeroed just before and read
+   just after, on each rank: paged attention 16 x program runs, the
+   others never; every request finishes, both ranks' streams equal, one
+   ``moe_out`` and one ``attn_out`` sum a layer a program, the
+   ``moe_out`` bytes a program 1/8 (1/k) of phase 21's (the gate-weighted
+   (T, d) output against the (T k, d) slots), the weights a rank within
+   1% of phase 21's. Prints tokens/s, step p50, peak memory a rank,
+   collectives and bytes a program and the share of tokens equal to
+   phase 13's and 21's streams (information). Then the f32 check (TF32
+   off) at full width cut to 1 of 16 layers: the one-device engine first
+   (in this process, before phase 21's ranks start, then freed), then the
+   ranks: streams equal and the first request's last logits within 1e-3
+   of the one device's, and a run without the ``moe_out`` sum outside
+   that.
+33. MoE TRAINING ON A MESH, on phase 24's four rank processes after
+   phase 31: OLMoE-1B-7B at full width cut to 2 of 16 layers (1.05 B
+   params), dp 2 x tp 2, AdamW with remat, 1 step of 2 x 2048 tokens
+   (the token dataset) in each of two runs that differ in the MoE's
+   layout alone: the experts over "model" (``ep zero1``, the default
+   strategy) and TP inside each expert (``tie zero1``), with phase 24's
+   checks (flash 2 layers x 2 (forward and remat recompute) a run a
+   rank, the others never); then the f32 check at 1 layer, full
+   width, on 2 x 256 tokens: the one-device step made once in this
+   process before phase 24's ranks start (its params and the router's
+   gradient before clipping kept on disk for the ranks), then TP inside
+   each expert with SP at (2, 2): loss within 1e-4, every param within
+   atol / rtol 5e-4 and the router's gradient within atol 1e-6 + rtol
+   1e-3; and two defects outside those bounds (no ``moe_out`` sum; the
+   gates without their ``enter``). Prints step p50, tokens/s, peak
+   memory a rank, a step's collectives and bytes by label and the flash
+   launches. Not parallelism's speed: four ranks share one card over
+   gloo.
 
 Last, every process the run started (nvcc, cuobjdump, the rank
 processes and the ``multiprocessing`` resource tracker their start
@@ -663,6 +729,7 @@ import time
 from collections import Counter
 from contextlib import contextmanager, nullcontext
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -2780,13 +2847,19 @@ def serving_prompts(seed: int, vocab: int):
     return lens, [rng.integers(0, vocab, size=(int(n),)) for n in lens]
 
 
+#: the depth at which phases 5-10 and 20 serve Qwen3-14B at full width
+#: (16 of its 40 layers: the script's time limit; uncut until phases
+#: 32-33)
+MAIN_LAYERS = 16
+
+
 def phase_main(seed: int):
     from repro_torch import kernels
     from repro_torch.api import Session
     from repro_torch.configs import get_config
     from repro_torch.serve.paging import pages_for
     from repro_torch.serve.step import page_bucket
-    cfg = get_config("qwen3-14b")
+    cfg = get_config("qwen3-14b").with_(num_layers=MAIN_LAYERS)
     log(f"[main] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.head_dim}, d_ff "
         f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, "
@@ -3279,7 +3352,7 @@ SPEC_PHASE_RUNS = {
     "D: self-drafting model, k 4, 2 slots": dict(spec="model", slots=2),
 }
 #: run D serves the first requests only, with fewer new tokens (every draft
-#: token costs a 40-layer forward over up to 1024 positions)
+#: token costs a forward of phase 5's layers over up to 1024 positions)
 SPEC_D_REQUESTS, SPEC_D_NEW = 2, 16
 
 
@@ -3926,6 +3999,18 @@ def _train_profile(trainer, step_p50_s: float, need_flash: bool = True):
 #: it: the reference's chunk precondition), drawn in this order from
 #: ``default_rng(seed)``
 SSM_PROMPTS = (1024, 640, 384, 256, 128, 77)
+#: the depth at which phases 7, 11, 12 and 27 run the SSM family and the
+#: hybrid at full width (the script's time limit; uncut until phases
+#: 32-33): Mamba2-780M 24 of its 48 layers, Zamba2-1.2B 20 of its 38 (3
+#: groups of 6 Mamba layers and the shared block, and 2 trailing layers,
+#: as its 6 groups and 2)
+FAMILY_LAYERS = {"mamba2-780m": 24, "zamba2-1.2b": 20}
+
+
+def family_config(arch: str):
+    """``arch``'s config at full width, depth cut to ``FAMILY_LAYERS``."""
+    from repro_torch.configs import get_config
+    return get_config(arch).with_(num_layers=FAMILY_LAYERS[arch])
 
 
 def ssm_requests(rng, vocab: int):
@@ -3935,7 +4020,7 @@ def ssm_requests(rng, vocab: int):
 
 
 def _serve_family(arch: str, seed: int, tag: str, want_fn):
-    """Serve ``arch`` at full width through ``Session(get_config(arch),
+    """Serve ``arch`` at full width through ``Session(family_config(arch),
     device="cuda").serve(slots=4, max_len=2048)`` (random weights from
     ``seed``): six requests of 1024, 640, 384, 256, 128 and 77 prompt
     tokens (each <= 128 or a multiple of it: the reference's chunk
@@ -3948,7 +4033,7 @@ def _serve_family(arch: str, seed: int, tag: str, want_fn):
     from repro_torch.api import Session
     from repro_torch.configs import get_config
     from repro_torch.tree import flatten
-    cfg = get_config(arch)
+    cfg = family_config(arch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     session = Session(cfg, device="cuda", seed=seed)
@@ -4041,7 +4126,7 @@ def _ssm_want(cfg, prefills: int, decode_steps: int) -> dict:
 
 
 def phase_ssm(seed: int):
-    """The SSM SERVING PATH: ``_serve_family`` on Mamba2-780M (48 layers,
+    """The SSM SERVING PATH: ``_serve_family`` on Mamba2-780M (24 layers,
     bf16): the split path, one exact-length prefill a request through the
     SSD kernel and one batched recurrent decode a step; the SSD kernel
     must have run layers x prefills times, the other kernels never. Then
@@ -4081,7 +4166,7 @@ def _hybrid_want(cfg, prefills: int, decode_steps: int) -> dict:
 
 
 def phase_hybrid(seed: int):
-    """HYBRID SERVING: ``_serve_family`` on Zamba2-1.2B (38 layers: 6
+    """HYBRID SERVING: ``_serve_family`` on Zamba2-1.2B (20 layers: 3
     groups of 6 Mamba layers and the shared block, 2 trailing; bf16)
     through the split path, with ``_hybrid_want``'s launch counts; then
     one more pair under torch.profiler (admission step, decode-only
@@ -4133,14 +4218,16 @@ def phase_hybrid(seed: int):
 
 # ----------------------------------------------------------------- phase 12
 
-def phase_train_families(seed: int, steps: int = 6):
-    """SSM AND HYBRID TRAINING at full width, uncut: Mamba2-780M (48
-    layers) and Zamba2-1.2B (38 layers), AdamW, remat, 1 x 4096 tokens
+def phase_train_families(seed: int, steps: int = 3):
+    """SSM AND HYBRID TRAINING at full width, depth cut to
+    ``FAMILY_LAYERS``: Mamba2-780M (24 of 48 layers) and Zamba2-1.2B (20
+    of 38), AdamW, remat, 1 x 4096 tokens
     (2048 only if 4096 does not fit, said in the record), ``steps`` steps
     each, with phase 6's checks, FLOPs share and profile."""
     out = {}
     for arch in ("mamba2-780m", "zamba2-1.2b"):
-        out[arch] = phase_train(seed, steps, layers=None, arch=arch)
+        out[arch] = phase_train(seed, steps, layers=FAMILY_LAYERS[arch],
+                                arch=arch)
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -4970,10 +5057,10 @@ def phase_vlm_train(seed: int, steps: int = 6):
 TP_SHAPES = {2: ((20, 4), 5120, 8704), 4: ((10, 2), 5120, 4352),
              8: ((5, 1), 5120, 2176)}
 #: phase 19's degree and the seconds its two rank processes may take; the
-#: depth at which phases 19 and 26 serve Qwen3-14B (20 of its 40 layers:
-#: the script's time limit, since phases 30-31 joined it)
+#: depth at which phases 19 and 26 serve Qwen3-14B (5 of its 40 layers:
+#: the script's time limit; 20 from phases 30-31, 10 from phases 32-33)
 TP_DEGREE, TP_TIMEOUT_S = 2, 480.0
-TP_SERVE_LAYERS = 20
+TP_SERVE_LAYERS = 5
 
 
 def phase_tp_kernels(seed: int):
@@ -5126,6 +5213,73 @@ def _spawn_ranks(fn, args, timeout: float, tag: str,
     return outs
 
 
+class RankJob(NamedTuple):
+    """What a phase on rank processes asks for: ``fn(rank, world,
+    *args)`` on ``world`` ranks within ``timeout`` seconds. A phase
+    function yields one and gets the ranks' results back (``_run_jobs``)."""
+    fn: Callable
+    args: tuple
+    timeout: float
+    tag: str
+    world: int = TP_DEGREE
+
+
+def _rank_jobs(rank: int, world: int, jobs):
+    """Each of ``jobs`` ((fn, args, tag)) in turn on this rank process,
+    the card's memory freed and its peak reset before each: their
+    results, in order, and the host's clock (``time.time``) at the first
+    job's start and the last one's end."""
+    outs, first = [], time.time()
+    for fn, args, tag in jobs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        outs.append(fn(rank, world, *args))
+        if rank == 0:
+            print(f"[{tag}] done in {time.perf_counter() - t0:.1f}s of the "
+                  f"rank processes", flush=True)
+    return {"outs": outs, "wall": (first, time.time())}
+
+
+def _start(phase):
+    """Run the generator ``phase`` up to the ``RankJob`` it yields."""
+    return phase, next(phase)
+
+
+def _run_jobs(started: dict, tag: str) -> dict:
+    """The ``RankJob`` of every phase in ``started`` ({key: ``_start``'s
+    pair}, one world size) on one set of rank processes, in order (a
+    process's start costs seconds); then each phase resumed with its
+    ranks' results, to its checks and its record: {key: record}."""
+    jobs = [job for _, job in started.values()]
+    world = jobs[0].world
+    check(all(job.world == world for job in jobs),
+          f"[{tag}] world sizes {[job.world for job in jobs]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    got = _spawn_ranks(_rank_jobs,
+                       ([(job.fn, job.args, job.tag) for job in jobs],),
+                       sum(job.timeout for job in jobs), tag, world=world)
+    t1 = time.time()
+    first = max(r["wall"][0] for r in got)
+    last = min(r["wall"][1] for r in got)
+    log(f"[{tag}] the processes' start took {first - t0:.1f}s (the last "
+        f"rank's first job), their jobs {last - first:.1f}s, their end "
+        f"{t1 - last:.1f}s (from the first rank's last job)")
+    outs = [r["outs"] for r in got]
+    records = {}
+    for i, (key, (phase, _)) in enumerate(started.items()):
+        try:
+            phase.send([ranks[i] for ranks in outs])
+        except StopIteration as stop:
+            records[key] = stop.value
+        else:
+            raise RuntimeError(f"[{tag}] {key} asked for ranks twice")
+    return records
+
+
 def phase_parity_tp():
     """The tiny f32 dense config (Hkv 2: one K/V head a rank) served by
     two tensor-parallel ranks sharing the card over gloo, on the mixed
@@ -5156,8 +5310,8 @@ def phase_parity_tp():
         base[name] = ({i: list(res[i].out) for i in res},
                       eng.per_device_kv_bytes())
     flat = {k: v.cpu().numpy() for k, v in flatten(params).items()}
-    ranks = _spawn_ranks(_tp_parity_rank, (flat, prompts), 240.0,
-                         "parity tp 2")
+    ranks = yield RankJob(_tp_parity_rank, (flat, prompts), 240.0,
+                          "parity tp 2")
     out = {}
     for name in TP_PARITY_LAYOUTS:
         want_streams, want_kv = base[name]
@@ -5420,7 +5574,7 @@ def _leaves(tree):
 
 def phase_tp_serve(seed: int, main_run: dict, max_new: int = 16):
     """Phase 19: full-width Qwen3-14B, depth cut to ``TP_SERVE_LAYERS``
-    (20 of 40), served tensor-parallel at tp 2 by two rank processes
+    (5 of 40), served tensor-parallel at tp 2 by two rank processes
     sharing the card over gloo (``Session.serve(tp=2)`` in each; each rank
     draws only its shards: 20/4 heads x 128 and d_ff 8704 of every layer,
     half the vocabulary), phase 5's settings and six prompts on the mixed
@@ -5433,17 +5587,19 @@ def phase_tp_serve(seed: int, main_run: dict, max_new: int = 16):
     from repro_torch.configs import get_config
     _, prompts = serving_prompts(seed, get_config("qwen3-14b").vocab_size)
     prompts = [np.asarray(p, np.int32) for p in prompts]
-    ranks = _spawn_ranks(_tp_serve_rank, (seed, prompts, max_new),
-                         TP_TIMEOUT_S, "tp serve")
+    ranks = yield RankJob(_tp_serve_rank, (seed, prompts, max_new),
+                          TP_TIMEOUT_S, "tp serve")
     note = ("two ranks share one card's SMs and gloo stages each "
             "all-reduce through host memory: not tensor parallelism's "
             "speed")
     out = {"note": note, "ranks": []}
     for r in ranks:
         kv = r["mixed"]["per_device_kv_bytes"]
-        check(kv * 2 * 40 == main_run["kv_bytes"] * TP_SERVE_LAYERS,
+        check(kv * 2 * main_run["layers"]
+              == main_run["kv_bytes"] * TP_SERVE_LAYERS,
               f"[tp serve] rank {r['rank']} KV {kv} B x 2 != phase 5's "
-              f"{main_run['kv_bytes']} B x {TP_SERVE_LAYERS} / 40 layers")
+              f"{main_run['kv_bytes']} B x {TP_SERVE_LAYERS} / "
+              f"{main_run['layers']} layers")
         for name in ("mixed", "split"):
             check(r[name]["streams"] == ranks[0][name]["streams"],
                   f"[tp serve {name}] rank {r['rank']} streams differ from "
@@ -5645,6 +5801,12 @@ TP_FAMILY_PARITY = {
                    d_model=64, num_heads=4, num_kv_heads=4, d_ff=128,
                    ssm_state=16, ssm_heads=4, ssm_head_dim=16, ssm_chunk=64,
                    hybrid_attn_every=2, vocab_size=128, dtype="float32")}
+#: the MoE again with TP inside each expert (``expert_parallel=False``):
+#: all four experts and half of each expert's d_ff a rank, one (T, d)
+#: ``moe_out`` sum a layer, k = 2 times fewer bytes than the "moe" entry's
+TP_FAMILY_PARITY["moe_tie"] = TP_FAMILY_PARITY["moe"]
+#: a family's Strategy keywords where they are not the default
+TP_FAMILY_STRATEGY = {"moe_tie": dict(expert_parallel=False)}
 
 
 def _family_layouts(family: str) -> dict:
@@ -5695,6 +5857,7 @@ def _tp_family_parity_rank(rank: int, world: int, flats):
     the split path (``TP_PARITY_LAYOUTS``)."""
     from repro_torch.configs.base import ModelConfig
     from repro_torch.core import tp
+    from repro_torch.core.strategy import Strategy
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.params import from_numpy
     from repro_torch.serve.engine import ServeEngine
@@ -5705,9 +5868,10 @@ def _tp_family_parity_rank(rank: int, world: int, flats):
         cfg = ModelConfig(**kw)
         params = from_numpy(flats[family], cfg, "cuda")
         prompts, frames = _family_requests(cfg)
+        st = Strategy(dtype=cfg.dtype, **TP_FAMILY_STRATEGY.get(family, {}))
         for name, lkw in _family_layouts(family).items():
             eng = ServeEngine(cfg, params, slots=2, max_len=64, mesh=mesh,
-                              **lkw)
+                              strategy=st, **lkw)
             streams, launches = _serve_run(eng, prompts, frames)
             out[family, name] = {
                 "streams": streams, "launches": launches,
@@ -5719,7 +5883,10 @@ def _tp_family_parity_rank(rank: int, world: int, flats):
                 + eng.stats["decode_steps"],
                 "slices": sum(isinstance(v, tp.SeqSlice)
                               for v in eng._cache.values()),
-                "collectives": dict(eng._rank.counts)}
+                "w_up": tuple(eng.params["layers"]["moe"]["w_up"].shape)
+                if cfg.is_moe else None,
+                "collectives": dict(eng._rank.counts),
+                "collective_bytes": dict(eng._rank.bytes)}
     return out
 
 
@@ -5732,18 +5899,20 @@ def phase_parity_tp_families():
     launched as ``_moe_want`` / ``_audio_want`` say on each rank, and one
     ``moe_out`` all-reduce a layer a program (MoE) or the two a layer of
     each encoder run and the three a decoder layer a program (enc-dec).
-    The one-K/V-head enc-dec on the split path's dense rows: each rank's
-    decoder K/V and cross K/V its slice of the positions with the head,
-    every decode step's self- and cross-attention context-parallel (one
-    ``cp_qkv``, one ``cp_xq``, two ``cp_max`` and two ``cp_sum`` a layer),
-    the streams the unsharded engine's.
-    Then the SSM family and the hybrid (a Mamba2 block of H / 2 whole
-    heads a rank) on the split path: streams identical, every kernel
-    launched as ``_ssm_want`` / ``_hybrid_want`` say, the SSM states a
-    rank half of the unsharded engine's and ``kv_bytes`` its, one
-    ``ssm_out`` and one ``ssm_norm`` sum a Mamba layer a program (the
-    hybrid: one ``attn_out`` and one ``mlp_out`` an application of the
-    shared block)."""
+    The MoE again with TP inside each expert (``TP_FAMILY_STRATEGY``):
+    every expert at half its d_ff a rank, the same checks, and its
+    ``moe_out`` bytes 1/k of the expert-parallel run's on the same
+    programs. The one-K/V-head enc-dec on the split path's dense rows: each
+    rank's decoder K/V and cross K/V its slice of the positions with the
+    head, every decode step's self- and cross-attention context-parallel
+    (one ``cp_qkv``, one ``cp_xq``, two ``cp_max`` and two ``cp_sum`` a
+    layer), the streams the unsharded engine's. Then the SSM family and the
+    hybrid (a Mamba2 block of H / 2 whole heads a rank) on the split path:
+    streams identical, every kernel launched as ``_ssm_want`` /
+    ``_hybrid_want`` say, the SSM states a rank half of the unsharded
+    engine's and ``kv_bytes`` its, one ``ssm_out`` and one ``ssm_norm`` sum
+    a Mamba layer a program (the hybrid: one ``attn_out`` and one
+    ``mlp_out`` an application of the shared block)."""
     from repro_torch.configs.base import ModelConfig
     from repro_torch.params import init_params
     from repro_torch.serve.engine import ServeEngine
@@ -5761,8 +5930,8 @@ def phase_parity_tp_families():
             eng = ServeEngine(cfg, params, slots=2, max_len=64, **lkw)
             base[family, name] = (_serve_run(eng, prompts, frames)[0],
                                   eng.kv_bytes(), _state_bytes(eng))
-    ranks = _spawn_ranks(_tp_family_parity_rank, (flats,), 240.0,
-                         "parity tp 2 families")
+    ranks = yield RankJob(_tp_family_parity_rank, (flats,), 240.0,
+                          "parity tp 2 families")
     out = {}
     for (family, name), (want, want_kv, want_state) in base.items():
         cfg = ModelConfig(**TP_FAMILY_PARITY[family])
@@ -5791,9 +5960,20 @@ def phase_parity_tp_families():
                 continue
             check(run["per_device"] * 2 == want_kv,
                   f"{tag} KV {run['per_device']} B x 2 != {want_kv} B")
-            if family == "moe":
+            if family in ("moe", "moe_tie"):
                 ok = c["moe_out"] == c["attn_out"] \
                     == cfg.num_layers * programs and "mlp_out" not in c
+                if family == "moe_tie":
+                    # every expert, half its d_ff; the (T, d) sum is 1/k
+                    # of the slots' (T k, d) on the same programs
+                    ep = got["moe", name]
+                    ok = ok and run["w_up"] == (
+                        cfg.num_layers, cfg.num_experts, cfg.d_model,
+                        cfg.d_ff // TP_DEGREE) and run["programs"] \
+                        == ep["programs"] \
+                        and run["collective_bytes"]["moe_out"] \
+                        * cfg.experts_per_token \
+                        == ep["collective_bytes"]["moe_out"]
             else:
                 admissions = len(want)
                 ok = c["mlp_out"] == cfg.encoder_layers * admissions \
@@ -5814,7 +5994,8 @@ def phase_parity_tp_families():
             f"of {want_kv} B; launches a rank {run['launches']}; "
             f"collectives a rank {run['collectives']}")
         out[f"{family} {name}"] = {k: run[k] for k in
-                                   ("launches", "per_device", "collectives")}
+                                   ("launches", "per_device", "collectives",
+                                    "collective_bytes")}
     return out
 
 
@@ -5884,8 +6065,8 @@ def phase_parity_dp():
                           sprompts, None)
     ssm = ({k: v.cpu().numpy() for k, v in flatten(sparams).items()},
            sprompts)
-    ranks = _spawn_ranks(_dp_tp_parity_rank, (flat, prompts, ssm), 240.0,
-                         "parity dp 2 x tp 2", world=4)
+    ranks = yield RankJob(_dp_tp_parity_rank, (flat, prompts, ssm), 240.0,
+                          "parity dp 2 x tp 2", world=4)
     want, want_kv = base["mixed"]
     rows = ranks[0]["rows"]
     check(sorted(sum(map(list, rows), [])) == [0, 1, 2, 3]
@@ -6078,7 +6259,7 @@ def _drive_router(router, prompts, max_new: int, tag: str, *,
 
 
 def phase_dp_serve(session, main_run: dict, prefix_run: dict, seed: int):
-    """Phase 20: Qwen3-14B (40 layers, uncut) served by a dp 2
+    """Phase 20: Qwen3-14B (phase 5's ``MAIN_LAYERS``) served by a dp 2
     ``ReplicaRouter`` in this process on phase 10's session: both replicas
     on cuda:0, sharing its one set of weights, each with its own pool of 4
     slots x 1024 tokens (16-token pages, 256-row mixed step). Phase 5's six
@@ -6156,7 +6337,9 @@ def _family_tp_rank(rank: int, world: int, arch: str, seed: int,
     ``Session.serve(tp=)`` on the settings of phase 13 / 15 (the rank
     drawing only its shards), the mixed step, then the split path on the
     same shards; each run through ``_drive`` (launches counted from 0
-    just before), its launches as ``_moe_want`` / ``_audio_want`` say."""
+    just before), its launches as ``_moe_want`` / ``_audio_want`` say.
+    Then, for the MoE, phase 32 (``_moe_tie_rank``) once its engines are
+    freed."""
     from repro_torch.api import Session
     from repro_torch.configs import get_config
     torch.cuda.set_device(0)
@@ -6191,6 +6374,7 @@ def _family_tp_rank(rank: int, world: int, arch: str, seed: int,
             eng = Session(cfg, device="cuda", params=params).serve(
                 tp=world, mixed=False, **kw)
         eng._rank.counts.clear()
+        eng._rank.bytes.clear()
         run = _drive(eng, prompts, max_new, f"{arch} tp {name} rank {rank}",
                      mixed=name == "mixed", frames=frames)
         want = _family_want(eng, cfg)
@@ -6202,8 +6386,14 @@ def _family_tp_rank(rank: int, world: int, arch: str, seed: int,
                   f"{sorted(eng._prefill_lens)} not all held by phase 3 "
                   f"({sorted(shapes)})")
         run["collectives"] = dict(eng._rank.counts)
+        run["collective_bytes"] = dict(eng._rank.bytes)
         out[name] = run
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if cfg.is_moe:                     # phase 32 on the same ranks
+        del eng, params, session
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["tie"] = _moe_tie_rank(rank, world, seed)
     return out
 
 
@@ -6217,13 +6407,23 @@ def phase_family_tp_serve(arch: str, seed: int, single: dict, max_new: int):
     share of tokens equal to the single-card streams is reported, not
     checked: bf16 sums the row-parallel attention partials in another
     order. Two ranks share one card's SMs and gloo stages each
-    all-reduce through host memory: not tensor parallelism's speed."""
-    ranks = _spawn_ranks(_family_tp_rank, (arch, seed, max_new),
-                         FAMILY_TP_TIMEOUT_S, f"{arch} tp serve")
+    all-reduce through host memory: not tensor parallelism's speed. For
+    the MoE, phase 32's one-device f32 reference runs first and its rank
+    runs follow phase 21's on the same ranks (``phase_moe_tie_serve``
+    checks them)."""
+    moe = arch == "olmoe-1b-7b"
+    one = _moe_one_device_f32(seed) if moe else None      # phase 32's
+    ranks = yield RankJob(_family_tp_rank, (arch, seed, max_new),
+                          FAMILY_TP_TIMEOUT_S
+                          + (MOE_TIE_TIMEOUT_S if moe else 0.0),
+                          f"{arch} tp serve" + (" and tie serve" if moe
+                                                else ""))
     note = ("two ranks share one card's SMs and gloo stages each "
             "all-reduce through host memory: not tensor parallelism's "
             "speed")
     out = {"note": note, "ranks": ranks}
+    if moe:
+        out["tie_one_device_f32"] = one
     for r in ranks:
         kv = r["mixed"]["per_device_kv_bytes"]
         check(kv * 2 == single["mixed"]["kv_bytes"],
@@ -6260,13 +6460,14 @@ def phase_family_tp_serve(arch: str, seed: int, single: dict, max_new: int):
 #: heads — (1, S, 24, 64, 128) and (1, S, 32, 64, 64) at each of phase 7's
 #: and 11's prompt lengths (exact: an SSM prefill is not bucketed); Zamba2's
 #: shared block at 16/16 heads x 64 and d_ff 4096 (of 8192), its MLP at
-#: each prompt length and at the 4 slots of a decode step; 32 new tokens
-#: in bf16, 8 in the f32 check
+#: each prompt length and at the 4 slots of a decode step; 16 new tokens
+#: in bf16 (32 until phases 32-33 joined: the script's time limit), 8 in
+#: the f32 check
 SSM_TP_SSD = {"mamba2-780m": tuple((1, n, 24, 64, 128) for n in SSM_PROMPTS),
               "zamba2-1.2b": tuple((1, n, 32, 64, 64) for n in SSM_PROMPTS)}
 ZAMBA_TP_FLASH = tuple((1, n, n, 16, 16, 64) for n in SSM_PROMPTS)
 ZAMBA_TP_MLP = (2048, 4096, (4,) + SSM_PROMPTS)
-SSM_TP_NEW, SSM_TP_F32_NEW = 32, 8
+SSM_TP_NEW, SSM_TP_F32_NEW = 16, 8
 SSM_TP_TIMEOUT_S = 480.0
 #: the seconds phase 30 adds to phase 27's rank processes
 VLM_TP_TIMEOUT_S = 360.0
@@ -6317,7 +6518,7 @@ def _ssm_family_want(cfg):
 def _ssm_tp_rank(rank: int, world: int, seed: int):
     """One rank of phase 27: each of Mamba2-780M and Zamba2-1.2B uncut
     through ``Session.serve(tp=)`` (the rank drawing only its shards from
-    ``seed``) on phase 7's / 11's six prompts, in bf16 (32 new tokens)
+    ``seed``) on phase 7's / 11's six prompts, in bf16 (16 new tokens)
     and in f32 (8), each run through ``_drive`` (launches counted from 0
     just before, as ``_ssm_want`` / ``_hybrid_want`` say), its
     collectives and their bytes by label; then phase 30 on the same rank
@@ -6330,7 +6531,7 @@ def _ssm_tp_rank(rank: int, world: int, seed: int):
         rec = {}
         for dtype, new in (("bfloat16", SSM_TP_NEW),
                            ("float32", SSM_TP_F32_NEW)):
-            cfg = get_config(arch).with_(dtype=dtype)
+            cfg = family_config(arch).with_(dtype=dtype)
             prompts = ssm_requests(np.random.default_rng(seed),
                                    cfg.vocab_size)
             t0 = time.perf_counter()
@@ -6370,7 +6571,7 @@ def _ssm_tp_rank(rank: int, world: int, seed: int):
 
 def phase_ssm_tp_serve(seed: int, singles: dict, smi: str):
     """Phase 27: TENSOR-PARALLEL SERVING OF THE SSM FAMILY AND THE HYBRID —
-    Mamba2-780M (48 layers) and Zamba2-1.2B (38) uncut at tp 2 over two
+    Mamba2-780M and Zamba2-1.2B at ``FAMILY_LAYERS`` at tp 2 over two
     rank processes sharing the card over gloo (``_ssm_tp_rank``), each
     rank a Mamba2 block of H / 2 whole heads, on phase 7's and 11's
     settings and requests (``singles``: their records). The f32 check
@@ -6397,7 +6598,7 @@ def phase_ssm_tp_serve(seed: int, singles: dict, smi: str):
     torch.backends.cudnn.allow_tf32 = False
     one = {}
     for arch in SSM_TP_SSD:
-        cfg = get_config(arch).with_(dtype="float32")
+        cfg = family_config(arch).with_(dtype="float32")
         eng = Session(cfg, device="cuda", seed=seed).serve(slots=4,
                                                            max_len=2048)
         run = _drive(eng, ssm_requests(np.random.default_rng(seed),
@@ -6410,16 +6611,16 @@ def phase_ssm_tp_serve(seed: int, singles: dict, smi: str):
         gc.collect()
         torch.cuda.empty_cache()
     vlm_one = _vlm_one_device_f32(seed)        # phase 30's f32 reference
-    ranks = _spawn_ranks(_ssm_tp_rank, (seed,),
-                         SSM_TP_TIMEOUT_S + VLM_TP_TIMEOUT_S,
-                         "SSM, hybrid and VLM tp serve")
+    ranks = yield RankJob(_ssm_tp_rank, (seed,),
+                          SSM_TP_TIMEOUT_S + VLM_TP_TIMEOUT_S,
+                          "SSM, hybrid and VLM tp serve")
     note = ("two ranks share one card's SMs and gloo stages each "
             "all-reduce through host memory: not tensor parallelism's "
             "speed")
     out = {"note": note, "card": smi, "ranks": ranks, "one_device_f32": one,
            "vlm_one_device_f32": vlm_one}
     for arch in SSM_TP_SSD:
-        cfg = get_config(arch)
+        cfg = family_config(arch)
         g = cfg.num_layers // cfg.hybrid_attn_every \
             if cfg.arch_type == "hybrid" else 0
         for r in ranks:
@@ -6488,12 +6689,13 @@ def phase_ssm_tp_serve(seed: int, singles: dict, smi: str):
 
 # ---------------------------------- phases 3, 4, 23: context-parallel decode
 
-#: phase 23: Qwen3-14B at full width, depth cut to ``CP_LAYERS`` (20 of
-#: 40: the script's time limit, since phases 30-31), at tp 2 with
+#: phase 23: Qwen3-14B at full width, depth cut to ``CP_LAYERS`` (5 of
+#: 40: the script's time limit; 20 from phases 30-31, 10 from phases
+#: 32-33), at tp 2 with
 #: ``cp_decode``: an 8,192-token prompt and 32 new tokens (8,224 cache
 #: positions: 4,112 a rank); its f32 check at 2 layers, full width: a
 #: 1,024-token prompt and 8 decode steps
-CP_LAYERS, CP_PROMPT, CP_NEW = 20, 8192, 32
+CP_LAYERS, CP_PROMPT, CP_NEW = 5, 8192, 32
 CP_F32_LAYERS, CP_F32_PROMPT, CP_F32_STEPS = 2, 1024, 8
 #: the f32 check's bound on |CP - head-sharded| logits, as a share of the
 #: head-sharded logits' largest magnitude: the two differ only in the
@@ -6727,9 +6929,9 @@ def phase_parity_cp():
     def numpy_tree(p):
         return {k: v.cpu().numpy() for k, v in flatten(p).items()}
 
-    ranks = _spawn_ranks(_cp_parity_rank, (numpy_tree(params), toks,
-                                           numpy_tree(kparams), prompts),
-                         240.0, "parity cp tp 2")
+    ranks = yield RankJob(_cp_parity_rank, (numpy_tree(params), toks,
+                                            numpy_tree(kparams), prompts),
+                          240.0, "parity cp tp 2")
     out = {"cp": {}}
     for p in CP_PARITY_PROMPTS:
         errs, drops = [], []
@@ -6930,15 +7132,15 @@ def _cp_serve_rank(rank: int, world: int, seed: int, prompt, f32_tokens):
 
 def phase_cp_serve(seed: int, smi: str):
     """Phase 23: Qwen3-14B at full width (40/8 heads x 128, d_ff 17408,
-    bf16), depth cut to ``CP_LAYERS`` (20 of 40), with ``cp_decode`` at
+    bf16), depth cut to ``CP_LAYERS`` (5 of 40), with ``cp_decode`` at
     tp 2, two rank processes sharing the card over gloo, each drawing only
-    its shards (20/4 heads, d_ff 8704, half the vocabulary: ~8.2 GB). ``greedy_generate`` on one
-    8,192-token prompt for 32 new tokens under the rank (8,224 positions:
+    its shards (20/4 heads, d_ff 8704, half the vocabulary).
+    ``greedy_generate`` on one 8,192-token prompt for 32 new tokens under the rank (8,224 positions:
     4,112 a rank, all 8 K/V heads; every decode step context-parallel),
     then the head-sharded path on the same shards (all 8,224 positions, 4
     heads a rank). Launches counted from 0 just before each and read just
-    after: flash 20 (one prefill), the fused MLP 20 x 32 (the prefill and
-    31 decode steps), paged attention and the SSD scan never; both ranks'
+    after: flash ``CP_LAYERS`` (one prefill), the fused MLP ``CP_LAYERS``
+    x 32 (the prefill and 31 decode steps), paged attention and the SSD scan never; both ranks'
     streams equal on each path, every token in the vocabulary, the CP
     cache a rank its 4,112 positions. Prints prefill seconds, decode
     step p50, the collectives and bytes of a decode step by label, the KV
@@ -6957,8 +7159,8 @@ def phase_cp_serve(seed: int, smi: str):
         np.int32)
     f32_tokens = rng.integers(0, cfg.vocab_size, size=(
         CP_F32_PROMPT + CP_F32_STEPS,)).astype(np.int32)
-    ranks = _spawn_ranks(_cp_serve_rank, (seed, prompt, f32_tokens),
-                         CP_TIMEOUT_S, "cp serve")
+    ranks = yield RankJob(_cp_serve_rank, (seed, prompt, f32_tokens),
+                          CP_TIMEOUT_S, "cp serve")
     note = ("two ranks share one card's SMs and gloo stages each "
             "collective through host memory: not context parallelism's "
             "speed")
@@ -7027,8 +7229,9 @@ def phase_cp_serve(seed: int, smi: str):
 
 #: phase 24: Qwen3-14B at full width cut to 2 layers, dp 2 x tp 2 over
 #: four gloo rank processes on the card, a fresh global batch of 2 x 2048
-#: each step (one 2048-token row a data rank), 3 AdamW steps of each run
-SHARDED_LAYERS, SHARDED_STEPS, SHARDED_SEQ, SHARDED_BATCH = 2, 3, 2048, 2
+#: each step (one 2048-token row a data rank), 1 AdamW step of each run
+#: (3 until phases 32-33 joined: the script's time limit)
+SHARDED_LAYERS, SHARDED_STEPS, SHARDED_SEQ, SHARDED_BATCH = 2, 1, 2048, 2
 SHARDED_MESH = (2, 2)
 SHARDED_RUNS = {"zero1": {}, "fsdp": dict(fsdp=True),
                 "sp": dict(seq_parallel=True)}
@@ -7245,19 +7448,22 @@ def _unsummed_norm_grad():
 SHARDED_DEFECTS = {"zero1, data gradient sum dropped": _dropped_dp_grads}
 
 
-def _sharded_f32_rank(mesh, seed: int, data, cfg=None, defects=None):
-    """Phase 24's f32 check on this rank (TF32 off): the first rank runs
-    the one-device step (full width, ``SHARDED_F32_LAYERS`` layer of
-    Qwen3-14B, or ``cfg``) alone on the card and broadcasts its new params
-    and metrics from the host to every rank's host (gloo on CPU tensors);
-    then every rank runs one step of each of ``SHARDED_RUNS`` on ``data``
+def _sharded_f32_rank(mesh, seed: int, data, cfg=None, defects=None,
+                      ref=None):
+    """Phase 24's f32 check on this rank (TF32 off): the one-device step
+    (full width, ``SHARDED_F32_LAYERS`` layer of Qwen3-14B, or ``cfg``)
+    made before the ranks started where ``ref`` names it ((name, metrics):
+    ``_one_device_reference``'s files, each rank reading its blocks by
+    memory map); else the first rank runs it alone on the card and
+    broadcasts its new params and metrics from the host to every rank's
+    host (gloo on CPU tensors). Then every rank runs one step of each of
+    ``SHARDED_RUNS`` on ``data``
     (the global batch, a dict of numpy arrays) on its
     shards — and a ZeRO-1 run under each of ``defects`` (default
     ``SHARDED_DEFECTS``: without the "data" gradient sum) — and holds its
     blocks to the same blocks of the one-device step's: the worst |err| /
     (atol + rtol |want|) at the reference test's 5e-4, and the loss's
     distance."""
-    import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.core import tp
     from repro_torch.core.strategy import Strategy, mesh_axes
@@ -7270,8 +7476,70 @@ def _sharded_f32_rank(mesh, seed: int, data, cfg=None, defects=None):
     defects = SHARDED_DEFECTS if defects is None else defects
     batch = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
     shapes = full_shapes(cfg)
+    axes, coord = mesh_axes(mesh), tp.coordinate(mesh)
+    if ref is not None:
+        ref_name, one_device = ref
+        out = {"one_device": dict(one_device)}
+
+        def reference(key, spec):
+            return _reference_block(ref_name, "param", key, spec, axes,
+                                    coord)
+    else:
+        out = {}
+        full = _broadcast_reference(cfg, seed, batch, shapes, out)
+
+        def reference(key, spec):
+            return tp.shard_leaf(full[key], spec, axes, coord)
+    runs = dict(SHARDED_RUNS)
+    runs.update(dict.fromkeys(defects, {}))
+    for name, kw in runs.items():
+        t0 = time.perf_counter()
+        st = Strategy(dtype="float32", **kw)
+        rank = tp.Rank.of(mesh, cfg, st, shapes)
+        params = init_params(cfg, device="cuda", seed=seed + 1,
+                             shard=(st, mesh))
+        step = tstep.make_train_step(cfg, st, lr=SHARDED_F32_LR)
+        with defects.get(name, nullcontext)(), tp.active(rank):
+            opt = tstep.init_opt_state(params, st)
+            new, opt, m = step(params, opt, batch)
+        worst, worst_key = 0.0, None
+        for key, block in flatten(new).items():
+            want = reference(key, rank.leaves[key].spec)
+            e = _chunked_excess(block.detach(), want, SHARDED_PARAM_TOL,
+                                SHARDED_PARAM_TOL)
+            if e > worst:
+                worst, worst_key = e, key
+        out[name] = {"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "param_error_of_limit": worst, "worst_leaf": worst_key,
+                     "loss_err": abs(float(m["loss"])
+                                     - out["one_device"]["loss"]),
+                     "run_s": time.perf_counter() - t0}
+        del params, new, opt, step, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def f32_runs_s(f32: dict) -> str:
+    """The seconds of each run of an f32 check (its draw, step and
+    comparison), for a rank's progress line."""
+    return ", ".join(f"{k} {v['run_s']:.1f}s" for k, v in f32.items()
+                     if isinstance(v, dict) and "run_s" in v)
+
+
+def _broadcast_reference(cfg, seed: int, batch, shapes, out: dict) -> dict:
+    """The one-device f32 step of ``_sharded_f32_rank`` run by the first
+    rank alone on the card, its new params moved to the host and
+    broadcast to every rank's host (gloo on CPU tensors): {key: full
+    leaf}; its metrics and the broadcast's seconds go into ``out``."""
+    import torch.distributed as dist
+    from repro_torch.core.strategy import Strategy
+    from repro_torch.params import init_params
+    from repro_torch.train import step as tstep
+    from repro_torch.tree import flatten
     lead = dist.get_rank() == 0
-    out, ref = {}, {}
+    ref = {}
     metrics = torch.zeros(2, dtype=torch.float64)
     if lead:
         st = Strategy(dtype="float32")
@@ -7299,43 +7567,17 @@ def _sharded_f32_rank(mesh, seed: int, data, cfg=None, defects=None):
     out["broadcast_s"] = time.perf_counter() - t0
     out.setdefault("one_device", {}).update(loss=float(metrics[0]),
                                             grad_norm=float(metrics[1]))
-    axes, coord = mesh_axes(mesh), tp.coordinate(mesh)
-    runs = dict(SHARDED_RUNS)
-    runs.update(dict.fromkeys(defects, {}))
-    for name, kw in runs.items():
-        st = Strategy(dtype="float32", **kw)
-        rank = tp.Rank.of(mesh, cfg, st, shapes)
-        params = init_params(cfg, device="cuda", seed=seed + 1,
-                             shard=(st, mesh))
-        step = tstep.make_train_step(cfg, st, lr=SHARDED_F32_LR)
-        with defects.get(name, nullcontext)(), tp.active(rank):
-            opt = tstep.init_opt_state(params, st)
-            new, opt, m = step(params, opt, batch)
-        worst, worst_key = 0.0, None
-        for key, block in flatten(new).items():
-            want = tp.shard_leaf(ref[key], rank.leaves[key].spec, axes,
-                                 coord)
-            e = _chunked_excess(block.detach(), want, SHARDED_PARAM_TOL,
-                                SHARDED_PARAM_TOL)
-            if e > worst:
-                worst, worst_key = e, key
-        out[name] = {"loss": float(m["loss"]),
-                     "grad_norm": float(m["grad_norm"]),
-                     "param_error_of_limit": worst, "worst_leaf": worst_key,
-                     "loss_err": abs(float(m["loss"])
-                                     - out["one_device"]["loss"])}
-        del params, new, opt, step, m
-        gc.collect()
-        torch.cuda.empty_cache()
-    return out
+    return ref
 
 
-def _sharded_train_rank(rank: int, world: int, seed: int, f32_tokens,
-                        ssm_tokens, whisper_f32, vlm_f32):
+def _sharded_train_rank(rank: int, world: int, seed: int, f32_ref,
+                        ssm_tokens, whisper_f32, vlm_f32, moe_f32):
     """One rank of phase 24 on cuda:0 (gloo): the three bf16 runs, then
-    the f32 check; then phase 25 (``_pipe_rank``), phase 28
-    (``_ssm_sharded_rank``), phase 29 (``_whisper_sharded_rank``) and
-    phase 31 (``_vlm_sharded_rank``) on the same ranks."""
+    the f32 check against the one-device step made before the ranks
+    started (``f32_ref``: its batch and metrics); then phase 25 (``_pipe_rank``), phase 28
+    (``_ssm_sharded_rank``), phase 29 (``_whisper_sharded_rank``), phase
+    31 (``_vlm_sharded_rank``) and phase 33 (``_moe_sharded_rank``) on the
+    same ranks."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_mesh
     _tp_rank_setup()
@@ -7349,12 +7591,15 @@ def _sharded_train_rank(rank: int, world: int, seed: int, f32_tokens,
         _rank_log(rank, f"{name} done at {time.perf_counter() - t0:.1f}s: "
                         f"steps {[round(x, 3) for x in out[name]['step_s']]}"
                         f" s, peak {out[name]['peak_mem_gb']:.2f} GB")
-    out["f32"] = _sharded_f32_rank(mesh, seed, {"tokens": f32_tokens})
-    _rank_log(rank, f"f32 check done at {time.perf_counter() - t0:.1f}s")
+    out["f32"] = _sharded_f32_rank(mesh, seed, f32_ref["batch"],
+                                   ref=("qwen", f32_ref["one_device"]))
+    _rank_log(rank, f"f32 check done at {time.perf_counter() - t0:.1f}s: "
+                    + f32_runs_s(out["f32"]))
     out["pipe"] = _pipe_rank(rank, seed)           # phase 25, same ranks
     out["ssm"] = _ssm_sharded_rank(rank, mesh, seed, ssm_tokens)
     out["whisper"] = _whisper_sharded_rank(rank, mesh, seed, whisper_f32)
     out["vlm"] = _vlm_sharded_rank(rank, mesh, seed, vlm_f32)
+    out["moe"] = _moe_sharded_rank(rank, mesh, seed, moe_f32)
     return out
 
 
@@ -7387,8 +7632,8 @@ def _ssm_sharded_rank(rank: int, mesh, seed: int, tokens):
     out["f32"] = _sharded_f32_rank(
         mesh, seed, {"tokens": tokens}, cfg.with_(num_layers=SSM_SHARDED_F32_LAYERS,
                                       dtype="float32"), SSM_SHARDED_DEFECTS)
-    _rank_log(rank, f"f32 check done at {time.perf_counter() - t0:.1f}s",
-              "ssm sharded train")
+    _rank_log(rank, f"f32 check done at {time.perf_counter() - t0:.1f}s: "
+                    + f32_runs_s(out["f32"]), "ssm sharded train")
     return out
 
 
@@ -7409,14 +7654,15 @@ def phase_train_sharded(seed: int, smi: str):
     run. Prints step p50, tokens/s, peak memory a rank and a step's
     collectives and bytes by label. Then the f32 check (TF32 off) at
     ``SHARDED_F32_LAYERS`` layer, full width, global batch 2 x 256: the
-    one-device step first (the first rank alone on the card, its result
-    moved to the host and broadcast), then each run at (2, 2): loss
+    one-device step first (in this process before the ranks start, its
+    new params written to ``F32_REF_DIR``), then each run at (2, 2): loss
     within 1e-4 and every param block within atol / rtol 5e-4 of the
     one-device step's (the reference test's bounds), and a version that
     drops the "data" gradient sum outside them. Four ranks share one
     card's SMs and gloo stages every collective through host memory:
     these numbers are not parallelism's speed."""
     from repro_torch.configs import get_config
+    from repro_torch.core.strategy import Strategy
     cfg = get_config("qwen3-14b")
     rng = np.random.default_rng(seed + 24)
     f32_tokens = rng.integers(0, cfg.vocab_size, size=(
@@ -7438,17 +7684,28 @@ def phase_train_sharded(seed: int, smi: str):
         "image_embeds": rng.standard_normal(
             (VLM_SHARDED_F32_BATCH, vcfg.num_image_tokens, vcfg.d_model),
             dtype=np.float32)}
+    moe_batch = {"tokens": rng.integers(
+        0, get_config("olmoe-1b-7b").vocab_size,
+        size=(SHARDED_BATCH, SHARDED_F32_SEQ)).astype(np.int32)}
     gc.collect()
     torch.cuda.empty_cache()
-    ranks = _spawn_ranks(_sharded_train_rank,
-                         (seed, f32_tokens, ssm_tokens, whisper_f32,
-                          vlm_f32),
-                         SHARDED_TIMEOUT_S + PIPE_TIMEOUT_S
-                         + SSM_SHARDED_TIMEOUT_S
-                         + WHISPER_SHARDED_TIMEOUT_S
-                         + VLM_SHARDED_TIMEOUT_S,
-                         "sharded train, pipeline, SSM, whisper and VLM "
-                         "sharded train", world=math.prod(SHARDED_MESH))
+    # phase 24's and phase 33's one-device f32 steps, made once before the
+    # ranks start (each rank reads its blocks of their files)
+    qwen_batch = {"tokens": f32_tokens}
+    qwen_f32 = {"batch": qwen_batch, "one_device": _one_device_reference(
+        "qwen", cfg.with_(num_layers=SHARDED_F32_LAYERS, dtype="float32"),
+        Strategy(dtype="float32"), seed, qwen_batch, lambda key: False)}
+    moe_f32 = {"batch": moe_batch,
+               "one_device": _moe_f32_reference(seed, moe_batch)}
+    ranks = yield RankJob(_sharded_train_rank,
+                          (seed, qwen_f32, ssm_tokens, whisper_f32,
+                           vlm_f32, moe_f32),
+                          SHARDED_TIMEOUT_S + PIPE_TIMEOUT_S
+                          + SSM_SHARDED_TIMEOUT_S
+                          + WHISPER_SHARDED_TIMEOUT_S
+                          + VLM_SHARDED_TIMEOUT_S + MOE_SHARDED_TIMEOUT_S,
+                          "sharded train, pipeline, SSM, whisper, VLM and "
+                          "MoE sharded train", world=math.prod(SHARDED_MESH))
     want = {"flash_attention": SHARDED_LAYERS * 2 * SHARDED_STEPS,
             "fused_mlp": 0, "paged_attention": 0, "ssd_scan": 0}
     out = _sharded_checks(ranks, f"Qwen3-14B {SHARDED_LAYERS} layers",
@@ -7490,8 +7747,9 @@ def phase_ssm_train_sharded(ranks, smi: str):
 #: ``WHISPER_SHARDED_STEPS`` AdamW steps (remat on), each step a global
 #: batch of 8 x 448 tokens beside one (8, 1500, 384) frames block
 #: (``launch/train.py::FramesData``, from ``--seed``); its f32 check
-#: uncut on a global batch of 2 x 448 tokens with (2, 1500, 384) frames
-WHISPER_SHARDED_STEPS, WHISPER_SHARDED_BATCH = 3, 8
+#: uncut on a global batch of 2 x 448 tokens with (2, 1500, 384) frames;
+#: 2 steps (3 until phases 32-33 joined: the script's time limit)
+WHISPER_SHARDED_STEPS, WHISPER_SHARDED_BATCH = 2, 8
 WHISPER_SHARDED_F32_BATCH = 2
 WHISPER_SHARDED_TIMEOUT_S = 300.0
 #: the rank shapes flash takes there (B, S, T, Hq, Hkv, D, causal): a tp 2
@@ -7562,8 +7820,8 @@ def _whisper_sharded_rank(rank: int, mesh, seed: int, f32_batch):
     out["f32"] = _sharded_f32_rank(mesh, seed, f32_batch,
                                    cfg.with_(dtype="float32"),
                                    WHISPER_SHARDED_DEFECTS)
-    _rank_log(rank, f"f32 check done at {time.perf_counter() - t0:.1f}s",
-              "whisper sharded train")
+    _rank_log(rank, f"f32 check done at {time.perf_counter() - t0:.1f}s: "
+                    + f32_runs_s(out["f32"]), "whisper sharded train")
     return out
 
 
@@ -7694,7 +7952,11 @@ def _sharded_checks(ranks, model: str, f32_model: str, want: dict,
         f"{f['one_device']['peak_mem_gb']:.2f} GB; "
         + (f"broadcast to the ranks in "
            f"{max(r['f32']['broadcast_s'] for r in ranks):.1f} s); "
-           if "broadcast_s" in f else "run by each rank in turn); ")
+           if "broadcast_s" in f else
+           f"made before the ranks started, written for them in "
+           f"{f['one_device']['write_s']:.1f} s); "
+           if "write_s" in f["one_device"] else
+           "run by each rank in turn); ")
         + "; ".join(f"{n}: loss err {f[n]['loss_err']:.2e}, worst param "
                     f"{f[n]['param_error_of_limit']:.3f}x the limit "
                     f"({f[n]['worst_leaf']})"
@@ -7724,13 +7986,14 @@ VLM_TP_F32_NEW = 8
 VLM_TP_LOGITS_TOL = 1e-3
 #: phase 31: one group (4 self and 1 cross layer, the unused trailing one:
 #: 7.235 B params) at dp 2 x tp 2 on phase 24's four ranks, FSDP + SP +
-#: remat with Adafactor, gates open, 2 steps (the script's time limit: a
-#: step sends ~17 GB a rank through gloo) of 2 x 1024 tokens beside a
+#: remat with Adafactor, gates open, 1 step (the script's time limit: a
+#: step sends ~17 GB a rank through gloo; 2 until phases 32-33 joined) of
+#: 2 x 1024 tokens beside a
 #: (2, 1601, 8192) image block; its f32 check at ``VLM_F32_CUT`` on 2 x
 #: 256 tokens and 2 image blocks, lr 1e-3, params at the reference test's
 #: 5e-4 and the norms' and gates' gradients before clipping at atol 1e-6
 #: + rtol 1e-3
-VLM_SHARDED_LAYERS, VLM_SHARDED_STEPS = 5, 2
+VLM_SHARDED_LAYERS, VLM_SHARDED_STEPS = 5, 1
 VLM_SHARDED_BATCH, VLM_SHARDED_SEQ = 2, 1024
 VLM_SHARDED_RUNS = {"fsdp sp remat": dict(fsdp=True, seq_parallel=True,
                                           optimizer="adafactor")}
@@ -8319,7 +8582,7 @@ def phase_vlm_train_sharded(ranks, smi: str):
     Llama-3.2-Vision-90B at full width cut to one group
     (``VLM_SHARDED_LAYERS``: 4 self and 1 cross layer and the unused
     trailing one, 7.235 B params) at dp 2 x tp 2 under FSDP, sequence
-    parallelism and remat with Adafactor, gates open, 2 steps of 2 x 1024
+    parallelism and remat with Adafactor, gates open, 1 step of 2 x 1024
     tokens beside a (2, 1601, 8192) image block (``ImagesData``): only
     FSDP fits four ranks on the card (ZeRO-1 would hold ~7.2 GB of bf16
     params and as much of gradients a rank). Checks (``_sharded_checks``):
@@ -8356,7 +8619,7 @@ def phase_vlm_train_sharded(ranks, smi: str):
 #: gloo rank processes on the card (phase 24's), Qwen3-14B at full width
 #: cut to 8 layers, 2 a stage; M microbatches of 1 x 2048 hidden states
 PIPE_MESH, PIPE_LAYERS, PIPE_SEQ, PIPE_MS = (1, 4, 1), 8, 2048, (1, 4, 8)
-PIPE_REPEATS = 3
+PIPE_REPEATS = 2
 #: its f32 check: 1 layer a stage, M 4 microbatches of 1 x 256; output at
 #: the reference test's atol / rtol 1e-5, gradients at its atol 1e-5 (of
 #: each tensor's largest value: see ``_pipe_f32``) and rtol 1e-4
@@ -8751,6 +9014,520 @@ def phase_pipeline(ranks, smi: str):
     return out
 
 
+# ------------------- phases 3, 32-33: OLMoE with TP inside each expert
+
+#: TP inside each expert (``Strategy(expert_parallel=False)``): every
+#: expert on every rank, each expert's d_ff over "model"
+MOE_TIE = dict(expert_parallel=False)
+#: phase 32: OLMoE-1B-7B uncut at tp 2 with ``MOE_TIE`` (all 64 experts and
+#: 512 of each expert's 1024 d_ff a rank) on phase 21's two rank
+#: processes, phase 13's settings and requests on the mixed step; its f32
+#: check at full width cut to 1 of 16 layers (the script's time limit),
+#: 8 new tokens a request
+MOE_TIE_NEW, MOE_TIE_F32_LAYERS, MOE_TIE_F32_NEW = 16, 1, 8
+MOE_TIE_TIMEOUT_S = 300.0
+#: phase 33: OLMoE-1B-7B at full width cut to 2 of 16 layers, dp 2 x tp 2
+#: on phase 24's four rank processes after phase 31 (warm from its
+#: runs): two AdamW runs (remat on) of ``MOE_SHARDED_STEPS`` step (the
+#: script's time limit) on 2 x 2048 tokens that
+#: differ in the MoE's layout alone; its f32 check at 1 layer, full
+#: width, on 2 x 256 tokens: TP inside each expert and SP at (2, 2)
+#: against the one-device step made before phase 24's ranks start, params
+#: at the reference test's 5e-4 and the router's gradient before clipping
+#: at atol 1e-6 + rtol 1e-3 (phase 31's gradient bound)
+MOE_SHARDED_LAYERS, MOE_SHARDED_STEPS, MOE_SHARDED_F32_LAYERS = 2, 1, 1
+MOE_SHARDED_RUNS = {"ep zero1": {}, "tie zero1": dict(MOE_TIE)}
+MOE_F32_SP = dict(MOE_TIE, seq_parallel=True, remat=False)
+MOE_F32_RUNS = {"tie sp": MOE_F32_SP}
+MOE_SHARDED_TIMEOUT_S = 300.0
+#: the rank shapes flash takes in phase 33: a data rank's one row of 2048
+#: tokens at a tp 2 rank's 8/8 heads (bf16); the f32 check's row of 256 at
+#: a rank and its one-device step's two rows at all 16/16 heads
+MOE_TRAIN_TP_FLASH = ((1, SHARDED_SEQ, SHARDED_SEQ) + OLMOE_TP2_HEADS
+                      + (128,),)
+MOE_TRAIN_TP_F32_FLASH = (
+    (1, SHARDED_F32_SEQ, SHARDED_F32_SEQ) + OLMOE_TP2_HEADS + (128,),
+    (SHARDED_BATCH, SHARDED_F32_SEQ, SHARDED_F32_SEQ) + MOE_HEADS + (128,))
+
+
+def phase_moe_train_tp_kernels(seed: int):
+    """Flash at the shapes phase 33 gives it: bf16 at
+    ``MOE_TRAIN_TP_FLASH`` and fp32 at ``MOE_TRAIN_TP_F32_FLASH``
+    (``_training_flash``)."""
+    return _training_flash(seed + 3333, MOE_TRAIN_TP_FLASH,
+                           MOE_TRAIN_TP_F32_FLASH)
+
+
+@contextmanager
+def _dropped_moe_out_sum():
+    """The defect: TP inside each expert without its ``moe_out`` sum over
+    "model" (under SP the rank's slice of its own partial): each rank adds
+    its partial over d_ff to the residual."""
+    from repro_torch.core import tp
+    real = tp.reduce_out
+
+    def dropped(x, what, *, seq=False):
+        if what != "moe_out":
+            return real(x, what, seq=seq)
+        return tp.seq_split(x, what) if seq else x
+    tp.reduce_out = dropped
+    try:
+        yield
+    finally:
+        tp.reduce_out = real
+
+
+@contextmanager
+def _dropped_gate_entry():
+    """The defect: the gates of TP inside each expert without their
+    ``enter`` (``moe_gate``): each rank's gate gradient is its partial
+    over its d_ff, never summed."""
+    from repro_torch.core import tp
+    real = tp.enter
+    tp.enter = lambda x, what: x if what == "moe_gate" else real(x, what)
+    try:
+        yield
+    finally:
+        tp.enter = real
+
+
+def _moe_serve_f32(cfg, seed: int, prompts, tag: str, tp=None):
+    """Phase 32's f32 run on one engine: on one device, or (``tp``) with
+    TP inside each expert on this rank's shards through
+    ``Session.serve(tp=)``, the weights drawn from ``seed`` either way, on
+    phase 13's settings (the mixed step); the first request alone for one
+    token (the logits of its last program kept), then the others for
+    ``MOE_TIE_F32_NEW`` tokens each; launches counted from 0 just before
+    the first step. Returns the first logits (on the host), the streams,
+    the launches and what ``_family_want`` says of them."""
+    from repro_torch import kernels
+    from repro_torch.api import Session
+    from repro_torch.core.strategy import Strategy
+    st = Strategy(dtype=cfg.dtype, **MOE_TIE) if tp else None
+    eng = Session(cfg, strategy=st, device="cuda", seed=seed).serve(
+        tp=tp, slots=4, max_len=1024, page_size=16, chunk_tokens=256)
+    kernels.reset_launches()
+    eng.submit(0, prompts[0], max_new=1)
+    while eng.busy():
+        eng.step()
+    first = eng.last_logits.detach().float().cpu()
+    for rid in range(1, len(prompts)):
+        eng.submit(rid, prompts[rid], max_new=MOE_TIE_F32_NEW)
+    while eng.busy():
+        eng.step()
+    torch.cuda.synchronize()
+    res = eng.results()
+    check(all(res[r].done for r in res), f"[{tag}] unfinished requests")
+    out = {"first": first,
+           "streams": [list(res[r].out) for r in range(len(prompts))],
+           "launches": kernels.launches(), "want": _family_want(eng, cfg)}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_one_device_f32(seed: int):
+    """Phase 32's f32 reference, run before phase 21's ranks start: the
+    engine on one device at ``MOE_TIE_F32_LAYERS`` (TF32 off), freed after
+    its run."""
+    from repro_torch.configs import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("olmoe-1b-7b").with_(num_layers=MOE_TIE_F32_LAYERS,
+                                          dtype="float32")
+    _, prompts = serving_prompts(seed, cfg.vocab_size)
+    t0 = time.perf_counter()
+    out = _moe_serve_f32(cfg, seed, prompts, "olmoe f32 one device")
+    out["first"] = out["first"].numpy()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _moe_tie_rank(rank: int, world: int, seed: int):
+    """One rank of phase 32, after phase 21's runs on the same rank
+    process freed their engines: OLMoE-1B-7B uncut through
+    ``Session(strategy=Strategy(expert_parallel=False)).serve(tp=)`` (the
+    rank drawing only its shards from ``seed``) on phase 13's settings and
+    requests on the mixed step, through ``_drive`` (launches counted from
+    0 just before: ``_family_want``), its collectives and bytes by label;
+    then the f32 check's runs at ``MOE_TIE_F32_LAYERS``: the rank's
+    engine, and the same under ``_dropped_moe_out_sum``."""
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    from repro_torch.core.strategy import Strategy
+    torch.cuda.set_device(0)
+    cfg = get_config("olmoe-1b-7b")
+    _, prompts = serving_prompts(seed, cfg.vocab_size)
+    t0 = time.perf_counter()
+    eng = Session(cfg, strategy=Strategy(dtype=cfg.dtype, **MOE_TIE),
+                  device="cuda", seed=seed).serve(
+        tp=world, chunk_tokens=256, slots=4, max_len=1024, page_size=16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    eng._rank.counts.clear()
+    eng._rank.bytes.clear()
+    run = _drive(eng, prompts, MOE_TIE_NEW, f"olmoe tie mixed rank {rank}",
+                 mixed=True)
+    want = _family_want(eng, cfg)
+    check(run["launches"] == want,
+          f"[olmoe tie] rank {rank} launches {run['launches']} != {want}")
+    run.update(rank=rank, build_s=build_s,
+               weights_gb=sum(v.numel() * v.element_size()
+                              for v in _leaves(eng.params)) / 1e9,
+               w_up=list(eng.params["layers"]["moe"]["w_up"].shape),
+               collectives=dict(eng._rank.counts),
+               collective_bytes=dict(eng._rank.bytes))
+    out = {"rank": rank, "bfloat16": run}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    _tp_rank_setup()
+    cfg32 = cfg.with_(num_layers=MOE_TIE_F32_LAYERS, dtype="float32")
+    out["float32"] = _moe_serve_f32(cfg32, seed, prompts,
+                                    f"olmoe tie f32 rank {rank}", tp=world)
+    with _dropped_moe_out_sum():
+        out["defect"] = _moe_serve_f32(cfg32, seed, prompts,
+                                       f"olmoe tie f32 defect rank {rank}",
+                                       tp=world)
+    for key in ("float32", "defect"):
+        out[key]["first"] = out[key]["first"].numpy()
+    return out
+
+
+def phase_moe_tie_serve(ranks, one: dict, single: dict, ep: dict,
+                        smi: str):
+    """Phase 32: TP INSIDE EACH EXPERT, SERVING — OLMoE-1B-7B uncut (16
+    layers, 64 experts top 8, d_ff 1024 an expert) at tp 2 with
+    ``Strategy(expert_parallel=False)`` on phase 21's two rank processes
+    (``_moe_tie_rank``): each rank 8/8 heads x 128, all 64 experts at 512
+    of their d_ff and half the vocabulary, phase 13's six requests on the
+    mixed step, 16 new tokens each. Checks on each rank: every request
+    finishes with in-vocab tokens, launches as ``_family_want`` says, both
+    ranks' streams equal, one ``moe_out`` and one ``attn_out`` sum a layer
+    a program (and no ``mlp_out``), the ``moe_out`` bytes a program 1/k
+    (k = 8) of phase 21's (``ep``: the same 256-row programs, the
+    experts over "model"), the weights a rank within 1% of phase 21's.
+    Reports tokens/s, step p50 with prefill and decode-only apart, peak
+    memory a rank, collectives and bytes a program, and the share of
+    tokens equal to phase 13's (``single``) and to phase 21's streams
+    (information: bf16 sums in another order). Then the f32 check at full
+    width cut to ``MOE_TIE_F32_LAYERS``: both ranks' streams equal the
+    one-device engine's (``one``, run and freed before the ranks started)
+    and their first logits within ``VLM_TP_LOGITS_TOL``; a run without
+    the ``moe_out`` sum is outside it. Two ranks share one card's SMs and
+    gloo stages each all-reduce through host memory: not tensor
+    parallelism's speed."""
+    from repro_torch.configs import get_config
+    cfg = get_config("olmoe-1b-7b")
+    layers, k = cfg.num_layers, cfg.experts_per_token
+    note = ("two ranks share one card's SMs and gloo stages each "
+            "all-reduce through host memory: not tensor parallelism's "
+            "speed")
+    out = {"note": note, "card": smi, "ranks": ranks,
+           "one_device_f32": {k_: v for k_, v in one.items()
+                              if k_ != "first"}}
+    r0 = ranks[0]["bfloat16"]
+    for r, epr in zip(ranks, ep["ranks"]):
+        run, tag = r["bfloat16"], f"[olmoe tie bf16] rank {r['rank']}"
+        e = epr["mixed"]
+        check(run["streams"] == r0["streams"],
+              f"{tag} streams differ from rank 0's")
+        programs = run["program_runs"]
+        c, b = run["collectives"], run["collective_bytes"]
+        check(c.get("moe_out") == c.get("attn_out") == layers * programs
+              and "mlp_out" not in c and "moe_gate.grad" not in c,
+              f"{tag} collectives {c}: want one moe_out and one attn_out "
+              f"a layer a program ({layers} x {programs})")
+        check(run["w_up"] == [layers, cfg.num_experts, cfg.d_model,
+                              cfg.d_ff // TP_DEGREE],
+              f"{tag} w_up {run['w_up']}")
+        per, ep_per = b["moe_out"] / programs, \
+            e["collective_bytes"]["moe_out"] / e["program_runs"]
+        check(per * k == ep_per,
+              f"{tag} moe_out {per} B a program x {k} != phase 21's "
+              f"{ep_per} B")
+        w_ep = epr["weights_gb"]
+        check(abs(run["weights_gb"] - w_ep) <= 0.01 * w_ep,
+              f"{tag} {run['weights_gb']:.3f} GB of weights a rank, phase "
+              f"21's {w_ep:.3f} GB")
+        f32 = r["float32"]
+        check(f32["launches"] == f32["want"],
+              f"[olmoe tie f32] rank {r['rank']} launches {f32['launches']} "
+              f"!= {f32['want']}")
+        check(f32["streams"] == one["streams"],
+              f"[olmoe tie f32] rank {r['rank']} streams {f32['streams']} != "
+              f"the one-device f32 engine's {one['streams']}")
+        err = float(np.abs(f32.pop("first") - one["first"]).max())
+        bad = float(np.abs(r["defect"].pop("first") - one["first"]).max())
+        check(err <= VLM_TP_LOGITS_TOL,
+              f"[olmoe tie f32] rank {r['rank']} first logits {err:.3e} from "
+              f"the one-device engine's (limit {VLM_TP_LOGITS_TOL})")
+        check(bad > VLM_TP_LOGITS_TOL,
+              f"[olmoe tie f32] the check passes a run without the moe_out "
+              f"sum ({bad:.3e})")
+        f32.update(first_logits_err=err, defect_first_logits_err=bad,
+                   defect_streams_equal=r["defect"]["streams"]
+                   == one["streams"])
+        run["moe_out_bytes_a_program"] = per
+        run["ep_moe_out_bytes_a_program"] = ep_per
+    for name, streams in (("single", single["mixed"]["streams"]),
+                          ("ep", ep["mixed"]["streams"])):
+        r0[f"agree_with_{name}"] = sum(
+            a == b for got, want in zip(r0["streams"], streams)
+            for a, b in zip(got, want)) / r0["tokens"]
+    programs = r0["program_runs"]
+    per_program = {k_: round(v / programs, 2)
+                   for k_, v in r0["collectives"].items()}
+    mb = {k_: round(v / programs / 1e6, 3)
+          for k_, v in r0["collective_bytes"].items()}
+    log(_run_text("olmoe tie tp 2 bf16, rank 0", r0)
+        + f"; w_up a rank {r0['w_up']}, {r0['weights_gb']:.3f} GB of weights "
+        f"a rank (built in {r0['build_s']:.1f}s); peak memory a rank "
+        f"{[round(x['bfloat16']['peak_mem_gb'], 2) for x in ranks]} GB; "
+        f"collectives a program {per_program}, MB a program {mb} (moe_out "
+        f"{r0['moe_out_bytes_a_program']:.0f} B, phase 21's "
+        f"{r0['ep_moe_out_bytes_a_program']:.0f} B); "
+        f"{r0['agree_with_single']:.1%} of tokens equal to phase 13's, "
+        f"{r0['agree_with_ep']:.1%} to phase 21's streams (information) — "
+        f"{note}")
+    f = ranks[0]["float32"]
+    log(f"[olmoe tie tp 2 f32] full width, {MOE_TIE_F32_LAYERS} layers: both "
+        f"ranks' streams equal the one-device engine's over "
+        f"{len(one['streams'])} requests (one device {one['wall_s']:.1f}s); "
+        f"first logits max abs err "
+        f"{max(r['float32']['first_logits_err'] for r in ranks):.3e} (limit "
+        f"{VLM_TP_LOGITS_TOL}); without the moe_out sum "
+        f"{min(r['float32']['defect_first_logits_err'] for r in ranks):.3e} "
+        f"(streams equal: {f['defect_streams_equal']}); launches a rank "
+        f"{f['launches']} on {smi}")
+    out["bfloat16"], out["float32"] = r0, f
+    return out
+
+
+def _moe_grad_leaf(key: str) -> bool:
+    return key.rsplit("/", 1)[-1] == "router"
+
+
+#: where phase 24's and phase 33's one-device f32 steps, made before
+#: phase 24's ranks start, leave their results for them (one .npy a leaf,
+#: read by memory map; removed once phase 33 is done)
+F32_REF_DIR = ROOT / "chip_tmp"
+
+
+def _ref_path(name: str, prefix: str, key: str) -> Path:
+    return F32_REF_DIR / name / f"{prefix}--{key.replace('/', '--')}.npy"
+
+
+def _one_device_reference(name: str, cfg, strategy, seed: int, batch,
+                          keep, prepare=None) -> dict:
+    """A sharded phase's one-device f32 step (TF32 off), run in this
+    process before phase 24's ranks start: ``cfg`` drawn from ``seed`` +
+    1 (then ``prepare(params)``, where given), one step of ``strategy``
+    on ``batch`` (numpy arrays); its new params and the gradients before
+    clipping of the keys ``keep`` accepts go to ``F32_REF_DIR / name``.
+    Returns its metrics, step time, peak memory and write time."""
+    import shutil
+    from repro_torch.params import init_params
+    from repro_torch.train import step as tstep
+    from repro_torch.tree import flatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    params = init_params(cfg, device="cuda", seed=seed + 1)
+    if prepare is not None:
+        prepare(params)
+    step = tstep.make_train_step(cfg, strategy, lr=SHARDED_F32_LR)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _captured_grads(keep) as got:
+        new, opt, m = step(params, tstep.init_opt_state(params, strategy),
+                           {k: torch.from_numpy(v).cuda()
+                            for k, v in batch.items()})
+    torch.cuda.synchronize()
+    out = {"step_s": time.perf_counter() - t0,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    shutil.rmtree(F32_REF_DIR / name, ignore_errors=True)
+    (F32_REF_DIR / name).mkdir(parents=True)
+    t0 = time.perf_counter()
+    for prefix, tree in (("param", flatten(new)), ("grad", got)):
+        for key, v in tree.items():
+            np.save(_ref_path(name, prefix, key), v.detach().cpu().numpy())
+    out["write_s"] = time.perf_counter() - t0
+    del params, new, opt, step, m, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _reference_block(name: str, prefix: str, key: str, spec, axes, coord):
+    """This rank's block under ``spec`` of leaf ``key`` of the one-device
+    step ``name`` (``_one_device_reference``), read by memory map."""
+    from repro_torch.core import tp
+    full = np.load(_ref_path(name, prefix, key), mmap_mode="c")
+    return tp.shard_leaf(torch.from_numpy(full), spec, axes, coord).clone()
+
+
+def _moe_f32_reference(seed: int, batch) -> dict:
+    """Phase 33's one-device f32 step (AdamW) at full width,
+    ``MOE_SHARDED_F32_LAYERS`` layer, on ``batch``, made before phase 24's
+    ranks start (``_one_device_reference``: its params and the router's
+    gradient before clipping under ``F32_REF_DIR / "moe"``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.strategy import Strategy
+    cfg = get_config("olmoe-1b-7b").with_(num_layers=MOE_SHARDED_F32_LAYERS,
+                                          dtype="float32")
+    return _one_device_reference("moe", cfg, Strategy(dtype="float32",
+                                                      remat=False),
+                                 seed, batch, _moe_grad_leaf)
+
+
+#: phase 33's f32 defects: name -> (Strategy keywords, the context that
+#: breaks the run), each at (2, 2) under SP with TP inside each expert
+MOE_SHARDED_DEFECTS = {
+    "tie sp, moe_out sum dropped": (MOE_F32_SP, _dropped_moe_out_sum),
+    "tie sp, gate entry dropped": (MOE_F32_SP, _dropped_gate_entry)}
+
+
+def _moe_sharded_f32_rank(mesh, seed: int, ref: dict):
+    """Phase 33's f32 check on this rank (TF32 off): each of
+    ``MOE_F32_RUNS`` and ``MOE_SHARDED_DEFECTS`` for one step on the
+    rank's shards, on ``ref["batch"]``; the run's worst param error of the
+    reference test's 5e-4 and the router gradient's of ``VLM_GRAD_ATOL`` +
+    ``VLM_GRAD_RTOL`` against the one-device step's (its files
+    ``F32_REF_DIR / "moe"``, its metrics ``ref["one_device"]``), its
+    loss's distance and its step's seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tp
+    from repro_torch.core.strategy import Strategy, mesh_axes
+    from repro_torch.params import full_shapes, init_params
+    from repro_torch.train import step as tstep
+    from repro_torch.tree import flatten
+    _tp_rank_setup()
+    cfg = get_config("olmoe-1b-7b").with_(num_layers=MOE_SHARDED_F32_LAYERS,
+                                          dtype="float32")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in ref["batch"].items()}
+    shapes = full_shapes(cfg)
+    axes, coord = mesh_axes(mesh), tp.coordinate(mesh)
+    out = {"one_device": dict(ref["one_device"])}
+    runs = {name: (kw, None) for name, kw in MOE_F32_RUNS.items()}
+    runs.update(MOE_SHARDED_DEFECTS)
+    for name, (kw, defect) in runs.items():
+        st = Strategy(dtype="float32", **kw)
+        rank = tp.Rank.of(mesh, cfg, st, shapes)
+        params = init_params(cfg, device="cuda", seed=seed + 1,
+                             shard=(st, mesh))
+        step = tstep.make_train_step(cfg, st, lr=SHARDED_F32_LR)
+        gc.collect()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (defect or nullcontext)(), tp.active(rank), \
+                _captured_grads(_moe_grad_leaf) as got:
+            opt = tstep.init_opt_state(params, st)
+            new, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        worst, worst_key = 0.0, None
+        for key, block in flatten(new).items():
+            want = _reference_block("moe", "param", key,
+                                    rank.leaves[key].spec, axes, coord)
+            e = _chunked_excess(block.detach(), want, SHARDED_PARAM_TOL,
+                                SHARDED_PARAM_TOL)
+            if e > worst:
+                worst, worst_key = e, key
+        gworst, gkey = 0.0, None
+        for key, g in got.items():
+            want = _reference_block("moe", "grad", key,
+                                    rank.leaves[key].update, axes, coord)
+            e = worst_excess(g, want, VLM_GRAD_ATOL, VLM_GRAD_RTOL)
+            if e > gworst:
+                gworst, gkey = e, key
+        check(gkey is not None, f"[moe sharded train f32 {name}] no router "
+                                f"gradient captured")
+        out[name] = {"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]), "step_s": step_s,
+                     "param_error_of_limit": worst, "worst_leaf": worst_key,
+                     "grad_error_of_limit": gworst, "worst_grad_leaf": gkey,
+                     "loss_err": abs(float(m["loss"])
+                                     - ref["one_device"]["loss"])}
+        del params, new, opt, step, m, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _moe_sharded_rank(rank: int, mesh, seed: int, f32_ref: dict):
+    """One rank of phase 33, after phase 31 on the same rank processes:
+    the two bf16 runs of ``MOE_SHARDED_RUNS`` (a Trainer drawing only its
+    shards, the token dataset from ``seed``), then the f32 check
+    (``_moe_sharded_f32_rank``)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("olmoe-1b-7b").with_(num_layers=MOE_SHARDED_LAYERS)
+    out = {}
+    t0 = time.perf_counter()
+    for name in MOE_SHARDED_RUNS:
+        out[name] = _sharded_bf16_run(mesh, cfg, name, seed,
+                                      steps=MOE_SHARDED_STEPS,
+                                      runs=MOE_SHARDED_RUNS)
+        _rank_log(rank, f"{name} done at {time.perf_counter() - t0:.1f}s: "
+                        f"steps {[round(x, 3) for x in out[name]['step_s']]}"
+                        f" s, peak {out[name]['peak_mem_gb']:.2f} GB",
+                  "moe sharded train")
+    out["f32"] = _moe_sharded_f32_rank(mesh, seed, f32_ref)
+    _rank_log(rank, f"f32 check done at {time.perf_counter() - t0:.1f}s: "
+                    + ", ".join(f"{k} {v['step_s']:.1f}s"
+                                for k, v in out["f32"].items()
+                                if k != "one_device"), "moe sharded train")
+    return out
+
+
+def phase_moe_train_sharded(ranks, smi: str):
+    """Phase 33: MoE TRAINING ON A MESH, on phase 24's four rank
+    processes after phase 31 (``_moe_sharded_rank``): OLMoE-1B-7B at full
+    width (16/16 heads x 128, 64 experts top 8 of d_ff 1024, vocab 50,304)
+    cut to ``MOE_SHARDED_LAYERS`` layers, dp 2 x tp 2, AdamW with remat,
+    ``MOE_SHARDED_STEPS`` steps of 2 x 2048 tokens (the token dataset)
+    in each of two runs that differ in the MoE's layout alone: the experts
+    over "model" (``ep zero1``, the default strategy: 32 whole experts a
+    rank) and TP inside each expert (``tie zero1``: all 64 at 512 of
+    their d_ff). Checks (``_sharded_checks``): flash once a layer a step
+    and once more for the remat recompute (a data rank's (1, 2048, 2048,
+    8, 8, 128)), the other kernels never; the same metrics on every rank,
+    the data replicas' blocks equal bit for bit. Then the f32 check at
+    ``MOE_SHARDED_F32_LAYERS`` layer (``MOE_F32_RUNS``: TP inside each
+    expert with SP) against the one-device step made before the ranks
+    started, params within 5e-4 and the router's gradient before clipping
+    within atol 1e-6 + rtol 1e-3, and two defects outside those bounds
+    (``MOE_SHARDED_DEFECTS``): no ``moe_out`` sum, and the gates without
+    their ``enter``."""
+    import shutil
+    want = {"flash_attention": MOE_SHARDED_STEPS * 2 * MOE_SHARDED_LAYERS,
+            "fused_mlp": 0, "paged_attention": 0, "ssd_scan": 0}
+    runs = [dict(r.pop("moe"), rank=r["rank"], coord=r["coord"])
+            for r in ranks]
+    shutil.rmtree(F32_REF_DIR, ignore_errors=True)
+    out = _sharded_checks(
+        runs, f"OLMoE-1B-7B {MOE_SHARDED_LAYERS} layers",
+        f"OLMoE-1B-7B {MOE_SHARDED_F32_LAYERS} layer", want,
+        MOE_SHARDED_DEFECTS, smi, "moe sharded train",
+        steps=MOE_SHARDED_STEPS, runs_by_name=MOE_SHARDED_RUNS,
+        f32_runs=MOE_F32_RUNS)
+    # a moe_out sum's bytes: the (T, d) output against the (T k, d) slots
+    # (the remat recompute stops at the last saved tensor, before the
+    # output's sum inside each expert: fewer sums a step there)
+    each = {name: runs[0][name]["step_bytes"]["moe_out"]
+            / runs[0][name]["step_collectives"]["moe_out"]
+            for name in MOE_SHARDED_RUNS}
+    ep, tie = each["ep zero1"], each["tie zero1"]
+    out["moe_out_bytes_a_sum"] = each
+    log(f"[moe sharded train] a moe_out sum's bytes with TP inside each "
+        f"expert {tie / 1e6:.2f} MB, with the experts over 'model' "
+        f"{ep / 1e6:.2f} MB ({tie / ep:.4f}x; sums a step "
+        f"{ {n: runs[0][n]['step_collectives']['moe_out'] for n in each} })")
+    out["ranks"] = runs
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8834,6 +9611,11 @@ def main():
         if k["name"] in vlm_tp_shapes:
             k["vlm_tp_shapes"] = vlm_tp_shapes[k["name"]]
     mark("3 kernels at Llama-3.2-Vision's tp 2 rank shapes")
+    moe_train_tp_shapes = phase_moe_train_tp_kernels(args.seed)
+    for k in kernels:
+        if k["name"] in moe_train_tp_shapes:
+            k["moe_train_tp_shapes"] = moe_train_tp_shapes[k["name"]]
+    mark("3 kernels at OLMoE-1B-7B's sharded training rank shapes")
     parity = phase_parity()
     record["parity_logits_err"] = parity.pop("mixed")
     record["parity_split_logits_err"] = parity
@@ -8851,14 +9633,15 @@ def main():
     mark("4 parity: audio serving and training")
     record["parity_vlm"] = phase_parity_vlm()
     mark("4 parity: VLM serving and training")
-    record["parity_tp"] = phase_parity_tp()
-    mark("4 parity: tp 2 over gloo")
-    record["parity_tp_families"] = phase_parity_tp_families()
-    mark("4 parity: MoE and enc-dec at tp 2 over gloo")
-    record["parity_dp"] = phase_parity_dp()
-    mark("4 parity: dp 2, and dp 2 x tp 2 over gloo")
-    record["parity_cp"] = phase_parity_cp()
-    mark("4 parity: context-parallel decode at tp 2 over gloo")
+    # the phases on rank processes run up to their RankJob in this order;
+    # their jobs then run together on one set of four rank processes and
+    # one of two (``_run_jobs``), and each phase's checks after them
+    fours, pairs = {}, {}
+    pairs["parity_tp"] = _start(phase_parity_tp())
+    pairs["parity_tp_families"] = _start(phase_parity_tp_families())
+    fours["parity_dp"] = _start(phase_parity_dp())
+    pairs["parity_cp"] = _start(phase_parity_cp())
+    mark("4 parity: dp 2, and the unsharded runs of the gloo parity runs")
     main_run, eng, session, prompts = phase_main(args.seed)
     record["main"] = main_run
     record["profile"] = phase_profile(eng, rng, main_run["step_p50_ms"])
@@ -8878,29 +9661,14 @@ def main():
     del session                           # free the serving weights
     gc.collect()
     torch.cuda.empty_cache()
-    record["tp"] = phase_tp_serve(args.seed, main_run)
-    record["tp_online"] = phase_online_tp(
-        [dict(r.pop("online"), rank=r["rank"])
-         for r in record["tp"]["ranks"]], record["tp"], smi)
-    mark("19 and 26 tensor-parallel serving, lockstep and online")
-    record["cp"] = phase_cp_serve(args.seed, smi)
-    mark("23 context-parallel decode")
+    pairs["tp"] = _start(phase_tp_serve(args.seed, main_run))
+    pairs["cp"] = _start(phase_cp_serve(args.seed, smi))
     record["train"] = phase_train(args.seed)
     mark("6 dense training")
     gc.collect()                          # the trainer died with phase 6
     torch.cuda.empty_cache()
-    record["sharded_train"] = phase_train_sharded(args.seed, smi)
-    record["pipeline"] = phase_pipeline(
-        [dict(r.pop("pipe"), rank=r["rank"])
-         for r in record["sharded_train"]["ranks"]], smi)
-    record["ssm_sharded_train"] = phase_ssm_train_sharded(
-        record["sharded_train"]["ranks"], smi)
-    record["whisper_sharded_train"] = phase_whisper_train_sharded(
-        record["sharded_train"]["ranks"], smi)
-    record["vlm_sharded_train"] = phase_vlm_train_sharded(
-        record["sharded_train"]["ranks"], smi)
-    mark("24-25, 28-29, 31 sharded training, the pipeline, SSM, enc-dec "
-         "and VLM sharded training")
+    fours["sharded_train"] = _start(phase_train_sharded(args.seed, smi))
+    mark("33's one-device f32 step")
     record["ssm"] = phase_ssm(args.seed)
     mark("7 SSM serving")
     gc.collect()
@@ -8915,9 +9683,9 @@ def main():
     torch.cuda.empty_cache()
     record["moe"] = phase_moe_serve(args.seed)
     mark("13-13b MoE serving")
-    record["moe_tp"] = phase_family_tp_serve("olmoe-1b-7b", args.seed,
-                                             record["moe"], 16)
-    mark("21 MoE tensor-parallel serving")
+    pairs["moe_tp"] = _start(phase_family_tp_serve("olmoe-1b-7b", args.seed,
+                                                   record["moe"], 16))
+    mark("32's one-device f32 run")
     gc.collect()
     torch.cuda.empty_cache()
     # phase 6's run on OLMoE-1B-7B at 4 layers: its 16 would need ~110 GB
@@ -8928,9 +9696,8 @@ def main():
     torch.cuda.empty_cache()
     record["audio"] = phase_whisper_serve(args.seed)
     mark("15-15b audio serving")
-    record["audio_tp"] = phase_family_tp_serve("whisper-tiny", args.seed,
-                                               record["audio"], WHISPER_NEW)
-    mark("22 audio tensor-parallel serving")
+    pairs["audio_tp"] = _start(phase_family_tp_serve(
+        "whisper-tiny", args.seed, record["audio"], WHISPER_NEW))
     gc.collect()
     torch.cuda.empty_cache()
     record["audio_train"] = phase_whisper_train(args.seed)
@@ -8943,13 +9710,41 @@ def main():
     mark("18 VLM training")
     gc.collect()
     torch.cuda.empty_cache()
-    record["ssm_tp"] = phase_ssm_tp_serve(
+    pairs["ssm_tp"] = _start(phase_ssm_tp_serve(
         args.seed, {"mamba2-780m": record["ssm"],
-                    "zamba2-1.2b": record["hybrid"]}, smi)
+                    "zamba2-1.2b": record["hybrid"]}, smi))
+    mark("27 and 30's one-device f32 runs")
+    record.update(_run_jobs(fours, "parity dp 2 x tp 2, sharded train, "
+                                   "pipeline, SSM, whisper, VLM and MoE "
+                                   "sharded train"))
+    record["pipeline"] = phase_pipeline(
+        [dict(r.pop("pipe"), rank=r["rank"])
+         for r in record["sharded_train"]["ranks"]], smi)
+    record["ssm_sharded_train"] = phase_ssm_train_sharded(
+        record["sharded_train"]["ranks"], smi)
+    record["whisper_sharded_train"] = phase_whisper_train_sharded(
+        record["sharded_train"]["ranks"], smi)
+    record["vlm_sharded_train"] = phase_vlm_train_sharded(
+        record["sharded_train"]["ranks"], smi)
+    record["moe_sharded_train"] = phase_moe_train_sharded(
+        record["sharded_train"]["ranks"], smi)
+    mark("4 parity dp 2 x tp 2; 24-25, 28-29, 31, 33 sharded training, "
+         "the pipeline, SSM, enc-dec, VLM and MoE sharded training")
+    record.update(_run_jobs(pairs, "parity tp 2, families and cp; tp, cp, "
+                                   "MoE, audio, SSM, hybrid and VLM tp "
+                                   "serve"))
+    record["tp_online"] = phase_online_tp(
+        [dict(r.pop("online"), rank=r["rank"])
+         for r in record["tp"]["ranks"]], record["tp"], smi)
+    record["moe_tie"] = phase_moe_tie_serve(
+        [r.pop("tie") for r in record["moe_tp"]["ranks"]],
+        record["moe_tp"].pop("tie_one_device_f32"), record["moe"],
+        record["moe_tp"], smi)
     record["vlm_tp"] = phase_vlm_tp_serve(
         [r.pop("vlm") for r in record["ssm_tp"]["ranks"]],
         record["ssm_tp"].pop("vlm_one_device_f32"), record["vlm"], smi)
-    mark("27, 30 SSM, hybrid and VLM tensor-parallel serving")
+    mark("4 parity at tp 2; 19, 26, 23, 21, 32, 22, 27, 30 tensor- and "
+         "context-parallel serving")
     # each kernel's launches on the paths that run it, each counted from 0
     # just before its run: phase 5 and phases 9-10 (paged attention, the
     # fused MLP; flash in phase 9's model drafter), phase 6 (flash), phase
@@ -8973,7 +9768,9 @@ def main():
     # in Zamba2's, bf16 and f32), phase 28 (each rank, each run: none),
     # phase 29 (each rank, each run: flash in the encoder, the decoder and
     # its remat recompute), phase 30 (each rank: flash and the fused MLP,
-    # bf16 and f32), phase 31 (each rank: flash and its remat recompute)
+    # bf16 and f32), phase 31 (each rank: flash and its remat recompute),
+    # phase 32 (each rank: paged attention on the mixed step, bf16 and
+    # f32), phase 33 (each rank, each run: flash and its remat recompute)
     paths = [main_run, record["train"], record["ssm"],
              *record["spec"].values(), *record["online"].values(),
              record["hybrid"], *record["train_families"].values(),
@@ -9012,7 +9809,13 @@ def main():
                for dtype in ("bfloat16", "float32")),
              # phase 31: each rank's own launches
              *(r[name] for r in record["vlm_sharded_train"]["ranks"]
-               for name in VLM_SHARDED_RUNS)]
+               for name in VLM_SHARDED_RUNS),
+             # phase 32: each rank's own launches, bf16 and f32
+             *(r[dtype] for r in record["moe_tie"]["ranks"]
+               for dtype in ("bfloat16", "float32")),
+             # phase 33: each rank's own launches, in each of its runs
+             *(r[name] for r in record["moe_sharded_train"]["ranks"]
+               for name in MOE_SHARDED_RUNS)]
     for k in kernels:
         k["launches"] = sum(run["launches"][k["name"]] for run in paths)
     record["kernels"] = kernels

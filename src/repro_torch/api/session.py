@@ -49,8 +49,8 @@ serves any family tensor-parallel, one engine a rank process; ``dp=M``
 serves M replicas behind a ``ReplicaRouter`` (serve/parallel.py).
 ``train(tp=, dp=)`` trains any family on a ("data", "model") mesh, one
 trainer a rank process, with the strategy's ZeRO-1, FSDP and sequence
-parallelism (TP inside each expert raises naming its step of ROADMAP.md
-Queue 1 item 11).
+parallelism, and an MoE's experts or (``expert_parallel=False``) each
+expert's d_ff over "model".
 ``generate`` is the lockstep greedy loop
 (``serve/step.py::greedy_generate``). ``serve_async`` wraps the engine
 in the online ``AsyncDriver`` (a background step loop, per-request token

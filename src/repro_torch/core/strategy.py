@@ -13,21 +13,19 @@ mesh's axis names and sizes, so it takes a plain ``{axis: size}`` mapping
 as well as a ``torch.distributed`` ``DeviceMesh`` (``mesh_axes``): the
 sharding tables (``core/sharding.py``) need no process group. What the
 port runs on a mesh: serving tensor-parallel dense and MoE decoders (the
-experts over "model" with ``expert_parallel``), the enc-dec family, the
+experts over "model" with ``expert_parallel``, each expert's d_ff over
+it without), the enc-dec family, the
 SSM family and the hybrid (``serve/engine.py``), data-parallel replicas
 over "data" (``serve/parallel.py``), and training dense and MoE
 decoders, the SSM family, the hybrid and the enc-dec family on a
 ("data", "model") mesh (``train/trainer.py``, ``train/step.py``):
 gradient sums over "data", ``zero1`` (optimizer state over "data"),
 ``fsdp`` (parameters over "data", gathered a layer at a time),
-Megatron TP and experts over "model", and ``seq_parallel`` (the
-residual stream sequence-sharded over "model"). On one device
-``zero1``, ``fsdp`` and ``seq_parallel`` are accepted and change
-nothing. ``expert_parallel=False`` (TP inside each expert) on an MoE
-raises ``NotImplementedError`` where "model" > 1: a serving engine on a
-mesh refuses it, and so do a training rank (``core/tp.py::Rank.of``,
-``check_moe_strategy``) and the train step under a rank; an engine on a
-mesh takes neither ``seq_parallel`` nor ``fsdp`` (``refuse_unported``).
+Megatron TP and an MoE's experts (or each expert's d_ff) over "model",
+and ``seq_parallel`` (the residual stream sequence-sharded over
+"model"). On one device ``zero1``, ``fsdp`` and ``seq_parallel`` are
+accepted and change nothing. An engine on a mesh takes neither
+``seq_parallel`` nor ``fsdp`` (``refuse_unported``).
 """
 from __future__ import annotations
 

@@ -11,7 +11,10 @@ code on it, and calls the collective where GSPMD would have put one
 
 * ``all_reduce(x, "attn_out")`` after ``wo`` (row-parallel attention
   out) and ``all_reduce(x, "mlp_out")`` after ``w_down`` (row-parallel
-  MLP), one each a layer;
+  MLP), one each a layer; in an MoE layer one ``"moe_out"`` instead of
+  ``mlp_out``: the ``(T k, d)`` expert slots with the experts split over
+  "model", the gate-weighted ``(T, d)`` output with each expert's d_ff
+  split (``models/moe.py``);
 * ``vocab_embed``: the vocab-parallel lookup, a masked local lookup and
   one sum;
 * ``vocab_logits``: the vocab-parallel head's logits assembled to the full
@@ -37,7 +40,8 @@ loss, and the gradient taken is that of ONE copy of it:
 * **f** — ``enter``: identity forward, the gradient summed over "model"
   backward, where a replicated tensor is used inside the rank's share of
   the work: the normed ``h`` before ``wq``/``wk``/``wv``, ``w_gate``/
-  ``w_up``, the MoE dispatch, the vocab-parallel head and the enc-dec
+  ``w_up``, the MoE dispatch (and, with each expert's d_ff split, the
+  MoE gates), the vocab-parallel head and the enc-dec
   family's cross K/V (``enc_out`` in every decoder layer), and the
   replicated leaves used there (Qwen3's ``q_norm``/``k_norm``, ``wk``/
   ``wv`` kept whole where Hkv does not divide tp; under sequence
@@ -119,7 +123,7 @@ from repro_torch.core.pspec import P
 from repro_torch.core.sharding import (_divisible, param_logical,
                                       param_pspecs, tree_map_with_path,
                                       zero1_spec)
-from repro_torch.core.strategy import ITEM_11, mesh_axes
+from repro_torch.core.strategy import mesh_axes
 from repro_torch.tree import flatten, unbind_leaves, unflatten
 
 _state = threading.local()
@@ -183,13 +187,9 @@ class Rank:
         where the mesh has it) for ``cfg``'s attention; with
         ``strategy`` and ``shapes`` (each flat parameter key's full
         shape) a training rank's. Raises ``ValueError`` for shapes that
-        cannot be split by whole heads, and ``NotImplementedError`` for
-        a training ``strategy`` not ported to a mesh
-        (``check_moe_strategy``)."""
+        cannot be split by whole heads."""
         axes = mesh_axes(mesh)
         tp = axes.get("model", 1)
-        if strategy is not None:
-            check_moe_strategy(cfg, strategy, tp)
         sub = mesh["model"]
         group = mesh.get_group("model")
         hq, hkv = cfg.num_heads, cfg.num_kv_heads
@@ -632,27 +632,6 @@ def kv_read(x: torch.Tensor) -> torch.Tensor:
     if r is None or r.kv_read is None:
         return x
     return x[..., r.kv_read, :]
-
-
-def unported(what: str, step: str) -> NotImplementedError:
-    """The error for ``what`` on a mesh, naming item 11's ``step``."""
-    return NotImplementedError(
-        f"{what} under a mesh waits for {ITEM_11}, step {step}")
-
-
-#: item 11's step for TP inside each expert
-MOE_TP_STEP = "6: TP-in-expert MoE"
-
-
-def check_moe_strategy(cfg, strategy, tp: int):
-    """Raise ``unported`` (item 11 step 6) for an MoE ``cfg`` trained
-    with ``Strategy(expert_parallel=False)`` over ``tp`` > 1 "model"
-    ranks: the table splits each expert's ``d_ff_moe`` there, and the MoE
-    layer has no sum after the experts' ``w_down`` yet, so each rank's
-    output would be a partial."""
-    if cfg.is_moe and not strategy.expert_parallel and tp > 1:
-        raise unported("TP-in-expert MoE training (Strategy("
-                       "expert_parallel=False))", MOE_TP_STEP)
 
 
 # ------------------------------------------------ Mamba2 blocks by head

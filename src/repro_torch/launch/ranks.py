@@ -10,7 +10,11 @@ port is fixed and runs beside each other never meet.
 ``torch.distributed.init_process_group(backend, ...)`` and its return
 value comes back (pickled, over the rank's own pipe) in ``outs[rank]``.
 ``fn`` must be importable by its module's name (a top-level function),
-and so must every argument. The ranks talk over the loopback interface
+and so must every argument. ``args`` reach the ranks through one pickle
+file in the store's directory, read by each rank once it has started: a
+``spawn`` start writes what it passes through a pipe that the new
+process reads only after importing the caller's ``__main__``, so large
+arguments passed that way would start the ranks one after another. The ranks talk over the loopback interface
 (``GLOO_SOCKET_IFNAME=lo`` unless the caller's ``env`` says otherwise).
 A rank that raises, dies or does not finish within ``timeout`` seconds
 fails the run: the other ranks are killed — a collective one rank never
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import multiprocessing as mp
 import os
+import pickle
 import time
 import traceback
 import uuid
@@ -35,9 +40,11 @@ from typing import Callable, Dict, Optional, Sequence
 
 
 def _rank_main(fn, rank: int, world: int, backend: str, store: str, out,
-               args):
+               args_path: str):
     import torch.distributed as dist
     try:
+        with open(args_path, "rb") as f:
+            args = pickle.load(f)
         dist.init_process_group(backend, store=dist.FileStore(store, world),
                                 rank=rank, world_size=world)
         try:
@@ -64,11 +71,20 @@ def run_ranks(fn: Callable, world: int, *, args: Sequence = (),
     tracker = resource_tracker._resource_tracker
     own_tracker = tracker._fd is None          # this call will launch it
     pipes = [ctx.Pipe(duplex=False) for _ in range(world)]
-    store = os.path.join(store_dir, f"store-{uuid.uuid4().hex}")
+    run = uuid.uuid4().hex
+    store = os.path.join(store_dir, f"store-{run}")
+    args_path = os.path.join(store_dir, f"args-{run}.pkl")
+    try:
+        with open(args_path, "wb") as f:
+            pickle.dump(tuple(args), f, protocol=pickle.HIGHEST_PROTOCOL)
+    except BaseException:
+        if os.path.exists(args_path):
+            os.remove(args_path)
+        raise
     env = {"GLOO_SOCKET_IFNAME": "lo", **(env or {})}
     procs = [ctx.Process(target=_rank_main,
                          args=(fn, r, world, backend, store, pipes[r][1],
-                               tuple(args)),
+                               args_path),
                          daemon=True) for r in range(world)]
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)                     # inherited at start
@@ -117,8 +133,9 @@ def run_ranks(fn: Callable, world: int, *, args: Sequence = (),
                 p.join(timeout=10)
         for recv, _ in pipes:
             recv.close()
-        if os.path.exists(store):
-            os.remove(store)
+        for path in (store, args_path):
+            if os.path.exists(path):
+                os.remove(path)
         # the tracker ends when every holder of its pipe has: a rank that
         # outlived its kill would make the wait for it hang
         if own_tracker and all(p.exitcode is not None for p in procs):

@@ -21,30 +21,61 @@ the reference's einsums are: no Pallas kernel runs here on the TPU, so
 no hand kernel runs here on the card (and the fused MLP never does).
 The sharding hints (``constrain``) have no counterpart on one card.
 
-Under a tensor-parallel mesh (``core/tp.py``) the experts are split over
-the "model" axis (the table's ``experts`` rule, reference ``moe.py:8-12``):
-a rank holds ``E / tp`` experts of ``w_gate`` / ``w_up`` / ``w_down`` and
-the whole router. The activations are the same on every rank, so every
-rank routes every token as above; it fills only its own experts'
-``(E / tp, C, d)`` buffer (the same capacity ``C``), runs the three
-products on it, gathers the kept slots whose expert is its own (zeros
-elsewhere) and one all-reduce (``"moe_out"``) sums the ``(T k, d)``
-slots before the gate-weighted sum over k. Each kept slot has exactly one
-rank that writes it, so the sum adds only zeros: the output is the
-unsharded one bit for bit, and the k-sum runs in the unsharded order. A
-rank holding all ``E`` experts (the table keeps them whole where ``E``
-does not divide tp) computes the unsharded FFN and reduces nothing. The
-reference's all-to-all has no counterpart: gloo has none on CUDA tensors,
-and every rank already holds every token.
+Under a tensor-parallel mesh (``core/tp.py``) the MoE splits over the
+"model" axis in one of the table's two ways (reference ``moe.py:8-12``,
+``core/strategy.py:56-57``), which ``moe_ffn`` tells apart by the shape
+of the rank's expert stack (``_layout``):
 
-In training the rank's experts take their input through ``tp.enter``
-(the gradient of the replicated tokens summed over "model"; the router,
-which every rank runs on every token, takes it as it is), and the
-``moe_out`` sum's backward is the identity. On rows split over "data"
-every data rank routes its tokens as part of the global batch the
-reference routes: the capacity of all of its tokens, each slot offset by
-the entries of the earlier data ranks, and the aux loss from the global
-means (``_global_route``).
+* experts over "model" (``Strategy(expert_parallel=True)``, the
+  default): a rank holds ``E / tp`` whole experts of ``w_gate`` /
+  ``w_up`` / ``w_down`` and the whole router. The activations are the
+  same on every rank, so every rank routes every token as above; it
+  fills only its own experts' ``(E / tp, C, d)`` buffer (the same
+  capacity ``C``), runs the three products on it, gathers the kept slots
+  whose expert is its own (zeros elsewhere) and one all-reduce
+  (``"moe_out"``) sums the ``(T k, d)`` slots before the gate-weighted
+  sum over k. Each kept slot has exactly one rank that writes it, so the
+  sum adds only zeros: the output is the unsharded one bit for bit, and
+  the k-sum runs in the unsharded order. The reference's all-to-all has
+  no counterpart: gloo has none on CUDA tensors, and every rank already
+  holds every token.
+* TP inside each expert (``expert_parallel=False``: ``d_ff_moe`` over
+  "model"): a rank holds every expert, ``d_ff / tp`` columns of each
+  expert's ``w_gate`` / ``w_up`` and the same rows of its ``w_down``
+  (Megatron's MLP split, expert by expert). Every rank routes every
+  token and fills the whole ``(E, C, d)`` buffer; its products give a
+  partial of each slot's output over f, and one sum of the
+  gate-weighted ``(T, d)`` output after the k-sum (``"moe_out"``: an
+  all-reduce, or under sequence parallelism the reduce-scatter to the
+  rank's slice) completes it: k times fewer bytes than the slots' sum,
+  equal to the unsharded output up to the order of the f sum. The
+  reference constrains the expert activation to ``("experts",
+  "moe_cap", None)`` (``moe.py:92``), so GSPMD regathers it over f
+  before ``w_down``; the port runs the Megatron form instead.
+
+A rank holding all ``E`` experts at the full ``d_ff`` (the table keeps
+them whole where ``E`` does not divide tp) computes the unsharded FFN
+and reduces nothing.
+
+In training the rank's share takes its input through ``tp.enter``
+(``"moe_in"``: the gradient of the replicated tokens summed over
+"model"; the router, which every rank runs on every token, takes it as
+it is), and the ``moe_out`` sum's backward is the identity. Split inside
+each expert, a rank's output is ``sum_k gate_k * y_k`` over its partial
+``y_k``, so each gate's gradient on a rank is a partial too: the gates
+enter through ``tp.enter`` (``"moe_gate"``, one (T k,) sum a layer),
+while the aux loss's path to the router (the probabilities), complete on
+every rank, is not summed. Experts over "model" need no gate sum: there
+the gates multiply the summed slots. So a layer's labels are
+``moe_out`` (and ``moe_seq``, the gather before routing, under SP)
+forward, and ``moe_in.grad`` backward, with ``moe_gate.grad`` inside
+each expert and, under SP, the gather of the output's gradient
+(``moe_out.grad`` inside each expert, ``moe_seq.grad`` with experts over
+"model").
+On rows split over "data" every data rank routes its tokens as part of
+the global batch the reference routes: the capacity of all of its
+tokens, each slot offset by the entries of the earlier data ranks, and
+the aux loss from the global means (``_global_route``).
 
 ``moe_ffn``'s parts run under ``torch.profiler.record_function`` ranges
 named by :data:`PARTS` (routing and dispatch, the expert products, the
@@ -167,35 +198,42 @@ def _global_route(router_w, x, cfg, r, t_all: int, cap: int):
     return gates, idx, aux, dest, keep
 
 
-def _local_experts(p, cfg):
-    """(first expert, experts) this rank holds of ``p``'s expert stack:
-    (0, E) unsharded or where the stack is whole."""
-    n = p["w_up"].shape[0]
-    if n == cfg.num_experts:
-        return 0, n
+def _layout(p, cfg) -> Tuple[int, int, bool]:
+    """(first expert, experts, f split) of the expert stack this rank
+    holds of ``p``, read from its shape: ``E`` experts at the full
+    ``d_ff`` (unsharded, or where the table keeps the stack whole);
+    ``E / tp`` of them (experts over "model"); or all ``E`` at ``d_ff /
+    tp`` (TP inside each expert). Under FSDP the leaves reach here
+    already gathered over "data", so the block is the "model" one."""
+    n, f = p["w_up"].shape[-3], p["w_up"].shape[-1]
+    e = cfg.num_experts
+    if n == e and f == cfg.d_ff:
+        return 0, n, False
     r = tp.current()
-    if r is None or n * r.tp != cfg.num_experts:
-        raise ValueError(f"{cfg.name}: an expert stack of {n} of "
-                         f"{cfg.num_experts} experts needs the rank that "
-                         "holds it current (core/tp.py::active)")
-    return r.rank * n, n
+    if r is not None and n * r.tp == e and f == cfg.d_ff:
+        return r.rank * n, n, False
+    if r is not None and n == e and f * r.tp == cfg.d_ff:
+        return 0, n, True
+    raise ValueError(f"{cfg.name}: an expert stack of {n} of {e} experts "
+                     f"at d_ff {f} of {cfg.d_ff} needs the rank that holds "
+                     "it current (core/tp.py::active)")
 
 
 def moe_ffn(p, x, cfg, *, sp: bool = False):
     """x: (B, S, d) -> (B, S, d), aux loss (fp32 scalar). Capacity is that
     of the B * S tokens together: rows share every expert's budget. Under a
-    mesh, a rank's slice of the experts (see the module docstring); in
-    training on rows split over "data", the capacity and the slots of the
-    batch all data ranks hold (``_global_route``); ``sp``: ``x`` is the
-    rank's sequence slice, gathered before routing, and so is the
-    output."""
+    mesh, a rank's slice of the experts or of each expert's d_ff (see the
+    module docstring); in training on rows split over "data", the
+    capacity and the slots of the batch all data ranks hold
+    (``_global_route``); ``sp``: ``x`` is the rank's sequence slice,
+    gathered before routing, and so is the output."""
     if sp:
         x = tp.seq_gather(x, "moe_seq")
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
     k = cfg.experts_per_token
-    first, n_local = _local_experts(p, cfg)
+    first, n_local, f_split = _layout(p, cfg)
     split = n_local < cfg.num_experts
     rows = tp.data_rows()
     t_all = t * rows.dp if rows is not None else t
@@ -207,15 +245,15 @@ def moe_ffn(p, x, cfg, *, sp: bool = False):
         else:
             gates, idx, aux, dest, keep = _global_route(
                 p["router"], xt, cfg, rows, t_all, cap)
+        mine = keep
         if split:
             # this rank's slots: their rows in its (E / tp * C, d) buffer
             mine = keep & (idx.reshape(-1) >= first) \
                 & (idx.reshape(-1) < first + n_local)
             dest = torch.where(mine, dest - first * cap,
                                torch.zeros_like(dest))
+        if split or f_split:
             xt = tp.enter(xt, "moe_in")
-        else:
-            mine = keep
         src = xt.repeat_interleave(k, dim=0)              # (T*k, d)
         src = torch.where(mine[:, None], src, torch.zeros_like(src))
         # kept rows are unique and dropped ones add +0 to row 0: the sums
@@ -231,6 +269,9 @@ def moe_ffn(p, x, cfg, *, sp: bool = False):
     with record_function("moe_combine"):
         flat_gate = torch.where(keep, gates.reshape(-1),
                                 torch.zeros_like(gates.reshape(-1)))
+        if f_split:
+            # each slot's y is a partial over f: so is each gate's gradient
+            flat_gate = tp.enter(flat_gate, "moe_gate")
         gathered = torch.where(mine[:, None], y.index_select(0, dest),
                                torch.zeros_like(src))
         if split:
@@ -239,6 +280,9 @@ def moe_ffn(p, x, cfg, *, sp: bool = False):
         out = (gathered * flat_gate[:, None].to(gathered.dtype)
                ).reshape(t, k, d).sum(dim=1)
     out = out.reshape(b, s, d)
-    if sp:
+    if f_split:
+        # the partials over f summed once, after the gates
+        out = tp.reduce_out(out, "moe_out", seq=sp)
+    elif sp:
         out = tp.seq_split(out, "moe_seq")
     return out, aux

@@ -170,8 +170,10 @@ its collectives on the row's "model" group (serve/parallel.py's
 ``ReplicaRouter`` routes across the rows). The online driver
 (serve/driver.py) serves such an engine from rank 0, broadcasting its
 host events to every rank before each step; under it ``abort_event`` is
-the pass's copy of the abort, the same on every rank. A mesh with a
-third axis and TP-in-expert (``Strategy(expert_parallel=False)``) raise
+the pass's copy of the abort, the same on every rank. An MoE splits over
+"model" by the ``strategy``: its experts (``expert_parallel``, the
+default) or each expert's d_ff (``expert_parallel=False``;
+``models/moe.py``). A mesh with a third axis raises
 ``NotImplementedError`` naming ROADMAP.md Queue 1 item 11.
 """
 from __future__ import annotations
@@ -436,10 +438,6 @@ class ServeEngine:
         if set(axes) - {"data", "model"}:
             raise _todo(f"serving on a {axes} mesh (only 'data' and "
                         "'model' axes)", "Queue 1 item 11")
-        if cfg.is_moe and not strategy.expert_parallel:
-            raise _todo("TP-in-expert MoE serving on a mesh (Strategy("
-                        "expert_parallel=False))",
-                        f"Queue 1 item 11, step {tp.MOE_TP_STEP}")
         refuse_unported(strategy, "serving on a mesh")
         rank = tp.Rank.of(mesh, cfg)
         return rank, tp.shard_params(params, full_shapes(cfg), strategy,

@@ -36,11 +36,6 @@ computes on the same global batch, which it takes whole on every rank:
 
 ``train_step.grads(params, batch)`` is the step up to there: (the
 rank's update blocks of the gradient before clipping, the metrics).
-An MoE step with ``Strategy(expert_parallel=False)`` under a rank with
-"model" > 1 raises ``NotImplementedError`` naming item 11 step 6
-(``tp.check_moe_strategy``), as ``tp.Rank.of`` does for such a training
-rank.
-
 The enc-dec family's batches carry ``frames`` beside ``tokens``, the
 VLM's ``image_embeds``: ``shard_batch`` and the microbatch split cut
 every key of the batch by its rows, so a data rank's frames or images
@@ -162,9 +157,6 @@ def make_train_step(cfg, strategy: Strategy, *, lr: float = 3e-4,
         return grads, metrics
 
     def grads(params, batch):
-        live = tp.current()
-        if live is not None:
-            tp.check_moe_strategy(cfg, strategy, live.tp)
         r = _training_rank()
         if r is None:
             return accumulate(params, batch)

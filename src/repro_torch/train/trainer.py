@@ -15,15 +15,14 @@ process group, one process a rank) the trainer builds the rank
 (drawn from the seed, or cut from the full tree it is given) and of the
 optimizer state (ZeRO-1 by ``Strategy.zero1``), and runs the step under
 the rank: each step's batch is the global one, of which the step takes
-the rank's rows (``data/pipeline.py::shard_batch``). Every family
-trains so: dense and MoE decoders, the SSM family, the hybrid (a Mamba2
-block by whole heads, ``core/tp.py``), the enc-dec family (its frames
-cut with their token rows) and the VLM (its images likewise); an MoE
-with ``Strategy(expert_parallel=False)`` over "model" > 1 raises naming
-its step of ROADMAP.md Queue 1 item 11 (``tp.Rank.of``) before any
-parameter is made. A checkpoint holds the full tree, assembled
-from the blocks and written by the first rank, the same file an
-unsharded trainer writes; ``maybe_restore`` cuts a full checkpoint to
+the rank's rows (``data/pipeline.py::shard_batch``). Every family trains
+so: dense and MoE decoders, the SSM family, the hybrid (a Mamba2 block
+by whole heads, ``core/tp.py``), the enc-dec family (its frames cut with
+their token rows) and the VLM (its images likewise); an MoE with its
+experts over "model" or, with ``Strategy(expert_parallel=False)``, each
+expert's d_ff (``models/moe.py``). A checkpoint holds the full tree,
+assembled from the blocks and written by the first rank, the same file
+an unsharded trainer writes; ``maybe_restore`` cuts a full checkpoint to
 the rank's blocks. On one device ``seq_parallel`` and ``fsdp``, like
 ``zero1``, are accepted and change nothing.
 """

@@ -27,7 +27,10 @@ every rank over a dp 2 x tp 2 router, rank 0 taking the requests, its
 streams held to the JAX engine's batch and its routing to the lockstep
 router's. The SSM family serves there too (tests/test_serve_engine.py's
 ``SSM_CFG`` over the dp 2 x tp 2 router, a Mamba2 block split by whole
-heads: the JAX engine's batch streams), and the lockstep SSM and hybrid
+heads: the JAX engine's batch streams), and so does the MoE with TP
+inside each expert (tests/test_torch_tp.py's ``MOE_KW`` with
+``Strategy(expert_parallel=False)``, one slot a replica: the JAX
+engine's streams of its ``moe_mixed`` run), and the lockstep SSM and hybrid
 decode of tests/test_torch_tp.py's ``ssm_model_rank`` runs on (1, 4):
 the reference's ``test_decode_sharded_equals_reference`` logits within
 5e-4, the states of the rank's one head.
@@ -44,8 +47,9 @@ from repro_torch.params import from_numpy  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve.parallel import (ReplicaRouter,  # noqa: E402
                                         replica_meshes)
-from test_torch_tp import (ONLINE_ENG, ONLINE_KW, ONLINE_RUNS,  # noqa: E402
-                           SSM_KW, _flat, _jax_cp_params,
+from test_torch_tp import (FAMILY_RUNS, MOE_KW, ONLINE_ENG,  # noqa: E402
+                           ONLINE_KW, ONLINE_RUNS, SSM_KW, TIE,
+                           _flat, _jax_cp_params, _jax_family_run,
                            check_cp_rank, check_ssm_model_rank, cp_rank,
                            jax_online, ssm_flats, ssm_model_rank)
 
@@ -339,11 +343,12 @@ def _online_router_rank(flat):
 
 
 def _topology_rank(rank, world, flat, prompts, spec_prompts, cp_flat,
-                   online_flat, ssm):
+                   online_flat, ssm, moe_flat):
     """One rank of the dp 2 x tp 2 runs: the router over a (2, 2) mesh
     on the engine keywords of the reference's test, with spec on, through
     ``Session.serve(dp=2, tp=2)`` and through the launcher; then the CP
-    decode on each of ``CP_MESHES``, and the online router."""
+    decode on each of ``CP_MESHES``, the online router, the SSM router and
+    the TP-in-expert MoE router."""
     import torch.distributed as dist
     from repro_torch.launch.serve import main
     from repro_torch.serve.speculative import SpecConfig
@@ -388,6 +393,17 @@ def _topology_rank(rank, world, flat, prompts, spec_prompts, cp_flat,
                                     for r in router.stats["replicas"]],
                          "counts": dict(router.engines[0]._rank.counts)}
     out["ssm"] = ssm_model_rank((1, world), ssm["lockstep"])
+    moe_cfg = ModelConfig(**MOE_KW)
+    _, moe_prompts, _, moe_new, moe_eng = FAMILY_RUNS["moe_mixed"]
+    router = ReplicaRouter(moe_cfg, from_numpy(moe_flat, moe_cfg, "cpu"),
+                           dp=2, tp=2, strategy=TIE, **moe_eng)
+    homes, streams, res = _run(router, moe_prompts, moe_new)
+    eng = router.engines[0]
+    out["moe_tie_router"] = {
+        "streams": streams, "homes": homes,
+        "done": all(r.done for r in res.values()),
+        "w_up": tuple(eng.params["layers"]["moe"]["w_up"].shape),
+        "counts": dict(eng._rank.counts)}
     return out
 
 
@@ -409,7 +425,8 @@ def topology(tmp_path_factory):
            "lockstep": ssm_flats()}
     ranks = run_ranks(_topology_rank, 4,
                       args=(flat, prompts, spec_prompts,
-                            _jax_cp_params()[2], _flat(ONLINE_KW), ssm),
+                            _jax_cp_params()[2], _flat(ONLINE_KW), ssm,
+                            _flat(MOE_KW)),
                       store_dir=str(tmp_path_factory.mktemp("dp2tp2")),
                       timeout=RANK_TIMEOUT)
     return prompts, spec_prompts, ranks
@@ -514,6 +531,26 @@ def test_ssm_decode_on_four_ranks_matches_jax(topology):
         check_ssm_model_rank(r["ssm"])
     assert sorted(r["ssm"]["zamba2-1.2b"]["model_rank"]
                   for r in ranks) == [0, 1, 2, 3]
+
+
+def test_dp2_tp2_tp_in_expert_moe_router_matches_jax(topology):
+    """The MoE with TP inside each expert over the dp 2 x tp 2 router on
+    four gloo ranks (one slot a replica, so each request is served alone,
+    as by the single engine): on every rank the union of the streams
+    equals the JAX engine's ``moe_mixed`` run, both replicas served; each
+    rank holds all four experts at half their d_ff, and one ``moe_out``
+    sum a layer a program on its row."""
+    _, _, ranks = topology
+    want = _jax_family_run("moe_mixed")[0]
+    layers = MOE_KW["num_layers"]
+    for r in ranks:
+        run = r["moe_tie_router"]
+        assert run["done"] and run["streams"] == want
+        assert sorted(set(run["homes"])) == [0, 1]
+        assert run["w_up"] == (layers, MOE_KW["num_experts"],
+                               MOE_KW["d_model"], MOE_KW["d_ff"] // 2)
+        c = run["counts"]
+        assert c["moe_out"] == c["attn_out"] == layers * c["tokens"] > 0
 
 
 #: the collectives every process of a dp x tp router issues (the row

@@ -29,10 +29,14 @@ rank 0, ``stop(drain=False)``, ``/generate`` / ``/metrics`` /
 ``/healthz`` on rank 0, and ranks fed different batches; their streams
 are held to the JAX engine's batch ``run()``. The
 MoE config (``MOE_KW``: E 4 over tp 2,
-two experts a rank, and ``MOE_E3_KW``: E 3, which the table keeps whole
-on both ranks) and the enc-dec config (``AUDIO_KW``, frames with each
-request) are the reference's ``MOE_CFG`` and ``AUDIO_CFG``
-(tests/test_serve_parallel.py:23-31) at its seeds. The SSM family
+two experts a rank; the same with TP inside each expert,
+``Strategy(expert_parallel=False)``: all four experts and half of each
+expert's d_ff a rank, one (T, d) ``moe_out`` sum a layer, 1/k of the
+expert-parallel bytes, held to the same JAX runs; and ``MOE_E3_KW``: E 3,
+which the table keeps whole on both ranks) and the enc-dec config
+(``AUDIO_KW``, frames with each request) are the reference's
+``MOE_CFG`` and ``AUDIO_CFG`` (tests/test_serve_parallel.py:23-31) at
+its seeds. The SSM family
 (tests/test_serve_engine.py's ``SSM_CFG`` at its seed) and the hybrid
 (the zamba2 smoke in f32) serve on the same spawn, a Mamba2 block split by
 whole heads: the JAX engine's streams and counters, one ``ssm_out`` and
@@ -242,11 +246,15 @@ def _media(kw, media, i: int) -> dict:
         return {}
     return {"images" if kw["arch_type"] == "vlm" else "frames": media[i]}
 
+#: TP inside each expert: every expert on every rank, d_ff over "model"
+TIE = Strategy(dtype="float32", expert_parallel=False)
+
 #: run -> (config, prompts, frames / images or None, max_new, engine
 #: keywords): the reference's MoE tp 2 case (one slot, 8-token pages) on
-#: the mixed step and the split path, two slots with the prefix cache and
-#: lazy growth, the experts kept whole (E 3); the reference's enc-dec tp 2
-#: case on the mixed step and the split path; the VLM on the split path's
+#: the mixed step and the split path, with the experts over "model" and
+#: with TP inside each expert (``TIE``), two slots with the prefix cache
+#: and lazy growth, the experts kept whole (E 3); the reference's enc-dec
+#: tp 2 case on the mixed step and the split path; the VLM on the split path's
 #: dense rows (its only layout), with Hkv 2 and Hkv 1
 FAMILY_RUNS = {
     "moe_mixed": (MOE_KW, _prompts(6, (5, 8, 6)), None, 4,
@@ -254,6 +262,12 @@ FAMILY_RUNS = {
     "moe_split": (MOE_KW, _prompts(6, (5, 8, 6)), None, 4,
                   dict(slots=1, max_len=32, paged=True, page_size=8,
                        mixed=False)),
+    "moe_tie_mixed": (MOE_KW, _prompts(6, (5, 8, 6)), None, 4,
+                      dict(slots=1, max_len=32, paged=True, page_size=8,
+                           strategy=TIE)),
+    "moe_tie_split": (MOE_KW, _prompts(6, (5, 8, 6)), None, 4,
+                      dict(slots=1, max_len=32, paged=True, page_size=8,
+                           mixed=False, strategy=TIE)),
     "moe_prefix": (MOE_KW, _repeats(), None, 4,
                    dict(slots=2, max_len=32, paged=True, page_size=4,
                         prefix_cache=True, lazy=True)),
@@ -338,9 +352,15 @@ def _jax_run(name):
     return _JAX[name]
 
 
+#: a run whose JAX reference is another run's: the unsharded engine does
+#: not depend on how a mesh would split the experts
+JAX_TWIN = {"moe_tie_mixed": "moe_mixed", "moe_tie_split": "moe_split"}
+
+
 def _jax_family_run(name):
     """(streams, stats, per-device kv bytes) of the JAX engine, unsharded,
-    on ``FAMILY_RUNS[name]``, made once."""
+    on ``FAMILY_RUNS[name]`` (its ``JAX_TWIN``'s), made once."""
+    name = JAX_TWIN.get(name, name)
     if name not in _JAX:
         from repro.serve.engine import ServeEngine as JaxEngine
         kw, prompts, media, new, ekw = FAMILY_RUNS[name]
@@ -847,7 +867,10 @@ def _family_rank(rank, world, flats, runs):
                      "state_bytes": state_bytes(eng),
                      "experts": eng.params["layers"]["moe"]["w_up"].shape[1]
                      if cfg.is_moe else None,
+                     "w_up": tuple(eng.params["layers"]["moe"]["w_up"].shape)
+                     if cfg.is_moe else None,
                      "counts": dict(eng._rank.counts),
+                     "bytes": dict(eng._rank.bytes),
                      "kv_shapes": {k: tuple(eng._cache[k]["k"].shape)
                                    for k in ("kv", "kv_g", "xkv")
                                    if k in eng._cache},
@@ -878,6 +901,13 @@ def _vlm_smoke():
     return cfg, params, images
 
 
+#: ``_logits_rank``'s runs: (name, config, strategy)
+LOGITS_RUNS = (("par-dense", KW, Strategy(dtype="float32")),
+               ("par-dense-kv1", KW_KV1, Strategy(dtype="float32")),
+               ("par-moe", MOE_KW, Strategy(dtype="float32")),
+               ("par-moe-tie", MOE_KW, TIE))
+
+
 def _logits_rank(rank, world, flats, toks):
     """Prefill 20 tokens and decode 4 on the dense cache, under tp, for
     each config; with the collectives of the prefill and of the last
@@ -885,10 +915,9 @@ def _logits_rank(rank, world, flats, toks):
     from repro_torch.models import transformer
     mesh = _mesh(world)
     out = {}
-    for kw in (KW, KW_KV1, MOE_KW):
+    for name, kw, st in LOGITS_RUNS:
         cfg = ModelConfig(**kw)
-        params = from_numpy(flats[kw["name"]], cfg, "cpu",
-                            shard=(Strategy(dtype=cfg.dtype), mesh))
+        params = from_numpy(flats[kw["name"]], cfg, "cpu", shard=(st, mesh))
         rank_view = tp.Rank.of(mesh, cfg)
         cache = transformer.init_cache(
             cfg.with_(num_kv_heads=rank_view.kv_heads), 2, 40)
@@ -907,9 +936,9 @@ def _logits_rank(rank, world, flats, toks):
             with torch.no_grad():
                 full, _ = transformer.forward(params, {"tokens": t}, cfg)
             counts.append(dict(rank_view.counts))
-        out[kw["name"]] = {"logits": logits, "counts": counts,
-                           "forward": full.numpy(),
-                           "cache_heads": cache["kv"]["k"].shape[3]}
+        out[name] = {"logits": logits, "counts": counts,
+                     "forward": full.numpy(),
+                     "cache_heads": cache["kv"]["k"].shape[3]}
     return out
 
 
@@ -932,13 +961,16 @@ def _session_rank(rank, world):
         out[tp_n or 1] = ({i: list(res[i].out) for i in res},
                           eng.stats["decode_traces"], eng.tp)
     # the MoE and enc-dec families through the session: the tp engine
-    # draws only the rank's blocks (experts, heads, vocabulary)
+    # draws only the rank's blocks (experts, heads, vocabulary); the MoE
+    # also with TP inside each expert (each expert's d_ff)
     for kw in (MOE_KW, AUDIO_KW):
         fcfg = ModelConfig(**kw)
         frames = _AUDIO[1] if fcfg.arch_type == "audio" else None
         got = []
-        for tp_n in (None, world):
-            eng = Session(fcfg, device="cpu", seed=4).serve(
+        runs = ((None, None), (world, None)) \
+            + (((world, TIE),) if fcfg.is_moe else ())
+        for tp_n, st in runs:
+            eng = Session(fcfg, strategy=st, device="cpu", seed=4).serve(
                 tp=tp_n, slots=2, max_len=32)
             for i, p in enumerate(_AUDIO[0]):
                 eng.submit(i, p, max_new=4,
@@ -994,13 +1026,6 @@ def _session_rank(rank, world):
         ServeEngine(odd, init_params(odd, device="cpu", seed=0), mesh=mesh)
     except ValueError as e:
         refused["ssm_heads"] = str(e)
-    moe = cfg.with_(arch_type="moe", num_experts=4, experts_per_token=2)
-    try:
-        ServeEngine(moe, init_params(moe, device="cpu", seed=0), mesh=mesh,
-                    strategy=Strategy(dtype=moe.dtype,
-                                      expert_parallel=False))
-    except NotImplementedError as e:
-        refused["tp_in_expert"] = str(e)
     try:
         ServeEngine(cfg, init_params(cfg, device="cpu", seed=0), mesh=mesh,
                     strategy=Strategy(fsdp=True))
@@ -1385,7 +1410,9 @@ def test_session_serve_tp2_matches_plain(model_runs):
     """tests/test_serve_parallel.py:528: ``Session.serve(tp=2)`` (only
     the rank's blocks drawn from the session's seed) gives the streams of
     ``Session.serve()`` on the same session, one program shape; on the
-    MoE and enc-dec configs as well, and on the VLM smoke with its gates
+    MoE (its experts over "model", and with ``Strategy(expert_parallel=
+    False)`` each expert's d_ff) and enc-dec configs as well, and on the
+    VLM smoke with its gates
     open and each request's images (the session's params sliced to the
     rank's shards)."""
     _, _, session = model_runs
@@ -1395,19 +1422,21 @@ def test_session_serve_tp2_matches_plain(model_runs):
         # the MoE, enc-dec and VLM configs too: serve(tp=2) == serve()
         for name in (MOE_KW["name"], AUDIO_KW["name"], "llama-vision-smoke"):
             assert r[name][1] == r[name][0], name
+        assert r[MOE_KW["name"]][2] == r[MOE_KW["name"]][0]
 
 
-@pytest.mark.parametrize("name", ["par-dense", "par-dense-kv1", "par-moe"])
+@pytest.mark.parametrize("name", [run[0] for run in LOGITS_RUNS])
 def test_tp2_decode_logits_match_jax(model_runs, name):
     """Four decode steps after a 20-token prefill on the dense cache,
     under tp 2: logits within LOGITS_TOL of the reference's
     ``decode_step`` on both ranks (with one KV head, both ranks hold it
-    and read it; the expert-parallel MoE within MOE_LOGITS_TOL)."""
+    and read it; the MoE, its experts over "model" or each expert's d_ff
+    split, within MOE_LOGITS_TOL)."""
     import jax.numpy as jnp
     from repro.models import get_model
     toks, logits, _ = model_runs
-    kw = {"par-dense": KW, "par-dense-kv1": KW_KV1, "par-moe": MOE_KW}[name]
-    tol = MOE_LOGITS_TOL if name == "par-moe" else LOGITS_TOL
+    kw = {run[0]: run[1] for run in LOGITS_RUNS}[name]
+    tol = MOE_LOGITS_TOL if kw is MOE_KW else LOGITS_TOL
     jcfg, jparams, _ = _jax_params(kw)
     mod = get_model(jcfg)
     _, jcache = mod.prefill(jparams, {"tokens": jnp.asarray(toks[:, :20])},
@@ -1451,8 +1480,8 @@ def test_tp2_forward_has_two_all_reduces_a_layer(model_runs):
 def test_tp_refusals(model_runs):
     """A mesh larger than the process group raises ValueError with the
     count; MoE, audio, SSM and VLM engines build on a mesh, while a mesh
-    with a third axis, TP-in-expert MoE (``expert_parallel=False``) and
-    FSDP on a mesh raise naming item 11; on a CUDA device a
+    with a third axis and FSDP on a mesh raise naming item 11; on a CUDA
+    device a
     kernel that refuses a rank's shape refuses at construction; ranks
     that packed different programs raise on every rank (no hang);
     ``serve(dp=2)`` on the one CPU device raises the reference's "devices
@@ -1463,7 +1492,7 @@ def test_tp_refusals(model_runs):
     _, _, session = model_runs
     refused = session[0]["refused"]
     assert "needs 4 ranks" in refused["mesh"] and "has 2" in refused["mesh"]
-    for key in ("pod", "tp_in_expert", "fsdp"):
+    for key in ("pod", "fsdp"):
         assert "item 11" in refused[key], key
     assert "'pod'" in refused["pod"]
     assert not {"moe", "audio", "ssm", "vlm"} & set(refused)
@@ -1507,6 +1536,36 @@ def test_tp2_moe_matches_jax_tp1(family_runs, name):
         assert "mlp_out" not in counts
         assert counts["moe_out"] == counts["attn_out"] \
             == layers * counts["tokens"]
+
+
+@pytest.mark.parametrize("name", ["moe_tie_mixed", "moe_tie_split"])
+def test_tp2_tp_in_expert_moe_matches_jax_tp1(family_runs, name):
+    """TP inside each expert (``Strategy(expert_parallel=False)``) on the
+    runs of ``test_tp2_moe_matches_jax_tp1``: all four experts and half of
+    each expert's d_ff a rank (``w_up`` (L, 4, 64, 64)), the JAX engine's
+    tp 1 streams and counters, one program shape, half the pool a rank;
+    one ``moe_out`` sum a layer a program, of the gate-weighted (T, d)
+    output: its bytes exactly 1/k of the expert-parallel run's (T k, d)
+    slots on the same programs. Serving sums no gate."""
+    want, jstats, jdev = _jax_family_run(name)
+    ep = name.replace("_tie", "")
+    k = MOE_KW["experts_per_token"]
+    for r in family_runs:
+        run = r[name]
+        assert run["done"] and run["streams"] == want
+        for key in COUNTERS:
+            assert run["stats"][key] == jstats[key], key
+        assert run["stats"]["decode_traces"] == 1
+        assert run["per_device"] * 2 == jdev
+        layers, d = MOE_KW["num_layers"], MOE_KW["d_model"]
+        assert run["experts"] == MOE_KW["num_experts"]
+        assert run["w_up"] == (layers, MOE_KW["num_experts"], d,
+                               MOE_KW["d_ff"] // 2)
+        counts = run["counts"]
+        assert "mlp_out" not in counts and "moe_gate.grad" not in counts
+        assert counts["moe_out"] == counts["attn_out"] \
+            == layers * counts["tokens"] == r[ep]["counts"]["moe_out"]
+        assert run["bytes"]["moe_out"] * k == r[ep]["bytes"]["moe_out"]
 
 
 def test_tp2_moe_prefix_cache_lazy_matches_jax_tp1(family_runs):

@@ -11,7 +11,10 @@ config in float32 — ``qwen3-14b`` (Hq 8, Hkv 2: at tp 4 the K/V
 projections are whole on every rank, and with ``q_norm``/``k_norm``
 their gradients are summed over "model") and ``olmoe-1b-7b`` (E 4, at
 the reference test's capacity factor 16.0, and at the default 1.25 on a
-batch whose routing drops entries) — on a ("data", "model") mesh, from
+batch whose routing drops entries; its experts over "model", and with TP
+inside each expert, ``Strategy(expert_parallel=False)``: every expert
+and d_ff / tp of each on a rank, at (2, 2) with Megatron, +SP,
++FSDP+SP+remat and drops, and at (1, 4)) — on a ("data", "model") mesh, from
 the JAX init's params through the weight bridge, on the global batch
 (the step takes the rank's rows). Each is held:
 
@@ -54,12 +57,11 @@ sums under SP only, no sum into the images).
 The same spawn trains through ``Session.train(tp=2, dp=2)`` (a
 checkpoint at step 2 that a one-device trainer restores leaf for leaf,
 and a (2, 2) trainer cuts to its blocks; whisper's on ``FramesData``
-too), through ``launch/train.py --dp 2 --tp 2 --fsdp`` (and ``--arch
-mamba2-780m --seq-parallel``, ``--arch whisper-tiny --seq-parallel``,
-``--arch llama-3.2-vision-90b --seq-parallel``), and shows what does not
-train on a mesh yet refusing, naming ROADMAP.md Queue 1 item 11's step:
-TP inside each expert (``Strategy(expert_parallel=False)`` on the olmoe
-smoke at (1, 2) and (2, 2), in the trainer and in the train step).
+too; the olmoe smoke with TP inside each expert, whose checkpoint an
+expert-parallel (2, 2) trainer restores), and through ``launch/train.py
+--dp 2 --tp 2 --fsdp`` (and ``--arch mamba2-780m --seq-parallel``,
+``--arch whisper-tiny --seq-parallel``, ``--arch llama-3.2-vision-90b
+--seq-parallel``).
 
 This module imports JAX and the reference only in this process; the
 ranks import ``repro_torch`` only.
@@ -87,6 +89,9 @@ METRIC_REL = 1e-5
 
 VLM = "llama-3.2-vision-90b"
 
+#: the Strategy keyword of TP inside each expert
+TIE = dict(expert_parallel=False)
+
 #: case -> (arch, (data, model), Strategy keywords, capacity factor,
 #: batch, steps)
 CASES = {
@@ -112,6 +117,23 @@ CASES = {
     "olmoe 2x2 microbatches": ("olmoe-1b-7b", (2, 2),
                                dict(microbatches=2), 16.0, "uniform", 1),
     "olmoe 2x2 drops": ("olmoe-1b-7b", (2, 2), {}, 1.25, "skewed", 1),
+    # TP inside each expert: every expert on every rank, its d_ff over
+    # "model" (the JAX reference runs are the cases above: the unsharded
+    # step does not depend on the layout)
+    "olmoe 2x2 tie": ("olmoe-1b-7b", (2, 2), dict(TIE), 16.0, "uniform", 1),
+    "olmoe 2x2 tie sp": ("olmoe-1b-7b", (2, 2),
+                         dict(TIE, seq_parallel=True), 16.0, "uniform", 1),
+    "olmoe 2x2 tie fsdp sp remat": ("olmoe-1b-7b", (2, 2),
+                                    dict(TIE, fsdp=True, seq_parallel=True,
+                                         remat=True), 16.0, "uniform", 1),
+    "olmoe 1x4 tie": ("olmoe-1b-7b", (1, 4), dict(TIE), 16.0, "uniform", 1),
+    "olmoe 2x2 tie drops": ("olmoe-1b-7b", (2, 2), dict(TIE), 1.25,
+                            "skewed", 1),
+    # Adafactor's factored statistics over the (L, E, d, f / tp) blocks
+    # (d 128 is not f / tp 32: the reference's vr / vc specs are told apart)
+    "olmoe 2x2 tie adafactor": ("olmoe-1b-7b", (2, 2),
+                                dict(TIE, optimizer="adafactor"), 16.0,
+                                "uniform", 2),
     # the SSM family (the reference test's third arch) and the hybrid: a
     # Mamba2 block split by whole heads over "model"
     "mamba 2x2": ("mamba2-780m", (2, 2), {}, 16.0, "uniform", 1),
@@ -341,30 +363,27 @@ def _ssm_checkpoint_rank(get_mesh, tmp, flats):
     return out
 
 
-def _refusals(get_mesh):
-    """What does not train on a mesh: TP inside each expert (the olmoe
-    smoke with ``expert_parallel=False``: the trainer at (1, 2) and (2,
-    2), and the train step's ``grads`` under a (2, 2) rank)."""
+def _tie_checkpoint_rank(tmp):
+    """``Session.train(tp=2, dp=2)`` of the olmoe smoke with TP inside each
+    expert for one step, its checkpoint at step 1; then an expert-parallel
+    (2, 2) trainer on other params restoring it. Returns both runs'
+    blocks."""
+    from repro_torch.api import Session
     from repro_torch.configs import get_smoke
-    from repro_torch.train.trainer import TrainConfig, Trainer
+    from repro_torch.train.trainer import TrainConfig
+    cfg = get_smoke("olmoe-1b-7b").with_(dtype="float32")
+    tc = TrainConfig(steps=1, lr=LR, log_every=1, checkpoint_every=1,
+                     checkpoint_dir=f"{tmp}/olmoe_tie", seed=3)
     out = {}
-    mesh = get_mesh((2, 2))
-    moe = get_smoke("olmoe-1b-7b").with_(dtype="float32")
-    tp_in_expert = Strategy(expert_parallel=False, dtype="float32")
-    for shape in ((1, 2), (2, 2)):
-        try:
-            Trainer(moe, tp_in_expert, "cpu", TrainConfig(steps=1),
-                    global_batch=4, seq_len=8, mesh=get_mesh(shape))
-        except NotImplementedError as e:
-            out[f"moe {shape} trainer"] = str(e)
-    rank = tp.Rank.of(mesh, moe, Strategy(dtype="float32"),
-                      full_shapes(moe))
-    try:
-        with tp.active(rank):
-            tstep.make_train_step(moe, tp_in_expert).grads(
-                {}, {"tokens": torch.zeros((4, 8), dtype=torch.int32)})
-    except NotImplementedError as e:
-        out["moe (2, 2) grads"] = str(e)
+    for name, st, seed, restore in (("tie", TIE_SESSION_ST, 3, False),
+                                    ("ep", EP_SESSION_ST, 9, True)):
+        trainer = Session(cfg, strategy=st, device="cpu", seed=seed).train(
+            tc, global_batch=4, seq_len=16, tp=2, dp=2, restore=restore)
+        if not restore:
+            trainer.run()
+        out[name] = {k: v.detach().numpy().copy()
+                     for k, v in flatten(trainer.params).items()}
+        out[f"{name}_step"] = trainer.step
     return out
 
 
@@ -417,7 +436,7 @@ def _all_ranks(rank, world, refs, tmp):
     out["encdec_session"] = _encdec_session_rank(tmp)
     out["ssm_checkpoint"] = _ssm_checkpoint_rank(get_mesh, tmp,
                                                  refs["ssm_checkpoint"])
-    out["refused"] = _refusals(get_mesh)
+    out["tie_checkpoint"] = _tie_checkpoint_rank(tmp)
     return out
 
 
@@ -597,7 +616,11 @@ def test_collectives_by_label(spawned):
     and ``mlp_in`` gradient sum a layer backward, the gradient sums over
     "data" and ZeRO-1's assembly one a leaf; under sequence parallelism
     the gathers and the reduce-scatters' backward; under FSDP a gather a
-    layer leaf forward and backward and no "data" gradient sum."""
+    layer leaf forward and backward and no "data" gradient sum. An MoE
+    layer: ``moe_counts``, ``moe_out`` and ``moe_in.grad`` once each; with
+    TP inside each expert also ``moe_gate.grad`` (the gates' gradient a
+    partial over each expert's d_ff), and under SP the reduce-scatter's
+    ``moe_out.grad`` in place of ``moe_seq.grad``."""
     ranks, _ = spawned
     layers, n_leaves = 2, 14
     for r in ranks:
@@ -619,18 +642,42 @@ def test_collectives_by_label(spawned):
         assert k["kv_proj.grad"] == 2 * layers          # wk, wv whole
         m = r["cases"]["olmoe 2x2"]["counts"]
         assert m["moe_counts"] == m["moe_out"] == m["moe_in.grad"] == layers
+        assert "moe_gate.grad" not in m
+        # TP inside each expert: one (T, d) sum after the gates forward,
+        # and backward the experts' input and the gates summed
+        t = r["cases"]["olmoe 2x2 tie"]["counts"]
+        assert t["moe_out"] == t["moe_in.grad"] == t["moe_gate.grad"] \
+            == t["moe_counts"] == layers
+        assert "moe_out.grad" not in t
+        s = r["cases"]["olmoe 2x2 tie sp"]["counts"]
+        assert s["moe_seq"] == s["moe_out.grad"] == s["moe_gate.grad"] \
+            == layers and "moe_seq.grad" not in s
 
 
-# ------------------------------------------- Session, launcher, refusals
+# ----------------------------------------- Session, launcher, checkpoints
+
+#: the strategies of the olmoe smoke's checkpoint runs on the ranks: TP
+#: inside each expert writes it, experts over "model" restore it
+TIE_SESSION_ST = Strategy(remat=True, expert_parallel=False, dtype="float32")
+EP_SESSION_ST = Strategy(remat=True, dtype="float32")
+
 
 def test_session_train_tp2_dp2_checkpoint_restores(spawned):
     """``Session.train(tp=2, dp=2)``: two steps with finite losses equal
     on every rank; its checkpoint holds the full tree (written by the
     first rank), which a one-device trainer restores leaf for leaf and
     which equals the ranks' blocks; a (2, 2) trainer with other params
-    restores its blocks of it (AdamW's master rebuilt from them)."""
+    restores its blocks of it (AdamW's master rebuilt from them). The
+    olmoe smoke trained so with TP inside each expert for one step writes
+    the full tree too (every expert whole, each expert's d_ff assembled
+    over "model"): each rank's blocks are its TP-in-expert blocks of the
+    saved leaves, and a (2, 2) trainer with the experts over "model", on
+    other params, restores its expert-parallel blocks of the same
+    leaves."""
     from repro_torch.api import Session
     from repro_torch.checkpoint import latest_step, load_checkpoint
+    from repro_torch.configs import get_smoke
+    from repro_torch.params import init_params
     from repro_torch.train.trainer import TrainConfig
     ranks, tmp = spawned
     hists = [[{k: v for k, v in h.items() if k != "wall"}
@@ -670,6 +717,29 @@ def test_session_train_tp2_dp2_checkpoint_restores(spawned):
         np.testing.assert_allclose(saved[key].numpy(),
                                    p.detach().numpy(), atol=PARAM_TOL,
                                    rtol=PARAM_TOL, err_msg=key)
+    # the olmoe smoke with TP inside each expert: its checkpoint, restored
+    # under expert parallelism
+    moe = get_smoke("olmoe-1b-7b").with_(dtype="float32")
+    d = f"{tmp}/olmoe_tie"
+    assert latest_step(d) == 1
+    saved = flatten(load_checkpoint(d, 1, init_params(moe, device="cpu")))
+    views = {name: tp.leaf_blocks(full_shapes(moe), layout, axes, moe)
+             for name, layout in (("tie", TIE_SESSION_ST),
+                                  ("ep", EP_SESSION_ST))}
+    w_up = "layers/moe/w_up"
+    assert views["tie"][w_up].spec != views["ep"][w_up].spec
+    for i, r in enumerate(ranks):
+        coord = {"data": i // 2, "model": i % 2}
+        got = r["tie_checkpoint"]
+        assert got["tie_step"] == got["ep_step"] == 1
+        for name in ("tie", "ep"):
+            for key, full in saved.items():
+                want = tp.shard_leaf(full, views[name][key].spec, axes,
+                                     coord).numpy()
+                assert np.array_equal(got[name][key], want), (name, key)
+        # every expert at half its d_ff on the TP-in-expert rank
+        assert got["tie"][w_up].shape == (2, 4, 128, 32)
+        assert got["ep"][w_up].shape == (2, 2, 128, 64)
 
 
 def test_train_launcher_dp2_tp2_fsdp_runs_on_ranks(spawned):
@@ -680,22 +750,6 @@ def test_train_launcher_dp2_tp2_fsdp_runs_on_ranks(spawned):
              for h in r["launcher"]["history"]] for r in ranks]
     assert outs[0][-1]["step"] == 2 and np.isfinite(outs[0][-1]["loss"])
     assert all(o == outs[0] for o in outs)
-
-
-def test_tp_in_expert_moe_training_refuses_on_a_mesh(spawned):
-    """TP inside each expert (``Strategy(expert_parallel=False)``) on an
-    MoE over "model" > 1 raises ``NotImplementedError`` naming item 11
-    step 6 on every rank — in the Trainer at (1, 2) and (2, 2), before any
-    parameter is made, and in the train step's ``grads`` under a (2, 2)
-    rank — instead of training on partial expert outputs."""
-    ranks, _ = spawned
-    for r in ranks:
-        refused = r["refused"]
-        for where in ("moe (1, 2) trainer", "moe (2, 2) trainer",
-                      "moe (2, 2) grads"):
-            msg = refused[where]
-            assert "item 11" in msg and "step 6" in msg, where
-            assert "expert_parallel=False" in msg, where
 
 
 # ------------------------------------------- the SSM family, the hybrid
