@@ -4,11 +4,12 @@
     python3 chip_smoke.py [--seed 0]
 
 Phases (any failure exits non-zero; no result line is printed then).
-The phases on gloo rank processes (4's tp 2 and dp 2 x tp 2 runs, 19-33)
-run their single-process part in the order below, up to their ranks;
+The phases on gloo rank processes (4's tp 2 and dp 2 x tp 2 runs, 19-33,
+35) run their single-process part in the order below, up to their ranks;
 their rank work then runs on one set of four rank processes (4's dp 2 x
-tp 2, then 24, 25, 28, 29, 31, 33) and one set of two (4's tp 2, tp 2
-families and CP runs, then 19 with 26, 23, 21 with 32, 22, 27 with 30),
+tp 2, then 24, 25, 28, 29, 31, 33, 35's training) and one set of two
+(4's tp 2, tp 2 families and CP runs, then 19 with 26, 35's serving, 23,
+21 with 32, 22, 27 with 30),
 each phase's in turn on the same processes (``_run_jobs``: a process's
 start costs seconds), and each phase's checks after its set:
 
@@ -705,6 +706,32 @@ start costs seconds), and each phase's checks after its set:
    memory a rank, a step's collectives and bytes by label and the flash
    launches. Not parallelism's speed: four ranks share one card over
    gloo.
+
+34. THE PLANNER'S PLANS, ONE DEVICE (``core/planner.py``, the H100
+    entry): the one-chip plan for phase 5's model over one 256-token
+    chunk, ``Session.from_plan`` on it with phase 5's weights set through
+    the params setter (after phase 20), phase 5's settings and six
+    requests: streams bit-equal to phase 5's, paged attention and the
+    fused MLP once a layer a program; after phase 6, the three searches'
+    one-chip plans for phase 6's model and 1 x 4096 shape (each dp1 tp1
+    pp1 m1) and phase 6's run for two steps from the first (flash as
+    phase 6 launches it; its strategy is phase 6's but for its name, so
+    its losses and grad norms equal phase 6's first two bit for bit).
+    Each plan's summary, estimated step and MFU beside the measured p50,
+    its MFU by the cost model's own FLOPs, and their ratio.
+35. THE PLANNER'S PLANS ON RANKS: the "dp" search's 2-chip plan for
+    phase 19's model over one 256-token chunk (dp1 tp2 sp) on phase 19's
+    two rank processes, ``Session.from_plan(...).serve()`` at its degrees
+    on its own mesh (the engine serves the Megatron layout under
+    ``seq_parallel``): bf16 streams equal to phase 19's mixed run's,
+    launches as phase 19's; the "dp" search's 4-chip plan for phase 24's
+    model and 2 x 2048 shape (dp2 tp2 sp) on phase 24's four rank
+    processes, ``train()`` at its degrees for phase 24's one step: its
+    strategy is phase 24's SP run's but for its name, so each rank's loss
+    and grad norm equal that run's bit for bit, flash launched as there.
+    A plan that is not the one named fails the run. Each estimate beside
+    the measured step: ranks share one card over gloo, so the ratio
+    describes that setup, not the cost model.
 
 Last, every process the run started (nvcc, cuobjdump, the rank
 processes and the ``multiprocessing`` resource tracker their start
@@ -3673,12 +3700,15 @@ def phase_train(seed: int, steps: int = 6, layers: int = 4, *,
 
 
 def _train_run(cfg, seed: int, steps: int, seq_len: int, *,
-               global_batch: int = 1, data=None, strategy=None):
+               global_batch: int = 1, data=None, strategy=None,
+               session=None, profile: bool = True):
     """``steps`` steps of ``global_batch`` x ``seq_len`` tokens through
     ``Session.train`` (``data``: the trainer's data object, default the
     token dataset; ``strategy``: the session's, default the default
-    Strategy): exact launch counts, finite losses, the step p50,
-    tokens/s, peak memory, the model-FLOPs share and the profile."""
+    Strategy; ``session``: a session to train, default a new one from
+    ``seed``): exact launch counts, finite losses, the step p50,
+    tokens/s, peak memory, the model-FLOPs share and (``profile``) the
+    profile."""
     from repro_torch import kernels
     from repro_torch.api import Session
     from repro_torch.configs import get_config
@@ -3687,7 +3717,8 @@ def _train_run(cfg, seed: int, steps: int, seq_len: int, *,
     card_bytes = torch.cuda.get_device_properties(0).total_memory
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    session = Session(cfg, device="cuda", seed=seed, strategy=strategy)
+    if session is None:
+        session = Session(cfg, device="cuda", seed=seed, strategy=strategy)
     trainer = session.train(TrainConfig(steps=steps, lr=3e-4, log_every=1,
                                         seed=seed), data=data,
                             global_batch=global_batch, seq_len=seq_len)
@@ -3774,8 +3805,9 @@ def _train_run(cfg, seed: int, steps: int, seq_len: int, *,
         f"{[round(x, 4) for x in out['losses']]}"
         + (f", aux losses {[round(x, 4) for x in out['aux_losses']]}"
            if cfg.is_moe else "") + f"; launches {counts}")
-    out["profile"] = _train_profile(trainer, p50,
-                                    need_flash=flash_step > 0)
+    if profile:
+        out["profile"] = _train_profile(trainer, p50,
+                                        need_flash=flash_step > 0)
     del trainer, session
     return out
 
@@ -9528,6 +9560,329 @@ def phase_moe_train_sharded(ranks, smi: str):
     return out
 
 
+# ---------------------------------------------------------- phases 34-35
+
+#: the planner's shapes: one 256-token chunk of phase 5's mixed step (its
+#: serving), phase 6's 1 x 4096 and phase 24's 2 x 2048 (training)
+PLAN_SERVE_SHAPE = ("chunk_256", 256, 1, "prefill")
+PLAN_TRAIN_SHAPE = ("train_1x4096", 4096, 1, "train")
+PLAN_SHARDED_SHAPE = ("train_2x2048", SHARDED_SEQ, SHARDED_BATCH, "train")
+PLAN_TRAIN_STEPS = 2
+#: the degrees each plan must come out with on the H100 entry
+PLAN_WANT = {"serve": "dp1 tp1 pp1 m1", "train": "dp1 tp1 pp1 m1",
+             "tp serve": "dp1 tp2 pp1 m1 sp",
+             "sharded": "dp2 tp2 pp1 m1 sp"}
+PLAN_TIMEOUT_S = 300.0
+
+
+def _plan_for(cfg, shape, chips: int, method: str, what: str):
+    """The planner's plan for ``cfg`` at ``shape`` (a ShapeConfig's
+    fields) on ``chips`` H100s by ``method``; it must be
+    ``PLAN_WANT[what]``."""
+    from repro_torch.api import plan
+    from repro_torch.configs.base import ShapeConfig
+    p = plan(cfg, ShapeConfig(*shape), chips, method=method)
+    check(p.summary(compact=True) == PLAN_WANT[what],
+          f"[plan {what}] {cfg.name} at {shape} on {chips} chip(s) by "
+          f"{method!r}: {p.summary()}, not {PLAN_WANT[what]}")
+    return p
+
+
+def _cost_model_mfu(cfg, tokens: int, train: bool, seconds: float,
+                    chips: int) -> float:
+    """The cost model's own MFU of a step measured at ``seconds``: its
+    model FLOPs (6 or 2 x ``active_param_count()`` x tokens,
+    ``core/costmodel.py::estimate``) over ``chips`` x 989 TFLOP/s."""
+    n = (6.0 if train else 2.0) * cfg.active_param_count() * tokens
+    return n / (chips * PEAK_FLOPS["bfloat16"] * seconds)
+
+
+def _plan_line(tag: str, row: dict, summary: str, measured_s: float,
+               measured_mfu: float, note: str = "") -> dict:
+    """The plan's estimate beside the measured step: a record, logged."""
+    out = {"plan": row, "summary": summary, "estimate_s": row["cost"],
+           "estimate_mfu": row["mfu"], "measured_s": measured_s,
+           "measured_mfu_cost_model": measured_mfu,
+           "measured_over_estimate": measured_s / row["cost"]}
+    log(f"[{tag}] {summary}: estimate {row['cost'] * 1e3:.3f} ms at "
+        f"MFU {row['mfu']:.2%}; measured {measured_s * 1e3:.2f} ms at "
+        f"{measured_mfu:.2%} MFU by the cost model's own FLOPs: "
+        f"{out['measured_over_estimate']:.1f}x the estimate{note}")
+    return out
+
+
+def _steps_with_prefill(eng):
+    """Step ``eng`` until idle: each step's seconds and whether it took
+    prefill rows."""
+    step_s, prefill = [], []
+    while eng.busy():
+        s0 = time.perf_counter()
+        chunk0 = eng.stats["prefill_chunk_tokens"]
+        eng.step()
+        step_s.append(time.perf_counter() - s0)
+        prefill.append(eng.stats["prefill_chunk_tokens"] > chunk0)
+    torch.cuda.synchronize()
+    return np.asarray(step_s), np.asarray(prefill)
+
+
+def phase_plan_serve(session, main_run: dict, prompts, seed: int):
+    """Phase 34, serving: the planner's one-chip plan for phase 5's
+    model at ``PLAN_SERVE_SHAPE`` (H100), ``Session.from_plan`` on it
+    with phase 5's weights set through the params setter, phase 5's
+    engine settings and six requests: streams bit-equal to phase 5's,
+    paged attention and the fused MLP once a layer a program; the plan's
+    estimate beside the measured p50 of the steps with prefill rows."""
+    from repro_torch import kernels
+    from repro_torch.api import Session
+    cfg = session.cfg
+    p = _plan_for(cfg, PLAN_SERVE_SHAPE, 1, "exhaustive", "serve")
+    planned = Session.from_plan(cfg, p, device="cuda", seed=seed)
+    planned.params = session.params
+    check(planned.mesh is None and planned.plan is p,
+          "[plan serve] a one-chip plan's session has no mesh")
+    eng = planned.serve(slots=4, max_len=1024, page_size=16,
+                        chunk_tokens=256)
+    for rid, prompt in enumerate(prompts):
+        eng.submit(rid, prompt, max_new=main_run["max_new"])
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    step_s, prefill = _steps_with_prefill(eng)
+    wall = time.perf_counter() - t0
+    counts = kernels.launches()
+    res = eng.results()
+    streams = [list(res[r].out) for r in range(len(prompts))]
+    check(streams == main_run["streams"],
+          "[plan serve] streams differ from phase 5's")
+    want = _want_launches(eng, cfg.num_layers)
+    check(counts == want, f"[plan serve] launches {counts} != {want}")
+    p50 = float(np.percentile(step_s[prefill], 50))
+    tokens = sum(len(x) for x in streams)
+    out = {"launches": counts, "tokens": tokens, "wall_s": wall,
+           "tokens_per_s": tokens / wall,
+           "step_p50_ms": float(np.percentile(step_s, 50)) * 1e3,
+           "streams_equal_phase_5": True}
+    out.update(_plan_line(
+        "plan serve", p.row(), p.summary(), p50,
+        _cost_model_mfu(cfg, 256, False, p50, 1),
+        f" (the p50 of {int(prefill.sum())} steps with prefill rows; "
+        f"{out['tokens_per_s']:.2f} tokens/s; streams = phase 5's)"))
+    out["plan"] = p.row()
+    out["strategy"] = repr(planned.strategy)
+    del eng, planned
+    return out
+
+
+def phase_plan_train(seed: int, phase6: dict):
+    """Phase 34, training: the three searches' one-chip plans for phase
+    6's model and shape (each must be dp1 tp1 pp1 m1), and phase 6's run
+    (``_train_run``, no profile) for ``PLAN_TRAIN_STEPS`` steps through
+    ``Session.from_plan`` on the first: flash launched as phase 6
+    launches it; its strategy agrees with phase 6's but for its name,
+    so its losses and grad norms equal phase 6's first steps bit for
+    bit; the plan's estimate beside the measured p50."""
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    from repro_torch.core.strategy import Strategy
+    cfg = get_config("qwen3-14b").with_(num_layers=phase6["layers"])
+    plans = {m: _plan_for(cfg, PLAN_TRAIN_SHAPE, 1, m, "train")
+             for m in ("exhaustive", "dp", "mcmc")}
+    p = plans["exhaustive"]
+    session = Session.from_plan(cfg, p, device="cuda", seed=seed)
+    same = session.strategy.with_(name="megatron") == Strategy(
+        dtype=cfg.dtype)
+    check(same, f"[plan train] {session.strategy} is not phase 6's "
+                f"strategy but for its name")
+    run = _train_run(cfg, seed, PLAN_TRAIN_STEPS, PLAN_TRAIN_SHAPE[1],
+                     session=session, profile=False)
+    del session
+    for key in ("losses", "grad_norms"):
+        check(run[key] == phase6[key][:PLAN_TRAIN_STEPS],
+              f"[plan train] {key} {run[key]} != phase 6's "
+              f"{phase6[key][:PLAN_TRAIN_STEPS]}")
+    out = {"run": run, "launches": run["launches"],
+           "plans": {m: q.row() for m, q in plans.items()}}
+    out.update(_plan_line(
+        "plan train", p.row(), p.summary(), run["step_p50_s"],
+        _cost_model_mfu(cfg, PLAN_TRAIN_SHAPE[1], True, run["step_p50_s"],
+                        1),
+        f" (the script's own count: {run['model_flops_share_of_989T']:.2%}"
+        f" of 989 TFLOP/s; the searches: "
+        + "; ".join(f"{m} {q.summary(compact=True)}, "
+                    f"{q.evaluations} evaluations"
+                    for m, q in plans.items())
+        + "; losses and grad norms = phase 6's)"))
+    return out
+
+
+def _plan_tp_rank(rank: int, world: int, seed: int, prompts, max_new: int):
+    """One rank of phase 35's serving: the "dp" search's plan for phase
+    19's model at ``PLAN_SERVE_SHAPE`` on ``world`` chips,
+    ``Session.from_plan`` (its rank blocks drawn from ``seed``, as phase
+    19's), ``serve()`` at the plan's degrees with phase 19's settings
+    and prompts: streams, launches, steps."""
+    from repro_torch import kernels
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    torch.cuda.set_device(0)
+    cfg = get_config("qwen3-14b").with_(num_layers=TP_SERVE_LAYERS)
+    p = _plan_for(cfg, PLAN_SERVE_SHAPE, world, "dp", "tp serve")
+    session = Session.from_plan(cfg, p, device="cuda", seed=seed)
+    eng = session.serve(slots=4, max_len=1024, page_size=16,
+                        chunk_tokens=256)
+    for rid, prompt in enumerate(prompts):
+        eng.submit(rid, prompt, max_new=max_new)
+    kernels.reset_launches()
+    eng._rank.counts.clear()
+    t0 = time.perf_counter()
+    step_s, prefill = _steps_with_prefill(eng)
+    wall = time.perf_counter() - t0
+    res = eng.results()
+    out = {"rank": rank, "plan": p.row(), "summary": p.summary(),
+           "strategy": repr(session.strategy), "tp": eng.tp,
+           "own_mesh": eng.mesh is session.mesh, "wall_s": wall,
+           "launches": kernels.launches(),
+           "want_launches": _want_launches(eng, cfg.num_layers),
+           "collectives": dict(eng._rank.counts),
+           "prefill_step_p50_s": float(np.percentile(step_s[prefill], 50)),
+           "step_p50_ms": float(np.percentile(step_s, 50)) * 1e3,
+           "streams": [list(res[r].out) for r in range(len(prompts))]}
+    del eng, session
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_plan_tp_serve(seed: int, max_new: int = 16):
+    """Phase 35, serving: ``_plan_tp_rank`` on phase 19's two rank
+    processes; checked against phase 19 by ``phase_plan_ranks``."""
+    from repro_torch.configs import get_config
+    _, prompts = serving_prompts(seed, get_config("qwen3-14b").vocab_size)
+    prompts = [np.asarray(p, np.int32) for p in prompts]
+    return (yield RankJob(_plan_tp_rank, (seed, prompts, max_new),
+                          PLAN_TIMEOUT_S, "plan tp serve"))
+
+
+def _plan_sharded_rank(rank: int, world: int, seed: int):
+    """One rank of phase 35's training: the "dp" search's plan for phase
+    24's model at ``PLAN_SHARDED_SHAPE`` on ``world`` chips,
+    ``Session.from_plan``, ``train()`` at the plan's degrees on the
+    plan's mesh for phase 24's steps of its token batches (its blocks
+    drawn from ``seed``, as phase 24's): history, launches, collectives,
+    step seconds."""
+    from repro_torch import kernels
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    from repro_torch.core.strategy import mesh_axes
+    from repro_torch.train.trainer import TrainConfig
+    _tp_rank_setup()
+    cfg = get_config("qwen3-14b").with_(num_layers=SHARDED_LAYERS)
+    p = _plan_for(cfg, PLAN_SHARDED_SHAPE, world, "dp", "sharded")
+    torch.cuda.reset_peak_memory_stats()
+    session = Session.from_plan(cfg, p, device="cuda", seed=seed)
+    trainer = session.train(TrainConfig(steps=SHARDED_STEPS, lr=3e-4,
+                                        log_every=1, seed=seed),
+                            global_batch=SHARDED_BATCH, seq_len=SHARDED_SEQ)
+    kernels.reset_launches()
+    trainer.rank.counts.clear()
+    step_s = []
+    for _ in range(SHARDED_STEPS):
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        trainer.run(1)                      # ends in float(loss): a sync
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - s0)
+    out = {"rank": rank, "plan": p.row(), "summary": p.summary(),
+           "strategy": session.strategy, "axes": mesh_axes(session.mesh),
+           "coord": {n: int(session.mesh[n].get_local_rank())
+                     for n in session.mesh.mesh_dim_names},
+           "step_s": step_s, "launches": kernels.launches(),
+           "collectives": dict(trainer.rank.counts),
+           "history": [{k: h[k] for k in ("loss", "aux_loss", "grad_norm")}
+                       for h in trainer.history],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del trainer, session
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_plan_sharded(seed: int):
+    """Phase 35, training: ``_plan_sharded_rank`` on phase 24's four rank
+    processes; checked against phase 24 by ``phase_plan_ranks``."""
+    return (yield RankJob(_plan_sharded_rank, (seed,), PLAN_TIMEOUT_S,
+                          "plan sharded train",
+                          world=math.prod(SHARDED_MESH)))
+
+
+def phase_plan_ranks(tp_ranks, tp: dict, sharded_ranks, sharded: dict,
+                     smi: str):
+    """Phase 35's checks and report. Serving: the plan is dp1 tp2 sp on
+    every rank, the engine tp 2 on the session's own mesh, launches as
+    phase 19's engine launches them, and the bf16 streams equal phase
+    19's mixed run's (same call). Training: the plan is dp2 tp2 sp on a
+    ("data", "model") = (2, 2) mesh; its strategy agrees with phase 24's
+    sequence-parallel run but for its name, so each rank's loss and grad
+    norm equal that run's bit for bit; flash launched as phase 24's;
+    both strategies printed. Each plan's estimate beside its measured
+    step (two or four ranks share one card over gloo: the ratio
+    describes that setup, not the cost model)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.strategy import Strategy
+    out = {"tp_ranks": tp_ranks, "sharded_ranks": sharded_ranks}
+    for r in tp_ranks:
+        check(r["tp"] == 2 and r["own_mesh"],
+              f"[plan tp serve] rank {r['rank']}: tp {r['tp']}, own mesh "
+              f"{r['own_mesh']}")
+        check(r["launches"] == r["want_launches"],
+              f"[plan tp serve] rank {r['rank']} launches {r['launches']} "
+              f"!= {r['want_launches']}")
+        check(r["streams"] == tp["mixed"]["streams"],
+              f"[plan tp serve] rank {r['rank']} streams differ from phase "
+              f"19's mixed run")
+    r0 = tp_ranks[0]
+    cfg = get_config("qwen3-14b").with_(num_layers=TP_SERVE_LAYERS)
+    out["serve"] = _plan_line(
+        "plan tp serve", r0["plan"], r0["summary"], r0["prefill_step_p50_s"],
+        _cost_model_mfu(cfg, 256, False, r0["prefill_step_p50_s"], 2),
+        f" (rank 0's steps with prefill rows; strategy {r0['strategy']}; "
+        f"streams = phase 19's on both ranks; collectives a rank "
+        f"{r0['collectives']} — two ranks share one card over gloo: not "
+        f"the cost model's machine)")
+    phase24 = Strategy(dtype="bfloat16", **SHARDED_RUNS["sp"])
+    by_rank = {r["rank"]: r for r in sharded["ranks"]}
+    for r in sharded_ranks:
+        check(r["axes"] == {"data": 2, "model": 2},
+              f"[plan sharded] rank {r['rank']} mesh {r['axes']}")
+        check(r["strategy"].with_(name=phase24.name) == phase24,
+              f"[plan sharded] {r['strategy']} is not phase 24's SP run's "
+              f"{phase24} but for its name")
+        ref = by_rank[r["rank"]]
+        check(r["coord"] == ref["coord"],
+              f"[plan sharded] rank {r['rank']} at {r['coord']}, phase "
+              f"24's at {ref['coord']}")
+        check(r["history"] == ref["sp"]["history"],
+              f"[plan sharded] rank {r['rank']} {r['history']} != phase "
+              f"24's SP run's {ref['sp']['history']}")
+        check(r["launches"] == ref["sp"]["launches"],
+              f"[plan sharded] rank {r['rank']} launches {r['launches']} "
+              f"!= phase 24's {ref['sp']['launches']}")
+    s0 = sharded_ranks[0]
+    p50 = float(np.percentile(s0["step_s"], 50))
+    cfg = get_config("qwen3-14b").with_(num_layers=SHARDED_LAYERS)
+    out["sharded"] = _plan_line(
+        "plan sharded", s0["plan"], s0["summary"], p50,
+        _cost_model_mfu(cfg, SHARDED_BATCH * SHARDED_SEQ, True, p50, 4),
+        f" (rank 0; its strategy {s0['strategy']}, phase 24's SP run's "
+        f"{phase24}: loss and grad norm equal on every rank, "
+        f"{s0['history']}; peak a rank "
+        f"{[round(r['peak_mem_gb'], 2) for r in sharded_ranks]} GB; four "
+        f"ranks share one card over gloo: the ratio describes that setup, "
+        f"not the cost model; {smi})")
+    for r in sharded_ranks:
+        r["strategy"] = repr(r["strategy"])
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9658,16 +10013,25 @@ def main():
                                   record["prefix"]["B: mixed, prefix cache"],
                                   args.seed)
     mark("20 data-parallel serving")
+    record["plan_serve"] = phase_plan_serve(session, main_run, prompts,
+                                            args.seed)
+    mark("34 serving from a plan")
     del session                           # free the serving weights
     gc.collect()
     torch.cuda.empty_cache()
     pairs["tp"] = _start(phase_tp_serve(args.seed, main_run))
+    pairs["plan_tp"] = _start(phase_plan_tp_serve(args.seed))
     pairs["cp"] = _start(phase_cp_serve(args.seed, smi))
     record["train"] = phase_train(args.seed)
     mark("6 dense training")
     gc.collect()                          # the trainer died with phase 6
     torch.cuda.empty_cache()
+    record["plan_train"] = phase_plan_train(args.seed, record["train"])
+    mark("34 training from a plan")
+    gc.collect()
+    torch.cuda.empty_cache()
     fours["sharded_train"] = _start(phase_train_sharded(args.seed, smi))
+    fours["plan_sharded"] = _start(phase_plan_sharded(args.seed))
     mark("33's one-device f32 step")
     record["ssm"] = phase_ssm(args.seed)
     mark("7 SSM serving")
@@ -9745,6 +10109,10 @@ def main():
         record["ssm_tp"].pop("vlm_one_device_f32"), record["vlm"], smi)
     mark("4 parity at tp 2; 19, 26, 23, 21, 32, 22, 27, 30 tensor- and "
          "context-parallel serving")
+    record["plan_ranks"] = phase_plan_ranks(
+        record.pop("plan_tp"), record["tp"], record.pop("plan_sharded"),
+        record["sharded_train"], smi)
+    mark("35 a plan's serving and training on ranks")
     # each kernel's launches on the paths that run it, each counted from 0
     # just before its run: phase 5 and phases 9-10 (paged attention, the
     # fused MLP; flash in phase 9's model drafter), phase 6 (flash), phase
@@ -9770,7 +10138,10 @@ def main():
     # its remat recompute), phase 30 (each rank: flash and the fused MLP,
     # bf16 and f32), phase 31 (each rank: flash and its remat recompute),
     # phase 32 (each rank: paged attention on the mixed step, bf16 and
-    # f32), phase 33 (each rank, each run: flash and its remat recompute)
+    # f32), phase 33 (each rank, each run: flash and its remat recompute),
+    # phase 34 (paged attention and the fused MLP serving, flash
+    # training), phase 35 (each rank: paged attention and the fused MLP
+    # serving at tp 2, flash training at dp 2 x tp 2)
     paths = [main_run, record["train"], record["ssm"],
              *record["spec"].values(), *record["online"].values(),
              record["hybrid"], *record["train_families"].values(),
@@ -9815,7 +10186,12 @@ def main():
                for dtype in ("bfloat16", "float32")),
              # phase 33: each rank's own launches, in each of its runs
              *(r[name] for r in record["moe_sharded_train"]["ranks"]
-               for name in MOE_SHARDED_RUNS)]
+               for name in MOE_SHARDED_RUNS),
+             # phase 34: serving and training from a plan
+             record["plan_serve"], record["plan_train"],
+             # phase 35: each rank's own launches, serving and training
+             *record["plan_ranks"]["tp_ranks"],
+             *record["plan_ranks"]["sharded_ranks"]]
     for k in kernels:
         k["launches"] = sum(run["launches"][k["name"]] for run in paths)
     record["kernels"] = kernels

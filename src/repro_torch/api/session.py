@@ -24,6 +24,16 @@
 
     tokens = session.generate(prompt_batch, steps=16)   # (B, 16) greedy
 
+    # the planner's choice, executed (core/planner.py; H100 by default)
+    from repro_torch.api import plan
+    from repro_torch.configs import SHAPES
+    p = plan(cfg, SHAPES["train_4k"], chips=1)
+    session = Session.from_plan(cfg, p)          # plan -> (Strategy, mesh)
+    session.train(TrainConfig(steps=6), global_batch=1, seq_len=4096)
+    # in each of 4 rank processes: the plan's dp x tp (x pp) mesh
+    session = Session.from_plan(cfg, plan(cfg, shape, 4, method="dp"))
+    session.train(...); session.serve(slots=4)   # the plan's degrees
+
     # tensor-parallel, in each of 2 rank processes (torchrun)
     engine = Session(get_config("qwen3-14b")).serve(tp=2, slots=4)
     # two data-parallel replicas in one process, here on one card
@@ -61,9 +71,11 @@ stdlib HTTP front-end over that (serve/server.py). ``save`` /
 request), generates from a batch dict with ``frames`` and trains on a
 ``data=`` object whose batches carry frames; the VLM likewise with
 ``images`` (requests) and ``image_embeds`` (batches), on the split path
-over the dense layout only. The features not ported yet raise
-``NotImplementedError`` naming their ROADMAP.md item, as do
-``from_plan``, ``dryrun`` and ``lower`` (the planner, Queue 1 item 12).
+over the dense layout only. ``from_plan`` materialises a planner ``Plan``
+(``core/planner.py``) and keeps it: ``train`` and ``serve`` then default
+to its degrees on its mesh. The features not ported yet raise
+``NotImplementedError`` naming their ROADMAP.md item, as do ``dryrun``
+and ``lower`` (Queue 1 item 12b).
 
     driver = session.serve_async(slots=4, max_len=1024)
     stream = driver.submit(prompt, max_new=16)      # tokens as they come
@@ -80,7 +92,7 @@ import torch
 
 from repro_torch.checkpoint.io import (latest_step, load_checkpoint,
                                        save_checkpoint)
-from repro_torch.core.strategy import Strategy
+from repro_torch.core.strategy import Strategy, mesh_axes, serving
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.params import init_params
 from repro_torch.serve.engine import ServeEngine, _todo
@@ -91,15 +103,18 @@ from repro_torch.tree import tree_map
 
 
 class Session:
-    """One (config, strategy, device, params) quadruple."""
+    """One (config, strategy, device, params) quadruple, and the mesh and
+    plan of :meth:`from_plan`."""
 
     def __init__(self, cfg, *, strategy: Optional[Strategy] = None,
-                 device="cuda", seed: int = 0, params=None):
+                 device="cuda", seed: int = 0, params=None, mesh=None):
         self.cfg = cfg
         self.strategy = strategy if strategy is not None else \
             Strategy(dtype=cfg.dtype)
         self.device = torch.device(device)
         self.seed = seed
+        self.mesh = mesh
+        self.plan = None                    # set by from_plan
         self._params = params
 
     @property
@@ -111,23 +126,49 @@ class Session:
                                        seed=self.seed)
         return self._params
 
+    @params.setter
+    def params(self, value):
+        self._params = value
+
     @classmethod
-    def from_plan(cls, *args, **kwargs):
-        """The reference builds a Session from the planner's ``Plan``;
-        the port has no planner yet."""
-        raise _todo("Session.from_plan (the planner and Plan)",
-                    "Queue 1 item 12")
+    def from_plan(cls, cfg, plan, *, devices=None, seed: int = 0,
+                  device="cuda", **strategy_overrides) -> "Session":
+        """Materialise a planner ``Plan`` (``Plan.materialize``: the
+        plan's degrees over the ranks of the initialised process group,
+        none needed for one device) and build the Session on it — the
+        search-to-execution hand-off. Strategy-field overrides
+        (``dtype="float32"``, ``remat=False``, ...) pass through. The
+        plan, its strategy and its mesh are kept on the session, so a
+        later :meth:`train` or :meth:`serve` without ``tp=`` / ``dp=``
+        runs at ITS degrees on that mesh."""
+        strategy, mesh = plan.materialize(
+            devices=devices, device_type=torch.device(device).type,
+            **strategy_overrides)
+        session = cls(cfg, strategy=strategy, device=device, seed=seed,
+                      mesh=mesh)
+        session.plan = plan
+        return session
 
     def dryrun(self, *args, **kwargs):
         """The reference lowers and compiles a step without params and
         reports memory and roofline; not ported yet."""
         raise _todo("Session.dryrun (launch/roofline and specs)",
-                    "Queue 1 item 12")
+                    "Queue 1 item 12b")
 
     def lower(self, *args, **kwargs):
         """See :meth:`dryrun`."""
         raise _todo("Session.lower (launch/roofline and specs)",
-                    "Queue 1 item 12")
+                    "Queue 1 item 12b")
+
+    def _rank_mesh(self, dp: int, tp: int, pp: int = 1):
+        """The session's own ``DeviceMesh`` where it is the (dp, tp) or
+        (dp, pp, tp) layout asked for (the ``from_plan`` case), else
+        None."""
+        if self.mesh is None or isinstance(self.mesh, (list, tuple)):
+            return None
+        want = {"data": dp, "pipe": pp, "model": tp} if pp > 1 else \
+            {"data": dp, "model": tp}
+        return self.mesh if mesh_axes(self.mesh) == want else None
 
     def restore(self, checkpoint_dir: str) -> Optional[int]:
         """Load the latest checkpoint under ``checkpoint_dir`` into the
@@ -166,12 +207,33 @@ class Session:
         session's device type (``train/trainer.py``): the session's
         params cut to the rank's blocks, or, when the session has none
         yet, only the rank's blocks drawn from its seed (kept by the
-        trainer: the session's ``params`` stay the full tree, or none)."""
+        trainer: the session's ``params`` stay the full tree, or none).
+
+        Without ``tp=`` / ``dp=`` a session built by :meth:`from_plan`
+        trains at its plan's degrees on its mesh: a ("data", "model")
+        mesh as above, or the ("data", "pipe", "model") mesh of a plan
+        with pp > 1, where each "pipe" slice holds whole replicas and
+        takes the same step (the reference's Trainer never runs
+        ``core/pipeline.py`` either). A plan of dp > 1 materialised on a
+        device list (one process) has no ranks to train on: ValueError."""
         tc = train_cfg or TrainConfig(seed=self.seed)
+        mesh = None
+        if tp is None and dp is None and self.plan is not None and \
+                self.mesh is not None:
+            d = self.plan.degrees
+            mesh = self._rank_mesh(d.dp, d.tp, d.pp)
+            if mesh is None:
+                raise ValueError(
+                    f"plan[{self.plan.method}] "
+                    f"{self.plan.summary(compact=True)} was materialised "
+                    "on a device list, which serves dp replicas in one "
+                    "process; training it needs a process group of "
+                    f"{d.dp * d.tp * d.pp} ranks (torchrun)")
         tp, dp = tp or 1, dp or 1
-        if tp * dp > 1:
+        if mesh is None and tp * dp > 1:
             mesh = make_mesh((dp, tp), ("data", "model"),
                              device_type=self.device.type)
+        if mesh is not None:
             trainer = Trainer(self.cfg, self.strategy, self.device, tc,
                               data=data, global_batch=global_batch,
                               seq_len=seq_len, params=self._params,
@@ -237,25 +299,45 @@ class Session:
         session's type; a list may repeat a device, and the replicas on
         it share the session's weights); at tp N on every rank of a
         process group of M x N ranks, over a (M, N) mesh, each process
-        serving its row's replica. ``plan=`` raises naming ROADMAP.md
-        Queue 1 item 12."""
-        if plan is not None:
-            raise _todo("Session.serve(plan=) (the planner's Plan)",
-                        "Queue 1 item 12")
+        serving its row's replica.
+
+        Defaults come from ``plan`` (an explicit Plan, else the session's
+        own from :meth:`from_plan`; reference ``session.py:240-249``):
+        its tp and dp; explicit ``tp=`` / ``dp=`` override them, and a
+        plan with pp > 1 raises ``ValueError`` unless both are given
+        (decode is one token deep). At the plan's degrees the engine
+        takes the session's own mesh, and a plan of dp > 1 at tp 1
+        materialised on a device list its devices. Under the strategy's
+        ``seq_parallel`` / ``fsdp`` the engine serves the Megatron layout
+        (``core/strategy.py::serving``), as the reference's does."""
+        p = plan if plan is not None else self.plan
+        if tp is None or dp is None:
+            if p is not None and p.degrees.pp > 1:
+                raise ValueError(
+                    f"plan[{p.method}] has pp={p.degrees.pp}: pipeline "
+                    "parallelism has no serving path (decode is one "
+                    "token deep) — re-plan with pp=1 or pass explicit "
+                    "tp=/dp= to serve()")
+            tp = (p.degrees.tp if p is not None else 1) if tp is None else tp
+            dp = (p.degrees.dp if p is not None else 1) if dp is None else dp
         if attn_backend is not None:
             raise ValueError(
                 "repro_torch picks the attention path by device (CUDA: "
                 "the hand-written kernel, CPU: its plain version); drop "
                 f"attn_backend={attn_backend!r}")
-        tp, dp = tp or 1, dp or 1
         mesh = None
         if tp > 1:
-            mesh = make_mesh((dp, tp), ("data", "model"),
-                             device_type=self.device.type)
+            mesh = self._rank_mesh(dp, tp)
+            if mesh is None:
+                mesh = make_mesh((dp, tp), ("data", "model"),
+                                 device_type=self.device.type)
+        elif dp > 1 and devices is None and \
+                isinstance(self.mesh, (list, tuple)) and len(self.mesh) == dp:
+            devices = [m.devices[0] for m in self.mesh]
         if mesh is not None and self._params is None:
             params = init_params(self.cfg, device=self.device,
                                  seed=self.seed,
-                                 shard=(self.strategy, mesh))
+                                 shard=(serving(self.strategy), mesh))
         else:
             # serving needs no gradient: detached views of (trained) params
             params = tree_map(torch.Tensor.detach, self.params)

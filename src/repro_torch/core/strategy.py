@@ -24,16 +24,16 @@ gradient sums over "data", ``zero1`` (optimizer state over "data"),
 Megatron TP and an MoE's experts (or each expert's d_ff) over "model",
 and ``seq_parallel`` (the residual stream sequence-sharded over
 "model"). On one device ``zero1``, ``fsdp`` and ``seq_parallel`` are
-accepted and change nothing. An engine on a mesh takes neither
-``seq_parallel`` nor ``fsdp`` (``refuse_unported``).
+accepted and change nothing. An engine on a mesh takes both and serves
+the Megatron layout under them (``serving``), as the reference's engine
+does: no model code of the reference constrains the "seq" axis, and its
+engines run on a replica mesh whose "data" axis has size 1.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Dict, Mapping
-
-ITEM_11 = "the parallelism slice, ROADMAP.md Queue 1 item 11"
 
 
 def mesh_axes(mesh) -> Dict[str, int]:
@@ -93,13 +93,17 @@ class Strategy:
         return dataclasses.replace(self, **kw)
 
 
-def refuse_unported(strategy: Strategy, where: str):
-    """Raise ``NotImplementedError`` naming item 11 when ``strategy`` asks
-    ``where`` (a serving engine on a mesh) for sequence parallelism or
-    FSDP, which only the trainer runs."""
-    on = [k for k in ("seq_parallel", "fsdp") if getattr(strategy, k)]
-    if on:
-        raise NotImplementedError(
-            f"{where} with {' and '.join(on)}: sequence-sharded activations "
-            f"and parameters sharded over 'data' train (Trainer(mesh=)); "
-            f"an engine runs neither, {ITEM_11}")
+MEGATRON_BASELINE = Strategy(name="megatron", seq_parallel=False)
+MEGATRON_SP = Strategy(name="megatron+sp", seq_parallel=True)
+
+
+def serving(strategy: Strategy) -> Strategy:
+    """The layout an engine on a mesh serves under ``strategy``: the
+    same with ``seq_parallel`` and ``fsdp`` off. The reference's engine
+    takes both and serves the Megatron layout: no ``constrain`` of its
+    models names the "seq" axis, and every engine runs on a ``(1, tp)``
+    replica mesh (``repro/api/session.py:258-274``), where FSDP's "data"
+    has size 1. The port's engine on a (dp, tp) router's mesh shards
+    over "model" only: an FSDP block over "data" would cut a leaf across
+    replicas that step on their own."""
+    return strategy.with_(seq_parallel=False, fsdp=False)

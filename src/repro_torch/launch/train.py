@@ -42,6 +42,10 @@
         --layers 5 --optimizer adafactor --fsdp --seq-parallel --steps 3 \
         --global-batch 2 --seq 1024
 
+    # the planner's production-mesh strategy (H100, 256 chips, the
+    # "dp" search over train_4k), printed; nothing runs
+    PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-4b --plan
+
     # on the CPU, the reduced configs in float32
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
@@ -86,7 +90,10 @@ process a rank (``Session.train(tp=, dp=)``): ZeRO-1 over "data" by
 default, ``--fsdp`` (parameters over "data") and ``--seq-parallel``
 (the reference's own flags); the process group's backend is
 ``--backend`` (default nccl on cuda, gloo on cpu; ranks sharing one
-card need gloo). Rank 0 prints.
+card need gloo). Rank 0 prints. ``--plan`` prints the planner's choice
+for the arch's full config at ``SHAPES["train_4k"]`` on 256 H100s (the
+"dp" search, ``core/planner.py``) and exits, as the reference's flag
+does.
 """
 from __future__ import annotations
 
@@ -96,8 +103,8 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.api import Session
-from repro_torch.configs import ARCH_NAMES, get_config, get_smoke
+from repro_torch.api import Session, plan
+from repro_torch.configs import ARCH_NAMES, SHAPES, get_config, get_smoke
 from repro_torch.core.strategy import Strategy
 from repro_torch.data.pipeline import DataConfig, TokenDataset
 from repro_torch.train.trainer import TrainConfig
@@ -166,7 +173,16 @@ def main(argv=None):
                     help="Korthikanti sequence parallelism over 'model'")
     ap.add_argument("--fsdp", action="store_true",
                     help="ZeRO-3: parameters sharded over 'data'")
+    ap.add_argument("--plan", action="store_true",
+                    help="print the planner's production-mesh strategy and "
+                         "exit")
     args = ap.parse_args(argv)
+    if args.plan:
+        p = plan(get_config(args.arch), SHAPES["train_4k"], 256,
+                 method="dp")
+        line = f"{args.arch}: {p.summary()}"
+        print(line)
+        return line
     sharded = args.tp * args.dp > 1
     if sharded:
         from repro_torch.launch.serve import _join_ranks

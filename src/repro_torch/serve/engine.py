@@ -189,7 +189,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import tp
-from repro_torch.core.strategy import Strategy, mesh_axes, refuse_unported
+from repro_torch.core.strategy import Strategy, mesh_axes, serving
 from repro_torch.kernels import (flash_attention, fused_mlp,
                                  paged_attention, ssd_scan)
 from repro_torch.models import get_model, kvcache, transformer
@@ -433,15 +433,16 @@ class ServeEngine:
     def _shard(cfg, params, mesh, strategy):
         """The rank's view of ``mesh`` and its shards of ``params`` (full
         leaves are sliced; leaves already of the rank's block shape are
-        kept). Refuses what tensor-parallel serving does not run yet."""
+        kept), by the Megatron layout whatever the strategy's
+        ``seq_parallel`` / ``fsdp`` (``core/strategy.py::serving``).
+        Refuses a third mesh axis, which serving does not run yet."""
         axes = mesh_axes(mesh)
         if set(axes) - {"data", "model"}:
             raise _todo(f"serving on a {axes} mesh (only 'data' and "
                         "'model' axes)", "Queue 1 item 11")
-        refuse_unported(strategy, "serving on a mesh")
         rank = tp.Rank.of(mesh, cfg)
-        return rank, tp.shard_params(params, full_shapes(cfg), strategy,
-                                     mesh, cfg)
+        return rank, tp.shard_params(params, full_shapes(cfg),
+                                     serving(strategy), mesh, cfg)
 
     def _check_kernel_limits(self):
         """On a CUDA device, refuse at construction what a kernel of this

@@ -650,11 +650,61 @@ def test_restore_survives_an_optimizer_step(tmp_path):
 
 
 @pytest.mark.parametrize("method", ["from_plan", "dryrun", "lower"])
-def test_planner_entry_points_raise_naming_item_12(method):
-    session = Session(CFG, device="cpu")
-    call = getattr(Session if method == "from_plan" else session, method)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        call(None)
+def test_planner_entry_points_raise_naming_item_12(weights, method):
+    """``dryrun`` and ``lower`` raise naming Queue 1 item 12b.
+    ``from_plan`` is ported: tests/test_api_session.py's one-device plan
+    (searched on H100, the reference's on H100's fields: the same
+    degrees), materialised with no process group, against JAX's
+    ``Session.from_plan(..., devices=1)`` on the same weights (the
+    params setter on both): ``generate`` and ``serve()`` give JAX's
+    tokens, then two training steps JAX's losses within 1e-4 and params
+    within 5e-4 (the reference test's bounds), the session's params the
+    trained ones."""
+    if method != "from_plan":
+        with pytest.raises(NotImplementedError, match="item 12b"):
+            getattr(Session(CFG, device="cpu"), method)(None)
+        return
+    import dataclasses
+    from repro.api import Session as JaxSession
+    from repro.api import plan as jax_plan
+    from repro.configs.base import ShapeConfig as JaxShape
+    from repro.core.costmodel import Hardware as JaxHardware
+    from repro.train.trainer import TrainConfig as JaxTrainConfig
+    from repro_torch.api import H100, plan
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.tree import flatten
+    jcfg, jp, _ = weights
+    p = plan(CFG, ShapeConfig("host", 64, 8, "train"), 1)
+    jplan = jax_plan(jcfg, JaxShape("host", 64, 8, "train"), 1,
+                     hw=JaxHardware(**dataclasses.asdict(H100)))
+    assert p.row() == jplan.row()
+    knobs = dict(remat=False, microbatches=1, dtype="float32")
+    session = Session.from_plan(CFG, p, device="cpu", **knobs)
+    jsession = JaxSession.from_plan(jcfg, jplan, devices=1, **knobs)
+    assert session.plan is p and session.mesh is None
+    assert session.strategy == session.strategy.with_(
+        name="plan/exhaustive", **knobs)
+    # copies: the port trains its tree in place, JAX's step donates
+    session.params = from_numpy(_flatten(jp), CFG, "cpu")
+    jsession.params = jax.tree.map(lambda x: x.copy(), jp)
+    prompt = np.asarray(_prompts(9, (8,))[0])[None].repeat(2, 0)
+    assert np.array_equal(session.generate(prompt, steps=4).numpy(),
+                          np.asarray(jsession.generate(prompt, steps=4)))
+    prompts = _prompts(3, (5, 7, 6))
+    got = _batch(session.serve(slots=2, max_len=64), prompts, 5)
+    assert got == _batch(jsession.serve(slots=2, max_len=64), prompts, 5)
+    hist = []
+    for sess, tc in ((session, TrainConfig), (jsession, JaxTrainConfig)):
+        trainer = sess.train(tc(steps=2, lr=1e-3, log_every=1, seed=3),
+                             global_batch=4, seq_len=16)
+        trainer.run()
+        hist.append([h["loss"] for h in trainer.history])
+    np.testing.assert_allclose(hist[0], hist[1], atol=1e-4, rtol=0)
+    want = _flatten(jsession.params)
+    for key, leaf in flatten(session.params).items():
+        np.testing.assert_allclose(leaf.detach().numpy(),
+                                   np.asarray(want[key]), atol=5e-4,
+                                   rtol=5e-4, err_msg=key)
 
 
 def test_callers_are_let_in_while_the_loop_stays_busy(weights):

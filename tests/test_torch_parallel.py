@@ -33,7 +33,10 @@ inside each expert (tests/test_torch_tp.py's ``MOE_KW`` with
 engine's streams of its ``moe_mixed`` run), and the lockstep SSM and hybrid
 decode of tests/test_torch_tp.py's ``ssm_model_rank`` runs on (1, 4):
 the reference's ``test_decode_sharded_equals_reference`` logits within
-5e-4, the states of the rank's one head.
+5e-4, the states of the rank's one head. A planner Plan of dp 2 x tp 2
+with ``fsdp`` and ``seq_parallel`` serves there through
+``Session.from_plan(...).serve()``: the router over the plan's mesh,
+the streams, routing and collectives of the router without the flags.
 """
 import numpy as np
 import pytest
@@ -378,6 +381,25 @@ def _topology_rank(rank, world, flat, prompts, spec_prompts, cp_flat,
     session = Session(cfg, device="cpu", seed=3)
     router = session.serve(dp=2, tp=2, slots=2, max_len=64)
     out["session"] = _run(router, prompts, 6)[1]
+    # a dp 2 x tp 2 Plan with fsdp and seq_parallel: from_plan().serve()
+    # routes over the plan's own mesh and serves the Megatron layout
+    from repro_torch.api import Degrees, Plan
+    from repro_torch.configs.base import ShapeConfig
+    p = Plan.from_degrees(cfg, ShapeConfig("host", 64, 8, "train"),
+                          Degrees(dp=2, tp=2, fsdp=True, seq_parallel=True))
+    session = Session.from_plan(cfg, p, device="cpu", dtype="float32")
+    session.params = params
+    router = session.serve(**ENG)
+    homes, streams, res = _run(router, prompts, 6)
+    traces = [r["decode_traces"] for r in router.stats["replicas"]]
+    out["fsdp_plan"] = {
+        "streams": streams, "homes": homes, "traces": traces,
+        "done": all(r.done for r in res.values()),
+        "same_mesh": router.mesh is session.mesh,
+        "fsdp": session.strategy.fsdp and session.strategy.seq_parallel,
+        "w_up": tuple(router.engines[0].params["layers"]["mlp"]["w_up"]
+                      .shape),
+        "counts": dict(router.engines[0]._rank.counts)}
     out["launch"] = {r: v.out for r, v in main(
         ["--device", "cpu", "--dp", "2", "--tp", "2", "--requests", "4",
          "--max-new", "4"]).items()}
@@ -460,6 +482,23 @@ def test_dp2_tp2_full_topology_matches(topology):
         assert run["root"] == rows[run["row"]][0]
         assert run["counts"]["router_table"] == len(prompts)
         assert run["counts"]["router_layout"] == 1
+
+
+def test_dp2_tp2_fsdp_plan_router_serves_the_plain_streams(topology):
+    """``Session.from_plan`` of a dp 2 x tp 2 plan with ``fsdp`` and
+    ``seq_parallel``: ``serve()`` is the router over the plan's own
+    (2, 2) mesh, each engine holding its "model" blocks only (no leaf cut
+    over "data": the rows step on their own), and it gives the streams,
+    the routing and the collectives of the router without the flags."""
+    _, _, ranks = topology
+    for r in ranks:
+        got, plain = r["fsdp_plan"], r["plain"]
+        assert got["fsdp"] and got["same_mesh"] and got["done"]
+        assert got["streams"] == plain["streams"]
+        assert got["homes"] == plain["homes"]
+        assert got["traces"] == plain["traces"]
+        assert got["counts"] == plain["counts"]
+        assert got["w_up"] == (2, 128, 128)
 
 
 def test_dp2_tp2_spec_session_and_launcher_match(topology):

@@ -464,14 +464,19 @@ def test_submit_validation_and_backpressure(weights):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"planner": ("from_plan", "dryrun", "lower")}, "item 12"),
+    ({"planner": ("dryrun", "lower")}, "item 12"),
     ({"mesh": {"pod": 1, "data": 1, "model": 1}}, "item 11")])
 def test_unported_engine_features_raise(weights, kw, item):
     """What is still missing raises naming its ROADMAP.md item: a mesh
     with an axis beside "data" and "model" (tensor-parallel serving of
     every family on a ("data", "model") mesh is ported:
-    tests/test_torch_tp.py), and the Session entry points that need the
-    planner (speculative decode, the earlier case here, is ported)."""
+    tests/test_torch_tp.py), and the Session entry points that need
+    ``launch/{roofline,specs}`` (``dryrun``, ``lower``). ``from_plan``,
+    the planner's entry point, is ported: a one-chip plan's session
+    serves the engine's streams (speculative decode, the earlier case
+    here, is ported too)."""
+    from repro_torch.api import plan
+    from repro_torch.configs.base import ShapeConfig
     _, _, params = weights
     cfg = CFG
     if "cfg" in kw:
@@ -479,12 +484,25 @@ def test_unported_engine_features_raise(weights, kw, item):
         params = init_params(cfg, device="cpu", seed=0)
     calls = [lambda: ServeEngine(cfg, params, **kw)]
     if "planner" in kw:
-        session = Session(CFG, device="cpu", params=params)
+        session = Session.from_plan(
+            CFG, plan(CFG, ShapeConfig("host", 64, 8, "train"), 1),
+            device="cpu")
+        session.params = params
+        eng = session.serve(slots=2, max_len=64, chunk_tokens=16)
+        assert isinstance(eng, ServeEngine) and session.mesh is None
+        got = _serve_session(eng, _prompts(0, (5, 23)), 3)
+        assert got == _serve(params, _prompts(0, (5, 23)), 3)[0]
         calls = [lambda m=m: getattr(session, m)("decode_4k")
                  for m in kw["planner"]]
     for call in calls:
         with pytest.raises(NotImplementedError, match=re.escape(item)):
             call()
+
+
+def _serve_session(eng, prompts, new):
+    for i, p in enumerate(prompts):
+        eng.submit(i, p, max_new=new)
+    return {i: list(r.out) for i, r in eng.run().items()}
 
 
 def test_unported_requests_and_families_raise(weights):
@@ -534,14 +552,26 @@ def test_session_serves_on_cpu_and_keeps_reference_keywords(weights):
     assert got == ref
     # tp= needs a process group of that many ranks (tests/test_torch_tp.py
     # serves under one); dp= needs as many devices as replicas (the one CPU
-    # device repeated serves, tests/test_torch_parallel.py); plan= still
-    # raises naming its item
+    # device repeated serves, tests/test_torch_parallel.py); plan= gives
+    # the defaults: a one-chip plan serves the same streams, a tp 2 plan
+    # needs the ranks, a pp 2 plan raises unless tp= and dp= are given
+    from repro_torch.api import Degrees, Plan
+    from repro_torch.configs.base import ShapeConfig
     with pytest.raises(ValueError, match="no process group"):
         session.serve(tp=2)
     with pytest.raises(ValueError, match="devices needed"):
         session.serve(dp=2)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        session.serve(plan=object())
+    shape = ShapeConfig("host", 64, 8, "train")
+    one = Plan.from_degrees(CFG, shape, Degrees())
+    eng = session.serve(plan=one, slots=2, max_len=64, chunk_tokens=16,
+                        seed=3)
+    assert _serve_session(eng, _prompts(0, (5, 23)), 3) == ref
+    with pytest.raises(ValueError, match="no process group"):
+        session.serve(plan=Plan.from_degrees(CFG, shape, Degrees(tp=2)))
+    pipe = Plan.from_degrees(CFG, shape, Degrees(pp=2))
+    with pytest.raises(ValueError, match="pp=2"):
+        session.serve(plan=pipe)
+    assert isinstance(session.serve(plan=pipe, tp=1, dp=1), ServeEngine)
     with pytest.raises(ValueError, match="attn_backend"):
         session.serve(attn_backend="gather")
     fresh = Session(CFG, device="cpu", seed=7)
@@ -666,7 +696,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch/core/sharding.py", "repro_torch/core/tp.py",
             "repro_torch/launch/mesh.py",
             "repro_torch/launch/ranks.py",
-            "repro_torch/serve/parallel.py"} <= names
+            "repro_torch/serve/parallel.py",
+            "repro_torch/core/opgraph.py", "repro_torch/core/costmodel.py",
+            "repro_torch/core/planner.py"} <= names
     for path in files:
         for mod in _imports(path):
             root = mod.split(".")[0]
@@ -688,7 +720,8 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.serve.server, repro_torch.serve.metrics, "
             "repro_torch.core.sharding, repro_torch.core.tp, "
             "repro_torch.launch.mesh, repro_torch.launch.ranks, "
-            "repro_torch.serve.parallel; "
+            "repro_torch.serve.parallel, repro_torch.core.opgraph, "
+            "repro_torch.core.costmodel, repro_torch.core.planner; "
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,

@@ -52,7 +52,13 @@ sums a self and a cross layer; with one KV head its self rows and image
 K/V hold each rank's sequence slice, decoded context-parallel; its
 lockstep ``cp_decode`` against JAX's CP ``decode_step`` under a (1, 2)
 mesh; and ``Session.serve(tp=2)`` of the VLM smoke with images against
-``serve()``. Each JAX run is made once and shared.
+``serve()``. A planner Plan runs on the same spawn: ``Plan.materialize``'s
+checks and layouts on two ranks, and ``Session.from_plan`` of the "dp"
+search's 2-chip plan (dp 1 x tp 2 with ``seq_parallel``: the reference's
+plan on H100's fields) whose ``serve()`` gives the streams of JAX's
+``Session.from_plan(..., devices=2).serve()``, mixed and split; an
+engine under ``fsdp`` and ``seq_parallel`` serves the Megatron layout,
+the streams of one without them. Each JAX run is made once and shared.
 
 This module imports JAX and the reference only inside functions: the
 ranks import it by name to find their entry points.
@@ -1026,11 +1032,19 @@ def _session_rank(rank, world):
         ServeEngine(odd, init_params(odd, device="cpu", seed=0), mesh=mesh)
     except ValueError as e:
         refused["ssm_heads"] = str(e)
-    try:
-        ServeEngine(cfg, init_params(cfg, device="cpu", seed=0), mesh=mesh,
-                    strategy=Strategy(fsdp=True))
-    except NotImplementedError as e:
-        refused["fsdp"] = str(e)
+    # fsdp and seq_parallel: the Megatron layout, the same streams
+    flags = {}
+    for st in (Strategy(dtype="float32"),
+               Strategy(dtype="float32", fsdp=True, seq_parallel=True)):
+        eng = ServeEngine(cfg, init_params(cfg, device="cpu", seed=0),
+                          mesh=mesh, strategy=st, slots=2, max_len=64)
+        for i, p in enumerate(prompts):
+            eng.submit(i, p, max_new=4)
+        res = eng.run()
+        flags[st.fsdp] = ({i: list(res[i].out) for i in res},
+                          tuple(eng.params["layers"]["mlp"]["w_up"].shape),
+                          dict(eng._rank.counts))
+    out["flags"] = flags
     # d_ff 264 takes the MLP kernel whole (a multiple of 8), not its rank
     # block of 132: refused at construction on a CUDA device (no card
     # needed to refuse)
@@ -1256,6 +1270,86 @@ def _online_rank(rank, world, flat):
     return out
 
 
+#: the "dp" search's 2-chip plan for ``KW`` (dp 1 x tp 2, seq_parallel):
+#: a prefill of 256 tokens, as phase 19 of chip_smoke.py serves
+PLAN_SHAPE = ("prefill_256", 256, 1, "prefill")
+PLAN_PROMPTS = _prompts(3, (5, 7, 6))
+PLAN_ENG = dict(slots=2, max_len=64)
+
+
+def _jax_plan_serve(mixed):
+    """JAX's ``Session.from_plan(..., devices=2).serve(mixed=)`` of the
+    "dp" search's 2-chip plan (on H100's fields) on ``KW``'s weights:
+    (the plan's row, the streams); made once."""
+    key = ("plan", mixed)
+    if key not in _JAX:
+        import dataclasses
+        from repro.api import Session as JaxSession
+        from repro.api import plan as jax_plan
+        from repro.configs.base import ShapeConfig as JaxShape
+        from repro.core.costmodel import Hardware as JaxHardware
+        from repro_torch.core.costmodel import H100
+        jcfg, jparams, _ = _jax_params(KW)
+        p = jax_plan(jcfg, JaxShape(*PLAN_SHAPE), 2, method="dp",
+                     hw=JaxHardware(**dataclasses.asdict(H100)))
+        session = JaxSession.from_plan(jcfg, p, devices=2, dtype="float32")
+        session.params = jparams
+        eng = session.serve(mixed=mixed, **PLAN_ENG)
+        for i, pr in enumerate(PLAN_PROMPTS):
+            eng.submit(i, pr, max_new=6)
+        res = eng.run()
+        _JAX[key] = (p.row(), {i: list(res[i].out) for i in res})
+    return _JAX[key]
+
+
+def _plan_rank(rank, world, flat):
+    """``Plan.materialize`` on the two ranks (its refusals, the
+    single-axis and pipe layouts, the strategy and its overrides) and
+    ``Session.from_plan`` of the "dp" search's plan for ``KW``, serving
+    mixed and split on JAX's weights (the params setter)."""
+    from repro_torch.api import Degrees, Plan, Session, plan
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.strategy import mesh_axes
+    cfg, shape = ModelConfig(**KW), ShapeConfig(*PLAN_SHAPE)
+    out, refused = {}, {}
+
+    def manual(**kw):
+        return Plan(degrees=Degrees(**kw), cost=0.0, mfu=0.0, fits=True,
+                    evaluations=1, method="manual")
+
+    for name, p, devices in (("tile", manual(dp=3), None),
+                             ("tile 1", manual(dp=2), 1),
+                             ("available", manual(dp=2), 2 * world),
+                             ("ep", manual(tp=2, ep=3), None)):
+        try:
+            p.materialize(devices=devices, device_type="cpu")
+        except ValueError as e:
+            refused[name] = str(e)
+    out["refused"] = refused
+    layouts = {}
+    for name, deg in (("model", Degrees(tp=2, microbatches=2,
+                                        seq_parallel=True, remat=False)),
+                      ("pipe", Degrees(pp=2, microbatches=4)),
+                      ("data", Degrees(dp=2, fsdp=True, zero1=False))):
+        st, mesh = Plan.from_degrees(cfg, ShapeConfig("host", 64, 8, "train"),
+                                     deg).materialize(device_type="cpu",
+                                                      dtype="float32")
+        layouts[name] = (mesh_axes(mesh), tp.coordinate(mesh), st)
+    out["layouts"] = layouts
+    p = plan(cfg, shape, world, method="dp")
+    session = Session.from_plan(cfg, p, device="cpu", dtype="float32")
+    session.params = from_numpy(flat, cfg, "cpu")
+    out["row"], out["strategy"] = p.row(), session.strategy
+    for mixed in (True, False):
+        eng = session.serve(mixed=mixed, **PLAN_ENG)
+        for i, pr in enumerate(PLAN_PROMPTS):
+            eng.submit(i, pr, max_new=6)
+        res = eng.run()
+        out[mixed] = ({i: list(res[i].out) for i in res}, eng.tp,
+                      eng.mixed, session.mesh is eng.mesh)
+    return out
+
+
 # --------------------------------------------------------- the spawns
 
 def _all_ranks(rank, world, flats, runs, family_runs, toks):
@@ -1269,7 +1363,8 @@ def _all_ranks(rank, world, flats, runs, family_runs, toks):
                    for p in (CP_PROMPT, CP_SHORT)},
             "cp_extra": _cp_extra_rank(world, flats["cp"]),
             "vlm_cp": vlm_cp_rank(world, flats[VLM_KW["name"]]),
-            "online": _online_rank(rank, world, flats[ONLINE_KW["name"]])}
+            "online": _online_rank(rank, world, flats[ONLINE_KW["name"]]),
+            "plan": _plan_rank(rank, world, flats[KW["name"]])}
 
 
 @pytest.fixture(scope="module")
@@ -1480,21 +1575,26 @@ def test_tp2_forward_has_two_all_reduces_a_layer(model_runs):
 def test_tp_refusals(model_runs):
     """A mesh larger than the process group raises ValueError with the
     count; MoE, audio, SSM and VLM engines build on a mesh, while a mesh
-    with a third axis and FSDP on a mesh raise naming item 11; on a CUDA
-    device a
+    with a third axis raises naming item 11; an engine under FSDP and
+    sequence parallelism serves the Megatron layout (the streams, blocks
+    and collectives of one without them); on a CUDA device a
     kernel that refuses a rank's shape refuses at construction; ranks
     that packed different programs raise on every rank (no hang);
     ``serve(dp=2)`` on the one CPU device raises the reference's "devices
-    needed" and ``serve(plan=)`` keeps its item. An SSM engine builds on
-    the mesh; one whose SSD heads do not split over the ranks raises
-    ValueError naming the config."""
+    needed", and ``serve(plan=)`` takes the plan's degrees: tp 2 needs
+    the ranks, pp 2 raises the reference's ValueError. An SSM engine
+    builds on the mesh; one whose SSD heads do not split over the ranks
+    raises ValueError naming the config."""
     from repro_torch.api import Session
     _, _, session = model_runs
     refused = session[0]["refused"]
     assert "needs 4 ranks" in refused["mesh"] and "has 2" in refused["mesh"]
-    for key in ("pod", "fsdp"):
-        assert "item 11" in refused[key], key
-    assert "'pod'" in refused["pod"]
+    assert "item 11" in refused["pod"] and "'pod'" in refused["pod"]
+    # fsdp and seq_parallel serve the Megatron layout: the streams, the
+    # blocks and the collectives of the engine without them
+    for r in session:
+        plain, flagged = r["flags"][False], r["flags"][True]
+        assert flagged == plain and plain[1] == (2, 128, 128)
     assert not {"moe", "audio", "ssm", "vlm"} & set(refused)
     assert session[0]["built"] == {"moe": 2, "audio": 2, "ssm": 2,
                                    "vlm": 2}
@@ -1508,10 +1608,16 @@ def test_tp_refusals(model_runs):
     s = Session(ModelConfig(**KW), device="cpu", seed=0)
     with pytest.raises(ValueError, match="devices needed"):
         s.serve(dp=2)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        s.serve(plan=object())
     with pytest.raises(ValueError, match="no process group"):
         s.serve(tp=2)
+    # a plan's tp 2 needs the ranks; its pp 2 raises unless tp= and dp=
+    from repro_torch.api import Degrees, Plan
+    from repro_torch.configs.base import ShapeConfig
+    shape = ShapeConfig(*PLAN_SHAPE)
+    with pytest.raises(ValueError, match="no process group"):
+        s.serve(plan=Plan.from_degrees(s.cfg, shape, Degrees(tp=2)))
+    with pytest.raises(ValueError, match="pp=2"):
+        s.serve(plan=Plan.from_degrees(s.cfg, shape, Degrees(pp=2)))
 
 
 # ------------------------------------------- expert-parallel MoE, enc-dec
@@ -2023,3 +2129,52 @@ def test_online_tp2_divergence_raises_on_every_rank(online):
         assert "packed different programs" in r["diverged"]["error"]
         assert r["diverged"]["ended"]
     assert online[0]["diverged"]["done"] is False
+
+
+# ------------------------------------------------- planner Plans, served
+
+def test_plan_materializes_on_two_ranks(spawned):
+    """``Plan.materialize`` over the ranks of the process group: the
+    reference's refusals (degrees that do not tile the world or the
+    devices asked for, more devices than ranks, ep not sharing the model
+    axis); a (1, 2) ("data", "model") mesh, a (1, 2, 1) ("data", "pipe",
+    "model") mesh for pp 2, a (2, 1) one for dp 2, each rank at its own
+    coordinate; the strategy's fields from the degrees, named
+    ``plan/<method>``, with the overrides."""
+    for rank, r in enumerate(spawned[1]):
+        got = r["plan"]
+        for key in ("tile", "tile 1"):
+            assert "do not tile" in got["refused"][key], key
+        assert "but only 2 are available" in got["refused"]["available"]
+        assert "must share the model axis" in got["refused"]["ep"]
+        axes, coord, st = got["layouts"]["model"]
+        assert axes == {"data": 1, "model": 2}
+        assert coord == {"data": 0, "model": rank}
+        assert st.seq_parallel and not st.remat and st.microbatches == 2
+        assert st.name == "plan/manual" and st.dtype == "float32"
+        axes, coord, st = got["layouts"]["pipe"]
+        assert axes == {"data": 1, "pipe": 2, "model": 1}
+        assert coord == {"data": 0, "pipe": rank, "model": 0}
+        assert st.microbatches == 4 and not st.seq_parallel
+        axes, coord, st = got["layouts"]["data"]
+        assert axes == {"data": 2, "model": 1}
+        assert coord == {"data": rank, "model": 0}
+        assert st.fsdp and not st.zero1
+
+
+@pytest.mark.parametrize("mixed", [True, False])
+def test_tp2_dp_plan_serves_jax_plan_streams(spawned, mixed):
+    """``Session.from_plan`` of the "dp" search's 2-chip plan (dp 1 x tp
+    2 with ``seq_parallel``, the reference's plan field for field) on
+    JAX's weights: ``serve()`` (``mixed=False``: the split path) builds
+    the tp 2 engine on the session's own mesh and gives the streams of
+    JAX's ``Session.from_plan(..., devices=2).serve()`` on every rank."""
+    row, want = _jax_plan_serve(mixed)
+    for r in spawned[1]:
+        got = r["plan"]
+        assert got["row"] == row
+        assert row["degrees"]["tp"] == 2 and row["degrees"]["dp"] == 1
+        assert row["degrees"]["seq_parallel"] and got["strategy"].seq_parallel
+        streams, tp_n, eng_mixed, same_mesh = got[mixed]
+        assert streams == want
+        assert tp_n == 2 and eng_mixed == mixed and same_mesh

@@ -63,9 +63,23 @@ expert-parallel (2, 2) trainer restores), and through ``launch/train.py
 ``--arch whisper-tiny --seq-parallel``, ``--arch llama-3.2-vision-90b
 --seq-parallel``).
 
+The same spawn trains two planner Plans through ``Session.from_plan``
+(tests/test_api_session.py's config and shape, the port's plan on H100,
+the reference's on H100's fields): the "dp" search's dp 2 x tp 2 plan
+with sequence parallelism, and a dp 1 x pp 2 x tp 2 plan on the
+("data", "pipe", "model") mesh, where each "pipe" slice holds whole
+replicas (the reference's Trainer never runs the pipeline either). Each
+is held to JAX's ``Session.from_plan(..., devices=4)`` on the same init
+(the params setter) within the reference test's bounds; the pipe
+replicas' blocks are equal bit for bit, one checkpoint of the full tree
+is written, and ``serve()`` of the pp 2 plan raises the reference's
+``ValueError``.
+
 This module imports JAX and the reference only in this process; the
 ranks import ``repro_torch`` only.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -173,6 +187,17 @@ CASES = {
 #: capacity factor entries drop)
 BATCHES = {"uniform": 512, "skewed": 4}
 
+#: tests/test_api_session.py's CFG and SHAPE, the plans' config and shape
+PLAN_KW = dict(name="api-test", arch_type="dense", num_layers=2,
+               d_model=128, num_heads=4, num_kv_heads=2, d_ff=256,
+               vocab_size=128, dtype="float32")
+PLAN_SHAPE = ("host", 64, 8, "train")
+#: the reference test's Strategy overrides, and the Trainer's batch
+PLAN_KNOBS = dict(remat=False, microbatches=1, dtype="float32")
+PLAN_TRAIN = dict(global_batch=8, seq_len=32)
+#: plan name -> Degrees keywords (None: the "dp" search at 4 chips)
+PLANS = {"dp": None, "pipe": dict(dp=1, tp=2, pp=2)}
+
 _JAX = {}
 
 
@@ -267,6 +292,40 @@ def _one_device_grads(case):
         g, _ = tstep.make_train_step(cfg, st, lr=LR).grads(
             params, _torch_batch(_batch(CASES[case][0], CASES[case][4])))
         _JAX[key] = {k: v.numpy().copy() for k, v in flatten(g).items()}
+    return _JAX[key]
+
+
+def _jax_plan_ref(name):
+    """JAX's ``Session.from_plan(..., devices=4)`` of plan ``name`` (the
+    "dp" search on H100's fields, or ``PLANS[name]``'s degrees), two
+    steps: (the plan's row, the session's init flattened, the losses, the
+    trained params flattened); made once."""
+    key = ("plan", name)
+    if key not in _JAX:
+        from repro.api import Degrees as JaxDegrees
+        from repro.api import Plan as JaxPlan
+        from repro.api import Session as JaxSession
+        from repro.api import plan as jax_plan
+        from repro.checkpoint.io import _flatten
+        from repro.configs.base import ModelConfig as JaxConfig
+        from repro.configs.base import ShapeConfig as JaxShape
+        from repro.core.costmodel import Hardware as JaxHardware
+        from repro.train.trainer import TrainConfig as JaxTrainConfig
+        from repro_torch.core.costmodel import H100
+        jcfg, shape = JaxConfig(**PLAN_KW), JaxShape(*PLAN_SHAPE)
+        hw = JaxHardware(**dataclasses.asdict(H100))
+        p = jax_plan(jcfg, shape, 4, method="dp", hw=hw) \
+            if PLANS[name] is None else \
+            JaxPlan.from_degrees(jcfg, shape, JaxDegrees(**PLANS[name]), hw)
+        session = JaxSession.from_plan(jcfg, p, devices=4, **PLAN_KNOBS)
+        init = {k: np.asarray(v).copy()
+                for k, v in _flatten(session.params).items()}
+        trainer = session.train(JaxTrainConfig(steps=2, lr=LR, log_every=1,
+                                               seed=3), **PLAN_TRAIN)
+        trainer.run()
+        _JAX[key] = (p.row(), init, [h["loss"] for h in trainer.history],
+                     {k: np.array(v)
+                      for k, v in _flatten(session.params).items()})
     return _JAX[key]
 
 
@@ -408,6 +467,43 @@ def _encdec_session_rank(tmp):
                        for k, v in flatten(trainer.params).items()}}
 
 
+def _plan_rank(tmp, inits):
+    """Each of ``PLANS`` through ``Session.from_plan`` on the four
+    ranks, from JAX's init (the params setter): two steps (the pipe plan
+    with a checkpoint at step 2), the losses and the rank's blocks; then
+    ``serve()``, which a pp 2 plan refuses."""
+    from repro_torch.api import Degrees, Plan, Session, plan
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.strategy import mesh_axes
+    from repro_torch.train.trainer import TrainConfig
+    cfg, shape = ModelConfig(**PLAN_KW), ShapeConfig(*PLAN_SHAPE)
+    out = {}
+    for name, deg in PLANS.items():
+        p = plan(cfg, shape, 4, method="dp") if deg is None else \
+            Plan.from_degrees(cfg, shape, Degrees(**deg))
+        session = Session.from_plan(cfg, p, device="cpu", **PLAN_KNOBS)
+        session.params = from_numpy(inits[name], cfg, "cpu")
+        tc = TrainConfig(steps=2, lr=LR, log_every=1, seed=3,
+                         checkpoint_every=2 if name == "pipe" else 0,
+                         checkpoint_dir=f"{tmp}/plan_{name}")
+        trainer = session.train(tc, **PLAN_TRAIN)
+        trainer.run()
+        rec = {"row": p.row(),
+               "strategy": dataclasses.asdict(session.strategy),
+               "axes": mesh_axes(session.mesh),
+               "coord": tp.coordinate(session.mesh),
+               "losses": [h["loss"] for h in trainer.history],
+               "blocks": {k: v.detach().numpy().copy()
+                          for k, v in flatten(trainer.params).items()}}
+        if name == "pipe":
+            try:
+                session.serve()
+            except ValueError as e:
+                rec["serve"] = str(e)
+        out[name] = rec
+    return out
+
+
 def _all_ranks(rank, world, refs, tmp):
     """Every case of this module on one rank: one spawn for all."""
     torch.set_num_threads(1)
@@ -437,6 +533,7 @@ def _all_ranks(rank, world, refs, tmp):
     out["ssm_checkpoint"] = _ssm_checkpoint_rank(get_mesh, tmp,
                                                  refs["ssm_checkpoint"])
     out["tie_checkpoint"] = _tie_checkpoint_rank(tmp)
+    out["plan"] = _plan_rank(tmp, refs["plan"])
     return out
 
 
@@ -450,7 +547,8 @@ def spawned(tmp_path_factory):
     kw, flat, _ = _jax_ref(_ref_key("qwen 2x2"))
     refs = {"cases": cases, "session": (kw, flat),
             "ssm_checkpoint": {arch: _jax_ref(_ref_key(case))[:2]
-                               for arch, case in SSM_CHECKPOINTS.items()}}
+                               for arch, case in SSM_CHECKPOINTS.items()},
+            "plan": {name: _jax_plan_ref(name)[1] for name in PLANS}}
     tmp = str(tmp_path_factory.mktemp("ckpt"))
     ranks = run_ranks(_all_ranks, 4, args=(refs, tmp),
                       store_dir=str(tmp_path_factory.mktemp("store")),
@@ -1003,3 +1101,63 @@ def test_vlm_train_launcher_runs_on_ranks(spawned):
              for h in r["vlm_launcher"]["history"]] for r in ranks]
     assert outs[0][-1]["step"] == 2 and np.isfinite(outs[0][-1]["loss"])
     assert all(o == outs[0] for o in outs)
+
+
+# --------------------------------------------- planner Plans, executed
+
+@pytest.mark.parametrize("name", sorted(PLANS))
+def test_plan_session_trains_as_the_jax_plan(spawned, name):
+    """``Session.from_plan`` of the "dp" search's plan (dp 2 x tp 2 with
+    sequence parallelism: the reference's plan on H100's fields, field
+    for field) and of a (1, 2, 2) pipe plan on the four ranks: the
+    plan's strategy and mesh; two steps' losses within 1e-4 of JAX's
+    ``Session.from_plan(..., devices=4)`` on the same init and every
+    block within 5e-4 of JAX's trained params at the rank's coordinate
+    (the reference test's bounds), equal on every rank; on the pipe
+    mesh the two "pipe" replicas' blocks equal bit for bit, one
+    checkpoint of the full tree (the first rank's) whose blocks are the
+    ranks', and ``serve()`` refused naming pp."""
+    from repro_torch.checkpoint import latest_step, load_checkpoint
+    from repro_torch.params import init_params
+    ranks, tmp = spawned
+    row, _, losses, trained = _jax_plan_ref(name)
+    cfg = ModelConfig(**PLAN_KW)
+    recs = [r["plan"][name] for r in ranks]
+    want_axes = {"data": 2, "model": 2} if name == "dp" else \
+        {"data": 1, "pipe": 2, "model": 2}
+    st = Strategy(**recs[0]["strategy"])
+    assert st.seq_parallel == (name == "dp") and not st.remat
+    assert st.microbatches == 1 and st.dtype == "float32"
+    if name == "dp":
+        assert row["degrees"] == dict(row["degrees"], dp=2, tp=2, pp=1,
+                                      seq_parallel=True)
+        assert st.name == "plan/dp"
+    leaves = tp.leaf_blocks(full_shapes(cfg), st, want_axes, cfg)
+    by_coord = {}
+    for rec in recs:
+        assert rec["row"] == row and rec["axes"] == want_axes
+        assert rec["strategy"] == recs[0]["strategy"]
+        np.testing.assert_allclose(rec["losses"], losses, atol=LOSS_TOL,
+                                   rtol=0)
+        assert rec["losses"] == recs[0]["losses"]
+        for key, block in rec["blocks"].items():
+            want = tp.shard_leaf(torch.from_numpy(trained[key]),
+                                 leaves[key].spec, want_axes, rec["coord"])
+            np.testing.assert_allclose(block, want.numpy(), atol=PARAM_TOL,
+                                       rtol=PARAM_TOL, err_msg=key)
+        place = (rec["coord"]["data"], rec["coord"]["model"])
+        by_coord.setdefault(place, []).append(rec["blocks"])
+    if name == "dp":
+        assert all(len(v) == 1 for v in by_coord.values())
+        return
+    for a, b in by_coord.values():
+        assert all(np.array_equal(a[k], b[k]) for k in a)
+    d = f"{tmp}/plan_pipe"
+    assert latest_step(d) == 2
+    saved = flatten(load_checkpoint(d, 2, init_params(cfg, device="cpu")))
+    for rec in recs:
+        for key, block in rec["blocks"].items():
+            want = tp.shard_leaf(saved[key], leaves[key].spec, want_axes,
+                                 rec["coord"])
+            assert np.array_equal(block, want.numpy()), key
+        assert "pp=2" in rec["serve"] and "tp=/dp=" in rec["serve"]
