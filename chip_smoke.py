@@ -732,6 +732,25 @@ start costs seconds), and each phase's checks after its set:
     A plan that is not the one named fails the run. Each estimate beside
     the measured step: ranks share one card over gloo, so the ratio
     describes that setup, not the cost model.
+36. DRY-RUN AGAINST THE CARD (``Session.lower``, ``launch/{specs,
+    roofline,dryrun}.py``): phase 5's session (16 layers) prefills one
+    1024-token prompt and takes one decode step of four rows over a
+    2048-position cache, and phase 6's session (4 layers, its trained
+    weights) takes phase 6's 1 x 4096 step on a new AdamW state; each is
+    first traced on meta as the card's branch, then run once for real
+    under the same ``Counter``: FLOPs, bytes and each kernel's charged
+    cost equal exactly; argument bytes equal to the real arguments'; the
+    dry-run's temp + arguments within 5% of the card's peak over the step
+    (``max_memory_allocated`` reset before it, less what was resident
+    beyond the step's arguments); the measured step (CUDA events; the
+    training step phase 6's p50) at or above the roofline's lower bound,
+    the ratio printed. On the training step each check is shown to
+    reject a defect (a counter without the kernels' cost, a spec without
+    the optimizer state, a peak without the temp, a 16 x 16 mesh's
+    globals taken as one chip's). Then ``lower_one("qwen3-14b",
+    "train_4k")`` on the 16 x 16 mesh, run by ``launch/dryrun.py`` in a
+    process of its own with no card visible, started after phase 2: its
+    record and trace seconds.
 
 Last, every process the run started (nvcc, cuobjdump, the rank
 processes and the ``multiprocessing`` resource tracker their start
@@ -764,7 +783,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# NVIDIA H100 SXM data sheet: HBM rate and dense peaks by input type
+# NVIDIA H100 SXM data sheet: HBM rate and dense peaks by input type (the
+# bf16 peak and the HBM rate are core/costmodel.py::H100's)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
@@ -844,9 +864,17 @@ def worst_excess(a, want, atol: float, rtol: float) -> float:
     return ((a - want).abs() / (atol + rtol * want.abs())).max().item()
 
 
-def bound_ms(nbytes: float, flops: float, dtype: str):
-    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+def bound_ms(work, dtype: str):
+    """The least time the card could take for a kernel's ``work``, its
+    module's ``cost(...)`` = (flops, bytes): the larger of the bytes over
+    the HBM rate and the operations over the peak for their type, the
+    rates ``core/costmodel.py::H100``'s (bf16; fp32 from the same data
+    sheet)."""
+    from repro_torch.core.costmodel import H100
+    flops, nbytes = work
+    peak = H100.peak_flops if dtype == "bfloat16" else PEAK_FLOPS[dtype]
+    t_mem = nbytes / H100.hbm_bw * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_mem, t_ops), ("bytes" if t_mem >= t_ops else "operations")
 
 
@@ -1247,11 +1275,11 @@ def phase_attention(rng):
         qs = q.transpose(1, 2)
         library = time_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask))
         del kg, vg
-        nbytes = (live_tokens * hkv * d * 2 * esize   # unique live K and V
-                  + 2 * q.numel() * esize             # q in, out
-                  + tab.numel() * 4 + pos.numel() * 4)
-        flops = 4.0 * hq * d * float((pos.long() + 1).sum().item())
-        bms, by = bound_ms(nbytes, flops, "bfloat16")
+        # unique live K and V, q in, out, the table and the cursors
+        check(pa.live_tokens(tab.cpu().numpy(), pos.cpu().numpy(), 16)
+              == live_tokens, f"{name}: live tokens")
+        bms, by = bound_ms(pa.cost(tab.cpu().numpy(), pos.cpu().numpy(), hq,
+                                   hkv, d, 16, esize=esize), "bfloat16")
         check(all(k in launches for k in PAGED_LAUNCHES) or not launches,
               f"paged attention launches {sorted(launches)} lack one of "
               f"{PAGED_LAUNCHES}")
@@ -1385,8 +1413,8 @@ def _mlp_rows(gen, rows: int, wg, wu, wd, atol: float, rtol: float, *,
             lambda: torch.matmul(silu(torch.matmul(x, wg))
                                  * torch.matmul(x, wu), wd),
             lambda: fm.fused_mlp_plain(x, wg, wu, wd)))
-        rec["bound_ms"], rec["bound_by"] = bound_ms(
-            2 * (3 * d * f + 2 * rows * d), 6.0 * rows * d * f, "bfloat16")
+        rec["bound_ms"], rec["bound_by"] = bound_ms(fm.cost(rows, d, f),
+                                                    "bfloat16")
         msg += _small_times_text(rec, "3x matmul")
     log(msg)
     return rec
@@ -1494,8 +1522,7 @@ def phase_mlp(rng):
     silu = torch.nn.functional.silu
     library = time_ms(lambda: torch.matmul(
         silu(torch.matmul(x, wg)) * torch.matmul(x, wu), wd))
-    nbytes = 2 * (3 * d * f + 2 * t * d)
-    bms, by = bound_ms(nbytes, 6.0 * t * d * f, "bfloat16")
+    bms, by = bound_ms(fm.cost(t, d, f), "bfloat16")
     log(f"[mlp bf16 T={t}] kernel {kernel:.4f} ms, plain {plain:.4f} ms, "
         f"3x matmul {library:.4f} ms, bound {bms:.4f} ms ({by})")
     return {"name": "fused_mlp", "route": "cuda",
@@ -1597,10 +1624,8 @@ def _flash_shape(gen, shape, atol: float, rtol: float, *, timed: bool,
         rec.update(_small_times(kernel, library, lambda:
                                 fa.flash_attention_plain(q, k, v,
                                                          causal=causal)))
-        pairs = b * s * (s + 1) / 2 if causal else b * s * t
         rec["bound_ms"], rec["bound_by"] = bound_ms(
-            2 * (2 * b * s * hq * d + 2 * b * t * hkv * d),
-            4.0 * hq * d * pairs, "bfloat16")
+            fa.cost(b, s, t, hq, hkv, d, causal=causal), "bfloat16")
         msg += _small_times_text(rec, "sdpa")
     log(msg)
     return rec
@@ -1699,13 +1724,11 @@ def phase_flash(rng):
                                                       causal=True),
                        iters=3, warmup=1)
     b, s, t, hq, hkv, d = train_shape
-    pairs = b * s * (s + 1) // 2                 # live causal (q, k) pairs
-    flops = 4.0 * hq * d * pairs
-    nbytes = 2 * (2 * b * s * hq * d + 2 * b * t * hkv * d)  # q, out, k, v
-    bms, by = bound_ms(nbytes, flops, "bfloat16")
+    flops, nbytes = fa.cost(b, s, t, hq, hkv, d)   # live causal (q, k) pairs
+    bms, by = bound_ms((flops, nbytes), "bfloat16")
     # the kernel keeps P fp32 in P.V as two bf16 products, P_hi V + P_lo V:
     # 1.5x the tensor-core work of the function
-    split_ms = bound_ms(nbytes, 1.5 * flops, "bfloat16")[0]
+    split_ms = bound_ms((1.5 * flops, nbytes), "bfloat16")[0]
     log(f"[flash bf16 training shape] kernel {kernel:.4f} ms, plain "
         f"{plain:.4f} ms, sdpa {library:.4f} ms, bound {bms:.4f} ms ({by}, "
         f"{flops / 1e9:.1f} GFLOP; {split_ms:.4f} ms for the split P.V); "
@@ -1835,16 +1858,10 @@ def phase_ssd(rng):
     check(all(k in launches for k in SSD_LAUNCHES) or not launches,
           f"ssd launches {sorted(launches)} lack one of {SSD_LAUNCHES}")
     b, s, h, p, n = path
-    q = chunk
-    nc = s // q
-    # each input read once, each output written once
-    nbytes = (2 * (2 * b * s * h * p + 2 * b * s * n)   # x, y; B, C (bf16)
-              + 4 * (b * s * h + h + b * h * p * n))    # dt, A; final state
-    pairs = q * (q + 1) // 2                            # causal (i, j) a chunk
-    flops = 2.0 * b * nc * (pairs * n                   # C B^T, once a chunk
-                            + h * (pairs * p            # intra y
-                                   + 2 * q * n * p))    # inter y, state
-    bms, by = bound_ms(nbytes, flops, "bfloat16")
+    # each input read once, each output written once; C B^T once a chunk,
+    # the intra y over its causal pairs, the inter y and the state a head
+    flops, nbytes = sk.cost(b, s, h, p, n, chunk=chunk)
+    bms, by = bound_ms((flops, nbytes), "bfloat16")
     grids = sk.pass_grids(b, s, h, p, n, chunk)
     log(f"[ssd bf16 path shape] kernel {kernel:.4f} ms (device: "
         + ", ".join(f"{k} {v:.1f} us" for k, v in launches.items())
@@ -1949,13 +1966,9 @@ def _ssd_shape(gen, shape, what: str, chunk: int = 128):
     eager = time_ms(lambda: sk.ssd_scan(*args, chunk=chunk))
     plain = time_ms(lambda: sk.ssd_scan_plain(*args, chunk=chunk),
                     iters=3, warmup=1)
-    q = sk.chunk_rows(s, chunk)         # a prompt under one chunk: q = s
-    nc = s // q
-    nbytes = (2 * (2 * b * s * h * p + 2 * b * s * n)
-              + 4 * (b * s * h + h + b * h * p * n))
-    pairs = q * (q + 1) // 2
-    flops = 2.0 * b * nc * (pairs * n + h * (pairs * p + 2 * q * n * p))
-    bms, by = bound_ms(nbytes, flops, "bfloat16")
+    # a prompt under one chunk: q = s (sk.chunk_rows)
+    flops, nbytes = sk.cost(b, s, h, p, n, chunk=chunk)
+    bms, by = bound_ms((flops, nbytes), "bfloat16")
     log(f"[ssd bf16 {shape} chunk={chunk}] y worst error {e:.3f}x the "
         f"limit, final state err {h_err:.3e} of its max"
         + (f", a dropped carried state {dr:.1f}x" if dr else "")
@@ -2071,11 +2084,11 @@ def _paged_cases(rng, heads, head_dim: int, cases, tag: str, *,
             qs = q.transpose(1, 2)
             library = time_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask))
             del kg, vg
-            nbytes = (live_tokens * hkv * d * 2 * esize
-                      + 2 * q.numel() * esize
-                      + tab.numel() * 4 + pos.numel() * 4)
-            flops = 4.0 * hq * d * float((pos.long() + 1).sum().item())
-            bms, by = bound_ms(nbytes, flops, "bfloat16")
+            # the distinct live pages (pa.live_tokens: a page rows of two
+            # slots share is read once)
+            bms, by = bound_ms(pa.cost(tab.cpu().numpy(), pos.cpu().numpy(),
+                                       hq, hkv, d, 16, esize=esize),
+                               "bfloat16")
             rec.update({"ms": kernel, "eager_ms": eager, "plain_ms": plain,
                         "library_ms": library, "bound_ms": bms,
                         "bound_by": by})
@@ -3672,23 +3685,26 @@ def phase_online(session, prompts, streams_b, max_new: int = 32):
 # ------------------------------------------------------------------ phase 6
 
 def phase_train(seed: int, steps: int = 6, layers: int = 4, *,
-                arch: str = "qwen3-14b", strategy=None, data_cls=None):
+                arch: str = "qwen3-14b", strategy=None, data_cls=None,
+                session=None):
     """The TRAIN PATH of ``arch`` at full width, depth cut to ``layers``
     (None: uncut); seq_len 4096 unless it does not fit the card, then 2048
     (said in the record). ``strategy``: the session's (default: the
     default Strategy, AdamW); ``data_cls``: the trainer's data class
     (``launch/train.py``'s ``FramesData`` or ``ImagesData``; default the
-    token dataset), one row of ``seq_len`` tokens from ``seed``."""
+    token dataset), one row of ``seq_len`` tokens from ``seed``;
+    ``session``: the session to train (default: a new one from ``seed``,
+    as ``_train_run`` makes it), kept by the caller."""
     from repro_torch.configs import get_config
-    cfg = get_config(arch)
-    if layers:
+    cfg = get_config(arch) if session is None else session.cfg
+    if layers and session is None:
         cfg = cfg.with_(num_layers=layers)
     for seq_len in (4096, 2048):
         try:
             data = None if data_cls is None else data_cls(
                 cfg, global_batch=1, seq_len=seq_len, seed=seed)
             return _train_run(cfg, seed, steps, seq_len, data=data,
-                              strategy=strategy)
+                              strategy=strategy, session=session)
         except torch.cuda.OutOfMemoryError as exc:
             if seq_len == 2048:
                 raise
@@ -9883,6 +9899,265 @@ def phase_plan_ranks(tp_ranks, tp: dict, sharded_ranks, sharded: dict,
     return out
 
 
+# ------------------------------------------------------------- phase 36
+
+#: phase 36's steps, each a ``ShapeConfig``'s (name, seq_len, batch,
+#: kind): phase 6's training step; phase 5b's split-path prefill of one
+#: 1024-token prompt, and one decode step of its four rows over a cache
+#: of 2048 positions (the split path's batched decode)
+DRYRUN_TRAIN = ("train_1x4096", 4096, 1, "train")
+DRYRUN_PREFILL = ("prompt_1024", 1024, 1, "prefill")
+DRYRUN_DECODE = ("cache_2048", 2048, 4, "decode")
+#: the dry-run's temp + arguments against the card's peak over the step
+DRYRUN_PEAK_REL = 0.05
+#: the device-free record phase 36 prints: lower_one's, on 16 x 16
+DRYRUN_RECORD = ("qwen3-14b", "train_4k")
+
+
+def start_dryrun_record():
+    """Start ``python -m repro_torch.launch.dryrun`` of
+    :data:`DRYRUN_RECORD` on the 16 x 16 mesh in a process of its own,
+    with no card visible (the dry-run is device-free: it runs on the
+    card's host beside the other phases); phase 36 reads its record."""
+    out = ROOT / "chiprun_out" / "dryrun"
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=str(ROOT / "src"))
+    arch, shape = DRYRUN_RECORD
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", str(out)], env=env, cwd=str(ROOT),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    proc.started, proc.out = time.perf_counter(), out
+    return proc
+
+
+def _counted(step, args):
+    """``step(*args)`` once under ``Counter`` with the card's peak reset
+    before it: (counter, output, bytes allocated before, peak)."""
+    from repro_torch.launch.roofline import Counter
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    counter = Counter()
+    with counter:
+        out = step(*args)
+    torch.cuda.synchronize()
+    return counter, out, before, torch.cuda.max_memory_allocated()
+
+
+def _event_ms(fn, reps: int = 3) -> float:
+    """The median of ``reps`` timed calls of ``fn``, by CUDA events."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _hold_to_dryrun(tag: str, rec: dict, lowered, counter, real_args: int,
+                    before: int, peak: int, measured_s: float, smi: str, *,
+                    defects: bool) -> dict:
+    """Phase 36's checks of one step: the dry-run's FLOPs, bytes and each
+    kernel's charge equal to the real step's exactly; its argument bytes
+    equal to the real arguments'; its temp + arguments within
+    :data:`DRYRUN_PEAK_REL` of the card's peak over the step (the peak
+    less what was resident before the step beyond its arguments); the
+    measured step at or above the roofline's lower bound. ``defects``:
+    each check shown to reject a defect."""
+    from repro_torch.launch.roofline import extract
+    from repro_torch.launch.specs import tensor_bytes
+    meta = lowered.counter
+    mem = rec["memory_analysis"]
+    row = rec["roofline"]
+    check(meta.flops == counter.flops,
+          f"[{tag}] dry-run FLOPs {meta.flops!r} != the step's "
+          f"{counter.flops!r}")
+    check(meta.bytes == counter.bytes,
+          f"[{tag}] dry-run bytes {meta.bytes!r} != the step's "
+          f"{counter.bytes!r}")
+    check(meta.kernels == counter.kernels,
+          f"[{tag}] kernels' charges {meta.kernels} != the step's "
+          f"{counter.kernels}")
+    check(counter.kernels, f"[{tag}] no kernel charged its cost")
+    args = mem["argument_size_in_bytes"]
+    check(args == real_args, f"[{tag}] argument bytes {args} != the real "
+                             f"arguments' {real_args}")
+    resident = before - real_args       # held before the step, not its own
+    step_peak = peak - resident
+    want = args + mem["temp_size_in_bytes"]
+    gap = step_peak - want
+    check(abs(gap) <= DRYRUN_PEAK_REL * step_peak,
+          f"[{tag}] temp + arguments {want} vs the card's {step_peak} over "
+          f"the step ({gap:+d} bytes)")
+    bound_s = max(row["t_compute_s"], row["t_memory_s"],
+                  row["t_collective_s"])
+    ratio = measured_s / bound_s
+    check(ratio >= 1.0, f"[{tag}] measured {measured_s * 1e3:.3f} ms is "
+                        f"below the lower bound {bound_s * 1e3:.3f} ms")
+    out = {"flops": counter.flops, "bytes": counter.bytes,
+           "kernels": counter.kernels, "argument_bytes": args,
+           "temp_bytes": mem["temp_size_in_bytes"],
+           "card_peak_over_step": step_peak, "resident_before": resident,
+           "peak_gap_bytes": gap, "measured_s": measured_s,
+           "lower_bound_s": bound_s, "bottleneck": row["bottleneck"],
+           "t_compute_s": row["t_compute_s"],
+           "t_memory_s": row["t_memory_s"],
+           "measured_over_bound": ratio, "trace_s": rec["compile_s"]}
+    if defects:
+        kernel_flops = sum(k["flops"] for k in meta.kernels.values())
+        skipped = meta.flops - kernel_flops
+        check(skipped != counter.flops, f"[{tag}] a counter that skips the "
+                                        f"kernels' cost would pass")
+        no_opt = tensor_bytes(lowered.args[0], lowered.args[2])
+        check(no_opt != real_args, f"[{tag}] a spec without the optimizer "
+                                   f"state would pass")
+        bare = args                              # the temp left out
+        check(abs(step_peak - bare) > DRYRUN_PEAK_REL * step_peak,
+              f"[{tag}] a count without the temp would pass")
+        wrong = extract(meta, arch="", shape="", mesh_name="", chips=1,
+                        model_flops=0.0)
+        wrong.hlo_flops *= 256                 # a 16 x 16 mesh's globals
+        wrong.hlo_bytes *= 256                 # taken as one chip's
+        check(measured_s < wrong.step_time_lower_bound,
+              f"[{tag}] a bound of global counts taken as one chip's "
+              f"would pass")
+        out["defects_rejected"] = ["kernels' cost skipped",
+                                   "optimizer state dropped from the spec",
+                                   "temp left out of the peak",
+                                   "a 16 x 16 mesh's globals as one chip's"]
+    log(f"[dryrun {tag}] FLOPs {counter.flops:.6e} = dry-run's, bytes "
+        f"{counter.bytes:.6e} = dry-run's, kernels "
+        + ", ".join(f"{k} {v['launches']} x" for k, v in
+                    counter.kernels.items())
+        + f" charged alike; arguments {args / 1e9:.4f} GB = real; temp + "
+        f"arguments {want / 1e9:.4f} GB vs the card's "
+        f"{step_peak / 1e9:.4f} GB over the step ({gap / 1e6:+.2f} MB; "
+        f"{resident / 1e9:.3f} GB resident beyond the arguments before "
+        f"it); measured {measured_s * 1e3:.3f} ms vs lower bound "
+        f"{bound_s * 1e3:.3f} ms ({row['bottleneck']}): "
+        f"{ratio:.3f}x; traced in {rec['compile_s']:.3f} s on {smi}"
+        + ("; defects rejected: " + ", ".join(out["defects_rejected"])
+           if defects else ""))
+    return out
+
+
+def phase_dryrun_serve(session, seed: int, smi: str) -> dict:
+    """Phase 36 on phase 5's session (16 layers): :data:`DRYRUN_PREFILL`
+    and :data:`DRYRUN_DECODE` dry-run on meta as the card's branch, then
+    run once for real under the same ``Counter`` and held
+    (``_hold_to_dryrun``); their launches join the kernels' sums."""
+    from repro_torch import kernels
+    from repro_torch.api import Session
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.specs import tensor_bytes
+    from repro_torch.models import get_model
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+    cfg, st = session.cfg, session.strategy
+    rng = np.random.default_rng(seed + 36)
+    params = session.params
+    out = {}
+    kernels.reset_launches()
+    shape = ShapeConfig(*DRYRUN_PREFILL)
+    rec, lowered = Session(cfg, strategy=st, device="cuda").lower(shape)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (shape.global_batch, shape.seq_len)).astype(
+            np.int32)).cuda()
+    step = make_prefill_step(cfg, st)
+    with torch.no_grad():
+        args = (params, {"tokens": tokens})
+        counter, res, before, peak = _counted(step, args)
+        del res
+        ms = _event_ms(lambda: step(*args))
+    out["prefill"] = _hold_to_dryrun(
+        "prefill", rec, lowered, counter, tensor_bytes(args), before, peak,
+        ms / 1e3, smi, defects=False)
+    shape = ShapeConfig(*DRYRUN_DECODE)
+    rec, lowered = Session(cfg, strategy=st, device="cuda").lower(shape)
+    model = get_model(cfg)
+    with torch.no_grad():
+        prompts = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (shape.global_batch, 1024)).astype(
+                np.int32)).cuda()
+        cache = model.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                 device="cuda")
+        logits, cache = model.prefill(params, {"tokens": prompts}, cfg,
+                                      cache)
+        token = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        pos = torch.tensor(1024, dtype=torch.int32, device="cuda")
+        del logits
+        step = make_decode_step(cfg, st)
+        args = (params, cache, token, pos)
+        counter, res, before, peak = _counted(step, args)
+        del res
+        ms = _event_ms(lambda: step(*args))
+    out["decode"] = _hold_to_dryrun(
+        "decode", rec, lowered, counter, tensor_bytes(args), before, peak,
+        ms / 1e3, smi, defects=False)
+    del cache, args
+    out["launches"] = kernels.launches()
+    return out
+
+
+def phase_dryrun_train(session, phase6: dict, proc, smi: str) -> dict:
+    """Phase 36 on phase 6's session (4 layers, its trained params):
+    :data:`DRYRUN_TRAIN` dry-run on meta, then phase 6's step once for
+    real on a new trainer of the session under the same ``Counter``,
+    held (``_hold_to_dryrun``, the measured step phase 6's p50), each
+    check shown to reject a defect; then the device-free record of
+    :data:`DRYRUN_RECORD` on 16 x 16 from ``proc``
+    (``start_dryrun_record``), printed with its trace seconds."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.specs import tensor_bytes
+    from repro_torch.train.trainer import TrainConfig
+    cfg = session.cfg
+    shape = ShapeConfig(*DRYRUN_TRAIN)
+    check(phase6["seq_len"] == shape.seq_len and phase6["layers"]
+          == cfg.num_layers, f"phase 6 ran {phase6['seq_len']} tokens on "
+          f"{phase6['layers']} layers, phase 36 {shape}")
+    rec, lowered = session.lower(shape)
+    trainer = session.train(TrainConfig(steps=1, seed=0),
+                            global_batch=shape.global_batch,
+                            seq_len=shape.seq_len)
+    tokens = torch.from_numpy(trainer.data.batch(0)["tokens"]).cuda()
+    args = (trainer.params, trainer.opt_state, {"tokens": tokens})
+    kernels.reset_launches()
+    counter, res, before, peak = _counted(trainer._step_fn, args)
+    del res
+    out = {"train": _hold_to_dryrun(
+        "train", rec, lowered, counter, tensor_bytes(args), before, peak,
+        phase6["step_p50_s"], smi, defects=True),
+        "launches": kernels.launches()}
+    del trainer, args
+    text, _ = proc.communicate(timeout=900)
+    wall = time.perf_counter() - proc.started
+    check(proc.returncode == 0, f"[dryrun record] launch/dryrun.py exited "
+                                f"{proc.returncode}: {text[-2000:]}")
+    arch, name = DRYRUN_RECORD
+    path = proc.out / f"{arch}__{name}__pod16x16__base.json"
+    full = json.loads(path.read_text())
+    row = full["roofline"]
+    out["record"] = full
+    out["record_wall_s"] = wall
+    log(f"[dryrun record] lower_one({arch!r}, {name!r}) on 16 x 16, rank 0 "
+        f"as the card's branch, on the card's host with no card visible: "
+        f"traced in {full['compile_s']:.3f} s ({wall:.1f} s of its "
+        f"process, beside the phases); strategy {full['strategy_detail']}; "
+        f"memory {full['memory_analysis']}; t_compute "
+        f"{row['t_compute_s']:.4e} s, t_memory {row['t_memory_s']:.4e} s, "
+        f"t_collective {row['t_collective_s']:.4e} s ({row['bottleneck']}), "
+        f"useful {row['useful_ratio']:.4f}, mem/device "
+        f"{row['mem_per_device_gb']:.3f} GB, ICI "
+        f"{row['coll_ici_bytes_per_dev']:.4e} B, DCN "
+        f"{row['coll_dcn_bytes_per_dev']:.4e} B (data-sheet predictions)")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9899,6 +10174,8 @@ def main():
     record = {"nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
               "torch": torch.__version__, "seed": args.seed}
     record["build_s"], record["sass"] = phase_build()
+    # phase 36's device-free record runs on the host beside the phases
+    dryrun_proc = start_dryrun_record()
     mark("1-2 card, build")
     rng = np.random.default_rng(args.seed)
     kernels = [phase_attention(rng), phase_mlp(rng), phase_flash(rng),
@@ -10016,16 +10293,29 @@ def main():
     record["plan_serve"] = phase_plan_serve(session, main_run, prompts,
                                             args.seed)
     mark("34 serving from a plan")
+    record["dryrun_serve"] = phase_dryrun_serve(session, args.seed, smi)
+    mark("36 dry-run against the card: prefill, decode")
     del session                           # free the serving weights
     gc.collect()
     torch.cuda.empty_cache()
     pairs["tp"] = _start(phase_tp_serve(args.seed, main_run))
     pairs["plan_tp"] = _start(phase_plan_tp_serve(args.seed))
     pairs["cp"] = _start(phase_cp_serve(args.seed, smi))
-    record["train"] = phase_train(args.seed)
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    train_session = Session(get_config("qwen3-14b").with_(num_layers=4),
+                            device="cuda", seed=args.seed)
+    record["train"] = phase_train(args.seed, session=train_session)
     mark("6 dense training")
-    gc.collect()                          # the trainer died with phase 6
+    gc.collect()                          # phase 6's trainer died with it
     torch.cuda.empty_cache()
+    record["dryrun_train"] = phase_dryrun_train(train_session,
+                                                record["train"], dryrun_proc,
+                                                smi)
+    del train_session
+    gc.collect()                          # phase 36's trainer and session
+    torch.cuda.empty_cache()
+    mark("36 dry-run against the card: training, and the 16 x 16 record")
     record["plan_train"] = phase_plan_train(args.seed, record["train"])
     mark("34 training from a plan")
     gc.collect()
@@ -10141,7 +10431,9 @@ def main():
     # f32), phase 33 (each rank, each run: flash and its remat recompute),
     # phase 34 (paged attention and the fused MLP serving, flash
     # training), phase 35 (each rank: paged attention and the fused MLP
-    # serving at tp 2, flash training at dp 2 x tp 2)
+    # serving at tp 2, flash training at dp 2 x tp 2), phase 36 (flash
+    # and the fused MLP in the prefill, the fused MLP in the decode, flash
+    # in the training step; each counted run and each timed repeat)
     paths = [main_run, record["train"], record["ssm"],
              *record["spec"].values(), *record["online"].values(),
              record["hybrid"], *record["train_families"].values(),
@@ -10191,7 +10483,9 @@ def main():
              record["plan_serve"], record["plan_train"],
              # phase 35: each rank's own launches, serving and training
              *record["plan_ranks"]["tp_ranks"],
-             *record["plan_ranks"]["sharded_ranks"]]
+             *record["plan_ranks"]["sharded_ranks"],
+             # phase 36: the real steps held to their dry-runs
+             record["dryrun_serve"], record["dryrun_train"]]
     for k in kernels:
         k["launches"] = sum(run["launches"][k["name"]] for run in paths)
     record["kernels"] = kernels

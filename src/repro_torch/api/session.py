@@ -74,8 +74,13 @@ request), generates from a batch dict with ``frames`` and trains on a
 over the dense layout only. ``from_plan`` materialises a planner ``Plan``
 (``core/planner.py``) and keeps it: ``train`` and ``serve`` then default
 to its degrees on its mesh. The features not ported yet raise
-``NotImplementedError`` naming their ROADMAP.md item, as do ``dryrun``
-and ``lower`` (Queue 1 item 12b).
+``NotImplementedError`` naming their ROADMAP.md item. ``dryrun`` and
+``lower`` trace one rank's step on ``torch.device("meta")`` over a fake
+process group of the mesh's ranks and report the reference's record:
+memory and the roofline terms (``launch/{specs,roofline,dryrun}.py``).
+
+    rec = Session(get_config("qwen3-14b"),
+                  mesh={"data": 16, "model": 16}).dryrun("train_4k")
 
     driver = session.serve_async(slots=4, max_len=1024)
     stream = driver.submit(prompt, max_new=16)      # tokens as they come
@@ -85,7 +90,7 @@ and ``lower`` (Queue 1 item 12b).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -95,11 +100,21 @@ from repro_torch.checkpoint.io import (latest_step, load_checkpoint,
 from repro_torch.core.strategy import Strategy, mesh_axes, serving
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.params import init_params
-from repro_torch.serve.engine import ServeEngine, _todo
+from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.step import greedy_generate
 from repro_torch.train.trainer import (TrainConfig, Trainer,
                                        check_kernel_limits)
 from repro_torch.tree import tree_map
+
+
+class Lowered(NamedTuple):
+    """What :meth:`Session.lower` traced: the step callable, the rank's
+    meta arguments (``launch/specs.py``), their specs, and the counter
+    that held its counts (``launch/roofline.py::Counter``)."""
+    step: object
+    args: tuple
+    specs: tuple
+    counter: object
 
 
 class Session:
@@ -149,16 +164,148 @@ class Session:
         session.plan = plan
         return session
 
-    def dryrun(self, *args, **kwargs):
-        """The reference lowers and compiles a step without params and
-        reports memory and roofline; not ported yet."""
-        raise _todo("Session.dryrun (launch/roofline and specs)",
-                    "Queue 1 item 12b")
+    def dryrun(self, shape, *, verbose: bool = False,
+               arch: Optional[str] = None, mesh_name: Optional[str] = None,
+               rank: int = 0) -> dict:
+        """Trace the step for ``shape`` (a ``SHAPES`` name or a
+        ``ShapeConfig``) as one rank of this session's mesh WITHOUT
+        allocating params, and report memory and roofline — the what-if
+        check behind ``launch/dryrun.py`` (:meth:`lower`)."""
+        rec, _ = self.lower(shape, verbose=verbose, arch=arch,
+                            mesh_name=mesh_name, rank=rank)
+        return rec
 
-    def lower(self, *args, **kwargs):
-        """See :meth:`dryrun`."""
-        raise _todo("Session.lower (launch/roofline and specs)",
-                    "Queue 1 item 12b")
+    def lower(self, shape, *, verbose: bool = False,
+              arch: Optional[str] = None, mesh_name: Optional[str] = None,
+              rank: int = 0):
+        """Like :meth:`dryrun` but also returns the :class:`Lowered` step:
+        the callable and the rank's meta arguments it was traced on.
+
+        The reference jit-lowers the GSPMD program and compiles it. The
+        port runs ``rank``'s step eagerly on ``torch.device("meta")``
+        tensors (``launch/specs.py``: the rank's parameter blocks,
+        optimizer state, batch rows and cache), in one process, under
+        ``launch/roofline.py::Counter``. The mesh is the session's: None
+        (one chip) or a mapping such as ``{"data": 16, "model": 16}``
+        (``"pod"`` too), laid over a fake process group of that many
+        ranks made here and destroyed before this returns, errors
+        included (``launch/mesh.py::fake_mesh``; ``ValueError`` when a
+        process group is already initialised). The kernels' wrappers take
+        the branch of the session's device (``kernels/dispatch.py``):
+        for "cuda" the kernels' checks and allocations, each charging its
+        ``cost``; for "cpu" the plain versions. Training traces
+        ``train/step.py::make_train_step`` on the session's strategy;
+        prefill and decode ``serve/step.py``'s steps on the layout an
+        engine serves (``core/strategy.py::serving``).
+
+        The record has the reference's keys; ``compile_s`` is the trace's
+        seconds and ``memory_analysis`` counts the rank: arguments (its
+        params, optimizer state, batch rows, cache), outputs (the tensors
+        returned), temp (the most bytes the step held above the
+        arguments), code 0, alias (params and optimizer state in training,
+        the cache in decode: the port updates them in place)."""
+        import math
+        import time
+        from contextlib import nullcontext
+
+        from repro_torch.configs import SHAPES
+        from repro_torch.core import tp
+        from repro_torch.data.pipeline import rows_split
+        from repro_torch.kernels import dispatch
+        from repro_torch.launch import roofline as rl
+        from repro_torch.launch import specs as sp
+        from repro_torch.launch.mesh import fake_mesh
+        from repro_torch.params import full_shapes
+        from repro_torch.serve.step import make_decode_step, make_prefill_step
+        from repro_torch.train.step import make_train_step
+
+        shape = SHAPES[shape] if isinstance(shape, str) else shape
+        cfg = self.cfg
+        axes = {} if self.mesh is None else mesh_axes(self.mesh)
+        chips = math.prod(axes.values()) if axes else 1
+        arch = arch or cfg.name
+        mesh_name = mesh_name or ("x".join(f"{n}{a}" for a, n in
+                                           axes.items()) or "1chip")
+        train = shape.kind == "train"
+        strategy = self.strategy if train else serving(self.strategy)
+        t0 = time.perf_counter()
+        with (fake_mesh(axes, rank) if chips > 1 else nullcontext()) as dm, \
+                dispatch.as_device(self.device.type):
+            r = None if dm is None else tp.Rank.of(
+                dm, cfg, strategy, full_shapes(cfg) if train else None)
+            mesh = axes or None
+            with tp.active(r), torch.no_grad() if not train else \
+                    nullcontext():
+                if train:
+                    check_kernel_limits(cfg, strategy, self.device, r)
+                    step = make_train_step(cfg, strategy)
+                    args, specs = sp.train_specs(cfg, shape, mesh, strategy)
+                    dp = r.batch_dp if r is not None else 1
+                    keep = shape.global_batch // dp if rows_split(
+                        shape.global_batch, dp, strategy.microbatches) \
+                        else shape.global_batch
+                    rows = {k: v[:keep] for k, v in args[2].items()}
+                    arg_bytes = sp.tensor_bytes(args[0], args[1]) + sum(
+                        v.numel() * v.element_size() for v in rows.values())
+                    alias = sp.tensor_bytes(args[0], args[1])
+                    mf = rl.model_flops_train(
+                        cfg, shape.global_batch * shape.seq_len)
+                elif shape.kind == "prefill":
+                    step = make_prefill_step(cfg, strategy)
+                    args, specs = sp.prefill_specs(cfg, shape, mesh,
+                                                   strategy)
+                    arg_bytes, alias = sp.tensor_bytes(*args), 0
+                    mf = rl.model_flops_decode(
+                        cfg, shape.global_batch * shape.seq_len)
+                else:                 # decode: ONE token against the cache
+                    step = make_decode_step(cfg, strategy)
+                    args, specs = sp.decode_specs(cfg, shape, mesh, strategy)
+                    arg_bytes = sp.tensor_bytes(*args)
+                    alias = sp.tensor_bytes(args[1])
+                    mf = rl.model_flops_decode(cfg, shape.global_batch)
+                counter = rl.Counter(r)
+                with counter:
+                    out = step(*args)
+                out_bytes = sp.tensor_bytes(out)
+        trace_s = time.perf_counter() - t0
+        mem = {"argument_size_in_bytes": arg_bytes,
+               "output_size_in_bytes": out_bytes,
+               "temp_size_in_bytes": counter.peak,
+               "generated_code_size_in_bytes": 0,
+               "alias_size_in_bytes": alias}
+        roof = rl.extract(counter, arch=arch, shape=shape.name,
+                          mesh_name=mesh_name, chips=chips, model_flops=mf,
+                          mem_per_device=arg_bytes + counter.peak)
+        rec = {
+            "arch": arch, "shape": shape.name, "mesh": mesh_name,
+            "status": "ok", "strategy": strategy.name,
+            "strategy_detail": {
+                "seq_parallel": strategy.seq_parallel,
+                "fsdp": strategy.fsdp,
+                "optimizer": strategy.optimizer,
+                "microbatches": strategy.microbatches,
+                "remat": strategy.remat, "attn_impl": strategy.attn_impl},
+            "compile_s": round(trace_s, 3),
+            "memory_analysis": mem,
+            "roofline": roof.row(),
+            "device": self.device.type, "rank": rank,
+            "kernels": counter.kernels,
+            "collectives": counter.collectives,
+        }
+        if strategy != self.strategy:
+            rec["note"] = ("served on core/strategy.py::serving's layout "
+                           f"(seq_parallel {self.strategy.seq_parallel}, "
+                           f"fsdp {self.strategy.fsdp} off)")
+        if verbose:
+            row = roof.row()
+            print(f"[{arch} x {shape.name} x {mesh_name}] trace "
+                  f"{rec['compile_s']}s  bottleneck={row['bottleneck']} "
+                  f"t_comp={row['t_compute_s']:.3e} "
+                  f"t_mem={row['t_memory_s']:.3e} "
+                  f"t_coll={row['t_collective_s']:.3e} "
+                  f"useful={row['useful_ratio']:.2f} "
+                  f"mem/dev={row['mem_per_device_gb']:.2f}GB", flush=True)
+        return rec, Lowered(step, args, specs, counter)
 
     def _rank_mesh(self, dp: int, tp: int, pp: int = 1):
         """The session's own ``DeviceMesh`` where it is the (dp, tp) or

@@ -55,16 +55,22 @@ loss, and the gradient taken is that of ONE copy of it:
   rank's slice — whose backward is the zero-filled gather, and
   ``seq_split`` takes the slice of a replicated tensor (its backward the
   same gather);
-* the "data" axis (``axis_sum``): the batch rows a rank holds
+* the "data" axis (``axis_sum``): ZeRO-1's parameter assembly and
+  FSDP's gathers (``fsdp_full``, ``layer_sources``: a layer's leaves
+  gathered when it is applied, inside the remat checkpoint, the gradient
+  summed and sliced back to the rank's block);
+* the data-parallel axis :data:`BATCH`, ("pod", "data") as the
+  reference's rules put the batch (``core/strategy.py``), "data" alone
+  on a mesh without "pod": the batch rows a rank holds
   (``data/pipeline.py::shard_batch``), the loss normaliser, the MoE
-  routing of the global batch, the gradient sums, ZeRO-1's parameter
-  assembly and FSDP's gathers (``fsdp_full``, ``layer_sources``: a
-  layer's leaves gathered when it is applied, inside the remat
-  checkpoint, the gradient summed and sliced back to the rank's block).
+  routing of the global batch and the gradient sums (an FSDP leaf's
+  over "data" in its gather's backward, then over "pod"). ZeRO-1's and
+  FSDP's blocks stay over "data" alone, as the reference's
+  ``zero1_spec(..., axis="data")``: each pod holds the whole state.
 
 Every collective is tallied in ``Rank.counts`` and ``Rank.bytes`` by its
-label; one run in backward carries the label of its forward with
-``.grad`` appended.
+label, and ``Rank.axis_of`` names the axis it ran over; one run in
+backward carries the label of its forward with ``.grad`` appended.
 
 Only ``all_reduce`` and ``broadcast`` are used: gloo supports just these
 two on CUDA tensors, so the same code runs with gloo on CPU tensors (the
@@ -76,8 +82,14 @@ A rank's view (:class:`Rank`) is made from the mesh and the model config
 by the caller (the serving engine, the trainer) and made current for a
 thread by ``active``; without a current rank, or at tp 1, every "model"
 collective here is a no-op and the model code runs unsharded (at dp 1
-every "data" one). Attention is split by whole
-heads only: Hq must divide by tp. Where Hkv does not divide by tp (GQA
+every "data" one). Attention is split by whole heads only. Where Hq does
+not divide by tp (Qwen3-14B's 40 heads over 16), every rank runs ALL the
+heads (``Rank.whole_heads``): ``wq``/``wk``/``wv``/``wo`` are whole on
+every rank (the table's replicated fallback), the attention regions take
+no ``enter`` and their output no sum (``region_in``, ``heads_out``;
+under sequence parallelism the rank's slice of the whole output), and
+the K/V cache holds every head of whole rows — redundant work on each
+rank of "model", never a split head. Where Hkv does not divide by tp (GQA
 with fewer KV heads than ranks), every rank keeps all Hkv heads of K/V
 (the table's replicated fallback) and attends its query heads against
 the one KV head they read (``kv_read``); the table itself would split
@@ -153,8 +165,12 @@ class Rank:
     query heads, ``kv_heads`` K/V heads in its cache (Hkv / tp, or all
     Hkv where they do not divide), of which its query heads read
     ``kv_read`` (a slice of the cache's head axis; None: all of them); on
-    the "data" axis (``dp`` replicas, this one ``data_rank``) its rows of
-    the batch. A training rank (``of(..., strategy=, shapes=)``) also
+    the "data" axis (``dp`` ranks, this one ``data_rank``) its ZeRO-1
+    and FSDP blocks; on "pod" (``pods``, this one ``pod_rank``) nothing
+    of its own; on the data-parallel axis :data:`BATCH` ("pod" x "data":
+    ``batch_dp`` ranks, this one ``batch_rank``) its rows of the batch.
+    ``group_ranks`` holds the global ranks of each axis's group that
+    holds this rank. A training rank (``of(..., strategy=, shapes=)``) also
     carries ``leaves``, each parameter's :class:`LeafBlocks`,
     ``seq_parallel`` and ``zero1``; ``split_rows`` says whether the step
     in flight runs on this rank's rows of the batch (True) or on the
@@ -162,7 +178,7 @@ class Rank:
     step's span by ``step_rows``. ``counts``
     tallies the collectives issued, by what they carry, and ``bytes`` the
     bytes each put in (``numel * element_size`` of the tensor reduced or
-    broadcast)."""
+    broadcast), ``axis_of`` the axis each label ran over."""
     tp: int
     rank: int
     group: object
@@ -175,29 +191,34 @@ class Rank:
     dp: int = 1
     data_rank: int = 0
     data_group: object = None
+    pods: int = 1
+    pod_rank: int = 0
+    pod_group: object = None
+    batch_group: object = None
     axes: Dict[str, int] = field(default_factory=dict)
+    group_ranks: Dict[str, tuple] = field(default_factory=dict)
+    axis_of: Dict[str, str] = field(default_factory=dict)
     seq_parallel: bool = False
     zero1: bool = False
     leaves: Dict[str, LeafBlocks] = field(default_factory=dict)
     split_rows: bool = False
+    whole_heads: bool = False
 
     @classmethod
     def of(cls, mesh, cfg, strategy=None, shapes=None) -> "Rank":
         """The calling process's view of ``mesh`` ("model", and "data"
         where the mesh has it) for ``cfg``'s attention; with
         ``strategy`` and ``shapes`` (each flat parameter key's full
-        shape) a training rank's. Raises ``ValueError`` for shapes that
-        cannot be split by whole heads."""
+        shape) a training rank's. Where Hq does not divide tp the rank
+        runs every head (``whole_heads``). Raises ``ValueError`` for
+        other shapes that cannot be split by whole heads."""
         axes = mesh_axes(mesh)
         tp = axes.get("model", 1)
         sub = mesh["model"]
         group = mesh.get_group("model")
         hq, hkv = cfg.num_heads, cfg.num_kv_heads
-        if hq % tp:
-            raise ValueError(
-                f"{cfg.name}: {hq} query heads do not split over tp={tp} "
-                "(attention is split by whole heads)")
-        if hkv % tp and tp % hkv:
+        whole = bool(hq % tp)
+        if hkv % tp and tp % hkv and not whole:
             raise ValueError(
                 f"{cfg.name}: {hkv} KV heads over tp={tp}: neither divides "
                 "the other, so a rank's query heads would read parts of "
@@ -207,7 +228,9 @@ class Rank:
                              f"over tp={tp}")
         check_ssm_heads(cfg, tp)
         r = int(sub.get_local_rank())
-        if hkv % tp == 0:
+        if whole:
+            kv_heads, kv_read = hkv, None
+        elif hkv % tp == 0:
             kv_heads, kv_read = hkv // tp, None
         else:
             i = r // (tp // hkv)
@@ -215,12 +238,24 @@ class Rank:
         dp = axes.get("data", 1)
         out = cls(tp=tp, rank=r, group=group,
                   root=dist.get_global_rank(group, 0),
-                  heads=hq // tp, kv_heads=kv_heads, kv_read=kv_read,
+                  heads=hq if whole else hq // tp, kv_heads=kv_heads,
+                  kv_read=kv_read, whole_heads=whole,
                   dp=dp, axes=axes,
                   data_rank=int(mesh["data"].get_local_rank())
                   if "data" in axes else 0,
                   data_group=mesh.get_group("data") if "data" in axes
                   else None)
+        if "pod" in axes:
+            out.pods = axes["pod"]
+            out.pod_rank = int(mesh["pod"].get_local_rank())
+            out.pod_group = mesh.get_group("pod")
+        out.batch_group = _batch_group(mesh) if "pod" in axes \
+            else out.data_group
+        for axis in ("model", "data", "pod", BATCH):
+            g = _group(out, axis)
+            if g is not None:
+                out.group_ranks[axis] = tuple(
+                    dist.get_process_group_ranks(g))
         if strategy is not None:
             out.seq_parallel = bool(strategy.seq_parallel) and tp > 1
             out.zero1 = bool(strategy.zero1)
@@ -232,9 +267,50 @@ class Rank:
     def kv_sharded(self) -> bool:
         return self.kv_read is None
 
-    def tally(self, what: str, x: torch.Tensor):
+    @property
+    def batch_dp(self) -> int:
+        """Ranks of the data-parallel axis :data:`BATCH`."""
+        return self.pods * self.dp
+
+    @property
+    def batch_rank(self) -> int:
+        """This rank's index on :data:`BATCH` (pod major)."""
+        return self.pod_rank * self.dp + self.data_rank
+
+    def tally(self, what: str, x: torch.Tensor, axis: str = "model"):
         self.counts[what] += 1
         self.bytes[what] += x.numel() * x.element_size()
+        self.axis_of[what] = axis
+
+
+#: the data-parallel axis: ("pod", "data"), or "data" on a mesh without
+#: "pod" (the reference's ``rules["batch"]``)
+BATCH = "batch"
+
+
+def _batch_group(mesh):
+    """The group over ("pod", "data") that holds the calling rank: every
+    rank creates one group a coordinate of the other axes, in one order
+    (``new_group`` is collective), kept on the mesh for later calls."""
+    cached = getattr(mesh, "_repro_batch_group", None)
+    if cached is not None:
+        return cached
+    names = list(mesh.mesh_dim_names)
+    lead = [names.index("pod"), names.index("data")]
+    rest = [i for i in range(len(names)) if i not in lead]
+    grid = mesh.mesh.permute(lead + rest)
+    grid = grid.reshape(grid.shape[0] * grid.shape[1], -1)
+    me, mine = dist.get_rank(), None
+    for col in range(grid.shape[1]):
+        ranks = [int(x) for x in grid[:, col]]
+        group = dist.new_group(ranks)
+        if me in ranks:
+            mine = group
+    try:
+        mesh._repro_batch_group = mine
+    except AttributeError:
+        pass
+    return mine
 
 
 @dataclass(frozen=True)
@@ -254,10 +330,11 @@ def cache_rows(cfg, length: int, *, ring: bool, cp: bool):
     all Hkv heads where ``length`` divides tp and either Hkv does not, or
     ``cp`` asks for it on a cache that is no ring (the context-parallel
     decode's reshard); else Hkv / tp heads where they divide, all of them
-    otherwise. Without a live rank: all heads, whole rows."""
+    otherwise. Without a live rank, or where the rank runs every head
+    (``Rank.whole_heads``): all heads, whole rows."""
     r = _live()
     hkv = cfg.num_kv_heads
-    if r is None:
+    if r is None or r.whole_heads:
         return hkv, None
     if length % r.tp == 0 and (hkv % r.tp or (cp and not ring)):
         n = length // r.tp
@@ -286,11 +363,11 @@ def _live() -> Optional[Rank]:
     return r if r is not None and r.tp > 1 else None
 
 
-def _sum_(x: torch.Tensor, group, r: Rank, what: str,
+def _sum_(x: torch.Tensor, axis: str, r: Rank, what: str,
           op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """``x`` summed (or ``op``) over ``group`` in place, tallied."""
-    r.tally(what, x)
-    dist.all_reduce(x, op=op, group=group)
+    """``x`` summed (or ``op``) over ``axis``'s group in place, tallied."""
+    r.tally(what, x, axis)
+    dist.all_reduce(x, op=op, group=_group(r, axis))
     return x
 
 
@@ -305,7 +382,7 @@ class _Sum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, r, what):
         return _sum_(x.clone(memory_format=torch.contiguous_format),
-                     r.group, r, what)
+                     "model", r, what)
 
     @staticmethod
     def backward(ctx, g):
@@ -323,15 +400,21 @@ class _Enter(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _sum_(g.clone(memory_format=torch.contiguous_format),
-                     ctx.r.group, ctx.r, ctx.what + ".grad"), None, None
+                     "model", ctx.r, ctx.what + ".grad"), None, None
 
 
 def _group(r: Rank, axis: str):
-    return r.group if axis == "model" else r.data_group
+    return {"model": r.group, "data": r.data_group, "pod": r.pod_group,
+            BATCH: r.batch_group}[axis]
 
 
 def axis_index(r: Rank, axis: str) -> int:
-    return r.rank if axis == "model" else r.data_rank
+    return {"model": r.rank, "data": r.data_rank, "pod": r.pod_rank,
+            BATCH: r.batch_rank}[axis]
+
+
+def axis_size(r: Rank, axis: str) -> int:
+    return r.batch_dp if axis == BATCH else r.axes.get(axis, 1)
 
 
 def fill_sum(part: torch.Tensor, shape, where, r: Rank, axis: str,
@@ -343,7 +426,7 @@ def fill_sum(part: torch.Tensor, shape, where, r: Rank, axis: str,
     full = part.new_zeros(shape) if out is None else out.zero_()
     if where is not None:
         full[where] = part
-    return _sum_(full, _group(r, axis), r, what)
+    return _sum_(full, axis, r, what)
 
 
 class _Assemble(torch.autograd.Function):
@@ -364,7 +447,7 @@ class _Assemble(torch.autograd.Function):
     def backward(ctx, g):
         if ctx.summed:              # every rank takes part, writer or not
             g = _sum_(g.clone(memory_format=torch.contiguous_format),
-                      _group(ctx.r, ctx.axis), ctx.r, ctx.what + ".grad")
+                      ctx.axis, ctx.r, ctx.what + ".grad")
         if ctx.where is None:
             return (None,) * 7
         return (g[ctx.where].contiguous(),) + (None,) * 6
@@ -385,7 +468,7 @@ class _Scatter(torch.autograd.Function):
         ctx.shape = x.shape
         if summed:
             x = _sum_(x.clone(memory_format=torch.contiguous_format),
-                      r.group, r, what)
+                      "model", r, what)
         n = x.shape[dim] // r.tp
         return x[slice_at(dim, r.rank, n)].contiguous()
 
@@ -410,7 +493,7 @@ def all_reduce(x: torch.Tensor, what: str,
         if op != dist.ReduceOp.SUM:
             raise ValueError(f"{what}: only a sum trains")
         return _Sum.apply(x, r, what)
-    return _sum_(x, r.group, r, what, op)
+    return _sum_(x, "model", r, what, op)
 
 
 def enter(x: torch.Tensor, what: str) -> torch.Tensor:
@@ -481,19 +564,45 @@ def reduce_out(x: torch.Tensor, what: str, *, seq: bool = False):
     return seq_scatter(x, what) if seq else all_reduce(x, what)
 
 
+#: the regions that run on every head where the rank holds them all
+HEAD_REGIONS = ("attn", "xattn", "cross")
+
+
+def whole_heads() -> bool:
+    """Whether the current rank runs every attention head
+    (``Rank.whole_heads``: Hq does not divide tp)."""
+    r = _live()
+    return r is not None and r.whole_heads
+
+
 def region_in(h: torch.Tensor, what: str, *, seq: bool = False):
     """The input of a split region (column-parallel projections): under
-    sequence parallelism the sequence gathered, then ``enter``."""
+    sequence parallelism the sequence gathered, then ``enter``. An
+    attention region (:data:`HEAD_REGIONS`) on a rank that runs every
+    head is no split region: its gradient is whole already, so no
+    ``enter``."""
     if seq:
         h = seq_gather(h, what + "_seq")
+    if what in HEAD_REGIONS and whole_heads():
+        return h
     return enter(h, what + "_in")
+
+
+def heads_out(x: torch.Tensor, what: str, *, seq: bool = False):
+    """An attention region's output projection: the row-parallel partial
+    summed (``reduce_out``), or on a rank that runs every head the whole
+    output as it is (``seq``: the rank's slice of it)."""
+    if whole_heads():
+        return seq_split(x, what) if seq else x
+    return reduce_out(x, what, seq=seq)
 
 
 def data_rows() -> Optional[Rank]:
     """The current rank where the step in flight runs on its rows of a
-    batch split over "data" (dp > 1), else None."""
+    batch split over :data:`BATCH` (more than one rank there), else
+    None."""
     r = current()
-    return r if r is not None and r.dp > 1 and r.split_rows else None
+    return r if r is not None and r.batch_dp > 1 and r.split_rows else None
 
 
 @contextmanager
@@ -513,21 +622,21 @@ def step_rows(r: Rank, split: bool):
 
 def axis_sum(x: torch.Tensor, axis: str, what: str,
              r: Optional[Rank] = None) -> torch.Tensor:
-    """``x`` summed over ``axis`` ("model" or "data") of rank ``r``
-    (default: the current one) in place, no gradient; a no-op where the
-    axis has one rank."""
+    """``x`` summed over ``axis`` ("model", "data", "pod" or
+    :data:`BATCH`) of rank ``r`` (default: the current one) in place, no
+    gradient; a no-op where the axis has one rank."""
     r = r if r is not None else current()
-    if r is None or r.axes.get(axis, 1) == 1:
+    if r is None or axis_size(r, axis) == 1:
         return x
-    return _sum_(x, _group(r, axis), r, what)
+    return _sum_(x, axis, r, what)
 
 
 def data_assemble(part: torch.Tensor, what: str) -> torch.Tensor:
-    """(dp, *part.shape): every data rank's ``part`` stacked, by one
-    zero-filled sum over "data" (no gradient)."""
+    """(batch_dp, *part.shape): every data-parallel rank's ``part``
+    stacked, by one zero-filled sum over :data:`BATCH` (no gradient)."""
     r = current()
-    return fill_sum(part, (r.dp,) + tuple(part.shape), r.data_rank, r,
-                    "data", what)
+    return fill_sum(part, (r.batch_dp,) + tuple(part.shape), r.batch_rank,
+                    r, BATCH, what)
 
 
 def broadcast_from_root(x: torch.Tensor, what: str) -> torch.Tensor:
@@ -535,7 +644,7 @@ def broadcast_from_root(x: torch.Tensor, what: str) -> torch.Tensor:
     r = _live()
     if r is None:
         return x
-    r.tally(what, x)
+    r.tally(what, x, "model")
     dist.broadcast(x, src=r.root, group=r.group)
     return x
 
@@ -855,7 +964,7 @@ def _assemble_segments(block, dim: int, ax: Segmented, r: Rank,
             full.narrow(dim, start, length).copy_(
                 block.narrow(dim, at, length))
         at += length
-    return _sum_(full, _group(r, ax), r, what)
+    return _sum_(full, ax, r, what)
 
 
 # ------------------------------------------------------- sharding leaves

@@ -114,5 +114,8 @@ def shard_batch(batch: Dict[str, np.ndarray], dp: int, index: int, *,
         if isinstance(v, np.ndarray):
             out[key] = v[take]
         else:
-            out[key] = v[torch.from_numpy(take).to(v.device)]
+            # slices (one view a microbatch), the same ops on any device
+            parts = [v[i * mb + index * per:i * mb + (index + 1) * per]
+                     for i in range(microbatches)]
+            out[key] = parts[0] if len(parts) == 1 else torch.cat(parts)
     return out

@@ -26,16 +26,21 @@ taken one kv-head group at a time so that at S = T = 4096 it holds four
 of ``(B, Hq, S, T)`` (10.7 GB).
 
 :func:`flash_attention` takes the plain version only for a tensor on the
-CPU; on a CUDA tensor it launches the kernel or raises.
+CPU; on a CUDA tensor it launches the kernel or raises. On a meta tensor
+it takes the branch of the device the tensor stands in for
+(``kernels/dispatch.py``): for "cuda" the kernel's checks and output,
+launching nothing. :func:`cost` is the kernel's work, charged on every
+launch (``dispatch.charge``).
 """
 from __future__ import annotations
 
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, dispatch
 from repro_torch.kernels.ref import (NEG_INF, causal_window_mask,
                                      flash_attention_ref)
 
@@ -46,6 +51,27 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
     return flash_attention_ref(q, k.repeat_interleave(rep, dim=2),
                                v.repeat_interleave(rep, dim=2),
                                causal=causal, window=window)
+
+
+def live_pairs(s: int, t: int, *, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks leave live in one (batch, head): the
+    function's work, which the kernel does, skipping every key tile that
+    holds none."""
+    i = np.arange(s, dtype=np.int64)
+    hi = np.minimum(i, t - 1) if causal else np.full(s, t - 1, np.int64)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(s,
+                                                                    np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def cost(b: int, s: int, t: int, hq: int, hkv: int, d: int, *,
+         causal: bool = True, window: int = 0, esize: int = 2):
+    """(flops, bytes) of one forward: Q·Kᵀ and P·V over the live pairs
+    (4·D a pair and query head), q and the output written once, K and V
+    read once (``esize`` bytes an element)."""
+    pairs = b * live_pairs(s, t, causal=causal, window=window)
+    return (4.0 * hq * d * pairs,
+            esize * (2 * b * s * hq * d + 2 * b * t * hkv * d))
 
 
 def kernel_limits(dtype, hq: int, hkv: int, d: int) -> Optional[str]:
@@ -83,7 +109,8 @@ def launch_entry(q, k, v, out, *, causal: bool, window: int) -> int:
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
-    """Launch the CUDA kernel on PyTorch's current stream."""
+    """Launch the CUDA kernel on PyTorch's current stream (on meta
+    tensors: its checks and output, no launch)."""
     b, s, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     if k.shape != (b, t, hkv, d) or v.shape != k.shape:
@@ -95,17 +122,22 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
                         f"q/k/v of one dtype, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
     for a in (q, k, v):
-        if not a.is_cuda or not a.is_contiguous():
+        if not dispatch.on_card(a) or not a.is_contiguous():
             raise ValueError("flash_attention kernel takes contiguous CUDA "
                              "tensors")
     why = kernel_limits(q.dtype, hq, hkv, d)
     if why:
         raise ValueError(f"flash_attention kernel {why}")
     out = torch.empty_like(q)
-    # the C entry checks the same limits (csrc/flash_attention.cu)
-    build.check(launch_entry(q, k, v, out, causal=causal, window=window),
-                f"flash_attention at Hq={hq} Hkv={hkv} D={d} S={s}")
-    flash_attention.launches += 1
+    if not q.is_meta:
+        # the C entry checks the same limits (csrc/flash_attention.cu)
+        build.check(launch_entry(q, k, v, out, causal=causal,
+                                 window=window),
+                    f"flash_attention at Hq={hq} Hkv={hkv} D={d} S={s}")
+        flash_attention.launches += 1
+    dispatch.charge("flash_attention",
+                    cost(b, s, t, hq, hkv, d, causal=causal, window=window,
+                         esize=q.element_size()))
     return out
 
 
@@ -141,14 +173,15 @@ def flash_attention_bwd(q, k, v, g, *, causal: bool = True, window: int = 0):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward: the kernel (CUDA) or the plain version (CPU); backward:
+    """Forward: the kernel (CUDA, or meta for "cuda") or the plain version
+    (CPU, or meta for "cpu"); backward:
     :func:`flash_attention_bwd` on both."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
-        if q.device.type == "cpu":
+        if not dispatch.on_card(q):
             return flash_attention_plain(q, k, v, causal=causal,
                                          window=window)
         return flash_attention_cuda(q, k, v, causal=causal, window=window)

@@ -19,7 +19,11 @@ Contract: x ``(T, d)``; w_gate/w_up ``(d, f)``; w_down ``(f, d)`` ->
 accumulation and ``h`` cast to Wd's dtype before the down-projection.
 Ragged T, d and f are masked, not asserted; the bf16 kernels take d and f
 that are multiples of 8 (TMA's 16-byte row strides): ``kernel_limits``
-states it, and the wrapper raises ``ValueError`` otherwise.
+states it, and the wrapper raises ``ValueError`` otherwise. On a meta
+tensor the wrapper takes the branch of the device the tensor stands in
+for (``kernels/dispatch.py``): for "cuda" the kernels' checks, output and
+scratch (:func:`buffers`, on :data:`H100_SMS` SMs), launching nothing.
+:func:`cost` is the pair's work, charged on every launch.
 """
 from __future__ import annotations
 
@@ -28,7 +32,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, dispatch
+
+#: SMs of an H100 SXM: the split plan of a meta stand-in for the card
+H100_SMS = 132
 
 
 def fused_mlp_plain(x, w_gate, w_up, w_down):
@@ -69,6 +76,42 @@ def mlp_plan(t: int, d: int, f: int, sms: int):
     return down_splits, tail, gate_splits, scratch
 
 
+def cost(t: int, d: int, f: int, *, esize: int = 2):
+    """(flops, bytes) of one call: the three GEMMs (``6·T·d·f``), x read
+    and the output written once, each weight read once (``esize`` bytes
+    an element). ``h`` stays in L2 at the serving batch and is scratch,
+    not counted (:func:`buffers` sizes it)."""
+    return 6.0 * t * d * f, esize * (3 * d * f + 2 * t * d)
+
+
+def buffers(x, w_down, f: int):
+    """The wrapper's scratch for ``x`` (T, d): ``h`` (T, f) in Wd's dtype
+    and, for bf16, the split plan and its fp32 partials on the device's
+    SMs (:data:`H100_SMS` for a meta stand-in). Returns ``(h, partials,
+    plan)``; ``partials`` and ``plan`` None for fp32."""
+    t, d = x.shape
+    h = torch.empty((t, f), dtype=w_down.dtype, device=x.device)
+    if x.dtype != torch.bfloat16:
+        return h, None, None
+    *plan, scratch = mlp_plan(t, d, f, _sms(x))
+    partials = torch.empty((scratch,), dtype=torch.float32, device=x.device)
+    return h, partials, plan
+
+
+def _sms(x) -> int:
+    return H100_SMS if x.is_meta else torch.cuda.get_device_properties(
+        x.device).multi_processor_count
+
+
+def scratch_bytes(x, w_down, f: int) -> int:
+    """Bytes of :func:`buffers`' scratch, allocating nothing."""
+    t, d = x.shape
+    out = t * f * w_down.element_size()
+    if x.dtype == torch.bfloat16:
+        out += 4 * mlp_plan(t, d, f, _sms(x))[-1]
+    return out
+
+
 def kernel_limits(dtype, d: int, f: int) -> Optional[str]:
     """Why the kernels cannot take these widths, or None: the limits the C
     entries check (``csrc/fused_mlp.cu`` header), stated on the host so
@@ -91,16 +134,12 @@ def launch_entry(x, w_gate, w_up, w_down, out) -> int:
     tests call this past them to hold the table to the C entries."""
     t, d = x.shape
     f = w_gate.shape[1]
-    h = torch.empty((t, f), dtype=w_down.dtype, device=x.device)
+    h, partials, plan = buffers(x, w_down, f)
     lib = build.load("fused_mlp")
     ptrs = (x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
             w_down.data_ptr(), h.data_ptr())
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if x.dtype == torch.bfloat16:
-        *plan, scratch = mlp_plan(t, d, f, torch.cuda.get_device_properties(
-            x.device).multi_processor_count)
-        partials = torch.empty((scratch,), dtype=torch.float32,
-                               device=x.device)
         return lib.fused_mlp_bf16(*ptrs, partials.data_ptr(),
                                   out.data_ptr(), t, d, f, *plan, stream)
     return lib.fused_mlp_f32(*ptrs, out.data_ptr(), t, d, f, stream)
@@ -127,27 +166,33 @@ def fused_mlp_cuda(x, w_gate, w_up, w_down):
         raise TypeError("fused_mlp kernel takes float32 or bfloat16 x and "
                         "weights of one dtype")
     for a in (x, w_gate, w_up, w_down):
-        if not a.is_cuda or not a.is_contiguous():
+        if not dispatch.on_card(a) or not a.is_contiguous():
             raise ValueError("fused_mlp kernel takes contiguous CUDA "
                              "tensors")
     why = kernel_limits(x.dtype, d, f)
     if why:
         raise ValueError(f"fused_mlp kernel {why}")
     out = torch.empty((t, d), dtype=x.dtype, device=x.device)
-    # the C entry checks the same limits (csrc/fused_mlp.cu)
-    build.check(launch_entry(x, w_gate, w_up, w_down, out), "fused_mlp")
-    fused_mlp.launches += 1
+    if x.is_meta:
+        buffers(x, w_down, f)         # launch_entry's allocations only
+    else:
+        # the C entry checks the same limits (csrc/fused_mlp.cu)
+        build.check(launch_entry(x, w_gate, w_up, w_down, out), "fused_mlp")
+        fused_mlp.launches += 1
+    dispatch.charge("fused_mlp", cost(t, d, f, esize=x.element_size()),
+                    scratch_bytes(x, w_down, f))
     return out
 
 
 def fused_mlp(x, w_gate, w_up, w_down):
     """Dispatch by device: the plain version for CPU tensors, the CUDA
-    kernels for CUDA tensors (which raise when a gradient is required:
+    kernels for CUDA tensors and meta ones standing in for them (which
+    raise when a gradient is required:
     the kernel pair has no backward). ``x`` may carry leading batch axes.
     ``fused_mlp.launches`` counts calls that launched the kernel pair."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if x.device.type == "cpu":
+    if not dispatch.on_card(x):
         y = fused_mlp_plain(x2, w_gate, w_up, w_down)
     else:
         y = fused_mlp_cuda(x2.contiguous(), w_gate, w_up, w_down)

@@ -20,7 +20,11 @@ positions ``[0, pos[b]]`` (``kv_len = pos + 1``). Query head ``h`` reads
 KV head ``h // (Hq // Hkv)``. Returns ``(B, 1, Hq, D)`` in q's dtype.
 
 :func:`paged_attention` takes the plain version only for a tensor on the
-CPU; on a CUDA tensor it launches the kernel or raises.
+CPU; on a CUDA tensor it launches the kernel or raises. On a meta tensor
+it takes the branch of the device the tensor stands in for
+(``kernels/dispatch.py``): for "cuda" the kernel's checks, output and
+scratch (:func:`scratch_bytes`), launching nothing. :func:`cost` is the
+kernel's work, charged on every launch.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, dispatch
 from repro_torch.models.kvcache import gather_pages
 
 NEG_INF = -1e30
@@ -227,8 +231,8 @@ def device_tile_plan(page_table, pos, page_size: int, rep: int):
     :func:`tile_plan` returns it (for tests)."""
     b, n_blocks = page_table.shape
     lib = build.load("paged_attention")
-    plan = torch.zeros(_scratch_bytes(lib, b, rep, 8, n_blocks,
-                                      page_size)[0] // 4,
+    plan = torch.zeros(scratch_bytes(b, rep, 8, n_blocks,
+                                     page_size)[0] // 4,
                        dtype=torch.int32, device=page_table.device)
     code = lib.paged_attention_plan(
         page_table.data_ptr(), pos.data_ptr(), plan.data_ptr(), b,
@@ -275,21 +279,66 @@ def kernel_limits(dtype, page_size: int, hq: int, hkv: int,
     return None
 
 
-_SCRATCH = {}
+#: keys a split segment (``SPLIT_TILES`` x ``BN`` of csrc/paged_attention.cu)
+SEGMENT_KEYS = 256
 
 
-def _scratch_bytes(lib, b: int, hq: int, d: int, n_blocks: int,
-                   page_size: int):
+def scratch_bytes(b: int, hq: int, d: int, n_blocks: int, page_size: int):
     """Bytes of the bf16 entry's plan and split partials at (B, Hq, D) over
-    a table of ``n_blocks`` pages (a row's key segments), the plan's
-    rounded up to 256 so that the partials stay aligned."""
-    key = (b, hq, d, n_blocks, page_size)
-    if key not in _SCRATCH:
-        sizes = (ctypes.c_longlong * 2)()
-        lib.paged_attention_bf16_scratch(b, hq, d, n_blocks, page_size,
-                                         sizes)
-        _SCRATCH[key] = (-(-sizes[0] * 4 // 256) * 256, sizes[1] * 4)
-    return _SCRATCH[key]
+    a table of ``n_blocks`` pages, the plan's rounded up to 256 so that the
+    partials stay aligned: the C entry's ``paged_attention_bf16_scratch``
+    (plan ints ``items_at(b) + 4 b segs``, partials ``b segs Hq (D + 2)``
+    floats, ``segs`` a row's key segments). :func:`c_scratch_bytes` asks
+    the built library; the card's tests hold the two equal."""
+    segs = -(-n_blocks * page_size // SEGMENT_KEYS)
+    plan = ((4 + 2 * b + 3) & ~3) + 4 * b * segs
+    return -(-plan * 4 // 256) * 256, b * segs * hq * (d + 2) * 4
+
+
+def c_scratch_bytes(lib, b: int, hq: int, d: int, n_blocks: int,
+                    page_size: int):
+    """:func:`scratch_bytes` from the C entry's own sizes."""
+    sizes = (ctypes.c_longlong * 2)()
+    lib.paged_attention_bf16_scratch(b, hq, d, n_blocks, page_size, sizes)
+    return -(-sizes[0] * 4 // 256) * 256, sizes[1] * 4
+
+
+def live_tokens(page_table: np.ndarray, pos: np.ndarray,
+                page_size: int) -> int:
+    """Distinct (page, slot) positions the rows read: each row reads the
+    first ``kv_len = pos + 1`` positions of its table (clamped to it), and
+    a page that rows share is read once."""
+    b, width = page_table.shape
+    kv = np.clip(pos.astype(np.int64) + 1, 0, width * page_size)
+    held = np.zeros(int(page_table.max(initial=0)) + 1, np.int64)
+    cols = np.arange(width)
+    for r in range(b):
+        fill = np.clip(kv[r] - cols * page_size, 0, page_size)
+        np.maximum.at(held, page_table[r], fill)
+    return int(held.sum())
+
+
+def cost(page_table, pos, hq: int, hkv: int, d: int, page_size: int, *,
+         esize: int = 2):
+    """(flops, bytes) of one call: Q·Kᵀ and P·V over each row's ``kv_len``
+    keys (4·D a key and query head), the distinct live K and V read once
+    (:func:`live_tokens`), q and the output, the table and the cursors
+    (int32). ``page_table`` and ``pos`` are host arrays; None for a meta
+    stand-in, which has no data: then every row at its table's full width
+    over pages of its own (the most the call could need)."""
+    if page_table is None:
+        b, width = pos
+        kv_sum = live = b * width * page_size
+        tab_n, pos_n = b * width, b
+    else:
+        b, width = page_table.shape
+        kv_sum = int(np.clip(pos.astype(np.int64) + 1, 0,
+                             width * page_size).sum())
+        live = live_tokens(page_table, pos, page_size)
+        tab_n, pos_n = page_table.size, pos.size
+    return (4.0 * hq * d * kv_sum,
+            live * hkv * d * 2 * esize + 2 * b * hq * d * esize
+            + 4 * (tab_n + pos_n))
 
 
 def launch_entry(q, k_pages, v_pages, page_table, pos, out) -> int:
@@ -304,9 +353,9 @@ def launch_entry(q, k_pages, v_pages, page_table, pos, out) -> int:
     if q.dtype == torch.bfloat16:
         # the plan and the split partials (csrc/paged_attention.cu), one
         # allocation
-        plan_bytes, part_bytes = _scratch_bytes(lib, b, hq, d,
-                                                page_table.shape[1],
-                                                page_size)
+        plan_bytes, part_bytes = scratch_bytes(b, hq, d,
+                                               page_table.shape[1],
+                                               page_size)
         scratch = torch.empty(plan_bytes + part_bytes, dtype=torch.uint8,
                               device=q.device)
         return lib.paged_attention_bf16(
@@ -338,27 +387,41 @@ def paged_attention_cuda(q, k_pages, v_pages, page_table, pos):
         raise ValueError(f"table {tuple(page_table.shape)} / pos "
                          f"{tuple(pos.shape)} do not match B={b}")
     for t in (q, k_pages, v_pages, page_table, pos):
-        if not t.is_cuda or not t.is_contiguous():
+        if not dispatch.on_card(t) or not t.is_contiguous():
             raise ValueError("paged_attention kernel takes contiguous CUDA "
                              "tensors")
     why = kernel_limits(q.dtype, page_size, hq, hkv, d)
     if why:
         raise ValueError(f"paged_attention kernel {why}")
     out = torch.empty_like(q)
-    # the C entry checks the same limits (csrc/paged_attention.cu)
-    code = launch_entry(q, k_pages, v_pages, page_table, pos, out)
-    if code:
-        build.check(code, f"paged_attention at Hq={hq} Hkv={hkv} D={d} "
-                          f"page_size={page_size}")
-    paged_attention.launches += 1
+    scratch = sum(scratch_bytes(b, hq, d, page_table.shape[1], page_size)) \
+        if q.dtype == torch.bfloat16 else 0
+    if q.is_meta:
+        if scratch:                   # launch_entry's allocation only
+            torch.empty(scratch, dtype=torch.uint8, device=q.device)
+        work = cost(None, tuple(page_table.shape), hq, hkv, d, page_size,
+                    esize=q.element_size())
+    else:
+        # the C entry checks the same limits (csrc/paged_attention.cu)
+        code = launch_entry(q, k_pages, v_pages, page_table, pos, out)
+        if code:
+            build.check(code, f"paged_attention at Hq={hq} Hkv={hkv} D={d} "
+                              f"page_size={page_size}")
+        paged_attention.launches += 1
+
+        def work():
+            return cost(page_table.cpu().numpy(), pos.cpu().numpy(), hq,
+                        hkv, d, page_size, esize=q.element_size())
+    dispatch.charge("paged_attention", work, scratch)
     return out
 
 
 def paged_attention(q, k_pages, v_pages, page_table, pos):
     """Dispatch by device: the plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors. ``paged_attention.launches`` counts kernel
+    kernel for CUDA tensors (a meta tensor takes the branch of the device
+    it stands in for). ``paged_attention.launches`` counts kernel
     launches."""
-    if q.device.type == "cpu":
+    if not dispatch.on_card(q):
         return paged_attention_plain(q, k_pages, v_pages, page_table, pos)
     return paged_attention_cuda(q, k_pages, v_pages, page_table, pos)
 

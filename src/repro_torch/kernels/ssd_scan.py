@@ -23,7 +23,11 @@ states on the host the shapes the kernel takes (p <= 64, n <= 128, at
 most 128 rows a chunk). The kernel has no
 backward: with a gradient required, callers take :func:`ssd_scan_plain`
 (``models/ssm.py::ssd_chunked`` does so by itself), as the reference
-trains through plain jnp.
+trains through plain jnp. On a meta tensor the wrapper takes the branch of
+the device the tensor stands in for (``kernels/dispatch.py``): for "cuda"
+the kernel's checks, outputs and scratch (:func:`scratch_words`),
+launching nothing. :func:`cost` is the scan's work, charged on every
+launch.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, dispatch
 from repro_torch.kernels.fused_mlp import needs_grad
 
 
@@ -125,16 +129,36 @@ def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 128):
     return y.to(x.dtype), hstate
 
 
-_SCRATCH = {}
+def scratch_words(b: int, s: int, h: int, p: int, n: int, q: int) -> int:
+    """fp32 words of scratch the kernel needs at (b, s, h, p, n, q), at
+    least 1: the C entry's ``scratch_layout`` (``csrc/ssd_scan.cu``), C·Bᵀ
+    (b, nc, q, q), the cumulative decay (b, s, h) and the chunk states (b,
+    nc, h, p, n). :func:`c_scratch_words` asks the built library; the
+    card's tests hold the two equal."""
+    nc = s // q
+    return max(b * nc * q * q + b * s * h + b * nc * h * p * n, 1)
 
 
-def _scratch_words(lib, *shape) -> int:
-    """fp32 words of scratch the kernel needs at (b, s, h, p, n, q)."""
-    if shape not in _SCRATCH:
-        size = (ctypes.c_longlong * 1)()
-        lib.ssd_scan_scratch(*shape, size)
-        _SCRATCH[shape] = max(size[0], 1)
-    return _SCRATCH[shape]
+def c_scratch_words(lib, *shape) -> int:
+    """:func:`scratch_words` as the C entry ``ssd_scan_scratch`` gives it."""
+    size = (ctypes.c_longlong * 1)()
+    lib.ssd_scan_scratch(*shape, size)
+    return max(size[0], 1)
+
+
+def cost(b: int, s: int, h: int, p: int, n: int, *, chunk: int = 128,
+         esize: int = 2):
+    """(flops, bytes) of one scan: x and y, B and C (``esize`` bytes an
+    element), dt, A and the final state (fp32) each read or written once;
+    C·Bᵀ once a chunk, and per head the intra-chunk y over the causal
+    (i, j) pairs of a chunk, the inter-chunk y and the chunk state."""
+    q = chunk_rows(s, chunk)
+    nc = s // q
+    pairs = q * (q + 1) // 2
+    nbytes = (esize * (2 * b * s * h * p + 2 * b * s * n)
+              + 4 * (b * s * h + h + b * h * p * n))
+    flops = 2.0 * b * nc * (pairs * n + h * (pairs * p + 2 * q * n * p))
+    return flops, nbytes
 
 
 def launch_entry(x, dt, A, B, C, y, h_last, *, q: int) -> int:
@@ -147,7 +171,7 @@ def launch_entry(x, dt, A, B, C, y, h_last, *, q: int) -> int:
     n = B.shape[-1]
     lib = build.load("ssd_scan")
     # C·Bᵀ, the cumulative decay and the chunk states (csrc/ssd_scan.cu)
-    scratch = torch.empty(_scratch_words(lib, b, s, h, p, n, q),
+    scratch = torch.empty(scratch_words(b, s, h, p, n, q),
                           dtype=torch.float32, device=x.device)
     fn = lib.ssd_scan_bf16 if x.dtype == torch.bfloat16 else lib.ssd_scan_f32
     return fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
@@ -182,7 +206,7 @@ def ssd_scan_cuda(x, dt, A, B, C, *, chunk: int = 128):
             f"dtype and float32 dt, A; got x {x.dtype}, B {B.dtype}, C "
             f"{C.dtype}, dt {dt.dtype}, A {A.dtype}")
     for a in (x, dt, A, B, C):
-        if not a.is_cuda:
+        if not dispatch.on_card(a):
             raise ValueError("ssd_scan kernel takes CUDA tensors")
     if x.stride(3) != 1 or x.stride(2) != p or dt.stride(2) != 1 or \
             B.stride(2) != 1 or C.stride(2) != 1 or not A.is_contiguous():
@@ -195,19 +219,26 @@ def ssd_scan_cuda(x, dt, A, B, C, *, chunk: int = 128):
         raise ValueError(f"ssd_scan kernel {why}")
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     h_last = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
-    # the C entry checks the same limits, and its grids' sizes
-    # (csrc/ssd_scan.cu)
-    build.check(launch_entry(x, dt, A, B, C, y, h_last, q=q),
-                f"ssd_scan at h={h} p={p} n={n} q={q}")
-    ssd_scan.launches += 1
+    words = scratch_words(b, s, h, p, n, q)
+    if x.is_meta:                     # launch_entry's allocation only
+        torch.empty(words, dtype=torch.float32, device=x.device)
+    else:
+        # the C entry checks the same limits, and its grids' sizes
+        # (csrc/ssd_scan.cu)
+        build.check(launch_entry(x, dt, A, B, C, y, h_last, q=q),
+                    f"ssd_scan at h={h} p={p} n={n} q={q}")
+        ssd_scan.launches += 1
+    dispatch.charge("ssd_scan", cost(b, s, h, p, n, chunk=q,
+                                     esize=x.element_size()), 4 * words)
     return y, h_last
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 128):
     """Dispatch by device: the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors (which raises when a gradient is required).
-    ``ssd_scan.launches`` counts calls that launched the kernel."""
-    if x.device.type == "cpu":
+    ``ssd_scan.launches`` counts calls that launched the kernel. A meta
+    tensor takes the branch of the device it stands in for."""
+    if not dispatch.on_card(x):
         return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
     return ssd_scan_cuda(x, dt, A, B, C, chunk=chunk)
 

@@ -13,12 +13,16 @@ alike on the torch releases the port runs on are used on a mesh:
 ``mesh.size(dim)`` and ``mesh.get_group(axis)``.
 
 ``make_pipeline_mesh`` adds the inter-operator "pipe" axis between the two
-(``core/pipeline.py`` moves stage outputs along it).
+(``core/pipeline.py`` moves stage outputs along it). ``fake_mesh`` lays a
+mapping such as ``{"data": 16, "model": 16}`` over a process group that
+moves no data, with the calling process as one of its ranks: the dry-run
+(``api/session.py::Session.lower``) traces a rank's step on it.
 """
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from contextlib import contextmanager
+from typing import Mapping, Sequence
 
 import torch.distributed as dist
 
@@ -77,3 +81,33 @@ def make_pipeline_mesh(*, data: int, pipe: int, model: int,
     2), ranks laid out row-major as the reference's mesh."""
     return make_mesh((data, pipe, model), ("data", "pipe", "model"),
                      device_type=device_type)
+
+
+@contextmanager
+def fake_mesh(axes: Mapping[str, int], rank: int = 0):
+    """A ``DeviceMesh`` of ``axes`` (``{name: size}``, row-major) over a
+    process group of ``prod(sizes)`` ranks on PyTorch's ``"fake"``
+    backend, whose collectives return at once and move nothing, with the
+    calling process as ``rank``. The group is destroyed when the block
+    ends, errors included. Raises ``ValueError`` when a process group is
+    already initialised: a fake group of hundreds of ranks cannot sit
+    beside a caller's default group."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    names = tuple(axes)
+    shape = tuple(int(axes[a]) for a in names)
+    world = math.prod(shape)
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} is not one of the {world} ranks of "
+                         f"{dict(axes)}")
+    if dist.is_initialized():
+        raise ValueError(
+            "a process group is already initialised: the dry-run makes a "
+            f"fake group of {world} ranks of its own and cannot run beside "
+            "it (call it from a process without one)")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    try:
+        yield init_device_mesh("cpu", shape, mesh_dim_names=names)
+    finally:
+        dist.destroy_process_group()

@@ -40,6 +40,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import tp
+from repro_torch.kernels import dispatch
 from repro_torch.models import kvcache
 
 #: the reference's mask value (cp_attention.py:58)
@@ -79,7 +80,7 @@ def local_stats(q, k, v, kpos, pos, window: int):
     b, _, hq, d = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, hkv, hq // hkv, d)
-    half = q.is_cuda and k.dtype != torch.float32
+    half = dispatch.on_card(q) and k.dtype != torch.float32
     if half:
         s = torch.stack([torch.bmm(qg[:, g], k[:, :, g].transpose(1, 2),
                                    out_dtype=torch.float32)

@@ -331,9 +331,9 @@ def decode_step(params, cache, token, pos, cfg):
         else pool["k"].shape[2] if sl is None else sl.total
     pos = torch.as_tensor(pos, device=dev).to(torch.int32)
     batched = pos.ndim > 0
-    at = torch.clamp(pos.long(), 0, w - 1)
-    pe = sinusoid(w, cfg.d_model, dev)[at]
-    pe = pe[:, None] if batched else pe[None, None]
+    at = torch.clamp(pos.long(), 0, w - 1).reshape(-1)
+    # a gather by a tensor index (no host read of the cursor)
+    pe = sinusoid(w, cfg.d_model, dev).index_select(0, at)[:, None]
     x = _lookup(params, token, cfg) + pe.to(_dtype(cfg))
     rows = pos if batched else pos.expand(token.shape[0]).contiguous()
     if paged:

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import tp
+from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_mlp import fused_mlp, needs_grad
 # decode-time block-table attention over the paged pool, q (B, 1, Hq, D):
@@ -190,13 +191,14 @@ def attention(q, k, v, *, causal: bool, window: int = 0, q_offset=0,
               kv_len=None, kpos=None, impl: str = "auto",
               q_chunk: int = 1024, kv_chunk: int = 1024):
     """Dispatching entry point used by all models: the reference's names
-    and its ``auto`` rule on the CPU. On a CUDA tensor ``auto`` and
+    and its ``auto`` rule on the CPU. On a CUDA tensor (or a meta one
+    standing in for it, ``kernels/dispatch.py``) ``auto`` and
     ``pallas`` over a full sequence (S > 1, no ``kv_len``/``kpos``, and
     for ``auto`` no ``q_offset``) run the flash kernel; ``full``,
     ``masked``/``chunked`` and ``triangle`` stay available by name."""
     s, t = q.shape[1], k.shape[1]
     full_seq = s > 1 and kv_len is None and kpos is None
-    if q.is_cuda and full_seq and (impl == "pallas" or (
+    if dispatch.on_card(q) and full_seq and (impl == "pallas" or (
             impl == "auto" and isinstance(q_offset, int) and q_offset == 0)):
         return flash_attention(q, k, v, causal=causal, window=window)
     if impl == "triangle" and (not causal or s != t or s % q_chunk):
@@ -223,7 +225,8 @@ def attn_qkv(p, x, cfg, *, positions=None, rope: bool = True):
     local heads. In training under a rank, the replicated leaves used on
     the rank's heads — ``q_norm``/``k_norm``, and ``wk``/``wv`` kept whole
     where Hkv does not divide tp — get their gradient summed over
-    "model" (``tp.enter``)."""
+    "model" (``tp.enter``), except on a rank that runs every head, where
+    the norms' gradient is whole already."""
     b, s, _ = x.shape
     wk, wv = p["wk"], p["wv"]
     if not tp.kv_split():
@@ -232,8 +235,11 @@ def attn_qkv(p, x, cfg, *, positions=None, rope: bool = True):
     k = (x @ wk).reshape(b, s, -1, cfg.head_dim)
     v = (x @ wv).reshape(b, s, -1, cfg.head_dim)
     if cfg.qk_norm:
-        q = rmsnorm(q, tp.enter(p["q_norm"], "qk_norm"), cfg.norm_eps)
-        k = rmsnorm(k, tp.enter(p["k_norm"], "qk_norm"), cfg.norm_eps)
+        qn, kn = p["q_norm"], p["k_norm"]
+        if not tp.whole_heads():
+            qn, kn = tp.enter(qn, "qk_norm"), tp.enter(kn, "qk_norm")
+        q = rmsnorm(q, qn, cfg.norm_eps)
+        k = rmsnorm(k, kn, cfg.norm_eps)
     if rope:
         if positions is None:
             positions = torch.arange(s, device=x.device)[None, :]
@@ -245,10 +251,11 @@ def attn_qkv(p, x, cfg, *, positions=None, rope: bool = True):
 def attn_out(p, ctx, cfg, *, sp: bool = False):
     """The output projection of the heads in ``ctx`` (a rank's local
     heads: its row block of ``wo``, summed over the ranks; ``sp``: the
-    reduce-scatter to the rank's sequence slice)."""
+    reduce-scatter to the rank's sequence slice; on a rank that runs
+    every head, ``tp.heads_out``: no sum)."""
     b, s = ctx.shape[:2]
-    return tp.reduce_out(ctx.reshape(b, s, -1) @ p["wo"], "attn_out",
-                         seq=sp)
+    return tp.heads_out(ctx.reshape(b, s, -1) @ p["wo"], "attn_out",
+                        seq=sp)
 
 
 # ----------------------------------------------------------------------- MLP

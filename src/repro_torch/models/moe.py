@@ -187,10 +187,11 @@ def _global_route(router_w, x, cfg, r, t_all: int, cap: int):
     expert, and this rank's share of the aux loss — the global
     ``E * sum_e me_e * ce_e`` with ``me`` summed over this rank's tokens
     only, so the data ranks' shares sum to it once. One zero-filled (dp,
-    E) sum of the expert counts (``"moe_counts"``)."""
+    E) sum of the expert counts over the data-parallel axis, "pod" x
+    "data" (``"moe_counts"``)."""
     gates, idx, probs = _route(router_w, x, cfg)
     counts = tp.data_assemble(expert_counts(idx, cfg), "moe_counts")
-    offset = counts[:r.data_rank].sum(0)
+    offset = counts[:r.batch_rank].sum(0)
     dest, keep = dispatch(idx, cfg, cap, offset=offset)
     me = probs.sum(0) / t_all
     ce = counts.sum(0).float() / (t_all * cfg.experts_per_token)
@@ -236,7 +237,7 @@ def moe_ffn(p, x, cfg, *, sp: bool = False):
     first, n_local, f_split = _layout(p, cfg)
     split = n_local < cfg.num_experts
     rows = tp.data_rows()
-    t_all = t * rows.dp if rows is not None else t
+    t_all = t * rows.batch_dp if rows is not None else t
     cap = capacity(t_all, cfg)
     with record_function("moe_route"):
         if rows is None:

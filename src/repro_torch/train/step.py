@@ -21,17 +21,19 @@ computes on the same global batch, which it takes whole on every rank:
 
 * ``data/pipeline.py::shard_batch`` gives the rank its rows — its
   contiguous share of every global microbatch — where the batch splits
-  over "data" (``rows_split``), else the whole batch;
+  over the data-parallel axis, "pod" x "data" (``tp.BATCH``,
+  ``rows_split``), else the whole batch;
 * the forward runs the rank's shards (Megatron TP, experts over
   "model", sequence parallelism, FSDP's layer gathers); the loss is the
   rank's share of the global batch's mean, and the MoE routes the global
   batch;
-* after the backward every gradient is summed over "data"
-  (``"dp_grads"``; not where FSDP's gather already summed it, and not
-  where the batch is whole on every data rank) and cut to the leaf's
-  update block (ZeRO-1);
+* after the backward every gradient is summed over that axis
+  (``"dp_grads"``; where FSDP's gather already summed it over "data",
+  over "pod" only; not at all where the batch is whole on every data
+  rank) and cut to the leaf's update block (ZeRO-1, over "data");
 * the norm, the optimizer and the metrics (``loss``, ``aux_loss``,
-  ``grad_norm``, summed over "data": ``"metrics"``) are the global
+  ``grad_norm``, summed over the data-parallel axis: ``"metrics"``) are
+  the global
   ones, equal on every rank.
 
 ``train_step.grads(params, batch)`` is the step up to there: (the
@@ -98,14 +100,16 @@ def init_opt_state(params, strategy: Strategy, rank=None):
 
 @torch.no_grad()
 def reduce_grads(grads, rank, split: bool):
-    """The rank's gradients summed over "data" where the rows were split
-    (a leaf FSDP gathers is summed already) and cut to each leaf's update
-    block."""
+    """The rank's gradients summed over the data-parallel axis
+    (``tp.BATCH``) where the rows were split (a leaf FSDP gathers is
+    summed over "data" already, so over "pod" only) and cut to each
+    leaf's update block."""
     out = {}
     for key, g in flatten(grads).items():
         lb = rank.leaves[key]
-        if split and lb.fsdp_dim is None:
-            g = tp.axis_sum(g.contiguous(), "data", "dp_grads", rank)
+        if split:
+            axis = tp.BATCH if lb.fsdp_dim is None else "pod"
+            g = tp.axis_sum(g.contiguous(), axis, "dp_grads", rank)
         out[key] = tp.zero_block(g, lb, rank)
     return unflatten(out)
 
@@ -161,16 +165,16 @@ def make_train_step(cfg, strategy: Strategy, *, lr: float = 3e-4,
         if r is None:
             return accumulate(params, batch)
         rows = len(batch["tokens"])
-        split = rows_split(rows, r.dp, n_micro)
+        split = rows_split(rows, r.batch_dp, n_micro)
         with tp.step_rows(r, split):
             grads, metrics = accumulate(params, shard_batch(
-                batch, r.dp, r.data_rank, microbatches=n_micro))
+                batch, r.batch_dp, r.batch_rank, microbatches=n_micro))
         with record_function("dp_grads"):
             grads = reduce_grads(grads, r, split)
             if split:
                 vec = torch.stack([metrics["loss"].float(),
                                    metrics["aux_loss"].float()])
-                tp.axis_sum(vec, "data", "metrics", r)
+                tp.axis_sum(vec, tp.BATCH, "metrics", r)
                 metrics = {"loss": vec[0], "aux_loss": vec[1]}
         return grads, metrics
 

@@ -1149,3 +1149,55 @@ def test_ssm_train_step_on_card_matches_cpu(cuda):
     for key, p in out["cpu"][1].items():
         torch.testing.assert_close(out["cuda"][1][key], p, atol=1e-4,
                                    rtol=1e-4)
+
+
+@pytest.mark.parametrize("b,hq,d,n_blocks,page_size", [
+    (256, 40, 128, 64, 16), (4, 40, 128, 64, 16), (4, 40, 128, 256, 16),
+    (8, 6, 64, 28, 16), (3, 16, 128, 7, 8), (1, 64, 128, 300, 64)])
+def test_paged_scratch_mirror_equals_the_c_entry(cuda, b, hq, d, n_blocks,
+                                                 page_size):
+    """The Python size of the bf16 entry's plan and partials (which the
+    wrapper allocates, on the card and on meta) is the C entry's."""
+    lib = kernels.build.load("paged_attention")
+    assert pa.scratch_bytes(b, hq, d, n_blocks, page_size) == \
+        pa.c_scratch_bytes(lib, b, hq, d, n_blocks, page_size)
+
+
+@pytest.mark.parametrize("shape", [(1, 1024, 48, 64, 128, 128),
+                                   (1, 77, 64, 64, 64, 77),
+                                   (2, 96, 4, 16, 8, 32),
+                                   (4, 512, 64, 64, 64, 128)])
+def test_ssd_scratch_mirror_equals_the_c_entry(cuda, shape):
+    lib = kernels.build.load("ssd_scan")
+    assert sk.scratch_words(*shape) == sk.c_scratch_words(lib, *shape)
+
+
+def test_meta_branch_charges_what_the_card_charges(cuda):
+    """Each wrapper on meta as the card's branch charges the cost, scratch
+    and launch the card's call charges, and allocates alike."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.roofline import Counter
+    gen = torch.Generator(device="cuda").manual_seed(36)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    xs = [rnd(1, 256, 8, 64), rnd(1, 256, 2, 64), rnd(64, 128),
+          rnd(128, 256), rnd(128, 256), rnd(256, 128), rnd(1, 128, 4, 16),
+          rnd(1, 128, 4, dtype=torch.float32).abs(),
+          -rnd(4, dtype=torch.float32).abs(), rnd(1, 128, 8),
+          rnd(1, 128, 8)]
+
+    def calls(q, k, x, wg, wu, wd, xs_, dt, a, bm, cm):
+        fa.flash_attention(q, k, k)
+        with torch.no_grad():
+            fm.fused_mlp(x, wg, wu, wd)
+            sk.ssd_scan(xs_, dt, a, bm, cm, chunk=64)
+
+    metas = [x.to("meta") for x in xs]
+    with Counter() as card:
+        calls(*xs)
+    with Counter() as meta, dispatch.as_device("cuda"):
+        calls(*metas)
+    assert meta.kernels == card.kernels and card.kernels
+    assert meta.flops == card.flops and meta.bytes == card.bytes

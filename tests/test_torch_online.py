@@ -649,21 +649,17 @@ def test_restore_survives_an_optimizer_step(tmp_path):
     assert torch.equal(other.params["embed"], saved)
 
 
-@pytest.mark.parametrize("method", ["from_plan", "dryrun", "lower"])
+@pytest.mark.parametrize("method", ["from_plan"])
 def test_planner_entry_points_raise_naming_item_12(weights, method):
-    """``dryrun`` and ``lower`` raise naming Queue 1 item 12b.
-    ``from_plan`` is ported: tests/test_api_session.py's one-device plan
-    (searched on H100, the reference's on H100's fields: the same
+    """``from_plan`` (``dryrun`` and ``lower`` are ported too:
+    tests/test_torch_dryrun.py): tests/test_api_session.py's one-device
+    plan (searched on H100, the reference's on H100's fields: the same
     degrees), materialised with no process group, against JAX's
     ``Session.from_plan(..., devices=1)`` on the same weights (the
     params setter on both): ``generate`` and ``serve()`` give JAX's
     tokens, then two training steps JAX's losses within 1e-4 and params
     within 5e-4 (the reference test's bounds), the session's params the
     trained ones."""
-    if method != "from_plan":
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            getattr(Session(CFG, device="cpu"), method)(None)
-        return
     import dataclasses
     from repro.api import Session as JaxSession
     from repro.api import plan as jax_plan

@@ -464,17 +464,16 @@ def test_submit_validation_and_backpressure(weights):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"planner": ("dryrun", "lower")}, "item 12"),
+    ({"planner": ()}, "item 12"),
     ({"mesh": {"pod": 1, "data": 1, "model": 1}}, "item 11")])
 def test_unported_engine_features_raise(weights, kw, item):
     """What is still missing raises naming its ROADMAP.md item: a mesh
     with an axis beside "data" and "model" (tensor-parallel serving of
     every family on a ("data", "model") mesh is ported:
-    tests/test_torch_tp.py), and the Session entry points that need
-    ``launch/{roofline,specs}`` (``dryrun``, ``lower``). ``from_plan``,
-    the planner's entry point, is ported: a one-chip plan's session
-    serves the engine's streams (speculative decode, the earlier case
-    here, is ported too)."""
+    tests/test_torch_tp.py). ``from_plan``, the planner's entry point,
+    is ported: a one-chip plan's session serves the engine's streams
+    (speculative decode, the earlier case here, is ported too; so are
+    ``dryrun`` and ``lower``: tests/test_torch_dryrun.py)."""
     from repro_torch.api import plan
     from repro_torch.configs.base import ShapeConfig
     _, _, params = weights

@@ -75,6 +75,17 @@ replicas' blocks are equal bit for bit, one checkpoint of the full tree
 is written, and ``serve()`` of the pp 2 plan raises the reference's
 ``ValueError``.
 
+The same spawn trains on ("pod", "data", "model") meshes (2, 1, 2) and,
+with ZeRO-1, (2, 2, 1): the batch rows, the loss normaliser and the
+gradient sums over pod x data, ZeRO-1's blocks over "data" alone; and a
+config of 6 query heads at (1, 4) (``Rank.whole_heads``: every rank runs
+all six, with and without SP). Each is held to JAX's unsharded step as
+above. On the (2, 2) mesh and both pod meshes each rank also counts its
+real step (``launch/roofline.py::Counter``), and ``Session.lower`` of
+the same step as that rank on meta (a "cpu" session, here in the test's
+process) must count the same FLOPs, bytes and collectives by label,
+exactly.
+
 This module imports JAX and the reference only in this process; the
 ranks import ``repro_torch`` only.
 """
@@ -102,6 +113,10 @@ GRAD_ATOL, GRAD_RTOL = 1e-6, 1e-5       # vs the port's one-device step
 METRIC_REL = 1e-5
 
 VLM = "llama-3.2-vision-90b"
+#: the qwen3 smoke with 6 query heads (Hkv 2): at tp 4 they do not split
+QWEN6 = "qwen3-14b/6 heads"
+#: arch -> (the smoke it varies, its config overrides)
+VARIANTS = {QWEN6: ("qwen3-14b", dict(num_heads=6))}
 
 #: the Strategy keyword of TP inside each expert
 TIE = dict(expert_parallel=False)
@@ -180,7 +195,19 @@ CASES = {
     "vlm 1x4": (VLM, (1, 4), {}, 16.0, "uniform", 1),
     "vlm 2x2 adafactor": (VLM, (2, 2), dict(optimizer="adafactor"), 16.0,
                           "uniform", 2),
+    # ("pod", "data", "model"): rows and gradient sums over pod x data,
+    # ZeRO-1's blocks over "data" alone
+    "qwen pod 2x1x2": ("qwen3-14b", (2, 1, 2), {}, 16.0, "uniform", 1),
+    "qwen pod 2x2x1": ("qwen3-14b", (2, 2, 1), dict(zero1=True), 16.0,
+                       "uniform", 1),
+    # 6 query heads over tp 4: every rank runs all of them
+    "qwen6 1x4": (QWEN6, (1, 4), {}, 16.0, "uniform", 1),
+    "qwen6 1x4 sp": (QWEN6, (1, 4), dict(seq_parallel=True), 16.0,
+                     "uniform", 1),
 }
+
+#: the cases each rank also counts, held to ``Session.lower`` on meta
+COUNTED = ("qwen 2x2", "qwen pod 2x1x2", "qwen pod 2x2x1")
 
 #: the batches: 4 x 64 tokens over the whole vocabulary, and over its
 #: first 4 ids (the router sends them to few experts: at the default
@@ -240,8 +267,10 @@ def _ref_key(case):
 
 def _cfg_kw(arch, cf):
     from repro.configs import get_smoke
+    arch, over = VARIANTS.get(arch, (arch, {}))
     return dict(get_smoke(arch).with_(dtype="float32",
-                                      moe_capacity_factor=cf).__dict__)
+                                      moe_capacity_factor=cf,
+                                      **over).__dict__)
 
 
 def _jax_ref(key):
@@ -331,13 +360,17 @@ def _jax_plan_ref(name):
 
 # ----------------------------------------------------------- the ranks
 
+def _mesh_names(shape):
+    return ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
+
+
 def _meshes():
     from repro_torch.launch.mesh import make_mesh
     cache = {}
 
     def get(shape):
         if shape not in cache:
-            cache[shape] = make_mesh(shape, ("data", "model"),
+            cache[shape] = make_mesh(shape, _mesh_names(shape),
                                      device_type="cpu")
         return cache[shape]
     return get
@@ -371,6 +404,26 @@ def _case_rank(mesh, case, kw, flat, data):
                            for k, v in flatten(opt[name]).items()}
                     for name in opt if name != "step"}
     return out
+
+
+def _counted_rank(mesh, case, kw, flat, data):
+    """One step of ``case`` on this rank under ``Counter``: its FLOPs,
+    bytes, kernels and collectives."""
+    from repro_torch.launch.roofline import Counter
+    cfg = ModelConfig(**kw)
+    st = Strategy(**_strategy_kw(case))
+    rank = tp.Rank.of(mesh, cfg, st, full_shapes(cfg))
+    params = from_numpy(flat, cfg, "cpu", shard=(st, mesh))
+    batch = _torch_batch(data)
+    step = tstep.make_train_step(cfg, st, lr=LR)
+    with tp.active(rank):
+        opt = tstep.init_opt_state(params, st)
+        counter = Counter(rank)
+        with counter:
+            step(params, opt, batch)
+    return {"coord": tp.coordinate(mesh), "rank": torch.distributed.get_rank(),
+            "flops": counter.flops, "bytes": counter.bytes,
+            "kernels": counter.kernels, "collectives": counter.collectives}
 
 
 def _session_rank(tmp, flat_kw):
@@ -513,6 +566,9 @@ def _all_ranks(rank, world, refs, tmp):
     for case, (kw, flat, tokens) in refs["cases"].items():
         out["cases"][case] = _case_rank(get_mesh(CASES[case][1]), case, kw,
                                         flat, tokens)
+    out["counted"] = {case: _counted_rank(get_mesh(CASES[case][1]), case,
+                                          *refs["cases"][case])
+                      for case in COUNTED}
     out["session"] = _session_rank(tmp, refs["session"])
     out["launcher"] = launcher.main(
         ["--device", "cpu", "--dp", "2", "--tp", "2", "--fsdp", "--steps",
@@ -557,8 +613,8 @@ def spawned(tmp_path_factory):
 
 
 def _axes(case):
-    data, model = CASES[case][1]
-    return {"data": data, "model": model}
+    shape = CASES[case][1]
+    return dict(zip(_mesh_names(shape), shape))
 
 
 def _leaves(case):
@@ -750,6 +806,39 @@ def test_collectives_by_label(spawned):
         s = r["cases"]["olmoe 2x2 tie sp"]["counts"]
         assert s["moe_seq"] == s["moe_out.grad"] == s["moe_gate.grad"] \
             == layers and "moe_seq.grad" not in s
+
+
+@pytest.mark.parametrize("case", COUNTED)
+def test_dryrun_counts_what_a_rank_issues(spawned, case):
+    """Each rank's real CPU step under ``Counter`` equals ``Session.lower``
+    of the same step as that rank on meta (a "cpu" session over a fake
+    group of the mesh's ranks, in this process): FLOPs, bytes and the
+    collectives by label (count, bytes, axis), exactly. On the pod
+    meshes the gradient sums run over pod x data (``"dp_grads"`` on the
+    data-parallel axis) and ZeRO-1's assembly over "data"."""
+    import torch.distributed as dist
+    from repro_torch.api import Session
+    from repro_torch.configs.base import ShapeConfig
+    ranks, _ = spawned
+    kw = _jax_ref(_ref_key(case))[0]
+    tokens = _batch(CASES[case][0], CASES[case][4])["tokens"]
+    shape = ShapeConfig("case", tokens.shape[1], tokens.shape[0], "train")
+    for r in ranks:
+        real = r["counted"][case]
+        _, lowered = Session(ModelConfig(**kw),
+                             strategy=Strategy(**_strategy_kw(case)),
+                             device="cpu", mesh=_axes(case)).lower(
+            shape, rank=real["rank"])
+        meta = lowered.counter
+        assert not dist.is_initialized()
+        assert meta.flops == real["flops"] > 0
+        assert meta.bytes == real["bytes"] > 0
+        assert meta.collectives == real["collectives"], case
+        assert meta.kernels == real["kernels"] == {}
+        if len(CASES[case][1]) == 3:
+            assert real["collectives"]["dp_grads"]["axis"] == tp.BATCH
+            if CASES[case][1][1] > 1:
+                assert real["collectives"]["zero_params"]["axis"] == "data"
 
 
 # ----------------------------------------- Session, launcher, checkpoints
