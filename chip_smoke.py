@@ -7,7 +7,7 @@ Phases (any failure exits non-zero; no result line is printed then).
 The phases on gloo rank processes (4's tp 2 and dp 2 x tp 2 runs, 19-33,
 35) run their single-process part in the order below, up to their ranks;
 their rank work then runs on one set of four rank processes (4's dp 2 x
-tp 2, then 24, 25, 28, 29, 31, 33, 35's training) and one set of two
+tp 2, then 24, 25, 28, 29, 31, 33, 35's training, 37, 38) and one set of two
 (4's tp 2, tp 2 families and CP runs, then 19 with 26, 35's serving, 23,
 21 with 32, 22, 27 with 30),
 each phase's in turn on the same processes (``_run_jobs``: a process's
@@ -751,6 +751,27 @@ start costs seconds), and each phase's checks after its set:
     "train_4k")`` on the 16 x 16 mesh, run by ``launch/dryrun.py`` in a
     process of its own with no card visible, started after phase 2: its
     record and trace seconds.
+37. THE VLM BEHIND THE DP x TP ROUTER, on phase 24's four rank
+    processes after phase 35's training: Llama-3.2-Vision-90B at full
+    width cut to one group (5 layers, 7.235 B params) through
+    ``Session.serve(dp=2, tp=2)``, two replicas of two ranks (32/4 heads
+    and d_ff 14336 a rank), phase 17's six requests with their images,
+    8 new tokens each: every request finishes, both replicas serve, the
+    same union of streams on every rank, flash and the fused MLP
+    launched as ``_vlm_want`` says, one ``attn_out`` and ``mlp_out`` sum a
+    layer a program. Prints tokens/s, decode p50, peak memory a rank and
+    requests a replica. The f32 check at one self and one cross layer:
+    every rank's union of streams and homes equal a dp 2 router's of the
+    same replicas unsharded on one device.
+38. SERVING ON A ("pod", "data", "model") MESH, on the same processes:
+    phase 4's tiny f32 config behind the router on (2, 1, 2) and (1, 2,
+    2), the union of the streams equal to the unsharded engine's on the
+    card, each rank's row its (pod, data) coordinate; then Qwen3-14B at
+    phase 19's 5 layers on (2, 1, 2), phase 19's shards, settings and
+    prompts on the paged mixed step: every request finishes, paged
+    attention and the fused MLP once a layer a program, and the union
+    of the streams equal to phase 19's mixed streams bit for bit. Prints
+    tokens/s, step p50 and the collectives by label.
 
 Last, every process the run started (nvcc, cuobjdump, the rank
 processes and the ``multiprocessing`` resource tracker their start
@@ -9529,6 +9550,37 @@ def _moe_sharded_rank(rank: int, mesh, seed: int, f32_ref: dict):
     return out
 
 
+def _moe_sharded_flops() -> dict:
+    """Phase 33's step as one rank of its (2, 2) mesh, traced on meta
+    (``Session.dryrun`` as the card's branch, no device) for each run of
+    ``MOE_SHARDED_RUNS``: its FLOPs a rank, and of them the expert
+    products' (three a layer over each data rank's ``C / batch_dp`` slots
+    of its experts, forward, remat recompute and two backward products
+    each), with what the whole capacity C would cost a rank."""
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.strategy import Strategy
+    from repro_torch.models.moe import capacity
+    cfg = get_config("olmoe-1b-7b").with_(num_layers=MOE_SHARDED_LAYERS)
+    dp, tp = SHARDED_MESH
+    shape = ShapeConfig("phase33", SHARDED_SEQ, SHARDED_BATCH, "train")
+    cap = capacity(SHARDED_SEQ * SHARDED_BATCH, cfg)
+    # a rank's experts x its d_ff of each: E / tp whole, or E at d_ff / tp
+    expert = 3 * 2 * (cfg.num_experts // tp) * cfg.d_model * cfg.d_ff \
+        * 4 * cfg.num_layers
+    out = {}
+    for name, kw in MOE_SHARDED_RUNS.items():
+        rec = Session(cfg, strategy=Strategy(dtype=cfg.dtype, **kw),
+                      device="cuda", mesh={"data": dp, "model": tp}).dryrun(
+            shape)
+        out[name] = {"flops": rec["roofline"]["hlo_flops"]
+                     / rec["roofline"]["chips"],
+                     "expert_flops": expert * -(-cap // dp),
+                     "whole_capacity_expert_flops": expert * cap}
+    return out
+
+
 def phase_moe_train_sharded(ranks, smi: str):
     """Phase 33: MoE TRAINING ON A MESH, on phase 24's four rank
     processes after phase 31 (``_moe_sharded_rank``): OLMoE-1B-7B at full
@@ -9568,6 +9620,13 @@ def phase_moe_train_sharded(ranks, smi: str):
             for name in MOE_SHARDED_RUNS}
     ep, tie = each["ep zero1"], each["tie zero1"]
     out["moe_out_bytes_a_sum"] = each
+    out["flops_a_rank"] = _moe_sharded_flops()
+    flops = out["flops_a_rank"]
+    log(f"[moe sharded train] FLOPs a rank (a dry-run of the step on meta): "
+        + "; ".join(f"{n} {f['flops']:.4e}, of which the expert products "
+                    f"{f['expert_flops']:.4e} (each data rank's C / 2 slots;"
+                    f" the whole capacity's {f['whole_capacity_expert_flops']:.4e})"
+                    for n, f in flops.items()))
     log(f"[moe sharded train] a moe_out sum's bytes with TP inside each "
         f"expert {tie / 1e6:.2f} MB, with the experts over 'model' "
         f"{ep / 1e6:.2f} MB ({tie / ep:.4f}x; sums a step "
@@ -9897,6 +9956,401 @@ def phase_plan_ranks(tp_ranks, tp: dict, sharded_ranks, sharded: dict,
     for r in sharded_ranks:
         r["strategy"] = repr(r["strategy"])
     return out
+
+
+# ---------------------------------------------------------- phases 37-38
+
+#: phase 37: Llama-3.2-Vision-90B at full width cut to phase 31's one
+#: group (``VLM_SHARDED_LAYERS``: 4 self and 1 cross layer, the unused
+#: trailing one; 7.235 B params) behind the dp 2 x tp 2 ``ReplicaRouter``
+#: on phase 24's four rank processes (``Session.serve(dp=2, tp=2)``, each
+#: rank drawing only its shards), 4 slots x 1024 a replica, phase 17's six
+#: requests and images, ``ROUTED_VLM_NEW`` new tokens each; its f32 check
+#: at ``VLM_F32_CUT`` on phase 30's requests, ``VLM_TP_F32_NEW`` tokens
+#: each, against a dp 2 router of the same replicas unsharded on one
+#: device (the same homes, so each replica's decode batch is the same)
+ROUTED_VLM_NEW = 8
+ROUTED_VLM_TIMEOUT_S = 300.0
+#: phase 38: the ("pod", "data", "model") meshes the tiny f32 config
+#: serves on, and Qwen3-14B's (phase 19's ``TP_SERVE_LAYERS`` layers)
+POD_MESHES = ((2, 1, 2), (1, 2, 2))
+POD_MESH = (2, 1, 2)
+POD_TIMEOUT_S = 300.0
+
+
+def _rank_router_run(router, prompts, max_new: int, tag: str, *,
+                     images=None):
+    """Submit ``prompts`` to a router over rank processes (each with its
+    images, where given), zero the launch counts and the local engine's
+    collectives, step until no replica is busy and read them: every
+    request of every replica finishes with ``max_new`` in-vocab tokens.
+    Steps where the local replica had work are timed (a step of the
+    local engine), prefill steps and decode-only steps apart. Returns the
+    run's record: the union of the streams, the local replica's stats and
+    launches."""
+    from repro_torch import kernels
+    eng = router.engines[0]
+    homes = [router.submit(rid, p, max_new=max_new,
+                           images=None if images is None else images[rid])
+             for rid, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    eng._rank.counts.clear()
+    eng._rank.bytes.clear()
+    step_s, prefill_step = [], []
+    t0 = time.perf_counter()
+    while router.busy():
+        if not eng.busy():
+            continue
+        s0 = time.perf_counter()
+        before = eng.stats["prefills"] + eng.stats["prefill_chunk_tokens"]
+        router.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - s0)
+        prefill_step.append(eng.stats["prefills"]
+                            + eng.stats["prefill_chunk_tokens"] > before)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launches()
+    res = router.results()
+    cfg = router.cfg
+    for rid in range(len(prompts)):
+        r = res[rid]
+        check(r.done and len(r.out) == max_new
+              and all(0 <= t < cfg.vocab_size for t in r.out),
+              f"[{tag}] request {rid} finished={r.done} with {len(r.out)} "
+              f"tokens")
+    st = eng.stats
+    step_ms = np.asarray(step_s) * 1e3
+    with_pf = np.asarray(prefill_step, dtype=bool)
+    tokens = sum(len(res[r].out) for r in res)
+    return {"tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+            "steps": len(step_s), "homes": homes,
+            "requests_a_replica": [homes.count(r) for r in range(router.dp)],
+            "row": router.row, "rows": router.meshes,
+            "step_p50_ms": float(np.percentile(step_ms, 50)),
+            "prefill_step_p50_ms": float(np.percentile(step_ms[with_pf], 50))
+            if with_pf.any() else None,
+            "decode_only_step_p50_ms": float(
+                np.percentile(step_ms[~with_pf], 50))
+            if (~with_pf).any() else None,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "prefills": st["prefills"], "decode_steps": st["decode_steps"],
+            "mixed_steps": st["mixed_steps"],
+            "decode_traces": st["decode_traces"], "launches": counts,
+            "collectives": dict(eng._rank.counts),
+            "collective_bytes": dict(eng._rank.bytes),
+            "streams": [list(res[rid].out) for rid in range(len(prompts))]}
+
+
+def _vlm_router_f32(seed: int, tag: str, tp=None):
+    """Phase 37's f32 check on a dp 2 router at ``VLM_F32_CUT`` (TF32
+    off), weights from ``seed`` with both gates open: on one device (both
+    replicas on cuda:0, sharing the weights), or (``tp``) on this rank's
+    shards through ``Session.serve(dp=2, tp=tp)``; phase 30's requests,
+    ``VLM_TP_F32_NEW`` tokens each. Returns the streams, the homes, the
+    launches (counted from 0 just before) and ``_vlm_want``'s."""
+    from repro_torch import kernels
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("llama-3.2-vision-90b").with_(dtype="float32",
+                                                   **VLM_F32_CUT)
+    prompts, images = _vlm_requests(seed, cfg)
+    kw = dict(slots=4, max_len=1024)
+    session = Session(cfg, device="cuda", seed=seed)
+    router = session.serve(dp=2, tp=tp, **kw) if tp is not None else \
+        session.serve(dp=2, devices=["cuda:0"] * 2, **kw)
+    for e in router.engines:
+        _open_gates(e.params)
+    homes = [router.submit(rid, p, max_new=VLM_TP_F32_NEW, images=images[rid])
+             for rid, p in enumerate(prompts)]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = router.run()
+    torch.cuda.synchronize()
+    out = {"wall_s": time.perf_counter() - t0,
+           "streams": [list(res[r].out) for r in range(len(prompts))],
+           "done": all(res[r].done for r in res), "homes": homes,
+           "launches": kernels.launches(),
+           "want": _vlm_want(cfg, sum(e.stats["prefills"]
+                                      for e in router.engines),
+                             sum(e.stats["decode_steps"]
+                                 for e in router.engines))}
+    check(out["done"], f"[{tag}] unfinished requests")
+    del router, session
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _vlm_router_rank(rank: int, world: int, seed: int):
+    """One rank of phase 37: the bf16 run of Llama-3.2-Vision-90B's one
+    group behind ``Session.serve(dp=2, tp=2)`` (``wo`` and ``w_down`` at
+    the uncut model's init scale and the gates open, as phases 17 and 30
+    serve it), then the f32 check's run (``_vlm_router_f32``)."""
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    _tp_rank_setup()
+    full = get_config("llama-3.2-vision-90b")
+    cfg = full.with_(num_layers=VLM_SHARDED_LAYERS)
+    prompts, images = _vlm_requests(seed, cfg)
+    t0 = time.perf_counter()
+    router = Session(cfg, device="cuda", seed=seed).serve(
+        dp=2, tp=world // 2, slots=4, max_len=1024)
+    eng = router.engines[0]
+    _uncut_init_scales(_open_gates(eng.params), cfg, full.num_layers)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    run = _rank_router_run(router, prompts, ROUTED_VLM_NEW,
+                           f"vlm router bf16 rank {rank}", images=images)
+    run.update(rank=rank, build_s=build_s,
+               heads=[eng._rank.heads, eng._rank.kv_heads],
+               weights_gb=sum(v.numel() * v.element_size()
+                              for v in _leaves(eng.params)) / 1e9,
+               want=_vlm_want(cfg, run["prefills"], run["decode_steps"]),
+               prefill_lens=sorted(eng._prefill_lens))
+    out = {"rank": rank, "bfloat16": run}
+    del router, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["float32"] = _vlm_router_f32(seed, f"vlm router f32 rank {rank}",
+                                     tp=world // 2)
+    return out
+
+
+def phase_vlm_router(seed: int, smi: str):
+    """Phase 37: THE VLM BEHIND THE DP x TP ROUTER — Llama-3.2-Vision-90B
+    at full width (64/8 heads x 128, d 8192, d_ff 28672, vocab 128,256,
+    1601 image tokens) cut to one group (``VLM_SHARDED_LAYERS``: 7.235 B
+    params), ``Session.serve(dp=2, tp=2)`` on phase 24's four rank
+    processes (``_vlm_router_rank``): two replicas of two ranks, each rank
+    32/4 heads, d_ff 14336 and half the vocabulary (~29 GB of bf16 weights
+    on the card in all), 4 slots x 1024 on dense rows a replica, phase
+    17's six requests with their images, ``ROUTED_VLM_NEW`` new tokens
+    each, the split path. Checks on each rank: every request of both
+    replicas finishes with in-vocab tokens, both replicas serve, the
+    union of the streams is the same on every rank, launches as
+    ``_vlm_want`` says on the local replica, its prefill lengths held by
+    phase 3, one ``attn_out`` and one ``mlp_out`` sum a layer a program
+    on the row. Reports tokens/s (the union over the wall), decode p50,
+    peak memory a rank and requests a replica. Then the f32 check at
+    ``VLM_F32_CUT``: every rank's union of streams equals a dp 2 router's
+    of the same replicas unsharded on one device (run before the ranks
+    start), with its homes. Not parallelism's speed: four ranks share one
+    card over gloo."""
+    from repro_torch.configs import get_config
+    one = _vlm_router_f32(seed, "vlm router f32 one device")
+    ranks = yield RankJob(_vlm_router_rank, (seed,), ROUTED_VLM_TIMEOUT_S,
+                          "vlm router", world=4)
+    cfg = get_config("llama-3.2-vision-90b").with_(
+        num_layers=VLM_SHARDED_LAYERS)
+    g, rest = cfg.vlm_groups
+    layers = g * (cfg.cross_attn_every + 1) + rest
+    held = {shape[1] for shape in vlm_flash_shapes(seed)}
+    r0 = ranks[0]["bfloat16"]
+    for r in ranks:
+        run, tag = r["bfloat16"], f"[vlm router bf16] rank {r['rank']}"
+        check(run["streams"] == r0["streams"] and run["homes"] == r0["homes"],
+              f"{tag} streams or homes differ from rank 0's")
+        check(sorted(set(run["homes"])) == [0, 1],
+              f"{tag} replicas {run['homes']}: both must serve")
+        check(run["launches"] == run["want"],
+              f"{tag} launches {run['launches']} != {run['want']}")
+        check(set(run["prefill_lens"]) <= held,
+              f"{tag} prefill lengths {run['prefill_lens']} not all held by "
+              f"phase 3")
+        programs = run["prefills"] + run["decode_steps"]
+        c = run["collectives"]
+        check(c.get("attn_out") == c.get("mlp_out") == layers * programs
+              > 0, f"{tag} collectives {c}: one attn_out and mlp_out a "
+                   f"layer a program ({layers} x {programs})")
+        check(run["heads"] == [VLM_TP_HEADS[0], VLM_TP_HEADS[1]],
+              f"{tag} heads {run['heads']}")
+        f32 = r["float32"]
+        check(f32["streams"] == one["streams"]
+              and f32["homes"] == one["homes"],
+              f"[vlm router f32] rank {r['rank']} streams {f32['streams']} "
+              f"(homes {f32['homes']}) != the one-device router's "
+              f"{one['streams']} ({one['homes']})")
+        check(f32["launches"] == f32["want"],
+              f"[vlm router f32] rank {r['rank']} launches "
+              f"{f32['launches']} != {f32['want']}")
+    note = ("four ranks share one card's SMs and gloo stages each "
+            "all-reduce through host memory: not parallelism's speed")
+    per_program = {k: round(v / (r0["prefills"] + r0["decode_steps"]), 2)
+                   for k, v in r0["collectives"].items()}
+    log(f"[vlm router bf16] Llama-3.2-Vision-90B {VLM_SHARDED_LAYERS} layers "
+        f"at dp 2 x tp 2 on {smi} ({r0['heads'][0]}/{r0['heads'][1]} heads "
+        f"a rank, {r0['weights_gb']:.2f} GB of weights a rank, built in "
+        f"{r0['build_s']:.1f}s): {r0['tokens']} tokens in "
+        f"{r0['wall_s']:.2f}s = {r0['tokens_per_s']:.2f} tok/s; requests a "
+        f"replica {r0['requests_a_replica']} (homes {r0['homes']}); rank "
+        f"0's replica: {r0['steps']} steps, step p50 {r0['step_p50_ms']:.1f}"
+        f" ms, prefill p50 {r0['prefill_step_p50_ms']:.1f} ms, decode p50 "
+        f"{r0['decode_only_step_p50_ms']:.1f} ms; peak memory a rank "
+        f"{[round(x['bfloat16']['peak_mem_gb'], 2) for x in ranks]} GB; "
+        f"launches a rank {r0['launches']}; collectives a program "
+        f"{per_program} — {note}")
+    log(f"[vlm router f32] full width, {VLM_F32_CUT}: every rank's union of "
+        f"streams equals the one-device dp 2 router's over "
+        f"{len(one['streams'])} requests (homes {one['homes']}; one device "
+        f"{one['wall_s']:.1f}s, the ranks "
+        f"{max(r['float32']['wall_s'] for r in ranks):.1f}s); launches a rank "
+        f"{ranks[0]['float32']['launches']}")
+    return {"note": note, "card": smi, "ranks": ranks,
+            "one_device_f32": one, "bfloat16": r0}
+
+
+def _pod_rank(rank: int, world: int, seed: int, flat, prompts, big_prompts,
+              max_new: int):
+    """One rank of phase 38: the tiny f32 config's router on each of
+    ``POD_MESHES`` (the mixed step), then Qwen3-14B at
+    ``TP_SERVE_LAYERS`` layers behind the router on ``POD_MESH``, the
+    rank drawing only its shards from ``seed`` (``init_params(shard=)``:
+    the blocks phase 19's ranks draw)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core.strategy import Strategy, serving
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.params import from_numpy, init_params
+    from repro_torch.serve.parallel import ReplicaRouter
+    _tp_rank_setup()
+    axes = ("pod", "data", "model")
+    cfg = ModelConfig(**TP_PARITY_CFG)
+    params = from_numpy(flat, cfg, "cuda")
+    out = {"rank": rank}
+    meshes = {}
+    for shape in POD_MESHES:
+        meshes[shape] = mesh = make_mesh(shape, axes, device_type="cuda")
+        router = ReplicaRouter(cfg, params, dp=2, tp=2, mesh=mesh, slots=2,
+                               max_len=64, **TP_PARITY_LAYOUTS["mixed"])
+        streams, launches = _serve_run(router, prompts, None)
+        eng = router.engines[0]
+        out["x".join(map(str, shape))] = {
+            "streams": streams, "launches": launches,
+            "want": _want_launches(eng, cfg.num_layers),
+            "row": router.row, "rows": router.meshes,
+            "coord": [eng._rank.pod_rank, eng._rank.data_rank],
+            "root": eng._rank.root,
+            "homes": [router.replica_of(i) for i in range(len(prompts))],
+            "collectives": dict(eng._rank.counts)}
+    del params, router, eng
+    big = get_config("qwen3-14b").with_(num_layers=TP_SERVE_LAYERS)
+    mesh = meshes[POD_MESH]
+    t0 = time.perf_counter()
+    shards = init_params(big, device="cuda", seed=seed,
+                         shard=(serving(Strategy(dtype=big.dtype)), mesh))
+    router = ReplicaRouter(big, shards, dp=2, tp=2, mesh=mesh, slots=4,
+                           max_len=1024, page_size=16, chunk_tokens=256)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    run = _rank_router_run(router, big_prompts, max_new,
+                           f"pod bf16 rank {rank}")
+    eng = router.engines[0]
+    run.update(rank=rank, build_s=build_s,
+               coord=[eng._rank.pod_rank, eng._rank.data_rank],
+               want=_want_launches(eng, big.num_layers),
+               heads=[eng._rank.heads, eng._rank.kv_heads],
+               weights_gb=sum(v.numel() * v.element_size()
+                              for v in _leaves(eng.params)) / 1e9)
+    out["bfloat16"] = run
+    del router, eng, shards
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_pod_serve(seed: int, smi: str, max_new: int = 16):
+    """Phase 38: SERVING ON A ("pod", "data", "model") MESH, on phase 24's
+    four rank processes (``_pod_rank``): each ("pod", "data") coordinate
+    is one tp 2 replica row, pod major, its collectives on its "model"
+    group and its root the row's first rank. Phase 4's tiny f32 dense
+    config behind the dp 2 x tp 2 router on (2, 1, 2) and (1, 2, 2), the
+    mixed step: on every rank the union of the streams equals the
+    unsharded engine's on the card (run here before the ranks start),
+    launches as ``_want_launches`` says on the local replica, each rank's
+    row its (pod, data) coordinate. Then Qwen3-14B at full width,
+    ``TP_SERVE_LAYERS`` layers, behind the router on (2, 1, 2) (phase
+    19's settings, six prompts and shards: 20/4 heads x 128, d_ff 8704, half
+    the vocabulary a rank), paged mixed step: every request finishes with
+    in-vocab tokens, both replicas serve, paged attention and the fused
+    MLP once a layer a program, the same union on every rank, and (after
+    phase 19) that union equal to phase 19's mixed streams bit for bit (a
+    mixed row's bits depend on that row alone). Reports tokens/s, step
+    p50 and the collectives by label. Not parallelism's speed: four ranks
+    share one card over gloo."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.params import init_params
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.tree import flatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ModelConfig(**TP_PARITY_CFG)
+    params = init_params(cfg, device="cuda", seed=3)
+    prompts, _ = _family_requests(cfg)
+    want, _ = _serve_run(ServeEngine(cfg, params, slots=2, max_len=64,
+                                     **TP_PARITY_LAYOUTS["mixed"]),
+                         prompts, None)
+    flat = {k: v.cpu().numpy() for k, v in flatten(params).items()}
+    del params
+    _, big_prompts = serving_prompts(seed,
+                                     get_config("qwen3-14b").vocab_size)
+    big_prompts = [np.asarray(p, np.int32) for p in big_prompts]
+    ranks = yield RankJob(_pod_rank, (seed, flat, prompts, big_prompts,
+                                      max_new), POD_TIMEOUT_S, "pod serve",
+                          world=4)
+    for shape in POD_MESHES:
+        key = "x".join(map(str, shape))
+        for r in ranks:
+            got, tag = r[key], f"[pod {key} f32] rank {r['rank']}"
+            check(got["streams"] == want,
+                  f"{tag} streams {got['streams']} != the unsharded "
+                  f"engine's {want}")
+            check(got["launches"] == got["want"],
+                  f"{tag} launches {got['launches']} != {got['want']}")
+            pod, data = got["coord"]
+            check(got["row"] == pod * shape[1] + data == r["rank"] // 2
+                  and got["rows"] == [(0, 1), (2, 3)]
+                  and got["root"] == got["rows"][got["row"]][0],
+                  f"{tag} row {got['row']} at {got['coord']}, rows "
+                  f"{got['rows']}, root {got['root']}")
+            check(sorted(set(got["homes"])) == [0, 1],
+                  f"{tag} replicas {got['homes']}")
+        log(f"[pod {key} f32] every rank's union of streams equals the "
+            f"unsharded engine's on the card over {len(prompts)} requests "
+            f"(replicas {ranks[0][key]['homes']}); rows "
+            f"{ranks[0][key]['rows']} by (pod, data) "
+            f"{[r[key]['coord'] for r in ranks]}; launches rank 0 "
+            f"{ranks[0][key]['launches']}")
+    r0 = ranks[0]["bfloat16"]
+    for r in ranks:
+        run, tag = r["bfloat16"], f"[pod bf16] rank {r['rank']}"
+        check(run["streams"] == r0["streams"],
+              f"{tag} streams differ from rank 0's")
+        check(sorted(set(run["homes"])) == [0, 1],
+              f"{tag} replicas {run['homes']}")
+        check(run["launches"] == run["want"],
+              f"{tag} launches {run['launches']} != {run['want']}")
+        check(run["row"] == run["coord"][0], f"{tag} row {run['row']} at "
+                                             f"{run['coord']}")
+    note = ("four ranks share one card's SMs and gloo stages each "
+            "all-reduce through host memory: not parallelism's speed")
+    mb = {k: round(v / 1e6, 3) for k, v in r0["collective_bytes"].items()}
+    log(f"[pod bf16] Qwen3-14B {TP_SERVE_LAYERS} layers on a ('pod', "
+        f"'data', 'model') = {POD_MESH} mesh on {smi} ({r0['heads'][0]}/"
+        f"{r0['heads'][1]} heads, {r0['weights_gb']:.2f} GB of weights a "
+        f"rank, built in {r0['build_s']:.1f}s): {r0['tokens']} tokens in "
+        f"{r0['wall_s']:.2f}s = {r0['tokens_per_s']:.2f} tok/s; requests a "
+        f"replica {r0['requests_a_replica']}; rank 0's replica "
+        f"{r0['steps']} steps, step p50 {r0['step_p50_ms']:.1f} ms; peak "
+        f"memory a rank {[round(x['bfloat16']['peak_mem_gb'], 2) for x in ranks]}"
+        f" GB; launches a rank {r0['launches']}; collectives rank 0 "
+        f"{r0['collectives']} (MB {mb}) — {note}")
+    return {"note": note, "card": smi, "ranks": ranks, "bfloat16": r0}
 
 
 # ------------------------------------------------------------- phase 36
@@ -10323,6 +10777,11 @@ def main():
     fours["sharded_train"] = _start(phase_train_sharded(args.seed, smi))
     fours["plan_sharded"] = _start(phase_plan_sharded(args.seed))
     mark("33's one-device f32 step")
+    fours["vlm_router"] = _start(phase_vlm_router(args.seed, smi))
+    fours["pod"] = _start(phase_pod_serve(args.seed, smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("37's one-device f32 router, 38's unsharded f32 engine")
     record["ssm"] = phase_ssm(args.seed)
     mark("7 SSM serving")
     gc.collect()
@@ -10370,7 +10829,7 @@ def main():
     mark("27 and 30's one-device f32 runs")
     record.update(_run_jobs(fours, "parity dp 2 x tp 2, sharded train, "
                                    "pipeline, SSM, whisper, VLM and MoE "
-                                   "sharded train"))
+                                   "sharded train, VLM router, pod mesh"))
     record["pipeline"] = phase_pipeline(
         [dict(r.pop("pipe"), rank=r["rank"])
          for r in record["sharded_train"]["ranks"]], smi)
@@ -10383,7 +10842,8 @@ def main():
     record["moe_sharded_train"] = phase_moe_train_sharded(
         record["sharded_train"]["ranks"], smi)
     mark("4 parity dp 2 x tp 2; 24-25, 28-29, 31, 33 sharded training, "
-         "the pipeline, SSM, enc-dec, VLM and MoE sharded training")
+         "the pipeline, SSM, enc-dec, VLM and MoE sharded training; 37 the "
+         "VLM router; 38 the pod mesh")
     record.update(_run_jobs(pairs, "parity tp 2, families and cp; tp, cp, "
                                    "MoE, audio, SSM, hybrid and VLM tp "
                                    "serve"))
@@ -10403,6 +10863,14 @@ def main():
         record.pop("plan_tp"), record["tp"], record.pop("plan_sharded"),
         record["sharded_train"], smi)
     mark("35 a plan's serving and training on ranks")
+    # phase 38's Qwen3-14B replicas hold phase 19's shards and serve its
+    # prompts at its settings: a mixed row's bits depend on that row alone
+    pod, tp2 = record["pod"]["bfloat16"], record["tp"]["mixed"]
+    check(pod["streams"] == tp2["streams"],
+          f"[pod bf16] the union of streams {pod['streams']} != phase 19's "
+          f"mixed streams {tp2['streams']}")
+    log("[pod bf16] the union of the pod mesh's streams equals phase 19's "
+        "tp 2 mixed streams bit for bit")
     # each kernel's launches on the paths that run it, each counted from 0
     # just before its run: phase 5 and phases 9-10 (paged attention, the
     # fused MLP; flash in phase 9's model drafter), phase 6 (flash), phase
@@ -10433,7 +10901,10 @@ def main():
     # training), phase 35 (each rank: paged attention and the fused MLP
     # serving at tp 2, flash training at dp 2 x tp 2), phase 36 (flash
     # and the fused MLP in the prefill, the fused MLP in the decode, flash
-    # in the training step; each counted run and each timed repeat)
+    # in the training step; each counted run and each timed repeat), phase
+    # 37 (each rank: flash and the fused MLP, bf16 and f32), phase 38 (each
+    # rank: paged attention and the fused MLP on both pod meshes, f32, and
+    # on Qwen3-14B's, bf16)
     paths = [main_run, record["train"], record["ssm"],
              *record["spec"].values(), *record["online"].values(),
              record["hybrid"], *record["train_families"].values(),
@@ -10485,7 +10956,14 @@ def main():
              *record["plan_ranks"]["tp_ranks"],
              *record["plan_ranks"]["sharded_ranks"],
              # phase 36: the real steps held to their dry-runs
-             record["dryrun_serve"], record["dryrun_train"]]
+             record["dryrun_serve"], record["dryrun_train"],
+             # phase 37: each rank's own launches, bf16 and f32
+             *(r[dtype] for r in record["vlm_router"]["ranks"]
+               for dtype in ("bfloat16", "float32")),
+             # phase 38: each rank's own launches, each mesh and Qwen3-14B
+             *(r[key] for r in record["pod"]["ranks"]
+               for key in ["x".join(map(str, m)) for m in POD_MESHES]
+               + ["bfloat16"])]
     for k in kernels:
         k["launches"] = sum(run["launches"][k["name"]] for run in paths)
     record["kernels"] = kernels

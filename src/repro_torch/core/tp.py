@@ -63,7 +63,10 @@ loss, and the gradient taken is that of ONE copy of it:
   reference's rules put the batch (``core/strategy.py``), "data" alone
   on a mesh without "pod": the batch rows a rank holds
   (``data/pipeline.py::shard_batch``), the loss normaliser, the MoE
-  routing of the global batch and the gradient sums (an FSDP leaf's
+  routing of the global batch and the split of each expert's capacity
+  (``data_scatter`` / ``data_gather``: each data rank computes its
+  ``C / batch_dp`` slots, as the reference's ``moe_cap`` rule puts them)
+  and the gradient sums (an FSDP leaf's
   over "data" in its gather's backward, then over "pod"). ZeRO-1's and
   FSDP's blocks stay over "data" alone, as the reference's
   ``zero1_spec(..., axis="data")``: each pod holds the whole state.
@@ -458,26 +461,27 @@ def slice_at(dim: int, index: int, n: int) -> tuple:
 
 
 class _Scatter(torch.autograd.Function):
-    """The reduce-scatter over "model" along ``dim``: a sum, then the
+    """The reduce-scatter over ``axis`` along ``dim``: a sum, then the
     rank's slice (``summed=False``: the slice of a replicated tensor).
     Backward: the slices' gradients assembled by a zero-filled sum."""
 
     @staticmethod
-    def forward(ctx, x, r, dim, what, summed):
-        ctx.r, ctx.dim, ctx.what = r, dim, what
+    def forward(ctx, x, r, dim, what, summed, axis):
+        ctx.r, ctx.dim, ctx.what, ctx.axis = r, dim, what, axis
         ctx.shape = x.shape
         if summed:
             x = _sum_(x.clone(memory_format=torch.contiguous_format),
-                      "model", r, what)
-        n = x.shape[dim] // r.tp
-        return x[slice_at(dim, r.rank, n)].contiguous()
+                      axis, r, what)
+        n = x.shape[dim] // axis_size(r, axis)
+        return x[slice_at(dim, axis_index(r, axis), n)].contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        r = ctx.r
-        return fill_sum(g, ctx.shape,
-                        slice_at(ctx.dim, r.rank, g.shape[ctx.dim]), r,
-                        "model", ctx.what + ".grad"), None, None, None, None
+        r, axis = ctx.r, ctx.axis
+        return (fill_sum(g, ctx.shape,
+                         slice_at(ctx.dim, axis_index(r, axis),
+                                  g.shape[ctx.dim]), r, axis,
+                         ctx.what + ".grad"),) + (None,) * 5
 
 
 def all_reduce(x: torch.Tensor, what: str,
@@ -545,7 +549,7 @@ def seq_scatter(x: torch.Tensor, what: str) -> torch.Tensor:
     r = _live()
     if r is None:
         return x
-    return _Scatter.apply(x, r, 1, what, True)
+    return _Scatter.apply(x, r, 1, what, True, "model")
 
 
 def seq_split(x: torch.Tensor, what: str) -> torch.Tensor:
@@ -554,7 +558,7 @@ def seq_split(x: torch.Tensor, what: str) -> torch.Tensor:
     r = _live()
     if r is None:
         return x
-    return _Scatter.apply(x, r, 1, what, False)
+    return _Scatter.apply(x, r, 1, what, False, "model")
 
 
 def reduce_out(x: torch.Tensor, what: str, *, seq: bool = False):
@@ -637,6 +641,29 @@ def data_assemble(part: torch.Tensor, what: str) -> torch.Tensor:
     r = current()
     return fill_sum(part, (r.batch_dp,) + tuple(part.shape), r.batch_rank,
                     r, BATCH, what)
+
+
+def data_scatter(x: torch.Tensor, what: str) -> torch.Tensor:
+    """The reduce-scatter over :data:`BATCH` along dim 1: (n, C, ...)
+    partials summed over the data-parallel ranks, then the rank's (n, C /
+    batch_dp, ...) slice; backward, the zero-filled gather of the slices'
+    gradients. Where each element has one writer (the MoE's dispatch
+    buffer: each data rank fills its own entries' slots) the sum adds
+    zeros only."""
+    return _Scatter.apply(x, current(), 1, what, True, BATCH)
+
+
+def data_gather(x: torch.Tensor, what: str) -> torch.Tensor:
+    """(n, C / batch_dp, ...) slices -> (n, C, ...): every data-parallel
+    rank's slice assembled by a zero-filled sum over :data:`BATCH`;
+    backward, the gradient summed over :data:`BATCH` first (each rank
+    reads the assembled tensor in its own work), then the rank's
+    slice."""
+    r = current()
+    n = x.shape[1]
+    shape = (x.shape[0], n * r.batch_dp) + tuple(x.shape[2:])
+    return _Assemble.apply(x, r, BATCH, shape, slice_at(1, r.batch_rank, n),
+                           what, True)
 
 
 def broadcast_from_root(x: torch.Tensor, what: str) -> torch.Tensor:

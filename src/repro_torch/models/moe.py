@@ -75,7 +75,19 @@ each expert and, under SP, the gather of the output's gradient
 On rows split over "data" every data rank routes its tokens as part of
 the global batch the reference routes: the capacity of all of its
 tokens, each slot offset by the entries of the earlier data ranks, and
-the aux loss from the global means (``_global_route``).
+the aux loss from the global means (``_global_route``). The reference
+lays the ``(E, C, d)`` buffer out as ``("experts", "moe_cap", None)``
+with ``moe_cap`` over the data-parallel axis, so each data rank computes
+the expert products of its ``C / batch_dp`` slots only (the capacity
+padded to a multiple of ``batch_dp``, as GSPMD pads). The port does the
+same with two exchanges of fixed shape over "pod" x "data": the
+dispatch buffer, where each data rank filled only its own entries'
+slots, reduce-scattered along C (``"moe_cap"``: one writer a slot, so
+the sum adds zeros only), and the products' ``(n, C / batch_dp, d)``
+slices gathered back by a zero-filled sum (``"moe_cap_out"``) before
+each rank takes its entries' slots. Every sum adds zeros only, so the
+output and the k-sum's order are those of the whole buffer; backward,
+the gather's gradient is summed and sliced, the scatter's gathered.
 
 ``moe_ffn``'s parts run under ``torch.profiler.record_function`` ranges
 named by :data:`PARTS` (routing and dispatch, the expert products, the
@@ -226,7 +238,8 @@ def moe_ffn(p, x, cfg, *, sp: bool = False):
     mesh, a rank's slice of the experts or of each expert's d_ff (see the
     module docstring); in training on rows split over "data", the
     capacity and the slots of the batch all data ranks hold
-    (``_global_route``); ``sp``: ``x`` is the rank's sequence slice,
+    (``_global_route``), of which the rank computes its ``C / batch_dp``
+    slots of each expert; ``sp``: ``x`` is the rank's sequence slice,
     gathered before routing, and so is the output."""
     if sp:
         x = tp.seq_gather(x, "moe_seq")
@@ -262,11 +275,23 @@ def moe_ffn(p, x, cfg, *, sp: bool = False):
         buf = torch.zeros((n_local * cap, d), dtype=xt.dtype,
                           device=x.device
                           ).index_add(0, dest, src).view(n_local, cap, d)
+        if rows is not None:
+            # the rank's C / batch_dp slots of each expert (the
+            # reference's "moe_cap" layout), the capacity padded to a
+            # multiple of batch_dp as GSPMD pads: one writer a slot, so
+            # the reduce-scatter adds zeros only
+            pad = -cap % rows.batch_dp
+            if pad:
+                buf = F.pad(buf, (0, 0, 0, pad))
+            buf = tp.data_scatter(buf, "moe_cap")
     with record_function("moe_experts"):
         h = torch.bmm(buf, p["w_up"])
         g = torch.bmm(buf, p["w_gate"])
         h = F.silu(g) * h
-        y = torch.bmm(h, p["w_down"]).reshape(n_local * cap, d)
+        y = torch.bmm(h, p["w_down"])
+        if rows is not None:
+            y = tp.data_gather(y, "moe_cap_out")[:, :cap]
+        y = y.reshape(n_local * cap, d)
     with record_function("moe_combine"):
         flat_gate = torch.where(keep, gates.reshape(-1),
                                 torch.zeros_like(gates.reshape(-1)))

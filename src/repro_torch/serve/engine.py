@@ -166,15 +166,18 @@ compare a checksum of what they packed (one all-reduce of ``(c, -c)``
 with MAX) and raise if it differs. ``kv_bytes`` stays global;
 ``per_device_kv_bytes`` is one rank's share. On a mesh with ``data`` > 1
 each row of the mesh is one replica: this engine serves its row, with
-its collectives on the row's "model" group (serve/parallel.py's
-``ReplicaRouter`` routes across the rows). The online driver
+its collectives on the row's "model" group and its root the row's
+first rank (serve/parallel.py's ``ReplicaRouter`` routes across the
+rows); on a ("pod", "data", "model") mesh each ("pod", "data")
+coordinate is such a row, as the reference's rules put the batch over
+("pod", "data"). The online driver
 (serve/driver.py) serves such an engine from rank 0, broadcasting its
 host events to every rank before each step; under it ``abort_event`` is
 the pass's copy of the abort, the same on every rank. An MoE splits over
 "model" by the ``strategy``: its experts (``expert_parallel``, the
 default) or each expert's d_ff (``expert_parallel=False``;
-``models/moe.py``). A mesh with a third axis raises
-``NotImplementedError`` naming ROADMAP.md Queue 1 item 11.
+``models/moe.py``). A mesh with an axis other than "pod", "data" and
+"model" raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -214,11 +217,6 @@ def _tree_bytes(tree) -> int:
     """Bytes of the tensors of a nested dict."""
     return sum(_tree_bytes(v) if isinstance(v, dict)
                else v.numel() * v.element_size() for v in tree.values())
-
-
-def _todo(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md {item})")
 
 
 @dataclass
@@ -435,11 +433,13 @@ class ServeEngine:
         leaves are sliced; leaves already of the rank's block shape are
         kept), by the Megatron layout whatever the strategy's
         ``seq_parallel`` / ``fsdp`` (``core/strategy.py::serving``).
-        Refuses a third mesh axis, which serving does not run yet."""
+        The mesh's axes are some of ("pod", "data", "model"); another
+        raises ``ValueError`` naming them."""
         axes = mesh_axes(mesh)
-        if set(axes) - {"data", "model"}:
-            raise _todo(f"serving on a {axes} mesh (only 'data' and "
-                        "'model' axes)", "Queue 1 item 11")
+        if set(axes) - {"pod", "data", "model"}:
+            raise ValueError(f"{cfg.name}: serving on a {axes} mesh: the "
+                             "engine takes the axes 'pod', 'data' and "
+                             "'model' only")
         rank = tp.Rank.of(mesh, cfg)
         return rank, tp.shard_params(params, full_shapes(cfg),
                                      serving(strategy), mesh, cfg)

@@ -32,7 +32,8 @@ Two layouts, chosen by ``tp``:
   (serve/driver.py) takes this router as it takes an engine.
 * **one process a rank** (``tp > 1``, ``world = dp * tp`` ranks, as
   ``torchrun`` starts them): a ``DeviceMesh`` ("data", "model") = (dp,
-  tp); each process builds the engine of its row, whose collectives run
+  tp), or ("pod", "data", "model") with pods x data = dp rows, pod
+  major; each process builds the engine of its row, whose collectives run
   on the row's "model" group and whose root is the row's first rank.
   Every process runs this router on the same submissions. ``route``
   reads one table of ``(load, rate)`` for every replica, summed by one
@@ -115,9 +116,10 @@ class ReplicaRouter:
     Every engine keyword (slots, max_len, paged, page_size, prefix_cache,
     lazy, scheduler, spec, ...) applies to each replica. ``scheduler``
     may be one shared object only where the policy keeps no state (the
-    shipped policies keep none). ``mesh`` (tp > 1 only) is a ("data",
-    "model") = (dp, tp) ``DeviceMesh``; None builds it over the default
-    process group on the params' device type."""
+    shipped policies keep none). ``mesh`` is a ("data", "model") = (dp,
+    tp) ``DeviceMesh``, or a ("pod", "data", "model") one with pods x data
+    = dp; None builds the first over the default process group on the
+    params' device type (at tp > 1 only)."""
 
     def __init__(self, cfg, params, *, dp: int, tp: int = 1,
                  devices: Optional[Sequence] = None, strategy=None,
@@ -146,14 +148,20 @@ class ReplicaRouter:
                 mesh = make_mesh((self.dp, self.tp), ("data", "model"),
                                  device_type=device_type)
             axes = mesh_axes(mesh)
-            if axes != {"data": self.dp, "model": self.tp}:
-                raise ValueError(f"a dp{self.dp} x tp{self.tp} router needs "
-                                 f"a ('data', 'model') = ({self.dp}, "
-                                 f"{self.tp}) mesh, got {axes}")
+            rows = axes.get("pod", 1) * axes.get("data", 1)
+            if set(axes) not in ({"data", "model"},
+                                 {"pod", "data", "model"}) or \
+                    axes["model"] != self.tp or rows != self.dp:
+                raise ValueError(
+                    f"a dp{self.dp} x tp{self.tp} router needs a ('data', "
+                    f"'model') = ({self.dp}, {self.tp}) mesh, or a ('pod', "
+                    f"'data', 'model') one of pods x data = {self.dp}, got "
+                    f"{axes}")
             self.mesh = mesh
-            self.row = int(mesh["data"].get_local_rank())
             self.engines = [ServeEngine(cfg, params, mesh=mesh,
                                         strategy=strategy, **engine_kw)]
+            # the row: this rank's ("pod", "data") coordinate, pod major
+            self.row = self._local._rank.batch_rank
             self.meshes = self._rank_rows()
         # each replica's tracer carries its index: a merged Chrome export
         # gets one process lane a replica

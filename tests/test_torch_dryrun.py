@@ -62,18 +62,18 @@ KINDS = ("train", "prefill", "decode")
 BATCH, SEQ = 8, 64
 
 #: the MoE smoke's FLOPs, port per rank x chips over the reference's
-#: ``hlo_flops``, as measured (rel 1e-3): the port computes (i) in
-#: training the whole (E / tp, C, d) capacity buffer of the GLOBAL batch
-#: on every data rank (the routing is the global batch's; the other data
-#: ranks' slots hold zeros), where GSPMD splits the capacity dim over
-#: "data"; (ii) in decode, a capacity of at least 8 slots an expert for
-#: the rank's own 2 rows, where the reference's 8 slots of the 8 rows
-#: split over 4 (or 2) data devices; (iii) in prefill, the router's fp32
-#: (T, d) x (d, E) product whole on every "model" rank, where the
-#: reference splits E over "model" (2^20 FLOPs). The dense smoke's FLOPs
-#: are equal exactly.
-MOE_FLOPS_RATIO = {((4, 2), "train"): 2.0973, ((4, 2), "prefill"): 1.0035,
-                   ((4, 2), "decode"): 2.3837, ((2, 2), "train"): 1.3678,
+#: ``hlo_flops``, as measured (rel 1e-3): the port computes (i) the
+#: router's fp32 (T, d) x (d, E) product whole on every "model" rank,
+#: where the reference splits E over "model" (2^20 FLOPs a product: one in
+#: prefill; in training four, the forward, its remat recompute and the
+#: two backward products); (ii) in decode, a capacity of at least 8 slots
+#: an expert for the rank's own 2 rows, where the reference's 8 slots of
+#: the 8 rows split over 4 (or 2) data devices. In training each data
+#: rank computes its C / batch_dp slice of every expert's capacity, as
+#: GSPMD splits the ``moe_cap`` dim (models/moe.py). The dense smoke's
+#: FLOPs are equal exactly.
+MOE_FLOPS_RATIO = {((4, 2), "train"): 1.0030, ((4, 2), "prefill"): 1.0035,
+                   ((4, 2), "decode"): 2.3837, ((2, 2), "train"): 1.0030,
                    ((2, 2), "prefill"): 1.0035, ((2, 2), "decode"): 1.4628}
 
 _JAX = {}

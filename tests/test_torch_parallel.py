@@ -37,6 +37,14 @@ the reference's ``test_decode_sharded_equals_reference`` logits within
 with ``fsdp`` and ``seq_parallel`` serves there through
 ``Session.from_plan(...).serve()``: the router over the plan's mesh,
 the streams, routing and collectives of the router without the flags.
+The same ranks serve on the ("pod", "data", "model") meshes (2, 1, 2)
+and (1, 2, 2), a replica a (pod, data) coordinate: the engine serving
+its row alone and the dp 2 x tp 2 router over the mesh give the
+reference engine's streams on the same mesh, the router the JAX dp 2
+router's routing. And the VLM (tests/test_serve_vlm.py's config, gates
+open) serves behind the dp 2 x tp 2 router, each request with its
+images, built by hand and through ``Session.serve(dp=2, tp=2)``: the
+JAX VLM engine's batch streams, both replicas serving.
 """
 import numpy as np
 import pytest
@@ -51,13 +59,15 @@ from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve.parallel import (ReplicaRouter,  # noqa: E402
                                         replica_meshes)
 from test_torch_tp import (FAMILY_RUNS, MOE_KW, ONLINE_ENG,  # noqa: E402
-                           ONLINE_KW, ONLINE_RUNS, SSM_KW, TIE,
+                           ONLINE_KW, ONLINE_RUNS, SSM_KW, TIE, VLM_KW,
                            _flat, _jax_cp_params, _jax_family_run,
                            check_cp_rank, check_ssm_model_rank, cp_rank,
                            jax_online, ssm_flats, ssm_model_rank)
 
 #: the context-parallel decode's meshes on the four ranks
 CP_MESHES = ((1, 4), (2, 2))
+#: the ("pod", "data", "model") meshes the four ranks serve on
+POD_MESHES = ((2, 1, 2), (1, 2, 2))
 
 RANK_TIMEOUT = 120.0            # seconds the spawn may take before it fails
 
@@ -122,6 +132,26 @@ def _jax_streams(kw, prompts, new, frames=None, **ekw):
         for i, p in enumerate(prompts):
             eng.submit(i, p, max_new=new,
                        frames=None if frames is None else frames[i])
+        res = eng.run()
+        _JAX[key] = {i: list(res[i].out) for i in res}
+    return _JAX[key]
+
+
+def _jax_pod_streams(shape, prompts, new):
+    """The reference engine's streams on a ("pod", "data", "model") mesh
+    of ``shape`` over the first of conftest's 8 host devices (one GSPMD
+    engine, the batch over "pod" x "data"), made once a mesh."""
+    key = ("pod", shape, tuple(map(tuple, prompts)), new)
+    if key not in _JAX:
+        import jax
+        from repro.launch.mesh import make_mesh
+        from repro.serve.engine import ServeEngine as JaxEngine
+        jcfg, jp, _ = _jax_params(KW)
+        mesh = make_mesh(shape, ("pod", "data", "model"),
+                         devices=jax.devices()[:int(np.prod(shape))])
+        eng = JaxEngine(jcfg, jp, mesh=mesh, **ENG)
+        for i, p in enumerate(prompts):
+            eng.submit(i, p, max_new=new)
         res = eng.run()
         _JAX[key] = {i: list(res[i].out) for i in res}
     return _JAX[key]
@@ -345,13 +375,70 @@ def _online_router_rank(flat):
             "left": (len(router._home), len(router.engines[0].finished))}
 
 
+def _pod_rank(cfg, params, prompts):
+    """This rank's engine and router on each of ``POD_MESHES``: the
+    engine serving its ("pod", "data") row alone (every request), then
+    the dp 2 x tp 2 router over the same mesh."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    out = {}
+    for shape in POD_MESHES:
+        mesh = make_mesh(shape, ("pod", "data", "model"), device_type="cpu")
+        eng = ServeEngine(cfg, params, mesh=mesh, **ENG)
+        for i, p in enumerate(prompts):
+            eng.submit(i, p, max_new=6)
+        alone = {i: list(r.out) for i, r in eng.run().items()}
+        router = ReplicaRouter(cfg, params, dp=2, tp=2, mesh=mesh, **ENG)
+        homes, streams, res = _run(router, prompts, 6)
+        r = router.engines[0]._rank
+        out[shape] = {"engine": alone, "engine_root": eng._rank.root,
+                      "homes": homes, "streams": streams,
+                      "done": all(q.done for q in res.values()),
+                      "row": router.row, "rows": router.meshes,
+                      "coord": (r.pod_rank, r.data_rank),
+                      "group": dist.get_process_group_ranks(
+                          mesh.get_group("model")), "root": r.root,
+                      "traces": [x["decode_traces"]
+                                 for x in router.stats["replicas"]],
+                      "counts": dict(r.counts)}
+    return out
+
+
+def _vlm_router_rank(flat):
+    """The VLM behind the dp 2 x tp 2 router, each request with its
+    images: built by hand, and through ``Session.serve(dp=2, tp=2)`` of a
+    session holding the same weights."""
+    cfg = ModelConfig(**VLM_KW)
+    params = from_numpy(flat, cfg, "cpu")
+    _, prompts, images, new, ekw = FAMILY_RUNS["vlm"]
+    out = {}
+    for name in ("router", "session"):
+        router = ReplicaRouter(cfg, params, dp=2, tp=2, **ekw) \
+            if name == "router" else \
+            Session(cfg, device="cpu", params=params).serve(dp=2, tp=2,
+                                                            **ekw)
+        homes = [router.submit(i, p, max_new=new, images=images[i])
+                 for i, p in enumerate(prompts)]
+        res = router.run()
+        eng = router.engines[0]
+        out[name] = {"homes": homes,
+                     "streams": {i: list(r.out) for i, r in res.items()},
+                     "done": all(r.done for r in res.values()),
+                     "traces": [x["decode_traces"]
+                                for x in router.stats["replicas"]],
+                     "heads": (eng._rank.heads, eng._rank.kv_heads),
+                     "counts": dict(eng._rank.counts)}
+    return out
+
+
 def _topology_rank(rank, world, flat, prompts, spec_prompts, cp_flat,
-                   online_flat, ssm, moe_flat):
+                   online_flat, ssm, moe_flat, vlm_flat):
     """One rank of the dp 2 x tp 2 runs: the router over a (2, 2) mesh
     on the engine keywords of the reference's test, with spec on, through
     ``Session.serve(dp=2, tp=2)`` and through the launcher; then the CP
-    decode on each of ``CP_MESHES``, the online router, the SSM router and
-    the TP-in-expert MoE router."""
+    decode on each of ``CP_MESHES``, the online router, the SSM router,
+    the TP-in-expert MoE router, the engine and the router on each of
+    ``POD_MESHES`` and the VLM router."""
     import torch.distributed as dist
     from repro_torch.launch.serve import main
     from repro_torch.serve.speculative import SpecConfig
@@ -426,6 +513,8 @@ def _topology_rank(rank, world, flat, prompts, spec_prompts, cp_flat,
         "done": all(r.done for r in res.values()),
         "w_up": tuple(eng.params["layers"]["moe"]["w_up"].shape),
         "counts": dict(eng._rank.counts)}
+    out["pod"] = _pod_rank(cfg, params, prompts)
+    out["vlm"] = _vlm_router_rank(vlm_flat)
     return out
 
 
@@ -448,7 +537,7 @@ def topology(tmp_path_factory):
     ranks = run_ranks(_topology_rank, 4,
                       args=(flat, prompts, spec_prompts,
                             _jax_cp_params()[2], _flat(ONLINE_KW), ssm,
-                            _flat(MOE_KW)),
+                            _flat(MOE_KW), _flat(VLM_KW)),
                       store_dir=str(tmp_path_factory.mktemp("dp2tp2")),
                       timeout=RANK_TIMEOUT)
     return prompts, spec_prompts, ranks
@@ -623,3 +712,58 @@ def test_online_dp2_tp2_router_matches_jax_run(topology):
             {k: lead["counts"][k] for k in WORLD_LABELS}
         assert run["left"] == (0, 0)
     assert not any(r["online"]["lead"] for r in ranks[1:])
+
+
+@pytest.mark.parametrize("shape", POD_MESHES)
+def test_pod_mesh_engine_and_router_match_jax(topology, shape):
+    """Serving on a ("pod", "data", "model") mesh over four gloo ranks:
+    each ("pod", "data") coordinate is one tp 2 replica row, pod major.
+    On every rank the engine serving its row alone and the dp 2 x tp 2
+    router over the mesh give the reference engine's streams on the same
+    mesh (which are its single engine's), the router's routing is the JAX
+    dp 2 router's, and the row's collectives run on its "model" group,
+    rooted at its first rank: the collectives of the ("data", "model")
+    router on the same requests."""
+    prompts, _, ranks = topology
+    want = _jax_pod_streams(shape, prompts, 6)
+    assert want == _jax_streams(KW, prompts, 6, **ENG)
+    jr = _jax_router(KW, **ENG)
+    jhomes = [jr.submit(i, p, max_new=6) for i, p in enumerate(prompts)]
+    assert sorted(set(jhomes)) == [0, 1]
+    for rank, r in enumerate(ranks):
+        run = r["pod"][shape]
+        assert run["engine"] == want
+        assert run["done"] and run["streams"] == want
+        assert run["homes"] == jhomes
+        pod, data = run["coord"]
+        assert run["row"] == pod * shape[1] + data == rank // 2
+        assert run["rows"] == [(0, 1), (2, 3)]
+        assert run["group"] == list(run["rows"][run["row"]])
+        assert run["root"] == run["engine_root"] == run["rows"][run["row"]][0]
+        assert run["traces"] == [1, 1]
+        assert run["counts"] == r["plain"]["counts"]
+    assert sorted(r["pod"][shape]["coord"] for r in ranks) == sorted(
+        (i // shape[1] // 2, i // 2 % shape[1]) for i in range(4))
+
+
+def test_dp2_tp2_vlm_router_matches_jax_batch(topology):
+    """The VLM behind the dp 2 x tp 2 router on four gloo ranks, each
+    request with its images, built by hand and through ``Session.serve(
+    dp=2, tp=2)``: on every rank the union of the streams equals the JAX
+    VLM engine's batch run of the same requests and images, both replicas
+    serve, one decode program shape each; a rank holds half the query
+    and K/V heads, and one ``attn_out`` and one ``mlp_out`` sum a layer a
+    program on its row."""
+    _, _, ranks = topology
+    want = _jax_family_run("vlm")[0]
+    heads = (VLM_KW["num_heads"] // 2, VLM_KW["num_kv_heads"] // 2)
+    layers = VLM_KW["num_layers"]
+    for r in ranks:
+        for name in ("router", "session"):
+            run = r["vlm"][name]
+            assert run["done"] and run["streams"] == want, name
+            assert sorted(set(run["homes"])) == [0, 1]
+            assert run["homes"] == r["vlm"]["router"]["homes"]
+            assert run["traces"] == [1, 1] and run["heads"] == heads
+            c = run["counts"]
+            assert c["attn_out"] == c["mlp_out"] == layers * c["tokens"] > 0

@@ -464,16 +464,14 @@ def test_submit_validation_and_backpressure(weights):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"planner": ()}, "item 12"),
-    ({"mesh": {"pod": 1, "data": 1, "model": 1}}, "item 11")])
+    ({"planner": ()}, "item 12")])
 def test_unported_engine_features_raise(weights, kw, item):
-    """What is still missing raises naming its ROADMAP.md item: a mesh
-    with an axis beside "data" and "model" (tensor-parallel serving of
-    every family on a ("data", "model") mesh is ported:
-    tests/test_torch_tp.py). ``from_plan``, the planner's entry point,
-    is ported: a one-chip plan's session serves the engine's streams
-    (speculative decode, the earlier case here, is ported too; so are
-    ``dryrun`` and ``lower``: tests/test_torch_dryrun.py)."""
+    """What is still missing raises naming its ROADMAP.md item.
+    ``from_plan``, the planner's entry point, is ported: a one-chip plan's
+    session serves the engine's streams (speculative decode, the earlier
+    case here, is ported too; so are ``dryrun`` and ``lower``:
+    tests/test_torch_dryrun.py; and serving on a ("pod", "data", "model")
+    mesh: ``test_one_pod_mesh_serves_the_streams_without_pod``)."""
     from repro_torch.api import plan
     from repro_torch.configs.base import ShapeConfig
     _, _, params = weights
@@ -502,6 +500,30 @@ def _serve_session(eng, prompts, new):
     for i, p in enumerate(prompts):
         eng.submit(i, p, max_new=new)
     return {i: list(r.out) for i, r in eng.run().items()}
+
+
+def test_one_pod_mesh_serves_the_streams_without_pod(weights, tmp_path):
+    """A ("pod", "data", "model") = (1, 1, 1) mesh over a one-rank gloo
+    group: the engine serves its one row, with the streams of the
+    ("data", "model") = (1, 1) mesh and of no mesh; a mesh with an axis
+    beside those three raises ValueError naming the axes."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    _, _, params = weights
+    prompts = _prompts(0, (5, 23))
+    want = _serve(params, prompts, 3)[0]
+    got = {}
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        for axes in (("pod", "data", "model"), ("data", "model")):
+            mesh = make_mesh((1,) * len(axes), axes, device_type="cpu")
+            got[axes] = _serve(params, prompts, 3, mesh=mesh)[0]
+    finally:
+        dist.destroy_process_group()
+    assert got[("pod", "data", "model")] == got[("data", "model")] == want
+    with pytest.raises(ValueError, match="'pipe'"):
+        ServeEngine(CFG, params, mesh={"pipe": 1, "data": 1, "model": 1})
 
 
 def test_unported_requests_and_families_raise(weights):

@@ -1019,12 +1019,21 @@ def _session_rank(rank, world):
         except NotImplementedError as e:
             refused[family] = str(e)
     out["built"] = built
-    # a mesh with a third axis
+    # a one-pod ("pod", "data", "model") mesh: the engine serves its one
+    # row; an axis beside those three is refused
+    eng = ServeEngine(cfg, init_params(cfg, device="cpu", seed=0),
+                      mesh=make_mesh((1, 1, world), ("pod", "data", "model"),
+                                     device_type="cpu"),
+                      slots=2, max_len=64)
+    for i, p in enumerate(prompts):
+        eng.submit(i, p, max_new=4)
+    out["pod"] = ({i: list(r.out) for i, r in eng.run().items()}, eng.tp,
+                  dict(eng._rank.counts))
     try:
         ServeEngine(cfg, init_params(cfg, device="cpu", seed=0),
-                    mesh={"pod": 1, "data": 1, "model": world})
-    except NotImplementedError as e:
-        refused["pod"] = str(e)
+                    mesh={"pipe": 1, "data": 1, "model": world})
+    except ValueError as e:
+        refused["pipe"] = str(e)
     # SSD heads that do not split over the ranks
     odd = cfg.with_(arch_type="ssm", ssm_heads=3, ssm_head_dim=16,
                     ssm_state=8, ssm_chunk=16)
@@ -1574,8 +1583,10 @@ def test_tp2_forward_has_two_all_reduces_a_layer(model_runs):
 
 def test_tp_refusals(model_runs):
     """A mesh larger than the process group raises ValueError with the
-    count; MoE, audio, SSM and VLM engines build on a mesh, while a mesh
-    with a third axis raises naming item 11; an engine under FSDP and
+    count; MoE, audio, SSM and VLM engines build on a mesh; a one-pod
+    ("pod", "data", "model") mesh serves the streams and collectives of
+    the ("data", "model") engine, while a mesh with another axis
+    ("pipe") raises ValueError naming the axes; an engine under FSDP and
     sequence parallelism serves the Megatron layout (the streams, blocks
     and collectives of one without them); on a CUDA device a
     kernel that refuses a rank's shape refuses at construction; ranks
@@ -1589,7 +1600,13 @@ def test_tp_refusals(model_runs):
     _, _, session = model_runs
     refused = session[0]["refused"]
     assert "needs 4 ranks" in refused["mesh"] and "has 2" in refused["mesh"]
-    assert "item 11" in refused["pod"] and "'pod'" in refused["pod"]
+    assert "'pipe'" in refused["pipe"] and "'pod'" in refused["pipe"]
+    # a one-pod mesh serves the streams, with the collectives, of the
+    # ("data", "model") engine on the same weights
+    for r in session:
+        streams, tp_n, counts = r["pod"]
+        plain = r["flags"][False]
+        assert tp_n == 2 and streams == plain[0] and counts == plain[2]
     # fsdp and seq_parallel serve the Megatron layout: the streams, the
     # blocks and the collectives of the engine without them
     for r in session:

@@ -80,8 +80,9 @@ with ZeRO-1, (2, 2, 1): the batch rows, the loss normaliser and the
 gradient sums over pod x data, ZeRO-1's blocks over "data" alone; and a
 config of 6 query heads at (1, 4) (``Rank.whole_heads``: every rank runs
 all six, with and without SP). Each is held to JAX's unsharded step as
-above. On the (2, 2) mesh and both pod meshes each rank also counts its
-real step (``launch/roofline.py::Counter``), and ``Session.lower`` of
+above. The olmoe smoke trains at (2, 1, 2) too, on the batch that drops
+entries: its capacity split over pod x data. On the (2, 2) mesh and the
+pod meshes each rank also counts its real step (``launch/roofline.py::Counter``), and ``Session.lower`` of
 the same step as that rank on meta (a "cpu" session, here in the test's
 process) must count the same FLOPs, bytes and collectives by label,
 exactly.
@@ -200,6 +201,10 @@ CASES = {
     "qwen pod 2x1x2": ("qwen3-14b", (2, 1, 2), {}, 16.0, "uniform", 1),
     "qwen pod 2x2x1": ("qwen3-14b", (2, 2, 1), dict(zero1=True), 16.0,
                        "uniform", 1),
+    # the MoE's capacity split over pod x data, with drops: global slots
+    # still decide which entries an expert keeps
+    "olmoe pod 2x1x2 drops": ("olmoe-1b-7b", (2, 1, 2), {}, 1.25, "skewed",
+                              1),
     # 6 query heads over tp 4: every rank runs all of them
     "qwen6 1x4": (QWEN6, (1, 4), {}, 16.0, "uniform", 1),
     "qwen6 1x4 sp": (QWEN6, (1, 4), dict(seq_parallel=True), 16.0,
@@ -207,7 +212,8 @@ CASES = {
 }
 
 #: the cases each rank also counts, held to ``Session.lower`` on meta
-COUNTED = ("qwen 2x2", "qwen pod 2x1x2", "qwen pod 2x2x1")
+COUNTED = ("qwen 2x2", "qwen pod 2x1x2", "qwen pod 2x2x1",
+           "olmoe pod 2x1x2 drops")
 
 #: the batches: 4 x 64 tokens over the whole vocabulary, and over its
 #: first 4 ids (the router sends them to few experts: at the default
@@ -797,6 +803,13 @@ def test_collectives_by_label(spawned):
         m = r["cases"]["olmoe 2x2"]["counts"]
         assert m["moe_counts"] == m["moe_out"] == m["moe_in.grad"] == layers
         assert "moe_gate.grad" not in m
+        # each data rank's capacity slice: the dispatch buffer's
+        # reduce-scatter and the products' gather, and their backward
+        for case in ("olmoe 2x2", "olmoe 2x2 tie", "olmoe pod 2x1x2 drops"):
+            c = r["cases"][case]["counts"]
+            assert c["moe_cap"] == c["moe_cap_out"] == c["moe_cap.grad"] \
+                == c["moe_cap_out.grad"] == layers, case
+        assert "moe_cap" not in r["cases"]["olmoe 1x4"]["counts"]
         # TP inside each expert: one (T, d) sum after the gates forward,
         # and backward the experts' input and the gates summed
         t = r["cases"]["olmoe 2x2 tie"]["counts"]
@@ -839,6 +852,9 @@ def test_dryrun_counts_what_a_rank_issues(spawned, case):
             assert real["collectives"]["dp_grads"]["axis"] == tp.BATCH
             if CASES[case][1][1] > 1:
                 assert real["collectives"]["zero_params"]["axis"] == "data"
+        if CASES[case][0] == "olmoe-1b-7b":
+            for what in ("moe_cap", "moe_cap_out", "moe_counts"):
+                assert real["collectives"][what]["axis"] == tp.BATCH
 
 
 # ----------------------------------------- Session, launcher, checkpoints
